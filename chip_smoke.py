@@ -2,16 +2,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the TiTok-B tokenizer served over HTTP
-(images → /encode → indices → /decode → images) at the flagship width
-(image 128, patch 16, 256 latent tokens, codebook 2048 × 12, ViT-B encoder
-and decoder, S = 320), with random weights from a seed. Phases, one JSON
-line each:
+Drives the port's two main paths at the flagship width (image 128, patch
+16, 256 latent tokens, codebook 2048 × 12, ViT-B encoder and decoder,
+S = 320), with random weights from a seed: the TiTok-B tokenizer served over
+HTTP (images → /encode → indices → /decode → images), and the flagship
+TiTok-B training step at bs 64 with the frozen ConvNeXt-S perceptual loss.
+Phases, one JSON line each:
 
   1. device  — fails without CUDA; card name and power limit; TF32 off;
-  2. build   — compiles the CUDA kernels from ``vit_tpu_torch/csrc``;
+  2. build   — compiles the CUDA kernels from ``vit_tpu_torch/csrc``, one
+               nvcc per source in parallel; registers and spills per kernel;
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at the slice's shapes and a few edge shapes, with timings;
+               at the paths' shapes and a few edge shapes, with timings;
   4. slice   — export → load → HTTP server; concurrent /encode requests,
                /decode of the indices; checks shapes, ranges, a 400, that
                every kernel launched during those requests, that the served
@@ -19,7 +21,14 @@ line each:
                weights run through the plain versions agree: latents and
                images within bf16 noise, every differing code a near-tie;
   5. timing  — encode and decode latency per request and images/s at bs 8
-               and bs 64.
+               and bs 64;
+  6. train   — the flagship step (TiTok-B, bs 64, perceptual loss, clip,
+               AdamW with a bf16 first moment): the launches of one step
+               (K1 24, K2 24, K3 66, K4 33, K5 1); the same first step from
+               a deep copy through the plain versions, loss, perceptual loss
+               and gradient norm within bf16 noise; 20 steps on one batch
+               with a short warmup lower the recon loss; images/s and peak
+               memory with the kernels and with the plain versions.
 
 Then the kernels' summary line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -51,15 +60,27 @@ sys.path.insert(0, str(ROOT))
 
 from vit_tpu_torch.kernels import _build  # noqa: E402
 from vit_tpu_torch.kernels import attention as k_attn  # noqa: E402
+from vit_tpu_torch.kernels import convnext_block as k_cnx  # noqa: E402
 from vit_tpu_torch.kernels import vq as k_vq  # noqa: E402
+from vit_tpu_torch.losses.perceptual import ConvNeXt, PerceptualLoss  # noqa: E402
 from vit_tpu_torch.models.titok import TiTok, TiTokConfig  # noqa: E402
 from vit_tpu_torch.serve.export import export_tokenizer, load_exported  # noqa: E402
 from vit_tpu_torch.serve.server import make_server  # noqa: E402
-from vit_tpu_torch.utils.init import init_params_  # noqa: E402
+from vit_tpu_torch.train.optim import make_optimizer  # noqa: E402
+from vit_tpu_torch.train.state import TrainState  # noqa: E402
+from vit_tpu_torch.train.step import make_tokenizer_train_step  # noqa: E402
+from vit_tpu_torch.utils.init import init_convnext_, init_params_  # noqa: E402
 
 FLAGSHIP = dict(image_size=128, patch_size=16, latent_tokens=256,
                 codebook_size=2048, latent_dim=12, transformer="B")
 K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3   # bf16 p is rounded at other places
+K1_STATS_REL = 1e-4   # fp32 m and l: the same products summed in another order
+# bf16 outputs of K2, K3, K4 against their plain versions, relative to the
+# largest |plain| value (max) and to the mean |plain| value (mean): the
+# kernels round the same fp32 values to bf16 at the same points, but an fp32
+# value one ulp apart rounds one bf16 ulp (2^-8 relative) the other way, and
+# that difference travels through the next product.
+BWD_MAX_REL, BWD_MEAN_REL = 2e-2, 1e-2
 K5_TIE_GAP = 1e-6                      # fp32 sums in another order
 # Kernels vs plain versions through the whole bf16 model: one ulp of
 # difference in attention spreads through the residual stream's bf16
@@ -68,6 +89,18 @@ K5_TIE_GAP = 1e-6                      # fp32 sums in another order
 # before or after the bf16 cast) agree on 98.3% of codes.
 MAX_REL_ERR = 2e-2
 MIN_INDEX_AGREEMENT = 0.95
+# The first training step with the kernels and through the plain versions,
+# from the same weights and batch: the bf16 forward differs at ulp level
+# (above), so codes may flip and move the quantizer's loss and the
+# codebook's gradient. Measured on an H100 with these weights: losses 1.8e-5
+# and the gradient norm 7.4e-6 apart; the bounds leave room for code flips.
+STEP_LOSS_REL, STEP_GRAD_NORM_REL = 1e-3, 1e-2
+TRAIN_BS = 64
+# (stage, blocks, rows at bs 64, C) of ConvNeXt-S at 224: the fused tails
+CNX_STAGES = ((0, 3, TRAIN_BS * 56 * 56, 96), (1, 3, TRAIN_BS * 28 * 28, 192),
+              (2, 27, TRAIN_BS * 14 * 14, 384))
+STEP_LAUNCHES = dict(attention_packed_fwd=24, attention_packed_bwd=24,
+                     convnext_tail_fwd=66, convnext_tail_bwd=33, vq_nearest=1)
 
 
 def emit(phase: str, **kw) -> None:
@@ -108,27 +141,49 @@ def host_median_ms(fn, reps: int = 10) -> float:
 
 
 def reset_launches() -> None:
-    k_attn.launches = 0
+    k_attn.launches = k_attn.bwd_launches = 0
+    k_cnx.launches = k_cnx.bwd_launches = 0
     k_vq.launches = 0
+
+
+def read_launches() -> dict:
+    return dict(attention_packed_fwd=k_attn.launches,
+                attention_packed_bwd=k_attn.bwd_launches,
+                convnext_tail_fwd=k_cnx.launches,
+                convnext_tail_bwd=k_cnx.bwd_launches,
+                vq_nearest=k_vq.launches)
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's two kernel call sites to the kernels' plain
-    versions, on whatever device the tensors are: the reference run."""
-    import vit_tpu_torch.ops.attention as ops_attn
+    """Route every kernel call site to the kernel's plain version, on
+    whatever device the tensors are: the reference run. The autograd
+    Functions look the kernels up in their modules when they run, so the
+    forward, the backward and inference all follow."""
     import vit_tpu_torch.quantize.vq as quant_vq
 
-    def attention_plain(qkv, n_heads, *, causal=False, qkv_bias=None):
-        return k_attn.flash_attention_packed_ref(qkv, qkv_bias, n_heads, causal)
-
-    saved = ops_attn.flash_attention_packed, quant_vq.nearest_code
-    ops_attn.flash_attention_packed = attention_plain
-    quant_vq.nearest_code = k_vq.nearest_code_ref
+    routes = [(k_attn, "attention_packed_fwd", k_attn.attention_packed_fwd_ref),
+              (k_attn, "attention_packed_bwd", k_attn.attention_packed_bwd_ref),
+              (k_cnx, "convnext_tail_fwd", k_cnx.convnext_tail_fwd_ref),
+              (k_cnx, "convnext_tail_bwd", k_cnx.convnext_tail_bwd_ref),
+              (quant_vq, "nearest_code", k_vq.nearest_code_ref)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
+    for mod, name, plain in routes:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        ops_attn.flash_attention_packed, quant_vq.nearest_code = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def rel_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """max |Δ| / max |ref| and mean |Δ| / mean |ref|, in fp32."""
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    return dict(max_abs=diff.max().item(),
+                max_rel=(diff.max() / mag.max().clamp_min(1e-30)).item(),
+                mean_rel=(diff.mean() / mag.mean().clamp_min(1e-30)).item())
 
 
 def post(url: str, arr: np.ndarray) -> np.ndarray:
@@ -173,14 +228,21 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     lib = _build.load()
-    emit("build", seconds=time.perf_counter() - t0, library=Path(lib._name).name)
+    seconds = time.perf_counter() - t0
+    log = Path(lib._name + ".log")
+    ptxas = [line.strip() for line in
+             (log.read_text().splitlines() if log.exists() else [])
+             if "registers" in line or "spill" in line
+             or "Compiling entry" in line]
+    emit("build", seconds=seconds, library=Path(lib._name).name, ptxas=ptxas)
 
 
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
 
-    # K1: bf16 with bias; the slice's shape, a ragged causal tile, longest S
+    # K1: bf16 with bias; the slice's shape, a ragged causal tile, longest
+    # S. With stats the output must be the same bits, m and l fp32-close.
     k1_max, k1_rows = 0.0, []
     for b, s, causal in [(8, 320, False), (3, 77, True), (2, 768, False)]:
         h, width = 12, 768
@@ -189,15 +251,25 @@ def phase_kernels() -> dict:
         bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
         out = k_attn.flash_attention_packed(qkv, h, causal=causal,
                                             qkv_bias=bias)
+        out_s, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
+                                                  emit_stats=True)
         torch.cuda.synchronize()
-        ref = k_attn.flash_attention_packed_ref(qkv, bias, h, causal)
+        ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(
+            qkv, bias, h, causal, emit_stats=True)
         diff = (out.float() - ref.float()).abs()
         row = dict(B=b, S=s, H=h, causal=causal, max_abs=diff.max().item(),
-                   mean_abs=diff.mean().item())
+                   mean_abs=diff.mean().item(),
+                   stats_out_identical=bool(torch.equal(out, out_s)),
+                   m_rel=((m - m_ref).abs().max()
+                          / m_ref.abs().max()).item(),
+                   l_rel=((l - l_ref).abs() / l_ref).max().item())
         k1_rows.append(row)
         require(bool(torch.isfinite(out).all()), f"K1 non-finite at {row}")
         require(row["max_abs"] <= K1_MAX_ABS and row["mean_abs"] <= K1_MEAN_ABS,
                 f"K1 disagrees with its plain version: {row}")
+        require(row["stats_out_identical"] and row["m_rel"] <= K1_STATS_REL
+                and row["l_rel"] <= K1_STATS_REL,
+                f"K1's statistics disagree with the plain version: {row}")
         k1_max = max(k1_max, row["max_abs"])
     times = {}
     for bs in (8, 64):
@@ -205,18 +277,116 @@ def phase_kernels() -> dict:
                           generator=gen).bfloat16()
         bias = torch.randn(3 * 768, device="cuda", generator=gen)
         times[bs] = (
-            median_ms(lambda: k_attn.flash_attention_packed(
-                qkv, 12, qkv_bias=bias)),
-            median_ms(lambda: k_attn.flash_attention_packed_ref(
-                qkv, bias, 12, False)))
+            median_ms(lambda: k_attn.attention_packed_fwd(qkv, bias, 12,
+                                                          False)),
+            median_ms(lambda: k_attn.attention_packed_fwd(
+                qkv, bias, 12, False, emit_stats=True)),
+            median_ms(lambda: k_attn.attention_packed_fwd_ref(
+                qkv, bias, 12, False, emit_stats=True)))
     emit("kernel", name="attention_packed_fwd", parity=k1_rows,
-         tolerance=dict(max_abs=K1_MAX_ABS, mean_abs=K1_MEAN_ABS),
-         ms_bs8=times[8][0], plain_ms_bs8=times[8][1],
-         ms_bs64=times[64][0], plain_ms_bs64=times[64][1],
+         tolerance=dict(max_abs=K1_MAX_ABS, mean_abs=K1_MEAN_ABS,
+                        stats_rel=K1_STATS_REL),
+         ms_bs8=times[8][0], stats_ms_bs8=times[8][1],
+         plain_ms_bs8=times[8][2], ms_bs64=times[64][0],
+         stats_ms_bs64=times[64][1], plain_ms_bs64=times[64][2],
          shape="(bs, S 320, 3·768) bf16, 12 heads")
     summary["attention_packed_fwd"] = dict(max_abs_err=k1_max,
-                                           ms=times[8][0],
-                                           plain_ms=times[8][1])
+                                           ms=times[64][1],
+                                           plain_ms=times[64][2])
+
+    # K2: the flagship step's shape, a ragged causal one, the longest S, and
+    # S not a multiple of 8; (m, l) from K1, the same for kernel and plain.
+    k2_max, k2_rows = 0.0, []
+    for b, s, causal in [(64, 320, False), (3, 77, True), (2, 768, False),
+                         (2, 130, True)]:
+        h, width = 12, 768
+        qkv = torch.randn(b, s, 3 * width, device="cuda",
+                          generator=gen).bfloat16()
+        bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
+        dout = torch.randn(b, s, width, device="cuda", generator=gen).bfloat16()
+        _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
+                                              emit_stats=True)
+        dqkv, dbias = k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h,
+                                                  causal)
+        torch.cuda.synchronize()
+        dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
+            qkv, bias, dout, m, l, h, causal)
+        row = dict(B=b, S=s, H=h, causal=causal,
+                   dqkv=rel_errors(dqkv, dqkv_ref),
+                   dbias=rel_errors(dbias, dbias_ref))
+        k2_rows.append(row)
+        require(bool(torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()),
+                f"K2 non-finite at {row}")
+        for key in ("dqkv", "dbias"):
+            require(row[key]["max_rel"] <= BWD_MAX_REL
+                    and row[key]["mean_rel"] <= BWD_MEAN_REL,
+                    f"K2 disagrees with its plain version: {row}")
+        k2_max = max(k2_max, row["dqkv"]["max_abs"])
+    b, s = TRAIN_BS, 320
+    qkv = torch.randn(b, s, 3 * 768, device="cuda", generator=gen).bfloat16()
+    bias = torch.randn(3 * 768, device="cuda", generator=gen)
+    dout = torch.randn(b, s, 768, device="cuda", generator=gen).bfloat16()
+    _, m, l = k_attn.attention_packed_fwd(qkv, bias, 12, False, emit_stats=True)
+    k2_ms = median_ms(lambda: k_attn.attention_packed_bwd(qkv, bias, dout, m,
+                                                          l, 12, False))
+    k2_plain = median_ms(lambda: k_attn.attention_packed_bwd_ref(
+        qkv, bias, dout, m, l, 12, False))
+    emit("kernel", name="attention_packed_bwd", parity=k2_rows,
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         ms_bs64=k2_ms, plain_ms_bs64=k2_plain,
+         shape="(64, S 320, 3·768) bf16, 12 heads")
+    summary["attention_packed_bwd"] = dict(max_abs_err=k2_max, ms=k2_ms,
+                                           plain_ms=k2_plain)
+
+    # K3 / K4: the three fused stages of ConvNeXt-S at bs 64, and ragged N.
+    # γ of order 1 (not the init's 1e-6) so the tail shows in y.
+    def tail_inputs(n, c):
+        def r(*shape, scale=1.0):
+            return scale * torch.randn(*shape, device="cuda", generator=gen)
+        h = r(n, c).bfloat16()
+        x = r(n, c).bfloat16()
+        dy = r(n, c).bfloat16()
+        params = (1.0 + r(c, scale=0.1), r(c, scale=0.1),
+                  r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1),
+                  r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1),
+                  r(c, scale=1.0))
+        return h, x, dy, params
+
+    tails = {"convnext_tail_fwd": dict(rows=[], max=0.0, ms={}, plain_ms={}),
+             "convnext_tail_bwd": dict(rows=[], max=0.0, ms={}, plain_ms={})}
+    shapes = [(n, c) for _, _, n, c in CNX_STAGES] + [(1000, 96), (777, 384)]
+    for n, c in shapes:
+        h, x, dy, (lns, lnb, w1, b1, w2, b2, gamma) = tail_inputs(n, c)
+        fwd_args = (h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6)
+        bwd_args = (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)
+        runs = {"convnext_tail_fwd": (k_cnx.convnext_tail_fwd,
+                                      k_cnx.convnext_tail_fwd_ref, fwd_args),
+                "convnext_tail_bwd": (k_cnx.convnext_tail_bwd,
+                                      k_cnx.convnext_tail_bwd_ref, bwd_args)}
+        for name, (kernel, plain, args) in runs.items():
+            out = kernel(*args)
+            torch.cuda.synchronize()
+            row = dict(N=n, C=c, **rel_errors(out, plain(*args)))
+            tails[name]["rows"].append(row)
+            require(bool(torch.isfinite(out).all()),
+                    f"{name} non-finite at {row}")
+            require(row["max_rel"] <= BWD_MAX_REL
+                    and row["mean_rel"] <= BWD_MEAN_REL,
+                    f"{name} disagrees with its plain version: {row}")
+            tails[name]["max"] = max(tails[name]["max"], row["max_abs"])
+            if (n, c) in [(n_, c_) for _, _, n_, c_ in CNX_STAGES]:
+                tails[name]["ms"][c] = median_ms(lambda: kernel(*args), 10)
+                tails[name]["plain_ms"][c] = median_ms(lambda: plain(*args), 10)
+        del h, x, dy
+        torch.cuda.empty_cache()
+    for name, t in tails.items():
+        emit("kernel", name=name, parity=t["rows"],
+             tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+             ms_by_C=t["ms"], plain_ms_by_C=t["plain_ms"],
+             shape="(bs 64 · H · W, C) bf16 rows of ConvNeXt-S stages 0-2",
+             summary_shape="C 384, N 12544 (27 of the 33 fused blocks)")
+        summary[name] = dict(max_abs_err=t["max"], ms=t["ms"][384],
+                             plain_ms=t["plain_ms"][384])
 
     # K5: fp32, C 2048, D 12; identical indices except at near-ties
     k5_gap, k5_rows = 0.0, []
@@ -425,6 +595,84 @@ def phase_timing(work: Path, model: TiTok, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_train(model: TiTok, card: str) -> dict:
+    """The flagship training step: launches, kernels vs plain versions,
+    learning on one batch, and throughput. Returns the step's launches."""
+    model = model.cuda().train()
+    net = ConvNeXt(dtype=torch.bfloat16)
+    init_convnext_(net, torch.Generator().manual_seed(1))
+    perceptual = PerceptualLoss(net).cuda()
+    size = model.config.image_size
+    images = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (TRAIN_BS, size, size, 3)).astype(np.float32)).cuda()
+    tx = make_optimizer(1e-4, 5000, 1_000_000, 1e-5, 1e-4, clip_norm=1.0)
+    state = TrainState.create(model, tx)
+    usage = torch.zeros(model.config.codebook_size, device="cuda")
+    plain_model, plain_state, plain_usage = copy.deepcopy((model, state, usage))
+    step = make_tokenizer_train_step(model, perceptual_loss_fn=perceptual)
+    plain_step = make_tokenizer_train_step(plain_model,
+                                           perceptual_loss_fn=perceptual)
+
+    torch.cuda.synchronize()
+    reset_launches()   # the main path's run starts here
+    _, _, metrics, recon = step(state, images, usage)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(launches == STEP_LAUNCHES,
+            f"one train step launched {launches}, expected {STEP_LAUNCHES}")
+    with plain_versions():
+        _, _, plain_metrics, _ = plain_step(plain_state, images, plain_usage)
+    torch.cuda.synchronize()
+    metrics = {k: v.item() for k, v in metrics.items()}
+    plain_metrics = {k: v.item() for k, v in plain_metrics.items()}
+    require(recon.shape == images.shape and bool(torch.isfinite(recon).all()),
+            f"recon {tuple(recon.shape)} is not a finite image batch")
+    require(all(np.isfinite(v) for v in metrics.values()),
+            f"non-finite metrics {metrics}")
+    require(0.0 < metrics["train/codebook_usage"] <= 1.0,
+            f"codebook usage {metrics['train/codebook_usage']}")
+    rel = {k: abs(metrics[k] - plain_metrics[k]) / abs(plain_metrics[k])
+           for k in ("train/loss", "train/perceptual_loss",
+                     "train/grad_norm")}
+    emit("train", what="first step, kernels vs plain versions",
+         launches=launches, metrics=metrics, plain_metrics=plain_metrics,
+         rel_diff=rel, tolerance=dict(loss_rel=STEP_LOSS_REL,
+                                      grad_norm_rel=STEP_GRAD_NORM_REL))
+    require(rel["train/loss"] <= STEP_LOSS_REL
+            and rel["train/perceptual_loss"] <= STEP_LOSS_REL
+            and rel["train/grad_norm"] <= STEP_GRAD_NORM_REL,
+            f"kernel step vs plain step: {rel}")
+
+    # Learning: 20 steps on the same batch with a 2-step warmup.
+    quick = TrainState.create(model, make_optimizer(1e-4, 2, 1_000_000, 1e-5,
+                                                    1e-4, clip_norm=1.0))
+    recon_losses = []
+    for _ in range(20):
+        recon_losses.append(step(quick, images, usage)[2]["train/recon_loss"])
+    recon_losses = torch.stack(recon_losses).tolist()
+    emit("train", what="learning on one batch, lr 1e-4, warmup 2",
+         first_recon_loss=recon_losses[0], last_recon_loss=recon_losses[-1],
+         recon_losses=recon_losses)
+    require(recon_losses[-1] < recon_losses[0],
+            f"recon loss did not fall: {recon_losses[0]} -> {recon_losses[-1]}")
+
+    # Throughput: host clock around synchronised steps, median of 6 after 2.
+    timing = {}
+    for name, st, fn, use, ctx in (
+            ("kernels", quick, step, usage, contextlib.nullcontext),
+            ("plain", plain_state, plain_step, plain_usage, plain_versions)):
+        with ctx():
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_median_ms(
+                lambda: (fn(st, images, use), torch.cuda.synchronize()), 6)
+        timing[name] = dict(step_ms=ms, images_per_s=TRAIN_BS / ms * 1e3,
+                            peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    emit("train", what="throughput at bs 64", card=card, **timing)
+    del plain_model, plain_state, quick, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -438,11 +686,21 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_slice(Path(tmp), model)
         phase_timing(Path(tmp), model, card)
+    train_launches = phase_train(model, card)
+    for name, n in train_launches.items():
+        launches[name] = launches.get(name, 0) + n
 
-    sources = {"attention_packed_fwd": ("vit_tpu_torch/csrc/attention_packed_fwd.cu",
-                                        "vit_tpu/kernels/attention.py:623"),
-               "vq_nearest": ("vit_tpu_torch/csrc/vq_nearest.cu",
-                              "vit_tpu/kernels/vq.py:36")}
+    sources = {
+        "attention_packed_fwd": ("vit_tpu_torch/csrc/attention_packed_fwd.cu",
+                                 "vit_tpu/kernels/attention.py:623"),
+        "attention_packed_bwd": ("vit_tpu_torch/csrc/attention_packed_bwd.cu",
+                                 "vit_tpu/kernels/attention.py:824"),
+        "convnext_tail_fwd": ("vit_tpu_torch/csrc/convnext_tail.cu",
+                              "vit_tpu/kernels/convnext_block.py:89"),
+        "convnext_tail_bwd": ("vit_tpu_torch/csrc/convnext_tail.cu",
+                              "vit_tpu/kernels/convnext_block.py:109"),
+        "vq_nearest": ("vit_tpu_torch/csrc/vq_nearest.cu",
+                       "vit_tpu/kernels/vq.py:36")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

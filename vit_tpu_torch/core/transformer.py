@@ -7,11 +7,13 @@ and every matmul casts its operands to ``cfg.dtype`` explicitly. The QKV
 projection is applied without its bias, which the attention kernel adds as it
 reads each tile (``kernels/attention.py``).
 
-Ported so far: the unrolled stack's forward with the non-affine LayerNorm and
-no attention output projection (the author's minimal block). Not yet: the
-Bytedance layout (``ln_affine``, ``attn_out_proj``), dropout, remat,
-KV-cache decode, the scanned and pipelined stacks, int8, and the fused-LN
-and fused-FC kernel paths.
+Ported so far: the unrolled stack with the non-affine LayerNorm and no
+attention output projection (the author's minimal block), forward and
+backward. Autograd carries gradients through the explicit casts back to the
+fp32 parameters; attention's backward is the K2 kernel and GELU's the flat
+derivative (``ops/gelu.py``). Not yet: the Bytedance layout (``ln_affine``,
+``attn_out_proj``), dropout, remat, KV-cache decode, the scanned and
+pipelined stacks, int8, and the fused-LN and fused-FC kernel paths.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ def _check_supported(cfg: TransformerConfig) -> None:
             "the Bytedance block layout (ln_affine, attn_out_proj) is not "
             "ported yet")
     if cfg.dropout > 0.0:
-        raise NotImplementedError("dropout is a training feature, not ported "
-                                  "yet")
+        raise NotImplementedError("dropout (and its in-kernel attention "
+                                  "hash) is not ported yet")
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype

@@ -10,6 +10,12 @@
 // and the result is divided by the row sum l at the end (:699-715).
 // Key padding (any S) and the causal mask follow :648-654.
 //
+// With m_out/l_out non-null it also writes the row max m and the row sum l,
+// fp32, as two (B, H, S) arrays: the residuals K2 (attention_packed_bwd.cu)
+// rebuilds p from (:731-744, without the TPU's 8-lane-replicated layout). The
+// two-pass design has both exactly at the end, so the stats cost one store per
+// row and nothing when they are not asked for.
+//
 // Not the TPU's blocking: one block per (64-row q tile, head, batch) of four
 // warps, each warp owning 16 q rows, looping over 64-row K/V tiles, so any S
 // works; the TPU kernel holds the whole (S, S) score plane instead. The loop
@@ -35,86 +41,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kHeadDim = 64;
-constexpr int kBlockQ = 64;   // q rows per block: 4 warps x 16 rows
-constexpr int kBlockK = 64;   // k/v rows per inner tile
-constexpr int kThreads = 128;
-// Shared-memory row pitch in bf16: 72 elements = 144 bytes, so the 8 row groups
-// of a fragment load hit 8 distinct 4-bank groups.
-constexpr int kPitch = kHeadDim + 8;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy a 64 x 64 tile of one head's q, k or v into shared memory, adding the
-// bias (rounded to bf16, as the TPU kernel does) and multiplying by `scale`
-// (a power of two, exact). Rows at or past `rows` are written as zeros, so
-// padded V rows contribute 0 * 0 and never NaN. kTranspose stores the tile as
-// [column][row] (V, so that PV's B-operand fragments are contiguous pairs).
-template <bool kTranspose>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* g,
-                                          const bf16* bias, int rows,
-                                          size_t row_stride, float scale) {
-  for (int i = threadIdx.x; i < kBlockK * (kHeadDim / 8); i += kThreads) {
-    const int r = i / (kHeadDim / 8);
-    const int c = (i % (kHeadDim / 8)) * 8;
-    const bool valid = r < rows;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (valid) raw = *reinterpret_cast<const uint4*>(g + r * row_stride + c);
-    const uint4 braw = *reinterpret_cast<const uint4*>(bias + c);
-    const bf16* x = reinterpret_cast<const bf16*>(&raw);
-    const bf16* bb = reinterpret_cast<const bf16*>(&braw);
-    uint4 packed;
-    bf16* y = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16 biased =
-          __float2bfloat16(__bfloat162float(x[j]) + __bfloat162float(bb[j]));
-      y[j] = valid ? __float2bfloat16(__bfloat162float(biased) * scale)
-                   : __float2bfloat16(0.0f);
-    }
-    if (kTranspose) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sm[(c + j) * kPitch + r] = y[j];
-    } else {
-      *reinterpret_cast<uint4*>(sm + r * kPitch + c) = packed;
-    }
-  }
-}
+using namespace vit;
 
 // s = q kᵀ for a warp's 16 rows and one 64-key tile (8 column tiles of 8
 // keys), with the key-padding and causal masks applied as -inf.
-__device__ __forceinline__ void scores(float (&s)[kBlockK / 8][4],
+__device__ __forceinline__ void scores(float (&s)[kTile / 8][4],
                                        const uint32_t (&qf)[kHeadDim / 16][4],
                                        const bf16* sK, int k0, int row0, int S,
                                        int causal, int g, int t) {
 #pragma unroll
-  for (int nt = 0; nt < kBlockK / 8; ++nt) {
+  for (int nt = 0; nt < kTile / 8; ++nt) {
     s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-    const bf16* kr = sK + (nt * 8 + g) * kPitch + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks)
-      mma_16816(s[nt], qf[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
+    mma_row<kHeadDim / 16>(s[nt], qf, sK, kPitch, nt * 8, g, t);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = k0 + nt * 8 + 2 * t + (e & 1);
@@ -127,12 +69,14 @@ __device__ __forceinline__ void scores(float (&s)[kBlockK / 8][4],
 __global__ void __launch_bounds__(kThreads)
 attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
                             const bf16* __restrict__ bias,
-                            bf16* __restrict__ out, int S, int H, int causal) {
-  __shared__ __align__(16) bf16 sQ[kBlockQ * kPitch];
-  __shared__ __align__(16) bf16 sK[kBlockK * kPitch];
+                            bf16* __restrict__ out, float* __restrict__ m_out,
+                            float* __restrict__ l_out, int S, int H,
+                            int causal) {
+  __shared__ __align__(16) bf16 sQ[kTile * kPitch];
+  __shared__ __align__(16) bf16 sK[kTile * kPitch];
   __shared__ __align__(16) bf16 sVt[kHeadDim * kPitch];  // [d][kv]
 
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = H * kHeadDim;
@@ -150,31 +94,24 @@ attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
 
   // This warp's 16 q rows as A fragments, one per 16-wide step of head_dim.
   uint32_t qf[kHeadDim / 16][4];
-  const bf16* qw = sQ + warp * 16 * kPitch;
-#pragma unroll
-  for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-    qf[ks][0] = ld32(qw + g * kPitch + ks * 16 + 2 * t);
-    qf[ks][1] = ld32(qw + (g + 8) * kPitch + ks * 16 + 2 * t);
-    qf[ks][2] = ld32(qw + g * kPitch + ks * 16 + 2 * t + 8);
-    qf[ks][3] = ld32(qw + (g + 8) * kPitch + ks * 16 + 2 * t + 8);
-  }
+  load_a_rows(qf, sQ + warp * 16 * kPitch, g, t);
 
   // Each thread holds rows row0 and row0 + 8 of the warp's 16.
   const int row0 = q0 + warp * 16 + g;
-  const int kv_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int kv_end = causal ? min(S, q0 + kTile) : S;
 
   // Pass 1: the exact row max over every key, as the TPU kernel's full-row
   // softmax has it, so that p is rounded to bf16 at the same points.
   float m[2] = {-INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // every warp is done with the previous K tile
     load_tile<false>(sK, base + k0 * row_stride + D + h * kHeadDim,
                      bias + D + h * kHeadDim, S - k0, row_stride, 1.0f);
     __syncthreads();
-    float s[kBlockK / 8][4];
+    float s[kTile / 8][4];
     scores(s, qf, sK, k0, row0, S, causal, g, t);
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+    for (int nt = 0; nt < kTile / 8; ++nt) {
       m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
       m[1] = fmaxf(m[1], fmaxf(s[nt][2], s[nt][3]));
     }
@@ -194,21 +131,21 @@ attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
   for (int nt = 0; nt < kHeadDim / 8; ++nt)
     o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.0f;
   float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<false>(sK, base + k0 * row_stride + D + h * kHeadDim,
                      bias + D + h * kHeadDim, S - k0, row_stride, 1.0f);
     load_tile<true>(sVt, base + k0 * row_stride + 2 * D + h * kHeadDim,
                     bias + 2 * D + h * kHeadDim, S - k0, row_stride, 1.0f);
     __syncthreads();
-    float s[kBlockK / 8][4];
+    float s[kTile / 8][4];
     scores(s, qf, sK, k0, row0, S, causal, g, t);
 
     // P goes to bf16 directly in the A-fragment layout: key step j covers
     // score tiles 2j and 2j + 1.
-    uint32_t pf[kBlockK / 16][4];
+    uint32_t pf[kTile / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+    for (int nt = 0; nt < kTile / 8; ++nt) {
       const float p0 = expf(s[nt][0] - m[0]);
       const float p1 = expf(s[nt][1] - m[0]);
       const float p2 = expf(s[nt][2] - m[1]);
@@ -221,12 +158,8 @@ attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
 
     // o += P v: B fragments are (key, d) pairs read from the transposed V.
 #pragma unroll
-    for (int nt = 0; nt < kHeadDim / 8; ++nt) {
-      const bf16* vr = sVt + (nt * 8 + g) * kPitch + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < kBlockK / 16; ++ks)
-        mma_16816(o[nt], pf[ks], ld32(vr + ks * 16), ld32(vr + ks * 16 + 8));
-    }
+    for (int nt = 0; nt < kHeadDim / 8; ++nt)
+      mma_row<kTile / 16>(o[nt], pf, sVt, kPitch, nt * 8, g, t);
   }
 
 #pragma unroll
@@ -244,21 +177,28 @@ attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
       *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t) =
           pack_bf16x2(o[nt][2 * r] / l[r], o[nt][2 * r + 1] / l[r]);
     }
+    if (m_out != nullptr && t == 0) {
+      const size_t i = (static_cast<size_t>(b) * H + h) * S + row;
+      m_out[i] = m[r];
+      l_out[i] = l[r];
+    }
   }
 }
 
 }  // namespace
 
 // qkv: (B, S, 3·H·64) bf16, contiguous, 16-byte aligned; bias: (3·H·64,) bf16;
-// out: (B, S, H·64) bf16. Returns cudaGetLastError() after the launch.
+// out: (B, S, H·64) bf16; m, l: (B, H, S) fp32, or both null for no stats.
+// Returns cudaGetLastError() after the launch.
 extern "C" int attention_packed_fwd(const void* qkv, const void* bias, void* out,
-                                    int B, int S, int H, int causal,
-                                    void* stream) {
+                                    void* m, void* l, int B, int S, int H,
+                                    int causal, void* stream) {
   if (B == 0 || S == 0) return 0;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
   attention_packed_fwd_kernel<<<grid, kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(out), S, H, causal);
+      static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
+      S, H, causal);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,10 @@
 fp32 throughout, whatever the surrounding compute dtype. The index comes from
 the nearest-code kernel (``kernels/vq.py``) on the L2-normalised latent; the
 quantised vector is looked up in the UN-normalised codebook, as the reference
-does. Codebook loss + β·commitment loss and the straight-through estimator
-are kept for parity with the JAX module.
+does. In training the codebook gets its gradient only from the codebook loss,
+and the encoder only through the commitment loss and the straight-through
+estimator (``zn + (q − zn).detach()``), as with the JAX module's
+``stop_gradient``s.
 """
 
 from __future__ import annotations
