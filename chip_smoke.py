@@ -2,33 +2,55 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at the flagship width (image 128, patch
-16, 256 latent tokens, codebook 2048 × 12, ViT-B encoder and decoder,
-S = 320), with random weights from a seed: the TiTok-B tokenizer served over
-HTTP (images → /encode → indices → /decode → images), and the flagship
-TiTok-B training step at bs 64 with the frozen ConvNeXt-S perceptual loss.
-Phases, one JSON line each:
+Drives the port's main paths at full width with random weights from a seed:
+the TiTok-B tokenizer served over HTTP (images → /encode → indices →
+/decode → images; image 128, patch 16, 256 latent tokens, codebook 2048 ×
+12, ViT-B encoder and decoder, S = 320), the flagship TiTok-B training step
+at bs 64 with the frozen ConvNeXt-S perceptual loss, and the VideoGPT-B AR
+prior (16 frames × 64 codes, S = 1024, over a frozen random TiTok-S at
+image 64): its training step at bs 32 and its greedy KV-cache rollout served
+over HTTP. Phases, one JSON line each:
 
-  1. device  — fails without CUDA; card name and power limit; TF32 off;
-  2. build   — compiles the CUDA kernels from ``vit_tpu_torch/csrc``, one
-               nvcc per source in parallel; registers and spills per kernel;
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               at the paths' shapes and a few edge shapes, with timings;
-  4. slice   — export → load → HTTP server; concurrent /encode requests,
-               /decode of the indices; checks shapes, ranges, a 400, that
-               every kernel launched during those requests, that the served
-               codes equal a direct call of the kernels, and that the same
-               weights run through the plain versions agree: latents and
-               images within bf16 noise, every differing code a near-tie;
-  5. timing  — encode and decode latency per request and images/s at bs 8
-               and bs 64;
-  6. train   — the flagship step (TiTok-B, bs 64, perceptual loss, clip,
-               AdamW with a bf16 first moment): the launches of one step
-               (K1 24, K2 24, K3 66, K4 33, K5 1); the same first step from
-               a deep copy through the plain versions, loss, perceptual loss
-               and gradient norm within bf16 noise; 20 steps on one batch
-               with a short warmup lower the recon loss; images/s and peak
-               memory with the kernels and with the plain versions.
+  1. device   — fails without CUDA; card name and power limit; TF32 off;
+  2. build    — compiles the CUDA kernels from ``vit_tpu_torch/csrc``, one
+                nvcc per source in parallel; registers and spills per kernel;
+  3. kernels  — each kernel against its plain PyTorch version on the card,
+                at the paths' shapes and a few edge shapes, with timings, the
+                bound the card's peaks set for the same work, and the time of
+                one PyTorch library call computing the same function where
+                there is one (``F.scaled_dot_product_attention`` for the
+                attention kernels, with the backend it picked);
+  4. slice    — export → load → HTTP server; concurrent /encode requests,
+                /decode of the indices; checks shapes, ranges, a 400, that
+                every kernel launched during those requests, that the served
+                codes equal a direct call of the kernels, and that the same
+                weights run through the plain versions agree: latents and
+                images within bf16 noise, every differing code a near-tie;
+  5. timing   — encode and decode latency per request and images/s at bs 8
+                and bs 64;
+  6. train    — the flagship step (TiTok-B, bs 64, perceptual loss, clip,
+                AdamW with a bf16 first moment): the launches of one step
+                (K1 24, K2 24, K3 66, K4 33, K5 1); the same first step from
+                a deep copy through the plain versions, loss, perceptual loss
+                and gradient norm within bf16 noise; 20 steps on one batch
+                with a short warmup lower the recon loss; images/s and peak
+                memory with the kernels and with the plain versions;
+  7. videogpt_train — the VideoGPT-B step at bs 32 (tokenize 512 frames,
+                next-token CE, AdamW): the launches of one step (K6 12,
+                K7/K8 12, K1 6, K5 1); the tokenizer's codes against the
+                plain versions' (every differing code a near-tie); loss and
+                gradient norm of the first step against the plain versions,
+                on the same codes; 20 steps on one batch lower
+                the loss; step time, tokens/s and peak memory of the full
+                step and of the AR step alone on random tokens; a profile of
+                one step;
+  8. videogpt_rollout — export → load → HTTP /generate at bs 1 and bs 8: 512
+                conditioning codes in, 1024 out, the prefix intact, every
+                code in range, equal to a direct generate call, 12 K6
+                launches per rollout (the prefill); the prefill's logits
+                against the plain versions and the first generated code equal
+                or a near-tie; generated tokens/s per request; the device's
+                busy time in one rollout against the host's.
 
 Then the kernels' summary line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -41,6 +63,7 @@ import contextlib
 import copy
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -52,6 +75,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 if not (ROOT / "vit_tpu_torch" / "__init__.py").exists():
@@ -62,13 +86,20 @@ from vit_tpu_torch.kernels import _build  # noqa: E402
 from vit_tpu_torch.kernels import attention as k_attn  # noqa: E402
 from vit_tpu_torch.kernels import convnext_block as k_cnx  # noqa: E402
 from vit_tpu_torch.kernels import vq as k_vq  # noqa: E402
+from vit_tpu_torch.data.synthetic import SyntheticVideoLoader  # noqa: E402
 from vit_tpu_torch.losses.perceptual import ConvNeXt, PerceptualLoss  # noqa: E402
+from vit_tpu_torch.models.pretrained import FrozenTokenizer  # noqa: E402
 from vit_tpu_torch.models.titok import TiTok, TiTokConfig  # noqa: E402
-from vit_tpu_torch.serve.export import export_tokenizer, load_exported  # noqa: E402
+from vit_tpu_torch.models.videogpt import (VideoGPT,  # noqa: E402
+                                           VideoGPTConfig, generate,
+                                           init_cache)
+from vit_tpu_torch.serve.export import (export_tokenizer,  # noqa: E402
+                                        export_videogpt, load_exported)
 from vit_tpu_torch.serve.server import make_server  # noqa: E402
 from vit_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from vit_tpu_torch.train.state import TrainState  # noqa: E402
-from vit_tpu_torch.train.step import make_tokenizer_train_step  # noqa: E402
+from vit_tpu_torch.train.step import (make_tokenizer_train_step,  # noqa: E402
+                                      make_videogpt_train_step)
 from vit_tpu_torch.utils.init import init_convnext_, init_params_  # noqa: E402
 
 FLAGSHIP = dict(image_size=128, patch_size=16, latent_tokens=256,
@@ -101,7 +132,31 @@ TRAIN_BS = 64
 CNX_STAGES = ((0, 3, TRAIN_BS * 56 * 56, 96), (1, 3, TRAIN_BS * 28 * 28, 192),
               (2, 27, TRAIN_BS * 14 * 14, 384))
 STEP_LAUNCHES = dict(attention_packed_fwd=24, attention_packed_bwd=24,
-                     convnext_tail_fwd=66, convnext_tail_bwd=33, vq_nearest=1)
+                     convnext_tail_fwd=66, convnext_tail_bwd=33, vq_nearest=1,
+                     attention_fwd=0, attention_bwd=0)
+# VideoGPT-B (train_videogpt.py's defaults): 16 frames of 64 codes from a
+# random TiTok-S at image 64, patch 8 (its encoder at S = 128), bs 32.
+VIDEOGPT = dict(frame_size=64, codebook_size=1024, transformer="B",
+                max_frames=16)
+VIDEO_TOKENIZER = dict(image_size=64, patch_size=8, latent_tokens=64,
+                       codebook_size=1024, latent_dim=12, transformer="S")
+VIDEO_BS = 32
+# One step: 12 layers of K6 and K7/K8 (S 1024), 6 encoder layers of K1
+# without statistics (the frozen tokenizer, S 128), one K5 over 32·16·64 codes
+VIDEO_STEP_LAUNCHES = dict(attention_packed_fwd=6, attention_packed_bwd=0,
+                           convnext_tail_fwd=0, convnext_tail_bwd=0,
+                           vq_nearest=1, attention_fwd=12, attention_bwd=12)
+# The prefill's last-position logits with the kernels and through the plain
+# versions: bf16 noise through 12 layers, as the TiTok-B slice's latents.
+PREFILL_MAX_REL = 2e-2
+ROLLOUT_COND, ROLLOUT_GEN = 8, 8    # frames in, frames out
+# Published peaks of one H100 SXM (NVIDIA's data sheet; dense, at 700 W):
+# the bound of a kernel is the larger of its operations over the peak rate
+# for their type and its bytes (each input read once, each output written
+# once) over the memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def emit(phase: str, **kw) -> None:
@@ -143,6 +198,7 @@ def host_median_ms(fn, reps: int = 10) -> float:
 
 def reset_launches() -> None:
     k_attn.launches = k_attn.bwd_launches = 0
+    k_attn.unpacked_launches = k_attn.unpacked_bwd_launches = 0
     k_cnx.launches = k_cnx.bwd_launches = 0
     k_vq.launches = 0
 
@@ -152,7 +208,76 @@ def read_launches() -> dict:
                 attention_packed_bwd=k_attn.bwd_launches,
                 convnext_tail_fwd=k_cnx.launches,
                 convnext_tail_bwd=k_cnx.bwd_launches,
-                vq_nearest=k_vq.launches)
+                vq_nearest=k_vq.launches,
+                attention_fwd=k_attn.unpacked_launches,
+                attention_bwd=k_attn.unpacked_bwd_launches)
+
+
+def bound(flop: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: operations over the peak rate
+    for their type, or bytes over the memory rate, whichever is larger."""
+    ops_ms = flop / peak * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                flop=flop, bytes=nbytes)
+
+
+def attention_bound(b: int, h: int, s: int, causal: bool, backward: bool,
+                    extra_bytes: float = 0.0) -> dict:
+    """Attention over (b, h, s, 64) bf16 operands: 2 products of 2·64 FLOP
+    per unmasked (query, key) pair forward, 5 backward; q, k, v (and dO)
+    read and out (dq, dk, dv) written once in bf16, m and l in fp32."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    tile = b * h * s * 64 * 2
+    stats = 2 * b * h * s * 4
+    if backward:
+        return bound(10 * 64 * pairs * b * h,
+                     4 * tile + stats + 3 * tile + extra_bytes)
+    return bound(4 * 64 * pairs * b * h, 3 * tile + tile + stats + extra_bytes)
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    inputs (torch's own dispatch choice)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
+
+
+def profile_window(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (which ends synchronised):
+    the device's busy time (union of its kernels' intervals) against the
+    host's wall time, and the ops with the most self device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    busy_ms = busy / 1e3
+
+    def self_ms(a):
+        return getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0.0)) / 1e3
+
+    top = sorted(prof.key_averages(), key=self_ms, reverse=True)[:15]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                device_kernels=len(spans),
+                top_self_device_ms=[dict(op=a.key[:80], ms=self_ms(a),
+                                         calls=a.count) for a in top])
 
 
 @contextlib.contextmanager
@@ -165,6 +290,8 @@ def plain_versions():
 
     routes = [(k_attn, "attention_packed_fwd", k_attn.attention_packed_fwd_ref),
               (k_attn, "attention_packed_bwd", k_attn.attention_packed_bwd_ref),
+              (k_attn, "attention_fwd", k_attn.attention_fwd_ref),
+              (k_attn, "attention_bwd", k_attn.attention_bwd_ref),
               (k_cnx, "convnext_tail_fwd", k_cnx.convnext_tail_fwd_ref),
               (k_cnx, "convnext_tail_bwd", k_cnx.convnext_tail_bwd_ref),
               (quant_vq, "nearest_code", k_vq.nearest_code_ref)]
@@ -185,6 +312,31 @@ def rel_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
     return dict(max_abs=diff.max().item(),
                 max_rel=(diff.max() / mag.max().clamp_min(1e-30)).item(),
                 mean_rel=(diff.mean() / mag.mean().clamp_min(1e-30)).item())
+
+
+def code_flips(kernel_lat: torch.Tensor, plain_lat: torch.Tensor,
+               codebook: torch.Tensor, ik: torch.Tensor,
+               ip: torch.Tensor) -> dict:
+    """The tokenizer's codes with the kernels (ik) and through the plain
+    versions (ip), from their latents. Any ulp of difference in attention
+    flips bf16 roundings of the residual stream, so latents differ at bf16
+    level and codes whose two best scores lie closer than that flip. Each
+    disagreement must be such a near-tie: with unit latents zk (kernels) and
+    zp (plain), the plain scores of the two codes differ by at most
+    2·|zk − zp|."""
+    dim = codebook.shape[-1]
+    zk = F.normalize(kernel_lat.double().reshape(-1, dim), dim=-1)
+    zp = F.normalize(plain_lat.double().reshape(-1, dim), dim=-1)
+    e = F.normalize(codebook.double(), dim=-1)
+    ik, ip = ik.reshape(-1).long(), ip.reshape(-1).long()
+    bad = (ik != ip).nonzero().flatten()
+    gap = (zp[bad] * e[ip[bad]]).sum(-1) - (zp[bad] * e[ik[bad]]).sum(-1)
+    slack = 2 * (zk[bad] - zp[bad]).norm(dim=-1) + 1e-6
+    return dict(index_agreement=(ik == ip).double().mean().item(),
+                disagreeing_codes=len(bad),
+                unexplained_disagreements=int((gap > slack).sum()),
+                latent_max_rel_err=((kernel_lat - plain_lat).abs().max()
+                                    / plain_lat.abs().max()).item())
 
 
 def post(url: str, arr: np.ndarray) -> np.ndarray:
@@ -231,10 +383,18 @@ def phase_build() -> None:
     lib = _build.load()
     seconds = time.perf_counter() - t0
     log = Path(lib._name + ".log")
-    ptxas = [line.strip() for line in
-             (log.read_text().splitlines() if log.exists() else [])
-             if "registers" in line or "spill" in line
-             or "Compiling entry" in line]
+    # ptxas's report per kernel, the mangled name cut to the kernel's own
+    # name and its template argument: registers, shared memory, spills
+    ptxas, name = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
+                          r"(?:ILi(\d+)E)?", line)
+        if entry:
+            name = entry.group(1) + (f"<{entry.group(2)}>"
+                                     if entry.group(2) else "")
+        elif name and ("registers" in line or "spill" in line):
+            ptxas[name] = (ptxas.get(name, "") + " "
+                           + line.split(":", 1)[-1].strip()).strip()
     emit("build", seconds=seconds, library=Path(lib._name).name, ptxas=ptxas)
 
 
@@ -243,12 +403,14 @@ def phase_kernels() -> dict:
     summary = {}
 
     # K1: bf16 with bias; the serving and train steps' shapes, a ragged
-    # causal tile, longest S. With stats the output must be the same bits,
-    # m and l fp32-close.
+    # causal tile, longest S, and the VideoGPT step's frozen TiTok-S encode
+    # (bs 32 · 16 frames, S 128, 6 heads, no stats on the path). With stats
+    # the output must be the same bits, m and l fp32-close.
     k1_max, k1_rows = 0.0, []
-    for b, s, causal in [(8, 320, False), (TRAIN_BS, 320, False),
-                         (3, 77, True), (2, 768, False)]:
-        h, width = 12, 768
+    for b, s, h, causal in [(8, 320, 12, False), (TRAIN_BS, 320, 12, False),
+                            (3, 77, 12, True), (2, 768, 12, False),
+                            (VIDEO_BS * VIDEOGPT["max_frames"], 128, 6, False)]:
+        width = h * 64
         qkv = torch.randn(b, s, 3 * width, device="cuda",
                           generator=gen).bfloat16()
         bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
@@ -286,16 +448,24 @@ def phase_kernels() -> dict:
                 qkv, bias, 12, False, emit_stats=True)),
             median_ms(lambda: k_attn.attention_packed_fwd_ref(
                 qkv, bias, 12, False, emit_stats=True)))
+    # The library yardstick: SDPA over the head views of the biased qkv
+    # (the bias add and the head split, which K1 does in-kernel, untimed).
+    q, k, v = k_attn.split_heads(qkv, 12, bias)
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    k1_bound = attention_bound(64, 12, 320, False, False,
+                               extra_bytes=3 * 768 * 4)
     emit("kernel", name="attention_packed_fwd", parity=k1_rows,
          tolerance=dict(max_abs=K1_MAX_ABS, mean_abs=K1_MEAN_ABS,
                         stats_rel=K1_STATS_REL),
          ms_bs8=times[8][0], stats_ms_bs8=times[8][1],
          plain_ms_bs8=times[8][2], ms_bs64=times[64][0],
          stats_ms_bs64=times[64][1], plain_ms_bs64=times[64][2],
-         shape="(bs, S 320, 3·768) bf16, 12 heads")
-    summary["attention_packed_fwd"] = dict(max_abs_err=k1_max,
-                                           ms=times[64][1],
-                                           plain_ms=times[64][2])
+         sdpa_ms_bs64=lib_ms, sdpa_backend=sdpa_backend(q, k, v, False),
+         bound_bs64=k1_bound, shape="(bs, S 320, 3·768) bf16, 12 heads")
+    summary["attention_packed_fwd"] = dict(
+        max_abs_err=k1_max, ms=times[64][1], plain_ms=times[64][2],
+        bound_ms=k1_bound["bound_ms"], bound_by=k1_bound["bound_by"],
+        library_ms=lib_ms)
 
     # K2: the flagship step's shape, a ragged causal one, the longest S, and
     # S not a multiple of 8; (m, l) from K1, the same for kernel and plain.
@@ -334,12 +504,18 @@ def phase_kernels() -> dict:
                                                           l, 12, False))
     k2_plain = median_ms(lambda: k_attn.attention_packed_bwd_ref(
         qkv, bias, dout, m, l, 12, False))
+    lib = sdpa_backward_ms(*k_attn.split_heads(qkv, 12, bias),
+                           dout.reshape(b, s, 12, 64).transpose(1, 2), False)
+    k2_bound = attention_bound(b, 12, s, False, True,
+                               extra_bytes=3 * 768 * (4 + 4))  # fp32 bias in, dbias out
     emit("kernel", name="attention_packed_bwd", parity=k2_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
-         ms_bs64=k2_ms, plain_ms_bs64=k2_plain,
-         shape="(64, S 320, 3·768) bf16, 12 heads")
-    summary["attention_packed_bwd"] = dict(max_abs_err=k2_max, ms=k2_ms,
-                                           plain_ms=k2_plain)
+         ms_bs64=k2_ms, plain_ms_bs64=k2_plain, sdpa_bs64=lib,
+         bound_bs64=k2_bound, shape="(64, S 320, 3·768) bf16, 12 heads")
+    summary["attention_packed_bwd"] = dict(
+        max_abs_err=k2_max, ms=k2_ms, plain_ms=k2_plain,
+        bound_ms=k2_bound["bound_ms"], bound_by=k2_bound["bound_by"],
+        library_ms=lib["backward_ms"])
 
     # K3 / K4: the three fused stages of ConvNeXt-S at bs 64, and ragged N.
     # γ of order 1 (not the init's 1e-6) so the tail shows in y.
@@ -382,26 +558,40 @@ def phase_kernels() -> dict:
                 tails[name]["plain_ms"][c] = median_ms(lambda: plain(*args), 10)
         del h, x, dy
         torch.cuda.empty_cache()
+    # At C 384, N 12544: K3 does two products of N·C·4C MACs, K4 three (it
+    # recomputes the first); each reads its (N, C) bf16 rows (two for K3:
+    # h and x; K4: h and dy), writes one, and reads the fp32 parameters.
+    n, c = CNX_STAGES[2][2], 384
+    rows, weights = n * c * 2, (8 * c * c + 8 * c) * 4
+    tail_bounds = {"convnext_tail_fwd": bound(16 * n * c * c,
+                                              3 * rows + weights),
+                   "convnext_tail_bwd": bound(24 * n * c * c,
+                                              3 * rows + weights)}
     for name, t in tails.items():
         emit("kernel", name=name, parity=t["rows"],
              tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
              ms_by_C=t["ms"], plain_ms_by_C=t["plain_ms"],
+             bound_C384=tail_bounds[name],
              shape="(bs 64 · H · W, C) bf16 rows of ConvNeXt-S stages 0-2",
              summary_shape="C 384, N 12544 (27 of the 33 fused blocks)")
         summary[name] = dict(max_abs_err=t["max"], ms=t["ms"][384],
-                             plain_ms=t["plain_ms"][384])
+                             plain_ms=t["plain_ms"][384],
+                             bound_ms=tail_bounds[name]["bound_ms"],
+                             bound_by=tail_bounds[name]["bound_by"],
+                             library_ms=None)
 
-    # K5: fp32, C 2048, D 12, at the encode's and the train step's N and a
-    # ragged N. Scores z·e (− ‖e‖²/2 without normalisation) in fp64 judge
+    # K5: fp32, D 12; C 2048 at the encode's and the train step's N and a
+    # ragged N, C 1024 at the VideoGPT step's N (32 · 16 frames · 64). Scores z·e (− ‖e‖²/2 without normalisation) in fp64 judge
     # both: the kernel's code must be the fp64 best within K5_TIE_GAP on
     # every row, and where the plain version picks another code, that code
     # must be within the plain version's own rounding of the best.
     k5_gap, k5_rows = 0.0, []
-    for n in (2048, TRAIN_BS * 256, 2053):
+    video_codes = VIDEO_BS * VIDEOGPT["max_frames"] * VIDEOGPT["frame_size"]
+    for n, c in ((2048, 2048), (TRAIN_BS * 256, 2048), (2053, 2048),
+                 (video_codes, 1024)):
         for l2 in (True, False):
             z = torch.randn(n, 12, device="cuda", generator=gen)
-            cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1
-                  ) / 2048
+            cb = (torch.rand(c, 12, device="cuda", generator=gen) * 2 - 1) / c
             idx = k_vq.nearest_code(z, cb, l2_normalize=l2).long()
             ref = k_vq.nearest_code_ref(z, cb, l2_normalize=l2).long()
             bad = (idx != ref).nonzero().flatten()
@@ -423,7 +613,7 @@ def phase_kernels() -> dict:
             worst = (s64[bad, idx[bad]] - s64[bad, ref[bad]]).abs().max().item() \
                 if len(bad) else 0.0
             k5_rows.append(dict(
-                N=n, C=2048, D=12, l2_normalize=l2, near_ties=len(bad),
+                N=n, C=c, D=12, l2_normalize=l2, near_ties=len(bad),
                 max_tie_gap=worst, kernel_max_regret=regret.max().item(),
                 plain_max_regret_over_bound=(
                     (plain_regret / plain_bound).max().item() if len(bad)
@@ -451,14 +641,156 @@ def phase_kernels() -> dict:
         cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1) / 2048
         times[bs] = (median_ms(lambda: k_vq.nearest_code(z, cb)),
                      median_ms(lambda: k_vq.nearest_code_ref(z, cb)))
+    # N 2048 rows against 2048 codes of D 12: N·C·D fp32 multiply-adds off
+    # the tensor cores; z and the codebook read, the indices written.
+    k5_bound = bound(2 * 2048 * 2048 * 12, (2048 + 2048) * 12 * 4 + 2048 * 4,
+                     peak=PEAK_FP32_FLOPS)
     emit("kernel", name="vq_nearest", parity=k5_rows,
          tolerance=dict(tie_gap=K5_TIE_GAP), lowest_index_ties=True,
          dims_checked=list(k_vq.SUPPORTED_DIMS),
          ms_bs8=times[8][0], plain_ms_bs8=times[8][1],
          ms_bs64=times[64][0], plain_ms_bs64=times[64][1],
-         shape="(bs·256, 12) fp32 against (2048, 12)")
+         bound_bs8=k5_bound, shape="(bs·256, 12) fp32 against (2048, 12)")
     summary["vq_nearest"] = dict(max_abs_err=k5_gap, ms=times[8][0],
-                                 plain_ms=times[8][1])
+                                 plain_ms=times[8][1],
+                                 bound_ms=k5_bound["bound_ms"],
+                                 bound_by=k5_bound["bound_by"],
+                                 library_ms=None)
+    summary.update(unpacked_kernels(gen))
+    return summary
+
+
+def head_views(b: int, h: int, s: int, gen, packed: bool = True):
+    """bf16 q, k, v (b, h, s, 64): the strided head views of one packed
+    (b, s, 3·h·64) projection, as the model hands them over, or three
+    contiguous tensors."""
+    if packed:
+        qkv = torch.randn(b, s, 3, h, 64, device="cuda",
+                          generator=gen).bfloat16()
+        return tuple(qkv.permute(2, 0, 3, 1, 4))
+    return tuple(torch.randn(b, h, s, 64, device="cuda",
+                             generator=gen).bfloat16() for _ in range(3))
+
+
+def sdpa_backward_ms(q, k, v, dout, causal: bool) -> dict:
+    """``F.scaled_dot_product_attention``'s backward alone (autograd.grad
+    on a kept graph) and its forward + backward, on leaf copies of q, k, v."""
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    out = fwd()
+    return dict(
+        backward_ms=median_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), dout, retain_graph=True)),
+        forward_backward_ms=median_ms(lambda: torch.autograd.grad(
+            fwd(), (q, k, v), dout)),
+        backend=sdpa_backend(q, k, v, causal))
+
+
+def unpacked_kernels(gen) -> dict:
+    """K6 and K7/K8 against their plain versions at the VideoGPT paths'
+    shapes (the train step's (32, 12, 1024) causal on the packed
+    projection's strided views, the prefill's 513 at bs 1 and 8) and ragged
+    edges, then their times at the train step's shape."""
+    summary = {}
+    k6_rows, k6_max = [], 0.0
+    for b, s, causal, packed in [(VIDEO_BS, 1024, True, True),
+                                 (1, 513, True, True), (8, 513, True, True),
+                                 (2, 777, True, False),
+                                 (2, 777, False, False)]:
+        q, k, v = head_views(b, 12, s, gen, packed)
+        out = k_attn.flash_attention(q, k, v, causal=causal)
+        out_s, m, l = k_attn.attention_fwd(q, k, v, causal, emit_stats=True)
+        torch.cuda.synchronize()
+        ref, m_ref, l_ref = k_attn.attention_fwd_ref(q, k, v, causal,
+                                                     emit_stats=True)
+        row = dict(B=b, S=s, H=12, causal=causal, strided=packed,
+                   **rel_errors(out, ref),
+                   stats_out_identical=bool(torch.equal(out, out_s)),
+                   m_rel=((m - m_ref).abs().max() / m_ref.abs().max()).item(),
+                   l_rel=((l - l_ref).abs() / l_ref).max().item())
+        k6_rows.append(row)
+        require(bool(torch.isfinite(out).all()), f"K6 non-finite at {row}")
+        require(row["max_rel"] <= BWD_MAX_REL
+                and row["mean_rel"] <= BWD_MEAN_REL,
+                f"K6 disagrees with its plain version: {row}")
+        require(row["stats_out_identical"] and row["m_rel"] <= K1_STATS_REL
+                and row["l_rel"] <= K1_STATS_REL,
+                f"K6's statistics disagree with the plain version: {row}")
+        k6_max = max(k6_max, row["max_abs"])
+        del q, k, v, out, out_s, ref
+    torch.cuda.empty_cache()
+
+    k8_rows, k8_max = [], 0.0
+    for b, s, causal in [(VIDEO_BS, 1024, True), (2, 777, False),
+                         (2, 513, True)]:   # the last at S ≤ 768: K7's range
+        q, k, v = head_views(b, 12, s, gen, packed=b == VIDEO_BS)
+        dout = torch.randn(b, s, 12, 64, device="cuda",
+                           generator=gen).bfloat16().transpose(1, 2)
+        _, m, l = k_attn.attention_fwd(q, k, v, causal, emit_stats=True)
+        grads = k_attn.attention_bwd(q, k, v, dout, m, l, causal)
+        torch.cuda.synchronize()
+        refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, causal)
+        row = dict(B=b, S=s, H=12, causal=causal,
+                   **{name: rel_errors(g, r)
+                      for name, g, r in zip(("dq", "dk", "dv"), grads, refs)})
+        k8_rows.append(row)
+        for name, g in zip(("dq", "dk", "dv"), grads):
+            require(bool(torch.isfinite(g).all()),
+                    f"K7/K8 {name} non-finite at {row}")
+            require(row[name]["max_rel"] <= BWD_MAX_REL
+                    and row[name]["mean_rel"] <= BWD_MEAN_REL,
+                    f"K7/K8 disagrees with its plain version: {row}")
+            k8_max = max(k8_max, row[name]["max_abs"])
+        del q, k, v, dout, grads, refs
+    torch.cuda.empty_cache()
+
+    # Times at the train step's shape, on the strided views it passes.
+    b, s = VIDEO_BS, 1024
+    q, k, v = head_views(b, 12, s, gen)
+    dout = torch.randn(b, s, 12, 64, device="cuda",
+                       generator=gen).bfloat16().transpose(1, 2)
+    k6 = dict(
+        stats_ms=median_ms(lambda: k_attn.attention_fwd(q, k, v, True,
+                                                        emit_stats=True)),
+        ms=median_ms(lambda: k_attn.attention_fwd(q, k, v, True)),
+        plain_ms=median_ms(lambda: k_attn.attention_fwd_ref(
+            q, k, v, True, emit_stats=True), 5),
+        sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        sdpa_backend=sdpa_backend(q, k, v, True))
+    pq, pk, pv = head_views(8, 12, 513, gen)
+    k6["prefill_bs8_ms"] = median_ms(
+        lambda: k_attn.attention_fwd(pq, pk, pv, True))
+    _, m, l = k_attn.attention_fwd(q, k, v, True, emit_stats=True)
+    k8 = dict(ms=median_ms(lambda: k_attn.attention_bwd(q, k, v, dout, m, l,
+                                                        True)),
+              plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
+                  q, k, v, dout, m, l, True), 5),
+              sdpa=sdpa_backward_ms(q, k, v, dout, True))
+    k6_bound = attention_bound(b, 12, s, True, False)
+    k8_bound = attention_bound(b, 12, s, True, True)
+    emit("kernel", name="attention_fwd", parity=k6_rows,
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                        stats_rel=K1_STATS_REL),
+         bound=k6_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
+         **k6)
+    emit("kernel", name="attention_bwd", parity=k8_rows,
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         bound=k8_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
+         **k8)
+    summary["attention_fwd"] = dict(
+        max_abs_err=k6_max, ms=k6["stats_ms"], plain_ms=k6["plain_ms"],
+        bound_ms=k6_bound["bound_ms"], bound_by=k6_bound["bound_by"],
+        library_ms=k6["sdpa_ms"])
+    summary["attention_bwd"] = dict(
+        max_abs_err=k8_max, ms=k8["ms"], plain_ms=k8["plain_ms"],
+        bound_ms=k8_bound["bound_ms"], bound_by=k8_bound["bound_by"],
+        library_ms=k8["sdpa"]["backward_ms"])
+    del q, k, v, dout, pq, pk, pv, m, l
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -543,39 +875,33 @@ def phase_slice(work: Path, model: TiTok) -> dict:
     require(np.array_equal(served_idx, encode_from(kernel_lat)),
             "served encode differs from the same kernels called directly")
 
-    # Any ulp of difference in attention flips bf16 roundings of the residual
-    # stream, so latents differ at bf16 level and codes whose two best
-    # scores lie closer than that flip. Each disagreement must be such a
-    # near-tie: with unit latents zk (kernels) and zp (plain), the plain
-    # scores of the two codes differ by at most 2·|zk − zp|.
-    lat_rel = ((kernel_lat - plain_lat).abs().max() / plain_lat.abs().max()).item()
-    zk = torch.nn.functional.normalize(kernel_lat.reshape(-1, cfg.latent_dim), dim=-1)
-    zp = torch.nn.functional.normalize(plain_lat.reshape(-1, cfg.latent_dim), dim=-1)
-    e = torch.nn.functional.normalize(ref.quant.codebook.double(), dim=-1)
-    ik = torch.from_numpy(served_idx.reshape(-1)).long().cuda()
-    ip = torch.from_numpy(plain_idx.reshape(-1)).long().cuda()
-    bad = (ik != ip).nonzero().flatten()
-    gap = ((zp[bad] * e[ip[bad]]).sum(-1) - (zp[bad] * e[ik[bad]]).sum(-1))
-    slack = 2 * (zk[bad] - zp[bad]).norm(dim=-1) + 1e-6
-    unexplained = int((gap > slack).sum())
-    agreement = float((served_idx == plain_idx).mean())
+    flips = code_flips(kernel_lat, plain_lat, ref.quant.codebook,
+                       torch.from_numpy(served_idx).cuda(),
+                       torch.from_numpy(plain_idx).cuda())
     rec_all = np.concatenate(recons)
     rec_rel = float(np.abs(rec_all - plain_rec).max() / np.abs(plain_rec).max())
     emit("slice", requests=len(batches), images=sum(map(len, batches)),
-         launches=launches, encode_index_agreement=agreement,
-         disagreeing_codes=len(bad), unexplained_disagreements=unexplained,
-         latent_max_rel_err=lat_rel, decode_max_rel_err=rec_rel,
+         launches=launches, **flips, decode_max_rel_err=rec_rel,
          tolerance=dict(max_rel_err=MAX_REL_ERR,
                         min_index_agreement=MIN_INDEX_AGREEMENT))
-    require(unexplained == 0, f"{unexplained} code disagreements are not "
-            "near-ties of the measured latent difference")
-    require(lat_rel <= MAX_REL_ERR and rec_rel <= MAX_REL_ERR,
-            f"kernels vs plain: latent {lat_rel:.3g}, decode {rec_rel:.3g}")
-    require(agreement >= MIN_INDEX_AGREEMENT,
-            f"served encode agrees with the plain run on {agreement:.4f}")
+    require_codes_agree(flips, "served encode")
+    require(rec_rel <= MAX_REL_ERR,
+            f"kernels vs plain: decode {rec_rel:.3g}")
     total = {k: launches["encode"][k] + launches["decode"][k]
              for k in launches["encode"]}
     return total
+
+
+def require_codes_agree(flips: dict, what: str) -> None:
+    """``code_flips``'s verdict: every flip a near-tie, latents within
+    MAX_REL_ERR, and codes agreeing on MIN_INDEX_AGREEMENT of positions."""
+    require(flips["unexplained_disagreements"] == 0,
+            f"{what}: {flips['unexplained_disagreements']} code disagreements "
+            "are not near-ties of the measured latent difference")
+    require(flips["latent_max_rel_err"] <= MAX_REL_ERR,
+            f"{what}: kernels vs plain latents {flips['latent_max_rel_err']:.3g}")
+    require(flips["index_agreement"] >= MIN_INDEX_AGREEMENT,
+            f"{what} agrees with the plain run on {flips['index_agreement']:.4f}")
 
 
 def phase_timing(work: Path, model: TiTok, card: str) -> None:
@@ -691,6 +1017,239 @@ def phase_train(model: TiTok, card: str) -> dict:
     return launches
 
 
+def video_batch(tokenizer_size: int) -> torch.Tensor:
+    """The first batch of the port's SyntheticVideoLoader (32 uint8 frames
+    per video) with train_videogpt.py's random temporal crop to 16 frames,
+    scaled to [0, 1], on the card."""
+    videos, _ = next(iter(SyntheticVideoLoader(
+        VIDEO_BS, frames=2 * VIDEOGPT["max_frames"], image_size=tokenizer_size,
+        steps_per_epoch=1, seed=0)))
+    crop = np.random.default_rng((0, 0xC407, 0))
+    offset = int(crop.integers(0, max(videos.shape[1]
+                                      - VIDEOGPT["max_frames"], 1)))
+    clip = videos[:, offset:offset + VIDEOGPT["max_frames"]]
+    return torch.from_numpy(clip.astype(np.float32) / 255.0).cuda()
+
+
+def loss_and_grad_norm(model: VideoGPT, tokens: torch.Tensor):
+    """The step's loss and the global norm of its gradients, without the
+    optimizer."""
+    _, loss = model(tokens)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    return loss.item(), norm.item()
+
+
+def phase_videogpt_train(card: str):
+    """The VideoGPT-B step at bs 32: launches, kernels vs plain versions,
+    learning on one batch, throughput, and a profile. Returns the model,
+    the tokenizer, the batch's codes and the step's launches."""
+    tok_model = TiTok(TiTokConfig(**VIDEO_TOKENIZER))
+    init_params_(tok_model, torch.Generator().manual_seed(123))
+    tokenizer = FrozenTokenizer(tok_model.cuda())
+    model = VideoGPT(VideoGPTConfig(**VIDEOGPT))
+    init_params_(model, torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    emit("videogpt_model", params=sum(p.numel() for p in model.parameters()),
+         tokenizer_params=sum(p.numel() for p in tok_model.parameters()),
+         config=VIDEOGPT, tokenizer=VIDEO_TOKENIZER,
+         dtype="bfloat16 compute, float32 params")
+    videos = video_batch(VIDEO_TOKENIZER["image_size"])
+    step = make_videogpt_train_step(model)
+    # train_videogpt.py's optimizer: no clip, min_lr = lr / 10
+    state = TrainState.create(model, make_optimizer(
+        1e-4, 5000, 500000, 1e-5, 1e-4, clip_norm=None))
+
+    torch.cuda.synchronize()
+    reset_launches()   # the main path's run starts here
+    _, tokens, metrics = step(state, tokenizer, videos)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(launches == VIDEO_STEP_LAUNCHES,
+            f"one VideoGPT step launched {launches}, expected "
+            f"{VIDEO_STEP_LAUNCHES}")
+    loss = metrics["train/loss"].item()
+    require(tuple(tokens.shape) == (VIDEO_BS, VIDEOGPT["max_frames"],
+                                    VIDEOGPT["frame_size"])
+            and tokens.dtype == torch.int32
+            and 0 <= tokens.min().item()
+            and tokens.max().item() < VIDEOGPT["codebook_size"],
+            f"tokens {tuple(tokens.shape)} {tokens.dtype}")
+    require(np.isfinite(loss), f"loss {loss}")
+
+    # The frozen tokenizer's codes (K1 and K5 on this path) with the kernels
+    # and through the plain versions, at the step's 512 frames: the step's
+    # codes must be the kernels' own, and every code the plain run picks
+    # otherwise a near-tie.
+    frames = videos.reshape(-1, *videos.shape[2:])
+    with torch.inference_mode():
+        kernel_lat = tok_model.enc(frames).double()
+        kernel_idx = tok_model.quant(kernel_lat.float())[1]
+        with plain_versions():
+            plain_lat = tok_model.enc(frames).double()
+            plain_idx = tok_model.quant(plain_lat.float())[1]
+    require(torch.equal(tokens.reshape(kernel_idx.shape), kernel_idx),
+            "the step's codes differ from the same kernels called directly")
+    flips = code_flips(kernel_lat, plain_lat, tok_model.quant.codebook,
+                       kernel_idx, plain_idx)
+    emit("videogpt_train", what="tokenizer codes, kernels vs plain versions",
+         frames=len(frames), **flips,
+         tolerance=dict(max_rel_err=MAX_REL_ERR,
+                        min_index_agreement=MIN_INDEX_AGREEMENT))
+    require_codes_agree(flips, "the step's tokenizer codes")
+    del frames, kernel_lat, plain_lat
+
+    # The first step's loss and gradient norm with the kernels and through
+    # the plain versions, on the same weights (lr is 0 at the first step of
+    # the warmup, so the step above moved none) and the same codes.
+    kernel_loss, kernel_norm = loss_and_grad_norm(model, tokens)
+    with plain_versions():
+        plain_loss, plain_norm = loss_and_grad_norm(model, tokens)
+    torch.cuda.synchronize()
+    rel = dict(loss=abs(kernel_loss - plain_loss) / abs(plain_loss),
+               grad_norm=abs(kernel_norm - plain_norm) / abs(plain_norm))
+    emit("videogpt_train", what="first step, kernels vs plain versions",
+         launches=launches, step_loss=loss, loss=kernel_loss,
+         plain_loss=plain_loss, grad_norm=kernel_norm,
+         plain_grad_norm=plain_norm, rel_diff=rel,
+         tolerance=dict(loss_rel=STEP_LOSS_REL,
+                        grad_norm_rel=STEP_GRAD_NORM_REL))
+    require(abs(kernel_loss - loss) <= 1e-6 * abs(loss),
+            f"the step's loss {loss} is not its forward's {kernel_loss}")
+    require(rel["loss"] <= STEP_LOSS_REL
+            and rel["grad_norm"] <= STEP_GRAD_NORM_REL,
+            f"kernel step vs plain step: {rel}")
+
+    # Learning: 20 steps on the same batch with a 2-step warmup.
+    quick = TrainState.create(model, make_optimizer(
+        1e-4, 2, 500000, 1e-5, 1e-4, clip_norm=None))
+    losses = torch.stack([step(quick, tokenizer, videos)[2]["train/loss"]
+                          for _ in range(20)]).tolist()
+    emit("videogpt_train", what="learning on one batch, lr 1e-4, warmup 2",
+         first_loss=losses[0], last_loss=losses[-1], losses=losses)
+    require(losses[-1] < losses[0],
+            f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # Throughput of the full step (host clock around synchronised steps),
+    # with the kernels and through the plain versions.
+    timing = {}
+    for name, ctx, reps in (("kernels", contextlib.nullcontext, 6),
+                            ("plain", plain_versions, 3)):
+        with ctx():
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_median_ms(lambda: (step(quick, tokenizer, videos),
+                                         torch.cuda.synchronize()), reps)
+        timing[name] = dict(step_ms=ms,
+                            tokens_per_s=VIDEO_BS * 1024 / ms * 1e3,
+                            peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    # The AR step alone on random codes, as scripts/bench_videogpt_step.py
+    # times it: make_optimizer(1e-4, 10, 1000, 1e-5, 1e-4) with its clip,
+    # one warm-up step, then the mean of 10 steps between synchronisations.
+    codes = torch.randint(0, VIDEOGPT["codebook_size"],
+                          (VIDEO_BS, VIDEOGPT["max_frames"],
+                           VIDEOGPT["frame_size"]), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(0), dtype=torch.int32)
+    ar_state = TrainState.create(model, make_optimizer(1e-4, 10, 1000, 1e-5,
+                                                       1e-4))
+
+    def ar_step():
+        _, ar_loss = model(codes)
+        ar_state.apply_gradients(torch.autograd.grad(ar_loss, ar_state.params))
+
+    torch.cuda.reset_peak_memory_stats()
+    ar_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ar_step()
+    torch.cuda.synchronize()
+    ar_ms = (time.perf_counter() - t0) / 10 * 1e3
+    timing["ar_step_alone"] = dict(
+        step_ms=ar_ms, tokens_per_s=VIDEO_BS * 1024 / ar_ms * 1e3,
+        peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    emit("videogpt_train", what="throughput at bs 32, S 1024", card=card,
+         **timing)
+    emit("videogpt_train", what="profile of one full step (kernels)",
+         card=card, **profile_window(
+             lambda: step(quick, tokenizer, videos)))
+    del state, quick, ar_state
+    torch.cuda.empty_cache()
+    return model.eval(), tokens, launches
+
+
+def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
+                           card: str) -> dict:
+    """The greedy rollout served over HTTP at bs 1 and bs 8: 8 frames of
+    codes in, 16 out. Returns the launches of the served rollouts."""
+    frame = VIDEOGPT["frame_size"]
+    n_cond, n_gen = ROLLOUT_COND * frame, ROLLOUT_GEN * frame
+    cond_all = tokens[:8, :ROLLOUT_COND].reshape(8, n_cond)
+    cond_np = cond_all.cpu().numpy()
+    launches, results = {}, {}
+    for bs in (1, 8):
+        d = work / f"videogpt_bs{bs}"
+        export_videogpt(model, str(d), cond_frames=ROLLOUT_COND,
+                        gen_frames=ROLLOUT_GEN, bs=bs)
+        cond = cond_np[:bs]
+        with serving(str(d), batch_window_ms=0) as url:
+            reset_launches()   # the main path's run starts here
+            served = post(url + "/generate", cond)
+            launches[bs] = read_launches()
+            latency = host_median_ms(lambda: post(url + "/generate", cond), 3)
+        require(served.shape == (bs, n_cond + n_gen)
+                and served.dtype == np.int32,
+                f"generate gave {served.shape} {served.dtype}")
+        require(np.array_equal(served[:, :n_cond], cond),
+                "the conditioning prefix did not come back unchanged")
+        require(served.min() >= 0
+                and served.max() < VIDEOGPT["codebook_size"],
+                "a generated code lies outside the codebook")
+        require(launches[bs]["attention_fwd"] == model.config.trans_config
+                .n_layers and launches[bs]["attention_bwd"] == 0,
+                f"one rollout launched {launches[bs]}")
+        loaded = load_exported(str(d), "cuda")
+        direct = loaded["generate"](cond).cpu().numpy()
+        require(np.array_equal(served, direct),
+                "the served rollout differs from a direct generate call")
+        results[bs] = dict(latency_ms=latency,
+                           generated_tokens_per_s=bs * n_gen / latency * 1e3,
+                           launches=launches[bs])
+        del loaded
+        torch.cuda.empty_cache()
+
+    # The prefill (SOS + 512 codes) with the kernels and through the plain
+    # versions: last-position logits, and the first generated code equal or
+    # a near-tie of the measured logit difference.
+    sos = torch.full((8, 1), VIDEOGPT["codebook_size"], dtype=torch.int32,
+                     device="cuda")
+    prefix = torch.cat([sos, cond_all], 1)
+    with torch.inference_mode():
+        logits = model.prefill(prefix, init_cache(model, 8))[0]
+        with plain_versions():
+            plain = model.prefill(prefix, init_cache(model, 8))[0]
+    # The device's share of a rollout: a profile of one bs-8 rollout of one
+    # frame (the prefill and 63 decode steps; a profile of all 511 steps
+    # would hold some 10^6 events).
+    cond8 = torch.from_numpy(cond_np)
+    results[8]["profile_one_frame"] = profile_window(
+        lambda: generate(model, cond8, frame))
+    err = rel_errors(logits, plain)
+    first, plain_first = logits.argmax(-1), plain.argmax(-1)
+    rows = torch.arange(8, device="cuda")
+    gap = (plain[rows, plain_first] - plain[rows, first]).max().item()
+    emit("videogpt_rollout", card=card, cond_codes=n_cond, gen_codes=n_gen,
+         bs1=results[1], bs8=results[8], prefill_logits=err,
+         first_code_equal=int((first == plain_first).sum()),
+         first_code_max_gap=gap,
+         tolerance=dict(prefill_max_rel=PREFILL_MAX_REL))
+    require(err["max_rel"] <= PREFILL_MAX_REL,
+            f"prefill logits vs plain versions: {err}")
+    require(gap <= 2 * err["max_abs"],
+            f"a first generated code differs beyond a near-tie: gap {gap}")
+    return {k: launches[1][k] + launches[8][k] for k in launches[1]}
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -704,9 +1263,15 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_slice(Path(tmp), model)
         phase_timing(Path(tmp), model, card)
-    train_launches = phase_train(model, card)
-    for name, n in train_launches.items():
-        launches[name] = launches.get(name, 0) + n
+        train_launches = phase_train(model, card)
+        del model
+        torch.cuda.empty_cache()
+        gpt, tokens, gpt_launches = phase_videogpt_train(card)
+        rollout_launches = phase_videogpt_rollout(Path(tmp), gpt, tokens,
+                                                  card)
+    for path in (train_launches, gpt_launches, rollout_launches):
+        for name, n in path.items():
+            launches[name] = launches.get(name, 0) + n
 
     sources = {
         "attention_packed_fwd": ("vit_tpu_torch/csrc/attention_packed_fwd.cu",
@@ -718,11 +1283,23 @@ def main() -> None:
         "convnext_tail_bwd": ("vit_tpu_torch/csrc/convnext_tail.cu",
                               "vit_tpu/kernels/convnext_block.py:109"),
         "vq_nearest": ("vit_tpu_torch/csrc/vq_nearest.cu",
-                       "vit_tpu/kernels/vq.py:36")}
+                       "vit_tpu/kernels/vq.py:36"),
+        "attention_fwd": ("vit_tpu_torch/csrc/attention_fwd.cu",
+                          "vit_tpu/kernels/attention.py:76"),
+        # one kernel pair for both unpacked backwards: K8 (S > 768, the
+        # path's) and K7 (S ≤ 768, held at S 513 in the kernel phase)
+        "attention_bwd": ("vit_tpu_torch/csrc/attention_bwd.cu",
+                          "vit_tpu/kernels/attention.py:284"),
+    }
+    also = {"attention_bwd": "vit_tpu/kernels/attention.py:201"}
+    missing = [name for name in sources if launches.get(name, 0) == 0]
+    require(not missing, f"kernels of the paths never launched: {missing}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
-         **summary[name]} for name in sources]}), flush=True)
+         **summary[name],
+         **({"also_replaces": also[name]} if name in also else {})}
+        for name in sources]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

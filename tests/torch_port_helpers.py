@@ -1,7 +1,7 @@
 """Shared set-up for the ``test_torch_*`` parity tests: a tiny transformer
-preset registered in both packages, the matching TiTok configs, a tiny
-ConvNeXt perceptual net, JAX weights carried into the port through the
-bridge, the JAX train step, and seeded numpy inputs."""
+preset registered in both packages, the matching TiTok and VideoGPT configs,
+a tiny ConvNeXt perceptual net, JAX weights carried into the port through the
+bridge, the JAX train steps, and seeded numpy inputs."""
 
 from __future__ import annotations
 
@@ -25,6 +25,11 @@ TINY = dict(n_layers=2, n_heads=2, n_embd=128)
 # image 32, patch 8 (16 patches), K 8: S = 24 in both encoder and decoder
 TITOK = dict(image_size=32, patch_size=8, latent_tokens=8, codebook_size=64,
              latent_dim=12, transformer="tiny")
+# VideoGPT with the tiny transformer swapped in after construction, as
+# tests/test_videogpt.py builds its tiny config: 13 frames of 64 codes make
+# S = 832 > 768, so attention takes the unpacked path (K6, K7/K8)
+VIDEOGPT = dict(frame_size=64, codebook_size=64, transformer="S",
+                max_frames=13)
 # ConvNeXt with one block per stage; the tests set the fused-tail gate to 64
 # so the last stage (C 128) takes the unfused path, as ConvNeXt-S's stage 3
 CONVNEXT = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), num_classes=10)
@@ -109,3 +114,46 @@ def jax_train_step(model, perceptual, **opt):
     step = jax.jit(make_tokenizer_train_step(model,
                                              perceptual_loss_fn=perceptual))
     return step, lambda params: TrainState.create(params, tx)
+
+
+def videogpt_configs(dtype: str = "float32", **kw):
+    """(JAX VideoGPTConfig with attn_impl "pallas", port VideoGPTConfig) of
+    the tiny VideoGPT: ``VIDEOGPT`` with keyword overrides, then the
+    transformer cut to ``TINY``."""
+    from vit_tpu.models.videogpt import VideoGPTConfig as JaxVideoGPTConfig
+    from vit_tpu_torch.models.videogpt import VideoGPTConfig
+
+    fields = {**VIDEOGPT, **kw}
+    cfg_j = JaxVideoGPTConfig(**fields, dtype=getattr(jnp, dtype),
+                              attn_impl="pallas")
+    cfg_t = VideoGPTConfig(**fields, dtype=getattr(torch, dtype))
+    for cfg in (cfg_j, cfg_t):
+        cfg.trans_config = cfg.trans_config.replace(**TINY)
+        cfg.n_embd = TINY["n_embd"]
+    return cfg_j, cfg_t
+
+
+def videogpt_params(cfg_j) -> dict:
+    """VideoGPT.init(PRNGKey(1)) params as a nested dict of numpy arrays
+    (one frame is enough: the params do not depend on the length)."""
+    from vit_tpu.models.videogpt import VideoGPT as JaxVideoGPT
+
+    x = jnp.zeros((1, 1, cfg_j.frame_size), jnp.int32)
+    params = jax.jit(JaxVideoGPT(cfg_j).init)(jax.random.PRNGKey(1), x)["params"]
+    return jax.tree.map(np.asarray, params)
+
+
+def port_videogpt(cfg_t, params: dict):
+    """The port's VideoGPT on the CPU, filled with the JAX weights."""
+    from vit_tpu_torch.bridge import videogpt_state_dict_from_flax
+    from vit_tpu_torch.models.videogpt import VideoGPT
+
+    model = VideoGPT(cfg_t, device="meta")
+    model.load_state_dict(videogpt_state_dict_from_flax(params, cfg_t),
+                          assign=True)
+    return model.eval()
+
+
+def codes(shape, n_codes: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, n_codes, shape,
+                                                dtype=np.int32)

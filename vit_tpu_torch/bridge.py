@@ -8,9 +8,11 @@ leaf path to a state-dict key:
   - a Conv ``kernel`` HWIO becomes ``weight`` OIHW; a depthwise kernel
     (7, 7, 1, C) thereby becomes (C, 1, 7, 7);
   - a LayerNorm ``scale`` becomes ``weight``;
-  - ``bias``, ``pos_emb``, ``extra_emb``, ``codebook`` and ``gamma`` keep
-    their name and layout. The split-bias ``attn/qkv`` tree
-    (``_ProjParams``) has the same ``{kernel, bias}`` keys as a Dense.
+  - ``bias``, ``pos_emb``, ``extra_emb``, ``codebook``, ``gamma`` and
+    VideoGPT's raw 2-D ``tok_embed`` and ``pos_embed`` keep their name and
+    layout (they are no ``kernel``, so nothing transposes them). The
+    split-bias ``attn/qkv`` tree (``_ProjParams``) has the same
+    ``{kernel, bias}`` keys as a Dense.
 
 The way back tells a Dense or Conv ``weight`` from a LayerNorm ``weight`` by
 its rank (a LayerNorm's is 1-D).
@@ -114,6 +116,14 @@ def state_dict_from_flax(params: dict, cfg) -> "dict[str, torch.Tensor]":
     from vit_tpu_torch.models.titok import TiTok
 
     return _from_flax(params, TiTok(cfg, device="meta").state_dict())
+
+
+def videogpt_state_dict_from_flax(params: dict, cfg) -> "dict[str, torch.Tensor]":
+    """JAX VideoGPT params → the port's state dict for a ``VideoGPT(cfg)``,
+    with the checks of ``_from_flax``."""
+    from vit_tpu_torch.models.videogpt import VideoGPT
+
+    return _from_flax(params, VideoGPT(cfg, device="meta").state_dict())
 
 
 def convnext_state_dict_from_flax(params: dict, net) -> "dict[str, torch.Tensor]":

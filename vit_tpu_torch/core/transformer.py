@@ -9,11 +9,24 @@ reads each tile (``kernels/attention.py``).
 
 Ported so far: the unrolled stack with the non-affine LayerNorm and no
 attention output projection (the author's minimal block), forward and
-backward. Autograd carries gradients through the explicit casts back to the
-fp32 parameters; attention's backward is the K2 kernel and GELU's the flat
-derivative (``ops/gelu.py``). Not yet: the Bytedance layout (``ln_affine``,
-``attn_out_proj``), dropout, remat, KV-cache decode, the scanned and
-pipelined stacks, int8, and the fused-LN and fused-FC kernel paths.
+backward, and KV-cache decoding. Autograd carries gradients through the
+explicit casts back to the fp32 parameters; attention's backward is the K2
+or K7/K8 kernel and GELU's the flat derivative (``ops/gelu.py``).
+
+KV-cache decoding (``vit_tpu/core/transformer.py:173-238``) takes an explicit
+cache instead of flax's ``cache`` collection: one ``(k, v)`` pair per layer,
+each (B, H, block_size, d) in the compute dtype (``init_kv_cache``), passed
+to ``Transformer.forward`` with a position and written in place (the JAX
+module returns a new collection each step; writing in place saves a copy of
+the whole cache per token). A multi-token call at position 0 is the prefill:
+it writes positions [0, S) and runs causal ``multi_head_attention`` (K6). A
+one-token call at ``pos`` writes that position and attends over the whole
+cache with the ``≤ pos`` mask in plain torch, as the JAX module does outside
+any Pallas kernel.
+
+Not yet: the Bytedance layout (``ln_affine``, ``attn_out_proj``), dropout,
+remat, the scanned and pipelined stacks, int8, and the fused-LN and
+fused-FC kernel paths.
 """
 
 from __future__ import annotations
@@ -23,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.core.config import TransformerConfig
-from vit_tpu_torch.ops.attention import fused_qkv_attention
+from vit_tpu_torch.ops.attention import (fused_qkv_attention, merge_heads,
+                                         multi_head_attention, split_heads)
 from vit_tpu_torch.ops.gelu import gelu as gelu_op
 
 
@@ -60,9 +74,43 @@ class LayerNorm(nn.Module):
         return y.to(self.config.dtype)
 
 
+def init_kv_cache(config: TransformerConfig, batch_size: int,
+                  device=None) -> "list[tuple[torch.Tensor, torch.Tensor]]":
+    """A zero (k, v) pair per layer, each (B, H, block_size, d) in the
+    compute dtype."""
+    shape = (batch_size, config.n_heads, config.block_size,
+             config.n_embd // config.n_heads)
+    return [tuple(torch.zeros(shape, dtype=config.dtype, device=device)
+                  for _ in range(2)) for _ in range(config.n_layers)]
+
+
+def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kv: "tuple[torch.Tensor, torch.Tensor]", pos: int) -> torch.Tensor:
+    """q, k, v (B, H, S, d) at positions [pos, pos + S), written into the
+    cache ``kv`` in place. S > 1 is the prefill, only correct from position 0
+    (its queries see only the new block); S == 1 one decode step."""
+    ck, cv = kv
+    s_len, d = q.shape[-2], q.shape[-1]
+    if s_len > 1:
+        if not (isinstance(pos, int) and pos == 0):
+            raise ValueError(
+                "multi-token decode (prefill) requires static pos=0; "
+                f"got pos={pos!r} for a {s_len}-token block")
+        ck[:, :, :s_len] = k
+        cv[:, :, :s_len] = v
+        return multi_head_attention(q, k, v, causal=True)
+    ck[:, :, pos] = k[:, :, 0]
+    cv[:, :, pos] = v[:, :, 0]
+    s = (q.float() @ ck.float().transpose(-1, -2)) * d ** -0.5
+    future = torch.arange(ck.shape[2], device=ck.device) > pos
+    s = s.masked_fill(future, torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1)
+    return (p.to(cv.dtype).float() @ cv.float()).to(q.dtype)
+
+
 class Attention(nn.Module):
     """Fused-QKV multi-head self-attention: x·W in the compute dtype, the
-    bias handed to the attention kernel."""
+    bias handed to the attention kernel, or added here when decoding."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -70,11 +118,14 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(config.n_embd, 3 * config.n_embd,
                              dtype=config.param_dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv=None, pos=None) -> torch.Tensor:
         cfg = self.config
         qkv_nb = F.linear(x.to(cfg.dtype), self.qkv.weight.to(cfg.dtype))
-        return fused_qkv_attention(qkv_nb, cfg.n_heads, causal=cfg.causal,
-                                   qkv_bias=self.qkv.bias)
+        if kv is None:
+            return fused_qkv_attention(qkv_nb, cfg.n_heads, causal=cfg.causal,
+                                       qkv_bias=self.qkv.bias)
+        q, k, v = split_heads(qkv_nb, cfg.n_heads, self.qkv.bias)
+        return merge_heads(_decode(q, k, v, kv, pos))
 
 
 class Mlp(nn.Module):
@@ -105,14 +156,16 @@ class TransformerLayer(nn.Module):
         self.ln2 = LayerNorm(config)
         self.mlp = Mlp(config, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x: torch.Tensor, kv=None, pos=None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), kv, pos)
         return x + self.mlp(self.ln2(x))
 
 
 class Transformer(nn.Module):
     """Unrolled stack of ``n_layers`` blocks; the input is cast to the compute
-    dtype on entry. ``layers.{i}`` holds the JAX tree's ``layer_{i}``."""
+    dtype on entry. ``layers.{i}`` holds the JAX tree's ``layer_{i}``. With
+    ``cache`` (``init_kv_cache``) and ``pos`` it decodes, updating the cache
+    in place."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -120,8 +173,9 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(TransformerLayer(config, device=device)
                                     for _ in range(config.n_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache: "list | None" = None,
+                pos: "int | None" = None) -> torch.Tensor:
         x = x.to(self.config.dtype)
-        for layer in self.layers:
-            x = layer(x)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, None if cache is None else cache[i], pos)
         return x

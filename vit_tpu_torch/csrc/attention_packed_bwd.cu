@@ -50,16 +50,6 @@ namespace {
 
 using namespace vit;
 
-constexpr float kScale = 0.125f;  // 1/√64, a power of two
-
-// ds = ph · ((dp - Δ·linv) · (scale·linv)) with the TPU kernel's operation
-// order and no contraction into fused multiply-adds.
-__device__ __forceinline__ float dscore(float ph, float dp, float delta,
-                                        float linv) {
-  const float centred = __fsub_rn(dp, __fmul_rn(delta, linv));
-  return __fmul_rn(ph, __fmul_rn(centred, __fmul_rn(kScale, linv)));
-}
-
 // Column sums of a warp's 16 x 64 fp32 accumulator (rows g and g + 8 of each
 // thread), reduced over the four warps in shared memory and written to
 // out[0..64). Every thread of the block must call it.
@@ -84,23 +74,6 @@ __device__ __forceinline__ void column_sums(const float (&acc)[kHeadDim / 8][4],
     out[c] = ((red[0][c] + red[1][c]) + red[2][c]) + red[3][c];
   }
   __syncthreads();
-}
-
-// Rows row0 and row0 + 8 of a warp's 16 x 64 accumulator to bf16 at `dst`
-// (row r at dst + r·stride), skipping rows at or past S.
-__device__ __forceinline__ void store_rows(const float (&acc)[kHeadDim / 8][4],
-                                           bf16* dst, size_t stride, int row0,
-                                           int S, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row >= S) continue;
-    bf16* p = dst + static_cast<size_t>(row) * stride;
-#pragma unroll
-    for (int nt = 0; nt < kHeadDim / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(p + nt * 8 + 2 * t) =
-          pack_bf16x2(acc[nt][2 * r], acc[nt][2 * r + 1]);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -47,25 +47,6 @@ namespace {
 
 using namespace vit;
 
-// s = q kᵀ for a warp's 16 rows and one 64-key tile (8 column tiles of 8
-// keys), with the key-padding and causal masks applied as -inf.
-__device__ __forceinline__ void scores(float (&s)[kTile / 8][4],
-                                       const uint32_t (&qf)[kHeadDim / 16][4],
-                                       const bf16* sK, int k0, int row0, int S,
-                                       int causal, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-    mma_row<kHeadDim / 16>(s[nt], qf, sK, kPitch, nt * 8, g, t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + nt * 8 + 2 * t + (e & 1);
-      const int row = row0 + (e >> 1) * 8;
-      if (col >= S || (causal && col > row)) s[nt][e] = -INFINITY;
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
                             const bf16* __restrict__ bias,

@@ -106,6 +106,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     #                      B, S, H, causal, stream)
     lib.attention_packed_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
     lib.attention_packed_bwd.restype = i32
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    # attention_fwd(q, k, v, out, m, l, strides, B, S, H, causal, stream)
+    lib.attention_fwd.argtypes = [ptr] * 6 + [strides] + [i32] * 4 + [ptr]
+    lib.attention_fwd.restype = i32
+    # attention_bwd(q, k, v, dout, m, l, dq, dk, dv, delta, strides, B, S, H,
+    #               causal, stream)
+    lib.attention_bwd.argtypes = [ptr] * 10 + [strides] + [i32] * 4 + [ptr]
+    lib.attention_bwd.restype = i32
     # convnext_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, y, N, C, eps,
     #                   stream)
     lib.convnext_tail_fwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]

@@ -1,1 +1,1 @@
-"""ViT backbone and the TiTok tokenizer."""
+"""ViT backbone, the TiTok tokenizer and the VideoGPT AR prior."""

@@ -1,16 +1,19 @@
-"""Multi-head attention: the plain reference and the packed-QKV dispatch
-(counterpart of ``vit_tpu/ops/attention.py:25-118``).
+"""Multi-head attention: the plain reference and the dispatch to the kernels
+(counterpart of ``vit_tpu/ops/attention.py:25-141``).
 
-Layout is (B, H, S, D) for ``attention_ref`` and the packed (B, S, 3D)
-projection, columns ``(three h d)``, for ``fused_qkv_attention``.
+Layout is (B, H, S, D) for ``attention_ref`` and ``multi_head_attention``,
+and the packed (B, S, 3D) projection, columns ``(three h d)``, for
+``fused_qkv_attention``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vit_tpu_torch.kernels.attention import (flash_attention_packed,
-                                             packed_supported)
+from vit_tpu_torch.kernels.attention import (flash_attention,
+                                             flash_attention_packed,
+                                             merge_heads, packed_supported,
+                                             split_heads)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -30,28 +33,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (p.to(v.dtype).float() @ v.float()).to(q.dtype)
 
 
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = False) -> torch.Tensor:
+    """Attention over q, k, v (B, H, S, D) through ``flash_attention``: K6,
+    with K7/K8 in the backward, at every S. The JAX package hands S > 8192
+    to XLA only because its kernels hold K and V in VMEM; these walk 64-row
+    tiles and take any S."""
+    return flash_attention(q, k, v, causal=causal)
+
+
 def fused_qkv_attention(qkv: torch.Tensor, n_heads: int, *,
                         causal: bool = False,
                         qkv_bias: "torch.Tensor | None" = None) -> torch.Tensor:
     """Attention straight off the packed, unbiased QKV projection:
     (B, S, 3D) → (B, S, D), with ``qkv_bias`` (3D,) added before the product.
 
-    A packed-supported shape goes to ``flash_attention_packed`` (K1 on CUDA,
-    its plain version on the CPU). Any other shape runs ``attention_ref`` on
-    the CPU and raises on CUDA, where it needs K6, not ported yet."""
-    b, s, three_d = qkv.shape
-    n_embd = three_d // 3
-    if packed_supported(n_heads, n_embd, s):
+    A packed-supported shape goes to ``flash_attention_packed`` (K1/K2 on
+    CUDA, their plain versions on the CPU). Any other shape adds the bias,
+    splits the heads as strided views (no copies) and runs
+    ``multi_head_attention``, whose output merges back for free."""
+    _, s, three_d = qkv.shape
+    if packed_supported(n_heads, three_d // 3, s):
         return flash_attention_packed(qkv, n_heads, causal=causal,
                                       qkv_bias=qkv_bias)
-    if qkv.device.type != "cpu":
-        raise NotImplementedError(
-            f"attention with {n_heads} heads of width {n_embd} at S {s} is "
-            "not packed-supported; it needs the unpacked attention kernel K6 "
-            "(vit_tpu/kernels/attention.py:_fa_kernel), not ported yet")
-    if qkv_bias is not None:
-        qkv = qkv + qkv_bias.to(qkv.dtype)
-    d = n_embd // n_heads
-    q, k, v = qkv.reshape(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)
-    out = attention_ref(q, k, v, causal=causal)
-    return out.transpose(1, 2).reshape(b, s, n_embd)
+    q, k, v = split_heads(qkv, n_heads, qkv_bias)
+    return merge_heads(multi_head_attention(q, k, v, causal=causal))

@@ -6,7 +6,8 @@ as ``.npy`` bytes:
 
   GET  /manifest        → manifest.json
   POST /<fn>            body: .npy array → response: .npy array
-                          (tokenizers: /encode /decode)
+                          (tokenizers: /encode /decode; VideoGPT:
+                          /generate, greedy exports only)
 
 Requests smaller than the export's ``bs`` are zero-padded up to it and the
 response sliced back; larger ones are rejected. ``bs`` 0 takes any batch as
@@ -121,8 +122,11 @@ def make_server(export_dir: str, host: str = "127.0.0.1", port: int = 8421,
     served = load_exported(export_dir, device)
     manifest = served["manifest"]
     avals = served["_in_avals"]  # {fn: [((dims-or-None...), dtype_name)]}
-    # every served fn hands back a device tensor; fetch it to the host here
-    fns = {k: (lambda a, f=served[k]: f(a).cpu().numpy()) for k in avals}
+    # the npy-over-HTTP protocol carries ONE array per request: a sampled
+    # VideoGPT generate, which also takes a seed, is not served here.
+    # Every served fn hands back a device tensor; fetch it to the host here.
+    fns = {k: (lambda a, f=served[k]: f(a).cpu().numpy())
+           for k in avals if len(avals[k]) == 1}
     bs = int(manifest["bs"])
     n_codes = manifest["codebook_size"]
     batchers = ({k: Batcher(v, bs, batch_window_ms / 1e3)
@@ -180,7 +184,7 @@ def make_server(export_dir: str, host: str = "127.0.0.1", port: int = 8421,
                     raise ValueError(
                         f"batch {k} > exported bs {bs}; split the request")
                 # an out-of-range index would fault the device-side gather
-                if name == "decode" and arr.size and (
+                if name in ("decode", "generate") and arr.size and (
                         arr.min() < 0 or arr.max() >= n_codes):
                     raise ValueError(f"indices must lie in [0, {n_codes})")
                 if batchers is None and bs and k < bs:

@@ -1,4 +1,5 @@
-"""Train step factories (counterpart of ``vit_tpu/train/step.py:47-116``).
+"""Train step factories (counterpart of ``vit_tpu/train/step.py:47-116`` and
+``train_videogpt.py:127-149``).
 
 One call runs forward, loss, backward, clip, AdamW and the metrics. Metrics
 stay device tensors (nothing is read back to the host inside the step); the
@@ -55,5 +56,31 @@ def make_tokenizer_train_step(model: nn.Module, *,
             metrics["train/grad_norm"] = state.opt_state.grad_norm
         metrics["train/codebook_usage"] = usage.mean()
         return state, usage, metrics, recon.detach()
+
+    return train_step
+
+
+def make_videogpt_train_step(model: nn.Module) -> Callable:
+    """VideoGPT step: the frozen tokenizer codes each frame under
+    ``no_grad``, then the AR prior's next-token CE, its gradients and the
+    optimizer step (reference loop train_videogpt.py:118-136).
+
+    ``train_step(state, tokenizer, videos) → (state, tokens, metrics)``
+    with ``state.params`` the parameters of ``model``, ``tokenizer`` a
+    ``models.pretrained.FrozenTokenizer`` (where the JAX step takes the
+    tokenizer's params: the port's module carries its own, so the JAX
+    factory's tokenizer argument has nothing left to do here) and ``videos``
+    (B, T, H, W, 3) in [0, 1]. ``tokens`` are the (B, T, K) int32 codes;
+    ``metrics`` holds ``train/loss`` as a device tensor."""
+
+    def train_step(state: TrainState, tokenizer, videos: torch.Tensor):
+        b, t = videos.shape[:2]
+        with torch.no_grad():
+            frames = videos.reshape(b * t, *videos.shape[2:])
+            tokens = tokenizer.encode_indices(frames).reshape(b, t, -1)
+        _, loss = model(tokens)
+        grads = torch.autograd.grad(loss, state.params)
+        state.apply_gradients(grads)
+        return state, tokens, {"train/loss": loss.detach()}
 
     return train_step

@@ -2,7 +2,9 @@
 ``vit_tpu/utils/init.py:24-76``), drawn from an explicit ``torch.Generator``.
 
   - ``nn.Linear``: U(±1/√fan_in) for the weight and the bias;
-  - ``pos_emb`` / ``extra_emb`` (embeddings): N(0, 1);
+  - embeddings (``pos_emb``, ``extra_emb``, VideoGPT's ``tok_embed`` and
+    ``pos_embed``): N(0, 1), ``normal_embed_init_`` (``normal_embed_init``,
+    :47-49);
   - ``codebook``: U(±1/C) (``vit_tpu/quantize/vq.py:28-35``).
 
 ``init_convnext_`` fills the perceptual ConvNeXt with the flax initialisers
@@ -24,6 +26,15 @@ import torch
 from torch import nn
 
 
+EMBEDDINGS = ("pos_emb", "extra_emb", "tok_embed", "pos_embed")
+
+
+@torch.no_grad()
+def normal_embed_init_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """N(0, 1) in place, the nn.Embedding default."""
+    p.normal_(0.0, 1.0, generator=generator)
+
+
 @torch.no_grad()
 def init_params_(model: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter of ``model`` in place, in registration order.
@@ -38,8 +49,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> None:
                 module.bias.uniform_(-bound, bound, generator=generator)
             continue
         for name, p in module.named_parameters(recurse=False):
-            if name in ("pos_emb", "extra_emb"):
-                p.normal_(0.0, 1.0, generator=generator)
+            if name in EMBEDDINGS:
+                normal_embed_init_(p, generator)
             elif name == "codebook":
                 bound = 1.0 / p.shape[0]
                 p.uniform_(-bound, bound, generator=generator)
