@@ -6,7 +6,8 @@ Drives the port's main paths at full width with random weights from a seed:
 the TiTok-B tokenizer served over HTTP (images → /encode → indices →
 /decode → images; image 128, patch 16, 256 latent tokens, codebook 2048 ×
 12, ViT-B encoder and decoder, S = 320), the flagship TiTok-B training step
-at bs 64 with the frozen ConvNeXt-S perceptual loss, and the VideoGPT-B AR
+at bs 64 with the frozen ConvNeXt-S perceptual loss, unfused and with the
+fused LayerNorm → matmul and dW + db kernels switched on, and the VideoGPT-B AR
 prior (16 frames × 64 codes, S = 1024, over a frozen random TiTok-S at
 image 64): its training step at bs 32 and its greedy KV-cache rollout served
 over HTTP. Phases, one JSON line each:
@@ -17,9 +18,11 @@ over HTTP. Phases, one JSON line each:
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the paths' shapes and a few edge shapes, with timings, the
                 bound the card's peaks set for the same work, and the time of
-                one PyTorch library call computing the same function where
-                there is one (``F.scaled_dot_product_attention`` for the
-                attention kernels, with the backend it picked);
+                one PyTorch library call computing the same function (or,
+                as named, the product inside it) where there is one
+                (``F.scaled_dot_product_attention`` for the attention
+                kernels, with the backend it picked; ``F.linear`` for K9a,
+                ``torch.mm`` for K10);
   4. slice    — export → load → HTTP server; concurrent /encode requests,
                 /decode of the indices; checks shapes, ranges, a 400, that
                 every kernel launched during those requests, that the served
@@ -35,7 +38,19 @@ over HTTP. Phases, one JSON line each:
                 and gradient norm within bf16 noise; 20 steps on one batch
                 with a short warmup lower the recon loss; images/s and peak
                 memory with the kernels and with the plain versions;
-  7. videogpt_train — the VideoGPT-B step at bs 32 (tokenize 512 frames,
+  7. train_fused — the same step on the same weights and batch with
+                VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1 set for the phase: the
+                launches of one step (K9a 48, K9b 24, K9c 48, K10 24 besides
+                the unfused step's); its first step against the plain
+                versions and against the unfused kernels' step; 20 steps
+                lower the recon loss; step time, images/s and peak memory
+                unfused, fused, with fused FC alone and fused through the
+                plain versions, in turns; a profile of one fused step; one
+                step with VIT_TPU_FUSED_LN=0 VIT_TPU_FUSED_FC=1 (K10 48)
+                against the plain versions; a bs-64 encode and decode with
+                fused LN (K9a without a gradient) against the unfused
+                kernels', every differing code a near-tie, and their times;
+  8. videogpt_train — the VideoGPT-B step at bs 32 (tokenize 512 frames,
                 next-token CE, AdamW): the launches of one step (K6 12,
                 K7/K8 12, K1 6, K5 1); the tokenizer's codes against the
                 plain versions' (every differing code a near-tie); loss and
@@ -44,7 +59,7 @@ over HTTP. Phases, one JSON line each:
                 the loss; step time, tokens/s and peak memory of the full
                 step and of the AR step alone on random tokens; a profile of
                 one step;
-  8. videogpt_rollout — export → load → HTTP /generate at bs 1 and bs 8: 512
+  9. videogpt_rollout — export → load → HTTP /generate at bs 1 and bs 8: 512
                 conditioning codes in, 1024 out, the prefix intact, every
                 code in range, equal to a direct generate call, 12 K6
                 launches per rollout (the prefill); the prefill's logits
@@ -63,6 +78,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -85,6 +101,8 @@ sys.path.insert(0, str(ROOT))
 from vit_tpu_torch.kernels import _build  # noqa: E402
 from vit_tpu_torch.kernels import attention as k_attn  # noqa: E402
 from vit_tpu_torch.kernels import convnext_block as k_cnx  # noqa: E402
+from vit_tpu_torch.kernels import fc_grad as k_fc  # noqa: E402
+from vit_tpu_torch.kernels import ln_matmul as k_lnmm  # noqa: E402
 from vit_tpu_torch.kernels import vq as k_vq  # noqa: E402
 from vit_tpu_torch.data.synthetic import SyntheticVideoLoader  # noqa: E402
 from vit_tpu_torch.losses.perceptual import ConvNeXt, PerceptualLoss  # noqa: E402
@@ -131,9 +149,19 @@ TRAIN_BS = 64
 # (stage, blocks, rows at bs 64, C) of ConvNeXt-S at 224: the fused tails
 CNX_STAGES = ((0, 3, TRAIN_BS * 56 * 56, 96), (1, 3, TRAIN_BS * 28 * 28, 192),
               (2, 27, TRAIN_BS * 14 * 14, 384))
+NO_FUSED = dict(ln_matmul_fwd=0, ln_matmul_dgelu=0, ln_bwd=0, fc_grad=0)
 STEP_LAUNCHES = dict(attention_packed_fwd=24, attention_packed_bwd=24,
                      convnext_tail_fwd=66, convnext_tail_bwd=33, vq_nearest=1,
-                     attention_fwd=0, attention_bwd=0)
+                     attention_fwd=0, attention_bwd=0, **NO_FUSED)
+# The same step under VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1: K9a at the qkv
+# and fc1 sites of the 24 layers (encoder and decoder), K9b at fc1, K9c in
+# both sites' backward, K10 at fc2 (fc1's gradient comes from K9a's
+# backward); and under VIT_TPU_FUSED_LN=0 VIT_TPU_FUSED_FC=1: K10 at fc1
+# and fc2.
+FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, ln_matmul_fwd=48, ln_matmul_dgelu=24,
+                           ln_bwd=48, fc_grad=24)
+FC_STEP_LAUNCHES = dict(STEP_LAUNCHES, fc_grad=48)
+N_ROWS = TRAIN_BS * 320   # rows of every transformer layer of the step
 # VideoGPT-B (train_videogpt.py's defaults): 16 frames of 64 codes from a
 # random TiTok-S at image 64, patch 8 (its encoder at S = 128), bs 32.
 VIDEOGPT = dict(frame_size=64, codebook_size=1024, transformer="B",
@@ -145,7 +173,8 @@ VIDEO_BS = 32
 # without statistics (the frozen tokenizer, S 128), one K5 over 32·16·64 codes
 VIDEO_STEP_LAUNCHES = dict(attention_packed_fwd=6, attention_packed_bwd=0,
                            convnext_tail_fwd=0, convnext_tail_bwd=0,
-                           vq_nearest=1, attention_fwd=12, attention_bwd=12)
+                           vq_nearest=1, attention_fwd=12, attention_bwd=12,
+                           **NO_FUSED)
 # The prefill's last-position logits with the kernels and through the plain
 # versions: bf16 noise through 12 layers, as the TiTok-B slice's latents.
 PREFILL_MAX_REL = 2e-2
@@ -201,6 +230,8 @@ def reset_launches() -> None:
     k_attn.unpacked_launches = k_attn.unpacked_bwd_launches = 0
     k_cnx.launches = k_cnx.bwd_launches = 0
     k_vq.launches = 0
+    k_lnmm.launches = k_lnmm.dgelu_launches = k_lnmm.ln_bwd_launches = 0
+    k_fc.launches = 0
 
 
 def read_launches() -> dict:
@@ -210,7 +241,10 @@ def read_launches() -> dict:
                 convnext_tail_bwd=k_cnx.bwd_launches,
                 vq_nearest=k_vq.launches,
                 attention_fwd=k_attn.unpacked_launches,
-                attention_bwd=k_attn.unpacked_bwd_launches)
+                attention_bwd=k_attn.unpacked_bwd_launches,
+                ln_matmul_fwd=k_lnmm.launches,
+                ln_matmul_dgelu=k_lnmm.dgelu_launches,
+                ln_bwd=k_lnmm.ln_bwd_launches, fc_grad=k_fc.launches)
 
 
 def bound(flop: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
@@ -294,7 +328,11 @@ def plain_versions():
               (k_attn, "attention_bwd", k_attn.attention_bwd_ref),
               (k_cnx, "convnext_tail_fwd", k_cnx.convnext_tail_fwd_ref),
               (k_cnx, "convnext_tail_bwd", k_cnx.convnext_tail_bwd_ref),
-              (quant_vq, "nearest_code", k_vq.nearest_code_ref)]
+              (quant_vq, "nearest_code", k_vq.nearest_code_ref),
+              (k_lnmm, "ln_matmul_fwd", k_lnmm.ln_matmul_fwd_ref),
+              (k_lnmm, "ln_matmul_dgelu", k_lnmm.ln_matmul_dgelu_ref),
+              (k_lnmm, "ln_bwd", k_lnmm.ln_bwd_ref),
+              (k_fc, "matmul_dw_db", k_fc.matmul_dw_db_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
     for mod, name, plain in routes:
         setattr(mod, name, plain)
@@ -657,6 +695,7 @@ def phase_kernels() -> dict:
                                  bound_by=k5_bound["bound_by"],
                                  library_ms=None)
     summary.update(unpacked_kernels(gen))
+    summary.update(fused_kernels(gen))
     return summary
 
 
@@ -790,6 +829,192 @@ def unpacked_kernels(gen) -> dict:
         bound_ms=k8_bound["bound_ms"], bound_by=k8_bound["bound_by"],
         library_ms=k8["sdpa"]["backward_ms"])
     del q, k, v, dout, pq, pk, pv, m, l
+    torch.cuda.empty_cache()
+    return summary
+
+
+def beyond_one_ulp(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Elements of bf16 ``out`` more than one bf16 ulp (of the larger of the
+    two values) from ``ref``, after a floor of 2^-17 of max |ref| for values
+    that cancel in fp32: x̂ = x − mean where x lies near the mean (the mean's
+    last fp32 bit depends on the summation order), gelu′ where 1 + tanh
+    cancels."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    mag = torch.maximum(out.abs(), ref.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    floor = 2.0 ** -17 * ref.abs().max()
+    return dict(max_abs=diff.max().item(),
+                beyond_one_ulp=int((diff > ulp + floor).sum()),
+                beyond_one_ulp_no_floor=int((diff > ulp).sum()))
+
+
+def fused_kernels(gen) -> dict:
+    """K9a, K9b, K9c and K10 against their plain versions at the fused
+    train step's shapes (N 20480 rows: bs 64 · S 320) and edge shapes, then
+    their times, bounds and library yardsticks at the step's shapes."""
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    summary = {}
+    # K9a: qkv (no bias, no GELU) and fc1 (bias, GELU, zpre and x̂) of
+    # ViT-B; a ragged N at TiTok-S's and ViT-L's widths; C 768 → 384 with a
+    # bias and no GELU. x with an offset, as a residual stream has.
+    k9a_rows, k9a_max, k9a = [], 0.0, {}
+    for n, c, f, bias, gelu in [(N_ROWS, 768, 2304, False, False),
+                                (N_ROWS, 768, 3072, True, True),
+                                (77, 512, 2048, True, True),
+                                (77, 1024, 4096, True, True),
+                                (130, 768, 384, True, False)]:
+        x = (3 * r(n, c) + 1).bfloat16()
+        w = r(f, c, scale=c ** -0.5).bfloat16()
+        b = r(f, scale=0.3).bfloat16() if bias else None
+        z, zpre, xhat = k_lnmm.ln_matmul_fwd(x, w, b, gelu)
+        z_only = k_lnmm.ln_matmul_fwd(x, w, b, gelu, residuals=False)[0]
+        torch.cuda.synchronize()
+        z_ref, zpre_ref, xhat_ref = k_lnmm.ln_matmul_fwd_ref(x, w, b, gelu)
+        row = dict(N=n, C=c, F=f, bias=bias, gelu=gelu, z=rel_errors(z, z_ref),
+                   xhat=beyond_one_ulp(xhat, xhat_ref),
+                   z_same_without_residuals=bool(torch.equal(z, z_only)))
+        checks = [row["z"]]
+        if gelu:
+            row["zpre"] = rel_errors(zpre, zpre_ref)
+            checks.append(row["zpre"])
+        k9a_rows.append(row)
+        require(bool(torch.isfinite(z).all()), f"K9a non-finite at {row}")
+        require(all(e["max_rel"] <= BWD_MAX_REL and e["mean_rel"] <= BWD_MEAN_REL
+                    for e in checks) and row["xhat"]["beyond_one_ulp"] == 0
+                and row["z_same_without_residuals"],
+                f"K9a disagrees with its plain version: {row}")
+        k9a_max = max(k9a_max, row["z"]["max_abs"])
+        if n == N_ROWS:
+            site = "fc1" if gelu else "qkv"
+            # each input read once, each output written once: x, W, b; z,
+            # zpre (fc1) and x̂
+            k9a[site] = dict(
+                ms=median_ms(lambda: k_lnmm.ln_matmul_fwd(x, w, b, gelu)),
+                serving_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd(
+                    x, w, b, gelu, residuals=False)),
+                plain_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd_ref(
+                    x, w, b, gelu), 5),
+                library_ms=median_ms(lambda: F.linear(xhat_ref, w)),
+                bound=bound(2 * n * c * f,
+                            2 * (2 * n * c + f * c + (f if bias else 0)
+                                 + (2 if gelu else 1) * n * f)))
+        del x, w, b, z, zpre, xhat, z_only, z_ref, zpre_ref, xhat_ref
+    emit("kernel", name="ln_matmul_fwd", parity=k9a_rows,
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                        xhat="one bf16 ulp"),
+         library="F.linear on a precomputed bf16 x̂: the product alone",
+         shape="x (20480, 768) bf16; qkv W (2304, 768), fc1 W (3072, 768)",
+         **k9a)
+    summary["ln_matmul_fwd"] = dict(
+        max_abs_err=k9a_max, ms=k9a["fc1"]["ms"],
+        plain_ms=k9a["fc1"]["plain_ms"],
+        bound_ms=k9a["fc1"]["bound"]["bound_ms"],
+        bound_by=k9a["fc1"]["bound"]["bound_by"],
+        library_ms=k9a["fc1"]["library_ms"], shape="fc1 (20480, 768 → 3072)",
+        library="F.linear on a precomputed bf16 x̂: the product alone")
+
+    # K9b: fc1's (20480, 3072) and a ragged N; zpre N(0, 2) reaches the
+    # GELU's clamp.
+    k9b_rows, k9b_max = [], 0.0
+    for n in (N_ROWS, 77):
+        zpre = r(n, 3072, scale=2.0).bfloat16()
+        dz = r(n, 3072).bfloat16()
+        out = k_lnmm.ln_matmul_dgelu(zpre, dz)
+        torch.cuda.synchronize()
+        row = dict(N=n, F=3072, **beyond_one_ulp(
+            out, k_lnmm.ln_matmul_dgelu_ref(zpre, dz)))
+        k9b_rows.append(row)
+        require(bool(torch.isfinite(out).all()) and row["beyond_one_ulp"] == 0,
+                f"K9b disagrees with its plain version: {row}")
+        k9b_max = max(k9b_max, row["max_abs"])
+        if n == N_ROWS:
+            k9b = dict(ms=median_ms(lambda: k_lnmm.ln_matmul_dgelu(zpre, dz)),
+                       plain_ms=median_ms(lambda: k_lnmm.ln_matmul_dgelu_ref(
+                           zpre, dz)),
+                       # zpre and dz read, dzc written; ~30 fp32 FLOP each
+                       bound=bound(30 * n * 3072, 3 * 2 * n * 3072,
+                                   peak=PEAK_FP32_FLOPS))
+    emit("kernel", name="ln_matmul_dgelu", parity=k9b_rows,
+         tolerance=dict(per_element="one bf16 ulp"), library=None,
+         shape="(20480, 3072) bf16", **k9b)
+    summary["ln_matmul_dgelu"] = dict(
+        max_abs_err=k9b_max, ms=k9b["ms"], plain_ms=k9b["plain_ms"],
+        bound_ms=k9b["bound"]["bound_ms"], bound_by=k9b["bound"]["bound_by"],
+        library_ms=None)
+
+    # K9c: the step's (20480, 768), TiTok-S's and ViT-L's widths, ragged N.
+    k9c_rows, k9c_max = [], 0.0
+    for n, c in [(N_ROWS, 768), (77, 512), (77, 1024), (N_ROWS + 1, 128)]:
+        x = (2 * r(n, c) + 0.5).bfloat16()
+        g = r(n, c).bfloat16()
+        out = k_lnmm.ln_bwd(x, g)
+        torch.cuda.synchronize()
+        row = dict(N=n, C=c, **rel_errors(out, k_lnmm.ln_bwd_ref(x, g)))
+        k9c_rows.append(row)
+        require(bool(torch.isfinite(out).all())
+                and row["max_rel"] <= BWD_MAX_REL
+                and row["mean_rel"] <= BWD_MEAN_REL,
+                f"K9c disagrees with its plain version: {row}")
+        k9c_max = max(k9c_max, row["max_abs"])
+        if n == N_ROWS:
+            k9c = dict(ms=median_ms(lambda: k_lnmm.ln_bwd(x, g)),
+                       plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
+                       bound=bound(10 * n * c, 3 * 2 * n * c,
+                                   peak=PEAK_FP32_FLOPS))
+    emit("kernel", name="ln_bwd", parity=k9c_rows,
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         library=None, shape="(20480, 768) bf16", **k9c)
+    summary["ln_bwd"] = dict(
+        max_abs_err=k9c_max, ms=k9c["ms"], plain_ms=k9c["plain_ms"],
+        bound_ms=k9c["bound"]["bound_ms"], bound_by=k9c["bound"]["bound_by"],
+        library_ms=None)
+
+    # K10: fc2 (g 768 wide, x 3072), fc1 (g 3072, x 768), a ragged N. The
+    # plain version is an fp32 product (TF32 off), the kernel's sums run in
+    # another order over 20480 terms.
+    k10_rows, k10_max, k10 = [], 0.0, {}
+    for n, fo, fi in [(N_ROWS, 768, 3072), (N_ROWS, 3072, 768),
+                      (N_ROWS + 1, 768, 3072)]:
+        g = r(n, fo).bfloat16()
+        x = r(n, fi).bfloat16()
+        dw, db = k_fc.matmul_dw_db(g, x)
+        dw2, db2 = k_fc.matmul_dw_db(g, x)
+        torch.cuda.synchronize()
+        dw_ref, db_ref = k_fc.matmul_dw_db_ref(g, x)
+        row = dict(N=n, F_out=fo, F_in=fi, dw=rel_errors(dw, dw_ref),
+                   db=rel_errors(db, db_ref),
+                   deterministic=bool(torch.equal(dw, dw2)
+                                      and torch.equal(db, db2)))
+        k10_rows.append(row)
+        require(bool(torch.isfinite(dw).all() and torch.isfinite(db).all())
+                and row["dw"]["max_rel"] <= 1e-3 and row["db"]["max_rel"] <= 1e-4
+                and row["deterministic"],
+                f"K10 disagrees with its plain version: {row}")
+        k10_max = max(k10_max, row["dw"]["max_abs"])
+        if n == N_ROWS:
+            site = "fc2" if fo < fi else "fc1"
+            k10[site] = dict(
+                ms=median_ms(lambda: k_fc.matmul_dw_db(g, x)),
+                plain_ms=median_ms(lambda: k_fc.matmul_dw_db_ref(g, x), 5),
+                library_ms=median_ms(lambda: torch.mm(g.t(), x)),
+                bound=bound(2 * n * fo * fi,
+                            2 * n * (fo + fi) + 4 * (fo * fi + fo)))
+        del g, x, dw, db, dw2, db2, dw_ref, db_ref
+    emit("kernel", name="fc_grad", parity=k10_rows,
+         tolerance=dict(dw_max_rel=1e-3, db_max_rel=1e-4),
+         library="torch.mm(g.t(), x) in bf16: dW alone, rounded to bf16, no db",
+         shape="fc2: g (20480, 768), x (20480, 3072); fc1 transposed", **k10)
+    summary["fc_grad"] = dict(
+        max_abs_err=k10_max, ms=k10["fc2"]["ms"],
+        plain_ms=k10["fc2"]["plain_ms"],
+        bound_ms=k10["fc2"]["bound"]["bound_ms"],
+        bound_by=k10["fc2"]["bound"]["bound_by"],
+        library_ms=k10["fc2"]["library_ms"],
+        shape="fc2: g (20480, 768), x (20480, 3072)",
+        library="torch.mm(g.t(), x) in bf16: dW alone, rounded to bf16, no db")
     torch.cuda.empty_cache()
     return summary
 
@@ -939,17 +1164,42 @@ def phase_timing(work: Path, model: TiTok, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_train(model: TiTok, card: str) -> dict:
-    """The flagship training step: launches, kernels vs plain versions,
-    learning on one batch, and throughput. Returns the step's launches."""
-    model = model.cuda().train()
+def train_inputs(model: TiTok):
+    """The flagship step's frozen ConvNeXt-S perceptual loss (random weights
+    from a seed) and its batch of 64 images, on the card."""
     net = ConvNeXt(dtype=torch.bfloat16)
     init_convnext_(net, torch.Generator().manual_seed(1))
-    perceptual = PerceptualLoss(net).cuda()
     size = model.config.image_size
     images = torch.from_numpy(np.random.default_rng(2).uniform(
         0, 1, (TRAIN_BS, size, size, 3)).astype(np.float32)).cuda()
-    tx = make_optimizer(1e-4, 5000, 1_000_000, 1e-5, 1e-4, clip_norm=1.0)
+    return PerceptualLoss(net).cuda(), images
+
+
+def flagship_optimizer():
+    return make_optimizer(1e-4, 5000, 1_000_000, 1e-5, 1e-4, clip_norm=1.0)
+
+
+@contextlib.contextmanager
+def fused_switches(ln: str, fc: str):
+    """VIT_TPU_FUSED_LN and VIT_TPU_FUSED_FC set for the block only."""
+    saved = {k: os.environ.get(k) for k in ("VIT_TPU_FUSED_LN",
+                                            "VIT_TPU_FUSED_FC")}
+    os.environ.update(VIT_TPU_FUSED_LN=ln, VIT_TPU_FUSED_FC=fc)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_train(model: TiTok, perceptual, images, card: str) -> dict:
+    """The flagship training step: launches, kernels vs plain versions,
+    learning on one batch, and throughput. Returns the step's launches."""
+    model = model.cuda().train()
+    tx = flagship_optimizer()
     state = TrainState.create(model, tx)
     usage = torch.zeros(model.config.codebook_size, device="cuda")
     plain_model, plain_state, plain_usage = copy.deepcopy((model, state, usage))
@@ -1015,6 +1265,164 @@ def phase_train(model: TiTok, card: str) -> dict:
     del plain_model, plain_state, quick, state
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_train_fused(model: TiTok, weights: dict, perceptual, images,
+                      card: str) -> dict:
+    """The flagship step with the fused kernels switched on as a user
+    switches them, VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1, on the same
+    weights and batch as ``phase_train``: launches, the first step against
+    the plain versions and against the unfused kernels, learning, the
+    in-step A/B and a profile; then one step with fused FC alone, and a
+    bs-64 encode and decode with fused LN. Returns the launches."""
+    model = model.cuda().train()
+    step = make_tokenizer_train_step(model, perceptual_loss_fn=perceptual)
+    usage = torch.zeros(model.config.codebook_size, device="cuda")
+
+    def first_step(ln: str, fc: str, ctx=contextlib.nullcontext):
+        """One first step from ``weights`` (lr is 0 at the warmup's first
+        step, so it moves no weight): its launches and metrics."""
+        model.load_state_dict(weights)
+        state = TrainState.create(model, flagship_optimizer())
+        with fused_switches(ln, fc), ctx():
+            torch.cuda.synchronize()
+            reset_launches()   # the main path's run starts here
+            _, _, metrics, recon = step(state, images, torch.zeros_like(usage))
+            torch.cuda.synchronize()
+            launches = read_launches()
+        metrics = {k: v.item() for k, v in metrics.items()}
+        require(recon.shape == images.shape
+                and bool(torch.isfinite(recon).all())
+                and all(np.isfinite(v) for v in metrics.values()),
+                f"step under LN={ln} FC={fc}: {metrics}")
+        return launches, metrics
+
+    def rel(a: dict, b: dict) -> dict:
+        return {k: abs(a[k] - b[k]) / abs(b[k])
+                for k in ("train/loss", "train/perceptual_loss",
+                          "train/grad_norm")}
+
+    def within(r: dict) -> bool:
+        return (r["train/loss"] <= STEP_LOSS_REL
+                and r["train/perceptual_loss"] <= STEP_LOSS_REL
+                and r["train/grad_norm"] <= STEP_GRAD_NORM_REL)
+
+    launches, fused = first_step("1", "1")
+    require(launches == FUSED_STEP_LAUNCHES,
+            f"one fused step launched {launches}, expected "
+            f"{FUSED_STEP_LAUNCHES}")
+    _, plain = first_step("1", "1", plain_versions)
+    _, unfused = first_step("0", "0")
+    rel_plain, rel_unfused = rel(fused, plain), rel(fused, unfused)
+    emit("train_fused", what="first fused step vs plain versions and vs the "
+         "unfused kernels", launches=launches, metrics=fused,
+         plain_metrics=plain, unfused_metrics=unfused,
+         rel_diff_plain=rel_plain, rel_diff_unfused=rel_unfused,
+         tolerance=dict(loss_rel=STEP_LOSS_REL,
+                        grad_norm_rel=STEP_GRAD_NORM_REL))
+    require(within(rel_plain), f"fused step vs plain versions: {rel_plain}")
+    require(within(rel_unfused),
+            f"fused step vs unfused kernels: {rel_unfused}")
+
+    # Fused FC alone: K10 at fc1 and fc2, no K9.
+    fc_launches, fc_only = first_step("0", "1")
+    require(fc_launches == FC_STEP_LAUNCHES,
+            f"one fused-FC step launched {fc_launches}, expected "
+            f"{FC_STEP_LAUNCHES}")
+    _, fc_plain = first_step("0", "1", plain_versions)
+    rel_fc = rel(fc_only, fc_plain)
+    emit("train_fused", what="first step with VIT_TPU_FUSED_LN=0 "
+         "VIT_TPU_FUSED_FC=1 vs plain versions", launches=fc_launches,
+         metrics=fc_only, plain_metrics=fc_plain, rel_diff_plain=rel_fc)
+    require(within(rel_fc), f"fused-FC step vs plain versions: {rel_fc}")
+
+    # Learning: 20 fused steps on the same batch with a 2-step warmup.
+    model.load_state_dict(weights)
+    quick = TrainState.create(model, make_optimizer(1e-4, 2, 1_000_000, 1e-5,
+                                                    1e-4, clip_norm=1.0))
+    with fused_switches("1", "1"):
+        recon_losses = torch.stack([step(quick, images, usage)[2]
+                                    ["train/recon_loss"]
+                                    for _ in range(20)]).tolist()
+    emit("train_fused", what="learning on one batch, lr 1e-4, warmup 2",
+         first_recon_loss=recon_losses[0], last_recon_loss=recon_losses[-1],
+         recon_losses=recon_losses)
+    require(recon_losses[-1] < recon_losses[0],
+            f"recon loss did not fall: {recon_losses[0]} -> {recon_losses[-1]}")
+
+    # The in-step A/B, in turns in this run: host clock around synchronised
+    # steps, median of 6 after 2.
+    timing = {}
+    for name, ln, fc, ctx in (("unfused", "0", "0", contextlib.nullcontext),
+                              ("fused", "1", "1", contextlib.nullcontext),
+                              ("fused_fc_only", "0", "1",
+                               contextlib.nullcontext),
+                              ("fused_plain", "1", "1", plain_versions)):
+        with fused_switches(ln, fc), ctx():
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_median_ms(
+                lambda: (step(quick, images, usage), torch.cuda.synchronize()),
+                6)
+        timing[name] = dict(step_ms=ms, images_per_s=TRAIN_BS / ms * 1e3,
+                            peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    emit("train_fused", what="throughput at bs 64, fused vs unfused",
+         card=card, **timing)
+    with fused_switches("1", "1"):
+        emit("train_fused", what="profile of one fused step", card=card,
+             **profile_window(lambda: step(quick, images, usage)))
+    del quick
+    torch.cuda.empty_cache()
+
+    # Serving with fused LN: a bs-64 encode and decode (K9a without a
+    # gradient: 24 launches each, 12 layers × qkv and fc1) against the
+    # unfused kernels'.
+    model.load_state_dict(weights)
+    model.eval()
+    serve = {}
+    with torch.inference_mode():
+        for name, ln in (("fused", "1"), ("unfused", "0")):
+            with fused_switches(ln, "0"):
+                reset_launches()
+                lat = model.enc(images)
+                idx = model.quant(lat)[1]
+                enc_launches = read_launches()
+                rec = model.decode_indices(idx)
+                torch.cuda.synchronize()
+                dec_launches = read_launches()
+                serve[name] = dict(
+                    lat=lat.double(), idx=idx, rec=rec,
+                    encode_launches=enc_launches["ln_matmul_fwd"],
+                    decode_launches=(dec_launches["ln_matmul_fwd"]
+                                     - enc_launches["ln_matmul_fwd"]),
+                    backward_launches=sum(dec_launches[k] for k in (
+                        "ln_matmul_dgelu", "ln_bwd", "fc_grad")),
+                    encode_ms=host_median_ms(lambda: (
+                        model.encode(images), torch.cuda.synchronize())),
+                    decode_ms=host_median_ms(lambda: (
+                        model.decode_indices(idx), torch.cuda.synchronize())))
+    f, u = serve["fused"], serve["unfused"]
+    flips = code_flips(f["lat"], u["lat"], model.quant.codebook, f["idx"],
+                       u["idx"])
+    rec_rel = ((f["rec"] - u["rec"]).abs().max()
+               / u["rec"].abs().max()).item()
+    emit("train_fused", what="bs-64 encode and decode, VIT_TPU_FUSED_LN=1 "
+         "vs unfused kernels", card=card, **flips, decode_max_rel_err=rec_rel,
+         **{f"{name}_{k}": v[k] for name, v in serve.items()
+            for k in ("encode_launches", "decode_launches", "encode_ms",
+                      "decode_ms")})
+    sites = [2 * len(vit.transformer.layers)
+             for vit in (model.enc.vit, model.dec.vit)]
+    require([f["encode_launches"], f["decode_launches"]] == sites
+            and f["backward_launches"] == 0 and u["encode_launches"] == 0,
+            f"fused serving launched K9a {f['encode_launches']} + "
+            f"{f['decode_launches']} times")
+    require_codes_agree(flips, "fused encode")
+    require(rec_rel <= MAX_REL_ERR, f"fused vs unfused decode: {rec_rel:.3g}")
+    total = {k: launches[k] + fc_launches[k] for k in launches}
+    total["ln_matmul_fwd"] += f["encode_launches"] + f["decode_launches"]
+    del serve, f, u
+    torch.cuda.empty_cache()
+    return total
 
 
 def video_batch(tokenizer_size: int) -> torch.Tensor:
@@ -1263,13 +1671,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_slice(Path(tmp), model)
         phase_timing(Path(tmp), model, card)
-        train_launches = phase_train(model, card)
-        del model
+        weights = copy.deepcopy(model.state_dict())
+        perceptual, images = train_inputs(model)
+        train_launches = phase_train(model, perceptual, images, card)
+        fused_launches = phase_train_fused(model, weights, perceptual,
+                                           images, card)
+        del model, weights, perceptual, images
         torch.cuda.empty_cache()
         gpt, tokens, gpt_launches = phase_videogpt_train(card)
         rollout_launches = phase_videogpt_rollout(Path(tmp), gpt, tokens,
                                                   card)
-    for path in (train_launches, gpt_launches, rollout_launches):
+    for path in (train_launches, fused_launches, gpt_launches,
+                 rollout_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1290,6 +1703,14 @@ def main() -> None:
         # path's) and K7 (S ≤ 768, held at S 513 in the kernel phase)
         "attention_bwd": ("vit_tpu_torch/csrc/attention_bwd.cu",
                           "vit_tpu/kernels/attention.py:284"),
+        "ln_matmul_fwd": ("vit_tpu_torch/csrc/ln_matmul.cu",
+                          "vit_tpu/kernels/ln_matmul.py:60"),
+        "ln_matmul_dgelu": ("vit_tpu_torch/csrc/ln_bwd.cu",
+                            "vit_tpu/kernels/ln_matmul.py:148"),
+        "ln_bwd": ("vit_tpu_torch/csrc/ln_bwd.cu",
+                   "vit_tpu/kernels/ln_matmul.py:78"),
+        "fc_grad": ("vit_tpu_torch/csrc/fc_grad.cu",
+                    "vit_tpu/kernels/fc_grad.py:74"),
     }
     also = {"attention_bwd": "vit_tpu/kernels/attention.py:201"}
     missing = [name for name in sources if launches.get(name, 0) == 0]

@@ -11,9 +11,9 @@ import pytest
 import torch
 
 from torch_port_helpers import (TINY_FUSED_DIM, configs, convnext_params,
-                                images, jax_params, jax_perceptual,
-                                jax_train_step, port_model, port_perceptual,
-                                tiny_preset)
+                                count_plain_calls, images, jax_params,
+                                jax_perceptual, jax_train_step, port_model,
+                                port_perceptual, tiny_preset)
 from vit_tpu.models.titok import TiTok as JaxTiTok
 from vit_tpu.train.optim import clip_by_global_norm_recording
 from vit_tpu.train.optim import get_lr_schedule as jax_schedule
@@ -113,11 +113,21 @@ def tiny_setup():
         yield cfg_j, cfg_t, jax_params(cfg_j), convnext_params()
 
 
-def test_train_step_matches_jax(tiny_setup, monkeypatch):
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_train_step_matches_jax(tiny_setup, monkeypatch, fused):
     """The slice as a whole: three fp32 steps of the port's step against
     the JAX step from the same weights and batches. Warmup 1, so steps 1
-    and 2 have lr > 0; the stage-3 ConvNeXt block takes the unfused path."""
+    and 2 have lr > 0; the stage-3 ConvNeXt block takes the unfused path.
+    ``fused`` sets VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1 on both sides (a
+    fresh jitted JAX step reads them when it traces), and the fused
+    kernels' plain versions must have run."""
     monkeypatch.setattr(k_cnx, "MAX_FUSED_DIM", TINY_FUSED_DIM)
+    for var in ("VIT_TPU_FUSED_LN", "VIT_TPU_FUSED_FC"):
+        if fused:
+            monkeypatch.setenv(var, "1")
+        else:
+            monkeypatch.delenv(var, raising=False)
+    calls = count_plain_calls(monkeypatch)
     cfg_j, cfg_t, params, cnx = tiny_setup
     opt = dict(lr=1e-4, warmup_steps=1, train_steps=1000, min_lr=1e-5,
                weight_decay=1e-4, clip_norm=1.0)
@@ -150,6 +160,7 @@ def test_train_step_matches_jax(tiny_setup, monkeypatch):
                                    atol=STEP_TOL, rtol=0)
         np.testing.assert_array_equal(usage.numpy(), np.asarray(usage_j))
     assert state.step.item() == 3
+    assert all(calls.values()) if fused else not any(calls.values()), calls
     port = flatten(flax_from_state_dict(model.state_dict()))
     ref = flatten(jax.tree.map(np.asarray, state_j.params))
     assert port.keys() == ref.keys()

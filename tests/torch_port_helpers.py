@@ -1,7 +1,8 @@
 """Shared set-up for the ``test_torch_*`` parity tests: a tiny transformer
 preset registered in both packages, the matching TiTok and VideoGPT configs,
 a tiny ConvNeXt perceptual net, JAX weights carried into the port through the
-bridge, the JAX train steps, and seeded numpy inputs."""
+bridge, the JAX train steps, seeded numpy inputs, and a count of the fused
+kernels' plain-version calls."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import vit_tpu_torch.core.config as torch_config
 from vit_tpu.models.titok import TiTok as JaxTiTok
 from vit_tpu.models.titok import TiTokConfig as JaxTiTokConfig
 from vit_tpu_torch.bridge import state_dict_from_flax
+from vit_tpu_torch.kernels import fc_grad as k_fc
+from vit_tpu_torch.kernels import ln_matmul as k_lnmm
 from vit_tpu_torch.models.titok import TiTok, TiTokConfig
 
 # 2 layers, 2 heads, width 128: head_dim 64, so the packed kernel path applies
@@ -157,3 +160,20 @@ def port_videogpt(cfg_t, params: dict):
 def codes(shape, n_codes: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, n_codes, shape,
                                                 dtype=np.int32)
+
+
+def count_plain_calls(monkeypatch) -> dict:
+    """Count the calls of the four kernels' plain versions (which the
+    wrappers run on the CPU): proof that a fused path ran."""
+    calls = dict.fromkeys(("ln_matmul_fwd", "ln_matmul_dgelu", "ln_bwd",
+                           "fc_grad"), 0)
+    routes = [(k_lnmm, "ln_matmul_fwd_ref", "ln_matmul_fwd"),
+              (k_lnmm, "ln_matmul_dgelu_ref", "ln_matmul_dgelu"),
+              (k_lnmm, "ln_bwd_ref", "ln_bwd"),
+              (k_fc, "matmul_dw_db_ref", "fc_grad")]
+    for mod, attr, key in routes:
+        def spy(*args, _fn=getattr(mod, attr), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, attr, spy)
+    return calls

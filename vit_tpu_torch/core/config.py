@@ -28,6 +28,14 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16        # compute dtype
     param_dtype: torch.dtype = torch.float32   # parameter dtype
     gelu_impl: Optional[str] = None            # None → $VIT_TPU_GELU → "tanh_erf"
+    fused_ln: Optional[bool] = None            # pre-LN fused into the qkv/fc1
+                                               # product (kernels/ln_matmul.py);
+                                               # None = off; $VIT_TPU_FUSED_LN
+                                               # overrides
+    fused_fc_grad: Optional[bool] = None       # dW and db of the MLP products
+                                               # in one pass (kernels/fc_grad.py);
+                                               # None = off; $VIT_TPU_FUSED_FC
+                                               # overrides
     ln_affine: bool = False
     attn_out_proj: bool = False
 

@@ -9,6 +9,9 @@
 // A 16 x 16 A-fragment is therefore two neighbouring C tiles (n-tiles 2j and
 // 2j + 1) repacked to bf16, which is how a score or activation accumulator
 // feeds the next product without a shared-memory round trip.
+// Also: ldmatrix (four 8 x 8 tiles of shared memory straight into fragment
+// registers, transposed or not) and cp.async (16-byte copies from device to
+// shared memory that run while the block computes).
 
 #pragma once
 
@@ -58,6 +61,49 @@ __device__ __forceinline__ void mma_row(float (&d)[4], const uint32_t (&a)[KS][4
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
     mma_16816(d, a[ks], ld32(r + ks * 16), ld32(r + ks * 16 + 8));
+}
+
+// Four 8 x 8 bf16 tiles of shared memory into r[0..3]; lanes 8q .. 8q + 7
+// give the addresses of tile q's eight rows (16 bytes each). Lane l gets
+// row l / 4, columns 2(l % 4) and 2(l % 4) + 1 of each tile: an A fragment
+// of a row-major tile, or a B fragment of a Bt[n][k] tile.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// The same, transposed: lane l gets rows 2(l % 4) and 2(l % 4) + 1 of
+// column l / 4, so a tile stored k-major (S[k][m]) gives an A fragment and
+// one stored S[k][n] a B fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// 16 bytes from device memory to shared memory, asynchronously; with
+// src_bytes 0 nothing is read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes = 16) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace vit

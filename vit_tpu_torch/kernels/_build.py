@@ -13,7 +13,9 @@ module.
 
 Every entry takes pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
-code into an exception.
+code into an exception. :func:`check_rows` refuses a large row operand the
+kernels cannot read as it is (it is never copied), and :func:`cuda_arg`
+gives a small one (weights, biases, statistics) the layout they read.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vit_tpu_torch"
@@ -122,6 +126,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     #                   eps, stream)
     lib.convnext_tail_bwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]
     lib.convnext_tail_bwd.restype = i32
+    # ln_matmul_fwd(x, w, b, z, zpre, xhat, N, C, F, gelu, stream)
+    lib.ln_matmul_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.ln_matmul_fwd.restype = i32
+    # ln_matmul_dgelu(zpre, dz, dzc, n, stream)
+    lib.ln_matmul_dgelu.argtypes = [ptr] * 3 + [ctypes.c_longlong, ptr]
+    lib.ln_matmul_dgelu.restype = i32
+    # ln_bwd(x, g, dx, N, C, stream)
+    lib.ln_bwd.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+    lib.ln_bwd.restype = i32
+    # fc_grad(g, x, dw, db, part, part_db, N, Fo, Fi, splits, stream)
+    lib.fc_grad.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.fc_grad.restype = i32
     # vq_nearest(z, codebook, idx, N, C, D, l2_normalize, stream)
     lib.vq_nearest.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.vq_nearest.restype = i32
@@ -148,3 +164,26 @@ def check(lib: ctypes.CDLL, err: int, entry: str) -> None:
     if err:
         msg = lib.vit_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
+
+
+def cuda_arg(t: torch.Tensor, like: torch.Tensor, name: str,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous, 16-byte aligned ``dtype`` tensor on ``like``'s
+    device (the kernels read 16 bytes at a time)."""
+    if t.device != like.device:
+        raise ValueError(f"{name} on {t.device}, the kernel's operands on "
+                         f"{like.device}")
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_rows(t: torch.Tensor, kernel: str, name: str) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned bf16 (N, ·)
+    tensor on a CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{kernel} takes bf16 {name}, got {t.dtype}")
+    if t.dim() != 2 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{kernel} takes a contiguous, 16-byte aligned 2-D "
+                         f"{name}, got {tuple(t.shape)}")

@@ -183,16 +183,6 @@ def _check_cuda(qkv: torch.Tensor, n_heads: int, kernel: str) -> None:
         raise TypeError(f"{kernel} takes bf16 qkv, got {qkv.dtype}")
 
 
-def _cuda_arg(t: torch.Tensor, like: torch.Tensor, name: str,
-              dtype: torch.dtype) -> torch.Tensor:
-    """``t`` as a contiguous, 16-byte aligned ``dtype`` tensor on ``like``'s
-    device (the kernels read 8 values at a time)."""
-    if t.device != like.device:
-        raise ValueError(f"{name} on {t.device}, qkv on {like.device}")
-    t = t.to(dtype).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _bias(qkv: torch.Tensor, qkv_bias: "torch.Tensor | None") -> torch.Tensor:
     three_d = qkv.shape[-1]
     bias = (qkv_bias if qkv_bias is not None
@@ -214,7 +204,7 @@ def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
     b, s, three_d = qkv.shape
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("K1 takes a contiguous, 16-byte aligned qkv")
-    bias = _cuda_arg(bias, qkv, "qkv_bias", torch.bfloat16)
+    bias = _build.cuda_arg(bias, qkv, "qkv_bias", torch.bfloat16)
     out = torch.empty(b, s, three_d // 3, dtype=torch.bfloat16,
                       device=qkv.device)
     m = l = None
@@ -250,10 +240,10 @@ def attention_packed_bwd(qkv: torch.Tensor, bias: torch.Tensor,
             or l.shape != m.shape:
         raise ValueError(f"dout {tuple(dout.shape)}, m {tuple(m.shape)}, "
                          f"l {tuple(l.shape)} do not fit qkv {tuple(qkv.shape)}")
-    bias = _cuda_arg(bias, qkv, "qkv_bias", torch.bfloat16)
-    dout = _cuda_arg(dout, qkv, "dout", torch.bfloat16)
-    m = _cuda_arg(m, qkv, "m", torch.float32)
-    l = _cuda_arg(l, qkv, "l", torch.float32)
+    bias = _build.cuda_arg(bias, qkv, "qkv_bias", torch.bfloat16)
+    dout = _build.cuda_arg(dout, qkv, "dout", torch.bfloat16)
+    m = _build.cuda_arg(m, qkv, "m", torch.float32)
+    l = _build.cuda_arg(l, qkv, "l", torch.float32)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty(three_d, dtype=torch.float32, device=qkv.device)
     delta = torch.empty_like(m)
@@ -395,8 +385,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"m {tuple(m.shape)}, l {tuple(l.shape)} do not fit "
                          f"q {tuple(q.shape)}")
     q, k, v, dout = (_strided(t) for t in (q, k, v, dout))
-    m = _cuda_arg(m, q, "m", torch.float32)
-    l = _cuda_arg(l, q, "l", torch.float32)
+    m = _build.cuda_arg(m, q, "m", torch.float32)
+    l = _build.cuda_arg(l, q, "l", torch.float32)
     dq, dk, dv = (torch.empty(b, h, s, d, dtype=torch.bfloat16,
                               device=q.device) for _ in range(3))
     delta = torch.empty_like(m)

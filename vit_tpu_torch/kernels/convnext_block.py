@@ -112,13 +112,8 @@ def _check_cuda(h: torch.Tensor, rows: "tuple[torch.Tensor, ...]",
 
 
 def _weights(h: torch.Tensor, *params: torch.Tensor) -> list:
-    out = []
-    for p in params:
-        if p.device != h.device:
-            raise ValueError(f"parameter on {p.device}, rows on {h.device}")
-        p = p.to(torch.bfloat16).contiguous()
-        out.append(p if p.data_ptr() % 16 == 0 else p.clone())
-    return out
+    return [_build.cuda_arg(p, h, "parameter", torch.bfloat16)
+            for p in params]
 
 
 def _shapes(c: int, lns, lnb, w1, b1, w2, b2=None, gamma=None) -> None:
