@@ -10,7 +10,9 @@ at bs 64 with the frozen ConvNeXt-S perceptual loss, unfused and with the
 fused LayerNorm → matmul and dW + db kernels switched on, and the VideoGPT-B AR
 prior (16 frames × 64 codes, S = 1024, over a frozen random TiTok-S at
 image 64): its training step at bs 32 and its greedy KV-cache rollout served
-over HTTP. Phases, one JSON line each:
+over HTTP; then the flagship step with the int8 perceptual loss
+(``--perceptual_quant int8``) and the perceptual loss alone under both of its
+switches (``dw_impl``, ``quant``). Phases, one JSON line each:
 
   1. device   — fails without CUDA; card name and power limit; TF32 off;
   2. build    — compiles the CUDA kernels from ``vit_tpu_torch/csrc``, one
@@ -22,7 +24,9 @@ over HTTP. Phases, one JSON line each:
                 as named, the product inside it) where there is one
                 (``F.scaled_dot_product_attention`` for the attention
                 kernels, with the backend it picked; ``F.linear`` for K9a,
-                ``torch.mm`` for K10);
+                ``torch.mm`` for K10, ``F.conv2d`` and its backward for
+                K11a/K11b, ``torch._int_mm`` for K12a/K12b); K7 at its own
+                shape (2, 12, 513);
   4. slice    — export → load → HTTP server; concurrent /encode requests,
                 /decode of the indices; checks shapes, ranges, a 400, that
                 every kernel launched during those requests, that the served
@@ -65,7 +69,20 @@ over HTTP. Phases, one JSON line each:
                 launches per rollout (the prefill); the prefill's logits
                 against the plain versions and the first generated code equal
                 or a near-tie; generated tokens/s per request; the device's
-                busy time in one rollout against the host's.
+                busy time in one rollout against the host's;
+ 10. train_int8 — the flagship step on the same weights and batch with
+                ``PerceptualLoss(quant="int8")`` (``bench.py
+                --perceptual_quant int8``): the launches of one step (K12a
+                66, K12b 33 in place of K3/K4); its first step against the
+                plain versions; the int8 perceptual loss's gap from the bf16
+                one; 20 steps lower the recon loss; step time, images/s and
+                peak memory in turns with the bf16 step; a profile of one
+                int8 step;
+ 11. perceptual — ``scripts/bench_perceptual.py``'s measurement: the loss and
+                its image gradient at bs 64, image 128, under ``dw_impl`` ∈
+                {lax, pallas} × ``quant`` ∈ {none, int8}: launches per call
+                (K11a 72, K11b 36 under pallas), each kernel arm against its
+                plain versions, ms per call and a profile of one call.
 
 Then the kernels' summary line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -101,6 +118,7 @@ sys.path.insert(0, str(ROOT))
 from vit_tpu_torch.kernels import _build  # noqa: E402
 from vit_tpu_torch.kernels import attention as k_attn  # noqa: E402
 from vit_tpu_torch.kernels import convnext_block as k_cnx  # noqa: E402
+from vit_tpu_torch.kernels import depthwise as k_dw  # noqa: E402
 from vit_tpu_torch.kernels import fc_grad as k_fc  # noqa: E402
 from vit_tpu_torch.kernels import ln_matmul as k_lnmm  # noqa: E402
 from vit_tpu_torch.kernels import vq as k_vq  # noqa: E402
@@ -149,10 +167,13 @@ TRAIN_BS = 64
 # (stage, blocks, rows at bs 64, C) of ConvNeXt-S at 224: the fused tails
 CNX_STAGES = ((0, 3, TRAIN_BS * 56 * 56, 96), (1, 3, TRAIN_BS * 28 * 28, 192),
               (2, 27, TRAIN_BS * 14 * 14, 384))
-NO_FUSED = dict(ln_matmul_fwd=0, ln_matmul_dgelu=0, ln_bwd=0, fc_grad=0)
+# The kernels that only a switch launches (fused LN and FC, dw_impl, int8)
+SWITCHED_OFF = dict(ln_matmul_fwd=0, ln_matmul_dgelu=0, ln_bwd=0, fc_grad=0,
+                    depthwise_fwd=0, depthwise_bwd=0, convnext_tail_fwd_q8=0,
+                    convnext_tail_bwd_q8=0)
 STEP_LAUNCHES = dict(attention_packed_fwd=24, attention_packed_bwd=24,
                      convnext_tail_fwd=66, convnext_tail_bwd=33, vq_nearest=1,
-                     attention_fwd=0, attention_bwd=0, **NO_FUSED)
+                     attention_fwd=0, attention_bwd=0, **SWITCHED_OFF)
 # The same step under VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1: K9a at the qkv
 # and fc1 sites of the 24 layers (encoder and decoder), K9b at fc1, K9c in
 # both sites' backward, K10 at fc2 (fc1's gradient comes from K9a's
@@ -161,6 +182,34 @@ STEP_LAUNCHES = dict(attention_packed_fwd=24, attention_packed_bwd=24,
 FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, ln_matmul_fwd=48, ln_matmul_dgelu=24,
                            ln_bwd=48, fc_grad=24)
 FC_STEP_LAUNCHES = dict(STEP_LAUNCHES, fc_grad=48)
+# The same step with PerceptualLoss(quant="int8"): K12a at the 33 fused
+# blocks of both images, K12b at the reconstruction's, no K3/K4.
+INT8_STEP_LAUNCHES = dict(STEP_LAUNCHES, convnext_tail_fwd=0,
+                          convnext_tail_bwd=0, convnext_tail_fwd_q8=66,
+                          convnext_tail_bwd_q8=33)
+# The perceptual loss and its image gradient alone (36 blocks, both images
+# forward, x backward), per call and arm; the kernels of the other arms 0.
+PERCEPTUAL_BS = 64
+PERCEPTUAL_ARMS = (("lax", "none"), ("pallas", "none"), ("lax", "int8"),
+                   ("pallas", "int8"))
+# The perceptual phase's net has γ around 0.5 (the init's 1e-6 would hide
+# every tail under the residual), so the kernels' bf16 roundings, and the
+# int8 levels they flip, travel through 36 blocks and back: loss within 1e-2
+# of the plain versions', the image gradient within 1e-1 of max |plain| and
+# of mean |plain|. Measured on an H100: the default arm, whose only kernels
+# are K3 and K4, loss 1.6e-4 and gradient 2.6e-2 (max) / 2.7e-2 (mean); the
+# int8 arms 5.6e-4 and 4.7e-2 / 5.1e-2. Each kernel alone is held far
+# tighter in the kernel phase.
+PERCEPTUAL_LOSS_REL = 1e-2
+PERCEPTUAL_GRAD_MAX_REL = PERCEPTUAL_GRAD_MEAN_REL = 1e-1
+# The int8 perceptual loss against the bf16 one on the same batch: the JAX
+# package's own bound (tests/test_convnext_block.py:207).
+INT8_LOSS_GAP = 0.2
+# K11 against its plain version: fp32 within 2e-5 of max |plain| (the same
+# sums, fused multiply-adds), bf16 within one bf16 ulp; dw and db, sums over
+# the batch in another order, within 1e-4 of max |plain|. K12 within 1e-2 of
+# max |plain| (an int8 level flips where the fp32 values round apart).
+K11_REL, K11_DW_REL, K12_REL = 2e-5, 1e-4, 1e-2
 N_ROWS = TRAIN_BS * 320   # rows of every transformer layer of the step
 # VideoGPT-B (train_videogpt.py's defaults): 16 frames of 64 codes from a
 # random TiTok-S at image 64, patch 8 (its encoder at S = 128), bs 32.
@@ -174,7 +223,7 @@ VIDEO_BS = 32
 VIDEO_STEP_LAUNCHES = dict(attention_packed_fwd=6, attention_packed_bwd=0,
                            convnext_tail_fwd=0, convnext_tail_bwd=0,
                            vq_nearest=1, attention_fwd=12, attention_bwd=12,
-                           **NO_FUSED)
+                           **SWITCHED_OFF)
 # The prefill's last-position logits with the kernels and through the plain
 # versions: bf16 noise through 12 layers, as the TiTok-B slice's latents.
 PREFILL_MAX_REL = 2e-2
@@ -184,6 +233,7 @@ ROLLOUT_COND, ROLLOUT_GEN = 8, 8    # frames in, frames out
 # for their type and its bytes (each input read once, each output written
 # once) over the memory rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -232,6 +282,8 @@ def reset_launches() -> None:
     k_vq.launches = 0
     k_lnmm.launches = k_lnmm.dgelu_launches = k_lnmm.ln_bwd_launches = 0
     k_fc.launches = 0
+    k_dw.launches = k_dw.bwd_launches = 0
+    k_cnx.q8_launches = k_cnx.q8_bwd_launches = 0
 
 
 def read_launches() -> dict:
@@ -244,7 +296,10 @@ def read_launches() -> dict:
                 attention_bwd=k_attn.unpacked_bwd_launches,
                 ln_matmul_fwd=k_lnmm.launches,
                 ln_matmul_dgelu=k_lnmm.dgelu_launches,
-                ln_bwd=k_lnmm.ln_bwd_launches, fc_grad=k_fc.launches)
+                ln_bwd=k_lnmm.ln_bwd_launches, fc_grad=k_fc.launches,
+                depthwise_fwd=k_dw.launches, depthwise_bwd=k_dw.bwd_launches,
+                convnext_tail_fwd_q8=k_cnx.q8_launches,
+                convnext_tail_bwd_q8=k_cnx.q8_bwd_launches)
 
 
 def bound(flop: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
@@ -332,7 +387,11 @@ def plain_versions():
               (k_lnmm, "ln_matmul_fwd", k_lnmm.ln_matmul_fwd_ref),
               (k_lnmm, "ln_matmul_dgelu", k_lnmm.ln_matmul_dgelu_ref),
               (k_lnmm, "ln_bwd", k_lnmm.ln_bwd_ref),
-              (k_fc, "matmul_dw_db", k_fc.matmul_dw_db_ref)]
+              (k_fc, "matmul_dw_db", k_fc.matmul_dw_db_ref),
+              (k_cnx, "convnext_tail_fwd_q8", k_cnx.convnext_tail_fwd_q8_ref),
+              (k_cnx, "convnext_tail_bwd_q8", k_cnx.convnext_tail_bwd_q8_ref),
+              (k_dw, "depthwise_fwd", k_dw.depthwise_fwd_ref),
+              (k_dw, "depthwise_bwd", k_dw.depthwise_bwd_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
     for mod, name, plain in routes:
         setattr(mod, name, plain)
@@ -416,6 +475,28 @@ def phase_device() -> str:
     return card
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled entry name, with its template
+    argument: the first length-prefixed identifier that ends in
+    ``_kernel``, e.g. ``convnext_tail_fwd_q8_kernel<384>``."""
+    args = {"f": "float", "13__nv_bfloat16": "bf16"}
+    i = 0
+    while i < len(mangled):
+        digits = re.match(r"\d+", mangled[i:])
+        if not digits:
+            i += 1
+            continue
+        start = i + len(digits.group())
+        end = start + int(digits.group())
+        if mangled[start:end].endswith("_kernel"):
+            tmpl = re.match(r"I(?:Li(\d+)|(f|13__nv_bfloat16))E", mangled[end:])
+            if not tmpl:
+                return mangled[start:end]
+            return f"{mangled[start:end]}<{tmpl.group(1) or args[tmpl.group(2)]}>"
+        i = end
+    return mangled
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     lib = _build.load()
@@ -425,11 +506,9 @@ def phase_build() -> None:
     # name and its template argument: registers, shared memory, spills
     ptxas, name = {}, None
     for line in (log.read_text().splitlines() if log.exists() else []):
-        entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
-                          r"(?:ILi(\d+)E)?", line)
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = entry.group(1) + (f"<{entry.group(2)}>"
-                                     if entry.group(2) else "")
+            name = kernel_name(entry.group(1))
         elif name and ("registers" in line or "spill" in line):
             ptxas[name] = (ptxas.get(name, "") + " "
                            + line.split(":", 1)[-1].strip()).strip()
@@ -557,23 +636,12 @@ def phase_kernels() -> dict:
 
     # K3 / K4: the three fused stages of ConvNeXt-S at bs 64, and ragged N.
     # γ of order 1 (not the init's 1e-6) so the tail shows in y.
-    def tail_inputs(n, c):
-        def r(*shape, scale=1.0):
-            return scale * torch.randn(*shape, device="cuda", generator=gen)
-        h = r(n, c).bfloat16()
-        x = r(n, c).bfloat16()
-        dy = r(n, c).bfloat16()
-        params = (1.0 + r(c, scale=0.1), r(c, scale=0.1),
-                  r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1),
-                  r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1),
-                  r(c, scale=1.0))
-        return h, x, dy, params
-
     tails = {"convnext_tail_fwd": dict(rows=[], max=0.0, ms={}, plain_ms={}),
              "convnext_tail_bwd": dict(rows=[], max=0.0, ms={}, plain_ms={})}
     shapes = [(n, c) for _, _, n, c in CNX_STAGES] + [(1000, 96), (777, 384)]
     for n, c in shapes:
-        h, x, dy, (lns, lnb, w1, b1, w2, b2, gamma) = tail_inputs(n, c)
+        (h, x, dy), (lns, lnb, w1, b1, w2, b2, gamma) = random_tail(
+            n, c, gen, gamma_scale=1.0)
         fwd_args = (h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6)
         bwd_args = (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)
         runs = {"convnext_tail_fwd": (k_cnx.convnext_tail_fwd,
@@ -696,6 +764,8 @@ def phase_kernels() -> dict:
                                  library_ms=None)
     summary.update(unpacked_kernels(gen))
     summary.update(fused_kernels(gen))
+    summary.update(int8_tail_kernels(gen))
+    summary.update(depthwise_kernels(gen))
     return summary
 
 
@@ -809,6 +879,20 @@ def unpacked_kernels(gen) -> dict:
               plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
                   q, k, v, dout, m, l, True), 5),
               sdpa=sdpa_backward_ms(q, k, v, dout, True))
+    # K7's own shape (S ≤ 768: the TPU's untiled backward), held above
+    k7_q, k7_k, k7_v = head_views(2, 12, 513, gen, packed=False)
+    k7_dout = torch.randn(2, 513, 12, 64, device="cuda",
+                          generator=gen).bfloat16().transpose(1, 2)
+    _, k7_m, k7_l = k_attn.attention_fwd(k7_q, k7_k, k7_v, True,
+                                         emit_stats=True)
+    k7 = dict(ms=median_ms(lambda: k_attn.attention_bwd(
+                  k7_q, k7_k, k7_v, k7_dout, k7_m, k7_l, True)),
+              plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
+                  k7_q, k7_k, k7_v, k7_dout, k7_m, k7_l, True), 5),
+              sdpa=sdpa_backward_ms(k7_q, k7_k, k7_v, k7_dout, True),
+              bound=attention_bound(2, 12, 513, True, True))
+    emit("kernel", name="attention_bwd", what="K7's shape",
+         shape="(2, 12, S 513, 64) bf16 causal", **k7)
     k6_bound = attention_bound(b, 12, s, True, False)
     k8_bound = attention_bound(b, 12, s, True, True)
     emit("kernel", name="attention_fwd", parity=k6_rows,
@@ -1017,6 +1101,192 @@ def fused_kernels(gen) -> dict:
         library="torch.mm(g.t(), x) in bf16: dW alone, rounded to bf16, no db")
     torch.cuda.empty_cache()
     return summary
+
+
+def random_tail(n: int, c: int, gen, gamma_scale: float = 0.5):
+    """bf16 rows h, x, dy and a tail's fp32 parameters in the Linear layout,
+    γ of order ``gamma_scale`` (the init's 1e-6 would hide the tail under
+    x)."""
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+    rows = tuple(r(n, c).bfloat16() for _ in range(3))
+    params = (1.0 + r(c, scale=0.1), r(c, scale=0.1),
+              r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1),
+              r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1),
+              r(c, scale=gamma_scale))
+    return rows, params
+
+
+def int8_tail_kernels(gen) -> dict:
+    """K12a and K12b against their plain versions at the three fused stages'
+    shapes of the int8 step and a ragged N, then their times, bounds and the
+    time of their int8 products alone (``torch._int_mm``) at N 12544,
+    C 384."""
+    runs = {"convnext_tail_fwd_q8": dict(rows=[], max=0.0),
+            "convnext_tail_bwd_q8": dict(rows=[], max=0.0)}
+    for n, c in [(n, c) for _, _, n, c in CNX_STAGES] + [(777, 384)]:
+        (h, x, dy), (lns, lnb, w1, b1, w2, b2, gamma) = random_tail(n, c, gen)
+        calls = {"convnext_tail_fwd_q8": (
+                     k_cnx.convnext_tail_fwd_q8, k_cnx.convnext_tail_fwd_q8_ref,
+                     (h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6)),
+                 "convnext_tail_bwd_q8": (
+                     k_cnx.convnext_tail_bwd_q8, k_cnx.convnext_tail_bwd_q8_ref,
+                     (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6))}
+        for name, (kernel, plain, args) in calls.items():
+            out = kernel(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            bf16_tail = (k_cnx.convnext_tail_fwd(*args) if name.endswith("fwd_q8")
+                         else k_cnx.convnext_tail_bwd(*args))
+            row = dict(N=n, C=c, **rel_errors(out, ref),
+                       differs_from_bf16_tail=not torch.equal(out, bf16_tail))
+            runs[name]["rows"].append(row)
+            require(bool(torch.isfinite(out).all()) and row["max_rel"] <= K12_REL
+                    and row["differs_from_bf16_tail"],
+                    f"{name} disagrees with its plain version: {row}")
+            runs[name]["max"] = max(runs[name]["max"], row["max_abs"])
+            if (n, c) == (CNX_STAGES[2][2], 384):
+                runs[name]["ms"] = median_ms(lambda: kernel(*args))
+                runs[name]["plain_ms"] = median_ms(lambda: plain(*args), 5)
+        if (n, c) == (CNX_STAGES[2][2], 384):
+            # the products alone, on int8 operands of the same shapes
+            def q(*shape):
+                return torch.randint(-127, 128, shape, device="cuda",
+                                     generator=gen, dtype=torch.int8)
+            a_c, a_4c = q(n, c), q(n, 4 * c)
+            w_c4c, w_4cc = q(4 * c, c).t(), q(c, 4 * c).t()   # column-major
+            runs["convnext_tail_fwd_q8"]["library_ms"] = median_ms(
+                lambda: (torch._int_mm(a_c, w_c4c), torch._int_mm(a_4c, w_4cc)))
+            runs["convnext_tail_bwd_q8"]["library_ms"] = median_ms(
+                lambda: (torch._int_mm(a_c, w_c4c), torch._int_mm(a_c, w_c4c),
+                         torch._int_mm(a_4c, w_4cc)))
+        del h, x, dy
+        torch.cuda.empty_cache()
+    # At C 384, N 12544: the forward's two products of N·C·4C
+    # multiply-adds (int8 operations, 2 each), the backward's three (z
+    # recomputed, da, du); h and x (h and dy) read, y (dh) written in bf16,
+    # the int8 weights and their scales read.
+    n, c = CNX_STAGES[2][2], 384
+    rows = 3 * n * c * 2
+    bounds = {"convnext_tail_fwd_q8": bound(
+                  16 * n * c * c, rows + 2 * 4 * c * c + 4 * (4 * c + c),
+                  peak=PEAK_INT8_OPS),
+              "convnext_tail_bwd_q8": bound(
+                  24 * n * c * c, rows + 3 * 4 * c * c + 4 * (8 * c + c),
+                  peak=PEAK_INT8_OPS)}
+    summary = {}
+    library = "torch._int_mm of the int8 products alone (2 forward, 3 backward)"
+    for name, t in runs.items():
+        emit("kernel", name=name, parity=t["rows"],
+             tolerance=dict(max_rel=K12_REL), ms_C384=t["ms"],
+             plain_ms_C384=t["plain_ms"], library_ms_C384=t["library_ms"],
+             library=library, bound_C384=bounds[name],
+             shape="(bs 64 · H · W, C) bf16 rows of ConvNeXt-S stages 0-2",
+             summary_shape="C 384, N 12544 (27 of the 33 fused blocks)")
+        summary[name] = dict(max_abs_err=t["max"], ms=t["ms"],
+                             plain_ms=t["plain_ms"],
+                             bound_ms=bounds[name]["bound_ms"],
+                             bound_by=bounds[name]["bound_by"],
+                             library_ms=t["library_ms"], library=library)
+    return summary
+
+
+def depthwise_kernels(gen) -> dict:
+    """K11a and K11b against their plain versions in fp32 and bf16 at
+    ConvNeXt-S's first and last stage at bs 64 and a ragged shape (W over
+    one 32-column tile, C not a multiple of 32), then their bf16 times,
+    bounds and cuDNN's (``F.conv2d`` channels-last, and its backward)."""
+    def one_ulp(out, ref) -> int:
+        return beyond_one_ulp(out, ref)["beyond_one_ulp_no_floor"]
+
+    rows, worst = [], {"depthwise_fwd": 0.0, "depthwise_bwd": 0.0}
+    times = {}
+    for shape in [(TRAIN_BS, 56, 56, 96), (TRAIN_BS, 7, 7, 768), (3, 13, 37, 40)]:
+        c = shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(7, 7, c, device="cuda", generator=gen) / 7).to(dtype)
+            b = torch.randn(c, device="cuda", generator=gen).to(dtype)
+            y = k_dw.depthwise_fwd(x, w, b)
+            dx, dw, db = k_dw.depthwise_bwd(x, g, w)
+            dx2, dw2, db2 = k_dw.depthwise_bwd(x, g, w)
+            torch.cuda.synchronize()
+            y_ref = k_dw.depthwise_fwd_ref(x, w, b)
+            dx_ref, dw_ref, db_ref = k_dw.depthwise_bwd_ref(x, g, w)
+            row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                       y=rel_errors(y, y_ref), dx=rel_errors(dx, dx_ref),
+                       dw=rel_errors(dw, dw_ref), db=rel_errors(db, db_ref),
+                       deterministic=bool(torch.equal(dw, dw2)
+                                          and torch.equal(db, db2)
+                                          and torch.equal(dx, dx2)))
+            if dtype == torch.bfloat16:
+                row["y_beyond_one_ulp"] = one_ulp(y, y_ref)
+                row["dx_beyond_one_ulp"] = one_ulp(dx, dx_ref)
+                close = row["y_beyond_one_ulp"] == row["dx_beyond_one_ulp"] == 0
+            else:
+                close = (row["y"]["max_rel"] <= K11_REL
+                         and row["dx"]["max_rel"] <= K11_REL)
+            rows.append(row)
+            require(all(bool(torch.isfinite(t).all()) for t in (y, dx, dw, db))
+                    and close and row["dw"]["max_rel"] <= K11_DW_REL
+                    and row["db"]["max_rel"] <= K11_DW_REL
+                    and row["deterministic"],
+                    f"K11 disagrees with its plain version: {row}")
+            worst["depthwise_fwd"] = max(worst["depthwise_fwd"], row["y"]["max_abs"])
+            worst["depthwise_bwd"] = max(worst["depthwise_bwd"], row["dx"]["max_abs"])
+            if dtype == torch.bfloat16 and shape[0] == TRAIN_BS:
+                # cuDNN on the same bf16 tensors, channels-last
+                xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+                wc = w.permute(2, 0, 1)[:, None].contiguous()
+                n_el = x.numel()
+                t = dict(
+                    fwd_ms=median_ms(lambda: k_dw.depthwise_fwd(x, w, b)),
+                    fwd_plain_ms=median_ms(
+                        lambda: k_dw.depthwise_fwd_ref(x, w, b), 5),
+                    fwd_library_ms=median_ms(lambda: F.conv2d(
+                        xc, wc, b, padding=3, groups=c)),
+                    bwd_ms=median_ms(lambda: k_dw.depthwise_bwd(x, g, w)),
+                    bwd_plain_ms=median_ms(
+                        lambda: k_dw.depthwise_bwd_ref(x, g, w), 5),
+                    bwd_library_ms=median_ms(
+                        lambda: torch.ops.aten.convolution_backward(
+                            gc, xc, wc, [c], [1, 1], [3, 3], [1, 1], False,
+                            [0, 0], c, [True, True, True])),
+                    # 49 fp32 multiply-adds per output element (forward; the
+                    # backward's dx and dw 98, db 1), against x read and y
+                    # written (x, g read, dx written) in bf16, the taps read
+                    # and dw, db written in fp32
+                    fwd_bound=bound(2 * 49 * n_el, 2 * 2 * n_el + 2 * 50 * c,
+                                    peak=PEAK_FP32_FLOPS),
+                    bwd_bound=bound(197 * n_el, 3 * 2 * n_el + 2 * 49 * c
+                                    + 4 * 50 * c, peak=PEAK_FP32_FLOPS))
+                times[tuple(shape)] = t
+            del x, g, w, b, y, dx, dw, db, dx2, dw2, db2, y_ref, dx_ref
+            torch.cuda.empty_cache()
+    emit("kernel", name="depthwise", parity=rows,
+         tolerance=dict(fp32_max_rel=K11_REL, bf16="one bf16 ulp",
+                        dw_db_max_rel=K11_DW_REL),
+         library="F.conv2d(groups=C) on channels-last bf16; "
+                 "aten.convolution_backward for K11b",
+         times={str(k): v for k, v in times.items()})
+    first = times[(TRAIN_BS, 56, 56, 96)]
+    library = ("F.conv2d(groups=C) / aten.convolution_backward, "
+               "channels-last bf16")
+    return {"depthwise_fwd": dict(
+                max_abs_err=worst["depthwise_fwd"], ms=first["fwd_ms"],
+                plain_ms=first["fwd_plain_ms"],
+                bound_ms=first["fwd_bound"]["bound_ms"],
+                bound_by=first["fwd_bound"]["bound_by"],
+                library_ms=first["fwd_library_ms"], library=library,
+                shape="(64, 56, 56, 96) bf16"),
+            "depthwise_bwd": dict(
+                max_abs_err=worst["depthwise_bwd"], ms=first["bwd_ms"],
+                plain_ms=first["bwd_plain_ms"],
+                bound_ms=first["bwd_bound"]["bound_ms"],
+                bound_by=first["bwd_bound"]["bound_by"],
+                library_ms=first["bwd_library_ms"], library=library,
+                shape="(64, 56, 56, 96) bf16")}
 
 
 def phase_slice(work: Path, model: TiTok) -> dict:
@@ -1658,6 +1928,163 @@ def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
     return {k: launches[1][k] + launches[8][k] for k in launches[1]}
 
 
+def phase_train_int8(model: TiTok, weights: dict, perceptual, images,
+                     card: str) -> dict:
+    """The flagship step with the int8 perceptual loss, as ``bench.py
+    --perceptual_quant int8`` builds it, on the same weights and batch as
+    ``phase_train``: launches, the first step against the plain versions,
+    the int8 perceptual loss against the bf16 one, learning, and step time
+    in turns with the bf16 step. Returns the launches."""
+    net = ConvNeXt(dtype=torch.bfloat16, quant="int8")
+    net.load_state_dict(perceptual.net.state_dict())
+    q8 = PerceptualLoss(net).cuda()
+    model = model.cuda().train()
+    steps = {"int8": make_tokenizer_train_step(model, perceptual_loss_fn=q8),
+             "bf16": make_tokenizer_train_step(model,
+                                               perceptual_loss_fn=perceptual)}
+    usage = torch.zeros(model.config.codebook_size, device="cuda")
+
+    def first_step(arm: str, ctx=contextlib.nullcontext):
+        model.load_state_dict(weights)
+        state = TrainState.create(model, flagship_optimizer())
+        with ctx():
+            torch.cuda.synchronize()
+            reset_launches()   # the main path's run starts here
+            _, _, metrics, recon = steps[arm](state, images,
+                                              torch.zeros_like(usage))
+            torch.cuda.synchronize()
+            launches = read_launches()
+        metrics = {k: v.item() for k, v in metrics.items()}
+        require(recon.shape == images.shape
+                and bool(torch.isfinite(recon).all())
+                and all(np.isfinite(v) for v in metrics.values()),
+                f"{arm} step: {metrics}")
+        return launches, metrics
+
+    launches, q = first_step("int8")
+    require(launches == INT8_STEP_LAUNCHES,
+            f"one int8 step launched {launches}, expected {INT8_STEP_LAUNCHES}")
+    _, plain = first_step("int8", plain_versions)
+    _, bf = first_step("bf16")
+    rel = {k: abs(q[k] - plain[k]) / abs(plain[k])
+           for k in ("train/loss", "train/perceptual_loss", "train/grad_norm")}
+    gap = (abs(q["train/perceptual_loss"] - bf["train/perceptual_loss"])
+           / abs(bf["train/perceptual_loss"]))
+    emit("train_int8", what="first int8 step vs plain versions, and its "
+         "perceptual loss vs the bf16 one", launches=launches, metrics=q,
+         plain_metrics=plain, bf16_metrics=bf, rel_diff_plain=rel,
+         perceptual_gap_vs_bf16=gap,
+         tolerance=dict(loss_rel=STEP_LOSS_REL,
+                        grad_norm_rel=STEP_GRAD_NORM_REL, gap=INT8_LOSS_GAP))
+    require(rel["train/loss"] <= STEP_LOSS_REL
+            and rel["train/perceptual_loss"] <= STEP_LOSS_REL
+            and rel["train/grad_norm"] <= STEP_GRAD_NORM_REL,
+            f"int8 step vs plain versions: {rel}")
+    require(gap <= INT8_LOSS_GAP, f"int8 vs bf16 perceptual loss: {gap}")
+
+    # Learning: 20 int8 steps on the same batch with a 2-step warmup.
+    model.load_state_dict(weights)
+    quick = TrainState.create(model, make_optimizer(1e-4, 2, 1_000_000, 1e-5,
+                                                    1e-4, clip_norm=1.0))
+    recon_losses = torch.stack([steps["int8"](quick, images, usage)[2]
+                                ["train/recon_loss"]
+                                for _ in range(20)]).tolist()
+    emit("train_int8", what="learning on one batch, lr 1e-4, warmup 2",
+         first_recon_loss=recon_losses[0], last_recon_loss=recon_losses[-1],
+         recon_losses=recon_losses)
+    require(recon_losses[-1] < recon_losses[0],
+            f"recon loss did not fall: {recon_losses[0]} -> {recon_losses[-1]}")
+
+    # Step time in turns, bf16 / int8 / int8 / bf16: host clock around
+    # synchronised steps, median of 5 after 2.
+    timing = {"bf16": [], "int8": []}
+    for arm in ("bf16", "int8", "int8", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_median_ms(lambda: (steps[arm](quick, images, usage),
+                                     torch.cuda.synchronize()), 5)
+        timing[arm].append(dict(step_ms=ms, images_per_s=TRAIN_BS / ms * 1e3,
+                                peak_gb=torch.cuda.max_memory_allocated()
+                                / 2**30))
+    emit("train_int8", what="throughput at bs 64, int8 vs bf16 perceptual "
+         "loss, in turns", card=card, **timing)
+    emit("train_int8", what="profile of one int8 step", card=card,
+         **profile_window(lambda: steps["int8"](quick, images, usage)))
+    del quick, q8, net, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_perceptual(state_dict: dict, card: str) -> dict:
+    """``scripts/bench_perceptual.py``'s measurement: the perceptual loss
+    and its gradient with respect to x at bs 64, image 128, under the four
+    arms of ``dw_impl`` × ``quant``, each with its launches per call, against
+    its plain versions, its time and a profile of one call. The net is the
+    flagship's, with γ drawn around 0.5. Returns the launches of one call of
+    each arm."""
+    rng = np.random.default_rng(3)
+    x, y = (torch.from_numpy(rng.uniform(0, 1, (PERCEPTUAL_BS, 128, 128, 3))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state_dict = dict(state_dict)
+    for k in state_dict:
+        if k.endswith(".gamma"):
+            state_dict[k] = 0.5 + 0.1 * torch.randn(
+                state_dict[k].shape, device="cuda", generator=gen)
+    total, arms = {}, {}
+    for dw_impl, quant in PERCEPTUAL_ARMS:
+        net = ConvNeXt(dtype=torch.bfloat16, dw_impl=dw_impl, quant=quant)
+        net.load_state_dict(state_dict)
+        loss_fn = PerceptualLoss(net).cuda()
+        xg = x.clone().requires_grad_()
+
+        def call():
+            loss = loss_fn(xg, y)
+            return loss, torch.autograd.grad(loss, xg)[0]
+
+        torch.cuda.synchronize()
+        reset_launches()   # the main path's run starts here
+        loss, grad = call()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with plain_versions():
+            plain_loss, plain_grad = call()
+        torch.cuda.synchronize()
+        want = dict.fromkeys(launches, 0)
+        want.update(depthwise_fwd=72 if dw_impl == "pallas" else 0,
+                    depthwise_bwd=36 if dw_impl == "pallas" else 0)
+        tails = ("convnext_tail_fwd_q8", "convnext_tail_bwd_q8") \
+            if quant == "int8" else ("convnext_tail_fwd", "convnext_tail_bwd")
+        want.update({tails[0]: 66, tails[1]: 33})
+        name = f"dw_{dw_impl}_quant_{quant}"
+        arms[name] = dict(
+            launches={k: v for k, v in launches.items() if v},
+            loss=loss.item(), plain_loss=plain_loss.item(),
+            loss_rel=abs(loss.item() - plain_loss.item()) / abs(plain_loss.item()),
+            grad=rel_errors(grad, plain_grad),
+            ms=host_median_ms(lambda: (call(), torch.cuda.synchronize()), 5),
+            profile=profile_window(call))
+        arms[name]["expected_launches"] = launches == want
+        arms[name]["finite"] = bool(torch.isfinite(grad).all()
+                                    and grad.abs().max() > 0)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del net, loss_fn, xg, loss, grad, plain_loss, plain_grad
+        torch.cuda.empty_cache()
+    emit("perceptual", what="loss and image gradient at bs 64, image 128",
+         card=card, arms=arms,
+         tolerance=dict(loss_rel=PERCEPTUAL_LOSS_REL,
+                        grad_max_rel=PERCEPTUAL_GRAD_MAX_REL,
+                        grad_mean_rel=PERCEPTUAL_GRAD_MEAN_REL))
+    for name, arm in arms.items():
+        require(arm["expected_launches"],
+                f"{name}: one call launched {arm['launches']}")
+        require(arm["finite"] and arm["loss_rel"] <= PERCEPTUAL_LOSS_REL
+                and arm["grad"]["max_rel"] <= PERCEPTUAL_GRAD_MAX_REL
+                and arm["grad"]["mean_rel"] <= PERCEPTUAL_GRAD_MEAN_REL,
+                f"{name} vs its plain versions: {arm}")
+    return total
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -1676,13 +2103,17 @@ def main() -> None:
         train_launches = phase_train(model, perceptual, images, card)
         fused_launches = phase_train_fused(model, weights, perceptual,
                                            images, card)
+        int8_launches = phase_train_int8(model, weights, perceptual, images,
+                                         card)
+        perceptual_launches = phase_perceptual(perceptual.net.state_dict(),
+                                               card)
         del model, weights, perceptual, images
         torch.cuda.empty_cache()
         gpt, tokens, gpt_launches = phase_videogpt_train(card)
         rollout_launches = phase_videogpt_rollout(Path(tmp), gpt, tokens,
                                                   card)
     for path in (train_launches, fused_launches, gpt_launches,
-                 rollout_launches):
+                 rollout_launches, int8_launches, perceptual_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1711,6 +2142,14 @@ def main() -> None:
                    "vit_tpu/kernels/ln_matmul.py:78"),
         "fc_grad": ("vit_tpu_torch/csrc/fc_grad.cu",
                     "vit_tpu/kernels/fc_grad.py:74"),
+        "depthwise_fwd": ("vit_tpu_torch/csrc/depthwise.cu",
+                          "vit_tpu/kernels/depthwise.py:24"),
+        "depthwise_bwd": ("vit_tpu_torch/csrc/depthwise.cu",
+                          "vit_tpu/kernels/depthwise.py:77"),
+        "convnext_tail_fwd_q8": ("vit_tpu_torch/csrc/convnext_tail_q8.cu",
+                                 "vit_tpu/kernels/convnext_block.py:148"),
+        "convnext_tail_bwd_q8": ("vit_tpu_torch/csrc/convnext_tail_q8.cu",
+                                 "vit_tpu/kernels/convnext_block.py:172"),
     }
     also = {"attention_bwd": "vit_tpu/kernels/attention.py:201"}
     missing = [name for name in sources if launches.get(name, 0) == 0]

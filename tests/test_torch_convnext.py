@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from torch_port_helpers import (CONVNEXT, TINY_FUSED_DIM, convnext_params,
-                                jax_perceptual, port_perceptual)
+                                jax_perceptual, port_perceptual, scaled_err,
+                                tail_inputs)
 from vit_tpu.kernels.convnext_block import \
     frozen_convnext_block_tail as jax_tail
 from vit_tpu.losses.resize import resize_bilinear_antialias as jax_resize
@@ -36,27 +37,10 @@ def params():
     return convnext_params()
 
 
-def _tail_inputs(n, c, seed):
-    rng = np.random.default_rng(seed)
-
-    def r(*shape, scale=1.0):
-        return (scale * rng.normal(size=shape)).astype(np.float32)
-
-    return dict(h=r(n, c), x=r(n, c), dy=r(n, c), lns=1.0 + r(c, scale=0.1),
-                lnb=r(c, scale=0.1), w1=r(c, 4 * c, scale=c ** -0.5),
-                b1=r(4 * c, scale=0.1), w2=r(4 * c, c, scale=(4 * c) ** -0.5),
-                b2=r(c, scale=0.1), gamma=r(c, scale=0.5))
-
-
-def _scaled_err(out, ref):
-    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
-    return np.abs(out - ref).max() / (np.abs(ref).max() + 1e-8)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,c", [(40, 32), (13, 64)])  # 13: a ragged tile
 def test_block_tail_matches_jax(n, c, dtype):
-    v = _tail_inputs(n, c, seed=n + c)
+    v = tail_inputs(n, c, seed=n + c)
     jdt = getattr(jnp, dtype)
     tdt = getattr(torch, dtype)
     jp = {k: jnp.asarray(a) for k, a in v.items()}
@@ -73,8 +57,8 @@ def test_block_tail_matches_jax(n, c, dtype):
     dh, dx = torch.autograd.grad(y, (h, x), tp["dy"].to(tdt))
     assert y.dtype == dh.dtype == tdt
     tol = TAIL_TOL[dtype]
-    assert _scaled_err(y.detach().float(), y_j) < tol
-    assert _scaled_err(dh.float(), dh_j) < tol
+    assert scaled_err(y.detach().float(), y_j) < tol
+    assert scaled_err(dh.float(), dh_j) < tol
     np.testing.assert_array_equal(dx.float().numpy(),
                                   np.asarray(dx_j, np.float32))
 
@@ -82,7 +66,7 @@ def test_block_tail_matches_jax(n, c, dtype):
 def test_block_tail_params_get_no_gradient():
     """The frozen-weight contract: the Function returns None for the seven
     parameters and refuses parameters that require grad."""
-    v = _tail_inputs(24, 16, seed=3)
+    v = tail_inputs(24, 16, seed=3)
     tp = {k: torch.from_numpy(a) for k, a in v.items()}
     tp["w1"], tp["w2"] = tp["w1"].T.contiguous(), tp["w2"].T.contiguous()
     names = ("lns", "lnb", "w1", "b1", "w2", "b2", "gamma")
@@ -137,7 +121,7 @@ def test_perceptual_loss_and_image_gradient_match_jax(params, fused_dim,
     out = loss_t(tx, torch.from_numpy(y))
     (g,) = torch.autograd.grad(out, tx)
     np.testing.assert_allclose(out.item(), float(ref), rtol=GOLDEN_TOL)
-    assert _scaled_err(g.numpy(), g_ref) < GOLDEN_TOL
+    assert scaled_err(g.numpy(), g_ref) < GOLDEN_TOL
     assert loss_t(tx, tx.detach()).item() == 0.0
     assert not any(p.requires_grad for p in loss_t.parameters())
 

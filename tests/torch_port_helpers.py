@@ -86,24 +86,40 @@ def convnext_params() -> dict:
     return jax.tree.map(np.asarray, params)
 
 
-def jax_perceptual(params: dict, dtype=jnp.float32):
+def with_gamma(params: dict, seed: int = 0) -> dict:
+    """``params`` with every block's layer scale γ drawn around 0.5: at the
+    init's 1e-6 a block's tail vanishes under the residual, and a broken
+    tail kernel would go unseen."""
+    rng = np.random.default_rng(seed)
+    out = {k: dict(v) if isinstance(v, dict) else v for k, v in params.items()}
+    for name, blk in out.items():
+        if "_block" in name:
+            blk["gamma"] = (0.5 + 0.1 * rng.normal(size=blk["gamma"].shape)
+                            ).astype(np.float32)
+    return out
+
+
+def jax_perceptual(params: dict, dtype=jnp.float32, **model_kw):
     """The JAX PerceptualLoss around the tiny ConvNeXt, built as the JAX
-    package's own tests build it."""
+    package's own tests build it; ``model_kw`` go to its ConvNeXt
+    (``mlp_impl``, ``dw_impl``, ``quant``)."""
     from vit_tpu.losses.perceptual import ConvNeXt as JaxConvNeXt
     from vit_tpu.losses.perceptual import PerceptualLoss as JaxPerceptual
 
     loss = JaxPerceptual.__new__(JaxPerceptual)
-    loss.model = JaxConvNeXt(**CONVNEXT, dtype=dtype)
+    loss.model = JaxConvNeXt(**CONVNEXT, dtype=dtype, **model_kw)
     loss.layout = "nhwc"
     loss.params = jax.tree.map(jnp.asarray, params)
     return loss
 
 
-def port_perceptual(params: dict, dtype=torch.float32):
-    """The port's PerceptualLoss with the same tiny ConvNeXt weights."""
+def port_perceptual(params: dict, dtype=torch.float32, **convnext_kw):
+    """The port's PerceptualLoss with the same tiny ConvNeXt weights;
+    ``convnext_kw`` go to its ConvNeXt (``dw_impl``, ``quant``)."""
     from vit_tpu_torch.losses.perceptual import PerceptualLoss
 
-    return PerceptualLoss.from_params(params, dtype=dtype, **CONVNEXT)
+    return PerceptualLoss.from_params(params, dtype=dtype, **CONVNEXT,
+                                      **convnext_kw)
 
 
 def jax_train_step(model, perceptual, **opt):
@@ -155,6 +171,27 @@ def port_videogpt(cfg_t, params: dict):
     model.load_state_dict(videogpt_state_dict_from_flax(params, cfg_t),
                           assign=True)
     return model.eval()
+
+
+def tail_inputs(n: int, c: int, seed: int) -> dict:
+    """Seeded fp32 inputs of a ConvNeXt block tail: rows h, x, dy (n, c) and
+    its parameters in the JAX layout (w1 (c, 4c), w2 (4c, c)), γ of order
+    0.5 so the tail shows under the residual."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0):
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+
+    return dict(h=r(n, c), x=r(n, c), dy=r(n, c), lns=1.0 + r(c, scale=0.1),
+                lnb=r(c, scale=0.1), w1=r(c, 4 * c, scale=c ** -0.5),
+                b1=r(4 * c, scale=0.1), w2=r(4 * c, c, scale=(4 * c) ** -0.5),
+                b2=r(c, scale=0.1), gamma=r(c, scale=0.5))
+
+
+def scaled_err(out, ref) -> float:
+    """max |out − ref| / max |ref|, in fp32."""
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    return np.abs(out - ref).max() / (np.abs(ref).max() + 1e-8)
 
 
 def codes(shape, n_codes: int, seed: int = 0) -> np.ndarray:

@@ -1,11 +1,14 @@
 // Tensor-core and fragment helpers shared by the attention and ConvNeXt
-// kernels: mma.sync m16n8k16 (bf16 in, fp32 accumulate) and its operand
-// loads. Fragment layout of m16n8k16, with g = lane / 4 and t = lane % 4:
+// kernels: mma.sync m16n8k16 (bf16 in, fp32 accumulate), m16n8k32 (int8 in,
+// int32 accumulate) and their operand loads. Fragment layout of m16n8k16, with g = lane / 4 and t = lane % 4:
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
 //                           a2 = A[g][2t+8..2t+9], a3 = A[g+8][2t+8..2t+9];
 //   B (16 x 8), read from Bt[n][k] (k contiguous):
 //                           b0 = Bt[g][2t..2t+1],  b1 = Bt[g][2t+8..2t+9];
 //   C/D (16 x 8):           c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1].
+// m16n8k32 on int8 has the same layout in bytes: each 32-bit register holds
+// four int8 values where m16n8k16 holds two bf16 (a0 = A[g][4t..4t+3], b1 =
+// Bt[g][4t+16..4t+19], ...), so the same byte offsets address both.
 // A 16 x 16 A-fragment is therefore two neighbouring C tiles (n-tiles 2j and
 // 2j + 1) repacked to bf16, which is how a score or activation accumulator
 // feeds the next product without a shared-memory round trip.
@@ -29,6 +32,21 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a (16x32, row-major) * b (32x8, column-major); int8 in, int32
+// accumulate: exact.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 accumulate.

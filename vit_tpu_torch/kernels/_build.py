@@ -11,6 +11,25 @@ it as ``<library>.log``. Nothing happens at import: the first CUDA call of a
 kernel wrapper builds and loads, so a machine without ``nvcc`` imports every
 module.
 
+The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
+
+  attention_packed_fwd.cu  K1   attention.py:790 (_fa_packed_kernel :623)
+  attention_packed_bwd.cu  K2   attention.py:1072 (_fa_packed_bwd_kernel :824)
+  convnext_tail.cu         K3   convnext_block.py:248 (_fwd_kernel :89)
+                           K4   convnext_block.py:276 (_bwd_kernel :109)
+  vq_nearest.cu            K5   vq.py:83 (_vq_kernel :36)
+  attention_fwd.cu         K6   attention.py:172 (_fa_kernel :76)
+  attention_bwd.cu         K7   attention.py:441 (_fa_bwd_kernel :201)
+                           K8   attention.py:395 (_fa_bwd_tiled_kernel :284)
+  ln_matmul.cu             K9a  ln_matmul.py:121 (_fwd_kernel :60)
+  ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
+                           K9c  ln_matmul.py:190 (_ln_bwd_kernel :78)
+  fc_grad.cu               K10  fc_grad.py:145 (_fc_grad_kernel :74)
+  depthwise.cu             K11a depthwise.py:44 (_dw_kernel :24)
+                           K11b depthwise.py:124 (_dw_bwd_kernel :77)
+  convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
+                           K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
+
 Every entry takes pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
 code into an exception. :func:`check_rows` refuses a large row operand the
@@ -126,6 +145,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     #                   eps, stream)
     lib.convnext_tail_bwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]
     lib.convnext_tail_bwd.restype = i32
+    # convnext_tail_fwd_q8(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma,
+    #                      y, N, C, eps, stream)
+    lib.convnext_tail_fwd_q8.argtypes = [ptr] * 12 + [i32, i32, f32, ptr]
+    lib.convnext_tail_fwd_q8.restype = i32
+    # convnext_tail_bwd_q8(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts,
+    #                      b1, gamma, dh, N, C, eps, stream)
+    lib.convnext_tail_bwd_q8.argtypes = [ptr] * 13 + [i32, i32, f32, ptr]
+    lib.convnext_tail_bwd_q8.restype = i32
+    # depthwise_fwd(x, w, b, y, N, H, W, C, is_bf16, stream)
+    lib.depthwise_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.depthwise_fwd.restype = i32
+    # depthwise_bwd_parts(N, H, W) → partial rows of depthwise_bwd's scratch
+    lib.depthwise_bwd_parts.argtypes = [i32] * 3
+    lib.depthwise_bwd_parts.restype = i32
+    # depthwise_bwd(x, g, wf, dx, part, dw, db, N, H, W, C, is_bf16, stream)
+    lib.depthwise_bwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.depthwise_bwd.restype = i32
     # ln_matmul_fwd(x, w, b, z, zpre, xhat, N, C, F, gelu, stream)
     lib.ln_matmul_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.ln_matmul_fwd.restype = i32

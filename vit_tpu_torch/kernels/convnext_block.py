@@ -1,5 +1,6 @@
 """K3 and K4: the frozen ConvNeXt block tail, forward and input gradient
-(CUDA C++, ``csrc/convnext_tail.cu``).
+(CUDA C++, ``csrc/convnext_tail.cu``); K12a and K12b: their int8 variants
+(``csrc/convnext_tail_q8.cu``).
 
 K3 replaces the Pallas kernel ``vit_tpu/kernels/convnext_block.py:_fwd_kernel``
 (:89, launched by ``_fwd_impl`` :248) and K4 ``_bwd_kernel`` (:109, launched
@@ -10,11 +11,22 @@ by ``_bwd_impl`` :276), behind ``frozen_convnext_block_tail`` (:457). On rows
 
 and, for the backward, dh recomputed from h (dx = dy needs no kernel).
 
+K12a replaces ``_fwd_kernel_q8`` (:148, launched by ``_fwd_impl_q8`` :310)
+and K12b ``_bwd_kernel_q8`` (:172, launched by ``_bwd_impl_q8`` :342), the
+``quant="int8"`` tail: both products (and both of the backward) run int8 ×
+int8 → int32 with dynamic per-row activation scales (``quant_rows``,
+:140-145) and per-output-channel weight scales (``quant_cols``, :204-212),
+the weights quantized in the wrapper, outside the kernel, as ``_fwd_impl_q8``
+and ``_bwd_impl_q8`` quantize them in XLA (:305-308, :338-340). Both helpers
+compute ``max(absmax, 1e-8) · (1/127)``, a multiply by the reciprocal, where
+``core/quant.py`` divides by 127: each site keeps its own form, so the scales
+are the JAX package's to the bit.
+
 What bounds them on the H100: 16·C² FLOP per row forward and 24·C² backward
 against 6·C bytes of rows, with the (N, 4C) intermediate and the LN output
 kept out of device memory as on the TPU. The weights do not fit in shared
 memory at C = 384, so a 64-row block streams the 4C dimension in chunks and
-keeps a 64 × C fp32 accumulator in registers (see the source's header).
+keeps a 64 × C fp32 accumulator in registers (see the sources' headers).
 
 FROZEN-WEIGHT CONTRACT, as in the JAX package: gradients flow to h and x
 only. :class:`ConvNeXtTail` returns ``None`` for the seven parameters and
@@ -37,6 +49,9 @@ CUDA_DIMS = (96, 192, 384)  # the widths the CUDA kernels are built for
 
 launches = 0      # K3 launches by convnext_tail_fwd, for run evidence
 bwd_launches = 0  # K4 launches by convnext_tail_bwd
+q8_launches = 0      # K12a launches by convnext_tail_fwd_q8
+q8_bwd_launches = 0  # K12b launches by convnext_tail_bwd_q8
+QUANTS = ("none", "int8")
 
 
 def fused_supported(c: int, c4: int) -> bool:
@@ -171,37 +186,164 @@ def convnext_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps=1e-6):
     return dh
 
 
+def quant_rows(v32: torch.Tensor):
+    """Per-row symmetric int8 quantization (``_quant_rows``, :140-145):
+    v ≈ q · s with s = max(absmax, 1e-8) · (1/127), (N, 1) fp32."""
+    s = v32.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+    q = torch.round(v32 / s).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def quant_cols(w: torch.Tensor):
+    """Per-output-channel symmetric int8 quantization of a (K, N) matrix
+    (``_quant_cols``, :204-212): q (K, N) int8, s (N,) fp32."""
+    w32 = w.float()
+    s = w32.abs().amax(0).clamp_min(1e-8) * (1.0 / 127.0)
+    q = torch.round(w32 / s).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def convnext_tail_fwd_q8_ref(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps):
+    """Plain version of K12a (``_fwd_kernel_q8``): rows (N, C), w1 (4C, C),
+    w2 (C, 4C) → y (N, C) in h's dtype. u and a = gelu(z) are quantized per
+    row in fp32, without a cast to the compute dtype."""
+    dt = h.dtype
+    # the vectors in the compute dtype, read in fp32 (:324-325); the weights
+    # quantized from their fp32 values
+    lns, lnb, b1, b2, gamma = (p.float() for p in _prep(dt, lns, lnb, b1, b2,
+                                                        gamma))
+    w1q, w1s = quant_cols(w1.t())                     # (C, 4C), (4C,)
+    w2q, w2s = quant_cols(w2.t())                     # (4C, C), (C,)
+    uhat, _ = _normalize(h, eps)
+    uq, us = quant_rows(uhat * lns + lnb)
+    z = torch._int_mm(uq, w1q).float() * us * w1s + b1
+    aq, as_ = quant_rows(tanh_erf_gelu(z))
+    o = torch._int_mm(aq, w2q).float() * as_ * w2s + b2
+    return (x.float() + gamma * o).to(dt)
+
+
+def convnext_tail_bwd_q8_ref(h, dy, lns, lnb, w1, b1, w2, gamma, eps):
+    """Plain version of K12b (``_bwd_kernel_q8``): dh (N, C) in h's dtype.
+    z is recomputed with the forward's int8 arithmetic; da = do·W2ᵀ and
+    du = dz·W1ᵀ are int8 products against the transposed weights quantized
+    with their own per-channel scales."""
+    dt = h.dtype
+    lns, lnb, b1, gamma = (p.float() for p in _prep(dt, lns, lnb, b1, gamma))
+    w1q, w1s = quant_cols(w1.t())                     # W1: (C, 4C)
+    w1tq, w1ts = quant_cols(w1)                       # W1ᵀ: (4C, C)
+    w2tq, w2ts = quant_cols(w2)                       # W2ᵀ: (C, 4C)
+    uhat, rstd = _normalize(h, eps)
+    uq, us = quant_rows(uhat * lns + lnb)
+    z = torch._int_mm(uq, w1q).float() * us * w1s + b1
+    doq, dos = quant_rows(dy.float() * gamma)
+    da = torch._int_mm(doq, w2tq).float() * dos * w2ts
+    dzq, dzs = quant_rows(da * gelu_grad(z))
+    du = torch._int_mm(dzq, w1tq).float() * dzs * w1ts
+    dhat = du * lns
+    c1 = dhat.mean(-1, keepdim=True)
+    c2 = (dhat * uhat).mean(-1, keepdim=True)
+    return (rstd * (dhat - c1 - uhat * c2)).to(dt)
+
+
+def convnext_tail_fwd_q8(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps=1e-6):
+    """K12a: the int8 tail forward on (N, C) rows."""
+    _shapes(h.shape[1], lns, lnb, w1, b1, w2, b2, gamma)
+    if h.device.type == "cpu":
+        return convnext_tail_fwd_q8_ref(h, x, lns, lnb, w1, b1, w2, b2, gamma,
+                                        eps)
+    _check_cuda(h, (x,), "K12a")
+    n, c = h.shape
+    lns, lnb, b1, b2, gamma = _weights(h, lns, lnb, b1, b2, gamma)
+    w1q, w1s = quant_cols(w1.t())
+    w2q, w2s = quant_cols(w2.t())
+    # (n, k) operands, k contiguous: W1 (4C, C), W2 (C, 4C)
+    w1q, w2q = (_build.cuda_arg(q.t(), h, "weight", torch.int8)
+                for q in (w1q, w2q))
+    y = torch.empty_like(h)
+    lib = _build.load()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.convnext_tail_fwd_q8(
+            h.data_ptr(), x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+            w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
+            w2s.data_ptr(), b2.data_ptr(), gamma.data_ptr(), y.data_ptr(), n,
+            c, eps, stream)
+    _build.check(lib, err, "convnext_tail_fwd_q8")
+    global q8_launches
+    q8_launches += 1
+    return y
+
+
+def convnext_tail_bwd_q8(h, dy, lns, lnb, w1, b1, w2, gamma, eps=1e-6):
+    """K12b: dh from dy on (N, C) rows through int8 products."""
+    _shapes(h.shape[1], lns, lnb, w1, b1, w2, gamma=gamma)
+    if h.device.type == "cpu":
+        return convnext_tail_bwd_q8_ref(h, dy, lns, lnb, w1, b1, w2, gamma, eps)
+    _check_cuda(h, (dy,), "K12b")
+    n, c = h.shape
+    lns, lnb, b1, gamma = _weights(h, lns, lnb, b1, gamma)
+    w1q, w1s = quant_cols(w1.t())
+    w1tq, w1ts = quant_cols(w1)
+    w2tq, w2ts = quant_cols(w2)
+    # (n, k) operands, k contiguous: W1 (4C, C) for z, W2ᵀ (4C, C) for da,
+    # W1ᵀ (C, 4C) for du
+    w1q, w2tq, w1tq = (_build.cuda_arg(q.t(), h, "weight", torch.int8)
+                       for q in (w1q, w2tq, w1tq))
+    dh = torch.empty_like(h)
+    lib = _build.load()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.convnext_tail_bwd_q8(
+            h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+            w1q.data_ptr(), w1s.data_ptr(), w2tq.data_ptr(), w2ts.data_ptr(),
+            w1tq.data_ptr(), w1ts.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
+            dh.data_ptr(), n, c, eps, stream)
+    _build.check(lib, err, "convnext_tail_bwd_q8")
+    global q8_bwd_launches
+    q8_bwd_launches += 1
+    return dh
+
+
 class ConvNeXtTail(torch.autograd.Function):
-    """(h, x, 7 frozen params) → y; the backward returns dh from K4, dy
-    itself for x, and None for the parameters (``_tail_bwd``, :442-447). Both
-    kernels are looked up in this module when called, so a caller can route
-    them elsewhere (``chip_smoke.py``'s plain-version run does)."""
+    """(h, x, 7 frozen params) → y; the backward returns dh from K4 (K12b
+    under ``quant="int8"``), dy itself for x, and None for the parameters
+    (``_tail_bwd``, :442-447). ``eps`` and ``quant`` are not differentiable
+    (``nondiff_argnums``, :432). The kernels are looked up in this module
+    when called, so a caller can route them elsewhere (``chip_smoke.py``'s
+    plain-version run does)."""
 
     @staticmethod
-    def forward(ctx, h, x, lns, lnb, w1, b1, w2, b2, gamma, eps):
+    def forward(ctx, h, x, lns, lnb, w1, b1, w2, b2, gamma, eps, quant):
         params = (lns, lnb, w1, b1, w2, b2, gamma)
         if any(p.requires_grad for p in params):
             raise ValueError("the fused ConvNeXt tail is for a frozen net: "
                              "its parameters get no gradient")
+        if quant not in QUANTS:
+            raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
         ctx.save_for_backward(h, lns, lnb, w1, b1, w2, gamma)
-        ctx.eps = eps
-        return convnext_tail_fwd(h, x, *params, eps)
+        ctx.eps, ctx.quant = eps, quant
+        fwd = convnext_tail_fwd_q8 if quant == "int8" else convnext_tail_fwd
+        return fwd(h, x, *params, eps)
 
     @staticmethod
     def backward(ctx, dy):
         h, lns, lnb, w1, b1, w2, gamma = ctx.saved_tensors
         dh = None
         if ctx.needs_input_grad[0]:
-            dh = convnext_tail_bwd(h, dy.contiguous(), lns, lnb, w1, b1, w2,
-                                   gamma, ctx.eps)
+            bwd = (convnext_tail_bwd_q8 if ctx.quant == "int8"
+                   else convnext_tail_bwd)
+            dh = bwd(h, dy.contiguous(), lns, lnb, w1, b1, w2, gamma, ctx.eps)
         return (dh, dy if ctx.needs_input_grad[1] else None,
-                *([None] * 8))
+                *([None] * 9))
 
 
 def frozen_convnext_block_tail(h, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
-                               *, eps: float = 1e-6) -> torch.Tensor:
+                               *, eps: float = 1e-6,
+                               quant: str = "none") -> torch.Tensor:
     """y = x + γ ⊙ (gelu(LN(h)·W1 + b1)·W2 + b2) on (N, C) rows; w1 (4C, C)
     and w2 (C, 4C) in PyTorch's Linear layout. Gradients flow to h and x
-    only. The caller checks ``fused_supported(C, 4C)``."""
+    only. ``quant="int8"`` runs both products (and the backward's two) as
+    int8 × int8 → int32 (K12a/K12b). The caller checks
+    ``fused_supported(C, 4C)``."""
     return ConvNeXtTail.apply(h, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
-                              eps)
+                              eps, quant)

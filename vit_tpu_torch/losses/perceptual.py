@@ -6,12 +6,19 @@ ImageNet-normalised and run through a frozen ConvNeXt-S classifier; the loss
 is the MSE between the two sets of logits. Activations are channels-last
 (B, H, W, C), so every block's rows are a contiguous (B·H·W, C) view.
 
-  - The stem, downsample and 7×7 depthwise convs are ``F.conv2d`` (XLA convs
-    on the TPU, ``dw_impl="lax"``), in the compute dtype, bias added after.
+  - The stem and downsample convs are ``F.conv2d`` in the compute dtype,
+    bias added after. The 7×7 depthwise convs are too under
+    ``dw_impl="lax"`` (the default; XLA convs on the TPU), or K11a/K11b
+    (``kernels/depthwise.py``) under ``dw_impl="pallas"``, as
+    ``DWConv7`` routes them (:55-67).
   - Blocks with C ≤ 384 run the fused tail LN → pwconv1 → GELU → pwconv2 →
     γ → residual through K3/K4 (``kernels/convnext_block.py``), as the TPU
     runs them; the stage-3 blocks (C 768) run it unfused (``fused_supported``,
     ``vit_tpu/kernels/convnext_block.py:453``).
+  - ``quant="int8"`` (``--perceptual_quant int8``) runs the frozen net's
+    pointwise products int8 × int8 → int32: the fused tails through
+    K12a/K12b, the unfused stage 3 through ``core/quant.py``'s
+    ``frozen_int8_dense`` (:158-189). The default is ``quant="none"``.
   - LayerNorm is affine with eps 1e-6 and rounds where flax's ``nn.LayerNorm``
     rounds at a half ``dtype``: fp32 statistics (E[x²] − E[x]²), fp32
     normalise-scale-shift, one cast to the compute dtype.
@@ -32,12 +39,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vit_tpu_torch.core.quant import frozen_int8_dense
 from vit_tpu_torch.core.transformer import linear
-from vit_tpu_torch.kernels.convnext_block import (frozen_convnext_block_tail,
+from vit_tpu_torch.kernels.convnext_block import (QUANTS,
+                                                  frozen_convnext_block_tail,
                                                   fused_supported)
+from vit_tpu_torch.kernels.depthwise import depthwise_conv
 from vit_tpu_torch.losses.resize import resize_bilinear_antialias
 from vit_tpu_torch.ops.gelu import gelu
 
+DW_IMPLS = ("lax", "pallas")
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -85,42 +96,67 @@ class Conv(nn.Module):
 
 class ConvNeXtBlock(nn.Module):
     """7×7 depthwise conv → LN → 4× MLP with GELU → layer scale, residual.
-    Everything after the depthwise conv runs as the fused tail (K3/K4) where
-    ``fused_supported(C, 4C)``, as separate ops elsewhere."""
+    Everything after the depthwise conv runs as the fused tail (K3/K4, or
+    K12a/K12b under ``quant="int8"``) where ``fused_supported(C, 4C)``, as
+    separate ops elsewhere. ``dw_impl="pallas"`` runs the depthwise conv
+    through K11a/K11b."""
 
-    def __init__(self, dim: int, dtype: torch.dtype):
+    def __init__(self, dim: int, dtype: torch.dtype, dw_impl: str = "lax",
+                 quant: str = "none"):
         super().__init__()
-        self.dtype = dtype
+        if dw_impl not in DW_IMPLS or quant not in QUANTS:
+            raise ValueError(f"dw_impl must be one of {DW_IMPLS} and quant "
+                             f"one of {QUANTS}, got {dw_impl!r}, {quant!r}")
+        self.dtype, self.dw_impl, self.quant = dtype, dw_impl, quant
         self.dwconv = Conv(dim, dim, 7, dtype, padding=3, groups=dim)
         self.norm = LayerNorm(dim, dtype)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
 
+    def _depthwise(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dw_impl == "lax":
+            return self.dwconv(x)
+        taps = self.dwconv.weight[:, 0].permute(1, 2, 0)   # (7, 7, C)
+        return depthwise_conv(x.to(self.dtype).contiguous(),
+                              taps.to(self.dtype),
+                              self.dwconv.bias.to(self.dtype), 7)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.dwconv(x)
+        h = self._depthwise(x)
         shape, c = h.shape, h.shape[-1]
         if fused_supported(c, 4 * c):
             y = frozen_convnext_block_tail(
                 h.reshape(-1, c), x.to(h.dtype).reshape(-1, c),
                 self.norm.weight, self.norm.bias, self.pwconv1.weight,
                 self.pwconv1.bias, self.pwconv2.weight, self.pwconv2.bias,
-                self.gamma, eps=self.norm.eps)
+                self.gamma, eps=self.norm.eps, quant=self.quant)
             return y.reshape(shape)
         h = self.norm(h.reshape(-1, c))
-        h = linear(gelu(linear(h, self.pwconv1, self.dtype)), self.pwconv2,
-                   self.dtype)
+        if self.quant == "int8":
+            # LN in the compute dtype; the second product's input is rounded
+            # to it before it is quantized (the fused K12a does not round)
+            h = frozen_int8_dense(h, self.pwconv1.weight.t(),
+                                  self.pwconv1.bias)
+            h = gelu(h.to(self.dtype))
+            h = frozen_int8_dense(h, self.pwconv2.weight.t(),
+                                  self.pwconv2.bias).to(self.dtype)
+        else:
+            h = linear(gelu(linear(h, self.pwconv1, self.dtype)),
+                       self.pwconv2, self.dtype)
         return x + self.gamma.to(h.dtype) * h.reshape(shape)
 
 
 class ConvNeXt(nn.Module):
     """ConvNeXt classifier on NHWC images; defaults are ConvNeXt-Small.
     Module names are the flax tree's (``stem_conv``, ``stage2_block5``, ...),
-    so the bridge maps one onto the other leaf by leaf."""
+    so the bridge maps one onto the other leaf by leaf, whatever ``dw_impl``
+    and ``quant`` (they change the arithmetic, not the parameters)."""
 
     def __init__(self, depths: Sequence[int] = CONVNEXT_S_DEPTHS,
                  dims: Sequence[int] = CONVNEXT_S_DIMS,
-                 num_classes: int = 1000, dtype: torch.dtype = torch.float32):
+                 num_classes: int = 1000, dtype: torch.dtype = torch.float32,
+                 dw_impl: str = "lax", quant: str = "none"):
         super().__init__()
         self.depths, self.dims, self.dtype = tuple(depths), tuple(dims), dtype
         self.stem_conv = Conv(3, dims[0], 4, dtype, stride=4)   # RGB in
@@ -133,7 +169,7 @@ class ConvNeXt(nn.Module):
                         Conv(dims[stage - 1], dim, 2, dtype, stride=2))
             for block in range(depth):
                 setattr(self, f"stage{stage}_block{block}",
-                        ConvNeXtBlock(dim, dtype))
+                        ConvNeXtBlock(dim, dtype, dw_impl, quant))
         self.head_norm = LayerNorm(dims[-1], torch.float32)
         self.head = nn.Linear(dims[-1], num_classes)
 
@@ -171,7 +207,9 @@ class PerceptualLoss(nn.Module):
     @classmethod
     def from_params(cls, params: dict, *, dtype: torch.dtype = torch.float32,
                     **convnext_kw) -> "PerceptualLoss":
-        """A PerceptualLoss whose ConvNeXt holds the flax-layout ``params``."""
+        """A PerceptualLoss whose ConvNeXt holds the flax-layout ``params``;
+        ``convnext_kw`` go to :class:`ConvNeXt` (``dw_impl``, ``quant``,
+        depths and widths)."""
         from vit_tpu_torch.bridge import convnext_state_dict_from_flax
 
         net = ConvNeXt(dtype=dtype, **convnext_kw)
