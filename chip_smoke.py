@@ -12,7 +12,10 @@ prior (16 frames × 64 codes, S = 1024, over a frozen random TiTok-S at
 image 64): its training step at bs 32 and its greedy KV-cache rollout served
 over HTTP; then the flagship step with the int8 perceptual loss
 (``--perceptual_quant int8``) and the perceptual loss alone under both of its
-switches (``dw_impl``, ``quant``). Phases, one JSON line each:
+switches (``dw_impl``, ``quant``); then the ViT classifier at
+``bench_extra.py``'s two configs, ViT-B/16 @224 and ViT-L/16 @256 at
+dropout 0.15 (the attention kernels' dropout branch), and ``python -m
+vit_tpu_torch.train_vit`` at its defaults. Phases, one JSON line each:
 
   1. device   — fails without CUDA; card name and power limit; TF32 off;
   2. build    — compiles the CUDA kernels from ``vit_tpu_torch/csrc``, one
@@ -26,7 +29,15 @@ switches (``dw_impl``, ``quant``). Phases, one JSON line each:
                 kernels, with the backend it picked; ``F.linear`` for K9a,
                 ``torch.mm`` for K10, ``F.conv2d`` and its backward for
                 K11a/K11b, ``torch._int_mm`` for K12a/K12b); K7 at its own
-                shape (2, 12, 513);
+                shape (2, 12, 513); the dropout arms of K1/K2 at ViT-L's
+                (64, 257, 16 heads, rate 0.15), K6/K8 at (32, 12, 1024)
+                causal and K7 at (2, 12, 513) causal (rate 0.1), each
+                against its plain version with the same seed vector, the
+                dropped fraction within 5σ of the rate, their times with
+                and without dropout beside SDPA's with ``dropout_p`` (its
+                own Philox mask), and mask probes (q = k = 0, one-hot v and
+                dO) whose outputs and dv equal the plain versions' bit for
+                bit at S 257, 513 and 1024, causal and not;
   4. slice    — export → load → HTTP server; concurrent /encode requests,
                 /decode of the indices; checks shapes, ranges, a 400, that
                 every kernel launched during those requests, that the served
@@ -62,7 +73,10 @@ switches (``dw_impl``, ``quant``). Phases, one JSON line each:
                 on the same codes; 20 steps on one batch lower
                 the loss; step time, tokens/s and peak memory of the full
                 step and of the AR step alone on random tokens; a profile of
-                one step;
+                one step; then 3 steps at ``--dropout 0.1`` on the same
+                weights (K6 12 and K8 12 dropout launches a step), the
+                first's loss and gradient norm against the plain versions
+                from the same generator state;
   9. videogpt_rollout — export → load → HTTP /generate at bs 1 and bs 8: 512
                 conditioning codes in, 1024 out, the prefix intact, every
                 code in range, equal to a direct generate call, 12 K6
@@ -82,10 +96,23 @@ switches (``dw_impl``, ``quant``). Phases, one JSON line each:
                 its image gradient at bs 64, image 128, under ``dw_impl`` ∈
                 {lax, pallas} × ``quant`` ∈ {none, int8}: launches per call
                 (K11a 72, K11b 36 under pallas), each kernel arm against its
-                plain versions, ms per call and a profile of one call.
+                plain versions, ms per call and a profile of one call;
+ 12. vit      — ``make_classifier_train_step`` at bs 64 for ViT-B/16 @224
+                (S 197, no dropout: K1 12, K2 12 a step) and ViT-L/16 @256
+                at dropout 0.15 (S 257: K1 24, K2 24, all with dropout):
+                the first step's logits, loss and gradient norm against the
+                plain versions from the same generator state, 10 steps on
+                one batch at lr 1e-5 lower the loss, images/s and peak
+                memory, and a profile of one ViT-L step;
+ 13. train_vit_entry — ``python -m vit_tpu_torch.train_vit --dataset
+                synthetic --no_wandb --epochs 1 --steps_per_epoch 5
+                --log_every 1`` (ViT-L/16 @256, dropout 0.15, bs 64) as a
+                subprocess: exit code 0, five finite losses and the eval
+                line.
 
-Then the kernels' summary line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
+Then the kernels' summary line (each attention kernel with its dropout
+arm's numbers and its dropout launches), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
 script exits non-zero without that line. It imports nothing of JAX.
 """
 
@@ -129,12 +156,14 @@ from vit_tpu_torch.models.titok import TiTok, TiTokConfig  # noqa: E402
 from vit_tpu_torch.models.videogpt import (VideoGPT,  # noqa: E402
                                            VideoGPTConfig, generate,
                                            init_cache)
+from vit_tpu_torch.models.vit import ViTClassifier, ViTConfig  # noqa: E402
 from vit_tpu_torch.serve.export import (export_tokenizer,  # noqa: E402
                                         export_videogpt, load_exported)
 from vit_tpu_torch.serve.server import make_server  # noqa: E402
 from vit_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from vit_tpu_torch.train.state import TrainState  # noqa: E402
-from vit_tpu_torch.train.step import (make_tokenizer_train_step,  # noqa: E402
+from vit_tpu_torch.train.step import (make_classifier_train_step,  # noqa: E402
+                                      make_tokenizer_train_step,
                                       make_videogpt_train_step)
 from vit_tpu_torch.utils.init import init_convnext_, init_params_  # noqa: E402
 
@@ -236,6 +265,23 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# The dropout hash (csrc/dropout.cuh) runs on the CUDA cores: 64 INT32
+# operations per clock per SM, 132 SMs at the 1.98 GHz boost clock; about 13
+# integer operations per hashed score element, once in a forward and in each
+# of a backward's three passes over the scores.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+HASH_INT_OPS = 13
+# The attention kernels' dropout arms: ViT-L/16 @256's K1/K2 at rate 0.15
+# (train_vit.py's default), VideoGPT-B's K6/K8 and K7's shape at 0.1. The
+# dropped fraction of a mask must lie within 5σ of the rate.
+VIT_DROPOUT, GPT_DROPOUT = 0.15, 0.1
+DROP_SIGMAS = 5.0
+# bench_extra.py's two classifier configs (:29-54, :79-104): (image, patch,
+# preset, dropout) at bs 64, 1000 classes, one class token, and
+# make_optimizer(1e-4, 5000, 500000, 1e-5, 1e-2, clip_norm=None).
+VIT_BS, VIT_CLASSES = 64, 1000
+VIT_CELLS = {"vit_b16_224": (224, 16, "B", 0.0),
+             "vit_l16_256_drop0.15": (256, 16, "L", VIT_DROPOUT)}
 
 
 def emit(phase: str, **kw) -> None:
@@ -278,6 +324,8 @@ def host_median_ms(fn, reps: int = 10) -> float:
 def reset_launches() -> None:
     k_attn.launches = k_attn.bwd_launches = 0
     k_attn.unpacked_launches = k_attn.unpacked_bwd_launches = 0
+    k_attn.dropout_launches = k_attn.dropout_bwd_launches = 0
+    k_attn.unpacked_dropout_launches = k_attn.unpacked_dropout_bwd_launches = 0
     k_cnx.launches = k_cnx.bwd_launches = 0
     k_vq.launches = 0
     k_lnmm.launches = k_lnmm.dgelu_launches = k_lnmm.ln_bwd_launches = 0
@@ -302,28 +350,49 @@ def read_launches() -> dict:
                 convnext_tail_bwd_q8=k_cnx.q8_bwd_launches)
 
 
-def bound(flop: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
+def read_dropout_launches() -> dict:
+    """The attention wrappers' launches with dropout (a seed vector)."""
+    return dict(attention_packed_fwd=k_attn.dropout_launches,
+                attention_packed_bwd=k_attn.dropout_bwd_launches,
+                attention_fwd=k_attn.unpacked_dropout_launches,
+                attention_bwd=k_attn.unpacked_dropout_bwd_launches)
+
+
+def bound(flop: float, nbytes: float, peak: float = PEAK_BF16_FLOPS,
+          int_ops: float = 0.0) -> dict:
     """The least time the card could take: operations over the peak rate
-    for their type, or bytes over the memory rate, whichever is larger."""
-    ops_ms = flop / peak * 1e3
+    for their type (with ``int_ops``, also integer operations over the CUDA
+    cores' INT32 rate), or bytes over the memory rate, whichever is
+    larger."""
+    ops_ms = max(flop / peak, int_ops / PEAK_INT32_OPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return dict(bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                flop=flop, bytes=nbytes)
+    out = dict(bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               flop=flop, bytes=nbytes)
+    if int_ops:
+        out.update(int_ops=int_ops, products_ms=flop / peak * 1e3,
+                   hash_ms=int_ops / PEAK_INT32_OPS * 1e3, bytes_ms=bytes_ms)
+    return out
 
 
 def attention_bound(b: int, h: int, s: int, causal: bool, backward: bool,
-                    extra_bytes: float = 0.0) -> dict:
+                    extra_bytes: float = 0.0, dropout: bool = False) -> dict:
     """Attention over (b, h, s, 64) bf16 operands: 2 products of 2·64 FLOP
     per unmasked (query, key) pair forward, 5 backward; q, k, v (and dO)
-    read and out (dq, dk, dv) written once in bf16, m and l in fp32."""
+    read and out (dq, dk, dv) written once in bf16, m and l in fp32. With
+    dropout, the hash's integer operations on every unmasked pair, once
+    forward and three times backward."""
     pairs = s * (s + 1) // 2 if causal else s * s
     tile = b * h * s * 64 * 2
     stats = 2 * b * h * s * 4
+    int_ops = HASH_INT_OPS * pairs * b * h * (3 if backward else 1) \
+        if dropout else 0.0
     if backward:
         return bound(10 * 64 * pairs * b * h,
-                     4 * tile + stats + 3 * tile + extra_bytes)
-    return bound(4 * 64 * pairs * b * h, 3 * tile + tile + stats + extra_bytes)
+                     4 * tile + stats + 3 * tile + extra_bytes,
+                     int_ops=int_ops)
+    return bound(4 * 64 * pairs * b * h, 3 * tile + tile + stats + extra_bytes,
+                 int_ops=int_ops)
 
 
 def sdpa_backend(q, k, v, causal: bool) -> str:
@@ -489,10 +558,14 @@ def kernel_name(mangled: str) -> str:
         start = i + len(digits.group())
         end = start + int(digits.group())
         if mangled[start:end].endswith("_kernel"):
-            tmpl = re.match(r"I(?:Li(\d+)|(f|13__nv_bfloat16))E", mangled[end:])
+            tmpl = re.match(r"I(?:Li(\d+)|Lb([01])|(f|13__nv_bfloat16))E",
+                            mangled[end:])
             if not tmpl:
                 return mangled[start:end]
-            return f"{mangled[start:end]}<{tmpl.group(1) or args[tmpl.group(2)]}>"
+            arg = (tmpl.group(1)
+                   or (tmpl.group(2) and ("false", "true")[int(tmpl.group(2))])
+                   or args[tmpl.group(3)])
+            return f"{mangled[start:end]}<{arg}>"
         i = end
     return mangled
 
@@ -763,6 +836,8 @@ def phase_kernels() -> dict:
                                  bound_by=k5_bound["bound_by"],
                                  library_ms=None)
     summary.update(unpacked_kernels(gen))
+    for name, arm in dropout_kernels(gen).items():
+        summary[name]["dropout"] = arm
     summary.update(fused_kernels(gen))
     summary.update(int8_tail_kernels(gen))
     summary.update(depthwise_kernels(gen))
@@ -781,13 +856,15 @@ def head_views(b: int, h: int, s: int, gen, packed: bool = True):
                              generator=gen).bfloat16() for _ in range(3))
 
 
-def sdpa_backward_ms(q, k, v, dout, causal: bool) -> dict:
+def sdpa_backward_ms(q, k, v, dout, causal: bool,
+                     dropout_p: float = 0.0) -> dict:
     """``F.scaled_dot_product_attention``'s backward alone (autograd.grad
     on a kept graph) and its forward + backward, on leaf copies of q, k, v."""
     q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
     def fwd():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              dropout_p=dropout_p)
 
     out = fwd()
     return dict(
@@ -914,6 +991,266 @@ def unpacked_kernels(gen) -> dict:
         library_ms=k8["sdpa"]["backward_ms"])
     del q, k, v, dout, pq, pk, pv, m, l
     torch.cuda.empty_cache()
+    return summary
+
+
+def random_seed(gen) -> torch.Tensor:
+    """A (2,) [seed, 0] vector with the seed drawn on the card, as the
+    model's attention draws it."""
+    return k_attn.seed_vec(torch.randint(0, 2 ** 31 - 1, (1,), device="cuda",
+                                         generator=gen, dtype=torch.int32))
+
+
+def dropped_fraction(seed, b: int, h: int, s: int, causal: bool,
+                     rate: float) -> dict:
+    """The mask's dropped share over the unmasked (query, key) pairs, and
+    its distance from ``rate`` in standard deviations of a binomial."""
+    mask = k_attn._head_mask(seed, b, h, s, rate)
+    if causal:
+        mask = mask.masked_fill(
+            ~torch.ones(s, s, dtype=torch.bool, device="cuda").tril(), -1.0)
+    n = int((mask >= 0).sum())
+    frac = (mask == 0).sum().item() / n
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    return dict(dropped_fraction=frac, pairs=n,
+                sigmas_from_rate=abs(frac - rate) / sigma)
+
+
+def onehot_rows(s: int) -> torch.Tensor:
+    """(s, 64) bf16 with row c the unit vector of c mod 64: as v, each
+    output column counts the kept keys of one residue class; as dO, each dv
+    column counts the kept queries."""
+    r = torch.arange(s, device="cuda")
+    return (r[:, None] % 64 == torch.arange(64, device="cuda")).bfloat16()
+
+
+def mask_probe(b: int, h: int, s: int, causal: bool, rate: float, gen,
+               packed: bool) -> dict:
+    """The kernels' mask against the plain version's, bit for bit. Forward:
+    q = k = 0, so p ≡ 1 and l counts the unmasked keys, and v one-hot by key
+    residue: each output is (kept keys of a class) · bf16(scale) / l, exact
+    in fp32 on both sides. Backward with m = 0, l = 1 given and dO one-hot
+    by query residue: dv counts kept queries the same way, through the
+    dk/dv kernel's transposed walk. S not a multiple of 64 covers the
+    padding, causal the masked tiles."""
+    seed = random_seed(gen)
+    onehot = onehot_rows(s)
+    stats = (torch.zeros(b, h, s, device="cuda"),
+             torch.ones(b, h, s, device="cuda"))
+    drop = dict(dropout_rate=rate, seed=seed)
+    if packed:
+        width = h * 64
+        qkv = torch.zeros(b, s, 3 * width, dtype=torch.bfloat16, device="cuda")
+        qkv[:, :, 2 * width:] = onehot.repeat(1, h)
+        bias = torch.zeros(3 * width, device="cuda")
+        dout = onehot.repeat(1, h)[None].expand(b, s, width).contiguous()
+        fwd = [f(qkv, bias, h, causal, **drop)
+               for f in (k_attn.attention_packed_fwd,
+                         k_attn.attention_packed_fwd_ref)]
+        bwd = [f(qkv, bias, dout, *stats, h, causal, **drop)[0][..., 2 * width:]
+               for f in (k_attn.attention_packed_bwd,
+                         k_attn.attention_packed_bwd_ref)]
+    else:
+        q = torch.zeros(b, h, s, 64, dtype=torch.bfloat16, device="cuda")
+        v = onehot[None, None].expand(b, h, s, 64).contiguous()
+        fwd = [f(q, q, v, causal, **drop)
+               for f in (k_attn.attention_fwd, k_attn.attention_fwd_ref)]
+        bwd = [f(q, q, v, v, *stats, causal, **drop)[2]
+               for f in (k_attn.attention_bwd, k_attn.attention_bwd_ref)]
+    torch.cuda.synchronize()
+    row = dict(B=b, H=h, S=s, causal=causal, rate=rate,
+               out_equal=bool(torch.equal(*fwd)),
+               dv_equal=bool(torch.equal(*bwd)),
+               out_max_abs=(fwd[0].float() - fwd[1].float()).abs().max().item(),
+               dv_max_abs=(bwd[0].float() - bwd[1].float()).abs().max().item(),
+               **dropped_fraction(seed, b, h, s, causal, rate))
+    require(row["out_equal"] and row["dv_equal"],
+            f"the kernels' dropout mask differs from the plain version's: "
+            f"{row}")
+    require(row["sigmas_from_rate"] <= DROP_SIGMAS,
+            f"dropped fraction off the rate: {row}")
+    return row
+
+
+def dropout_kernels(gen) -> dict:
+    """The dropout arms of K1/K2 at ViT-L/16 @256's shape (64, 257, 16
+    heads, rate 0.15), K6/K8 at VideoGPT-B's (32, 12, 1024) causal and K7's
+    (2, 12, 513) causal (rate 0.1): each against its plain version with the
+    same seed vector, the mask's dropped fraction, the mask probes, and the
+    times with and without dropout beside SDPA's with ``dropout_p`` (which
+    draws its own Philox mask, so only its time compares). Returns each
+    attention entry's ``dropout`` summary."""
+    summary, probes = {}, []
+    for b, h, s, causal, packed in [(4, 16, 257, False, True),
+                                    (4, 16, 257, True, True),
+                                    (2, 12, 1024, True, False),
+                                    (2, 12, 513, True, False),
+                                    (2, 12, 257, False, False)]:
+        probes.append(dict(kernels="K1/K2" if packed else "K6, K7/K8",
+                           **mask_probe(b, h, s, causal, VIT_DROPOUT if packed
+                                        else GPT_DROPOUT, gen, packed)))
+    emit("kernel", name="dropout_mask_probe", rows=probes)
+
+    # K1 / K2 at ViT-L's shape
+    b, s, h, rate = VIT_BS, 257, 16, VIT_DROPOUT
+    width = h * 64
+    qkv = torch.randn(b, s, 3 * width, device="cuda", generator=gen).bfloat16()
+    bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
+    dout = torch.randn(b, s, width, device="cuda", generator=gen).bfloat16()
+    seed = random_seed(gen)
+    drop = dict(dropout_rate=rate, seed=seed)
+    out, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True, **drop)
+    torch.cuda.synchronize()
+    ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(qkv, bias, h, False,
+                                                        True, **drop)
+    diff = (out.float() - ref.float()).abs()
+    k1 = dict(B=b, S=s, H=h, rate=rate, max_abs=diff.max().item(),
+              mean_abs=diff.mean().item(),
+              m_rel=((m - m_ref).abs().max() / m_ref.abs().max()).item(),
+              l_rel=((l - l_ref).abs() / l_ref).max().item(),
+              **dropped_fraction(seed, b, h, s, False, rate))
+    require(bool(torch.isfinite(out).all())
+            and k1["max_abs"] <= K1_MAX_ABS and k1["mean_abs"] <= K1_MEAN_ABS
+            and k1["m_rel"] <= K1_STATS_REL and k1["l_rel"] <= K1_STATS_REL
+            and k1["sigmas_from_rate"] <= DROP_SIGMAS,
+            f"K1 with dropout disagrees with its plain version: {k1}")
+    del ref, m_ref, l_ref
+    dqkv, dbias = k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h, False,
+                                              **drop)
+    torch.cuda.synchronize()
+    dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
+        qkv, bias, dout, m, l, h, False, **drop)
+    k2 = dict(B=b, S=s, H=h, rate=rate, dqkv=rel_errors(dqkv, dqkv_ref),
+              dbias=rel_errors(dbias, dbias_ref))
+    for key in ("dqkv", "dbias"):
+        require(bool(torch.isfinite(dqkv).all())
+                and k2[key]["max_rel"] <= BWD_MAX_REL
+                and k2[key]["mean_rel"] <= BWD_MEAN_REL,
+                f"K2 with dropout disagrees with its plain version: {k2}")
+    del dqkv_ref, dbias_ref
+    torch.cuda.empty_cache()
+    qh, kh, vh = k_attn.split_heads(qkv, h, bias)
+    dh = dout.reshape(b, s, h, 64).transpose(1, 2)
+    k1.update(
+        ms=median_ms(lambda: k_attn.attention_packed_fwd(qkv, bias, h, False,
+                                                         True, **drop)),
+        no_dropout_ms=median_ms(lambda: k_attn.attention_packed_fwd(
+            qkv, bias, h, False, True)),
+        plain_ms=median_ms(lambda: k_attn.attention_packed_fwd_ref(
+            qkv, bias, h, False, True, **drop), 5),
+        sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=rate)),
+        sdpa_backend=sdpa_backend(qh, kh, vh, False),
+        bound=attention_bound(b, h, s, False, False,
+                              extra_bytes=3 * width * 4, dropout=True))
+    k2.update(
+        ms=median_ms(lambda: k_attn.attention_packed_bwd(
+            qkv, bias, dout, m, l, h, False, **drop)),
+        no_dropout_ms=median_ms(lambda: k_attn.attention_packed_bwd(
+            qkv, bias, dout, m, l, h, False)),
+        plain_ms=median_ms(lambda: k_attn.attention_packed_bwd_ref(
+            qkv, bias, dout, m, l, h, False, **drop), 5),
+        sdpa=sdpa_backward_ms(qh, kh, vh, dh, False, dropout_p=rate),
+        bound=attention_bound(b, h, s, False, True,
+                              extra_bytes=3 * width * 8, dropout=True))
+    emit("kernel", name="attention_packed_fwd", what="dropout arm",
+         parity=k1, tolerance=dict(max_abs=K1_MAX_ABS, mean_abs=K1_MEAN_ABS,
+                                   stats_rel=K1_STATS_REL,
+                                   dropped_sigmas=DROP_SIGMAS),
+         sdpa_note="SDPA draws its own Philox mask: its time only",
+         shape="(64, S 257, 3·1024) bf16, 16 heads, rate 0.15")
+    emit("kernel", name="attention_packed_bwd", what="dropout arm",
+         parity=k2, tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         sdpa_note="SDPA draws its own Philox mask: its time only",
+         shape="(64, S 257, 3·1024) bf16, 16 heads, rate 0.15")
+    summary["attention_packed_fwd"] = dict(
+        max_abs_err=k1["max_abs"], ms=k1["ms"], no_dropout_ms=k1["no_dropout_ms"],
+        plain_ms=k1["plain_ms"], bound_ms=k1["bound"]["bound_ms"],
+        bound_by=k1["bound"]["bound_by"], library_ms=k1["sdpa_ms"],
+        shape="(64, 257, 16 h), rate 0.15")
+    summary["attention_packed_bwd"] = dict(
+        max_abs_err=k2["dqkv"]["max_abs"], ms=k2["ms"],
+        no_dropout_ms=k2["no_dropout_ms"], plain_ms=k2["plain_ms"],
+        bound_ms=k2["bound"]["bound_ms"], bound_by=k2["bound"]["bound_by"],
+        library_ms=k2["sdpa"]["backward_ms"],
+        shape="(64, 257, 16 h), rate 0.15")
+    del qkv, bias, dout, out, m, l, dqkv, dbias, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+
+    # K6 / K7/K8: VideoGPT-B's step shape on its strided head views, and K7's
+    rows = {}
+    for name, (b, s, packed) in {"K8": (VIDEO_BS, 1024, True),
+                                 "K7": (2, 513, False)}.items():
+        rate = GPT_DROPOUT
+        q, k, v = head_views(b, 12, s, gen, packed)
+        dout = torch.randn(b, s, 12, 64, device="cuda",
+                           generator=gen).bfloat16().transpose(1, 2)
+        seed = random_seed(gen)
+        drop = dict(dropout_rate=rate, seed=seed)
+        out, m, l = k_attn.attention_fwd(q, k, v, True, True, **drop)
+        grads = k_attn.attention_bwd(q, k, v, dout, m, l, True, **drop)
+        torch.cuda.synchronize()
+        ref = k_attn.attention_fwd_ref(q, k, v, True, **drop)
+        row = dict(B=b, S=s, H=12, causal=True, rate=rate,
+                   out=rel_errors(out, ref),
+                   **dropped_fraction(seed, b, 12, s, True, rate))
+        del ref
+        refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, True, **drop)
+        row.update({g: rel_errors(a, r)
+                    for g, a, r in zip(("dq", "dk", "dv"), grads, refs)})
+        del refs
+        torch.cuda.empty_cache()
+        for key in ("out", "dq", "dk", "dv"):
+            require(row[key]["max_rel"] <= BWD_MAX_REL
+                    and row[key]["mean_rel"] <= BWD_MEAN_REL,
+                    f"{name} with dropout disagrees with its plain version: "
+                    f"{row}")
+        require(all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+                and row["sigmas_from_rate"] <= DROP_SIGMAS,
+                f"{name} with dropout: non-finite output or mask off the "
+                f"rate: {row}")
+        row.update(
+            fwd_ms=median_ms(lambda: k_attn.attention_fwd(q, k, v, True, True,
+                                                          **drop)),
+            fwd_no_dropout_ms=median_ms(lambda: k_attn.attention_fwd(
+                q, k, v, True, True)),
+            fwd_plain_ms=median_ms(lambda: k_attn.attention_fwd_ref(
+                q, k, v, True, True, **drop), 3),
+            sdpa_fwd_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=rate)),
+            bwd_ms=median_ms(lambda: k_attn.attention_bwd(
+                q, k, v, dout, m, l, True, **drop)),
+            bwd_no_dropout_ms=median_ms(lambda: k_attn.attention_bwd(
+                q, k, v, dout, m, l, True)),
+            bwd_plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
+                q, k, v, dout, m, l, True, **drop), 3),
+            sdpa_bwd=sdpa_backward_ms(q, k, v, dout, True, dropout_p=rate),
+            fwd_bound=attention_bound(b, 12, s, True, False, dropout=True),
+            bwd_bound=attention_bound(b, 12, s, True, True, dropout=True))
+        rows[name] = row
+        del q, k, v, dout, out, m, l, grads
+        torch.cuda.empty_cache()
+    emit("kernel", name="attention_fwd/attention_bwd", what="dropout arms",
+         K8_shape="(32, 12, S 1024, 64) bf16 causal, strided",
+         K7_shape="(2, 12, S 513, 64) bf16 causal",
+         sdpa_note="SDPA draws its own Philox mask: its time only",
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                        dropped_sigmas=DROP_SIGMAS), **rows)
+    k8 = rows["K8"]
+    summary["attention_fwd"] = dict(
+        max_abs_err=k8["out"]["max_abs"], ms=k8["fwd_ms"],
+        no_dropout_ms=k8["fwd_no_dropout_ms"], plain_ms=k8["fwd_plain_ms"],
+        bound_ms=k8["fwd_bound"]["bound_ms"],
+        bound_by=k8["fwd_bound"]["bound_by"], library_ms=k8["sdpa_fwd_ms"],
+        shape="(32, 12, 1024, 64) causal, rate 0.1")
+    summary["attention_bwd"] = dict(
+        max_abs_err=max(k8[g]["max_abs"] for g in ("dq", "dk", "dv")),
+        ms=k8["bwd_ms"], no_dropout_ms=k8["bwd_no_dropout_ms"],
+        plain_ms=k8["bwd_plain_ms"], bound_ms=k8["bwd_bound"]["bound_ms"],
+        bound_by=k8["bwd_bound"]["bound_by"],
+        library_ms=k8["sdpa_bwd"]["backward_ms"],
+        k7_ms=rows["K7"]["bwd_ms"], k7_bound_ms=rows["K7"]["bwd_bound"]["bound_ms"],
+        shape="(32, 12, 1024, 64) causal, rate 0.1")
     return summary
 
 
@@ -1709,10 +2046,11 @@ def video_batch(tokenizer_size: int) -> torch.Tensor:
     return torch.from_numpy(clip.astype(np.float32) / 255.0).cuda()
 
 
-def loss_and_grad_norm(model: VideoGPT, tokens: torch.Tensor):
+def loss_and_grad_norm(model: VideoGPT, tokens: torch.Tensor,
+                       generator: "torch.Generator | None" = None):
     """The step's loss and the global norm of its gradients, without the
     optimizer."""
-    _, loss = model(tokens)
+    _, loss = model(tokens, generator)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
     return loss.item(), norm.item()
@@ -1853,7 +2191,216 @@ def phase_videogpt_train(card: str):
              lambda: step(quick, tokenizer, videos)))
     del state, quick, ar_state
     torch.cuda.empty_cache()
-    return model.eval(), tokens, launches
+    dropout_launches = videogpt_dropout(model, tokenizer, videos, card)
+    return model.eval(), tokens, launches, dropout_launches
+
+
+def videogpt_dropout(model: VideoGPT, tokenizer, videos: torch.Tensor,
+                     card: str) -> dict:
+    """Three steps of the VideoGPT-B step at ``--dropout 0.1`` on the same
+    weights and batch: K6 and K8 run their dropout branch (12 launches each
+    a step); the first step's loss and gradient norm against the plain
+    versions from the same generator state (so both draw the same masks).
+    Returns the dropout launches of the first step."""
+    drop_model = VideoGPT(VideoGPTConfig(**VIDEOGPT, dropout=GPT_DROPOUT),
+                          device="cuda")
+    drop_model.load_state_dict(model.state_dict())
+    drop_model.train()
+    step = make_videogpt_train_step(drop_model)
+    state = TrainState.create(drop_model, make_optimizer(
+        1e-4, 2, 500000, 1e-5, 1e-4, clip_norm=None))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.cuda.synchronize()
+    reset_launches()   # the main path's run starts here
+    _, tokens, metrics = step(state, tokenizer, videos, gen)
+    torch.cuda.synchronize()
+    launches, dropout_launches = read_launches(), read_dropout_launches()
+    n_layers = drop_model.config.trans_config.n_layers
+    want = dict(attention_packed_fwd=0, attention_packed_bwd=0,
+                attention_fwd=n_layers, attention_bwd=n_layers)
+    require(launches == VIDEO_STEP_LAUNCHES and dropout_launches == want,
+            f"one VideoGPT step at dropout {GPT_DROPOUT} launched {launches}, "
+            f"with dropout {dropout_launches}")
+    losses, times = [metrics["train/loss"].item()], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses.append(step(state, tokenizer, videos, gen)[2]["train/loss"]
+                      .item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    # the first step's loss and gradient norm, kernels vs plain versions,
+    # each from the same generator state
+    kernel = loss_and_grad_norm(drop_model, tokens,
+                                torch.Generator(device="cuda").manual_seed(4))
+    with plain_versions():
+        plain = loss_and_grad_norm(drop_model, tokens, torch.Generator(
+            device="cuda").manual_seed(4))
+    torch.cuda.synchronize()
+    rel = dict(loss=abs(kernel[0] - plain[0]) / abs(plain[0]),
+               grad_norm=abs(kernel[1] - plain[1]) / abs(plain[1]))
+    emit("videogpt_train", what=f"dropout {GPT_DROPOUT}: 3 steps, kernels vs "
+         "plain versions", card=card, launches=launches,
+         dropout_launches=dropout_launches, losses=losses, step_ms=times,
+         loss=kernel[0], plain_loss=plain[0], grad_norm=kernel[1],
+         plain_grad_norm=plain[1], rel_diff=rel,
+         tolerance=dict(loss_rel=STEP_LOSS_REL,
+                        grad_norm_rel=STEP_GRAD_NORM_REL))
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    require(rel["loss"] <= STEP_LOSS_REL
+            and rel["grad_norm"] <= STEP_GRAD_NORM_REL,
+            f"dropout step, kernels vs plain versions: {rel}")
+    del drop_model, state, step
+    torch.cuda.empty_cache()
+    return dropout_launches
+
+
+def vit_batch(image_size: int):
+    """bs 64 images in [0, 1] and labels from a numpy seed, on the card."""
+    rng = np.random.default_rng(4)
+    images = rng.uniform(0, 1, (VIT_BS, image_size, image_size, 3))
+    labels = rng.integers(0, VIT_CLASSES, VIT_BS, dtype=np.int32)
+    return (torch.from_numpy(images.astype(np.float32)).cuda(),
+            torch.from_numpy(labels).cuda())
+
+
+def classifier_loss(model: ViTClassifier, images, labels, seed: int):
+    """Logits, CE and the global gradient norm in training mode, dropout
+    drawn from a generator seeded with ``seed``; no optimizer."""
+    model.train()
+    logits = model(images, torch.Generator(device="cuda").manual_seed(seed))
+    loss = F.cross_entropy(logits, labels.long())
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    return logits.detach(), loss.item(), norm.item()
+
+
+def phase_vit(card: str):
+    """``bench_extra.py``'s classifier configs at bs 64: ViT-B/16 @224
+    without dropout (S 197) and ViT-L/16 @256 at dropout 0.15 (S 257,
+    ``train_vit.py``'s default). For each: the launches of one step (K1
+    and K2 once per layer, with dropout under ViT-L), the first step's
+    logits, loss and gradient norm against the plain versions from the same
+    generator state, 10 steps on one batch at lr 1e-5 that lower the loss,
+    images/s and peak memory; a profile of one ViT-L step. Returns the
+    launches and the dropout launches of the steps."""
+    total, dropout_total = {}, {}
+    for name, (size, patch, preset, rate) in VIT_CELLS.items():
+        cfg = ViTConfig(size, 3, patch, preset, 1, rate)
+        model = ViTClassifier(cfg, VIT_CLASSES, device="cuda")
+        init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+        images, labels = vit_batch(size)
+        n_layers = cfg.trans_config.n_layers
+        step = make_classifier_train_step(model)
+        state = TrainState.create(model, make_optimizer(
+            1e-4, 5000, 500000, 1e-5, 1e-2, clip_norm=None))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        reset_launches()   # the main path's run starts here
+        _, metrics = step(state, images, labels, gen)
+        torch.cuda.synchronize()
+        launches, dropout_launches = read_launches(), read_dropout_launches()
+        want = dict.fromkeys(launches, 0)
+        want.update(attention_packed_fwd=n_layers,
+                    attention_packed_bwd=n_layers)
+        want_drop = dict(attention_packed_fwd=n_layers if rate else 0,
+                         attention_packed_bwd=n_layers if rate else 0,
+                         attention_fwd=0, attention_bwd=0)
+        require(launches == want and dropout_launches == want_drop,
+                f"{name}: one step launched {launches}, with dropout "
+                f"{dropout_launches}")
+        step_loss = metrics["train/loss"].item()
+        require(np.isfinite(step_loss)
+                and 0.0 <= metrics["train/acc"].item() <= 1.0,
+                f"{name}: first step {metrics}")
+        # lr is 0 at the warmup's first step: the weights are unchanged
+        logits, loss, norm = classifier_loss(model, images, labels, 2)
+        with plain_versions():
+            p_logits, p_loss, p_norm = classifier_loss(model, images, labels,
+                                                       2)
+        torch.cuda.synchronize()
+        rel = dict(loss=abs(loss - p_loss) / abs(p_loss),
+                   grad_norm=abs(norm - p_norm) / abs(p_norm),
+                   logits=rel_errors(logits, p_logits))
+        emit("vit", cell=name, what="first step, kernels vs plain versions",
+             config=dict(image_size=size, patch_size=patch, transformer=preset,
+                         dropout=rate, bs=VIT_BS, seq_len=(size // patch) ** 2
+                         + 1, num_classes=VIT_CLASSES),
+             params=sum(p.numel() for p in model.parameters()),
+             launches={k: v for k, v in launches.items() if v},
+             dropout_launches=dropout_launches, step_loss=step_loss,
+             loss=loss, plain_loss=p_loss, grad_norm=norm, plain_grad_norm=p_norm,
+             rel_diff=rel, tolerance=dict(loss_rel=STEP_LOSS_REL,
+                                          grad_norm_rel=STEP_GRAD_NORM_REL,
+                                          logits_max_rel=MAX_REL_ERR))
+        require(rel["loss"] <= STEP_LOSS_REL
+                and rel["grad_norm"] <= STEP_GRAD_NORM_REL
+                and rel["logits"]["max_rel"] <= MAX_REL_ERR,
+                f"{name}: kernel step vs plain step: {rel}")
+        del logits, p_logits
+        # Learning: 10 steps on the same batch with a 2-step warmup, at lr
+        # 1e-5: at 1e-4 without the recipe's 5000-step warmup (and without
+        # a clip) ViT-L diverged on an H100 after its third step (8.18 ->
+        # 5.57 -> 11.59), while its first step agreed with the plain
+        # versions to 3e-5.
+        quick = TrainState.create(model, make_optimizer(
+            1e-5, 2, 500000, 1e-6, 1e-2, clip_norm=None))
+        losses = torch.stack([step(quick, images, labels, gen)[1]["train/loss"]
+                              for _ in range(10)]).tolist()
+        emit("vit", cell=name, what="learning on one batch, lr 1e-5, warmup 2",
+             first_loss=losses[0], last_loss=losses[-1], losses=losses)
+        require(losses[-1] < losses[0],
+                f"{name}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+        # Throughput: host clock around synchronised steps, median of 6
+        # after 2.
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_median_ms(lambda: (step(quick, images, labels, gen),
+                                     torch.cuda.synchronize()), 6)
+        timing = dict(step_ms=ms, images_per_s=VIT_BS / ms * 1e3,
+                      peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+        if rate:
+            timing["profile"] = profile_window(
+                lambda: step(quick, images, labels, gen))
+        emit("vit", cell=name, what=f"throughput at bs {VIT_BS}", card=card,
+             **timing)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in dropout_launches.items():
+            dropout_total[k] = dropout_total.get(k, 0) + v
+        del model, state, quick, step, images, labels
+        torch.cuda.empty_cache()
+    return total, dropout_total
+
+
+def phase_train_vit_entry(card: str) -> None:
+    """``python -m vit_tpu_torch.train_vit`` at its defaults (ViT-L/16
+    @256, dropout 0.15, bs 64) on the synthetic stream for one epoch of 5
+    steps, as a user runs it: return code 0, a finite loss on every step's
+    line and the epoch's eval line."""
+    cmd = [sys.executable, "-m", "vit_tpu_torch.train_vit", "--dataset",
+           "synthetic", "--no_wandb", "--epochs", "1", "--steps_per_epoch",
+           "5", "--log_every", "1"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    steps = [re.match(r"e=0 i=\d+ loss=(\S+) acc=\S+ load_time=\S+ "
+                      r"step_time=(\S+)", line) for line in lines]
+    steps = [(float(m.group(1)), float(m.group(2))) for m in steps if m]
+    evals = [re.match(r"epoch 0: val_loss=(\S+), acc=(\S+)", line)
+             for line in lines]
+    evals = [float(m.group(1)) for m in evals if m]
+    emit("train_vit_entry", card=card, cmd=" ".join(cmd[1:]),
+         returncode=proc.returncode, seconds=seconds, stdout=lines[-10:],
+         stderr=proc.stderr[-3000:] if proc.returncode else "",
+         step_losses=[l for l, _ in steps], step_times=[t for _, t in steps],
+         val_loss=evals)
+    require(proc.returncode == 0,
+            f"train_vit exited {proc.returncode}: {proc.stderr[-2000:]}")
+    require(len(steps) == 5 and all(np.isfinite(l) for l, _ in steps),
+            f"train_vit's step lines: {lines}")
+    require(len(evals) == 1 and np.isfinite(evals[0]),
+            f"train_vit's eval line: {lines}")
 
 
 def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
@@ -2109,13 +2656,20 @@ def main() -> None:
                                                card)
         del model, weights, perceptual, images
         torch.cuda.empty_cache()
-        gpt, tokens, gpt_launches = phase_videogpt_train(card)
+        gpt, tokens, gpt_launches, gpt_dropout = phase_videogpt_train(card)
         rollout_launches = phase_videogpt_rollout(Path(tmp), gpt, tokens,
                                                   card)
+        del gpt, tokens
+        torch.cuda.empty_cache()
+    vit_launches, vit_dropout = phase_vit(card)
+    phase_train_vit_entry(card)
     for path in (train_launches, fused_launches, gpt_launches,
-                 rollout_launches, int8_launches, perceptual_launches):
+                 rollout_launches, int8_launches, perceptual_launches,
+                 vit_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
+    dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]
+                        for name in gpt_dropout}
 
     sources = {
         "attention_packed_fwd": ("vit_tpu_torch/csrc/attention_packed_fwd.cu",
@@ -2154,10 +2708,15 @@ def main() -> None:
     also = {"attention_bwd": "vit_tpu/kernels/attention.py:201"}
     missing = [name for name in sources if launches.get(name, 0) == 0]
     require(not missing, f"kernels of the paths never launched: {missing}")
+    # each attention kernel's dropout branch: ViT-L's K1/K2, VideoGPT's K6/K8
+    missing = [name for name, n in dropout_launches.items() if n == 0]
+    require(not missing, f"dropout branches never launched: {missing}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          **summary[name],
+         **({"dropout_launches": dropout_launches[name]}
+            if name in dropout_launches else {}),
          **({"also_replaces": also[name]} if name in also else {})}
         for name in sources]}), flush=True)
     print(card, flush=True)

@@ -99,7 +99,13 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         k_vq.nearest_code(torch.empty(5, 12, device="meta"),
                           torch.empty(7, 12, device="meta"))
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # dropout on a device tensor launches the kernel's dropout branch or
+    # raises, and without a seed it raises anywhere
+    with pytest.raises(ValueError, match="unsupported device"):
+        k_attn.flash_attention_packed(
+            qkv, 2, dropout_rate=0.1,
+            seed=torch.zeros(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="requires a seed"):
         k_attn.flash_attention_packed(torch.zeros(1, 4, 384), 2,
                                       dropout_rate=0.1)
     assert k_attn.launches == 0 and k_vq.launches == 0

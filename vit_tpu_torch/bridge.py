@@ -126,6 +126,17 @@ def videogpt_state_dict_from_flax(params: dict, cfg) -> "dict[str, torch.Tensor]
     return _from_flax(params, VideoGPT(cfg, device="meta").state_dict())
 
 
+def classifier_state_dict_from_flax(params: dict, cfg, num_classes: int
+                                    ) -> "dict[str, torch.Tensor]":
+    """JAX ViTClassifier params (the ``{"vit": …, "head": …}`` tree) → the
+    port's state dict for a ``ViTClassifier(cfg, num_classes)``, with the
+    checks of ``_from_flax``."""
+    from vit_tpu_torch.models.vit import ViTClassifier
+
+    return _from_flax(params, ViTClassifier(cfg, num_classes,
+                                            device="meta").state_dict())
+
+
 def convnext_state_dict_from_flax(params: dict, net) -> "dict[str, torch.Tensor]":
     """JAX ConvNeXt params (``vit_tpu/losses/perceptual.py``'s tree) → the
     state dict of the port's ``ConvNeXt`` ``net``, with the checks of

@@ -37,8 +37,18 @@ each time a block runs. The GELU inside K9a and its backward K9b is always
 the tanh-composed erf and its flat derivative, whatever ``gelu_impl`` says,
 as in the JAX package.
 
-Not yet: the Bytedance layout (``ln_affine``, ``attn_out_proj``), dropout,
-remat, the scanned and pipelined stacks, and int8.
+Dropout (``cfg.dropout``) runs while the module is training
+(``module.train()``, JAX's ``deterministic=False``) and never while decoding
+with a KV cache, from an explicit ``torch.Generator`` handed to
+``Transformer.forward``: each block's attention draws one int32 seed from it
+per call for the kernels' counter hash (as each JAX ``Attention`` draws from
+its dropout key, ``vit_tpu/core/transformer.py:180-182``), then its MLP
+drops fc2's output (``nn.Dropout``, :320) with a mask drawn from it, in the
+compute dtype, kept values divided by 1 − rate. Training with dropout and
+no generator raises.
+
+Not yet: the Bytedance layout (``ln_affine``, ``attn_out_proj``), remat,
+the scanned and pipelined stacks, and int8.
 """
 
 from __future__ import annotations
@@ -61,9 +71,6 @@ def _check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "the Bytedance block layout (ln_affine, attn_out_proj) is not "
             "ported yet")
-    if cfg.dropout > 0.0:
-        raise NotImplementedError("dropout (and its in-kernel attention "
-                                  "hash) is not ported yet")
 
 
 def use_fused_fc(cfg: TransformerConfig) -> bool:
@@ -170,7 +177,8 @@ class Attention(nn.Module):
                              dtype=config.param_dtype, device=device)
 
     def forward(self, x: torch.Tensor, kv=None, pos=None,
-                fused_ln: bool = False) -> torch.Tensor:
+                fused_ln: bool = False, dropout_rate: float = 0.0,
+                generator: "torch.Generator | None" = None) -> torch.Tensor:
         cfg = self.config
         w = self.qkv.weight.to(cfg.dtype)
         if fused_ln:
@@ -178,14 +186,19 @@ class Attention(nn.Module):
         else:
             qkv_nb = F.linear(x.to(cfg.dtype), w)
         if kv is None:
+            seed = None
+            if dropout_rate > 0.0:   # one int32 per call, drawn on x's device
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=x.device, dtype=torch.int32)
             return fused_qkv_attention(qkv_nb, cfg.n_heads, causal=cfg.causal,
+                                       dropout_rate=dropout_rate, seed=seed,
                                        qkv_bias=self.qkv.bias)
         q, k, v = split_heads(qkv_nb, cfg.n_heads, self.qkv.bias)
         return merge_heads(_decode(q, k, v, kv, pos))
 
 
 class Mlp(nn.Module):
-    """fc1 → GELU → fc2, both matmuls in the compute dtype. With
+    """fc1 → GELU → fc2 → dropout, both matmuls in the compute dtype. With
     ``fused_ln`` x is the raw stream and ln2, fc1, its bias and the GELU run
     in K9a; with fused FC (``use_fused_fc``) fc2, and fc1 unless K9a takes
     it, get K10's weight and bias gradients."""
@@ -198,8 +211,17 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(4 * config.n_embd, config.n_embd,
                              dtype=config.param_dtype, device=device)
 
-    def forward(self, x: torch.Tensor, fused_ln: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused_ln: bool = False,
+                dropout_rate: float = 0.0,
+                generator: "torch.Generator | None" = None) -> torch.Tensor:
+        out = self._mlp(x, fused_ln)
+        if dropout_rate == 0.0:
+            return out
+        keep = torch.rand(out.shape, generator=generator,
+                          device=out.device) < 1.0 - dropout_rate
+        return torch.where(keep, out / (1.0 - dropout_rate), 0.0)
+
+    def _mlp(self, x: torch.Tensor, fused_ln: bool) -> torch.Tensor:
         cfg = self.config
         dt = cfg.dtype
         fused_fc = use_fused_fc(cfg)
@@ -220,7 +242,9 @@ class Mlp(nn.Module):
 
 class TransformerLayer(nn.Module):
     """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(x)); a site whose
-    LayerNorm is fused (``use_fused_ln``) gets the raw stream instead."""
+    LayerNorm is fused (``use_fused_ln``) gets the raw stream instead. While
+    training without a KV cache, both draw their dropout from
+    ``generator``."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -231,19 +255,27 @@ class TransformerLayer(nn.Module):
         self.ln2 = LayerNorm(config)
         self.mlp = Mlp(config, device=device)
 
-    def forward(self, x: torch.Tensor, kv=None, pos=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv=None, pos=None,
+                generator: "torch.Generator | None" = None) -> torch.Tensor:
+        rate = self.config.dropout if self.training and kv is None else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError(
+                f"training with dropout {rate} needs a torch.Generator "
+                "(Transformer.forward's generator), or module.eval()")
         fused_qkv, fused_mlp = use_fused_ln(self.config, kv is not None)
         h = x if fused_qkv else self.ln1(x)
-        x = x + self.attn(h, kv, pos, fused_ln=fused_qkv)
+        x = x + self.attn(h, kv, pos, fused_ln=fused_qkv, dropout_rate=rate,
+                          generator=generator)
         h = x if fused_mlp else self.ln2(x)
-        return x + self.mlp(h, fused_ln=fused_mlp)
+        return x + self.mlp(h, fused_ln=fused_mlp, dropout_rate=rate,
+                            generator=generator)
 
 
 class Transformer(nn.Module):
     """Unrolled stack of ``n_layers`` blocks; the input is cast to the compute
     dtype on entry. ``layers.{i}`` holds the JAX tree's ``layer_{i}``. With
     ``cache`` (``init_kv_cache``) and ``pos`` it decodes, updating the cache
-    in place."""
+    in place. ``generator`` feeds dropout while training."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -252,8 +284,9 @@ class Transformer(nn.Module):
                                     for _ in range(config.n_layers))
 
     def forward(self, x: torch.Tensor, cache: "list | None" = None,
-                pos: "int | None" = None) -> torch.Tensor:
+                pos: "int | None" = None,
+                generator: "torch.Generator | None" = None) -> torch.Tensor:
         x = x.to(self.config.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer(x, None if cache is None else cache[i], pos)
+            x = layer(x, None if cache is None else cache[i], pos, generator)
         return x

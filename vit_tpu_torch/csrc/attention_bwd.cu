@@ -21,6 +21,11 @@
 // ds's cast, and each output is cast to bf16 once, as on the TPU (whose K8
 // sums fp32 per-q-block dk/dv partials in XLA before the cast, :416-418).
 //
+// Dropout (kDropout, with the forward's seed vector), as K2's: each pass
+// hashes the mask D of csrc/dropout.cuh again (:251-274, :329-352); dp is
+// multiplied by D before Δ and ds take it, dv takes bf16(D·ph), and the
+// dk/dv kernel hashes the forward's (query, key) pair in its transposed tile.
+//
 // Blocks run in parallel with no carried state, while dq sums over keys and
 // dk, dv over queries. So, as K2 (attention_packed_bwd.cu) does, two kernels
 // accumulate their outputs in registers, with no atomics and no partials:
@@ -47,6 +52,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -63,11 +69,12 @@ struct Operands {
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
 };
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 unpacked_bwd_dq_kernel(Operands a, const float* __restrict__ m_in,
                        const float* __restrict__ l_in,
-                       float* __restrict__ delta_out, int S, int H,
-                       int causal) {
+                       float* __restrict__ delta_out, Dropout drop, int S,
+                       int H, int causal) {
   __shared__ __align__(16) bf16 sQ[kTile * kPitch];     // q / 8
   __shared__ __align__(16) bf16 sDO[kTile * kPitch];    // dO
   __shared__ __align__(16) bf16 sK[kTile * kPitch];     // k, [key][d]
@@ -108,8 +115,10 @@ unpacked_bwd_dq_kernel(Operands a, const float* __restrict__ m_in,
     linv[r] = row < S ? 1.0f / l_in[stat0 + row] : 1.0f;
   }
   const int kv_end = causal ? min(S, q0 + kTile) : S;
+  DropoutStream drs{};
+  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
 
-  // Pass 1: Δ = Σ_keys ph·dp for this thread's two rows.
+  // Pass 1: Δ = Σ_keys ph·(D·dp) for this thread's two rows.
   float delta[2] = {0.0f, 0.0f};
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();
@@ -128,7 +137,9 @@ unpacked_bwd_dq_kernel(Operands a, const float* __restrict__ m_in,
         const int col = k0 + nt * 8 + 2 * t + (e & 1);
         const int row = row0 + (e >> 1) * 8;
         if (col >= S || (causal && col > row)) continue;
-        delta[e >> 1] += expf(s[e] - mr[e >> 1]) * dp[e];
+        float dpd = dp[e];
+        if constexpr (kDropout) dpd *= dropout_keep(drs, row, col, S);
+        delta[e >> 1] += expf(s[e] - mr[e >> 1]) * dpd;
       }
     }
   }
@@ -171,7 +182,10 @@ unpacked_bwd_dq_kernel(Operands a, const float* __restrict__ m_in,
           const int r = e >> 1;
           const bool masked = col >= S || (causal && col > row0 + r * 8);
           const float ph = masked ? 0.0f : expf(s[e] - mr[r]);
-          ds[e] = dscore(ph, dp[e], delta[r], linv[r]);
+          float dpd = dp[e];
+          if constexpr (kDropout)
+            if (!masked) dpd *= dropout_keep(drs, row0 + r * 8, col, S);
+          ds[e] = dscore(ph, dpd, delta[r], linv[r]);
         }
         dsf[half * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
         dsf[half * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
@@ -187,11 +201,12 @@ unpacked_bwd_dq_kernel(Operands a, const float* __restrict__ m_in,
   store_rows(dq, a.dq + offset(a.sdq, b, h), a.sdq.s, row0, S, t);
 }
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 unpacked_bwd_dkdv_kernel(Operands a, const float* __restrict__ m_in,
                          const float* __restrict__ l_in,
-                         const float* __restrict__ delta_in, int S, int H,
-                         int causal) {
+                         const float* __restrict__ delta_in, Dropout drop,
+                         int S, int H, int causal) {
   __shared__ __align__(16) bf16 sA[kTile * kPitch];       // k, then q / 8
   __shared__ __align__(16) bf16 sB[kTile * kPitch];       // v, then dO
   __shared__ __align__(16) bf16 sQt[kHeadDim * kPitch];   // q, [d][q]
@@ -220,6 +235,8 @@ unpacked_bwd_dkdv_kernel(Operands a, const float* __restrict__ m_in,
   load_a_rows(kf, sA + warp * 16 * kPitch, g, t);
   load_a_rows(vf, sB + warp * 16 * kPitch, g, t);
   const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  DropoutStream drs{};
+  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
 
   float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
 #pragma unroll
@@ -258,7 +275,7 @@ unpacked_bwd_dkdv_kernel(Operands a, const float* __restrict__ m_in,
         float st[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         mma_row<kHeadDim / 16>(st, kf, sA, kPitch, nt * 8, g, t);
         mma_row<kHeadDim / 16>(dpt, vf, sB, kPitch, nt * 8, g, t);
-        float ph[4], ds[4];
+        float ph[4], pd[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = nt * 8 + 2 * t + (e & 1);
@@ -266,10 +283,19 @@ unpacked_bwd_dkdv_kernel(Operands a, const float* __restrict__ m_in,
           const int key = key0 + (e >> 1) * 8;
           const bool masked = key >= S || qrow >= S || (causal && key > qrow);
           ph[e] = masked ? 0.0f : expf(st[e] - sM[qi]);
-          ds[e] = dscore(ph[e], dpt[e], sDelta[qi], sLinv[qi]);
+          pd[e] = ph[e];
+          float dpd = dpt[e];
+          if constexpr (kDropout) {
+            if (!masked) {  // the forward's (query, key) pair, not (key, query)
+              const float dm = dropout_keep(drs, qrow, key, S);
+              pd[e] *= dm;
+              dpd *= dm;
+            }
+          }
+          ds[e] = dscore(ph[e], dpd, sDelta[qi], sLinv[qi]);
         }
-        pf[half * 2 + 0] = pack_bf16x2(ph[0], ph[1]);
-        pf[half * 2 + 1] = pack_bf16x2(ph[2], ph[3]);
+        pf[half * 2 + 0] = pack_bf16x2(pd[0], pd[1]);
+        pf[half * 2 + 1] = pack_bf16x2(pd[2], pd[3]);
         dsf[half * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
         dsf[half * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
       }
@@ -293,12 +319,15 @@ unpacked_bwd_dkdv_kernel(Operands a, const float* __restrict__ m_in,
 // strides[3i .. 3i+2] (batch, head, row) for i = 0..6 in that order, each a
 // multiple of 8, bases 16-byte aligned; m, l: (B, H, S) fp32 from
 // attention_fwd; delta: (B, H, S) fp32 workspace. All contiguous except
-// where strided. Returns the first cudaGetLastError() of the two launches.
+// where strided. seed: the forward's (2,) int32 [seed, offset] with its
+// `threshold` and `scale`, or null for no dropout. Returns the first
+// cudaGetLastError() of the two launches.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* m, const void* l,
                              void* dq, void* dk, void* dv, void* delta,
-                             const long long* strides, int B, int S, int H,
-                             int causal, void* stream) {
+                             const void* seed, const long long* strides, int B,
+                             int S, int H, int causal, unsigned int threshold,
+                             float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Operands a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
@@ -313,13 +342,18 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
              {strides[15], strides[16], strides[17]},
              {strides[18], strides[19], strides[20]}};
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  unpacked_bwd_dq_kernel<<<grid, kThreads, 0, st>>>(
+  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
+  auto dq_kernel = seed != nullptr ? &unpacked_bwd_dq_kernel<true>
+                                   : &unpacked_bwd_dq_kernel<false>;
+  auto dkdv_kernel = seed != nullptr ? &unpacked_bwd_dkdv_kernel<true>
+                                     : &unpacked_bwd_dkdv_kernel<false>;
+  dq_kernel<<<grid, kThreads, 0, st>>>(
       a, static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<float*>(delta), S, H, causal);
+      static_cast<float*>(delta), drop, S, H, causal);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  unpacked_bwd_dkdv_kernel<<<grid, kThreads, 0, st>>>(
+  dkdv_kernel<<<grid, kThreads, 0, st>>>(
       a, static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(delta), S, H, causal);
+      static_cast<const float*>(delta), drop, S, H, causal);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,11 @@
 // l, fp32, as two contiguous (B, H, S) arrays: the residuals the backward
 // (attention_bwd.cu) rebuilds p from, where the TPU's K7/K8 recompute them.
 //
+// Dropout (kDropout, with a seed vector), as K1's and :118-137: p is
+// multiplied by the mask D of csrc/dropout.cuh after l has summed it and
+// before its bf16 cast (row the global query, column the global key, stride
+// S, stream b·H + h + offset); the saved (m, l) are the unmasked ones.
+//
 // The design is K1's (attention_packed_fwd.cu), not the TPU's blocking: one
 // block per (64-row q tile, head, batch) of four warps, each warp owning 16 q
 // rows, looping over 64-row K/V tiles, so any S works (the TPU kernel pads S
@@ -41,17 +46,19 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "dropout.cuh"
 
 namespace {
 
 using namespace vit;
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ m_out, float* __restrict__ l_out,
-                     Strides sq, Strides sk, Strides sv, Strides so, int S,
-                     int H, int causal) {
+                     Dropout drop, Strides sq, Strides sk, Strides sv,
+                     Strides so, int S, int H, int causal) {
   __shared__ __align__(16) bf16 sQ[kTile * kPitch];
   __shared__ __align__(16) bf16 sK[kTile * kPitch];
   __shared__ __align__(16) bf16 sVt[kHeadDim * kPitch];  // [d][kv]
@@ -102,7 +109,9 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // Pass 2: p = exp(s - m) in fp32, summed unrounded into l, and P (bf16,
-  // unnormalised) times V accumulated in fp32.
+  // unnormalised, after the dropout mask) times V accumulated in fp32.
+  DropoutStream drs{};
+  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
   float o[kHeadDim / 8][4];
 #pragma unroll
   for (int nt = 0; nt < kHeadDim / 8; ++nt)
@@ -121,12 +130,19 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t pf[kTile / 16][4];
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
-      const float p0 = expf(s[nt][0] - m[0]);
-      const float p1 = expf(s[nt][1] - m[0]);
-      const float p2 = expf(s[nt][2] - m[1]);
-      const float p3 = expf(s[nt][3] - m[1]);
+      float p0 = expf(s[nt][0] - m[0]);
+      float p1 = expf(s[nt][1] - m[0]);
+      float p2 = expf(s[nt][2] - m[1]);
+      float p3 = expf(s[nt][3] - m[1]);
       l[0] += p0 + p1;
       l[1] += p2 + p3;
+      if constexpr (kDropout) {
+        const int col = k0 + nt * 8 + 2 * t;
+        p0 *= dropout_at(drs, row0, col, S, causal);
+        p1 *= dropout_at(drs, row0, col + 1, S, causal);
+        p2 *= dropout_at(drs, row0 + 8, col, S, causal);
+        p3 *= dropout_at(drs, row0 + 8, col + 1, S, causal);
+      }
       pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(p0, p1);
       pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(p2, p3);
     }
@@ -166,23 +182,28 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // q, k, v, out: (B, H, S, 64) bf16 at the element strides
 // strides[0..2] (q), [3..5] (k), [6..8] (v), [9..11] (out), each (batch,
 // head, row), multiples of 8 with 16-byte aligned bases; m, l: (B, H, S)
-// fp32, contiguous, or both null for no stats. Returns cudaGetLastError()
-// after the launch.
+// fp32, contiguous, or both null for no stats; seed: (2,) int32 [seed,
+// offset] on the device for dropout with `threshold` and `scale`
+// (csrc/dropout.cuh), or null for none. Returns cudaGetLastError() after the
+// launch.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             void* out, void* m, void* l,
+                             void* out, void* m, void* l, const void* seed,
                              const long long* strides, int B, int S, int H,
-                             int causal, void* stream) {
+                             int causal, unsigned int threshold, float scale,
+                             void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  attention_fwd_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
+  auto kernel = seed != nullptr ? &attention_fwd_kernel<true>
+                                : &attention_fwd_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), sq, sk, sv, so, S, H,
-      causal);
+      static_cast<float*>(m), static_cast<float*>(l), drop, sq, sk, sv, so, S,
+      H, causal);
   return static_cast<int>(cudaGetLastError());
 }

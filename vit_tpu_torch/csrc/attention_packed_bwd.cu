@@ -16,6 +16,12 @@
 // Products are bf16 in, fp32 accumulate; ph, dp, Δ and ds are fp32 until ds's
 // cast, as on the TPU.
 //
+// Dropout (kDropout, with the forward's seed vector): each pass that needs
+// the mask D of csrc/dropout.cuh hashes it again (:916-942): dp is multiplied
+// by D before Δ sums it and before ds takes it, and dv takes bf16(D·ph). The
+// dk/dv kernel walks key tiles with the queries inside, so its score tile is
+// transposed, but it hashes (row = query, column = key), the forward's pair.
+//
 // The Hopper problem: blocks run in parallel with no carried state, and dq
 // sums over keys while dk and dv sum over queries. The TPU kernel holds the
 // whole sequence of one head pair in VMEM; here that would not fit for S up
@@ -45,6 +51,7 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -76,6 +83,7 @@ __device__ __forceinline__ void column_sums(const float (&acc)[kHeadDim / 8][4],
   __syncthreads();
 }
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const bf16* __restrict__ qkv,
                         const bf16* __restrict__ bias,
@@ -83,7 +91,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv,
                         const float* __restrict__ m_in,
                         const float* __restrict__ l_in,
                         bf16* __restrict__ dqkv, float* __restrict__ delta_out,
-                        float* __restrict__ part, int S, int H, int causal) {
+                        float* __restrict__ part, Dropout drop, int S, int H,
+                        int causal) {
   __shared__ __align__(16) bf16 sQ[kTile * kPitch];     // q / 8
   __shared__ __align__(16) bf16 sDO[kTile * kPitch];    // dO
   __shared__ __align__(16) bf16 sK[kTile * kPitch];     // k, [key][d]
@@ -127,8 +136,10 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv,
     linv[r] = row < S ? 1.0f / l_in[stat0 + row] : 1.0f;
   }
   const int kv_end = causal ? min(S, q0 + kTile) : S;
+  DropoutStream drs{};
+  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
 
-  // Pass 1: Δ = Σ_keys ph·dp for this thread's two rows.
+  // Pass 1: Δ = Σ_keys ph·(D·dp) for this thread's two rows.
   float delta[2] = {0.0f, 0.0f};
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();
@@ -147,7 +158,9 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv,
         const int col = k0 + nt * 8 + 2 * t + (e & 1);
         const int row = row0 + (e >> 1) * 8;
         if (col >= S || (causal && col > row)) continue;
-        delta[e >> 1] += expf(s[e] - mr[e >> 1]) * dp[e];
+        float dpd = dp[e];
+        if constexpr (kDropout) dpd *= dropout_keep(drs, row, col, S);
+        delta[e >> 1] += expf(s[e] - mr[e >> 1]) * dpd;
       }
     }
   }
@@ -190,7 +203,10 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv,
           const int r = e >> 1;
           const bool masked = col >= S || (causal && col > row0 + r * 8);
           const float ph = masked ? 0.0f : expf(s[e] - mr[r]);
-          ds[e] = dscore(ph, dp[e], delta[r], linv[r]);
+          float dpd = dp[e];
+          if constexpr (kDropout)
+            if (!masked) dpd *= dropout_keep(drs, row0 + r * 8, col, S);
+          ds[e] = dscore(ph, dpd, delta[r], linv[r]);
         }
         dsf[half * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
         dsf[half * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
@@ -211,6 +227,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv,
               warp, lane);
 }
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_kernel(const bf16* __restrict__ qkv,
                           const bf16* __restrict__ bias,
@@ -219,7 +236,7 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ qkv,
                           const float* __restrict__ l_in,
                           const float* __restrict__ delta_in,
                           bf16* __restrict__ dqkv, float* __restrict__ part,
-                          int S, int H, int causal) {
+                          Dropout drop, int S, int H, int causal) {
   __shared__ __align__(16) bf16 sA[kTile * kPitch];       // k, then q / 8
   __shared__ __align__(16) bf16 sB[kTile * kPitch];       // v, then dO
   __shared__ __align__(16) bf16 sQt[kHeadDim * kPitch];   // q, [d][q]
@@ -252,6 +269,8 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ qkv,
   load_a_rows(kf, sA + warp * 16 * kPitch, g, t);
   load_a_rows(vf, sB + warp * 16 * kPitch, g, t);
   const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  DropoutStream drs{};
+  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
 
   float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
 #pragma unroll
@@ -292,7 +311,7 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ qkv,
         float st[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         mma_row<kHeadDim / 16>(st, kf, sA, kPitch, nt * 8, g, t);
         mma_row<kHeadDim / 16>(dpt, vf, sB, kPitch, nt * 8, g, t);
-        float ph[4], ds[4];
+        float ph[4], pd[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = nt * 8 + 2 * t + (e & 1);
@@ -300,10 +319,19 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ qkv,
           const int key = key0 + (e >> 1) * 8;
           const bool masked = key >= S || q >= S || (causal && key > q);
           ph[e] = masked ? 0.0f : expf(st[e] - sM[qi]);
-          ds[e] = dscore(ph[e], dpt[e], sDelta[qi], sLinv[qi]);
+          pd[e] = ph[e];
+          float dpd = dpt[e];
+          if constexpr (kDropout) {
+            if (!masked) {  // the forward's (query, key) pair, not (key, query)
+              const float dm = dropout_keep(drs, q, key, S);
+              pd[e] *= dm;
+              dpd *= dm;
+            }
+          }
+          ds[e] = dscore(ph[e], dpd, sDelta[qi], sLinv[qi]);
         }
-        pf[half * 2 + 0] = pack_bf16x2(ph[0], ph[1]);
-        pf[half * 2 + 1] = pack_bf16x2(ph[2], ph[3]);
+        pf[half * 2 + 0] = pack_bf16x2(pd[0], pd[1]);
+        pf[half * 2 + 1] = pack_bf16x2(pd[2], pd[3]);
         dsf[half * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
         dsf[half * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
       }
@@ -342,29 +370,40 @@ __global__ void column_total_kernel(const float* __restrict__ part,
 // qkv: (B, S, 3·H·64) bf16; bias: (3·H·64,) bf16; dout: (B, S, H·64) bf16;
 // m, l: (B, H, S) fp32 from attention_packed_fwd; dqkv: (B, S, 3·H·64) bf16;
 // dbias: (3·H·64,) fp32. Workspace: delta (B, H, S) fp32 and part
-// (B·⌈S/64⌉, 3·H·64) fp32. All contiguous and 16-byte aligned. Returns the
-// first cudaGetLastError() of the three launches.
+// (B·⌈S/64⌉, 3·H·64) fp32. All contiguous and 16-byte aligned. seed: the
+// forward's (2,) int32 [seed, offset] with its `threshold` and `scale`, or
+// null for no dropout. Returns the first cudaGetLastError() of the three
+// launches.
 extern "C" int attention_packed_bwd(const void* qkv, const void* bias,
                                     const void* dout, const void* m,
                                     const void* l, void* dqkv, void* dbias,
-                                    void* delta, void* part, int B, int S,
-                                    int H, int causal, void* stream) {
+                                    void* delta, void* part, const void* seed,
+                                    int B, int S, int H, int causal,
+                                    unsigned int threshold, float scale,
+                                    void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (S + kTile - 1) / kTile;
   const dim3 grid(n_tiles, H, B);
-  attention_bwd_dq_kernel<<<grid, kThreads, 0, st>>>(
+  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
+  auto dq_kernel = seed != nullptr ? &attention_bwd_dq_kernel<true>
+                                   : &attention_bwd_dq_kernel<false>;
+  auto dkdv_kernel = seed != nullptr ? &attention_bwd_dkdv_kernel<true>
+                                     : &attention_bwd_dkdv_kernel<false>;
+  dq_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(dout), static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<bf16*>(dqkv),
-      static_cast<float*>(delta), static_cast<float*>(part), S, H, causal);
+      static_cast<float*>(delta), static_cast<float*>(part), drop, S, H,
+      causal);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  attention_bwd_dkdv_kernel<<<grid, kThreads, 0, st>>>(
+  dkdv_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(dout), static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const float*>(delta),
-      static_cast<bf16*>(dqkv), static_cast<float*>(part), S, H, causal);
+      static_cast<bf16*>(dqkv), static_cast<float*>(part), drop, S, H,
+      causal);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const int cols = 3 * H * kHeadDim;

@@ -16,6 +16,12 @@
 // two-pass design has both exactly at the end, so the stats cost one store per
 // row and nothing when they are not asked for.
 //
+// Dropout (kDropout, with a seed vector): after l has summed p = exp(s - m),
+// each p is multiplied by the mask D of csrc/dropout.cuh, before its bf16
+// cast, as :699-715 does (row the global query, column the global key, stride
+// S, stream b·H + h + offset). Entries the key padding or the causal mask
+// already zeroed skip the hash. The saved (m, l) are the unmasked ones.
+//
 // Not the TPU's blocking: one block per (64-row q tile, head, batch) of four
 // warps, each warp owning 16 q rows, looping over 64-row K/V tiles, so any S
 // works; the TPU kernel holds the whole (S, S) score plane instead. The loop
@@ -42,17 +48,19 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "dropout.cuh"
 
 namespace {
 
 using namespace vit;
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
                             const bf16* __restrict__ bias,
                             bf16* __restrict__ out, float* __restrict__ m_out,
-                            float* __restrict__ l_out, int S, int H,
-                            int causal) {
+                            float* __restrict__ l_out, Dropout drop, int S,
+                            int H, int causal) {
   __shared__ __align__(16) bf16 sQ[kTile * kPitch];
   __shared__ __align__(16) bf16 sK[kTile * kPitch];
   __shared__ __align__(16) bf16 sVt[kHeadDim * kPitch];  // [d][kv]
@@ -106,7 +114,9 @@ attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
   }
 
   // Pass 2: p = exp(s - m) in fp32, summed unrounded into l, and P (bf16,
-  // unnormalised) times V accumulated in fp32.
+  // unnormalised, after the dropout mask) times V accumulated in fp32.
+  DropoutStream drs{};
+  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
   float o[kHeadDim / 8][4];
 #pragma unroll
   for (int nt = 0; nt < kHeadDim / 8; ++nt)
@@ -127,12 +137,19 @@ attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
     uint32_t pf[kTile / 16][4];
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
-      const float p0 = expf(s[nt][0] - m[0]);
-      const float p1 = expf(s[nt][1] - m[0]);
-      const float p2 = expf(s[nt][2] - m[1]);
-      const float p3 = expf(s[nt][3] - m[1]);
+      float p0 = expf(s[nt][0] - m[0]);
+      float p1 = expf(s[nt][1] - m[0]);
+      float p2 = expf(s[nt][2] - m[1]);
+      float p3 = expf(s[nt][3] - m[1]);
       l[0] += p0 + p1;
       l[1] += p2 + p3;
+      if constexpr (kDropout) {
+        const int col = k0 + nt * 8 + 2 * t;
+        p0 *= dropout_at(drs, row0, col, S, causal);
+        p1 *= dropout_at(drs, row0, col + 1, S, causal);
+        p2 *= dropout_at(drs, row0 + 8, col, S, causal);
+        p3 *= dropout_at(drs, row0 + 8, col + 1, S, causal);
+      }
       pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(p0, p1);
       pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(p2, p3);
     }
@@ -169,17 +186,23 @@ attention_packed_fwd_kernel(const bf16* __restrict__ qkv,
 }  // namespace
 
 // qkv: (B, S, 3·H·64) bf16, contiguous, 16-byte aligned; bias: (3·H·64,) bf16;
-// out: (B, S, H·64) bf16; m, l: (B, H, S) fp32, or both null for no stats.
-// Returns cudaGetLastError() after the launch.
+// out: (B, S, H·64) bf16; m, l: (B, H, S) fp32, or both null for no stats;
+// seed: (2,) int32 [seed, offset] on the device for dropout with `threshold`
+// and `scale` (csrc/dropout.cuh), or null for none. Returns
+// cudaGetLastError() after the launch.
 extern "C" int attention_packed_fwd(const void* qkv, const void* bias, void* out,
-                                    void* m, void* l, int B, int S, int H,
-                                    int causal, void* stream) {
+                                    void* m, void* l, const void* seed, int B,
+                                    int S, int H, int causal,
+                                    unsigned int threshold, float scale,
+                                    void* stream) {
   if (B == 0 || S == 0) return 0;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  attention_packed_fwd_kernel<<<grid, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
+  auto kernel = seed != nullptr ? &attention_packed_fwd_kernel<true>
+                                : &attention_packed_fwd_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
-      S, H, causal);
+      drop, S, H, causal);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,44 @@
-"""Synthetic video batches (the port's own copy of
-``vit_tpu/data/synthetic.py:61-84``, numpy only).
+"""Synthetic image and video batches (the port's own copies of
+``vit_tpu/data/synthetic.py:14-84``, numpy only).
 
-The same seed gives the same stream as the JAX package's loader.
+The same seed gives the same stream as the JAX package's loaders.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class SyntheticImageLoader:
+    """Yields (images NHWC float32, int32 labels) batches, deterministic per
+    epoch: i.i.d. standard-normal pixels, the JAX loader's ``mode="noise"``
+    (its ``"shapes"`` mode is not ported). Each pass over the loader is the
+    next epoch, drawn from ``default_rng((seed, epoch))``."""
+
+    def __init__(self, image_size: int, batch_size: int, *,
+                 num_classes: int = 1000, in_channels: int = 3,
+                 steps_per_epoch: int = 50, seed: int = 0):
+        self.image_size = image_size
+        self.batch_size = batch_size
+        self.num_classes = num_classes
+        self.in_channels = in_channels
+        self.steps_per_epoch = steps_per_epoch
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self):
+        return self.steps_per_epoch
+
+    def __iter__(self):
+        rng = np.random.default_rng((self.seed, self._epoch))
+        self._epoch += 1
+        for _ in range(self.steps_per_epoch):
+            images = rng.standard_normal(
+                (self.batch_size, self.image_size, self.image_size,
+                 self.in_channels), dtype=np.float32)
+            labels = rng.integers(0, self.num_classes, self.batch_size,
+                                  dtype=np.int32)
+            yield images, labels
 
 
 class SyntheticVideoLoader:

@@ -121,21 +121,24 @@ def _compile(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    f32 = ctypes.c_float
-    # attention_packed_fwd(qkv, bias, out, m, l, B, S, H, causal, stream)
-    lib.attention_packed_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    f32, u32 = ctypes.c_float, ctypes.c_uint
+    # The attention entries end in (..., causal, threshold, scale, stream):
+    # the dropout keep threshold and scale, read only with a seed vector.
+    drop = [u32, f32, ptr]
+    # attention_packed_fwd(qkv, bias, out, m, l, seed, B, S, H, causal, ...)
+    lib.attention_packed_fwd.argtypes = [ptr] * 6 + [i32] * 4 + drop
     lib.attention_packed_fwd.restype = i32
     # attention_packed_bwd(qkv, bias, dout, m, l, dqkv, dbias, delta, part,
-    #                      B, S, H, causal, stream)
-    lib.attention_packed_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+    #                      seed, B, S, H, causal, ...)
+    lib.attention_packed_bwd.argtypes = [ptr] * 10 + [i32] * 4 + drop
     lib.attention_packed_bwd.restype = i32
     strides = ctypes.POINTER(ctypes.c_longlong)
-    # attention_fwd(q, k, v, out, m, l, strides, B, S, H, causal, stream)
-    lib.attention_fwd.argtypes = [ptr] * 6 + [strides] + [i32] * 4 + [ptr]
+    # attention_fwd(q, k, v, out, m, l, seed, strides, B, S, H, causal, ...)
+    lib.attention_fwd.argtypes = [ptr] * 7 + [strides] + [i32] * 4 + drop
     lib.attention_fwd.restype = i32
-    # attention_bwd(q, k, v, dout, m, l, dq, dk, dv, delta, strides, B, S, H,
-    #               causal, stream)
-    lib.attention_bwd.argtypes = [ptr] * 10 + [strides] + [i32] * 4 + [ptr]
+    # attention_bwd(q, k, v, dout, m, l, dq, dk, dv, delta, seed, strides, B,
+    #               S, H, causal, ...)
+    lib.attention_bwd.argtypes = [ptr] * 11 + [strides] + [i32] * 4 + drop
     lib.attention_bwd.restype = i32
     # convnext_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, y, N, C, eps,
     #                   stream)

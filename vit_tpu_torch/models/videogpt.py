@@ -82,13 +82,16 @@ class VideoGPT(nn.Module):
                + self.pos_embed[pos:pos + length])
         return emb.to(self.config.trans_config.dtype)
 
-    def forward(self, x: torch.Tensor):
-        """x (B, T, N) int tokens → (logits (B, T·N, C) fp32, scalar CE)."""
+    def forward(self, x: torch.Tensor,
+                generator: "torch.Generator | None" = None):
+        """x (B, T, N) int tokens → (logits (B, T·N, C) fp32, scalar CE);
+        ``generator`` feeds the transformer's dropout while training."""
         b, t, n = x.shape
         y = x.reshape(b, t * n).long()
         sos = torch.full((b, 1), self.config.codebook_size, dtype=torch.long,
                          device=x.device)
-        h = self.transformer(self._embed(torch.cat([sos, y[:, :-1]], -1), 0))
+        h = self.transformer(self._embed(torch.cat([sos, y[:, :-1]], -1), 0),
+                             generator=generator)
         logits = linear(h, self.proj, torch.float32)
         return logits, cross_entropy(logits, y)
 

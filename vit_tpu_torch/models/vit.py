@@ -1,8 +1,10 @@
-"""ViT backbone (counterpart of ``vit_tpu/models/vit.py:26-112``).
+"""ViT backbone and classifier (counterpart of ``vit_tpu/models/vit.py``).
 
 Images are NHWC, as in the JAX package. The patch embedding is the same
 unfold + Linear in ``(p1 p2 c)`` order (a stride-patch conv written as one
-GEMM), so the two packages share one weight layout.
+GEMM), so the two packages share one weight layout. JAX's ``deterministic``
+flag is the module's mode: ``train()`` runs the transformer's dropout from
+the ``generator`` given to ``forward``, ``eval()`` none.
 """
 
 from __future__ import annotations
@@ -76,11 +78,31 @@ class ViT(nn.Module):
                 device=device))
         self.transformer = Transformer(tc, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: "torch.Generator | None" = None) -> torch.Tensor:
         cfg = self.config
         dt = cfg.trans_config.dtype
         emb = self.patch_proj(x) + self.pos_emb.to(dt)
         if cfg.extra_tokens > 0:
             extra = self.extra_emb.to(dt)[None].expand(x.shape[0], -1, -1)
             emb = torch.cat([extra, emb], dim=1)
-        return self.transformer(emb)
+        return self.transformer(emb, generator=generator)
+
+
+class ViTClassifier(nn.Module):
+    """Linear head on token 0 (``vit_tpu/models/vit.py:115-127``, reference
+    train_vit.py:47-53): the ViT's first token in fp32 through an fp32
+    ``head``. Images (B, H, W, C) → logits (B, num_classes) fp32."""
+
+    def __init__(self, config: ViTConfig, num_classes: int = 1000,
+                 device=None):
+        super().__init__()
+        self.config = config
+        self.vit = ViT(config, device=device)
+        self.head = nn.Linear(config.trans_config.n_embd, num_classes,
+                              dtype=config.param_dtype, device=device)
+
+    def forward(self, x: torch.Tensor,
+                generator: "torch.Generator | None" = None) -> torch.Tensor:
+        tokens = self.vit(x, generator)
+        return linear(tokens[:, 0].float(), self.head, torch.float32)

@@ -34,19 +34,25 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = False) -> torch.Tensor:
+                         *, causal: bool = False, dropout_rate: float = 0.0,
+                         seed: "torch.Tensor | None" = None) -> torch.Tensor:
     """Attention over q, k, v (B, H, S, D) through ``flash_attention``: K6,
-    with K7/K8 in the backward, at every S. The JAX package hands S > 8192
-    to XLA only because its kernels hold K and V in VMEM; these walk 64-row
-    tiles and take any S."""
-    return flash_attention(q, k, v, causal=causal)
+    with K7/K8 in the backward, at every S, dropout included (the kernels'
+    counter hash of the one-element int32 ``seed``). The JAX package hands
+    S > 8192, and dropout beyond its tiled backward's budget, to XLA only
+    because its kernels hold K and V in VMEM; these walk 64-row tiles and
+    take any S."""
+    return flash_attention(q, k, v, causal=causal, dropout_rate=dropout_rate,
+                           seed=seed)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, n_heads: int, *,
-                        causal: bool = False,
+                        causal: bool = False, dropout_rate: float = 0.0,
+                        seed: "torch.Tensor | None" = None,
                         qkv_bias: "torch.Tensor | None" = None) -> torch.Tensor:
     """Attention straight off the packed, unbiased QKV projection:
-    (B, S, 3D) → (B, S, D), with ``qkv_bias`` (3D,) added before the product.
+    (B, S, 3D) → (B, S, D), with ``qkv_bias`` (3D,) added before the product
+    and ``dropout_rate`` > 0 dropping probabilities with ``seed``'s mask.
 
     A packed-supported shape goes to ``flash_attention_packed`` (K1/K2 on
     CUDA, their plain versions on the CPU). Any other shape adds the bias,
@@ -55,6 +61,9 @@ def fused_qkv_attention(qkv: torch.Tensor, n_heads: int, *,
     _, s, three_d = qkv.shape
     if packed_supported(n_heads, three_d // 3, s):
         return flash_attention_packed(qkv, n_heads, causal=causal,
+                                      dropout_rate=dropout_rate, seed=seed,
                                       qkv_bias=qkv_bias)
     q, k, v = split_heads(qkv, n_heads, qkv_bias)
-    return merge_heads(multi_head_attention(q, k, v, causal=causal))
+    return merge_heads(multi_head_attention(q, k, v, causal=causal,
+                                            dropout_rate=dropout_rate,
+                                            seed=seed))

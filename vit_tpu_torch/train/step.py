@@ -1,9 +1,11 @@
-"""Train step factories (counterpart of ``vit_tpu/train/step.py:47-116`` and
-``train_videogpt.py:127-149``).
+"""Train and eval step factories (counterpart of
+``vit_tpu/train/step.py:22-116, 204-214`` and ``train_videogpt.py:127-149``).
 
 One call runs forward, loss, backward, clip, AdamW and the metrics. Metrics
 stay device tensors (nothing is read back to the host inside the step); the
-caller decides when to synchronise.
+caller decides when to synchronise. Where the JAX step folds its dropout key
+with the step count, the port's steps take an explicit ``torch.Generator``
+on the model's device, which advances with every draw.
 """
 
 from __future__ import annotations
@@ -11,9 +13,61 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.train.state import TrainState
+
+
+def make_classifier_train_step(model: nn.Module) -> Callable:
+    """ViT classification step (``vit_tpu/train/step.py:22-44``, reference
+    train_vit.py:96-110): mean softmax cross-entropy of the fp32 logits on
+    integer labels, its gradients and the optimizer step, with the model in
+    training mode (dropout from ``generator``).
+
+    ``train_step(state, images, labels, generator=None) → (state, metrics)``
+    with ``metrics`` holding ``train/loss``, ``train/acc`` and, when the
+    optimizer clips, ``train/grad_norm``."""
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   labels: torch.Tensor,
+                   generator: "torch.Generator | None" = None):
+        model.train()
+        logits = model(images, generator)
+        loss = F.cross_entropy(logits, labels.long())
+        grads = torch.autograd.grad(loss, state.params)
+        state.apply_gradients(grads)
+        acc = (logits.detach().argmax(-1) == labels).float().mean()
+        metrics = {"train/loss": loss.detach(), "train/acc": acc}
+        if state.opt_state.grad_norm is not None:   # recorded by the clip
+            metrics["train/grad_norm"] = state.opt_state.grad_norm
+        return state, metrics
+
+    return train_step
+
+
+def make_classifier_eval_step(model: nn.Module) -> Callable:
+    """Validation step (``vit_tpu/train/step.py:204-214``, reference
+    train_vit.py:114-125): CE and accuracy in eval mode, without a graph;
+    deterministic, so ``generator`` is never drawn from. The model's mode
+    is restored afterwards.
+
+    ``eval_step(images, labels, generator=None) → metrics`` with
+    ``valid/loss`` and ``valid/acc``."""
+
+    def eval_step(images: torch.Tensor, labels: torch.Tensor,
+                  generator: "torch.Generator | None" = None):
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                logits = model(images, generator)
+        finally:
+            model.train(was_training)
+        return {"valid/loss": F.cross_entropy(logits, labels.long()),
+                "valid/acc": (logits.argmax(-1) == labels).float().mean()}
+
+    return eval_step
 
 
 def make_tokenizer_train_step(model: nn.Module, *,
@@ -65,20 +119,22 @@ def make_videogpt_train_step(model: nn.Module) -> Callable:
     ``no_grad``, then the AR prior's next-token CE, its gradients and the
     optimizer step (reference loop train_videogpt.py:118-136).
 
-    ``train_step(state, tokenizer, videos) → (state, tokens, metrics)``
-    with ``state.params`` the parameters of ``model``, ``tokenizer`` a
-    ``models.pretrained.FrozenTokenizer`` (where the JAX step takes the
-    tokenizer's params: the port's module carries its own, so the JAX
-    factory's tokenizer argument has nothing left to do here) and ``videos``
-    (B, T, H, W, 3) in [0, 1]. ``tokens`` are the (B, T, K) int32 codes;
-    ``metrics`` holds ``train/loss`` as a device tensor."""
+    ``train_step(state, tokenizer, videos, generator=None) → (state,
+    tokens, metrics)`` with ``state.params`` the parameters of ``model``,
+    ``tokenizer`` a ``models.pretrained.FrozenTokenizer`` (where the JAX step
+    takes the tokenizer's params: the port's module carries its own, so the
+    JAX factory's tokenizer argument has nothing left to do here), ``videos``
+    (B, T, H, W, 3) in [0, 1] and ``generator`` the source of the prior's
+    dropout (``--dropout``) while it trains. ``tokens`` are the (B, T, K)
+    int32 codes; ``metrics`` holds ``train/loss`` as a device tensor."""
 
-    def train_step(state: TrainState, tokenizer, videos: torch.Tensor):
+    def train_step(state: TrainState, tokenizer, videos: torch.Tensor,
+                   generator: "torch.Generator | None" = None):
         b, t = videos.shape[:2]
         with torch.no_grad():
             frames = videos.reshape(b * t, *videos.shape[2:])
             tokens = tokenizer.encode_indices(frames).reshape(b, t, -1)
-        _, loss = model(tokens)
+        _, loss = model(tokens, generator)
         grads = torch.autograd.grad(loss, state.params)
         state.apply_gradients(grads)
         return state, tokens, {"train/loss": loss.detach()}
