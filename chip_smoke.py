@@ -14,12 +14,25 @@ over HTTP; then the flagship step with the int8 perceptual loss
 (``--perceptual_quant int8``) and the perceptual loss alone under both of its
 switches (``dw_impl``, ``quant``); then the ViT classifier at
 ``bench_extra.py``'s two configs, ViT-B/16 @224 and ViT-L/16 @256 at
-dropout 0.15 (the attention kernels' dropout branch), and ``python -m
-vit_tpu_torch.train_vit`` at its defaults. Phases, one JSON line each:
+dropout 0.15 (the attention kernels' dropout branch); the fp32 paths
+(``--mixed false``): the flagship step and the VideoGPT-B step at dtype
+float32 through the kernels' fp32 forms; and ``python -m
+vit_tpu_torch.train_vit`` at its defaults, in bf16 and with ``--mixed
+false``. Phases, one JSON line each:
 
   1. device   — fails without CUDA; card name and power limit; TF32 off;
   2. build    — compiles the CUDA kernels from ``vit_tpu_torch/csrc``, one
                 nvcc per source in parallel; registers and spills per kernel;
+  2b. fma_probe — P, the FMA-rate probe (``scripts/bench_vpu.py``'s
+                ``_fma_kernel``): bit for bit against its plain version at
+                (64, 128), fp32 and bf16, chains 1-6, 4096 steps, and in
+                bf16 at c = 1 + 2⁻⁷, d = 2⁻¹⁰ (256 steps), where each step
+                changes the value (at the script's constants a bf16 step
+                returns a, so that parity cannot see the loop); the rate
+                sweep over the card-filling shape (132 SMs × 2,048 threads)
+                against the CUDA cores' FMA bound; ``python -m
+                vit_tpu_torch.bench_vpu`` as a subprocess. Its best fp32
+                rate becomes the rate of every fp32 bound of the run;
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the paths' shapes and a few edge shapes, with timings, the
                 bound the card's peaks set for the same work, and the time of
@@ -38,6 +51,17 @@ vit_tpu_torch.train_vit`` at its defaults. Phases, one JSON line each:
                 own Philox mask), and mask probes (q = k = 0, one-hot v and
                 dO) whose outputs and dv equal the plain versions' bit for
                 bit at S 257, 513 and 1024, causal and not;
+  3b. fp32_kernels — every fp32 form (K1, K2, K3, K4, K6, K7/K8, K9a, K9b,
+                K9c, K10, K12a, K12b on fp32 operands) against its fp32
+                plain version within 1e-5 of max and mean |plain| (K12's
+                max within K12_REL: int8 levels), at the fp32 paths' shapes,
+                the dropout arms included; a TF32 control (the plain version
+                with TF32 on in the form's place) that must fail that limit
+                for K1, K2, K3, K6, K9a and K10; times, bounds over P's fp32
+                rate and library times (SDPA on fp32 tensors, ``F.linear``, fp32
+                ``torch.mm``); mask probes whose kept counts, recovered from
+                the fp32 forms' outputs and dv, equal the bf16 forms' and the
+                mask's, integer for integer;
   4. slice    — export → load → HTTP server; concurrent /encode requests,
                 /decode of the indices; checks shapes, ranges, a 400, that
                 every kernel launched during those requests, that the served
@@ -104,14 +128,26 @@ vit_tpu_torch.train_vit`` at its defaults. Phases, one JSON line each:
                 plain versions from the same generator state, 10 steps on
                 one batch at lr 1e-5 lower the loss, images/s and peak
                 memory, and a profile of one ViT-L step;
- 13. train_vit_entry — ``python -m vit_tpu_torch.train_vit --dataset
+ 13. fp32     — the flagship step at dtype float32 (bs 64, ConvNeXt-S at
+                fp32) unfused, with VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1
+                and with ``quant="int8"``, the VideoGPT-B step at float32
+                (bs 32) and ViT-L/16 @256 at dropout 0.15 at float32 (bs
+                64, ``train_vit.py --mixed false``'s step: K1 24 and K2 24,
+                all fp32 with dropout): the launches of one step, all of
+                them fp32 forms; the first step's loss (and perceptual loss)
+                and gradient norm against the plain versions within 1e-5
+                (ViT-L's logits too, from the same generator state); one
+                warm-up and two timed steps; peak memory;
+ 14. train_vit_entry — ``python -m vit_tpu_torch.train_vit --dataset
                 synthetic --no_wandb --epochs 1 --steps_per_epoch 5
                 --log_every 1`` (ViT-L/16 @256, dropout 0.15, bs 64) as a
-                subprocess: exit code 0, five finite losses and the eval
-                line.
+                subprocess, then the same with ``--mixed false``: exit code
+                0, five finite losses and the eval line.
 
 Then the kernels' summary line (each attention kernel with its dropout
-arm's numbers and its dropout launches), the card's name and power limit,
+arm's numbers and its dropout launches; each kernel with an fp32 form with
+its ``fp32`` numbers and ``fp32_launches``; P as ``fma_probe``), the card's
+name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
 script exits non-zero without that line. It imports nothing of JAX.
 """
@@ -147,6 +183,7 @@ from vit_tpu_torch.kernels import attention as k_attn  # noqa: E402
 from vit_tpu_torch.kernels import convnext_block as k_cnx  # noqa: E402
 from vit_tpu_torch.kernels import depthwise as k_dw  # noqa: E402
 from vit_tpu_torch.kernels import fc_grad as k_fc  # noqa: E402
+from vit_tpu_torch.kernels import fma_probe as k_fma  # noqa: E402
 from vit_tpu_torch.kernels import ln_matmul as k_lnmm  # noqa: E402
 from vit_tpu_torch.kernels import vq as k_vq  # noqa: E402
 from vit_tpu_torch.data.synthetic import SyntheticVideoLoader  # noqa: E402
@@ -282,10 +319,48 @@ DROP_SIGMAS = 5.0
 VIT_BS, VIT_CLASSES = 64, 1000
 VIT_CELLS = {"vit_b16_224": (224, 16, "B", 0.0),
              "vit_l16_256_drop0.15": (256, 16, "L", VIT_DROPOUT)}
+# P, the FMA-rate probe, at scripts/bench_vpu.py's defaults. Its bound: the
+# CUDA cores' FMA issue rate, 128 FP32 lanes per SM on 132 SMs at the 1.98
+# GHz boost clock (bf16: two elements per lane, packed).
+FMA_ITERS, FMA_STEPS = 4096, 20
+# P's bf16 parity at constants where each step changes a: (c, d), steps
+FMA_GROWTH, FMA_GROWTH_ITERS = (1 + 2.0 ** -7, 2.0 ** -10), 256
+FMA_LANES, BOOST_HZ = 128 * 132, 1.98e9
+# The rate of every fp32 bound: the published 67 TFLOP/s until the
+# fma_probe phase has measured P's best fp32 rate (2 FLOP a multiply-add).
+measured = {"fp32_flops": PEAK_FP32_FLOPS}
+# The fp32 forms against their fp32 plain versions, relative to the largest
+# and the mean |plain| value: the same sums in another order, measured at
+# 1e-7 to 2e-6 on an H100. 1e-5, a hundredth of the BASELINE.md golden
+# contract's 1e-3, so that a form multiplying in TF32 (10 mantissa bits)
+# fails: the TF32 control in fp32_kernels must. K12's fp32-row form stays
+# at K12_REL on the max (an int8 level flips where two fp32 values round
+# apart), FP32_REL on the mean.
+FP32_REL = 1e-5
+# The fp32 paths' first steps against the plain versions' (loss, perceptual
+# loss, gradient norm; ViT-L's logits), relative: measured at 0 to 1e-7.
+FP32_STEP_REL = 1e-5
+# The flagship step at float32 under its three settings:
+# (VIT_TPU_FUSED_LN, VIT_TPU_FUSED_FC, the perceptual loss's quant)
+FP32_SETTINGS = {"unfused": ("0", "0", "none"), "fused": ("1", "1", "none"),
+                 "int8": ("0", "0", "int8")}
+FP32_STEP_LAUNCHES = {"unfused": STEP_LAUNCHES, "fused": FUSED_STEP_LAUNCHES,
+                      "int8": INT8_STEP_LAUNCHES}
+# The kernels with an fp32 form, whose fp32 launches the kernels line
+# carries (K5 is fp32 by design, K11 takes either dtype)
+FP32_FORMS = ("attention_packed_fwd", "attention_packed_bwd",
+              "convnext_tail_fwd", "convnext_tail_bwd", "attention_fwd",
+              "attention_bwd", "ln_matmul_fwd", "ln_matmul_dgelu", "ln_bwd",
+              "fc_grad", "convnext_tail_fwd_q8", "convnext_tail_bwd_q8")
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for a phase, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, "elapsed_s": round(
+        time.perf_counter() - T0, 1), **kw}), flush=True)
 
 
 def require(ok: bool, what: str) -> None:
@@ -332,6 +407,13 @@ def reset_launches() -> None:
     k_fc.launches = 0
     k_dw.launches = k_dw.bwd_launches = 0
     k_cnx.q8_launches = k_cnx.q8_bwd_launches = 0
+    k_attn.fp32_launches = k_attn.fp32_bwd_launches = 0
+    k_attn.unpacked_fp32_launches = k_attn.unpacked_fp32_bwd_launches = 0
+    k_cnx.fp32_launches = k_cnx.fp32_bwd_launches = 0
+    k_cnx.q8_fp32_launches = k_cnx.q8_fp32_bwd_launches = 0
+    k_lnmm.fp32_launches = k_lnmm.fp32_dgelu_launches = 0
+    k_lnmm.fp32_ln_bwd_launches = k_fc.fp32_launches = 0
+    k_fma.launches = 0
 
 
 def read_launches() -> dict:
@@ -348,6 +430,28 @@ def read_launches() -> dict:
                 depthwise_fwd=k_dw.launches, depthwise_bwd=k_dw.bwd_launches,
                 convnext_tail_fwd_q8=k_cnx.q8_launches,
                 convnext_tail_bwd_q8=k_cnx.q8_bwd_launches)
+
+
+def read_fp32_launches() -> dict:
+    """The wrappers' launches of their fp32 forms; K5's, fp32 by design."""
+    return dict(attention_packed_fwd=k_attn.fp32_launches,
+                attention_packed_bwd=k_attn.fp32_bwd_launches,
+                convnext_tail_fwd=k_cnx.fp32_launches,
+                convnext_tail_bwd=k_cnx.fp32_bwd_launches,
+                vq_nearest=k_vq.launches,
+                attention_fwd=k_attn.unpacked_fp32_launches,
+                attention_bwd=k_attn.unpacked_fp32_bwd_launches,
+                ln_matmul_fwd=k_lnmm.fp32_launches,
+                ln_matmul_dgelu=k_lnmm.fp32_dgelu_launches,
+                ln_bwd=k_lnmm.fp32_ln_bwd_launches, fc_grad=k_fc.fp32_launches,
+                convnext_tail_fwd_q8=k_cnx.q8_fp32_launches,
+                convnext_tail_bwd_q8=k_cnx.q8_fp32_bwd_launches)
+
+
+def fp32_peak() -> float:
+    """The fp32 bounds' rate: P's best measured fp32 rate once the fma_probe
+    phase has run, the published 67 TFLOP/s before."""
+    return measured["fp32_flops"]
 
 
 def read_dropout_launches() -> dict:
@@ -376,23 +480,25 @@ def bound(flop: float, nbytes: float, peak: float = PEAK_BF16_FLOPS,
 
 
 def attention_bound(b: int, h: int, s: int, causal: bool, backward: bool,
-                    extra_bytes: float = 0.0, dropout: bool = False) -> dict:
-    """Attention over (b, h, s, 64) bf16 operands: 2 products of 2·64 FLOP
+                    extra_bytes: float = 0.0, dropout: bool = False,
+                    elem: int = 2, peak: float = PEAK_BF16_FLOPS) -> dict:
+    """Attention over (b, h, s, 64) operands of ``elem`` bytes (bf16; 4 for
+    the fp32 forms, at ``peak`` = P's fp32 rate): 2 products of 2·64 FLOP
     per unmasked (query, key) pair forward, 5 backward; q, k, v (and dO)
-    read and out (dq, dk, dv) written once in bf16, m and l in fp32. With
-    dropout, the hash's integer operations on every unmasked pair, once
-    forward and three times backward."""
+    read and out (dq, dk, dv) written once, m and l in fp32. With dropout,
+    the hash's integer operations on every unmasked pair, once forward and
+    three times backward."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    tile = b * h * s * 64 * 2
+    tile = b * h * s * 64 * elem
     stats = 2 * b * h * s * 4
     int_ops = HASH_INT_OPS * pairs * b * h * (3 if backward else 1) \
         if dropout else 0.0
     if backward:
         return bound(10 * 64 * pairs * b * h,
                      4 * tile + stats + 3 * tile + extra_bytes,
-                     int_ops=int_ops)
+                     peak=peak, int_ops=int_ops)
     return bound(4 * 64 * pairs * b * h, 3 * tile + tile + stats + extra_bytes,
-                 int_ops=int_ops)
+                 peak=peak, int_ops=int_ops)
 
 
 def sdpa_backend(q, k, v, causal: bool) -> str:
@@ -546,9 +652,9 @@ def phase_device() -> str:
 
 def kernel_name(mangled: str) -> str:
     """The kernel's own name in a mangled entry name, with its template
-    argument: the first length-prefixed identifier that ends in
-    ``_kernel``, e.g. ``convnext_tail_fwd_q8_kernel<384>``."""
-    args = {"f": "float", "13__nv_bfloat16": "bf16"}
+    arguments: the first length-prefixed identifier that ends in
+    ``_kernel``, e.g. ``convnext_tail_fwd_q8_kernel<384, bf16>``."""
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
     i = 0
     while i < len(mangled):
         digits = re.match(r"\d+", mangled[i:])
@@ -557,15 +663,18 @@ def kernel_name(mangled: str) -> str:
             continue
         start = i + len(digits.group())
         end = start + int(digits.group())
-        if mangled[start:end].endswith("_kernel"):
-            tmpl = re.match(r"I(?:Li(\d+)|Lb([01])|(f|13__nv_bfloat16))E",
-                            mangled[end:])
-            if not tmpl:
-                return mangled[start:end]
-            arg = (tmpl.group(1)
-                   or (tmpl.group(2) and ("false", "true")[int(tmpl.group(2))])
-                   or args[tmpl.group(3)])
-            return f"{mangled[start:end]}<{arg}>"
+        name = mangled[start:end]
+        if name.endswith("_kernel"):
+            args, j = [], end + 1
+            while mangled[end:end + 1] == "I" and j < len(mangled):
+                arg = re.match(r"Li(\d+)E|Lb([01])E|f|13__nv_bfloat16",
+                               mangled[j:])
+                if not arg:
+                    break
+                args.append(arg.group(1) or (arg.group(2) and ("false", "true")[
+                    int(arg.group(2))]) or types[arg.group(0)])
+                j += arg.end()
+            return f"{name}<{', '.join(args)}>" if args else name
         i = end
     return mangled
 
@@ -823,7 +932,7 @@ def phase_kernels() -> dict:
     # N 2048 rows against 2048 codes of D 12: N·C·D fp32 multiply-adds off
     # the tensor cores; z and the codebook read, the indices written.
     k5_bound = bound(2 * 2048 * 2048 * 12, (2048 + 2048) * 12 * 4 + 2048 * 4,
-                     peak=PEAK_FP32_FLOPS)
+                     peak=fp32_peak())
     emit("kernel", name="vq_nearest", parity=k5_rows,
          tolerance=dict(tie_gap=K5_TIE_GAP), lowest_index_ties=True,
          dims_checked=list(k_vq.SUPPORTED_DIMS),
@@ -1357,7 +1466,7 @@ def fused_kernels(gen) -> dict:
                            zpre, dz)),
                        # zpre and dz read, dzc written; ~30 fp32 FLOP each
                        bound=bound(30 * n * 3072, 3 * 2 * n * 3072,
-                                   peak=PEAK_FP32_FLOPS))
+                                   peak=fp32_peak()))
     emit("kernel", name="ln_matmul_dgelu", parity=k9b_rows,
          tolerance=dict(per_element="one bf16 ulp"), library=None,
          shape="(20480, 3072) bf16", **k9b)
@@ -1384,7 +1493,7 @@ def fused_kernels(gen) -> dict:
             k9c = dict(ms=median_ms(lambda: k_lnmm.ln_bwd(x, g)),
                        plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
                        bound=bound(10 * n * c, 3 * 2 * n * c,
-                                   peak=PEAK_FP32_FLOPS))
+                                   peak=fp32_peak()))
     emit("kernel", name="ln_bwd", parity=k9c_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
          library=None, shape="(20480, 768) bf16", **k9c)
@@ -1595,9 +1704,9 @@ def depthwise_kernels(gen) -> dict:
                     # written (x, g read, dx written) in bf16, the taps read
                     # and dw, db written in fp32
                     fwd_bound=bound(2 * 49 * n_el, 2 * 2 * n_el + 2 * 50 * c,
-                                    peak=PEAK_FP32_FLOPS),
+                                    peak=fp32_peak()),
                     bwd_bound=bound(197 * n_el, 3 * 2 * n_el + 2 * 49 * c
-                                    + 4 * 50 * c, peak=PEAK_FP32_FLOPS))
+                                    + 4 * 50 * c, peak=fp32_peak()))
                 times[tuple(shape)] = t
             del x, g, w, b, y, dx, dw, db, dx2, dw2, db2, y_ref, dx_ref
             torch.cuda.empty_cache()
@@ -1624,6 +1733,735 @@ def depthwise_kernels(gen) -> dict:
                 bound_by=first["bwd_bound"]["bound_by"],
                 library_ms=first["bwd_library_ms"], library=library,
                 shape="(64, 56, 56, 96) bf16")}
+
+
+def phase_fma_probe(card: str) -> dict:
+    """P against its plain version bit for bit at (64, 128), fp32 and bf16,
+    chains 1-6, the script's 4096 steps, x in [1, 2), and in bf16 at
+    FMA_GROWTH's constants, where every step changes a; then the rate sweep
+    over the card-filling shape (the main path: CUDA events around 20 calls
+    after one, as ``vpu_fma_rate`` times them) and ``python -m
+    vit_tpu_torch.bench_vpu`` as a subprocess. The best fp32 rate becomes
+    the rate of every fp32 bound of this run. Returns P's summary and its
+    launches in the sweep."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    parity = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (1 + torch.rand(64, 128, device="cuda", generator=gen)).to(dtype)
+        for chains in range(1, k_fma.MAX_CHAINS + 1):
+            out = k_fma.fma_chains(x, FMA_ITERS, chains)
+            torch.cuda.synchronize()
+            ref = k_fma.fma_chains_ref(x, FMA_ITERS, chains)
+            parity.append(dict(dtype=str(dtype), chains=chains,
+                               equal=bool(torch.equal(out, ref)),
+                               max_abs=(out.float() - ref.float()).abs()
+                               .max().item()))
+    # At the script's constants a bf16 step returns a (c rounds to 1, d is
+    # below half an ulp), so the arm above cannot see whether the loop runs:
+    # at c = 1 + 2⁻⁷ and d = 2⁻¹⁰ every step changes a.
+    x = (1 + torch.rand(64, 128, device="cuda", generator=gen)).bfloat16()
+    for chains in range(1, k_fma.MAX_CHAINS + 1):
+        out = k_fma.fma_chains(x, FMA_GROWTH_ITERS, chains, *FMA_GROWTH)
+        torch.cuda.synchronize()
+        ref = k_fma.fma_chains_ref(x, FMA_GROWTH_ITERS, chains, *FMA_GROWTH)
+        idle = k_fma.fma_chains_ref(x, 0, chains)
+        parity.append(dict(dtype="torch.bfloat16", chains=chains,
+                           c=FMA_GROWTH[0], d=FMA_GROWTH[1],
+                           iters=FMA_GROWTH_ITERS,
+                           equal=bool(torch.equal(out, ref)),
+                           steps_change_output=not torch.equal(ref, idle),
+                           max_abs=(out.float() - ref.float()).abs()
+                           .max().item()))
+    require(all(r["equal"] and r.get("steps_change_output", True)
+                for r in parity),
+            f"P differs from its plain version: {parity}")
+
+    reset_launches()   # the main path's run starts here
+    sweep = []
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = k_fma.default_shape(dtype)
+        lanes = FMA_LANES * (2 if dtype == torch.bfloat16 else 1)
+        for chains in range(1, k_fma.MAX_CHAINS + 1):
+            rate, sec = k_fma.fma_rate(shape, FMA_ITERS, FMA_STEPS, dtype,
+                                       chains)
+            macs = k_fma.macs(shape, FMA_ITERS, chains)
+            sweep.append(dict(dtype=str(dtype), chains=chains, shape=shape,
+                              mac_per_s=rate, ms=sec * 1e3,
+                              bound_ms=macs / (lanes * BOOST_HZ) * 1e3,
+                              share_of_bound=macs / (lanes * BOOST_HZ) / sec))
+    launches = k_fma.launches
+    best = max((r for r in sweep if r["dtype"] == "torch.float32"),
+               key=lambda r: r["mac_per_s"])
+    best16 = max((r for r in sweep if r["dtype"] == "torch.bfloat16"),
+                 key=lambda r: r["mac_per_s"])
+    measured["fp32_flops"] = 2 * best["mac_per_s"]
+    x = torch.ones(best["shape"], device="cuda")
+    plain_ms = median_ms(
+        lambda: k_fma.fma_chains_ref(x, FMA_ITERS, best["chains"]), 1)
+    proc = subprocess.run([sys.executable, "-m", "vit_tpu_torch.bench_vpu"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and len(lines) == 13
+            and all("T MAC/s" in s for s in lines[:12])
+            and lines[-1].startswith("→ dwconv floor"),
+            f"bench_vpu exited {proc.returncode}: {proc.stdout[-2000:]}"
+            f"{proc.stderr[-2000:]}")
+    emit("fma_probe", card=card, parity=parity, sweep=sweep,
+         best_fp32_mac_per_s=best["mac_per_s"],
+         best_bf16_mac_per_s=best16["mac_per_s"],
+         fp32_flops_measured=measured["fp32_flops"],
+         fp32_flops_published=PEAK_FP32_FLOPS,
+         note="every fp32 bound below uses the measured fp32 rate",
+         plain_ms=plain_ms, entry=lines)
+    return dict(max_abs_err=max(r["max_abs"] for r in parity),
+                ms=best["ms"], plain_ms=plain_ms, bound_ms=best["bound_ms"],
+                bound_by="operations", library_ms=None,
+                shape=f"{tuple(best['shape'])} fp32, {best['chains']} chains,"
+                      f" {FMA_ITERS} steps", mac_per_s=best["mac_per_s"],
+                bf16_mac_per_s=best16["mac_per_s"],
+                bf16_ms=best16["ms"], bf16_bound_ms=best16["bound_ms"]), \
+        launches
+
+
+def fp32_check(name: str, out, ref, tol: float = FP32_REL) -> dict:
+    """rel_errors of an fp32 form against its plain version, held to
+    ``tol`` on max and mean."""
+    row = rel_errors(out, ref)
+    require(bool(torch.isfinite(out).all()) and row["max_rel"] <= tol
+            and row["mean_rel"] <= tol,
+            f"the fp32 form of {name} disagrees with its plain version: {row}")
+    return row
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 for cuBLAS and cuDNN inside the block: the control's setting."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def tf32_control(name: str, plain, ref: torch.Tensor) -> dict:
+    """The plain version run with TF32 on, in an fp32 form's place, against
+    the same plain version with TF32 off: it must fail the form's limit,
+    or the limit could not tell an fp32 form from one that multiplies in
+    TF32. ``plain`` computes the form's output."""
+    with tf32_on():
+        out = plain()
+        torch.cuda.synchronize()
+    row = rel_errors(out, ref)
+    require(row["max_rel"] > FP32_REL or row["mean_rel"] > FP32_REL,
+            f"the TF32 control of {name} passes the fp32 limit: {row}")
+    return row
+
+
+def mask_counts(out: torch.Tensor, scale: float) -> torch.Tensor:
+    """Integer counts recovered from a probe's output: out · l / scale with l
+    given as 1 (dv) or multiplied in by the caller."""
+    return torch.round(out.float() / scale).to(torch.int32)
+
+
+def fp32_mask_probe(b: int, h: int, s: int, causal: bool, rate: float,
+                    gen, packed: bool) -> dict:
+    """The fp32 forms' dropout mask against the bf16 forms' and the plain
+    mask, bit for bit. With q = k = 0 every unmasked p is 1 and l counts the
+    unmasked keys; v one-hot by key residue makes output column c, times l
+    over the kept probability's factor, the number of kept keys of residue
+    c. With m = 0, l = 1 and dO one-hot by query residue, dv column c over
+    that factor counts kept queries through the dk/dv kernel's transposed
+    walk. Those counts must be equal, integer for integer, in fp32 (factor
+    fp32(scale)), bf16 (p rounded: bf16(scale)) and from the mask itself."""
+    seed = random_seed(gen)
+    _, scale = k_attn.dropout_consts(rate)
+    scales = {torch.float32: scale,
+              torch.bfloat16: float(torch.tensor(scale).bfloat16())}
+    r = torch.arange(s, device="cuda")
+    onehot = (r[:, None] % 64 == torch.arange(64, device="cuda")).float()
+    keys = (r + 1).float()[:, None] if causal else torch.full(
+        (s, 1), float(s), device="cuda")
+    drop = dict(dropout_rate=rate, seed=seed)
+    counts = {}
+    for dt in (torch.bfloat16, torch.float32):
+        stats = (torch.zeros(b, h, s, device="cuda"),
+                 torch.ones(b, h, s, device="cuda"))
+        oh = onehot.to(dt)
+        if packed:
+            width = h * 64
+            qkv = torch.zeros(b, s, 3 * width, dtype=dt, device="cuda")
+            qkv[:, :, 2 * width:] = oh.repeat(1, h)
+            bias = torch.zeros(3 * width, device="cuda")
+            dout = oh.repeat(1, h)[None].expand(b, s, width).contiguous()
+            out = k_attn.attention_packed_fwd(qkv, bias, h, causal, **drop)
+            out = out.reshape(b, s, h, 64).transpose(1, 2)
+            dv = k_attn.attention_packed_bwd(qkv, bias, dout, *stats, h,
+                                             causal, **drop)[0]
+            dv = dv[..., 2 * width:].reshape(b, s, h, 64).transpose(1, 2)
+        else:
+            q = torch.zeros(b, h, s, 64, dtype=dt, device="cuda")
+            v = oh[None, None].expand(b, h, s, 64).contiguous()
+            out = k_attn.attention_fwd(q, q, v, causal, **drop)
+            dv = k_attn.attention_bwd(q, q, v, v, *stats, causal, **drop)[2]
+        counts[dt] = (mask_counts(out.float() * keys, scales[dt]),
+                      mask_counts(dv, scales[dt]))
+    kept = (k_attn._head_mask(seed, b, h, s, rate) > 0).float()
+    if causal:
+        kept = kept * torch.ones(s, s, device="cuda").tril()
+    plain = ((kept @ onehot).to(torch.int32),
+             (kept.transpose(-1, -2) @ onehot).to(torch.int32))
+    row = dict(B=b, H=h, S=s, causal=causal, rate=rate,
+               fp32_equals_bf16=all(torch.equal(a, c) for a, c in zip(
+                   counts[torch.float32], counts[torch.bfloat16])),
+               fp32_equals_mask=all(torch.equal(a, c) for a, c in zip(
+                   counts[torch.float32], plain)),
+               kept_share=kept.sum().item() / (b * h * (
+                   s * (s + 1) // 2 if causal else s * s)))
+    require(row["fp32_equals_bf16"] and row["fp32_equals_mask"],
+            f"the fp32 forms' dropout mask differs: {row}")
+    return row
+
+
+def fp32_kernels(gen) -> dict:
+    """Every fp32 form against its fp32 plain version on the card (TF32 off)
+    at the fp32 paths' shapes, then its time, bound (operations over P's
+    measured fp32 rate, fp32 bytes over the memory rate) and library
+    yardstick: SDPA on fp32 tensors (with the backend it picks), ``F.linear``
+    for K9a and fp32 ``torch.mm`` for K10. The dropout arms of K1/K2 and
+    K6/K8, and the mask probes through the fp32 forms against the bf16
+    forms'. Returns {kernel name: its fp32 summary}."""
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    peak, summary, controls = fp32_peak(), {}, {}
+
+    def entry(name, row, ms, plain_ms, bnd, library_ms, shape, **kw):
+        summary[name] = dict(max_abs_err=row["max_abs"],
+                             max_rel=row["max_rel"], mean_rel=row["mean_rel"],
+                             ms=ms, plain_ms=plain_ms,
+                             bound_ms=bnd["bound_ms"],
+                             bound_by=bnd["bound_by"], library_ms=library_ms,
+                             shape=shape, **kw)
+
+    probes = [fp32_mask_probe(b, h, s, causal, VIT_DROPOUT if packed
+                              else GPT_DROPOUT, gen, packed)
+              for b, h, s, causal, packed in [(4, 16, 257, False, True),
+                                              (4, 16, 257, True, True),
+                                              (2, 12, 1024, True, False),
+                                              (2, 12, 513, True, False),
+                                              (2, 12, 257, False, False)]]
+    emit("fp32_kernels", name="dropout_mask_probe", rows=probes)
+
+    # K1 / K2: TiTok-B's (64, 320, 12 h) with stats, and ViT-L's (64, 257,
+    # 16 h) at rate 0.15
+    arms = {}
+    for arm, (b, s, h, rate) in {"titok": (TRAIN_BS, 320, 12, 0.0),
+                                 "vit_dropout": (VIT_BS, 257, 16,
+                                                 VIT_DROPOUT)}.items():
+        width = h * 64
+        qkv = r(b, s, 3 * width)
+        bias = r(3 * width, scale=0.3)
+        dout = r(b, s, width)
+        drop = dict(dropout_rate=rate,
+                    seed=random_seed(gen) if rate else None)
+        out, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True,
+                                                **drop)
+        dqkv, dbias = k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h,
+                                                  False, **drop)
+        torch.cuda.synchronize()
+        ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(qkv, bias, h,
+                                                            False, True,
+                                                            **drop)
+        dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
+            qkv, bias, dout, m_ref, l_ref, h, False, **drop)
+        row = dict(out=fp32_check("K1", out, ref),
+                   m=fp32_check("K1 m", m, m_ref),
+                   l=fp32_check("K1 l", l, l_ref),
+                   dqkv=fp32_check("K2", dqkv, dqkv_ref),
+                   dbias=fp32_check("K2 dbias", dbias, dbias_ref))
+        if arm == "titok":
+            controls["K1"] = tf32_control(
+                "K1", lambda: k_attn.attention_packed_fwd_ref(
+                    qkv, bias, h, False, True, **drop)[0], ref)
+            controls["K2"] = tf32_control(
+                "K2", lambda: k_attn.attention_packed_bwd_ref(
+                    qkv, bias, dout, m_ref, l_ref, h, False, **drop)[0],
+                dqkv_ref)
+        del ref, m_ref, l_ref, dqkv_ref, dbias_ref
+        torch.cuda.empty_cache()
+        qh, kh, vh = k_attn.split_heads(qkv, h, bias)
+        dh = dout.reshape(b, s, h, 64).transpose(1, 2)
+        row.update(
+            fwd_ms=median_ms(lambda: k_attn.attention_packed_fwd(
+                qkv, bias, h, False, True, **drop)),
+            fwd_plain_ms=median_ms(lambda: k_attn.attention_packed_fwd_ref(
+                qkv, bias, h, False, True, **drop), 3),
+            sdpa_fwd_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, dropout_p=rate)),
+            sdpa_backend=sdpa_backend(qh, kh, vh, False),
+            bwd_ms=median_ms(lambda: k_attn.attention_packed_bwd(
+                qkv, bias, dout, m, l, h, False, **drop)),
+            bwd_plain_ms=median_ms(lambda: k_attn.attention_packed_bwd_ref(
+                qkv, bias, dout, m, l, h, False, **drop), 3),
+            sdpa_bwd=sdpa_backward_ms(qh, kh, vh, dh, False, dropout_p=rate),
+            fwd_bound=attention_bound(b, h, s, False, False,
+                                      extra_bytes=3 * width * 4, elem=4,
+                                      peak=peak, dropout=bool(rate)),
+            bwd_bound=attention_bound(b, h, s, False, True,
+                                      extra_bytes=3 * width * 8, elem=4,
+                                      peak=peak, dropout=bool(rate)))
+        arms[arm] = row
+        del qkv, bias, dout, out, m, l, dqkv, dbias, qh, kh, vh, dh
+        torch.cuda.empty_cache()
+    emit("fp32_kernels", name="attention_packed_fwd/attention_packed_bwd",
+         tolerance=dict(max_rel=FP32_REL, mean_rel=FP32_REL), **arms)
+    for name, key, lib in (("attention_packed_fwd", "fwd", "sdpa_fwd_ms"),
+                           ("attention_packed_bwd", "bwd", None)):
+        t, d = arms["titok"], arms["vit_dropout"]
+        entry(name, t["out" if key == "fwd" else "dqkv"], t[f"{key}_ms"],
+              t[f"{key}_plain_ms"], t[f"{key}_bound"],
+              t[lib] if lib else t["sdpa_bwd"]["backward_ms"],
+              "(64, 320, 12 h), stats", sdpa_backend=t["sdpa_backend"],
+              dropout_ms=d[f"{key}_ms"],
+              dropout_bound_ms=d[f"{key}_bound"]["bound_ms"],
+              dropout_shape="(64, 257, 16 h), rate 0.15")
+
+    # K6 / K7/K8: VideoGPT-B's (32, 12, 1024) causal head views, with and
+    # without dropout 0.1; K7 at (2, 12, 513)
+    rows = {}
+    for arm, (b, s, rate) in {"K8": (VIDEO_BS, 1024, 0.0),
+                              "K8_dropout": (VIDEO_BS, 1024, GPT_DROPOUT),
+                              "K7": (2, 513, 0.0)}.items():
+        qkv = r(b, s, 3, 12, 64)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        dout = r(b, s, 12, 64).transpose(1, 2)
+        drop = dict(dropout_rate=rate,
+                    seed=random_seed(gen) if rate else None)
+        out, m, l = k_attn.attention_fwd(q, k, v, True, True, **drop)
+        grads = k_attn.attention_bwd(q, k, v, dout, m, l, True, **drop)
+        torch.cuda.synchronize()
+        ref = k_attn.attention_fwd_ref(q, k, v, True, **drop)
+        row = dict(out=fp32_check("K6", out, ref))
+        if arm == "K8":
+            controls["K6"] = tf32_control(
+                "K6", lambda: k_attn.attention_fwd_ref(q, k, v, True, **drop),
+                ref)
+        del ref
+        refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, True, **drop)
+        row.update({g: fp32_check("K7/K8", a, c)
+                    for g, a, c in zip(("dq", "dk", "dv"), grads, refs)})
+        del refs
+        torch.cuda.empty_cache()
+        row.update(
+            fwd_ms=median_ms(lambda: k_attn.attention_fwd(q, k, v, True, True,
+                                                          **drop)),
+            bwd_ms=median_ms(lambda: k_attn.attention_bwd(
+                q, k, v, dout, m, l, True, **drop)),
+            fwd_bound=attention_bound(b, 12, s, True, False, elem=4,
+                                      peak=peak, dropout=bool(rate)),
+            bwd_bound=attention_bound(b, 12, s, True, True, elem=4,
+                                      peak=peak, dropout=bool(rate)))
+        if arm == "K8":
+            row.update(
+                fwd_plain_ms=median_ms(lambda: k_attn.attention_fwd_ref(
+                    q, k, v, True, True), 3),
+                bwd_plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
+                    q, k, v, dout, m, l, True), 3),
+                sdpa_fwd_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)),
+                sdpa_backend=sdpa_backend(q, k, v, True),
+                sdpa_bwd=sdpa_backward_ms(q, k, v, dout, True))
+        rows[arm] = row
+        del qkv, q, k, v, dout, out, m, l, grads
+        torch.cuda.empty_cache()
+    emit("fp32_kernels", name="attention_fwd/attention_bwd",
+         tolerance=dict(max_rel=FP32_REL, mean_rel=FP32_REL), **rows)
+    k8, k8d = rows["K8"], rows["K8_dropout"]
+    entry("attention_fwd", k8["out"], k8["fwd_ms"], k8["fwd_plain_ms"],
+          k8["fwd_bound"], k8["sdpa_fwd_ms"], "(32, 12, 1024, 64) causal",
+          sdpa_backend=k8["sdpa_backend"], dropout_ms=k8d["fwd_ms"],
+          dropout_bound_ms=k8d["fwd_bound"]["bound_ms"])
+    entry("attention_bwd", k8["dv"], k8["bwd_ms"], k8["bwd_plain_ms"],
+          k8["bwd_bound"], k8["sdpa_bwd"]["backward_ms"],
+          "(32, 12, 1024, 64) causal", sdpa_backend=k8["sdpa_backend"],
+          dropout_ms=k8d["bwd_ms"],
+          dropout_bound_ms=k8d["bwd_bound"]["bound_ms"],
+          k7_ms=rows["K7"]["bwd_ms"],
+          k7_bound_ms=rows["K7"]["bwd_bound"]["bound_ms"])
+
+    # K3 / K4 at the three fused stages' shapes; K12a / K12b at stage 2's.
+    # Timed at N 12544, C 384: 16·C² FLOP a row forward, 24·C² backward;
+    # h, x (dy) read and y (dh) written in fp32, the weights read once.
+    tails = {}
+    for n, c in [(n, c) for _, _, n, c in CNX_STAGES]:
+        rows3, params = random_tail(n, c, gen)
+        h, x, dy = (t.float() for t in rows3)
+        lns, lnb, w1, b1, w2, b2, gamma = params
+        fwd_args = (h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6)
+        bwd_args = (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)
+        calls = {"convnext_tail_fwd": (k_cnx.convnext_tail_fwd,
+                                       k_cnx.convnext_tail_fwd_ref, fwd_args),
+                 "convnext_tail_bwd": (k_cnx.convnext_tail_bwd,
+                                       k_cnx.convnext_tail_bwd_ref, bwd_args)}
+        if c == 384:
+            calls.update({
+                "convnext_tail_fwd_q8": (k_cnx.convnext_tail_fwd_q8,
+                                         k_cnx.convnext_tail_fwd_q8_ref,
+                                         fwd_args),
+                "convnext_tail_bwd_q8": (k_cnx.convnext_tail_bwd_q8,
+                                         k_cnx.convnext_tail_bwd_q8_ref,
+                                         bwd_args)})
+        for name, (kernel, plain, args) in calls.items():
+            out = kernel(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            # an int8 level flips where the fp32 values round apart (K12_REL)
+            row = dict(N=n, C=c, **fp32_check(
+                name, out, ref, K12_REL if name.endswith("q8") else FP32_REL))
+            if name.endswith("q8"):
+                require(row["mean_rel"] <= FP32_REL,
+                        f"{name} in fp32 off its plain version: {row}")
+            if name == "convnext_tail_fwd" and c == 384:
+                controls["K3"] = tf32_control("K3", lambda: plain(*args), ref)
+            t = tails.setdefault(name, dict(rows=[], max=0.0))
+            t["rows"].append(row)
+            if c == 384:
+                t.update(ms=median_ms(lambda: kernel(*args)),
+                         plain_ms=median_ms(lambda: plain(*args), 3),
+                         row=row)
+        del h, x, dy, rows3, out, ref
+        torch.cuda.empty_cache()
+    n, c = CNX_STAGES[2][2], 384
+    rows_b = 3 * n * c * 4
+    w_b = 2 * 4 * c * c * 4 + 4 * (6 * c)
+    tail_bounds = {
+        "convnext_tail_fwd": bound(16 * n * c * c, rows_b + w_b, peak=peak),
+        "convnext_tail_bwd": bound(24 * n * c * c, rows_b + w_b, peak=peak),
+        "convnext_tail_fwd_q8": bound(16 * n * c * c,
+                                      rows_b + 2 * 4 * c * c
+                                      + 4 * (4 * c + c), peak=PEAK_INT8_OPS),
+        "convnext_tail_bwd_q8": bound(24 * n * c * c,
+                                      rows_b + 3 * 4 * c * c
+                                      + 4 * (8 * c + c), peak=PEAK_INT8_OPS)}
+    for name, t in tails.items():
+        emit("fp32_kernels", name=name, parity=t["rows"], ms_C384=t["ms"],
+             plain_ms_C384=t["plain_ms"], bound_C384=tail_bounds[name],
+             tolerance=dict(max_rel=K12_REL if name.endswith("q8")
+                            else FP32_REL, mean_rel=FP32_REL))
+        entry(name, t["row"], t["ms"], t["plain_ms"], tail_bounds[name], None,
+              "N 12544, C 384 fp32 rows")
+
+    # K9a: fc1 (20480, 768 → 3072) with bias, GELU, zpre and x̂, and qkv
+    # (→ 2304) plain; K9b (20480, 3072); K9c (20480, 768); K10 fc2.
+    x = 3 * r(N_ROWS, 768) + 1
+    w = r(3072, 768, scale=768 ** -0.5)
+    b = r(3072, scale=0.3)
+    z, zpre, xhat = k_lnmm.ln_matmul_fwd(x, w, b, True)
+    torch.cuda.synchronize()
+    z_ref, zpre_ref, xhat_ref = k_lnmm.ln_matmul_fwd_ref(x, w, b, True)
+    controls["K9a"] = tf32_control("K9a", lambda: k_lnmm.ln_matmul_fwd_ref(
+        x, w, b, True)[0], z_ref)
+    k9a = dict(z=fp32_check("K9a", z, z_ref),
+               zpre=fp32_check("K9a zpre", zpre, zpre_ref),
+               xhat=fp32_check("K9a x̂", xhat, xhat_ref))
+    wq = r(2304, 768, scale=768 ** -0.5)
+    k9a["qkv_z"] = fp32_check("K9a qkv", k_lnmm.ln_matmul_fwd(x, wq)[0],
+                              k_lnmm.ln_matmul_fwd_ref(x, wq)[0])
+    k9a.update(ms=median_ms(lambda: k_lnmm.ln_matmul_fwd(x, w, b, True)),
+               plain_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd_ref(
+                   x, w, b, True), 5),
+               library_ms=median_ms(lambda: F.linear(xhat_ref, w, b)),
+               bound=bound(2 * N_ROWS * 768 * 3072,
+                           4 * (2 * N_ROWS * 768 + 3072 * 768 + 3072
+                                + 2 * N_ROWS * 3072), peak=peak))
+    emit("fp32_kernels", name="ln_matmul_fwd", parity=k9a,
+         library="F.linear(x̂, W, b) in fp32, TF32 off: the product alone",
+         shape="x (20480, 768) fp32, fc1 W (3072, 768); qkv W (2304, 768)")
+    entry("ln_matmul_fwd", k9a["z"], k9a["ms"], k9a["plain_ms"], k9a["bound"],
+          k9a["library_ms"], "fc1 (20480, 768 → 3072) fp32")
+    del x, w, b, z, xhat, z_ref, zpre_ref, xhat_ref, wq
+    dz = r(N_ROWS, 3072)
+    out = k_lnmm.ln_matmul_dgelu(zpre, dz)
+    torch.cuda.synchronize()
+    k9b = dict(parity=fp32_check("K9b", out,
+                                 k_lnmm.ln_matmul_dgelu_ref(zpre, dz)),
+               ms=median_ms(lambda: k_lnmm.ln_matmul_dgelu(zpre, dz)),
+               plain_ms=median_ms(lambda: k_lnmm.ln_matmul_dgelu_ref(zpre,
+                                                                     dz)),
+               bound=bound(30 * N_ROWS * 3072, 3 * 4 * N_ROWS * 3072,
+                           peak=peak))
+    emit("fp32_kernels", name="ln_matmul_dgelu", **k9b)
+    entry("ln_matmul_dgelu", k9b["parity"], k9b["ms"], k9b["plain_ms"],
+          k9b["bound"], None, "(20480, 3072) fp32")
+    del dz, out, zpre
+    x, g = 2 * r(N_ROWS, 768) + 0.5, r(N_ROWS, 768)
+    out = k_lnmm.ln_bwd(x, g)
+    torch.cuda.synchronize()
+    k9c = dict(parity=fp32_check("K9c", out, k_lnmm.ln_bwd_ref(x, g)),
+               ms=median_ms(lambda: k_lnmm.ln_bwd(x, g)),
+               plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
+               bound=bound(10 * N_ROWS * 768, 3 * 4 * N_ROWS * 768,
+                           peak=peak))
+    emit("fp32_kernels", name="ln_bwd", **k9c)
+    entry("ln_bwd", k9c["parity"], k9c["ms"], k9c["plain_ms"], k9c["bound"],
+          None, "(20480, 768) fp32")
+    del x, g, out
+    g, x = r(N_ROWS, 768), r(N_ROWS, 3072)
+    dw, db = k_fc.matmul_dw_db(g, x)
+    dw2, db2 = k_fc.matmul_dw_db(g, x)
+    torch.cuda.synchronize()
+    dw_ref, db_ref = k_fc.matmul_dw_db_ref(g, x)
+    k10 = dict(dw=fp32_check("K10 dW", dw, dw_ref),
+               db=fp32_check("K10 db", db, db_ref),
+               deterministic=bool(torch.equal(dw, dw2)
+                                  and torch.equal(db, db2)),
+               ms=median_ms(lambda: k_fc.matmul_dw_db(g, x)),
+               plain_ms=median_ms(lambda: k_fc.matmul_dw_db_ref(g, x), 5),
+               library_ms=median_ms(lambda: torch.mm(g.t(), x)),
+               bound=bound(2 * N_ROWS * 768 * 3072,
+                           4 * (N_ROWS * (768 + 3072) + 768 * 3072 + 768),
+                           peak=peak))
+    require(k10["deterministic"], f"K10 in fp32 is not deterministic: {k10}")
+    controls["K10"] = tf32_control("K10", lambda: k_fc.matmul_dw_db_ref(
+        g, x)[0], dw_ref)
+    emit("fp32_kernels", name="fc_grad", **k10,
+         library="torch.mm(g.t(), x) in fp32, TF32 off: dW alone")
+    entry("fc_grad", k10["dw"], k10["ms"], k10["plain_ms"], k10["bound"],
+          k10["library_ms"], "fc2: g (20480, 768), x (20480, 3072) fp32")
+    del g, x, dw, db, dw2, db2, dw_ref, db_ref
+    torch.cuda.empty_cache()
+    emit("fp32_kernels", name="tf32_control", limit=FP32_REL, rows=controls,
+         what="each plain version with TF32 on against itself with TF32 "
+              "off: all fail the fp32 forms' limit")
+    return summary
+
+
+def fp32_titok(card: str) -> "tuple[dict, dict]":
+    """The flagship TiTok-B step at dtype float32 (``train_titok.py
+    --mixed false``): bench.py's widths, ConvNeXt-S at fp32, bs 64, under
+    three settings (unfused; VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1;
+    ``PerceptualLoss(quant="int8")``): the launches of one step, which must
+    all be the fp32 forms', its loss, perceptual loss and gradient norm
+    against the same first step through the plain versions within 1e-3,
+    then one warm-up and two timed steps and the peak memory. Returns the
+    launches and the fp32 launches of the three settings."""
+    model = TiTok(TiTokConfig(**FLAGSHIP, dtype=torch.float32))
+    init_params_(model, torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    weights = copy.deepcopy(model.state_dict())
+    net = ConvNeXt(dtype=torch.float32)
+    init_convnext_(net, torch.Generator().manual_seed(1))
+    net_state = net.state_dict()
+    images = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (TRAIN_BS, FLAGSHIP["image_size"], FLAGSHIP["image_size"], 3))
+        .astype(np.float32)).cuda()
+    launches, fp32_launches = {}, {}
+    for setting, (ln, fc, quant) in FP32_SETTINGS.items():
+        cnx = ConvNeXt(dtype=torch.float32, quant=quant)
+        cnx.load_state_dict(net_state)
+        perceptual = PerceptualLoss(cnx).cuda()
+        model.load_state_dict(weights)
+        state = TrainState.create(model, flagship_optimizer())
+        usage = torch.zeros(model.config.codebook_size, device="cuda")
+        plain = copy.deepcopy((model, state, usage))
+        step = make_tokenizer_train_step(model, perceptual_loss_fn=perceptual)
+        plain_step = make_tokenizer_train_step(plain[0],
+                                               perceptual_loss_fn=perceptual)
+        with fused_switches(ln, fc):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()   # the main path's run starts here
+            _, _, metrics, recon = step(state, images, usage)
+            torch.cuda.synchronize()
+            got, got32 = read_launches(), read_fp32_launches()
+            with plain_versions():
+                _, _, plain_metrics, _ = plain_step(plain[1], images,
+                                                    plain[2])
+            torch.cuda.synchronize()
+            metrics = {k: v.item() for k, v in metrics.items()}
+            plain_metrics = {k: v.item() for k, v in plain_metrics.items()}
+            rel = {k: abs(metrics[k] - plain_metrics[k]) / abs(
+                plain_metrics[k]) for k in ("train/loss",
+                                            "train/perceptual_loss",
+                                            "train/grad_norm")}
+            times = []
+            for _ in range(3):   # one warm-up, two timed
+                t0 = time.perf_counter()
+                step(state, images, usage)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        want = FP32_STEP_LAUNCHES[setting]
+        row = dict(launches=got, fp32_launches=got32, metrics=metrics,
+                   plain_metrics=plain_metrics, rel_diff=rel,
+                   step_ms=times[1:], images_per_s=TRAIN_BS / np.mean(
+                       times[1:]) * 1e3,
+                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+        emit("fp32", path=f"titok_step_{setting}", card=card, **row,
+             tolerance=dict(rel=FP32_STEP_REL))
+        require(all(np.isfinite(v) for v in metrics.values())
+                and bool(torch.isfinite(recon).all()),
+                f"fp32 {setting} step: non-finite output {metrics}")
+        require(got == want, f"fp32 {setting} step launched {got}, "
+                             f"expected {want}")
+        require(not [k for k, v in got.items() if v and got32.get(k) != v],
+                f"fp32 {setting} step: launches that were not fp32 forms: "
+                f"{got} vs {got32}")
+        require(all(v <= FP32_STEP_REL for v in rel.values()),
+                f"fp32 {setting} step vs plain versions: {rel}")
+        for d, src in ((launches, got), (fp32_launches, got32)):
+            for k, v in src.items():
+                d[k] = d.get(k, 0) + v
+        del plain, state, perceptual, cnx, step, plain_step
+        torch.cuda.empty_cache()
+    del model, weights, images
+    torch.cuda.empty_cache()
+    return launches, fp32_launches
+
+
+def fp32_videogpt(card: str) -> "tuple[dict, dict]":
+    """The VideoGPT-B step at dtype float32 (``train_videogpt.py --mixed
+    false``), bs 32, S 1024, over the frozen random TiTok-S at fp32: the
+    launches of one step (K6 12, K7/K8 12, K1 6, K5 1, all fp32 forms), the
+    first step's loss and gradient norm on the step's codes against the
+    plain versions within 1e-3, one warm-up and two timed steps, peak
+    memory. Returns the step's launches and fp32 launches."""
+    tok = TiTok(TiTokConfig(**VIDEO_TOKENIZER, dtype=torch.float32))
+    init_params_(tok, torch.Generator().manual_seed(123))
+    tokenizer = FrozenTokenizer(tok.cuda())
+    model = VideoGPT(VideoGPTConfig(**VIDEOGPT, dtype=torch.float32))
+    init_params_(model, torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    videos = video_batch(VIDEO_TOKENIZER["image_size"])
+    kernel_model, plain_model = copy.deepcopy(model), copy.deepcopy(model)
+    state = TrainState.create(model, make_optimizer(
+        1e-4, 5000, 500000, 1e-5, 1e-4, clip_norm=None))
+    step = make_videogpt_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()   # the main path's run starts here
+    _, tokens, metrics = step(state, tokenizer, videos)
+    torch.cuda.synchronize()
+    got, got32 = read_launches(), read_fp32_launches()
+    loss, norm = loss_and_grad_norm(kernel_model, tokens)
+    with plain_versions():
+        plain_loss, plain_norm = loss_and_grad_norm(plain_model, tokens)
+    del kernel_model, plain_model
+    torch.cuda.empty_cache()
+    times = []
+    for _ in range(3):   # one warm-up, two timed
+        t0 = time.perf_counter()
+        step(state, tokenizer, videos)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rel = dict(loss=abs(loss - plain_loss) / abs(plain_loss),
+               grad_norm=abs(norm - plain_norm) / abs(plain_norm))
+    emit("fp32", path="videogpt_step", card=card, launches=got,
+         fp32_launches=got32, step_loss=metrics["train/loss"].item(),
+         loss=loss, grad_norm=norm, plain_loss=plain_loss,
+         plain_grad_norm=plain_norm, rel_diff=rel, step_ms=times[1:],
+         tokens_per_s=VIDEO_BS * 1024 / np.mean(times[1:]) * 1e3,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         tolerance=dict(rel=FP32_STEP_REL))
+    require(np.isfinite(loss) and np.isfinite(norm),
+            f"fp32 VideoGPT step: loss {loss}, gradient norm {norm}")
+    require(got == VIDEO_STEP_LAUNCHES,
+            f"fp32 VideoGPT step launched {got}, expected "
+            f"{VIDEO_STEP_LAUNCHES}")
+    require(not [k for k, v in got.items() if v and got32.get(k) != v],
+            f"fp32 VideoGPT step: launches that were not fp32 forms: {got} "
+            f"vs {got32}")
+    require(all(v <= FP32_STEP_REL for v in rel.values()),
+            f"fp32 VideoGPT step vs plain versions: {rel}")
+    del model, state, tok, tokenizer, videos, tokens
+    torch.cuda.empty_cache()
+    return got, got32
+
+
+def fp32_vit(card: str) -> "tuple[dict, dict]":
+    """ViT-L/16 @256 at dropout 0.15 at dtype float32, bs 64: the step of
+    ``train_vit.py --mixed false``. The launches of one step (K1 24 and K2
+    24, every one an fp32 form through the dropout branch), the first
+    step's logits, loss and gradient norm against the plain versions from
+    the same generator state within FP32_STEP_REL, one warm-up and two
+    timed steps, peak memory. Returns the step's launches and fp32
+    launches."""
+    name = "vit_l16_256_drop0.15"
+    size, patch, preset, rate = VIT_CELLS[name]
+    cfg = ViTConfig(size, 3, patch, preset, 1, rate, dtype=torch.float32)
+    model = ViTClassifier(cfg, VIT_CLASSES, device="cuda")
+    init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+    images, labels = vit_batch(size)
+    n_layers = cfg.trans_config.n_layers
+    step = make_classifier_train_step(model)
+    state = TrainState.create(model, make_optimizer(
+        1e-4, 5000, 500000, 1e-5, 1e-2, clip_norm=None))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()   # the main path's run starts here
+    _, metrics = step(state, images, labels, gen)
+    torch.cuda.synchronize()
+    got, got32 = read_launches(), read_fp32_launches()
+    dropout = read_dropout_launches()
+    want = dict.fromkeys(got, 0)
+    want.update(attention_packed_fwd=n_layers, attention_packed_bwd=n_layers)
+    require(got == want and all(
+        got32[k] == dropout[k] == n_layers
+        for k in ("attention_packed_fwd", "attention_packed_bwd")),
+        f"fp32 {name} step launched {got}, fp32 {got32}, with dropout "
+        f"{dropout}")
+    step_loss = metrics["train/loss"].item()
+    # lr is 0 at the warmup's first step: the weights are unchanged
+    logits, loss, norm = classifier_loss(model, images, labels, 2)
+    with plain_versions():
+        p_logits, p_loss, p_norm = classifier_loss(model, images, labels, 2)
+    torch.cuda.synchronize()
+    rel = dict(loss=abs(loss - p_loss) / abs(p_loss),
+               grad_norm=abs(norm - p_norm) / abs(p_norm))
+    logits_rel = rel_errors(logits, p_logits)
+    del logits, p_logits
+    times = []
+    for _ in range(3):   # one warm-up, two timed
+        t0 = time.perf_counter()
+        step(state, images, labels, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    emit("fp32", path=name, card=card, launches={k: v for k, v in
+                                                 got.items() if v},
+         fp32_launches={k: v for k, v in got32.items() if v},
+         dropout_launches=dropout, step_loss=step_loss, loss=loss,
+         plain_loss=p_loss, grad_norm=norm, plain_grad_norm=p_norm,
+         rel_diff=rel, logits=logits_rel, step_ms=times[1:],
+         images_per_s=VIT_BS / np.mean(times[1:]) * 1e3,
+         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+         tolerance=dict(rel=FP32_STEP_REL))
+    require(np.isfinite(step_loss) and np.isfinite(loss)
+            and np.isfinite(norm), f"fp32 {name} step: {metrics}")
+    require(all(v <= FP32_STEP_REL for v in rel.values())
+            and logits_rel["max_rel"] <= FP32_STEP_REL
+            and logits_rel["mean_rel"] <= FP32_STEP_REL,
+            f"fp32 {name} step vs plain versions: {rel}, logits "
+            f"{logits_rel}")
+    del model, state, step, images, labels
+    torch.cuda.empty_cache()
+    return got, got32
+
+
+def phase_fp32(card: str) -> "tuple[dict, dict]":
+    """The fp32 paths: the flagship TiTok-B step in its three settings, the
+    VideoGPT-B step and the ViT-L/16 step. Returns their launches and fp32
+    launches, summed."""
+    launches, fp32_launches = fp32_titok(card)
+    for path in (fp32_videogpt, fp32_vit):
+        for total, part in zip((launches, fp32_launches), path(card)):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+    return launches, fp32_launches
 
 
 def phase_slice(work: Path, model: TiTok) -> dict:
@@ -2370,14 +3208,14 @@ def phase_vit(card: str):
     return total, dropout_total
 
 
-def phase_train_vit_entry(card: str) -> None:
+def phase_train_vit_entry(card: str, *flags: str) -> None:
     """``python -m vit_tpu_torch.train_vit`` at its defaults (ViT-L/16
-    @256, dropout 0.15, bs 64) on the synthetic stream for one epoch of 5
-    steps, as a user runs it: return code 0, a finite loss on every step's
-    line and the epoch's eval line."""
+    @256, dropout 0.15, bs 64) and ``flags`` (``--mixed false``: fp32) on
+    the synthetic stream for one epoch of 5 steps, as a user runs it: return
+    code 0, a finite loss on every step's line and the epoch's eval line."""
     cmd = [sys.executable, "-m", "vit_tpu_torch.train_vit", "--dataset",
            "synthetic", "--no_wandb", "--epochs", "1", "--steps_per_epoch",
-           "5", "--log_every", "1"]
+           "5", "--log_every", "1", *flags]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -2635,7 +3473,11 @@ def phase_perceptual(state_dict: dict, card: str) -> dict:
 def main() -> None:
     card = phase_device()
     phase_build()
+    fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
+    for name, arm in fp32_kernels(
+            torch.Generator(device="cuda").manual_seed(7)).items():
+        summary[name]["fp32"] = arm
 
     cfg = TiTokConfig(**FLAGSHIP)
     model = TiTok(cfg)
@@ -2662,10 +3504,12 @@ def main() -> None:
         del gpt, tokens
         torch.cuda.empty_cache()
     vit_launches, vit_dropout = phase_vit(card)
+    fp32_path_launches, fp32_launches = phase_fp32(card)
     phase_train_vit_entry(card)
+    phase_train_vit_entry(card, "--mixed", "false")
     for path in (train_launches, fused_launches, gpt_launches,
                  rollout_launches, int8_launches, perceptual_launches,
-                 vit_launches):
+                 vit_launches, fp32_path_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]
@@ -2711,12 +3555,22 @@ def main() -> None:
     # each attention kernel's dropout branch: ViT-L's K1/K2, VideoGPT's K6/K8
     missing = [name for name, n in dropout_launches.items() if n == 0]
     require(not missing, f"dropout branches never launched: {missing}")
+    # each fp32 form on the fp32 paths
+    missing = [name for name in FP32_FORMS if fp32_launches.get(name, 0) == 0]
+    require(not missing, f"fp32 forms never launched: {missing}")
+    require(fma_launches > 0, "P was never launched")
+    sources["fma_probe"] = ("vit_tpu_torch/csrc/fma_probe.cu",
+                            "scripts/bench_vpu.py:32")
+    launches["fma_probe"] = fma_launches
+    summary["fma_probe"] = fma_summary
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          **summary[name],
          **({"dropout_launches": dropout_launches[name]}
             if name in dropout_launches else {}),
+         **({"fp32_launches": fp32_launches[name]}
+            if name in FP32_FORMS else {}),
          **({"also_replaces": also[name]} if name in also else {})}
         for name in sources]}), flush=True)
     print(card, flush=True)

@@ -136,6 +136,10 @@ def test_port_never_imports_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'vit_tpu'))\n"
         "assert not bad, bad\n"
+        "entries = ('vit_tpu_torch.train_vit', 'vit_tpu_torch.bench_vpu', "
+        "'vit_tpu_torch.bench_kernels', 'vit_tpu_torch.kernels.fma_probe', "
+        "'vit_tpu_torch.utils.precision')\n"
+        "assert all(e in sys.modules for e in entries), entries\n"
         "print(len([k for k in sys.modules if k.startswith('vit_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)

@@ -277,12 +277,11 @@ def test_train_vit_entry_runs_on_the_cpu(capsys):
     ["--scan_layers", "true"], ["--mesh", "1,1,1"],
     ["--pp_microbatches", "2"], ["--loader_backend", "grain"],
     ["--loader_processes", "2"], ["--run_dir", "runs"],
-    ["--attn_impl", "xla"], ["--mixed", "false"],
+    ["--attn_impl", "xla"],
 ], ids=lambda f: "_".join(a.lstrip("-") for a in f))
 def test_train_vit_refuses_unported_flags(flags):
-    """Each flag whose path is not ported raises before anything is built;
-    ``--mixed false`` on the default CUDA device, whose fp32 kernels do not
-    exist yet."""
+    """Each flag whose path is not ported raises before anything is built
+    (``--mixed false`` runs: tests/test_torch_fp32.py)."""
     from vit_tpu_torch.train_vit import main
 
     base = [] if flags[:1] == ["--dataset"] else ["--dataset", "synthetic"]

@@ -1,0 +1,202 @@
+"""Time the bf16 kernels of one or more checkouts of this repo on one card,
+in turns, so that two versions of a kernel are compared within one call.
+
+    python -m vit_tpu_torch.bench_kernels --trees OLD . . OLD \
+        [--out chiprun_out/bench_kernels.json]
+
+Each entry of ``--trees`` is a checkout's root; each runs in a process of
+its own that imports ``vit_tpu_torch`` from that checkout, builds its
+kernels into that checkout's ``build/`` and times K1 (with statistics),
+K2, K3, K4, K5, K6 (with statistics), K8, K9a, K9b, K9c, K10, K11a, K11b,
+K12a and K12b, and the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
+at rate 0.15) and K6/K8 (rate 0.1), at ``chip_smoke.py``'s shapes:
+CUDA-event medians of 20 calls after 3, the same seeded inputs in every
+process. Prints one JSON line per turn and
+a table of each kernel's times by checkout and turn.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+N_ROWS = 64 * 320          # the flagship step's rows: bs 64 · S 320
+TAIL_ROWS, TAIL_C = 64 * 14 * 14, 384   # ConvNeXt-S stage 2 at bs 64
+
+
+def median_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def time_kernels() -> dict:
+    """{kernel: ms} of the bf16 kernels of the ``vit_tpu_torch`` on the
+    path, at chip_smoke.py's timing shapes."""
+    import torch
+
+    from vit_tpu_torch.kernels import attention as k_attn
+    from vit_tpu_torch.kernels import convnext_block as k_cnx
+    from vit_tpu_torch.kernels import depthwise as k_dw
+    from vit_tpu_torch.kernels import fc_grad as k_fc
+    from vit_tpu_torch.kernels import ln_matmul as k_lnmm
+    from vit_tpu_torch.kernels import vq as k_vq
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    def seed():
+        return k_attn.seed_vec(torch.randint(
+            0, 2 ** 31 - 1, (1,), device="cuda", generator=gen,
+            dtype=torch.int32))
+
+    ms = {}
+    qkv, bias = r(64, 320, 3 * 768).bfloat16(), r(3 * 768)
+    dout = r(64, 320, 768).bfloat16()
+    _, m, l = k_attn.attention_packed_fwd(qkv, bias, 12, False,
+                                          emit_stats=True)
+    ms["K1"] = median_ms(lambda: k_attn.attention_packed_fwd(
+        qkv, bias, 12, False, emit_stats=True))
+    ms["K2"] = median_ms(lambda: k_attn.attention_packed_bwd(
+        qkv, bias, dout, m, l, 12, False))
+    qkv, bias = r(64, 257, 3 * 1024).bfloat16(), r(3 * 1024)
+    dout = r(64, 257, 1024).bfloat16()
+    drop = dict(dropout_rate=0.15, seed=seed())
+    _, m, l = k_attn.attention_packed_fwd(qkv, bias, 16, False, True, **drop)
+    ms["K1 dropout"] = median_ms(lambda: k_attn.attention_packed_fwd(
+        qkv, bias, 16, False, True, **drop))
+    ms["K2 dropout"] = median_ms(lambda: k_attn.attention_packed_bwd(
+        qkv, bias, dout, m, l, 16, False, **drop))
+    del qkv, dout, m, l
+
+    c = TAIL_C
+    h, x, dy = (r(TAIL_ROWS, c).bfloat16() for _ in range(3))
+    lns, lnb = 1.0 + r(c, scale=0.1), r(c, scale=0.1)
+    w1, b1 = r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1)
+    w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
+    gamma = r(c, scale=0.5)
+    fwd = (h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6)
+    bwd = (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)
+    ms["K3"] = median_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
+    ms["K4"] = median_ms(lambda: k_cnx.convnext_tail_bwd(*bwd))
+    ms["K12a"] = median_ms(lambda: k_cnx.convnext_tail_fwd_q8(*fwd))
+    ms["K12b"] = median_ms(lambda: k_cnx.convnext_tail_bwd_q8(*bwd))
+    del h, x, dy, fwd, bwd
+
+    z = r(8 * 256, 12)
+    cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1) / 2048
+    ms["K5"] = median_ms(lambda: k_vq.nearest_code(z, cb))
+
+    q, k, v = r(32, 1024, 3, 12, 64).bfloat16().permute(2, 0, 3, 1, 4)
+    do = r(32, 1024, 12, 64).bfloat16().transpose(1, 2)
+    _, m, l = k_attn.attention_fwd(q, k, v, True, emit_stats=True)
+    ms["K6"] = median_ms(lambda: k_attn.attention_fwd(q, k, v, True,
+                                                      emit_stats=True))
+    ms["K8"] = median_ms(lambda: k_attn.attention_bwd(q, k, v, do, m, l,
+                                                      True))
+    drop = dict(dropout_rate=0.1, seed=seed())
+    ms["K6 dropout"] = median_ms(lambda: k_attn.attention_fwd(
+        q, k, v, True, True, **drop))
+    _, m, l = k_attn.attention_fwd(q, k, v, True, True, **drop)
+    ms["K8 dropout"] = median_ms(lambda: k_attn.attention_bwd(
+        q, k, v, do, m, l, True, **drop))
+    del q, k, v, do, m, l
+
+    x = r(64, 56, 56, 96).bfloat16()
+    w, b = (r(7, 7, 96) / 7).bfloat16(), r(96).bfloat16()
+    g = r(64, 56, 56, 96).bfloat16()
+    ms["K11a"] = median_ms(lambda: k_dw.depthwise_fwd(x, w, b))
+    ms["K11b"] = median_ms(lambda: k_dw.depthwise_bwd(x, g, w))
+    del x, g
+
+    x = (3 * r(N_ROWS, 768) + 1).bfloat16()
+    w = r(3072, 768, scale=768 ** -0.5).bfloat16()
+    b = r(3072, scale=0.3).bfloat16()
+    ms["K9a"] = median_ms(lambda: k_lnmm.ln_matmul_fwd(x, w, b, True))
+    zpre = r(N_ROWS, 3072, scale=2.0).bfloat16()
+    dz = r(N_ROWS, 3072).bfloat16()
+    ms["K9b"] = median_ms(lambda: k_lnmm.ln_matmul_dgelu(zpre, dz))
+    g = r(N_ROWS, 768).bfloat16()
+    ms["K9c"] = median_ms(lambda: k_lnmm.ln_bwd(x, g))
+    x3 = r(N_ROWS, 3072).bfloat16()
+    ms["K10"] = median_ms(lambda: k_fc.matmul_dw_db(g, x3))
+    return ms
+
+
+def worker(root: str) -> None:
+    """One turn: import the checkout at ``root`` and print its times."""
+    sys.path.insert(0, root)
+    import torch
+
+    import vit_tpu_torch
+
+    where = str(Path(vit_tpu_torch.__file__).resolve().parent.parent)
+    if where != str(Path(root).resolve()):
+        raise SystemExit(f"imported vit_tpu_torch from {where}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps({"tree": root, "ms": time_kernels()}), flush=True)
+
+
+def card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return "nvidia-smi unavailable"
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", required=True,
+                    help="checkout roots, in the order of the turns")
+    ap.add_argument("--out", default=None, help="also write the turns here")
+    args = ap.parse_args(argv)
+    turns = []
+    for i, tree in enumerate(args.trees):
+        root = str(Path(tree).resolve())
+        script = str(Path(__file__).resolve())
+        code = f"import runpy; runpy.run_path({script!r})['worker']({root!r})"
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=900,
+                              env={**os.environ, "PYTHONPATH": ""})
+        if proc.returncode:
+            raise SystemExit(f"turn {i} ({tree}) exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        turn = json.loads(proc.stdout.strip().splitlines()[-1])
+        turn.update(turn=i, arg=tree)
+        turns.append(turn)
+        print(json.dumps(turn), flush=True)
+    name = card()
+    print(f"card: {name}")
+    kernels = list(turns[0]["ms"])
+    print("kernel      " + "  ".join(f"{t['arg']}#{t['turn']}" for t in turns))
+    for k in kernels:
+        print(f"{k:10s}  " + "  ".join(f"{t['ms'][k]:.3f}" for t in turns))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": name, "turns": turns},
+                                             indent=1))
+    return turns
+
+
+if __name__ == "__main__":
+    main()

@@ -15,7 +15,10 @@
 // round half to even. The weights arrive quantized per output channel by the
 // wrapper (_quant_cols, :204-212), each as an (n, k) operand with k
 // contiguous: W1q (4C, C), W2q (C, 4C), W2ᵀq (4C, C), W1ᵀq (C, 4C), with fp32
-// scales; lns, lnb, b1, b2 and γ in bf16, read in fp32. Every product is
+// scales; lns, lnb, b1, b2 and γ in the row type, read in fp32. The rows
+// (h, x or dy, y or dh) and those vectors are bf16, or fp32 in the
+// convnext_tail_*_q8_f32 entries, as _fwd_kernel_q8 reads rows of any dtype
+// (the kernels are templated on that type only). Every product is
 // mma.sync m16n8k32 on int8 with an int32 accumulator, exact as on the MXU,
 // and rescaled as ((float)acc·s_row)·s_col + bias. LN statistics are the
 // two-pass fp32 ones of _normalize (:80-86); GELU and gelu′ the tanh-erf
@@ -45,6 +48,7 @@
 
 #include "gelu.cuh"
 #include "mma.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -60,8 +64,9 @@ constexpr float kInv127 = 1.0f / 127.0f;
 template <int C>
 __host__ __device__ constexpr int pitch() { return C + 16; }  // bytes of an int8 row
 
-__device__ __forceinline__ float bf(const bf16* p, int i) {
-  return __bfloat162float(p[i]);
+template <typename T>
+__device__ __forceinline__ float bf(const T* p, int i) {
+  return to_f(p[i]);
 }
 
 __device__ __forceinline__ int quantize(float v, float s) {
@@ -115,17 +120,17 @@ __device__ __forceinline__ void quantize_row(const float (&v)[C / 32],
 // LayerNorm of the block's rows (two-pass fp32 statistics), u = û·lns + lnb
 // in fp32, quantized per row into sU with its scale in sUs. Rows at or past
 // N read as zeros (u = lnb: finite, never stored).
-template <int C>
+template <int C, typename T>
 __device__ __forceinline__ void ln_quant_rows(int8_t* sU, float* sUs,
                                               float* sMu, float* sRstd,
-                                              const bf16* __restrict__ h,
-                                              const bf16* __restrict__ lns,
-                                              const bf16* __restrict__ lnb,
+                                              const T* __restrict__ h,
+                                              const T* __restrict__ lns,
+                                              const T* __restrict__ lnb,
                                               int r0, int N, float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRows; r += kWarps) {
     const int row = r0 + r;
-    const bf16* hr = h + static_cast<size_t>(row) * C;
+    const T* hr = h + static_cast<size_t>(row) * C;
     float v[C / 32];
     float sum = 0.0f;
 #pragma unroll
@@ -209,18 +214,18 @@ constexpr size_t fwd_smem_bytes() {
          kRows * kChunkPitch + sizeof(float) * 4 * kRows;
 }
 
-template <int C>
+template <int C, typename T>
 __global__ void __launch_bounds__(kBlock)
-convnext_tail_fwd_q8_kernel(const bf16* __restrict__ h, const bf16* __restrict__ x,
-                            const bf16* __restrict__ lns,
-                            const bf16* __restrict__ lnb,
+convnext_tail_fwd_q8_kernel(const T* __restrict__ h, const T* __restrict__ x,
+                            const T* __restrict__ lns,
+                            const T* __restrict__ lnb,
                             const int8_t* __restrict__ w1q,
                             const float* __restrict__ w1s,
-                            const bf16* __restrict__ b1,
+                            const T* __restrict__ b1,
                             const int8_t* __restrict__ w2q,
                             const float* __restrict__ w2s,
-                            const bf16* __restrict__ b2,
-                            const bf16* __restrict__ gamma, bf16* __restrict__ y,
+                            const T* __restrict__ b2,
+                            const T* __restrict__ gamma, T* __restrict__ y,
                             int N, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sU = reinterpret_cast<int8_t*>(smem);      // [64][C + 16]: uq
@@ -238,7 +243,7 @@ convnext_tail_fwd_q8_kernel(const bf16* __restrict__ h, const bf16* __restrict__
   const int ch = warp >> 2;  // z columns ch·32 .. + 32 of a chunk; o columns
                              // ch·C/2 .. + C/2
 
-  ln_quant_rows<C>(sU, sUs, nullptr, nullptr, h, lns, lnb, r0, N, eps);
+  ln_quant_rows<C, T>(sU, sUs, nullptr, nullptr, h, lns, lnb, r0, N, eps);
   ZTile<C> z;
 
   // Pass 1: the row absmax of a = gelu(z) over all 4C columns.
@@ -307,13 +312,11 @@ convnext_tail_fwd_q8_kernel(const bf16* __restrict__ h, const bf16* __restrict__
     for (int nt = 0; nt < C / 16; ++nt) {
       const int col = ch * (C / 2) + nt * 8 + 2 * t;
       const size_t i = static_cast<size_t>(row) * C + col;
-      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + i);
+      const float2 xv = load2(x + i);
       const float o0 = static_cast<float>(o[nt][2 * r]) * sa * w2s[col] + bf(b2, col);
       const float o1 =
           static_cast<float>(o[nt][2 * r + 1]) * sa * w2s[col + 1] + bf(b2, col + 1);
-      *reinterpret_cast<uint32_t*>(y + i) =
-          pack_bf16x2(__bfloat162float(xv.x) + bf(gamma, col) * o0,
-                      __bfloat162float(xv.y) + bf(gamma, col + 1) * o1);
+      store2(y + i, xv.x + bf(gamma, col) * o0, xv.y + bf(gamma, col + 1) * o1);
     }
   }
 }
@@ -324,20 +327,20 @@ constexpr size_t bwd_smem_bytes() {
          kRows * kChunkPitch + sizeof(float) * 11 * kRows;
 }
 
-template <int C>
+template <int C, typename T>
 __global__ void __launch_bounds__(kBlock)
-convnext_tail_bwd_q8_kernel(const bf16* __restrict__ h, const bf16* __restrict__ dy,
-                            const bf16* __restrict__ lns,
-                            const bf16* __restrict__ lnb,
+convnext_tail_bwd_q8_kernel(const T* __restrict__ h, const T* __restrict__ dy,
+                            const T* __restrict__ lns,
+                            const T* __restrict__ lnb,
                             const int8_t* __restrict__ w1q,
                             const float* __restrict__ w1s,
                             const int8_t* __restrict__ w2tq,
                             const float* __restrict__ w2ts,
                             const int8_t* __restrict__ w1tq,
                             const float* __restrict__ w1ts,
-                            const bf16* __restrict__ b1,
-                            const bf16* __restrict__ gamma,
-                            bf16* __restrict__ dh, int N, float eps) {
+                            const T* __restrict__ b1,
+                            const T* __restrict__ gamma,
+                            T* __restrict__ dh, int N, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sU = reinterpret_cast<int8_t*>(smem);  // [64][C + 16]: uq
   int8_t* sDO = sU + kRows * pitch<C>();          // [64][C + 16]: (γ⊙dy)q
@@ -360,7 +363,7 @@ convnext_tail_bwd_q8_kernel(const bf16* __restrict__ h, const bf16* __restrict__
   const int rg = warp & 3;
   const int ch = warp >> 2;
 
-  ln_quant_rows<C>(sU, sUs, sMu, sRstd, h, lns, lnb, r0, N, eps);
+  ln_quant_rows<C, T>(sU, sUs, sMu, sRstd, h, lns, lnb, r0, N, eps);
   for (int r = warp; r < kRows; r += kWarps) {
     const int row = r0 + r;
     float v[C / 32];
@@ -447,7 +450,7 @@ convnext_tail_bwd_q8_kernel(const bf16* __restrict__ h, const bf16* __restrict__
       for (int e = 0; e < 2; ++e) {
         const int col = ch * (C / 2) + nt * 8 + 2 * t + e;
         const float hv =
-            row < N ? __bfloat162float(h[static_cast<size_t>(row) * C + col]) : 0.0f;
+            row < N ? to_f(h[static_cast<size_t>(row) * C + col]) : 0.0f;
         const float uhat = (hv - mu) * rstd;
         const float dhat =
             static_cast<float>(du[nt][2 * r + e]) * sg * w1ts[col] * bf(lns, col);
@@ -477,39 +480,38 @@ convnext_tail_bwd_q8_kernel(const bf16* __restrict__ h, const bf16* __restrict__
     for (int nt = 0; nt < C / 16; ++nt) {
       const int col = ch * (C / 2) + nt * 8 + 2 * t;
       const size_t i = static_cast<size_t>(row) * C + col;
-      const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(h + i);
-      const float u0 = (__bfloat162float(hv.x) - mu) * rstd;
-      const float u1 = (__bfloat162float(hv.y) - mu) * rstd;
+      const float2 hv = load2(h + i);
+      const float u0 = (hv.x - mu) * rstd;
+      const float u1 = (hv.y - mu) * rstd;
       const float d0 = static_cast<float>(du[nt][2 * r]) * sg * w1ts[col] * bf(lns, col);
       const float d1 =
           static_cast<float>(du[nt][2 * r + 1]) * sg * w1ts[col + 1] * bf(lns, col + 1);
-      *reinterpret_cast<uint32_t*>(dh + i) =
-          pack_bf16x2(rstd * (d0 - c1 - u0 * c2), rstd * (d1 - c1 - u1 * c2));
+      store2(dh + i, rstd * (d0 - c1 - u0 * c2), rstd * (d1 - c1 - u1 * c2));
     }
   }
 }
 
-template <int C>
+template <int C, typename T>
 int launch_fwd(const void* h, const void* x, const void* lns, const void* lnb,
                const void* w1q, const void* w1s, const void* b1, const void* w2q,
                const void* w2s, const void* b2, const void* gamma, void* y,
                int N, float eps, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<C>();
   cudaError_t err = cudaFuncSetAttribute(
-      convnext_tail_fwd_q8_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      convnext_tail_fwd_q8_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  convnext_tail_fwd_q8_kernel<C><<<(N + kRows - 1) / kRows, kBlock, smem, stream>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),
+  convnext_tail_fwd_q8_kernel<C, T><<<(N + kRows - 1) / kRows, kBlock, smem, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(x),
+      static_cast<const T*>(lns), static_cast<const T*>(lnb),
       static_cast<const int8_t*>(w1q), static_cast<const float*>(w1s),
-      static_cast<const bf16*>(b1), static_cast<const int8_t*>(w2q),
-      static_cast<const float*>(w2s), static_cast<const bf16*>(b2),
-      static_cast<const bf16*>(gamma), static_cast<bf16*>(y), N, eps);
+      static_cast<const T*>(b1), static_cast<const int8_t*>(w2q),
+      static_cast<const float*>(w2s), static_cast<const T*>(b2),
+      static_cast<const T*>(gamma), static_cast<T*>(y), N, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
+template <int C, typename T>
 int launch_bwd(const void* h, const void* dy, const void* lns, const void* lnb,
                const void* w1q, const void* w1s, const void* w2tq,
                const void* w2ts, const void* w1tq, const void* w1ts,
@@ -517,18 +519,52 @@ int launch_bwd(const void* h, const void* dy, const void* lns, const void* lnb,
                cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<C>();
   cudaError_t err = cudaFuncSetAttribute(
-      convnext_tail_bwd_q8_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      convnext_tail_bwd_q8_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  convnext_tail_bwd_q8_kernel<C><<<(N + kRows - 1) / kRows, kBlock, smem, stream>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(dy),
-      static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),
+  convnext_tail_bwd_q8_kernel<C, T><<<(N + kRows - 1) / kRows, kBlock, smem, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(dy),
+      static_cast<const T*>(lns), static_cast<const T*>(lnb),
       static_cast<const int8_t*>(w1q), static_cast<const float*>(w1s),
       static_cast<const int8_t*>(w2tq), static_cast<const float*>(w2ts),
       static_cast<const int8_t*>(w1tq), static_cast<const float*>(w1ts),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(gamma),
-      static_cast<bf16*>(dh), N, eps);
+      static_cast<const T*>(b1), static_cast<const T*>(gamma),
+      static_cast<T*>(dh), N, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// The C entries' bodies for bf16 rows (convnext_tail_*_q8) and fp32 rows
+// (convnext_tail_*_q8_f32).
+template <typename T>
+int fwd_q8(const void* h, const void* x, const void* lns, const void* lnb,
+           const void* w1q, const void* w1s, const void* b1, const void* w2q,
+           const void* w2s, const void* b2, const void* gamma, void* y, int N,
+           int C, float eps, void* stream) {
+  if (N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 96: return launch_fwd<96, T>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y, N, eps, st);
+    case 192: return launch_fwd<192, T>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y, N, eps, st);
+    case 384: return launch_fwd<384, T>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y, N, eps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int bwd_q8(const void* h, const void* dy, const void* lns, const void* lnb,
+           const void* w1q, const void* w1s, const void* w2tq,
+           const void* w2ts, const void* w1tq, const void* w1ts,
+           const void* b1, const void* gamma, void* dh, int N, int C,
+           float eps, void* stream) {
+  if (N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 96: return launch_bwd<96, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
+    case 192: return launch_bwd<192, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
+    case 384: return launch_bwd<384, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -544,14 +580,21 @@ extern "C" int convnext_tail_fwd_q8(const void* h, const void* x, const void* ln
                                     const void* w2q, const void* w2s,
                                     const void* b2, const void* gamma, void* y,
                                     int N, int C, float eps, void* stream) {
-  if (N == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 96: return launch_fwd<96>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y, N, eps, st);
-    case 192: return launch_fwd<192>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y, N, eps, st);
-    case 384: return launch_fwd<384>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y, N, eps, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return fwd_q8<bf16>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y, N,
+                      C, eps, stream);
+}
+
+// The fp32-row form: h, x, y and lns, lnb, b1, b2, gamma fp32; the int8
+// operands and their scales as for convnext_tail_fwd_q8.
+extern "C" int convnext_tail_fwd_q8_f32(const void* h, const void* x,
+                                        const void* lns, const void* lnb,
+                                        const void* w1q, const void* w1s,
+                                        const void* b1, const void* w2q,
+                                        const void* w2s, const void* b2,
+                                        const void* gamma, void* y, int N,
+                                        int C, float eps, void* stream) {
+  return fwd_q8<float>(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma, y,
+                       N, C, eps, stream);
 }
 
 // h, dy, dh: (N, C) bf16; lns, lnb, gamma: (C,) bf16; b1: (4C,) bf16; int8
@@ -564,12 +607,20 @@ extern "C" int convnext_tail_bwd_q8(const void* h, const void* dy, const void* l
                                     const void* w1ts, const void* b1,
                                     const void* gamma, void* dh, int N, int C,
                                     float eps, void* stream) {
-  if (N == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 96: return launch_bwd<96>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
-    case 192: return launch_bwd<192>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
-    case 384: return launch_bwd<384>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bwd_q8<bf16>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1,
+                      gamma, dh, N, C, eps, stream);
+}
+
+// The fp32-row form: h, dy, dh and lns, lnb, b1, gamma fp32; the int8
+// operands as for convnext_tail_bwd_q8.
+extern "C" int convnext_tail_bwd_q8_f32(const void* h, const void* dy,
+                                        const void* lns, const void* lnb,
+                                        const void* w1q, const void* w1s,
+                                        const void* w2tq, const void* w2ts,
+                                        const void* w1tq, const void* w1ts,
+                                        const void* b1, const void* gamma,
+                                        void* dh, int N, int C, float eps,
+                                        void* stream) {
+  return bwd_q8<float>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1,
+                       gamma, dh, N, C, eps, stream);
 }

@@ -22,12 +22,23 @@
 // contraction is cut into `splits` parts (chosen by the caller) that write
 // fp32 partials, and a second kernel adds them in a fixed order: the result
 // is deterministic, with no atomics. wgmma and TMA are later work.
+//
+// The fp32 form (fc_grad_f32), for fp32 g and x, where the Pallas kernel
+// sums its fp32 operands' products at full precision: the same dW and db
+// with the product on the CUDA cores (simt_f32.cuh). A block of 256 threads
+// owns the same 128 × 128 dW tile (8 × 8 per thread) and walks its part of
+// N in pieces of 16 rows, g and x N-major in shared memory as they lie in
+// device memory (gᵀ read as a transposed A operand); the blocks of the first
+// F_in column sum db from the g pieces, one column per thread. The same
+// split and fixed-order partial sums. Its ceiling is the fp32 FMA rate
+// (fma_probe.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -159,6 +170,49 @@ fc_grad_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
   }
 }
 
+constexpr int kF32Rows = 16;   // rows of N per piece
+constexpr int kF32TM = kTile / kSimtSide;
+
+__global__ void __launch_bounds__(kSimtThreads)
+fc_grad_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                   float* __restrict__ dw, float* __restrict__ db, int N,
+                   int Fo, int Fi, int rows_per_split) {
+  __shared__ float sG[kF32Rows * kTile];   // g rows, columns m0 .. m0 + 128
+  __shared__ float sX[kF32Rows * kTile];   // x rows, columns c0 .. c0 + 128
+  const int c0 = blockIdx.x * kTile, m0 = blockIdx.y * kTile;
+  const int n_begin = blockIdx.z * rows_per_split;
+  const int n_end = min(N, n_begin + rows_per_split);
+  const bool with_db = blockIdx.x == 0;
+  const int ty = simt_ty(), tx = simt_tx();
+  float acc[kF32TM][kF32TM];
+  simt_zero(acc);
+  float dbacc = 0.0f;
+  for (int n0 = n_begin; n0 < n_end; n0 += kF32Rows) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kF32Rows * kTile; i += kSimtThreads) {
+      const int r = i / kTile, c = i % kTile;
+      const bool in = n0 + r < n_end;
+      sG[i] = in ? g[static_cast<size_t>(n0 + r) * Fo + m0 + c] : 0.0f;
+      sX[i] = in ? x[static_cast<size_t>(n0 + r) * Fi + c0 + c] : 0.0f;
+    }
+    __syncthreads();
+    // dW(m, c) += Σ_n g(n, m)·x(n, c): A(m, n) = sG[n][m], B(n, c) = sX[n][c].
+    simt_product<kF32TM, kF32TM, true, false>(acc, sG, kTile, sX, kTile,
+                                              kF32Rows);
+    if (with_db && threadIdx.x < kTile)
+      for (int r = 0; r < kF32Rows; ++r) dbacc += sG[r * kTile + threadIdx.x];
+  }
+  float* out = dw + static_cast<size_t>(blockIdx.z) * Fo * Fi;
+#pragma unroll
+  for (int i = 0; i < kF32TM; ++i)
+#pragma unroll
+    for (int j = 0; j < kF32TM; ++j)
+      out[static_cast<size_t>(m0 + ty + 16 * i) * Fi + c0 + tx + 16 * j] =
+          acc[i][j];
+  if (with_db && threadIdx.x < kTile)
+    db[static_cast<size_t>(blockIdx.z) * Fo + m0 + threadIdx.x] = dbacc;
+}
+
 // out[i] = Σ_s part[s][i] over `splits` partials of n floats, s in order.
 __global__ void __launch_bounds__(kBlock)
 sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
@@ -213,6 +267,32 @@ extern "C" int fc_grad(const void* g, const void* x, void* dw, void* db,
       static_cast<const bf16*>(g), static_cast<const bf16*>(x), dw_out, db_out,
       N, Fo, Fi, rows_per_split);
   err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int e = sum_splits(static_cast<const float*>(part), static_cast<float*>(dw),
+                           static_cast<long long>(Fo) * Fi, splits, st);
+  if (e) return e;
+  return sum_splits(static_cast<const float*>(part_db), static_cast<float*>(db),
+                    Fo, splits, st);
+}
+
+// The fp32 form: g (N, Fo), x (N, Fi) fp32, contiguous, 16-byte aligned;
+// the rest as for fc_grad. Returns cudaGetLastError() after the launches.
+extern "C" int fc_grad_f32(const void* g, const void* x, void* dw, void* db,
+                           void* part, void* part_db, int N, int Fo, int Fi,
+                           int splits, void* stream) {
+  if (Fo % kTile || Fi % kTile || Fo <= 0 || Fi <= 0 || splits < 1 ||
+      (splits > 1 && (part == nullptr || part_db == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = (N + kChunk - 1) / kChunk;
+  const int rows_per_split = ((chunks + splits - 1) / splits) * kChunk;
+  float* dw_out = splits > 1 ? static_cast<float*>(part) : static_cast<float*>(dw);
+  float* db_out = splits > 1 ? static_cast<float*>(part_db) : static_cast<float*>(db);
+  fc_grad_f32_kernel<<<dim3(Fi / kTile, Fo / kTile, splits), kSimtThreads, 0,
+                       st>>>(static_cast<const float*>(g),
+                             static_cast<const float*>(x), dw_out, db_out, N,
+                             Fo, Fi, rows_per_split);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int e = sum_splits(static_cast<const float*>(part), static_cast<float*>(dw),
                            static_cast<long long>(Fo) * Fi, splits, st);

@@ -26,6 +26,17 @@
 // the grid splits them over blockIdx.y and each split recomputes the
 // (cheap) statistics. The ragged last row block is masked; nothing is
 // padded. wgmma and TMA are later work.
+//
+// The fp32 form (ln_matmul_fwd_f32), for fp32 rows, where the Pallas kernel
+// takes its products at Precision.HIGHEST (:63): the same function without
+// the bf16 casts (x̂, z, zpre fp32), its product on the CUDA cores with the
+// SIMT tile product of simt_f32.cuh. A block of 256 threads owns a 128-row x
+// 128-column output tile (8 x 8 per thread): it computes its rows'
+// statistics in two passes over x, then walks C in pieces of 32, normalising
+// each x piece as it lands in shared memory (the blocks of the first column
+// tile also write it out as x̂) beside the matching W piece. Its ceiling is
+// the fp32 FMA rate (fma_probe.cu): 2·N·C·F FLOP against ≈ 4·(N·C + N·F)
+// bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,6 +44,7 @@
 
 #include "gelu.cuh"
 #include "mma.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -225,6 +237,87 @@ ln_matmul_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   cp_async_wait<0>();
 }
 
+constexpr int kF32Tile = 128;                    // rows and columns per block
+constexpr int kF32K = 32;                        // C per streamed piece
+constexpr int kF32Pitch = kF32K + 1;
+constexpr int kF32TM = kF32Tile / kSimtSide;     // 8 x 8 outputs per thread
+
+__global__ void __launch_bounds__(kSimtThreads)
+ln_matmul_fwd_f32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w,
+                         const float* __restrict__ b, float* __restrict__ z,
+                         float* __restrict__ zpre, float* __restrict__ xhat,
+                         int N, int C, int F, int gelu_on) {
+  __shared__ float sX[kF32Tile * kF32Pitch];   // x̂ rows, a piece of C
+  __shared__ float sW[kF32Tile * kF32Pitch];   // W rows, the same piece
+  __shared__ float sMu[kF32Tile], sRstd[kF32Tile];
+  const int r0 = blockIdx.x * kF32Tile, f0 = blockIdx.y * kF32Tile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = simt_ty(), tx = simt_tx();
+
+  // Row statistics: mean, then the mean of squared deviations (fp32).
+  for (int r = warp; r < kF32Tile; r += kSimtThreads / 32) {
+    const int row = r0 + r;
+    float mu = 0.0f, rstd = 0.0f;
+    if (row < N) {
+      const float* xr = x + static_cast<size_t>(row) * C;
+      float s = 0.0f;
+      for (int c = lane; c < C; c += 32) s += xr[c];
+      mu = warp_sum(s) / C;
+      float sq = 0.0f;
+      for (int c = lane; c < C; c += 32) {
+        const float d = xr[c] - mu;
+        sq += d * d;
+      }
+      rstd = rsqrtf(warp_sum(sq) / C + 1e-5f);
+    }
+    if (lane == 0) {
+      sMu[r] = mu;
+      sRstd[r] = rstd;
+    }
+  }
+
+  float acc[kF32TM][kF32TM];
+  simt_zero(acc);
+  const bool write_xhat = xhat != nullptr && blockIdx.y == 0;
+  for (int k0 = 0; k0 < C; k0 += kF32K) {
+    __syncthreads();   // statistics ready / the previous piece consumed
+    for (int i = threadIdx.x; i < kF32Tile * kF32K; i += kSimtThreads) {
+      const int r = i / kF32K, c = i % kF32K;
+      const int row = r0 + r;
+      float v = 0.0f;
+      if (row < N) {
+        const size_t idx = static_cast<size_t>(row) * C + k0 + c;
+        v = (x[idx] - sMu[r]) * sRstd[r];
+        if (write_xhat) xhat[idx] = v;
+      }
+      sX[r * kF32Pitch + c] = v;
+      sW[r * kF32Pitch + c] = w[static_cast<size_t>(f0 + r) * C + k0 + c];
+    }
+    __syncthreads();
+    simt_product<kF32TM, kF32TM, false, true>(acc, sX, kF32Pitch, sW,
+                                              kF32Pitch, kF32K);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kF32TM; ++i) {
+    const int row = r0 + ty + 16 * i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < kF32TM; ++j) {
+      const int col = f0 + tx + 16 * j;
+      float v = acc[i][j];
+      if (b != nullptr) v += b[col];
+      const size_t idx = static_cast<size_t>(row) * F + col;
+      if (gelu_on) {
+        if (zpre != nullptr) zpre[idx] = v;
+        v = gelu(v);
+      }
+      z[idx] = v;
+    }
+  }
+}
+
 }  // namespace
 
 // x (N, C), xhat (N, C), w (F, C), b (F,) or null, z and zpre (N, F) or
@@ -261,5 +354,24 @@ extern "C" int ln_matmul_fwd(const void* x, const void* w, const void* b,
       static_cast<const bf16*>(b), static_cast<bf16*>(z),
       static_cast<bf16*>(zpre), static_cast<bf16*>(xhat), N, C, F, per_split,
       gelu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 form: x (N, C), xhat (N, C) or null, w (F, C), b (F,) or null,
+// z and zpre (N, F) or null, fp32 and contiguous; C a multiple of 32, F a
+// multiple of 128. gelu: 0 or 1. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for another C or F).
+extern "C" int ln_matmul_fwd_f32(const void* x, const void* w, const void* b,
+                                 void* z, void* zpre, void* xhat, int N, int C,
+                                 int F, int gelu, void* stream) {
+  if (C % kF32K || C <= 0 || F % kF32Tile || F <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  const dim3 grid((N + kF32Tile - 1) / kF32Tile, F / kF32Tile);
+  ln_matmul_fwd_f32_kernel<<<grid, kSimtThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(z),
+      static_cast<float*>(zpre), static_cast<float*>(xhat), N, C, F, gelu);
   return static_cast<int>(cudaGetLastError());
 }

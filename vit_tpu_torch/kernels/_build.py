@@ -29,10 +29,22 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                            K11b depthwise.py:124 (_dw_bwd_kernel :77)
   convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
                            K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
+  attention_f32.cu         K1, K2, K6, K7/K8 on fp32 operands
+  convnext_tail_f32.cu     K3, K4 on fp32 rows
+  fma_probe.cu             P    scripts/bench_vpu.py:60 (_fma_kernel :32)
+
+The JAX package runs every Pallas kernel on operands of the compute dtype,
+fp32 products at Precision.HIGHEST under ``--mixed false``. Each kernel
+therefore has an fp32 form: the attention and ConvNeXt-tail ones in their
+own sources above (SIMT fp32 products, ``csrc/simt_f32.cuh``), the others
+as ``*_f32`` entries beside their bf16 ones (K9a, K10: SIMT products; K9b,
+K9c, K12a, K12b: the kernels templated on their row type). K5 is fp32 by
+design and K11 takes both dtypes through one entry.
 
 Every entry takes pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
-code into an exception. :func:`check_rows` refuses a large row operand the
+code into an exception. :func:`compute_dtype` refuses operands outside bf16
+and fp32 or of mixed dtypes, :func:`check_rows` a large row operand the
 kernels cannot read as it is (it is never copied), and :func:`cuda_arg`
 gives a small one (weights, biases, statistics) the layout they read.
 """
@@ -180,6 +192,32 @@ def _declare(lib: ctypes.CDLL) -> None:
     # vq_nearest(z, codebook, idx, N, C, D, l2_normalize, stream)
     lib.vq_nearest.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.vq_nearest.restype = i32
+    # The fp32 forms. attention_f32_fwd(q, k, v, bq, bk, bv, out, m, l,
+    # seed, strides, B, S, H, causal, ...)
+    lib.attention_f32_fwd.argtypes = [ptr] * 10 + [strides] + [i32] * 4 + drop
+    # attention_f32_bwd(q, k, v, bq, bk, bv, dout, m, l, dq, dk, dv, delta,
+    #                   part, dbias, seed, strides, B, S, H, causal, ...)
+    lib.attention_f32_bwd.argtypes = [ptr] * 16 + [strides] + [i32] * 4 + drop
+    # convnext_tail_f32_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, dh, N, C,
+    #                       eps, stream)
+    lib.convnext_tail_f32_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, ptr]
+    for name, like in (("convnext_tail_f32_fwd", "convnext_tail_fwd"),
+                       ("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
+                       ("convnext_tail_bwd_q8_f32", "convnext_tail_bwd_q8"),
+                       ("ln_matmul_fwd_f32", "ln_matmul_fwd"),
+                       ("ln_matmul_dgelu_f32", "ln_matmul_dgelu"),
+                       ("ln_bwd_f32", "ln_bwd"), ("fc_grad_f32", "fc_grad")):
+        getattr(lib, name).argtypes = getattr(lib, like).argtypes
+    # fma_chains_{f32,bf16}(x, out, n, iters, chains, c, d, stream)
+    for name in ("fma_chains_f32", "fma_chains_bf16"):
+        getattr(lib, name).argtypes = [ptr, ptr, ctypes.c_longlong, i32, i32,
+                                       f32, f32, ptr]
+    for name in ("attention_f32_fwd", "attention_f32_bwd",
+                 "convnext_tail_f32_fwd", "convnext_tail_f32_bwd",
+                 "convnext_tail_fwd_q8_f32", "convnext_tail_bwd_q8_f32",
+                 "ln_matmul_fwd_f32", "ln_matmul_dgelu_f32", "ln_bwd_f32",
+                 "fc_grad_f32", "fma_chains_f32", "fma_chains_bf16"):
+        getattr(lib, name).restype = i32
     lib.vit_cuda_error_string.argtypes = [i32]
     lib.vit_cuda_error_string.restype = ctypes.c_char_p
 
@@ -216,13 +254,25 @@ def cuda_arg(t: torch.Tensor, like: torch.Tensor, name: str,
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def compute_dtype(kernel: str, *ts: torch.Tensor) -> torch.dtype:
+    """The one dtype of a kernel's activation operands, bf16 or fp32 (the
+    JAX package's compute dtypes); a TypeError for any other or for a mix."""
+    dt = ts[0].dtype
+    if dt not in COMPUTE_DTYPES or any(t.dtype != dt for t in ts):
+        raise TypeError(f"{kernel} takes bf16 or fp32 operands of one dtype, "
+                        f"got {', '.join(str(t.dtype) for t in ts)}")
+    return dt
+
+
 def check_rows(t: torch.Tensor, kernel: str, name: str) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned bf16 (N, ·)
-    tensor on a CUDA device."""
+    """Raise unless ``t`` is a contiguous, 16-byte aligned bf16 or fp32
+    (N, ·) tensor on a CUDA device."""
+    compute_dtype(kernel, t)
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{kernel} takes bf16 {name}, got {t.dtype}")
     if t.dim() != 2 or not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{kernel} takes a contiguous, 16-byte aligned 2-D "
                          f"{name}, got {tuple(t.shape)}")

@@ -52,6 +52,13 @@ cast; the backward takes bf16(D∘ph) into dv and multiplies dp by D before
 Δ. One difference from the JAX package: it sends dropout at S > 768 to
 XLA's ``bernoulli`` when ``VIT_TPU_TILED_BWD=0`` or beyond its VMEM plane
 budget (:1304-1312); the port sends every S to its kernels.
+
+fp32 operands (``--mixed false``, where the Pallas kernels take their
+products at Precision.HIGHEST) launch the fp32 forms of
+``csrc/attention_f32.cu``: one forward and one backward kernel pair for
+both layouts, full fp32 products on the CUDA cores, the same (m, l)
+statistics and the same dropout mask. Every wrapper takes bf16 or fp32
+operands of one dtype and counts its fp32 launches apart (``fp32_*``).
 """
 
 from __future__ import annotations
@@ -74,6 +81,9 @@ unpacked_bwd_launches = 0  # K7/K8 launches by attention_bwd
 # Of those, the launches with dropout (a seed vector), per wrapper
 dropout_launches = dropout_bwd_launches = 0
 unpacked_dropout_launches = unpacked_dropout_bwd_launches = 0
+# Of those, the launches of the fp32 forms (fp32 operands), per wrapper
+fp32_launches = fp32_bwd_launches = 0
+unpacked_fp32_launches = unpacked_fp32_bwd_launches = 0
 
 
 def packed_supported(n_heads: int, n_embd: int, seq_len: int) -> bool:
@@ -270,7 +280,9 @@ def attention_packed_bwd_ref(qkv: torch.Tensor, bias: torch.Tensor,
     return dqkv, dbias
 
 
-def _check_cuda(qkv: torch.Tensor, n_heads: int, kernel: str) -> None:
+def _check_cuda(qkv: torch.Tensor, n_heads: int, kernel: str,
+                *more: torch.Tensor) -> None:
+    _build.compute_dtype(kernel, qkv, *more)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     b, s, three_d = qkv.shape
@@ -279,8 +291,6 @@ def _check_cuda(qkv: torch.Tensor, n_heads: int, kernel: str) -> None:
             f"{kernel} takes head_dim {HEAD_DIM} and S <= {MAX_SEQ}; got "
             f"{n_heads} heads of width {three_d // 3}, S {s}; other shapes "
             "take the unpacked kernels K6-K8 (flash_attention)")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"{kernel} takes bf16 qkv, got {qkv.dtype}")
 
 
 def _bias(qkv: torch.Tensor, qkv_bias: "torch.Tensor | None") -> torch.Tensor:
@@ -312,14 +322,71 @@ def _ptr(t: "torch.Tensor | None"):
     return None if t is None else t.data_ptr()
 
 
+def _bias_parts(bias: "torch.Tensor | None"):
+    """The (3D,) bias as its q, k and v parts (views), or three Nones."""
+    return (None,) * 3 if bias is None else bias.view(3, -1).unbind(0)
+
+
+def _f32_fwd(q, k, v, bias, out, emit_stats: bool, seed, threshold: int,
+             scale: float, causal: bool):
+    """Launch the fp32 forward (``attention_f32_fwd``) over the (B, H, S, 64)
+    views q, k, v and out, with the packed layout's (3D,) bias or None;
+    returns (m, l), or (None, None) without ``emit_stats``."""
+    b, h, s, _ = q.shape
+    m = l = None
+    if emit_stats:
+        m = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    bq, bk, bv = _bias_parts(bias)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attention_f32_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
+            _ptr(bv), out.data_ptr(), _ptr(m), _ptr(l), _ptr(seed),
+            _strides(q, k, v, out), b, s, h, int(causal), threshold, scale,
+            stream)
+    _build.check(lib, err, "attention_f32_fwd")
+    return m, l
+
+
+def _f32_bwd(q, k, v, bias, dout, m, l, dq, dk, dv, seed, threshold: int,
+             scale: float, causal: bool) -> "torch.Tensor | None":
+    """Launch the fp32 backward (``attention_f32_bwd``) into the (B, H, S,
+    64) views dq, dk, dv; with the packed layout's (3D,) bias also its fp32
+    gradient, which is returned (None without a bias)."""
+    b, h, s, _ = q.shape
+    delta = torch.empty_like(m)
+    part = dbias = None
+    if bias is not None:
+        part = torch.empty(b * -(-s // HEAD_DIM), bias.numel(),
+                           dtype=torch.float32, device=q.device)
+        dbias = torch.empty(bias.numel(), dtype=torch.float32,
+                            device=q.device)
+    bq, bk, bv = _bias_parts(bias)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attention_f32_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
+            _ptr(bv), dout.data_ptr(), m.data_ptr(), l.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            _ptr(part), _ptr(dbias), _ptr(seed),
+            _strides(q, k, v, dout, dq, dk, dv), b, s, h, int(causal),
+            threshold, scale, stream)
+    _build.check(lib, err, "attention_f32_bwd")
+    return dbias
+
+
 def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
                          causal: bool, emit_stats: bool = False,
                          dropout_rate: float = 0.0,
                          seed: "torch.Tensor | None" = None):
     """K1: (B, S, 3D), bias (3D,) → out (B, S, D) [, m, l (B, H, S) fp32];
     with ``dropout_rate`` > 0 the probabilities are dropped with the mask of
-    the (2,) seed vector ``seed``. A CUDA tensor launches the kernel (bf16,
-    head_dim 64, S ≤ 768) or raises; a CPU tensor runs the plain version."""
+    the (2,) seed vector ``seed``. A CUDA tensor launches the kernel (bf16
+    or fp32, head_dim 64, S ≤ 768) or raises; a CPU tensor runs the plain
+    version."""
     if qkv.device.type == "cpu":
         return attention_packed_fwd_ref(qkv, bias, n_heads, causal, emit_stats,
                                         dropout_rate, seed)
@@ -327,24 +394,31 @@ def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
     b, s, three_d = qkv.shape
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("K1 takes a contiguous, 16-byte aligned qkv")
-    bias = _build.cuda_arg(bias, qkv, "qkv_bias", torch.bfloat16)
+    bias = _build.cuda_arg(bias, qkv, "qkv_bias", qkv.dtype)
     seed, threshold, scale = _dropout_args(dropout_rate, seed, qkv)
-    out = torch.empty(b, s, three_d // 3, dtype=torch.bfloat16,
-                      device=qkv.device)
-    m = l = None
-    if emit_stats:
-        m = torch.empty(b, n_heads, s, dtype=torch.float32, device=qkv.device)
-        l = torch.empty_like(m)
-    lib = _build.load()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.attention_packed_fwd(
-            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
-            _ptr(seed), b, s, n_heads, int(causal), threshold, scale, stream)
-    _build.check(lib, err, "attention_packed_fwd")
-    global launches, dropout_launches
+    out = torch.empty(b, s, three_d // 3, dtype=qkv.dtype, device=qkv.device)
+    if qkv.dtype == torch.float32:
+        m, l = _f32_fwd(*split_heads(qkv, n_heads), bias,
+                        out.view(b, s, n_heads, HEAD_DIM).transpose(1, 2),
+                        emit_stats, seed, threshold, scale, causal)
+    else:
+        m = l = None
+        if emit_stats:
+            m = torch.empty(b, n_heads, s, dtype=torch.float32,
+                            device=qkv.device)
+            l = torch.empty_like(m)
+        lib = _build.load()
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream(qkv.device).cuda_stream
+            err = lib.attention_packed_fwd(
+                qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(m),
+                _ptr(l), _ptr(seed), b, s, n_heads, int(causal), threshold,
+                scale, stream)
+        _build.check(lib, err, "attention_packed_fwd")
+    global launches, dropout_launches, fp32_launches
     launches += 1
     dropout_launches += seed is not None
+    fp32_launches += qkv.dtype == torch.float32
     return (out, m, l) if emit_stats else out
 
 
@@ -358,7 +432,7 @@ def attention_packed_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     if qkv.device.type == "cpu":
         return attention_packed_bwd_ref(qkv, bias, dout, m, l, n_heads, causal,
                                         dropout_rate, seed)
-    _check_cuda(qkv, n_heads, "K2")
+    _check_cuda(qkv, n_heads, "K2", dout)
     b, s, three_d = qkv.shape
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("K2 takes a contiguous, 16-byte aligned qkv")
@@ -366,27 +440,34 @@ def attention_packed_bwd(qkv: torch.Tensor, bias: torch.Tensor,
             or l.shape != m.shape:
         raise ValueError(f"dout {tuple(dout.shape)}, m {tuple(m.shape)}, "
                          f"l {tuple(l.shape)} do not fit qkv {tuple(qkv.shape)}")
-    bias = _build.cuda_arg(bias, qkv, "qkv_bias", torch.bfloat16)
-    dout = _build.cuda_arg(dout, qkv, "dout", torch.bfloat16)
+    bias = _build.cuda_arg(bias, qkv, "qkv_bias", qkv.dtype)
+    dout = _build.cuda_arg(dout, qkv, "dout", qkv.dtype)
     m = _build.cuda_arg(m, qkv, "m", torch.float32)
     l = _build.cuda_arg(l, qkv, "l", torch.float32)
     seed, threshold, scale = _dropout_args(dropout_rate, seed, qkv)
     dqkv = torch.empty_like(qkv)
-    dbias = torch.empty(three_d, dtype=torch.float32, device=qkv.device)
-    delta = torch.empty_like(m)
-    part = torch.empty(b * -(-s // HEAD_DIM), three_d, dtype=torch.float32,
-                       device=qkv.device)
-    lib = _build.load()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.attention_packed_bwd(
-            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), m.data_ptr(),
-            l.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), delta.data_ptr(),
-            part.data_ptr(), _ptr(seed), b, s, n_heads, int(causal),
-            threshold, scale, stream)
-    _build.check(lib, err, "attention_packed_bwd")
-    global bwd_launches, dropout_bwd_launches
+    if qkv.dtype == torch.float32:
+        do = dout.view(b, s, n_heads, HEAD_DIM).transpose(1, 2)
+        dbias = _f32_bwd(*split_heads(qkv, n_heads), bias, do, m, l,
+                         *split_heads(dqkv, n_heads), seed, threshold, scale,
+                         causal)
+    else:
+        dbias = torch.empty(three_d, dtype=torch.float32, device=qkv.device)
+        delta = torch.empty_like(m)
+        part = torch.empty(b * -(-s // HEAD_DIM), three_d,
+                           dtype=torch.float32, device=qkv.device)
+        lib = _build.load()
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream(qkv.device).cuda_stream
+            err = lib.attention_packed_bwd(
+                qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                m.data_ptr(), l.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
+                delta.data_ptr(), part.data_ptr(), _ptr(seed), b, s, n_heads,
+                int(causal), threshold, scale, stream)
+        _build.check(lib, err, "attention_packed_bwd")
+    global bwd_launches, dropout_bwd_launches, fp32_bwd_launches
     bwd_launches += 1
+    fp32_bwd_launches += qkv.dtype == torch.float32
     dropout_bwd_launches += seed is not None
     return dqkv, dbias
 
@@ -405,14 +486,15 @@ class PackedAttention(torch.autograd.Function):
                                          dropout_rate=dropout_rate, seed=seed)
         ctx.save_for_backward(qkv, bias, m, l, seed)
         ctx.n_heads, ctx.causal = n_heads, causal
-        ctx.dropout_rate = dropout_rate
+        ctx.dropout_rate, ctx.dtype = dropout_rate, qkv.dtype
         return out
 
     @staticmethod
     def backward(ctx, dout):
         qkv, bias, m, l, seed = ctx.saved_tensors
-        dqkv, dbias = attention_packed_bwd(qkv, bias, dout, m, l, ctx.n_heads,
-                                           ctx.causal, ctx.dropout_rate, seed)
+        dqkv, dbias = attention_packed_bwd(qkv, bias, dout.to(ctx.dtype), m, l,
+                                           ctx.n_heads, ctx.causal,
+                                           ctx.dropout_rate, seed)
         return dqkv, dbias.to(bias.dtype), None, None, None, None
 
 
@@ -453,7 +535,9 @@ def flash_attention_packed(qkv: torch.Tensor, n_heads: int, *,
 
 
 def _check_unpacked(ts: "tuple[torch.Tensor, ...]", kernel: str) -> None:
-    """Raise unless q, k, v (and dO) are CUDA bf16 (B, H, S, 64) alike."""
+    """Raise unless q, k, v (and dO) are CUDA (B, H, S, 64) alike, all bf16
+    or all fp32."""
+    _build.compute_dtype(kernel, *ts)
     shape = ts[0].shape
     if len(shape) != 4 or any(t.shape != shape for t in ts):
         raise ValueError(f"{kernel} takes (B, H, S, d) operands of one shape, "
@@ -464,8 +548,6 @@ def _check_unpacked(ts: "tuple[torch.Tensor, ...]", kernel: str) -> None:
     for t in ts:
         if t.device.type != "cuda" or t.device != ts[0].device:
             raise ValueError(f"unsupported device {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{kernel} takes bf16 operands, got {t.dtype}")
 
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
@@ -494,8 +576,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with ``dropout_rate`` > 0 the probabilities are dropped with the mask of
     the (2,) seed vector ``seed``. On CUDA the output is a (B, H, S, 64)
     view of a contiguous (B, S, H, 64) buffer, so merging the heads back is
-    free. A CUDA tensor launches the kernel (bf16, head_dim 64) or raises; a
-    CPU tensor runs the plain version."""
+    free. A CUDA tensor launches the kernel (bf16 or fp32, head_dim 64) or
+    raises; a CPU tensor runs the plain version."""
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, causal, emit_stats, dropout_rate,
                                  seed)
@@ -503,23 +585,28 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (_strided(t) for t in (q, k, v))
     b, h, s, d = q.shape
     seed, threshold, scale = _dropout_args(dropout_rate, seed, q)
-    out = torch.empty(b, s, h, d, dtype=torch.bfloat16,
+    out = torch.empty(b, s, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    m = l = None
-    if emit_stats:
-        m = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-        l = torch.empty_like(m)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(m),
-            _ptr(l), _ptr(seed), _strides(q, k, v, out), b, s, h, int(causal),
-            threshold, scale, stream)
-    _build.check(lib, err, "attention_fwd")
-    global unpacked_launches, unpacked_dropout_launches
+    if q.dtype == torch.float32:
+        m, l = _f32_fwd(q, k, v, None, out, emit_stats, seed, threshold,
+                        scale, causal)
+    else:
+        m = l = None
+        if emit_stats:
+            m = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+            l = torch.empty_like(m)
+        lib = _build.load()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ptr(m), _ptr(l), _ptr(seed), _strides(q, k, v, out), b, s, h,
+                int(causal), threshold, scale, stream)
+        _build.check(lib, err, "attention_fwd")
+    global unpacked_launches, unpacked_dropout_launches, unpacked_fp32_launches
     unpacked_launches += 1
     unpacked_dropout_launches += seed is not None
+    unpacked_fp32_launches += q.dtype == torch.float32
     return (out, m, l) if emit_stats else out
 
 
@@ -543,22 +630,28 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = _build.cuda_arg(m, q, "m", torch.float32)
     l = _build.cuda_arg(l, q, "l", torch.float32)
     seed, threshold, scale = _dropout_args(dropout_rate, seed, q)
-    dq, dk, dv = (torch.empty(b, h, s, d, dtype=torch.bfloat16,
-                              device=q.device) for _ in range(3))
-    delta = torch.empty_like(m)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), _ptr(seed),
-            _strides(q, k, v, dout, dq, dk, dv), b, s, h, int(causal),
-            threshold, scale, stream)
-    _build.check(lib, err, "attention_bwd")
-    global unpacked_bwd_launches, unpacked_dropout_bwd_launches
+    dq, dk, dv = (torch.empty(b, h, s, d, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if q.dtype == torch.float32:
+        _f32_bwd(q, k, v, None, dout, m, l, dq, dk, dv, seed, threshold,
+                 scale, causal)
+    else:
+        delta = torch.empty_like(m)
+        lib = _build.load()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(), _ptr(seed),
+                _strides(q, k, v, dout, dq, dk, dv), b, s, h, int(causal),
+                threshold, scale, stream)
+        _build.check(lib, err, "attention_bwd")
+    global unpacked_bwd_launches, unpacked_dropout_bwd_launches, \
+        unpacked_fp32_bwd_launches
     unpacked_bwd_launches += 1
     unpacked_dropout_bwd_launches += seed is not None
+    unpacked_fp32_bwd_launches += q.dtype == torch.float32
     return dq, dk, dv
 
 
@@ -574,13 +667,14 @@ class UnpackedAttention(torch.autograd.Function):
                                   dropout_rate=dropout_rate, seed=seed)
         ctx.save_for_backward(q, k, v, m, l, seed)
         ctx.causal, ctx.dropout_rate = causal, dropout_rate
+        ctx.dtype = q.dtype
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, m, l, seed = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, dout, m, l, ctx.causal,
-                                   ctx.dropout_rate, seed)
+        dq, dk, dv = attention_bwd(q, k, v, dout.to(ctx.dtype), m, l,
+                                   ctx.causal, ctx.dropout_rate, seed)
         return dq, dk, dv, None, None, None
 
 

@@ -33,8 +33,12 @@ only. :class:`ConvNeXtTail` returns ``None`` for the seven parameters and
 refuses parameters that require grad.
 
 Weights are passed in PyTorch's Linear layout: ``w1`` (4C, C) and ``w2``
-(C, 4C). Each wrapper launches its kernel for a CUDA tensor (bf16,
-C ∈ ``CUDA_DIMS``) and runs its plain PyTorch version for a CPU tensor.
+(C, 4C). Each wrapper launches its kernel for a CUDA tensor (bf16 or fp32
+rows, C ∈ ``CUDA_DIMS``) and runs its plain PyTorch version for a CPU
+tensor. The parameters are cast to the rows' dtype, as the JAX package
+casts them to the compute dtype; fp32 rows launch the fp32 forms
+(``csrc/convnext_tail_f32.cu`` for K3/K4, the fp32-row instantiations of
+``csrc/convnext_tail_q8.cu`` for K12a/K12b), counted apart in ``fp32_*``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ launches = 0      # K3 launches by convnext_tail_fwd, for run evidence
 bwd_launches = 0  # K4 launches by convnext_tail_bwd
 q8_launches = 0      # K12a launches by convnext_tail_fwd_q8
 q8_bwd_launches = 0  # K12b launches by convnext_tail_bwd_q8
+# Of those, the launches of the fp32 forms, per wrapper
+fp32_launches = fp32_bwd_launches = 0
+q8_fp32_launches = q8_fp32_bwd_launches = 0
 QUANTS = ("none", "int8")
 
 
@@ -112,6 +119,7 @@ def convnext_tail_bwd_ref(h, dy, lns, lnb, w1, b1, w2, gamma, eps):
 
 def _check_cuda(h: torch.Tensor, rows: "tuple[torch.Tensor, ...]",
                 kernel: str) -> None:
+    _build.compute_dtype(kernel, h, *rows)
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
     n, c = h.shape
@@ -119,16 +127,15 @@ def _check_cuda(h: torch.Tensor, rows: "tuple[torch.Tensor, ...]",
         raise NotImplementedError(f"{kernel} is built for C in {CUDA_DIMS}, "
                                   f"got {c}")
     for t in (h, *rows):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{kernel} takes bf16 rows, got {t.dtype}")
         if t.shape != (n, c) or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{kernel} takes contiguous, 16-byte aligned "
                              f"({n}, {c}) rows, got {tuple(t.shape)}")
 
 
 def _weights(h: torch.Tensor, *params: torch.Tensor) -> list:
-    return [_build.cuda_arg(p, h, "parameter", torch.bfloat16)
-            for p in params]
+    """The parameters in the rows' dtype (the compute dtype), laid out for
+    the kernels."""
+    return [_build.cuda_arg(p, h, "parameter", h.dtype) for p in params]
 
 
 def _shapes(c: int, lns, lnb, w1, b1, w2, b2=None, gamma=None) -> None:
@@ -150,16 +157,19 @@ def convnext_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps=1e-6):
     lns, lnb, w1, b1, w2, b2, gamma = _weights(h, lns, lnb, w1, b1, w2, b2,
                                                gamma)
     y = torch.empty_like(h)
+    f32 = h.dtype == torch.float32
+    entry = "convnext_tail_f32_fwd" if f32 else "convnext_tail_fwd"
     lib = _build.load()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.convnext_tail_fwd(
+        err = getattr(lib, entry)(
             h.data_ptr(), x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             gamma.data_ptr(), y.data_ptr(), n, c, eps, stream)
-    _build.check(lib, err, "convnext_tail_fwd")
-    global launches
+    _build.check(lib, err, entry)
+    global launches, fp32_launches
     launches += 1
+    fp32_launches += f32
     return y
 
 
@@ -171,17 +181,26 @@ def convnext_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps=1e-6):
     _check_cuda(h, (dy,), "K4")
     n, c = h.shape
     lns, lnb, w1, b1, w2, gamma = _weights(h, lns, lnb, w1, b1, w2, gamma)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     dh = torch.empty_like(h)
     lib = _build.load()
+    global bwd_launches, fp32_bwd_launches
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.convnext_tail_bwd(
-            h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-            w1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), b1.data_ptr(),
-            gamma.data_ptr(), dh.data_ptr(), n, c, eps, stream)
-    _build.check(lib, err, "convnext_tail_bwd")
-    global bwd_launches
+        if h.dtype == torch.float32:   # reads W1 and W2 in either orientation
+            entry = "convnext_tail_f32_bwd"
+            err = lib.convnext_tail_f32_bwd(
+                h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gamma.data_ptr(),
+                dh.data_ptr(), n, c, eps, stream)
+            fp32_bwd_launches += 1
+        else:
+            entry = "convnext_tail_bwd"
+            w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+            err = lib.convnext_tail_bwd(
+                h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                w1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), b1.data_ptr(),
+                gamma.data_ptr(), dh.data_ptr(), n, c, eps, stream)
+    _build.check(lib, err, entry)
     bwd_launches += 1
     return dh
 
@@ -260,17 +279,20 @@ def convnext_tail_fwd_q8(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps=1e-6):
     w1q, w2q = (_build.cuda_arg(q.t(), h, "weight", torch.int8)
                 for q in (w1q, w2q))
     y = torch.empty_like(h)
+    f32 = h.dtype == torch.float32
+    entry = "convnext_tail_fwd_q8_f32" if f32 else "convnext_tail_fwd_q8"
     lib = _build.load()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.convnext_tail_fwd_q8(
+        err = getattr(lib, entry)(
             h.data_ptr(), x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
             w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
             w2s.data_ptr(), b2.data_ptr(), gamma.data_ptr(), y.data_ptr(), n,
             c, eps, stream)
-    _build.check(lib, err, "convnext_tail_fwd_q8")
-    global q8_launches
+    _build.check(lib, err, entry)
+    global q8_launches, q8_fp32_launches
     q8_launches += 1
+    q8_fp32_launches += f32
     return y
 
 
@@ -290,17 +312,20 @@ def convnext_tail_bwd_q8(h, dy, lns, lnb, w1, b1, w2, gamma, eps=1e-6):
     w1q, w2tq, w1tq = (_build.cuda_arg(q.t(), h, "weight", torch.int8)
                        for q in (w1q, w2tq, w1tq))
     dh = torch.empty_like(h)
+    f32 = h.dtype == torch.float32
+    entry = "convnext_tail_bwd_q8_f32" if f32 else "convnext_tail_bwd_q8"
     lib = _build.load()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.convnext_tail_bwd_q8(
+        err = getattr(lib, entry)(
             h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
             w1q.data_ptr(), w1s.data_ptr(), w2tq.data_ptr(), w2ts.data_ptr(),
             w1tq.data_ptr(), w1ts.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
             dh.data_ptr(), n, c, eps, stream)
-    _build.check(lib, err, "convnext_tail_bwd_q8")
-    global q8_bwd_launches
+    _build.check(lib, err, entry)
+    global q8_bwd_launches, q8_fp32_bwd_launches
     q8_bwd_launches += 1
+    q8_fp32_bwd_launches += f32
     return dh
 
 
@@ -321,7 +346,7 @@ class ConvNeXtTail(torch.autograd.Function):
         if quant not in QUANTS:
             raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
         ctx.save_for_backward(h, lns, lnb, w1, b1, w2, gamma)
-        ctx.eps, ctx.quant = eps, quant
+        ctx.eps, ctx.quant, ctx.dtype = eps, quant, h.dtype
         fwd = convnext_tail_fwd_q8 if quant == "int8" else convnext_tail_fwd
         return fwd(h, x, *params, eps)
 
@@ -332,7 +357,8 @@ class ConvNeXtTail(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             bwd = (convnext_tail_bwd_q8 if ctx.quant == "int8"
                    else convnext_tail_bwd)
-            dh = bwd(h, dy.contiguous(), lns, lnb, w1, b1, w2, gamma, ctx.eps)
+            dh = bwd(h, dy.to(ctx.dtype).contiguous(), lns, lnb, w1, b1, w2,
+                     gamma, ctx.eps)
         return (dh, dy if ctx.needs_input_grad[1] else None,
                 *([None] * 9))
 

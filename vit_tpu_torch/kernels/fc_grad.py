@@ -18,7 +18,8 @@ design.
 :class:`FusedDense` is the autograd Function (``_fd_fwd``/``_fd_bwd``,
 :249-265) and :func:`fused_dense` the entry. The wrapper launches the kernel
 for a CUDA tensor or raises, and runs its plain PyTorch version for a CPU
-tensor.
+tensor. fp32 operands launch the fp32 form (``fc_grad_f32``, the product on
+the CUDA cores), counted apart in ``fp32_launches``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ TILE = 128                     # K10's output tile, both sides
 CHUNK = 32                     # rows of N per pipeline stage
 
 launches = 0   # K10 launches by matmul_dw_db, for run evidence
+fp32_launches = 0   # of those, the launches of the fp32 form
 
 
 def supported(ca: int, k: int) -> bool:
@@ -64,13 +66,15 @@ def _splits(n: int, tiles: int, device: torch.device) -> int:
 
 def matmul_dw_db(g: torch.Tensor, x: torch.Tensor):
     """K10: g (N, F_out), x (N, F_in) → (dW (F_out, F_in), db (F_out,)),
-    fp32. A CUDA tensor launches the kernel (bf16, both widths multiples of
-    128) or raises; a CPU tensor runs the plain version."""
+    fp32. A CUDA tensor launches the kernel (bf16 or fp32 operands of one
+    dtype, both widths multiples of 128) or raises; a CPU tensor runs the
+    plain version."""
     if g.dim() != 2 or x.dim() != 2 or g.shape[0] != x.shape[0]:
         raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} must be "
                          "(N, F_out) and (N, F_in)")
     if g.device.type == "cpu":
         return matmul_dw_db_ref(g, x)
+    _build.compute_dtype("K10", g, x)
     _build.check_rows(g, "K10", "g")
     _build.check_rows(x, "K10", "x")
     if x.device != g.device:
@@ -89,17 +93,20 @@ def matmul_dw_db(g: torch.Tensor, x: torch.Tensor):
                            device=g.device)
         part_db = torch.empty(splits, fo, dtype=torch.float32,
                               device=g.device)
+    f32 = g.dtype == torch.float32
+    entry = "fc_grad_f32" if f32 else "fc_grad"
     lib = _build.load()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.fc_grad(
+        err = getattr(lib, entry)(
             g.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
             None if part is None else part.data_ptr(),
             None if part_db is None else part_db.data_ptr(), n, fo, fi,
             splits, stream)
-    _build.check(lib, err, "fc_grad")
-    global launches
+    _build.check(lib, err, entry)
+    global launches, fp32_launches
     launches += 1
+    fp32_launches += f32
     return dw, db
 
 

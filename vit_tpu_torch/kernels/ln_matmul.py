@@ -28,6 +28,13 @@ per byte at the flagship's widths, at the card's bf16 ridge; K9b and K9c are
 single passes over bf16 rows, bound by bytes. The sources' headers give the
 designs.
 
+fp32 rows (``--mixed false``, the Pallas kernels' Precision.HIGHEST
+products) launch the fp32 forms, the ``*_f32`` entries of the same sources:
+K9a with its product on the CUDA cores (``csrc/simt_f32.cuh``), K9b and K9c
+the same kernels instantiated for fp32. W and b are cast to x's dtype, as
+the JAX package casts them to the compute dtype. Each wrapper counts its
+fp32 launches apart (``fp32_*``).
+
 :class:`FusedLnMatmul` is the autograd Function (``_lnmm_fwd``/``_lnmm_bwd``,
 :330-353) and :func:`fused_ln_matmul` the entry. Weights are taken in
 PyTorch's Linear layout, W (F, C). Each wrapper launches its kernel for a
@@ -50,6 +57,8 @@ EPS = 1e-5            # core.transformer.LayerNorm's
 launches = 0          # K9a launches by ln_matmul_fwd, for run evidence
 dgelu_launches = 0    # K9b launches by ln_matmul_dgelu
 ln_bwd_launches = 0   # K9c launches by ln_bwd
+# Of those, the launches of the fp32 forms, per wrapper
+fp32_launches = fp32_dgelu_launches = fp32_ln_bwd_launches = 0
 
 
 def supported(c: int, f: int) -> bool:
@@ -111,9 +120,9 @@ def ln_matmul_fwd(x: torch.Tensor, w: torch.Tensor,
                   residuals: bool = True):
     """K9a: x (N, C), w (F, C), b (F,) or None → (z (N, F), zpre (N, F) or
     None, x̂ (N, C) or None), all in x's dtype; zpre only with ``gelu``, zpre
-    and x̂ only with ``residuals``. A CUDA tensor launches the kernel (bf16,
-    C a multiple of 128 up to 1024, F a multiple of 128) or raises; a CPU
-    tensor runs the plain version."""
+    and x̂ only with ``residuals``. A CUDA tensor launches the kernel (bf16
+    or fp32, C a multiple of 128 up to 1024, F a multiple of 128) or
+    raises; a CPU tensor runs the plain version."""
     n, c = x.shape
     f = w.shape[0]
     if w.shape != (f, c) or (b is not None and b.shape != (f,)):
@@ -126,68 +135,80 @@ def ln_matmul_fwd(x: torch.Tensor, w: torch.Tensor,
     _check_width(c, "K9a")
     if f % LANE:
         raise NotImplementedError(f"K9a takes F a multiple of {LANE}, got {f}")
-    w = _build.cuda_arg(w, x, "w", torch.bfloat16)
-    b = None if b is None else _build.cuda_arg(b, x, "b", torch.bfloat16)
-    z = torch.empty(n, f, dtype=torch.bfloat16, device=x.device)
+    w = _build.cuda_arg(w, x, "w", x.dtype)
+    b = None if b is None else _build.cuda_arg(b, x, "b", x.dtype)
+    z = torch.empty(n, f, dtype=x.dtype, device=x.device)
     zpre = torch.empty_like(z) if gelu and residuals else None
     xhat = torch.empty_like(x) if residuals else None
+    f32 = x.dtype == torch.float32
+    entry = "ln_matmul_fwd_f32" if f32 else "ln_matmul_fwd"
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ln_matmul_fwd(
+        err = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             z.data_ptr(), None if zpre is None else zpre.data_ptr(),
             None if xhat is None else xhat.data_ptr(), n, c, f, int(gelu),
             stream)
-    _build.check(lib, err, "ln_matmul_fwd")
-    global launches
+    _build.check(lib, err, entry)
+    global launches, fp32_launches
     launches += 1
+    fp32_launches += f32
     return z, zpre, xhat
 
 
 def ln_matmul_dgelu(zpre: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     """K9b: dzc = dz ⊙ gelu′(zpre) over (N, F). A CUDA tensor launches the
-    kernel (bf16) or raises; a CPU tensor runs the plain version."""
+    kernel (bf16 or fp32, one dtype) or raises; a CPU tensor runs the plain
+    version."""
     if zpre.shape != dz.shape:
         raise ValueError(f"zpre {tuple(zpre.shape)} and dz "
                          f"{tuple(dz.shape)} differ")
     if zpre.device.type == "cpu":
         return ln_matmul_dgelu_ref(zpre, dz)
+    _build.compute_dtype("K9b", zpre, dz)
     _build.check_rows(zpre, "K9b", "zpre")
     _build.check_rows(dz, "K9b", "dz")
     dzc = torch.empty_like(dz)
+    f32 = dz.dtype == torch.float32
+    entry = "ln_matmul_dgelu_f32" if f32 else "ln_matmul_dgelu"
     lib = _build.load()
     with torch.cuda.device(dz.device):
         stream = torch.cuda.current_stream(dz.device).cuda_stream
-        err = lib.ln_matmul_dgelu(zpre.data_ptr(), dz.data_ptr(),
+        err = getattr(lib, entry)(zpre.data_ptr(), dz.data_ptr(),
                                   dzc.data_ptr(), dz.numel(), stream)
-    _build.check(lib, err, "ln_matmul_dgelu")
-    global dgelu_launches
+    _build.check(lib, err, entry)
+    global dgelu_launches, fp32_dgelu_launches
     dgelu_launches += 1
+    fp32_dgelu_launches += f32
     return dzc
 
 
 def ln_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K9c: dx (N, C) in x's dtype from x and the gradient g of x̂. A CUDA
-    tensor launches the kernel (bf16, C a multiple of 128 up to 1024) or
-    raises; a CPU tensor runs the plain version."""
+    tensor launches the kernel (bf16 or fp32, one dtype, C a multiple of
+    128 up to 1024) or raises; a CPU tensor runs the plain version."""
     if x.shape != g.shape:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} differ")
     if x.device.type == "cpu":
         return ln_bwd_ref(x, g)
+    _build.compute_dtype("K9c", x, g)
     _build.check_rows(x, "K9c", "x")
     _build.check_rows(g, "K9c", "g")
     n, c = x.shape
     _check_width(c, "K9c")
     dx = torch.empty_like(x)
+    f32 = x.dtype == torch.float32
+    entry = "ln_bwd_f32" if f32 else "ln_bwd"
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ln_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c,
-                         stream)
-    _build.check(lib, err, "ln_bwd")
-    global ln_bwd_launches
+        err = getattr(lib, entry)(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                                  n, c, stream)
+    _build.check(lib, err, entry)
+    global ln_bwd_launches, fp32_ln_bwd_launches
     ln_bwd_launches += 1
+    fp32_ln_bwd_launches += f32
     return dx
 
 

@@ -9,7 +9,8 @@ It takes ``train_vit.py``'s flags with the same defaults: ViT-L/16 at image
 (``--mixed``), AdamW at lr 1e-4 with weight decay 1e-2, 5,000 warmup steps
 into a cosine over 500,000 to lr / 10, and no gradient clip. ``--device``
 (default ``cuda``) picks the card or, with ``cpu``, the kernels' plain
-versions. Each epoch trains ``--steps_per_epoch`` steps, printing loss,
+versions; ``--mixed false`` computes in fp32 through the kernels' fp32
+forms, with TF32 off in cuBLAS and cuDNN. Each epoch trains ``--steps_per_epoch`` steps, printing loss,
 accuracy and step time every ``--log_every`` steps, then runs the eval step
 over the validation stream and prints its loss and accuracy.
 
@@ -17,9 +18,8 @@ Ported so far: ``--dataset synthetic`` (the JAX loader's noise stream). The
 rest of the flag set is refused with a message until it is ported: the
 ImageNet and webdataset loaders, checkpoints (``--ckpt_dir``,
 ``--resume``), ``--init_from``, the scanned and pipelined stacks, device
-meshes, the loader backends and the metrics logger's ``--run_dir``; on CUDA
-also ``--mixed false``, whose fp32 kernels do not exist yet. ``--no_wandb``
-is accepted: the port logs to standard output only.
+meshes, the loader backends and the metrics logger's ``--run_dir``.
+``--no_wandb`` is accepted: the port logs to standard output only.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from vit_tpu_torch.train.state import TrainState
 from vit_tpu_torch.train.step import (make_classifier_eval_step,
                                       make_classifier_train_step)
 from vit_tpu_torch.utils.init import init_params_
+from vit_tpu_torch.utils.precision import disable_tf32
 
 
 def str2bool(value) -> bool:
@@ -118,10 +119,6 @@ def check_ported(args: argparse.Namespace) -> None:
          f"--run_dir: the metrics logger {later}; the port prints its logs"),
         (args.attn_impl == "xla",
          "--attn_impl xla: the port's attention is its kernels"),
-        (not args.mixed and args.device != "cpu",
-         "--mixed false on CUDA: the attention kernels take bf16 only; their "
-         "fp32 forms are not written yet (ROADMAP Queue C #3). Use --device "
-         "cpu for fp32 through the plain versions"),
     ]
     for bad, why in refused:
         if bad:
@@ -142,6 +139,8 @@ def main(argv=None) -> dict:
         raise SystemExit("train_vit: no CUDA device (pass --device cpu for "
                          "the plain versions)")
     dtype = torch.bfloat16 if args.mixed else torch.float32
+    if not args.mixed and device.type == "cuda":
+        disable_tf32()
     cfg = ViTConfig(args.image_size, args.in_channels, args.patch_size,
                     args.transformer, args.extra_tokens, args.dropout,
                     dtype=dtype)
