@@ -486,13 +486,13 @@ def attention_bound(b: int, h: int, s: int, causal: bool, backward: bool,
     the fp32 forms, at ``peak`` = P's fp32 rate): 2 products of 2·64 FLOP
     per unmasked (query, key) pair forward, 5 backward; q, k, v (and dO)
     read and out (dq, dk, dv) written once, m and l in fp32. With dropout,
-    the hash's integer operations on every unmasked pair, once forward and
-    three times backward."""
+    the hash's integer operations once on every unmasked pair, forward and
+    backward alike: the least work needs the mask once (the kernels'
+    two-kernel backward hashes it three times)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     tile = b * h * s * 64 * elem
     stats = 2 * b * h * s * 4
-    int_ops = HASH_INT_OPS * pairs * b * h * (3 if backward else 1) \
-        if dropout else 0.0
+    int_ops = HASH_INT_OPS * pairs * b * h if dropout else 0.0
     if backward:
         return bound(10 * 64 * pairs * b * h,
                      4 * tile + stats + 3 * tile + extra_bytes,
@@ -694,7 +694,21 @@ def phase_build() -> None:
         elif name and ("registers" in line or "spill" in line):
             ptxas[name] = (ptxas.get(name, "") + " "
                            + line.split(":", 1)[-1].strip()).strip()
+    measured["ptxas"] = ptxas
     emit("build", seconds=seconds, library=Path(lib._name).name, ptxas=ptxas)
+
+
+def hopper_attention_ptxas() -> dict:
+    """ptxas's report (registers, spills) and the dynamic shared memory of
+    the Hopper attention kernels (K6, K7/K8's dq and dk/dv kernels)."""
+    lib = _build.load()
+    smem = dict(attention_fwd_kernel=lib.attention_fwd_smem(),
+                unpacked_bwd_dq_kernel=lib.attention_bwd_smem(0),
+                unpacked_bwd_dkdv_kernel=lib.attention_bwd_smem(1))
+    return {name: dict(ptxas=report,
+                       dynamic_smem_bytes=smem[name.split("<")[0]])
+            for name, report in measured.get("ptxas", {}).items()
+            if name.split("<")[0] in smem}
 
 
 def phase_kernels() -> dict:
@@ -1059,6 +1073,8 @@ def unpacked_kernels(gen) -> dict:
     pq, pk, pv = head_views(8, 12, 513, gen)
     k6["prefill_bs8_ms"] = median_ms(
         lambda: k_attn.attention_fwd(pq, pk, pv, True))
+    k6["prefill_bs1_ms"] = median_ms(
+        lambda: k_attn.attention_fwd(pq[:1], pk[:1], pv[:1], True))
     _, m, l = k_attn.attention_fwd(q, k, v, True, emit_stats=True)
     k8 = dict(ms=median_ms(lambda: k_attn.attention_bwd(q, k, v, dout, m, l,
                                                         True)),
@@ -1081,14 +1097,17 @@ def unpacked_kernels(gen) -> dict:
          shape="(2, 12, S 513, 64) bf16 causal", **k7)
     k6_bound = attention_bound(b, 12, s, True, False)
     k8_bound = attention_bound(b, 12, s, True, True)
+    build = hopper_attention_ptxas()
     emit("kernel", name="attention_fwd", parity=k6_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
                         stats_rel=K1_STATS_REL),
          bound=k6_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
+         build={n: r for n, r in build.items() if n.startswith("attention")},
          **k6)
     emit("kernel", name="attention_bwd", parity=k8_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
          bound=k8_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
+         build={n: r for n, r in build.items() if n.startswith("unpacked")},
          **k8)
     summary["attention_fwd"] = dict(
         max_abs_err=k6_max, ms=k6["stats_ms"], plain_ms=k6["plain_ms"],
@@ -1490,17 +1509,27 @@ def fused_kernels(gen) -> dict:
                 f"K9c disagrees with its plain version: {row}")
         k9c_max = max(k9c_max, row["max_abs"])
         if n == N_ROWS:
+            # The library's LayerNorm backward without weight and bias, its
+            # saved mean and 1/σ made beforehand (K9c recomputes them).
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                x, [c], None, None, k_lnmm.EPS)
             k9c = dict(ms=median_ms(lambda: k_lnmm.ln_bwd(x, g)),
                        plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
+                       library_ms=median_ms(
+                           lambda: torch.ops.aten.native_layer_norm_backward(
+                               g, x, [c], mean, rstd, None, None,
+                               [True, False, False])),
                        bound=bound(10 * n * c, 3 * 2 * n * c,
                                    peak=fp32_peak()))
     emit("kernel", name="ln_bwd", parity=k9c_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
-         library=None, shape="(20480, 768) bf16", **k9c)
+         library="aten.native_layer_norm_backward (no weight, no bias)",
+         shape="(20480, 768) bf16", **k9c)
     summary["ln_bwd"] = dict(
         max_abs_err=k9c_max, ms=k9c["ms"], plain_ms=k9c["plain_ms"],
         bound_ms=k9c["bound"]["bound_ms"], bound_by=k9c["bound"]["bound_by"],
-        library_ms=None)
+        library_ms=k9c["library_ms"],
+        library="aten.native_layer_norm_backward (no weight, no bias)")
 
     # K10: fc2 (g 768 wide, x 3072), fc1 (g 3072, x 768), a ragged N. The
     # plain version is an fp32 product (TF32 off), the kernel's sums run in

@@ -43,11 +43,13 @@ def _qkv(s, seed, n=3):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s", [40, 513, 800])
+@pytest.mark.parametrize("s, causal", [
+    (40, False), (40, True), (513, False), (513, True), (800, False),
+    (800, True), (1024, True)])
 def test_unpacked_attention_matches_jax(s, causal):
     """K6's plain version against the Pallas ``_fa_kernel``: one q block
-    (40), the prefill's 513 and a padded two-block 800."""
+    (40), the prefill's 513, a padded two-block 800 and the VideoGPT-B
+    step's own causal 1024."""
     q, k, v = _qkv(s, seed=s + causal)
     ref = np.asarray(jax_flash_attention(*map(jnp.asarray, (q, k, v)),
                                          causal=causal))
@@ -69,8 +71,10 @@ def test_unpacked_attention_matches_jax(s, causal):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s", [513, 800])   # K7 (S ≤ 768) and K8 (S > 768)
+# K7 (S ≤ 768) and K8 (S > 768: JAX's tiled backward), the step's causal
+# 1024 among them
+@pytest.mark.parametrize("s, causal", [
+    (513, False), (513, True), (800, False), (800, True), (1024, True)])
 def test_unpacked_attention_backward_matches_jax(s, causal):
     q, k, v, g = _qkv(s, seed=10 + s + causal, n=4)
     out_j, vjp = jax.vjp(

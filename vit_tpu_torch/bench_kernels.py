@@ -1,5 +1,6 @@
-"""Time the bf16 kernels of one or more checkouts of this repo on one card,
-in turns, so that two versions of a kernel are compared within one call.
+"""Time the bf16 kernels and the VideoGPT-B step of one or more checkouts
+of this repo on one card, in turns, so that two versions are compared
+within one call.
 
     python -m vit_tpu_torch.bench_kernels --trees OLD . . OLD \
         [--out chiprun_out/bench_kernels.json]
@@ -8,11 +9,16 @@ Each entry of ``--trees`` is a checkout's root; each runs in a process of
 its own that imports ``vit_tpu_torch`` from that checkout, builds its
 kernels into that checkout's ``build/`` and times K1 (with statistics),
 K2, K3, K4, K5, K6 (with statistics), K8, K9a, K9b, K9c, K10, K11a, K11b,
-K12a and K12b, and the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
-at rate 0.15) and K6/K8 (rate 0.1), at ``chip_smoke.py``'s shapes:
+K12a and K12b, the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
+at rate 0.15) and K6/K8 (rate 0.1), K7 at (2, 12, 513) and K6 on the
+rollout's prefill (513 causal, bs 8 and 1), at ``chip_smoke.py``'s shapes:
 CUDA-event medians of 20 calls after 3, the same seeded inputs in every
-process. Prints one JSON line per turn and
-a table of each kernel's times by checkout and turn.
+process. Each turn then times the VideoGPT-B bs-32 train step with the
+names of that checkout's root ``chip_smoke.py`` (``TiTok``, ``VideoGPT``,
+``make_videogpt_train_step``, ``make_optimizer``, ``host_median_ms`` and
+the rest used in ``videogpt_step_ms``), so every root must carry one that
+defines them. Prints one JSON line per turn and a table of each time by
+checkout and turn.
 """
 
 from __future__ import annotations
@@ -118,6 +124,18 @@ def time_kernels() -> dict:
     ms["K8 dropout"] = median_ms(lambda: k_attn.attention_bwd(
         q, k, v, do, m, l, True, **drop))
     del q, k, v, do, m, l
+    # K7's (2, 12, 513) and the rollout's prefill (513 causal at bs 8 and 1)
+    q, k, v = r(3, 2, 12, 513, 64).bfloat16()
+    do = r(2, 513, 12, 64).bfloat16().transpose(1, 2)
+    _, m, l = k_attn.attention_fwd(q, k, v, True, emit_stats=True)
+    ms["K7"] = median_ms(lambda: k_attn.attention_bwd(q, k, v, do, m, l,
+                                                      True))
+    q, k, v = r(8, 513, 3, 12, 64).bfloat16().permute(2, 0, 3, 1, 4)
+    ms["K6 prefill bs8"] = median_ms(lambda: k_attn.attention_fwd(q, k, v,
+                                                                  True))
+    ms["K6 prefill bs1"] = median_ms(lambda: k_attn.attention_fwd(
+        q[:1], k[:1], v[:1], True))
+    del q, k, v, do, m, l
 
     x = r(64, 56, 56, 96).bfloat16()
     w, b = (r(7, 7, 96) / 7).bfloat16(), r(96).bfloat16()
@@ -140,6 +158,35 @@ def time_kernels() -> dict:
     return ms
 
 
+def videogpt_step_ms() -> float:
+    """The VideoGPT-B bs-32 train step (tokenizer and AR step), set up as
+    ``chip_smoke.py``'s videogpt phase sets up the steps it times: its
+    model, tokenizer, first synthetic batch and the optimizer of its timed
+    steps (``make_optimizer(1e-4, 2, 500000, 1e-5, 1e-4)``, no clip). The
+    phase times after 21 earlier steps (its launch count, the plain
+    comparison and 20 learning steps); this times after two warm-up steps.
+    Both take the host-clock median of 6 synchronised steps."""
+    import torch
+
+    import chip_smoke as cs
+
+    tok = cs.TiTok(cs.TiTokConfig(**cs.VIDEO_TOKENIZER))
+    cs.init_params_(tok, torch.Generator().manual_seed(123))
+    tokenizer = cs.FrozenTokenizer(tok.cuda())
+    model = cs.VideoGPT(cs.VideoGPTConfig(**cs.VIDEOGPT))
+    cs.init_params_(model, torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    videos = cs.video_batch(cs.VIDEO_TOKENIZER["image_size"])
+    step = cs.make_videogpt_train_step(model)
+    state = cs.TrainState.create(model, cs.make_optimizer(
+        1e-4, 2, 500000, 1e-5, 1e-4, clip_norm=None))
+    for _ in range(2):
+        step(state, tokenizer, videos)
+    torch.cuda.synchronize()
+    return cs.host_median_ms(lambda: (step(state, tokenizer, videos),
+                                      torch.cuda.synchronize()), 6)
+
+
 def worker(root: str) -> None:
     """One turn: import the checkout at ``root`` and print its times."""
     sys.path.insert(0, root)
@@ -151,7 +198,9 @@ def worker(root: str) -> None:
     if where != str(Path(root).resolve()):
         raise SystemExit(f"imported vit_tpu_torch from {where}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps({"tree": root, "ms": time_kernels()}), flush=True)
+    ms = time_kernels()
+    ms["VideoGPT-B step"] = videogpt_step_ms()
+    print(json.dumps({"tree": root, "ms": ms}), flush=True)
 
 
 def card() -> str:

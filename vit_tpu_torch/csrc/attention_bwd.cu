@@ -5,21 +5,27 @@
 // _flash_attention_bwd_impl :441 for S <= 768) and _fa_bwd_tiled_kernel
 // (:284, K8, launched by _flash_attention_bwd_tiled_impl :395 for S > 768,
 // VideoGPT's S = 1024). The TPU splits them at 768 only because one
-// program's (S, S) planes must fit VMEM; here one pair of kernels over 64-row
+// program's (S, S) planes must fit VMEM; here one pair of kernels over
 // tiles takes every S. Inputs: q, k, v and the upstream gradient dO, each
-// (B, H, S, 64) bf16 at its own (batch, head, row) element strides, and K6's
-// row statistics m and l, fp32 (B, H, S) contiguous. Outputs dq, dk, dv,
+// (B, H, S, 64) bf16 at its own (batch, head, row) element strides, read
+// through 4-D TMA tensor maps (rows past S arrive as zeros), and K6's row
+// statistics m and l, fp32 (B, H, S) contiguous. Outputs dq, dk, dv,
 // (B, H, S, 64) bf16 at their own strides.
 //
 // The math of :244-277 (and :325-357), with p rebuilt from K6's saved
 // statistics instead of recomputed:
-//   ph = exp(s - m) unnormalised, linv = 1/l, s = (q/8)·kᵀ masked;
+//   ph = exp(s - m) unnormalised, linv = 1/l, s = q·kᵀ/8 masked;
 //   dv = bf16(ph)ᵀ · bf16(dO·linv);   dp = dO · vᵀ;   Δ = Σ_keys ph·dp;
 //   ds = bf16(ph · ((dp - Δ·linv) · (linv/8)));
 //   dq = ds · k,  dk = dsᵀ · q  (the unscaled q).
 // Products are bf16 in, fp32 accumulate; ph, dp, Δ and ds stay fp32 until
-// ds's cast, and each output is cast to bf16 once, as on the TPU (whose K8
-// sums fp32 per-q-block dk/dv partials in XLA before the cast, :416-418).
+// ds's cast, ds keeps the Pallas kernel's operation order with no FMA
+// contraction (attention_tile.cuh:dscore, its row products Δ·linv and
+// linv/8 taken once per row), and each output is cast to bf16 once, as on
+// the TPU (whose K8 sums fp32 per-q-block dk/dv partials in XLA before the
+// cast, :416-418). s = q·kᵀ/8 in fp32 equals the products of bf16 q/8
+// exactly; exp is K6's (hopper.cuh:exp2_approx of the log2(e)-scaled
+// argument), so ph is the forward's p.
 //
 // Dropout (kDropout, with the forward's seed vector), as K2's: each pass
 // hashes the mask D of csrc/dropout.cuh again (:251-274, :329-352); dp is
@@ -27,301 +33,561 @@
 // dk/dv kernel hashes the forward's (query, key) pair in its transposed tile.
 //
 // Blocks run in parallel with no carried state, while dq sums over keys and
-// dk, dv over queries. So, as K2 (attention_packed_bwd.cu) does, two kernels
-// accumulate their outputs in registers, with no atomics and no partials:
-//   1. dq kernel, one block per (q tile, head, batch): pass 1 over the keys
-//      sums Δ for its rows and stores it, fp32 (B, H, S); pass 2 rebuilds ds
-//      and accumulates dq = ds · k.
-//   2. dk/dv kernel, one block per (key tile, head, batch), the K/V-outer
-//      loop: over the q tiles it rebuilds sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, so that
-//      phᵀ and dsᵀ come out of the accumulators in the A-fragment layout of
-//      dv += phᵀ·dol and dk += dsᵀ·q.
-// Under the causal mask the dq kernel stops at its q tile's last key and the
-// dk/dv kernel starts at its own key tile, so wholly masked tiles are skipped.
+// dk, dv over queries. So two kernels accumulate their outputs in registers,
+// with no atomics and no partials, and the result is the same run to run:
+//   1. dq kernel, one block per (128-row q tile, head, batch): Q and dO are
+//      loaded once, K and V stream through the ring. Pass 1 computes
+//      s = Q·Kᵀ and dp = dO·Vᵀ, both B operands K-major, sums Δ for its rows
+//      and stores it, fp32 (B, H, S); pass 2 rebuilds ds into A-operand
+//      registers and accumulates dq += dS·K with K read MN-major.
+//   2. dk/dv kernel, one block per (128-key tile, head, batch), the
+//      K/V-outer loop: K and V stay in shared memory as A operands, and the
+//      q tiles stream through the ring with their row constants (m·log2(e),
+//      1/l, Δ/l, 1/(8l)), which the producer warp reads ahead and writes
+//      beside each tile. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ leave phᵀ and dsᵀ in the
+//      A-operand layout; each consumer warpgroup writes dol = bf16(dO·linv)
+//      once per q tile into a buffer swizzled as TMA swizzles, and
+//      dv += bf16(D·ph)ᵀ·dol, dk += dSᵀ·Q read dol and Q MN-major. No
+//      transposed copy of any tile exists.
+// Each block is two consumer warpgroups of 64 rows and one producer warp
+// that keeps TMA loads in flight through a ring of kStages stages, as K6's
+// (attention_fwd.cu). Under the causal mask the dq kernel stops at its q
+// tile's last key and the dk/dv kernel starts at its own key tile, wholly
+// masked tiles are skipped and both kernels launch their heaviest tiles
+// first. The elementwise work between the products is what the time goes
+// to (a clock64 breakdown on the H100: ~55% of the dk/dv kernel, the
+// products ~15%), so it is specialised: the masks are compared only on
+// diagonal and ragged tiles (a second instantiation of each loop), and the
+// row constants are read once per tile.
 //
 // What bounds it: the minimal backward is 5 products of 2·S²·64 FLOP per
 // (batch, head), halved by the causal mask; this design spends 9 (q·kᵀ and
-// dO·vᵀ three times each) for the freedom from atomics and from a
-// sequence-sized shared memory. At S = 1024 that is far past the bf16 ridge
-// against ~8·S·64·2 bytes of q, k, v, dO, dq, dk, dv, so the tensor-core
-// issue rate and the fp32 elementwise work between the products bound it.
-// mma.sync m16n8k16 as in K1; wgmma, TMA and one fused pass are later work.
+// dO·vᵀ three times each) for the freedom from atomics. At S = 1024 that is
+// far past the bf16 ridge against ~8·S·64·2 bytes of q, k, v, dO, dq, dk,
+// dv, so the tensor cores, the MUFU's exp (three a score) and the fp32
+// elementwise work between the products bound it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_tile.cuh"
 #include "dropout.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace vit;
+using namespace vit::hopper;
 
-struct Operands {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
+constexpr int kBlockRows = 128;  // q rows (dq) or keys (dk/dv) per block
+constexpr int kRows = 64;        // rows per ring stage and per warpgroup
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;
+constexpr int kBlockThreads = kConsumers + 32;  // + the producer warp
+
+struct alignas(1024) DqSmem {
+  bf16 q[kBlockRows * 64];
+  bf16 dout[kBlockRows * 64];
+  bf16 k[kStages][kRows * 64];
+  bf16 v[kStages][kRows * 64];
+  Ring<kStages> ring;
+  uint64_t qd_full;
+};
+
+struct alignas(1024) DkvSmem {
+  bf16 k[kBlockRows * 64];
+  bf16 v[kBlockRows * 64];
+  bf16 q[kStages][kRows * 64];
+  bf16 dout[kStages][kRows * 64];
+  // bf16(dO·linv), two per consumer warpgroup in turn: a warp writes one
+  // only after every warp of its warpgroup has passed the barrier that
+  // follows the write of the other, and so has waited for the products of
+  // the tile before, the last to read it.
+  bf16 dol[2][2][kRows * 64];
+  // Per q row of each stage: m·log2(e), 1/l, Δ/l and 1/(8l), the constants
+  // of the exponent, of dol and of dscore's two row products
+  float ml[kStages][kRows], linv[kStages][kRows];
+  float d_delta[kStages][kRows], d_linv[kStages][kRows];
+  Ring<kStages> ring;
+  uint64_t kv_full;
+};
+
+struct Outputs {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  Strides sdq, sdk, sdv;
 };
 
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-unpacked_bwd_dq_kernel(Operands a, const float* __restrict__ m_in,
-                       const float* __restrict__ l_in,
-                       float* __restrict__ delta_out, Dropout drop, int S,
-                       int H, int causal) {
-  __shared__ __align__(16) bf16 sQ[kTile * kPitch];     // q / 8
-  __shared__ __align__(16) bf16 sDO[kTile * kPitch];    // dO
-  __shared__ __align__(16) bf16 sK[kTile * kPitch];     // k, [key][d]
-  __shared__ __align__(16) bf16 sKt[kHeadDim * kPitch]; // k, [d][key]
-  __shared__ __align__(16) bf16 sV[kTile * kPitch];     // v, [key][d]
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* qb = a.q + offset(a.sq, b, h);
-  const bf16* kb = a.k + offset(a.sk, b, h);
-  const bf16* vb = a.v + offset(a.sv, b, h);
-  const bf16* dob = a.dout + offset(a.sdo, b, h);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  load_tile<false, false>(sQ, qb + q0 * a.sq.s, nullptr, S - q0, a.sq.s,
-                          kScale);
-  load_tile<false, false>(sDO, dob + q0 * a.sdo.s, nullptr, S - q0, a.sdo.s,
-                          1.0f);
-  __syncthreads();
-  uint32_t qf[kHeadDim / 16][4], dof[kHeadDim / 16][4];
-  load_a_rows(qf, sQ + warp * 16 * kPitch, g, t);
-  load_a_rows(dof, sDO + warp * 16 * kPitch, g, t);
-
-  // Rows row0 and row0 + 8. Padded rows get m = 0, l = 1: their dO is zero,
-  // so dp, Δ and ds vanish there and nothing non-finite is formed.
-  const int row0 = q0 + warp * 16 + g;
-  const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
-  float mr[2], linv[2];
+// Rows row0 and row0 + 8 of a warpgroup's 64 x 64 accumulator to bf16 at
+// `dst` (row r at dst + r·stride), skipping rows at or past S.
+__device__ __forceinline__ void store_acc(const float (&acc)[32], bf16* dst,
+                                          size_t stride, int row0, int S,
+                                          int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    mr[r] = row < S ? m_in[stat0 + row] : 0.0f;
+    if (row >= S) continue;
+    bf16* p = dst + static_cast<size_t>(row) * stride;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<uint32_t*>(p + nt * 8 + 2 * t) =
+          pack_bf16x2(acc[4 * nt + 2 * r], acc[4 * nt + 2 * r + 1]);
+  }
+}
+
+// The tensor maps of q, k, v and dO.
+struct Maps {
+  const CUtensorMap *q, *k, *v, *dout;
+};
+
+// ---- dq kernel --------------------------------------------------------------
+
+// A dq block: a 128-row q tile of head (b, h) and n_kv key tiles. Loads
+// 0 .. n_kv - 1 bring the k and v tiles of pass 1, loads n_kv .. 2·n_kv - 1
+// those of pass 2.
+struct DqWork {
+  int q0, h, b, n_kv;
+};
+
+__device__ __forceinline__ void dq_produce(DqSmem& sm, Maps t, DqWork w) {
+  Ring<kStages>& ring = sm.ring;
+  mbar_arrive_expect_tx(&sm.qd_full, 4 * kTileBytes);
+  for (int i = 0; i < 2; ++i) {
+    tma_load_4d(sm.q + i * kRows * 64, t.q, &sm.qd_full, 0, w.q0 + i * kRows,
+                w.h, w.b);
+    tma_load_4d(sm.dout + i * kRows * 64, t.dout, &sm.qd_full, 0,
+                w.q0 + i * kRows, w.h, w.b);
+  }
+  for (int i = 0; i < 2 * w.n_kv; ++i) {
+    const int st = ring.stage(i), k0 = (i % w.n_kv) * kRows;
+    ring.wait_empty(i);
+    mbar_arrive_expect_tx(&ring.full[st], 2 * kTileBytes);
+    tma_load_4d(sm.k[st], t.k, &ring.full[st], 0, k0, w.h, w.b);
+    tma_load_4d(sm.v[st], t.v, &ring.full[st], 0, k0, w.h, w.b);
+  }
+}
+
+template <bool kDropout>
+__device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
+                                           const float* m_in,
+                                           const float* l_in,
+                                           float* delta_out, Dropout drop,
+                                           int S, int H, int causal) {
+  Ring<kStages>& ring = sm.ring;
+  const int n_kv = w.n_kv;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = w.q0 + wg * kRows;       // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
+  const int my_kv = causal ? min(n_kv, r0 / kRows + 1) : n_kv;
+  const uint32_t q_tile = smem_u32(sm.q + wg * kRows * 64);
+  const uint32_t do_tile = smem_u32(sm.dout + wg * kRows * 64);
+  const uint32_t k_base = smem_u32(sm.k[0]);
+  const uint32_t v_base = smem_u32(sm.v[0]);
+  // q·kᵀ and dp = dO·Vᵀ of load i, waited for.
+  auto scores = [&](float (&s)[32], float (&dp)[32], int i) {
+    wgmma_fence();
+    mma_abt(s, q_tile, k_base + ring.stage(i) * kTileBytes);
+    mma_abt(dp, do_tile, v_base + ring.stage(i) * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+  };
+
+  // Padded rows get m = 0, l = 1: their dO is zero, so dp, Δ and ds vanish
+  // there and nothing non-finite is formed. ml = m·log2(e) is the shift
+  // inside the exponent.
+  const size_t stat0 = (static_cast<size_t>(w.b) * H + w.h) * S;
+  float ml[2], linv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    ml[r] = (row < S ? m_in[stat0 + row] : 0.0f) * kLog2e;
     linv[r] = row < S ? 1.0f / l_in[stat0 + row] : 1.0f;
   }
-  const int kv_end = causal ? min(S, q0 + kTile) : S;
   DropoutStream drs{};
-  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
+  if constexpr (kDropout) drs = dropout_stream(drop, w.b * H + w.h);
+  // Score e of a tile from k0: its column and row, whether the masks drop
+  // it (only ever true on an edge tile), and ph = exp(q·kᵀ/8 - m), 0 there.
+  auto col_of = [&](int k0, int e) {
+    return k0 + (e / 4) * 8 + 2 * t + (e & 1);
+  };
+  auto row_of = [&](int e) { return row0 + ((e / 2) & 1) * 8; };
+  auto masked = [&](auto edge, int k0, int e) {
+    if constexpr (!decltype(edge)::value) return false;
+    const int col = col_of(k0, e);
+    return col >= S || (causal && col > row_of(e));
+  };
+  auto ph_at = [&](float acc, int e) {
+    return exp2_approx(fmaf(acc, kScale * kLog2e, -ml[(e / 2) & 1]));
+  };
+
+  float s[32], dp[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
+  mbar_wait(&sm.qd_full, 0);
 
   // Pass 1: Δ = Σ_keys ph·(D·dp) for this thread's two rows.
   float delta[2] = {0.0f, 0.0f};
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<false, false>(sK, kb + k0 * a.sk.s, nullptr, S - k0, a.sk.s,
-                            1.0f);
-    load_tile<false, false>(sV, vb + k0 * a.sv.s, nullptr, S - k0, a.sv.s,
-                            1.0f);
-    __syncthreads();
+  auto delta_tile = [&](auto edge, int k0) {
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_row<kHeadDim / 16>(s, qf, sK, kPitch, nt * 8, g, t);
-      mma_row<kHeadDim / 16>(dp, dof, sV, kPitch, nt * 8, g, t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const int row = row0 + (e >> 1) * 8;
-        if (col >= S || (causal && col > row)) continue;
-        float dpd = dp[e];
-        if constexpr (kDropout) dpd *= dropout_keep(drs, row, col, S);
-        delta[e >> 1] += expf(s[e] - mr[e >> 1]) * dpd;
-      }
+    for (int e = 0; e < 32; ++e) {
+      if (masked(edge, k0, e)) continue;
+      float dpd = dp[e];
+      if constexpr (kDropout)
+        dpd *= dropout_keep(drs, row_of(e), col_of(k0, e), S);
+      delta[(e / 2) & 1] += ph_at(s[e], e) * dpd;
     }
+  };
+  for (int j = 0; j < n_kv; ++j) {
+    ring.wait_full(j);
+    if (j < my_kv) scores(s, dp, j);
+    ring.release(j);
+    if (j >= my_kv) continue;
+    const int k0 = j * kRows;
+    if ((causal && k0 == r0) || k0 + kRows > S)
+      delta_tile(std::true_type{}, k0);
+    else
+      delta_tile(std::false_type{}, k0);
   }
+  // ds = ph·((dp - Δ·linv)·(linv/8)) as dscore (attention_tile.cuh) forms
+  // it, with its two products of row constants taken once: dΔ = Δ·linv and
+  // dl = linv/8.
+  float d_delta[2], d_linv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
     delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
     const int row = row0 + r * 8;
     if (t == 0 && row < S) delta_out[stat0 + row] = delta[r];
+    d_delta[r] = __fmul_rn(delta[r], linv[r]);
+    d_linv[r] = __fmul_rn(kScale, linv[r]);
   }
 
-  // Pass 2: ds for 16 keys at a time, straight into A fragments, and
-  // dq += ds · k with k read from its transposed copy.
-  float dq[kHeadDim / 8][4];
+  // Pass 2: ds straight into A-operand registers, and dq += dS·K with K
+  // read MN-major.
+  float dq[32];
+  uint32_t dsf[4][4];
 #pragma unroll
-  for (int nt = 0; nt < kHeadDim / 8; ++nt)
-    dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.0f;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<false, false>(sK, kb + k0 * a.sk.s, nullptr, S - k0, a.sk.s,
-                            1.0f);
-    load_tile<true, false>(sKt, kb + k0 * a.sk.s, nullptr, S - k0, a.sk.s,
-                           1.0f);
-    load_tile<false, false>(sV, vb + k0 * a.sv.s, nullptr, S - k0, a.sv.s,
-                            1.0f);
-    __syncthreads();
+  for (int e = 0; e < 32; ++e) dq[e] = 0.0f;
+  auto ds_tile = [&](auto edge, int k0) {
 #pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      uint32_t dsf[4];
+    for (int nt = 0; nt < 8; ++nt) {
+      float ds[4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int nt = 2 * ks + half;
-        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_row<kHeadDim / 16>(s, qf, sK, kPitch, nt * 8, g, t);
-        mma_row<kHeadDim / 16>(dp, dof, sV, kPitch, nt * 8, g, t);
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + nt * 8 + 2 * t + (e & 1);
-          const int r = e >> 1;
-          const bool masked = col >= S || (causal && col > row0 + r * 8);
-          const float ph = masked ? 0.0f : expf(s[e] - mr[r]);
-          float dpd = dp[e];
-          if constexpr (kDropout)
-            if (!masked) dpd *= dropout_keep(drs, row0 + r * 8, col, S);
-          ds[e] = dscore(ph, dpd, delta[r], linv[r]);
-        }
-        dsf[half * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
-        dsf[half * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+      for (int c = 0; c < 4; ++c) {
+        const int e = 4 * nt + c, r = c >> 1;
+        const bool drop_e = masked(edge, k0, e);
+        const float ph = drop_e ? 0.0f : ph_at(s[e], e);
+        float dpd = dp[e];
+        if constexpr (kDropout)
+          if (!drop_e) dpd *= dropout_keep(drs, row_of(e), col_of(k0, e), S);
+        ds[c] = __fmul_rn(
+            ph, __fmul_rn(__fsub_rn(dpd, d_delta[r]), d_linv[r]));
       }
-#pragma unroll
-      for (int nd = 0; nd < kHeadDim / 8; ++nd) {
-        const bf16* kr = sKt + (nd * 8 + g) * kPitch + ks * 16 + 2 * t;
-        mma_16816(dq[nd], dsf, ld32(kr), ld32(kr + 8));
-      }
+      dsf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
+      dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
     }
+  };
+  for (int j = 0; j < n_kv; ++j) {
+    const int i = n_kv + j;
+    ring.wait_full(i);
+    if (j < my_kv) {
+      const int k0 = j * kRows;
+      scores(s, dp, i);
+      if ((causal && k0 == r0) || k0 + kRows > S)
+        ds_tile(std::true_type{}, k0);
+      else
+        ds_tile(std::false_type{}, k0);
+      wgmma_fence();
+      mma_rb(dq, dsf, k_base + ring.stage(i) * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsf);
+    }
+    ring.release(i);
   }
 
-  store_rows(dq, a.dq + offset(a.sdq, b, h), a.sdq.s, row0, S, t);
+  store_acc(dq, o.dq + offset(o.sdq, w.b, w.h), o.sdq.s, row0, S, t);
 }
 
 template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-unpacked_bwd_dkdv_kernel(Operands a, const float* __restrict__ m_in,
-                         const float* __restrict__ l_in,
-                         const float* __restrict__ delta_in, Dropout drop,
-                         int S, int H, int causal) {
-  __shared__ __align__(16) bf16 sA[kTile * kPitch];       // k, then q / 8
-  __shared__ __align__(16) bf16 sB[kTile * kPitch];       // v, then dO
-  __shared__ __align__(16) bf16 sQt[kHeadDim * kPitch];   // q, [d][q]
-  __shared__ __align__(16) bf16 sDOLt[kHeadDim * kPitch]; // bf16(dO·linv), [d][q]
-  __shared__ float sM[kTile], sLinv[kTile], sDelta[kTile];
+__global__ void __launch_bounds__(kBlockThreads, 1)
+unpacked_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, Outputs o,
+                       const float* __restrict__ m_in,
+                       const float* __restrict__ l_in,
+                       float* __restrict__ delta_out, Dropout drop, int S,
+                       int H, int causal) {
+  DqSmem& sm = aligned_smem<DqSmem>();
+  DqWork w;
+  w.q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockRows;
+  w.h = blockIdx.y;
+  w.b = blockIdx.z;
+  w.n_kv = ((causal ? min(S, w.q0 + kBlockRows) : S) + kRows - 1) / kRows;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qd_full, 1);
+    sm.ring.init(1, kConsumers / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one thread
+    if (threadIdx.x == kConsumers) dq_produce(sm, Maps{&tq, &tk, &tv, &tdo}, w);
+  } else {
+    dq_consume<kDropout>(sm, w, o, m_in, l_in, delta_out, drop, S, H, causal);
+  }
+}
 
-  const int k0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* qb = a.q + offset(a.sq, b, h);
-  const bf16* kb = a.k + offset(a.sk, b, h);
-  const bf16* vb = a.v + offset(a.sv, b, h);
-  const bf16* dob = a.dout + offset(a.sdo, b, h);
-  const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
+// ---- dk/dv kernel -----------------------------------------------------------
 
-  const int warp = threadIdx.x / 32;
+// A dk/dv block: a 128-key tile of head (b, h) from k0; load j brings q
+// tile q_begin + j, n_loads of them.
+struct DkvWork {
+  int k0, h, b, q_begin, n_loads;
+};
+
+// The producer warp: lane 0 issues the loads, every lane writes the
+// constants of two of the tile's rows and arrives.
+__device__ __forceinline__ void dkdv_produce(DkvSmem& sm, Maps t, DkvWork w,
+                                             const float* m_in,
+                                             const float* l_in,
+                                             const float* delta_in, int S,
+                                             int H) {
+  Ring<kStages>& ring = sm.ring;
+  const int lane = threadIdx.x % 32;
+  const size_t stat0 = (static_cast<size_t>(w.b) * H + w.h) * S;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(&sm.kv_full, 4 * kTileBytes);
+    for (int i = 0; i < 2; ++i) {
+      tma_load_4d(sm.k + i * kRows * 64, t.k, &sm.kv_full, 0,
+                  w.k0 + i * kRows, w.h, w.b);
+      tma_load_4d(sm.v + i * kRows * 64, t.v, &sm.kv_full, 0,
+                  w.k0 + i * kRows, w.h, w.b);
+    }
+  }
+  // The statistics of the next q tile are read from device memory while
+  // the producer waits for its stage. Padded rows get m = 0, l = 1, Δ = 0.
+  float m[2], l[2], delta[2];
+  auto fetch = [&](int j) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = (w.q_begin + j) * kRows + lane + 32 * u;
+      const bool valid = row < S;
+      m[u] = valid ? m_in[stat0 + row] : 0.0f;
+      l[u] = valid ? l_in[stat0 + row] : 1.0f;
+      delta[u] = valid ? delta_in[stat0 + row] : 0.0f;
+    }
+  };
+  fetch(0);
+  for (int j = 0; j < w.n_loads; ++j) {
+    const int st = ring.stage(j), q0 = (w.q_begin + j) * kRows;
+    ring.wait_empty(j);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = lane + 32 * u;
+      const float linv = 1.0f / l[u];
+      sm.ml[st][r] = m[u] * kLog2e;
+      sm.linv[st][r] = linv;
+      sm.d_delta[st][r] = __fmul_rn(delta[u], linv);
+      sm.d_linv[st][r] = __fmul_rn(kScale, linv);
+    }
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&ring.full[st], 2 * kTileBytes);
+      tma_load_4d(sm.q[st], t.q, &ring.full[st], 0, q0, w.h, w.b);
+      tma_load_4d(sm.dout[st], t.dout, &ring.full[st], 0, q0, w.h, w.b);
+    } else {
+      mbar_arrive(&ring.full[st]);
+    }
+    if (j + 1 < w.n_loads) fetch(j + 1);
+  }
+}
+
+template <bool kDropout>
+__device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
+                                             Outputs o, Dropout drop, int S,
+                                             int H, int causal) {
+  Ring<kStages>& ring = sm.ring;
+  const int wg = threadIdx.x / 128;
+  const int wt = threadIdx.x % 128;
+  const int warp = wt / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-
-  // This warp's 16 keys of k and v as A fragments, kept for the whole loop.
-  load_tile<false, false>(sA, kb + k0 * a.sk.s, nullptr, S - k0, a.sk.s, 1.0f);
-  load_tile<false, false>(sB, vb + k0 * a.sv.s, nullptr, S - k0, a.sv.s, 1.0f);
-  __syncthreads();
-  uint32_t kf[kHeadDim / 16][4], vf[kHeadDim / 16][4];
-  load_a_rows(kf, sA + warp * 16 * kPitch, g, t);
-  load_a_rows(vf, sB + warp * 16 * kPitch, g, t);
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  const int kw = w.k0 + wg * kRows;      // this warpgroup's first key
+  const int key0 = kw + warp * 16 + g;   // this thread's keys: key0, key0 + 8
+  const uint32_t k_tile = smem_u32(sm.k + wg * kRows * 64);
+  const uint32_t v_tile = smem_u32(sm.v + wg * kRows * 64);
   DropoutStream drs{};
-  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
+  if constexpr (kDropout) drs = dropout_stream(drop, w.b * H + w.h);
 
-  float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
+  float st[32], dpt[32], dk[32], dv[32];
+  uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
-  for (int nt = 0; nt < kHeadDim / 8; ++nt) {
-    dk[nt][0] = dk[nt][1] = dk[nt][2] = dk[nt][3] = 0.0f;
-    dv[nt][0] = dv[nt][1] = dv[nt][2] = dv[nt][3] = 0.0f;
-  }
+  for (int e = 0; e < 32; ++e) st[e] = dpt[e] = dk[e] = dv[e] = 0.0f;
+  mbar_wait(&sm.kv_full, 0);
 
-  // Under the causal mask queries before k0 see none of these keys.
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tiles
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const int row = q0 + i;
-      const bool valid = row < S;
-      sM[i] = valid ? m_in[stat0 + row] : 0.0f;
-      sLinv[i] = valid ? 1.0f / l_in[stat0 + row] : 1.0f;
-      sDelta[i] = valid ? delta_in[stat0 + row] : 0.0f;
-    }
-    __syncthreads();
-    load_tile<false, false>(sA, qb + q0 * a.sq.s, nullptr, S - q0, a.sq.s,
-                            kScale);
-    load_tile<true, false>(sQt, qb + q0 * a.sq.s, nullptr, S - q0, a.sq.s,
-                           1.0f);
-    load_tile<false, false>(sB, dob + q0 * a.sdo.s, nullptr, S - q0, a.sdo.s,
-                            1.0f);
-    load_tile<true, false, true>(sDOLt, dob + q0 * a.sdo.s, nullptr, S - q0,
-                                 a.sdo.s, 1.0f, sLinv);
-    __syncthreads();
-
+  // phᵀ, bf16(D·ph)ᵀ and dsᵀ of one (64-key, 64-query) tile into the A
+  // operands pf and dsf: score e is key key0 + ((e / 2) & 1)·8 and query
+  // q0 + (e / 4)·8 + 2t + (e & 1). Masks are compared on an edge tile only.
+  auto elementwise = [&](auto edge, int q0, int stg) {
+    const float* sMl = sm.ml[stg];
+    const float* sDd = sm.d_delta[stg];
+    const float* sDl = sm.d_linv[stg];
 #pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      uint32_t pf[4], dsf[4];
+    for (int nt = 0; nt < 8; ++nt) {  // queries q0 + nt·8 .. + 8
+      const int qi = nt * 8 + 2 * t;
+      const float2 mlq = *reinterpret_cast<const float2*>(sMl + qi);
+      const float2 ddq = *reinterpret_cast<const float2*>(sDd + qi);
+      const float2 dlq = *reinterpret_cast<const float2*>(sDl + qi);
+      float pd[4], ds[4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int nt = 2 * ks + half;  // queries q0 + nt·8 .. + 8
-        float st[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_row<kHeadDim / 16>(st, kf, sA, kPitch, nt * 8, g, t);
-        mma_row<kHeadDim / 16>(dpt, vf, sB, kPitch, nt * 8, g, t);
-        float ph[4], pd[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = nt * 8 + 2 * t + (e & 1);
-          const int qrow = q0 + qi;
-          const int key = key0 + (e >> 1) * 8;
-          const bool masked = key >= S || qrow >= S || (causal && key > qrow);
-          ph[e] = masked ? 0.0f : expf(st[e] - sM[qi]);
-          pd[e] = ph[e];
-          float dpd = dpt[e];
-          if constexpr (kDropout) {
-            if (!masked) {  // the forward's (query, key) pair, not (key, query)
-              const float dm = dropout_keep(drs, qrow, key, S);
-              pd[e] *= dm;
-              dpd *= dm;
-            }
+      for (int c = 0; c < 4; ++c) {
+        const int e = 4 * nt + c;
+        const int qrow = q0 + qi + (c & 1);
+        const int key = key0 + (c >> 1) * 8;
+        bool drop_e = false;
+        if constexpr (decltype(edge)::value)
+          drop_e = key >= S || qrow >= S || (causal && key > qrow);
+        const float ph =
+            drop_e ? 0.0f
+                   : exp2_approx(fmaf(st[e], kScale * kLog2e,
+                                      -(c & 1 ? mlq.y : mlq.x)));
+        pd[c] = ph;
+        float dpd = dpt[e];
+        if constexpr (kDropout) {
+          if (!drop_e) {  // the forward's (query, key) pair, not (key, query)
+            const float dm = dropout_keep(drs, qrow, key, S);
+            pd[c] *= dm;
+            dpd *= dm;
           }
-          ds[e] = dscore(ph[e], dpd, sDelta[qi], sLinv[qi]);
         }
-        pf[half * 2 + 0] = pack_bf16x2(pd[0], pd[1]);
-        pf[half * 2 + 1] = pack_bf16x2(pd[2], pd[3]);
-        dsf[half * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
-        dsf[half * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+        // dscore's order: ph·((dp - Δ·linv)·(linv/8))
+        ds[c] = __fmul_rn(ph, __fmul_rn(__fsub_rn(dpd, c & 1 ? ddq.y : ddq.x),
+                                        c & 1 ? dlq.y : dlq.x));
       }
-#pragma unroll
-      for (int nd = 0; nd < kHeadDim / 8; ++nd) {
-        const bf16* vr = sDOLt + (nd * 8 + g) * kPitch + ks * 16 + 2 * t;
-        mma_16816(dv[nd], pf, ld32(vr), ld32(vr + 8));
-        const bf16* qr = sQt + (nd * 8 + g) * kPitch + ks * 16 + 2 * t;
-        mma_16816(dk[nd], dsf, ld32(qr), ld32(qr + 8));
-      }
+      pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(pd[0], pd[1]);
+      pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(pd[2], pd[3]);
+      dsf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
+      dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
     }
+  };
+
+  for (int j = 0; j < w.n_loads; ++j) {
+    const int q0 = (w.q_begin + j) * kRows;
+    const int stg = ring.stage(j);
+    bf16* dol = sm.dol[wg][j & 1];
+    ring.wait_full(j);
+    // Under the causal mask a q tile wholly before this warpgroup's keys
+    // sees none of them.
+    if (!causal || q0 + kRows > kw) {
+      // dol = bf16(dO·linv) into this warpgroup's buffer, 16-byte chunks at
+      // the positions TMA's 128-byte swizzle gives them: chunk c of row r at
+      // byte r·128 + (c ^ (r % 8))·16, as in the dO tile it is read from.
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(sm.dout[stg]);
+      uint8_t* dst = reinterpret_cast<uint8_t*>(dol);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int chunk = wt + 128 * c;
+        const int r = chunk / 8;
+        const int at = r * 128 + ((chunk % 8) ^ (r % 8)) * 16;
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + at);
+        const bf16* x = reinterpret_cast<const bf16*>(&raw);
+        const float li = sm.linv[stg][r];
+        uint4 packed;
+        bf16* y = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          y[u] = __float2bfloat16(__bfloat162float(x[u]) * li);
+        *reinterpret_cast<uint4*>(dst + at) = packed;
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      wgmma_fence();
+      mma_abt(st, k_tile, smem_u32(sm.q[stg]));
+      mma_abt(dpt, v_tile, smem_u32(sm.dout[stg]));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      if ((causal && q0 == kw) || q0 + kRows > S || kw + kRows > S)
+        elementwise(std::true_type{}, q0, stg);
+      else
+        elementwise(std::false_type{}, q0, stg);
+      wgmma_fence();
+      mma_rb(dv, pf, smem_u32(dol));
+      mma_rb(dk, dsf, smem_u32(sm.q[stg]));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pf);
+      fence_regs(dsf);
+    }
+    ring.release(j);
   }
 
-  store_rows(dk, a.dk + offset(a.sdk, b, h), a.sdk.s, key0, S, t);
-  store_rows(dv, a.dv + offset(a.sdv, b, h), a.sdv.s, key0, S, t);
+  store_acc(dk, o.dk + offset(o.sdk, w.b, w.h), o.sdk.s, key0, S, t);
+  store_acc(dv, o.dv + offset(o.sdv, w.b, w.h), o.sdv.s, key0, S, t);
+}
+
+template <bool kDropout>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+unpacked_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, Outputs o,
+                         const float* __restrict__ m_in,
+                         const float* __restrict__ l_in,
+                         const float* __restrict__ delta_in, Dropout drop,
+                         int S, int H, int causal) {
+  DkvSmem& sm = aligned_smem<DkvSmem>();
+  DkvWork w;
+  w.k0 = blockIdx.x * kBlockRows;  // the heaviest key tiles first
+  w.h = blockIdx.y;
+  w.b = blockIdx.z;
+  // Under the causal mask queries before k0 see none of these keys.
+  w.q_begin = causal ? w.k0 / kRows : 0;
+  w.n_loads = (S + kRows - 1) / kRows - w.q_begin;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    sm.ring.init(32, kConsumers / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    dkdv_produce(sm, Maps{&tq, &tk, &tv, &tdo}, w, m_in, l_in, delta_in, S,
+                 H);
+  } else {
+    dkdv_consume<kDropout>(sm, w, o, drop, S, H, causal);
+  }
 }
 
 }  // namespace
+
+// Dynamic shared memory of the dq and dk/dv kernels, bytes (for the build
+// report).
+extern "C" int attention_bwd_smem(int dkdv) {
+  return static_cast<int>(dkdv ? sizeof(DkvSmem) : sizeof(DqSmem)) + 1024;
+}
 
 // q, k, v, dout, dq, dk, dv: (B, H, S, 64) bf16 at the element strides
 // strides[3i .. 3i+2] (batch, head, row) for i = 0..6 in that order, each a
 // multiple of 8, bases 16-byte aligned; m, l: (B, H, S) fp32 from
 // attention_fwd; delta: (B, H, S) fp32 workspace. All contiguous except
 // where strided. seed: the forward's (2,) int32 [seed, offset] with its
-// `threshold` and `scale`, or null for no dropout. Returns the first
-// cudaGetLastError() of the two launches.
+// `threshold` and `scale`, or null for no dropout. Returns the first error
+// of building the tensor maps or of the two launches (cudaGetLastError()).
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* m, const void* l,
                              void* dq, void* dk, void* dv, void* delta,
@@ -330,30 +596,40 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Operands a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
-             static_cast<const bf16*>(v),    static_cast<const bf16*>(dout),
-             static_cast<bf16*>(dq),         static_cast<bf16*>(dk),
-             static_cast<bf16*>(dv),
-             {strides[0], strides[1], strides[2]},
-             {strides[3], strides[4], strides[5]},
-             {strides[6], strides[7], strides[8]},
-             {strides[9], strides[10], strides[11]},
-             {strides[12], strides[13], strides[14]},
-             {strides[15], strides[16], strides[17]},
-             {strides[18], strides[19], strides[20]}};
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = head_map(&tq, q, strides + 0, B, H, S);
+  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
+  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
+  if (!err) err = head_map(&tdo, dout, strides + 9, B, H, S);
+  if (err) return err;
+  const Outputs o{static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                  static_cast<bf16*>(dv),
+                  {strides[12], strides[13], strides[14]},
+                  {strides[15], strides[16], strides[17]},
+                  {strides[18], strides[19], strides[20]}};
+  const dim3 grid((S + kBlockRows - 1) / kBlockRows, H, B);
   const Dropout drop{static_cast<const int*>(seed), threshold, scale};
   auto dq_kernel = seed != nullptr ? &unpacked_bwd_dq_kernel<true>
                                    : &unpacked_bwd_dq_kernel<false>;
   auto dkdv_kernel = seed != nullptr ? &unpacked_bwd_dkdv_kernel<true>
                                      : &unpacked_bwd_dkdv_kernel<false>;
-  dq_kernel<<<grid, kThreads, 0, st>>>(
-      a, static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<float*>(delta), drop, S, H, causal);
-  const int err = static_cast<int>(cudaGetLastError());
+  const int dq_smem = attention_bwd_smem(0);
+  const int dkdv_smem = attention_bwd_smem(1);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem));
+  if (!err)
+    err = static_cast<int>(cudaFuncSetAttribute(
+        dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem));
   if (err) return err;
-  dkdv_kernel<<<grid, kThreads, 0, st>>>(
-      a, static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(delta), drop, S, H, causal);
+  dq_kernel<<<grid, kBlockThreads, dq_smem, st>>>(
+      tq, tk, tv, tdo, o, static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<float*>(delta), drop, S, H,
+      causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  dkdv_kernel<<<grid, kBlockThreads, dkdv_smem, st>>>(
+      tq, tk, tv, tdo, o, static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<const float*>(delta), drop, S,
+      H, causal);
   return static_cast<int>(cudaGetLastError());
 }

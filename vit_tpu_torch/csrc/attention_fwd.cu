@@ -3,43 +3,56 @@
 // Replaces the Pallas kernel vit_tpu/kernels/attention.py:_fa_kernel (:76),
 // launched by _flash_attention_fwd_impl (:172) behind flash_attention
 // (:1294). Same math: o = softmax(mask(q kᵀ / √d)) v over q, k, v of
-// (B, H, S, 64) bf16. 1/√d = 1/8 is folded into q in bf16 (exact: a power of
-// two). Scores, the row max m and the row sum l are fp32; p = exp(s - m) is
-// rounded to bf16 UNNORMALISED for the PV product, which accumulates in fp32,
-// and the result is divided by l and rounded to bf16 (:110-137). The causal
-// mask compares global rows and columns (col <= row) and key padding is
-// col < S, as the Pallas kernel's (:110-116) with its q-block offset.
+// (B, H, S, 64) bf16. Scores are q·kᵀ in fp32 times 1/√d = 1/8 (exact, a
+// power of two: the same values as the products of bf16 q/8). The row max
+// m and the row sum l are fp32; p = exp(s - m) is rounded to bf16
+// UNNORMALISED for the PV product, which accumulates in fp32, and the
+// result is divided by l and rounded to bf16 once (:110-137). exp is the
+// MUFU's ex2 of (s - m)·log2(e) formed in one FMA (hopper.cuh:exp2_approx:
+// a few 1e-6 relative from expf). The causal mask compares global rows and
+// columns (col <= row) and key padding is col < S, as the Pallas kernel's
+// (:110-116) with its q-block offset.
 //
 // Each of q, k, v and the output is addressed through its own (batch, head,
 // row) strides in elements, with unit stride along head_dim, so the head
 // views of a packed (B, S, 3·H·64) projection and an output laid out
-// (B, S, H, 64) need no copies. With m_out/l_out non-null it also writes m and
-// l, fp32, as two contiguous (B, H, S) arrays: the residuals the backward
-// (attention_bwd.cu) rebuilds p from, where the TPU's K7/K8 recompute them.
+// (B, S, H, 64) need no copies: q, k and v are read through 4-D TMA tensor
+// maps (64, S, H, B) at those strides, which fill rows past S with zeros.
+// With m_out/l_out non-null it also writes m and l, fp32, as two contiguous
+// (B, H, S) arrays: the residuals the backward (attention_bwd.cu) rebuilds p
+// from, where the TPU's K7/K8 recompute them.
 //
 // Dropout (kDropout, with a seed vector), as K1's and :118-137: p is
 // multiplied by the mask D of csrc/dropout.cuh after l has summed it and
 // before its bf16 cast (row the global query, column the global key, stride
 // S, stream b·H + h + offset); the saved (m, l) are the unmasked ones.
 //
-// The design is K1's (attention_packed_fwd.cu), not the TPU's blocking: one
-// block per (64-row q tile, head, batch) of four warps, each warp owning 16 q
-// rows, looping over 64-row K/V tiles, so any S works (the TPU kernel pads S
-// to a multiple of its 512-row q block and holds all of K and V in VMEM). Two
-// passes over K: the first for the exact row max, so that p is rounded to
-// bf16 against the row max where the Pallas kernel rounds it; the second for
-// p, l and P·V. Under the causal mask a q tile stops at its own last key, so
-// the wholly masked key tiles are never read.
+// Design (csrc/hopper.cuh has the primitives). One block per (128-row q
+// tile, head, batch): two consumer warpgroups of 64 q rows each and one
+// producer warp. The producer loads the q tile once and streams 64-key
+// tiles through a ring of kStages shared-memory stages by TMA, each stage
+// signalled full by the transaction count of an mbarrier and handed back
+// empty by one arrival from each consumer warp. Two passes over the keys:
+// the first loads k alone and takes the exact row max, so that p is
+// rounded to bf16 against the row max where the Pallas kernel rounds it;
+// the second loads k and v, forms p, sums l and accumulates P·V. Products
+// are wgmma m64n64k16: s = Q·Kᵀ with both operands K-major in shared
+// memory, o += P·V with P packed from the score accumulator straight into
+// A-operand registers and V read MN-major through the transpose bit, so no
+// transposed copy of any tile exists. Masks are compared only on the
+// diagonal tile and the ragged last tile. Under the causal mask a q tile
+// stops at its own last key (a warpgroup skips its wholly masked tile),
+// and the q tiles are launched heaviest first so that the last wave holds
+// the light ones. Two blocks share an SM (at most 112 registers a thread,
+// 2 x 84 KB of shared memory), so that one block's loads and waits overlap
+// the other's products: on the H100 that beat one block with the next
+// tile's scores issued ahead (wgmma in flight during the softmax).
 //
-// What bounds it: per (batch, head) the two products cost 4·S²·64 FLOP
-// (halved under the causal mask; 6·S²·64 with the recomputed q kᵀ) against
-// 4·S·64·2 bytes of q, k, v and output, ≈ S/2 FLOP per byte: 512 at S = 1024,
-// above the H100's bf16 ridge (≈ 295), so the tensor-core issue rate and the
-// fp32 softmax between the products bound it. Products run on the tensor
-// cores (mma.sync m16n8k16, bf16 in, fp32 accumulate), scores and P stay in
-// registers, and V is stored transposed in shared memory so every fragment
-// load is one 32-bit read. wgmma, TMA and a multi-stage pipeline are later
-// work.
+// What bounds it: per (batch, head) the three products (q·kᵀ twice, P·V)
+// cost 6·S²·64 FLOP, halved under the causal mask, against 4·S·64·2 bytes
+// of q, k, v and output: far above the H100's bf16 ridge (≈ 295 FLOP per
+// byte) at S = 1024, so the tensor cores, the MUFU's exp (16 a clock per
+// SM) and the latency of the products' chains bound it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,110 +60,166 @@
 
 #include "attention_tile.cuh"
 #include "dropout.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace vit;
+using namespace vit::hopper;
+
+constexpr int kBlockQ = 128;  // q rows per block: two warpgroups of 64
+constexpr int kKeys = 64;     // keys per ring stage
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;
+constexpr int kBlockThreads = kConsumers + 32;  // + the producer warp
+
+struct alignas(1024) FwdSmem {
+  bf16 q[kBlockQ * 64];
+  bf16 k[kStages][kKeys * 64];
+  bf16 v[kStages][kKeys * 64];
+  Ring<kStages> ring;
+  uint64_t q_full;
+};
+
+// -inf where a score of one warpgroup's 64 rows and one 64-key tile
+// starting at k0 is masked (called on the diagonal and ragged tiles only).
+__device__ __forceinline__ void mask_edge(float (&s)[32], int k0, int row0,
+                                          int S, int causal, int t) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int col = k0 + (e / 4) * 8 + 2 * t + (e & 1);
+    const int row = row0 + ((e / 2) & 1) * 8;
+    if (col >= S || (causal && col > row)) s[e] = -INFINITY;
+  }
+}
+
+// What a block works on: a 128-row q tile of head (b, h), and n_kv key
+// tiles. Loads 0 .. n_kv - 1 bring the k tiles of pass 1, loads n_kv ..
+// 2·n_kv - 1 the k and v tiles of pass 2.
+struct Work {
+  int q0, h, b, n_kv;
+};
+
+__device__ __forceinline__ void produce(FwdSmem& sm, const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, Work w) {
+  Ring<kStages>& ring = sm.ring;
+  mbar_arrive_expect_tx(&sm.q_full, 2 * kTileBytes);
+  tma_load_4d(sm.q, tq, &sm.q_full, 0, w.q0, w.h, w.b);
+  tma_load_4d(sm.q + kKeys * 64, tq, &sm.q_full, 0, w.q0 + kKeys, w.h, w.b);
+  for (int i = 0; i < 2 * w.n_kv; ++i) {
+    const int st = ring.stage(i), k0 = (i % w.n_kv) * kKeys;
+    const bool pass2 = i >= w.n_kv;
+    ring.wait_empty(i);
+    mbar_arrive_expect_tx(&ring.full[st], (pass2 + 1) * kTileBytes);
+    tma_load_4d(sm.k[st], tk, &ring.full[st], 0, k0, w.h, w.b);
+    if (pass2) tma_load_4d(sm.v[st], tv, &ring.full[st], 0, k0, w.h, w.b);
+  }
+}
 
 template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     Dropout drop, Strides sq, Strides sk, Strides sv,
-                     Strides so, int S, int H, int causal) {
-  __shared__ __align__(16) bf16 sQ[kTile * kPitch];
-  __shared__ __align__(16) bf16 sK[kTile * kPitch];
-  __shared__ __align__(16) bf16 sVt[kHeadDim * kPitch];  // [d][kv]
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* qb = q + offset(sq, b, h);
-  const bf16* kb = k + offset(sk, b, h);
-  const bf16* vb = v + offset(sv, b, h);
-
-  const int warp = threadIdx.x / 32;
+__device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
+                                        Strides so, float* m_out,
+                                        float* l_out, Dropout drop, int S,
+                                        int H, int causal) {
+  Ring<kStages>& ring = sm.ring;
+  const int n_kv = w.n_kv;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread within the group
-
-  load_tile<false, false>(sQ, qb + q0 * sq.s, nullptr, S - q0, sq.s, kScale);
-  __syncthreads();
-
-  // This warp's 16 q rows as A fragments, one per 16-wide step of head_dim.
-  uint32_t qf[kHeadDim / 16][4];
-  load_a_rows(qf, sQ + warp * 16 * kPitch, g, t);
-
-  // Each thread holds rows row0 and row0 + 8 of the warp's 16.
-  const int row0 = q0 + warp * 16 + g;
-  const int kv_end = causal ? min(S, q0 + kTile) : S;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = w.q0 + wg * 64;          // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
+  // Key tiles past this warpgroup's diagonal are wholly masked.
+  const int my_kv = causal ? min(n_kv, r0 / kKeys + 1) : n_kv;
+  const uint32_t q_tile = smem_u32(sm.q + wg * 64 * 64);
+  const uint32_t k_base = smem_u32(sm.k[0]);
+  const uint32_t v_base = smem_u32(sm.v[0]);
+  // Scores are taken as q·kᵀ unscaled: 1/8 is applied inside the max
+  // (exact and monotone) and the exponent. Masks are compared on the
+  // diagonal and the ragged last tile only.
+  float s[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.0f;
+  auto scores = [&](int i, int k0) {
+    wgmma_fence();
+    mma_abt(s, q_tile, k_base + ring.stage(i) * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if ((causal && k0 == r0) || k0 + kKeys > S)
+      mask_edge(s, k0, row0, S, causal, t);
+  };
+  mbar_wait(&sm.q_full, 0);
 
   // Pass 1: the exact row max over every unmasked key.
   float m[2] = {-INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous K tile
-    load_tile<false, false>(sK, kb + k0 * sk.s, nullptr, S - k0, sk.s, 1.0f);
-    __syncthreads();
-    float s[kTile / 8][4];
-    scores(s, qf, sK, k0, row0, S, causal, g, t);
+  for (int j = 0; j < n_kv; ++j) {
+    ring.wait_full(j);
+    if (j < my_kv) {
+      scores(j, j * kKeys);
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
-      m[1] = fmaxf(m[1], fmaxf(s[nt][2], s[nt][3]));
+      for (int e = 0; e < 32; ++e)
+        m[(e / 2) & 1] = fmaxf(m[(e / 2) & 1], s[e]);
     }
+    ring.release(j);
   }
   // A row is spread over the 4 threads of a group. Column 0 is valid for
   // every row, so m is finite and no exp below sees (-inf) - (-inf).
+  float ml[2];  // m·log2(e), the shift inside the exponent
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
     m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    m[r] *= kScale;
+    ml[r] = m[r] * kLog2e;
   }
 
   // Pass 2: p = exp(s - m) in fp32, summed unrounded into l, and P (bf16,
   // unnormalised, after the dropout mask) times V accumulated in fp32.
   DropoutStream drs{};
-  if constexpr (kDropout) drs = dropout_stream(drop, b * H + h);
-  float o[kHeadDim / 8][4];
+  if constexpr (kDropout) drs = dropout_stream(drop, w.b * H + w.h);
+  float o[32];
 #pragma unroll
-  for (int nt = 0; nt < kHeadDim / 8; ++nt)
-    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.0f;
+  for (int e = 0; e < 32; ++e) o[e] = 0.0f;
   float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<false, false>(sK, kb + k0 * sk.s, nullptr, S - k0, sk.s, 1.0f);
-    load_tile<true, false>(sVt, vb + k0 * sv.s, nullptr, S - k0, sv.s, 1.0f);
-    __syncthreads();
-    float s[kTile / 8][4];
-    scores(s, qf, sK, k0, row0, S, causal, g, t);
-
-    // P goes to bf16 directly in the A-fragment layout: key step j covers
-    // score tiles 2j and 2j + 1.
-    uint32_t pf[kTile / 16][4];
+  for (int j = 0; j < n_kv; ++j) {
+    const int i = n_kv + j;
+    ring.wait_full(i);
+    if (j < my_kv) {
+      const int k0 = j * kKeys;
+      scores(i, k0);
+      // P to bf16 in the A-operand layout: key step ks covers score tiles
+      // 2ks and 2ks + 1.
+      uint32_t pf[4][4];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float p0 = expf(s[nt][0] - m[0]);
-      float p1 = expf(s[nt][1] - m[0]);
-      float p2 = expf(s[nt][2] - m[1]);
-      float p3 = expf(s[nt][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      if constexpr (kDropout) {
-        const int col = k0 + nt * 8 + 2 * t;
-        p0 *= dropout_at(drs, row0, col, S, causal);
-        p1 *= dropout_at(drs, row0, col + 1, S, causal);
-        p2 *= dropout_at(drs, row0 + 8, col, S, causal);
-        p3 *= dropout_at(drs, row0 + 8, col + 1, S, causal);
+      for (int nt = 0; nt < 8; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          p[c] = exp2_approx(
+              fmaf(s[4 * nt + c], kScale * kLog2e, -ml[c >> 1]));
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+        if constexpr (kDropout) {
+          const int col = k0 + nt * 8 + 2 * t;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            p[c] *= dropout_at(drs, row0 + (c >> 1) * 8, col + (c & 1), S,
+                               causal);
+        }
+        pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(p[0], p[1]);
+        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(p[2], p[3]);
       }
-      pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(p0, p1);
-      pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(p2, p3);
+      wgmma_fence();
+      mma_rb(o, pf, v_base + ring.stage(i) * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pf);
     }
-
-    // o += P v: B fragments are (key, d) pairs read from the transposed V.
-#pragma unroll
-    for (int nt = 0; nt < kHeadDim / 8; ++nt)
-      mma_row<kTile / 16>(o[nt], pf, sVt, kPitch, nt * 8, g, t);
+    ring.release(i);
   }
 
 #pragma unroll
@@ -158,26 +227,58 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  bf16* ob = out + offset(so, b, h);
+  bf16* ob = out + offset(so, w.b, w.h);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
     if (row >= S) continue;
     bf16* orow = ob + static_cast<size_t>(row) * so.s;
 #pragma unroll
-    for (int nt = 0; nt < kHeadDim / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t) =
-          pack_bf16x2(o[nt][2 * r] / l[r], o[nt][2 * r + 1] / l[r]);
+    for (int nt = 0; nt < 8; ++nt) {
+      *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t) = pack_bf16x2(
+          o[4 * nt + 2 * r] / l[r], o[4 * nt + 2 * r + 1] / l[r]);
     }
     if (m_out != nullptr && t == 0) {
-      const size_t i = (static_cast<size_t>(b) * H + h) * S + row;
+      const size_t i = (static_cast<size_t>(w.b) * H + w.h) * S + row;
       m_out[i] = m[r];
       l_out[i] = l[r];
     }
   }
 }
 
+template <bool kDropout>
+__global__ void __launch_bounds__(kBlockThreads, 2)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     bf16* __restrict__ out, Strides so,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     Dropout drop, int S, int H, int causal) {
+  FwdSmem& sm = aligned_smem<FwdSmem>();
+  Work w;
+  w.q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockQ;
+  w.h = blockIdx.y;
+  w.b = blockIdx.z;
+  w.n_kv = ((causal ? min(S, w.q0 + kBlockQ) : S) + kKeys - 1) / kKeys;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    sm.ring.init(1, kConsumers / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one thread
+    if (threadIdx.x == kConsumers) produce(sm, &tq, &tk, &tv, w);
+  } else {
+    consume<kDropout>(sm, w, out, so, m_out, l_out, drop, S, H, causal);
+  }
+}
+
 }  // namespace
+
+// Dynamic shared memory of the K6 kernel, bytes (for the build report).
+extern "C" int attention_fwd_smem() {
+  return static_cast<int>(sizeof(FwdSmem)) + 1024;
+}
 
 // q, k, v, out: (B, H, S, 64) bf16 at the element strides
 // strides[0..2] (q), [3..5] (k), [6..8] (v), [9..11] (out), each (batch,
@@ -185,25 +286,29 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // fp32, contiguous, or both null for no stats; seed: (2,) int32 [seed,
 // offset] on the device for dropout with `threshold` and `scale`
 // (csrc/dropout.cuh), or null for none. Returns cudaGetLastError() after the
-// launch.
+// launch, or the error of building a tensor map.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              void* out, void* m, void* l, const void* seed,
                              const long long* strides, int B, int S, int H,
                              int causal, unsigned int threshold, float scale,
                              void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
+  CUtensorMap tq, tk, tv;
+  int err = head_map(&tq, q, strides + 0, B, H, S);
+  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
+  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
+  if (err) return err;
   const Strides so{strides[9], strides[10], strides[11]};
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   const Dropout drop{static_cast<const int*>(seed), threshold, scale};
   auto kernel = seed != nullptr ? &attention_fwd_kernel<true>
                                 : &attention_fwd_kernel<false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), drop, sq, sk, sv, so, S,
-      H, causal);
+  const int smem = attention_fwd_smem();
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err) return err;
+  kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<bf16*>(out), so, static_cast<float*>(m),
+      static_cast<float*>(l), drop, S, H, causal);
   return static_cast<int>(cudaGetLastError());
 }

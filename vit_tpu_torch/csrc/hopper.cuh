@@ -1,0 +1,351 @@
+// Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
+// TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
+// (wgmma.mma_async m64n64k16, bf16 in, fp32 accumulate) that the unpacked
+// attention kernels (K6, K7/K8) are built from, and the host side of their
+// tensor maps.
+//
+// Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
+// row) and lands in shared memory through a tensor map built with
+// CU_TENSOR_MAP_SWIZZLE_128B: row r of a tile sits at byte r·128, its
+// 16-byte chunk c at chunk c ^ (r % 8). A tile's base is 1024-byte aligned
+// (one swizzle period of 8 rows), so a wgmma descriptor with base offset 0
+// reads it. Such a tile serves a product in two ways:
+//   K-major: the tile's rows are the product's M or N rows and its 64
+//     columns the reduction, e.g. K in s = Q·Kᵀ. Descriptor stride byte
+//     offset (8-row group to 8-row group) 1024; a 16-wide step of the
+//     reduction advances the start address by 32 bytes inside the swizzled
+//     row, as the hardware applies the XOR to the final address.
+//   MN-major (the transpose bit): the tile's rows are the reduction and its
+//     64 columns the N dimension, e.g. V in o = P·V. One swizzle atom spans
+//     all 64 columns; 8-row groups of the reduction are 1024 bytes apart and
+//     a 16-row step advances the start address by 2048 bytes. No transposed
+//     copy of the tile is ever made.
+//
+// Accumulator layout of m64nN (fp32), per thread of a warpgroup with warp w
+// (0..3), g = lane / 4 and t = lane % 4: d[4j + 2r + c] = D[16w + g + 8r]
+// [8j + 2t + c], i.e. mma.sync m16n8's C layout for each 8-column tile j, on
+// the warp's 16 rows. A register A operand (m64k16) is mma.sync m16n8k16's
+// A fragment on the warp's 16 rows: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
+// a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]. So two neighbouring 8-column
+// accumulator tiles repack to bf16 as one A step, and a score tile feeds the
+// next product without a trip through shared memory.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace vit {
+namespace hopper {
+
+constexpr int kTileRows = 64;                     // rows of one TMA box
+constexpr uint32_t kTileBytes = kTileRows * 128;  // one 64 x 64 bf16 tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory, its base rounded up to 1024 bytes (launchers
+// ask for sizeof(T) + 1024).
+template <typename T>
+__device__ __forceinline__ T& aligned_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  return *reinterpret_cast<T*>(smem_raw + ((1024u - (base & 1023u)) & 1023u));
+}
+
+// ---- mbarrier ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA); then a
+// __syncthreads() before any thread uses them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A fresh barrier
+// counts its (nonexistent) phase of parity 1 as completed, so a producer
+// waiting for free slots starts at parity 1 and a consumer at parity 0.
+// A wait that never ends (a fault in the pipeline's bookkeeping) traps
+// after 2^28 polls, so the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A ring of kStages shared-memory stages that a producer fills and the
+// consumers drain, its barriers addressed by a load's place i in the
+// sequence of loads through it: stage i % kStages, in that stage's lap
+// i / kStages.
+template <int kStages>
+struct Ring {
+  uint64_t full[kStages], empty[kStages];
+
+  // `producers` arrivals (one of them with the TMA byte count) fill a
+  // stage, one arrival from each of `consumer_warps` warps frees it. One
+  // thread calls this.
+  __device__ void init(uint32_t producers, uint32_t consumer_warps) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], producers);
+      mbar_init(&empty[s], consumer_warps);
+    }
+  }
+  __device__ static int stage(int i) { return i % kStages; }
+  __device__ void wait_full(int i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+  }
+  __device__ void wait_empty(int i) {
+    mbar_wait(&empty[i % kStages], ((i / kStages) & 1) ^ 1);
+  }
+  // Every thread of a consumer warp calls this when it is done with load i;
+  // the warp arrives once.
+  __device__ void release(int i) {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[i % kStages]);
+  }
+};
+
+// exp(x) for attention's shifted scores, as the single MUFU instruction
+// ex2.approx of an argument already scaled by log2(e) (callers fold the
+// scaling and the shift into one FMA). Relative error about 2^-22 beyond
+// that of the rounded argument: a few 1e-6 where expf is within one ulp.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- TMA -----------------------------------------------------------------
+
+// One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst`; completion is counted on `bar` in
+// bytes. Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by threads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15) over `threads` threads, e.g. one warpgroup.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte swizzled tile at `addr`:
+// start address, leading and stride byte offsets (all >> 4), layout 1 =
+// 128B swizzle in bits 62-63.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major: the leading offset is unused under the swizzle (1 by convention).
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return desc_sw128(addr, 16, 1024);
+}
+
+// MN-major: 8-row groups of the reduction 1024 bytes apart; the leading
+// offset (the next 64-column atom) is never reached at N = 64.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return desc_sw128(addr, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Tells the compiler that registers change here, so no read of an
+// accumulator moves above a wgmma_wait and no write of it below a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define VIT_ACC32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define VIT_ACC32_LIST                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (+)= A·B, m64n64k16: A and B from shared memory through descriptors;
+// kTransB = 1 reads B MN-major. scale_d = 0 overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VIT_ACC32_LIST
+      ", %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : VIT_ACC32(d)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// d += A·B, m64n64k16: A from registers (one k16 step of A fragments), B
+// from shared memory; kTransB = 1 reads B MN-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VIT_ACC32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : VIT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(kTransB));
+}
+
+#undef VIT_ACC32
+#undef VIT_ACC32_LIST
+
+// d = A·Bᵀ over a reduction of 64: A (64 rows) and B (64 rows) both K-major
+// tiles at shared addresses a and b, e.g. s = Q·Kᵀ. Issues 4 wgmmas; the
+// caller fences, commits and waits.
+__device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a,
+                                        uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_ss<0>(d, desc_k(a + 32 * ks), desc_k(b + 32 * ks), ks > 0);
+}
+
+// d += A·B over a reduction of 64: A as register fragments, one per 16-wide
+// step, B a tile at shared address b read MN-major (its rows the reduction),
+// e.g. o += P·V.
+__device__ __forceinline__ void mma_rb(float (&d)[32],
+                                       const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_rs<1>(d, a[ks], desc_mn(b + 2048 * ks));
+}
+
+// ---- host: tensor maps ---------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so the library does not link libcuda.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The tensor map of one unpacked bf16 operand (B, H, S, 64) with element
+// strides st = (batch, head, row) and unit stride along head_dim: 4-D
+// (64, S, H, B), boxes of 64 x 64 rows of one head, 128-byte swizzle, zeros
+// past S. Strides of a dimension of size 1 are never used and are given as
+// the row stride. Returns 0 or a cudaError_t.
+inline int head_map(CUtensorMap* map, const void* base, const long long* st,
+                    int B, int H, int S) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t row = static_cast<cuuint64_t>(st[2]) * 2;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      row, H > 1 ? static_cast<cuuint64_t>(st[1]) * 2 : row,
+      B > 1 ? static_cast<cuuint64_t>(st[0]) * 2 : row};
+  const cuuint32_t box[4] = {64, kTileRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+}  // namespace hopper
+}  // namespace vit

@@ -21,6 +21,7 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
   attention_fwd.cu         K6   attention.py:172 (_fa_kernel :76)
   attention_bwd.cu         K7   attention.py:441 (_fa_bwd_kernel :201)
                            K8   attention.py:395 (_fa_bwd_tiled_kernel :284)
+                                (both on hopper.cuh: TMA, mbarrier, wgmma)
   ln_matmul.cu             K9a  ln_matmul.py:121 (_fwd_kernel :60)
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
                            K9c  ln_matmul.py:190 (_ln_bwd_kernel :78)
@@ -152,6 +153,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     #               S, H, causal, ...)
     lib.attention_bwd.argtypes = [ptr] * 11 + [strides] + [i32] * 4 + drop
     lib.attention_bwd.restype = i32
+    # Their dynamic shared memory in bytes: attention_fwd_smem(),
+    # attention_bwd_smem(dkdv) (0: the dq kernel, 1: the dk/dv kernel)
+    lib.attention_fwd_smem.argtypes = []
+    lib.attention_bwd_smem.argtypes = [i32]
+    lib.attention_fwd_smem.restype = lib.attention_bwd_smem.restype = i32
     # convnext_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, y, N, C, eps,
     #                   stream)
     lib.convnext_tail_fwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]

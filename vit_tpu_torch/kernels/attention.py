@@ -552,8 +552,9 @@ def _check_unpacked(ts: "tuple[torch.Tensor, ...]", kernel: str) -> None:
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the unpacked kernels read it: unit stride along head_dim,
-    the other strides multiples of 8 and a 16-byte aligned base (8 values
-    are read at a time); anything else is copied."""
+    the other strides multiples of 8 and a 16-byte aligned base (the bf16
+    kernels' TMA tensor maps take 16-byte strides and bases, the fp32 forms
+    read 16 bytes at a time); anything else is copied."""
     if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) \
             or t.data_ptr() % 16:
         t = t.contiguous()
