@@ -41,10 +41,15 @@ false``. Phases, one JSON line each:
                 (``F.scaled_dot_product_attention`` for the attention
                 kernels, with the backend it picked; ``F.linear`` for K9a,
                 ``torch.mm`` for K10, ``F.conv2d`` and its backward for
-                K11a/K11b, ``torch._int_mm`` for K12a/K12b); K7 at its own
-                shape (2, 12, 513); the dropout arms of K1/K2 at ViT-L's
-                (64, 257, 16 heads, rate 0.15), K6/K8 at (32, 12, 1024)
-                causal and K7 at (2, 12, 513) causal (rate 0.1), each
+                K11a/K11b, ``torch._int_mm`` for K12a/K12b); K1/K2 also at
+                the ViT shapes (4, 197, 12 heads) and (4, 257, 16 heads),
+                with the ptxas figures of their kernels (the kBias forms of
+                K6's and K7/K8's); the wgmma backwards (K2, K7/K8 and their
+                dropout arms) within ``WGMMA_BWD_MEAN_REL`` of mean |plain|,
+                which a control (ph rounded to bf16 early) must fail; K7 at
+                its own shape (2, 12, 513); the dropout arms of K1/K2 at
+                ViT-L's (64, 257, 16 heads, rate 0.15), K6/K8 at (32, 12,
+                1024) causal and K7 at (2, 12, 513) causal (rate 0.1), each
                 against its plain version with the same seed vector, the
                 dropped fraction within 5σ of the rate, their times with
                 and without dropout beside SDPA's with ``dropout_p`` (its
@@ -214,6 +219,14 @@ K1_STATS_REL = 1e-4   # fp32 m and l: the same products summed in another order
 # value one ulp apart rounds one bf16 ulp (2^-8 relative) the other way, and
 # that difference travels through the next product.
 BWD_MAX_REL, BWD_MEAN_REL = 2e-2, 1e-2
+# The wgmma backwards (K2, K7/K8 and their dropout arms) keep the plain
+# versions' rounding points, so their outputs differ from the plain
+# versions' only where an fp32 value one ulp apart rounds the other way.
+# Mean readings on an H100: 1.6e-7 to 4.0e-6 for dq, dk, dv (dqkv), up to
+# 8.0e-6 for K2's fp32 dbias (its dropout arm). The limit is 10× the
+# largest; rounded_ph_control, ph rounded to bf16 before Δ and ds take it,
+# reads 2.5e-3 to 3.1e-3 and must fail it.
+WGMMA_BWD_MEAN_REL = 8e-5
 K5_TIE_GAP = 1e-6   # the kernel's fp32 scores of order 1e-3 against fp64
 K5_PLAIN_ULPS = 8   # the plain version's fp32 distance, in ulps of its terms
 # Kernels vs plain versions through the whole bf16 model: one ulp of
@@ -700,7 +713,8 @@ def phase_build() -> None:
 
 def hopper_attention_ptxas() -> dict:
     """ptxas's report (registers, spills) and the dynamic shared memory of
-    the Hopper attention kernels (K6, K7/K8's dq and dk/dv kernels)."""
+    the Hopper attention kernels (K6, K7/K8's dq and dk/dv kernels, and
+    their kBias instantiations, K1 and K2)."""
     lib = _build.load()
     smem = dict(attention_fwd_kernel=lib.attention_fwd_smem(),
                 unpacked_bwd_dq_kernel=lib.attention_bwd_smem(0),
@@ -711,18 +725,27 @@ def hopper_attention_ptxas() -> dict:
             if name.split("<")[0] in smem}
 
 
-def phase_kernels() -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def packed_kernels(gen) -> dict:
+    """K1 and K2 against their plain versions at the paths' shapes (TiTok-B's
+    S 320 at bs 8 and 64, ViT-B/16's S 197 and ViT-L/16's S 257 with their
+    ragged last tiles, VideoGPT's frozen-tokenizer encode, ragged causal
+    tiles and the longest S), their times at the flagship step's shape (K1
+    also at the serving bs 8), the ptxas figures of their kernels (the
+    kBias instantiations of K6's and K7/K8's), and the control that the
+    wgmma backwards' mean limit must reject."""
     summary = {}
+    build = hopper_attention_ptxas()
 
-    # K1: bf16 with bias; the serving and train steps' shapes, a ragged
-    # causal tile, longest S, and the VideoGPT step's frozen TiTok-S encode
-    # (bs 32 · 16 frames, S 128, 6 heads, no stats on the path). With stats
-    # the output must be the same bits, m and l fp32-close.
+    # K1: bf16 with bias; the serving and train steps' shapes, the ViT
+    # shapes, a ragged causal tile, longest S, and the VideoGPT step's
+    # frozen TiTok-S encode (bs 32 · 16 frames, S 128, 6 heads, no stats on
+    # the path). With stats the output must be the same bits, m and l
+    # fp32-close.
     k1_max, k1_rows = 0.0, []
     for b, s, h, causal in [(8, 320, 12, False), (TRAIN_BS, 320, 12, False),
                             (3, 77, 12, True), (2, 768, 12, False),
-                            (VIDEO_BS * VIDEOGPT["max_frames"], 128, 6, False)]:
+                            (VIDEO_BS * VIDEOGPT["max_frames"], 128, 6, False),
+                            (4, 197, 12, False), (4, 257, 16, False)]:
         width = h * 64
         qkv = torch.randn(b, s, 3 * width, device="cuda",
                           generator=gen).bfloat16()
@@ -774,18 +797,22 @@ def phase_kernels() -> dict:
          plain_ms_bs8=times[8][2], ms_bs64=times[64][0],
          stats_ms_bs64=times[64][1], plain_ms_bs64=times[64][2],
          sdpa_ms_bs64=lib_ms, sdpa_backend=sdpa_backend(q, k, v, False),
-         bound_bs64=k1_bound, shape="(bs, S 320, 3·768) bf16, 12 heads")
+         bound_bs64=k1_bound, shape="(bs, S 320, 3·768) bf16, 12 heads",
+         build={n: r for n, r in build.items()
+                if n.startswith("attention_fwd") and packed_form(n)})
     summary["attention_packed_fwd"] = dict(
         max_abs_err=k1_max, ms=times[64][1], plain_ms=times[64][2],
         bound_ms=k1_bound["bound_ms"], bound_by=k1_bound["bound_by"],
         library_ms=lib_ms)
 
-    # K2: the flagship step's shape, a ragged causal one, the longest S, and
-    # S not a multiple of 8; (m, l) from K1, the same for kernel and plain.
+    # K2: the flagship step's shape, a ragged causal one, the longest S, S
+    # not a multiple of 8, and the ViT shapes; (m, l) from K1, the same for
+    # kernel and plain.
     k2_max, k2_rows = 0.0, []
-    for b, s, causal in [(64, 320, False), (3, 77, True), (2, 768, False),
-                         (2, 130, True)]:
-        h, width = 12, 768
+    for b, s, h, causal in [(64, 320, 12, False), (3, 77, 12, True),
+                            (2, 768, 12, False), (2, 130, 12, True),
+                            (4, 197, 12, False), (4, 257, 16, False)]:
+        width = h * 64
         qkv = torch.randn(b, s, 3 * width, device="cuda",
                           generator=gen).bfloat16()
         bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
@@ -805,7 +832,8 @@ def phase_kernels() -> dict:
                 f"K2 non-finite at {row}")
         for key in ("dqkv", "dbias"):
             require(row[key]["max_rel"] <= BWD_MAX_REL
-                    and row[key]["mean_rel"] <= BWD_MEAN_REL,
+                    and row[key]["mean_rel"] <= BWD_MEAN_REL
+                    and row[key]["mean_rel"] <= WGMMA_BWD_MEAN_REL,
                     f"K2 disagrees with its plain version: {row}")
         k2_max = max(k2_max, row["dqkv"]["max_abs"])
     b, s = TRAIN_BS, 320
@@ -817,18 +845,60 @@ def phase_kernels() -> dict:
                                                           l, 12, False))
     k2_plain = median_ms(lambda: k_attn.attention_packed_bwd_ref(
         qkv, bias, dout, m, l, 12, False))
-    lib = sdpa_backward_ms(*k_attn.split_heads(qkv, 12, bias),
-                           dout.reshape(b, s, 12, 64).transpose(1, 2), False)
+    heads = k_attn.split_heads(qkv, 12, bias)
+    dh = dout.reshape(b, s, 12, 64).transpose(1, 2)
+    lib = sdpa_backward_ms(*heads, dh, False)
+    control = rounded_ph_control(*heads, dh, m, l)
     k2_bound = attention_bound(b, 12, s, False, True,
                                extra_bytes=3 * 768 * (4 + 4))  # fp32 bias in, dbias out
     emit("kernel", name="attention_packed_bwd", parity=k2_rows,
-         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                        wgmma_mean_rel=WGMMA_BWD_MEAN_REL),
+         mean_limit_control=control,
          ms_bs64=k2_ms, plain_ms_bs64=k2_plain, sdpa_bs64=lib,
-         bound_bs64=k2_bound, shape="(64, S 320, 3·768) bf16, 12 heads")
+         bound_bs64=k2_bound, shape="(64, S 320, 3·768) bf16, 12 heads",
+         build={n: r for n, r in build.items()
+                if n.startswith("unpacked") and packed_form(n)})
     summary["attention_packed_bwd"] = dict(
         max_abs_err=k2_max, ms=k2_ms, plain_ms=k2_plain,
         bound_ms=k2_bound["bound_ms"], bound_by=k2_bound["bound_by"],
         library_ms=lib["backward_ms"])
+    del qkv, bias, dout, m, l, heads, dh
+    torch.cuda.empty_cache()
+    return summary
+
+
+def rounded_ph_control(q, k, v, dout, m, l) -> dict:
+    """The control of ``WGMMA_BWD_MEAN_REL``: the plain backward
+    (``kernels/attention.py:_attention_bwd_f32``, no mask, no dropout) with
+    one early rounding, ph rounded to bf16 before Δ and ds take it, as a
+    kernel that kept p in bf16 would. Its dq and dk, held against the plain
+    version as the kernels are, must fail the limit."""
+    dt = q.dtype
+    ph = torch.exp(k_attn._scores(q, k, False) - m[..., None]).to(dt).float()
+    linv = 1.0 / l[..., None]
+    dp = dout.float() @ v.float().transpose(-1, -2)
+    delta = (ph * dp).sum(-1, keepdim=True)
+    ds = (ph * ((dp - delta * linv) * (0.125 * linv))).to(dt).float()
+    got = dict(dq=ds @ k.float(), dk=ds.transpose(-1, -2) @ q.float())
+    del ph, dp, ds
+    refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, False)
+    row = {name: rel_errors(got[name].to(dt), ref)
+           for name, ref in zip(("dq", "dk"), refs)}
+    require(all(r["mean_rel"] > WGMMA_BWD_MEAN_REL for r in row.values()),
+            f"the rounded-ph control passes the mean limit: {row}")
+    return row
+
+
+def packed_form(kernel: str) -> bool:
+    """Whether a Hopper attention kernel's name is its kBias instantiation
+    (K1, K2): ``attention_fwd_kernel<kDropout, kBias>`` and the like."""
+    return kernel.endswith(", true>")
+
+
+def phase_kernels() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    summary = packed_kernels(gen)
 
     # K3 / K4: the three fused stages of ConvNeXt-S at bs 64, and ragged N.
     # γ of order 1 (not the init's 1e-6) so the tail shows in y.
@@ -1050,7 +1120,8 @@ def unpacked_kernels(gen) -> dict:
             require(bool(torch.isfinite(g).all()),
                     f"K7/K8 {name} non-finite at {row}")
             require(row[name]["max_rel"] <= BWD_MAX_REL
-                    and row[name]["mean_rel"] <= BWD_MEAN_REL,
+                    and row[name]["mean_rel"] <= BWD_MEAN_REL
+                    and row[name]["mean_rel"] <= WGMMA_BWD_MEAN_REL,
                     f"K7/K8 disagrees with its plain version: {row}")
             k8_max = max(k8_max, row[name]["max_abs"])
         del q, k, v, dout, grads, refs
@@ -1102,12 +1173,15 @@ def unpacked_kernels(gen) -> dict:
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
                         stats_rel=K1_STATS_REL),
          bound=k6_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
-         build={n: r for n, r in build.items() if n.startswith("attention")},
+         build={n: r for n, r in build.items()
+                if n.startswith("attention") and not packed_form(n)},
          **k6)
     emit("kernel", name="attention_bwd", parity=k8_rows,
-         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                        wgmma_mean_rel=WGMMA_BWD_MEAN_REL),
          bound=k8_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
-         build={n: r for n, r in build.items() if n.startswith("unpacked")},
+         build={n: r for n, r in build.items()
+                if n.startswith("unpacked") and not packed_form(n)},
          **k8)
     summary["attention_fwd"] = dict(
         max_abs_err=k6_max, ms=k6["stats_ms"], plain_ms=k6["plain_ms"],
@@ -1253,7 +1327,8 @@ def dropout_kernels(gen) -> dict:
     for key in ("dqkv", "dbias"):
         require(bool(torch.isfinite(dqkv).all())
                 and k2[key]["max_rel"] <= BWD_MAX_REL
-                and k2[key]["mean_rel"] <= BWD_MEAN_REL,
+                and k2[key]["mean_rel"] <= BWD_MEAN_REL
+                and k2[key]["mean_rel"] <= WGMMA_BWD_MEAN_REL,
                 f"K2 with dropout disagrees with its plain version: {k2}")
     del dqkv_ref, dbias_ref
     torch.cuda.empty_cache()
@@ -1288,7 +1363,8 @@ def dropout_kernels(gen) -> dict:
          sdpa_note="SDPA draws its own Philox mask: its time only",
          shape="(64, S 257, 3·1024) bf16, 16 heads, rate 0.15")
     emit("kernel", name="attention_packed_bwd", what="dropout arm",
-         parity=k2, tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         parity=k2, tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                                   wgmma_mean_rel=WGMMA_BWD_MEAN_REL),
          sdpa_note="SDPA draws its own Philox mask: its time only",
          shape="(64, S 257, 3·1024) bf16, 16 heads, rate 0.15")
     summary["attention_packed_fwd"] = dict(
@@ -1330,7 +1406,9 @@ def dropout_kernels(gen) -> dict:
         torch.cuda.empty_cache()
         for key in ("out", "dq", "dk", "dv"):
             require(row[key]["max_rel"] <= BWD_MAX_REL
-                    and row[key]["mean_rel"] <= BWD_MEAN_REL,
+                    and row[key]["mean_rel"] <= BWD_MEAN_REL
+                    and (key == "out"
+                         or row[key]["mean_rel"] <= WGMMA_BWD_MEAN_REL),
                     f"{name} with dropout disagrees with its plain version: "
                     f"{row}")
         require(all(bool(torch.isfinite(t).all()) for t in (out, *grads))
@@ -1363,6 +1441,7 @@ def dropout_kernels(gen) -> dict:
          K7_shape="(2, 12, S 513, 64) bf16 causal",
          sdpa_note="SDPA draws its own Philox mask: its time only",
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                        wgmma_mean_rel_dq_dk_dv=WGMMA_BWD_MEAN_REL,
                         dropped_sigmas=DROP_SIGMAS), **rows)
     k8 = rows["K8"]
     summary["attention_fwd"] = dict(
@@ -3545,9 +3624,10 @@ def main() -> None:
                         for name in gpt_dropout}
 
     sources = {
-        "attention_packed_fwd": ("vit_tpu_torch/csrc/attention_packed_fwd.cu",
+        # K1 and K2: the kBias instantiations of K6's and K7/K8's kernels
+        "attention_packed_fwd": ("vit_tpu_torch/csrc/attention_fwd.cu",
                                  "vit_tpu/kernels/attention.py:623"),
-        "attention_packed_bwd": ("vit_tpu_torch/csrc/attention_packed_bwd.cu",
+        "attention_packed_bwd": ("vit_tpu_torch/csrc/attention_bwd.cu",
                                  "vit_tpu/kernels/attention.py:824"),
         "convnext_tail_fwd": ("vit_tpu_torch/csrc/convnext_tail.cu",
                               "vit_tpu/kernels/convnext_block.py:89"),

@@ -1,22 +1,25 @@
-"""Time the bf16 kernels and the VideoGPT-B step of one or more checkouts
-of this repo on one card, in turns, so that two versions are compared
-within one call.
+"""Time the bf16 kernels and three train steps of one or more checkouts of
+this repo on one card, in turns, so that two versions are compared within
+one call.
 
     python -m vit_tpu_torch.bench_kernels --trees OLD . . OLD \
         [--out chiprun_out/bench_kernels.json]
 
 Each entry of ``--trees`` is a checkout's root; each runs in a process of
 its own that imports ``vit_tpu_torch`` from that checkout, builds its
-kernels into that checkout's ``build/`` and times K1 (with statistics),
-K2, K3, K4, K5, K6 (with statistics), K8, K9a, K9b, K9c, K10, K11a, K11b,
-K12a and K12b, the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
+kernels into that checkout's ``build/`` and times K1 (with statistics;
+and without, at the serving bs 8), K2, K3, K4, K5, K6 (with statistics),
+K8, K9a, K9b, K9c, K10, K11a, K11b, K12a and K12b, the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
 at rate 0.15) and K6/K8 (rate 0.1), K7 at (2, 12, 513) and K6 on the
 rollout's prefill (513 causal, bs 8 and 1), at ``chip_smoke.py``'s shapes:
 CUDA-event medians of 20 calls after 3, the same seeded inputs in every
-process. Each turn then times the VideoGPT-B bs-32 train step with the
-names of that checkout's root ``chip_smoke.py`` (``TiTok``, ``VideoGPT``,
-``make_videogpt_train_step``, ``make_optimizer``, ``host_median_ms`` and
-the rest used in ``videogpt_step_ms``), so every root must carry one that
+process. Each turn then times three train steps with the names of that
+checkout's root ``chip_smoke.py``: the VideoGPT-B bs-32 step, the flagship
+TiTok-B unfused bs-64 step and the ViT-L/16 @256 bs-64 step at dropout
+0.15 (``TiTok``, ``VideoGPT``, ``FLAGSHIP``, ``VIT_CELLS``,
+``train_inputs``, ``vit_batch``, the step makers, ``make_optimizer``,
+``host_median_ms`` and the rest used in ``videogpt_step_ms``,
+``titok_step_ms`` and ``vit_step_ms``), so every root must carry one that
 defines them. Prints one JSON line per turn and a table of each time by
 checkout and turn.
 """
@@ -80,6 +83,8 @@ def time_kernels() -> dict:
                                           emit_stats=True)
     ms["K1"] = median_ms(lambda: k_attn.attention_packed_fwd(
         qkv, bias, 12, False, emit_stats=True))
+    ms["K1 bs8"] = median_ms(lambda: k_attn.attention_packed_fwd(
+        qkv[:8], bias, 12, False))
     ms["K2"] = median_ms(lambda: k_attn.attention_packed_bwd(
         qkv, bias, dout, m, l, 12, False))
     qkv, bias = r(64, 257, 3 * 1024).bfloat16(), r(3 * 1024)
@@ -187,6 +192,64 @@ def videogpt_step_ms() -> float:
                                       torch.cuda.synchronize()), 6)
 
 
+def titok_step_ms() -> float:
+    """The flagship TiTok-B unfused bs-64 train step, set up as
+    ``chip_smoke.py``'s train phase sets up the steps it times: its model
+    (``FLAGSHIP``, weights from seed 0), ``train_inputs``' perceptual loss
+    and batch, and the optimizer of its timed steps (``make_optimizer(1e-4,
+    2, 1_000_000, 1e-5, 1e-4, clip_norm=1.0)``). The phase times after 21
+    earlier steps and a plain-version step, and its model has served the
+    slice and timing phases first; this times a fresh model after two
+    warm-up steps. Both take the host-clock median of 6 synchronised
+    steps."""
+    import torch
+
+    import chip_smoke as cs
+
+    model = cs.TiTok(cs.TiTokConfig(**cs.FLAGSHIP))
+    cs.init_params_(model, torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    perceptual, images = cs.train_inputs(model)
+    usage = torch.zeros(model.config.codebook_size, device="cuda")
+    step = cs.make_tokenizer_train_step(model, perceptual_loss_fn=perceptual)
+    state = cs.TrainState.create(model, cs.make_optimizer(
+        1e-4, 2, 1_000_000, 1e-5, 1e-4, clip_norm=1.0))
+    for _ in range(2):
+        step(state, images, usage)
+    torch.cuda.synchronize()
+    return cs.host_median_ms(lambda: (step(state, images, usage),
+                                      torch.cuda.synchronize()), 6)
+
+
+def vit_step_ms() -> float:
+    """The ViT-L/16 @256 bs-64 train step at dropout 0.15, set up as
+    ``chip_smoke.py``'s vit phase sets up that cell's timed steps: its
+    ``VIT_CELLS`` entry, weights from seed 0, ``vit_batch``, the optimizer
+    of its timed steps (``make_optimizer(1e-5, 2, 500000, 1e-6, 1e-2,
+    clip_norm=None)``) and a dropout generator from seed 1. The phase times
+    after 11 earlier steps and two plain-version passes; this after two
+    warm-up steps. Both take the host-clock median of 6 synchronised
+    steps."""
+    import torch
+
+    import chip_smoke as cs
+
+    size, patch, preset, rate = cs.VIT_CELLS["vit_l16_256_drop0.15"]
+    model = cs.ViTClassifier(cs.ViTConfig(size, 3, patch, preset, 1, rate),
+                             cs.VIT_CLASSES, device="cuda")
+    cs.init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+    images, labels = cs.vit_batch(size)
+    step = cs.make_classifier_train_step(model)
+    state = cs.TrainState.create(model, cs.make_optimizer(
+        1e-5, 2, 500000, 1e-6, 1e-2, clip_norm=None))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(2):
+        step(state, images, labels, gen)
+    torch.cuda.synchronize()
+    return cs.host_median_ms(lambda: (step(state, images, labels, gen),
+                                      torch.cuda.synchronize()), 6)
+
+
 def worker(root: str) -> None:
     """One turn: import the checkout at ``root`` and print its times."""
     sys.path.insert(0, root)
@@ -199,7 +262,11 @@ def worker(root: str) -> None:
         raise SystemExit(f"imported vit_tpu_torch from {where}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     ms = time_kernels()
-    ms["VideoGPT-B step"] = videogpt_step_ms()
+    for name, fn in (("VideoGPT-B step", videogpt_step_ms),
+                     ("TiTok-B step", titok_step_ms),
+                     ("ViT-L step", vit_step_ms)):
+        ms[name] = fn()
+        torch.cuda.empty_cache()
     print(json.dumps({"tree": root, "ms": ms}), flush=True)
 
 
@@ -237,9 +304,10 @@ def main(argv=None) -> list:
     name = card()
     print(f"card: {name}")
     kernels = list(turns[0]["ms"])
-    print("kernel      " + "  ".join(f"{t['arg']}#{t['turn']}" for t in turns))
+    print("kernel           " + "  ".join(f"{t['arg']}#{t['turn']}"
+                                          for t in turns))
     for k in kernels:
-        print(f"{k:10s}  " + "  ".join(f"{t['ms'][k]:.3f}" for t in turns))
+        print(f"{k:15s}  " + "  ".join(f"{t['ms'][k]:.3f}" for t in turns))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": name, "turns": turns},

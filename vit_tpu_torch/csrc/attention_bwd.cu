@@ -1,6 +1,7 @@
-// K7/K8: unpacked attention backward for Hopper (sm_90a).
+// K7/K8, unpacked attention backward, and K2, its packed form, for Hopper
+// (sm_90a).
 //
-// Replaces both Pallas backward kernels of the unpacked attention:
+// K7/K8 replaces both Pallas backward kernels of the unpacked attention:
 // vit_tpu/kernels/attention.py:_fa_bwd_kernel (:201, K7, launched by
 // _flash_attention_bwd_impl :441 for S <= 768) and _fa_bwd_tiled_kernel
 // (:284, K8, launched by _flash_attention_bwd_tiled_impl :395 for S > 768,
@@ -27,7 +28,23 @@
 // exactly; exp is K6's (hopper.cuh:exp2_approx of the log2(e)-scaled
 // argument), so ph is the forward's p.
 //
-// Dropout (kDropout, with the forward's seed vector), as K2's: each pass
+// K2 (kBias, the entry attention_packed_bwd) replaces _fa_packed_bwd_kernel
+// (:824), launched by _packed_bwd_impl (:1072), with the same math (:888-952)
+// over the UNBIASED packed projection qkv_nb (B, S, 3D) and its (3D,) bias:
+// q, k and v are qkv_nb's head views (strides (S·3D, 64, 3D), column
+// offsets 0, D, 2D), dO is (B, S, D), and dq, dk, dv are the strided views
+// of dqkv (B, S, 3D). The bias is added in shared memory as K1 adds it
+// (attention_fwd.cu, hopper.cuh:add_bias_tile): every q, k and v tile is
+// rewritten bf16(x + b) when its load completes, fenced to the async proxy
+// and passed through a named barrier before a wgmma reads it (rows past S
+// stay zero). K2 also returns the bias gradient (:986-1011, :1091): the
+// fp32 column sums of dq, dk and dv before their bf16 cast. Each block sums
+// its 128 rows (over a thread's two rows, the 8 row groups of a warp by
+// shuffles, then the 8 consumer warps in order in shared memory) into its
+// row of a partial array (B·⌈S/128⌉, 3D), and column_total_kernel adds the
+// rows in order, so the gradient is the same from run to run.
+//
+// Dropout (kDropout, with the forward's seed vector), as :916-942: each pass
 // hashes the mask D of csrc/dropout.cuh again (:251-274, :329-352); dp is
 // multiplied by D before Δ and ds take it, dv takes bf16(D·ph), and the
 // dk/dv kernel hashes the forward's (query, key) pair in its transposed tile.
@@ -59,6 +76,9 @@
 // products ~15%), so it is specialised: the masks are compared only on
 // diagonal and ragged tiles (a second instantiation of each loop), and the
 // row constants are read once per tile.
+//
+// K2's shapes are short (S 197-320): a block walks only 4-5 key or query
+// tiles a pass, and the last 128-row tile is ragged.
 //
 // What bounds it: the minimal backward is 5 products of 2·S²·64 FLOP per
 // (batch, head), halved by the causal mask; this design spends 9 (q·kᵀ and
@@ -95,6 +115,7 @@ struct alignas(1024) DqSmem {
   bf16 v[kStages][kRows * 64];
   Ring<kStages> ring;
   uint64_t qd_full;
+  alignas(16) bf16 bias[3][64];  // kBias: this head's q, k and v bias
 };
 
 struct alignas(1024) DkvSmem {
@@ -113,6 +134,7 @@ struct alignas(1024) DkvSmem {
   float d_delta[kStages][kRows], d_linv[kStages][kRows];
   Ring<kStages> ring;
   uint64_t kv_full;
+  alignas(16) bf16 bias[3][64];  // kBias: this head's q, k and v bias
 };
 
 struct Outputs {
@@ -121,6 +143,47 @@ struct Outputs {
   bf16* dv;
   Strides sdq, sdk, sdv;
 };
+
+// kBias (K2): the packed (3·H·64,) bias and the partial column sums of the
+// bias gradient, (B·⌈S/128⌉, 3·H·64) fp32: row b·⌈S/128⌉ + (a block's
+// first row) / 128.
+struct PackedBias {
+  const bf16* bias;
+  float* part;
+};
+
+// The fp32 column sums of the block's 128 x 64 accumulator, whose thread
+// holds d[4j + 2r + c] = D[16w + g + 8r][8j + 2t + c] for consumer warp w
+// (0..7), into out[0..64): a thread's two rows, then the 8 row groups of a
+// warp (shuffles), then the 8 warps in order through `red` (8 x 64 floats of
+// shared memory no wgmma reads any more). Every consumer thread calls it.
+__device__ __forceinline__ void column_sums(const float (&acc)[32],
+                                            float* red, float* out) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  // every warp is done with `red` (another call's) and with its wgmmas
+  named_barrier(3, kConsumers);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = acc[4 * j + c] + acc[4 * j + 2 + c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * 64 + 8 * j + 2 * t + c] = v;
+    }
+  }
+  named_barrier(3, kConsumers);
+  if (threadIdx.x < 64) {
+    float v = red[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kConsumers / 32; ++w) v += red[w * 64 + threadIdx.x];
+    out[threadIdx.x] = v;
+  }
+}
 
 // Rows row0 and row0 + 8 of a warpgroup's 64 x 64 accumulator to bf16 at
 // `dst` (row r at dst + r·stride), skipping rows at or past S.
@@ -171,9 +234,9 @@ __device__ __forceinline__ void dq_produce(DqSmem& sm, Maps t, DqWork w) {
   }
 }
 
-template <bool kDropout>
+template <bool kDropout, bool kBias>
 __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
-                                           const float* m_in,
+                                           PackedBias pb, const float* m_in,
                                            const float* l_in,
                                            float* delta_out, Dropout drop,
                                            int S, int H, int causal) {
@@ -200,6 +263,16 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
     wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
+  };
+  // kBias: the K and V tiles of load i, biased by all 256 consumers before
+  // either warpgroup's products read them.
+  auto bias_kv = [&](int i, int k0) {
+    add_bias_tile<kConsumers>(sm.k[ring.stage(i)], sm.bias[1], S - k0,
+                              threadIdx.x);
+    add_bias_tile<kConsumers>(sm.v[ring.stage(i)], sm.bias[2], S - k0,
+                              threadIdx.x);
+    fence_proxy_async();
+    named_barrier(3, kConsumers);
   };
 
   // Padded rows get m = 0, l = 1: their dO is zero, so dp, Δ and ds vanish
@@ -234,6 +307,12 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
   mbar_wait(&sm.qd_full, 0);
+  if constexpr (kBias) {
+    add_bias_tile<128>(sm.q + wg * kRows * 64, sm.bias[0], S - r0,
+                       threadIdx.x % 128);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
 
   // Pass 1: Δ = Σ_keys ph·(D·dp) for this thread's two rows.
   float delta[2] = {0.0f, 0.0f};
@@ -249,6 +328,7 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
   };
   for (int j = 0; j < n_kv; ++j) {
     ring.wait_full(j);
+    if constexpr (kBias) bias_kv(j, j * kRows);
     if (j < my_kv) scores(s, dp, j);
     ring.release(j);
     if (j >= my_kv) continue;
@@ -300,6 +380,7 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
   for (int j = 0; j < n_kv; ++j) {
     const int i = n_kv + j;
     ring.wait_full(i);
+    if constexpr (kBias) bias_kv(i, j * kRows);
     if (j < my_kv) {
       const int k0 = j * kRows;
       scores(s, dp, i);
@@ -318,15 +399,20 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
   }
 
   store_acc(dq, o.dq + offset(o.sdq, w.b, w.h), o.sdq.s, row0, S, t);
+  if constexpr (kBias) {
+    const size_t row = static_cast<size_t>(w.b) * gridDim.x + w.q0 / kBlockRows;
+    column_sums(dq, reinterpret_cast<float*>(sm.dout),
+                pb.part + row * 3 * H * 64 + w.h * 64);
+  }
 }
 
-template <bool kDropout>
+template <bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 unpacked_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap tdo, Outputs o,
-                       const float* __restrict__ m_in,
+                       PackedBias pb, const float* __restrict__ m_in,
                        const float* __restrict__ l_in,
                        float* __restrict__ delta_out, Dropout drop, int S,
                        int H, int causal) {
@@ -341,11 +427,13 @@ unpacked_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     sm.ring.init(1, kConsumers / 32);
     mbar_init_fence();
   }
+  if constexpr (kBias) load_head_bias(sm.bias, pb.bias, w.h, H);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {  // the producer warp: one thread
     if (threadIdx.x == kConsumers) dq_produce(sm, Maps{&tq, &tk, &tv, &tdo}, w);
   } else {
-    dq_consume<kDropout>(sm, w, o, m_in, l_in, delta_out, drop, S, H, causal);
+    dq_consume<kDropout, kBias>(sm, w, o, pb, m_in, l_in, delta_out, drop, S,
+                                H, causal);
   }
 }
 
@@ -413,10 +501,11 @@ __device__ __forceinline__ void dkdv_produce(DkvSmem& sm, Maps t, DkvWork w,
   }
 }
 
-template <bool kDropout>
+template <bool kDropout, bool kBias>
 __device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
-                                             Outputs o, Dropout drop, int S,
-                                             int H, int causal) {
+                                             Outputs o, PackedBias pb,
+                                             Dropout drop, int S, int H,
+                                             int causal) {
   Ring<kStages>& ring = sm.ring;
   const int wg = threadIdx.x / 128;
   const int wt = threadIdx.x % 128;
@@ -436,6 +525,12 @@ __device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
 #pragma unroll
   for (int e = 0; e < 32; ++e) st[e] = dpt[e] = dk[e] = dv[e] = 0.0f;
   mbar_wait(&sm.kv_full, 0);
+  if constexpr (kBias) {
+    add_bias_tile<128>(sm.k + wg * kRows * 64, sm.bias[1], S - kw, wt);
+    add_bias_tile<128>(sm.v + wg * kRows * 64, sm.bias[2], S - kw, wt);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
 
   // phᵀ, bf16(D·ph)ᵀ and dsᵀ of one (64-key, 64-query) tile into the A
   // operands pf and dsf: score e is key key0 + ((e / 2) & 1)·8 and query
@@ -490,7 +585,12 @@ __device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
     ring.wait_full(j);
     // Under the causal mask a q tile wholly before this warpgroup's keys
     // sees none of them.
-    if (!causal || q0 + kRows > kw) {
+    const bool active = !causal || q0 + kRows > kw;
+    // kBias: both warpgroups bias the shared q tile, then meet (below) at a
+    // barrier over all 256 consumers, which also covers the dol writes.
+    if constexpr (kBias)
+      add_bias_tile<kConsumers>(sm.q[stg], sm.bias[0], S - q0, threadIdx.x);
+    if (active) {
       // dol = bf16(dO·linv) into this warpgroup's buffer, 16-byte chunks at
       // the positions TMA's 128-byte swizzle gives them: chunk c of row r at
       // byte r·128 + (c ^ (r % 8))·16, as in the dO tile it is read from.
@@ -511,8 +611,16 @@ __device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
           y[u] = __float2bfloat16(__bfloat162float(x[u]) * li);
         *reinterpret_cast<uint4*>(dst + at) = packed;
       }
+    }
+    if constexpr (kBias) {
       fence_proxy_async();
-      named_barrier(1 + wg, 128);
+      named_barrier(3, kConsumers);
+    }
+    if (active) {
+      if constexpr (!kBias) {
+        fence_proxy_async();
+        named_barrier(1 + wg, 128);
+      }
       wgmma_fence();
       mma_abt(st, k_tile, smem_u32(sm.q[stg]));
       mma_abt(dpt, v_tile, smem_u32(sm.dout[stg]));
@@ -539,15 +647,24 @@ __device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
 
   store_acc(dk, o.dk + offset(o.sdk, w.b, w.h), o.sdk.s, key0, S, t);
   store_acc(dv, o.dv + offset(o.sdv, w.b, w.h), o.sdv.s, key0, S, t);
+  if constexpr (kBias) {
+    const int D = H * 64;
+    float* prow = pb.part +
+                  (static_cast<size_t>(w.b) * gridDim.x + w.k0 / kBlockRows) *
+                      3 * D + w.h * 64;
+    float* red = reinterpret_cast<float*>(sm.dol);
+    column_sums(dk, red, prow + D);
+    column_sums(dv, red, prow + 2 * D);
+  }
 }
 
-template <bool kDropout>
+template <bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 unpacked_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo, Outputs o,
-                         const float* __restrict__ m_in,
+                         PackedBias pb, const float* __restrict__ m_in,
                          const float* __restrict__ l_in,
                          const float* __restrict__ delta_in, Dropout drop,
                          int S, int H, int causal) {
@@ -564,22 +681,96 @@ unpacked_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     sm.ring.init(32, kConsumers / 32);
     mbar_init_fence();
   }
+  if constexpr (kBias) load_head_bias(sm.bias, pb.bias, w.h, H);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {  // the producer warp
     dkdv_produce(sm, Maps{&tq, &tk, &tv, &tdo}, w, m_in, l_in, delta_in, S,
                  H);
   } else {
-    dkdv_consume<kDropout>(sm, w, o, drop, S, H, causal);
+    dkdv_consume<kDropout, kBias>(sm, w, o, pb, drop, S, H, causal);
   }
+}
+
+// out[c] = Σ_r part[r][c], rows in order: the same sum in every run.
+__global__ void column_total_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int rows,
+                                    int cols) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  float acc = 0.0f;
+  for (int r = 0; r < rows; ++r) acc += part[static_cast<size_t>(r) * cols + c];
+  out[c] = acc;
+}
+
+constexpr int kDqSmemBytes = static_cast<int>(sizeof(DqSmem)) + 1024;
+constexpr int kDkvSmemBytes = static_cast<int>(sizeof(DkvSmem)) + 1024;
+
+// The tensor maps and the launches of the dq and dk/dv kernels <kDropout,
+// kBias>: K7/K8 with pb.bias null, K2 with its bias and partial sums.
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* m, const void* l, void* dq, void* dk, void* dv,
+           void* delta, PackedBias pb, const void* seed,
+           const long long* strides, int B, int S, int H, int causal,
+           unsigned int threshold, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = head_map(&tq, q, strides + 0, B, H, S);
+  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
+  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
+  if (!err) err = head_map(&tdo, dout, strides + 9, B, H, S);
+  if (err) return err;
+  const Outputs o{static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                  static_cast<bf16*>(dv),
+                  {strides[12], strides[13], strides[14]},
+                  {strides[15], strides[16], strides[17]},
+                  {strides[18], strides[19], strides[20]}};
+  const dim3 grid((S + kBlockRows - 1) / kBlockRows, H, B);
+  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
+  const int dr = seed != nullptr, bi = pb.bias != nullptr;
+  using DqKernel = decltype(&unpacked_bwd_dq_kernel<false, false>);
+  using DkvKernel = decltype(&unpacked_bwd_dkdv_kernel<false, false>);
+  const DqKernel dq_kernels[2][2] = {
+      {&unpacked_bwd_dq_kernel<false, false>,
+       &unpacked_bwd_dq_kernel<false, true>},
+      {&unpacked_bwd_dq_kernel<true, false>,
+       &unpacked_bwd_dq_kernel<true, true>}};
+  const DkvKernel dkdv_kernels[2][2] = {
+      {&unpacked_bwd_dkdv_kernel<false, false>,
+       &unpacked_bwd_dkdv_kernel<false, true>},
+      {&unpacked_bwd_dkdv_kernel<true, false>,
+       &unpacked_bwd_dkdv_kernel<true, true>}};
+  const DqKernel dq_kernel = dq_kernels[dr][bi];
+  const DkvKernel dkdv_kernel = dkdv_kernels[dr][bi];
+  err = static_cast<int>(cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes));
+  if (!err)
+    err = static_cast<int>(cudaFuncSetAttribute(
+        dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDkvSmemBytes));
+  if (err) return err;
+  dq_kernel<<<grid, kBlockThreads, kDqSmemBytes, st>>>(
+      tq, tk, tv, tdo, o, pb, static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<float*>(delta), drop, S, H,
+      causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  dkdv_kernel<<<grid, kBlockThreads, kDkvSmemBytes, st>>>(
+      tq, tk, tv, tdo, o, pb, static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<const float*>(delta), drop, S,
+      H, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory of the dq and dk/dv kernels, bytes (for the build
-// report).
+// Dynamic shared memory of the dq and dk/dv kernels (K7/K8 and K2), bytes
+// (for the build report).
 extern "C" int attention_bwd_smem(int dkdv) {
-  return static_cast<int>(dkdv ? sizeof(DkvSmem) : sizeof(DqSmem)) + 1024;
+  return dkdv ? kDkvSmemBytes : kDqSmemBytes;
 }
+
+// Rows of q (dq kernel) or keys (dk/dv kernel) per block: K2's partial
+// column sums have B·⌈S / this⌉ rows.
+extern "C" int attention_bwd_block_rows() { return kBlockRows; }
 
 // q, k, v, dout, dq, dk, dv: (B, H, S, 64) bf16 at the element strides
 // strides[3i .. 3i+2] (batch, head, row) for i = 0..6 in that order, each a
@@ -595,41 +786,46 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              int S, int H, int causal, unsigned int threshold,
                              float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
+  return launch(q, k, v, dout, m, l, dq, dk, dv, delta, PackedBias{},
+                seed, strides, B, S, H, causal, threshold, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+// K2. qkv: (B, S, 3·H·64) bf16; bias: (3·H·64,) bf16; dout: (B, S, H·64)
+// bf16; m, l: (B, H, S) fp32 from attention_packed_fwd; dqkv: (B, S, 3·H·64)
+// bf16; dbias: (3·H·64,) fp32. Workspace: delta (B, H, S) fp32 and part
+// (B·⌈S/attention_bwd_block_rows()⌉, 3·H·64) fp32. All contiguous and
+// 16-byte aligned. seed, threshold and scale as attention_bwd's. Returns
+// the first error of the maps or the three launches.
+extern "C" int attention_packed_bwd(const void* qkv, const void* bias,
+                                    const void* dout, const void* m,
+                                    const void* l, void* dqkv, void* dbias,
+                                    void* delta, void* part, const void* seed,
+                                    int B, int S, int H, int causal,
+                                    unsigned int threshold, float scale,
+                                    void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap tq, tk, tv, tdo;
-  int err = head_map(&tq, q, strides + 0, B, H, S);
-  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
-  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
-  if (!err) err = head_map(&tdo, dout, strides + 9, B, H, S);
+  const long long D = static_cast<long long>(H) * 64;
+  // (batch, head, row) strides of q, k, v, dO, dq, dk, dv: dO's of (B, S,
+  // D), the others' of the packed (B, S, 3D)
+  const long long packed[3] = {S * 3 * D, 64, 3 * D}, rows[3] = {S * D, 64, D};
+  long long strides[21];
+  for (int i = 0; i < 7; ++i)
+    for (int j = 0; j < 3; ++j)
+      strides[3 * i + j] = i == 3 ? rows[j] : packed[j];
+  const bf16* x = static_cast<const bf16*>(qkv);
+  bf16* dx = static_cast<bf16*>(dqkv);
+  const PackedBias pb{static_cast<const bf16*>(bias),
+                      static_cast<float*>(part)};
+  int err = launch(x, x + D, x + 2 * D, dout, m, l, dx, dx + D, dx + 2 * D,
+                   delta, pb, seed, strides, B, S, H, causal, threshold, scale,
+                   st);
   if (err) return err;
-  const Outputs o{static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                  static_cast<bf16*>(dv),
-                  {strides[12], strides[13], strides[14]},
-                  {strides[15], strides[16], strides[17]},
-                  {strides[18], strides[19], strides[20]}};
-  const dim3 grid((S + kBlockRows - 1) / kBlockRows, H, B);
-  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
-  auto dq_kernel = seed != nullptr ? &unpacked_bwd_dq_kernel<true>
-                                   : &unpacked_bwd_dq_kernel<false>;
-  auto dkdv_kernel = seed != nullptr ? &unpacked_bwd_dkdv_kernel<true>
-                                     : &unpacked_bwd_dkdv_kernel<false>;
-  const int dq_smem = attention_bwd_smem(0);
-  const int dkdv_smem = attention_bwd_smem(1);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem));
-  if (!err)
-    err = static_cast<int>(cudaFuncSetAttribute(
-        dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem));
-  if (err) return err;
-  dq_kernel<<<grid, kBlockThreads, dq_smem, st>>>(
-      tq, tk, tv, tdo, o, static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<float*>(delta), drop, S, H,
-      causal);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  dkdv_kernel<<<grid, kBlockThreads, dkdv_smem, st>>>(
-      tq, tk, tv, tdo, o, static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<const float*>(delta), drop, S,
-      H, causal);
+  const int cols = static_cast<int>(3 * D);
+  const int part_rows = B * ((S + kBlockRows - 1) / kBlockRows);
+  column_total_kernel<<<(cols + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dbias), part_rows,
+      cols);
   return static_cast<int>(cudaGetLastError());
 }

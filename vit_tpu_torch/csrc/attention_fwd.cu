@@ -1,17 +1,20 @@
-// K6: unpacked attention forward for Hopper (sm_90a).
+// K6, unpacked attention forward, and K1, its packed form, for Hopper
+// (sm_90a).
 //
-// Replaces the Pallas kernel vit_tpu/kernels/attention.py:_fa_kernel (:76),
-// launched by _flash_attention_fwd_impl (:172) behind flash_attention
-// (:1294). Same math: o = softmax(mask(q kᵀ / √d)) v over q, k, v of
-// (B, H, S, 64) bf16. Scores are q·kᵀ in fp32 times 1/√d = 1/8 (exact, a
-// power of two: the same values as the products of bf16 q/8). The row max
-// m and the row sum l are fp32; p = exp(s - m) is rounded to bf16
-// UNNORMALISED for the PV product, which accumulates in fp32, and the
-// result is divided by l and rounded to bf16 once (:110-137). exp is the
-// MUFU's ex2 of (s - m)·log2(e) formed in one FMA (hopper.cuh:exp2_approx:
-// a few 1e-6 relative from expf). The causal mask compares global rows and
-// columns (col <= row) and key padding is col < S, as the Pallas kernel's
-// (:110-116) with its q-block offset.
+// K6 replaces the Pallas kernel vit_tpu/kernels/attention.py:_fa_kernel
+// (:76), launched by _flash_attention_fwd_impl (:172) behind flash_attention
+// (:1294). K1 (kBias, the entry attention_packed_fwd) replaces
+// _fa_packed_kernel (:623), launched by _packed_fwd_impl (:790) behind
+// flash_attention_packed (:1269). Same math: o = softmax(mask(q kᵀ / √d)) v
+// over q, k, v of (B, H, S, 64) bf16. Scores are q·kᵀ in fp32 times
+// 1/√d = 1/8 (exact, a power of two: the same values as the products of
+// bf16 q/8). The row max m and the row sum l are fp32; p = exp(s - m) is
+// rounded to bf16 UNNORMALISED for the PV product, which accumulates in
+// fp32, and the result is divided by l and rounded to bf16 once
+// (:110-137). exp is the MUFU's ex2 of (s - m)·log2(e) formed in one FMA
+// (hopper.cuh:exp2_approx: a few 1e-6 relative from expf). The causal mask
+// compares global rows and columns (col <= row) and key padding is col < S,
+// as the Pallas kernel's (:110-116) with its q-block offset.
 //
 // Each of q, k, v and the output is addressed through its own (batch, head,
 // row) strides in elements, with unit stride along head_dim, so the head
@@ -22,7 +25,24 @@
 // (B, H, S) arrays: the residuals the backward (attention_bwd.cu) rebuilds p
 // from, where the TPU's K7/K8 recompute them.
 //
-// Dropout (kDropout, with a seed vector), as K1's and :118-137: p is
+// K1 reads the UNBIASED packed projection qkv_nb (B, S, 3D), columns
+// (three h d), through the same maps: q, k and v are its head views at
+// strides (S·3D, 64, 3D) from column offsets 0, D and 2D, and the output
+// (B, S, D) is a strided out. The (3D,) bias is added in bf16 as the Pallas
+// kernel adds it (:670-676), bf16(x + b), in shared memory: when a q, k or
+// v tile's load completes, the consumers rewrite it in place
+// (hopper.cuh:add_bias_tile), fence the writes to the async proxy and meet
+// at a named barrier before any wgmma reads it. Rows past S stay TMA's
+// zeros. A K or V stage is shared by both warpgroups, so all 256 consumers
+// bias it together; each warpgroup biases its own q rows. The Pallas
+// kernel's bf16(bf16(x + b)·1/8) equals the fp32 accumulator's 1/8 below
+// (a power of two). A copy of qkv with the bias added would be another
+// B·S·3D round trip, which the fused bias avoids. On the H100 K1 takes
+// 12-21% longer than K6 on a biased copy's views, mostly for the barrier
+// a tile; biasing the ring's tiles in the producer warp instead, ahead of
+// the products, took 1.5-1.6x K6's time (one warp's 32 lanes fall behind).
+//
+// Dropout (kDropout, with a seed vector), as :118-137 and :699-715: p is
 // multiplied by the mask D of csrc/dropout.cuh after l has summed it and
 // before its bf16 cast (row the global query, column the global key, stride
 // S, stream b·H + h + offset); the saved (m, l) are the unmasked ones.
@@ -79,6 +99,7 @@ struct alignas(1024) FwdSmem {
   bf16 v[kStages][kKeys * 64];
   Ring<kStages> ring;
   uint64_t q_full;
+  alignas(16) bf16 bias[3][64];  // kBias: this head's q, k and v bias
 };
 
 // -inf where a score of one warpgroup's 64 rows and one 64-key tile
@@ -117,7 +138,7 @@ __device__ __forceinline__ void produce(FwdSmem& sm, const CUtensorMap* tq,
   }
 }
 
-template <bool kDropout>
+template <bool kDropout, bool kBias>
 __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
                                         Strides so, float* m_out,
                                         float* l_out, Dropout drop, int S,
@@ -151,12 +172,30 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
     if ((causal && k0 == r0) || k0 + kKeys > S)
       mask_edge(s, k0, row0, S, causal, t);
   };
+  // kBias: the K (and in pass 2 the V) tile of load i, biased by all 256
+  // consumers before either warpgroup's products read it.
+  auto bias_kv = [&](int i, int k0, bool with_v) {
+    add_bias_tile<kConsumers>(sm.k[ring.stage(i)], sm.bias[1], S - k0,
+                              threadIdx.x);
+    if (with_v)
+      add_bias_tile<kConsumers>(sm.v[ring.stage(i)], sm.bias[2], S - k0,
+                                threadIdx.x);
+    fence_proxy_async();
+    named_barrier(3, kConsumers);
+  };
   mbar_wait(&sm.q_full, 0);
+  if constexpr (kBias) {
+    add_bias_tile<128>(sm.q + wg * 64 * 64, sm.bias[0], S - r0,
+                       threadIdx.x % 128);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
 
   // Pass 1: the exact row max over every unmasked key.
   float m[2] = {-INFINITY, -INFINITY};
   for (int j = 0; j < n_kv; ++j) {
     ring.wait_full(j);
+    if constexpr (kBias) bias_kv(j, j * kKeys, false);
     if (j < my_kv) {
       scores(j, j * kKeys);
 #pragma unroll
@@ -187,6 +226,7 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
   for (int j = 0; j < n_kv; ++j) {
     const int i = n_kv + j;
     ring.wait_full(i);
+    if constexpr (kBias) bias_kv(i, j * kKeys, true);
     if (j < my_kv) {
       const int k0 = j * kKeys;
       scores(i, k0);
@@ -246,14 +286,15 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
   }
 }
 
-template <bool kDropout>
+template <bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kBlockThreads, 2)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     bf16* __restrict__ out, Strides so,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     Dropout drop, int S, int H, int causal) {
+                     const bf16* __restrict__ bias, bf16* __restrict__ out,
+                     Strides so, float* __restrict__ m_out,
+                     float* __restrict__ l_out, Dropout drop, int S, int H,
+                     int causal) {
   FwdSmem& sm = aligned_smem<FwdSmem>();
   Work w;
   w.q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockQ;
@@ -265,20 +306,53 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     sm.ring.init(1, kConsumers / 32);
     mbar_init_fence();
   }
+  if constexpr (kBias) load_head_bias(sm.bias, bias, w.h, H);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {  // the producer warp: one thread
     if (threadIdx.x == kConsumers) produce(sm, &tq, &tk, &tv, w);
   } else {
-    consume<kDropout>(sm, w, out, so, m_out, l_out, drop, S, H, causal);
+    consume<kDropout, kBias>(sm, w, out, so, m_out, l_out, drop, S, H,
+                             causal);
   }
+}
+
+constexpr int kSmemBytes = static_cast<int>(sizeof(FwdSmem)) + 1024;
+
+// The tensor maps and the launch of attention_fwd_kernel<kDropout, kBias>:
+// K6 with bias null, K1 with its (3·H·64,) bias.
+int launch(const void* q, const void* k, const void* v, const bf16* bias,
+           void* out, void* m, void* l, const void* seed,
+           const long long* strides, int B, int S, int H, int causal,
+           unsigned int threshold, float scale, void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  CUtensorMap tq, tk, tv;
+  int err = head_map(&tq, q, strides + 0, B, H, S);
+  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
+  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
+  if (err) return err;
+  const Strides so{strides[9], strides[10], strides[11]};
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
+  using Kernel = decltype(&attention_fwd_kernel<false, false>);
+  const Kernel kernels[2][2] = {
+      {&attention_fwd_kernel<false, false>, &attention_fwd_kernel<false, true>},
+      {&attention_fwd_kernel<true, false>, &attention_fwd_kernel<true, true>}};
+  const Kernel kernel = kernels[seed != nullptr][bias != nullptr];
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
+  if (err) return err;
+  kernel<<<grid, kBlockThreads, kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, bias, static_cast<bf16*>(out), so, static_cast<float*>(m),
+      static_cast<float*>(l), drop, S, H, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory of the K6 kernel, bytes (for the build report).
-extern "C" int attention_fwd_smem() {
-  return static_cast<int>(sizeof(FwdSmem)) + 1024;
-}
+// Dynamic shared memory of the K6 and K1 kernels, bytes (for the build
+// report).
+extern "C" int attention_fwd_smem() { return kSmemBytes; }
 
 // q, k, v, out: (B, H, S, 64) bf16 at the element strides
 // strides[0..2] (q), [3..5] (k), [6..8] (v), [9..11] (out), each (batch,
@@ -292,23 +366,27 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const long long* strides, int B, int S, int H,
                              int causal, unsigned int threshold, float scale,
                              void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  CUtensorMap tq, tk, tv;
-  int err = head_map(&tq, q, strides + 0, B, H, S);
-  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
-  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
-  if (err) return err;
-  const Strides so{strides[9], strides[10], strides[11]};
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  const Dropout drop{static_cast<const int*>(seed), threshold, scale};
-  auto kernel = seed != nullptr ? &attention_fwd_kernel<true>
-                                : &attention_fwd_kernel<false>;
-  const int smem = attention_fwd_smem();
-  err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  if (err) return err;
-  kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<bf16*>(out), so, static_cast<float*>(m),
-      static_cast<float*>(l), drop, S, H, causal);
-  return static_cast<int>(cudaGetLastError());
+  return launch(q, k, v, nullptr, out, m, l, seed, strides, B, S, H, causal,
+                threshold, scale, stream);
+}
+
+// K1. qkv: (B, S, 3·H·64) bf16, contiguous, 16-byte aligned; bias: (3·H·64,)
+// bf16, 16-byte aligned; out: (B, S, H·64) bf16, contiguous; m, l, seed,
+// threshold and scale as attention_fwd's. Returns as attention_fwd.
+extern "C" int attention_packed_fwd(const void* qkv, const void* bias,
+                                    void* out, void* m, void* l,
+                                    const void* seed, int B, int S, int H,
+                                    int causal, unsigned int threshold,
+                                    float scale, void* stream) {
+  const long long D = static_cast<long long>(H) * 64;
+  // (batch, head, row) strides of q, k, v (the packed (B, S, 3D)) and out
+  // (B, S, D)
+  const long long packed[3] = {S * 3 * D, 64, 3 * D}, rows[3] = {S * D, 64, D};
+  long long strides[12];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j)
+      strides[3 * i + j] = i == 3 ? rows[j] : packed[j];
+  const bf16* x = static_cast<const bf16*>(qkv);
+  return launch(x, x + D, x + 2 * D, static_cast<const bf16*>(bias), out, m,
+                l, seed, strides, B, S, H, causal, threshold, scale, stream);
 }

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
-// (wgmma.mma_async m64n64k16, bf16 in, fp32 accumulate) that the unpacked
-// attention kernels (K6, K7/K8) are built from, and the host side of their
-// tensor maps.
+// (wgmma.mma_async m64n64k16, bf16 in, fp32 accumulate) that the attention
+// kernels (K6, K7/K8 and their packed forms K1, K2) are built from, and the
+// host side of their tensor maps.
 //
 // Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
 // row) and lands in shared memory through a tensor map built with
@@ -29,10 +29,17 @@
 // a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]. So two neighbouring 8-column
 // accumulator tiles repack to bf16 as one A step, and a score tile feeds the
 // next product without a trip through shared memory.
+//
+// Threads may rewrite a tile in place before a wgmma reads it (the packed
+// attention's bias, add_bias_tile): each writer fences its generic-proxy
+// writes with fence_proxy_async(), then a named barrier over the threads
+// that issue the wgmmas; without the fence a wgmma can read the bytes TMA
+// wrote, which gives wrong numbers and no fault.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -173,6 +180,46 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1..15) over `threads` threads, e.g. one warpgroup.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Two bf16 sums a + b, each rounded once to nearest even (a·1 + b).
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(0x3F803F80u), "r"(b));
+  return d;
+}
+
+// Adds `bias` (64 bf16 in shared memory, 16-byte aligned) to rows [0, rows)
+// of a 64 x 64 bf16 tile that TMA wrote with the 128-byte swizzle, in place:
+// x = bf16(x + b), one rounding of the exact sum (bf16x2 fma by 1), as
+// the packed projection's bias is added before the products. kThreads threads
+// share the tile, thread `tid` taking the 16-byte chunks tid, tid +
+// kThreads, ...: chunk i is row i / 8, stored chunk i % 8, which holds the
+// columns of logical chunk (i % 8) ^ (row % 8). With kThreads a multiple of
+// 64 that logical chunk is the same for all of a thread's chunks, so each
+// thread reads its 8 bias values once. Rows at or past `rows` (TMA's zero
+// fill past S) stay zero. The caller fences and synchronises after it.
+template <int kThreads>
+__device__ __forceinline__ void add_bias_tile(void* tile,
+                                              const __nv_bfloat16* bias,
+                                              int rows, int tid) {
+  static_assert(kThreads % 64 == 0, "one bias chunk per thread");
+  const int c = (tid % 8) ^ ((tid / 8) % 8);
+  const uint4 b = *reinterpret_cast<const uint4*>(bias + 8 * c);
+  uint4* chunks = reinterpret_cast<uint4*>(tile);
+#pragma unroll
+  for (int j = 0; j < kTileRows * 8 / kThreads; ++j) {
+    const int i = tid + j * kThreads;
+    if (i / 8 >= rows) continue;
+    uint4 x = chunks[i];
+    x.x = add_bf16x2(x.x, b.x);
+    x.y = add_bf16x2(x.y, b.y);
+    x.z = add_bf16x2(x.z, b.z);
+    x.w = add_bf16x2(x.w, b.w);
+    chunks[i] = x;
+  }
 }
 
 // ---- wgmma ---------------------------------------------------------------

@@ -13,15 +13,18 @@ module.
 
 The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
 
-  attention_packed_fwd.cu  K1   attention.py:790 (_fa_packed_kernel :623)
-  attention_packed_bwd.cu  K2   attention.py:1072 (_fa_packed_bwd_kernel :824)
+  attention_fwd.cu         K6   attention.py:172 (_fa_kernel :76)
+                           K1   attention.py:790 (_fa_packed_kernel :623),
+                                K6's kernel with the bias stage (kBias)
+  attention_bwd.cu         K7   attention.py:441 (_fa_bwd_kernel :201)
+                           K8   attention.py:395 (_fa_bwd_tiled_kernel :284)
+                           K2   attention.py:1072 (_fa_packed_bwd_kernel
+                                :824), K7/K8's kernels with kBias
+                                (both sources on hopper.cuh: TMA, mbarrier,
+                                wgmma)
   convnext_tail.cu         K3   convnext_block.py:248 (_fwd_kernel :89)
                            K4   convnext_block.py:276 (_bwd_kernel :109)
   vq_nearest.cu            K5   vq.py:83 (_vq_kernel :36)
-  attention_fwd.cu         K6   attention.py:172 (_fa_kernel :76)
-  attention_bwd.cu         K7   attention.py:441 (_fa_bwd_kernel :201)
-                           K8   attention.py:395 (_fa_bwd_tiled_kernel :284)
-                                (both on hopper.cuh: TMA, mbarrier, wgmma)
   ln_matmul.cu             K9a  ln_matmul.py:121 (_fwd_kernel :60)
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
                            K9c  ln_matmul.py:190 (_ln_bwd_kernel :78)
@@ -158,6 +161,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attention_fwd_smem.argtypes = []
     lib.attention_bwd_smem.argtypes = [i32]
     lib.attention_fwd_smem.restype = lib.attention_bwd_smem.restype = i32
+    # Rows per backward block: K2's partial bias sums are (B·⌈S/rows⌉, 3D)
+    lib.attention_bwd_block_rows.argtypes = []
+    lib.attention_bwd_block_rows.restype = i32
     # convnext_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, y, N, C, eps,
     #                   stream)
     lib.convnext_tail_fwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]

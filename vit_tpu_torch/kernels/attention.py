@@ -1,19 +1,23 @@
-"""Attention kernels: K1 and K2, packed-QKV attention forward and backward
-(CUDA C++, ``csrc/attention_packed_fwd.cu`` and ``csrc/attention_packed_bwd.cu``),
-and K6 with K7/K8, unpacked attention forward and backward
-(``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``).
+"""Attention kernels: K6 with K7/K8, unpacked attention forward and backward
+(CUDA C++, ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``), and K1
+and K2, packed-QKV attention forward and backward: the same kernels
+instantiated with their bias stage (``kBias``), behind the entries
+``attention_packed_fwd`` and ``attention_packed_bwd`` of the same sources.
 
 K1 replaces the Pallas kernel ``vit_tpu/kernels/attention.py:_fa_packed_kernel``
 (:623), launched by ``_packed_fwd_impl`` (:790) behind
 ``flash_attention_packed`` (:1269): softmax(q kᵀ/√d)·v straight off the
 unbiased packed projection ``qkv_nb`` (B, S, 3D), bias added in-kernel, with
-no head-split copies around the call. When a gradient is needed it also
-writes the row max m and row sum l, fp32 (B, H, S).
+no head-split copies around the call: q, k and v are read as qkv_nb's head
+views through TMA, and each tile gets the bias in bf16 in shared memory
+before a product reads it. When a gradient is needed it also writes the row
+max m and row sum l, fp32 (B, H, S).
 
 K2 replaces ``_fa_packed_bwd_kernel`` (:824), launched by ``_packed_bwd_impl``
 (:1072): from qkv_nb, the bias, the upstream gradient and (m, l) it writes
-dqkv (B, S, 3D) in the packed layout and the bias gradient, the column sums
-of the fp32 dq/dk/dv.
+dqkv (B, S, 3D) in the packed layout (dq, dk, dv as its strided views) and
+the bias gradient, the column sums of the fp32 dq/dk/dv: one partial row
+per 128-row block, summed in order.
 
 K6 replaces ``_fa_kernel`` (:76), launched by ``_flash_attention_fwd_impl``
 (:172) behind ``flash_attention`` (:1294): the same attention over q, k, v
@@ -452,11 +456,11 @@ def attention_packed_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                          *split_heads(dqkv, n_heads), seed, threshold, scale,
                          causal)
     else:
+        lib = _build.load()
         dbias = torch.empty(three_d, dtype=torch.float32, device=qkv.device)
         delta = torch.empty_like(m)
-        part = torch.empty(b * -(-s // HEAD_DIM), three_d,
-                           dtype=torch.float32, device=qkv.device)
-        lib = _build.load()
+        part = torch.empty(b * -(-s // lib.attention_bwd_block_rows()),
+                           three_d, dtype=torch.float32, device=qkv.device)
         with torch.cuda.device(qkv.device):
             stream = torch.cuda.current_stream(qkv.device).cuda_stream
             err = lib.attention_packed_bwd(
