@@ -38,7 +38,9 @@ def params():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,c", [(40, 32), (13, 64)])  # 13: a ragged tile
+# 13: a ragged tile; C 96 and 384 are widths the CUDA kernels are built
+# for, each at a ragged N
+@pytest.mark.parametrize("n,c", [(40, 32), (13, 64), (77, 96), (29, 384)])
 def test_block_tail_matches_jax(n, c, dtype):
     v = tail_inputs(n, c, seed=n + c)
     jdt = getattr(jnp, dtype)

@@ -8,7 +8,10 @@ one call.
 Each entry of ``--trees`` is a checkout's root; each runs in a process of
 its own that imports ``vit_tpu_torch`` from that checkout, builds its
 kernels into that checkout's ``build/`` and times K1 (with statistics;
-and without, at the serving bs 8), K2, K3, K4, K5, K6 (with statistics),
+and without, at the serving bs 8), K2, K3 and K4 (at ConvNeXt-S's three
+fused stages: C 96, 192 and 384, the last under the keys "K3" and "K4";
+and as 20 back-to-back calls, "K3 C96 x20" and the like),
+K5, K6 (with statistics),
 K8, K9a, K9b, K9c, K10, K11a, K11b, K12a and K12b, the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
 at rate 0.15) and K6/K8 (rate 0.1), K7 at (2, 12, 513) and K6 on the
 rollout's prefill (513 causal, bs 8 and 1), at ``chip_smoke.py``'s shapes:
@@ -35,6 +38,8 @@ from pathlib import Path
 
 N_ROWS = 64 * 320          # the flagship step's rows: bs 64 · S 320
 TAIL_ROWS, TAIL_C = 64 * 14 * 14, 384   # ConvNeXt-S stage 2 at bs 64
+# (rows, C) of ConvNeXt-S's three fused stages at bs 64 (stage 2 last)
+TAIL_STAGES = ((64 * 56 * 56, 96), (64 * 28 * 28, 192), (TAIL_ROWS, TAIL_C))
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -52,6 +57,17 @@ def median_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[reps // 2]
+
+
+def batched_ms(fn, calls: int = 20) -> float:
+    """ms a call of ``fn`` called ``calls`` times back to back between two
+    events (median of 5): the launches queue ahead of the card, so a kernel
+    longer than its wrapper's host time is timed without that host time,
+    which a single call's events include."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return median_ms(run, 5) / calls
 
 
 def time_kernels() -> dict:
@@ -97,19 +113,25 @@ def time_kernels() -> dict:
         qkv, bias, dout, m, l, 16, False, **drop))
     del qkv, dout, m, l
 
-    c = TAIL_C
-    h, x, dy = (r(TAIL_ROWS, c).bfloat16() for _ in range(3))
-    lns, lnb = 1.0 + r(c, scale=0.1), r(c, scale=0.1)
-    w1, b1 = r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1)
-    w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
-    gamma = r(c, scale=0.5)
-    fwd = (h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6)
-    bwd = (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)
-    ms["K3"] = median_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
-    ms["K4"] = median_ms(lambda: k_cnx.convnext_tail_bwd(*bwd))
-    ms["K12a"] = median_ms(lambda: k_cnx.convnext_tail_fwd_q8(*fwd))
-    ms["K12b"] = median_ms(lambda: k_cnx.convnext_tail_bwd_q8(*bwd))
-    del h, x, dy, fwd, bwd
+    for rows, c in TAIL_STAGES:
+        h, x, dy = (r(rows, c).bfloat16() for _ in range(3))
+        lns, lnb = 1.0 + r(c, scale=0.1), r(c, scale=0.1)
+        w1, b1 = r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1)
+        w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
+        gamma = r(c, scale=0.5)
+        fwd = (h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6)
+        bwd = (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)
+        # "K3"/"K4" alone: stage 2, the key earlier trees' output carries
+        tag = "" if c == TAIL_C else f" C{c}"
+        ms["K3" + tag] = median_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
+        ms["K4" + tag] = median_ms(lambda: k_cnx.convnext_tail_bwd(*bwd))
+        # back to back, so the card and not the wrapper's host time sets it
+        ms[f"K3 C{c} x20"] = batched_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
+        ms[f"K4 C{c} x20"] = batched_ms(lambda: k_cnx.convnext_tail_bwd(*bwd))
+        if c == TAIL_C:
+            ms["K12a"] = median_ms(lambda: k_cnx.convnext_tail_fwd_q8(*fwd))
+            ms["K12b"] = median_ms(lambda: k_cnx.convnext_tail_bwd_q8(*bwd))
+        del h, x, dy, fwd, bwd
 
     z = r(8 * 256, 12)
     cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1) / 2048

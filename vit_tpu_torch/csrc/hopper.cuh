@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
-// (wgmma.mma_async m64n64k16, bf16 in, fp32 accumulate) that the attention
-// kernels (K6, K7/K8 and their packed forms K1, K2) are built from, and the
-// host side of their tensor maps.
+// (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate) that
+// the attention kernels (K6, K7/K8 and their packed forms K1, K2) and the
+// ConvNeXt block tail (K3, K4) are built from, and the host side of their
+// tensor maps.
 //
 // Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
 // row) and lands in shared memory through a tensor map built with
@@ -171,6 +172,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D tensor map at coordinates (c0, c1), innermost first;
+// otherwise as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy reads of it (wgmma operands written by threads).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -300,6 +313,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
 }
 
+#define VIT_ACC16(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d (+)= A·B, m64n32k16, as wgmma_ss over 32 columns: d[4j + 2r + c] =
+// D[16w + g + 8r][8j + 2t + c] for j < 4. A K-major B of 32 rows starts 32
+// rows (4096 bytes) into a tile; an MN-major one 32 columns (64 bytes) into
+// its 128-byte rows, which the swizzle XOR leaves in place.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : VIT_ACC16(d)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
 // d += A·B, m64n64k16: A from registers (one k16 step of A fragments), B
 // from shared memory; kTransB = 1 reads B MN-major.
 template <int kTransB>
@@ -317,6 +354,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(kTransB));
 }
 
+#undef VIT_ACC16
 #undef VIT_ACC32
 #undef VIT_ACC32_LIST
 
@@ -388,6 +426,27 @@ inline int head_map(CUtensorMap* map, const void* base, const long long* st,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major bf16 matrix (rows, cols), cols a multiple
+// of 8 and rows 16-byte aligned: 2-D (cols, rows), boxes of 64 columns x 64
+// rows, 128-byte swizzle, zeros past either edge. Returns 0 or a
+// cudaError_t.
+inline int matrix_map(CUtensorMap* map, const void* base, int rows,
+                      int cols) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, kTileRows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -24,6 +24,8 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                                 wgmma)
   convnext_tail.cu         K3   convnext_block.py:248 (_fwd_kernel :89)
                            K4   convnext_block.py:276 (_bwd_kernel :109)
+                                (on hopper.cuh too: a TMA ring of weight
+                                tiles, wgmma)
   vq_nearest.cu            K5   vq.py:83 (_vq_kernel :36)
   ln_matmul.cu             K9a  ln_matmul.py:121 (_fwd_kernel :60)
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
@@ -168,10 +170,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     #                   stream)
     lib.convnext_tail_fwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]
     lib.convnext_tail_fwd.restype = i32
-    # convnext_tail_bwd(h, dy, lns, lnb, w1, w1t, w2t, b1, gamma, dh, N, C,
-    #                   eps, stream)
-    lib.convnext_tail_bwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]
+    # convnext_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, dh, N, C, eps,
+    #                   stream)
+    lib.convnext_tail_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, ptr]
     lib.convnext_tail_bwd.restype = i32
+    # convnext_tail_smem(C, bwd): K3's or K4's dynamic shared memory, bytes
+    lib.convnext_tail_smem.argtypes = [i32, i32]
+    lib.convnext_tail_smem.restype = i32
     # convnext_tail_fwd_q8(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma,
     #                      y, N, C, eps, stream)
     lib.convnext_tail_fwd_q8.argtypes = [ptr] * 12 + [i32, i32, f32, ptr]
@@ -210,10 +215,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # attention_f32_bwd(q, k, v, bq, bk, bv, dout, m, l, dq, dk, dv, delta,
     #                   part, dbias, seed, strides, B, S, H, causal, ...)
     lib.attention_f32_bwd.argtypes = [ptr] * 16 + [strides] + [i32] * 4 + drop
-    # convnext_tail_f32_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, dh, N, C,
-    #                       eps, stream)
-    lib.convnext_tail_f32_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, ptr]
     for name, like in (("convnext_tail_f32_fwd", "convnext_tail_fwd"),
+                       ("convnext_tail_f32_bwd", "convnext_tail_bwd"),
                        ("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
                        ("convnext_tail_bwd_q8_f32", "convnext_tail_bwd_q8"),
                        ("ln_matmul_fwd_f32", "ln_matmul_fwd"),

@@ -25,8 +25,10 @@ are the JAX package's to the bit.
 What bounds them on the H100: 16·C² FLOP per row forward and 24·C² backward
 against 6·C bytes of rows, with the (N, 4C) intermediate and the LN output
 kept out of device memory as on the TPU. The weights do not fit in shared
-memory at C = 384, so a 64-row block streams the 4C dimension in chunks and
-keeps a 64 × C fp32 accumulator in registers (see the sources' headers).
+memory at C = 384, so a block of 64 or 128 rows streams the 4C dimension in
+chunks of W1 and W2 tiles (by TMA into a ring, read by wgmma in the
+orientation each product needs) and keeps its fp32 output accumulator in
+registers (see the sources' headers).
 
 FROZEN-WEIGHT CONTRACT, as in the JAX package: gradients flow to h and x
 only. :class:`ConvNeXtTail` returns ``None`` for the seven parameters and
@@ -183,25 +185,19 @@ def convnext_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps=1e-6):
     lns, lnb, w1, b1, w2, gamma = _weights(h, lns, lnb, w1, b1, w2, gamma)
     dh = torch.empty_like(h)
     lib = _build.load()
-    global bwd_launches, fp32_bwd_launches
+    f32 = h.dtype == torch.float32
+    entry = "convnext_tail_f32_bwd" if f32 else "convnext_tail_bwd"
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        if h.dtype == torch.float32:   # reads W1 and W2 in either orientation
-            entry = "convnext_tail_f32_bwd"
-            err = lib.convnext_tail_f32_bwd(
-                h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gamma.data_ptr(),
-                dh.data_ptr(), n, c, eps, stream)
-            fp32_bwd_launches += 1
-        else:
-            entry = "convnext_tail_bwd"
-            w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-            err = lib.convnext_tail_bwd(
-                h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-                w1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), b1.data_ptr(),
-                gamma.data_ptr(), dh.data_ptr(), n, c, eps, stream)
+        # both forms read W1 and W2 in the orientation each product needs
+        err = getattr(lib, entry)(
+            h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gamma.data_ptr(),
+            dh.data_ptr(), n, c, eps, stream)
     _build.check(lib, err, entry)
+    global bwd_launches, fp32_bwd_launches
     bwd_launches += 1
+    fp32_bwd_launches += f32
     return dh
 
 
