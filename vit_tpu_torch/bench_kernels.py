@@ -1,6 +1,6 @@
-"""Time the bf16 kernels and three train steps of one or more checkouts of
-this repo on one card, in turns, so that two versions are compared within
-one call.
+"""Time the bf16 kernels, the fp32 attention backwards and five train
+steps of one or more checkouts of this repo on one card, in turns, so that
+two versions are compared within one call.
 
     python -m vit_tpu_torch.bench_kernels --trees OLD . . OLD \
         [--out chiprun_out/bench_kernels.json]
@@ -16,15 +16,20 @@ K8, K9a, K9b, K9c, K10, K11a, K11b, K12a and K12b, the dropout arms of K1/K2 (Vi
 at rate 0.15) and K6/K8 (rate 0.1), K7 at (2, 12, 513) and K6 on the
 rollout's prefill (513 causal, bs 8 and 1), at ``chip_smoke.py``'s shapes:
 CUDA-event medians of 20 calls after 3, the same seeded inputs in every
-process. Each turn then times three train steps with the names of that
-checkout's root ``chip_smoke.py``: the VideoGPT-B bs-32 step, the flagship
-TiTok-B unfused bs-64 step and the ViT-L/16 @256 bs-64 step at dropout
-0.15 (``TiTok``, ``VideoGPT``, ``FLAGSHIP``, ``VIT_CELLS``,
-``train_inputs``, ``vit_batch``, the step makers, ``make_optimizer``,
-``host_median_ms`` and the rest used in ``videogpt_step_ms``,
-``titok_step_ms`` and ``vit_step_ms``), so every root must carry one that
-defines them. Prints one JSON line per turn and a table of each time by
-checkout and turn.
+process; then the attention backward on fp32 operands (``--mixed false``)
+at ``chip_smoke.py``'s fp32 shapes: K2 at (64, 320, 12 heads) and at
+ViT-L's (64, 257, 16 heads) with dropout 0.15, K8 at (32, 12, 1024) causal
+without and with dropout 0.1, K7 at (2, 12, 513) causal ("K2 fp32",
+"K2 fp32 dropout", ...; and 20 back to back, "K2 fp32 x20", ...). Each
+turn then times five train steps with the names of that checkout's root
+``chip_smoke.py``: the VideoGPT-B bs-32 step, the flagship TiTok-B unfused
+bs-64 step and the ViT-L/16 @256 bs-64 step at dropout 0.15 in bf16, then
+the VideoGPT-B and ViT-L/16 steps at float32 (``TiTok``, ``VideoGPT``,
+``FLAGSHIP``, ``VIT_CELLS``, ``train_inputs``, ``vit_batch``, the step
+makers, ``make_optimizer``, ``host_median_ms`` and the rest used in
+``videogpt_step_ms``, ``titok_step_ms`` and ``vit_step_ms``), so every root
+must carry one that defines them. TF32 is off for cuBLAS and cuDNN. Prints
+one JSON line per turn and a table of each time by checkout and turn.
 """
 
 from __future__ import annotations
@@ -185,22 +190,72 @@ def time_kernels() -> dict:
     return ms
 
 
-def videogpt_step_ms() -> float:
+def time_fp32_kernels() -> dict:
+    """{kernel: ms} of the attention backwards on fp32 operands (K2,
+    K7/K8's fp32 forms) at ``chip_smoke.py``'s fp32 shapes, as single calls
+    and as 20 back-to-back calls ("x20")."""
+    import torch
+
+    from vit_tpu_torch.kernels import attention as k_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    def seed():
+        return k_attn.seed_vec(torch.randint(
+            0, 2 ** 31 - 1, (1,), device="cuda", generator=gen,
+            dtype=torch.int32))
+
+    ms = {}
+    for name, (b, s, h, rate) in {"K2 fp32": (64, 320, 12, 0.0),
+                                  "K2 fp32 dropout": (64, 257, 16,
+                                                      0.15)}.items():
+        qkv, bias, dout = r(b, s, 3 * h * 64), r(3 * h * 64, scale=0.3), \
+            r(b, s, h * 64)
+        drop = dict(dropout_rate=rate, seed=seed() if rate else None)
+        _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True,
+                                              **drop)
+        def call():
+            k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h, False,
+                                        **drop)
+        ms[name] = median_ms(call)
+        ms[name + " x20"] = batched_ms(call)
+        del qkv, bias, dout, m, l
+    for name, (b, s, rate) in {"K8 fp32": (32, 1024, 0.0),
+                               "K8 fp32 dropout": (32, 1024, 0.1),
+                               "K7 fp32": (2, 513, 0.0)}.items():
+        q, k, v = r(b, s, 3, 12, 64).permute(2, 0, 3, 1, 4)
+        do = r(b, s, 12, 64).transpose(1, 2)
+        drop = dict(dropout_rate=rate, seed=seed() if rate else None)
+        _, m, l = k_attn.attention_fwd(q, k, v, True, True, **drop)
+        def call():
+            k_attn.attention_bwd(q, k, v, do, m, l, True, **drop)
+        ms[name] = median_ms(call)
+        ms[name + " x20"] = batched_ms(call)
+        del q, k, v, do, m, l
+    return ms
+
+
+def videogpt_step_ms(dtype: str = "bfloat16") -> float:
     """The VideoGPT-B bs-32 train step (tokenizer and AR step), set up as
     ``chip_smoke.py``'s videogpt phase sets up the steps it times: its
     model, tokenizer, first synthetic batch and the optimizer of its timed
     steps (``make_optimizer(1e-4, 2, 500000, 1e-5, 1e-4)``, no clip). The
     phase times after 21 earlier steps (its launch count, the plain
     comparison and 20 learning steps); this times after two warm-up steps.
-    Both take the host-clock median of 6 synchronised steps."""
+    Both take the host-clock median of 6 synchronised steps. ``dtype``
+    "float32" builds both models at float32 (``--mixed false``)."""
     import torch
 
     import chip_smoke as cs
 
-    tok = cs.TiTok(cs.TiTokConfig(**cs.VIDEO_TOKENIZER))
+    dt = getattr(torch, dtype)
+    tok = cs.TiTok(cs.TiTokConfig(**cs.VIDEO_TOKENIZER, dtype=dt))
     cs.init_params_(tok, torch.Generator().manual_seed(123))
     tokenizer = cs.FrozenTokenizer(tok.cuda())
-    model = cs.VideoGPT(cs.VideoGPTConfig(**cs.VIDEOGPT))
+    model = cs.VideoGPT(cs.VideoGPTConfig(**cs.VIDEOGPT, dtype=dt))
     cs.init_params_(model, torch.Generator().manual_seed(0))
     model = model.cuda().train()
     videos = cs.video_batch(cs.VIDEO_TOKENIZER["image_size"])
@@ -243,7 +298,7 @@ def titok_step_ms() -> float:
                                       torch.cuda.synchronize()), 6)
 
 
-def vit_step_ms() -> float:
+def vit_step_ms(dtype: str = "bfloat16") -> float:
     """The ViT-L/16 @256 bs-64 train step at dropout 0.15, set up as
     ``chip_smoke.py``'s vit phase sets up that cell's timed steps: its
     ``VIT_CELLS`` entry, weights from seed 0, ``vit_batch``, the optimizer
@@ -251,13 +306,14 @@ def vit_step_ms() -> float:
     clip_norm=None)``) and a dropout generator from seed 1. The phase times
     after 11 earlier steps and two plain-version passes; this after two
     warm-up steps. Both take the host-clock median of 6 synchronised
-    steps."""
+    steps. ``dtype`` "float32" is ``train_vit.py --mixed false``'s step."""
     import torch
 
     import chip_smoke as cs
 
     size, patch, preset, rate = cs.VIT_CELLS["vit_l16_256_drop0.15"]
-    model = cs.ViTClassifier(cs.ViTConfig(size, 3, patch, preset, 1, rate),
+    model = cs.ViTClassifier(cs.ViTConfig(size, 3, patch, preset, 1, rate,
+                                          dtype=getattr(torch, dtype)),
                              cs.VIT_CLASSES, device="cuda")
     cs.init_params_(model, torch.Generator(device="cuda").manual_seed(0))
     images, labels = cs.vit_batch(size)
@@ -283,10 +339,17 @@ def worker(root: str) -> None:
     if where != str(Path(root).resolve()):
         raise SystemExit(f"imported vit_tpu_torch from {where}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     ms = time_kernels()
+    torch.cuda.empty_cache()
+    ms.update(time_fp32_kernels())
+    torch.cuda.empty_cache()
     for name, fn in (("VideoGPT-B step", videogpt_step_ms),
                      ("TiTok-B step", titok_step_ms),
-                     ("ViT-L step", vit_step_ms)):
+                     ("ViT-L step", vit_step_ms),
+                     ("VideoGPT-B fp32 step",
+                      lambda: videogpt_step_ms("float32")),
+                     ("ViT-L fp32 step", lambda: vit_step_ms("float32"))):
         ms[name] = fn()
         torch.cuda.empty_cache()
     print(json.dumps({"tree": root, "ms": ms}), flush=True)
@@ -326,10 +389,10 @@ def main(argv=None) -> list:
     name = card()
     print(f"card: {name}")
     kernels = list(turns[0]["ms"])
-    print("kernel           " + "  ".join(f"{t['arg']}#{t['turn']}"
-                                          for t in turns))
+    print("kernel                  " + "  ".join(
+        f"{t['arg']}#{t['turn']}" for t in turns))
     for k in kernels:
-        print(f"{k:15s}  " + "  ".join(f"{t['ms'][k]:.3f}" for t in turns))
+        print(f"{k:22s}  " + "  ".join(f"{t['ms'][k]:.3f}" for t in turns))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": name, "turns": turns},

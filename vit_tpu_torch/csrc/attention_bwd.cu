@@ -1,5 +1,6 @@
 // K7/K8, unpacked attention backward, and K2, its packed form, for Hopper
-// (sm_90a).
+// (sm_90a), on bf16 operands and, through fp32-accurate split products, on
+// fp32 operands.
 //
 // K7/K8 replaces both Pallas backward kernels of the unpacked attention:
 // vit_tpu/kernels/attention.py:_fa_bwd_kernel (:201, K7, launched by
@@ -21,7 +22,7 @@
 //   dq = ds · k,  dk = dsᵀ · q  (the unscaled q).
 // Products are bf16 in, fp32 accumulate; ph, dp, Δ and ds stay fp32 until
 // ds's cast, ds keeps the Pallas kernel's operation order with no FMA
-// contraction (attention_tile.cuh:dscore, its row products Δ·linv and
+// contraction, ph·((dp − Δ·linv)·(linv/8)) (its row products Δ·linv and
 // linv/8 taken once per row), and each output is cast to bf16 once, as on
 // the TPU (whose K8 sums fp32 per-q-block dk/dv partials in XLA before the
 // cast, :416-418). s = q·kᵀ/8 in fp32 equals the products of bf16 q/8
@@ -67,7 +68,7 @@
 //      dv += bf16(D·ph)ᵀ·dol, dk += dSᵀ·Q read dol and Q MN-major. No
 //      transposed copy of any tile exists.
 // Each block is two consumer warpgroups of 64 rows and one producer warp
-// that keeps TMA loads in flight through a ring of kStages stages, as K6's
+// that keeps TMA loads in flight through a ring of stages, as K6's
 // (attention_fwd.cu). Under the causal mask the dq kernel stops at its q
 // tile's last key and the dk/dv kernel starts at its own key tile, wholly
 // masked tiles are skipped and both kernels launch their heaviest tiles
@@ -80,12 +81,40 @@
 // K2's shapes are short (S 197-320): a block walks only 4-5 key or query
 // tiles a pass, and the last 128-row tile is ragged.
 //
+// The fp32 form (kParts = 3, the entry attention_f32_bwd) replaces the same
+// three Pallas kernels on fp32 operands, where they take every product at
+// Precision.HIGHEST (:228, :310, :851), for K2, K7 and K8 alike (the packed
+// layout passes its bias, the head views none). The TPU's HIGHEST is six
+// bf16 passes; so is this form: split_parts_kernel writes each fp32 operand
+// x (q, k and v with the bias added in fp32, and dO) as three bf16 parts
+// x = x0 + x1 + x2, exactly, into (B, H, S, 3·64) arrays that TMA reads as
+// ordinary 64-wide swizzled tiles (a 192-wide tensor map, part p at column
+// 64p), and every product A·B is the six wgmma products A_i·B_j, i + j <= 2,
+// into one fp32 accumulator (hopper.cuh:mma_abt_parts, mma_rb_parts), ds and
+// D∘ph split into three bf16 A fragments in registers (hopper.cuh:put_a);
+// each tile's dq, dk or dv product is taken in a fresh accumulator and added
+// to the running sum in registers (mma_rb_parts_into).
+// The math is the plain fp32 version's (kernels/attention.py:
+// _attention_bwd_f32 at fp32: no bf16 cast anywhere): ph = expf(s/8 - m),
+// Δ = Σ ph·dp (the same rounding point), ds in the same order, outputs
+// stored in fp32. One product differs in where it rounds, not in what it
+// sums: dv takes 1/l in its A operand, (D∘ph/l)ᵀ·dO, instead of dO/l in a
+// dol tile, since three parts of a dol buffer (24 KB a warpgroup) do not fit
+// beside K, V and a two-stage ring of three-part tiles (96 + 96 KB). The
+// dk/dv kernel takes a q tile in two halves of 32 queries (wgmma m64n32 for
+// sᵀ and dpᵀ, then 2 k16 steps of dv and of dk), forms dv's A parts, waits
+// for that product, then forms dsᵀ's in the same registers: a consumer
+// thread then holds dk, dv, a half's sᵀ and dpᵀ and one A operand's parts,
+// about 120 registers, under the 168 that nine warps allow (a whole tile at
+// once spilled, and ptxas serialised its wgmmas).
+//
 // What bounds it: the minimal backward is 5 products of 2·S²·64 FLOP per
 // (batch, head), halved by the causal mask; this design spends 9 (q·kᵀ and
-// dO·vᵀ three times each) for the freedom from atomics. At S = 1024 that is
-// far past the bf16 ridge against ~8·S·64·2 bytes of q, k, v, dO, dq, dk,
-// dv, so the tensor cores, the MUFU's exp (three a score) and the fp32
-// elementwise work between the products bound it.
+// dO·vᵀ three times each) for the freedom from atomics, 6 bf16 products
+// each in the fp32 form. At S = 1024 that is far past the bf16 ridge
+// against ~8·S·64·2 bytes of q, k, v, dO, dq, dk, dv, so the tensor cores,
+// the MUFU's exp (three a score) and the fp32 elementwise work between the
+// products bound it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,49 +133,68 @@ using namespace vit::hopper;
 
 constexpr int kBlockRows = 128;  // q rows (dq) or keys (dk/dv) per block
 constexpr int kRows = 64;        // rows per ring stage and per warpgroup
-constexpr int kStages = 4;
 constexpr int kConsumers = 256;
 constexpr int kBlockThreads = kConsumers + 32;  // + the producer warp
+constexpr int kPartsWidth = 3 * 64;  // a row of the fp32 form's part arrays
+// Bytes from one part of a block's 128-row tile to the next
+constexpr uint32_t kBlockPartBytes = kBlockRows * 128;
 
+// kParts = 1: bf16 operands; 3: fp32 operands as three bf16 parts. Four
+// ring stages of bf16 tiles, two of three-part tiles, and the outputs in
+// the operands' type.
+template <int kParts>
+constexpr int kStagesOf = kParts == 1 ? 4 : 2;
+template <int kParts>
+using OutT = std::conditional_t<kParts == 1, bf16, float>;
+
+template <int kParts>
 struct alignas(1024) DqSmem {
-  bf16 q[kBlockRows * 64];
-  bf16 dout[kBlockRows * 64];
-  bf16 k[kStages][kRows * 64];
-  bf16 v[kStages][kRows * 64];
+  static constexpr int kStages = kStagesOf<kParts>;
+  bf16 q[kParts][kBlockRows * 64];
+  bf16 dout[kParts][kBlockRows * 64];
+  bf16 k[kStages][kParts][kRows * 64];
+  bf16 v[kStages][kParts][kRows * 64];
   Ring<kStages> ring;
   uint64_t qd_full;
-  alignas(16) bf16 bias[3][64];  // kBias: this head's q, k and v bias
+  alignas(16) bf16 bias[3][64];  // kBias (bf16): this head's q, k, v bias
 };
 
+struct NoDol {};
+
+template <int kParts>
 struct alignas(1024) DkvSmem {
-  bf16 k[kBlockRows * 64];
-  bf16 v[kBlockRows * 64];
-  bf16 q[kStages][kRows * 64];
-  bf16 dout[kStages][kRows * 64];
+  static constexpr int kStages = kStagesOf<kParts>;
+  bf16 k[kParts][kBlockRows * 64];
+  bf16 v[kParts][kBlockRows * 64];
+  bf16 q[kStages][kParts][kRows * 64];
+  bf16 dout[kStages][kParts][kRows * 64];
   // bf16(dO·linv), two per consumer warpgroup in turn: a warp writes one
   // only after every warp of its warpgroup has passed the barrier that
   // follows the write of the other, and so has waited for the products of
-  // the tile before, the last to read it.
-  bf16 dol[2][2][kRows * 64];
-  // Per q row of each stage: m·log2(e), 1/l, Δ/l and 1/(8l), the constants
-  // of the exponent, of dol and of dscore's two row products
-  float ml[kStages][kRows], linv[kStages][kRows];
+  // the tile before, the last to read it. The fp32 form has none.
+  std::conditional_t<kParts == 1, bf16[2][2][kRows * 64], NoDol> dol;
+  // Per q row of each stage: the shift of the exponent (m·log2(e) for
+  // exp2_approx, m for the fp32 form's expf), 1/l, Δ/l and 1/(8l), the
+  // constants of the exponent, of dol and of ds's two row products
+  alignas(16) float ml[kStages][kRows], linv[kStages][kRows];
   float d_delta[kStages][kRows], d_linv[kStages][kRows];
   Ring<kStages> ring;
   uint64_t kv_full;
-  alignas(16) bf16 bias[3][64];  // kBias: this head's q, k and v bias
+  alignas(16) bf16 bias[3][64];  // kBias (bf16): this head's q, k, v bias
 };
 
+// dq, dk, dv: OutT<kParts> arrays at their element strides
 struct Outputs {
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  void* dq;
+  void* dk;
+  void* dv;
   Strides sdq, sdk, sdv;
 };
 
-// kBias (K2): the packed (3·H·64,) bias and the partial column sums of the
-// bias gradient, (B·⌈S/128⌉, 3·H·64) fp32: row b·⌈S/128⌉ + (a block's
-// first row) / 128.
+// kBias (K2): the packed (3·H·64,) bf16 bias (read by the bf16 form; the
+// fp32 form's parts carry it) and the partial column sums of the bias
+// gradient, (B·⌈S/128⌉, 3·H·64) fp32: row b·⌈S/128⌉ + (a block's first
+// row) / 128. A null `part` means no bias.
 struct PackedBias {
   const bf16* bias;
   float* part;
@@ -185,20 +233,54 @@ __device__ __forceinline__ void column_sums(const float (&acc)[32],
   }
 }
 
-// Rows row0 and row0 + 8 of a warpgroup's 64 x 64 accumulator to bf16 at
-// `dst` (row r at dst + r·stride), skipping rows at or past S.
-__device__ __forceinline__ void store_acc(const float (&acc)[32], bf16* dst,
+// Rows row0 and row0 + 8 of a warpgroup's 64 x 64 accumulator to `dst`
+// (row r at dst + r·stride), as bf16 or fp32, skipping rows at or past S.
+template <typename T>
+__device__ __forceinline__ void store_acc(const float (&acc)[32], T* dst,
                                           size_t stride, int row0, int S,
                                           int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
     if (row >= S) continue;
-    bf16* p = dst + static_cast<size_t>(row) * stride;
+    T* p = dst + static_cast<size_t>(row) * stride;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<uint32_t*>(p + nt * 8 + 2 * t) =
-          pack_bf16x2(acc[4 * nt + 2 * r], acc[4 * nt + 2 * r + 1]);
+    for (int nt = 0; nt < 8; ++nt) {
+      if constexpr (std::is_same_v<T, float>)
+        *reinterpret_cast<float2*>(p + nt * 8 + 2 * t) =
+            make_float2(acc[4 * nt + 2 * r], acc[4 * nt + 2 * r + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(p + nt * 8 + 2 * t) =
+            pack_bf16x2(acc[4 * nt + 2 * r], acc[4 * nt + 2 * r + 1]);
+    }
+  }
+}
+
+// d += A·B (mma_rb_parts), waited for. The fp32 form takes each tile's
+// product in a fresh accumulator and adds it to d in registers, rounded to
+// nearest: chained over all the tiles of a sum in d itself, its means read
+// 2e-6 to 7e-6 of mean |plain| on the H100, growing with the number of
+// tiles, as the tensor cores' fp32 accumulation loses low bits at each
+// wgmma against a growing accumulator; a tile at a time, 3e-7 to 7e-7.
+template <int kParts, int kSteps>
+__device__ __forceinline__ void mma_rb_parts_into(
+    float (&d)[32], const uint32_t (&a)[kParts][kSteps][4], uint32_t b,
+    uint32_t b_part) {
+  if constexpr (kParts == 1) {
+    mma_rb_parts(d, a, b, b_part);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+  } else {
+    float tile[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tile[e] = 0.0f;
+    mma_rb_parts(tile, a, b, b_part);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(tile);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) d[e] = __fadd_rn(d[e], tile[e]);
   }
 }
 
@@ -211,36 +293,49 @@ struct Maps {
 
 // A dq block: a 128-row q tile of head (b, h) and n_kv key tiles. Loads
 // 0 .. n_kv - 1 bring the k and v tiles of pass 1, loads n_kv .. 2·n_kv - 1
-// those of pass 2.
+// those of pass 2. Each tile comes in kParts parts, part p at column 64p of
+// its tensor map.
 struct DqWork {
   int q0, h, b, n_kv;
 };
 
-__device__ __forceinline__ void dq_produce(DqSmem& sm, Maps t, DqWork w) {
-  Ring<kStages>& ring = sm.ring;
-  mbar_arrive_expect_tx(&sm.qd_full, 4 * kTileBytes);
+template <int kParts>
+__device__ __forceinline__ void dq_produce(DqSmem<kParts>& sm, Maps t,
+                                           DqWork w) {
+  auto& ring = sm.ring;
+  mbar_arrive_expect_tx(&sm.qd_full, 4 * kParts * kTileBytes);
   for (int i = 0; i < 2; ++i) {
-    tma_load_4d(sm.q + i * kRows * 64, t.q, &sm.qd_full, 0, w.q0 + i * kRows,
-                w.h, w.b);
-    tma_load_4d(sm.dout + i * kRows * 64, t.dout, &sm.qd_full, 0,
-                w.q0 + i * kRows, w.h, w.b);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      tma_load_4d(sm.q[p] + i * kRows * 64, t.q, &sm.qd_full, 64 * p,
+                  w.q0 + i * kRows, w.h, w.b);
+      tma_load_4d(sm.dout[p] + i * kRows * 64, t.dout, &sm.qd_full, 64 * p,
+                  w.q0 + i * kRows, w.h, w.b);
+    }
   }
   for (int i = 0; i < 2 * w.n_kv; ++i) {
     const int st = ring.stage(i), k0 = (i % w.n_kv) * kRows;
     ring.wait_empty(i);
-    mbar_arrive_expect_tx(&ring.full[st], 2 * kTileBytes);
-    tma_load_4d(sm.k[st], t.k, &ring.full[st], 0, k0, w.h, w.b);
-    tma_load_4d(sm.v[st], t.v, &ring.full[st], 0, k0, w.h, w.b);
+    mbar_arrive_expect_tx(&ring.full[st], 2 * kParts * kTileBytes);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      tma_load_4d(sm.k[st][p], t.k, &ring.full[st], 64 * p, k0, w.h, w.b);
+      tma_load_4d(sm.v[st][p], t.v, &ring.full[st], 64 * p, k0, w.h, w.b);
+    }
   }
 }
 
-template <bool kDropout, bool kBias>
-__device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
-                                           PackedBias pb, const float* m_in,
+template <bool kDropout, bool kBias, int kParts>
+__device__ __forceinline__ void dq_consume(DqSmem<kParts>& sm, DqWork w,
+                                           Outputs o, PackedBias pb,
+                                           const float* m_in,
                                            const float* l_in,
                                            float* delta_out, Dropout drop,
                                            int S, int H, int causal) {
-  Ring<kStages>& ring = sm.ring;
+  // The fp32 form's parts carry the bias already
+  constexpr bool kAddBias = kBias && kParts == 1;
+  constexpr uint32_t kStageBytes = kParts * kTileBytes;
+  auto& ring = sm.ring;
   const int n_kv = w.n_kv;
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
@@ -250,15 +345,17 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
   const int r0 = w.q0 + wg * kRows;       // this warpgroup's first row
   const int row0 = r0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
   const int my_kv = causal ? min(n_kv, r0 / kRows + 1) : n_kv;
-  const uint32_t q_tile = smem_u32(sm.q + wg * kRows * 64);
-  const uint32_t do_tile = smem_u32(sm.dout + wg * kRows * 64);
-  const uint32_t k_base = smem_u32(sm.k[0]);
-  const uint32_t v_base = smem_u32(sm.v[0]);
+  const uint32_t q_tile = smem_u32(sm.q[0] + wg * kRows * 64);
+  const uint32_t do_tile = smem_u32(sm.dout[0] + wg * kRows * 64);
+  const uint32_t k_base = smem_u32(sm.k[0][0]);
+  const uint32_t v_base = smem_u32(sm.v[0][0]);
   // q·kᵀ and dp = dO·Vᵀ of load i, waited for.
   auto scores = [&](float (&s)[32], float (&dp)[32], int i) {
     wgmma_fence();
-    mma_abt(s, q_tile, k_base + ring.stage(i) * kTileBytes);
-    mma_abt(dp, do_tile, v_base + ring.stage(i) * kTileBytes);
+    mma_abt_parts<kParts>(s, q_tile, kBlockPartBytes,
+                          k_base + ring.stage(i) * kStageBytes, kTileBytes);
+    mma_abt_parts<kParts>(dp, do_tile, kBlockPartBytes,
+                          v_base + ring.stage(i) * kStageBytes, kTileBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -267,23 +364,26 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
   // kBias: the K and V tiles of load i, biased by all 256 consumers before
   // either warpgroup's products read them.
   auto bias_kv = [&](int i, int k0) {
-    add_bias_tile<kConsumers>(sm.k[ring.stage(i)], sm.bias[1], S - k0,
+    add_bias_tile<kConsumers>(sm.k[ring.stage(i)][0], sm.bias[1], S - k0,
                               threadIdx.x);
-    add_bias_tile<kConsumers>(sm.v[ring.stage(i)], sm.bias[2], S - k0,
+    add_bias_tile<kConsumers>(sm.v[ring.stage(i)][0], sm.bias[2], S - k0,
                               threadIdx.x);
     fence_proxy_async();
     named_barrier(3, kConsumers);
   };
 
   // Padded rows get m = 0, l = 1: their dO is zero, so dp, Δ and ds vanish
-  // there and nothing non-finite is formed. ml = m·log2(e) is the shift
-  // inside the exponent.
+  // there and nothing non-finite is formed. ml is the shift inside the
+  // exponent: m·log2(e) for exp2_approx, m for the fp32 form's expf.
   const size_t stat0 = (static_cast<size_t>(w.b) * H + w.h) * S;
   float ml[2], linv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    ml[r] = (row < S ? m_in[stat0 + row] : 0.0f) * kLog2e;
+    if constexpr (kParts == 1)
+      ml[r] = (row < S ? m_in[stat0 + row] : 0.0f) * kLog2e;
+    else
+      ml[r] = row < S ? m_in[stat0 + row] : 0.0f;
     linv[r] = row < S ? 1.0f / l_in[stat0 + row] : 1.0f;
   }
   DropoutStream drs{};
@@ -300,15 +400,18 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
     return col >= S || (causal && col > row_of(e));
   };
   auto ph_at = [&](float acc, int e) {
-    return exp2_approx(fmaf(acc, kScale * kLog2e, -ml[(e / 2) & 1]));
+    if constexpr (kParts == 1)
+      return exp2_approx(fmaf(acc, kScale * kLog2e, -ml[(e / 2) & 1]));
+    else
+      return expf(fmaf(acc, kScale, -ml[(e / 2) & 1]));
   };
 
   float s[32], dp[32];
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
   mbar_wait(&sm.qd_full, 0);
-  if constexpr (kBias) {
-    add_bias_tile<128>(sm.q + wg * kRows * 64, sm.bias[0], S - r0,
+  if constexpr (kAddBias) {
+    add_bias_tile<128>(sm.q[0] + wg * kRows * 64, sm.bias[0], S - r0,
                        threadIdx.x % 128);
     fence_proxy_async();
     named_barrier(1 + wg, 128);
@@ -328,7 +431,7 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
   };
   for (int j = 0; j < n_kv; ++j) {
     ring.wait_full(j);
-    if constexpr (kBias) bias_kv(j, j * kRows);
+    if constexpr (kAddBias) bias_kv(j, j * kRows);
     if (j < my_kv) scores(s, dp, j);
     ring.release(j);
     if (j >= my_kv) continue;
@@ -338,9 +441,8 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
     else
       delta_tile(std::false_type{}, k0);
   }
-  // ds = ph·((dp - Δ·linv)·(linv/8)) as dscore (attention_tile.cuh) forms
-  // it, with its two products of row constants taken once: dΔ = Δ·linv and
-  // dl = linv/8.
+  // ds = ph·((dp - Δ·linv)·(linv/8)) in the TPU kernel's order, with its
+  // two products of row constants taken once: dΔ = Δ·linv and dl = linv/8.
   float d_delta[2], d_linv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -352,10 +454,10 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
     d_linv[r] = __fmul_rn(kScale, linv[r]);
   }
 
-  // Pass 2: ds straight into A-operand registers, and dq += dS·K with K
-  // read MN-major.
+  // Pass 2: ds straight into A-operand registers (its bf16 parts), and
+  // dq += dS·K with K read MN-major.
   float dq[32];
-  uint32_t dsf[4][4];
+  uint32_t dsf[kParts][4][4];
 #pragma unroll
   for (int e = 0; e < 32; ++e) dq[e] = 0.0f;
   auto ds_tile = [&](auto edge, int k0) {
@@ -373,14 +475,14 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
         ds[c] = __fmul_rn(
             ph, __fmul_rn(__fsub_rn(dpd, d_delta[r]), d_linv[r]));
       }
-      dsf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
-      dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+      put_a<kParts>(dsf, nt / 2, (nt % 2) * 2 + 0, ds[0], ds[1]);
+      put_a<kParts>(dsf, nt / 2, (nt % 2) * 2 + 1, ds[2], ds[3]);
     }
   };
   for (int j = 0; j < n_kv; ++j) {
     const int i = n_kv + j;
     ring.wait_full(i);
-    if constexpr (kBias) bias_kv(i, j * kRows);
+    if constexpr (kAddBias) bias_kv(i, j * kRows);
     if (j < my_kv) {
       const int k0 = j * kRows;
       scores(s, dp, i);
@@ -389,16 +491,16 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
       else
         ds_tile(std::false_type{}, k0);
       wgmma_fence();
-      mma_rb(dq, dsf, k_base + ring.stage(i) * kTileBytes);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dq);
+      mma_rb_parts_into<kParts>(dq, dsf,
+                                k_base + ring.stage(i) * kStageBytes,
+                                kTileBytes);
       fence_regs(dsf);
     }
     ring.release(i);
   }
 
-  store_acc(dq, o.dq + offset(o.sdq, w.b, w.h), o.sdq.s, row0, S, t);
+  store_acc(dq, static_cast<OutT<kParts>*>(o.dq) + offset(o.sdq, w.b, w.h),
+            o.sdq.s, row0, S, t);
   if constexpr (kBias) {
     const size_t row = static_cast<size_t>(w.b) * gridDim.x + w.q0 / kBlockRows;
     column_sums(dq, reinterpret_cast<float*>(sm.dout),
@@ -406,7 +508,7 @@ __device__ __forceinline__ void dq_consume(DqSmem& sm, DqWork w, Outputs o,
   }
 }
 
-template <bool kDropout, bool kBias>
+template <bool kDropout, bool kBias, int kParts>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 unpacked_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -416,7 +518,7 @@ unpacked_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                        const float* __restrict__ l_in,
                        float* __restrict__ delta_out, Dropout drop, int S,
                        int H, int causal) {
-  DqSmem& sm = aligned_smem<DqSmem>();
+  auto& sm = aligned_smem<DqSmem<kParts>>();
   DqWork w;
   w.q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockRows;
   w.h = blockIdx.y;
@@ -427,13 +529,13 @@ unpacked_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     sm.ring.init(1, kConsumers / 32);
     mbar_init_fence();
   }
-  if constexpr (kBias) load_head_bias(sm.bias, pb.bias, w.h, H);
+  if constexpr (kBias && kParts == 1) load_head_bias(sm.bias, pb.bias, w.h, H);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {  // the producer warp: one thread
     if (threadIdx.x == kConsumers) dq_produce(sm, Maps{&tq, &tk, &tv, &tdo}, w);
   } else {
-    dq_consume<kDropout, kBias>(sm, w, o, pb, m_in, l_in, delta_out, drop, S,
-                                H, causal);
+    dq_consume<kDropout, kBias, kParts>(sm, w, o, pb, m_in, l_in, delta_out,
+                                        drop, S, H, causal);
   }
 }
 
@@ -447,21 +549,25 @@ struct DkvWork {
 
 // The producer warp: lane 0 issues the loads, every lane writes the
 // constants of two of the tile's rows and arrives.
-__device__ __forceinline__ void dkdv_produce(DkvSmem& sm, Maps t, DkvWork w,
-                                             const float* m_in,
+template <int kParts>
+__device__ __forceinline__ void dkdv_produce(DkvSmem<kParts>& sm, Maps t,
+                                             DkvWork w, const float* m_in,
                                              const float* l_in,
                                              const float* delta_in, int S,
                                              int H) {
-  Ring<kStages>& ring = sm.ring;
+  auto& ring = sm.ring;
   const int lane = threadIdx.x % 32;
   const size_t stat0 = (static_cast<size_t>(w.b) * H + w.h) * S;
   if (lane == 0) {
-    mbar_arrive_expect_tx(&sm.kv_full, 4 * kTileBytes);
+    mbar_arrive_expect_tx(&sm.kv_full, 4 * kParts * kTileBytes);
     for (int i = 0; i < 2; ++i) {
-      tma_load_4d(sm.k + i * kRows * 64, t.k, &sm.kv_full, 0,
-                  w.k0 + i * kRows, w.h, w.b);
-      tma_load_4d(sm.v + i * kRows * 64, t.v, &sm.kv_full, 0,
-                  w.k0 + i * kRows, w.h, w.b);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) {
+        tma_load_4d(sm.k[p] + i * kRows * 64, t.k, &sm.kv_full, 64 * p,
+                    w.k0 + i * kRows, w.h, w.b);
+        tma_load_4d(sm.v[p] + i * kRows * 64, t.v, &sm.kv_full, 64 * p,
+                    w.k0 + i * kRows, w.h, w.b);
+      }
     }
   }
   // The statistics of the next q tile are read from device memory while
@@ -485,15 +591,19 @@ __device__ __forceinline__ void dkdv_produce(DkvSmem& sm, Maps t, DkvWork w,
     for (int u = 0; u < 2; ++u) {
       const int r = lane + 32 * u;
       const float linv = 1.0f / l[u];
-      sm.ml[st][r] = m[u] * kLog2e;
+      sm.ml[st][r] = kParts == 1 ? m[u] * kLog2e : m[u];
       sm.linv[st][r] = linv;
       sm.d_delta[st][r] = __fmul_rn(delta[u], linv);
       sm.d_linv[st][r] = __fmul_rn(kScale, linv);
     }
     if (lane == 0) {
-      mbar_arrive_expect_tx(&ring.full[st], 2 * kTileBytes);
-      tma_load_4d(sm.q[st], t.q, &ring.full[st], 0, q0, w.h, w.b);
-      tma_load_4d(sm.dout[st], t.dout, &ring.full[st], 0, q0, w.h, w.b);
+      mbar_arrive_expect_tx(&ring.full[st], 2 * kParts * kTileBytes);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) {
+        tma_load_4d(sm.q[st][p], t.q, &ring.full[st], 64 * p, q0, w.h, w.b);
+        tma_load_4d(sm.dout[st][p], t.dout, &ring.full[st], 64 * p, q0, w.h,
+                    w.b);
+      }
     } else {
       mbar_arrive(&ring.full[st]);
     }
@@ -501,12 +611,13 @@ __device__ __forceinline__ void dkdv_produce(DkvSmem& sm, Maps t, DkvWork w,
   }
 }
 
-template <bool kDropout, bool kBias>
-__device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
+template <bool kDropout, bool kBias, int kParts>
+__device__ __forceinline__ void dkdv_consume(DkvSmem<kParts>& sm, DkvWork w,
                                              Outputs o, PackedBias pb,
                                              Dropout drop, int S, int H,
                                              int causal) {
-  Ring<kStages>& ring = sm.ring;
+  constexpr bool kAddBias = kBias && kParts == 1;
+  auto& ring = sm.ring;
   const int wg = threadIdx.x / 128;
   const int wt = threadIdx.x % 128;
   const int warp = wt / 32;
@@ -515,19 +626,19 @@ __device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
   const int t = lane % 4;
   const int kw = w.k0 + wg * kRows;      // this warpgroup's first key
   const int key0 = kw + warp * 16 + g;   // this thread's keys: key0, key0 + 8
-  const uint32_t k_tile = smem_u32(sm.k + wg * kRows * 64);
-  const uint32_t v_tile = smem_u32(sm.v + wg * kRows * 64);
+  const uint32_t k_tile = smem_u32(sm.k[0] + wg * kRows * 64);
+  const uint32_t v_tile = smem_u32(sm.v[0] + wg * kRows * 64);
   DropoutStream drs{};
   if constexpr (kDropout) drs = dropout_stream(drop, w.b * H + w.h);
 
   float st[32], dpt[32], dk[32], dv[32];
-  uint32_t pf[4][4], dsf[4][4];
+  uint32_t pf[1][4][4], dsf[1][4][4];  // bf16: phᵀ and dsᵀ A fragments
 #pragma unroll
   for (int e = 0; e < 32; ++e) st[e] = dpt[e] = dk[e] = dv[e] = 0.0f;
   mbar_wait(&sm.kv_full, 0);
-  if constexpr (kBias) {
-    add_bias_tile<128>(sm.k + wg * kRows * 64, sm.bias[1], S - kw, wt);
-    add_bias_tile<128>(sm.v + wg * kRows * 64, sm.bias[2], S - kw, wt);
+  if constexpr (kAddBias) {
+    add_bias_tile<128>(sm.k[0] + wg * kRows * 64, sm.bias[1], S - kw, wt);
+    add_bias_tile<128>(sm.v[0] + wg * kRows * 64, sm.bias[2], S - kw, wt);
     fence_proxy_async();
     named_barrier(1 + wg, 128);
   }
@@ -567,98 +678,189 @@ __device__ __forceinline__ void dkdv_consume(DkvSmem& sm, DkvWork w,
             dpd *= dm;
           }
         }
-        // dscore's order: ph·((dp - Δ·linv)·(linv/8))
+        // ds's order: ph·((dp - Δ·linv)·(linv/8))
         ds[c] = __fmul_rn(ph, __fmul_rn(__fsub_rn(dpd, c & 1 ? ddq.y : ddq.x),
                                         c & 1 ? dlq.y : dlq.x));
       }
-      pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(pd[0], pd[1]);
-      pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(pd[2], pd[3]);
-      dsf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
-      dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+      pf[0][nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(pd[0], pd[1]);
+      pf[0][nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(pd[2], pd[3]);
+      dsf[0][nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
+      dsf[0][nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
     }
+  };
+  // The fp32 form, query columns 32·half .. + 32 of a tile at a time (the
+  // products over 32 columns keep a thread's registers under the cap with
+  // the three-part A fragments): from sᵀ (sh) and dpᵀ (dph) of those
+  // columns, D·ph/l into sh and ds into dph, in place, then each as the
+  // three bf16 parts of an A operand over 32 queries (2 k16 steps): dv +=
+  // (D·ph/l)ᵀ·dO and dk += dsᵀ·Q. fp32 expf, the same masks, dropout and ds
+  // as the bf16 elementwise above.
+  auto half_tile = [&](auto edge, int q0, int stg, uint32_t q_st,
+                       uint32_t do_st, int half) {
+    const uint32_t qh = q_st + half * 4096, doh = do_st + half * 4096;
+    float sh[16], dph[16];
+    wgmma_fence();
+    mma_abt_parts_n32<kParts>(sh, k_tile, kBlockPartBytes, qh, kTileBytes);
+    mma_abt_parts_n32<kParts>(dph, v_tile, kBlockPartBytes, doh, kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sh);
+    fence_regs(dph);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {  // queries q0 + 32·half + nt·8 .. + 8
+      const int qi = 32 * half + nt * 8 + 2 * t;
+      const float2 mq = *reinterpret_cast<const float2*>(sm.ml[stg] + qi);
+      const float2 lq = *reinterpret_cast<const float2*>(sm.linv[stg] + qi);
+      const float2 ddq = *reinterpret_cast<const float2*>(sm.d_delta[stg] + qi);
+      const float2 dlq = *reinterpret_cast<const float2*>(sm.d_linv[stg] + qi);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int e = 4 * nt + c;
+        const int qrow = q0 + qi + (c & 1);
+        const int key = key0 + (c >> 1) * 8;
+        bool drop_e = false;
+        if constexpr (decltype(edge)::value)
+          drop_e = key >= S || qrow >= S || (causal && key > qrow);
+        const float ph =
+            drop_e ? 0.0f : expf(fmaf(sh[e], kScale, -(c & 1 ? mq.y : mq.x)));
+        float pd = ph, dpd = dph[e];
+        if constexpr (kDropout) {
+          if (!drop_e) {  // the forward's (query, key) pair
+            const float dm = dropout_keep(drs, qrow, key, S);
+            pd *= dm;
+            dpd *= dm;
+          }
+        }
+        sh[e] = __fmul_rn(pd, c & 1 ? lq.y : lq.x);
+        dph[e] = __fmul_rn(ph, __fmul_rn(__fsub_rn(dpd, c & 1 ? ddq.y : ddq.x),
+                                         c & 1 ? dlq.y : dlq.x));
+      }
+    }
+    uint32_t af[kParts][2][4];
+    auto split = [&](const float (&x)[16]) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        put_a<kParts>(af, nt / 2, (nt % 2) * 2 + 0, x[4 * nt], x[4 * nt + 1]);
+        put_a<kParts>(af, nt / 2, (nt % 2) * 2 + 1, x[4 * nt + 2],
+                      x[4 * nt + 3]);
+      }
+    };
+    split(sh);
+    wgmma_fence();
+    mma_rb_parts_into<kParts>(dv, af, doh, kTileBytes);
+    fence_regs(af);
+    split(dph);
+    wgmma_fence();
+    mma_rb_parts_into<kParts>(dk, af, qh, kTileBytes);
+    fence_regs(af);
   };
 
   for (int j = 0; j < w.n_loads; ++j) {
     const int q0 = (w.q_begin + j) * kRows;
     const int stg = ring.stage(j);
-    bf16* dol = sm.dol[wg][j & 1];
+    const uint32_t q_st = smem_u32(sm.q[stg][0]);
+    const uint32_t do_st = smem_u32(sm.dout[stg][0]);
     ring.wait_full(j);
     // Under the causal mask a q tile wholly before this warpgroup's keys
     // sees none of them.
     const bool active = !causal || q0 + kRows > kw;
-    // kBias: both warpgroups bias the shared q tile, then meet (below) at a
-    // barrier over all 256 consumers, which also covers the dol writes.
-    if constexpr (kBias)
-      add_bias_tile<kConsumers>(sm.q[stg], sm.bias[0], S - q0, threadIdx.x);
-    if (active) {
-      // dol = bf16(dO·linv) into this warpgroup's buffer, 16-byte chunks at
-      // the positions TMA's 128-byte swizzle gives them: chunk c of row r at
-      // byte r·128 + (c ^ (r % 8))·16, as in the dO tile it is read from.
-      const uint8_t* src = reinterpret_cast<const uint8_t*>(sm.dout[stg]);
-      uint8_t* dst = reinterpret_cast<uint8_t*>(dol);
+    bf16* dol = nullptr;
+    if constexpr (kParts == 1) {
+      dol = sm.dol[wg][j & 1];
+      // kBias: both warpgroups bias the shared q tile, then meet (below) at
+      // a barrier over all 256 consumers, which also covers the dol writes.
+      if constexpr (kBias)
+        add_bias_tile<kConsumers>(sm.q[stg][0], sm.bias[0], S - q0,
+                                  threadIdx.x);
+      if (active) {
+        // dol = bf16(dO·linv) into this warpgroup's buffer, 16-byte chunks
+        // at the positions TMA's 128-byte swizzle gives them: chunk c of row
+        // r at byte r·128 + (c ^ (r % 8))·16, as in the dO tile it is read
+        // from.
+        const uint8_t* src = reinterpret_cast<const uint8_t*>(sm.dout[stg][0]);
+        uint8_t* dst = reinterpret_cast<uint8_t*>(dol);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int chunk = wt + 128 * c;
-        const int r = chunk / 8;
-        const int at = r * 128 + ((chunk % 8) ^ (r % 8)) * 16;
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + at);
-        const bf16* x = reinterpret_cast<const bf16*>(&raw);
-        const float li = sm.linv[stg][r];
-        uint4 packed;
-        bf16* y = reinterpret_cast<bf16*>(&packed);
+        for (int c = 0; c < 4; ++c) {
+          const int chunk = wt + 128 * c;
+          const int r = chunk / 8;
+          const int at = r * 128 + ((chunk % 8) ^ (r % 8)) * 16;
+          const uint4 raw = *reinterpret_cast<const uint4*>(src + at);
+          const bf16* x = reinterpret_cast<const bf16*>(&raw);
+          const float li = sm.linv[stg][r];
+          uint4 packed;
+          bf16* y = reinterpret_cast<bf16*>(&packed);
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
-          y[u] = __float2bfloat16(__bfloat162float(x[u]) * li);
-        *reinterpret_cast<uint4*>(dst + at) = packed;
+          for (int u = 0; u < 8; ++u)
+            y[u] = __float2bfloat16(__bfloat162float(x[u]) * li);
+          *reinterpret_cast<uint4*>(dst + at) = packed;
+        }
       }
-    }
-    if constexpr (kBias) {
-      fence_proxy_async();
-      named_barrier(3, kConsumers);
-    }
-    if (active) {
-      if constexpr (!kBias) {
+      if constexpr (kBias) {
         fence_proxy_async();
-        named_barrier(1 + wg, 128);
+        named_barrier(3, kConsumers);
       }
-      wgmma_fence();
-      mma_abt(st, k_tile, smem_u32(sm.q[stg]));
-      mma_abt(dpt, v_tile, smem_u32(sm.dout[stg]));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-      if ((causal && q0 == kw) || q0 + kRows > S || kw + kRows > S)
-        elementwise(std::true_type{}, q0, stg);
-      else
-        elementwise(std::false_type{}, q0, stg);
-      wgmma_fence();
-      mma_rb(dv, pf, smem_u32(dol));
-      mma_rb(dk, dsf, smem_u32(sm.q[stg]));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_regs(pf);
-      fence_regs(dsf);
+    }
+    if (active) {
+      if constexpr (kParts == 1) {
+        if constexpr (!kBias) {
+          fence_proxy_async();
+          named_barrier(1 + wg, 128);
+        }
+        wgmma_fence();
+        mma_abt(st, k_tile, q_st);
+        mma_abt(dpt, v_tile, do_st);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        if ((causal && q0 == kw) || q0 + kRows > S || kw + kRows > S)
+          elementwise(std::true_type{}, q0, stg);
+        else
+          elementwise(std::false_type{}, q0, stg);
+        wgmma_fence();
+        mma_rb(dv, pf[0], smem_u32(dol));
+        mma_rb(dk, dsf[0], q_st);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_regs(pf);
+        fence_regs(dsf);
+      } else {
+        const bool edge =
+            (causal && q0 == kw) || q0 + kRows > S || kw + kRows > S;
+        for (int half = 0; half < 2; ++half) {
+          if (edge)
+            half_tile(std::true_type{}, q0, stg, q_st, do_st, half);
+          else
+            half_tile(std::false_type{}, q0, stg, q_st, do_st, half);
+        }
+      }
     }
     ring.release(j);
   }
 
-  store_acc(dk, o.dk + offset(o.sdk, w.b, w.h), o.sdk.s, key0, S, t);
-  store_acc(dv, o.dv + offset(o.sdv, w.b, w.h), o.sdv.s, key0, S, t);
+  store_acc(dk, static_cast<OutT<kParts>*>(o.dk) + offset(o.sdk, w.b, w.h),
+            o.sdk.s, key0, S, t);
+  store_acc(dv, static_cast<OutT<kParts>*>(o.dv) + offset(o.sdv, w.b, w.h),
+            o.sdv.s, key0, S, t);
   if constexpr (kBias) {
     const int D = H * 64;
     float* prow = pb.part +
                   (static_cast<size_t>(w.b) * gridDim.x + w.k0 / kBlockRows) *
                       3 * D + w.h * 64;
-    float* red = reinterpret_cast<float*>(sm.dol);
+    // shared memory no wgmma reads any more: dol, or the fp32 form's ring
+    float* red;
+    if constexpr (kParts == 1)
+      red = reinterpret_cast<float*>(sm.dol);
+    else
+      red = reinterpret_cast<float*>(sm.q);
     column_sums(dk, red, prow + D);
     column_sums(dv, red, prow + 2 * D);
   }
 }
 
-template <bool kDropout, bool kBias>
+template <bool kDropout, bool kBias, int kParts>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 unpacked_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -668,7 +870,7 @@ unpacked_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ l_in,
                          const float* __restrict__ delta_in, Dropout drop,
                          int S, int H, int causal) {
-  DkvSmem& sm = aligned_smem<DkvSmem>();
+  auto& sm = aligned_smem<DkvSmem<kParts>>();
   DkvWork w;
   w.k0 = blockIdx.x * kBlockRows;  // the heaviest key tiles first
   w.h = blockIdx.y;
@@ -681,13 +883,13 @@ unpacked_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     sm.ring.init(32, kConsumers / 32);
     mbar_init_fence();
   }
-  if constexpr (kBias) load_head_bias(sm.bias, pb.bias, w.h, H);
+  if constexpr (kBias && kParts == 1) load_head_bias(sm.bias, pb.bias, w.h, H);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {  // the producer warp
     dkdv_produce(sm, Maps{&tq, &tk, &tv, &tdo}, w, m_in, l_in, delta_in, S,
                  H);
   } else {
-    dkdv_consume<kDropout, kBias>(sm, w, o, pb, drop, S, H, causal);
+    dkdv_consume<kDropout, kBias, kParts>(sm, w, o, pb, drop, S, H, causal);
   }
 }
 
@@ -702,58 +904,153 @@ __global__ void column_total_kernel(const float* __restrict__ part,
   out[c] = acc;
 }
 
-constexpr int kDqSmemBytes = static_cast<int>(sizeof(DqSmem)) + 1024;
-constexpr int kDkvSmemBytes = static_cast<int>(sizeof(DkvSmem)) + 1024;
+// dbias (3·H·64,) from the partial rows of a packed backward.
+int column_total(const void* part, void* dbias, int B, int S, int H,
+                 cudaStream_t st) {
+  const int cols = 3 * H * 64;
+  const int part_rows = B * ((S + kBlockRows - 1) / kBlockRows);
+  column_total_kernel<<<(cols + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dbias), part_rows,
+      cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the fp32 form's pre-split ---------------------------------------------
+
+// One fp32 operand of the pre-split: (B, H, S, 64) at its element strides,
+// and each head's 64 bias values at bias + h·64 (or null).
+struct SplitSrc {
+  const float* p;
+  Strides st;
+  const float* bias;
+};
+
+struct SplitSrcs {
+  SplitSrc op[4];  // q, k, v, dO
+};
+
+// Operand blockIdx.y of q, k, v (each with its bias) and dO as its three
+// bf16 parts: out[op] is (B, H, S, 3, 64), part p of element (b, h, s, c)
+// at [b][h][s][p][c], with x = x0 + x1 + x2 exactly (x0 = bf16(x), x1 =
+// bf16(x − x0), x2 = bf16(x − x0 − x1)). A thread converts four
+// neighbouring elements: 16-byte loads, 8-byte stores. Bound by its bytes:
+// 4 read and 6 written an element.
+__global__ void split_parts_kernel(SplitSrcs srcs, bf16* __restrict__ out,
+                                   int B, int H, int S) {
+  const int op = blockIdx.y;
+  const SplitSrc src = op == 0 ? srcs.op[0]
+                       : op == 1 ? srcs.op[1]
+                       : op == 2 ? srcs.op[2]
+                                 : srcs.op[3];
+  const size_t rows = static_cast<size_t>(B) * H * S;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= rows * 16) return;
+  const size_t row = i / 16;
+  const int c = 4 * static_cast<int>(i % 16);
+  const int s = static_cast<int>(row % S);
+  const int h = static_cast<int>((row / S) % H);
+  const int b = static_cast<int>(row / (static_cast<size_t>(S) * H));
+  float4 x = *reinterpret_cast<const float4*>(
+      src.p + offset(src.st, b, h) + static_cast<size_t>(s) * src.st.s + c);
+  if (src.bias != nullptr) {
+    const float4 bb = *reinterpret_cast<const float4*>(src.bias + h * 64 + c);
+    x.x = __fadd_rn(x.x, bb.x);
+    x.y = __fadd_rn(x.y, bb.y);
+    x.z = __fadd_rn(x.z, bb.z);
+    x.w = __fadd_rn(x.w, bb.w);
+  }
+  bf16* dst = out + (op * rows + row) * kPartsWidth + c;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+    *reinterpret_cast<uint2*>(dst + 64 * p) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+    x.x = __fsub_rn(x.x, __low2float(lo));
+    x.y = __fsub_rn(x.y, __high2float(lo));
+    x.z = __fsub_rn(x.z, __low2float(hi));
+    x.w = __fsub_rn(x.w, __high2float(hi));
+  }
+}
+
+// q, k, v, dout fp32 at strides[0..11] with the bias parts bq, bk, bv (or
+// null) → parts (4, B, H, S, 3, 64) bf16.
+int split_parts(const void* q, const void* k, const void* v, const void* bq,
+                const void* bk, const void* bv, const void* dout, void* parts,
+                const long long* strides, int B, int S, int H,
+                cudaStream_t st) {
+  SplitSrcs srcs;
+  const void* ps[4] = {q, k, v, dout};
+  const void* bs[4] = {bq, bk, bv, nullptr};
+  for (int i = 0; i < 4; ++i)
+    srcs.op[i] = {static_cast<const float*>(ps[i]),
+                  {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]},
+                  static_cast<const float*>(bs[i])};
+  const size_t threads = static_cast<size_t>(B) * H * S * 16;
+  const dim3 grid(static_cast<unsigned>((threads + 255) / 256), 4);
+  split_parts_kernel<<<grid, 256, 0, st>>>(srcs, static_cast<bf16*>(parts), B,
+                                           H, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kParts>
+constexpr int kDqSmemBytes = static_cast<int>(sizeof(DqSmem<kParts>)) + 1024;
+template <int kParts>
+constexpr int kDkvSmemBytes = static_cast<int>(sizeof(DkvSmem<kParts>)) + 1024;
 
 // The tensor maps and the launches of the dq and dk/dv kernels <kDropout,
-// kBias>: K7/K8 with pb.bias null, K2 with its bias and partial sums.
+// kBias, kParts>: K7/K8 with pb.part null, K2 with its bias and partial
+// sums. q, k, v, dout: bf16 (kParts 1, width 64) or part arrays (kParts 3,
+// width 192) at strides[0..11]; dq, dk, dv: OutT<kParts> at strides[12..20].
+template <int kParts>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* m, const void* l, void* dq, void* dk, void* dv,
-           void* delta, PackedBias pb, const void* seed,
+           int width, const void* m, const void* l, void* dq, void* dk,
+           void* dv, void* delta, PackedBias pb, const void* seed,
            const long long* strides, int B, int S, int H, int causal,
            unsigned int threshold, float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv, tdo;
-  int err = head_map(&tq, q, strides + 0, B, H, S);
-  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
-  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
-  if (!err) err = head_map(&tdo, dout, strides + 9, B, H, S);
+  int err = head_map(&tq, q, strides + 0, B, H, S, width);
+  if (!err) err = head_map(&tk, k, strides + 3, B, H, S, width);
+  if (!err) err = head_map(&tv, v, strides + 6, B, H, S, width);
+  if (!err) err = head_map(&tdo, dout, strides + 9, B, H, S, width);
   if (err) return err;
-  const Outputs o{static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                  static_cast<bf16*>(dv),
+  const Outputs o{dq, dk, dv,
                   {strides[12], strides[13], strides[14]},
                   {strides[15], strides[16], strides[17]},
                   {strides[18], strides[19], strides[20]}};
   const dim3 grid((S + kBlockRows - 1) / kBlockRows, H, B);
   const Dropout drop{static_cast<const int*>(seed), threshold, scale};
-  const int dr = seed != nullptr, bi = pb.bias != nullptr;
-  using DqKernel = decltype(&unpacked_bwd_dq_kernel<false, false>);
-  using DkvKernel = decltype(&unpacked_bwd_dkdv_kernel<false, false>);
+  const int dr = seed != nullptr, bi = pb.part != nullptr;
+  using DqKernel = decltype(&unpacked_bwd_dq_kernel<false, false, kParts>);
+  using DkvKernel = decltype(&unpacked_bwd_dkdv_kernel<false, false, kParts>);
   const DqKernel dq_kernels[2][2] = {
-      {&unpacked_bwd_dq_kernel<false, false>,
-       &unpacked_bwd_dq_kernel<false, true>},
-      {&unpacked_bwd_dq_kernel<true, false>,
-       &unpacked_bwd_dq_kernel<true, true>}};
+      {&unpacked_bwd_dq_kernel<false, false, kParts>,
+       &unpacked_bwd_dq_kernel<false, true, kParts>},
+      {&unpacked_bwd_dq_kernel<true, false, kParts>,
+       &unpacked_bwd_dq_kernel<true, true, kParts>}};
   const DkvKernel dkdv_kernels[2][2] = {
-      {&unpacked_bwd_dkdv_kernel<false, false>,
-       &unpacked_bwd_dkdv_kernel<false, true>},
-      {&unpacked_bwd_dkdv_kernel<true, false>,
-       &unpacked_bwd_dkdv_kernel<true, true>}};
+      {&unpacked_bwd_dkdv_kernel<false, false, kParts>,
+       &unpacked_bwd_dkdv_kernel<false, true, kParts>},
+      {&unpacked_bwd_dkdv_kernel<true, false, kParts>,
+       &unpacked_bwd_dkdv_kernel<true, true, kParts>}};
   const DqKernel dq_kernel = dq_kernels[dr][bi];
   const DkvKernel dkdv_kernel = dkdv_kernels[dr][bi];
   err = static_cast<int>(cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes));
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDqSmemBytes<kParts>));
   if (!err)
     err = static_cast<int>(cudaFuncSetAttribute(
         dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kDkvSmemBytes));
+        kDkvSmemBytes<kParts>));
   if (err) return err;
-  dq_kernel<<<grid, kBlockThreads, kDqSmemBytes, st>>>(
+  dq_kernel<<<grid, kBlockThreads, kDqSmemBytes<kParts>, st>>>(
       tq, tk, tv, tdo, o, pb, static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<float*>(delta), drop, S, H,
       causal);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  dkdv_kernel<<<grid, kBlockThreads, kDkvSmemBytes, st>>>(
+  dkdv_kernel<<<grid, kBlockThreads, kDkvSmemBytes<kParts>, st>>>(
       tq, tk, tv, tdo, o, pb, static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const float*>(delta), drop, S,
       H, causal);
@@ -762,10 +1059,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// Dynamic shared memory of the dq and dk/dv kernels (K7/K8 and K2), bytes
-// (for the build report).
-extern "C" int attention_bwd_smem(int dkdv) {
-  return dkdv ? kDkvSmemBytes : kDqSmemBytes;
+// Dynamic shared memory of the dq (dkdv 0) and dk/dv (dkdv 1) kernels,
+// bf16 (fp32 0) or the fp32 form (fp32 1), bytes (for the build report).
+extern "C" int attention_bwd_smem(int dkdv, int fp32) {
+  if (fp32) return dkdv ? kDkvSmemBytes<3> : kDqSmemBytes<3>;
+  return dkdv ? kDkvSmemBytes<1> : kDqSmemBytes<1>;
 }
 
 // Rows of q (dq kernel) or keys (dk/dv kernel) per block: K2's partial
@@ -786,9 +1084,9 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              int S, int H, int causal, unsigned int threshold,
                              float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  return launch(q, k, v, dout, m, l, dq, dk, dv, delta, PackedBias{},
-                seed, strides, B, S, H, causal, threshold, scale,
-                static_cast<cudaStream_t>(stream));
+  return launch<1>(q, k, v, dout, 64, m, l, dq, dk, dv, delta, PackedBias{},
+                   seed, strides, B, S, H, causal, threshold, scale,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // K2. qkv: (B, S, 3·H·64) bf16; bias: (3·H·64,) bf16; dout: (B, S, H·64)
@@ -818,14 +1116,66 @@ extern "C" int attention_packed_bwd(const void* qkv, const void* bias,
   bf16* dx = static_cast<bf16*>(dqkv);
   const PackedBias pb{static_cast<const bf16*>(bias),
                       static_cast<float*>(part)};
-  int err = launch(x, x + D, x + 2 * D, dout, m, l, dx, dx + D, dx + 2 * D,
-                   delta, pb, seed, strides, B, S, H, causal, threshold, scale,
-                   st);
+  const int err = launch<1>(x, x + D, x + 2 * D, dout, 64, m, l, dx, dx + D,
+                            dx + 2 * D, delta, pb, seed, strides, B, S, H,
+                            causal, threshold, scale, st);
   if (err) return err;
-  const int cols = static_cast<int>(3 * D);
-  const int part_rows = B * ((S + kBlockRows - 1) / kBlockRows);
-  column_total_kernel<<<(cols + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dbias), part_rows,
-      cols);
-  return static_cast<int>(cudaGetLastError());
+  return column_total(part, dbias, B, S, H, st);
+}
+
+// The fp32 form's pre-split alone (the backward runs it first; this entry
+// checks and times it): q, k, v, dout (B, H, S, 64) fp32 at the element
+// strides strides[0..11] as attention_f32_bwd's, bq, bk, bv each head's
+// bias at b + h·64 or null → parts (4, B, H, S, 3, 64) bf16, contiguous.
+extern "C" int attention_f32_split(const void* q, const void* k,
+                                   const void* v, const void* bq,
+                                   const void* bk, const void* bv,
+                                   const void* dout, void* parts,
+                                   const long long* strides, int B, int S,
+                                   int H, void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  return split_parts(q, k, v, bq, bk, bv, dout, parts, strides, B, S, H,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The fp32 form (K2, K7/K8 on fp32 operands). q, k, v, dout, dq, dk, dv:
+// (B, H, S, 64) fp32 at the element strides strides[3i .. 3i+2] (batch,
+// head, row) for i = 0..6 in that order, each a multiple of 4, bases 16-byte
+// aligned; bq, bk, bv: each head's 64 bias values of the packed layout at
+// b + h·64 (added to q, k and v), or null; m, l: the forward's (B, H, S)
+// fp32; delta: (B, H, S) fp32 workspace; parts: (4, B, H, S, 3, 64) bf16
+// workspace. With part (B·⌈S/attention_bwd_block_rows()⌉, 3·H·64) fp32
+// workspace and dbias (3·H·64,) fp32 non-null, also the bias gradient: the
+// column sums of dq, dk and dv at columns h·64, D + h·64 and 2D + h·64.
+// seed as attention_bwd's. Returns the first error of the four launches and
+// the maps.
+extern "C" int attention_f32_bwd(const void* q, const void* k, const void* v,
+                                 const void* bq, const void* bk, const void* bv,
+                                 const void* dout, const void* m, const void* l,
+                                 void* dq, void* dk, void* dv, void* delta,
+                                 void* parts, void* part, void* dbias,
+                                 const void* seed, const long long* strides,
+                                 int B, int S, int H, int causal,
+                                 unsigned int threshold, float scale,
+                                 void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = split_parts(q, k, v, bq, bk, bv, dout, parts, strides, B, S, H,
+                        st);
+  if (err) return err;
+  // The part arrays' (batch, head, row) strides, then the outputs' own
+  const long long split[3] = {static_cast<long long>(H) * S * kPartsWidth,
+                              static_cast<long long>(S) * kPartsWidth,
+                              kPartsWidth};
+  long long all[21];
+  for (int i = 0; i < 21; ++i) all[i] = i < 12 ? split[i % 3] : strides[i];
+  const size_t n = static_cast<size_t>(B) * H * S * kPartsWidth;
+  const bf16* x = static_cast<const bf16*>(parts);
+  const PackedBias pb{nullptr,
+                      dbias != nullptr ? static_cast<float*>(part) : nullptr};
+  err = launch<3>(x, x + n, x + 2 * n, x + 3 * n, kPartsWidth, m, l, dq, dk,
+                  dv, delta, pb, seed, all, B, S, H, causal, threshold, scale,
+                  st);
+  if (err || pb.part == nullptr) return err;
+  return column_total(part, dbias, B, S, H, st);
 }

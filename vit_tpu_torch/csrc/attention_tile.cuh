@@ -1,6 +1,7 @@
-// Constants and helpers shared by the attention kernels: the bf16 ones on
+// Constants and helpers shared by the attention kernels: the ones on
 // Hopper (attention_fwd.cu: K6 and its packed form K1; attention_bwd.cu:
-// K7/K8 and K2) and the fp32 forms (attention_f32.cu, 64-row tiles).
+// K7/K8 and K2, bf16 and fp32) and the fp32 forwards (attention_f32.cu,
+// 64-row tiles).
 
 #pragma once
 
@@ -26,14 +27,6 @@ __device__ __forceinline__ size_t offset(const Strides& st, int b, int h) {
 }
 
 constexpr float kScale = 0.125f;  // 1/√64, a power of two
-
-// The backward's ds = ph · ((dp - Δ·linv) · (scale·linv)) with the TPU
-// kernel's operation order and no contraction into fused multiply-adds.
-__device__ __forceinline__ float dscore(float ph, float dp, float delta,
-                                        float linv) {
-  const float centred = __fsub_rn(dp, __fmul_rn(delta, linv));
-  return __fmul_rn(ph, __fmul_rn(centred, __fmul_rn(kScale, linv)));
-}
 
 // Head h's slices of the packed projection's (3·H·64,) bf16 bias, q at
 // h·64, k at (H + h)·64 and v at (2H + h)·64, into `dst` in shared memory:

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
 // (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate) that
-// the attention kernels (K6, K7/K8 and their packed forms K1, K2) and the
-// ConvNeXt block tail (K3, K4) are built from, and the host side of their
-// tensor maps.
+// the attention kernels (K6, K7/K8 and their packed forms K1, K2; the
+// backward's fp32 form through fp32-accurate products of three bf16 parts)
+// and the ConvNeXt block tail (K3, K4) are built from, and the host side of
+// their tensor maps.
 //
 // Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
 // row) and lands in shared memory through a tensor map built with
@@ -283,6 +284,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 #pragma unroll
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
+template <int P, int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[P][N][M]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) fence_regs(r[p]);
+}
 
 #define VIT_ACC32(d)                                                         \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
@@ -377,6 +383,91 @@ __device__ __forceinline__ void mma_rb(float (&d)[32],
   for (int ks = 0; ks < 4; ++ks) wgmma_rs<1>(d, a[ks], desc_mn(b + 2048 * ks));
 }
 
+// ---- fp32-accurate products from three bf16 parts --------------------------
+//
+// An fp32 value x splits into bf16 parts x = x0 + x1 + x2 exactly: x0 =
+// bf16(x), x1 = bf16(x - x0), x2 = x - x0 - x1 (the 24-bit significand in
+// three 8-bit pieces; exact while x2 stays a normal bf16, |x| above about
+// 2^-110). A product A·B of fp32 operands is then the six bf16 products
+// A_i·B_j with i + j <= 2 summed in one fp32 accumulator, the small terms
+// first (A2B0, A1B1, A0B2, A1B0, A0B1, A0B0); the three dropped terms are
+// below 2^-23 of |A|·|B|, as the TPU's Precision.HIGHEST sums the same six
+// bf16 passes. With kParts = 1 the helpers are the plain bf16 products (the
+// term A0B0 alone), so one kernel body serves both forms. A part-split
+// operand tile keeps its parts `part` bytes apart in shared memory.
+
+// The A and B parts of term t (0..5) of a six-term product
+__host__ __device__ constexpr int split_a(int t) {
+  return t < 3 ? 2 - t : (t == 3 ? 1 : 0);
+}
+__host__ __device__ constexpr int split_b(int t) {
+  return t < 3 ? t : (t == 4 ? 1 : 0);
+}
+template <int kParts>
+constexpr int kFirstTerm = kParts == 1 ? 5 : 0;
+
+// d = A·Bᵀ over 64 (mma_abt) from kParts-part tiles, A's parts a_part
+// bytes apart and B's b_part bytes apart. 4 wgmmas a term.
+template <int kParts>
+__device__ __forceinline__ void mma_abt_parts(float (&d)[32], uint32_t a,
+                                              uint32_t a_part, uint32_t b,
+                                              uint32_t b_part) {
+#pragma unroll
+  for (int t = kFirstTerm<kParts>; t < 6; ++t)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<0>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
+                  desc_k(b + split_b(t) * b_part + 32 * ks),
+                  t > kFirstTerm<kParts> || ks > 0);
+}
+
+// The same over 32 columns (wgmma_ss_n32): d (64 x 32) = A·Bᵀ with B the
+// 32 rows of a K-major tile from b (4096 bytes into it for its rows 32-63).
+template <int kParts>
+__device__ __forceinline__ void mma_abt_parts_n32(float (&d)[16], uint32_t a,
+                                                  uint32_t a_part, uint32_t b,
+                                                  uint32_t b_part) {
+#pragma unroll
+  for (int t = kFirstTerm<kParts>; t < 6; ++t)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n32<0>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
+                      desc_k(b + split_b(t) * b_part + 32 * ks),
+                      t > kFirstTerm<kParts> || ks > 0);
+}
+
+// d += A·B over 16·kSteps (mma_rb): A's parts as register fragments
+// a[part][k16 step], B a kParts-part tile read MN-major from b (2048 bytes
+// a k16 step), its parts b_part bytes apart.
+template <int kParts, int kSteps>
+__device__ __forceinline__ void mma_rb_parts(
+    float (&d)[32], const uint32_t (&a)[kParts][kSteps][4], uint32_t b,
+    uint32_t b_part) {
+#pragma unroll
+  for (int t = kFirstTerm<kParts>; t < 6; ++t)
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+      wgmma_rs<1>(d, a[split_a(t)][ks],
+                  desc_mn(b + split_b(t) * b_part + 2048 * ks));
+}
+
+// Two fp32 values (lo, hi) as kParts packed bf16 pairs into A fragment
+// register i of k16 step ks: the value itself rounded (kParts = 1) or its
+// three parts.
+template <int kParts, int kSteps>
+__device__ __forceinline__ void put_a(uint32_t (&a)[kParts][kSteps][4],
+                                      int ks, int i, float lo, float hi) {
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    a[p][ks][i] = *reinterpret_cast<const uint32_t*>(&v);
+    if (p + 1 < kParts) {
+      lo = __fsub_rn(lo, __low2float(v));
+      hi = __fsub_rn(hi, __high2float(v));
+    }
+  }
+}
+
 // ---- host: tensor maps ---------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -408,15 +499,17 @@ inline EncodeTiledFn encode_tiled() {
 
 // The tensor map of one unpacked bf16 operand (B, H, S, 64) with element
 // strides st = (batch, head, row) and unit stride along head_dim: 4-D
-// (64, S, H, B), boxes of 64 x 64 rows of one head, 128-byte swizzle, zeros
-// past S. Strides of a dimension of size 1 are never used and are given as
-// the row stride. Returns 0 or a cudaError_t.
+// (width, S, H, B), boxes of 64 x 64 rows of one head, 128-byte swizzle,
+// zeros past S. A width of 192 reads a row of three 64-wide parts, part p
+// at column 64p. Strides of a dimension of size 1 are never used and are
+// given as the row stride. Returns 0 or a cudaError_t.
 inline int head_map(CUtensorMap* map, const void* base, const long long* st,
-                    int B, int H, int S) {
+                    int B, int H, int S, int width = 64) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t row = static_cast<cuuint64_t>(st[2]) * 2;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {

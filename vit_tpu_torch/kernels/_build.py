@@ -21,7 +21,8 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                            K2   attention.py:1072 (_fa_packed_bwd_kernel
                                 :824), K7/K8's kernels with kBias
                                 (both sources on hopper.cuh: TMA, mbarrier,
-                                wgmma)
+                                wgmma); on fp32 operands the same kernels
+                                over three bf16 parts (kParts = 3)
   convnext_tail.cu         K3   convnext_block.py:248 (_fwd_kernel :89)
                            K4   convnext_block.py:276 (_bwd_kernel :109)
                                 (on hopper.cuh too: a TMA ring of weight
@@ -35,14 +36,16 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                            K11b depthwise.py:124 (_dw_bwd_kernel :77)
   convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
                            K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
-  attention_f32.cu         K1, K2, K6, K7/K8 on fp32 operands
+  attention_f32.cu         K1, K6 on fp32 operands
   convnext_tail_f32.cu     K3, K4 on fp32 rows
   fma_probe.cu             P    scripts/bench_vpu.py:60 (_fma_kernel :32)
 
 The JAX package runs every Pallas kernel on operands of the compute dtype,
 fp32 products at Precision.HIGHEST under ``--mixed false``. Each kernel
-therefore has an fp32 form: the attention and ConvNeXt-tail ones in their
-own sources above (SIMT fp32 products, ``csrc/simt_f32.cuh``), the others
+therefore has an fp32 form: the attention backwards as fp32-accurate
+products of three bf16 parts on the tensor cores (``attention_bwd.cu``),
+the attention forwards and the ConvNeXt tails in their own sources above
+(SIMT fp32 products, ``csrc/simt_f32.cuh``), the others
 as ``*_f32`` entries beside their bf16 ones (K9a, K10: SIMT products; K9b,
 K9c, K12a, K12b: the kernels templated on their row type). K5 is fp32 by
 design and K11 takes both dtypes through one entry.
@@ -159,9 +162,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attention_bwd.argtypes = [ptr] * 11 + [strides] + [i32] * 4 + drop
     lib.attention_bwd.restype = i32
     # Their dynamic shared memory in bytes: attention_fwd_smem(),
-    # attention_bwd_smem(dkdv) (0: the dq kernel, 1: the dk/dv kernel)
+    # attention_bwd_smem(dkdv, fp32) (dkdv 0: the dq kernel, 1: the dk/dv
+    # kernel; fp32 1: the fp32 form's)
     lib.attention_fwd_smem.argtypes = []
-    lib.attention_bwd_smem.argtypes = [i32]
+    lib.attention_bwd_smem.argtypes = [i32, i32]
     lib.attention_fwd_smem.restype = lib.attention_bwd_smem.restype = i32
     # Rows per backward block: K2's partial bias sums are (B·⌈S/rows⌉, 3D)
     lib.attention_bwd_block_rows.argtypes = []
@@ -213,8 +217,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # seed, strides, B, S, H, causal, ...)
     lib.attention_f32_fwd.argtypes = [ptr] * 10 + [strides] + [i32] * 4 + drop
     # attention_f32_bwd(q, k, v, bq, bk, bv, dout, m, l, dq, dk, dv, delta,
-    #                   part, dbias, seed, strides, B, S, H, causal, ...)
-    lib.attention_f32_bwd.argtypes = [ptr] * 16 + [strides] + [i32] * 4 + drop
+    #                   parts, part, dbias, seed, strides, B, S, H, causal,
+    #                   ...)
+    lib.attention_f32_bwd.argtypes = [ptr] * 17 + [strides] + [i32] * 4 + drop
+    # attention_f32_split(q, k, v, bq, bk, bv, dout, parts, strides, B, S, H,
+    #                     stream): the backward's pre-split alone
+    lib.attention_f32_split.argtypes = [ptr] * 8 + [strides] + [i32] * 3 + [ptr]
     for name, like in (("convnext_tail_f32_fwd", "convnext_tail_fwd"),
                        ("convnext_tail_f32_bwd", "convnext_tail_bwd"),
                        ("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
@@ -228,8 +236,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, name).argtypes = [ptr, ptr, ctypes.c_longlong, i32, i32,
                                        f32, f32, ptr]
     for name in ("attention_f32_fwd", "attention_f32_bwd",
-                 "convnext_tail_f32_fwd", "convnext_tail_f32_bwd",
-                 "convnext_tail_fwd_q8_f32", "convnext_tail_bwd_q8_f32",
+                 "attention_f32_split", "convnext_tail_f32_fwd",
+                 "convnext_tail_f32_bwd", "convnext_tail_fwd_q8_f32",
+                 "convnext_tail_bwd_q8_f32",
                  "ln_matmul_fwd_f32", "ln_matmul_dgelu_f32", "ln_bwd_f32",
                  "fc_grad_f32", "fma_chains_f32", "fma_chains_bf16"):
         getattr(lib, name).restype = i32

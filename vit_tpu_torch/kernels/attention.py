@@ -58,10 +58,13 @@ XLA's ``bernoulli`` when ``VIT_TPU_TILED_BWD=0`` or beyond its VMEM plane
 budget (:1304-1312); the port sends every S to its kernels.
 
 fp32 operands (``--mixed false``, where the Pallas kernels take their
-products at Precision.HIGHEST) launch the fp32 forms of
-``csrc/attention_f32.cu``: one forward and one backward kernel pair for
-both layouts, full fp32 products on the CUDA cores, the same (m, l)
-statistics and the same dropout mask. Every wrapper takes bf16 or fp32
+products at Precision.HIGHEST) launch the fp32 forms, for both layouts,
+with the same (m, l) statistics and the same dropout mask: the forward of
+``csrc/attention_f32.cu`` (full fp32 products on the CUDA cores) and the
+backward's kernel pair of ``csrc/attention_bwd.cu`` instantiated on three
+bf16 parts of each fp32 operand (x = x0 + x1 + x2, written by a pre-split
+pass, :func:`split_parts`), every product the six bf16 tensor-core products
+of the TPU's HIGHEST, fp32 outputs. Every wrapper takes bf16 or fp32
 operands of one dtype and counts its fp32 launches apart (``fp32_*``).
 """
 
@@ -354,32 +357,93 @@ def _f32_fwd(q, k, v, bias, out, emit_stats: bool, seed, threshold: int,
     return m, l
 
 
+def _parts(q: torch.Tensor) -> torch.Tensor:
+    """The fp32 backward's workspace of bf16 parts: (4, B, H, S, 3, 64),
+    part p of q, k, v (biased) and dO at [operand][b][h][s][p]."""
+    b, h, s, d = q.shape
+    return torch.empty(4, b, h, s, 3, d, dtype=torch.bfloat16,
+                       device=q.device)
+
+
 def _f32_bwd(q, k, v, bias, dout, m, l, dq, dk, dv, seed, threshold: int,
              scale: float, causal: bool) -> "torch.Tensor | None":
-    """Launch the fp32 backward (``attention_f32_bwd``) into the (B, H, S,
-    64) views dq, dk, dv; with the packed layout's (3D,) bias also its fp32
-    gradient, which is returned (None without a bias)."""
+    """Launch the fp32 backward (``attention_f32_bwd``: the pre-split, then
+    the split-product dq and dk/dv kernels) into the (B, H, S, 64) views
+    dq, dk, dv; with the packed layout's (3D,) bias also its fp32 gradient,
+    which is returned (None without a bias)."""
     b, h, s, _ = q.shape
     delta = torch.empty_like(m)
+    lib = _build.load()
     part = dbias = None
     if bias is not None:
-        part = torch.empty(b * -(-s // HEAD_DIM), bias.numel(),
-                           dtype=torch.float32, device=q.device)
+        part = torch.empty(b * -(-s // lib.attention_bwd_block_rows()),
+                           bias.numel(), dtype=torch.float32, device=q.device)
         dbias = torch.empty(bias.numel(), dtype=torch.float32,
                             device=q.device)
     bq, bk, bv = _bias_parts(bias)
-    lib = _build.load()
+    parts = _parts(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attention_f32_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
             _ptr(bv), dout.data_ptr(), m.data_ptr(), l.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            _ptr(part), _ptr(dbias), _ptr(seed),
+            parts.data_ptr(), _ptr(part), _ptr(dbias), _ptr(seed),
             _strides(q, k, v, dout, dq, dk, dv), b, s, h, int(causal),
             threshold, scale, stream)
     _build.check(lib, err, "attention_f32_bwd")
     return dbias
+
+
+def split3(x: torch.Tensor) -> "tuple[torch.Tensor, ...]":
+    """fp32 ``x`` as three bf16 parts with x = x0 + x1 + x2 exactly (while x2
+    is a normal bf16: |x| above about 2⁻¹¹⁰): x0 = bf16(x), x1 = bf16(x −
+    x0), x2 = bf16(x − x0 − x1). The fp32 backward's operands and A
+    fragments are split so (``csrc/hopper.cuh:put_a``)."""
+    parts, r = [], x.float()
+    for _ in range(3):
+        p = r.to(torch.bfloat16)
+        parts.append(p)
+        r = r - p.float()
+    return tuple(parts)
+
+
+def split_parts_ref(q, k, v, dout, bias: "torch.Tensor | None" = None
+                    ) -> torch.Tensor:
+    """Plain version of the fp32 backward's pre-split pass: q, k, v (plus
+    the packed layout's (3D,) bias, q's part at h·64, k's at D + h·64, v's
+    at 2D + h·64) and dO, fp32 (B, H, S, 64) → (4, B, H, S, 3, 64) bf16."""
+    ops = [q, k, v]
+    if bias is not None:
+        ops = [x + bp.view(-1, 1, HEAD_DIM) for x, bp in zip(ops,
+                                                             _bias_parts(bias))]
+    return torch.stack([torch.stack(split3(x), -2) for x in (*ops, dout)])
+
+
+def split_parts(q, k, v, dout, bias: "torch.Tensor | None" = None
+                ) -> torch.Tensor:
+    """The fp32 backward's pre-split pass alone, the launch that
+    ``attention_f32_bwd`` makes first, to check it against
+    :func:`split_parts_ref` and time it: CUDA fp32 (B, H, S, 64) operands at
+    the strides the backward takes → (4, B, H, S, 3, 64) bf16."""
+    _check_unpacked((q, k, v, dout), "the pre-split")
+    if q.dtype != torch.float32:
+        raise TypeError(f"the pre-split takes fp32 operands, got {q.dtype}")
+    q, k, v, dout = (_strided(t) for t in (q, k, v, dout))
+    b, h, s, _ = q.shape
+    parts = _parts(q)
+    if bias is not None:
+        bias = _build.cuda_arg(bias, q, "qkv_bias", torch.float32)
+    bq, bk, bv = _bias_parts(bias)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attention_f32_split(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
+            _ptr(bv), dout.data_ptr(), parts.data_ptr(),
+            _strides(q, k, v, dout), b, s, h, stream)
+    _build.check(lib, err, "attention_f32_split")
+    return parts
 
 
 def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
