@@ -54,7 +54,11 @@ false``. Phases, one JSON line each:
                 ``TAIL_MEAN_REL`` of mean |plain|, which a control (z, or
                 da, rounded to bf16 early) must fail, with the ptxas
                 figures, shared memory and blocks per SM of their kernels;
-                K7 at
+                K9a and K9c within ``LN_MEAN_REL`` of mean |plain|, which a
+                control (the LayerNorm statistics rounded to bf16) must
+                fail, and K12a and K12b within ``Q8_MEAN_REL``, which a
+                control (one per-tensor activation scale for the per-row
+                ones) must fail; K7 at
                 its own shape (2, 12, 513); the dropout arms of K1/K2 at
                 ViT-L's (64, 257, 16 heads, rate 0.15), K6/K8 at (32, 12,
                 1024) causal and K7 at (2, 12, 513) causal (rate 0.1), each
@@ -68,13 +72,18 @@ false``. Phases, one JSON line each:
                 K9c, K10, K12a, K12b on fp32 operands) against its fp32
                 plain version within 1e-5 of max and mean |plain| (K12's
                 max within K12_REL: int8 levels), at the fp32 paths' shapes,
-                the dropout arms included; the fp32 backward (K2, K7/K8:
-                products of three bf16 parts on the tensor cores) also
-                within ``F32_BWD_MEAN_REL`` of mean |plain|, which a
-                control (its operands rounded to two parts) must fail, its
-                pre-split pass bit for bit and timed alone, its ptxas
-                figures and its bound at the split products' rate (six
-                bf16 products an fp32 one) beside P's; a TF32 control (the plain version
+                the dropout arms included; K9a, K9c and K12 within their
+                mean limits as in the kernel phase; the fp32 attention
+                (K1, K6 forward and K2, K7/K8 backward: products of three
+                bf16 parts on the tensor cores) also within
+                ``F32_FWD_MEAN_REL`` of the float64 forward's mean |o|,
+                |m| and |l| and ``F32_BWD_MEAN_REL`` of the plain
+                backward's mean |plain|, which controls (the operands
+                rounded to two parts) must fail, the pre-splits (three
+                operands forward, four backward) bit for bit and timed
+                alone, the ptxas figures and the bounds at the split
+                products' rate (six bf16 products an fp32 one) beside P's;
+                a TF32 control (the plain version
                 with TF32 on in the form's place) that must fail that limit
                 for K1, K2, K3, K6, K9a and K10; times, bounds over P's fp32
                 rate and library times (SDPA on fp32 tensors, ``F.linear``, fp32
@@ -108,6 +117,9 @@ false``. Phases, one JSON line each:
                 against the plain versions; a bs-64 encode and decode with
                 fused LN (K9a without a gradient) against the unfused
                 kernels', every differing code a near-tie, and their times;
+                every K9a and K9c launch of the first fused step and of
+                that encode and decode within ``LN_MEAN_REL`` of its plain
+                version on the same inputs;
   8. videogpt_train — the VideoGPT-B step at bs 32 (tokenize 512 frames,
                 next-token CE, AdamW): the launches of one step (K6 12,
                 K7/K8 12, K1 6, K5 1); the tokenizer's codes against the
@@ -131,7 +143,9 @@ false``. Phases, one JSON line each:
                 ``PerceptualLoss(quant="int8")`` (``bench.py
                 --perceptual_quant int8``): the launches of one step (K12a
                 66, K12b 33 in place of K3/K4); its first step against the
-                plain versions; the int8 perceptual loss's gap from the bf16
+                plain versions; every K12a and K12b launch of that step
+                within ``Q8_MEAN_REL`` of its plain version on the same
+                inputs; the int8 perceptual loss's gap from the bf16
                 one; 20 steps lower the recon loss; step time, images/s and
                 peak memory in turns with the bf16 step; a profile of one
                 int8 step;
@@ -139,7 +153,9 @@ false``. Phases, one JSON line each:
                 its image gradient at bs 64, image 128, under ``dw_impl`` ∈
                 {lax, pallas} × ``quant`` ∈ {none, int8}: launches per call
                 (K11a 72, K11b 36 under pallas), each kernel arm against its
-                plain versions, ms per call and a profile of one call;
+                plain versions, under int8 every K12a and K12b launch of
+                the first call within ``Q8_MEAN_REL`` of its plain version,
+                ms per call and a profile of one call;
  12. vit      — ``make_classifier_train_step`` at bs 64 for ViT-B/16 @224
                 (S 197, no dropout: K1 12, K2 12 a step) and ViT-L/16 @256
                 at dropout 0.15 (S 257: K1 24, K2 24, all with dropout):
@@ -197,6 +213,8 @@ if not (ROOT / "vit_tpu_torch" / "__init__.py").exists():
     raise SystemExit(f"chip_smoke.py: no vit_tpu_torch package beside it in {ROOT}")
 sys.path.insert(0, str(ROOT))
 
+from vit_tpu_torch.bench_kernels import exact_attention_fwd  # noqa: E402
+from vit_tpu_torch.bench_kernels import two_parts  # noqa: E402
 from vit_tpu_torch.kernels import _build  # noqa: E402
 from vit_tpu_torch.kernels import attention as k_attn  # noqa: E402
 from vit_tpu_torch.kernels import convnext_block as k_cnx  # noqa: E402
@@ -391,6 +409,36 @@ FP32_REL = 1e-5
 # rounded to 16-bit significands), reads 4.4e-6 to 6.1e-6 and must fail
 # it; FP32_REL's TF32 control fails both.
 F32_BWD_MEAN_REL = 3.5e-6
+# The fp32 forward (K1, K6 on fp32 operands, split into three bf16 parts):
+# 10× the largest mean of the SIMT fp32 forward it replaced against the
+# plain fp32 version, read on an H100 by bench_kernels.py at the parent
+# commit (o, m and l of K1, K6, their dropout arms and K6 at K7's shape:
+# 0 for m, 3.0e-8 to 3.33e-8 for o and l). That limit lies below the plain
+# fp32 version's own mean distance from the same math in float64 (o
+# 2.2e-7 to 3.7e-7, m 9.6e-8, l 2.6e-7 to 2.8e-7 there): the SIMT kernel
+# summed q·kᵀ and P·V in cuBLAS's FMA order (its m equal to the plain
+# version's to the bit), which no tensor-core product repeats, and against
+# the plain version the split kernel reads 2.4e-7 to 4.0e-7. So the fp32
+# forms are held to it against the float64 forward
+# (bench_kernels.exact_attention_fwd), where they read 6.7e-8 to 1.7e-7,
+# closer than the plain version; a split that lost its third part,
+# two_part_fwd_control (the plain forward on q, k and v rounded to 16-bit
+# significands), reads 1.1e-6 to 4.1e-6 there and must fail it.
+F32_FWD_MEAN_REL = 3.33e-7
+# K9a and K9c against their plain versions, mean |Δ| over mean |plain|:
+# ulp flips of the bf16 outputs (the fp32 forms: sums in another order),
+# read on an H100 by this script at 0 to 2.52e-6 (K9a's z at (130, 768 →
+# 384) the largest; K9c up to 7.7e-8; the fp32 forms 4.2e-8 to 1.5e-7; the
+# fused step's and the fused encode's launches up to 1.32e-6). 10× the
+# largest; ln_stats_control (the LayerNorm statistics rounded to bf16)
+# reads 1.46e-3 and 2.94e-3 and must fail it.
+LN_MEAN_REL = 2.5e-5
+# K12a and K12b likewise: int8 levels that flip where two fp32 values round
+# apart, read at 1.6e-8 to 3.64e-6 (bf16) and 1.07e-6 and 3.86e-6 (fp32
+# rows, K12b the largest). 10× the largest; per_tensor_scale_control (one
+# scale for each activation operand in place of per-row scales) reads
+# 6.77e-3 and 4.35e-2 and must fail it.
+Q8_MEAN_REL = 3.86e-5
 # The fp32 paths' first steps against the plain versions' (loss, perceptual
 # loss, gradient norm; ViT-L's logits), relative: measured at 0 to 1e-7.
 FP32_STEP_REL = 1e-5
@@ -755,13 +803,13 @@ def phase_build() -> None:
 def hopper_attention_ptxas() -> dict:
     """ptxas's report (registers, spills) and the dynamic shared memory of
     the Hopper attention kernels (K6, K7/K8's dq and dk/dv kernels, their
-    kBias instantiations, K1 and K2, and the backward's fp32 form)."""
+    kBias instantiations, K1 and K2, and their fp32 forms)."""
     lib = _build.load()
 
     def smem(name):
         base = name.split("<")[0]
         if base == "attention_fwd_kernel":
-            return lib.attention_fwd_smem()
+            return lib.attention_fwd_smem(int(fp32_form(name)))
         return lib.attention_bwd_smem(int(base == "unpacked_bwd_dkdv_kernel"),
                                       int(fp32_form(name)))
 
@@ -965,10 +1013,6 @@ def two_part_control(q, k, v, dout, m, l, causal: bool) -> dict:
     rounded to two bf16 parts, x0 + x1 (a 16-bit significand), as a split
     that lost its third part would read them. Its dq, dk and dv, held
     against the plain version as the kernel's are, must fail the limit."""
-    def two_parts(x):
-        x0 = x.bfloat16().float()
-        return x0 + (x - x0).bfloat16().float()
-
     got = k_attn.attention_bwd_ref(*(two_parts(t) for t in (q, k, v, dout)),
                                    m, l, causal)
     refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, causal)
@@ -978,6 +1022,138 @@ def two_part_control(q, k, v, dout, m, l, causal: bool) -> dict:
             f"the two-part control passes the fp32 backward's mean limit: "
             f"{row}")
     return row
+
+
+def two_part_fwd_control(q, k, v, causal: bool, exact, **drop) -> dict:
+    """The control of ``F32_FWD_MEAN_REL``: the plain forward
+    (``kernels/attention.py:attention_fwd_ref``) on fp32 q, k and v rounded
+    to two bf16 parts, x0 + x1, as a split that lost its third part would
+    read them. Its o, m and l, held against the float64 forward ``exact``
+    as the kernel's are, must each fail the limit."""
+    got = k_attn.attention_fwd_ref(*(two_parts(t) for t in (q, k, v)),
+                                   causal, True, **drop)
+    row = {name: rel_errors(a, r.float())["mean_rel"]
+           for name, a, r in zip(("o", "m", "l"), got, exact)}
+    require(all(r > F32_FWD_MEAN_REL for r in row.values()),
+            f"the two-part control passes the fp32 forward's mean limit: "
+            f"{row}")
+    return row
+
+
+def f32_fwd_check(name: str, got, plain, exact) -> dict:
+    """The fp32 forward's (o, m, l) against its plain version within
+    FP32_REL (max and mean) and against the float64 forward within
+    F32_FWD_MEAN_REL (mean)."""
+    row = {}
+    for part, out, ref, ex in zip(("out", "m", "l"), got, plain, exact):
+        row[part] = fp32_check(f"{name} {part}", out, ref)
+        row[part]["mean_rel_exact"] = rel_errors(out, ex.float())["mean_rel"]
+        require(row[part]["mean_rel_exact"] <= F32_FWD_MEAN_REL,
+                f"the fp32 form of {name} {part} is off the float64 "
+                f"forward: {row[part]}")
+    return row
+
+
+def ln_stats_control(x, w, b, g) -> dict:
+    """The control of ``LN_MEAN_REL``: the plain versions of K9a (fc1: bias
+    and GELU) and K9c (``kernels/ln_matmul.py``) with the LayerNorm
+    statistics, the mean and 1/σ, rounded to bf16, as a kernel that kept
+    them in bf16 would. Held against the plain versions as the kernels
+    are, each must fail the limit."""
+    def bf16_stats(x32):
+        mu = x32.mean(-1, keepdim=True).bfloat16().float()
+        d = x32 - mu
+        rstd = torch.rsqrt((d * d).mean(-1, keepdim=True)
+                           + k_lnmm.EPS).bfloat16().float()
+        return d * rstd, rstd
+
+    refs = (k_lnmm.ln_matmul_fwd_ref(x, w, b, True)[0],
+            k_lnmm.ln_bwd_ref(x, g))
+    saved, k_lnmm._stats = k_lnmm._stats, bf16_stats
+    try:
+        got = (k_lnmm.ln_matmul_fwd_ref(x, w, b, True)[0],
+               k_lnmm.ln_bwd_ref(x, g))
+    finally:
+        k_lnmm._stats = saved
+    row = {name: rel_errors(a, r) for name, a, r in zip(
+        ("ln_matmul_fwd", "ln_bwd"), got, refs)}
+    require(all(r["mean_rel"] > LN_MEAN_REL for r in row.values()),
+            f"the LN-statistics control passes the mean limit: {row}")
+    return row
+
+
+def per_tensor_scale_control(fwd_args, bwd_args) -> dict:
+    """The control of ``Q8_MEAN_REL``: the plain versions of K12a and K12b
+    (``kernels/convnext_block.py``) with one scale for each activation
+    operand in place of per-row scales (``quant_rows``), as a kernel that
+    lost the per-row scales would quantize. Held against the plain versions
+    as the kernels are, each must fail the limit."""
+    def per_tensor(v32):
+        sc = v32.abs().amax().clamp_min(1e-8).reshape(1, 1) * (1.0 / 127.0)
+        return torch.round(v32 / sc).clamp(-127, 127).to(torch.int8), sc
+
+    refs = (k_cnx.convnext_tail_fwd_q8_ref(*fwd_args),
+            k_cnx.convnext_tail_bwd_q8_ref(*bwd_args))
+    saved, k_cnx.quant_rows = k_cnx.quant_rows, per_tensor
+    try:
+        got = (k_cnx.convnext_tail_fwd_q8_ref(*fwd_args),
+               k_cnx.convnext_tail_bwd_q8_ref(*bwd_args))
+    finally:
+        k_cnx.quant_rows = saved
+    row = {name: rel_errors(a, r) for name, a, r in zip(
+        ("convnext_tail_fwd_q8", "convnext_tail_bwd_q8"), got, refs)}
+    require(all(r["mean_rel"] > Q8_MEAN_REL for r in row.values()),
+            f"the per-tensor-scale control passes the mean limit: {row}")
+    return row
+
+
+# The kernels held launch by launch on the paths (held_launches): their
+# module and mean limit
+HELD = {"ln_matmul_fwd": (k_lnmm, LN_MEAN_REL), "ln_bwd": (k_lnmm, LN_MEAN_REL),
+        "convnext_tail_fwd_q8": (k_cnx, Q8_MEAN_REL),
+        "convnext_tail_bwd_q8": (k_cnx, Q8_MEAN_REL)}
+
+
+@contextlib.contextmanager
+def held_launches():
+    """Inside the block, every call of K9a, K9c, K12a and K12b launches its
+    kernel and then runs its plain version on the same inputs (which
+    launches nothing); yields {kernel: the largest mean |Δ| / mean |plain|
+    over its launches' outputs}. The caller holds each to its limit
+    (``HELD``) with :func:`require_held`."""
+    worst = {}
+    saved = {name: getattr(mod, name) for name, (mod, _) in HELD.items()}
+
+    def held(name):
+        kernel, plain = saved[name], getattr(HELD[name][0], name + "_ref")
+
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
+            for o, r in pairs:
+                if o is not None:
+                    worst[name] = max(worst.get(name, 0.0),
+                                      rel_errors(o, r)["mean_rel"])
+            return out
+        return call
+
+    for name, (mod, _) in HELD.items():
+        setattr(mod, name, held(name))
+    try:
+        yield worst
+    finally:
+        for name, (mod, _) in HELD.items():
+            setattr(mod, name, saved[name])
+
+
+def require_held(worst: dict, what: str) -> dict:
+    """Every kernel in ``worst`` (from :func:`held_launches`) within its
+    limit; returns the readings with their limits."""
+    require(bool(worst) and all(v <= HELD[k][1] for k, v in worst.items()),
+            f"{what}: a launch off its plain version past its mean limit: "
+            f"{worst}")
+    return {k: dict(mean_rel=v, limit=HELD[k][1]) for k, v in worst.items()}
 
 
 def rounded_tail_control(fwd_args, bwd_args) -> dict:
@@ -1043,7 +1219,8 @@ def packed_form(kernel: str) -> bool:
 
 
 def fp32_form(kernel: str) -> bool:
-    """Whether a backward kernel's name is its fp32 form (kParts = 3)."""
+    """Whether a Hopper attention kernel's name is its fp32 form (kParts =
+    3)."""
     return template_args(kernel)[2:3] == ["3"]
 
 
@@ -1336,7 +1513,8 @@ def unpacked_kernels(gen) -> dict:
          mean_limit_control=normalised_p_control(q, k, v, True),
          bound=k6_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
          build={n: r for n, r in build.items()
-                if n.startswith("attention") and not packed_form(n)},
+                if n.startswith("attention") and not packed_form(n)
+                and not fp32_form(n)},
          **k6)
     emit("kernel", name="attention_bwd", parity=k8_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
@@ -1670,7 +1848,8 @@ def fused_kernels(gen) -> dict:
         torch.cuda.synchronize()
         z_ref, zpre_ref, xhat_ref = k_lnmm.ln_matmul_fwd_ref(x, w, b, gelu)
         row = dict(N=n, C=c, F=f, bias=bias, gelu=gelu, z=rel_errors(z, z_ref),
-                   xhat=beyond_one_ulp(xhat, xhat_ref),
+                   xhat=dict(beyond_one_ulp(xhat, xhat_ref), mean_rel=rel_errors(
+                       xhat, xhat_ref)["mean_rel"]),
                    z_same_without_residuals=bool(torch.equal(z, z_only)))
         checks = [row["z"]]
         if gelu:
@@ -1679,10 +1858,14 @@ def fused_kernels(gen) -> dict:
         k9a_rows.append(row)
         require(bool(torch.isfinite(z).all()), f"K9a non-finite at {row}")
         require(all(e["max_rel"] <= BWD_MAX_REL and e["mean_rel"] <= BWD_MEAN_REL
-                    for e in checks) and row["xhat"]["beyond_one_ulp"] == 0
+                    and e["mean_rel"] <= LN_MEAN_REL for e in checks)
+                and row["xhat"]["beyond_one_ulp"] == 0
+                and row["xhat"]["mean_rel"] <= LN_MEAN_REL
                 and row["z_same_without_residuals"],
                 f"K9a disagrees with its plain version: {row}")
         k9a_max = max(k9a_max, row["z"]["max_abs"])
+        if n == N_ROWS and gelu:
+            ln_control = ln_stats_control(x, w, b, r(n, c).bfloat16())
         if n == N_ROWS:
             site = "fc1" if gelu else "qkv"
             # each input read once, each output written once: x, W, b; z,
@@ -1700,7 +1883,8 @@ def fused_kernels(gen) -> dict:
         del x, w, b, z, zpre, xhat, z_only, z_ref, zpre_ref, xhat_ref
     emit("kernel", name="ln_matmul_fwd", parity=k9a_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
-                        xhat="one bf16 ulp"),
+                        ln_mean_rel=LN_MEAN_REL, xhat="one bf16 ulp"),
+         mean_limit_control=ln_control,
          library="F.linear on a precomputed bf16 x̂: the product alone",
          shape="x (20480, 768) bf16; qkv W (2304, 768), fc1 W (3072, 768)",
          **k9a)
@@ -1752,7 +1936,8 @@ def fused_kernels(gen) -> dict:
         k9c_rows.append(row)
         require(bool(torch.isfinite(out).all())
                 and row["max_rel"] <= BWD_MAX_REL
-                and row["mean_rel"] <= BWD_MEAN_REL,
+                and row["mean_rel"] <= BWD_MEAN_REL
+                and row["mean_rel"] <= LN_MEAN_REL,
                 f"K9c disagrees with its plain version: {row}")
         k9c_max = max(k9c_max, row["max_abs"])
         if n == N_ROWS:
@@ -1769,7 +1954,9 @@ def fused_kernels(gen) -> dict:
                        bound=bound(10 * n * c, 3 * 2 * n * c,
                                    peak=fp32_peak()))
     emit("kernel", name="ln_bwd", parity=k9c_rows,
-         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL),
+         tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
+                        ln_mean_rel=LN_MEAN_REL),
+         mean_limit_control="with ln_matmul_fwd's",
          library="aten.native_layer_norm_backward (no weight, no bias)",
          shape="(20480, 768) bf16", **k9c)
     summary["ln_bwd"] = dict(
@@ -1864,6 +2051,7 @@ def int8_tail_kernels(gen) -> dict:
                        differs_from_bf16_tail=not torch.equal(out, bf16_tail))
             runs[name]["rows"].append(row)
             require(bool(torch.isfinite(out).all()) and row["max_rel"] <= K12_REL
+                    and row["mean_rel"] <= Q8_MEAN_REL
                     and row["differs_from_bf16_tail"],
                     f"{name} disagrees with its plain version: {row}")
             runs[name]["max"] = max(runs[name]["max"], row["max_abs"])
@@ -1871,6 +2059,9 @@ def int8_tail_kernels(gen) -> dict:
                 runs[name]["ms"] = median_ms(lambda: kernel(*args))
                 runs[name]["plain_ms"] = median_ms(lambda: plain(*args), 5)
         if (n, c) == (CNX_STAGES[2][2], 384):
+            q8_control = per_tensor_scale_control(
+                calls["convnext_tail_fwd_q8"][2],
+                calls["convnext_tail_bwd_q8"][2])
             # the products alone, on int8 operands of the same shapes
             def q(*shape):
                 return torch.randint(-127, 128, shape, device="cuda",
@@ -1900,7 +2091,8 @@ def int8_tail_kernels(gen) -> dict:
     library = "torch._int_mm of the int8 products alone (2 forward, 3 backward)"
     for name, t in runs.items():
         emit("kernel", name=name, parity=t["rows"],
-             tolerance=dict(max_rel=K12_REL), ms_C384=t["ms"],
+             tolerance=dict(max_rel=K12_REL, mean_rel=Q8_MEAN_REL),
+             mean_limit_control=q8_control[name], ms_C384=t["ms"],
              plain_ms_C384=t["plain_ms"], library_ms_C384=t["library_ms"],
              library=library, bound_C384=bounds[name],
              shape="(bs 64 · H · W, C) bf16 rows of ConvNeXt-S stages 0-2",
@@ -2118,17 +2310,17 @@ def f32_bwd_check(name: str, out, ref) -> dict:
 
 
 def split_pass(q, k, v, dout, bias=None) -> dict:
-    """The fp32 backward's pre-split pass alone on the backward's operands
-    (``kernels/attention.py:split_parts``): bit for bit against its plain
-    version, its time and its bound (each fp32 element read once, its three
-    bf16 parts written once)."""
+    """The fp32 forms' pre-split pass alone on the backward's operands, or
+    the forward's with ``dout`` None (``kernels/attention.py:split_parts``):
+    bit for bit against its plain version, its time and its bound (each
+    fp32 element read once, its three bf16 parts written once)."""
     parts = k_attn.split_parts(q, k, v, dout, bias)
     torch.cuda.synchronize()
     equal = bool(torch.equal(parts, k_attn.split_parts_ref(q, k, v, dout,
                                                             bias)))
     require(equal, "the pre-split's parts differ from its plain version's")
     del parts
-    n = 4 * q.numel()
+    n = (3 if dout is None else 4) * q.numel()
     return dict(bit_equal=equal,
                 ms=median_ms(lambda: k_attn.split_parts(q, k, v, dout, bias)),
                 bound=bound(0.0, n * (4 + 6)))
@@ -2279,9 +2471,12 @@ def fp32_kernels(gen) -> dict:
                                                             **drop)
         dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
             qkv, bias, dout, m_ref, l_ref, h, False, **drop)
-        row = dict(out=fp32_check("K1", out, ref),
-                   m=fp32_check("K1 m", m, m_ref),
-                   l=fp32_check("K1 l", l, l_ref),
+        qh, kh, vh = k_attn.split_heads(qkv, h, bias)
+        exact = exact_attention_fwd(qh, kh, vh, False, **drop)
+        heads = (out.reshape(b, s, h, 64).transpose(1, 2), m, l)
+        row = dict(**f32_fwd_check("K1", heads, (
+                       ref.reshape(b, s, h, 64).transpose(1, 2), m_ref, l_ref),
+                       exact),
                    dqkv=f32_bwd_check("K2", dqkv, dqkv_ref),
                    dbias=f32_bwd_check("K2 dbias", dbias, dbias_ref))
         if arm == "titok":
@@ -2292,14 +2487,18 @@ def fp32_kernels(gen) -> dict:
                 "K2", lambda: k_attn.attention_packed_bwd_ref(
                     qkv, bias, dout, m_ref, l_ref, h, False, **drop)[0],
                 dqkv_ref)
-        del ref, m_ref, l_ref, dqkv_ref, dbias_ref
+        if arm == "titok":
+            controls["K1 two parts"] = two_part_fwd_control(qh, kh, vh, False,
+                                                            exact, **drop)
+        del ref, m_ref, l_ref, dqkv_ref, dbias_ref, exact, heads
         torch.cuda.empty_cache()
-        qh, kh, vh = k_attn.split_heads(qkv, h, bias)
         dh = dout.reshape(b, s, h, 64).transpose(1, 2)
         if arm == "titok":
             controls["K2 two parts"] = two_part_control(qh, kh, vh, dh, m, l,
                                                         False)
             row["split"] = split_pass(*k_attn.split_heads(qkv, h), dh, bias)
+            row["fwd_split"] = split_pass(*k_attn.split_heads(qkv, h), None,
+                                          bias)
         row.update(
             fwd_ms=median_ms(lambda: k_attn.attention_packed_fwd(
                 qkv, bias, h, False, True, **drop)),
@@ -2315,7 +2514,11 @@ def fp32_kernels(gen) -> dict:
             sdpa_bwd=sdpa_backward_ms(qh, kh, vh, dh, False, dropout_p=rate),
             fwd_bound=attention_bound(b, h, s, False, False,
                                       extra_bytes=3 * width * 4, elem=4,
-                                      peak=peak, dropout=bool(rate)),
+                                      peak=PEAK_SPLIT_FLOPS,
+                                      dropout=bool(rate)),
+            fwd_fp32_rate_bound=attention_bound(
+                b, h, s, False, False, extra_bytes=3 * width * 4, elem=4,
+                peak=peak, dropout=bool(rate)),
             bwd_bound=attention_bound(b, h, s, False, True,
                                       extra_bytes=3 * width * 8, elem=4,
                                       peak=PEAK_SPLIT_FLOPS,
@@ -2329,22 +2532,30 @@ def fp32_kernels(gen) -> dict:
     build = hopper_attention_ptxas()
     emit("fp32_kernels", name="attention_packed_fwd/attention_packed_bwd",
          tolerance=dict(max_rel=FP32_REL, mean_rel=FP32_REL,
+                        fwd_mean_rel_exact=F32_FWD_MEAN_REL,
                         bwd_mean_rel=F32_BWD_MEAN_REL),
-         bwd_bound_note="split products: 6 bf16 products per fp32 product "
-                        "at 989 TFLOP/s; fp32_rate: P's fp32 rate",
-         build={n: r for n, r in build.items()
-                if fp32_form(n) and packed_form(n)}, **arms)
-    for name, key, lib in (("attention_packed_fwd", "fwd", "sdpa_fwd_ms"),
-                           ("attention_packed_bwd", "bwd", None)):
+         bound_note="split products: 6 bf16 products per fp32 product "
+                    "at 989 TFLOP/s; fp32_rate: P's fp32 rate",
+         build={n: r for n, r in build.items() if fp32_form(n) and (
+             packed_form(n) or n.startswith("attention_fwd"))}, **arms)
+    for name, key in (("attention_packed_fwd", "fwd"),
+                      ("attention_packed_bwd", "bwd")):
         t, d = arms["titok"], arms["vit_dropout"]
-        more = {} if key == "fwd" else dict(
-            fp32_rate_bound_ms=t["bwd_fp32_rate_bound"]["bound_ms"],
-            split_ms=t["split"]["ms"],
-            split_bound_ms=t["split"]["bound"]["bound_ms"],
-            mean_rel_dbias=t["dbias"]["mean_rel"])
+        split = t["fwd_split" if key == "fwd" else "split"]
+        more = dict(
+            fp32_rate_bound_ms=t[f"{key}_fp32_rate_bound"]["bound_ms"],
+            split_ms=split["ms"], split_bound_ms=split["bound"]["bound_ms"])
+        if key == "fwd":
+            more.update(mean_rel_exact={part: t[part]["mean_rel_exact"]
+                                        for part in ("out", "m", "l")},
+                        dropout_library_ms=d["sdpa_fwd_ms"])
+        else:
+            more.update(mean_rel_dbias=t["dbias"]["mean_rel"],
+                        dropout_library_ms=d["sdpa_bwd"]["backward_ms"])
         entry(name, t["out" if key == "fwd" else "dqkv"], t[f"{key}_ms"],
               t[f"{key}_plain_ms"], t[f"{key}_bound"],
-              t[lib] if lib else t["sdpa_bwd"]["backward_ms"],
+              t["sdpa_fwd_ms"] if key == "fwd"
+              else t["sdpa_bwd"]["backward_ms"],
               "(64, 320, 12 h), stats", sdpa_backend=t["sdpa_backend"],
               dropout_ms=d[f"{key}_ms"],
               dropout_bound_ms=d[f"{key}_bound"]["bound_ms"],
@@ -2364,13 +2575,16 @@ def fp32_kernels(gen) -> dict:
         out, m, l = k_attn.attention_fwd(q, k, v, True, True, **drop)
         grads = k_attn.attention_bwd(q, k, v, dout, m, l, True, **drop)
         torch.cuda.synchronize()
-        ref = k_attn.attention_fwd_ref(q, k, v, True, **drop)
-        row = dict(out=fp32_check("K6", out, ref))
+        ref = k_attn.attention_fwd_ref(q, k, v, True, True, **drop)
+        exact = exact_attention_fwd(q, k, v, True, **drop)
+        row = f32_fwd_check("K6", (out, m, l), ref, exact)
         if arm == "K8":
             controls["K6"] = tf32_control(
                 "K6", lambda: k_attn.attention_fwd_ref(q, k, v, True, **drop),
-                ref)
-        del ref
+                ref[0])
+            controls["K6 two parts"] = two_part_fwd_control(q, k, v, True,
+                                                            exact, **drop)
+        del ref, exact
         refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, True, **drop)
         row.update({g: f32_bwd_check("K7/K8", a, c)
                     for g, a, c in zip(("dq", "dk", "dv"), grads, refs)})
@@ -2380,13 +2594,20 @@ def fp32_kernels(gen) -> dict:
             controls["K8 two parts"] = two_part_control(q, k, v, dout, m, l,
                                                         True)
             row["split"] = split_pass(q, k, v, dout)
+            row["fwd_split"] = split_pass(q, k, v, None)
         row.update(
             fwd_ms=median_ms(lambda: k_attn.attention_fwd(q, k, v, True, True,
                                                           **drop)),
             bwd_ms=median_ms(lambda: k_attn.attention_bwd(
                 q, k, v, dout, m, l, True, **drop)),
             fwd_bound=attention_bound(b, 12, s, True, False, elem=4,
-                                      peak=peak, dropout=bool(rate)),
+                                      peak=PEAK_SPLIT_FLOPS,
+                                      dropout=bool(rate)),
+            fwd_fp32_rate_bound=attention_bound(b, 12, s, True, False,
+                                                elem=4, peak=peak,
+                                                dropout=bool(rate)),
+            sdpa_fwd_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=rate)),
             bwd_bound=attention_bound(b, 12, s, True, True, elem=4,
                                       peak=PEAK_SPLIT_FLOPS,
                                       dropout=bool(rate)),
@@ -2399,8 +2620,6 @@ def fp32_kernels(gen) -> dict:
                     q, k, v, True, True), 3),
                 bwd_plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
                     q, k, v, dout, m, l, True), 3),
-                sdpa_fwd_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)),
                 sdpa_backend=sdpa_backend(q, k, v, True),
                 sdpa_bwd=sdpa_backward_ms(q, k, v, dout, True))
         rows[arm] = row
@@ -2408,6 +2627,7 @@ def fp32_kernels(gen) -> dict:
         torch.cuda.empty_cache()
     emit("fp32_kernels", name="attention_fwd/attention_bwd",
          tolerance=dict(max_rel=FP32_REL, mean_rel=FP32_REL,
+                        fwd_mean_rel_exact=F32_FWD_MEAN_REL,
                         bwd_mean_rel=F32_BWD_MEAN_REL),
          build={n: r for n, r in build.items()
                 if fp32_form(n) and not packed_form(n)}, **rows)
@@ -2415,7 +2635,13 @@ def fp32_kernels(gen) -> dict:
     entry("attention_fwd", k8["out"], k8["fwd_ms"], k8["fwd_plain_ms"],
           k8["fwd_bound"], k8["sdpa_fwd_ms"], "(32, 12, 1024, 64) causal",
           sdpa_backend=k8["sdpa_backend"], dropout_ms=k8d["fwd_ms"],
-          dropout_bound_ms=k8d["fwd_bound"]["bound_ms"])
+          dropout_bound_ms=k8d["fwd_bound"]["bound_ms"],
+          dropout_library_ms=k8d["sdpa_fwd_ms"],
+          fp32_rate_bound_ms=k8["fwd_fp32_rate_bound"]["bound_ms"],
+          split_ms=k8["fwd_split"]["ms"],
+          split_bound_ms=k8["fwd_split"]["bound"]["bound_ms"],
+          mean_rel_exact={part: k8[part]["mean_rel_exact"]
+                          for part in ("out", "m", "l")})
     entry("attention_bwd", k8["dv"], k8["bwd_ms"], k8["bwd_plain_ms"],
           k8["bwd_bound"], k8["sdpa_bwd"]["backward_ms"],
           "(32, 12, 1024, 64) causal", sdpa_backend=k8["sdpa_backend"],
@@ -2455,7 +2681,9 @@ def fp32_kernels(gen) -> dict:
             ref = plain(*args)
             # an int8 level flips where the fp32 values round apart (K12_REL)
             row = dict(N=n, C=c, **fp32_check(
-                name, out, ref, K12_REL if name.endswith("q8") else FP32_REL))
+                name, out, ref, K12_REL if name.endswith("q8") else FP32_REL,
+                min(FP32_REL, Q8_MEAN_REL) if name.endswith("q8")
+                else FP32_REL))
             if name.endswith("q8"):
                 require(row["mean_rel"] <= FP32_REL,
                         f"{name} in fp32 off its plain version: {row}")
@@ -2485,7 +2713,9 @@ def fp32_kernels(gen) -> dict:
         emit("fp32_kernels", name=name, parity=t["rows"], ms_C384=t["ms"],
              plain_ms_C384=t["plain_ms"], bound_C384=tail_bounds[name],
              tolerance=dict(max_rel=K12_REL if name.endswith("q8")
-                            else FP32_REL, mean_rel=FP32_REL))
+                            else FP32_REL, mean_rel=FP32_REL,
+                            **({"q8_mean_rel": Q8_MEAN_REL}
+                               if name.endswith("q8") else {})))
         entry(name, t["row"], t["ms"], t["plain_ms"], tail_bounds[name], None,
               "N 12544, C 384 fp32 rows")
 
@@ -2499,12 +2729,14 @@ def fp32_kernels(gen) -> dict:
     z_ref, zpre_ref, xhat_ref = k_lnmm.ln_matmul_fwd_ref(x, w, b, True)
     controls["K9a"] = tf32_control("K9a", lambda: k_lnmm.ln_matmul_fwd_ref(
         x, w, b, True)[0], z_ref)
-    k9a = dict(z=fp32_check("K9a", z, z_ref),
-               zpre=fp32_check("K9a zpre", zpre, zpre_ref),
-               xhat=fp32_check("K9a x̂", xhat, xhat_ref))
+    ln_tol = min(FP32_REL, LN_MEAN_REL)
+    k9a = dict(z=fp32_check("K9a", z, z_ref, mean_tol=ln_tol),
+               zpre=fp32_check("K9a zpre", zpre, zpre_ref, mean_tol=ln_tol),
+               xhat=fp32_check("K9a x̂", xhat, xhat_ref, mean_tol=ln_tol))
     wq = r(2304, 768, scale=768 ** -0.5)
     k9a["qkv_z"] = fp32_check("K9a qkv", k_lnmm.ln_matmul_fwd(x, wq)[0],
-                              k_lnmm.ln_matmul_fwd_ref(x, wq)[0])
+                              k_lnmm.ln_matmul_fwd_ref(x, wq)[0],
+                              mean_tol=ln_tol)
     k9a.update(ms=median_ms(lambda: k_lnmm.ln_matmul_fwd(x, w, b, True)),
                plain_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd_ref(
                    x, w, b, True), 5),
@@ -2535,7 +2767,8 @@ def fp32_kernels(gen) -> dict:
     x, g = 2 * r(N_ROWS, 768) + 0.5, r(N_ROWS, 768)
     out = k_lnmm.ln_bwd(x, g)
     torch.cuda.synchronize()
-    k9c = dict(parity=fp32_check("K9c", out, k_lnmm.ln_bwd_ref(x, g)),
+    k9c = dict(parity=fp32_check("K9c", out, k_lnmm.ln_bwd_ref(x, g),
+                                 mean_tol=min(FP32_REL, LN_MEAN_REL)),
                ms=median_ms(lambda: k_lnmm.ln_bwd(x, g)),
                plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
                bound=bound(10 * N_ROWS * 768, 3 * 4 * N_ROWS * 768,
@@ -2569,11 +2802,13 @@ def fp32_kernels(gen) -> dict:
     del g, x, dw, db, dw2, db2, dw_ref, db_ref
     torch.cuda.empty_cache()
     emit("fp32_kernels", name="tf32_control", limit=FP32_REL,
-         bwd_mean_limit=F32_BWD_MEAN_REL, rows=controls,
+         fwd_mean_limit=F32_FWD_MEAN_REL, bwd_mean_limit=F32_BWD_MEAN_REL,
+         rows=controls,
          what="each plain version with TF32 on against itself with TF32 "
               "off: all fail the fp32 forms' limit; the two-part controls "
-              "(the backward on operands rounded to x0 + x1) fail "
-              "F32_BWD_MEAN_REL")
+              "(the plain version on operands rounded to x0 + x1) fail "
+              "F32_FWD_MEAN_REL against the float64 forward (K1, K6) and "
+              "F32_BWD_MEAN_REL against the plain backward (K2, K8)")
     return summary
 
 
@@ -3088,7 +3323,9 @@ def phase_train_fused(model: TiTok, weights: dict, perceptual, images,
                 and r["train/perceptual_loss"] <= STEP_LOSS_REL
                 and r["train/grad_norm"] <= STEP_GRAD_NORM_REL)
 
-    launches, fused = first_step("1", "1")
+    with held_launches() as worst:
+        launches, fused = first_step("1", "1")
+    held = require_held(worst, "the first fused step")
     require(launches == FUSED_STEP_LAUNCHES,
             f"one fused step launched {launches}, expected "
             f"{FUSED_STEP_LAUNCHES}")
@@ -3099,6 +3336,7 @@ def phase_train_fused(model: TiTok, weights: dict, perceptual, images,
          "unfused kernels", launches=launches, metrics=fused,
          plain_metrics=plain, unfused_metrics=unfused,
          rel_diff_plain=rel_plain, rel_diff_unfused=rel_unfused,
+         held_launches=held,
          tolerance=dict(loss_rel=STEP_LOSS_REL,
                         grad_norm_rel=STEP_GRAD_NORM_REL))
     require(within(rel_plain), f"fused step vs plain versions: {rel_plain}")
@@ -3164,13 +3402,16 @@ def phase_train_fused(model: TiTok, weights: dict, perceptual, images,
         for name, ln in (("fused", "1"), ("unfused", "0")):
             with fused_switches(ln, "0"):
                 reset_launches()
-                lat = model.enc(images)
-                idx = model.quant(lat)[1]
-                enc_launches = read_launches()
-                rec = model.decode_indices(idx)
-                torch.cuda.synchronize()
-                dec_launches = read_launches()
+                with held_launches() as worst:
+                    lat = model.enc(images)
+                    idx = model.quant(lat)[1]
+                    enc_launches = read_launches()
+                    rec = model.decode_indices(idx)
+                    torch.cuda.synchronize()
+                    dec_launches = read_launches()
                 serve[name] = dict(
+                    held=require_held(worst, "the fused encode and decode")
+                    if ln == "1" else None,
                     lat=lat.double(), idx=idx, rec=rec,
                     encode_launches=enc_launches["ln_matmul_fwd"],
                     decode_launches=(dec_launches["ln_matmul_fwd"]
@@ -3188,6 +3429,7 @@ def phase_train_fused(model: TiTok, weights: dict, perceptual, images,
                / u["rec"].abs().max()).item()
     emit("train_fused", what="bs-64 encode and decode, VIT_TPU_FUSED_LN=1 "
          "vs unfused kernels", card=card, **flips, decode_max_rel_err=rec_rel,
+         held_launches=f["held"],
          **{f"{name}_{k}": v[k] for name, v in serve.items()
             for k in ("encode_launches", "decode_launches", "encode_ms",
                       "decode_ms")})
@@ -3682,7 +3924,9 @@ def phase_train_int8(model: TiTok, weights: dict, perceptual, images,
                 f"{arm} step: {metrics}")
         return launches, metrics
 
-    launches, q = first_step("int8")
+    with held_launches() as worst:
+        launches, q = first_step("int8")
+    held = require_held(worst, "the first int8 step")
     require(launches == INT8_STEP_LAUNCHES,
             f"one int8 step launched {launches}, expected {INT8_STEP_LAUNCHES}")
     _, plain = first_step("int8", plain_versions)
@@ -3694,7 +3938,7 @@ def phase_train_int8(model: TiTok, weights: dict, perceptual, images,
     emit("train_int8", what="first int8 step vs plain versions, and its "
          "perceptual loss vs the bf16 one", launches=launches, metrics=q,
          plain_metrics=plain, bf16_metrics=bf, rel_diff_plain=rel,
-         perceptual_gap_vs_bf16=gap,
+         perceptual_gap_vs_bf16=gap, held_launches=held,
          tolerance=dict(loss_rel=STEP_LOSS_REL,
                         grad_norm_rel=STEP_GRAD_NORM_REL, gap=INT8_LOSS_GAP))
     require(rel["train/loss"] <= STEP_LOSS_REL
@@ -3739,9 +3983,12 @@ def phase_perceptual(state_dict: dict, card: str) -> dict:
     """``scripts/bench_perceptual.py``'s measurement: the perceptual loss
     and its gradient with respect to x at bs 64, image 128, under the four
     arms of ``dw_impl`` × ``quant``, each with its launches per call, against
-    its plain versions, its time and a profile of one call. The net is the
-    flagship's, with γ drawn around 0.5. Returns the launches of one call of
-    each arm."""
+    its plain versions, its time and a profile of one call; under int8 every
+    K12a and K12b launch of the first call within ``Q8_MEAN_REL`` of its
+    plain version on the same inputs. The net is the flagship's, with γ
+    drawn around 0.5 (the flagship step's init of 1e-6 hides every tail, so
+    there K12's outputs equal its plain version's). Returns the launches of
+    one call of each arm."""
     rng = np.random.default_rng(3)
     x, y = (torch.from_numpy(rng.uniform(0, 1, (PERCEPTUAL_BS, 128, 128, 3))
                              .astype(np.float32)).cuda() for _ in range(2))
@@ -3764,8 +4011,9 @@ def phase_perceptual(state_dict: dict, card: str) -> dict:
 
         torch.cuda.synchronize()
         reset_launches()   # the main path's run starts here
-        loss, grad = call()
-        torch.cuda.synchronize()
+        with held_launches() as worst:
+            loss, grad = call()
+            torch.cuda.synchronize()
         launches = read_launches()
         with plain_versions():
             plain_loss, plain_grad = call()
@@ -3783,7 +4031,9 @@ def phase_perceptual(state_dict: dict, card: str) -> dict:
             loss_rel=abs(loss.item() - plain_loss.item()) / abs(plain_loss.item()),
             grad=rel_errors(grad, plain_grad),
             ms=host_median_ms(lambda: (call(), torch.cuda.synchronize()), 5),
-            profile=profile_window(call))
+            profile=profile_window(call),
+            held_launches=(require_held(worst, name) if quant == "int8"
+                           else None))
         arms[name]["expected_launches"] = launches == want
         arms[name]["finite"] = bool(torch.isfinite(grad).all()
                                     and grad.abs().max() > 0)

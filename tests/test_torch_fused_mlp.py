@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import vit_tpu.core.config as jax_config
-from torch_port_helpers import TINY, count_plain_calls
+from torch_port_helpers import TINY, count_plain_calls, smoke_constant
 from vit_tpu.core.transformer import Transformer as JaxTransformer
 from vit_tpu.core.transformer import _use_fused_fc, _use_fused_ln
 from vit_tpu.kernels import fc_grad as jax_fc
@@ -141,6 +141,38 @@ def test_ln_bwd_matches_pallas(dtype):
     xj, xt = _as(x, dtype)
     gj, gt = _as(g, dtype)
     _assert_close(k_lnmm.ln_bwd(xt, gt), jax_lnmm._ln_bwd_impl(xj, gj), dtype)
+
+
+def _mean_rel(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((out.double() - ref.double()).abs().mean()
+            / ref.double().abs().mean()).item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_stats_control_exceeds_the_mean_limit(dtype, monkeypatch):
+    """chip_smoke.py's control of LN_MEAN_REL, the plain K9a (fc1: bias and
+    GELU) and K9c with the LayerNorm mean and 1/σ rounded to bf16, misses
+    the plain versions by more than the limit of mean |plain| here too."""
+    limit = smoke_constant("LN_MEAN_REL")
+    x, w, b, g = _rng_arrays(6, (64, C), (F, C), (F,), (64, C))
+    x = 3.0 * x + 1.0
+    x, w, b, g = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (x, w / np.sqrt(C), b, g))
+    refs = (k_lnmm.ln_matmul_fwd_ref(x, w, b, True)[0],
+            k_lnmm.ln_bwd_ref(x, g))
+
+    def bf16_stats(x32):
+        mu = x32.mean(-1, keepdim=True).bfloat16().float()
+        d = x32 - mu
+        rstd = torch.rsqrt((d * d).mean(-1, keepdim=True)
+                           + k_lnmm.EPS).bfloat16().float()
+        return d * rstd, rstd
+
+    monkeypatch.setattr(k_lnmm, "_stats", bf16_stats)
+    got = (k_lnmm.ln_matmul_fwd_ref(x, w, b, True)[0],
+           k_lnmm.ln_bwd_ref(x, g))
+    for out, ref in zip(got, refs):
+        assert _mean_rel(out, ref) > limit
 
 
 @pytest.mark.parametrize("n", [256, 300])   # 300: a ragged last block

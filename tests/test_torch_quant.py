@@ -14,8 +14,9 @@ import vit_tpu.kernels.convnext_block as jax_cnx
 from torch_port_helpers import (CONVNEXT, TINY_FUSED_DIM, configs,
                                 convnext_params, images, jax_params,
                                 jax_perceptual, jax_train_step, port_model,
-                                port_perceptual, scaled_err, tail_inputs,
-                                tiny_preset, with_gamma)
+                                port_perceptual, scaled_err,
+                                smoke_constant, tail_inputs, tiny_preset,
+                                with_gamma)
 from vit_tpu.core import quant as jax_quant
 from vit_tpu.models.titok import TiTok as JaxTiTok
 from vit_tpu_torch.bridge import convnext_state_dict_from_flax
@@ -158,6 +159,36 @@ def test_int8_tail_matches_jax(n, c, dtype):
         h.detach(), x.detach(), *params, 1e-6))
     assert not torch.equal(dh, k_cnx.convnext_tail_bwd_ref(
         h.detach(), dy, *(tp[k] for k in names if k != "b2"), 1e-6))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_per_tensor_scale_control_exceeds_the_mean_limit(dtype, monkeypatch):
+    """chip_smoke.py's control of Q8_MEAN_REL, the plain K12a and K12b with
+    one scale for each activation operand in place of per-row scales,
+    misses the plain versions by more than the limit of mean |plain|
+    here too."""
+    limit = smoke_constant("Q8_MEAN_REL")
+    v = tail_inputs(40, 32, seed=5)
+    tp = {k: torch.from_numpy(a) for k, a in v.items()}
+    tp["w1"], tp["w2"] = tp["w1"].T, tp["w2"].T   # PyTorch's Linear layout
+    h, x, dy = (tp[k].to(getattr(torch, dtype)) for k in ("h", "x", "dy"))
+    p = [tp[k] for k in ("lns", "lnb", "w1", "b1", "w2")]
+    fwd = (h, x, *p, tp["b2"], tp["gamma"], 1e-6)
+    bwd = (h, dy, *p, tp["gamma"], 1e-6)
+    refs = (k_cnx.convnext_tail_fwd_q8_ref(*fwd),
+            k_cnx.convnext_tail_bwd_q8_ref(*bwd))
+
+    def per_tensor(v32):
+        s = v32.abs().amax().clamp_min(1e-8).reshape(1, 1) * (1.0 / 127.0)
+        return torch.round(v32 / s).clamp(-127, 127).to(torch.int8), s
+
+    monkeypatch.setattr(k_cnx, "quant_rows", per_tensor)
+    got = (k_cnx.convnext_tail_fwd_q8_ref(*fwd),
+           k_cnx.convnext_tail_bwd_q8_ref(*bwd))
+    for out, ref in zip(got, refs):
+        rel = ((out.double() - ref.double()).abs().mean()
+               / ref.double().abs().mean()).item()
+        assert rel > limit
 
 
 def test_int8_tail_refuses_an_unknown_quant_and_a_device_tensor():

@@ -1,15 +1,17 @@
-"""The fp32 attention backward's split products (``--mixed false``): the
+"""The fp32 attention kernels' split products (``--mixed false``): the
 port's plain split of an fp32 value into three bf16 parts reassembles it
-exactly; a plain emulation of the kernels' arithmetic (every product the
-six bf16 products A_i·B_j, i + j <= 2, small terms first, summed in fp32;
-1/l folded into dv's A operand) holds the JAX package's fp32 backward
-(``jax.vjp`` of the packed attention, Precision.HIGHEST) within 1e-5 and
-the port's plain fp32 backward within ``chip_smoke.F32_BWD_MEAN_REL``; and
-a split that lost its third part (the operands rounded to x0 + x1) exceeds
-that mean limit, so the limit tells the two apart."""
-
-import importlib.util
-from pathlib import Path
+exactly; plain emulations of the kernels' arithmetic (every product the
+six bf16 products A_i·B_j, i + j <= 2, small terms first, summed in fp32)
+hold the JAX package's fp32 kernels at Precision.HIGHEST within 1e-5: the
+forward's (scores taken alike in both passes, each 64-key tile's P·V in a
+fresh accumulator, p split whole, 1/l once at the end) against the packed
+forward with its statistics and the unpacked one, the backward's (1/l
+folded into dv's A operand) against ``jax.vjp`` of the packed attention.
+The forward's emulation also holds the float64 forward within
+``chip_smoke.F32_FWD_MEAN_REL``, the backward's the port's plain fp32
+backward within ``chip_smoke.F32_BWD_MEAN_REL``; and a split that lost its
+third part (the operands rounded to x0 + x1) exceeds each mean limit, so
+the limits tell the two apart."""
 
 import jax
 import jax.numpy as jnp
@@ -17,27 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_helpers import smoke_constant
+from vit_tpu.kernels.attention import _packed_fwd_impl
+from vit_tpu.kernels.attention import flash_attention as jax_unpacked
 from vit_tpu.kernels.attention import flash_attention_packed as jax_packed
+from vit_tpu_torch.bench_kernels import exact_attention_fwd, two_parts
 from vit_tpu_torch.kernels import attention as k_attn
 
-ROOT = Path(__file__).resolve().parents[1]
 FP32_REL = 1e-5   # the fp32 forms' limit on max and mean |Δ| / |reference|
-
-
-def _smoke_constant(name: str) -> float:
-    """A limit of chip_smoke.py, read from its source (the script imports
-    the whole port and needs a card to run)."""
-    import ast
-
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    for node in tree.body:
-        if isinstance(node, ast.Assign) and any(
-                getattr(t, "id", None) == name for t in node.targets):
-            return float(ast.literal_eval(node.value))
-    raise KeyError(name)
-
-
-F32_BWD_MEAN_REL = _smoke_constant("F32_BWD_MEAN_REL")
+F32_BWD_MEAN_REL = smoke_constant("F32_BWD_MEAN_REL")
+F32_FWD_MEAN_REL = smoke_constant("F32_FWD_MEAN_REL")
 # (A part, B part) of the six products, small terms first (hopper.cuh)
 TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
@@ -80,6 +71,33 @@ def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for i, j in TERMS:
         out = out + pa[i].float() @ pb[j].float()
     return out
+
+
+def _split_fwd(q, k, v, causal):
+    """The fp32 forward's arithmetic (csrc/attention_fwd.cu, kParts = 3) in
+    plain torch: (o, m, l) from (B, H, S, 64) fp32 operands. Pass 1 takes
+    the row max over each 64-key tile's scores, pass 2 takes the same
+    scores again, p = exp(s − m) and l = Σ p unrounded, and each tile's P·V
+    in a fresh accumulator added to o; o is divided by l once."""
+    n = q.shape[-2]
+    tiles = range(0, n, 64)
+
+    def scores(k0):
+        s = _split_mm(q, k[..., k0:k0 + 64, :].transpose(-1, -2)) * 0.125
+        if causal:
+            col = torch.arange(k0, min(k0 + 64, n))
+            s = s.masked_fill(col > torch.arange(n)[:, None], float("-inf"))
+        return s
+
+    m = torch.stack([scores(k0).amax(-1) for k0 in tiles]).amax(0)
+    o = torch.zeros_like(q)
+    l = torch.zeros_like(m)
+    for k0 in tiles:
+        p = torch.exp(scores(k0) - m[..., None])
+        assert bool((p <= 1.0).all())   # the same scores as pass 1's
+        l = l + p.sum(-1)
+        o = o + _split_mm(p, v[..., k0:k0 + 64, :])
+    return o / l[..., None], m, l
 
 
 def _split_bwd(q, k, v, do, m, l, causal):
@@ -133,6 +151,61 @@ def _case(s, causal):
     return qkv, bias, g, (q, k, v, do, m, l), b, n_heads
 
 
+def _jax_stats(stats, n_heads: int, s: int):
+    """(m, l) (B, H, S) from the packed forward's residuals (h2, B, Sp,
+    128): head h2·hb + j's m on lanes j·8, its l on lanes 64 + j·8."""
+    stats = np.asarray(stats)
+    hb = n_heads // stats.shape[0]
+    m = [stats[h // hb, :, :s, (h % hb) * 8] for h in range(n_heads)]
+    l = [stats[h // hb, :, :s, 64 + (h % hb) * 8] for h in range(n_heads)]
+    return (torch.from_numpy(np.stack(m, 1)), torch.from_numpy(np.stack(l, 1)))
+
+
+@pytest.mark.parametrize("s, causal", [(24, False), (24, True), (197, False),
+                                       (197, True)])
+def test_split_product_forward_matches_jax(s, causal):
+    """The forward emulation's o, m and l against the JAX package's fp32
+    forwards (Pallas at Precision.HIGHEST on the CPU): the packed one with
+    its bias and statistics (K1's) and the unpacked one on the biased head
+    views (K6's), within 1e-5 of max and mean |JAX|; against the float64
+    forward within F32_FWD_MEAN_REL of mean |exact|, as chip_smoke.py holds
+    the kernel; against the port's plain fp32 forward within 1e-5."""
+    qkv, bias, _, (q, k, v, *_), b, n_heads = _case(s, causal)
+    out_j, stats = _packed_fwd_impl(jnp.asarray(qkv), jnp.zeros((1,),
+                                                                jnp.int32),
+                                    n_heads, causal, 0.0,
+                                    bias=jnp.asarray(bias), emit_stats=True)
+    m_j, l_j = _jax_stats(stats, n_heads, s)
+    o_k1 = torch.from_numpy(np.array(out_j)).reshape(b, s, n_heads,
+                                                     64).transpose(1, 2)
+    o_k6 = torch.from_numpy(np.array(jax_unpacked(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal)))
+    got = _split_fwd(q, k, v, causal)
+    for out, ref in zip(got + (got[0],), (o_k1, m_j, l_j, o_k6)):
+        max_rel, mean_rel = _rel(out, ref)
+        assert max_rel <= FP32_REL and mean_rel <= FP32_REL, (max_rel,
+                                                              mean_rel)
+    exact = exact_attention_fwd(q, k, v, causal)
+    plain = k_attn.attention_fwd_ref(q, k, v, causal, True)
+    for out, ex, ref in zip(got, exact, plain):
+        assert _rel(out, ex)[1] <= F32_FWD_MEAN_REL
+        max_rel, mean_rel = _rel(out, ref)
+        assert max_rel <= FP32_REL and mean_rel <= FP32_REL
+
+
+@pytest.mark.parametrize("s, causal", [(24, False), (24, True), (197, False),
+                                       (197, True)])
+def test_two_part_forward_control_exceeds_the_mean_limit(s, causal):
+    """The plain fp32 forward on q, k and v rounded to two bf16 parts misses
+    the float64 forward by more than F32_FWD_MEAN_REL of its mean |o|, |m|
+    and |l|, as chip_smoke.py's control must."""
+    _, _, _, (q, k, v, *_), _, _ = _case(s, causal)
+    got = k_attn.attention_fwd_ref(*(two_parts(t) for t in (q, k, v)),
+                                   causal, True)
+    for out, ex in zip(got, exact_attention_fwd(q, k, v, causal)):
+        assert _rel(out, ex)[1] > F32_FWD_MEAN_REL
+
+
 @pytest.mark.parametrize("s, causal", [(24, False), (24, True), (197, False),
                                        (197, True)])
 def test_split_product_backward_matches_jax(s, causal):
@@ -167,11 +240,6 @@ def test_two_part_control_exceeds_the_mean_limit(s, causal):
     backward by more than F32_BWD_MEAN_REL of mean |plain| in each of dq,
     dk and dv, as chip_smoke.py's control must."""
     _, _, _, (q, k, v, do, m, l), _, _ = _case(s, causal)
-
-    def two_parts(x):
-        x0, x1, _ = k_attn.split3(x)
-        return x0.float() + x1.float()
-
     got = k_attn.attention_bwd_ref(*(two_parts(t) for t in (q, k, v, do)),
                                    m, l, causal)
     refs = k_attn.attention_bwd_ref(q, k, v, do, m, l, causal)

@@ -6,7 +6,9 @@ kernels' plain-version calls."""
 
 from __future__ import annotations
 
+import ast
 import contextlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +39,18 @@ VIDEOGPT = dict(frame_size=64, codebook_size=64, transformer="S",
 # so the last stage (C 128) takes the unfused path, as ConvNeXt-S's stage 3
 CONVNEXT = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), num_classes=10)
 TINY_FUSED_DIM = 64
+
+
+def smoke_constant(name: str) -> float:
+    """A limit of chip_smoke.py, read from its source (the script holds the
+    kernels to it on the card)."""
+    tree = ast.parse((Path(__file__).resolve().parents[1]
+                      / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return float(ast.literal_eval(node.value))
+    raise KeyError(name)
 
 
 @contextlib.contextmanager

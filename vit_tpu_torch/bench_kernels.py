@@ -1,4 +1,4 @@
-"""Time the bf16 kernels, the fp32 attention backwards and five train
+"""Time the bf16 kernels, the fp32 attention kernels and five train
 steps of one or more checkouts of this repo on one card, in turns, so that
 two versions are compared within one call.
 
@@ -16,19 +16,24 @@ K8, K9a, K9b, K9c, K10, K11a, K11b, K12a and K12b, the dropout arms of K1/K2 (Vi
 at rate 0.15) and K6/K8 (rate 0.1), K7 at (2, 12, 513) and K6 on the
 rollout's prefill (513 causal, bs 8 and 1), at ``chip_smoke.py``'s shapes:
 CUDA-event medians of 20 calls after 3, the same seeded inputs in every
-process; then the attention backward on fp32 operands (``--mixed false``)
-at ``chip_smoke.py``'s fp32 shapes: K2 at (64, 320, 12 heads) and at
-ViT-L's (64, 257, 16 heads) with dropout 0.15, K8 at (32, 12, 1024) causal
-without and with dropout 0.1, K7 at (2, 12, 513) causal ("K2 fp32",
-"K2 fp32 dropout", ...; and 20 back to back, "K2 fp32 x20", ...). Each
+process; then the attention kernels on fp32 operands (``--mixed false``)
+at ``chip_smoke.py``'s fp32 shapes: K1 and K2 at (64, 320, 12 heads) with
+statistics and at ViT-L's (64, 257, 16 heads) with dropout 0.15, K6 and K8
+at (32, 12, 1024) causal without and with dropout 0.1, K7 at (2, 12, 513)
+causal ("K1 fp32", "K2 fp32 dropout", ...; and 20 back to back, "K1 fp32
+x20", ...). Each turn also reads the fp32 forwards' mean distances (o, m
+and l; K1, K6 and their dropout arms, and K6 at K7's shape) from the plain
+fp32 version and from the float64 forward (:func:`exact_attention_fwd`),
+with the two-part control's (the plain version on operands rounded to two
+bf16 parts) beside them ("fwd_mean_rel" in its JSON line). Each
 turn then times five train steps with the names of that checkout's root
 ``chip_smoke.py``: the VideoGPT-B bs-32 step, the flagship TiTok-B unfused
 bs-64 step and the ViT-L/16 @256 bs-64 step at dropout 0.15 in bf16, then
-the VideoGPT-B and ViT-L/16 steps at float32 (``TiTok``, ``VideoGPT``,
-``FLAGSHIP``, ``VIT_CELLS``, ``train_inputs``, ``vit_batch``, the step
-makers, ``make_optimizer``, ``host_median_ms`` and the rest used in
-``videogpt_step_ms``, ``titok_step_ms`` and ``vit_step_ms``), so every root
-must carry one that defines them. TF32 is off for cuBLAS and cuDNN. Prints
+the VideoGPT-B, ViT-L/16 and flagship unfused steps at float32 (``TiTok``,
+``VideoGPT``, ``ConvNeXt``, ``FLAGSHIP``, ``VIT_CELLS``, ``train_inputs``,
+``vit_batch``, the step makers, ``make_optimizer``, ``host_median_ms`` and
+the rest used in ``videogpt_step_ms``, ``titok_step_ms`` and
+``vit_step_ms``), so every root must carry one that defines them. TF32 is off for cuBLAS and cuDNN. Prints
 one JSON line per turn and a table of each time by checkout and turn.
 """
 
@@ -190,10 +195,59 @@ def time_kernels() -> dict:
     return ms
 
 
-def time_fp32_kernels() -> dict:
-    """{kernel: ms} of the attention backwards on fp32 operands (K2,
+def exact_attention_fwd(q, k, v, causal: bool, dropout_rate: float = 0.0,
+                        seed=None, batch: int = 8):
+    """The plain forward's math (``kernels/attention.py:attention_fwd_ref``)
+    in float64 on the same fp32 operands: s = q·kᵀ/8 (masked), m = max s,
+    p = exp(s − m), l = Σ p, o = (D∘p)·v / l, the reference the fp32 forms'
+    mean limit is held against. (B, H, S, 64) → (o, m, l) in float64,
+    ``batch`` batch rows at a time."""
+    import torch
+
+    from vit_tpu_torch.kernels import attention as k_attn
+
+    outs = []
+    n = q.shape[-2]
+    for b0 in range(0, q.shape[0], batch):
+        qb, kb, vb = (t[b0:b0 + batch].double() for t in (q, k, v))
+        s = qb @ kb.transpose(-1, -2) / 8.0
+        if causal:
+            keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+            s = s.masked_fill(~keep, float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        if dropout_rate > 0.0:
+            hid = (torch.arange(b0, b0 + qb.shape[0], device=q.device)[:, None]
+                   * q.shape[1] + torch.arange(q.shape[1], device=q.device)
+                   + seed[1].long())
+            p = p * k_attn.dropout_mask(seed, hid, n, n, 0, n,
+                                        dropout_rate).double()
+        outs.append(((p @ vb) / l, m.squeeze(-1), l.squeeze(-1)))
+        del s, p
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def two_parts(x):
+    """fp32 ``x`` rounded to two bf16 parts, x0 + x1 (a 16-bit significand):
+    what a split that lost its third part reads."""
+    x0 = x.bfloat16().float()
+    return x0 + (x - x0).bfloat16().float()
+
+
+def mean_rel(out, ref) -> float:
+    """mean |out − ref| / mean |ref|, in float64."""
+    return ((out.double() - ref.double()).abs().mean()
+            / ref.double().abs().mean()).item()
+
+
+def time_fp32_kernels() -> "tuple[dict, dict]":
+    """{kernel: ms} of the attention kernels on fp32 operands (K1, K2, K6,
     K7/K8's fp32 forms) at ``chip_smoke.py``'s fp32 shapes, as single calls
-    and as 20 back-to-back calls ("x20")."""
+    and as 20 back-to-back calls ("x20"); and {forward row: mean distances}
+    of the forwards' o, m and l from the plain version ("plain") and from
+    :func:`exact_attention_fwd` ("exact"), the two-part control's from the
+    latter ("two_parts_exact")."""
     import torch
 
     from vit_tpu_torch.kernels import attention as k_attn
@@ -208,34 +262,63 @@ def time_fp32_kernels() -> dict:
             0, 2 ** 31 - 1, (1,), device="cuda", generator=gen,
             dtype=torch.int32))
 
-    ms = {}
+    def accuracy(q, k, v, causal, got, drop):
+        plain = k_attn.attention_fwd_ref(q, k, v, causal, True, **drop)
+        exact = exact_attention_fwd(q, k, v, causal, **drop)
+        two = k_attn.attention_fwd_ref(*(two_parts(t) for t in (q, k, v)),
+                                       causal, True, **drop)
+        names = ("o", "m", "l")
+        return {"plain": dict(zip(names, map(mean_rel, got, plain))),
+                "exact": dict(zip(names, map(mean_rel, got, exact))),
+                "plain_exact": dict(zip(names, map(mean_rel, plain, exact))),
+                "two_parts_exact": dict(zip(names, map(mean_rel, two,
+                                                       exact)))}
+
+    ms, rel = {}, {}
     for name, (b, s, h, rate) in {"K2 fp32": (64, 320, 12, 0.0),
                                   "K2 fp32 dropout": (64, 257, 16,
                                                       0.15)}.items():
         qkv, bias, dout = r(b, s, 3 * h * 64), r(3 * h * 64, scale=0.3), \
             r(b, s, h * 64)
         drop = dict(dropout_rate=rate, seed=seed() if rate else None)
-        _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True,
-                                              **drop)
+        out, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True,
+                                                **drop)
+        fwd = name.replace("K2", "K1")
+        rel[fwd] = accuracy(*k_attn.split_heads(qkv, h, bias), False,
+                            (out.reshape(b, s, h, 64).transpose(1, 2), m, l),
+                            drop)
+        def fwd_call():
+            k_attn.attention_packed_fwd(qkv, bias, h, False, True, **drop)
         def call():
             k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h, False,
                                         **drop)
+        ms[fwd] = median_ms(fwd_call)
+        ms[fwd + " x20"] = batched_ms(fwd_call)
         ms[name] = median_ms(call)
         ms[name + " x20"] = batched_ms(call)
-        del qkv, bias, dout, m, l
+        del qkv, bias, dout, out, m, l
+        torch.cuda.empty_cache()
     for name, (b, s, rate) in {"K8 fp32": (32, 1024, 0.0),
                                "K8 fp32 dropout": (32, 1024, 0.1),
                                "K7 fp32": (2, 513, 0.0)}.items():
         q, k, v = r(b, s, 3, 12, 64).permute(2, 0, 3, 1, 4)
         do = r(b, s, 12, 64).transpose(1, 2)
         drop = dict(dropout_rate=rate, seed=seed() if rate else None)
-        _, m, l = k_attn.attention_fwd(q, k, v, True, True, **drop)
+        out, m, l = k_attn.attention_fwd(q, k, v, True, True, **drop)
+        fwd = name.replace("K8", "K6").replace("K7", "K6 at K7's shape,")
+        rel[fwd] = accuracy(q, k, v, True, (out, m, l), drop)
+        def fwd_call():
+            k_attn.attention_fwd(q, k, v, True, True, **drop)
         def call():
             k_attn.attention_bwd(q, k, v, do, m, l, True, **drop)
+        if b > 2:
+            ms[fwd] = median_ms(fwd_call)
+            ms[fwd + " x20"] = batched_ms(fwd_call)
         ms[name] = median_ms(call)
         ms[name + " x20"] = batched_ms(call)
-        del q, k, v, do, m, l
-    return ms
+        del q, k, v, do, out, m, l
+        torch.cuda.empty_cache()
+    return ms, rel
 
 
 def videogpt_step_ms(dtype: str = "bfloat16") -> float:
@@ -269,7 +352,7 @@ def videogpt_step_ms(dtype: str = "bfloat16") -> float:
                                       torch.cuda.synchronize()), 6)
 
 
-def titok_step_ms() -> float:
+def titok_step_ms(dtype: str = "bfloat16") -> float:
     """The flagship TiTok-B unfused bs-64 train step, set up as
     ``chip_smoke.py``'s train phase sets up the steps it times: its model
     (``FLAGSHIP``, weights from seed 0), ``train_inputs``' perceptual loss
@@ -278,15 +361,26 @@ def titok_step_ms() -> float:
     earlier steps and a plain-version step, and its model has served the
     slice and timing phases first; this times a fresh model after two
     warm-up steps. Both take the host-clock median of 6 synchronised
-    steps."""
+    steps. ``dtype`` "float32" builds the model and ConvNeXt-S at float32
+    (``--mixed false``), as the fp32 phase's unfused step."""
+    import numpy as np
     import torch
 
     import chip_smoke as cs
 
-    model = cs.TiTok(cs.TiTokConfig(**cs.FLAGSHIP))
+    dt = getattr(torch, dtype)
+    model = cs.TiTok(cs.TiTokConfig(**cs.FLAGSHIP, dtype=dt))
     cs.init_params_(model, torch.Generator().manual_seed(0))
     model = model.cuda().train()
-    perceptual, images = cs.train_inputs(model)
+    if dtype == "bfloat16":
+        perceptual, images = cs.train_inputs(model)
+    else:
+        net = cs.ConvNeXt(dtype=dt)
+        cs.init_convnext_(net, torch.Generator().manual_seed(1))
+        perceptual = cs.PerceptualLoss(net).cuda()
+        size = model.config.image_size
+        images = torch.from_numpy(np.random.default_rng(2).uniform(
+            0, 1, (cs.TRAIN_BS, size, size, 3)).astype(np.float32)).cuda()
     usage = torch.zeros(model.config.codebook_size, device="cuda")
     step = cs.make_tokenizer_train_step(model, perceptual_loss_fn=perceptual)
     state = cs.TrainState.create(model, cs.make_optimizer(
@@ -342,17 +436,20 @@ def worker(root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     ms = time_kernels()
     torch.cuda.empty_cache()
-    ms.update(time_fp32_kernels())
+    fp32_ms, fwd_rel = time_fp32_kernels()
+    ms.update(fp32_ms)
     torch.cuda.empty_cache()
     for name, fn in (("VideoGPT-B step", videogpt_step_ms),
                      ("TiTok-B step", titok_step_ms),
                      ("ViT-L step", vit_step_ms),
                      ("VideoGPT-B fp32 step",
                       lambda: videogpt_step_ms("float32")),
-                     ("ViT-L fp32 step", lambda: vit_step_ms("float32"))):
+                     ("ViT-L fp32 step", lambda: vit_step_ms("float32")),
+                     ("TiTok-B fp32 step", lambda: titok_step_ms("float32"))):
         ms[name] = fn()
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": root, "ms": ms}), flush=True)
+    print(json.dumps({"tree": root, "ms": ms, "fwd_mean_rel": fwd_rel}),
+          flush=True)
 
 
 def card() -> str:

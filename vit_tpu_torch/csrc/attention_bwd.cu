@@ -93,7 +93,7 @@
 // into one fp32 accumulator (hopper.cuh:mma_abt_parts, mma_rb_parts), ds and
 // D∘ph split into three bf16 A fragments in registers (hopper.cuh:put_a);
 // each tile's dq, dk or dv product is taken in a fresh accumulator and added
-// to the running sum in registers (mma_rb_parts_into).
+// to the running sum in registers (hopper.cuh:mma_rb_parts_into).
 // The math is the plain fp32 version's (kernels/attention.py:
 // _attention_bwd_f32 at fp32: no bf16 cast anywhere): ph = expf(s/8 - m),
 // Δ = Σ ph·dp (the same rounding point), ds in the same order, outputs
@@ -253,34 +253,6 @@ __device__ __forceinline__ void store_acc(const float (&acc)[32], T* dst,
         *reinterpret_cast<uint32_t*>(p + nt * 8 + 2 * t) =
             pack_bf16x2(acc[4 * nt + 2 * r], acc[4 * nt + 2 * r + 1]);
     }
-  }
-}
-
-// d += A·B (mma_rb_parts), waited for. The fp32 form takes each tile's
-// product in a fresh accumulator and adds it to d in registers, rounded to
-// nearest: chained over all the tiles of a sum in d itself, its means read
-// 2e-6 to 7e-6 of mean |plain| on the H100, growing with the number of
-// tiles, as the tensor cores' fp32 accumulation loses low bits at each
-// wgmma against a growing accumulator; a tile at a time, 3e-7 to 7e-7.
-template <int kParts, int kSteps>
-__device__ __forceinline__ void mma_rb_parts_into(
-    float (&d)[32], const uint32_t (&a)[kParts][kSteps][4], uint32_t b,
-    uint32_t b_part) {
-  if constexpr (kParts == 1) {
-    mma_rb_parts(d, a, b, b_part);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(d);
-  } else {
-    float tile[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) tile[e] = 0.0f;
-    mma_rb_parts(tile, a, b, b_part);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(tile);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) d[e] = __fadd_rn(d[e], tile[e]);
   }
 }
 
@@ -929,8 +901,9 @@ struct SplitSrcs {
   SplitSrc op[4];  // q, k, v, dO
 };
 
-// Operand blockIdx.y of q, k, v (each with its bias) and dO as its three
-// bf16 parts: out[op] is (B, H, S, 3, 64), part p of element (b, h, s, c)
+// Operand blockIdx.y of q, k, v (each with its bias) and dO (the forward's
+// pre-split has none) as its three bf16 parts: out[op] is (B, H, S, 3, 64),
+// part p of element (b, h, s, c)
 // at [b][h][s][p][c], with x = x0 + x1 + x2 exactly (x0 = bf16(x), x1 =
 // bf16(x − x0), x2 = bf16(x − x0 − x1)). A thread converts four
 // neighbouring elements: 16-byte loads, 8-byte stores. Bound by its bytes:
@@ -974,21 +947,23 @@ __global__ void split_parts_kernel(SplitSrcs srcs, bf16* __restrict__ out,
   }
 }
 
-// q, k, v, dout fp32 at strides[0..11] with the bias parts bq, bk, bv (or
-// null) → parts (4, B, H, S, 3, 64) bf16.
+// q, k, v and dout (or null: the forward's pre-split) fp32 at strides[0..8]
+// and [9..11] with the bias parts bq, bk, bv (or null) → parts (4, B, H, S,
+// 3, 64) bf16, or (3, ...) without dout.
 int split_parts(const void* q, const void* k, const void* v, const void* bq,
                 const void* bk, const void* bv, const void* dout, void* parts,
                 const long long* strides, int B, int S, int H,
                 cudaStream_t st) {
-  SplitSrcs srcs;
+  SplitSrcs srcs{};
   const void* ps[4] = {q, k, v, dout};
   const void* bs[4] = {bq, bk, bv, nullptr};
-  for (int i = 0; i < 4; ++i)
+  const int ops = dout != nullptr ? 4 : 3;
+  for (int i = 0; i < ops; ++i)
     srcs.op[i] = {static_cast<const float*>(ps[i]),
                   {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]},
                   static_cast<const float*>(bs[i])};
   const size_t threads = static_cast<size_t>(B) * H * S * 16;
-  const dim3 grid(static_cast<unsigned>((threads + 255) / 256), 4);
+  const dim3 grid(static_cast<unsigned>((threads + 255) / 256), ops);
   split_parts_kernel<<<grid, 256, 0, st>>>(srcs, static_cast<bf16*>(parts), B,
                                            H, S);
   return static_cast<int>(cudaGetLastError());
@@ -1123,10 +1098,12 @@ extern "C" int attention_packed_bwd(const void* qkv, const void* bias,
   return column_total(part, dbias, B, S, H, st);
 }
 
-// The fp32 form's pre-split alone (the backward runs it first; this entry
-// checks and times it): q, k, v, dout (B, H, S, 64) fp32 at the element
-// strides strides[0..11] as attention_f32_bwd's, bq, bk, bv each head's
-// bias at b + h·64 or null → parts (4, B, H, S, 3, 64) bf16, contiguous.
+// The fp32 forms' pre-split: the backward runs it first (this entry checks
+// and times it), the forward's caller before attention_f32_fwd, with dout
+// null. q, k, v, dout (B, H, S, 64) fp32 at the element strides
+// strides[0..11] as attention_f32_bwd's (strides[0..8] without dout), bq,
+// bk, bv each head's bias at b + h·64 or null → parts (4, B, H, S, 3, 64)
+// bf16, contiguous, or (3, B, H, S, 3, 64) without dout.
 extern "C" int attention_f32_split(const void* q, const void* k,
                                    const void* v, const void* bq,
                                    const void* bk, const void* bv,

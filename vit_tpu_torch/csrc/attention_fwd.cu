@@ -73,10 +73,45 @@
 // of q, k, v and output: far above the H100's bf16 ridge (≈ 295 FLOP per
 // byte) at S = 1024, so the tensor cores, the MUFU's exp (16 a clock per
 // SM) and the latency of the products' chains bound it.
+//
+// The fp32 form (kParts = 3, the entry attention_f32_fwd) replaces the same
+// two Pallas kernels on fp32 operands, where they take every product at
+// Precision.HIGHEST (:95, :646), for K1 and K6 alike. The TPU's HIGHEST is
+// six bf16 passes; so is this form, as the fp32 backward's
+// (attention_bwd.cu): attention_bwd.cu's split_parts_kernel writes q, k
+// and v (the packed layout's bias added in fp32) as three bf16 parts
+// x = x0 + x1 + x2 each, exactly, into (B, H, S, 3·64) arrays that TMA
+// reads as ordinary 64-wide swizzled tiles (a 192-wide tensor map, part p
+// at column 64p), and s = Q·Kᵀ and P·V are each the six wgmma products
+// A_i·B_j, i + j <= 2, small terms first (hopper.cuh:mma_abt_parts,
+// mma_rb_parts). Its math is the plain fp32 version's, with no bf16 cast:
+// m exact over s/8, p = expf(s/8 − m) (the expression the fp32 backward
+// rebuilds p with), l = Σ p, p split into three bf16 A fragments in
+// registers after the dropout mask (hopper.cuh:put_a), o = Σ (D∘p)·v
+// divided by l once, in fp32, and stored in fp32. Three rounding points
+// are kept as the plain version keeps them:
+//   - both passes take s with the same code from the same bytes, so pass
+//     2's scores are pass 1's to the bit and no p exceeds 1;
+//   - each key tile's P·V is taken in a fresh accumulator and added to o in
+//     registers, rounded to nearest (hopper.cuh:mma_rb_parts_into): summed
+//     over all tiles in one wgmma accumulator, the fp32 backward's means
+//     stood several times higher and grew with the tiles summed;
+//   - p is never rounded to bf16: its three parts carry it whole.
+// Three-part tiles take three times the shared memory: the q tile alone is
+// 48 KB and a K + V ring stage 48 KB, so this form runs one block an SM
+// with a three-stage ring (198,656 bytes), and its consumer thread holds o,
+// the tile's accumulator, s and P's parts (32 + 32 + 32 + 48 registers):
+// ptxas gives it the 168 registers that nine warps allow and spills 56-60
+// bytes (H100, CUDA 12.8). Its products cost six times the bf16 form's:
+// 36·S²·64 FLOP per (batch, head) at 989 TFLOP/s, halved under the causal
+// mask; one block an SM waits on each product, so on the H100 it runs at a
+// quarter of that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 #include "dropout.cuh"
@@ -89,14 +124,28 @@ using namespace vit::hopper;
 
 constexpr int kBlockQ = 128;  // q rows per block: two warpgroups of 64
 constexpr int kKeys = 64;     // keys per ring stage
-constexpr int kStages = 4;
 constexpr int kConsumers = 256;
 constexpr int kBlockThreads = kConsumers + 32;  // + the producer warp
+constexpr int kPartsWidth = 3 * 64;  // a row of the fp32 form's part arrays
+// Bytes from one part of the block's 128-row q tile to the next
+constexpr uint32_t kQPartBytes = kBlockQ * 128;
 
+// kParts = 1: bf16 operands, four ring stages, two blocks an SM, a bf16
+// output; 3: fp32 operands as three bf16 parts, three stages, one block an
+// SM, an fp32 output.
+template <int kParts>
+constexpr int kStagesOf = kParts == 1 ? 4 : 3;
+template <int kParts>
+constexpr int kBlocksPerSm = kParts == 1 ? 2 : 1;
+template <int kParts>
+using OutT = std::conditional_t<kParts == 1, bf16, float>;
+
+template <int kParts>
 struct alignas(1024) FwdSmem {
-  bf16 q[kBlockQ * 64];
-  bf16 k[kStages][kKeys * 64];
-  bf16 v[kStages][kKeys * 64];
+  static constexpr int kStages = kStagesOf<kParts>;
+  bf16 q[kParts][kBlockQ * 64];
+  bf16 k[kStages][kParts][kKeys * 64];
+  bf16 v[kStages][kParts][kKeys * 64];
   Ring<kStages> ring;
   uint64_t q_full;
   alignas(16) bf16 bias[3][64];  // kBias: this head's q, k and v bias
@@ -116,34 +165,50 @@ __device__ __forceinline__ void mask_edge(float (&s)[32], int k0, int row0,
 
 // What a block works on: a 128-row q tile of head (b, h), and n_kv key
 // tiles. Loads 0 .. n_kv - 1 bring the k tiles of pass 1, loads n_kv ..
-// 2·n_kv - 1 the k and v tiles of pass 2.
+// 2·n_kv - 1 the k and v tiles of pass 2. Each tile comes in kParts parts,
+// part p at column 64p of its tensor map.
 struct Work {
   int q0, h, b, n_kv;
 };
 
-__device__ __forceinline__ void produce(FwdSmem& sm, const CUtensorMap* tq,
+template <int kParts>
+__device__ __forceinline__ void produce(FwdSmem<kParts>& sm,
+                                        const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, Work w) {
-  Ring<kStages>& ring = sm.ring;
-  mbar_arrive_expect_tx(&sm.q_full, 2 * kTileBytes);
-  tma_load_4d(sm.q, tq, &sm.q_full, 0, w.q0, w.h, w.b);
-  tma_load_4d(sm.q + kKeys * 64, tq, &sm.q_full, 0, w.q0 + kKeys, w.h, w.b);
+  auto& ring = sm.ring;
+  mbar_arrive_expect_tx(&sm.q_full, 2 * kParts * kTileBytes);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    tma_load_4d(sm.q[p], tq, &sm.q_full, 64 * p, w.q0, w.h, w.b);
+    tma_load_4d(sm.q[p] + kKeys * 64, tq, &sm.q_full, 64 * p, w.q0 + kKeys,
+                w.h, w.b);
+  }
   for (int i = 0; i < 2 * w.n_kv; ++i) {
     const int st = ring.stage(i), k0 = (i % w.n_kv) * kKeys;
     const bool pass2 = i >= w.n_kv;
     ring.wait_empty(i);
-    mbar_arrive_expect_tx(&ring.full[st], (pass2 + 1) * kTileBytes);
-    tma_load_4d(sm.k[st], tk, &ring.full[st], 0, k0, w.h, w.b);
-    if (pass2) tma_load_4d(sm.v[st], tv, &ring.full[st], 0, k0, w.h, w.b);
+    mbar_arrive_expect_tx(&ring.full[st], (pass2 + 1) * kParts * kTileBytes);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      tma_load_4d(sm.k[st][p], tk, &ring.full[st], 64 * p, k0, w.h, w.b);
+    if (pass2) {
+#pragma unroll
+      for (int p = 0; p < kParts; ++p)
+        tma_load_4d(sm.v[st][p], tv, &ring.full[st], 64 * p, k0, w.h, w.b);
+    }
   }
 }
 
-template <bool kDropout, bool kBias>
-__device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
-                                        Strides so, float* m_out,
-                                        float* l_out, Dropout drop, int S,
-                                        int H, int causal) {
-  Ring<kStages>& ring = sm.ring;
+template <bool kDropout, bool kBias, int kParts>
+__device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
+                                        OutT<kParts>* out, Strides so,
+                                        float* m_out, float* l_out,
+                                        Dropout drop, int S, int H,
+                                        int causal) {
+  static_assert(kParts == 1 || !kBias, "the fp32 form's parts carry the bias");
+  constexpr uint32_t kStageBytes = kParts * kTileBytes;
+  auto& ring = sm.ring;
   const int n_kv = w.n_kv;
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
@@ -154,18 +219,26 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
   const int row0 = r0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
   // Key tiles past this warpgroup's diagonal are wholly masked.
   const int my_kv = causal ? min(n_kv, r0 / kKeys + 1) : n_kv;
-  const uint32_t q_tile = smem_u32(sm.q + wg * 64 * 64);
-  const uint32_t k_base = smem_u32(sm.k[0]);
-  const uint32_t v_base = smem_u32(sm.v[0]);
+  const uint32_t q_tile = smem_u32(sm.q[0] + wg * 64 * 64);
+  const uint32_t k_base = smem_u32(sm.k[0][0]);
+  const uint32_t v_base = smem_u32(sm.v[0][0]);
   // Scores are taken as q·kᵀ unscaled: 1/8 is applied inside the max
   // (exact and monotone) and the exponent. Masks are compared on the
-  // diagonal and the ragged last tile only.
+  // diagonal and the ragged last tile only. Both passes call this, so
+  // their scores are the same bits. The fp32 form zeroes s first, so that
+  // the last tile's scores are dead (the wgmma asm reads its accumulator)
+  // while P·V holds its parts and the tile's accumulator.
   float s[32];
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = 0.0f;
   auto scores = [&](int i, int k0) {
+    if constexpr (kParts > 1) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = 0.0f;
+    }
     wgmma_fence();
-    mma_abt(s, q_tile, k_base + ring.stage(i) * kTileBytes);
+    mma_abt_parts<kParts>(s, q_tile, kQPartBytes,
+                          k_base + ring.stage(i) * kStageBytes, kTileBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -175,17 +248,17 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
   // kBias: the K (and in pass 2 the V) tile of load i, biased by all 256
   // consumers before either warpgroup's products read it.
   auto bias_kv = [&](int i, int k0, bool with_v) {
-    add_bias_tile<kConsumers>(sm.k[ring.stage(i)], sm.bias[1], S - k0,
+    add_bias_tile<kConsumers>(sm.k[ring.stage(i)][0], sm.bias[1], S - k0,
                               threadIdx.x);
     if (with_v)
-      add_bias_tile<kConsumers>(sm.v[ring.stage(i)], sm.bias[2], S - k0,
+      add_bias_tile<kConsumers>(sm.v[ring.stage(i)][0], sm.bias[2], S - k0,
                                 threadIdx.x);
     fence_proxy_async();
     named_barrier(3, kConsumers);
   };
   mbar_wait(&sm.q_full, 0);
   if constexpr (kBias) {
-    add_bias_tile<128>(sm.q + wg * 64 * 64, sm.bias[0], S - r0,
+    add_bias_tile<128>(sm.q[0] + wg * 64 * 64, sm.bias[0], S - r0,
                        threadIdx.x % 128);
     fence_proxy_async();
     named_barrier(1 + wg, 128);
@@ -206,17 +279,18 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
   }
   // A row is spread over the 4 threads of a group. Column 0 is valid for
   // every row, so m is finite and no exp below sees (-inf) - (-inf).
-  float ml[2];  // m·log2(e), the shift inside the exponent
+  float ml[2];  // the shift inside the exponent: m·log2(e), or m (fp32)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
     m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
     m[r] *= kScale;
-    ml[r] = m[r] * kLog2e;
+    ml[r] = kParts == 1 ? m[r] * kLog2e : m[r];
   }
 
-  // Pass 2: p = exp(s - m) in fp32, summed unrounded into l, and P (bf16,
-  // unnormalised, after the dropout mask) times V accumulated in fp32.
+  // Pass 2: p = exp(s - m) in fp32, summed unrounded into l, and P
+  // (unnormalised, after the dropout mask; bf16, or its three bf16 parts)
+  // times V accumulated in fp32.
   DropoutStream drs{};
   if constexpr (kDropout) drs = dropout_stream(drop, w.b * H + w.h);
   float o[32];
@@ -230,16 +304,20 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
     if (j < my_kv) {
       const int k0 = j * kKeys;
       scores(i, k0);
-      // P to bf16 in the A-operand layout: key step ks covers score tiles
-      // 2ks and 2ks + 1.
-      uint32_t pf[4][4];
+      // P in the A-operand layout: key step ks covers score tiles 2ks and
+      // 2ks + 1.
+      uint32_t pf[kParts][4][4];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         float p[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          p[c] = exp2_approx(
-              fmaf(s[4 * nt + c], kScale * kLog2e, -ml[c >> 1]));
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (kParts == 1)
+            p[c] = exp2_approx(
+                fmaf(s[4 * nt + c], kScale * kLog2e, -ml[c >> 1]));
+          else
+            p[c] = expf(fmaf(s[4 * nt + c], kScale, -ml[c >> 1]));
+        }
         l[0] += p[0] + p[1];
         l[1] += p[2] + p[3];
         if constexpr (kDropout) {
@@ -249,14 +327,12 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
             p[c] *= dropout_at(drs, row0 + (c >> 1) * 8, col + (c & 1), S,
                                causal);
         }
-        pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16x2(p[0], p[1]);
-        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16x2(p[2], p[3]);
+        put_a<kParts>(pf, nt / 2, (nt % 2) * 2 + 0, p[0], p[1]);
+        put_a<kParts>(pf, nt / 2, (nt % 2) * 2 + 1, p[2], p[3]);
       }
       wgmma_fence();
-      mma_rb(o, pf, v_base + ring.stage(i) * kTileBytes);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
+      mma_rb_parts_into<kParts>(o, pf, v_base + ring.stage(i) * kStageBytes,
+                                kTileBytes);
       fence_regs(pf);
     }
     ring.release(i);
@@ -267,16 +343,22 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  bf16* ob = out + offset(so, w.b, w.h);
+  OutT<kParts>* ob = out + offset(so, w.b, w.h);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
     if (row >= S) continue;
-    bf16* orow = ob + static_cast<size_t>(row) * so.s;
+    OutT<kParts>* orow = ob + static_cast<size_t>(row) * so.s;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t) = pack_bf16x2(
-          o[4 * nt + 2 * r] / l[r], o[4 * nt + 2 * r + 1] / l[r]);
+      const float lo = o[4 * nt + 2 * r] / l[r];
+      const float hi = o[4 * nt + 2 * r + 1] / l[r];
+      if constexpr (kParts == 1)
+        *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t) =
+            pack_bf16x2(lo, hi);
+      else
+        *reinterpret_cast<float2*>(orow + nt * 8 + 2 * t) =
+            make_float2(lo, hi);
     }
     if (m_out != nullptr && t == 0) {
       const size_t i = (static_cast<size_t>(w.b) * H + w.h) * S + row;
@@ -286,16 +368,16 @@ __device__ __forceinline__ void consume(FwdSmem& sm, Work w, bf16* out,
   }
 }
 
-template <bool kDropout, bool kBias>
-__global__ void __launch_bounds__(kBlockThreads, 2)
+template <bool kDropout, bool kBias, int kParts>
+__global__ void __launch_bounds__(kBlockThreads, kBlocksPerSm<kParts>)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     const bf16* __restrict__ bias, bf16* __restrict__ out,
-                     Strides so, float* __restrict__ m_out,
-                     float* __restrict__ l_out, Dropout drop, int S, int H,
-                     int causal) {
-  FwdSmem& sm = aligned_smem<FwdSmem>();
+                     const bf16* __restrict__ bias,
+                     OutT<kParts>* __restrict__ out, Strides so,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     Dropout drop, int S, int H, int causal) {
+  auto& sm = aligned_smem<FwdSmem<kParts>>();
   Work w;
   w.q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockQ;
   w.h = blockIdx.y;
@@ -311,48 +393,62 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x >= kConsumers) {  // the producer warp: one thread
     if (threadIdx.x == kConsumers) produce(sm, &tq, &tk, &tv, w);
   } else {
-    consume<kDropout, kBias>(sm, w, out, so, m_out, l_out, drop, S, H,
-                             causal);
+    consume<kDropout, kBias, kParts>(sm, w, out, so, m_out, l_out, drop, S,
+                                     H, causal);
   }
 }
 
-constexpr int kSmemBytes = static_cast<int>(sizeof(FwdSmem)) + 1024;
+template <int kParts>
+constexpr int kSmemBytes = static_cast<int>(sizeof(FwdSmem<kParts>)) + 1024;
 
-// The tensor maps and the launch of attention_fwd_kernel<kDropout, kBias>:
-// K6 with bias null, K1 with its (3·H·64,) bias.
-int launch(const void* q, const void* k, const void* v, const bf16* bias,
-           void* out, void* m, void* l, const void* seed,
+// The tensor maps and the launch of attention_fwd_kernel<kDropout, kBias,
+// kParts>: K6 with bias null, K1 with its (3·H·64,) bf16 bias; q, k, v bf16
+// (kParts 1, width 64) or part arrays (kParts 3, width 192, no bias) at
+// strides[0..8], out OutT<kParts> at strides[9..11].
+template <int kParts>
+int launch(const void* q, const void* k, const void* v, int width,
+           const bf16* bias, void* out, void* m, void* l, const void* seed,
            const long long* strides, int B, int S, int H, int causal,
            unsigned int threshold, float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   CUtensorMap tq, tk, tv;
-  int err = head_map(&tq, q, strides + 0, B, H, S);
-  if (!err) err = head_map(&tk, k, strides + 3, B, H, S);
-  if (!err) err = head_map(&tv, v, strides + 6, B, H, S);
+  int err = head_map(&tq, q, strides + 0, B, H, S, width);
+  if (!err) err = head_map(&tk, k, strides + 3, B, H, S, width);
+  if (!err) err = head_map(&tv, v, strides + 6, B, H, S, width);
   if (err) return err;
   const Strides so{strides[9], strides[10], strides[11]};
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   const Dropout drop{static_cast<const int*>(seed), threshold, scale};
-  using Kernel = decltype(&attention_fwd_kernel<false, false>);
-  const Kernel kernels[2][2] = {
-      {&attention_fwd_kernel<false, false>, &attention_fwd_kernel<false, true>},
-      {&attention_fwd_kernel<true, false>, &attention_fwd_kernel<true, true>}};
-  const Kernel kernel = kernels[seed != nullptr][bias != nullptr];
+  using Kernel = decltype(&attention_fwd_kernel<false, false, kParts>);
+  Kernel kernel;
+  if constexpr (kParts == 1) {
+    const Kernel kernels[2][2] = {{&attention_fwd_kernel<false, false, 1>,
+                                   &attention_fwd_kernel<false, true, 1>},
+                                  {&attention_fwd_kernel<true, false, 1>,
+                                   &attention_fwd_kernel<true, true, 1>}};
+    kernel = kernels[seed != nullptr][bias != nullptr];
+  } else {
+    kernel = seed != nullptr ? &attention_fwd_kernel<true, false, kParts>
+                             : &attention_fwd_kernel<false, false, kParts>;
+  }
   err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes<kParts>));
   if (err) return err;
-  kernel<<<grid, kBlockThreads, kSmemBytes,
+  kernel<<<grid, kBlockThreads, kSmemBytes<kParts>,
            static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, bias, static_cast<bf16*>(out), so, static_cast<float*>(m),
-      static_cast<float*>(l), drop, S, H, causal);
+      tq, tk, tv, bias, static_cast<OutT<kParts>*>(out), so,
+      static_cast<float*>(m), static_cast<float*>(l), drop, S, H, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory of the K6 and K1 kernels, bytes (for the build
-// report).
-extern "C" int attention_fwd_smem() { return kSmemBytes; }
+// Dynamic shared memory of the K6 and K1 kernels, bf16 (fp32 0) or the
+// fp32 form (fp32 1), bytes (for the build report).
+extern "C" int attention_fwd_smem(int fp32) {
+  return fp32 ? kSmemBytes<3> : kSmemBytes<1>;
+}
 
 // q, k, v, out: (B, H, S, 64) bf16 at the element strides
 // strides[0..2] (q), [3..5] (k), [6..8] (v), [9..11] (out), each (batch,
@@ -366,8 +462,8 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const long long* strides, int B, int S, int H,
                              int causal, unsigned int threshold, float scale,
                              void* stream) {
-  return launch(q, k, v, nullptr, out, m, l, seed, strides, B, S, H, causal,
-                threshold, scale, stream);
+  return launch<1>(q, k, v, 64, nullptr, out, m, l, seed, strides, B, S, H,
+                   causal, threshold, scale, stream);
 }
 
 // K1. qkv: (B, S, 3·H·64) bf16, contiguous, 16-byte aligned; bias: (3·H·64,)
@@ -387,6 +483,31 @@ extern "C" int attention_packed_fwd(const void* qkv, const void* bias,
     for (int j = 0; j < 3; ++j)
       strides[3 * i + j] = i == 3 ? rows[j] : packed[j];
   const bf16* x = static_cast<const bf16*>(qkv);
-  return launch(x, x + D, x + 2 * D, static_cast<const bf16*>(bias), out, m,
-                l, seed, strides, B, S, H, causal, threshold, scale, stream);
+  return launch<1>(x, x + D, x + 2 * D, 64, static_cast<const bf16*>(bias),
+                   out, m, l, seed, strides, B, S, H, causal, threshold, scale,
+                   stream);
+}
+
+// The fp32 form (K1, K6 on fp32 operands). parts: (3, B, H, S, 3, 64) bf16,
+// contiguous, the three bf16 parts of q, k and v (the packed layout's bias
+// added) as attention_f32_split writes them; out: (B, H, S, 64) fp32 at the
+// element strides out_strides[0..2] (batch, head, row), multiples of 2; m,
+// l, seed, threshold and scale as attention_fwd's. Returns as
+// attention_fwd.
+extern "C" int attention_f32_fwd(const void* parts, void* out, void* m,
+                                 void* l, const void* seed,
+                                 const long long* out_strides, int B, int S,
+                                 int H, int causal, unsigned int threshold,
+                                 float scale, void* stream) {
+  // The part arrays' (batch, head, row) strides, then the output's own
+  const long long split[3] = {static_cast<long long>(H) * S * kPartsWidth,
+                              static_cast<long long>(S) * kPartsWidth,
+                              kPartsWidth};
+  long long strides[12];
+  for (int i = 0; i < 12; ++i)
+    strides[i] = i < 9 ? split[i % 3] : out_strides[i - 9];
+  const size_t n = static_cast<size_t>(B) * H * S * kPartsWidth;
+  const bf16* x = static_cast<const bf16*>(parts);
+  return launch<3>(x, x + n, x + 2 * n, kPartsWidth, nullptr, out, m, l,
+                   seed, strides, B, S, H, causal, threshold, scale, stream);
 }

@@ -1,7 +1,6 @@
-// Constants and helpers shared by the attention kernels: the ones on
-// Hopper (attention_fwd.cu: K6 and its packed form K1; attention_bwd.cu:
-// K7/K8 and K2, bf16 and fp32) and the fp32 forwards (attention_f32.cu,
-// 64-row tiles).
+// Constants and helpers shared by the attention kernels on Hopper
+// (attention_fwd.cu: K6 and its packed form K1; attention_bwd.cu: K7/K8
+// and K2; bf16 and fp32 alike).
 
 #pragma once
 
@@ -13,7 +12,6 @@
 namespace vit {
 
 constexpr int kHeadDim = 64;
-constexpr int kTile = 64;      // rows of a q, k, v or dO tile (fp32 forms)
 
 // Element strides (batch, head, row) of one (B, H, S, 64) operand or head
 // view of the attention kernels; head_dim is contiguous.

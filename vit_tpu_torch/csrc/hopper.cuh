@@ -1,8 +1,8 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
 // (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate) that
-// the attention kernels (K6, K7/K8 and their packed forms K1, K2; the
-// backward's fp32 form through fp32-accurate products of three bf16 parts)
+// the attention kernels (K6, K7/K8 and their packed forms K1, K2; their
+// fp32 forms through fp32-accurate products of three bf16 parts)
 // and the ConvNeXt block tail (K3, K4) are built from, and the host side of
 // their tensor maps.
 //
@@ -449,6 +449,35 @@ __device__ __forceinline__ void mma_rb_parts(
     for (int ks = 0; ks < kSteps; ++ks)
       wgmma_rs<1>(d, a[split_a(t)][ks],
                   desc_mn(b + split_b(t) * b_part + 2048 * ks));
+}
+
+// d += A·B (mma_rb_parts), waited for. The fp32 forms (kParts = 3) take
+// each tile's product in a fresh accumulator and add it to d in registers,
+// rounded to nearest: chained over all the tiles of a sum in d itself, the
+// fp32 attention backward's means read 2e-6 to 7e-6 of mean |plain| on the
+// H100, growing with the number of tiles, as the tensor cores' fp32
+// accumulation loses low bits at each wgmma against a growing accumulator;
+// a tile at a time, 3e-7 to 7e-7.
+template <int kParts, int kSteps>
+__device__ __forceinline__ void mma_rb_parts_into(
+    float (&d)[32], const uint32_t (&a)[kParts][kSteps][4], uint32_t b,
+    uint32_t b_part) {
+  if constexpr (kParts == 1) {
+    mma_rb_parts(d, a, b, b_part);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+  } else {
+    float tile[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tile[e] = 0.0f;
+    mma_rb_parts(tile, a, b, b_part);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(tile);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) d[e] = __fadd_rn(d[e], tile[e]);
+  }
 }
 
 // Two fp32 values (lo, hi) as kParts packed bf16 pairs into A fragment

@@ -103,11 +103,4 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 1; o < kSimtSide; o *= 2)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 }  // namespace vit

@@ -15,7 +15,9 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
 
   attention_fwd.cu         K6   attention.py:172 (_fa_kernel :76)
                            K1   attention.py:790 (_fa_packed_kernel :623),
-                                K6's kernel with the bias stage (kBias)
+                                K6's kernel with the bias stage (kBias);
+                                on fp32 operands the same kernel over
+                                three bf16 parts (kParts = 3)
   attention_bwd.cu         K7   attention.py:441 (_fa_bwd_kernel :201)
                            K8   attention.py:395 (_fa_bwd_tiled_kernel :284)
                            K2   attention.py:1072 (_fa_packed_bwd_kernel
@@ -36,16 +38,15 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                            K11b depthwise.py:124 (_dw_bwd_kernel :77)
   convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
                            K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
-  attention_f32.cu         K1, K6 on fp32 operands
   convnext_tail_f32.cu     K3, K4 on fp32 rows
   fma_probe.cu             P    scripts/bench_vpu.py:60 (_fma_kernel :32)
 
 The JAX package runs every Pallas kernel on operands of the compute dtype,
 fp32 products at Precision.HIGHEST under ``--mixed false``. Each kernel
-therefore has an fp32 form: the attention backwards as fp32-accurate
-products of three bf16 parts on the tensor cores (``attention_bwd.cu``),
-the attention forwards and the ConvNeXt tails in their own sources above
-(SIMT fp32 products, ``csrc/simt_f32.cuh``), the others
+therefore has an fp32 form: the attention kernels as fp32-accurate
+products of three bf16 parts on the tensor cores (``attention_fwd.cu``,
+``attention_bwd.cu``), the ConvNeXt tails in their own source above (SIMT
+fp32 products, ``csrc/simt_f32.cuh``), the others
 as ``*_f32`` entries beside their bf16 ones (K9a, K10: SIMT products; K9b,
 K9c, K12a, K12b: the kernels templated on their row type). K5 is fp32 by
 design and K11 takes both dtypes through one entry.
@@ -161,10 +162,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     #               S, H, causal, ...)
     lib.attention_bwd.argtypes = [ptr] * 11 + [strides] + [i32] * 4 + drop
     lib.attention_bwd.restype = i32
-    # Their dynamic shared memory in bytes: attention_fwd_smem(),
+    # Their dynamic shared memory in bytes: attention_fwd_smem(fp32),
     # attention_bwd_smem(dkdv, fp32) (dkdv 0: the dq kernel, 1: the dk/dv
     # kernel; fp32 1: the fp32 form's)
-    lib.attention_fwd_smem.argtypes = []
+    lib.attention_fwd_smem.argtypes = [i32]
     lib.attention_bwd_smem.argtypes = [i32, i32]
     lib.attention_fwd_smem.restype = lib.attention_bwd_smem.restype = i32
     # Rows per backward block: K2's partial bias sums are (B·⌈S/rows⌉, 3D)
@@ -213,15 +214,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     # vq_nearest(z, codebook, idx, N, C, D, l2_normalize, stream)
     lib.vq_nearest.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.vq_nearest.restype = i32
-    # The fp32 forms. attention_f32_fwd(q, k, v, bq, bk, bv, out, m, l,
-    # seed, strides, B, S, H, causal, ...)
-    lib.attention_f32_fwd.argtypes = [ptr] * 10 + [strides] + [i32] * 4 + drop
+    # The fp32 forms. attention_f32_fwd(parts, out, m, l, seed, strides, B,
+    # S, H, causal, ...)
+    lib.attention_f32_fwd.argtypes = [ptr] * 5 + [strides] + [i32] * 4 + drop
     # attention_f32_bwd(q, k, v, bq, bk, bv, dout, m, l, dq, dk, dv, delta,
     #                   parts, part, dbias, seed, strides, B, S, H, causal,
     #                   ...)
     lib.attention_f32_bwd.argtypes = [ptr] * 17 + [strides] + [i32] * 4 + drop
     # attention_f32_split(q, k, v, bq, bk, bv, dout, parts, strides, B, S, H,
-    #                     stream): the backward's pre-split alone
+    #                     stream): the pre-split, dout null for the forward's
     lib.attention_f32_split.argtypes = [ptr] * 8 + [strides] + [i32] * 3 + [ptr]
     for name, like in (("convnext_tail_f32_fwd", "convnext_tail_fwd"),
                        ("convnext_tail_f32_bwd", "convnext_tail_bwd"),

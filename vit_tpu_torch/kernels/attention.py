@@ -59,13 +59,13 @@ budget (:1304-1312); the port sends every S to its kernels.
 
 fp32 operands (``--mixed false``, where the Pallas kernels take their
 products at Precision.HIGHEST) launch the fp32 forms, for both layouts,
-with the same (m, l) statistics and the same dropout mask: the forward of
-``csrc/attention_f32.cu`` (full fp32 products on the CUDA cores) and the
-backward's kernel pair of ``csrc/attention_bwd.cu`` instantiated on three
-bf16 parts of each fp32 operand (x = x0 + x1 + x2, written by a pre-split
-pass, :func:`split_parts`), every product the six bf16 tensor-core products
-of the TPU's HIGHEST, fp32 outputs. Every wrapper takes bf16 or fp32
-operands of one dtype and counts its fp32 launches apart (``fp32_*``).
+with the same (m, l) statistics and the same dropout mask: the forward's
+kernel of ``csrc/attention_fwd.cu`` and the backward's kernel pair of
+``csrc/attention_bwd.cu``, each instantiated on three bf16 parts of each
+fp32 operand (x = x0 + x1 + x2, written by a pre-split pass,
+:func:`split_parts`), every product the six bf16 tensor-core products of
+the TPU's HIGHEST, fp32 outputs. Every wrapper takes bf16 or fp32 operands
+of one dtype and counts its fp32 launches apart (``fp32_*``).
 """
 
 from __future__ import annotations
@@ -334,9 +334,35 @@ def _bias_parts(bias: "torch.Tensor | None"):
     return (None,) * 3 if bias is None else bias.view(3, -1).unbind(0)
 
 
+def _parts(q: torch.Tensor, ops: int) -> torch.Tensor:
+    """The fp32 forms' workspace of bf16 parts: (ops, B, H, S, 3, 64), part
+    p of q, k, v (biased) and, in the backward's (ops 4), dO at
+    [operand][b][h][s][p]."""
+    b, h, s, d = q.shape
+    return torch.empty(ops, b, h, s, 3, d, dtype=torch.bfloat16,
+                       device=q.device)
+
+
+def _split(lib, q, k, v, bias, dout, stream) -> torch.Tensor:
+    """Launch the pre-split (``attention_f32_split``) of q, k, v with the
+    packed layout's (3D,) bias or None, and dO or None (the forward's), on
+    ``stream``; returns the parts."""
+    b, h, s, _ = q.shape
+    parts = _parts(q, 3 if dout is None else 4)
+    bq, bk, bv = _bias_parts(bias)
+    ops = (q, k, v) if dout is None else (q, k, v, dout)
+    err = lib.attention_f32_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
+        _ptr(bv), _ptr(dout), parts.data_ptr(), _strides(*ops), b, s, h,
+        stream)
+    _build.check(lib, err, "attention_f32_split")
+    return parts
+
+
 def _f32_fwd(q, k, v, bias, out, emit_stats: bool, seed, threshold: int,
              scale: float, causal: bool):
-    """Launch the fp32 forward (``attention_f32_fwd``) over the (B, H, S, 64)
+    """Launch the fp32 forward (the pre-split of q, k and v, then
+    ``attention_f32_fwd``, the split-product kernel) over the (B, H, S, 64)
     views q, k, v and out, with the packed layout's (3D,) bias or None;
     returns (m, l), or (None, None) without ``emit_stats``."""
     b, h, s, _ = q.shape
@@ -344,25 +370,15 @@ def _f32_fwd(q, k, v, bias, out, emit_stats: bool, seed, threshold: int,
     if emit_stats:
         m = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
-    bq, bk, bv = _bias_parts(bias)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        parts = _split(lib, q, k, v, bias, None, stream)
         err = lib.attention_f32_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
-            _ptr(bv), out.data_ptr(), _ptr(m), _ptr(l), _ptr(seed),
-            _strides(q, k, v, out), b, s, h, int(causal), threshold, scale,
-            stream)
+            parts.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l), _ptr(seed),
+            _strides(out), b, s, h, int(causal), threshold, scale, stream)
     _build.check(lib, err, "attention_f32_fwd")
     return m, l
-
-
-def _parts(q: torch.Tensor) -> torch.Tensor:
-    """The fp32 backward's workspace of bf16 parts: (4, B, H, S, 3, 64),
-    part p of q, k, v (biased) and dO at [operand][b][h][s][p]."""
-    b, h, s, d = q.shape
-    return torch.empty(4, b, h, s, 3, d, dtype=torch.bfloat16,
-                       device=q.device)
 
 
 def _f32_bwd(q, k, v, bias, dout, m, l, dq, dk, dv, seed, threshold: int,
@@ -381,7 +397,7 @@ def _f32_bwd(q, k, v, bias, dout, m, l, dq, dk, dv, seed, threshold: int,
         dbias = torch.empty(bias.numel(), dtype=torch.float32,
                             device=q.device)
     bq, bk, bv = _bias_parts(bias)
-    parts = _parts(q)
+    parts = _parts(q, 4)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attention_f32_bwd(
@@ -398,8 +414,8 @@ def _f32_bwd(q, k, v, bias, dout, m, l, dq, dk, dv, seed, threshold: int,
 def split3(x: torch.Tensor) -> "tuple[torch.Tensor, ...]":
     """fp32 ``x`` as three bf16 parts with x = x0 + x1 + x2 exactly (while x2
     is a normal bf16: |x| above about 2⁻¹¹⁰): x0 = bf16(x), x1 = bf16(x −
-    x0), x2 = bf16(x − x0 − x1). The fp32 backward's operands and A
-    fragments are split so (``csrc/hopper.cuh:put_a``)."""
+    x0), x2 = bf16(x − x0 − x1). The fp32 forms' operands and A fragments
+    are split so (``csrc/hopper.cuh:put_a``)."""
     parts, r = [], x.float()
     for _ in range(3):
         p = r.to(torch.bfloat16)
@@ -408,42 +424,40 @@ def split3(x: torch.Tensor) -> "tuple[torch.Tensor, ...]":
     return tuple(parts)
 
 
-def split_parts_ref(q, k, v, dout, bias: "torch.Tensor | None" = None
+def split_parts_ref(q, k, v, dout=None, bias: "torch.Tensor | None" = None
                     ) -> torch.Tensor:
-    """Plain version of the fp32 backward's pre-split pass: q, k, v (plus
-    the packed layout's (3D,) bias, q's part at h·64, k's at D + h·64, v's
-    at 2D + h·64) and dO, fp32 (B, H, S, 64) → (4, B, H, S, 3, 64) bf16."""
+    """Plain version of the fp32 forms' pre-split pass: q, k, v (plus the
+    packed layout's (3D,) bias, q's part at h·64, k's at D + h·64, v's at
+    2D + h·64) and dO, fp32 (B, H, S, 64) → (4, B, H, S, 3, 64) bf16; without
+    dO (the forward's) → (3, B, H, S, 3, 64)."""
     ops = [q, k, v]
     if bias is not None:
         ops = [x + bp.view(-1, 1, HEAD_DIM) for x, bp in zip(ops,
                                                              _bias_parts(bias))]
-    return torch.stack([torch.stack(split3(x), -2) for x in (*ops, dout)])
+    if dout is not None:
+        ops.append(dout)
+    return torch.stack([torch.stack(split3(x), -2) for x in ops])
 
 
-def split_parts(q, k, v, dout, bias: "torch.Tensor | None" = None
+def split_parts(q, k, v, dout=None, bias: "torch.Tensor | None" = None
                 ) -> torch.Tensor:
-    """The fp32 backward's pre-split pass alone, the launch that
-    ``attention_f32_bwd`` makes first, to check it against
+    """The fp32 forms' pre-split pass alone, the launch that the fp32
+    backward (``attention_f32_bwd``) makes first and the fp32 forward's
+    wrapper makes before its kernel (without dO), to check it against
     :func:`split_parts_ref` and time it: CUDA fp32 (B, H, S, 64) operands at
-    the strides the backward takes → (4, B, H, S, 3, 64) bf16."""
-    _check_unpacked((q, k, v, dout), "the pre-split")
+    the strides the kernels take → (4, B, H, S, 3, 64) bf16, or (3, ...)
+    without dO."""
+    ops = tuple(t for t in (q, k, v, dout) if t is not None)
+    _check_unpacked(ops, "the pre-split")
     if q.dtype != torch.float32:
         raise TypeError(f"the pre-split takes fp32 operands, got {q.dtype}")
-    q, k, v, dout = (_strided(t) for t in (q, k, v, dout))
-    b, h, s, _ = q.shape
-    parts = _parts(q)
+    q, k, v, *rest = (_strided(t) for t in ops)
     if bias is not None:
         bias = _build.cuda_arg(bias, q, "qkv_bias", torch.float32)
-    bq, bk, bv = _bias_parts(bias)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_f32_split(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
-            _ptr(bv), dout.data_ptr(), parts.data_ptr(),
-            _strides(q, k, v, dout), b, s, h, stream)
-    _build.check(lib, err, "attention_f32_split")
-    return parts
+        return _split(lib, q, k, v, bias, rest[0] if rest else None, stream)
 
 
 def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
