@@ -1,7 +1,9 @@
 """Port parity for the 7×7 depthwise convolution (K11a/K11b): the plain
 versions against the Pallas ``depthwise_conv`` and its VJP in interpret
-mode, the autograd Function's gradient routing, the wrappers' refusals off
-the CPU, and ``dw_impl`` on the port's ConvNeXt block."""
+mode (also at narrow ConvNeXt-S-like stage shapes), the dx-only backward
+against the full one, the autograd Function's gradient routing (dx-only
+for frozen taps), the wrappers' refusals off the CPU, and ``dw_impl`` on
+the port's ConvNeXt block."""
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +22,11 @@ from vit_tpu_torch.losses.perceptual import ConvNeXtBlock
 # batch, taken per image by the Pallas kernel and at once here: 1e-4.
 Y_TOL, DW_TOL = 2e-5, 1e-4
 
-# the shapes of tests/test_depthwise.py (k 7 and k 3) and a C-128 case
+# the shapes of tests/test_depthwise.py (k 7 and k 3), a C-128 case, and
+# narrow forms of ConvNeXt-S's last two stages (14 × 14 and 7 × 7 images,
+# C not a multiple of the kernels' 32-channel groups)
 SHAPES = [((2, 12, 16, 8), 7), ((3, 9, 9, 16), 3), ((2, 8, 10, 8), 7),
-          ((2, 7, 7, 128), 7)]
+          ((2, 7, 7, 128), 7), ((1, 14, 14, 40), 7), ((1, 7, 7, 48), 7)]
 
 
 def _inputs(shape, ksize, seed):
@@ -101,6 +105,72 @@ def test_backward_hands_on_only_what_is_asked():
     assert dw.shape == (7, 7, 8) and db.shape == (8,)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 12, 16, 8), (1, 14, 14, 40),
+                                   (3, 7, 7, 48)])
+def test_dx_only_equals_the_full_forms_dx(shape, dtype):
+    """The dx-only plain backward returns the full one's dx, bit for bit,
+    and no dw or db."""
+    x, w, _, g = (torch.from_numpy(a).to(dtype)
+                  for a in _inputs(shape, 7, seed=sum(shape)))
+    dx, dw, db = k_dw.depthwise_bwd_ref(x, g, w)
+    only = k_dw.depthwise_bwd_ref(x, g, w, dx_only=True)
+    assert only[1] is None and only[2] is None
+    assert only[0].dtype == dtype and torch.equal(only[0], dx)
+    assert dw.shape == (7, 7, shape[-1]) and db.shape == (shape[-1],)
+    assert torch.equal(k_dw.depthwise_bwd(x, g, w, dx_only=True)[0], dx)
+
+
+@pytest.mark.parametrize("w_grad,b_grad", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+def test_autograd_routes_frozen_taps_to_dx_only(w_grad, b_grad, monkeypatch):
+    """DepthwiseConv's backward asks K11b for dx alone when neither the
+    taps nor the bias need a gradient, else for the full form; each
+    gradient asked for equals the plain backward's."""
+    seen = []
+
+    def spy(x, g, w, ksize=7, dx_only=False, _fn=k_dw.depthwise_bwd):
+        seen.append(dx_only)
+        return _fn(x, g, w, ksize, dx_only=dx_only)
+
+    monkeypatch.setattr(k_dw, "depthwise_bwd", spy)
+    x, w, b, g = (torch.from_numpy(a) for a in _inputs((2, 9, 9, 16), 7, 5))
+    tx = x.clone().requires_grad_()
+    tw, tb = w.clone().requires_grad_(w_grad), b.clone().requires_grad_(b_grad)
+    k_dw.depthwise_conv(tx, tw, tb, 7).backward(g)
+    assert seen == [not (w_grad or b_grad)]
+    dx, dw, db = k_dw.depthwise_bwd_ref(x, g, w)
+    assert torch.equal(tx.grad, dx)
+    assert (tw.grad is not None) == w_grad and (tb.grad is not None) == b_grad
+    if w_grad:
+        assert torch.equal(tw.grad, dw)
+    if b_grad:
+        assert torch.equal(tb.grad, db)
+
+
+@pytest.mark.parametrize("frozen", [True, False])
+def test_frozen_block_takes_the_dx_only_backward(frozen, monkeypatch):
+    """A ConvNeXt block under ``dw_impl="pallas"``: frozen, as the
+    perceptual loss's trunk (``requires_grad_(False)``), its input gradient
+    comes from the dx-only K11b; with trainable depthwise taps (the fused
+    tail takes frozen parameters only), from the full form."""
+    seen = []
+
+    def spy(x, g, w, ksize=7, dx_only=False, _fn=k_dw.depthwise_bwd):
+        seen.append(dx_only)
+        return _fn(x, g, w, ksize, dx_only=dx_only)
+
+    monkeypatch.setattr(k_dw, "depthwise_bwd", spy)
+    torch.manual_seed(0)
+    block = ConvNeXtBlock(16, torch.float32, dw_impl="pallas")
+    block.requires_grad_(False)
+    block.dwconv.requires_grad_(not frozen)
+    x = torch.randn(2, 9, 9, 16, requires_grad=True)
+    block(x).square().sum().backward()
+    assert seen == [frozen] and x.grad is not None
+    assert (block.dwconv.weight.grad is None) == frozen
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """A tensor off the CPU launches the kernel or raises; on a meta tensor
     (no card here) they raise before any launch."""
@@ -111,10 +181,13 @@ def test_wrappers_never_fall_back_off_the_cpu():
         k_dw.depthwise_fwd(x, w, b)
     with pytest.raises(ValueError, match="unsupported device"):
         k_dw.depthwise_bwd(x, x, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k_dw.depthwise_bwd(x, x, w, dx_only=True)
     with pytest.raises(ValueError, match=r"\(k, k, 16\)"):
         k_dw.depthwise_fwd(torch.zeros(2, 8, 8, 16), torch.zeros(7, 7, 8),
                            torch.zeros(16))
     assert k_dw.launches == 0 and k_dw.bwd_launches == 0
+    assert k_dw.dx_only_launches == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

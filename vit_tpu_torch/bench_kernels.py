@@ -12,11 +12,17 @@ and without, at the serving bs 8), K2, K3 and K4 (at ConvNeXt-S's three
 fused stages: C 96, 192 and 384, the last under the keys "K3" and "K4";
 and as 20 back-to-back calls, "K3 C96 x20" and the like),
 K5, K6 (with statistics),
-K8, K9a, K9b, K9c, K10, K11a, K11b, K12a and K12b, the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
+K8, K9a, K9b, K9c, K10, K12a and K12b, the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
 at rate 0.15) and K6/K8 (rate 0.1), K7 at (2, 12, 513) and K6 on the
 rollout's prefill (513 causal, bs 8 and 1), at ``chip_smoke.py``'s shapes:
 CUDA-event medians of 20 calls after 3, the same seeded inputs in every
-process; then the attention kernels on fp32 operands (``--mixed false``)
+process; K11a and K11b's dx-only and full forms at ConvNeXt-S's four
+stages in bf16 and fp32 beside cuDNN's calls (:func:`time_depthwise`,
+also on the card alone, "dev"), and one perceptual-loss call (loss and
+image gradient) under each ``dw_impl``, its wall time and, profiled, the
+card's busy time and K11's share of it (:func:`perceptual_ms`), and K11's
+mean distances from its plain versions ("k11_mean_rel" in the JSON line,
+:func:`depthwise_mean_rel`); then the attention kernels on fp32 operands (``--mixed false``)
 at ``chip_smoke.py``'s fp32 shapes: K1 and K2 at (64, 320, 12 heads) with
 statistics and at ViT-L's (64, 257, 16 heads) with dropout 0.15, K6 and K8
 at (32, 12, 1024) causal without and with dropout 0.1, K7 at (2, 12, 513)
@@ -87,7 +93,6 @@ def time_kernels() -> dict:
 
     from vit_tpu_torch.kernels import attention as k_attn
     from vit_tpu_torch.kernels import convnext_block as k_cnx
-    from vit_tpu_torch.kernels import depthwise as k_dw
     from vit_tpu_torch.kernels import fc_grad as k_fc
     from vit_tpu_torch.kernels import ln_matmul as k_lnmm
     from vit_tpu_torch.kernels import vq as k_vq
@@ -174,12 +179,7 @@ def time_kernels() -> dict:
         q[:1], k[:1], v[:1], True))
     del q, k, v, do, m, l
 
-    x = r(64, 56, 56, 96).bfloat16()
-    w, b = (r(7, 7, 96) / 7).bfloat16(), r(96).bfloat16()
-    g = r(64, 56, 56, 96).bfloat16()
-    ms["K11a"] = median_ms(lambda: k_dw.depthwise_fwd(x, w, b))
-    ms["K11b"] = median_ms(lambda: k_dw.depthwise_bwd(x, g, w))
-    del x, g
+    ms.update(time_depthwise(r))
 
     x = (3 * r(N_ROWS, 768) + 1).bfloat16()
     w = r(3072, 768, scale=768 ** -0.5).bfloat16()
@@ -193,6 +193,206 @@ def time_kernels() -> dict:
     x3 = r(N_ROWS, 3072).bfloat16()
     ms["K10"] = median_ms(lambda: k_fc.matmul_dw_db(g, x3))
     return ms
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """ms a call of ``fn`` on the card alone (median of 5): the ``calls``
+    launches are queued behind a sleep kernel long enough for the host to
+    queue them all, so the events time the card and none of the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        torch.cuda._sleep(10_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[2]
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """ms of host time a call of ``fn`` takes to return, the launches queued
+    and not waited for (the card catches up after the clock stops)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
+
+
+def time_depthwise(r) -> dict:
+    """{row: ms} of K11a, K11b's dx-only form and its full form at
+    ConvNeXt-S's four stages at bs 64 (``chip_smoke.K11_STAGES``), bf16 and
+    fp32, single calls, 20 back to back ("x20"), on the card alone ("dev",
+    :func:`device_ms`) and the host time of a call ("host", :func:`host_ms`:
+    at the small stages a call is host-bound), with cuDNN's channels-last
+    ``F.conv2d`` and
+    ``aten.convolution_backward`` (output mask [True, False, False] for dx
+    alone, [True, True, True] in full) beside them. A tree whose K11b has
+    no dx-only form times, as its "dx-only" rows, the full form: what its
+    autograd Function launched for a frozen net."""
+    import inspect
+
+    import torch
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.kernels import depthwise as k_dw
+
+    has_dx_only = "dx_only" in inspect.signature(k_dw.depthwise_bwd).parameters
+    ms = {}
+    for stage, shape in enumerate(((64, 56, 56, 96), (64, 28, 28, 192),
+                                   (64, 14, 14, 384), (64, 7, 7, 768))):
+        c = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g = r(*shape).to(dtype), r(*shape).to(dtype)
+            w, b = (r(7, 7, c) / 7).to(dtype), r(c).to(dtype)
+            xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            wc = w.permute(2, 0, 1)[:, None].contiguous()
+            kw = {"dx_only": True} if has_dx_only else {}
+
+            def cudnn_bwd(mask):
+                return lambda: torch.ops.aten.convolution_backward(
+                    gc, xc, wc, [c], [1, 1], [3, 3], [1, 1], False, [0, 0],
+                    c, mask)
+
+            tag = f"s{stage}" + (" fp32" if dtype == torch.float32 else "")
+            calls = {
+                f"K11a {tag}": lambda: k_dw.depthwise_fwd(x, w, b),
+                f"K11b dx-only {tag}": lambda: k_dw.depthwise_bwd(x, g, w,
+                                                                  **kw),
+                f"K11b full {tag}": lambda: k_dw.depthwise_bwd(x, g, w),
+                f"cuDNN fwd {tag}": lambda: F.conv2d(xc, wc, b, padding=3,
+                                                     groups=c),
+                f"cuDNN dx-only {tag}": cudnn_bwd([True, False, False]),
+                f"cuDNN full {tag}": cudnn_bwd([True, True, True])}
+            for name, fn in calls.items():
+                ms[name] = median_ms(fn)
+                ms[name + " x20"] = batched_ms(fn)
+                ms[name + " dev"] = device_ms(fn)
+                ms[name + " host"] = host_ms(fn)
+            del x, g, xc, gc
+            torch.cuda.empty_cache()
+    return ms
+
+
+def depthwise_mean_rel() -> dict:
+    """{"shape dtype": {output: mean |Δ| / mean |plain|, in fp32}} of the
+    tree's K11a (y) and full K11b (dx, dw, db) against their plain versions
+    at ConvNeXt-S's four stages at bs 64 and (3, 13, 37, 40), fp32 then
+    bf16, x, g, w and b drawn in that order from one seed-0 generator: on
+    the parent, the readings ``chip_smoke.K11_MEAN_REL`` (fp32 y and dx)
+    and ``K11_DW_MEAN_REL`` (dw and db) are 10× the largest of."""
+    import torch
+
+    from vit_tpu_torch.kernels import depthwise as k_dw
+
+    def rel(out, ref):
+        return ((out.float() - ref.float()).abs().mean()
+                / ref.float().abs().mean()).item()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for shape in ((64, 56, 56, 96), (64, 28, 28, 192), (64, 14, 14, 384),
+                  (64, 7, 7, 768), (3, 13, 37, 40)):
+        c = shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(7, 7, c, device="cuda", generator=gen)
+                 / 7).to(dtype)
+            b = torch.randn(c, device="cuda", generator=gen).to(dtype)
+            got = (k_dw.depthwise_fwd(x, w, b), *k_dw.depthwise_bwd(x, g, w))
+            ref = (k_dw.depthwise_fwd_ref(x, w, b),
+                   *k_dw.depthwise_bwd_ref(x, g, w))
+            out[f"{shape} {str(dtype)[6:]}"] = dict(zip(
+                ("y", "dx", "dw", "db"), map(rel, got, ref)))
+            del x, g, got, ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def device_spans(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (which ends synchronised):
+    the card's busy time (the union of its kernels' intervals) and the time
+    of the kernels whose name holds "depthwise", in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, depthwise, end = 0.0, 0.0, float("-inf")
+    for start, stop, name in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+        if "depthwise" in name:
+            depthwise += stop - start
+    return dict(busy=busy / 1e3, depthwise=depthwise / 1e3)
+
+
+def perceptual_ms() -> dict:
+    """ms a call of the perceptual loss and its image gradient, set up as
+    ``chip_smoke.py``'s perceptual phase sets up its arms (ConvNeXt-S in
+    bf16 with the flagship's weights, γ drawn around 0.5, bs 64 pairs at
+    image 128), under ``dw_impl`` "lax" and "pallas", quant "none":
+    host-clock median of 10 synchronised calls after 2; then, as
+    "perceptual <impl> busy" and "... depthwise", the medians over three
+    profiled calls of the card's busy time and of the time of its kernels
+    named "depthwise" (:func:`device_spans`: under "pallas" K11a and K11b)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+
+    net = cs.ConvNeXt(dtype=torch.bfloat16)
+    cs.init_convnext_(net, torch.Generator().manual_seed(1))
+    state = net.state_dict()
+    gen = torch.Generator().manual_seed(5)
+    for k in state:
+        if k.endswith(".gamma"):
+            state[k] = 0.5 + 0.1 * torch.randn(state[k].shape, generator=gen)
+    rng = np.random.default_rng(3)
+    x, y = (torch.from_numpy(rng.uniform(0, 1, (64, 128, 128, 3)).astype(
+        np.float32)).cuda() for _ in range(2))
+    out = {}
+    for impl in ("lax", "pallas"):
+        net = cs.ConvNeXt(dtype=torch.bfloat16, dw_impl=impl)
+        net.load_state_dict(state)
+        loss_fn = cs.PerceptualLoss(net).cuda()
+        xg = x.clone().requires_grad_()
+
+        def call():
+            loss = loss_fn(xg, y)
+            torch.autograd.grad(loss, xg)
+            torch.cuda.synchronize()
+
+        out[f"perceptual {impl}"] = cs.host_median_ms(call, 10)
+        spans = [device_spans(call) for _ in range(3)]
+        for key in ("busy", "depthwise"):
+            out[f"perceptual {impl} {key}"] = sorted(
+                s[key] for s in spans)[1]
+        del net, loss_fn, xg
+        torch.cuda.empty_cache()
+    return out
 
 
 def exact_attention_fwd(q, k, v, causal: bool, dropout_rate: float = 0.0,
@@ -436,6 +636,9 @@ def worker(root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     ms = time_kernels()
     torch.cuda.empty_cache()
+    ms.update(perceptual_ms())
+    torch.cuda.empty_cache()
+    k11_rel = depthwise_mean_rel()
     fp32_ms, fwd_rel = time_fp32_kernels()
     ms.update(fp32_ms)
     torch.cuda.empty_cache()
@@ -448,8 +651,8 @@ def worker(root: str) -> None:
                      ("TiTok-B fp32 step", lambda: titok_step_ms("float32"))):
         ms[name] = fn()
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": root, "ms": ms, "fwd_mean_rel": fwd_rel}),
-          flush=True)
+    print(json.dumps({"tree": root, "ms": ms, "fwd_mean_rel": fwd_rel,
+                      "k11_mean_rel": k11_rel}), flush=True)
 
 
 def card() -> str:
@@ -485,11 +688,12 @@ def main(argv=None) -> list:
         print(json.dumps(turn), flush=True)
     name = card()
     print(f"card: {name}")
-    kernels = list(turns[0]["ms"])
+    kernels = list(dict.fromkeys(k for t in turns for k in t["ms"]))
     print("kernel                  " + "  ".join(
         f"{t['arg']}#{t['turn']}" for t in turns))
     for k in kernels:
-        print(f"{k:22s}  " + "  ".join(f"{t['ms'][k]:.3f}" for t in turns))
+        print(f"{k:22s}  " + "  ".join(
+            f"{t['ms'][k]:.3f}" if k in t["ms"] else "-" for t in turns))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": name, "turns": turns},

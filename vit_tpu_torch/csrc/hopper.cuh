@@ -2,9 +2,10 @@
 // TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
 // (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate) that
 // the attention kernels (K6, K7/K8 and their packed forms K1, K2; their
-// fp32 forms through fp32-accurate products of three bf16 parts)
-// and the ConvNeXt block tail (K3, K4) are built from, and the host side of
-// their tensor maps.
+// fp32 forms through fp32-accurate products of three bf16 parts), the
+// ConvNeXt block tail (K3, K4) and the depthwise convolution (K11a, K11b:
+// halo tiles in, output tiles out by TMA) are built from, and the host side
+// of their tensor maps.
 //
 // Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
 // row) and lands in shared memory through a tensor map built with
@@ -183,6 +184,34 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, written from shared memory at `src` as a bulk async group; elements
+// outside the tensor are not written. The threads that wrote `src` fence
+// their writes (fence_proxy_async) and synchronise before one thread issues
+// it, then commits the group (bulk_commit).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed bulk groups are still
+// reading their shared memory (bulk_wait_read) or still running (bulk_wait).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's generic-proxy writes to shared memory before later

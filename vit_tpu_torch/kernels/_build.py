@@ -36,6 +36,8 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
   fc_grad.cu               K10  fc_grad.py:145 (_fc_grad_kernel :74)
   depthwise.cu             K11a depthwise.py:44 (_dw_kernel :24)
                            K11b depthwise.py:124 (_dw_bwd_kernel :77)
+                                (on hopper.cuh: TMA halo tiles in, output
+                                tiles out; a dx-only form)
   convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
                            K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
   convnext_tail_f32.cu     K3, K4 on fp32 rows
@@ -193,12 +195,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # depthwise_fwd(x, w, b, y, N, H, W, C, is_bf16, stream)
     lib.depthwise_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.depthwise_fwd.restype = i32
-    # depthwise_bwd_parts(N, H, W) → partial rows of depthwise_bwd's scratch
-    lib.depthwise_bwd_parts.argtypes = [i32] * 3
-    lib.depthwise_bwd_parts.restype = i32
-    # depthwise_bwd(x, g, wf, dx, part, dw, db, N, H, W, C, is_bf16, stream)
-    lib.depthwise_bwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    # depthwise_bwd(x, g, w, dx, part, dw, db, N, H, W, C, is_bf16,
+    #               part_rows, stream): x null for the dx-only form
+    lib.depthwise_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.depthwise_bwd.restype = i32
+    # depthwise_plan(N, H, W, C, is_bf16, form, out): the tile plan of form
+    # 0 (K11a), 1 (the dx-only K11b) or 2 (the full one) into out[9]
+    lib.depthwise_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    lib.depthwise_plan.restype = i32
     # ln_matmul_fwd(x, w, b, z, zpre, xhat, N, C, F, gelu, stream)
     lib.ln_matmul_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.ln_matmul_fwd.restype = i32
