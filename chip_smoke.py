@@ -56,9 +56,11 @@ false``. Phases, one JSON line each:
                 figures, shared memory and blocks per SM of their kernels;
                 K9a and K9c within ``LN_MEAN_REL`` of mean |plain|, which a
                 control (the LayerNorm statistics rounded to bf16) must
-                fail, and K12a and K12b within ``Q8_MEAN_REL``, which a
-                control (one per-tensor activation scale for the per-row
-                ones) must fail; K11a and K11b (its dx-only form and its
+                fail (K9c timed single, 20 back to back and on the card
+                alone beside the library's LayerNorm backward), and K12a
+                and K12b within ``Q8_MEAN_REL``, which a control (one
+                per-tensor activation scale for the per-row ones) must
+                fail; K11a and K11b (its dx-only form and its
                 full one) at ConvNeXt-S's four stages at bs 64 and a ragged
                 shape, fp32 and bf16: within one bf16 ulp, fp32 within
                 ``K11_MEAN_REL``, dw and db within ``K11_DW_MEAN_REL``
@@ -81,21 +83,23 @@ false``. Phases, one JSON line each:
                 max within K12_REL: int8 levels), at the fp32 paths' shapes,
                 the dropout arms included; K9a, K9c and K12 within their
                 mean limits as in the kernel phase; the fp32 attention
-                (K1, K6 forward and K2, K7/K8 backward: products of three
-                bf16 parts on the tensor cores) also within
+                (K1, K6 forward and K2, K7/K8 backward) and K3 (products of
+                three bf16 parts on the tensor cores) also within
                 ``F32_FWD_MEAN_REL`` of the float64 forward's mean |o|,
-                |m| and |l| and ``F32_BWD_MEAN_REL`` of the plain
-                backward's mean |plain|, which controls (the operands
-                rounded to two parts) must fail, the pre-splits (three
-                operands forward, four backward) bit for bit and timed
-                alone, the ptxas figures and the bounds at the split
-                products' rate (six bf16 products an fp32 one) beside P's;
-                a TF32 control (the plain version
+                |m| and |l|, ``F32_BWD_MEAN_REL`` of the plain backward's
+                mean |plain| and ``F32_TAIL_MEAN_REL`` of the float64
+                tail's mean |y| at each fused width, which controls (the
+                operands rounded to two parts) must fail, the pre-splits
+                (three operands forward, four backward, K3's weights) bit
+                for bit and timed alone, the ptxas figures and the bounds
+                at the split products' rate (six bf16 products an fp32 one)
+                beside P's; a TF32 control (the plain version
                 with TF32 on in the form's place) that must fail that limit
-                for K1, K2, K3, K6, K9a and K10; each SIMT fp32 form (K3,
-                K4, K9a, K10 and the fp32 rows of K9b, K9c, K12a, K12b)
-                also within its own ``SIMT_F32_MEAN_REL``, which its
-                control (TF32, or operands rounded to bf16) must fail;
+                for K1, K2, K3, K6, K9a and K10; each form that was SIMT
+                fp32 (K3, K4, K9a, K10 and the fp32 rows of K9b, K9c,
+                K12a, K12b) also within its own ``SIMT_F32_MEAN_REL``,
+                which its control (TF32, or operands rounded to bf16) must
+                fail;
                 times, bounds over P's fp32 rate and library times (SDPA on
                 fp32 tensors, ``F.linear``, fp32 ``torch.mm``,
                 ``aten.native_layer_norm_backward``); mask probes whose kept counts, recovered from
@@ -227,7 +231,11 @@ if not (ROOT / "vit_tpu_torch" / "__init__.py").exists():
 sys.path.insert(0, str(ROOT))
 
 from vit_tpu_torch.bench_kernels import batched_ms  # noqa: E402
+from vit_tpu_torch.bench_kernels import device_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_attention_fwd  # noqa: E402
+from vit_tpu_torch.bench_kernels import exact_tail_fwd  # noqa: E402
+from vit_tpu_torch.bench_kernels import mean_rel  # noqa: E402
+from vit_tpu_torch.bench_kernels import two_part_tail_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_parts  # noqa: E402
 from vit_tpu_torch.kernels import _build  # noqa: E402
 from vit_tpu_torch.kernels import attention as k_attn  # noqa: E402
@@ -457,6 +465,17 @@ F32_BWD_MEAN_REL = 3.5e-6
 # two_part_fwd_control (the plain forward on q, k and v rounded to 16-bit
 # significands), reads 1.1e-6 to 4.1e-6 there and must fail it.
 F32_FWD_MEAN_REL = 3.33e-7
+# K3's fp32 form (three bf16 parts, six wgmma products an fp32 product)
+# against the float64 tail (bench_kernels.exact_tail_fwd), mean |Δ| over
+# mean |exact|, read on an H100 by this script's fp32 phase at ConvNeXt-S's
+# three fused stages: 5.10e-8 (C 96) to 5.65e-8 (C 384). 10× the largest.
+# Against the plain fp32 tail it is held to SIMT_F32_MEAN_REL["K3"] as
+# well, but that limit cannot tell a split that lost its third part: the
+# two-part control (bench_kernels.two_part_tail_fwd: u, a and the weights
+# rounded to x0 + x1) reads below it against the plain tail
+# ("two_part_control_plain" in this script's fp32 phase). Against float64
+# it reads 1.21e-6 to 1.23e-6 and must fail this limit.
+F32_TAIL_MEAN_REL = 5.65e-7
 # K9a and K9c against their plain versions, mean |Δ| over mean |plain|:
 # ulp flips of the bf16 outputs (the fp32 forms: sums in another order),
 # read on an H100 by this script at 0 to 2.52e-6 (K9a's z at (130, 768 →
@@ -1239,15 +1258,18 @@ def rounded_tail_control(fwd_args, bwd_args) -> dict:
 def tail_build() -> dict:
     """ptxas's report, the dynamic shared memory and the blocks an SM holds
     (228 KB of shared memory an SM, 1 KB of it reserved a block) of K3's
-    and K4's kernels at each width."""
+    and K4's kernels at each width: ``convnext_tail_fwd_kernel<C, kParts>``
+    (kParts 3: K3's fp32 form) and ``convnext_tail_bwd_kernel<C>``."""
     lib = _build.load()
     out = {}
     for name, report in measured.get("ptxas", {}).items():
-        base, _, width = name.partition("<")
+        base = name.partition("<")[0]
         if base not in ("convnext_tail_fwd_kernel", "convnext_tail_bwd_kernel"):
             continue
-        smem = lib.convnext_tail_smem(int(width.rstrip(">")),
-                                      int(base == "convnext_tail_bwd_kernel"))
+        args = template_args(name)
+        smem = lib.convnext_tail_smem(int(args[0]),
+                                      int(base == "convnext_tail_bwd_kernel"),
+                                      int(args[1]) if len(args) > 1 else 1)
         out[name] = dict(ptxas=report, dynamic_smem_bytes=smem,
                          blocks_per_sm_by_smem=233472 // (smem + 1024))
     return out
@@ -1318,7 +1340,8 @@ def phase_kernels() -> dict:
                                               3 * rows + weights),
                    "convnext_tail_bwd": bound(24 * n * c * c,
                                               3 * rows + weights)}
-    build = tail_build()
+    build = {k: v for k, v in tail_build().items()
+             if template_args(k)[1:2] != ["3"]}
     for name, t in tails.items():
         emit("kernel", name=name, parity=t["rows"],
              tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
@@ -1871,6 +1894,39 @@ def beyond_one_ulp(out: torch.Tensor, ref: torch.Tensor) -> dict:
                 beyond_one_ulp_no_floor=int((diff > ulp).sum()))
 
 
+# K9c's times beside its single call's: 20 back-to-back calls ("x20") and
+# on the card alone ("dev", bench_kernels.device_ms), its own and the
+# library call's
+LN_BWD_TIMES = ("x20_ms", "dev_ms", "library_x20_ms", "library_dev_ms")
+
+
+def ln_bwd_times(x, g, peak: float) -> dict:
+    """K9c's times at (N, C) = x's shape: its single call, x20 and dev,
+    the plain version's, and those of the library's LayerNorm backward
+    without weight and bias, its saved mean and 1/σ made beforehand (K9c
+    recomputes them); its bound (x and g read, dx written; ~10 fp32 FLOP
+    an element over ``peak``)."""
+    n, c = x.shape
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [c], None, None,
+                                                     k_lnmm.EPS)
+
+    def kernel():
+        k_lnmm.ln_bwd(x, g)
+
+    def library():
+        torch.ops.aten.native_layer_norm_backward(
+            g, x, [c], mean, rstd, None, None, [True, False, False])
+
+    return dict(ms=median_ms(kernel), x20_ms=batched_ms(kernel),
+                dev_ms=device_ms(kernel),
+                plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
+                library_ms=median_ms(library),
+                library_x20_ms=batched_ms(library),
+                library_dev_ms=device_ms(library),
+                bound=bound(10 * n * c, 3 * x.element_size() * n * c,
+                            peak=peak))
+
+
 def fused_kernels(gen) -> dict:
     """K9a, K9b, K9c and K10 against their plain versions at the fused
     train step's shapes (N 20480 rows: bs 64 · S 320) and edge shapes, then
@@ -1991,27 +2047,21 @@ def fused_kernels(gen) -> dict:
         if n == N_ROWS:
             # The library's LayerNorm backward without weight and bias, its
             # saved mean and 1/σ made beforehand (K9c recomputes them).
-            _, mean, rstd = torch.ops.aten.native_layer_norm(
-                x, [c], None, None, k_lnmm.EPS)
-            k9c = dict(ms=median_ms(lambda: k_lnmm.ln_bwd(x, g)),
-                       plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
-                       library_ms=median_ms(
-                           lambda: torch.ops.aten.native_layer_norm_backward(
-                               g, x, [c], mean, rstd, None, None,
-                               [True, False, False])),
-                       bound=bound(10 * n * c, 3 * 2 * n * c,
-                                   peak=fp32_peak()))
+            k9c = ln_bwd_times(x, g, fp32_peak())
     emit("kernel", name="ln_bwd", parity=k9c_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
                         ln_mean_rel=LN_MEAN_REL),
          mean_limit_control="with ln_matmul_fwd's",
          library="aten.native_layer_norm_backward (no weight, no bias)",
-         shape="(20480, 768) bf16", **k9c)
+         shape="(20480, 768) bf16",
+         build={k: v for k, v in measured.get("ptxas", {}).items()
+                if k.startswith("ln_bwd_kernel<")}, **k9c)
     summary["ln_bwd"] = dict(
         max_abs_err=k9c_max, ms=k9c["ms"], plain_ms=k9c["plain_ms"],
         bound_ms=k9c["bound"]["bound_ms"], bound_by=k9c["bound"]["bound_by"],
         library_ms=k9c["library_ms"],
-        library="aten.native_layer_norm_backward (no weight, no bias)")
+        library="aten.native_layer_norm_backward (no weight, no bias)",
+        **{k: k9c[k] for k in LN_BWD_TIMES})
 
     # K10: fc2 (g 768 wide, x 3072), fc1 (g 3072, x 768), a ragged N. The
     # plain version is an fp32 product (TF32 off), the kernel's sums run in
@@ -2470,6 +2520,53 @@ def fp32_check(name: str, out, ref, tol: float = FP32_REL,
     return row
 
 
+def k3_f32_width(args, y, peak: float) -> dict:
+    """K3's fp32 form at one width beyond its check against the plain
+    version: its mean distance from the float64 tail
+    (``bench_kernels.exact_tail_fwd``) within F32_TAIL_MEAN_REL, with the
+    two-part control (u, a and the weights rounded to x0 + x1) that must
+    fail it; its single-call, x20 and dev times; its bound at the split
+    rate and at P's fp32 rate; and the weights' pre-split alone
+    (``split_weights``), bit for bit against its plain version, timed,
+    with its bound (each fp32 weight read once, its three bf16 parts
+    written once)."""
+    h, x, lns, lnb, w1, b1, w2, b2, gamma, eps = args
+    n, c = h.shape
+    exact = exact_tail_fwd(*args)
+    two = two_part_tail_fwd(*args)
+    # the control against the plain tail too, where SIMT_F32_MEAN_REL["K3"]
+    # holds the kernel: recorded, not required to fail that limit
+    row = dict(mean_rel_exact=mean_rel(y, exact),
+               two_part_control=mean_rel(two, exact),
+               two_part_control_plain=mean_rel(
+                   two, k_cnx.convnext_tail_fwd_ref(*args)))
+    require(row["mean_rel_exact"] <= F32_TAIL_MEAN_REL,
+            f"K3 fp32 at C {c} is off the float64 tail: {row}")
+    require(row["two_part_control"] > F32_TAIL_MEAN_REL,
+            f"K3's two-part control passes its mean limit at C {c}: {row}")
+    del exact, two
+
+    def kernel():
+        k_cnx.convnext_tail_fwd(*args)
+
+    parts = k_cnx.split_weights(w1, w2)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(parts, k_cnx.split_weights_ref(w1, w2)))
+    require(equal, f"K3's pre-split differs from its plain version at C {c}")
+    # h and x read, y written, the fp32 parameters read once
+    nbytes = 3 * n * c * 4 + 4 * (8 * c * c + 6 * c)
+    row.update(ms=median_ms(kernel), x20_ms=batched_ms(kernel),
+               dev_ms=device_ms(kernel),
+               bound=bound(16 * n * c * c, nbytes, peak=PEAK_SPLIT_FLOPS),
+               fp32_rate_bound=bound(16 * n * c * c, nbytes, peak=peak),
+               split=dict(bit_equal=equal,
+                          ms=median_ms(lambda: k_cnx.split_weights(w1, w2)),
+                          dev_ms=device_ms(lambda: k_cnx.split_weights(w1,
+                                                                       w2)),
+                          bound=bound(0.0, 8 * c * c * (4 + 6))))
+    return row
+
+
 def f32_bwd_check(name: str, out, ref) -> dict:
     """fp32_check of the fp32 backward: FP32_REL on the max, the tighter
     F32_BWD_MEAN_REL on the mean."""
@@ -2882,6 +2979,8 @@ def fp32_kernels(gen) -> dict:
                     bf16_operand_control(form, plain, args, ref, limit)
                     if name.endswith("q8") else
                     tf32_control(form, lambda: plain(*args), ref, limit))
+            if name == "convnext_tail_fwd":
+                row.update(k3_f32_width(args, out, peak))
             t = tails.setdefault(name, dict(rows=[], max=0.0))
             t["rows"].append(row)
             if c == 384:
@@ -2894,7 +2993,9 @@ def fp32_kernels(gen) -> dict:
     rows_b = 3 * n * c * 4
     w_b = 2 * 4 * c * c * 4 + 4 * (6 * c)
     tail_bounds = {
-        "convnext_tail_fwd": bound(16 * n * c * c, rows_b + w_b, peak=peak),
+        # six bf16 wgmma products an fp32 one: at the split rate (P's fp32
+        # rate beside it, k3_f32_width)
+        "convnext_tail_fwd": tails["convnext_tail_fwd"]["row"]["bound"],
         "convnext_tail_bwd": bound(24 * n * c * c, rows_b + w_b, peak=peak),
         "convnext_tail_fwd_q8": bound(16 * n * c * c,
                                       rows_b + 2 * 4 * c * c
@@ -2902,19 +3003,43 @@ def fp32_kernels(gen) -> dict:
         "convnext_tail_bwd_q8": bound(24 * n * c * c,
                                       rows_b + 3 * 4 * c * c
                                       + 4 * (8 * c + c), peak=PEAK_INT8_OPS)}
+    k3_build = {k: v for k, v in tail_build().items()
+                if template_args(k)[1:2] == ["3"]}
     for name, t in tails.items():
+        k3 = name == "convnext_tail_fwd"
         emit("fp32_kernels", name=name, parity=t["rows"], ms_C384=t["ms"],
              plain_ms_C384=t["plain_ms"], bound_C384=tail_bounds[name],
              tolerance=dict(max_rel=K12_REL if name.endswith("q8")
                             else FP32_REL, mean_rel=FP32_REL,
                             simt_mean_rel=SIMT_F32_MEAN_REL[TAIL_FORMS[name]],
                             **({"q8_mean_rel": Q8_MEAN_REL}
-                               if name.endswith("q8") else {})),
-             mean_limit_control=controls[TAIL_FORMS[name]])
+                               if name.endswith("q8") else {}),
+                            **({"mean_rel_exact": F32_TAIL_MEAN_REL}
+                               if k3 else {})),
+             mean_limit_control=controls[TAIL_FORMS[name]],
+             **({"build": k3_build} if k3 else {}))
+        more = {}
+        if k3:
+            rows = {r["C"]: r for r in t["rows"]}
+            more = dict(
+                ms_by_C={c: r["ms"] for c, r in rows.items()},
+                x20_ms_by_C={c: r["x20_ms"] for c, r in rows.items()},
+                dev_ms_by_C={c: r["dev_ms"] for c, r in rows.items()},
+                bound_ms_by_C={c: r["bound"]["bound_ms"]
+                               for c, r in rows.items()},
+                fp32_rate_bound_ms_by_C={
+                    c: r["fp32_rate_bound"]["bound_ms"]
+                    for c, r in rows.items()},
+                split_ms_by_C={c: r["split"]["ms"] for c, r in rows.items()},
+                split_bound_ms_by_C={c: r["split"]["bound"]["bound_ms"]
+                                     for c, r in rows.items()},
+                mean_rel_exact_by_C={c: r["mean_rel_exact"]
+                                     for c, r in rows.items()},
+                ptxas={k: v["ptxas"] for k, v in k3_build.items()})
         entry(name, t["row"], t["ms"], t["plain_ms"], tail_bounds[name], None,
               "N 12544, C 384 fp32 rows",
               mean_limit=SIMT_F32_MEAN_REL[TAIL_FORMS[name]],
-              mean_rel_max=max(r["mean_rel"] for r in t["rows"]))
+              mean_rel_max=max(r["mean_rel"] for r in t["rows"]), **more)
 
     # K9a: fc1 (20480, 768 → 3072) with bias, GELU, zpre and x̂, and qkv
     # (→ 2304) plain; K9b (20480, 3072); K9c (20480, 768); K10 fc2.
@@ -2975,28 +3100,19 @@ def fp32_kernels(gen) -> dict:
     ref = k_lnmm.ln_bwd_ref(x, g)
     controls["K9c"] = bf16_operand_control("K9c", k_lnmm.ln_bwd_ref, (x, g),
                                            ref, SIMT_F32_MEAN_REL["K9c"])
-    # The library's LayerNorm backward on the same fp32 tensors, without
-    # weight and bias, its saved mean and 1/σ made beforehand (K9c
-    # recomputes them), as the bf16 row's
-    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [768], None, None,
-                                                     k_lnmm.EPS)
+    # The library's LayerNorm backward on the same fp32 tensors, as the
+    # bf16 row's
     k9c = dict(parity=fp32_check("K9c", out, ref, mean_tol=min(
                    FP32_REL, LN_MEAN_REL, SIMT_F32_MEAN_REL["K9c"])),
-               ms=median_ms(lambda: k_lnmm.ln_bwd(x, g)),
-               plain_ms=median_ms(lambda: k_lnmm.ln_bwd_ref(x, g)),
-               library_ms=median_ms(
-                   lambda: torch.ops.aten.native_layer_norm_backward(
-                       g, x, [768], mean, rstd, None, None,
-                       [True, False, False])),
-               bound=bound(10 * N_ROWS * 768, 3 * 4 * N_ROWS * 768,
-                           peak=peak))
+               **ln_bwd_times(x, g, peak))
     emit("fp32_kernels", name="ln_bwd", **k9c,
          library="aten.native_layer_norm_backward on fp32 (no weight, no "
                  "bias; mean and 1/σ given)")
     entry("ln_bwd", k9c["parity"], k9c["ms"], k9c["plain_ms"], k9c["bound"],
           k9c["library_ms"], "(20480, 768) fp32",
-          mean_limit=SIMT_F32_MEAN_REL["K9c"])
-    del x, g, out, ref, mean, rstd
+          mean_limit=SIMT_F32_MEAN_REL["K9c"],
+          **{k: k9c[k] for k in LN_BWD_TIMES})
+    del x, g, out, ref
     g, x = r(N_ROWS, 768), r(N_ROWS, 3072)
     dw, db = k_fc.matmul_dw_db(g, x)
     dw2, db2 = k_fc.matmul_dw_db(g, x)

@@ -5,6 +5,9 @@ JAX package's Pallas kernels in interpret mode and their ``jax.vjp``; the
 gates that switch them on; and a tiny transformer with them on, against the
 JAX transformer with the same switches."""
 
+import ast
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +31,22 @@ C, F = 128, 384
 FWD_TOL = 1e-5    # fp32 on both sides: only the summation order differs
 GRAD_TOL = 1e-4   # gradients sum N more products
 MODEL_TOL = 1e-3  # the repo's fp32 golden contract
+
+
+def _smoke_limits(name: str):
+    """A tuple or dict of limits of chip_smoke.py (``a, b = 1, 2`` or a
+    dict literal), read from its source as ``smoke_constant`` reads one."""
+    tree = ast.parse((Path(__file__).resolve().parents[1]
+                      / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign):
+            target = node.targets[0]
+            names = [getattr(t, "id", None)
+                     for t in getattr(target, "elts", [target])]
+            if name in names:
+                value = ast.literal_eval(node.value)
+                return value[names.index(name)] if len(names) > 1 else value
+    raise KeyError(name)
 
 
 def _rng_arrays(seed, *shapes, scale=1.0):
@@ -141,6 +160,64 @@ def test_ln_bwd_matches_pallas(dtype):
     xj, xt = _as(x, dtype)
     gj, gt = _as(g, dtype)
     _assert_close(k_lnmm.ln_bwd(xt, gt), jax_lnmm._ln_bwd_impl(xj, gj), dtype)
+
+
+def _ln_bwd_paired(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K9c's arithmetic (csrc/ln_bwd.cu) in plain torch: x and g in fp32,
+    two rounds of paired sums, (Σx, Σg) and then (Σd², Σg·d) with d = x − μ;
+    rstd = rsqrt(Σd²/C + eps), c1 = Σg/C, c2 = rstd·Σg·d/C, and dx =
+    rstd·(g − c1 − d·rstd·c2) rounded once to x's dtype."""
+    x32, g32 = x.float(), g.float()
+    c = x.shape[-1]
+    mu = x32.sum(-1, keepdim=True) / c
+    c1 = g32.sum(-1, keepdim=True) / c
+    d = x32 - mu
+    rstd = torch.rsqrt((d * d).sum(-1, keepdim=True) / c + k_lnmm.EPS)
+    c2 = rstd * (g32 * d).sum(-1, keepdim=True) / c
+    return (rstd * (g32 - c1 - (d * rstd) * c2)).to(x.dtype)
+
+
+def _max_rel(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((out.double() - ref.double()).abs().max()
+            / ref.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# 384: a bf16 row ends with an 8-byte step; 1024: the widest; 77 ragged
+@pytest.mark.parametrize("n,c", [(77, 384), (20, 1024)])
+def test_ln_bwd_paired_sums_match_pallas(n, c, dtype):
+    """K9c's two rounds of paired sums against ``_ln_bwd_impl`` within the
+    limits chip_smoke.py holds the kernel to: bf16 BWD_MAX_REL of max |ref|
+    and BWD_MEAN_REL and LN_MEAN_REL of mean |ref|; fp32 FP32_REL on both
+    and SIMT_F32_MEAN_REL["K9c"] on the mean."""
+    x, g = _rng_arrays(n + c, (n, c), (n, c))
+    x = 2.0 * x + 0.5
+    xj, xt = _as(x, dtype)
+    gj, gt = _as(g, dtype)
+    got = _ln_bwd_paired(xt, gt)
+    ref = torch.from_numpy(_np(jax_lnmm._ln_bwd_impl(xj, gj)))
+    if dtype == "float32":
+        max_tol = smoke_constant("FP32_REL")
+        mean_tol = min(max_tol, _smoke_limits("SIMT_F32_MEAN_REL")["K9c"])
+    else:
+        max_tol = _smoke_limits("BWD_MAX_REL")
+        mean_tol = min(_smoke_limits("BWD_MEAN_REL"),
+                       smoke_constant("LN_MEAN_REL"))
+    assert _max_rel(got, ref) <= max_tol
+    assert _mean_rel(got, ref) <= mean_tol
+
+
+@pytest.mark.parametrize("c", [200, 1152])
+def test_ln_bwd_refuses_a_width_it_is_not_built_for(c):
+    """A width that is not a multiple of 128 up to 1024 has no kernel: the
+    wrapper raises before it looks for a device, and launches nothing; a
+    CPU tensor of that width still runs the plain version."""
+    meta = torch.empty(10, c, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="multiple of 128 up to 1024"):
+        k_lnmm.ln_bwd(meta, meta)
+    assert k_lnmm.ln_bwd_launches == 0
+    x, g = (torch.from_numpy(a) for a in _rng_arrays(c, (10, c), (10, c)))
+    assert torch.equal(k_lnmm.ln_bwd(x, g), k_lnmm.ln_bwd_ref(x, g))
 
 
 def _mean_rel(out: torch.Tensor, ref: torch.Tensor) -> float:

@@ -1,17 +1,24 @@
-"""The fp32 attention kernels' split products (``--mixed false``): the
-port's plain split of an fp32 value into three bf16 parts reassembles it
-exactly; plain emulations of the kernels' arithmetic (every product the
-six bf16 products A_i·B_j, i + j <= 2, small terms first, summed in fp32)
-hold the JAX package's fp32 kernels at Precision.HIGHEST within 1e-5: the
-forward's (scores taken alike in both passes, each 64-key tile's P·V in a
-fresh accumulator, p split whole, 1/l once at the end) against the packed
-forward with its statistics and the unpacked one, the backward's (1/l
-folded into dv's A operand) against ``jax.vjp`` of the packed attention.
-The forward's emulation also holds the float64 forward within
+"""The fp32 kernels' split products (``--mixed false``): the attention
+kernels and the ConvNeXt tail's forward (K3). The port's plain split of an
+fp32 value into three bf16 parts reassembles it exactly; plain emulations
+of the kernels' arithmetic (every product the six bf16 products A_i·B_j,
+i + j <= 2, small terms first, summed in fp32) hold the JAX package's fp32
+kernels at Precision.HIGHEST within 1e-5: the forward's (scores taken
+alike in both passes, each 64-key tile's P·V in a fresh accumulator, p
+split whole, 1/l once at the end) against the packed forward with its
+statistics and the unpacked one, the backward's (1/l folded into dv's A
+operand) against ``jax.vjp`` of the packed attention, K3's (each 64-wide
+tile's product in a fresh accumulator) against the Pallas tail. The
+forward's emulation also holds the float64 forward within
 ``chip_smoke.F32_FWD_MEAN_REL``, the backward's the port's plain fp32
-backward within ``chip_smoke.F32_BWD_MEAN_REL``; and a split that lost its
-third part (the operands rounded to x0 + x1) exceeds each mean limit, so
-the limits tell the two apart."""
+backward within ``chip_smoke.F32_BWD_MEAN_REL``, K3's the plain fp32 tail
+within ``chip_smoke.SIMT_F32_MEAN_REL["K3"]`` and the float64 tail within
+``chip_smoke.F32_TAIL_MEAN_REL``; and a split that lost its third part (the
+operands rounded to x0 + x1) exceeds each mean limit held against float64
+or the plain backward, so the limits tell the two apart."""
+
+import ast
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,16 +26,30 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import smoke_constant
+from torch_port_helpers import smoke_constant, tail_inputs
 from vit_tpu.kernels.attention import _packed_fwd_impl
 from vit_tpu.kernels.attention import flash_attention as jax_unpacked
 from vit_tpu.kernels.attention import flash_attention_packed as jax_packed
-from vit_tpu_torch.bench_kernels import exact_attention_fwd, two_parts
+from vit_tpu.kernels.convnext_block import \
+    frozen_convnext_block_tail as jax_tail
+from vit_tpu_torch.bench_kernels import (exact_attention_fwd,
+                                         exact_tail_fwd, two_part_tail_fwd,
+                                         two_parts)
 from vit_tpu_torch.kernels import attention as k_attn
+from vit_tpu_torch.kernels import convnext_block as k_cnx
+from vit_tpu_torch.ops.gelu import tanh_erf_gelu
 
 FP32_REL = 1e-5   # the fp32 forms' limit on max and mean |Δ| / |reference|
 F32_BWD_MEAN_REL = smoke_constant("F32_BWD_MEAN_REL")
 F32_FWD_MEAN_REL = smoke_constant("F32_FWD_MEAN_REL")
+# the SIMT form's mean limit, which K3's fp32 form is held to as well
+K3_F32_MEAN_REL = next(
+    ast.literal_eval(node.value)["K3"]
+    for node in ast.parse((Path(__file__).resolve().parents[1]
+                           / "chip_smoke.py").read_text()).body
+    if isinstance(node, ast.Assign)
+    and getattr(node.targets[0], "id", None) == "SIMT_F32_MEAN_REL")
+F32_TAIL_MEAN_REL = smoke_constant("F32_TAIL_MEAN_REL")
 # (A part, B part) of the six products, small terms first (hopper.cuh)
 TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
@@ -61,6 +82,22 @@ def test_split_parts_ref_lays_out_the_biased_operands():
     for i, x in enumerate((q + bq, k + bk, v + bv, do)):
         assert torch.equal(parts[i].float().sum(-2), x)
         assert torch.equal(parts[i][..., 0, :], x.bfloat16())
+
+
+def test_split_weights_ref_lays_out_both_weights():
+    """K3 fp32's pre-split, plain: (2, 3, 4C·C) bf16, W1's parts then W2's,
+    each reassembling its weight exactly, the first part bf16(w); the
+    wrapper of the CUDA pass refuses a CPU tensor."""
+    g = torch.Generator().manual_seed(0)
+    w1, w2 = torch.randn(384, 96, generator=g), torch.randn(96, 384,
+                                                           generator=g)
+    parts = k_cnx.split_weights_ref(w1, w2)
+    assert parts.shape == (2, 3, 4 * 96 * 96)
+    for i, w in enumerate((w1, w2)):
+        assert torch.equal(parts[i].float().sum(0), w.reshape(-1))
+        assert torch.equal(parts[i, 0], w.reshape(-1).bfloat16())
+    with pytest.raises(ValueError, match="unsupported device"):
+        k_cnx.split_weights(w1, w2)
 
 
 def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -245,3 +282,79 @@ def test_two_part_control_exceeds_the_mean_limit(s, causal):
     refs = k_attn.attention_bwd_ref(q, k, v, do, m, l, causal)
     for out, ref in zip(got, refs):
         assert _rel(out, ref)[1] > F32_BWD_MEAN_REL
+
+
+def _split_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps):
+    """K3's fp32 arithmetic (csrc/convnext_tail.cu, kParts = 3) in plain
+    torch, w1 (4C, C) and w2 (C, 4C) in the Linear layout: u, W1, W2 and
+    each chunk's a = gelu(z + b1) split into three bf16 parts; for each
+    64-column chunk of 4C, z sums over the 64-wide atoms of C, each atom's
+    six products in a fresh fp32 accumulator added to z; then each atom of
+    o (64 output columns) adds that chunk's six products a·W2ᵀ, taken in a
+    fresh accumulator; y = x + γ·(o + b2)."""
+    c = h.shape[1]
+    mu = h.mean(-1, keepdim=True)
+    d = h - mu
+    u = d * torch.rsqrt((d * d).mean(-1, keepdim=True) + eps) * lns + lnb
+    pu, pw1, pw2 = (k_attn.split3(t) for t in (u, w1, w2))
+    atoms = range(0, c, 64)   # C 96: the second atom has 32 columns
+    o = [torch.zeros(h.shape[0], min(64, c - a0)) for a0 in atoms]
+    for f0 in range(0, 4 * c, 64):
+        z = torch.zeros(h.shape[0], 64)
+        for a0 in atoms:
+            tile = torch.zeros_like(z)
+            for i, j in TERMS:
+                tile = tile + (pu[i][:, a0:a0 + 64].float()
+                               @ pw1[j][f0:f0 + 64, a0:a0 + 64].float().t())
+            z = z + tile
+        pa = k_attn.split3(tanh_erf_gelu(z + b1[f0:f0 + 64]))
+        for k, a0 in enumerate(atoms):
+            tile = torch.zeros_like(o[k])
+            for i, j in TERMS:
+                tile = tile + (pa[i].float()
+                               @ pw2[j][a0:a0 + 64, f0:f0 + 64].float().t())
+            o[k] = o[k] + tile
+    return x + gamma * (torch.cat(o, -1) + b2)
+
+
+def _tail_case(n, c):
+    """tail_inputs as fp32 tensors, the weights in the Linear layout, and
+    the JAX package's fp32 tail (Precision.HIGHEST) on them."""
+    v = tail_inputs(n, c, seed=n + c)
+    names = ("lns", "lnb", "w1", "b1", "w2", "b2", "gamma")
+    y_j = torch.from_numpy(np.array(jax_tail(
+        *(jnp.asarray(v[k]) for k in ("h", "x") + names))))
+    t = {k: torch.from_numpy(a) for k, a in v.items()}
+    t["w1"], t["w2"] = t["w1"].t().contiguous(), t["w2"].t().contiguous()
+    return (t["h"], t["x"], *(t[k] for k in names), 1e-6), y_j
+
+
+# 70: two 64-row blocks, the second ragged
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_split_product_tail_matches_jax(c):
+    """K3 fp32's emulation against the JAX package's fp32 tail within 1e-5
+    of max and mean |JAX|; as chip_smoke.py holds the kernel, against the
+    port's plain fp32 tail within 1e-5 of max |plain| and
+    SIMT_F32_MEAN_REL["K3"] of mean |plain|, and against the float64 tail
+    within F32_TAIL_MEAN_REL of mean |exact|."""
+    args, y_j = _tail_case(70, c)
+    got = _split_tail_fwd(*args)
+    max_rel, mean_rel = _rel(got, y_j)
+    assert max_rel <= FP32_REL and mean_rel <= FP32_REL, (max_rel, mean_rel)
+    max_rel, mean_rel = _rel(got, k_cnx.convnext_tail_fwd_ref(*args))
+    assert max_rel <= FP32_REL and mean_rel <= K3_F32_MEAN_REL, (max_rel,
+                                                                 mean_rel)
+    assert _rel(got, exact_tail_fwd(*args))[1] <= F32_TAIL_MEAN_REL
+
+
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_two_part_tail_control_exceeds_the_mean_limit(c):
+    """The tail with u, a and the weights rounded to two bf16 parts (a
+    16-bit significand, ``bench_kernels.two_part_tail_fwd``) misses the
+    float64 tail by more than F32_TAIL_MEAN_REL of mean |exact|, so that
+    limit tells a split that lost its third part from K3 fp32. (Against the
+    plain fp32 tail it reads below SIMT_F32_MEAN_REL["K3"], which cannot
+    tell them apart.)"""
+    args, _ = _tail_case(70, c)
+    assert _rel(two_part_tail_fwd(*args), exact_tail_fwd(*args))[1] \
+        > F32_TAIL_MEAN_REL

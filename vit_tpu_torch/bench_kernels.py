@@ -1,47 +1,54 @@
-"""Time the bf16 kernels, the fp32 attention kernels and five train
-steps of one or more checkouts of this repo on one card, in turns, so that
-two versions are compared within one call.
+"""Time the bf16 kernels, the fp32 kernels that were redesigned on the
+tensor cores (attention, K3) with K9c, and six train steps of one or
+more checkouts of this repo on one card, in turns, so that two versions
+are compared within one call.
 
     python -m vit_tpu_torch.bench_kernels --trees OLD . . OLD \
         [--out chiprun_out/bench_kernels.json]
 
 Each entry of ``--trees`` is a checkout's root; each runs in a process of
 its own that imports ``vit_tpu_torch`` from that checkout, builds its
-kernels into that checkout's ``build/`` and times K1 (with statistics;
-and without, at the serving bs 8), K2, K3 and K4 (at ConvNeXt-S's three
-fused stages: C 96, 192 and 384, the last under the keys "K3" and "K4";
-and as 20 back-to-back calls, "K3 C96 x20" and the like),
-K5, K6 (with statistics),
-K8, K9a, K9b, K9c, K10, K12a and K12b, the dropout arms of K1/K2 (ViT-L's (64, 257, 16 heads)
-at rate 0.15) and K6/K8 (rate 0.1), K7 at (2, 12, 513) and K6 on the
-rollout's prefill (513 causal, bs 8 and 1), at ``chip_smoke.py``'s shapes:
-CUDA-event medians of 20 calls after 3, the same seeded inputs in every
-process; K11a and K11b's dx-only and full forms at ConvNeXt-S's four
-stages in bf16 and fp32 beside cuDNN's calls (:func:`time_depthwise`,
-also on the card alone, "dev"), and one perceptual-loss call (loss and
-image gradient) under each ``dw_impl``, its wall time and, profiled, the
-card's busy time and K11's share of it (:func:`perceptual_ms`), and K11's
-mean distances from its plain versions ("k11_mean_rel" in the JSON line,
-:func:`depthwise_mean_rel`); then the attention kernels on fp32 operands (``--mixed false``)
-at ``chip_smoke.py``'s fp32 shapes: K1 and K2 at (64, 320, 12 heads) with
-statistics and at ViT-L's (64, 257, 16 heads) with dropout 0.15, K6 and K8
-at (32, 12, 1024) causal without and with dropout 0.1, K7 at (2, 12, 513)
-causal ("K1 fp32", "K2 fp32 dropout", ...; and 20 back to back, "K1 fp32
-x20", ...). Each turn also reads the fp32 forwards' mean distances (o, m
-and l; K1, K6 and their dropout arms, and K6 at K7's shape) from the plain
-fp32 version and from the float64 forward (:func:`exact_attention_fwd`),
-with the two-part control's (the plain version on operands rounded to two
-bf16 parts) beside them ("fwd_mean_rel" in its JSON line). Each
-turn then times five train steps with the names of that checkout's root
-``chip_smoke.py``: the VideoGPT-B bs-32 step, the flagship TiTok-B unfused
-bs-64 step and the ViT-L/16 @256 bs-64 step at dropout 0.15 in bf16, then
-the VideoGPT-B, ViT-L/16 and flagship unfused steps at float32 (``TiTok``,
-``VideoGPT``, ``ConvNeXt``, ``FLAGSHIP``, ``VIT_CELLS``, ``train_inputs``,
-``vit_batch``, the step makers, ``make_optimizer``, ``host_median_ms`` and
-the rest used in ``videogpt_step_ms``, ``titok_step_ms`` and
-``vit_step_ms``), so every root must carry one that defines them. TF32 is off for cuBLAS and cuDNN. Prints
-one JSON line per turn and a table of each time by checkout and turn.
-"""
+kernels into that checkout's ``build/`` and times K1 (with statistics; and
+without, at the serving bs 8), K2, K3 and K4 (at ConvNeXt-S's three fused
+stages: C 96, 192 and 384, the last under the keys "K3" and "K4"; and as 20
+back-to-back calls, "K3 C96 x20" and the like), K5, K6 (with statistics),
+K8, K9a, K9b, K9c (also "K9c x20" and "K9c dev", and the library's
+LayerNorm backward beside it, "K9c lib", "K9c lib x20", "K9c lib dev":
+:func:`time_ln_bwd`), K10, K12a and K12b, the dropout arms of K1/K2
+(ViT-L's (64, 257, 16 heads) at rate 0.15) and K6/K8 (rate 0.1), K7 at (2,
+12, 513) and K6 on the rollout's prefill (513 causal, bs 8 and 1), at
+``chip_smoke.py``'s shapes: CUDA-event medians of 20 calls after 3, the
+same seeded inputs in every process; K11a and K11b's dx-only and full forms
+at ConvNeXt-S's four stages in bf16 and fp32 beside cuDNN's calls
+(:func:`time_depthwise`, also on the card alone, "dev"), and one
+perceptual-loss call (loss and image gradient) under each ``dw_impl``, its
+wall time and, profiled, the card's busy time and K11's share of it
+(:func:`perceptual_ms`), and K11's mean distances from its plain versions
+("k11_mean_rel" in the JSON line, :func:`depthwise_mean_rel`); then K9c on
+fp32 rows at (20480, 768) as the bf16 one ("K9c fp32", "K9c fp32 dev", "K9c
+fp32 lib dev", ...), K3 on fp32 rows at the three fused stages ("K3 fp32
+C96", "K3 fp32 C96 x20", "K3 fp32 C96 dev", ...) with its weights'
+pre-split alone where the tree has one ("K3 fp32 split C96 dev", ...;
+:func:`time_tail_f32`), and the attention kernels on fp32 operands
+(``--mixed false``) at ``chip_smoke.py``'s fp32 shapes: K1 and K2 at (64,
+320, 12 heads) with statistics and at ViT-L's (64, 257, 16 heads) with
+dropout 0.15, K6 and K8 at (32, 12, 1024) causal without and with dropout
+0.1, K7 at (2, 12, 513) causal ("K1 fp32", "K2 fp32 dropout", ...; and 20
+back to back, "K1 fp32 x20", ...). Each turn also reads the fp32 forwards'
+mean distances (o, m and l; K1, K6 and their dropout arms, and K6 at K7's
+shape) from the plain fp32 version and from the float64 forward
+(:func:`exact_attention_fwd`), with the two-part control's (the plain
+version on operands rounded to two bf16 parts) beside them ("fwd_mean_rel"
+in its JSON line). Each turn then times six train steps with the names of
+that checkout's root ``chip_smoke.py``: the VideoGPT-B bs-32 step, the
+flagship TiTok-B unfused bs-64 step and the ViT-L/16 @256 bs-64 step at
+dropout 0.15 in bf16, then the VideoGPT-B, ViT-L/16 and flagship unfused
+steps at float32 (``TiTok``, ``VideoGPT``, ``ConvNeXt``, ``FLAGSHIP``,
+``VIT_CELLS``, ``train_inputs``, ``vit_batch``, the step makers,
+``make_optimizer``, ``host_median_ms`` and the rest used in
+``videogpt_step_ms``, ``titok_step_ms`` and ``vit_step_ms``), so every root
+must carry one that defines them. TF32 is off for cuBLAS and cuDNN. Prints
+one JSON line per turn and a table of each time by checkout and turn."""
 
 from __future__ import annotations
 
@@ -189,9 +196,59 @@ def time_kernels() -> dict:
     dz = r(N_ROWS, 3072).bfloat16()
     ms["K9b"] = median_ms(lambda: k_lnmm.ln_matmul_dgelu(zpre, dz))
     g = r(N_ROWS, 768).bfloat16()
-    ms["K9c"] = median_ms(lambda: k_lnmm.ln_bwd(x, g))
+    ms.update(time_ln_bwd(x, g, "K9c"))
     x3 = r(N_ROWS, 3072).bfloat16()
     ms["K10"] = median_ms(lambda: k_fc.matmul_dw_db(g, x3))
+    return ms
+
+
+def time_ln_bwd(x, g, key: str) -> dict:
+    """{row: ms} of K9c on (x, g) as a single call, 20 back to back ("x20")
+    and on the card alone ("dev"), and the same of the library's LayerNorm
+    backward without weight and bias, its saved mean and 1/σ made
+    beforehand (K9c recomputes them; "lib")."""
+    import torch
+
+    from vit_tpu_torch.kernels import ln_matmul as k_lnmm
+
+    c = x.shape[1]
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [c], None, None,
+                                                     k_lnmm.EPS)
+    def library():
+        torch.ops.aten.native_layer_norm_backward(
+            g, x, [c], mean, rstd, None, None, [True, False, False])
+
+    ms = {}
+    for name, fn in ((key, lambda: k_lnmm.ln_bwd(x, g)),
+                     (key + " lib", library)):
+        ms[name] = median_ms(fn)
+        ms[name + " x20"] = batched_ms(fn)
+        ms[name + " dev"] = device_ms(fn)
+    return ms
+
+
+def time_tail_f32(r) -> dict:
+    """{row: ms} of K3 on fp32 rows at ConvNeXt-S's three fused stages
+    ("K3 fp32 C96", ...), single, x20 and dev, and, where the tree has it,
+    its weights' pre-split alone ("K3 fp32 split C96 dev", ...)."""
+    from vit_tpu_torch.kernels import convnext_block as k_cnx
+
+    ms = {}
+    for rows, c in TAIL_STAGES:
+        h, x = r(rows, c), r(rows, c)
+        w1 = r(4 * c, c, scale=c ** -0.5)
+        w2 = r(c, 4 * c, scale=(4 * c) ** -0.5)
+        fwd = (h, x, 1.0 + r(c, scale=0.1), r(c, scale=0.1), w1,
+               r(4 * c, scale=0.1), w2, r(c, scale=0.1), r(c, scale=0.5),
+               1e-6)
+        name = f"K3 fp32 C{c}"
+        ms[name] = median_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
+        ms[name + " x20"] = batched_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
+        ms[name + " dev"] = device_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
+        if hasattr(k_cnx, "split_weights"):
+            ms[f"K3 fp32 split C{c} dev"] = device_ms(
+                lambda: k_cnx.split_weights(w1, w2))
+        del h, x, fwd
     return ms
 
 
@@ -435,6 +492,44 @@ def two_parts(x):
     return x0 + (x - x0).bfloat16().float()
 
 
+def _layer_norm(h, lns, lnb, eps):
+    """u = LN(h)·ln_scale + ln_bias, two-pass statistics, in h's dtype."""
+    d = h - h.mean(-1, keepdim=True)
+    return d * (d * d).mean(-1, keepdim=True).add(eps).rsqrt() * lns + lnb
+
+
+def exact_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps,
+                   batch: int = 4096):
+    """K3's function (``kernels/convnext_block.py:convnext_tail_fwd_ref``
+    at fp32, no rounding between its steps) in float64 on the same fp32
+    rows and parameters, w1 (4C, C) and w2 (C, 4C): the reference the fp32
+    form's mean limit is held against. y (N, C) in float64, ``batch`` rows
+    at a time."""
+    import torch
+
+    from vit_tpu_torch.ops.gelu import tanh_erf_gelu
+
+    lns, lnb, w1, b1, w2, b2, gamma = (t.double() for t in (
+        lns, lnb, w1, b1, w2, b2, gamma))
+    out = []
+    for r0 in range(0, h.shape[0], batch):
+        u = _layer_norm(h[r0:r0 + batch].double(), lns, lnb, eps)
+        a = tanh_erf_gelu(u @ w1.t() + b1)
+        out.append(x[r0:r0 + batch].double() + gamma * (a @ w2.t() + b2))
+    return torch.cat(out)
+
+
+def two_part_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps):
+    """The plain fp32 tail with u, a = gelu(z + b1), W1 and W2 rounded to two
+    bf16 parts (:func:`two_parts`): what a split K3 that lost its third
+    part reads, the control of its mean limit."""
+    from vit_tpu_torch.ops.gelu import tanh_erf_gelu
+
+    u = two_parts(_layer_norm(h, lns, lnb, eps))
+    a = two_parts(tanh_erf_gelu(u @ two_parts(w1).t() + b1))
+    return x + gamma * (a @ two_parts(w2).t() + b2)
+
+
 def mean_rel(out, ref) -> float:
     """mean |out − ref| / mean |ref|, in float64."""
     return ((out.double() - ref.double()).abs().mean()
@@ -475,6 +570,10 @@ def time_fp32_kernels() -> "tuple[dict, dict]":
                                                        exact)))}
 
     ms, rel = {}, {}
+    ms.update(time_ln_bwd(2 * r(N_ROWS, 768) + 0.5, r(N_ROWS, 768),
+                          "K9c fp32"))
+    ms.update(time_tail_f32(r))
+    torch.cuda.empty_cache()
     for name, (b, s, h, rate) in {"K2 fp32": (64, 320, 12, 0.0),
                                   "K2 fp32 dropout": (64, 257, 16,
                                                       0.15)}.items():

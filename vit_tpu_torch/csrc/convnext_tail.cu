@@ -66,10 +66,41 @@
 // hold the weights at C = 384 (W1 alone is 1.18 MB in bf16), so every block
 // reads W1 and W2 once from L2: at 64-128 rows a block that is 64-128 FLOP
 // per byte of L2 traffic, which with the tensor cores bounds it.
+//
+// K3's fp32 form (kParts = 3, the entry convnext_tail_f32_fwd) replaces
+// _fwd_kernel on fp32 rows, where it takes both products at
+// Precision.HIGHEST (:93): the TPU's six bf16 passes, here six bf16 wgmma
+// products an fp32 product (hopper.cuh:mma_abt_parts_n32, mma_abt_parts,
+// mma_rbt_parts; small terms first), with no bf16 rounding of u or a.
+// convnext_tail_split first writes W1 and W2 as three bf16 parts each
+// (x = x0 + x1 + x2 exactly) into scratch of the call, read through
+// tensor maps of (3, rows, cols). The
+// LN pass reads fp32 h from device memory (two-pass statistics) and writes
+// u's three parts into shared memory as TMA's swizzle would; the producer
+// streams each chunk's W1, then W2, by 64 x 64 atoms of three parts (24 KB
+// a ring stage: a whole-C tile in three parts, 144 KB at C 384, does not
+// fit beside u's 144 KB), and each stage feeds both warpgroups at once.
+// C 192, 384: 64 rows a block; the warpgroups split every product's
+// output columns in n32 halves: z's half (over C's atoms), then a =
+// gelu(z + b1), split into three parts in a shared exchange tile (two at
+// C 192, one at C 384 with a barrier before it is rewritten), then o's
+// half of each atom (a·W2ᵀ). C 96: 128 rows, a warpgroup per 64 at the
+// full width (n64), a split into three parts of register A fragments, as
+// the bf16 kernel does; C 96's last atom of z takes its 32 columns only,
+// and o's columns past C multiply TMA's zeros. Each atom's product goes
+// into a fresh accumulator added to the sum in registers
+// (hopper.cuh:484-495), two in turn where registers allow (C 192, and o at
+// C 384; one at a time for z at C 384 and at C 96, within the 168
+// registers of nine warps). The epilogue is the bf16 one in fp32.
+// Bound: 16·C²·N FLOP at 989/6 TFLOP/s (29.6 GFLOP at ConvNeXt-S's three
+// fused stages, 0.180 ms), far above its bytes; every block reads the
+// weights' parts (48·C² bytes) from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gelu.cuh"
 #include "hopper.cuh"
@@ -116,6 +147,41 @@ struct Tail {
   static_assert(kStages >= 2, "a chunk's two tiles must fit the ring");
   static_assert(sizeof(Ring<kStages>) <= 128, "the ring's barriers");
   static_assert(256 + 6 * kRows * 4 <= kSmall, "the row statistics");
+};
+
+// The fp32 forward's tiling (kParts = 3) at width C: u as three bf16 parts
+// in shared memory, W1 and W2 streamed by 64 x 64 atoms of three parts
+// (24 KB a ring stage). C 192, 384 (kSplit): 64 rows a block, the
+// warpgroups split the output columns, a's three parts in one or two
+// exchange tiles (two where they leave the ring three stages or more).
+// C 96: 128 rows, a warpgroup per 64 of them at the full width, a in
+// register fragments.
+template <int C>
+struct SplitTail {
+  static constexpr int kAtoms = (C + 63) / 64;
+  static constexpr bool kSplit = C > 96;
+  static constexpr int kRows = kSplit ? 64 : 128;
+  static constexpr int kChunks = 4 * C / kChunk;
+  static constexpr int kUPart = kAtoms * kRows * 128;
+  static constexpr int kStage = 3 * static_cast<int>(kTileBytes);
+  static constexpr int kActBufs =
+      !kSplit ? 0
+      : (kSmemLimit - kSmall - 3 * kUPart - 2 * kStage) / kStage >= 3 ? 2 : 1;
+  // Byte offsets: u's parts, the exchange tiles, the ring, the small region
+  static constexpr int kAct = 3 * kUPart;
+  static constexpr int kW = kAct + kActBufs * kStage;
+  static constexpr int kFit = (kSmemLimit - kW - kSmall) / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kRing = kW + kStages * kStage;
+  static constexpr int kBytes = kRing + kSmall + 1024;
+  // Ring loads a chunk: W1's atoms (its 64 rows by 64 columns of C), then
+  // W2's (64 rows of C by the chunk's 64 columns)
+  static constexpr int kLoads = 2 * kAtoms;
+  // k16 steps of z's last atom (C 96: 2, the columns that exist)
+  static constexpr int kLastSteps = C % 64 ? (C % 64) / 16 : 4;
+  static_assert(C % 32 == 0 && C <= 384, "C a multiple of 32, at most 384");
+  static_assert(kStages >= 2, "two atoms in flight");
+  static_assert(sizeof(Ring<kStages>) <= 128, "the ring's barriers");
 };
 
 // x as a value the compiler cannot see through, so that descriptors formed
@@ -278,10 +344,11 @@ __device__ __forceinline__ void to_fragments(uint32_t (&af)[4][4], F f,
 }
 
 // f(e, column) of each element e of a 64 x 32 accumulator (columns c0 ..
-// c0 + 31 of the chunk), rounded to bf16, into the swizzled 64 x 64
-// exchange tile `act`; then the fence that lets a wgmma read it. The caller
-// meets the other warpgroup after it.
-template <typename F>
+// c0 + 31 of the chunk), rounded to bf16 (kParts = 1) or split into three
+// bf16 parts (kParts = 3, part p kTileBytes after part p − 1), into the
+// swizzled 64 x 64 exchange tile `act`; then the fence that lets a wgmma
+// read it. The caller meets the other warpgroup after it.
+template <int kParts = 1, typename F>
 __device__ __forceinline__ void to_exchange(uint8_t* act, F f, int c0,
                                             int row0, int t) {
 #pragma unroll
@@ -290,8 +357,17 @@ __device__ __forceinline__ void to_exchange(uint8_t* act, F f, int c0,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int e = 4 * nt + 2 * r;
-      *reinterpret_cast<uint32_t*>(act + sw_offset(row0 + 8 * r, col, 64)) =
-          pack_bf16x2(f(e, col), f(e + 1, col + 1));
+      float lo = f(e, col), hi = f(e + 1, col + 1);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+        *reinterpret_cast<__nv_bfloat162*>(
+            act + p * kTileBytes + sw_offset(row0 + 8 * r, col, 64)) = v;
+        if (p + 1 < kParts) {
+          lo = __fsub_rn(lo, __low2float(v));
+          hi = __fsub_rn(hi, __high2float(v));
+        }
+      }
     }
   }
   fence_proxy_async();
@@ -346,136 +422,478 @@ __device__ __forceinline__ bool start_block(uint8_t* sm, const CUtensorMap* trow
   return threadIdx.x < kConsumers;
 }
 
+// ---- the fp32 forward (kParts = 3) --------------------------------------
+
+// LayerNorm of the block's 64 rows of fp32 h, read from device memory:
+// two-pass fp32 statistics and u = û·ln_scale + ln_bias in fp32 (no bf16
+// rounding), split into three bf16 parts written to `u` as TMA's 128-byte
+// swizzle would place them, part p kUPart bytes after part p − 1 (C 96:
+// the last atom's columns past C are never read); rows past N read h as
+// zeros (u = ln_bias: finite, never stored). Each consumer warp takes 8
+// rows, all of them read before any is reduced.
 template <int C>
+__device__ __forceinline__ void layer_norm_parts(uint8_t* u,
+                                                 const float* __restrict__ h,
+                                                 const float* __restrict__ lns,
+                                                 const float* __restrict__ lnb,
+                                                 int r0, int N, float eps) {
+  using L = SplitTail<C>;
+  constexpr int kPer = L::kRows / (kConsumers / 32), kV = C / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float v[kPer][kV];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = r0 + warp * kPer + i;
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      v[i][j] = row < N ? h[static_cast<size_t>(row) * C + lane + 32 * j]
+                        : 0.0f;
+  }
+  float sc[kV], bi[kV];
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    sc[j] = lns[lane + 32 * j];
+    bi[j] = lnb[lane + 32 * j];
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = warp * kPer + i;
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) sum += v[i][j];
+    const float mu = warp_sum(sum) / C;
+    float sq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      v[i][j] -= mu;
+      sq += v[i][j] * v[i][j];
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      // û·ln_scale, then + ln_bias: the plain version's two roundings
+      float x = __fadd_rn(__fmul_rn(v[i][j] * rstd, sc[j]), bi[j]);
+      const int off = sw_offset(r, lane + 32 * j, L::kRows);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const bf16 part = __float2bfloat16(x);
+        *reinterpret_cast<bf16*>(u + p * L::kUPart + off) = part;
+        x = __fsub_rn(x, __bfloat162float(part));
+      }
+    }
+  }
+}
+
+// The fp32 form's producer: every chunk's W1 atoms, then its W2 atoms, each
+// as its three parts (three 64 x 64 boxes of the parts' tensor maps) into
+// one ring stage, as soon as the stage is free.
+template <int C>
+__device__ __forceinline__ void produce_parts(uint8_t* sm,
+                                              const CUtensorMap* tw1,
+                                              const CUtensorMap* tw2) {
+  using L = SplitTail<C>;
+  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+  for (int i = 0; i < L::kLoads * L::kChunks; ++i) {
+    const int f0 = (i / L::kLoads) * kChunk, k = i % L::kLoads;
+    const int st = ring.stage(i);
+    uint8_t* dst = sm + L::kW + st * L::kStage;
+    ring.wait_empty(i);
+    mbar_arrive_expect_tx(&ring.full[st], L::kStage);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (k < L::kAtoms)
+        tma_load_4d(dst + p * kTileBytes, tw1, &ring.full[st], 64 * k, f0, p, 0);
+      else
+        tma_load_4d(dst + p * kTileBytes, tw2, &ring.full[st], f0,
+                    64 * (k - L::kAtoms), p, 0);
+    }
+  }
+}
+
+// d += tile in registers, rounded to nearest (hopper.cuh:mma_rb_parts_into).
+template <int N>
+__device__ __forceinline__ void add_tile(float (&d)[N], const float (&tile)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) d[e] = __fadd_rn(d[e], tile[e]);
+}
+
+// The ring loads i0 .. i0 + kAtoms − 1, one 64 x 64 atom of three parts
+// each, against A_b at a + b·a_step (its parts a_part apart): the products
+// A_b·B_bᵀ (64 x 32, six bf16 wgmma products an atom,
+// hopper.cuh:mma_abt_parts_n32) with B_b the n32 half `half` of atom b's
+// tile, over the atom's first 16·kLastSteps columns for the last atom,
+// summed over the atoms into d[0] (kOut 1: z over C) or each into its own
+// d[b] (kOut kAtoms: o's atoms over a chunk). Each atom's product goes into
+// a fresh accumulator; with kBufs 2 two take turns, so one atom's products
+// run while the last one's are added to d. A stage is released once its
+// products are done.
+template <int kStages, int kAtoms, int kBufs, int kLastSteps, int kOut>
+__device__ __forceinline__ void sum_atoms(float (&d)[kOut][16],
+                                          Ring<kStages>& ring, int i0,
+                                          uint32_t w_base, uint32_t a,
+                                          uint32_t a_step, uint32_t a_part,
+                                          int half) {
+  static_assert(kOut == 1 || kOut == kAtoms, "one sum, or one an atom");
+  constexpr uint32_t kStage = 3 * kTileBytes;
+  float f[kBufs][16];
+#pragma unroll
+  for (int b = 0; b < kAtoms; ++b) {
+    const uint32_t w = w_base + ring.stage(i0 + b) * kStage + half * 4096;
+    const uint32_t ab = opaque(a) + b * a_step;
+    ring.wait_full(i0 + b);
+    wgmma_fence();
+    if (b < kAtoms - 1)
+      mma_abt_parts_n32<3>(f[b % kBufs], ab, a_part, w, kTileBytes);
+    else
+      mma_abt_parts_n32<3, kLastSteps>(f[b % kBufs], ab, a_part, w,
+                                       kTileBytes);
+    wgmma_commit();
+    if (kBufs == 1 || b > 0) {
+      const int done = kBufs == 1 ? b : b - 1;
+      wgmma_wait<kBufs - 1>();
+      fence_regs(f[done % kBufs]);
+      add_tile(d[kOut == 1 ? 0 : done], f[done % kBufs]);
+      ring.release(i0 + done);
+    }
+  }
+  if (kBufs == 2) {
+    wgmma_wait<0>();
+    fence_regs(f[(kAtoms - 1) % 2]);
+    add_tile(d[kOut == 1 ? 0 : kAtoms - 1], f[(kAtoms - 1) % 2]);
+    ring.release(i0 + kAtoms - 1);
+  }
+}
+
+// y = x + γ·(o + b2) at (row, col) and (row, col + 1), fp32, when col < C.
+template <int C>
+__device__ __forceinline__ void store_y(const float* __restrict__ x,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ b2,
+                                        float* __restrict__ y, int row, int col,
+                                        float o0, float o1) {
+  if (col >= C) return;
+  const size_t i = static_cast<size_t>(row) * C + col;
+  const float2 xv = *reinterpret_cast<const float2*>(x + i);
+  const float2 gv = *reinterpret_cast<const float2*>(gamma + col);
+  const float2 bv = *reinterpret_cast<const float2*>(b2 + col);
+  *reinterpret_cast<float2*>(y + i) =
+      make_float2(xv.x + gv.x * (o0 + bv.x), xv.y + gv.y * (o1 + bv.y));
+}
+
+// C 192, 384: warpgroup wg forms columns 32·wg .. 32·wg + 31 of each
+// chunk's z and of each 64-column atom of o, over the block's 64 rows;
+// y = x + γ·(o + b2) from them.
+template <int C>
+__device__ __forceinline__ void tail_parts_split(
+    uint8_t* sm, const float* __restrict__ x, const float* __restrict__ b1,
+    const float* __restrict__ b2, const float* __restrict__ gamma,
+    float* __restrict__ y, int r0, int N) {
+  using L = SplitTail<C>;
+  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const uint32_t u = smem_u32(sm), w_base = smem_u32(sm + L::kW);
+  float o[L::kAtoms][16];
+#pragma unroll
+  for (int at = 0; at < L::kAtoms; ++at)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) o[at][e] = 0.0f;
+
+  // Chunk j: z = u·W1_jᵀ over the atoms of C; a = gelu(z + b1) in three
+  // parts into exchange tile j % kActBufs; o += a·W2_jᵀ atom by atom.
+  for (int j = 0; j < L::kChunks; ++j) {
+    const int i0 = j * L::kLoads;
+    float z[1][16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) z[0][e] = 0.0f;
+    // z's fresh accumulators two in turn at C 192, one at C 384 (two
+    // spilled there)
+    sum_atoms<L::kStages, L::kAtoms, (C > 192 ? 1 : 2), L::kLastSteps>(
+        z, ring, i0, w_base, u, kTileBytes, L::kUPart, wg);
+    uint8_t* act = sm + L::kAct + (j % L::kActBufs) * L::kStage;
+    // With one exchange tile, both warpgroups must be done with chunk
+    // j − 1's products before either writes chunk j's a.
+    if (L::kActBufs == 1) named_barrier(2, kConsumers);
+    to_exchange<3>(act, [&](int e, int col) {
+      return gelu(z[0][e] + b1[j * kChunk + col]);
+    }, wg * 32, warp * 16 + g, t);
+    named_barrier(1, kConsumers);
+    sum_atoms<L::kStages, L::kAtoms, 2, 4>(o, ring, i0 + L::kAtoms, w_base,
+                                          smem_u32(act), 0, kTileBytes, wg);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + warp * 16 + g + 8 * r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int at = 0; at < L::kAtoms; ++at)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        store_y<C>(x, gamma, b2, y, row, at * 64 + wg * 32 + nt * 8 + 2 * t,
+                o[at][4 * nt + 2 * r], o[at][4 * nt + 2 * r + 1]);
+  }
+}
+
+// C 96: warpgroup wg takes the block's rows 64·wg .. 64·wg + 63 at the full
+// width: each chunk's z (n64) over C's two atoms (the second 32 columns
+// wide), a = gelu(z + b1) split into three parts of register A fragments,
+// then o += a·W2ᵀ atom by atom (the second atom's columns past C multiply
+// TMA's zeros). One fresh accumulator at a time: o, a's parts and two
+// would pass the 168 registers of nine warps.
+template <int C>
+__device__ __forceinline__ void tail_parts_rows(
+    uint8_t* sm, const float* __restrict__ x, const float* __restrict__ b1,
+    const float* __restrict__ b2, const float* __restrict__ gamma,
+    float* __restrict__ y, int r0, int N) {
+  using L = SplitTail<C>;
+  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const uint32_t u = smem_u32(sm) + wg * kTileBytes;
+  const uint32_t w_base = smem_u32(sm + L::kW);
+  auto stage = [&](int i) { return w_base + ring.stage(i) * L::kStage; };
+  float o[L::kAtoms][32], f[32];
+#pragma unroll
+  for (int at = 0; at < L::kAtoms; ++at)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[at][e] = 0.0f;
+
+  for (int j = 0; j < L::kChunks; ++j) {
+    const int i0 = j * L::kLoads;
+    float z[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) z[e] = 0.0f;
+#pragma unroll
+    for (int b = 0; b < L::kAtoms; ++b) {
+      const uint32_t w = stage(i0 + b), ub = opaque(u) + b * L::kRows * 128;
+      ring.wait_full(i0 + b);
+      wgmma_fence();
+      if (b < L::kAtoms - 1)
+        mma_abt_parts<3>(f, ub, L::kUPart, w, kTileBytes);
+      else
+        mma_abt_parts<3, L::kLastSteps>(f, ub, L::kUPart, w, kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(f);
+      add_tile(z, f);
+      ring.release(i0 + b);
+    }
+    uint32_t af[3][4][4];  // a = gelu(z + b1), three parts
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = j * kChunk + nt * 8 + 2 * t;
+      const float c0 = b1[col], c1 = b1[col + 1];
+      put_a<3>(af, nt / 2, (nt % 2) * 2, gelu(z[4 * nt] + c0),
+               gelu(z[4 * nt + 1] + c1));
+      put_a<3>(af, nt / 2, (nt % 2) * 2 + 1, gelu(z[4 * nt + 2] + c0),
+               gelu(z[4 * nt + 3] + c1));
+    }
+#pragma unroll
+    for (int at = 0; at < L::kAtoms; ++at) {
+      const int i = i0 + L::kAtoms + at;
+      const uint32_t w = stage(i);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) f[e] = 0.0f;
+      ring.wait_full(i);
+      wgmma_fence();
+      mma_rbt_parts<3>(f, af, w, kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(f);
+      fence_regs(af);
+      add_tile(o[at], f);
+      ring.release(i);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + wg * 64 + warp * 16 + g + 8 * r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int at = 0; at < L::kAtoms; ++at)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        store_y<C>(x, gamma, b2, y, row, at * 64 + nt * 8 + 2 * t,
+                o[at][4 * nt + 2 * r], o[at][4 * nt + 2 * r + 1]);
+  }
+}
+
+// K3 on fp32 rows: the ring, the producer warp, the LayerNorm of the
+// block's rows into u's parts, then the products (tail_parts_split at
+// C 192 and 384, tail_parts_rows at C 96).
+template <int C>
+__device__ __forceinline__ void tail_fwd_parts(
+    const CUtensorMap* tw1, const CUtensorMap* tw2, const float* __restrict__ h,
+    const float* __restrict__ x, const float* __restrict__ lns,
+    const float* __restrict__ lnb, const float* __restrict__ b1,
+    const float* __restrict__ b2, const float* __restrict__ gamma,
+    float* __restrict__ y, int N, float eps) {
+  using L = SplitTail<C>;
+  uint8_t* sm = &aligned_smem<uint8_t>();
+  const int r0 = blockIdx.x * L::kRows;
+  if (threadIdx.x == 0) {
+    reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing)->init(1, kConsumers / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == kConsumers) produce_parts<C>(sm, tw1, tw2);
+  if (threadIdx.x >= kConsumers) return;
+
+  layer_norm_parts<C>(sm, h, lns, lnb, r0, N, eps);
+  fence_proxy_async();
+  named_barrier(1, kConsumers);
+  if constexpr (L::kSplit)
+    tail_parts_split<C>(sm, x, b1, b2, gamma, y, r0, N);
+  else
+    tail_parts_rows<C>(sm, x, b1, b2, gamma, y, r0, N);
+}
+
+// The row type of K3's kParts form: bf16, or fp32 for kParts = 3
+template <int kParts>
+using RowT = std::conditional_t<kParts == 1, bf16, float>;
+
+// K3. kParts = 1: bf16 rows through the tensor map of h; kParts = 3: fp32
+// rows h (tail_fwd_parts), W1 and W2 through the tensor maps of their three
+// bf16 parts.
+template <int C, int kParts>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 convnext_tail_fwd_kernel(const __grid_constant__ CUtensorMap th_map,
                          const __grid_constant__ CUtensorMap tw1,
                          const __grid_constant__ CUtensorMap tw2,
-                         const bf16* __restrict__ x,
-                         const bf16* __restrict__ lns,
-                         const bf16* __restrict__ lnb,
-                         const bf16* __restrict__ b1, const bf16* __restrict__ b2,
-                         const bf16* __restrict__ gamma, bf16* __restrict__ y,
-                         int N, float eps) {
-  using L = Tail<C, false>;
-  constexpr int n = L::kChunks;
-  uint8_t* sm = &aligned_smem<uint8_t>();
-  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
-  float* mu_s = reinterpret_cast<float*>(sm + L::kStats);
-  float* rstd_s = mu_s + L::kRows;
-  const int r0 = blockIdx.x * L::kRows;
-  if (!start_block<C, false>(sm, &th_map, nullptr, &tw1, &tw2, r0)) return;
-
-  mbar_wait(reinterpret_cast<uint64_t*>(sm + L::kRowsBar), 0);
-  layer_norm_rows<C, L::kRows>(sm, mu_s, rstd_s, lns, lnb, eps);
-  fence_proxy_async();
-  named_barrier(1, kConsumers);
-
-  const Thread<C, false> th;
-  const uint32_t u = smem_u32(sm), w_base = smem_u32(sm + L::kW);
-  auto tile = [&](int load) { return w_base + ring.stage(load) * L::kWTile; };
-  float o[L::kOwn][32];
-#pragma unroll
-  for (int at = 0; at < L::kOwn; ++at)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) o[at][e] = 0.0f;
-
-  // Chunk j: z = u·W1_jᵀ, a = bf16(gelu(z + b1)), o += a·W2_jᵀ. At C 384
-  // a goes through exchange tile j % 2: a warpgroup writes it again only
-  // after the barrier of chunk j + 1, which the other passes after the
-  // products of chunk j that read it.
-  if constexpr (!L::kSplit) {
-    for (int j = 0; j < n; ++j) {
-      float z[32];
-      const uint32_t w1 = tile(2 * j), ua = opaque(u);
-      ring.wait_full(2 * j);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks)
-        wgmma_ss<0>(z, desc_k(a_rows<L::kRows>(ua, th.rg, ks)),
-                    desc_k(w1 + (ks / 4) * kTileBytes + (ks % 4) * 32), ks > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(z);
-      ring.release(2 * j);
-      uint32_t af[4][4];  // a = gelu(z + b1)
-      to_fragments(af, [&](int e, int col) {
-        return gelu(z[e] + bf(b1, j * kChunk + col));
-      }, th.t);
-      const uint32_t w2 = tile(2 * j + 1);
-      ring.wait_full(2 * j + 1);
-      wgmma_fence();
-#pragma unroll
-      for (int at = 0; at < L::kOwn; ++at)
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          wgmma_rs<0>(o[at], af[ks], desc_k(w2 + at * kTileBytes + 32 * ks));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(af);
-#pragma unroll
-      for (int at = 0; at < L::kOwn; ++at) fence_regs(o[at]);
-      ring.release(2 * j + 1);
-    }
+                         const RowT<kParts>* __restrict__ x,
+                         const RowT<kParts>* __restrict__ lns,
+                         const RowT<kParts>* __restrict__ lnb,
+                         const RowT<kParts>* __restrict__ b1,
+                         const RowT<kParts>* __restrict__ b2,
+                         const RowT<kParts>* __restrict__ gamma,
+                         RowT<kParts>* __restrict__ y, int N, float eps,
+                         const RowT<kParts>* __restrict__ h) {
+  if constexpr (kParts == 3) {
+    tail_fwd_parts<C>(&tw1, &tw2, h, x, lns, lnb, b1, b2, gamma, y, N, eps);
   } else {
-    for (int j = 0; j < n; ++j) {
-      float z[16];
-      const uint32_t w1 = tile(2 * j), ua = opaque(u);
-      ring.wait_full(2 * j);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks)
-        wgmma_ss_n32<0>(z, desc_k(a_rows<L::kRows>(ua, 0, ks)),
-                        desc_k(w1 + (ks / 4) * kTileBytes + th.cg * 4096 +
-                               (ks % 4) * 32),
-                        ks > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(z);
-      ring.release(2 * j);
-      uint8_t* act = sm + L::kAct + (j & 1) * kTileBytes;
-      to_exchange(act, [&](int e, int col) {
-        return gelu(z[e] + bf(b1, j * kChunk + col));
-      }, th.cg * 32, th.row(0), th.t);
-      named_barrier(1, kConsumers);
-      const uint32_t a = smem_u32(act), w2 = tile(2 * j + 1);
-      ring.wait_full(2 * j + 1);
-      wgmma_fence();
-#pragma unroll
-      for (int at = 0; at < L::kOwn; ++at)
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          wgmma_ss<0>(o[at], desc_k(a + 32 * ks),
-                      desc_k(w2 + (th.cg * L::kOwn + at) * kTileBytes + 32 * ks),
-                      1);
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int at = 0; at < L::kOwn; ++at) fence_regs(o[at]);
-      ring.release(2 * j + 1);
-    }
-  }
-  // x is read at once, ahead of the epilogue.
-  uint32_t xr[2][L::kOwn][8];
-  load_pairs<C, false>(xr, x, th, r0, N);
+    using L = Tail<C, false>;
+    constexpr int n = L::kChunks;
+    uint8_t* sm = &aligned_smem<uint8_t>();
+    Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+    float* mu_s = reinterpret_cast<float*>(sm + L::kStats);
+    float* rstd_s = mu_s + L::kRows;
+    const int r0 = blockIdx.x * L::kRows;
+    if (!start_block<C, false>(sm, &th_map, nullptr, &tw1, &tw2, r0)) return;
 
-  // y = x + γ·(o + b2), rows below N, columns below C.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + th.row(r);
-    if (row >= N) continue;
-#pragma unroll
+    mbar_wait(reinterpret_cast<uint64_t*>(sm + L::kRowsBar), 0);
+    layer_norm_rows<C, L::kRows>(sm, mu_s, rstd_s, lns, lnb, eps);
+    fence_proxy_async();
+    named_barrier(1, kConsumers);
+
+    const Thread<C, false> th;
+    const uint32_t u = smem_u32(sm), w_base = smem_u32(sm + L::kW);
+    auto tile = [&](int load) { return w_base + ring.stage(load) * L::kWTile; };
+    float o[L::kOwn][32];
+  #pragma unroll
     for (int at = 0; at < L::kOwn; ++at)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = th.col(at, nt);
-        if (col >= C) continue;
-        const float2 xv = bf2(xr[r][at][nt]), gv = bf2(gamma + col),
-                     bv = bf2(b2 + col);
-        *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(row) * C + col) =
-            pack_bf16x2(xv.x + gv.x * (o[at][4 * nt + 2 * r] + bv.x),
-                        xv.y + gv.y * (o[at][4 * nt + 2 * r + 1] + bv.y));
+  #pragma unroll
+      for (int e = 0; e < 32; ++e) o[at][e] = 0.0f;
+
+    // Chunk j: z = u·W1_jᵀ, a = bf16(gelu(z + b1)), o += a·W2_jᵀ. At C 384
+    // a goes through exchange tile j % 2: a warpgroup writes it again only
+    // after the barrier of chunk j + 1, which the other passes after the
+    // products of chunk j that read it.
+    if constexpr (!L::kSplit) {
+      for (int j = 0; j < n; ++j) {
+        float z[32];
+        const uint32_t w1 = tile(2 * j), ua = opaque(u);
+        ring.wait_full(2 * j);
+        wgmma_fence();
+  #pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks)
+          wgmma_ss<0>(z, desc_k(a_rows<L::kRows>(ua, th.rg, ks)),
+                      desc_k(w1 + (ks / 4) * kTileBytes + (ks % 4) * 32), ks > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(z);
+        ring.release(2 * j);
+        uint32_t af[4][4];  // a = gelu(z + b1)
+        to_fragments(af, [&](int e, int col) {
+          return gelu(z[e] + bf(b1, j * kChunk + col));
+        }, th.t);
+        const uint32_t w2 = tile(2 * j + 1);
+        ring.wait_full(2 * j + 1);
+        wgmma_fence();
+  #pragma unroll
+        for (int at = 0; at < L::kOwn; ++at)
+  #pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_rs<0>(o[at], af[ks], desc_k(w2 + at * kTileBytes + 32 * ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(af);
+  #pragma unroll
+        for (int at = 0; at < L::kOwn; ++at) fence_regs(o[at]);
+        ring.release(2 * j + 1);
       }
+    } else {
+      for (int j = 0; j < n; ++j) {
+        float z[16];
+        const uint32_t w1 = tile(2 * j), ua = opaque(u);
+        ring.wait_full(2 * j);
+        wgmma_fence();
+  #pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks)
+          wgmma_ss_n32<0>(z, desc_k(a_rows<L::kRows>(ua, 0, ks)),
+                          desc_k(w1 + (ks / 4) * kTileBytes + th.cg * 4096 +
+                                 (ks % 4) * 32),
+                          ks > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(z);
+        ring.release(2 * j);
+        uint8_t* act = sm + L::kAct + (j & 1) * kTileBytes;
+        to_exchange(act, [&](int e, int col) {
+          return gelu(z[e] + bf(b1, j * kChunk + col));
+        }, th.cg * 32, th.row(0), th.t);
+        named_barrier(1, kConsumers);
+        const uint32_t a = smem_u32(act), w2 = tile(2 * j + 1);
+        ring.wait_full(2 * j + 1);
+        wgmma_fence();
+  #pragma unroll
+        for (int at = 0; at < L::kOwn; ++at)
+  #pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss<0>(o[at], desc_k(a + 32 * ks),
+                        desc_k(w2 + (th.cg * L::kOwn + at) * kTileBytes + 32 * ks),
+                        1);
+        wgmma_commit();
+        wgmma_wait<0>();
+  #pragma unroll
+        for (int at = 0; at < L::kOwn; ++at) fence_regs(o[at]);
+        ring.release(2 * j + 1);
+      }
+    }
+    // x is read at once, ahead of the epilogue.
+    uint32_t xr[2][L::kOwn][8];
+    load_pairs<C, false>(xr, x, th, r0, N);
+
+    // y = x + γ·(o + b2), rows below N, columns below C.
+  #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + th.row(r);
+      if (row >= N) continue;
+  #pragma unroll
+      for (int at = 0; at < L::kOwn; ++at)
+  #pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = th.col(at, nt);
+          if (col >= C) continue;
+          const float2 xv = bf2(xr[r][at][nt]), gv = bf2(gamma + col),
+                       bv = bf2(b2 + col);
+          *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(row) * C + col) =
+              pack_bf16x2(xv.x + gv.x * (o[at][4 * nt + 2 * r] + bv.x),
+                          xv.y + gv.y * (o[at][4 * nt + 2 * r + 1] + bv.y));
+        }
+    }
+
   }
 }
 
@@ -690,15 +1108,77 @@ int launch_fwd(const void* h, const void* x, const void* lns, const void* lnb,
   if (!err) err = weight_maps<C>(&tw1, &tw2, w1, w2);
   if (err) return err;
   err = static_cast<int>(cudaFuncSetAttribute(
-      convnext_tail_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes));
+      convnext_tail_fwd_kernel<C, 1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes));
   if (err) return err;
-  convnext_tail_fwd_kernel<C>
+  convnext_tail_fwd_kernel<C, 1>
       <<<(N + L::kRows - 1) / L::kRows, kBlockThreads, L::kBytes, stream>>>(
           th, tw1, tw2, static_cast<const bf16*>(x),
           static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),
           static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
-          static_cast<const bf16*>(gamma), static_cast<bf16*>(y), N, eps);
+          static_cast<const bf16*>(gamma), static_cast<bf16*>(y), N, eps,
+          nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pre-split of the fp32 form: W1 (4C, C) and W2 (C, 4C), n = 4C² fp32
+// values each, into parts (2, 3, n) bf16, weight w's part p at (w, p):
+// x = x0 + x1 + x2 exactly (x0 = bf16(x), x1 = bf16(x − x0), x2 = bf16(x −
+// x0 − x1)), as attention_bwd.cu:split_parts_kernel splits its operands.
+// A thread takes four neighbouring values: a 16-byte load, three 8-byte
+// stores. Bound by its bytes: 4 read and 6 written a value.
+__global__ void split_weights_kernel(const float* __restrict__ w1,
+                                     const float* __restrict__ w2,
+                                     bf16* __restrict__ parts, int n) {
+  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  const float* src = blockIdx.y == 0 ? w1 : w2;
+  bf16* dst = parts + static_cast<size_t>(blockIdx.y) * 3 * n + i;
+  float4 x = *reinterpret_cast<const float4*>(src + i);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+    *reinterpret_cast<uint2*>(dst + static_cast<size_t>(p) * n) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+    x.x = __fsub_rn(x.x, __low2float(lo));
+    x.y = __fsub_rn(x.y, __high2float(lo));
+    x.z = __fsub_rn(x.z, __low2float(hi));
+    x.w = __fsub_rn(x.w, __high2float(hi));
+  }
+}
+
+// The tensor map of one weight's three parts, (3, rows, cols) bf16: 4-D
+// (cols, rows, 3, 1), boxes of 64 columns x 64 rows of one part, zeros past
+// the part's rows and columns.
+int parts_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  const long long st[3] = {0, static_cast<long long>(rows) * cols, cols};
+  return head_map(map, base, st, 1, 3, rows, cols);
+}
+
+template <int C>
+int launch_fwd_parts(const void* h, const void* x, const void* lns,
+                     const void* lnb, const void* parts, const void* b1,
+                     const void* b2, const void* gamma, void* y, int N,
+                     float eps, cudaStream_t stream) {
+  using L = SplitTail<C>;
+  CUtensorMap th{}, tw1, tw2;
+  const bf16* w1p = static_cast<const bf16*>(parts);
+  int err = parts_map(&tw1, w1p, 4 * C, C);
+  if (!err) err = parts_map(&tw2, w1p + 3 * 4 * C * C, C, 4 * C);
+  if (err) return err;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      convnext_tail_fwd_kernel<C, 3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes));
+  if (err) return err;
+  convnext_tail_fwd_kernel<C, 3>
+      <<<(N + L::kRows - 1) / L::kRows, kBlockThreads, L::kBytes, stream>>>(
+          th, tw1, tw2, static_cast<const float*>(x),
+          static_cast<const float*>(lns), static_cast<const float*>(lnb),
+          static_cast<const float*>(b1), static_cast<const float*>(b2),
+          static_cast<const float*>(gamma), static_cast<float*>(y), N, eps,
+          static_cast<const float*>(h));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -728,14 +1208,57 @@ int launch_bwd(const void* h, const void* dy, const void* lns, const void* lnb,
 
 }  // namespace
 
-// Dynamic shared memory of K3 (bwd 0) or K4 (bwd 1) at width C, bytes, or 0
+// Dynamic shared memory of K3 (bwd 0) or K4 (bwd 1) at width C, bytes, of
+// the bf16 kernels (parts 1) or of K3's fp32 form (parts 3, bwd 0), or 0
 // for another C (for the build report).
-extern "C" int convnext_tail_smem(int C, int bwd) {
+extern "C" int convnext_tail_smem(int C, int bwd, int parts) {
+  if (parts == 3) {
+    if (bwd) return 0;
+    switch (C) {
+      case 96: return SplitTail<96>::kBytes;
+      case 192: return SplitTail<192>::kBytes;
+      case 384: return SplitTail<384>::kBytes;
+      default: return 0;
+    }
+  }
   switch (C) {
     case 96: return bwd ? Tail<96, true>::kBytes : Tail<96, false>::kBytes;
     case 192: return bwd ? Tail<192, true>::kBytes : Tail<192, false>::kBytes;
     case 384: return bwd ? Tail<384, true>::kBytes : Tail<384, false>::kBytes;
     default: return 0;
+  }
+}
+
+// K3's fp32 form, first pass: w1 (4C, C) and w2 (C, 4C) fp32, contiguous
+// and 16-byte aligned, into parts (2, 3, 4C·C) bf16 (see
+// split_weights_kernel). C a multiple of 32 (cudaErrorInvalidValue
+// otherwise). Returns cudaGetLastError() after the launch.
+extern "C" int convnext_tail_split(const void* w1, const void* w2, void* parts,
+                                   int C, void* stream) {
+  if (C <= 0 || C % 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = 4 * C * C;
+  const dim3 grid((n / 4 + 255) / 256, 2);
+  split_weights_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w1), static_cast<const float*>(w2),
+      static_cast<bf16*>(parts), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's fp32 form: h, x, y (N, C) fp32; lns, lnb, b2, gamma (C,) and b1 (4C,)
+// fp32; parts the weights' parts from convnext_tail_split. All contiguous
+// and 16-byte aligned. C in {96, 192, 384}. Returns as convnext_tail_fwd.
+extern "C" int convnext_tail_f32_fwd(const void* h, const void* x,
+                                     const void* lns, const void* lnb,
+                                     const void* parts, const void* b1,
+                                     const void* b2, const void* gamma, void* y,
+                                     int N, int C, float eps, void* stream) {
+  if (N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 96: return launch_fwd_parts<96>(h, x, lns, lnb, parts, b1, b2, gamma, y, N, eps, st);
+    case 192: return launch_fwd_parts<192>(h, x, lns, lnb, parts, b1, b2, gamma, y, N, eps, st);
+    case 384: return launch_fwd_parts<384>(h, x, lns, lnb, parts, b1, b2, gamma, y, N, eps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

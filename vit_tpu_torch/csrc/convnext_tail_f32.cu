@@ -1,33 +1,31 @@
-// The fp32 forms of K3 / K4, the frozen ConvNeXt block tail, forward and
-// input gradient, for Hopper (sm_90a).
+// The fp32 form of K4, the frozen ConvNeXt block tail's input gradient, for
+// Hopper (sm_90a). (K3's fp32 form is convnext_tail.cu's kernel with
+// kParts = 3.)
 //
-// Replace the Pallas kernels vit_tpu/kernels/convnext_block.py:_fwd_kernel
-// (:89, launched by _fwd_impl :248) and _bwd_kernel (:109, launched by
-// _bwd_impl :276) when they run on fp32 rows, where their products run at
-// Precision.HIGHEST (:93, :117). The math of convnext_tail.cu without its
-// bf16 casts, on rows (N, C) with fp32 parameters:
-//   forward:  u = LN(h)·lns + lnb; z = u·W1ᵀ + b1; a = gelu(z);
-//             y = x + γ ⊙ (a·W2ᵀ + b2)
-//   backward: do = γ⊙dy; da = do·W2; dz = da⊙gelu′(z); du = dz·W1;
-//             dh = rstd·(dû − mean(dû) − û·mean(dû⊙û)), dû = du⊙lns
-// with the two-pass fp32 LN statistics and the tanh-erf GELU pair of
+// Replaces the Pallas kernel vit_tpu/kernels/convnext_block.py:_bwd_kernel
+// (:109, launched by _bwd_impl :276) when it runs on fp32 rows, where its
+// products run at Precision.HIGHEST (:117). The math of convnext_tail.cu's
+// K4 without its bf16 casts, on rows (N, C) with fp32 parameters:
+//   u = LN(h)·lns + lnb; z = u·W1ᵀ + b1; do = γ⊙dy; da = do·W2;
+//   dz = da⊙gelu′(z); du = dz·W1;
+//   dh = rstd·(dû − mean(dû) − û·mean(dû⊙û)), dû = du⊙lns
+// with the two-pass fp32 LN statistics and the tanh-erf GELU derivative of
 // gelu.cuh. W1 (4C, C) and W2 (C, 4C) come in PyTorch's Linear layout; the
 // SIMT products read either orientation, so no transposed copies are made.
 //
-// Design: a block of 256 threads owns R rows (64 forward, 32 backward) and
-// keeps them on chip: the LN output u (and γ⊙dy) as an R x C fp32 tile in
-// shared memory (98.6 KB forward at C 384) and the R x C output accumulator
-// in registers (each thread R/16 rows x C/16 columns). It walks the 4C
-// dimension in chunks of 64: z (and da) for the chunk from u against W1
-// streamed through shared memory in pieces of 32 columns of C, then a (dz)
-// into shared memory, then the second product against W2's (W1's) chunk,
-// streamed in pieces of 16 rows. The (N, 4C) intermediate never reaches
-// device memory, as on the TPU. The backward takes 32 rows so that u, γ⊙dy
-// and the pieces fit in 227 KB.
+// Design: a block of 256 threads owns 32 rows and keeps them on chip: the
+// LN output u and γ⊙dy as 32 x C fp32 tiles in shared memory and the
+// 32 x C accumulator of du in registers (each thread 2 rows x C/16
+// columns). It walks the 4C dimension in chunks of 64: z and da for the
+// chunk from u and γ⊙dy against W1 and W2 streamed through shared memory in
+// pieces of 32 columns of C, then dz into shared memory, then du += dz·W1
+// against the chunk's W1 rows, streamed in pieces of 16 rows. The (N, 4C)
+// intermediates never reach device memory, as on the TPU. 32 rows, so that
+// u, γ⊙dy and the pieces fit in 227 KB.
 //
-// What bounds it: 16·C² FLOP per row forward and 24·C² backward against
-// 3·C·4 bytes of rows: the CUDA cores' fp32 FMA rate (fma_probe.cu), far
-// from the memory. Weights are re-read from L2 once per block.
+// What bounds it: 24·C² FLOP per row against 3·C·4 bytes of rows: the CUDA
+// cores' fp32 FMA rate (fma_probe.cu), far from the memory. Weights are
+// re-read from L2 once per block.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,14 +37,12 @@ namespace {
 
 using namespace vit;
 
-constexpr int kFwdRows = 64;
 constexpr int kBwdRows = 32;
 constexpr int kF = 64;       // 4C columns per chunk
 constexpr int kKc = 32;      // C columns per streamed W1 (W2ᵀ) piece
 constexpr int kKf = 16;      // 4C rows per streamed second-product piece
 constexpr int kFP = kF + 1;
 constexpr int kKcP = kKc + 1;
-constexpr int kKfP = kKf + 1;
 constexpr int kWarps = kSimtThreads / 32;
 
 // LayerNorm of rows [r0, r0 + R) of h into sU (pitch C + 1): two-pass fp32
@@ -99,77 +95,6 @@ __device__ __forceinline__ void load_block(float* sm, int pitch,
   for (int i = threadIdx.x; i < rows * cols; i += kSimtThreads) {
     const int r = i / cols, c = i % cols;
     sm[r * pitch + c] = src[static_cast<size_t>(r0 + r) * ld + c0 + c];
-  }
-}
-
-template <int C>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (kFwdRows * (C + 1) + kF * kKcP + kFwdRows * kFP +
-                          C * kKfP + 2 * kFwdRows);
-}
-
-template <int C>
-__global__ void __launch_bounds__(kSimtThreads)
-convnext_tail_f32_fwd_kernel(const float* __restrict__ h,
-                             const float* __restrict__ x,
-                             const float* __restrict__ lns,
-                             const float* __restrict__ lnb,
-                             const float* __restrict__ w1,
-                             const float* __restrict__ b1,
-                             const float* __restrict__ w2,
-                             const float* __restrict__ b2,
-                             const float* __restrict__ gamma,
-                             float* __restrict__ y, int N, float eps) {
-  constexpr int R = kFwdRows, TM = R / kSimtSide, TC = C / kSimtSide;
-  extern __shared__ float smem[];
-  float* sU = smem;                       // [R][C + 1]: u
-  float* sW1 = sU + R * (C + 1);          // [64][33]: W1 rows f, columns c
-  float* sA = sW1 + kF * kKcP;            // [R][65]: a = gelu(z)
-  float* sW2 = sA + R * kFP;              // [C][17]: W2 rows c, columns f
-  float* sMu = sW2 + C * kKfP;
-  float* sRstd = sMu + R;
-
-  const int r0 = blockIdx.x * R;
-  const int ty = simt_ty(), tx = simt_tx();
-  layer_norm_rows<C, R>(sU, sMu, sRstd, h, lns, lnb, r0, N, eps);
-
-  float o[TM][TC];
-  simt_zero(o);
-  for (int f0 = 0; f0 < 4 * C; f0 += kF) {
-    float z[TM][kF / kSimtSide];
-    simt_zero(z);
-    for (int c0 = 0; c0 < C; c0 += kKc) {
-      __syncthreads();
-      load_block(sW1, kKcP, w1, C, f0, kF, c0, kKc);
-      __syncthreads();
-      simt_product<TM, kF / kSimtSide, false, true>(z, sU + c0, C + 1, sW1,
-                                                    kKcP, kKc);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < kF / kSimtSide; ++j)
-        sA[(ty + 16 * i) * kFP + tx + 16 * j] =
-            gelu(z[i][j] + b1[f0 + tx + 16 * j]);
-    for (int f1 = 0; f1 < kF; f1 += kKf) {
-      __syncthreads();
-      load_block(sW2, kKfP, w2, 4 * C, 0, C, f0 + f1, kKf);
-      __syncthreads();
-      simt_product<TM, TC, false, true>(o, sA + f1, kFP, sW2, kKfP, kKf);
-    }
-  }
-
-  // y = x + γ·(o + b2), rows below N.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = r0 + ty + 16 * i;
-    if (row >= N) continue;
-#pragma unroll
-    for (int j = 0; j < TC; ++j) {
-      const int col = tx + 16 * j;
-      const size_t idx = static_cast<size_t>(row) * C + col;
-      y[idx] = x[idx] + gamma[col] * (o[i][j] + b2[col]);
-    }
   }
 }
 
@@ -264,26 +189,6 @@ convnext_tail_f32_bwd_kernel(const float* __restrict__ h,
 }
 
 template <int C>
-int launch_fwd(const void* h, const void* x, const void* lns, const void* lnb,
-               const void* w1, const void* b1, const void* w2, const void* b2,
-               const void* gamma, void* y, int N, float eps,
-               cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(
-      convnext_tail_f32_fwd_kernel<C>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  convnext_tail_f32_fwd_kernel<C>
-      <<<(N + kFwdRows - 1) / kFwdRows, kSimtThreads, smem, stream>>>(
-          static_cast<const float*>(h), static_cast<const float*>(x),
-          static_cast<const float*>(lns), static_cast<const float*>(lnb),
-          static_cast<const float*>(w1), static_cast<const float*>(b1),
-          static_cast<const float*>(w2), static_cast<const float*>(b2),
-          static_cast<const float*>(gamma), static_cast<float*>(y), N, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int C>
 int launch_bwd(const void* h, const void* dy, const void* lns, const void* lnb,
                const void* w1, const void* b1, const void* w2,
                const void* gamma, void* dh, int N, float eps,
@@ -304,25 +209,6 @@ int launch_bwd(const void* h, const void* dy, const void* lns, const void* lnb,
 }
 
 }  // namespace
-
-// h, x, y: (N, C) fp32; lns, lnb, b2, gamma: (C,); w1: (4C, C); b1: (4C,);
-// w2: (C, 4C); all fp32 and contiguous. C in {96, 192, 384}. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for another C).
-extern "C" int convnext_tail_f32_fwd(const void* h, const void* x,
-                                     const void* lns, const void* lnb,
-                                     const void* w1, const void* b1,
-                                     const void* w2, const void* b2,
-                                     const void* gamma, void* y, int N, int C,
-                                     float eps, void* stream) {
-  if (N == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 96: return launch_fwd<96>(h, x, lns, lnb, w1, b1, w2, b2, gamma, y, N, eps, st);
-    case 192: return launch_fwd<192>(h, x, lns, lnb, w1, b1, w2, b2, gamma, y, N, eps, st);
-    case 384: return launch_fwd<384>(h, x, lns, lnb, w1, b1, w2, b2, gamma, y, N, eps, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // h, dy, dh: (N, C) fp32; lns, lnb, gamma: (C,); w1: (4C, C); b1: (4C,);
 // w2: (C, 4C); all fp32 and contiguous. C in {96, 192, 384}.

@@ -3,7 +3,8 @@
 // (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate) that
 // the attention kernels (K6, K7/K8 and their packed forms K1, K2; their
 // fp32 forms through fp32-accurate products of three bf16 parts), the
-// ConvNeXt block tail (K3, K4) and the depthwise convolution (K11a, K11b:
+// ConvNeXt block tail (K3, K4; K3's fp32 form the same way) and the
+// depthwise convolution (K11a, K11b:
 // halo tiles in, output tiles out by TMA) are built from, and the host side
 // of their tensor maps.
 //
@@ -436,30 +437,32 @@ template <int kParts>
 constexpr int kFirstTerm = kParts == 1 ? 5 : 0;
 
 // d = A·Bᵀ over 64 (mma_abt) from kParts-part tiles, A's parts a_part
-// bytes apart and B's b_part bytes apart. 4 wgmmas a term.
-template <int kParts>
+// bytes apart and B's b_part bytes apart. 4 wgmmas a term, or kSteps over
+// the first 16·kSteps of the 64 (a tile's reduction past a row's end).
+template <int kParts, int kSteps = 4>
 __device__ __forceinline__ void mma_abt_parts(float (&d)[32], uint32_t a,
                                               uint32_t a_part, uint32_t b,
                                               uint32_t b_part) {
 #pragma unroll
   for (int t = kFirstTerm<kParts>; t < 6; ++t)
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int ks = 0; ks < kSteps; ++ks)
       wgmma_ss<0>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
                   desc_k(b + split_b(t) * b_part + 32 * ks),
                   t > kFirstTerm<kParts> || ks > 0);
 }
 
 // The same over 32 columns (wgmma_ss_n32): d (64 x 32) = A·Bᵀ with B the
-// 32 rows of a K-major tile from b (4096 bytes into it for its rows 32-63).
-template <int kParts>
+// 32 rows of a K-major tile from b (4096 bytes into it for its rows 32-63),
+// over the first 16·kSteps of the 64 (a tile's reduction past a row's end).
+template <int kParts, int kSteps = 4>
 __device__ __forceinline__ void mma_abt_parts_n32(float (&d)[16], uint32_t a,
                                                   uint32_t a_part, uint32_t b,
                                                   uint32_t b_part) {
 #pragma unroll
   for (int t = kFirstTerm<kParts>; t < 6; ++t)
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int ks = 0; ks < kSteps; ++ks)
       wgmma_ss_n32<0>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
                       desc_k(b + split_b(t) * b_part + 32 * ks),
                       t > kFirstTerm<kParts> || ks > 0);
@@ -478,6 +481,21 @@ __device__ __forceinline__ void mma_rb_parts(
     for (int ks = 0; ks < kSteps; ++ks)
       wgmma_rs<1>(d, a[split_a(t)][ks],
                   desc_mn(b + split_b(t) * b_part + 2048 * ks));
+}
+
+// d += A·Bᵀ over 64: A's parts as register fragments a[part][k16 step], B
+// a kParts-part tile read K-major from b (its rows the N dimension, 32
+// bytes a k16 step), its parts b_part bytes apart; e.g. o += a·W2ᵀ.
+template <int kParts>
+__device__ __forceinline__ void mma_rbt_parts(
+    float (&d)[32], const uint32_t (&a)[kParts][4][4], uint32_t b,
+    uint32_t b_part) {
+#pragma unroll
+  for (int t = kFirstTerm<kParts>; t < 6; ++t)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_rs<0>(d, a[split_a(t)][ks],
+                  desc_k(b + split_b(t) * b_part + 32 * ks));
 }
 
 // d += A·B (mma_rb_parts), waited for. The fp32 forms (kParts = 3) take

@@ -11,17 +11,27 @@
 //
 // What bounds them: bytes. K9b reads zpre and dz and writes dzc, 6 bytes per
 // element for ~30 FLOP; K9c reads x and g and writes dx, 6 bytes per element
-// for ~10 FLOP. Both read and write 16 or 8 bytes a thread with neighbouring
-// threads on neighbouring addresses, and keep every intermediate in
-// registers: K9b is a grid-stride loop over 8-element vectors; K9c gives each
-// row (C ≤ 1024) to one warp, whose lanes hold 4·C/128 values of x and of g
-// and reduce Σx, Σ(x − μ)², Σg and Σg·x̂ with shuffles. A ragged tail is
-// handled element by element; nothing is padded.
+// (12 in fp32) for ~10 FLOP. K9b is a grid-stride loop over 16-byte
+// vectors. K9c gives each row to a warp, 4 warps a block, and keeps the
+// memory busy while rows reduce:
+// - one kernel per width (C a multiple of 128 up to 1024, a template
+//   parameter), so each lane holds exactly its C/32 values of x and of g
+//   and starts all its loads at once;
+// - 16-byte loads and stores (st.global.cs) a lane, 8 bf16 or 4 fp32
+//   values (bf16 rows of 128, 384, 640 or 896 end with an 8-byte step);
+//   nothing is padded;
+// - two rounds of paired warp sums, (Σx, Σg) and then (Σd², Σg·d) with
+//   d = x − μ, whose shuffles interleave; c2 = rstd·Σg·d/C.
+// On an H100, persistent warps that walk rows came out no faster in either
+// row type, whether the next row's loads sat in registers while one
+// reduced (a second fp32 row in registers cuts the warps an SM holds) or a
+// ring of rows sat in shared memory, fed by 1-D bulk copies (cp.async.bulk);
+// PERF.md §6 has this form's times.
 //
 // Both kernels are templated on the element type (bf16 or fp32), for the
 // JAX kernels' fp32 operands: the fp32 forms read and write fp32 with the
-// same fp32 arithmetic, 4 values per 16-byte vector in K9b and 4 per lane
-// and 128-column step in K9c. Their bound is bytes as well.
+// same fp32 arithmetic, 4 values per 16-byte vector. Their bound is bytes
+// as well.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,9 +45,7 @@ namespace {
 
 using namespace vit;
 
-constexpr int kBlock = 256;
-constexpr int kWarps = kBlock / 32;
-constexpr int kMaxC = 1024;
+constexpr int kBlock = 256;  // K9b's threads a block
 
 // 16 bytes of T as floats, and back: 8 bf16 or 4 fp32 values.
 template <typename T>
@@ -85,97 +93,142 @@ dgelu_kernel(const T* __restrict__ zpre, const T* __restrict__ dz,
       dzc[i] = from_f<T>(to_f(dz[i]) * gelu_grad(to_f(zpre[i])));
 }
 
-// Four neighbouring values of T as floats, and back (8 or 16 bytes).
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
-  if constexpr (sizeof(T) == 2) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    const T* e = reinterpret_cast<const T*>(&r);
+// K9c's block: 4 warps, a row a warp.
+constexpr int kLnWarps = 4;
+constexpr int kLnThreads = 32 * kLnWarps;
+
+// What a lane of K9c holds of a row of C values of T: kFull 16-byte chunks
+// (lane + 32·j of the row's chunks), then, where 32 chunks do not divide
+// the row (bf16 at C 128, 384, 640, 896), kTail values of 8 bytes at the
+// row's end. kPer values in all.
+template <typename T, int C>
+struct LnRow {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kFull = C / (32 * kVec);
+  static constexpr int kTail = (C % (32 * kVec)) / 32;
+  static constexpr int kPer = kFull * kVec + kTail;
+  static_assert(C % 128 == 0 && (kTail == 0 || kTail == 4), "C");
+};
+
+// One 16- or 8-byte load: bf16 with the streaming hint (ld.global.cs, each
+// value is read once), fp32 plain (on an H100 the hint made bf16 faster
+// and fp32 slower).
+template <typename T, typename V>
+__device__ __forceinline__ V load_once(const uint8_t* p) {
+  if constexpr (sizeof(T) == 2)
+    return __ldcs(reinterpret_cast<const V*>(p));
+  else
+    return *reinterpret_cast<const V*>(p);
+}
+
+// A lane's kPer values of the row at `row` (global memory) as floats.
+template <typename T, int C>
+__device__ __forceinline__ void load_row(const T* row, int lane,
+                                         float (&v)[LnRow<T, C>::kPer]) {
+  using R = LnRow<T, C>;
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(row);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = to_f(e[k]);
-  } else {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    v[0] = r.x;
-    v[1] = r.y;
-    v[2] = r.z;
-    v[3] = r.w;
+  for (int j = 0; j < R::kFull; ++j) {
+    float e[R::kVec];
+    unpack16<T>(load_once<T, uint4>(p + 16 * (lane + 32 * j)), e);
+#pragma unroll
+    for (int k = 0; k < R::kVec; ++k) v[j * R::kVec + k] = e[k];
+  }
+  if constexpr (R::kTail != 0) {
+    const uint2 raw = load_once<T, uint2>(p + 512 * R::kFull + 8 * lane);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < R::kTail; ++k) v[R::kFull * R::kVec + k] = to_f(e[k]);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float a, float b, float c,
-                                       float d) {
-  if constexpr (sizeof(T) == 2) {
-    uint2 packed;
-    packed.x = pack_bf16x2(a, b);
-    packed.y = pack_bf16x2(c, d);
-    *reinterpret_cast<uint2*>(p) = packed;
-  } else {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+// Streaming stores (st.global.cs): dx is not read again by this kernel.
+__device__ __forceinline__ void store_cs(void* p, const uint4& v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void store_cs(void* p, const uint2& v) {
+  asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};\n" ::"l"(p), "r"(v.x),
+               "r"(v.y)
+               : "memory");
+}
+
+// A lane's kPer values of dx into the row at `out` (global memory).
+template <typename T, int C>
+__device__ __forceinline__ void write_row(T* out, int lane,
+                                          const float (&v)[LnRow<T, C>::kPer]) {
+  using R = LnRow<T, C>;
+  uint8_t* row = reinterpret_cast<uint8_t*>(out);
+#pragma unroll
+  for (int j = 0; j < R::kFull; ++j) {
+    float e[R::kVec];
+#pragma unroll
+    for (int k = 0; k < R::kVec; ++k) e[k] = v[j * R::kVec + k];
+    store_cs(row + 16 * (lane + 32 * j), pack16<T>(e));
+  }
+  if constexpr (R::kTail != 0) {
+    const float* e = v + R::kFull * R::kVec;
+    store_cs(row + 512 * R::kFull + 8 * lane,
+             make_uint2(pack_bf16x2(e[0], e[1]), pack_bf16x2(e[2], e[3])));
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-              T* __restrict__ dx, int N, int C) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= N) return;
-  const size_t base = static_cast<size_t>(row) * C;
-  float xv[kMaxC / 128][4], gv[kMaxC / 128][4];
+// Two warp sums at once: their shuffles interleave.
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
+// dx of one row from a lane's share of x (xv, overwritten) and of g (gv,
+// overwritten with dx): two rounds of paired warp sums, (Σx, Σg), then
+// (Σd², Σg·d) with d = x − μ; rstd = rsqrt(Σd²/C + eps), c1 = Σg/C,
+// c2 = rstd·Σg·d/C, dx = rstd·(g − c1 − d·rstd·c2).
+template <typename T, int C>
+__device__ __forceinline__ void row_dx(float (&xv)[LnRow<T, C>::kPer],
+                                       float (&gv)[LnRow<T, C>::kPer]) {
+  using R = LnRow<T, C>;
   float sx = 0.0f, sg = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kMaxC / 128; ++j) {
-    if (j < C / 128) {
-      const size_t i = base + lane * 4 + 128 * j;
-      float xe[4], ge[4];
-      load4(x + i, xe);
-      load4(g + i, ge);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xv[j][e] = xe[e];
-        gv[j][e] = ge[e];
-        sx += xv[j][e];
-        sg += gv[j][e];
-      }
-    }
+  for (int e = 0; e < R::kPer; ++e) {
+    sx += xv[e];
+    sg += gv[e];
   }
-  const float mu = warp_sum(sx) / C;
-  const float c1 = warp_sum(sg) / C;
-  float sq = 0.0f;
+  warp_sum2(sx, sg);
+  const float mu = sx / C, c1 = sg / C;
+  float sq = 0.0f, sgd = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kMaxC / 128; ++j) {
-    if (j < C / 128) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xv[j][e] -= mu;
-        sq += xv[j][e] * xv[j][e];
-      }
-    }
+  for (int e = 0; e < R::kPer; ++e) {
+    xv[e] -= mu;
+    sq += xv[e] * xv[e];
+    sgd += gv[e] * xv[e];
   }
-  const float rstd = rsqrtf(warp_sum(sq) / C + 1e-5f);
-  float sgx = 0.0f;
+  warp_sum2(sq, sgd);
+  const float rstd = rsqrtf(sq / C + 1e-5f);
+  const float c2 = rstd * sgd / C;
 #pragma unroll
-  for (int j = 0; j < kMaxC / 128; ++j) {
-    if (j < C / 128) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xv[j][e] *= rstd;  // x̂
-        sgx += gv[j][e] * xv[j][e];
-      }
-    }
-  }
-  const float c2 = warp_sum(sgx) / C;
-#pragma unroll
-  for (int j = 0; j < kMaxC / 128; ++j) {
-    if (j < C / 128)
-      store4(dx + base + lane * 4 + 128 * j,
-             rstd * (gv[j][0] - c1 - xv[j][0] * c2),
-             rstd * (gv[j][1] - c1 - xv[j][1] * c2),
-             rstd * (gv[j][2] - c1 - xv[j][2] * c2),
-             rstd * (gv[j][3] - c1 - xv[j][3] * c2));
-  }
+  for (int e = 0; e < R::kPer; ++e)
+    gv[e] = rstd * (gv[e] - c1 - (xv[e] * rstd) * c2);
+}
+
+// Warp w of block b takes row b·kLnWarps + w: all of its loads at once,
+// its two rounds of sums, its stores.
+template <typename T, int C>
+__global__ void __launch_bounds__(kLnThreads)
+ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+              T* __restrict__ dx, int N) {
+  using R = LnRow<T, C>;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32;
+  if (row >= N) return;
+  float xv[R::kPer], gv[R::kPer];
+  load_row<T, C>(x + static_cast<size_t>(row) * C, lane, xv);
+  load_row<T, C>(g + static_cast<size_t>(row) * C, lane, gv);
+  row_dx<T, C>(xv, gv);
+  write_row<T, C>(dx + static_cast<size_t>(row) * C, lane, gv);
 }
 
 template <typename T>
@@ -192,17 +245,32 @@ int launch_dgelu(const void* zpre, const void* dz, void* dzc, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int C>
+int launch_ln_bwd_c(const void* x, const void* g, void* dx, int N,
+                    cudaStream_t stream) {
+  if (N == 0) return 0;
+  ln_bwd_kernel<T, C><<<(N + kLnWarps - 1) / kLnWarps, kLnThreads, 0,
+                        stream>>>(static_cast<const T*>(x),
+                                  static_cast<const T*>(g),
+                                  static_cast<T*>(dx), N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_ln_bwd(const void* x, const void* g, void* dx, int N, int C,
                   void* stream) {
-  if (C % 128 || C > kMaxC || C <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0) return 0;
-  ln_bwd_kernel<T><<<(N + kWarps - 1) / kWarps, kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx),
-      N, C);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 128: return launch_ln_bwd_c<T, 128>(x, g, dx, N, st);
+    case 256: return launch_ln_bwd_c<T, 256>(x, g, dx, N, st);
+    case 384: return launch_ln_bwd_c<T, 384>(x, g, dx, N, st);
+    case 512: return launch_ln_bwd_c<T, 512>(x, g, dx, N, st);
+    case 640: return launch_ln_bwd_c<T, 640>(x, g, dx, N, st);
+    case 768: return launch_ln_bwd_c<T, 768>(x, g, dx, N, st);
+    case 896: return launch_ln_bwd_c<T, 896>(x, g, dx, N, st);
+    case 1024: return launch_ln_bwd_c<T, 1024>(x, g, dx, N, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -220,9 +288,10 @@ extern "C" int ln_matmul_dgelu_f32(const void* zpre, const void* dz, void* dzc,
   return launch_dgelu<float>(zpre, dz, dzc, n, stream);
 }
 
-// x, g, dx: (N, C) of one type (bf16 for ln_bwd, 8-byte aligned; fp32 for
-// ln_bwd_f32, 16-byte aligned), contiguous; C a multiple of 128 up to 1024
-// (cudaErrorInvalidValue otherwise). Returns cudaGetLastError().
+// x, g, dx: (N, C) of one type (bf16 for ln_bwd, fp32 for ln_bwd_f32),
+// contiguous, 16-byte aligned; C a multiple of 128 up to 1024
+// (cudaErrorInvalidValue otherwise). Returns cudaGetLastError() after the
+// launch.
 extern "C" int ln_bwd(const void* x, const void* g, void* dx, int N, int C,
                       void* stream) {
   return launch_ln_bwd<bf16>(x, g, dx, N, C, stream);

@@ -28,7 +28,8 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
   convnext_tail.cu         K3   convnext_block.py:248 (_fwd_kernel :89)
                            K4   convnext_block.py:276 (_bwd_kernel :109)
                                 (on hopper.cuh too: a TMA ring of weight
-                                tiles, wgmma)
+                                tiles, wgmma); K3 on fp32 rows the same
+                                kernel over three bf16 parts (kParts = 3)
   vq_nearest.cu            K5   vq.py:83 (_vq_kernel :36)
   ln_matmul.cu             K9a  ln_matmul.py:121 (_fwd_kernel :60)
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
@@ -40,17 +41,17 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                                 tiles out; a dx-only form)
   convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
                            K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
-  convnext_tail_f32.cu     K3, K4 on fp32 rows
+  convnext_tail_f32.cu     K4 on fp32 rows
   fma_probe.cu             P    scripts/bench_vpu.py:60 (_fma_kernel :32)
 
 The JAX package runs every Pallas kernel on operands of the compute dtype,
 fp32 products at Precision.HIGHEST under ``--mixed false``. Each kernel
-therefore has an fp32 form: the attention kernels as fp32-accurate
+therefore has an fp32 form: the attention kernels and K3 as fp32-accurate
 products of three bf16 parts on the tensor cores (``attention_fwd.cu``,
-``attention_bwd.cu``), the ConvNeXt tails in their own source above (SIMT
-fp32 products, ``csrc/simt_f32.cuh``), the others
-as ``*_f32`` entries beside their bf16 ones (K9a, K10: SIMT products; K9b,
-K9c, K12a, K12b: the kernels templated on their row type). K5 is fp32 by
+``attention_bwd.cu``, ``convnext_tail.cu``), K4 in its own source above
+(SIMT fp32 products, ``csrc/simt_f32.cuh``), the others as ``*_f32``
+entries beside their bf16 ones (K9a, K10: SIMT products; K9b, K9c, K12a,
+K12b: the kernels templated on their row type). K5 is fp32 by
 design and K11 takes both dtypes through one entry.
 
 Every entry takes pointers and the CUDA stream as ``void*`` and returns
@@ -181,8 +182,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     #                   stream)
     lib.convnext_tail_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, ptr]
     lib.convnext_tail_bwd.restype = i32
-    # convnext_tail_smem(C, bwd): K3's or K4's dynamic shared memory, bytes
-    lib.convnext_tail_smem.argtypes = [i32, i32]
+    # convnext_tail_smem(C, bwd, parts): K3's or K4's dynamic shared memory,
+    # bytes (parts 3: K3's fp32 form)
+    lib.convnext_tail_smem.argtypes = [i32, i32, i32]
     lib.convnext_tail_smem.restype = i32
     # convnext_tail_fwd_q8(h, x, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, gamma,
     #                      y, N, C, eps, stream)
@@ -228,8 +230,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # attention_f32_split(q, k, v, bq, bk, bv, dout, parts, strides, B, S, H,
     #                     stream): the pre-split, dout null for the forward's
     lib.attention_f32_split.argtypes = [ptr] * 8 + [strides] + [i32] * 3 + [ptr]
-    for name, like in (("convnext_tail_f32_fwd", "convnext_tail_fwd"),
-                       ("convnext_tail_f32_bwd", "convnext_tail_bwd"),
+    # convnext_tail_split(w1, w2, parts, C, stream): K3 fp32's pre-split
+    lib.convnext_tail_split.argtypes = [ptr] * 3 + [i32, ptr]
+    # convnext_tail_f32_fwd(h, x, lns, lnb, parts, b1, b2, gamma, y, N, C,
+    #                       eps, stream)
+    lib.convnext_tail_f32_fwd.argtypes = [ptr] * 9 + [i32, i32, f32, ptr]
+    for name, like in (("convnext_tail_f32_bwd", "convnext_tail_bwd"),
                        ("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
                        ("convnext_tail_bwd_q8_f32", "convnext_tail_bwd_q8"),
                        ("ln_matmul_fwd_f32", "ln_matmul_fwd"),
@@ -241,7 +247,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, name).argtypes = [ptr, ptr, ctypes.c_longlong, i32, i32,
                                        f32, f32, ptr]
     for name in ("attention_f32_fwd", "attention_f32_bwd",
-                 "attention_f32_split", "convnext_tail_f32_fwd",
+                 "attention_f32_split", "convnext_tail_split",
+                 "convnext_tail_f32_fwd",
                  "convnext_tail_f32_bwd", "convnext_tail_fwd_q8_f32",
                  "convnext_tail_bwd_q8_f32",
                  "ln_matmul_fwd_f32", "ln_matmul_dgelu_f32", "ln_bwd_f32",

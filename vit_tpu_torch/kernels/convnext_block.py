@@ -38,9 +38,12 @@ Weights are passed in PyTorch's Linear layout: ``w1`` (4C, C) and ``w2``
 (C, 4C). Each wrapper launches its kernel for a CUDA tensor (bf16 or fp32
 rows, C ∈ ``CUDA_DIMS``) and runs its plain PyTorch version for a CPU
 tensor. The parameters are cast to the rows' dtype, as the JAX package
-casts them to the compute dtype; fp32 rows launch the fp32 forms
-(``csrc/convnext_tail_f32.cu`` for K3/K4, the fp32-row instantiations of
-``csrc/convnext_tail_q8.cu`` for K12a/K12b), counted apart in ``fp32_*``.
+casts them to the compute dtype; fp32 rows launch the fp32 forms, counted
+apart in ``fp32_*``: for K3 ``csrc/convnext_tail.cu``'s kernel over three
+bf16 parts of each operand (``kParts = 3``, after the weights' pre-split,
+:func:`split_weights`, into scratch of each call), for K4
+``csrc/convnext_tail_f32.cu`` (SIMT fp32 products), for K12a/K12b the
+fp32-row instantiations of ``csrc/convnext_tail_q8.cu``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from vit_tpu_torch.kernels import _build
+from vit_tpu_torch.kernels.attention import split3
 from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu
 
 MAX_FUSED_DIM = 384    # the JAX package's gate (a VMEM bound on the TPU)
@@ -149,8 +153,45 @@ def _shapes(c: int, lns, lnb, w1, b1, w2, b2=None, gamma=None) -> None:
             raise ValueError(f"{k} must be {want[k]}, got {tuple(t.shape)}")
 
 
+def split_weights_ref(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3 fp32's pre-split: w1 (4C, C) and w2 (C, 4C)
+    fp32 → (2, 3, 4C·C) bf16, weight w's part p at [w, p] (``split3``)."""
+    return torch.stack([torch.stack(split3(w.reshape(-1))) for w in (w1, w2)])
+
+
+def _split(lib, w1: torch.Tensor, w2: torch.Tensor, stream) -> torch.Tensor:
+    """Launch the pre-split (``convnext_tail_split``) of fp32 w1 and w2 on
+    ``stream`` into new scratch; returns the parts."""
+    c = w1.shape[1]
+    parts = torch.empty(2, 3, 4 * c * c, dtype=torch.bfloat16,
+                        device=w1.device)
+    err = lib.convnext_tail_split(w1.data_ptr(), w2.data_ptr(),
+                                  parts.data_ptr(), c, stream)
+    _build.check(lib, err, "convnext_tail_split")
+    return parts
+
+
+def split_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """K3 fp32's pre-split alone, the launch its wrapper makes before the
+    kernel, to check it against :func:`split_weights_ref` and time it: CUDA
+    w1 (4C, C) and w2 (C, 4C), cast to fp32 → (2, 3, 4C·C) bf16."""
+    c = w1.shape[1]
+    if w1.shape != (4 * c, c) or w2.shape != (c, 4 * c):
+        raise ValueError(f"w1 {tuple(w1.shape)} and w2 {tuple(w2.shape)} "
+                         f"are not (4C, C) and (C, 4C)")
+    if w1.device.type != "cuda":
+        raise ValueError(f"unsupported device {w1.device}")
+    w1, w2 = (_build.cuda_arg(w, w1, "weight", torch.float32)
+              for w in (w1, w2))
+    lib = _build.load()
+    with torch.cuda.device(w1.device):
+        return _split(lib, w1, w2,
+                      torch.cuda.current_stream(w1.device).cuda_stream)
+
+
 def convnext_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps=1e-6):
-    """K3: y = x + γ ⊙ (gelu(LN(h)·W1 + b1)·W2 + b2) on (N, C) rows."""
+    """K3: y = x + γ ⊙ (gelu(LN(h)·W1 + b1)·W2 + b2) on (N, C) rows. fp32
+    rows first launch the weights' pre-split into scratch of this call."""
     _shapes(h.shape[1], lns, lnb, w1, b1, w2, b2, gamma)
     if h.device.type == "cpu":
         return convnext_tail_fwd_ref(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps)
@@ -164,10 +205,17 @@ def convnext_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps=1e-6):
     lib = _build.load()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = getattr(lib, entry)(
-            h.data_ptr(), x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            gamma.data_ptr(), y.data_ptr(), n, c, eps, stream)
+        if f32:
+            parts = _split(lib, w1, w2, stream)
+            err = lib.convnext_tail_f32_fwd(
+                h.data_ptr(), x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                parts.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+                gamma.data_ptr(), y.data_ptr(), n, c, eps, stream)
+        else:
+            err = lib.convnext_tail_fwd(
+                h.data_ptr(), x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                gamma.data_ptr(), y.data_ptr(), n, c, eps, stream)
     _build.check(lib, err, entry)
     global launches, fp32_launches
     launches += 1

@@ -187,16 +187,17 @@ def ln_matmul_dgelu(zpre: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
 def ln_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K9c: dx (N, C) in x's dtype from x and the gradient g of x̂. A CUDA
     tensor launches the kernel (bf16 or fp32, one dtype, C a multiple of
-    128 up to 1024) or raises; a CPU tensor runs the plain version."""
+    128 up to 1024: one kernel per width) or raises; a CPU tensor runs the
+    plain version, at any width."""
     if x.shape != g.shape:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} differ")
     if x.device.type == "cpu":
         return ln_bwd_ref(x, g)
+    _check_width(x.shape[-1], "K9c")
     _build.compute_dtype("K9c", x, g)
     _build.check_rows(x, "K9c", "x")
     _build.check_rows(g, "K9c", "g")
     n, c = x.shape
-    _check_width(c, "K9c")
     dx = torch.empty_like(x)
     f32 = x.dtype == torch.float32
     entry = "ln_bwd_f32" if f32 else "ln_bwd"
