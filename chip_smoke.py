@@ -60,7 +60,8 @@ false``. Phases, one JSON line each:
                 alone beside the library's LayerNorm backward), and K12a
                 and K12b within ``Q8_MEAN_REL``, which a control (one
                 per-tensor activation scale for the per-row ones) must
-                fail; K11a and K11b (its dx-only form and its
+                fail, timed at the three fused stages, K12a with its ptxas
+                figures and shared memory; K11a and K11b (its dx-only form and its
                 full one) at ConvNeXt-S's four stages at bs 64 and a ragged
                 shape, fp32 and bf16: within one bf16 ulp, fp32 within
                 ``K11_MEAN_REL``, dw and db within ``K11_DW_MEAN_REL``
@@ -83,21 +84,23 @@ false``. Phases, one JSON line each:
                 max within K12_REL: int8 levels), at the fp32 paths' shapes,
                 the dropout arms included; K9a, K9c and K12 within their
                 mean limits as in the kernel phase; the fp32 attention
-                (K1, K6 forward and K2, K7/K8 backward) and K3 (products of
-                three bf16 parts on the tensor cores) also within
-                ``F32_FWD_MEAN_REL`` of the float64 forward's mean |o|,
-                |m| and |l|, ``F32_BWD_MEAN_REL`` of the plain backward's
-                mean |plain| and ``F32_TAIL_MEAN_REL`` of the float64
-                tail's mean |y| at each fused width, which controls (the
-                operands rounded to two parts) must fail, the pre-splits
-                (three operands forward, four backward, K3's weights) bit
-                for bit and timed alone, the ptxas figures and the bounds
-                at the split products' rate (six bf16 products an fp32 one)
-                beside P's; a TF32 control (the plain version
-                with TF32 on in the form's place) that must fail that limit
-                for K1, K2, K3, K6, K9a and K10; each form that was SIMT
-                fp32 (K3, K4, K9a, K10 and the fp32 rows of K9b, K9c,
-                K12a, K12b) also within its own ``SIMT_F32_MEAN_REL``,
+                (K1, K6 forward and K2, K7/K8 backward), K3 and K4
+                (products of three bf16 parts on the tensor cores) also
+                within ``F32_FWD_MEAN_REL`` of the float64 forward's mean
+                |o|, |m| and |l|, ``F32_BWD_MEAN_REL`` of the plain
+                backward's mean |plain|, ``F32_TAIL_MEAN_REL`` of the
+                float64 tail's mean |y| and ``F32_TAIL_BWD_MEAN_REL`` of
+                the float64 tail gradient's mean |dh| at each fused width,
+                which controls (the operands rounded to two parts) must
+                fail, the pre-splits (three operands forward, four
+                backward, K3's weights) bit for bit and timed alone, the
+                ptxas figures and the bounds at the split products' rate
+                (six bf16 products an fp32 one) beside P's; a TF32 control
+                (the plain version with TF32 on in the form's place) that
+                must fail that limit for K1, K2, K3, K4, K6, K9a and K10;
+                each form that was SIMT fp32 (K3, K4, K9a, K10 and the fp32
+                rows of K9b, K9c, K12a, K12b) also within its own
+                ``SIMT_F32_MEAN_REL``,
                 which its control (TF32, or operands rounded to bf16) must
                 fail;
                 times, bounds over P's fp32 rate and library times (SDPA on
@@ -233,8 +236,10 @@ sys.path.insert(0, str(ROOT))
 from vit_tpu_torch.bench_kernels import batched_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import device_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_attention_fwd  # noqa: E402
+from vit_tpu_torch.bench_kernels import exact_tail_bwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_tail_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import mean_rel  # noqa: E402
+from vit_tpu_torch.bench_kernels import two_part_tail_bwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_tail_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_parts  # noqa: E402
 from vit_tpu_torch.kernels import _build  # noqa: E402
@@ -476,6 +481,14 @@ F32_FWD_MEAN_REL = 3.33e-7
 # ("two_part_control_plain" in this script's fp32 phase). Against float64
 # it reads 1.21e-6 to 1.23e-6 and must fail this limit.
 F32_TAIL_MEAN_REL = 5.65e-7
+# K4's fp32 form likewise against the float64 tail gradient
+# (bench_kernels.exact_tail_bwd), mean |Δ| over mean |exact|, read on an
+# H100 at ConvNeXt-S's three fused stages and N 777: 1.94e-7 (C 96) to
+# 2.21e-7 (C 384), where the plain fp32 backward reads 2.8e-7 to 7.6e-7.
+# 10× the largest; the two-part control (bench_kernels.two_part_tail_bwd:
+# u, do, dz and the weights rounded to x0 + x1) reads 5.58e-6 to 5.65e-6
+# and must fail it.
+F32_TAIL_BWD_MEAN_REL = 2.21e-6
 # K9a and K9c against their plain versions, mean |Δ| over mean |plain|:
 # ulp flips of the bf16 outputs (the fp32 forms: sums in another order),
 # read on an H100 by this script at 0 to 2.52e-6 (K9a's z at (130, 768 →
@@ -1259,17 +1272,19 @@ def tail_build() -> dict:
     """ptxas's report, the dynamic shared memory and the blocks an SM holds
     (228 KB of shared memory an SM, 1 KB of it reserved a block) of K3's
     and K4's kernels at each width: ``convnext_tail_fwd_kernel<C, kParts>``
-    (kParts 3: K3's fp32 form) and ``convnext_tail_bwd_kernel<C>``."""
+    and ``convnext_tail_bwd_kernel<C, kParts>`` (kParts 3: the fp32
+    forms), and ``convnext_tail_gz_kernel<C>`` (K4 fp32's z pre-pass)."""
     lib = _build.load()
+    kinds = {"convnext_tail_fwd_kernel": 0, "convnext_tail_bwd_kernel": 1,
+             "convnext_tail_gz_kernel": 2}
     out = {}
     for name, report in measured.get("ptxas", {}).items():
         base = name.partition("<")[0]
-        if base not in ("convnext_tail_fwd_kernel", "convnext_tail_bwd_kernel"):
+        if base not in kinds:
             continue
         args = template_args(name)
-        smem = lib.convnext_tail_smem(int(args[0]),
-                                      int(base == "convnext_tail_bwd_kernel"),
-                                      int(args[1]) if len(args) > 1 else 1)
+        smem = lib.convnext_tail_smem(int(args[0]), kinds[base],
+                                      int(args[1]) if len(args) > 1 else 3)
         out[name] = dict(ptxas=report, dynamic_smem_bytes=smem,
                          blocks_per_sm_by_smem=233472 // (smem + 1024))
     return out
@@ -2124,11 +2139,49 @@ def random_tail(n: int, c: int, gen, gamma_scale: float = 0.5):
     return rows, params
 
 
+def k12a_flat_rows(gen) -> list:
+    """K12a against its plain version, within ``K12_REL`` and
+    ``Q8_MEAN_REL``, on rows whose every z lies below 0.27, where GELU is
+    flat or small (b1 = −1.2, W1 scaled so that u·W1 spreads z by about
+    0.25 around it, across GELU's minimum at −0.75): each such row takes
+    the absmax of gelu(z) over every element
+    (``csrc/convnext_tail_q8.cu:exact_absmax``) instead of from its
+    largest and smallest z. At C 96, 192 and 384, N 777, bf16 and fp32
+    rows; checks from the plain version's z that every row is such a
+    row."""
+    rows = []
+    for c in (96, 192, 384):
+        (h, x, _), (lns, lnb, w1, b1, w2, b2, gamma) = random_tail(777, c, gen)
+        w1, b1 = 0.25 * w1, torch.full_like(b1, -1.2)
+        for dt in (torch.bfloat16, torch.float32):
+            args = (h.to(dt), x.to(dt), lns, lnb, w1, b1, w2, b2, gamma, 1e-6)
+            out = k_cnx.convnext_tail_fwd_q8(*args)
+            torch.cuda.synchronize()
+            ref = k_cnx.convnext_tail_fwd_q8_ref(*args)
+            # z as the plain version forms it
+            w1q, w1s = k_cnx.quant_cols(w1.t())
+            uhat, _ = k_cnx._normalize(args[0], 1e-6)
+            uq, us = k_cnx.quant_rows(uhat * lns.to(dt).float()
+                                      + lnb.to(dt).float())
+            z = torch._int_mm(uq, w1q).float() * us * w1s + b1.to(dt).float()
+            row = dict(N=777, C=c, dtype=str(dt)[6:], **rel_errors(out, ref),
+                       z_max=float(z.max()), z_min=float(z.min()))
+            rows.append(row)
+            require(row["z_max"] < 0.27 and bool(torch.isfinite(out).all())
+                    and row["max_rel"] <= K12_REL
+                    and row["mean_rel"] <= Q8_MEAN_REL,
+                    f"K12a disagrees with its plain version on flat rows: {row}")
+            del out, ref, z
+        del h, x
+    return rows
+
+
 def int8_tail_kernels(gen) -> dict:
     """K12a and K12b against their plain versions at the three fused stages'
-    shapes of the int8 step and a ragged N, then their times, bounds and the
-    time of their int8 products alone (``torch._int_mm``) at N 12544,
-    C 384."""
+    shapes of the int8 step and a ragged N, their times and bounds at each
+    stage, the plain versions' time and the time of their int8 products
+    alone (``torch._int_mm``) at N 12544, C 384, and K12a's ptxas figures
+    and shared memory."""
     runs = {"convnext_tail_fwd_q8": dict(rows=[], max=0.0),
             "convnext_tail_bwd_q8": dict(rows=[], max=0.0)}
     for n, c in [(n, c) for _, _, n, c in CNX_STAGES] + [(777, 384)]:
@@ -2153,8 +2206,15 @@ def int8_tail_kernels(gen) -> dict:
                     and row["differs_from_bf16_tail"],
                     f"{name} disagrees with its plain version: {row}")
             runs[name]["max"] = max(runs[name]["max"], row["max_abs"])
+            if (n, c) in [(n_, c_) for _, _, n_, c_ in CNX_STAGES]:
+                runs[name].setdefault("ms_by_C", {})[c] = median_ms(
+                    lambda: kernel(*args))
+                runs[name].setdefault("x20_ms_by_C", {})[c] = batched_ms(
+                    lambda: kernel(*args))
+                runs[name].setdefault("dev_ms_by_C", {})[c] = device_ms(
+                    lambda: kernel(*args))
             if (n, c) == (CNX_STAGES[2][2], 384):
-                runs[name]["ms"] = median_ms(lambda: kernel(*args))
+                runs[name]["ms"] = runs[name]["ms_by_C"][c]
                 runs[name]["plain_ms"] = median_ms(lambda: plain(*args), 5)
         if (n, c) == (CNX_STAGES[2][2], 384):
             q8_control = per_tensor_scale_control(
@@ -2173,28 +2233,43 @@ def int8_tail_kernels(gen) -> dict:
                          torch._int_mm(a_4c, w_4cc)))
         del h, x, dy
         torch.cuda.empty_cache()
-    # At C 384, N 12544: the forward's two products of N·C·4C
-    # multiply-adds (int8 operations, 2 each), the backward's three (z
-    # recomputed, da, du); h and x (h and dy) read, y (dh) written in bf16,
-    # the int8 weights and their scales read.
-    n, c = CNX_STAGES[2][2], 384
-    rows = 3 * n * c * 2
-    bounds = {"convnext_tail_fwd_q8": bound(
-                  16 * n * c * c, rows + 2 * 4 * c * c + 4 * (4 * c + c),
-                  peak=PEAK_INT8_OPS),
-              "convnext_tail_bwd_q8": bound(
-                  24 * n * c * c, rows + 3 * 4 * c * c + 4 * (8 * c + c),
-                  peak=PEAK_INT8_OPS)}
+    runs["convnext_tail_fwd_q8"]["flat_rows"] = k12a_flat_rows(gen)
+    # At each stage: the forward's two products of N·C·4C multiply-adds
+    # (int8 operations, 2 each), the backward's three (z recomputed, da,
+    # du); h and x (h and dy) read, y (dh) written in bf16, the int8
+    # weights and their scales read.
+    def q8_bounds(n, c):
+        rows = 3 * n * c * 2
+        return {"convnext_tail_fwd_q8": bound(
+                    16 * n * c * c, rows + 2 * 4 * c * c + 4 * (4 * c + c),
+                    peak=PEAK_INT8_OPS),
+                "convnext_tail_bwd_q8": bound(
+                    24 * n * c * c, rows + 3 * 4 * c * c + 4 * (8 * c + c),
+                    peak=PEAK_INT8_OPS)}
+    by_c = {c: q8_bounds(n, c) for _, _, n, c in CNX_STAGES}
+    bounds = by_c[384]
+    lib = _build.load()
+    q8_build = {k: dict(ptxas=v, dynamic_smem_bytes=lib.convnext_tail_fwd_q8_smem(
+                    int(template_args(k)[0])))
+                for k, v in measured.get("ptxas", {}).items()
+                if k.startswith("convnext_tail_fwd_q8_kernel<")}
     summary = {}
     library = "torch._int_mm of the int8 products alone (2 forward, 3 backward)"
     for name, t in runs.items():
         emit("kernel", name=name, parity=t["rows"],
              tolerance=dict(max_rel=K12_REL, mean_rel=Q8_MEAN_REL),
-             mean_limit_control=q8_control[name], ms_C384=t["ms"],
+             mean_limit_control=q8_control[name],
+             **({"flat_rows": t["flat_rows"]} if "flat_rows" in t else {}),
+             ms_C384=t["ms"],
+             ms_by_C=t["ms_by_C"], x20_ms_by_C=t["x20_ms_by_C"],
+             dev_ms_by_C=t["dev_ms_by_C"],
+             bound_ms_by_C={c: b[name]["bound_ms"] for c, b in by_c.items()},
+             bound_by_by_C={c: b[name]["bound_by"] for c, b in by_c.items()},
              plain_ms_C384=t["plain_ms"], library_ms_C384=t["library_ms"],
              library=library, bound_C384=bounds[name],
              shape="(bs 64 · H · W, C) bf16 rows of ConvNeXt-S stages 0-2",
-             summary_shape="C 384, N 12544 (27 of the 33 fused blocks)")
+             summary_shape="C 384, N 12544 (27 of the 33 fused blocks)",
+             **({"build": q8_build} if name == "convnext_tail_fwd_q8" else {}))
         summary[name] = dict(max_abs_err=t["max"], ms=t["ms"],
                              plain_ms=t["plain_ms"],
                              bound_ms=bounds[name]["bound_ms"],
@@ -2564,6 +2639,41 @@ def k3_f32_width(args, y, peak: float) -> dict:
                           dev_ms=device_ms(lambda: k_cnx.split_weights(w1,
                                                                        w2)),
                           bound=bound(0.0, 8 * c * c * (4 + 6))))
+    return row
+
+
+def k4_f32_width(args, dh, peak: float) -> dict:
+    """K4's fp32 form at one width beyond its check against the plain
+    version, as ``k3_f32_width`` holds K3's: its mean distance from the
+    float64 tail gradient (``bench_kernels.exact_tail_bwd``) within
+    F32_TAIL_BWD_MEAN_REL, with the two-part control (u, do, dz and the
+    weights rounded to x0 + x1) that must fail it; its single-call, x20
+    and dev times; its bound at the split rate and at P's fp32 rate (h and
+    dy read, dh written, the fp32 parameters read once; C 384's z pre-pass
+    writes and reads gelu'(z) beside them, counted apart as
+    ``gz_bytes_ms``)."""
+    h, dy, lns, lnb, w1, b1, w2, gamma, eps = args
+    n, c = h.shape
+    exact = exact_tail_bwd(*args)
+    row = dict(mean_rel_exact=mean_rel(dh, exact),
+               two_part_control=mean_rel(two_part_tail_bwd(*args), exact))
+    require(row["mean_rel_exact"] <= F32_TAIL_BWD_MEAN_REL,
+            f"K4 fp32 at C {c} is off the float64 tail gradient: {row}")
+    require(row["two_part_control"] > F32_TAIL_BWD_MEAN_REL,
+            f"K4's two-part control passes its mean limit at C {c}: {row}")
+    del exact
+
+    def kernel():
+        k_cnx.convnext_tail_bwd(*args)
+
+    nbytes = 3 * n * c * 4 + 4 * (8 * c * c + 7 * c)
+    row.update(ms=median_ms(kernel), x20_ms=batched_ms(kernel),
+               dev_ms=device_ms(kernel),
+               bound=bound(24 * n * c * c, nbytes, peak=PEAK_SPLIT_FLOPS),
+               fp32_rate_bound=bound(24 * n * c * c, nbytes, peak=peak),
+               gz_bytes_ms=(2 * n * 4 * c * 4 / PEAK_BYTES_PER_S * 1e3
+                            if _build.load().convnext_tail_f32_bwd_gz(c)
+                            else 0.0))
     return row
 
 
@@ -2981,6 +3091,8 @@ def fp32_kernels(gen) -> dict:
                     tf32_control(form, lambda: plain(*args), ref, limit))
             if name == "convnext_tail_fwd":
                 row.update(k3_f32_width(args, out, peak))
+            elif name == "convnext_tail_bwd":
+                row.update(k4_f32_width(args, out, peak))
             t = tails.setdefault(name, dict(rows=[], max=0.0))
             t["rows"].append(row)
             if c == 384:
@@ -2991,22 +3103,26 @@ def fp32_kernels(gen) -> dict:
         torch.cuda.empty_cache()
     n, c = CNX_STAGES[2][2], 384
     rows_b = 3 * n * c * 4
-    w_b = 2 * 4 * c * c * 4 + 4 * (6 * c)
     tail_bounds = {
         # six bf16 wgmma products an fp32 one: at the split rate (P's fp32
-        # rate beside it, k3_f32_width)
+        # rate beside them, k3_f32_width, k4_f32_width)
         "convnext_tail_fwd": tails["convnext_tail_fwd"]["row"]["bound"],
-        "convnext_tail_bwd": bound(24 * n * c * c, rows_b + w_b, peak=peak),
+        "convnext_tail_bwd": tails["convnext_tail_bwd"]["row"]["bound"],
         "convnext_tail_fwd_q8": bound(16 * n * c * c,
                                       rows_b + 2 * 4 * c * c
                                       + 4 * (4 * c + c), peak=PEAK_INT8_OPS),
         "convnext_tail_bwd_q8": bound(24 * n * c * c,
                                       rows_b + 3 * 4 * c * c
                                       + 4 * (8 * c + c), peak=PEAK_INT8_OPS)}
-    k3_build = {k: v for k, v in tail_build().items()
-                if template_args(k)[1:2] == ["3"]}
+    # the kParts = 3 kernels: K3's, K4's and K4's z pre-pass
+    split_build = {k: v for k, v in tail_build().items()
+                   if template_args(k)[1:2] == ["3"]
+                   or k.startswith("convnext_tail_gz_kernel")}
     for name, t in tails.items():
         k3 = name == "convnext_tail_fwd"
+        split = name in ("convnext_tail_fwd", "convnext_tail_bwd")
+        build = {k: v for k, v in split_build.items()
+                 if k.startswith("convnext_tail_fwd") == k3}
         emit("fp32_kernels", name=name, parity=t["rows"], ms_C384=t["ms"],
              plain_ms_C384=t["plain_ms"], bound_C384=tail_bounds[name],
              tolerance=dict(max_rel=K12_REL if name.endswith("q8")
@@ -3014,12 +3130,13 @@ def fp32_kernels(gen) -> dict:
                             simt_mean_rel=SIMT_F32_MEAN_REL[TAIL_FORMS[name]],
                             **({"q8_mean_rel": Q8_MEAN_REL}
                                if name.endswith("q8") else {}),
-                            **({"mean_rel_exact": F32_TAIL_MEAN_REL}
-                               if k3 else {})),
+                            **({"mean_rel_exact": F32_TAIL_MEAN_REL
+                                if k3 else F32_TAIL_BWD_MEAN_REL}
+                               if split else {})),
              mean_limit_control=controls[TAIL_FORMS[name]],
-             **({"build": k3_build} if k3 else {}))
+             **({"build": build} if split else {}))
         more = {}
-        if k3:
+        if split:
             rows = {r["C"]: r for r in t["rows"]}
             more = dict(
                 ms_by_C={c: r["ms"] for c, r in rows.items()},
@@ -3030,12 +3147,22 @@ def fp32_kernels(gen) -> dict:
                 fp32_rate_bound_ms_by_C={
                     c: r["fp32_rate_bound"]["bound_ms"]
                     for c, r in rows.items()},
-                split_ms_by_C={c: r["split"]["ms"] for c, r in rows.items()},
-                split_bound_ms_by_C={c: r["split"]["bound"]["bound_ms"]
-                                     for c, r in rows.items()},
                 mean_rel_exact_by_C={c: r["mean_rel_exact"]
                                      for c, r in rows.items()},
-                ptxas={k: v["ptxas"] for k, v in k3_build.items()})
+                two_part_control_by_C={c: r["two_part_control"]
+                                       for c, r in rows.items()},
+                ptxas={k: v["ptxas"] for k, v in build.items()},
+                dynamic_smem_bytes={k: v["dynamic_smem_bytes"]
+                                    for k, v in build.items()})
+            if k3:
+                more.update(
+                    split_ms_by_C={c: r["split"]["ms"]
+                                   for c, r in rows.items()},
+                    split_bound_ms_by_C={c: r["split"]["bound"]["bound_ms"]
+                                         for c, r in rows.items()})
+            else:
+                more.update(gz_bytes_ms_by_C={c: r["gz_bytes_ms"]
+                                              for c, r in rows.items()})
         entry(name, t["row"], t["ms"], t["plain_ms"], tail_bounds[name], None,
               "N 12544, C 384 fp32 rows",
               mean_limit=SIMT_F32_MEAN_REL[TAIL_FORMS[name]],

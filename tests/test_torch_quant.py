@@ -4,6 +4,9 @@ ConvNeXt tail's plain versions (K12a/K12b) against the Pallas kernels and
 their VJP in interpret mode, the tiny ConvNeXt under ``dw_impl="pallas"``
 and ``quant="int8"`` against the JAX one, and one train step of the slice."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ from vit_tpu_torch.bridge import convnext_state_dict_from_flax
 from vit_tpu_torch.core import quant
 from vit_tpu_torch.kernels import convnext_block as k_cnx
 from vit_tpu_torch.losses.perceptual import ConvNeXt
+from vit_tpu_torch.ops.gelu import tanh_erf_gelu
 from vit_tpu_torch.train.optim import make_optimizer
 from vit_tpu_torch.train.state import TrainState
 from vit_tpu_torch.train.step import make_tokenizer_train_step
@@ -127,7 +131,10 @@ def test_frozen_int8_dense_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,c", [(40, 32), (13, 64)])  # 13: a ragged tile
+# 13: a ragged tile; 70 at the CUDA kernels' widths: a 64-row block and a
+# ragged one
+@pytest.mark.parametrize("n,c", [(40, 32), (13, 64), (70, 96), (70, 192),
+                                 (70, 384)])
 def test_int8_tail_matches_jax(n, c, dtype):
     v = tail_inputs(n, c, seed=n + c)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -159,6 +166,69 @@ def test_int8_tail_matches_jax(n, c, dtype):
         h.detach(), x.detach(), *params, 1e-6))
     assert not torch.equal(dh, k_cnx.convnext_tail_bwd_ref(
         h.detach(), dy, *(tp[k] for k in names if k != "b2"), 1e-6))
+
+
+def test_k12a_levels_without_division_match_rint_of_the_quotient():
+    """K12a's level (csrc/convnext_tail_q8.cu) rounds t = v·fl(1/s) and
+    takes the IEEE division only where near_half flags t within 4e-5 of a
+    half-integer: in fp32 that gives quant_rows' level rint(fl(v / s)) on
+    random rows of many scales and on values made to fall on ties."""
+    near = float(re.search(r"> (0\.[0-9]+)f;", _q8_source()).group(1))
+    rng = np.random.default_rng(3)
+    v = rng.normal(0, 1, (512, 1536)).astype(np.float32)
+    v[:256] *= np.float32(10.0) ** rng.uniform(-3, 3, (256, 1)).astype(
+        np.float32)
+    s = (np.abs(v).max(-1, keepdims=True) * np.float32(1 / 127)).astype(
+        np.float32)
+    ties = ((rng.integers(-127, 127, (512, 64)) + np.float32(0.5))
+            * s).astype(np.float32)
+    v = np.concatenate([v, ties], -1)
+    t = v * (np.float32(1) / s)
+    r = np.rint(t)
+    slow = np.abs(t - r) > np.float32(near)
+    r = np.where(slow, np.rint(v / s), r)
+    assert slow.any() and np.array_equal(r, np.rint(v / s))
+    q8, s8 = k_cnx.quant_rows(torch.from_numpy(v))
+    assert np.array_equal(s8.numpy(), s)
+    assert np.array_equal(np.clip(r, -127, 127), q8.numpy())
+
+
+def test_k12a_gelu_absmax_from_four_candidates():
+    """K12a's pass 1 (csrc/convnext_tail_q8.cu: fwd::GeluAbsMax) takes a
+    row's largest |gelu(z)| from GELU at two of its z, the largest and the
+    smallest, and where that reads below kFlat, the max over every element
+    (fwd::exact_absmax). With the port's fp32 tanh-erf GELU that equals
+    the max over every element on every row: normal, all negative, far
+    past the clamp of u, and wholly at GELU's flat minimum, where
+    neighbouring z round their GELUs apart (there four candidates, the two
+    nearest GELU's minimum besides, could read an ulp or two low). kFlat
+    lies above |gelu| everywhere below z = 0.27."""
+    flat = float(re.search(r"kFlat = ([0-9.]+)f;", _q8_source()).group(1))
+    grid = torch.linspace(-8.0, 0.27, 2_000_001)
+    assert tanh_erf_gelu(grid).abs().max() < flat
+    rng = np.random.default_rng(0)
+    rows = [rng.normal(0, 2, (256, 384)), -np.abs(rng.normal(0, 2, (64, 384))),
+            rng.uniform(-2, 0, (64, 384)),
+            -np.exp(rng.uniform(0, 40, (64, 384))),
+            rng.normal(0, 1, (64, 384)) * np.where(
+                rng.random((64, 384)) < 0.01, 1e8, 1.0),
+            rng.uniform(-0.8, -0.7, (64, 384)),   # at the flat minimum
+            rng.uniform(-1.5, 0.27, (64, 384))]
+    z = torch.from_numpy(np.concatenate(rows).astype(np.float32))
+    want = tanh_erf_gelu(z).abs().amax(-1)
+    top, lowest = z.amax(-1), z.amin(-1)
+    got = torch.maximum(
+        torch.where(top > 0, tanh_erf_gelu(top), torch.zeros_like(top)),
+        tanh_erf_gelu(lowest).abs())
+    low = got < flat
+    assert low[-128:].all() and not low[:256].any()
+    got = torch.where(low, want, got)
+    assert torch.equal(got, want)
+
+
+def _q8_source() -> str:
+    return (Path(k_cnx.__file__).resolve().parents[1] / "csrc"
+            / "convnext_tail_q8.cu").read_text()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

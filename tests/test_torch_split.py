@@ -33,23 +33,28 @@ from vit_tpu.kernels.attention import flash_attention_packed as jax_packed
 from vit_tpu.kernels.convnext_block import \
     frozen_convnext_block_tail as jax_tail
 from vit_tpu_torch.bench_kernels import (exact_attention_fwd,
-                                         exact_tail_fwd, two_part_tail_fwd,
+                                         exact_tail_bwd, exact_tail_fwd,
+                                         two_part_tail_bwd, two_part_tail_fwd,
                                          two_parts)
 from vit_tpu_torch.kernels import attention as k_attn
 from vit_tpu_torch.kernels import convnext_block as k_cnx
-from vit_tpu_torch.ops.gelu import tanh_erf_gelu
+from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu
 
 FP32_REL = 1e-5   # the fp32 forms' limit on max and mean |Δ| / |reference|
 F32_BWD_MEAN_REL = smoke_constant("F32_BWD_MEAN_REL")
 F32_FWD_MEAN_REL = smoke_constant("F32_FWD_MEAN_REL")
-# the SIMT form's mean limit, which K3's fp32 form is held to as well
-K3_F32_MEAN_REL = next(
-    ast.literal_eval(node.value)["K3"]
+# the SIMT forms' mean limits, which K3's and K4's fp32 forms are held to
+# as well
+SIMT_F32_MEAN_REL = next(
+    ast.literal_eval(node.value)
     for node in ast.parse((Path(__file__).resolve().parents[1]
                            / "chip_smoke.py").read_text()).body
     if isinstance(node, ast.Assign)
     and getattr(node.targets[0], "id", None) == "SIMT_F32_MEAN_REL")
+K3_F32_MEAN_REL = SIMT_F32_MEAN_REL["K3"]
+K4_F32_MEAN_REL = SIMT_F32_MEAN_REL["K4"]
 F32_TAIL_MEAN_REL = smoke_constant("F32_TAIL_MEAN_REL")
+F32_TAIL_BWD_MEAN_REL = smoke_constant("F32_TAIL_BWD_MEAN_REL")
 # (A part, B part) of the six products, small terms first (hopper.cuh)
 TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
@@ -327,6 +332,93 @@ def _tail_case(n, c):
     t = {k: torch.from_numpy(a) for k, a in v.items()}
     t["w1"], t["w2"] = t["w1"].t().contiguous(), t["w2"].t().contiguous()
     return (t["h"], t["x"], *(t[k] for k in names), 1e-6), y_j
+
+
+def _split_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps):
+    """K4's fp32 arithmetic (csrc/convnext_tail.cu, kParts = 3) in plain
+    torch, w1 (4C, C) and w2 (C, 4C) in the Linear layout: u, do = γ⊙dy,
+    W1, W2 and each chunk's dz split into three bf16 parts; for each
+    64-column chunk of 4C, da = do·W2 and z = u·W1ᵀ sum over the 64-wide
+    atoms of C, each atom's six products in a fresh fp32 accumulator added
+    to the sum; dz = da⊙gelu′(z + b1); then each atom of du (64 columns of
+    C) adds that chunk's six products dz·W1, taken in a fresh accumulator;
+    then the LN backward in fp32."""
+    c = h.shape[1]
+    mu = h.mean(-1, keepdim=True)
+    d = h - mu
+    rstd = torch.rsqrt((d * d).mean(-1, keepdim=True) + eps)
+    uhat = d * rstd
+    pu, pdo, pw1, pw2 = (k_attn.split3(t) for t in (uhat * lns + lnb,
+                                                     dy * gamma, w1, w2))
+    atoms = range(0, c, 64)   # C 96: the second atom has 32 columns
+
+    def atom_sum(pa, pb, f0, transposed):
+        out = torch.zeros(h.shape[0], 64)
+        for a0 in atoms:
+            tile = torch.zeros_like(out)
+            for i, j in TERMS:
+                b = (pb[j][f0:f0 + 64, a0:a0 + 64].float().t() if transposed
+                     else pb[j][a0:a0 + 64, f0:f0 + 64].float())
+                tile = tile + pa[i][:, a0:a0 + 64].float() @ b
+            out = out + tile
+        return out
+
+    du = [torch.zeros(h.shape[0], min(64, c - a0)) for a0 in atoms]
+    for f0 in range(0, 4 * c, 64):
+        da = atom_sum(pdo, pw2, f0, False)
+        z = atom_sum(pu, pw1, f0, True)
+        pdz = k_attn.split3(da * gelu_grad(z + b1[f0:f0 + 64]))
+        for k, a0 in enumerate(atoms):
+            tile = torch.zeros_like(du[k])
+            for i, j in TERMS:
+                tile = tile + (pdz[i].float()
+                               @ pw1[j][f0:f0 + 64, a0:a0 + 64].float())
+            du[k] = du[k] + tile
+    dhat = torch.cat(du, -1) * lns
+    return rstd * (dhat - dhat.mean(-1, keepdim=True)
+                   - uhat * (dhat * uhat).mean(-1, keepdim=True))
+
+
+def _tail_bwd_case(n, c):
+    """tail_inputs as fp32 tensors, the weights in the Linear layout, and
+    dh of the JAX package's fp32 tail (its VJP, Precision.HIGHEST)."""
+    v = tail_inputs(n, c, seed=n + c)
+    names = ("lns", "lnb", "w1", "b1", "w2", "b2", "gamma")
+    jp = {k: jnp.asarray(a) for k, a in v.items()}
+    _, vjp = jax.vjp(lambda h: jax_tail(h, jp["x"], *(jp[k] for k in names)),
+                     jp["h"])
+    dh_j = torch.from_numpy(np.array(vjp(jp["dy"])[0]))
+    t = {k: torch.from_numpy(a) for k, a in v.items()}
+    t["w1"], t["w2"] = t["w1"].t().contiguous(), t["w2"].t().contiguous()
+    return (t["h"], t["dy"], *(t[k] for k in names if k != "b2"), 1e-6), dh_j
+
+
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_split_product_tail_bwd_matches_jax(c):
+    """K4 fp32's emulation against the JAX package's fp32 tail gradient
+    (``_bwd_impl``) within 1e-5 of max and mean |JAX|; as chip_smoke.py
+    holds the kernel, against the port's plain fp32 backward within 1e-5 of
+    max |plain| and SIMT_F32_MEAN_REL["K4"] of mean |plain|, and against
+    the float64 backward within F32_TAIL_BWD_MEAN_REL of mean |exact|."""
+    args, dh_j = _tail_bwd_case(70, c)
+    got = _split_tail_bwd(*args)
+    max_rel, mean_rel = _rel(got, dh_j)
+    assert max_rel <= FP32_REL and mean_rel <= FP32_REL, (max_rel, mean_rel)
+    max_rel, mean_rel = _rel(got, k_cnx.convnext_tail_bwd_ref(*args))
+    assert max_rel <= FP32_REL and mean_rel <= K4_F32_MEAN_REL, (max_rel,
+                                                                 mean_rel)
+    assert _rel(got, exact_tail_bwd(*args))[1] <= F32_TAIL_BWD_MEAN_REL
+
+
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_two_part_tail_bwd_control_exceeds_the_mean_limit(c):
+    """The backward with u, do, dz and the weights rounded to two bf16
+    parts (``bench_kernels.two_part_tail_bwd``) misses the float64 backward
+    by more than F32_TAIL_BWD_MEAN_REL of mean |exact|, so that limit tells
+    a split that lost its third part from K4 fp32."""
+    args, _ = _tail_bwd_case(70, c)
+    assert _rel(two_part_tail_bwd(*args), exact_tail_bwd(*args))[1] \
+        > F32_TAIL_BWD_MEAN_REL
 
 
 # 70: two 64-row blocks, the second ragged

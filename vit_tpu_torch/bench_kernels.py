@@ -1,10 +1,10 @@
 """Time the bf16 kernels, the fp32 kernels that were redesigned on the
-tensor cores (attention, K3) with K9c, and six train steps of one or
+tensor cores (attention, K3, K4) with K9c, and seven train steps of one or
 more checkouts of this repo on one card, in turns, so that two versions
 are compared within one call.
 
     python -m vit_tpu_torch.bench_kernels --trees OLD . . OLD \
-        [--out chiprun_out/bench_kernels.json]
+        [--out chiprun_out/bench_kernels.json] [--groups ...] [--steps ...]
 
 Each entry of ``--trees`` is a checkout's root; each runs in a process of
 its own that imports ``vit_tpu_torch`` from that checkout, builds its
@@ -14,7 +14,9 @@ stages: C 96, 192 and 384, the last under the keys "K3" and "K4"; and as 20
 back-to-back calls, "K3 C96 x20" and the like), K5, K6 (with statistics),
 K8, K9a, K9b, K9c (also "K9c x20" and "K9c dev", and the library's
 LayerNorm backward beside it, "K9c lib", "K9c lib x20", "K9c lib dev":
-:func:`time_ln_bwd`), K10, K12a and K12b, the dropout arms of K1/K2
+:func:`time_ln_bwd`), K10, K12a and K12b (at the three fused stages like
+K3, "K12a C96", "K12a C96 x20", "K12a C96 dev", ...), the dropout arms of
+K1/K2
 (ViT-L's (64, 257, 16 heads) at rate 0.15) and K6/K8 (rate 0.1), K7 at (2,
 12, 513) and K6 on the rollout's prefill (513 causal, bs 8 and 1), at
 ``chip_smoke.py``'s shapes: CUDA-event medians of 20 calls after 3, the
@@ -26,10 +28,10 @@ wall time and, profiled, the card's busy time and K11's share of it
 (:func:`perceptual_ms`), and K11's mean distances from its plain versions
 ("k11_mean_rel" in the JSON line, :func:`depthwise_mean_rel`); then K9c on
 fp32 rows at (20480, 768) as the bf16 one ("K9c fp32", "K9c fp32 dev", "K9c
-fp32 lib dev", ...), K3 on fp32 rows at the three fused stages ("K3 fp32
-C96", "K3 fp32 C96 x20", "K3 fp32 C96 dev", ...) with its weights'
-pre-split alone where the tree has one ("K3 fp32 split C96 dev", ...;
-:func:`time_tail_f32`), and the attention kernels on fp32 operands
+fp32 lib dev", ...), K3 and K4 on fp32 rows at the three fused stages
+("K3 fp32 C96", "K4 fp32 C96 x20", "K4 fp32 C96 dev", ...) with the
+weights' pre-split alone where the tree has one ("K3 fp32 split C96 dev",
+...; :func:`time_tail_f32`), and the attention kernels on fp32 operands
 (``--mixed false``) at ``chip_smoke.py``'s fp32 shapes: K1 and K2 at (64,
 320, 12 heads) with statistics and at ViT-L's (64, 257, 16 heads) with
 dropout 0.15, K6 and K8 at (32, 12, 1024) causal without and with dropout
@@ -39,16 +41,24 @@ mean distances (o, m and l; K1, K6 and their dropout arms, and K6 at K7's
 shape) from the plain fp32 version and from the float64 forward
 (:func:`exact_attention_fwd`), with the two-part control's (the plain
 version on operands rounded to two bf16 parts) beside them ("fwd_mean_rel"
-in its JSON line). Each turn then times six train steps with the names of
+in its JSON line). Each turn then times seven train steps with the names of
 that checkout's root ``chip_smoke.py``: the VideoGPT-B bs-32 step, the
-flagship TiTok-B unfused bs-64 step and the ViT-L/16 @256 bs-64 step at
-dropout 0.15 in bf16, then the VideoGPT-B, ViT-L/16 and flagship unfused
-steps at float32 (``TiTok``, ``VideoGPT``, ``ConvNeXt``, ``FLAGSHIP``,
+flagship TiTok-B unfused bs-64 step, the same with the int8 perceptual
+loss and the ViT-L/16 @256 bs-64 step at dropout 0.15 in bf16, then the
+VideoGPT-B, ViT-L/16 and flagship unfused steps at float32 (``TiTok``,
+``VideoGPT``, ``ConvNeXt``, ``PerceptualLoss``, ``FLAGSHIP``,
 ``VIT_CELLS``, ``train_inputs``, ``vit_batch``, the step makers,
 ``make_optimizer``, ``host_median_ms`` and the rest used in
 ``videogpt_step_ms``, ``titok_step_ms`` and ``vit_step_ms``), so every root
-must carry one that defines them. TF32 is off for cuBLAS and cuDNN. Prints
-one JSON line per turn and a table of each time by checkout and turn."""
+must carry one that defines them. The two bf16 TiTok-B steps are also
+profiled: the card's busy time and the ConvNeXt tails' kernel time in a
+step ("TiTok-B int8 step busy", "TiTok-B int8 step K12a", ...), and every
+kernel's launches and time ("step_kernels" in ``--out``). ``--groups``
+picks what a turn times (``q8``: K12a and K12b alone, bf16 and fp32 rows,
+at every fused width; ``queue``: K9a, K9b and K10 in both dtypes and K5 on
+the card alone) and ``--steps`` which steps. TF32 is off for cuBLAS
+and cuDNN. Prints one JSON line per turn and a table of each time by
+checkout and turn."""
 
 from __future__ import annotations
 
@@ -150,9 +160,7 @@ def time_kernels() -> dict:
         # back to back, so the card and not the wrapper's host time sets it
         ms[f"K3 C{c} x20"] = batched_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
         ms[f"K4 C{c} x20"] = batched_ms(lambda: k_cnx.convnext_tail_bwd(*bwd))
-        if c == TAIL_C:
-            ms["K12a"] = median_ms(lambda: k_cnx.convnext_tail_fwd_q8(*fwd))
-            ms["K12b"] = median_ms(lambda: k_cnx.convnext_tail_bwd_q8(*bwd))
+        ms.update(time_q8(fwd, bwd))
         del h, x, dy, fwd, bwd
 
     z = r(8 * 256, 12)
@@ -202,6 +210,96 @@ def time_kernels() -> dict:
     return ms
 
 
+def time_queue() -> dict:
+    """{row: ms} on the card alone (:func:`device_ms`) of the kernels that
+    ROADMAP.md's Queue B ranks and no other group times there (the
+    ``queue`` group): K9a, K9b and K10 at :func:`time_kernels`' shapes
+    (the flagship's fused MLP) on bf16 and fp32 operands ("K9a dev", "K9a
+    fp32 dev", ...), and K5 ("K5 dev")."""
+    import torch
+
+    from vit_tpu_torch.kernels import fc_grad as k_fc
+    from vit_tpu_torch.kernels import ln_matmul as k_lnmm
+    from vit_tpu_torch.kernels import vq as k_vq
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    ms = {}
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, " fp32")):
+        x = (3 * r(N_ROWS, 768) + 1).to(dt)
+        w = r(3072, 768, scale=768 ** -0.5).to(dt)
+        b = r(3072, scale=0.3).to(dt)
+        ms[f"K9a{tag} dev"] = device_ms(
+            lambda: k_lnmm.ln_matmul_fwd(x, w, b, True))
+        zpre = r(N_ROWS, 3072, scale=2.0).to(dt)
+        dz = r(N_ROWS, 3072).to(dt)
+        ms[f"K9b{tag} dev"] = device_ms(
+            lambda: k_lnmm.ln_matmul_dgelu(zpre, dz))
+        g, x3 = r(N_ROWS, 768).to(dt), r(N_ROWS, 3072).to(dt)
+        ms[f"K10{tag} dev"] = device_ms(lambda: k_fc.matmul_dw_db(g, x3))
+        del x, w, b, zpre, dz, g, x3
+        torch.cuda.empty_cache()
+    z = r(8 * 256, 12)
+    cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1) / 2048
+    ms["K5 dev"] = device_ms(lambda: k_vq.nearest_code(z, cb))
+    return ms
+
+
+def time_q8(fwd, bwd) -> dict:
+    """{row: ms} of K12a and K12b on the arguments ``fwd`` and ``bwd`` (as
+    :func:`time_kernels` draws them at one fused stage): single, x20, dev
+    and the wrapper's host time (:func:`host_ms`). bf16 rows at C 384 give the single calls the keys "K12a" and
+    "K12b", else "K12a C96" and the like; fp32 rows "K12a fp32 C96" and the
+    like."""
+    import torch
+
+    from vit_tpu_torch.kernels import convnext_block as k_cnx
+
+    c, fp32 = fwd[0].shape[1], fwd[0].dtype == torch.float32
+    ms = {}
+    for name, fn, args in (("K12a", k_cnx.convnext_tail_fwd_q8, fwd),
+                           ("K12b", k_cnx.convnext_tail_bwd_q8, bwd)):
+        key = f"{name} fp32 C{c}" if fp32 else f"{name} C{c}"
+        single = name if c == TAIL_C and not fp32 else key
+        ms[single] = median_ms(lambda: fn(*args))
+        ms[key + " x20"] = batched_ms(lambda: fn(*args))
+        ms[key + " dev"] = device_ms(lambda: fn(*args))
+        ms[key + " host"] = host_ms(lambda: fn(*args))
+    return ms
+
+
+def time_q8_stages() -> dict:
+    """:func:`time_q8` at ConvNeXt-S's three fused stages on bf16 and fp32
+    rows (K12a and K12b alone, the ``q8`` group), inputs drawn as
+    :func:`time_kernels` draws its tails'."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    ms = {}
+    for rows, c in TAIL_STAGES:
+        h, x, dy = (r(rows, c) for _ in range(3))
+        lns, lnb = 1.0 + r(c, scale=0.1), r(c, scale=0.1)
+        w1, b1 = r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1)
+        w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
+        gamma = r(c, scale=0.5)
+        for dt in (torch.bfloat16, torch.float32):
+            hd, xd, dyd = (t.to(dt) for t in (h, x, dy))
+            ms.update(time_q8(
+                (hd, xd, lns, lnb, w1, b1, w2, b2, gamma, 1e-6),
+                (hd, dyd, lns, lnb, w1, b1, w2, gamma, 1e-6)))
+            del hd, xd, dyd
+        del h, x, dy
+        torch.cuda.empty_cache()
+    return ms
+
+
 def time_ln_bwd(x, g, key: str) -> dict:
     """{row: ms} of K9c on (x, g) as a single call, 20 back to back ("x20")
     and on the card alone ("dev"), and the same of the library's LayerNorm
@@ -228,27 +326,35 @@ def time_ln_bwd(x, g, key: str) -> dict:
 
 
 def time_tail_f32(r) -> dict:
-    """{row: ms} of K3 on fp32 rows at ConvNeXt-S's three fused stages
-    ("K3 fp32 C96", ...), single, x20 and dev, and, where the tree has it,
-    its weights' pre-split alone ("K3 fp32 split C96 dev", ...)."""
+    """{row: ms} of K3 and K4 on fp32 rows at ConvNeXt-S's three fused
+    stages ("K3 fp32 C96", "K4 fp32 C96", ...), single, x20 and dev, K12a
+    and K12b on the same rows (:func:`time_q8`: "K12a fp32 C96", ...), and,
+    where the tree has it, the weights' pre-split alone ("K3 fp32 split C96
+    dev", ...)."""
     from vit_tpu_torch.kernels import convnext_block as k_cnx
 
     ms = {}
     for rows, c in TAIL_STAGES:
-        h, x = r(rows, c), r(rows, c)
-        w1 = r(4 * c, c, scale=c ** -0.5)
-        w2 = r(c, 4 * c, scale=(4 * c) ** -0.5)
-        fwd = (h, x, 1.0 + r(c, scale=0.1), r(c, scale=0.1), w1,
-               r(4 * c, scale=0.1), w2, r(c, scale=0.1), r(c, scale=0.5),
-               1e-6)
-        name = f"K3 fp32 C{c}"
-        ms[name] = median_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
-        ms[name + " x20"] = batched_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
-        ms[name + " dev"] = device_ms(lambda: k_cnx.convnext_tail_fwd(*fwd))
+        h, x, dy = r(rows, c), r(rows, c), r(rows, c)
+        lns, lnb = 1.0 + r(c, scale=0.1), r(c, scale=0.1)
+        w1, b1 = r(4 * c, c, scale=c ** -0.5), r(4 * c, scale=0.1)
+        w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
+        gamma = r(c, scale=0.5)
+        calls = {"K3": lambda: k_cnx.convnext_tail_fwd(
+                     h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6),
+                 "K4": lambda: k_cnx.convnext_tail_bwd(
+                     h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)}
+        for kernel, fn in calls.items():
+            name = f"{kernel} fp32 C{c}"
+            ms[name] = median_ms(fn)
+            ms[name + " x20"] = batched_ms(fn)
+            ms[name + " dev"] = device_ms(fn)
+        ms.update(time_q8((h, x, lns, lnb, w1, b1, w2, b2, gamma, 1e-6),
+                          (h, dy, lns, lnb, w1, b1, w2, gamma, 1e-6)))
         if hasattr(k_cnx, "split_weights"):
             ms[f"K3 fp32 split C{c} dev"] = device_ms(
                 lambda: k_cnx.split_weights(w1, w2))
-        del h, x, fwd
+        del h, x, dy, calls
     return ms
 
 
@@ -382,10 +488,13 @@ def depthwise_mean_rel() -> dict:
     return out
 
 
-def device_spans(fn) -> dict:
+def device_spans(fn, names=("depthwise",)) -> dict:
     """``torch.profiler`` over one call of ``fn`` (which ends synchronised):
-    the card's busy time (the union of its kernels' intervals) and the time
-    of the kernels whose name holds "depthwise", in ms."""
+    the card's busy time (the union of its kernels' intervals), its span
+    (the first kernel's start to the last one's end) and, for each of
+    ``names``, the time of the kernels whose name holds it, in ms; under
+    "kernels" {kernel name: [launches, ms, ms of the card idle just before
+    its launches]} of every kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -396,14 +505,23 @@ def device_spans(fn) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, depthwise, end = 0.0, 0.0, float("-inf")
+    busy, end = 0.0, float("-inf")
+    out = dict.fromkeys(names, 0.0)
+    kernels = {}
     for start, stop, name in spans:
+        row = kernels.setdefault(name, [0, 0.0, 0.0])
+        if end > float("-inf") and start > end:
+            row[2] += (start - end) / 1e3
         if stop > end:
             busy += stop - max(start, end)
             end = stop
-        if "depthwise" in name:
-            depthwise += stop - start
-    return dict(busy=busy / 1e3, depthwise=depthwise / 1e3)
+        for key in names:
+            if key in name:
+                out[key] += (stop - start) / 1e3
+        row[0] += 1
+        row[1] += (stop - start) / 1e3
+    span = (end - spans[0][0]) / 1e3 if spans else 0.0
+    return dict(out, busy=busy / 1e3, span=span, kernels=kernels)
 
 
 def perceptual_ms() -> dict:
@@ -530,6 +648,49 @@ def two_part_tail_fwd(h, x, lns, lnb, w1, b1, w2, b2, gamma, eps):
     return x + gamma * (a @ two_parts(w2).t() + b2)
 
 
+def _ln_backward(h, du, lns, eps):
+    """dh from du = ∂/∂u through u = LN(h)·ln_scale + ln_bias, in h's
+    dtype: rstd·(dû − mean(dû) − û·mean(dû⊙û)), dû = du⊙ln_scale."""
+    d = h - h.mean(-1, keepdim=True)
+    rstd = (d * d).mean(-1, keepdim=True).add(eps).rsqrt()
+    uhat, dhat = d * rstd, du * lns
+    return rstd * (dhat - dhat.mean(-1, keepdim=True)
+                   - uhat * (dhat * uhat).mean(-1, keepdim=True))
+
+
+def exact_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps,
+                   batch: int = 4096):
+    """K4's function (``kernels/convnext_block.py:convnext_tail_bwd_ref``
+    at fp32, no rounding between its steps) in float64 on the same fp32
+    rows and parameters: the reference of the fp32 form's mean limit. dh
+    (N, C) in float64, ``batch`` rows at a time."""
+    import torch
+
+    from vit_tpu_torch.ops.gelu import gelu_grad
+
+    lns, lnb, w1, b1, w2, gamma = (t.double() for t in (
+        lns, lnb, w1, b1, w2, gamma))
+    out = []
+    for r0 in range(0, h.shape[0], batch):
+        hb = h[r0:r0 + batch].double()
+        z = _layer_norm(hb, lns, lnb, eps) @ w1.t() + b1
+        dz = (dy[r0:r0 + batch].double() * gamma) @ w2 * gelu_grad(z)
+        out.append(_ln_backward(hb, dz @ w1, lns, eps))
+    return torch.cat(out)
+
+
+def two_part_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps):
+    """The plain fp32 backward with u, do = γ⊙dy, dz, W1 and W2 rounded to
+    two bf16 parts (:func:`two_parts`): what a split K4 that lost its
+    third part reads, the control of its mean limit."""
+    from vit_tpu_torch.ops.gelu import gelu_grad
+
+    w1_2, w2_2 = two_parts(w1), two_parts(w2)
+    z = two_parts(_layer_norm(h, lns, lnb, eps)) @ w1_2.t() + b1
+    dz = two_parts((two_parts(dy * gamma) @ w2_2) * gelu_grad(z))
+    return _ln_backward(h, dz @ w1_2, lns, eps)
+
+
 def mean_rel(out, ref) -> float:
     """mean |out − ref| / mean |ref|, in float64."""
     return ((out.double() - ref.double()).abs().mean()
@@ -651,17 +812,19 @@ def videogpt_step_ms(dtype: str = "bfloat16") -> float:
                                       torch.cuda.synchronize()), 6)
 
 
-def titok_step_ms(dtype: str = "bfloat16") -> float:
+def titok_step(dtype: str = "bfloat16", quant: str = "none"):
     """The flagship TiTok-B unfused bs-64 train step, set up as
-    ``chip_smoke.py``'s train phase sets up the steps it times: its model
+    ``chip_smoke.py``'s train phase sets up the steps it times, as a call
+    that ends synchronised, after two warm-up steps: its model
     (``FLAGSHIP``, weights from seed 0), ``train_inputs``' perceptual loss
     and batch, and the optimizer of its timed steps (``make_optimizer(1e-4,
     2, 1_000_000, 1e-5, 1e-4, clip_norm=1.0)``). The phase times after 21
     earlier steps and a plain-version step, and its model has served the
-    slice and timing phases first; this times a fresh model after two
-    warm-up steps. Both take the host-clock median of 6 synchronised
-    steps. ``dtype`` "float32" builds the model and ConvNeXt-S at float32
-    (``--mixed false``), as the fp32 phase's unfused step."""
+    slice and timing phases first; this is a fresh model. ``dtype``
+    "float32" builds the model and ConvNeXt-S at float32 (``--mixed
+    false``), as the fp32 phase's unfused step; ``quant`` "int8" gives bf16
+    ConvNeXt-S the int8 tail (``--perceptual_quant int8``, K12a and K12b),
+    as the train_int8 phase builds it from the same weights."""
     import numpy as np
     import torch
 
@@ -673,6 +836,10 @@ def titok_step_ms(dtype: str = "bfloat16") -> float:
     model = model.cuda().train()
     if dtype == "bfloat16":
         perceptual, images = cs.train_inputs(model)
+        if quant != "none":
+            net = cs.ConvNeXt(dtype=dt, quant=quant)
+            net.load_state_dict(perceptual.net.state_dict())
+            perceptual = cs.PerceptualLoss(net).cuda()
     else:
         net = cs.ConvNeXt(dtype=dt)
         cs.init_convnext_(net, torch.Generator().manual_seed(1))
@@ -687,8 +854,48 @@ def titok_step_ms(dtype: str = "bfloat16") -> float:
     for _ in range(2):
         step(state, images, usage)
     torch.cuda.synchronize()
-    return cs.host_median_ms(lambda: (step(state, images, usage),
-                                      torch.cuda.synchronize()), 6)
+    return lambda: (step(state, images, usage), torch.cuda.synchronize())
+
+
+def titok_step_ms(dtype: str = "bfloat16", quant: str = "none") -> float:
+    """:func:`titok_step`'s host-clock median of 10 synchronised steps
+    (``chip_smoke.host_median_ms``)."""
+    import chip_smoke as cs
+
+    return cs.host_median_ms(titok_step(dtype, quant), 10)
+
+
+# The ConvNeXt tails' kernels by the names the profiler gives them: K3 and
+# K4 (bf16 and fp32, and K4 fp32's pre-pass and the weights' pre-split),
+# K12a and K12b
+TAIL_SPANS = {"K3": "convnext_tail_fwd_kernel", "K4": "convnext_tail_bwd_kernel",
+              "K12a": "convnext_tail_fwd_q8", "K12b": "convnext_tail_bwd_q8"}
+
+
+def titok_step_spans(name: str, quant: str) -> "tuple[dict, dict]":
+    """:func:`titok_step` in bf16 with ``quant``: its host-clock median of
+    10 steps under ``name``, then, over three profiled steps
+    (:func:`device_spans`), the medians of the card's busy time ("<name>
+    busy"), of its span ("<name> span") and of the ConvNeXt tails' kernel
+    time ("<name> K12a", ...: ``TAIL_SPANS``); and the middle profiled
+    step's {kernel: [launches, ms, idle ms before them]}."""
+    import torch
+
+    import chip_smoke as cs
+
+    call = titok_step("bfloat16", quant)
+    ms = {name: cs.host_median_ms(call, 10)}
+    spans = [device_spans(call, tuple(TAIL_SPANS.values()))
+             for _ in range(3)]
+    order = sorted(range(3), key=lambda i: spans[i]["busy"])
+    ms[name + " busy"] = spans[order[1]]["busy"]
+    ms[name + " span"] = sorted(s["span"] for s in spans)[1]
+    for kernel, key in TAIL_SPANS.items():
+        if any(s[key] for s in spans):
+            ms[f"{name} {kernel}"] = sorted(s[key] for s in spans)[1]
+    del call
+    torch.cuda.empty_cache()
+    return ms, spans[order[1]]["kernels"]
 
 
 def vit_step_ms(dtype: str = "bfloat16") -> float:
@@ -721,8 +928,26 @@ def vit_step_ms(dtype: str = "bfloat16") -> float:
                                       torch.cuda.synchronize()), 6)
 
 
-def worker(root: str) -> None:
-    """One turn: import the checkout at ``root`` and print its times."""
+# The train steps a turn times, by name; the bf16 TiTok-B steps also
+# profiled (:func:`titok_step_spans`)
+STEPS = {"VideoGPT-B step": videogpt_step_ms,
+         "TiTok-B step": lambda: titok_step_spans("TiTok-B step", "none"),
+         "TiTok-B int8 step": lambda: titok_step_spans("TiTok-B int8 step",
+                                                       "int8"),
+         "ViT-L step": vit_step_ms,
+         "VideoGPT-B fp32 step": lambda: videogpt_step_ms("float32"),
+         "ViT-L fp32 step": lambda: vit_step_ms("float32"),
+         "TiTok-B fp32 step": lambda: titok_step_ms("float32")}
+GROUPS = ("kernels", "q8", "queue", "perceptual", "fp32", "steps")
+
+
+def worker(root: str, groups=("kernels", "perceptual", "fp32", "steps"),
+           steps=tuple(STEPS)) -> None:
+    """One turn: import the checkout at ``root`` and print its times, of
+    the ``groups`` in order (``GROUPS``: :func:`time_kernels`,
+    :func:`time_q8_stages`, :func:`time_queue`, :func:`perceptual_ms`,
+    :func:`time_fp32_kernels` with :func:`depthwise_mean_rel`, the
+    ``steps`` of ``STEPS``)."""
     sys.path.insert(0, root)
     import torch
 
@@ -733,25 +958,33 @@ def worker(root: str) -> None:
         raise SystemExit(f"imported vit_tpu_torch from {where}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ms = time_kernels()
-    torch.cuda.empty_cache()
-    ms.update(perceptual_ms())
-    torch.cuda.empty_cache()
-    k11_rel = depthwise_mean_rel()
-    fp32_ms, fwd_rel = time_fp32_kernels()
-    ms.update(fp32_ms)
-    torch.cuda.empty_cache()
-    for name, fn in (("VideoGPT-B step", videogpt_step_ms),
-                     ("TiTok-B step", titok_step_ms),
-                     ("ViT-L step", vit_step_ms),
-                     ("VideoGPT-B fp32 step",
-                      lambda: videogpt_step_ms("float32")),
-                     ("ViT-L fp32 step", lambda: vit_step_ms("float32")),
-                     ("TiTok-B fp32 step", lambda: titok_step_ms("float32"))):
-        ms[name] = fn()
+    ms, fwd_rel, k11_rel, step_kernels = {}, {}, {}, {}
+    for group in groups:
+        if group == "kernels":
+            ms.update(time_kernels())
+        elif group == "q8":
+            ms.update(time_q8_stages())
+        elif group == "queue":
+            ms.update(time_queue())
+        elif group == "perceptual":
+            ms.update(perceptual_ms())
+        elif group == "fp32":
+            k11_rel = depthwise_mean_rel()
+            fp32_ms, fwd_rel = time_fp32_kernels()
+            ms.update(fp32_ms)
+        elif group == "steps":
+            for name in steps:
+                got = STEPS[name]()
+                if isinstance(got, tuple):
+                    got, step_kernels[name] = got
+                    ms.update(got)
+                else:
+                    ms[name] = got
+                torch.cuda.empty_cache()
         torch.cuda.empty_cache()
     print(json.dumps({"tree": root, "ms": ms, "fwd_mean_rel": fwd_rel,
-                      "k11_mean_rel": k11_rel}), flush=True)
+                      "k11_mean_rel": k11_rel,
+                      "step_kernels": step_kernels}), flush=True)
 
 
 def card() -> str:
@@ -769,12 +1002,20 @@ def main(argv=None) -> list:
     ap.add_argument("--trees", nargs="+", required=True,
                     help="checkout roots, in the order of the turns")
     ap.add_argument("--out", default=None, help="also write the turns here")
+    ap.add_argument("--groups", nargs="+", choices=GROUPS,
+                    default=["kernels", "perceptual", "fp32", "steps"],
+                    help="what a turn times, in order (q8: K12a and K12b "
+                         "alone at every fused width, bf16 and fp32 rows; "
+                         "queue: K9a, K9b, K10 and K5 on the card alone)")
+    ap.add_argument("--steps", nargs="+", choices=list(STEPS),
+                    default=list(STEPS), help="the steps of the steps group")
     args = ap.parse_args(argv)
     turns = []
     for i, tree in enumerate(args.trees):
         root = str(Path(tree).resolve())
         script = str(Path(__file__).resolve())
-        code = f"import runpy; runpy.run_path({script!r})['worker']({root!r})"
+        code = (f"import runpy; runpy.run_path({script!r})['worker']("
+                f"{root!r}, {tuple(args.groups)!r}, {tuple(args.steps)!r})")
         proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                               capture_output=True, text=True, timeout=900,
                               env={**os.environ, "PYTHONPATH": ""})
@@ -784,7 +1025,8 @@ def main(argv=None) -> list:
         turn = json.loads(proc.stdout.strip().splitlines()[-1])
         turn.update(turn=i, arg=tree)
         turns.append(turn)
-        print(json.dumps(turn), flush=True)
+        print(json.dumps({k: v for k, v in turn.items()
+                          if k != "step_kernels"}), flush=True)
     name = card()
     print(f"card: {name}")
     kernels = list(dict.fromkeys(k for t in turns for k in t["ms"]))

@@ -95,6 +95,24 @@
 // Bound: 16·C²·N FLOP at 989/6 TFLOP/s (29.6 GFLOP at ConvNeXt-S's three
 // fused stages, 0.180 ms), far above its bytes; every block reads the
 // weights' parts (48·C² bytes) from L2.
+//
+// K4's fp32 form (kParts = 3, the entry convnext_tail_f32_bwd) replaces
+// _bwd_kernel on fp32 rows at Precision.HIGHEST (:117) the same way, after
+// the same pre-split: 64 rows a block at every width, the warpgroups on the
+// n32 halves of every product (SplitBwd): da = do·W2 (W2's atoms MN-major),
+// z = u·W1ᵀ (W1's atoms K-major), dz = da⊙gelu′(z + b1) split into three
+// parts in an exchange tile, du += dz·W1 (W1's atoms MN-major), each
+// atom's six products in a fresh accumulator. An LN pass over fp32 h and
+// dy writes u's and do = γ⊙dy's three parts, never rounded to bf16, and
+// keeps the row statistics for the LN backward. Shared memory is the trap
+// at C 384: u's and do's parts for 64 rows (2 x 147,456 B) pass the 227 KB
+// a block may use, so there a pre-pass (convnext_tail_gz_kernel: u's parts
+// and a ring of W1's atoms) writes gelu′(z + b1) to device memory (N x 4C
+// fp32, written and read once: 0.046 ms of bytes at ConvNeXt-S's C 384) and
+// the kernel holds do's parts alone. C 96 keeps W1's atoms in the ring from
+// z to du; C 192, whose two-stage ring cannot hold its three, loads them
+// again. Bound: 24·C²·N FLOP at 989/6 TFLOP/s (0.269 ms at ConvNeXt-S's
+// fused stages).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -424,21 +442,34 @@ __device__ __forceinline__ bool start_block(uint8_t* sm, const CUtensorMap* trow
 
 // ---- the fp32 forward (kParts = 3) --------------------------------------
 
-// LayerNorm of the block's 64 rows of fp32 h, read from device memory:
+// x split into three bf16 parts (x = x0 + x1 + x2 exactly) at byte offset
+// off of `base`, part p kPart bytes after part p − 1.
+template <int kPart>
+__device__ __forceinline__ void put_parts(uint8_t* base, int off, float x) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const bf16 part = __float2bfloat16(x);
+    *reinterpret_cast<bf16*>(base + p * kPart + off) = part;
+    x = __fsub_rn(x, __bfloat162float(part));
+  }
+}
+
+// LayerNorm of the block's kRows rows of fp32 h, read from device memory:
 // two-pass fp32 statistics and u = û·ln_scale + ln_bias in fp32 (no bf16
 // rounding), split into three bf16 parts written to `u` as TMA's 128-byte
-// swizzle would place them, part p kUPart bytes after part p − 1 (C 96:
-// the last atom's columns past C are never read); rows past N read h as
-// zeros (u = ln_bias: finite, never stored). Each consumer warp takes 8
-// rows, all of them read before any is reduced.
-template <int C>
-__device__ __forceinline__ void layer_norm_parts(uint8_t* u,
+// swizzle would place them, part p kPart bytes after part p − 1 (C 96:
+// the last atom's columns past C are never read), and the statistics into
+// mu_s and rstd_s; a null u or mu_s skips those writes. Rows past N read h
+// as zeros (u = ln_bias: finite, never stored). Each consumer warp takes
+// kRows / 8 rows, all of them read before any is reduced.
+template <int C, int kRows, int kPart>
+__device__ __forceinline__ void layer_norm_parts(uint8_t* u, float* mu_s,
+                                                 float* rstd_s,
                                                  const float* __restrict__ h,
                                                  const float* __restrict__ lns,
                                                  const float* __restrict__ lnb,
                                                  int r0, int N, float eps) {
-  using L = SplitTail<C>;
-  constexpr int kPer = L::kRows / (kConsumers / 32), kV = C / 32;
+  constexpr int kPer = kRows / (kConsumers / 32), kV = C / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float v[kPer][kV];
 #pragma unroll
@@ -469,17 +500,16 @@ __device__ __forceinline__ void layer_norm_parts(uint8_t* u,
       sq += v[i][j] * v[i][j];
     }
     const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+    if (u != nullptr) {
 #pragma unroll
-    for (int j = 0; j < kV; ++j) {
-      // û·ln_scale, then + ln_bias: the plain version's two roundings
-      float x = __fadd_rn(__fmul_rn(v[i][j] * rstd, sc[j]), bi[j]);
-      const int off = sw_offset(r, lane + 32 * j, L::kRows);
-#pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        const bf16 part = __float2bfloat16(x);
-        *reinterpret_cast<bf16*>(u + p * L::kUPart + off) = part;
-        x = __fsub_rn(x, __bfloat162float(part));
-      }
+      for (int j = 0; j < kV; ++j)
+        // û·ln_scale, then + ln_bias: the plain version's two roundings
+        put_parts<kPart>(u, sw_offset(r, lane + 32 * j, kRows),
+                         __fadd_rn(__fmul_rn(v[i][j] * rstd, sc[j]), bi[j]));
+    }
+    if (mu_s != nullptr && lane == 0) {
+      mu_s[r] = mu;
+      rstd_s[r] = rstd;
     }
   }
 }
@@ -523,11 +553,15 @@ __device__ __forceinline__ void add_tile(float (&d)[N], const float (&tile)[N]) 
 // hopper.cuh:mma_abt_parts_n32) with B_b the n32 half `half` of atom b's
 // tile, over the atom's first 16·kLastSteps columns for the last atom,
 // summed over the atoms into d[0] (kOut 1: z over C) or each into its own
-// d[b] (kOut kAtoms: o's atoms over a chunk). Each atom's product goes into
-// a fresh accumulator; with kBufs 2 two take turns, so one atom's products
-// run while the last one's are added to d. A stage is released once its
-// products are done.
-template <int kStages, int kAtoms, int kBufs, int kLastSteps, int kOut>
+// d[b] (kOut kAtoms: o's atoms over a chunk). kTransB 1 reads B_b MN-major
+// (hopper.cuh:mma_ab_parts_n32: its rows the reduction, the half 64 bytes
+// into its rows), for da = do·W2 and du += dz·W1. Each atom's product goes
+// into a fresh accumulator; with kBufs 2 two take turns, so one atom's
+// products run while the last one's are added to d. A stage is released
+// once its products are done, unless kRelease is false (a later product
+// reads it again and releases it).
+template <int kStages, int kAtoms, int kBufs, int kLastSteps, int kOut,
+          int kTransB = 0, bool kRelease = true>
 __device__ __forceinline__ void sum_atoms(float (&d)[kOut][16],
                                           Ring<kStages>& ring, int i0,
                                           uint32_t w_base, uint32_t a,
@@ -538,29 +572,37 @@ __device__ __forceinline__ void sum_atoms(float (&d)[kOut][16],
   float f[kBufs][16];
 #pragma unroll
   for (int b = 0; b < kAtoms; ++b) {
-    const uint32_t w = w_base + ring.stage(i0 + b) * kStage + half * 4096;
+    const uint32_t w = w_base + ring.stage(i0 + b) * kStage +
+                       half * (kTransB ? 64 : 4096);
     const uint32_t ab = opaque(a) + b * a_step;
     ring.wait_full(i0 + b);
     wgmma_fence();
-    if (b < kAtoms - 1)
-      mma_abt_parts_n32<3>(f[b % kBufs], ab, a_part, w, kTileBytes);
-    else
-      mma_abt_parts_n32<3, kLastSteps>(f[b % kBufs], ab, a_part, w,
-                                       kTileBytes);
+    constexpr int kLast = kLastSteps;
+    if constexpr (kTransB) {
+      if (b < kAtoms - 1)
+        mma_ab_parts_n32<3>(f[b % kBufs], ab, a_part, w, kTileBytes);
+      else
+        mma_ab_parts_n32<3, kLast>(f[b % kBufs], ab, a_part, w, kTileBytes);
+    } else {
+      if (b < kAtoms - 1)
+        mma_abt_parts_n32<3>(f[b % kBufs], ab, a_part, w, kTileBytes);
+      else
+        mma_abt_parts_n32<3, kLast>(f[b % kBufs], ab, a_part, w, kTileBytes);
+    }
     wgmma_commit();
     if (kBufs == 1 || b > 0) {
       const int done = kBufs == 1 ? b : b - 1;
       wgmma_wait<kBufs - 1>();
       fence_regs(f[done % kBufs]);
       add_tile(d[kOut == 1 ? 0 : done], f[done % kBufs]);
-      ring.release(i0 + done);
+      if (kRelease) ring.release(i0 + done);
     }
   }
   if (kBufs == 2) {
     wgmma_wait<0>();
     fence_regs(f[(kAtoms - 1) % 2]);
     add_tile(d[kOut == 1 ? 0 : kAtoms - 1], f[(kAtoms - 1) % 2]);
-    ring.release(i0 + kAtoms - 1);
+    if (kRelease) ring.release(i0 + kAtoms - 1);
   }
 }
 
@@ -741,7 +783,8 @@ __device__ __forceinline__ void tail_fwd_parts(
   if (threadIdx.x == kConsumers) produce_parts<C>(sm, tw1, tw2);
   if (threadIdx.x >= kConsumers) return;
 
-  layer_norm_parts<C>(sm, h, lns, lnb, r0, N, eps);
+  layer_norm_parts<C, L::kRows, L::kUPart>(sm, nullptr, nullptr, h, lns, lnb,
+                                         r0, N, eps);
   fence_proxy_async();
   named_barrier(1, kConsumers);
   if constexpr (L::kSplit)
@@ -897,155 +940,281 @@ convnext_tail_fwd_kernel(const __grid_constant__ CUtensorMap th_map,
   }
 }
 
+// ---- the fp32 backward (kParts = 3) -------------------------------------
+
+// The fp32 backward's tiling (kParts = 3) at width C: 64 rows a block, the
+// warpgroups on the n32 halves of every product's output columns, as the
+// fp32 forward's C 192 and 384 (SplitTail). do = γ⊙dy's three bf16 parts
+// and, but at C 384, u's, each [part][atom][64 rows][128 B]; dz's three
+// parts through one or two exchange tiles; W2 and W1 streamed by 64 x 64
+// atoms of three parts (24 KB a ring stage). At C 384 u's and do's parts
+// (2 x 147,456 B) do not fit together: z comes from a pre-pass
+// (convnext_tail_gz_kernel, kGz) that writes gelu′(z + b1) to device
+// memory, and this kernel holds do's parts alone. A chunk's W1 atoms stay
+// in the ring from z to du where the ring holds them all (kHold: C 96);
+// else they load again for du (C 192).
+template <int C>
+struct SplitBwd {
+  static constexpr int kAtoms = (C + 63) / 64;
+  static constexpr int kRows = 64;
+  static constexpr int kChunks = 4 * C / kChunk;
+  static constexpr bool kGz = C > 192;
+  static constexpr int kPart = kAtoms * kRows * 128;
+  static constexpr int kStage = 3 * static_cast<int>(kTileBytes);
+  // Byte offsets: do's parts, u's parts (but at kGz), the exchange tiles,
+  // the ring, the small region
+  static constexpr int kU = 3 * kPart;
+  static constexpr int kAct = kU + (kGz ? 0 : 3 * kPart);
+  static constexpr int kActBufs =
+      (kSmemLimit - kSmall - kAct - 2 * kStage) / kStage >= 3 ? 2 : 1;
+  static constexpr int kW = kAct + kActBufs * kStage;
+  static constexpr int kFit = (kSmemLimit - kW - kSmall) / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr bool kHold = !kGz && kStages >= kAtoms;
+  // Ring loads a chunk: W2's atoms (da), W1's (z, and du where held), W1's
+  // again (du) where not held
+  static constexpr int kLoads = kAtoms * (kGz || kHold ? 2 : 3);
+  static constexpr int kRing = kW + kStages * kStage;
+  static constexpr int kStats = kRing + 128;  // mu, rstd, Σdû[2], Σdû·û[2]
+  static constexpr int kBytes = kRing + kSmall + 1024;
+  // k16 steps of the last atom of C (C 96: 2, the columns that exist)
+  static constexpr int kLastSteps = C % 64 ? (C % 64) / 16 : 4;
+  static_assert(C % 32 == 0 && C <= 384, "C a multiple of 32, at most 384");
+  static_assert(kStages >= 2, "two atoms in flight");
+  static_assert(sizeof(Ring<kStages>) <= 128, "the ring's barriers");
+  static_assert(128 + 6 * kRows * 4 <= kSmall, "the row statistics");
+};
+
+// The z pre-pass at C 384: u's three parts and a ring of W1's atoms.
+template <int C>
+struct SplitGz {
+  static constexpr int kAtoms = (C + 63) / 64;
+  static constexpr int kRows = 64;
+  static constexpr int kChunks = 4 * C / kChunk;
+  static constexpr int kPart = kAtoms * kRows * 128;
+  static constexpr int kStage = 3 * static_cast<int>(kTileBytes);
+  static constexpr int kW = 3 * kPart;
+  static constexpr int kFit = (kSmemLimit - kW - kSmall) / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kRing = kW + kStages * kStage;
+  static constexpr int kBytes = kRing + kSmall + 1024;
+  static constexpr int kLastSteps = C % 64 ? (C % 64) / 16 : 4;
+  static_assert(kStages >= 2, "two atoms in flight");
+};
+
+// do = γ⊙dy of the block's 64 rows of fp32 dy, read from device memory (one
+// fp32 rounding, as the plain version), split into three bf16 parts written
+// to `dst` as TMA's swizzle would place them, part p kPart bytes after part
+// p − 1; rows past N are zeros. Each consumer warp takes 8 rows.
+template <int C, int kPart>
+__device__ __forceinline__ void scale_parts(uint8_t* dst,
+                                            const float* __restrict__ dy,
+                                            const float* __restrict__ gamma,
+                                            int r0, int N) {
+  constexpr int kPer = 64 / (kConsumers / 32), kV = C / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float gv[kV];
+#pragma unroll
+  for (int j = 0; j < kV; ++j) gv[j] = gamma[lane + 32 * j];
+#pragma unroll 2
+  for (int i = 0; i < kPer; ++i) {
+    const int r = warp * kPer + i, row = r0 + r;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int col = lane + 32 * j;
+      put_parts<kPart>(dst, sw_offset(r, col, 64),
+                       row < N ? __fmul_rn(dy[static_cast<size_t>(row) * C + col], gv[j])
+                               : 0.0f);
+    }
+  }
+}
+
+// z = u·W1ᵀ's n32 half wg of chunk j, for the block's 64 rows, as its
+// thread holds it: the accumulator element e at (row 16·warp + g + 8·((e /
+// 2) % 2), chunk column 32·wg + 8·(e / 4) + 2t + e % 2).
+__device__ __forceinline__ int chunk_col(int j, int wg, int e, int t) {
+  return j * kChunk + wg * 32 + (e / 4) * 8 + 2 * t + e % 2;
+}
+
+// The z pre-pass of K4's fp32 form where u's and do's parts do not fit
+// together (C 384): u's parts from an LN pass over fp32 h, every chunk's z
+// (the warpgroups on its n32 halves, six bf16 wgmma products an atom, each
+// in a fresh accumulator) and gelu′(z + b1) written to gz (N, 4C) fp32.
 template <int C>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-convnext_tail_bwd_kernel(const __grid_constant__ CUtensorMap th_map,
-                         const __grid_constant__ CUtensorMap tdy,
-                         const __grid_constant__ CUtensorMap tw1,
-                         const __grid_constant__ CUtensorMap tw2,
-                         const bf16* __restrict__ h,
-                         const bf16* __restrict__ lns,
-                         const bf16* __restrict__ lnb,
-                         const bf16* __restrict__ b1,
-                         const bf16* __restrict__ gamma, bf16* __restrict__ dh,
-                         int N, float eps) {
-  using L = Tail<C, true>;
+convnext_tail_gz_kernel(const __grid_constant__ CUtensorMap tw1,
+                        const float* __restrict__ h,
+                        const float* __restrict__ lns,
+                        const float* __restrict__ lnb,
+                        const float* __restrict__ b1, float* __restrict__ gz,
+                        int N, float eps) {
+  using L = SplitGz<C>;
   uint8_t* sm = &aligned_smem<uint8_t>();
   Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
-  float* mu_s = reinterpret_cast<float*>(sm + L::kStats);
-  float* rstd_s = mu_s + L::kRows;
-  float* sum1 = rstd_s + L::kRows;    // [2][kRows]: Σ dû per column half
-  float* sum2 = sum1 + 2 * L::kRows;  // [2][kRows]: Σ dû·û
   const int r0 = blockIdx.x * L::kRows;
-  if (!start_block<C, true>(sm, &th_map, &tdy, &tw1, &tw2, r0)) return;
-
-  mbar_wait(reinterpret_cast<uint64_t*>(sm + L::kRowsBar), 0);
-  layer_norm_rows<C, L::kRows>(sm, mu_s, rstd_s, lns, lnb, eps);
-  // do = bf16(γ·dy) over the dy tile in place, 8 columns (one swizzled
-  // 16-byte chunk) at a time; rows past N stay zeros.
-  for (int i = threadIdx.x; i < L::kRows * (C / 8); i += kConsumers) {
-    const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-    uint4* p = reinterpret_cast<uint4*>(sm + L::kDo + sw_offset(r, c, L::kRows));
-    uint4 raw = *p;
-    bf16* v = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = __float2bfloat16(__bfloat162float(v[e]) * bf(gamma, c + e));
-    *p = raw;
+  if (threadIdx.x == 0) {
+    ring.init(1, kConsumers / 32);
+    mbar_init_fence();
   }
+  __syncthreads();
+  if (threadIdx.x == kConsumers) {
+    for (int i = 0; i < L::kAtoms * L::kChunks; ++i) {
+      const int f0 = (i / L::kAtoms) * kChunk, b = i % L::kAtoms;
+      const int st = ring.stage(i);
+      uint8_t* dst = sm + L::kW + st * L::kStage;
+      ring.wait_empty(i);
+      mbar_arrive_expect_tx(&ring.full[st], L::kStage);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        tma_load_4d(dst + p * kTileBytes, &tw1, &ring.full[st], 64 * b, f0, p, 0);
+    }
+  }
+  if (threadIdx.x >= kConsumers) return;
+
+  layer_norm_parts<C, L::kRows, L::kPart>(sm, nullptr, nullptr, h, lns, lnb,
+                                         r0, N, eps);
   fence_proxy_async();
   named_barrier(1, kConsumers);
-
-  const Thread<C, true> th;
-  const uint32_t u = smem_u32(sm), dout = smem_u32(sm + L::kDo);
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const uint32_t w_base = smem_u32(sm + L::kW);
-  float du[L::kOwn][32];
+  for (int j = 0; j < L::kChunks; ++j) {
+    float z[1][16];
 #pragma unroll
-  for (int at = 0; at < L::kOwn; ++at)
+    for (int e = 0; e < 16; ++e) z[0][e] = 0.0f;
+    sum_atoms<L::kStages, L::kAtoms, 2, L::kLastSteps>(
+        z, ring, j * L::kAtoms, w_base, smem_u32(sm), kTileBytes, L::kPart, wg);
 #pragma unroll
-    for (int e = 0; e < 32; ++e) du[at][e] = 0.0f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + warp * 16 + g + 8 * r;
+      if (row >= N) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int e = 4 * nt + 2 * r, col = chunk_col(j, wg, e, t);
+        *reinterpret_cast<float2*>(gz + static_cast<size_t>(row) * 4 * C + col) =
+            make_float2(gelu_grad(__fadd_rn(z[0][e], b1[col])),
+                        gelu_grad(__fadd_rn(z[0][e + 1], b1[col + 1])));
+      }
+    }
+  }
+}
+
+// The fp32 backward's producer: every chunk's W2 atoms, then its W1 atoms
+// (once, or twice where not held: SplitBwd::kLoads), each as its three
+// parts into one ring stage, as soon as the stage is free.
+template <int C>
+__device__ __forceinline__ void produce_bwd_parts(uint8_t* sm,
+                                                  const CUtensorMap* tw1,
+                                                  const CUtensorMap* tw2) {
+  using L = SplitBwd<C>;
+  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+  for (int i = 0; i < L::kLoads * L::kChunks; ++i) {
+    const int f0 = (i / L::kLoads) * kChunk, k = i % L::kLoads;
+    const int st = ring.stage(i);
+    uint8_t* dst = sm + L::kW + st * L::kStage;
+    ring.wait_empty(i);
+    mbar_arrive_expect_tx(&ring.full[st], L::kStage);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (k < L::kAtoms)
+        tma_load_4d(dst + p * kTileBytes, tw2, &ring.full[st], f0, 64 * k, p, 0);
+      else
+        tma_load_4d(dst + p * kTileBytes, tw1, &ring.full[st],
+                    64 * ((k - L::kAtoms) % L::kAtoms), f0, p, 0);
+    }
+  }
+}
+
+// K4 on fp32 rows, after the LN and do passes: warpgroup wg forms columns
+// 32·wg .. 32·wg + 31 of each chunk's da (do·W2 over C's atoms) and z
+// (u·W1ᵀ, or gelu′(z + b1) read from gz at C 384), dz = da⊙gelu′(z + b1)
+// split into three parts in an exchange tile, then the same half of each
+// 64-column atom of du (dz·W1); then the LN backward with per-row Σdû and
+// Σdû·û over both warpgroups' columns.
+template <int C>
+__device__ __forceinline__ void tail_bwd_parts(
+    uint8_t* sm, const float* __restrict__ h, const float* __restrict__ lns,
+    const float* __restrict__ b1, const float* __restrict__ gz,
+    float* __restrict__ dh, int r0, int N) {
+  using L = SplitBwd<C>;
+  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+  const float* mu_s = reinterpret_cast<const float*>(sm + L::kStats);
+  const float* rstd_s = mu_s + 64;
+  float* sum1 = reinterpret_cast<float*>(sm + L::kStats) + 128;  // [2][64]
+  float* sum2 = sum1 + 128;                                       // [2][64]
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const uint32_t w_base = smem_u32(sm + L::kW);
+  float du[L::kAtoms][16];
+#pragma unroll
+  for (int at = 0; at < L::kAtoms; ++at)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) du[at][e] = 0.0f;
 
   for (int j = 0; j < L::kChunks; ++j) {
-    const int f0 = j * kChunk;
-    const uint32_t w2 = w_base + ring.stage(2 * j) * L::kWTile;
-    const uint32_t w1 = w_base + ring.stage(2 * j + 1) * L::kWTile;
-    const uint32_t ua = opaque(u), da_a = opaque(dout);
-    if constexpr (!L::kSplit) {
-      float da[32], z[32];
-      ring.wait_full(2 * j);
-      wgmma_fence();
+    const int i0 = j * L::kLoads;
+    float da[1][16], gp[16];
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks)
-        wgmma_ss<1>(da, desc_k(a_rows<L::kRows>(da_a, th.rg, ks)),
-                    desc_mn(w2 + 2048 * ks), ks > 0);
-      wgmma_commit();
-      ring.wait_full(2 * j + 1);
+    for (int e = 0; e < 16; ++e) da[0][e] = 0.0f;
+    // da's fresh accumulators two in turn, one at C 384 (du's 96 registers)
+    sum_atoms<L::kStages, L::kAtoms, (L::kGz ? 1 : 2), L::kLastSteps, 1, 1>(
+        da, ring, i0, w_base, smem_u32(sm), kTileBytes, L::kPart, wg);
+    if constexpr (L::kGz) {
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks)
-        wgmma_ss<0>(z, desc_k(a_rows<L::kRows>(ua, th.rg, ks)),
-                    desc_k(w1 + (ks / 4) * kTileBytes + (ks % 4) * 32), ks > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(da);
-      fence_regs(z);
-      ring.release(2 * j);
-      uint32_t af[4][4];  // dz = da·gelu′(z + b1)
-      to_fragments(af, [&](int e, int col) {
-        return da[e] * gelu_grad(z[e] + bf(b1, f0 + col));
-      }, th.t);
-      wgmma_fence();
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + warp * 16 + g + 8 * r;
 #pragma unroll
-      for (int at = 0; at < L::kOwn; ++at)
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          wgmma_rs<1>(du[at], af[ks], desc_mn(w1 + at * kTileBytes + 2048 * ks));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(af);
+        for (int nt = 0; nt < 4; ++nt) {
+          const int e = 4 * nt + 2 * r;
+          const float2 v = row < N
+              ? *reinterpret_cast<const float2*>(
+                    gz + static_cast<size_t>(row) * 4 * C + chunk_col(j, wg, e, t))
+              : make_float2(0.0f, 0.0f);
+          gp[e] = v.x;
+          gp[e + 1] = v.y;
+        }
+      }
     } else {
-      float da[16], z[16];
-      ring.wait_full(2 * j);
-      wgmma_fence();
+      float z[1][16];
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks)
-        wgmma_ss_n32<1>(da, desc_k(a_rows<L::kRows>(da_a, 0, ks)),
-                        desc_mn(w2 + 2048 * ks + 64 * th.cg), ks > 0);
-      wgmma_commit();
-      ring.wait_full(2 * j + 1);
+      for (int e = 0; e < 16; ++e) z[0][e] = 0.0f;
+      sum_atoms<L::kStages, L::kAtoms, 2, L::kLastSteps, 1, 0, !L::kHold>(
+          z, ring, i0 + L::kAtoms, w_base, smem_u32(sm + L::kU), kTileBytes,
+          L::kPart, wg);
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks)
-        wgmma_ss_n32<0>(z, desc_k(a_rows<L::kRows>(ua, 0, ks)),
-                        desc_k(w1 + (ks / 4) * kTileBytes + th.cg * 4096 +
-                               (ks % 4) * 32),
-                        ks > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(da);
-      fence_regs(z);
-      ring.release(2 * j);
-      uint8_t* act = sm + L::kAct + (j & 1) * kTileBytes;
-      to_exchange(act, [&](int e, int col) {
-        return da[e] * gelu_grad(z[e] + bf(b1, f0 + col));
-      }, th.cg * 32, th.row(0), th.t);
-      named_barrier(1, kConsumers);
-      const uint32_t a = smem_u32(act);
-      wgmma_fence();
-#pragma unroll
-      for (int at = 0; at < L::kOwn; ++at)
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          wgmma_ss<1>(du[at], desc_k(a + 32 * ks),
-                      desc_mn(w1 + (th.cg * L::kOwn + at) * kTileBytes +
-                              2048 * ks),
-                      1);
-      wgmma_commit();
-      wgmma_wait<0>();
+      for (int e = 0; e < 16; ++e)
+        gp[e] = gelu_grad(__fadd_rn(z[0][e], b1[chunk_col(j, wg, e, t)]));
     }
-#pragma unroll
-    for (int at = 0; at < L::kOwn; ++at) fence_regs(du[at]);
-    ring.release(2 * j + 1);
+    uint8_t* act = sm + L::kAct + (j % L::kActBufs) * L::kStage;
+    // With one exchange tile, both warpgroups must be done with chunk
+    // j − 1's du before either writes chunk j's dz.
+    if (L::kActBufs == 1) named_barrier(2, kConsumers);
+    to_exchange<3>(act, [&](int e, int) { return __fmul_rn(da[0][e], gp[e]); },
+                   wg * 32, warp * 16 + g, t);
+    named_barrier(1, kConsumers);
+    sum_atoms<L::kStages, L::kAtoms, 2, 4, L::kAtoms, 1>(
+        du, ring, i0 + L::kAtoms * (L::kGz || L::kHold ? 1 : 2), w_base,
+        smem_u32(act), 0, kTileBytes, wg);
   }
 
-  // LN backward. A row's columns are spread over the 4 threads of a group
-  // and, at C 384, over both warpgroups: per-row sums of dû and dû·û go
-  // through shuffles, then shared memory. h is read once, at once.
-  uint32_t hr[2][L::kOwn][8];
-  load_pairs<C, true>(hr, h, th, r0, N);
-  constexpr int kHalves = L::kSplit ? 2 : 1;
+  // LN backward: dû = du⊙lns; a row's columns are spread over the 4
+  // threads of a group and both warpgroups.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int lr = th.row(r);
+    const int lr = warp * 16 + g + 8 * r, row = r0 + lr;
     const float mu = mu_s[lr], rstd = rstd_s[lr];
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-    for (int at = 0; at < L::kOwn; ++at)
+    for (int at = 0; at < L::kAtoms; ++at)
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = th.col(at, nt);
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = at * 64 + wg * 32 + nt * 8 + 2 * t;
         if (col >= C) continue;
-        const float2 hv = bf2(hr[r][at][nt]), sv = bf2(lns + col);
-        const float d0 = du[at][4 * nt + 2 * r] * sv.x;
-        const float d1 = du[at][4 * nt + 2 * r + 1] * sv.y;
+        const float2 hv = row < N
+            ? *reinterpret_cast<const float2*>(h + static_cast<size_t>(row) * C + col)
+            : make_float2(0.0f, 0.0f);
+        const float d0 = __fmul_rn(du[at][4 * nt + 2 * r], lns[col]);
+        const float d1 = __fmul_rn(du[at][4 * nt + 2 * r + 1], lns[col + 1]);
         s1 += d0;
         s1 += d1;
         s2 += d0 * ((hv.x - mu) * rstd);
@@ -1055,37 +1224,264 @@ convnext_tail_bwd_kernel(const __grid_constant__ CUtensorMap th_map,
     s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
     s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
     s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
-    if (th.t == 0) {
-      sum1[th.cg * L::kRows + lr] = s1;
-      sum2[th.cg * L::kRows + lr] = s2;
+    if (t == 0) {
+      sum1[wg * 64 + lr] = s1;
+      sum2[wg * 64 + lr] = s2;
     }
   }
   named_barrier(1, kConsumers);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int lr = th.row(r), row = r0 + lr;
+    const int lr = warp * 16 + g + 8 * r, row = r0 + lr;
     if (row >= N) continue;
     const float mu = mu_s[lr], rstd = rstd_s[lr];
-    float c1 = sum1[lr], c2 = sum2[lr];
-    if (kHalves == 2) {
-      c1 += sum1[L::kRows + lr];
-      c2 += sum2[L::kRows + lr];
+    const float c1 = (sum1[lr] + sum1[64 + lr]) / C;
+    const float c2 = (sum2[lr] + sum2[64 + lr]) / C;
+#pragma unroll
+    for (int at = 0; at < L::kAtoms; ++at)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = at * 64 + wg * 32 + nt * 8 + 2 * t;
+        if (col >= C) continue;
+        const size_t i = static_cast<size_t>(row) * C + col;
+        const float2 hv = *reinterpret_cast<const float2*>(h + i);
+        const float u0 = (hv.x - mu) * rstd, u1 = (hv.y - mu) * rstd;
+        const float d0 = __fmul_rn(du[at][4 * nt + 2 * r], lns[col]);
+        const float d1 = __fmul_rn(du[at][4 * nt + 2 * r + 1], lns[col + 1]);
+        *reinterpret_cast<float2*>(dh + i) =
+            make_float2(rstd * (d0 - c1 - u0 * c2), rstd * (d1 - c1 - u1 * c2));
+      }
+  }
+}
+
+// K4 on fp32 rows: the ring, the producer warp, the LN pass (u's parts but
+// at C 384, the statistics) and do's parts, then tail_bwd_parts.
+template <int C>
+__device__ __forceinline__ void tail_bwd_f32(
+    const CUtensorMap* tw1, const CUtensorMap* tw2, const float* __restrict__ h,
+    const float* __restrict__ dy, const float* __restrict__ lns,
+    const float* __restrict__ lnb, const float* __restrict__ b1,
+    const float* __restrict__ gamma, const float* __restrict__ gz,
+    float* __restrict__ dh, int N, float eps) {
+  using L = SplitBwd<C>;
+  uint8_t* sm = &aligned_smem<uint8_t>();
+  const int r0 = blockIdx.x * L::kRows;
+  if (threadIdx.x == 0) {
+    reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing)->init(1, kConsumers / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == kConsumers) produce_bwd_parts<C>(sm, tw1, tw2);
+  if (threadIdx.x >= kConsumers) return;
+
+  float* mu_s = reinterpret_cast<float*>(sm + L::kStats);
+  layer_norm_parts<C, L::kRows, L::kPart>(L::kGz ? nullptr : sm + L::kU, mu_s,
+                                         mu_s + 64, h, lns, lnb, r0, N, eps);
+  scale_parts<C, L::kPart>(sm, dy, gamma, r0, N);
+  fence_proxy_async();
+  named_barrier(1, kConsumers);
+  tail_bwd_parts<C>(sm, h, lns, b1, gz, dh, r0, N);
+}
+
+// K4. kParts = 1: bf16 rows h and dy through their tensor maps; kParts =
+// 3: fp32 rows h and dy read from device memory (tail_bwd_f32), W1 and W2
+// through the tensor maps of their three bf16 parts, gz the z pre-pass's
+// output at C 384.
+template <int C, int kParts>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+convnext_tail_bwd_kernel(const __grid_constant__ CUtensorMap th_map,
+                         const __grid_constant__ CUtensorMap tdy,
+                         const __grid_constant__ CUtensorMap tw1,
+                         const __grid_constant__ CUtensorMap tw2,
+                         const RowT<kParts>* __restrict__ h,
+                         const RowT<kParts>* __restrict__ lns,
+                         const RowT<kParts>* __restrict__ lnb,
+                         const RowT<kParts>* __restrict__ b1,
+                         const RowT<kParts>* __restrict__ gamma,
+                         RowT<kParts>* __restrict__ dh, int N, float eps,
+                         const RowT<kParts>* __restrict__ dy,
+                         const float* __restrict__ gz) {
+  if constexpr (kParts == 3) {
+    tail_bwd_f32<C>(&tw1, &tw2, h, dy, lns, lnb, b1, gamma, gz, dh, N, eps);
+  } else {
+    using L = Tail<C, true>;
+    uint8_t* sm = &aligned_smem<uint8_t>();
+    Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+    float* mu_s = reinterpret_cast<float*>(sm + L::kStats);
+    float* rstd_s = mu_s + L::kRows;
+    float* sum1 = rstd_s + L::kRows;    // [2][kRows]: Σ dû per column half
+    float* sum2 = sum1 + 2 * L::kRows;  // [2][kRows]: Σ dû·û
+    const int r0 = blockIdx.x * L::kRows;
+    if (!start_block<C, true>(sm, &th_map, &tdy, &tw1, &tw2, r0)) return;
+
+    mbar_wait(reinterpret_cast<uint64_t*>(sm + L::kRowsBar), 0);
+    layer_norm_rows<C, L::kRows>(sm, mu_s, rstd_s, lns, lnb, eps);
+    // do = bf16(γ·dy) over the dy tile in place, 8 columns (one swizzled
+    // 16-byte chunk) at a time; rows past N stay zeros.
+    for (int i = threadIdx.x; i < L::kRows * (C / 8); i += kConsumers) {
+      const int r = i / (C / 8), c = (i % (C / 8)) * 8;
+      uint4* p = reinterpret_cast<uint4*>(sm + L::kDo + sw_offset(r, c, L::kRows));
+      uint4 raw = *p;
+      bf16* v = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = __float2bfloat16(__bfloat162float(v[e]) * bf(gamma, c + e));
+      *p = raw;
     }
-    c1 /= C;
-    c2 /= C;
+    fence_proxy_async();
+    named_barrier(1, kConsumers);
+
+    const Thread<C, true> th;
+    const uint32_t u = smem_u32(sm), dout = smem_u32(sm + L::kDo);
+    const uint32_t w_base = smem_u32(sm + L::kW);
+    float du[L::kOwn][32];
 #pragma unroll
     for (int at = 0; at < L::kOwn; ++at)
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = th.col(at, nt);
-        if (col >= C) continue;
-        const float2 hv = bf2(hr[r][at][nt]), sv = bf2(lns + col);
-        const float u0 = (hv.x - mu) * rstd, u1 = (hv.y - mu) * rstd;
-        const float d0 = du[at][4 * nt + 2 * r] * sv.x;
-        const float d1 = du[at][4 * nt + 2 * r + 1] * sv.y;
-        *reinterpret_cast<uint32_t*>(dh + static_cast<size_t>(row) * C + col) =
-            pack_bf16x2(rstd * (d0 - c1 - u0 * c2), rstd * (d1 - c1 - u1 * c2));
+      for (int e = 0; e < 32; ++e) du[at][e] = 0.0f;
+
+    for (int j = 0; j < L::kChunks; ++j) {
+      const int f0 = j * kChunk;
+      const uint32_t w2 = w_base + ring.stage(2 * j) * L::kWTile;
+      const uint32_t w1 = w_base + ring.stage(2 * j + 1) * L::kWTile;
+      const uint32_t ua = opaque(u), da_a = opaque(dout);
+      if constexpr (!L::kSplit) {
+        float da[32], z[32];
+        ring.wait_full(2 * j);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks)
+          wgmma_ss<1>(da, desc_k(a_rows<L::kRows>(da_a, th.rg, ks)),
+                      desc_mn(w2 + 2048 * ks), ks > 0);
+        wgmma_commit();
+        ring.wait_full(2 * j + 1);
+#pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks)
+          wgmma_ss<0>(z, desc_k(a_rows<L::kRows>(ua, th.rg, ks)),
+                      desc_k(w1 + (ks / 4) * kTileBytes + (ks % 4) * 32), ks > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(da);
+        fence_regs(z);
+        ring.release(2 * j);
+        uint32_t af[4][4];  // dz = da·gelu′(z + b1)
+        to_fragments(af, [&](int e, int col) {
+          return da[e] * gelu_grad(z[e] + bf(b1, f0 + col));
+        }, th.t);
+        wgmma_fence();
+#pragma unroll
+        for (int at = 0; at < L::kOwn; ++at)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_rs<1>(du[at], af[ks], desc_mn(w1 + at * kTileBytes + 2048 * ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(af);
+      } else {
+        float da[16], z[16];
+        ring.wait_full(2 * j);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks)
+          wgmma_ss_n32<1>(da, desc_k(a_rows<L::kRows>(da_a, 0, ks)),
+                          desc_mn(w2 + 2048 * ks + 64 * th.cg), ks > 0);
+        wgmma_commit();
+        ring.wait_full(2 * j + 1);
+#pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks)
+          wgmma_ss_n32<0>(z, desc_k(a_rows<L::kRows>(ua, 0, ks)),
+                          desc_k(w1 + (ks / 4) * kTileBytes + th.cg * 4096 +
+                                 (ks % 4) * 32),
+                          ks > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(da);
+        fence_regs(z);
+        ring.release(2 * j);
+        uint8_t* act = sm + L::kAct + (j & 1) * kTileBytes;
+        to_exchange(act, [&](int e, int col) {
+          return da[e] * gelu_grad(z[e] + bf(b1, f0 + col));
+        }, th.cg * 32, th.row(0), th.t);
+        named_barrier(1, kConsumers);
+        const uint32_t a = smem_u32(act);
+        wgmma_fence();
+#pragma unroll
+        for (int at = 0; at < L::kOwn; ++at)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss<1>(du[at], desc_k(a + 32 * ks),
+                        desc_mn(w1 + (th.cg * L::kOwn + at) * kTileBytes +
+                                2048 * ks),
+                        1);
+        wgmma_commit();
+        wgmma_wait<0>();
       }
+#pragma unroll
+      for (int at = 0; at < L::kOwn; ++at) fence_regs(du[at]);
+      ring.release(2 * j + 1);
+    }
+
+    // LN backward. A row's columns are spread over the 4 threads of a group
+    // and, at C 384, over both warpgroups: per-row sums of dû and dû·û go
+    // through shuffles, then shared memory. h is read once, at once.
+    uint32_t hr[2][L::kOwn][8];
+    load_pairs<C, true>(hr, h, th, r0, N);
+    constexpr int kHalves = L::kSplit ? 2 : 1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int lr = th.row(r);
+      const float mu = mu_s[lr], rstd = rstd_s[lr];
+      float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int at = 0; at < L::kOwn; ++at)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = th.col(at, nt);
+          if (col >= C) continue;
+          const float2 hv = bf2(hr[r][at][nt]), sv = bf2(lns + col);
+          const float d0 = du[at][4 * nt + 2 * r] * sv.x;
+          const float d1 = du[at][4 * nt + 2 * r + 1] * sv.y;
+          s1 += d0;
+          s1 += d1;
+          s2 += d0 * ((hv.x - mu) * rstd);
+          s2 += d1 * ((hv.y - mu) * rstd);
+        }
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
+      if (th.t == 0) {
+        sum1[th.cg * L::kRows + lr] = s1;
+        sum2[th.cg * L::kRows + lr] = s2;
+      }
+    }
+    named_barrier(1, kConsumers);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int lr = th.row(r), row = r0 + lr;
+      if (row >= N) continue;
+      const float mu = mu_s[lr], rstd = rstd_s[lr];
+      float c1 = sum1[lr], c2 = sum2[lr];
+      if (kHalves == 2) {
+        c1 += sum1[L::kRows + lr];
+        c2 += sum2[L::kRows + lr];
+      }
+      c1 /= C;
+      c2 /= C;
+#pragma unroll
+      for (int at = 0; at < L::kOwn; ++at)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = th.col(at, nt);
+          if (col >= C) continue;
+          const float2 hv = bf2(hr[r][at][nt]), sv = bf2(lns + col);
+          const float u0 = (hv.x - mu) * rstd, u1 = (hv.y - mu) * rstd;
+          const float d0 = du[at][4 * nt + 2 * r] * sv.x;
+          const float d1 = du[at][4 * nt + 2 * r + 1] * sv.y;
+          *reinterpret_cast<uint32_t*>(dh + static_cast<size_t>(row) * C + col) =
+              pack_bf16x2(rstd * (d0 - c1 - u0 * c2), rstd * (d1 - c1 - u1 * c2));
+        }
+    }
   }
 }
 
@@ -1194,30 +1590,73 @@ int launch_bwd(const void* h, const void* dy, const void* lns, const void* lnb,
   if (!err) err = weight_maps<C>(&tw1, &tw2, w1, w2);
   if (err) return err;
   err = static_cast<int>(cudaFuncSetAttribute(
-      convnext_tail_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes));
+      convnext_tail_bwd_kernel<C, 1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes));
   if (err) return err;
-  convnext_tail_bwd_kernel<C>
+  convnext_tail_bwd_kernel<C, 1>
       <<<(N + L::kRows - 1) / L::kRows, kBlockThreads, L::kBytes, stream>>>(
           th, tdy, tw1, tw2, static_cast<const bf16*>(h),
           static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),
           static_cast<const bf16*>(b1), static_cast<const bf16*>(gamma),
-          static_cast<bf16*>(dh), N, eps);
+          static_cast<bf16*>(dh), N, eps, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's fp32 form: at C 384 the z pre-pass into gz (N, 4C), then the
+// kernel on the parts the wrapper's pre-split wrote.
+template <int C>
+int launch_bwd_parts(const void* h, const void* dy, const void* lns,
+                     const void* lnb, const void* parts, const void* b1,
+                     const void* gamma, void* gz, void* dh, int N, float eps,
+                     cudaStream_t stream) {
+  using L = SplitBwd<C>;
+  CUtensorMap th{}, tdy{}, tw1, tw2;
+  const bf16* w1p = static_cast<const bf16*>(parts);
+  int err = parts_map(&tw1, w1p, 4 * C, C);
+  if (!err) err = parts_map(&tw2, w1p + 3 * 4 * C * C, C, 4 * C);
+  if (err) return err;
+  const int blocks = (N + L::kRows - 1) / L::kRows;
+  if constexpr (L::kGz) {
+    if (gz == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = static_cast<int>(cudaFuncSetAttribute(
+        convnext_tail_gz_kernel<C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SplitGz<C>::kBytes));
+    if (err) return err;
+    convnext_tail_gz_kernel<C><<<blocks, kBlockThreads, SplitGz<C>::kBytes, stream>>>(
+        tw1, static_cast<const float*>(h), static_cast<const float*>(lns),
+        static_cast<const float*>(lnb), static_cast<const float*>(b1),
+        static_cast<float*>(gz), N, eps);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
+  err = static_cast<int>(cudaFuncSetAttribute(
+      convnext_tail_bwd_kernel<C, 3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes));
+  if (err) return err;
+  convnext_tail_bwd_kernel<C, 3><<<blocks, kBlockThreads, L::kBytes, stream>>>(
+      th, tdy, tw1, tw2, static_cast<const float*>(h),
+      static_cast<const float*>(lns), static_cast<const float*>(lnb),
+      static_cast<const float*>(b1), static_cast<const float*>(gamma),
+      static_cast<float*>(dh), N, eps, static_cast<const float*>(dy),
+      static_cast<const float*>(gz));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Dynamic shared memory of K3 (bwd 0) or K4 (bwd 1) at width C, bytes, of
-// the bf16 kernels (parts 1) or of K3's fp32 form (parts 3, bwd 0), or 0
-// for another C (for the build report).
+// the bf16 kernels (parts 1) or of the fp32 forms (parts 3; bwd 2: K4's z
+// pre-pass, C 384), or 0 for another C (for the build report).
 extern "C" int convnext_tail_smem(int C, int bwd, int parts) {
   if (parts == 3) {
-    if (bwd) return 0;
-    switch (C) {
-      case 96: return SplitTail<96>::kBytes;
-      case 192: return SplitTail<192>::kBytes;
-      case 384: return SplitTail<384>::kBytes;
+    switch (C * 4 + bwd) {
+      case 96 * 4: return SplitTail<96>::kBytes;
+      case 192 * 4: return SplitTail<192>::kBytes;
+      case 384 * 4: return SplitTail<384>::kBytes;
+      case 96 * 4 + 1: return SplitBwd<96>::kBytes;
+      case 192 * 4 + 1: return SplitBwd<192>::kBytes;
+      case 384 * 4 + 1: return SplitBwd<384>::kBytes;
+      case 384 * 4 + 2: return SplitGz<384>::kBytes;
       default: return 0;
     }
   }
@@ -1258,6 +1697,32 @@ extern "C" int convnext_tail_f32_fwd(const void* h, const void* x,
     case 96: return launch_fwd_parts<96>(h, x, lns, lnb, parts, b1, b2, gamma, y, N, eps, st);
     case 192: return launch_fwd_parts<192>(h, x, lns, lnb, parts, b1, b2, gamma, y, N, eps, st);
     case 384: return launch_fwd_parts<384>(h, x, lns, lnb, parts, b1, b2, gamma, y, N, eps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Whether K4's fp32 form at width C takes the z pre-pass, whose output gz
+// (N, 4C) fp32 the caller allocates: 1 or 0.
+extern "C" int convnext_tail_f32_bwd_gz(int C) {
+  return C == 384 ? SplitBwd<384>::kGz
+                  : C == 192 ? SplitBwd<192>::kGz : SplitBwd<96>::kGz;
+}
+
+// K4's fp32 form: h, dy, dh (N, C) fp32; lns, lnb, gamma (C,) and b1 (4C,)
+// fp32; parts the weights' parts from convnext_tail_split; gz (N, 4C) fp32
+// scratch where convnext_tail_f32_bwd_gz(C), else null. All contiguous and
+// 16-byte aligned. C in {96, 192, 384}. Returns as convnext_tail_fwd.
+extern "C" int convnext_tail_f32_bwd(const void* h, const void* dy,
+                                     const void* lns, const void* lnb,
+                                     const void* parts, const void* b1,
+                                     const void* gamma, void* gz, void* dh,
+                                     int N, int C, float eps, void* stream) {
+  if (N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 96: return launch_bwd_parts<96>(h, dy, lns, lnb, parts, b1, gamma, gz, dh, N, eps, st);
+    case 192: return launch_bwd_parts<192>(h, dy, lns, lnb, parts, b1, gamma, gz, dh, N, eps, st);
+    case 384: return launch_bwd_parts<384>(h, dy, lns, lnb, parts, b1, gamma, gz, dh, N, eps, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
-// (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate) that
+// (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate;
+// m64n32k32 int8 in, int32 accumulate, for K12a) that
 // the attention kernels (K6, K7/K8 and their packed forms K1, K2; their
 // fp32 forms through fp32-accurate products of three bf16 parts), the
 // ConvNeXt block tail (K3, K4; K3's fp32 form the same way) and the
@@ -307,6 +308,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 template <int N, int M>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 #pragma unroll
@@ -390,6 +396,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(kTransB));
 }
 
+#define VIT_IACC16(d)                                                        \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),    \
+      "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),           \
+      "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+
+// d (+)= A·B, m64n32k32, int8 × int8 → int32 (exact, as the MXU's int8
+// products): A and B K-major from shared memory through descriptors (8-bit
+// operands have no transpose bit). A k32 step is 32 bytes of a 128-byte
+// swizzled row, the byte arithmetic of bf16's k16 step, so desc_k serves; a
+// B of 32 rows starts 32 rows (4096 bytes) into a tile for its rows 32-63.
+// The accumulator layout is the fp32 one: d[4j + 2r + c] = D[16w + g + 8r]
+// [8j + 2t + c], j < 4. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_s8_n32(int (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p;\n"
+      "}\n"
+      : VIT_IACC16(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef VIT_IACC16
 #undef VIT_ACC16
 #undef VIT_ACC32
 #undef VIT_ACC32_LIST
@@ -465,6 +498,23 @@ __device__ __forceinline__ void mma_abt_parts_n32(float (&d)[16], uint32_t a,
     for (int ks = 0; ks < kSteps; ++ks)
       wgmma_ss_n32<0>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
                       desc_k(b + split_b(t) * b_part + 32 * ks),
+                      t > kFirstTerm<kParts> || ks > 0);
+}
+
+// d = A·B over 16·kSteps, 32 columns (wgmma_ss_n32): A a K-major tile at
+// a, B read MN-major from b (its rows the reduction, 2048 bytes a k16
+// step; 64 bytes into the tile for its columns 32-63), both of kParts
+// parts a_part and b_part bytes apart; e.g. da = do·W2 over an atom of C.
+template <int kParts, int kSteps = 4>
+__device__ __forceinline__ void mma_ab_parts_n32(float (&d)[16], uint32_t a,
+                                                 uint32_t a_part, uint32_t b,
+                                                 uint32_t b_part) {
+#pragma unroll
+  for (int t = kFirstTerm<kParts>; t < 6; ++t)
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+      wgmma_ss_n32<1>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
+                      desc_mn(b + split_b(t) * b_part + 2048 * ks),
                       t > kFirstTerm<kParts> || ks > 0);
 }
 
@@ -616,6 +666,26 @@ inline int matrix_map(CUtensorMap* map, const void* base, int rows,
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major int8 matrix (rows, cols), cols a multiple
+// of 16: 2-D (cols, rows), boxes of 128 columns (one 128-byte swizzled
+// row) x 64 rows, zeros past either edge. Returns 0 or a cudaError_t.
+inline int byte_matrix_map(CUtensorMap* map, const void* base, int rows,
+                           int cols) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {128, kTileRows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -28,8 +28,9 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
   convnext_tail.cu         K3   convnext_block.py:248 (_fwd_kernel :89)
                            K4   convnext_block.py:276 (_bwd_kernel :109)
                                 (on hopper.cuh too: a TMA ring of weight
-                                tiles, wgmma); K3 on fp32 rows the same
-                                kernel over three bf16 parts (kParts = 3)
+                                tiles, wgmma); on fp32 rows the same
+                                kernels over three bf16 parts (kParts = 3;
+                                K4 with a z pre-pass at C 384)
   vq_nearest.cu            K5   vq.py:83 (_vq_kernel :36)
   ln_matmul.cu             K9a  ln_matmul.py:121 (_fwd_kernel :60)
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
@@ -40,19 +41,19 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                                 (on hopper.cuh: TMA halo tiles in, output
                                 tiles out; a dx-only form)
   convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
+                                (on hopper.cuh: int8 wgmma, a TMA ring)
                            K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
-  convnext_tail_f32.cu     K4 on fp32 rows
   fma_probe.cu             P    scripts/bench_vpu.py:60 (_fma_kernel :32)
 
 The JAX package runs every Pallas kernel on operands of the compute dtype,
 fp32 products at Precision.HIGHEST under ``--mixed false``. Each kernel
-therefore has an fp32 form: the attention kernels and K3 as fp32-accurate
-products of three bf16 parts on the tensor cores (``attention_fwd.cu``,
-``attention_bwd.cu``, ``convnext_tail.cu``), K4 in its own source above
-(SIMT fp32 products, ``csrc/simt_f32.cuh``), the others as ``*_f32``
-entries beside their bf16 ones (K9a, K10: SIMT products; K9b, K9c, K12a,
-K12b: the kernels templated on their row type). K5 is fp32 by
-design and K11 takes both dtypes through one entry.
+therefore has an fp32 form: the attention kernels, K3 and K4 as
+fp32-accurate products of three bf16 parts on the tensor cores
+(``attention_fwd.cu``, ``attention_bwd.cu``, ``convnext_tail.cu``), the
+others as ``*_f32`` entries beside their bf16 ones (K9a, K10: SIMT
+products, ``csrc/simt_f32.cuh``; K9b, K9c, K12a, K12b: the kernels
+templated on their row type). K5 is fp32 by design and K11 takes both
+dtypes through one entry.
 
 Every entry takes pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
@@ -190,6 +191,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     #                      y, N, C, eps, stream)
     lib.convnext_tail_fwd_q8.argtypes = [ptr] * 12 + [i32, i32, f32, ptr]
     lib.convnext_tail_fwd_q8.restype = i32
+    # convnext_tail_fwd_q8_smem(C): K12a's dynamic shared memory, bytes
+    lib.convnext_tail_fwd_q8_smem.argtypes = [i32]
+    lib.convnext_tail_fwd_q8_smem.restype = i32
     # convnext_tail_bwd_q8(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts,
     #                      b1, gamma, dh, N, C, eps, stream)
     lib.convnext_tail_bwd_q8.argtypes = [ptr] * 13 + [i32, i32, f32, ptr]
@@ -235,8 +239,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # convnext_tail_f32_fwd(h, x, lns, lnb, parts, b1, b2, gamma, y, N, C,
     #                       eps, stream)
     lib.convnext_tail_f32_fwd.argtypes = [ptr] * 9 + [i32, i32, f32, ptr]
-    for name, like in (("convnext_tail_f32_bwd", "convnext_tail_bwd"),
-                       ("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
+    # convnext_tail_f32_bwd(h, dy, lns, lnb, parts, b1, gamma, gz, dh, N, C,
+    #                       eps, stream); convnext_tail_f32_bwd_gz(C): 1 if
+    # that form at width C takes the z pre-pass (gz (N, 4C) fp32 scratch)
+    lib.convnext_tail_f32_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, ptr]
+    lib.convnext_tail_f32_bwd_gz.argtypes = [i32]
+    for name, like in (("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
                        ("convnext_tail_bwd_q8_f32", "convnext_tail_bwd_q8"),
                        ("ln_matmul_fwd_f32", "ln_matmul_fwd"),
                        ("ln_matmul_dgelu_f32", "ln_matmul_dgelu"),
@@ -248,8 +256,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                        f32, f32, ptr]
     for name in ("attention_f32_fwd", "attention_f32_bwd",
                  "attention_f32_split", "convnext_tail_split",
-                 "convnext_tail_f32_fwd",
-                 "convnext_tail_f32_bwd", "convnext_tail_fwd_q8_f32",
+                 "convnext_tail_f32_fwd", "convnext_tail_f32_bwd",
+                 "convnext_tail_f32_bwd_gz", "convnext_tail_fwd_q8_f32",
                  "convnext_tail_bwd_q8_f32",
                  "ln_matmul_fwd_f32", "ln_matmul_dgelu_f32", "ln_bwd_f32",
                  "fc_grad_f32", "fma_chains_f32", "fma_chains_bf16"):

@@ -39,11 +39,11 @@ Weights are passed in PyTorch's Linear layout: ``w1`` (4C, C) and ``w2``
 rows, C ∈ ``CUDA_DIMS``) and runs its plain PyTorch version for a CPU
 tensor. The parameters are cast to the rows' dtype, as the JAX package
 casts them to the compute dtype; fp32 rows launch the fp32 forms, counted
-apart in ``fp32_*``: for K3 ``csrc/convnext_tail.cu``'s kernel over three
-bf16 parts of each operand (``kParts = 3``, after the weights' pre-split,
-:func:`split_weights`, into scratch of each call), for K4
-``csrc/convnext_tail_f32.cu`` (SIMT fp32 products), for K12a/K12b the
-fp32-row instantiations of ``csrc/convnext_tail_q8.cu``.
+apart in ``fp32_*``: for K3 and K4 ``csrc/convnext_tail.cu``'s kernels over
+three bf16 parts of each operand (``kParts = 3``, after the weights'
+pre-split, :func:`split_weights`, into scratch of each call; K4 at C 384
+with a z pre-pass into more scratch), for K12a/K12b the fp32-row
+instantiations of ``csrc/convnext_tail_q8.cu``.
 """
 
 from __future__ import annotations
@@ -172,7 +172,7 @@ def _split(lib, w1: torch.Tensor, w2: torch.Tensor, stream) -> torch.Tensor:
 
 
 def split_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """K3 fp32's pre-split alone, the launch its wrapper makes before the
+    """K3 and K4 fp32's pre-split alone, the launch its wrapper makes before the
     kernel, to check it against :func:`split_weights_ref` and time it: CUDA
     w1 (4C, C) and w2 (C, 4C), cast to fp32 → (2, 3, 4C·C) bf16."""
     c = w1.shape[1]
@@ -235,13 +235,24 @@ def convnext_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps=1e-6):
     lib = _build.load()
     f32 = h.dtype == torch.float32
     entry = "convnext_tail_f32_bwd" if f32 else "convnext_tail_bwd"
+    # both forms read W1 and W2 in the orientation each product needs
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        # both forms read W1 and W2 in the orientation each product needs
-        err = getattr(lib, entry)(
-            h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gamma.data_ptr(),
-            dh.data_ptr(), n, c, eps, stream)
+        if f32:
+            parts = _split(lib, w1, w2, stream)
+            # gelu'(z + b1) from the z pre-pass, where the form takes one
+            gz = (torch.empty(n, 4 * c, dtype=torch.float32, device=h.device)
+                  if lib.convnext_tail_f32_bwd_gz(c) else None)
+            err = lib.convnext_tail_f32_bwd(
+                h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                parts.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
+                None if gz is None else gz.data_ptr(), dh.data_ptr(), n, c,
+                eps, stream)
+        else:
+            err = lib.convnext_tail_bwd(
+                h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gamma.data_ptr(),
+                dh.data_ptr(), n, c, eps, stream)
     _build.check(lib, err, entry)
     global bwd_launches, fp32_bwd_launches
     bwd_launches += 1
