@@ -236,9 +236,11 @@ sys.path.insert(0, str(ROOT))
 from vit_tpu_torch.bench_kernels import batched_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import device_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_attention_fwd  # noqa: E402
+from vit_tpu_torch.bench_kernels import exact_ln_matmul_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_tail_bwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_tail_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import mean_rel  # noqa: E402
+from vit_tpu_torch.bench_kernels import two_part_ln_matmul_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_tail_bwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_tail_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_parts  # noqa: E402
@@ -489,6 +491,16 @@ F32_TAIL_MEAN_REL = 5.65e-7
 # u, do, dz and the weights rounded to x0 + x1) reads 5.58e-6 to 5.65e-6
 # and must fail it.
 F32_TAIL_BWD_MEAN_REL = 2.21e-6
+# K9a's fp32 form (six bf16 wgmma products an fp32 product, each 64-wide
+# atom of C in a fresh accumulator) against the float64 K9a
+# (bench_kernels.exact_ln_matmul_fwd), mean |Δ| over mean |exact|, read on
+# an H100 by this script's fp32 phase at qkv and fc1 (20480, 768 → 2304 /
+# 3072) and the edge shapes (77, 512 → 2048), (77, 1024 → 4096), (130, 768
+# → 384): z 1.03e-7 to 1.30e-7, zpre 9.7e-8 to 1.10e-7, where the plain
+# fp32 K9a reads 2.6e-7 to 3.5e-7 on the CPU. 10× the largest; the
+# two-part control (bench_kernels.two_part_ln_matmul_fwd: x̂ and W rounded
+# to x0 + x1) reads 3.31e-6 to 3.63e-6 and must fail it.
+F32_LNMM_MEAN_REL = 1.30e-6
 # K9a and K9c against their plain versions, mean |Δ| over mean |plain|:
 # ulp flips of the bf16 outputs (the fp32 forms: sums in another order),
 # read on an H100 by this script at 0 to 2.52e-6 (K9a's z at (130, 768 →
@@ -497,6 +509,15 @@ F32_TAIL_BWD_MEAN_REL = 2.21e-6
 # largest; ln_stats_control (the LayerNorm statistics rounded to bf16)
 # reads 1.46e-3 and 2.94e-3 and must fail it.
 LN_MEAN_REL = 2.5e-5
+# The bf16 K10's fp32 dW and db against its plain version (an fp32 product
+# of the bf16 operands), mean |Δ| over mean |plain|: sums over N in another
+# order, read on an H100 by this script at fc2 (20480, 768 ← 3072), fc1
+# and N 20481 in two runs: dW 5.553e-6 to 5.565e-6, db 7.93e-8 to
+# 8.34e-8. 10× the largest of each, beside the max limits (1e-3, 1e-4);
+# k10_control (dW and db summed from four per-split partial sums rounded
+# to bf16) reads 1.57e-3 to 1.71e-3 and must fail them.
+K10_DW_MEAN_REL = 5.57e-5
+K10_DB_MEAN_REL = 8.34e-7
 # K12a and K12b likewise: int8 levels that flip where two fp32 values round
 # apart, read at 1.6e-8 to 3.64e-6 (bf16) and 1.07e-6 and 3.86e-6 (fp32
 # rows, K12b the largest). 10× the largest; per_tensor_scale_control (one
@@ -1942,6 +1963,111 @@ def ln_bwd_times(x, g, peak: float) -> dict:
                             peak=peak))
 
 
+# K9a's times beside its single call's, at each site: 20 back-to-back calls
+# and on the card alone, its own, the serving form's (no gradient) and the
+# library product's
+K9A_TIMES = ("x20_ms", "dev_ms", "serving_dev_ms", "library_dev_ms")
+
+
+def k9a_times(x, w, b, gelu: bool, xhat) -> dict:
+    """K9a's times at one site on x, w, b: single call, x20 and dev, the
+    serving form's single call and dev, the plain version's, and those of
+    ``F.linear`` on x̂ (the product alone); its bound (each input read once,
+    each output written once: x, W, b; z, zpre at fc1 and x̂)."""
+    n, c = x.shape
+    f = w.shape[0]
+    elem = x.element_size()
+
+    def kernel():
+        k_lnmm.ln_matmul_fwd(x, w, b, gelu)
+
+    def serving():
+        k_lnmm.ln_matmul_fwd(x, w, b, gelu, residuals=False)
+
+    def library():
+        F.linear(xhat, w, b)
+
+    fp32 = x.dtype == torch.float32
+    return dict(ms=median_ms(kernel), x20_ms=batched_ms(kernel),
+                dev_ms=device_ms(kernel), serving_ms=median_ms(serving),
+                serving_dev_ms=device_ms(serving),
+                plain_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd_ref(
+                    x, w, b, gelu), 5),
+                library_ms=median_ms(library),
+                library_dev_ms=device_ms(library),
+                plan=k_lnmm.tile_plan(n, f, fp32),
+                bound=bound(2 * n * c * f,
+                            elem * (2 * n * c + f * c + (f if b is not None
+                                                         else 0)
+                                    + (2 if gelu else 1) * n * f),
+                            **({"peak": PEAK_SPLIT_FLOPS} if fp32 else {})))
+
+
+def ln_rows_check(x32: torch.Tensor) -> dict:
+    """K9a's row pre-pass alone on x32 (N, C) fp32 and its bf16 rounding:
+    bf16 x̂ within one bf16 ulp of the plain version's; fp32 x̂ within
+    FP32_REL, its three parts reassembling the kernel's own fp32 x̂ bit for
+    bit. Its dev time and bound (x read, x̂ written; fp32: and its parts)."""
+    out = {}
+    for x in (x32.bfloat16(), x32):
+        xhat, parts = k_lnmm.ln_rows(x)
+        torch.cuda.synchronize()
+        ref, _ = k_lnmm.ln_rows_ref(x)
+        n, c = x.shape
+        if parts is None:
+            row = beyond_one_ulp(xhat, ref)
+            require(row["beyond_one_ulp"] == 0,
+                    f"K9a's pre-pass is off its plain version: {row}")
+            nbytes = 4 * n * c
+        else:
+            row = dict(fp32_check("K9a pre-pass", xhat, ref),
+                       parts_reassemble=bool(torch.equal(
+                           parts.float().sum(0), xhat)))
+            require(row["parts_reassemble"],
+                    "K9a's pre-pass parts do not reassemble its x̂")
+            nbytes = (4 + 4 + 6) * n * c
+        row.update(dev_ms=device_ms(lambda: k_lnmm.ln_rows(x)),
+                   bound=bound(8 * n * c, nbytes))
+        out["fp32" if parts is not None else "bf16"] = row
+        del xhat, parts, ref
+    return out
+
+
+def k9a_build() -> dict:
+    """ptxas's report (registers, spills) of K9a's kernels, and the dynamic
+    shared memory of each instantiation of the product."""
+    smem = {(1, 256): k_lnmm.tile_plan(N_ROWS, 3072)["dynamic_smem_bytes"],
+            (1, 128): k_lnmm.tile_plan(N_ROWS, 384)["dynamic_smem_bytes"],
+            (3, 128): k_lnmm.tile_plan(N_ROWS, 3072, True)[
+                "dynamic_smem_bytes"]}
+    out = {}
+    for name, report in measured.get("ptxas", {}).items():
+        base = name.split("<")[0]
+        if base in ("ln_matmul_fwd_kernel", "ln_rows_kernel", "split_kernel"):
+            args = template_args(name)
+            key = (int(args[0]), int(args[1])) if base.startswith(
+                "ln_matmul") else None
+            out[name] = dict(ptxas=report,
+                             dynamic_smem_bytes=smem.get(key, 0))
+    return out
+
+
+def k10_control(g, x, dw_ref, db_ref, splits: int = 4) -> dict:
+    """The control of K10's mean limits: dW and db summed from ``splits``
+    per-split partial sums over N, each rounded to bf16; must fail them."""
+    g32, x32 = g.float(), x.float()
+    dw = torch.zeros_like(dw_ref)
+    db = torch.zeros_like(db_ref)
+    for gp, xp in zip(g32.chunk(splits), x32.chunk(splits)):
+        dw += (gp.t() @ xp).bfloat16().float()
+        db += gp.sum(0).bfloat16().float()
+    row = dict(dw=rel_errors(dw, dw_ref), db=rel_errors(db, db_ref))
+    require(row["dw"]["mean_rel"] > K10_DW_MEAN_REL
+            and row["db"]["mean_rel"] > K10_DB_MEAN_REL,
+            f"K10's control passes its mean limits: {row}")
+    return row
+
+
 def fused_kernels(gen) -> dict:
     """K9a, K9b, K9c and K10 against their plain versions at the fused
     train step's shapes (N 20480 rows: bs 64 · S 320) and edge shapes, then
@@ -1987,23 +2113,14 @@ def fused_kernels(gen) -> dict:
             ln_control = ln_stats_control(x, w, b, r(n, c).bfloat16())
         if n == N_ROWS:
             site = "fc1" if gelu else "qkv"
-            # each input read once, each output written once: x, W, b; z,
-            # zpre (fc1) and x̂
-            k9a[site] = dict(
-                ms=median_ms(lambda: k_lnmm.ln_matmul_fwd(x, w, b, gelu)),
-                serving_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd(
-                    x, w, b, gelu, residuals=False)),
-                plain_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd_ref(
-                    x, w, b, gelu), 5),
-                library_ms=median_ms(lambda: F.linear(xhat_ref, w)),
-                bound=bound(2 * n * c * f,
-                            2 * (2 * n * c + f * c + (f if bias else 0)
-                                 + (2 if gelu else 1) * n * f)))
+            k9a[site] = k9a_times(x, w, b, gelu, xhat_ref)
         del x, w, b, z, zpre, xhat, z_only, z_ref, zpre_ref, xhat_ref
+    prepass = ln_rows_check(r(N_ROWS, 768, scale=3.0) + 1)
+    build = k9a_build()
     emit("kernel", name="ln_matmul_fwd", parity=k9a_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
                         ln_mean_rel=LN_MEAN_REL, xhat="one bf16 ulp"),
-         mean_limit_control=ln_control,
+         mean_limit_control=ln_control, prepass=prepass, build=build,
          library="F.linear on a precomputed bf16 x̂: the product alone",
          shape="x (20480, 768) bf16; qkv W (2304, 768), fc1 W (3072, 768)",
          **k9a)
@@ -2013,7 +2130,13 @@ def fused_kernels(gen) -> dict:
         bound_ms=k9a["fc1"]["bound"]["bound_ms"],
         bound_by=k9a["fc1"]["bound"]["bound_by"],
         library_ms=k9a["fc1"]["library_ms"], shape="fc1 (20480, 768 → 3072)",
-        library="F.linear on a precomputed bf16 x̂: the product alone")
+        library="F.linear on a precomputed bf16 x̂: the product alone",
+        prepass="ln_rows_kernel (csrc/ln_matmul.cu): x̂ before the product",
+        **{f"{site}_{k}": k9a[site][k] for site in ("qkv", "fc1")
+           for k in K9A_TIMES},
+        ptxas={k: v["ptxas"] for k, v in build.items()},
+        dynamic_smem_bytes={k: v["dynamic_smem_bytes"]
+                            for k, v in build.items() if v["dynamic_smem_bytes"]})
 
     # K9b: fc1's (20480, 3072) and a ragged N; zpre N(0, 2) reaches the
     # GELU's clamp.
@@ -2081,7 +2204,7 @@ def fused_kernels(gen) -> dict:
     # K10: fc2 (g 768 wide, x 3072), fc1 (g 3072, x 768), a ragged N. The
     # plain version is an fp32 product (TF32 off), the kernel's sums run in
     # another order over 20480 terms.
-    k10_rows, k10_max, k10 = [], 0.0, {}
+    k10_rows, k10_max, k10, k10_controls = [], 0.0, {}, {}
     for n, fo, fi in [(N_ROWS, 768, 3072), (N_ROWS, 3072, 768),
                       (N_ROWS + 1, 768, 3072)]:
         g = r(n, fo).bfloat16()
@@ -2097,11 +2220,14 @@ def fused_kernels(gen) -> dict:
         k10_rows.append(row)
         require(bool(torch.isfinite(dw).all() and torch.isfinite(db).all())
                 and row["dw"]["max_rel"] <= 1e-3 and row["db"]["max_rel"] <= 1e-4
+                and row["dw"]["mean_rel"] <= K10_DW_MEAN_REL
+                and row["db"]["mean_rel"] <= K10_DB_MEAN_REL
                 and row["deterministic"],
                 f"K10 disagrees with its plain version: {row}")
         k10_max = max(k10_max, row["dw"]["max_abs"])
         if n == N_ROWS:
             site = "fc2" if fo < fi else "fc1"
+            k10_controls[site] = k10_control(g, x, dw_ref, db_ref)
             k10[site] = dict(
                 ms=median_ms(lambda: k_fc.matmul_dw_db(g, x)),
                 plain_ms=median_ms(lambda: k_fc.matmul_dw_db_ref(g, x), 5),
@@ -2110,7 +2236,10 @@ def fused_kernels(gen) -> dict:
                             2 * n * (fo + fi) + 4 * (fo * fi + fo)))
         del g, x, dw, db, dw2, db2, dw_ref, db_ref
     emit("kernel", name="fc_grad", parity=k10_rows,
-         tolerance=dict(dw_max_rel=1e-3, db_max_rel=1e-4),
+         tolerance=dict(dw_max_rel=1e-3, db_max_rel=1e-4,
+                        dw_mean_rel=K10_DW_MEAN_REL,
+                        db_mean_rel=K10_DB_MEAN_REL),
+         mean_limit_control=k10_controls,
          library="torch.mm(g.t(), x) in bf16: dW alone, rounded to bf16, no db",
          shape="fc2: g (20480, 768), x (20480, 3072); fc1 transposed", **k10)
     summary["fc_grad"] = dict(
@@ -2220,17 +2349,31 @@ def int8_tail_kernels(gen) -> dict:
             q8_control = per_tensor_scale_control(
                 calls["convnext_tail_fwd_q8"][2],
                 calls["convnext_tail_bwd_q8"][2])
-            # the products alone, on int8 operands of the same shapes
+        if (n, c) in [(n_, c_) for _, _, n_, c_ in CNX_STAGES]:
+            # the products alone, on int8 operands of the same shapes: the
+            # forward's two, the backward's three
             def q(*shape):
                 return torch.randint(-127, 128, shape, device="cuda",
                                      generator=gen, dtype=torch.int8)
             a_c, a_4c = q(n, c), q(n, 4 * c)
             w_c4c, w_4cc = q(4 * c, c).t(), q(c, 4 * c).t()   # column-major
-            runs["convnext_tail_fwd_q8"]["library_ms"] = median_ms(
-                lambda: (torch._int_mm(a_c, w_c4c), torch._int_mm(a_4c, w_4cc)))
-            runs["convnext_tail_bwd_q8"]["library_ms"] = median_ms(
-                lambda: (torch._int_mm(a_c, w_c4c), torch._int_mm(a_c, w_c4c),
-                         torch._int_mm(a_4c, w_4cc)))
+
+            def fwd_products():
+                torch._int_mm(a_c, w_c4c)
+                torch._int_mm(a_4c, w_4cc)
+
+            def bwd_products():
+                torch._int_mm(a_c, w_c4c)
+                torch._int_mm(a_c, w_c4c)
+                torch._int_mm(a_4c, w_4cc)
+
+            for name, fn in (("convnext_tail_fwd_q8", fwd_products),
+                             ("convnext_tail_bwd_q8", bwd_products)):
+                runs[name].setdefault("library_dev_ms_by_C", {})[c] = \
+                    device_ms(fn)
+                if c == 384:
+                    runs[name]["library_ms"] = median_ms(fn)
+            del a_c, a_4c, w_c4c, w_4cc
         del h, x, dy
         torch.cuda.empty_cache()
     runs["convnext_tail_fwd_q8"]["flat_rows"] = k12a_flat_rows(gen)
@@ -2266,6 +2409,7 @@ def int8_tail_kernels(gen) -> dict:
              bound_ms_by_C={c: b[name]["bound_ms"] for c, b in by_c.items()},
              bound_by_by_C={c: b[name]["bound_by"] for c, b in by_c.items()},
              plain_ms_C384=t["plain_ms"], library_ms_C384=t["library_ms"],
+             library_dev_ms_by_C=t["library_dev_ms_by_C"],
              library=library, bound_C384=bounds[name],
              shape="(bs 64 · H · W, C) bf16 rows of ConvNeXt-S stages 0-2",
              summary_shape="C 384, N 12544 (27 of the 33 fused blocks)",
@@ -2274,7 +2418,9 @@ def int8_tail_kernels(gen) -> dict:
                              plain_ms=t["plain_ms"],
                              bound_ms=bounds[name]["bound_ms"],
                              bound_by=bounds[name]["bound_by"],
-                             library_ms=t["library_ms"], library=library)
+                             library_ms=t["library_ms"], library=library,
+                             dev_ms_by_C=t["dev_ms_by_C"],
+                             library_dev_ms_by_C=t["library_dev_ms_by_C"])
     return summary
 
 
@@ -2592,6 +2738,25 @@ def fp32_check(name: str, out, ref, tol: float = FP32_REL,
     require(bool(torch.isfinite(out).all()) and row["max_rel"] <= tol
             and row["mean_rel"] <= mean_tol,
             f"the fp32 form of {name} disagrees with its plain version: {row}")
+    return row
+
+
+def k9a_f32_exact(x, w, b, gelu: bool, z, zpre) -> dict:
+    """K9a's fp32 form beyond its check against the plain version: the mean
+    distance of z (and zpre) from the float64 K9a
+    (``bench_kernels.exact_ln_matmul_fwd``) within F32_LNMM_MEAN_REL, and
+    the two-part control's (x̂ and W rounded to x0 + x1), which must fail
+    it."""
+    z_ex, zpre_ex = exact_ln_matmul_fwd(x, w, b, gelu)
+    got = dict(z=mean_rel(z, z_ex))
+    if gelu:
+        got["zpre"] = mean_rel(zpre, zpre_ex)
+    row = dict(mean_rel_exact=got, two_part_control=mean_rel(
+        two_part_ln_matmul_fwd(x, w, b, gelu)[0], z_ex))
+    require(max(got.values()) <= F32_LNMM_MEAN_REL,
+            f"K9a fp32 is off the float64 K9a: {row}")
+    require(row["two_part_control"] > F32_LNMM_MEAN_REL,
+            f"K9a's two-part control passes its mean limit: {row}")
     return row
 
 
@@ -3168,40 +3333,73 @@ def fp32_kernels(gen) -> dict:
               mean_limit=SIMT_F32_MEAN_REL[TAIL_FORMS[name]],
               mean_rel_max=max(r["mean_rel"] for r in t["rows"]), **more)
 
-    # K9a: fc1 (20480, 768 → 3072) with bias, GELU, zpre and x̂, and qkv
-    # (→ 2304) plain; K9b (20480, 3072); K9c (20480, 768); K10 fc2.
-    x = 3 * r(N_ROWS, 768) + 1
-    w = r(3072, 768, scale=768 ** -0.5)
-    b = r(3072, scale=0.3)
-    z, zpre, xhat = k_lnmm.ln_matmul_fwd(x, w, b, True)
-    torch.cuda.synchronize()
-    z_ref, zpre_ref, xhat_ref = k_lnmm.ln_matmul_fwd_ref(x, w, b, True)
-    controls["K9a"] = tf32_control("K9a", lambda: k_lnmm.ln_matmul_fwd_ref(
-        x, w, b, True)[0], z_ref, SIMT_F32_MEAN_REL["K9a"])
+    # K9a: fc1 (20480, 768 → 3072) with bias, GELU, zpre and x̂, qkv (→
+    # 2304) plain, and the bf16 check's edge shapes; K9b (20480, 3072); K9c
+    # (20480, 768); K10 fc2.
     ln_tol = min(FP32_REL, LN_MEAN_REL, SIMT_F32_MEAN_REL["K9a"])
-    k9a = dict(z=fp32_check("K9a", z, z_ref, mean_tol=ln_tol),
-               zpre=fp32_check("K9a zpre", zpre, zpre_ref, mean_tol=ln_tol),
-               xhat=fp32_check("K9a x̂", xhat, xhat_ref, mean_tol=ln_tol))
-    wq = r(2304, 768, scale=768 ** -0.5)
-    k9a["qkv_z"] = fp32_check("K9a qkv", k_lnmm.ln_matmul_fwd(x, wq)[0],
-                              k_lnmm.ln_matmul_fwd_ref(x, wq)[0],
-                              mean_tol=ln_tol)
-    k9a.update(ms=median_ms(lambda: k_lnmm.ln_matmul_fwd(x, w, b, True)),
-               plain_ms=median_ms(lambda: k_lnmm.ln_matmul_fwd_ref(
-                   x, w, b, True), 5),
-               library_ms=median_ms(lambda: F.linear(xhat_ref, w, b)),
-               bound=bound(2 * N_ROWS * 768 * 3072,
-                           4 * (2 * N_ROWS * 768 + 3072 * 768 + 3072
-                                + 2 * N_ROWS * 3072), peak=peak))
-    emit("fp32_kernels", name="ln_matmul_fwd", parity=k9a,
+    k9a, k9a_rows = {}, []
+    for n, c, f, bias, gelu in [(N_ROWS, 768, 2304, False, False),
+                                (N_ROWS, 768, 3072, True, True),
+                                (77, 512, 2048, True, True),
+                                (77, 1024, 4096, True, True),
+                                (130, 768, 384, True, False)]:
+        x = 3 * r(n, c) + 1
+        w = r(f, c, scale=c ** -0.5)
+        b = r(f, scale=0.3) if bias else None
+        z, zpre, xhat = k_lnmm.ln_matmul_fwd(x, w, b, gelu)
+        torch.cuda.synchronize()
+        z_ref, zpre_ref, xhat_ref = k_lnmm.ln_matmul_fwd_ref(x, w, b, gelu)
+        row = dict(N=n, C=c, F=f, bias=bias, gelu=gelu,
+                   z=fp32_check("K9a", z, z_ref, mean_tol=ln_tol),
+                   xhat=fp32_check("K9a x̂", xhat, xhat_ref, mean_tol=ln_tol),
+                   **k9a_f32_exact(x, w, b, gelu, z, zpre))
+        if gelu:
+            row["zpre"] = fp32_check("K9a zpre", zpre, zpre_ref,
+                                     mean_tol=ln_tol)
+        k9a_rows.append(row)
+        if n == N_ROWS and gelu:
+            controls["K9a"] = tf32_control(
+                "K9a", lambda: k_lnmm.ln_matmul_fwd_ref(x, w, b, True)[0],
+                z_ref, SIMT_F32_MEAN_REL["K9a"])
+            k9b_zpre = zpre
+        if n == N_ROWS:
+            site = "fc1" if gelu else "qkv"
+            k9a[site] = dict(k9a_times(x, w, b, gelu, xhat_ref),
+                             fp32_rate_bound=bound(
+                                 2 * n * c * f, 4 * (2 * n * c + f * c + (
+                                     f if bias else 0) + (2 if gelu else 1)
+                                     * n * f), peak=peak))
+            k9a[site]["row"] = row
+        del x, w, b, z, zpre, xhat, z_ref, zpre_ref, xhat_ref
+    torch.cuda.empty_cache()
+    build = {k: v for k, v in k9a_build().items()
+             if not k.startswith("ln_matmul_fwd_kernel<1")}
+    emit("fp32_kernels", name="ln_matmul_fwd", parity=k9a_rows,
+         tolerance=dict(max_rel=FP32_REL, mean_rel=ln_tol,
+                        mean_rel_exact=F32_LNMM_MEAN_REL),
+         mean_limit_control=dict(tf32=controls["K9a"], two_part={
+             f"{r['N']}, {r['C']} → {r['F']}": r["two_part_control"]
+             for r in k9a_rows}),
+         build=build, **{site: {k: v for k, v in t.items() if k != "row"}
+                         for site, t in k9a.items()},
          library="F.linear(x̂, W, b) in fp32, TF32 off: the product alone",
          shape="x (20480, 768) fp32, fc1 W (3072, 768); qkv W (2304, 768)")
-    entry("ln_matmul_fwd", k9a["z"], k9a["ms"], k9a["plain_ms"], k9a["bound"],
-          k9a["library_ms"], "fc1 (20480, 768 → 3072) fp32",
+    fc1 = k9a["fc1"]
+    entry("ln_matmul_fwd", fc1["row"]["z"], fc1["ms"], fc1["plain_ms"],
+          fc1["bound"], fc1["library_ms"], "fc1 (20480, 768 → 3072) fp32",
           mean_limit=SIMT_F32_MEAN_REL["K9a"],
-          mean_rel_max=max(k9a[k]["mean_rel"]
-                           for k in ("z", "zpre", "xhat", "qkv_z")))
-    del x, w, b, z, xhat, z_ref, zpre_ref, xhat_ref, wq
+          mean_rel_max=max(r[k]["mean_rel"] for r in k9a_rows
+                           for k in ("z", "zpre", "xhat") if k in r),
+          mean_limit_exact=F32_LNMM_MEAN_REL,
+          mean_rel_exact_max=max(max(r["mean_rel_exact"].values())
+                                 for r in k9a_rows),
+          two_part_control_min=min(r["two_part_control"] for r in k9a_rows),
+          fp32_rate_bound_ms=fc1["fp32_rate_bound"]["bound_ms"],
+          **{f"{site}_{k}": k9a[site][k] for site in ("qkv", "fc1")
+             for k in K9A_TIMES},
+          ptxas={k: v["ptxas"] for k, v in build.items()})
+    zpre = k9b_zpre
+    del k9b_zpre
     dz = r(N_ROWS, 3072)
     out = k_lnmm.ln_matmul_dgelu(zpre, dz)
     torch.cuda.synchronize()

@@ -193,7 +193,7 @@ def test_k12a_levels_without_division_match_rint_of_the_quotient():
     assert np.array_equal(np.clip(r, -127, 127), q8.numpy())
 
 
-def test_k12a_gelu_absmax_from_four_candidates():
+def test_k12a_gelu_absmax_from_two_candidates_or_every_element():
     """K12a's pass 1 (csrc/convnext_tail_q8.cu: fwd::GeluAbsMax) takes a
     row's largest |gelu(z)| from GELU at two of its z, the largest and the
     smallest, and where that reads below kFlat, the max over every element

@@ -30,14 +30,18 @@ from torch_port_helpers import smoke_constant, tail_inputs
 from vit_tpu.kernels.attention import _packed_fwd_impl
 from vit_tpu.kernels.attention import flash_attention as jax_unpacked
 from vit_tpu.kernels.attention import flash_attention_packed as jax_packed
+from vit_tpu.kernels import ln_matmul as jax_lnmm
 from vit_tpu.kernels.convnext_block import \
     frozen_convnext_block_tail as jax_tail
 from vit_tpu_torch.bench_kernels import (exact_attention_fwd,
-                                         exact_tail_bwd, exact_tail_fwd,
+                                         exact_ln_matmul_fwd, exact_tail_bwd,
+                                         exact_tail_fwd,
+                                         two_part_ln_matmul_fwd,
                                          two_part_tail_bwd, two_part_tail_fwd,
                                          two_parts)
 from vit_tpu_torch.kernels import attention as k_attn
 from vit_tpu_torch.kernels import convnext_block as k_cnx
+from vit_tpu_torch.kernels import ln_matmul as k_lnmm
 from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu
 
 FP32_REL = 1e-5   # the fp32 forms' limit on max and mean |Δ| / |reference|
@@ -55,6 +59,7 @@ K3_F32_MEAN_REL = SIMT_F32_MEAN_REL["K3"]
 K4_F32_MEAN_REL = SIMT_F32_MEAN_REL["K4"]
 F32_TAIL_MEAN_REL = smoke_constant("F32_TAIL_MEAN_REL")
 F32_TAIL_BWD_MEAN_REL = smoke_constant("F32_TAIL_BWD_MEAN_REL")
+F32_LNMM_MEAN_REL = smoke_constant("F32_LNMM_MEAN_REL")
 # (A part, B part) of the six products, small terms first (hopper.cuh)
 TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
@@ -450,3 +455,108 @@ def test_two_part_tail_control_exceeds_the_mean_limit(c):
     args, _ = _tail_case(70, c)
     assert _rel(two_part_tail_fwd(*args), exact_tail_fwd(*args))[1] \
         > F32_TAIL_MEAN_REL
+
+
+def _split_ln_matmul(x, w, b, gelu):
+    """K9a fp32's arithmetic (csrc/ln_matmul.cu, kParts = 3) in plain torch,
+    w (F, C) in the Linear layout: x̂ from the row pre-pass's plain version
+    with its three bf16 parts, W split likewise; for each 64-wide atom of C
+    the six products of the parts, small terms first, in a fresh fp32
+    accumulator added to the sum; then the bias, and at fc1 zpre = the sum
+    and z = its GELU. (z, zpre or None, x̂)."""
+    xhat, px = k_lnmm.ln_rows_ref(x)
+    pw = k_attn.split3(w)
+    acc = torch.zeros(x.shape[0], w.shape[0])
+    for a0 in range(0, x.shape[1], 64):
+        tile = torch.zeros_like(acc)
+        for i, j in TERMS:
+            tile = tile + (px[i][:, a0:a0 + 64].float()
+                           @ pw[j][:, a0:a0 + 64].float().t())
+        acc = acc + tile
+    if b is not None:
+        acc = acc + b
+    if not gelu:
+        return acc, None, xhat
+    return tanh_erf_gelu(acc), acc, xhat
+
+
+def _lnmm_case(c, act, f=256):
+    """fp32 x (70, C) with an offset, W (F, C), b: 70 rows, one 128-row
+    tile's 64-row halves, the second ragged."""
+    rng = np.random.default_rng(c + act)
+    x = (3 * rng.normal(size=(70, c)) + 1).astype(np.float32)
+    w = (rng.normal(size=(f, c)) * c ** -0.5).astype(np.float32)
+    b = (0.3 * rng.normal(size=(f,))).astype(np.float32)
+    return (torch.from_numpy(x), torch.from_numpy(w),
+            torch.from_numpy(b) if act else None, act)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_rows_ref_matches_jax_stats(dtype):
+    """K9a's row pre-pass, plain: x̂ as ``ln_matmul._stats`` gives it,
+    rounded to the compute dtype; for fp32 rows three bf16 parts that
+    reassemble the fp32 x̂ exactly, the first part bf16(x̂). The CUDA pass's
+    wrapper refuses a CPU tensor."""
+    rng = np.random.default_rng(3)
+    x = (2 * rng.normal(size=(70, 384)) + 0.5).astype(np.float32)
+    xt = torch.from_numpy(x).to(dtype)
+    xhat, parts = k_lnmm.ln_rows_ref(xt)
+    ref, _ = jax_lnmm._stats(jnp.asarray(xt.float().numpy()))
+    ref = torch.from_numpy(np.array(ref))
+    assert xhat.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert parts is None
+        diff = (xhat.float() - ref.bfloat16().float()).abs()
+        assert diff.max().item() <= 2.0 ** -7 * ref.abs().max().item()
+    else:
+        np.testing.assert_allclose(xhat.numpy(), ref.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        assert parts.shape == (3, 70, 384) and parts.dtype == torch.bfloat16
+        assert torch.equal(parts.float().sum(0), xhat)
+        assert torch.equal(parts[0], xhat.bfloat16())
+    with pytest.raises(ValueError, match="unsupported device"):
+        k_lnmm.ln_rows(xt)
+
+
+@pytest.mark.parametrize("c, act", [(256, False), (256, True), (512, False),
+                                    (512, True)])
+def test_split_product_ln_matmul_matches_jax(c, act):
+    """K9a fp32's emulation against the JAX package's fp32 ``_fwd_impl``
+    (Precision.HIGHEST, interpret mode) within 1e-5 of max and mean |JAX|:
+    z, zpre and x̂; as chip_smoke.py holds the kernel, against the port's
+    plain fp32 K9a within 1e-5 of max |plain| and SIMT_F32_MEAN_REL["K9a"]
+    of mean |plain|, and against the float64 K9a within F32_LNMM_MEAN_REL
+    of mean |exact|."""
+    x, w, b, gelu = _lnmm_case(c, act)
+    bj = jnp.asarray(b.numpy()) if act else jnp.zeros(w.shape[0])
+    got = _split_ln_matmul(x, w, b, gelu)
+    z_j, zpre_j, xhat_j = (torch.from_numpy(np.array(t)) for t in
+                           jax_lnmm._fwd_impl(jnp.asarray(x.numpy()),
+                                              jnp.asarray(w.numpy().T), bj,
+                                              act=gelu, has_bias=act))
+    pairs = [(got[0], z_j), (got[2], xhat_j)] + ([(got[1], zpre_j)] if gelu
+                                                 else [])
+    for out, ref in pairs:
+        max_rel, mean_rel = _rel(out, ref)
+        assert max_rel <= FP32_REL and mean_rel <= FP32_REL, (max_rel,
+                                                              mean_rel)
+    plain = k_lnmm.ln_matmul_fwd_ref(x, w, b, gelu)
+    max_rel, mean_rel = _rel(got[0], plain[0])
+    assert max_rel <= FP32_REL and mean_rel <= SIMT_F32_MEAN_REL["K9a"], (
+        max_rel, mean_rel)
+    exact = exact_ln_matmul_fwd(x, w, b, gelu)
+    assert _rel(got[0], exact[0])[1] <= F32_LNMM_MEAN_REL
+    if gelu:
+        assert _rel(got[1], exact[1])[1] <= F32_LNMM_MEAN_REL
+
+
+@pytest.mark.parametrize("c, act", [(256, False), (256, True), (512, False),
+                                    (512, True)])
+def test_two_part_ln_matmul_control_exceeds_the_mean_limit(c, act):
+    """K9a with x̂ and W rounded to two bf16 parts
+    (``bench_kernels.two_part_ln_matmul_fwd``) misses the float64 K9a by
+    more than F32_LNMM_MEAN_REL of mean |exact|, so that limit tells a
+    split that lost its third part from K9a fp32."""
+    x, w, b, gelu = _lnmm_case(c, act)
+    assert _rel(two_part_ln_matmul_fwd(x, w, b, gelu)[0],
+                exact_ln_matmul_fwd(x, w, b, gelu)[0])[1] > F32_LNMM_MEAN_REL

@@ -1,5 +1,5 @@
 """Time the bf16 kernels, the fp32 kernels that were redesigned on the
-tensor cores (attention, K3, K4) with K9c, and seven train steps of one or
+tensor cores (attention, K3, K4) with K9c, and nine train steps of one or
 more checkouts of this repo on one card, in turns, so that two versions
 are compared within one call.
 
@@ -41,22 +41,26 @@ mean distances (o, m and l; K1, K6 and their dropout arms, and K6 at K7's
 shape) from the plain fp32 version and from the float64 forward
 (:func:`exact_attention_fwd`), with the two-part control's (the plain
 version on operands rounded to two bf16 parts) beside them ("fwd_mean_rel"
-in its JSON line). Each turn then times seven train steps with the names of
+in its JSON line). Each turn then times nine train steps with the names of
 that checkout's root ``chip_smoke.py``: the VideoGPT-B bs-32 step, the
 flagship TiTok-B unfused bs-64 step, the same with the int8 perceptual
-loss and the ViT-L/16 @256 bs-64 step at dropout 0.15 in bf16, then the
-VideoGPT-B, ViT-L/16 and flagship unfused steps at float32 (``TiTok``,
+loss and the ViT-L/16 @256 bs-64 step at dropout 0.15 in bf16, the
+VideoGPT-B, ViT-L/16 and flagship unfused steps at float32, then the
+flagship step under ``VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1`` (set for that
+step only) in bf16 and float32 (``TiTok``,
 ``VideoGPT``, ``ConvNeXt``, ``PerceptualLoss``, ``FLAGSHIP``,
 ``VIT_CELLS``, ``train_inputs``, ``vit_batch``, the step makers,
 ``make_optimizer``, ``host_median_ms`` and the rest used in
 ``videogpt_step_ms``, ``titok_step_ms`` and ``vit_step_ms``), so every root
-must carry one that defines them. The two bf16 TiTok-B steps are also
-profiled: the card's busy time and the ConvNeXt tails' kernel time in a
-step ("TiTok-B int8 step busy", "TiTok-B int8 step K12a", ...), and every
+must carry one that defines them. The two unfused bf16 TiTok-B steps and
+both fused ones are also profiled: the card's busy time and the ConvNeXt
+tails' and K9a's kernel time in a step ("TiTok-B int8 step busy",
+"TiTok-B int8 step K12a", "TiTok-B fused step K9a", ...), and every
 kernel's launches and time ("step_kernels" in ``--out``). ``--groups``
 picks what a turn times (``q8``: K12a and K12b alone, bf16 and fp32 rows,
-at every fused width; ``queue``: K9a, K9b and K10 in both dtypes and K5 on
-the card alone) and ``--steps`` which steps. TF32 is off for cuBLAS
+at every fused width; ``queue``: K9a at qkv and fc1, single, x20, in its
+serving form and beside ``F.linear``, K9b and K10, in both dtypes, and K5,
+on the card alone) and ``--steps`` which steps. TF32 is off for cuBLAS
 and cuDNN. Prints one JSON line per turn and a table of each time by
 checkout and turn."""
 
@@ -213,10 +217,15 @@ def time_kernels() -> dict:
 def time_queue() -> dict:
     """{row: ms} on the card alone (:func:`device_ms`) of the kernels that
     ROADMAP.md's Queue B ranks and no other group times there (the
-    ``queue`` group): K9a, K9b and K10 at :func:`time_kernels`' shapes
-    (the flagship's fused MLP) on bf16 and fp32 operands ("K9a dev", "K9a
-    fp32 dev", ...), and K5 ("K5 dev")."""
+    ``queue`` group): K9a at the flagship's two sites, qkv (20480, 768 →
+    2304, no bias) and fc1 (→ 3072, bias and GELU), on bf16 and fp32 rows,
+    also as 20 back-to-back calls, in its serving form (no residuals) and
+    beside ``F.linear`` on x̂ ("K9a qkv dev", "K9a fp32 fc1 x20", "K9a qkv
+    serving dev", "K9a fc1 lib dev", ...); K9b and K10 at
+    :func:`time_kernels`' shapes ("K9b dev", "K10 fp32 dev", ...), and K5
+    ("K5 dev")."""
     import torch
+    import torch.nn.functional as F
 
     from vit_tpu_torch.kernels import fc_grad as k_fc
     from vit_tpu_torch.kernels import ln_matmul as k_lnmm
@@ -230,17 +239,28 @@ def time_queue() -> dict:
     ms = {}
     for dt, tag in ((torch.bfloat16, ""), (torch.float32, " fp32")):
         x = (3 * r(N_ROWS, 768) + 1).to(dt)
-        w = r(3072, 768, scale=768 ** -0.5).to(dt)
-        b = r(3072, scale=0.3).to(dt)
-        ms[f"K9a{tag} dev"] = device_ms(
-            lambda: k_lnmm.ln_matmul_fwd(x, w, b, True))
+        xhat = k_lnmm.ln_matmul_fwd_ref(x, r(128, 768).to(dt))[2]
+        for site, f, gelu in (("qkv", 2304, False), ("fc1", 3072, True)):
+            w = r(f, 768, scale=768 ** -0.5).to(dt)
+            b = r(f, scale=0.3).to(dt) if gelu else None
+            key = f"K9a{tag} {site}"
+
+            def call():
+                k_lnmm.ln_matmul_fwd(x, w, b, gelu)
+
+            ms[key + " dev"] = device_ms(call)
+            ms[key + " x20"] = batched_ms(call)
+            ms[key + " serving dev"] = device_ms(
+                lambda: k_lnmm.ln_matmul_fwd(x, w, b, gelu, residuals=False))
+            ms[key + " lib dev"] = device_ms(lambda: F.linear(xhat, w, b))
+            del w, b
         zpre = r(N_ROWS, 3072, scale=2.0).to(dt)
         dz = r(N_ROWS, 3072).to(dt)
         ms[f"K9b{tag} dev"] = device_ms(
             lambda: k_lnmm.ln_matmul_dgelu(zpre, dz))
         g, x3 = r(N_ROWS, 768).to(dt), r(N_ROWS, 3072).to(dt)
         ms[f"K10{tag} dev"] = device_ms(lambda: k_fc.matmul_dw_db(g, x3))
-        del x, w, b, zpre, dz, g, x3
+        del x, xhat, zpre, dz, g, x3
         torch.cuda.empty_cache()
     z = r(8 * 256, 12)
     cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1) / 2048
@@ -691,6 +711,43 @@ def two_part_tail_bwd(h, dy, lns, lnb, w1, b1, w2, gamma, eps):
     return _ln_backward(h, dz @ w1_2, lns, eps)
 
 
+def exact_ln_matmul_fwd(x, w, b=None, gelu: bool = False,
+                        batch: int = 4096):
+    """K9a's function (``kernels/ln_matmul.py:ln_matmul_fwd_ref`` at fp32,
+    no rounding between its steps) in float64 on the same fp32 rows x (N,
+    C), w (F, C) and b (F,) or None: the reference of the fp32 form's mean
+    limit. (z, zpre) (N, F) in float64, zpre the product plus bias (z
+    itself without ``gelu``), ``batch`` rows at a time."""
+    import torch
+
+    from vit_tpu_torch.ops.gelu import tanh_erf_gelu
+
+    wd = w.double()
+    zs, zpres = [], []
+    for r0 in range(0, x.shape[0], batch):
+        xb = x[r0:r0 + batch].double()
+        d = xb - xb.mean(-1, keepdim=True)
+        acc = (d * (d * d).mean(-1, keepdim=True).add(1e-5).rsqrt()) @ wd.t()
+        if b is not None:
+            acc = acc + b.double()
+        zpres.append(acc)
+        zs.append(tanh_erf_gelu(acc) if gelu else acc)
+    return torch.cat(zs), torch.cat(zpres)
+
+
+def two_part_ln_matmul_fwd(x, w, b=None, gelu: bool = False):
+    """The plain fp32 K9a with x̂ and W rounded to two bf16 parts
+    (:func:`two_parts`): what a split K9a fp32 that lost its third part
+    reads, the control of its mean limit. (z, zpre) in fp32."""
+    from vit_tpu_torch.kernels.ln_matmul import _stats
+    from vit_tpu_torch.ops.gelu import tanh_erf_gelu
+
+    acc = two_parts(_stats(x)[0]) @ two_parts(w).t()
+    if b is not None:
+        acc = acc + b
+    return (tanh_erf_gelu(acc) if gelu else acc), acc
+
+
 def mean_rel(out, ref) -> float:
     """mean |out − ref| / mean |ref|, in float64."""
     return ((out.double() - ref.double()).abs().mean()
@@ -872,20 +929,28 @@ TAIL_SPANS = {"K3": "convnext_tail_fwd_kernel", "K4": "convnext_tail_bwd_kernel"
               "K12a": "convnext_tail_fwd_q8", "K12b": "convnext_tail_bwd_q8"}
 
 
-def titok_step_spans(name: str, quant: str) -> "tuple[dict, dict]":
-    """:func:`titok_step` in bf16 with ``quant``: its host-clock median of
-    10 steps under ``name``, then, over three profiled steps
+# K9a's kernels by the names the profiler gives them: the product and, in
+# a tree that has them, its row pre-pass and fp32 W split (csrc/ln_matmul.cu)
+K9A_SPANS = ("ln_matmul_fwd", "ln_rows_kernel", "(anonymous namespace)::split_kernel")
+
+
+def titok_step_spans(name: str, quant: str,
+                     dtype: str = "bfloat16") -> "tuple[dict, dict]":
+    """:func:`titok_step` with ``quant`` at ``dtype``: its host-clock median
+    of 10 steps under ``name``, then, over three profiled steps
     (:func:`device_spans`), the medians of the card's busy time ("<name>
-    busy"), of its span ("<name> span") and of the ConvNeXt tails' kernel
-    time ("<name> K12a", ...: ``TAIL_SPANS``); and the middle profiled
-    step's {kernel: [launches, ms, idle ms before them]}."""
+    busy"), of its span ("<name> span"), of the ConvNeXt tails' kernel
+    time ("<name> K12a", ...: ``TAIL_SPANS``) and of K9a's kernels
+    together ("<name> K9a": ``K9A_SPANS``, where the step launches them);
+    and the middle profiled step's {kernel: [launches, ms, idle ms before
+    them]}."""
     import torch
 
     import chip_smoke as cs
 
-    call = titok_step("bfloat16", quant)
+    call = titok_step(dtype, quant)
     ms = {name: cs.host_median_ms(call, 10)}
-    spans = [device_spans(call, tuple(TAIL_SPANS.values()))
+    spans = [device_spans(call, tuple(TAIL_SPANS.values()) + K9A_SPANS)
              for _ in range(3)]
     order = sorted(range(3), key=lambda i: spans[i]["busy"])
     ms[name + " busy"] = spans[order[1]]["busy"]
@@ -893,9 +958,30 @@ def titok_step_spans(name: str, quant: str) -> "tuple[dict, dict]":
     for kernel, key in TAIL_SPANS.items():
         if any(s[key] for s in spans):
             ms[f"{name} {kernel}"] = sorted(s[key] for s in spans)[1]
+    k9a = sorted(sum(s[key] for key in K9A_SPANS) for s in spans)
+    if k9a[1]:
+        ms[f"{name} K9a"] = k9a[1]
     del call
     torch.cuda.empty_cache()
     return ms, spans[order[1]]["kernels"]
+
+
+def fused_titok_step_spans(name: str, dtype: str) -> "tuple[dict, dict]":
+    """:func:`titok_step_spans` of the flagship step under
+    ``VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1`` (K9a, K9b, K9c and K10 on
+    the MLP and qkv sites, as ``chip_smoke.py``'s train_fused phase runs
+    it), set for this step only."""
+    saved = {k: os.environ.get(k) for k in ("VIT_TPU_FUSED_LN",
+                                            "VIT_TPU_FUSED_FC")}
+    os.environ.update(VIT_TPU_FUSED_LN="1", VIT_TPU_FUSED_FC="1")
+    try:
+        return titok_step_spans(name, "none", dtype)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def vit_step_ms(dtype: str = "bfloat16") -> float:
@@ -937,7 +1023,11 @@ STEPS = {"VideoGPT-B step": videogpt_step_ms,
          "ViT-L step": vit_step_ms,
          "VideoGPT-B fp32 step": lambda: videogpt_step_ms("float32"),
          "ViT-L fp32 step": lambda: vit_step_ms("float32"),
-         "TiTok-B fp32 step": lambda: titok_step_ms("float32")}
+         "TiTok-B fp32 step": lambda: titok_step_ms("float32"),
+         "TiTok-B fused step": lambda: fused_titok_step_spans(
+             "TiTok-B fused step", "bfloat16"),
+         "TiTok-B fused fp32 step": lambda: fused_titok_step_spans(
+             "TiTok-B fused fp32 step", "float32")}
 GROUPS = ("kernels", "q8", "queue", "perceptual", "fp32", "steps")
 
 

@@ -202,14 +202,6 @@ struct SplitTail {
   static_assert(sizeof(Ring<kStages>) <= 128, "the ring's barriers");
 };
 
-// x as a value the compiler cannot see through, so that descriptors formed
-// from it are formed where they are used instead of being kept in
-// registers across the loop.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
 // Byte offset of element (row, col) in a [C/64 atoms][rows][128 bytes] bf16
 // region, swizzled as TMA's 128-byte swizzle places it: the 16-byte chunk c
 // of a row r at chunk c ^ (r % 8).
@@ -1543,14 +1535,6 @@ __global__ void split_weights_kernel(const float* __restrict__ w1,
     x.z = __fsub_rn(x.z, __low2float(hi));
     x.w = __fsub_rn(x.w, __high2float(hi));
   }
-}
-
-// The tensor map of one weight's three parts, (3, rows, cols) bf16: 4-D
-// (cols, rows, 3, 1), boxes of 64 columns x 64 rows of one part, zeros past
-// the part's rows and columns.
-int parts_map(CUtensorMap* map, const void* base, int rows, int cols) {
-  const long long st[3] = {0, static_cast<long long>(rows) * cols, cols};
-  return head_map(map, base, st, 1, 3, rows, cols);
 }
 
 template <int C>

@@ -281,14 +281,6 @@ struct Fwd {
                 "the row scales");
 };
 
-// x as a value the compiler cannot see through, so that descriptors formed
-// from it are formed where they are used instead of being kept in
-// registers across the loop.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
 // Byte offset of int8 element (row, col) in a [C/128 atoms][rows][128 B]
 // region, swizzled as TMA's 128-byte swizzle places it.
 __device__ __forceinline__ int sw8(int row, int col, int rows) {

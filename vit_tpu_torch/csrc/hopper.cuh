@@ -1,13 +1,13 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
-// TMA tensor loads (cp.async.bulk.tensor) and warpgroup products
-// (wgmma.mma_async m64n64k16 and m64n32k16, bf16 in, fp32 accumulate;
-// m64n32k32 int8 in, int32 accumulate, for K12a) that
-// the attention kernels (K6, K7/K8 and their packed forms K1, K2; their
-// fp32 forms through fp32-accurate products of three bf16 parts), the
-// ConvNeXt block tail (K3, K4; K3's fp32 form the same way) and the
-// depthwise convolution (K11a, K11b:
-// halo tiles in, output tiles out by TMA) are built from, and the host side
-// of their tensor maps.
+// TMA tensor loads and stores (cp.async.bulk.tensor), warpgroup products
+// (wgmma.mma_async m64n64k16, m64n32k16, and m64n128k16 / m64n256k16 for
+// K9a, bf16 in, fp32 accumulate; m64n32k32 int8 in, int32 accumulate, for
+// K12a) and setmaxnreg, that the attention kernels (K6, K7/K8 and their
+// packed forms K1, K2; their fp32 forms through fp32-accurate products of
+// three bf16 parts), the ConvNeXt block tail (K3, K4; their fp32 forms the
+// same way), the depthwise convolution (K11a, K11b: halo tiles in, output
+// tiles out by TMA) and the LayerNorm → matmul (K9a and its fp32 form) are
+// built from, and the host side of their tensor maps.
 //
 // Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
 // row) and lands in shared memory through a tensor map built with
@@ -202,6 +202,15 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// The same for one box of a 2-D tensor map at (c0, c1).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -214,6 +223,19 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Sets this warpgroup's registers a thread to N (a multiple of 8, 24 to
+// 256), as its four warps reach it together: a producer warpgroup gives
+// registers up (dec) so that the consumer warpgroups can take them (inc).
+// ptxas honours it only where the roles split once and never rejoin.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Orders this thread's generic-proxy writes to shared memory before later
@@ -268,6 +290,14 @@ __device__ __forceinline__ void add_bias_tile(void* tile,
 }
 
 // ---- wgmma ---------------------------------------------------------------
+
+// x as a value the compiler cannot see through, so that descriptors formed
+// from it are formed where they are used instead of being kept in
+// registers across the loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
 
 // Shared-memory matrix descriptor of a 128-byte swizzled tile at `addr`:
 // start address, leading and stride byte offsets (all >> 4), layout 1 =
@@ -422,6 +452,70 @@ __device__ __forceinline__ void wgmma_ss_s8_n32(int (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// Eight accumulator registers d[o .. o + 7] as asm operands, for the wide
+// products' operand lists.
+#define VIT_ACC8(d, o)                                                       \
+  "+f"(d[(o) + 0]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]),     \
+      "+f"(d[(o) + 4]), "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
+
+// d (+)= A·B, m64nNk16 for N 128 or 256 (N / 2 accumulator registers, the
+// layout of m64n64's continued over N / 8 column tiles: d[4j + 2r + c] =
+// D[16w + g + 8r][8j + 2t + c]): A and B both K-major from shared memory
+// through descriptors, B's N rows 128 bytes apart in one swizzled run of
+// 64-row tiles (8-row groups 1024 bytes apart, as desc_k). scale_d = 0
+// overwrites d. Fewer shared-memory bytes a FLOP than m64n64: A is read
+// once for N columns.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_wide(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_wide<128>(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : VIT_ACC8(d, 0), VIT_ACC8(d, 8), VIT_ACC8(d, 16), VIT_ACC8(d, 24),
+        VIT_ACC8(d, 32), VIT_ACC8(d, 40), VIT_ACC8(d, 48), VIT_ACC8(d, 56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_wide<256>(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : VIT_ACC8(d, 0), VIT_ACC8(d, 8), VIT_ACC8(d, 16), VIT_ACC8(d, 24),
+        VIT_ACC8(d, 32), VIT_ACC8(d, 40), VIT_ACC8(d, 48), VIT_ACC8(d, 56),
+        VIT_ACC8(d, 64), VIT_ACC8(d, 72), VIT_ACC8(d, 80), VIT_ACC8(d, 88),
+        VIT_ACC8(d, 96), VIT_ACC8(d, 104), VIT_ACC8(d, 112), VIT_ACC8(d, 120)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef VIT_ACC8
 #undef VIT_IACC16
 #undef VIT_ACC16
 #undef VIT_ACC32
@@ -499,6 +593,21 @@ __device__ __forceinline__ void mma_abt_parts_n32(float (&d)[16], uint32_t a,
       wgmma_ss_n32<0>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
                       desc_k(b + split_b(t) * b_part + 32 * ks),
                       t > kFirstTerm<kParts> || ks > 0);
+}
+
+// The same over N columns (wgmma_ss_wide, N 128 or 256): d (64 x N) =
+// A·Bᵀ over 64 with B the N rows of a K-major run of 64-row tiles at b.
+template <int kParts, int N>
+__device__ __forceinline__ void mma_abt_parts_wide(float (&d)[N / 2],
+                                                   uint32_t a, uint32_t a_part,
+                                                   uint32_t b, uint32_t b_part) {
+#pragma unroll
+  for (int t = kFirstTerm<kParts>; t < 6; ++t)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_wide<N>(d, desc_k(a + split_a(t) * a_part + 32 * ks),
+                       desc_k(b + split_b(t) * b_part + 32 * ks),
+                       t > kFirstTerm<kParts> || ks > 0);
 }
 
 // d = A·B over 16·kSteps, 32 columns (wgmma_ss_n32): A a K-major tile at
@@ -653,23 +762,35 @@ inline int head_map(CUtensorMap* map, const void* base, const long long* st,
 
 // The tensor map of a row-major bf16 matrix (rows, cols), cols a multiple
 // of 8 and rows 16-byte aligned: 2-D (cols, rows), boxes of 64 columns x 64
-// rows, 128-byte swizzle, zeros past either edge. Returns 0 or a
-// cudaError_t.
+// rows, 128-byte swizzle, zeros past either edge. With elem_bytes 4, of an
+// fp32 matrix, boxes of 32 columns (one 128-byte swizzled row). Returns 0
+// or a cudaError_t.
 inline int matrix_map(CUtensorMap* map, const void* base, int rows,
-                      int cols) {
+                      int cols, int elem_bytes = 2) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, kTileRows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             kTileRows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// The tensor map of an operand's three bf16 parts, (3, rows, cols): 4-D
+// (cols, rows, 3, 1), boxes of 64 columns x 64 rows of one part, zeros
+// past the part's rows and columns; part p of a box at coordinate p of the
+// third dimension.
+inline int parts_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  const long long st[3] = {0, static_cast<long long>(rows) * cols, cols};
+  return head_map(map, base, st, 1, 3, rows, cols);
 }
 
 // The tensor map of a row-major int8 matrix (rows, cols), cols a multiple

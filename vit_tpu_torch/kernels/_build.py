@@ -33,6 +33,9 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                                 K4 with a z pre-pass at C 384)
   vq_nearest.cu            K5   vq.py:83 (_vq_kernel :36)
   ln_matmul.cu             K9a  ln_matmul.py:121 (_fwd_kernel :60)
+                                (on hopper.cuh: a row pre-pass, then
+                                wgmma fed by a TMA ring; on fp32 rows the
+                                same kernel over three bf16 parts)
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
                            K9c  ln_matmul.py:190 (_ln_bwd_kernel :78)
   fc_grad.cu               K10  fc_grad.py:145 (_fc_grad_kernel :74)
@@ -49,10 +52,10 @@ The JAX package runs every Pallas kernel on operands of the compute dtype,
 fp32 products at Precision.HIGHEST under ``--mixed false``. Each kernel
 therefore has an fp32 form: the attention kernels, K3 and K4 as
 fp32-accurate products of three bf16 parts on the tensor cores
-(``attention_fwd.cu``, ``attention_bwd.cu``, ``convnext_tail.cu``), the
-others as ``*_f32`` entries beside their bf16 ones (K9a, K10: SIMT
-products, ``csrc/simt_f32.cuh``; K9b, K9c, K12a, K12b: the kernels
-templated on their row type). K5 is fp32 by design and K11 takes both
+(``attention_fwd.cu``, ``attention_bwd.cu``, ``convnext_tail.cu``, and
+K9a's ``ln_matmul_fwd_f32``), the others as ``*_f32`` entries beside their
+bf16 ones (K10: a SIMT product, ``csrc/simt_f32.cuh``; K9b, K9c, K12a,
+K12b: the kernels templated on their row type). K5 is fp32 by design and K11 takes both
 dtypes through one entry.
 
 Every entry takes pointers and the CUDA stream as ``void*`` and returns
@@ -209,9 +212,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     # 0 (K11a), 1 (the dx-only K11b) or 2 (the full one) into out[9]
     lib.depthwise_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.depthwise_plan.restype = i32
-    # ln_matmul_fwd(x, w, b, z, zpre, xhat, N, C, F, gelu, stream)
+    # ln_matmul_fwd(x, w, b, z, zpre, xhat, N, C, F, gelu, stream); the fp32
+    # form ln_matmul_fwd_f32(x, w, b, z, zpre, xhat, parts, N, C, F, gelu,
+    # stream) with its scratch of x̂'s and W's bf16 parts
     lib.ln_matmul_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.ln_matmul_fwd.restype = i32
+    lib.ln_matmul_fwd_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    # ln_matmul_rows(x, xhat, parts, N, C, f32, stream): K9a's row pre-pass
+    lib.ln_matmul_rows.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.ln_matmul_rows.restype = i32
+    # ln_matmul_plan(N, F, parts, out): K9a's output columns a tile, and
+    # that kernel's dynamic shared memory and grid into out[0], out[1]
+    lib.ln_matmul_plan.argtypes = [i32] * 3 + [ctypes.POINTER(i32)]
+    lib.ln_matmul_plan.restype = i32
     # ln_matmul_dgelu(zpre, dz, dzc, n, stream)
     lib.ln_matmul_dgelu.argtypes = [ptr] * 3 + [ctypes.c_longlong, ptr]
     lib.ln_matmul_dgelu.restype = i32
@@ -246,7 +259,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.convnext_tail_f32_bwd_gz.argtypes = [i32]
     for name, like in (("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
                        ("convnext_tail_bwd_q8_f32", "convnext_tail_bwd_q8"),
-                       ("ln_matmul_fwd_f32", "ln_matmul_fwd"),
                        ("ln_matmul_dgelu_f32", "ln_matmul_dgelu"),
                        ("ln_bwd_f32", "ln_bwd"), ("fc_grad_f32", "fc_grad")):
         getattr(lib, name).argtypes = getattr(lib, like).argtypes

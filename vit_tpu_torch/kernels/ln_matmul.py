@@ -26,14 +26,17 @@ What bounds them on the H100: K9a is a product, 2·N·C·F FLOP against
 N·C + C·F + N·F bf16 values (+ N·F for zpre and N·C for x̂), about 300 FLOP
 per byte at the flagship's widths, at the card's bf16 ridge; K9b and K9c are
 single passes over bf16 rows, bound by bytes. The sources' headers give the
-designs.
+designs: K9a is two launches, a row pre-pass that writes x̂ (:func:`ln_rows`
+alone; scratch of the call when no gradient is tracked) and the product on
+wgmma fed by a TMA ring, its tile plan chosen in C (:func:`tile_plan`).
 
 fp32 rows (``--mixed false``, the Pallas kernels' Precision.HIGHEST
 products) launch the fp32 forms, the ``*_f32`` entries of the same sources:
-K9a with its product on the CUDA cores (``csrc/simt_f32.cuh``), K9b and K9c
-the same kernels instantiated for fp32. W and b are cast to x's dtype, as
-the JAX package casts them to the compute dtype. Each wrapper counts its
-fp32 launches apart (``fp32_*``).
+K9a's product as six bf16 wgmma products an fp32 product, on three bf16
+parts of x̂ (written by the pre-pass) and of W (split in the same call) in
+scratch of the call, K9b and K9c the same kernels instantiated for fp32. W
+and b are cast to x's dtype, as the JAX package casts them to the compute
+dtype. Each wrapper counts its fp32 launches apart (``fp32_*``).
 
 :class:`FusedLnMatmul` is the autograd Function (``_lnmm_fwd``/``_lnmm_bwd``,
 :330-353) and :func:`fused_ln_matmul` the entry. Weights are taken in
@@ -45,9 +48,12 @@ partitioning) has no counterpart here.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from vit_tpu_torch.kernels import _build
+from vit_tpu_torch.kernels.attention import split3
 from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu
 
 LANE = 128            # the JAX gate: C and F multiples of 128
@@ -92,6 +98,15 @@ def ln_matmul_fwd_ref(x, w, b=None, gelu: bool = False,
     if not residuals:
         return acc.to(dt), None, None
     return acc.to(dt), zpre, u
+
+
+def ln_rows_ref(x: torch.Tensor):
+    """Plain version of K9a's row pre-pass: x (N, C) → (x̂ in x's dtype,
+    its three bf16 parts (3, N, C) for fp32 rows (``split3``), else None)."""
+    xhat32, _ = _stats(x.float())
+    if x.dtype != torch.float32:
+        return xhat32.to(x.dtype), None
+    return xhat32, torch.stack(split3(xhat32))
 
 
 def ln_matmul_dgelu_ref(zpre: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
@@ -139,22 +154,63 @@ def ln_matmul_fwd(x: torch.Tensor, w: torch.Tensor,
     b = None if b is None else _build.cuda_arg(b, x, "b", x.dtype)
     z = torch.empty(n, f, dtype=x.dtype, device=x.device)
     zpre = torch.empty_like(z) if gelu and residuals else None
-    xhat = torch.empty_like(x) if residuals else None
     f32 = x.dtype == torch.float32
-    entry = "ln_matmul_fwd_f32" if f32 else "ln_matmul_fwd"
+    # bf16: x̂ is the product's operand, written whether or not it is kept;
+    # fp32: its three bf16 parts and W's are, in scratch of the call
+    xhat = torch.empty_like(x) if residuals or not f32 else None
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, entry)(
-            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            z.data_ptr(), None if zpre is None else zpre.data_ptr(),
-            None if xhat is None else xhat.data_ptr(), n, c, f, int(gelu),
-            stream)
+        ptrs = (x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+                z.data_ptr(), None if zpre is None else zpre.data_ptr(),
+                None if xhat is None else xhat.data_ptr())
+        if f32:
+            entry = "ln_matmul_fwd_f32"
+            parts = torch.empty(3 * (n + f) * c, dtype=torch.bfloat16,
+                                device=x.device)
+            err = lib.ln_matmul_fwd_f32(*ptrs, parts.data_ptr(), n, c, f,
+                                        int(gelu), stream)
+        else:
+            entry = "ln_matmul_fwd"
+            err = lib.ln_matmul_fwd(*ptrs, n, c, f, int(gelu), stream)
     _build.check(lib, err, entry)
     global launches, fp32_launches
     launches += 1
     fp32_launches += f32
-    return z, zpre, xhat
+    return z, zpre, xhat if residuals else None
+
+
+def ln_rows(x: torch.Tensor):
+    """K9a's row pre-pass alone, the launch ``ln_matmul_fwd`` makes before
+    its product, to check it against :func:`ln_rows_ref` and time it: CUDA
+    x (N, C), bf16 or fp32, C a multiple of 128 up to 1024 → (x̂, its three
+    bf16 parts (3, N, C) for fp32 rows, else None). Not counted."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _build.check_rows(x, "K9a", "x")
+    _check_width(x.shape[1], "K9a")
+    n, c = x.shape
+    f32 = x.dtype == torch.float32
+    xhat = torch.empty_like(x)
+    parts = torch.empty(3, n, c, dtype=torch.bfloat16,
+                        device=x.device) if f32 else None
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ln_matmul_rows(x.data_ptr(), xhat.data_ptr(),
+                                 None if parts is None else parts.data_ptr(),
+                                 n, c, int(f32), stream)
+    _build.check(lib, err, "ln_matmul_rows")
+    return xhat, parts
+
+
+def tile_plan(n: int, f: int, f32: bool = False) -> dict:
+    """K9a's tile plan on the current card at (N, F): a tile's output
+    columns (``bn``), that kernel's dynamic shared memory and the blocks of
+    its grid."""
+    out = (ctypes.c_int * 2)()
+    bn = _build.load().ln_matmul_plan(n, f, 3 if f32 else 1, out)
+    return dict(bn=bn, dynamic_smem_bytes=out[0], grid=out[1])
 
 
 def ln_matmul_dgelu(zpre: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
