@@ -60,8 +60,10 @@ false``. Phases, one JSON line each:
                 alone beside the library's LayerNorm backward), and K12a
                 and K12b within ``Q8_MEAN_REL``, which a control (one
                 per-tensor activation scale for the per-row ones) must
-                fail, timed at the three fused stages, K12a with its ptxas
-                figures and shared memory; K11a and K11b (its dx-only form and its
+                fail, timed at the three fused stages with their ptxas
+                figures, shared memory and blocks per SM, K12a also on rows
+                where GELU is flat and K12b on rows whose dz levels lie at
+                near-half quotients; K11a and K11b (its dx-only form and its
                 full one) at ConvNeXt-S's four stages at bs 64 and a ragged
                 shape, fp32 and bf16: within one bf16 ulp, fp32 within
                 ``K11_MEAN_REL``, dw and db within ``K11_DW_MEAN_REL``
@@ -84,15 +86,18 @@ false``. Phases, one JSON line each:
                 max within K12_REL: int8 levels), at the fp32 paths' shapes,
                 the dropout arms included; K9a, K9c and K12 within their
                 mean limits as in the kernel phase; the fp32 attention
-                (K1, K6 forward and K2, K7/K8 backward), K3 and K4
-                (products of three bf16 parts on the tensor cores) also
+                (K1, K6 forward and K2, K7/K8 backward), K3, K4, K9a and
+                K10 (products of three bf16 parts on the tensor cores) also
                 within ``F32_FWD_MEAN_REL`` of the float64 forward's mean
                 |o|, |m| and |l|, ``F32_BWD_MEAN_REL`` of the plain
                 backward's mean |plain|, ``F32_TAIL_MEAN_REL`` of the
-                float64 tail's mean |y| and ``F32_TAIL_BWD_MEAN_REL`` of
+                float64 tail's mean |y|, ``F32_TAIL_BWD_MEAN_REL`` of
                 the float64 tail gradient's mean |dh| at each fused width,
-                which controls (the operands rounded to two parts) must
-                fail, the pre-splits (three operands forward, four
+                ``F32_LNMM_MEAN_REL`` of the float64 K9a and
+                ``F32_FCGRAD_MEAN_REL`` of the float64 dW (K10 at fc2, fc1
+                and N 20481, deterministic), which controls (the operands
+                rounded to two parts) must fail; K12b's fp32 rows at each
+                fused width, the pre-splits (three operands forward, four
                 backward, K3's weights) bit for bit and timed alone, the
                 ptxas figures and the bounds at the split products' rate
                 (six bf16 products an fp32 one) beside P's; a TF32 control
@@ -236,10 +241,12 @@ sys.path.insert(0, str(ROOT))
 from vit_tpu_torch.bench_kernels import batched_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import device_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_attention_fwd  # noqa: E402
+from vit_tpu_torch.bench_kernels import exact_fc_grad  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_ln_matmul_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_tail_bwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_tail_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import mean_rel  # noqa: E402
+from vit_tpu_torch.bench_kernels import two_part_fc_grad  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_ln_matmul_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_tail_bwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_tail_fwd  # noqa: E402
@@ -501,6 +508,16 @@ F32_TAIL_BWD_MEAN_REL = 2.21e-6
 # two-part control (bench_kernels.two_part_ln_matmul_fwd: x̂ and W rounded
 # to x0 + x1) reads 3.31e-6 to 3.63e-6 and must fail it.
 F32_LNMM_MEAN_REL = 1.30e-6
+# K10's fp32 form (six bf16 wgmma products of three bf16 parts an fp32
+# product, each 32-row atom of N in a fresh accumulator, split partials
+# added in a fixed order) against the float64 dW
+# (bench_kernels.exact_fc_grad), mean |Δ| over mean |exact|, read on an
+# H100 at fc2 (20480, 768 ← 3072), fc1 and N 20481: 1.619e-7 to 1.626e-7,
+# where the plain fp32 product (cuBLAS) reads 8.40e-7 to 8.41e-7. 10× the
+# largest; the two-part control
+# (bench_kernels.two_part_fc_grad: g and x rounded to x0 + x1) reads
+# 3.573e-6 to 3.578e-6 and must fail it.
+F32_FCGRAD_MEAN_REL = 1.63e-6
 # K9a and K9c against their plain versions, mean |Δ| over mean |plain|:
 # ulp flips of the bf16 outputs (the fp32 forms: sums in another order),
 # read on an H100 by this script at 0 to 2.52e-6 (K9a's z at (130, 768 →
@@ -2305,6 +2322,55 @@ def k12a_flat_rows(gen) -> list:
     return rows
 
 
+def k12b_near_half_rows(gen) -> list:
+    """K12b against its plain version on rows whose dz levels lie at
+    near-half quotients, where the kernels take the IEEE quotient
+    (``csrc/convnext_tail_q8.cu``: level, near_half): b1 = 10 puts every z
+    where gelu′ is 1 exactly, so dz = da; γ⊙dy is one-hot at channel 0, so
+    doq is ±127 there alone; W2 is zero but for its row 0, (k + 0.5)·m/127
+    with k random in each column but one, which holds m, so that dz / s =
+    127·W2[0, f] / m falls within rounding of k + 0.5. At C 96, 192 and
+    384, N 800, bf16 and fp32 rows: checks from the plain version's dz that
+    most quotients lie within 4e-5 of a half-integer and holds the kernel
+    within K12_REL and Q8_MEAN_REL, fp32 rows within FP32_REL (a level
+    flipped from rint(dz / s) moves dh by about a hundredth)."""
+    rows = []
+    for c in (96, 192, 384):
+        (h, _, dy), (lns, lnb, w1, b1, w2, _, gamma) = random_tail(800, c, gen)
+        b1, w1 = torch.full_like(b1, 10.0), 0.1 * w1
+        k = torch.randint(-127, 127, (4 * c,), device="cuda", generator=gen)
+        w2 = torch.zeros_like(w2)
+        w2[0] = (k.float() + 0.5) * (0.2 / 127.0)
+        w2[0, 5] = 0.2
+        dy = torch.zeros_like(dy)
+        dy[:, 0] = torch.randn(800, device="cuda", generator=gen)
+        gamma = gamma.clone()
+        gamma[0] = 1.0
+        for dt in (torch.bfloat16, torch.float32):
+            args = (h.to(dt), dy.to(dt), lns, lnb, w1, b1, w2, gamma, 1e-6)
+            out = k_cnx.convnext_tail_bwd_q8(*args)
+            torch.cuda.synchronize()
+            ref = k_cnx.convnext_tail_bwd_q8_ref(*args)
+            # dz as the plain version forms it (gelu′ = 1 here: dz = da)
+            doq, dos = k_cnx.quant_rows(args[1].float() * gamma.to(dt).float())
+            w2tq, w2ts = k_cnx.quant_cols(w2)
+            dz = torch._int_mm(doq, w2tq).float() * dos * w2ts
+            t = dz * torch.reciprocal(
+                dz.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0))
+            row = dict(N=800, C=c, dtype=str(dt)[6:], **rel_errors(out, ref),
+                       near_half=float(((t - t.round()).abs() > 0.49996)
+                                       .float().mean()))
+            rows.append(row)
+            tol = FP32_REL if dt == torch.float32 else K12_REL
+            require(row["near_half"] > 0.5 and bool(torch.isfinite(out).all())
+                    and row["max_rel"] <= tol
+                    and row["mean_rel"] <= min(tol, Q8_MEAN_REL),
+                    f"K12b disagrees with its plain version at near-half "
+                    f"levels: {row}")
+            del out, ref, dz, t
+    return rows
+
+
 def int8_tail_kernels(gen) -> dict:
     """K12a and K12b against their plain versions at the three fused stages'
     shapes of the int8 step and a ragged N, their times and bounds at each
@@ -2377,6 +2443,7 @@ def int8_tail_kernels(gen) -> dict:
         del h, x, dy
         torch.cuda.empty_cache()
     runs["convnext_tail_fwd_q8"]["flat_rows"] = k12a_flat_rows(gen)
+    runs["convnext_tail_bwd_q8"]["near_half_rows"] = k12b_near_half_rows(gen)
     # At each stage: the forward's two products of N·C·4C multiply-adds
     # (int8 operations, 2 each), the backward's three (z recomputed, da,
     # du); h and x (h and dy) read, y (dh) written in bf16, the int8
@@ -2392,17 +2459,14 @@ def int8_tail_kernels(gen) -> dict:
     by_c = {c: q8_bounds(n, c) for _, _, n, c in CNX_STAGES}
     bounds = by_c[384]
     lib = _build.load()
-    q8_build = {k: dict(ptxas=v, dynamic_smem_bytes=lib.convnext_tail_fwd_q8_smem(
-                    int(template_args(k)[0])))
-                for k, v in measured.get("ptxas", {}).items()
-                if k.startswith("convnext_tail_fwd_q8_kernel<")}
+    q8_build = q8_kernel_build()
     summary = {}
     library = "torch._int_mm of the int8 products alone (2 forward, 3 backward)"
     for name, t in runs.items():
         emit("kernel", name=name, parity=t["rows"],
              tolerance=dict(max_rel=K12_REL, mean_rel=Q8_MEAN_REL),
              mean_limit_control=q8_control[name],
-             **({"flat_rows": t["flat_rows"]} if "flat_rows" in t else {}),
+             **{k: t[k] for k in ("flat_rows", "near_half_rows") if k in t},
              ms_C384=t["ms"],
              ms_by_C=t["ms_by_C"], x20_ms_by_C=t["x20_ms_by_C"],
              dev_ms_by_C=t["dev_ms_by_C"],
@@ -2413,15 +2477,35 @@ def int8_tail_kernels(gen) -> dict:
              library=library, bound_C384=bounds[name],
              shape="(bs 64 · H · W, C) bf16 rows of ConvNeXt-S stages 0-2",
              summary_shape="C 384, N 12544 (27 of the 33 fused blocks)",
-             **({"build": q8_build} if name == "convnext_tail_fwd_q8" else {}))
+             build={k: v for k, v in q8_build.items()
+                    if k.startswith(name + "_kernel<")})
         summary[name] = dict(max_abs_err=t["max"], ms=t["ms"],
                              plain_ms=t["plain_ms"],
                              bound_ms=bounds[name]["bound_ms"],
                              bound_by=bounds[name]["bound_by"],
                              library_ms=t["library_ms"], library=library,
                              dev_ms_by_C=t["dev_ms_by_C"],
-                             library_dev_ms_by_C=t["library_dev_ms_by_C"])
+                             library_dev_ms_by_C=t["library_dev_ms_by_C"],
+                             build={k: v for k, v in q8_build.items()
+                                    if k.startswith(name + "_kernel<")})
     return summary
+
+
+def q8_kernel_build() -> dict:
+    """ptxas's report (registers, spills), the dynamic shared memory and the
+    blocks an SM holds by it of K12a's and K12b's kernels
+    (``convnext_tail_{fwd,bwd}_q8_kernel<C, T>``)."""
+    lib = _build.load()
+    smem = {"convnext_tail_fwd_q8_kernel": lib.convnext_tail_fwd_q8_smem,
+            "convnext_tail_bwd_q8_kernel": lib.convnext_tail_bwd_q8_smem}
+    out = {}
+    for name, report in measured.get("ptxas", {}).items():
+        base = name.partition("<")[0]
+        if base in smem:
+            b = smem[base](int(template_args(name)[0]))
+            out[name] = dict(ptxas=report, dynamic_smem_bytes=b,
+                             blocks_per_sm_by_smem=233472 // (b + 1024))
+    return out
 
 
 def k11_bound(shape, elem: int, form: str) -> dict:
@@ -3212,7 +3296,7 @@ def fp32_kernels(gen) -> dict:
           split_ms=k8["split"]["ms"],
           split_bound_ms=k8["split"]["bound"]["bound_ms"])
 
-    # K3 / K4 at the three fused stages' shapes; K12a / K12b at stage 2's.
+    # K3 / K4 and K12b at the three fused stages' shapes; K12a at stage 2's.
     TAIL_FORMS = {"convnext_tail_fwd": "K3", "convnext_tail_bwd": "K4",
                   "convnext_tail_fwd_q8": "K12a",
                   "convnext_tail_bwd_q8": "K12b"}
@@ -3230,13 +3314,12 @@ def fp32_kernels(gen) -> dict:
                  "convnext_tail_bwd": (k_cnx.convnext_tail_bwd,
                                        k_cnx.convnext_tail_bwd_ref, bwd_args)}
         if c == 384:
-            calls.update({
-                "convnext_tail_fwd_q8": (k_cnx.convnext_tail_fwd_q8,
-                                         k_cnx.convnext_tail_fwd_q8_ref,
-                                         fwd_args),
-                "convnext_tail_bwd_q8": (k_cnx.convnext_tail_bwd_q8,
+            calls["convnext_tail_fwd_q8"] = (k_cnx.convnext_tail_fwd_q8,
+                                             k_cnx.convnext_tail_fwd_q8_ref,
+                                             fwd_args)
+        calls["convnext_tail_bwd_q8"] = (k_cnx.convnext_tail_bwd_q8,
                                          k_cnx.convnext_tail_bwd_q8_ref,
-                                         bwd_args)})
+                                         bwd_args)
         for name, (kernel, plain, args) in calls.items():
             out = kernel(*args)
             torch.cuda.synchronize()
@@ -3438,33 +3521,88 @@ def fp32_kernels(gen) -> dict:
           mean_limit=SIMT_F32_MEAN_REL["K9c"],
           **{k: k9c[k] for k in LN_BWD_TIMES})
     del x, g, out, ref
-    g, x = r(N_ROWS, 768), r(N_ROWS, 3072)
-    dw, db = k_fc.matmul_dw_db(g, x)
-    dw2, db2 = k_fc.matmul_dw_db(g, x)
-    torch.cuda.synchronize()
-    dw_ref, db_ref = k_fc.matmul_dw_db_ref(g, x)
+    # K10: fc2 (g 768 wide, x 3072), fc1 (g 3072, x 768), a ragged N;
+    # against the plain version and the float64 dW (F32_FCGRAD_MEAN_REL,
+    # which the two-part control must fail), deterministic
     k10_tol = min(FP32_REL, SIMT_F32_MEAN_REL["K10"])
-    k10 = dict(dw=fp32_check("K10 dW", dw, dw_ref, mean_tol=k10_tol),
-               db=fp32_check("K10 db", db, db_ref, mean_tol=k10_tol),
-               deterministic=bool(torch.equal(dw, dw2)
-                                  and torch.equal(db, db2)),
-               ms=median_ms(lambda: k_fc.matmul_dw_db(g, x)),
-               plain_ms=median_ms(lambda: k_fc.matmul_dw_db_ref(g, x), 5),
-               library_ms=median_ms(lambda: torch.mm(g.t(), x)),
-               bound=bound(2 * N_ROWS * 768 * 3072,
-                           4 * (N_ROWS * (768 + 3072) + 768 * 3072 + 768),
-                           peak=peak))
-    require(k10["deterministic"], f"K10 in fp32 is not deterministic: {k10}")
-    controls["K10"] = tf32_control("K10", lambda: k_fc.matmul_dw_db_ref(
-        g, x)[0], dw_ref, SIMT_F32_MEAN_REL["K10"])
-    emit("fp32_kernels", name="fc_grad", **k10,
+    k10, k10_rows = {}, []
+    for n, fo, fi in [(N_ROWS, 768, 3072), (N_ROWS, 3072, 768),
+                      (N_ROWS + 1, 768, 3072)]:
+        g, x = r(n, fo), r(n, fi)
+        dw, db = k_fc.matmul_dw_db(g, x)
+        dw2, db2 = k_fc.matmul_dw_db(g, x)
+        torch.cuda.synchronize()
+        dw_ref, db_ref = k_fc.matmul_dw_db_ref(g, x)
+        dw_ex, db_ex = exact_fc_grad(g, x)
+        row = dict(N=n, F_out=fo, F_in=fi,
+                   dw=fp32_check("K10 dW", dw, dw_ref, mean_tol=k10_tol),
+                   db=fp32_check("K10 db", db, db_ref, mean_tol=k10_tol),
+                   mean_rel_exact=dict(dw=mean_rel(dw, dw_ex),
+                                       db=mean_rel(db, db_ex),
+                                       plain_dw=mean_rel(dw_ref, dw_ex)),
+                   two_part_control=mean_rel(two_part_fc_grad(g, x)[0],
+                                             dw_ex),
+                   deterministic=bool(torch.equal(dw, dw2)
+                                      and torch.equal(db, db2)))
+        k10_rows.append(row)
+        require(row["deterministic"],
+                f"K10 in fp32 is not deterministic: {row}")
+        require(row["mean_rel_exact"]["dw"] <= F32_FCGRAD_MEAN_REL,
+                f"K10 fp32 is off the float64 dW: {row}")
+        require(row["two_part_control"] > F32_FCGRAD_MEAN_REL,
+                f"K10's two-part control passes its mean limit: {row}")
+        if n == N_ROWS:
+            site = "fc2" if fo < fi else "fc1"
+            if site == "fc2":
+                controls["K10"] = tf32_control(
+                    "K10", lambda: k_fc.matmul_dw_db_ref(g, x)[0], dw_ref,
+                    SIMT_F32_MEAN_REL["K10"])
+            nbytes = 4 * (n * (fo + fi) + fo * fi + fo)
+            k10[site] = dict(
+                ms=median_ms(lambda: k_fc.matmul_dw_db(g, x)),
+                dev_ms=device_ms(lambda: k_fc.matmul_dw_db(g, x)),
+                x20_ms=batched_ms(lambda: k_fc.matmul_dw_db(g, x)),
+                plain_ms=median_ms(lambda: k_fc.matmul_dw_db_ref(g, x), 5),
+                library_ms=median_ms(lambda: torch.mm(g.t(), x)),
+                library_dev_ms=device_ms(lambda: torch.mm(g.t(), x)),
+                # six bf16 wgmma products an fp32 one: at the split rate,
+                # P's fp32 rate beside it
+                bound=bound(2 * n * fo * fi, nbytes, peak=PEAK_SPLIT_FLOPS),
+                fp32_rate_bound=bound(2 * n * fo * fi, nbytes, peak=peak),
+                row=row)
+        del g, x, dw, db, dw2, db2, dw_ref, db_ref, dw_ex, db_ex
+        torch.cuda.empty_cache()
+    lib = _build.load()
+    build = {}
+    for name, report in measured.get("ptxas", {}).items():
+        if name.startswith("fc_grad_split_kernel<"):
+            b = lib.fc_grad_f32_smem()
+            build[name] = dict(ptxas=report, dynamic_smem_bytes=b,
+                               blocks_per_sm_by_smem=233472 // (b + 1024))
+    emit("fp32_kernels", name="fc_grad", parity=k10_rows,
+         tolerance=dict(max_rel=FP32_REL, mean_rel=k10_tol,
+                        mean_rel_exact=F32_FCGRAD_MEAN_REL),
+         build=build, **{site: {k: v for k, v in t.items() if k != "row"}
+                         for site, t in k10.items()},
          library="torch.mm(g.t(), x) in fp32, TF32 off: dW alone")
-    entry("fc_grad", k10["dw"], k10["ms"], k10["plain_ms"], k10["bound"],
-          k10["library_ms"], "fc2: g (20480, 768), x (20480, 3072) fp32",
+    fc2 = k10["fc2"]
+    entry("fc_grad", fc2["row"]["dw"], fc2["ms"], fc2["plain_ms"],
+          fc2["bound"], fc2["library_ms"],
+          "fc2: g (20480, 768), x (20480, 3072) fp32",
           mean_limit=SIMT_F32_MEAN_REL["K10"],
-          mean_rel_max=max(k10[k]["mean_rel"] for k in ("dw", "db")))
-    del g, x, dw, db, dw2, db2, dw_ref, db_ref
-    torch.cuda.empty_cache()
+          mean_rel_max=max(r[k]["mean_rel"] for r in k10_rows
+                           for k in ("dw", "db")),
+          mean_limit_exact=F32_FCGRAD_MEAN_REL,
+          mean_rel_exact_max=max(r["mean_rel_exact"]["dw"] for r in k10_rows),
+          two_part_control_min=min(r["two_part_control"] for r in k10_rows),
+          fp32_rate_bound_ms=fc2["fp32_rate_bound"]["bound_ms"],
+          **{f"{site}_{k}": k10[site][k] for site in ("fc2", "fc1")
+             for k in ("ms", "dev_ms", "x20_ms", "library_dev_ms")},
+          ptxas={k: v["ptxas"] for k, v in build.items()},
+          dynamic_smem_bytes={k: v["dynamic_smem_bytes"]
+                              for k, v in build.items()},
+          blocks_per_sm_by_smem={k: v["blocks_per_sm_by_smem"]
+                                 for k, v in build.items()})
     emit("fp32_kernels", name="tf32_control", limit=FP32_REL,
          fwd_mean_limit=F32_FWD_MEAN_REL, bwd_mean_limit=F32_BWD_MEAN_REL,
          simt_mean_limits=SIMT_F32_MEAN_REL, rows=controls,

@@ -26,7 +26,7 @@ from vit_tpu_torch.bridge import convnext_state_dict_from_flax
 from vit_tpu_torch.core import quant
 from vit_tpu_torch.kernels import convnext_block as k_cnx
 from vit_tpu_torch.losses.perceptual import ConvNeXt
-from vit_tpu_torch.ops.gelu import tanh_erf_gelu
+from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu
 from vit_tpu_torch.train.optim import make_optimizer
 from vit_tpu_torch.train.state import TrainState
 from vit_tpu_torch.train.step import make_tokenizer_train_step
@@ -224,6 +224,131 @@ def test_k12a_gelu_absmax_from_two_candidates_or_every_element():
     assert low[-128:].all() and not low[:256].any()
     got = torch.where(low, want, got)
     assert torch.equal(got, want)
+
+
+def _levels(v, s):
+    """The kernels' int8 levels of v at scale s (csrc/convnext_tail_q8.cu:
+    level, near_half): rint(v·fl(1/s)), the IEEE quotient where that lies
+    within the source's near_half bound of a half-integer; clipped to
+    ±127. int8."""
+    near = float(re.search(r"> (0\.[0-9]+)f;", _q8_source()).group(1))
+    t = v * torch.reciprocal(s)
+    r = torch.round(t)
+    r = torch.where((t - r).abs() > near, torch.round(v / s), r)
+    return r.clamp(-127, 127).to(torch.int8)
+
+
+def _quant_rows_k12(v):
+    """quant_rows as the kernels take it: the same scale, the levels by
+    :func:`_levels`."""
+    s = v.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+    return _levels(v, s), s
+
+
+def _k12b_two_pass(h, dy, lns, lnb, w1, b1, w2, gamma, eps, chunk=128):
+    """K12b's order (csrc/convnext_tail_q8.cu, namespace bwd) in plain torch,
+    w1 (4C, C) and w2 (C, 4C) in the Linear layout: uq and doq by the
+    division-free levels; pass 1 over chunks of 4C columns forms z, da and
+    dz = da·gelu′(z) (the plain version's roundings), keeps the running row
+    absmax of |dz| and stores dz; pass 2 takes the stored dz's levels with
+    the row scale and sums du = dzq·W1ᵀq chunk by chunk in int32; then the
+    LN backward. (dh, the chunked absmax, the stored dz, dzq)."""
+    dt = h.dtype
+    lns, lnb, b1, gamma = (p.to(dt).float() for p in (lns, lnb, b1, gamma))
+    w1q, w1s = k_cnx.quant_cols(w1.t())
+    w1tq, w1ts = k_cnx.quant_cols(w1)
+    w2tq, w2ts = k_cnx.quant_cols(w2)
+    uhat, rstd = k_cnx._normalize(h, eps)
+    uq, us = _quant_rows_k12(uhat * lns + lnb)
+    doq, dos = _quant_rows_k12(dy.float() * gamma)
+    amax, stored = torch.zeros(h.shape[0], 1), []
+    for f0 in range(0, w1.shape[0], chunk):
+        f = slice(f0, f0 + chunk)
+        z = (uq.long() @ w1q[:, f].long()).float() * us * w1s[f] + b1[f]
+        da = (doq.long() @ w2tq[:, f].long()).float() * dos * w2ts[f]
+        dz = da * gelu_grad(z)
+        amax = torch.maximum(amax, dz.abs().amax(-1, keepdim=True))
+        stored.append(dz)
+    s = amax.clamp_min(1e-8) * (1.0 / 127.0)
+    du = torch.zeros(h.shape, dtype=torch.int32)
+    dzq = []
+    for f0, dz in zip(range(0, w1.shape[0], chunk), stored):
+        dzq.append(_levels(dz, s))
+        du += (dzq[-1].long() @ w1tq[f0:f0 + chunk].long()).int()
+    dhat = du.float() * s * w1ts * lns
+    c1 = dhat.mean(-1, keepdim=True)
+    c2 = (dhat * uhat).mean(-1, keepdim=True)
+    dh = (rstd * (dhat - c1 - uhat * c2)).to(dt)
+    return dh, amax, torch.cat(stored, -1), torch.cat(dzq, -1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c", [(13, 64), (70, 96)])
+def test_k12b_two_pass_order_matches_the_plain_version_and_jax(n, c, dtype):
+    """K12b's two-pass order (:func:`_k12b_two_pass`, chunks of 128 of the
+    4C columns) at a small C: the chunked absmax of dz is quant_rows'
+    absmax over the whole row, to the bit; pass 2's levels of the stored dz
+    are rint(dz / s) clipped to ±127 on every element, and dzq, dz and dh
+    equal the plain version's (``convnext_tail_bwd_q8_ref``) to the bit;
+    that dh holds ``jax.vjp`` of the Pallas tail with quant="int8"
+    (interpret mode) within the tail's tolerance."""
+    v = tail_inputs(n, c, seed=2 * n + c)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tp = {k: torch.from_numpy(a) for k, a in v.items()}
+    w1, w2 = tp["w1"].T, tp["w2"].T   # PyTorch's Linear layout
+    h, dy = tp["h"].to(tdt), tp["dy"].to(tdt)
+    args = (h, dy, tp["lns"], tp["lnb"], w1, tp["b1"], w2, tp["gamma"], 1e-6)
+    dh, amax, dz, dzq = _k12b_two_pass(*args)
+    # the plain version's dz and its quantization over the whole row
+    lns, lnb, b1, gamma = (tp[k].to(tdt).float()
+                           for k in ("lns", "lnb", "b1", "gamma"))
+    uhat, _ = k_cnx._normalize(h, 1e-6)
+    uq, us = k_cnx.quant_rows(uhat * lns + lnb)
+    w1q, w1s = k_cnx.quant_cols(w1.t())
+    w2tq, w2ts = k_cnx.quant_cols(w2)
+    doq, dos = k_cnx.quant_rows(dy.float() * gamma)
+    z = torch._int_mm(uq, w1q).float() * us * w1s + b1
+    dz_ref = torch._int_mm(doq, w2tq).float() * dos * w2ts * gelu_grad(z)
+    dzq_ref, dzs_ref = k_cnx.quant_rows(dz_ref)
+    assert torch.equal(dz, dz_ref)
+    assert torch.equal(amax, dz_ref.abs().amax(-1, keepdim=True))
+    assert torch.equal(amax.clamp_min(1e-8) * (1.0 / 127.0), dzs_ref)
+    assert torch.equal(dzq, dzq_ref)
+    assert torch.equal(dzq.float(), torch.round(dz / dzs_ref).clamp(-127, 127))
+    assert torch.equal(dh, k_cnx.convnext_tail_bwd_q8_ref(*args))
+    jp = {k: jnp.asarray(a) for k, a in v.items()}
+    names = ("lns", "lnb", "w1", "b1", "w2", "b2", "gamma")
+    _, vjp = jax.vjp(lambda hh, xx: jax_cnx.frozen_convnext_block_tail(
+        hh, xx, *(jp[k] for k in names), quant="int8"),
+        jp["h"].astype(jdt), jp["x"].astype(jdt))
+    dh_j, _ = vjp(jp["dy"].astype(jdt))
+    assert scaled_err(dh.float(), dh_j) < TAIL_TOL[dtype]
+
+
+def test_k12b_levels_at_near_half_quotients_match_rint_of_the_quotient():
+    """K12b's pass 2 takes dz's levels as K12a's (:func:`_levels`): on
+    rows of dz whose quotients dz / s are made to fall within 2^-17 of a
+    half-integer, on both sides and on it, the rule takes its IEEE
+    quotient and gives rint(fl(dz / s)) clipped to ±127 on every element,
+    the levels of ``quant_rows``."""
+    rng = np.random.default_rng(11)
+    rows, cols = 256, 512
+    s = (np.float32(2.0) ** rng.integers(-20, 4, (rows, 1))
+         * rng.uniform(1, 2, (rows, 1))).astype(np.float32)
+    k = rng.integers(-127, 127, (rows, cols)).astype(np.float32)
+    off = rng.choice([-2.0 ** -17, -2.0 ** -20, 0.0, 2.0 ** -20, 2.0 ** -17],
+                     (rows, cols)).astype(np.float32)
+    dz = ((k + np.float32(0.5) + off) * s).astype(np.float32)
+    dz[:, 0] = np.float32(127.0) * s[:, 0]   # the row's absmax: s exactly
+    dz = torch.from_numpy(dz)
+    q, scale = _quant_rows_k12(dz)
+    q_ref, s_ref = k_cnx.quant_rows(dz)
+    assert torch.equal(scale, s_ref)
+    t = dz * torch.reciprocal(scale)
+    assert ((t - torch.round(t)).abs() > 0.49996).float().mean() > 0.5
+    assert torch.equal(q, q_ref)
+    assert torch.equal(q.float(),
+                       torch.round(dz / scale).clamp(-127, 127))
 
 
 def _q8_source() -> str:

@@ -15,7 +15,11 @@ backward within ``chip_smoke.F32_BWD_MEAN_REL``, K3's the plain fp32 tail
 within ``chip_smoke.SIMT_F32_MEAN_REL["K3"]`` and the float64 tail within
 ``chip_smoke.F32_TAIL_MEAN_REL``; and a split that lost its third part (the
 operands rounded to x0 + x1) exceeds each mean limit held against float64
-or the plain backward, so the limits tell the two apart."""
+or the plain backward, so the limits tell the two apart. K10's fp32 form
+(dW = gᵀ·x and db = Σ g, the split product over 32-row atoms of N in
+fresh accumulators, fixed-order split partials) is held against the JAX
+package's ``matmul_dw_db`` and the float64 dW within
+``chip_smoke.F32_FCGRAD_MEAN_REL``, which its two-part control fails."""
 
 import ast
 from pathlib import Path
@@ -33,14 +37,16 @@ from vit_tpu.kernels.attention import flash_attention_packed as jax_packed
 from vit_tpu.kernels import ln_matmul as jax_lnmm
 from vit_tpu.kernels.convnext_block import \
     frozen_convnext_block_tail as jax_tail
-from vit_tpu_torch.bench_kernels import (exact_attention_fwd,
+from vit_tpu.kernels import fc_grad as jax_fc
+from vit_tpu_torch.bench_kernels import (exact_attention_fwd, exact_fc_grad,
                                          exact_ln_matmul_fwd, exact_tail_bwd,
-                                         exact_tail_fwd,
+                                         exact_tail_fwd, two_part_fc_grad,
                                          two_part_ln_matmul_fwd,
                                          two_part_tail_bwd, two_part_tail_fwd,
                                          two_parts)
 from vit_tpu_torch.kernels import attention as k_attn
 from vit_tpu_torch.kernels import convnext_block as k_cnx
+from vit_tpu_torch.kernels import fc_grad as k_fc
 from vit_tpu_torch.kernels import ln_matmul as k_lnmm
 from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu
 
@@ -60,6 +66,7 @@ K4_F32_MEAN_REL = SIMT_F32_MEAN_REL["K4"]
 F32_TAIL_MEAN_REL = smoke_constant("F32_TAIL_MEAN_REL")
 F32_TAIL_BWD_MEAN_REL = smoke_constant("F32_TAIL_BWD_MEAN_REL")
 F32_LNMM_MEAN_REL = smoke_constant("F32_LNMM_MEAN_REL")
+F32_FCGRAD_MEAN_REL = smoke_constant("F32_FCGRAD_MEAN_REL")
 # (A part, B part) of the six products, small terms first (hopper.cuh)
 TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
@@ -560,3 +567,99 @@ def test_two_part_ln_matmul_control_exceeds_the_mean_limit(c, act):
     x, w, b, gelu = _lnmm_case(c, act)
     assert _rel(two_part_ln_matmul_fwd(x, w, b, gelu)[0],
                 exact_ln_matmul_fwd(x, w, b, gelu)[0])[1] > F32_LNMM_MEAN_REL
+
+
+def _split_fc_grad(g, x, splits, atom=32, sets=8):
+    """K10 fp32's arithmetic (csrc/fc_grad.cu: fc_grad_split_kernel, kParts
+    = 3) in plain torch on g (N, F_out), x (N, F_in): N cut into ``splits``
+    parts of whole 32-row atoms; in each part every atom's six products of
+    the three bf16 parts of gᵀ and x, small terms first, in a fresh fp32
+    accumulator added to the part's sum; db from the fp32 g, each of the 8
+    row sets of an atom (rows ≡ r mod 8) summed in row order over the
+    part's atoms, then the sets in order; the parts' partials added in
+    order (sum_splits)."""
+    pg, px = k_attn.split3(g), k_attn.split3(x)
+    n, per = g.shape[0], -(-(-(-g.shape[0] // atom)) // splits) * atom
+    dw = db = None
+    for r0 in range(0, splits * per, per):
+        part = torch.zeros(g.shape[1], x.shape[1])
+        acc = torch.zeros(sets, g.shape[1])
+        for a0 in range(r0, min(r0 + per, n), atom):
+            rows = slice(a0, min(a0 + atom, n))
+            tile = torch.zeros_like(part)
+            for i, j in TERMS:
+                tile = tile + pg[i][rows].float().t() @ px[j][rows].float()
+            part = part + tile
+            for k in range(0, atom, sets):
+                for r in range(sets):
+                    if a0 + k + r < n:
+                        acc[r] = acc[r] + g[a0 + k + r]
+        pdb = acc[0]
+        for r in range(1, sets):
+            pdb = pdb + acc[r]
+        dw = part if dw is None else dw + part
+        db = pdb if db is None else db + pdb
+    return dw, db
+
+
+def _fc_case(fo, fi, n=1001):
+    """fp32 g (N, F_out) and x (N, F_in), N ragged against the 32-row atoms
+    (1001 = 31 · 32 + 9), and the split count the wrapper takes for them
+    on 132 SMs."""
+    rng = np.random.default_rng(fo + fi)
+    g = torch.from_numpy(rng.normal(size=(n, fo)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n, fi)).astype(np.float32))
+    return g, x, k_fc.splits_f32(n, (fo // 128) * (fi // 128), 132)
+
+
+@pytest.mark.parametrize("fo, fi", [(128, 512), (512, 128)])
+def test_split_product_fc_grad_matches_jax(fo, fi):
+    """K10 fp32's emulation, at an fc2-like (g narrower than x) and an
+    fc1-like shape with a ragged N, against the JAX package's fp32
+    ``matmul_dw_db`` (interpret mode, db over g) within 1e-5 of max and
+    mean |JAX|; as chip_smoke.py holds the kernel, against the port's plain
+    K10 within FP32_REL and against the float64 dW within
+    F32_FCGRAD_MEAN_REL of mean |exact|."""
+    g, x, splits = _fc_case(fo, fi)
+    assert splits > 1
+    dw, db = _split_fc_grad(g, x, splits)
+    dw_j, db_j = (torch.from_numpy(np.array(t)) for t in jax_fc.matmul_dw_db(
+        jnp.asarray(g.numpy()), jnp.asarray(x.numpy()), db_operand=0))
+    for out, ref in ((dw, dw_j), (db, db_j), *zip((dw, db),
+                                                  k_fc.matmul_dw_db_ref(g, x))):
+        max_rel, mean_rel = _rel(out, ref)
+        assert max_rel <= FP32_REL and mean_rel <= FP32_REL, (max_rel, mean_rel)
+    exact = exact_fc_grad(g, x)
+    assert _rel(dw, exact[0])[1] <= F32_FCGRAD_MEAN_REL
+    assert _rel(db, exact[1])[1] <= FP32_REL
+
+
+@pytest.mark.parametrize("fo, fi", [(128, 512), (512, 128)])
+def test_two_part_fc_grad_control_exceeds_the_mean_limit(fo, fi):
+    """K10 with g and x rounded to two bf16 parts
+    (``bench_kernels.two_part_fc_grad``) misses the float64 dW by more
+    than F32_FCGRAD_MEAN_REL of mean |exact|, so that limit tells a split
+    that lost its third part from K10 fp32; the emulation with two parts
+    a product (i + j <= 1, what a kernel that dropped a part computes)
+    misses it too."""
+    g, x, splits = _fc_case(fo, fi)
+    exact = exact_fc_grad(g, x)[0]
+    assert _rel(two_part_fc_grad(g, x)[0], exact)[1] > F32_FCGRAD_MEAN_REL
+    pg, px = (k_attn.split3(t) for t in (g, x))
+    two = sum(pg[i].float().t() @ px[j].float() for i, j in TERMS if i + j <= 1)
+    assert _rel(two, exact)[1] > F32_FCGRAD_MEAN_REL
+
+
+def test_fc_grad_f32_splits_fill_whole_waves():
+    """The fp32 form's split count (``kernels/fc_grad.py:splits_f32``): a
+    block holds an SM, so at the flagship's 144 dW tiles on 132 SMs it
+    cuts N into 11 parts, 1584 blocks in 12 full waves; never more parts
+    than one per 8 atoms of N, nor more than 16; 1 where the tiles alone
+    fill the waves."""
+    assert k_fc.splits_f32(20480, 144, 132) == 11
+    assert k_fc.splits_f32(20481, 144, 132) == 11
+    assert k_fc.splits_f32(777, 144, 132) <= 4
+    assert k_fc.splits_f32(100, 144, 132) == 1
+    assert k_fc.splits_f32(20480, 264, 132) == 1
+    assert all(k_fc.splits_f32(n, t, 132) <= 16
+               for n in (64, 5000, 10 ** 6) for t in (1, 7, 144, 500))

@@ -222,8 +222,10 @@ def time_queue() -> dict:
     also as 20 back-to-back calls, in its serving form (no residuals) and
     beside ``F.linear`` on x̂ ("K9a qkv dev", "K9a fp32 fc1 x20", "K9a qkv
     serving dev", "K9a fc1 lib dev", ...); K9b and K10 at
-    :func:`time_kernels`' shapes ("K9b dev", "K10 fp32 dev", ...), and K5
-    ("K5 dev")."""
+    :func:`time_kernels`' shapes ("K9b dev", "K10 fp32 dev", ...), K10 also
+    as 20 back-to-back calls, at fc1 (g 3072 wide, x 768) and beside
+    ``torch.mm`` for dW alone ("K10 fp32 x20", "K10 fp32 fc1 dev", "K10
+    fp32 lib dev"), and K5 ("K5 dev")."""
     import torch
     import torch.nn.functional as F
 
@@ -260,6 +262,9 @@ def time_queue() -> dict:
             lambda: k_lnmm.ln_matmul_dgelu(zpre, dz))
         g, x3 = r(N_ROWS, 768).to(dt), r(N_ROWS, 3072).to(dt)
         ms[f"K10{tag} dev"] = device_ms(lambda: k_fc.matmul_dw_db(g, x3))
+        ms[f"K10{tag} x20"] = batched_ms(lambda: k_fc.matmul_dw_db(g, x3))
+        ms[f"K10{tag} fc1 dev"] = device_ms(lambda: k_fc.matmul_dw_db(x3, g))
+        ms[f"K10{tag} lib dev"] = device_ms(lambda: torch.mm(g.t(), x3))
         del x, xhat, zpre, dz, g, x3
         torch.cuda.empty_cache()
     z = r(8 * 256, 12)
@@ -746,6 +751,22 @@ def two_part_ln_matmul_fwd(x, w, b=None, gelu: bool = False):
     if b is not None:
         acc = acc + b
     return (tanh_erf_gelu(acc) if gelu else acc), acc
+
+
+def exact_fc_grad(g, x):
+    """K10's function (``kernels/fc_grad.py:matmul_dw_db_ref``) in float64
+    on the same fp32 g (N, F_out) and x (N, F_in): (dW, db), the reference
+    of the fp32 form's mean limit."""
+    gd = g.double()
+    return gd.t() @ x.double(), gd.sum(0)
+
+
+def two_part_fc_grad(g, x):
+    """The plain fp32 K10 with g and x rounded to two bf16 parts
+    (:func:`two_parts`): what a split K10 fp32 that lost its third part
+    reads, the control of its mean limit. (dW, db) in fp32; db from g
+    itself, as the kernel sums it."""
+    return two_parts(g).t() @ two_parts(x), g.sum(0)
 
 
 def mean_rel(out, ref) -> float:

@@ -31,11 +31,11 @@
 // chunk, and a row of z does not fit on chip (64 x 1536 fp32 is 393 KB at
 // C 384). So each block makes two passes over 4C: the first computes z
 // (and da) chunk by chunk and keeps only the row absmax of gelu(z) (of dz);
-// the second recomputes them with the same instructions, quantizes with the
-// now known scale and accumulates the second product. The first product is
-// recomputed, at the int8 rate: 3 products forward and 5 backward where the
-// TPU kernel does 2 and 3. The scales of u and do (absmax over C) are known
-// up front.
+// the second quantizes with the now known scale and accumulates the second
+// product. K12a recomputes z in its second pass with the same
+// instructions, at the int8 rate (3 products where the TPU kernel does 2);
+// K12b stores dz in its first pass and reads it back (3 products, as the
+// TPU kernel). The scales of u and do (absmax over C) are known up front.
 //
 // K12a is built as K3 is (convnext_tail.cu, hopper.cuh): one thread of a
 // producer warp TMA-loads W1q and W2q chunk tiles (128 of the 4C columns;
@@ -57,15 +57,36 @@
 // end. The fp32-row entry runs the same kernel with the row type as a
 // template parameter.
 //
-// K12b keeps its first design: every product mma.sync m16n8k32 from
-// shared memory filled by synchronous 16-byte loads, a 64 x C int32
-// accumulator in the registers of 8 warps (4 row groups x 2 column halves).
+// K12b is built on the same machinery, with its own producer and four
+// products: z = uq·W1qᵀ and da = doq·W2ᵀqᵀ in pass 1, du += dzq·W1ᵀqᵀ in
+// pass 2, all K-major (the wrapper hands W2ᵀq and W1ᵀq over as (n, k)
+// operands, so no transposed copy is made). The ring streams units of kCb
+// 64-row boxes: each chunk's W1q and W2ᵀq tiles as two 64-row halves in
+// pass 1, its W1ᵀq tile as two runs of its 64-row boxes of C in pass 2; at
+// C 384 whole tiles (49 KB each) beside uq, doq and the exchange tiles
+// would leave room for two, six units of 24 KB keep the next loading
+// while one is read. One producer thread of a producer warpgroup streams
+// them (setmaxnreg 24), four consumer warpgroups on 64 rows take 112
+// registers (du, 64 x C int32, is 48 of them at C 384, beside z and da).
+// Pass 1 forms dz = da⊙gelu′(z) chunk by chunk, keeps each row's absmax
+// over every element (gelu′ is not monotone, so K12a's two candidates do
+// not apply) and stores dz in fp32 scratch of the call, each thread its
+// own 64 bytes a chunk; pass 2 reads it back, so its levels come from the
+// very values the scale was taken from. Measured on an H100 against forming
+// dz again in pass 2 (two more products and the rescale and gelu′ of every
+// element, the first design), the round trip through device memory (77 MB
+// at C 384, 308 MB at C 96, written and read once) was faster at every
+// width (PERF.md §6). The levels are taken as K12a's, dzq passes through a
+// swizzled exchange tile as aq does, and the LayerNorm backward runs once
+// at the end, its two row sums combined over the warpgroups in shared
+// memory.
 //
 // What bounds them: 2·2·C·4C int8 operations per row forward (3 products
-// backward) against 3·C·2 bytes of rows; the (N, 4C) intermediate never
-// reaches device memory. At ConvNeXt-S's widths the rows' bytes bound K12a
+// backward) against 3·C·2 bytes of rows; K12a's (N, 4C) intermediate never
+// reaches device memory (K12b's dz does, once each way). At ConvNeXt-S's widths the rows' bytes bound K12a
 // at C 96 and 192, its operations at C 384. Every block reads the int8
-// weights from L2: W1q twice and W2q once (K12a), per 64 or 128 rows.
+// weights from L2: W1q twice and W2q once (K12a), W1q, W2ᵀq and W1ᵀq once
+// (K12b), per 64 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,159 +101,11 @@ namespace {
 
 using namespace vit;
 
-constexpr int kRows = 64;      // rows per block
-constexpr int kChunk = 64;     // 4C columns per streamed chunk
-constexpr int kWarps = 8;
-constexpr int kBlock = kWarps * 32;
-constexpr int kChunkPitch = kChunk + 16;   // bytes; 20 words: no bank conflicts
 constexpr float kInv127 = 1.0f / 127.0f;
-
-template <int C>
-__host__ __device__ constexpr int pitch() { return C + 16; }  // bytes of an int8 row
-
-template <typename T>
-__device__ __forceinline__ float bf(const T* p, int i) {
-  return to_f(p[i]);
-}
 
 __device__ __forceinline__ int quantize(float v, float s) {
   return static_cast<int>(fminf(fmaxf(rintf(v / s), -127.0f), 127.0f));
 }
-
-// Rows [r0, r0 + n) of a row-major int8 (·, kCols) matrix into shared memory
-// with pitch kCols + 16; 16-byte copies.
-template <int kCols>
-__device__ __forceinline__ void load_rows(int8_t* sm, const int8_t* src, int r0,
-                                          int n) {
-  for (int i = threadIdx.x; i < n * (kCols / 16); i += kBlock) {
-    const int r = i / (kCols / 16);
-    const int c = (i % (kCols / 16)) * 16;
-    *reinterpret_cast<uint4*>(sm + r * (kCols + 16) + c) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * kCols + c);
-  }
-}
-
-// Columns [c0, c0 + kChunk) of every one of `rows` rows of a row-major int8
-// (rows, stride) matrix into shared memory with pitch kChunkPitch.
-__device__ __forceinline__ void load_cols(int8_t* sm, const int8_t* src,
-                                          int rows, int stride, int c0) {
-  for (int i = threadIdx.x; i < rows * (kChunk / 16); i += kBlock) {
-    const int r = i / (kChunk / 16);
-    const int c = (i % (kChunk / 16)) * 16;
-    *reinterpret_cast<uint4*>(sm + r * kChunkPitch + c) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * stride + c0 + c);
-  }
-}
-
-// The values v[j] (column lane + 32j) of one row, held by a warp: their
-// per-row int8 quantization into dst and the scale into *scale.
-template <int C>
-__device__ __forceinline__ void quantize_row(const float (&v)[C / 32],
-                                             int8_t* dst, float* scale,
-                                             int lane) {
-  float amax = 0.0f;
-#pragma unroll
-  for (int j = 0; j < C / 32; ++j) amax = fmaxf(amax, fabsf(v[j]));
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float s = fmaxf(amax, 1e-8f) * kInv127;
-#pragma unroll
-  for (int j = 0; j < C / 32; ++j)
-    dst[lane + 32 * j] = static_cast<int8_t>(quantize(v[j], s));
-  if (lane == 0) *scale = s;
-}
-
-// LayerNorm of the block's rows (two-pass fp32 statistics), u = û·lns + lnb
-// in fp32, quantized per row into sU with its scale in sUs. Rows at or past
-// N read as zeros (u = lnb: finite, never stored).
-template <int C, typename T>
-__device__ __forceinline__ void ln_quant_rows(int8_t* sU, float* sUs,
-                                              float* sMu, float* sRstd,
-                                              const T* __restrict__ h,
-                                              const T* __restrict__ lns,
-                                              const T* __restrict__ lnb,
-                                              int r0, int N, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int row = r0 + r;
-    const T* hr = h + static_cast<size_t>(row) * C;
-    float v[C / 32];
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < C / 32; ++j) {
-      v[j] = row < N ? bf(hr, lane + 32 * j) : 0.0f;
-      sum += v[j];
-    }
-    const float mu = warp_sum(sum) / C;
-    float sq = 0.0f;
-#pragma unroll
-    for (int j = 0; j < C / 32; ++j) {
-      v[j] -= mu;
-      sq += v[j] * v[j];
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / C + eps);
-#pragma unroll
-    for (int j = 0; j < C / 32; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = v[j] * rstd * bf(lns, c) + bf(lnb, c);
-    }
-    quantize_row<C>(v, sU + r * pitch<C>(), sUs + r, lane);
-    if (lane == 0 && sMu != nullptr) {
-      sMu[r] = mu;
-      sRstd[r] = rstd;
-    }
-  }
-}
-
-// acc (16 x 8·NT) += rows [0, 16) of the int8 tile `a` (pitch pa bytes)
-// times Bt rows n0 .. n0 + 8·NT of `bt` (pitch pb bytes), over k < K.
-template <int K, int NT>
-__device__ __forceinline__ void product(int (&acc)[NT][4], const int8_t* a,
-                                        int pa, const int8_t* bt, int pb,
-                                        int n0, int g, int t) {
-#pragma unroll 4
-  for (int ks = 0; ks < K / 32; ++ks) {
-    const int8_t* ar = a + ks * 32 + 4 * t;
-    const uint32_t af[4] = {ld32(ar + g * pa), ld32(ar + (g + 8) * pa),
-                            ld32(ar + g * pa + 16), ld32(ar + (g + 8) * pa + 16)};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int8_t* r = bt + (n0 + nt * 8 + g) * pb + ks * 32 + 4 * t;
-      mma_s8_16832(acc[nt], af, ld32(r), ld32(r + 16));
-    }
-  }
-}
-
-// The largest |v| of rows g and g + 8 of a warp's 16-row group, over its
-// four lanes t, into sMax[ch][row]: a column half's share of the row absmax.
-__device__ __forceinline__ void store_row_max(float (&m)[2], float* sMax,
-                                              int ch, int rg, int g, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-    if (t == 0) sMax[ch * kRows + rg * 16 + g + 8 * r] = m[r];
-  }
-}
-
-// z = (uq·W1q)·su·s1 + b1 for the warp's 16 rows and 32 columns of the
-// chunk at f0: the int32 tile z and its fp32 value at (j, e) of row r.
-template <int C>
-struct ZTile {
-  int acc[4][4];
-  __device__ __forceinline__ void compute(const int8_t* sU, const int8_t* sW1,
-                                          int rg, int ch, int g, int t) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-    product<C, 4>(acc, sU + rg * 16 * pitch<C>(), pitch<C>(), sW1, pitch<C>(),
-                  ch * 32, g, t);
-  }
-  __device__ __forceinline__ float value(int j, int r, int e, float su,
-                                         float s1, float b1) const {
-    return static_cast<float>(acc[j][2 * r + e]) * su * s1 + b1;
-  }
-};
 
 // ---- K12a on the tensor cores: int8 wgmma fed by a TMA ring -------------
 
@@ -331,18 +204,53 @@ __device__ __forceinline__ uint32_t near_half(float t) {
   return fabsf(t - rintf(t)) > 0.49996f;
 }
 
+// The per-row int8 quantization of a warp's row v (lane's columns lane +
+// 32j) whose absmax over the lanes is amax: the levels into row r of the
+// swizzled region q ([C/128 atoms][64 rows][128 B]), the scale into *s_out.
+// Levels without a division but where one lies near a half-integer.
+template <int kV>
+__device__ __forceinline__ void quant_row(const float (&v)[kV], float amax,
+                                          uint8_t* q, float* s_out, int r,
+                                          int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float s = fmaxf(amax, 1e-8f) * kInv127, inv = __frcp_rn(s);
+  int l[kV];
+  uint32_t flags = 0;
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    const float t = v[j] * inv;
+    l[j] = level(t);
+    flags |= near_half(t) << j;
+  }
+  if (flags) {
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      if (flags >> j & 1) l[j] = quantize(v[j], s);
+  }
+#pragma unroll
+  for (int j = 0; j < kV; ++j)
+    reinterpret_cast<int8_t*>(q)[sw8(r, lane + 32 * j, kRows)] =
+        static_cast<int8_t>(l[j]);
+  if (lane == 0) *s_out = s;
+}
+
 // LayerNorm of the block's rows (two-pass fp32 statistics), u = û·lns +
 // lnb with the plain version's roundings, quantized per row into the
-// swizzled uq region with its scale in su. A warp takes 4 rows, all of
-// them read before any is reduced; rows at or past N read as zeros (u =
-// lnb: finite, never stored). uq's columns past C are never read (z takes
-// C/32 k32 steps).
+// swizzled uq region with its scale in su (and, where mu is not null, the
+// row's mean and 1/σ into mu and rstd). A warp takes 4 rows, all of them
+// read before any is reduced; rows at or past N read as zeros (u = lnb:
+// finite, never stored). uq's columns past C are never read (z takes C/32
+// k32 steps).
 template <int C, typename T>
 __device__ __forceinline__ void ln_quant(uint8_t* uq, float* su,
                                          const T* __restrict__ h,
                                          const T* __restrict__ lns,
                                          const T* __restrict__ lnb, int r0,
-                                         int N, float eps) {
+                                         int N, float eps,
+                                         float* mu_out = nullptr,
+                                         float* rstd_out = nullptr) {
   constexpr int kPer = kRows / (kConsumers / 32), kV = C / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float v[kPer][kV];
@@ -379,28 +287,11 @@ __device__ __forceinline__ void ln_quant(uint8_t* uq, float* su,
       v[i][j] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][j], rstd), sc[j]), bi[j]);
       amax = fmaxf(amax, fabsf(v[i][j]));
     }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float s = fmaxf(amax, 1e-8f) * kInv127, inv = __frcp_rn(s);
-    int q[kV];
-    uint32_t flags = 0;
-#pragma unroll
-    for (int j = 0; j < kV; ++j) {
-      const float t = v[i][j] * inv;
-      q[j] = level(t);
-      flags |= near_half(t) << j;
+    quant_row<kV>(v[i], amax, uq, su + r, r, lane);
+    if (mu_out != nullptr && lane == 0) {
+      mu_out[r] = mu;
+      rstd_out[r] = rstd;
     }
-    if (flags) {
-#pragma unroll
-      for (int j = 0; j < kV; ++j)
-        if (flags >> j & 1) q[j] = quantize(v[i][j], s);
-    }
-#pragma unroll
-    for (int j = 0; j < kV; ++j)
-      reinterpret_cast<int8_t*>(uq)[sw8(r, lane + 32 * j, kRows)] =
-          static_cast<int8_t>(q[j]);
-    if (lane == 0) su[r] = s;
   }
 }
 
@@ -679,175 +570,432 @@ convnext_tail_fwd_q8_kernel(const __grid_constant__ CUtensorMap tw1,
 
 }  // namespace fwd
 
+// ---- K12b on the same machinery: five int8 products, two passes ---------
+
+namespace bwd {
+
+using namespace vit::hopper;
+using fwd::kChunk;
+using fwd::kConsumers;
+using fwd::kGroups;
+using fwd::kRows;
+using fwd::kSmemLimit;
+
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kSmall = 6144;  // the ring's barriers, then the row vectors
+
+// The backward's tiling at width C: 64 rows a block; warpgroup wg takes
+// columns 32·wg .. 32·wg + 31 of each chunk's z and da (so dz) and the
+// 32-column pieces wg, wg + 4, ... of du; dzq passes through a shared
+// exchange tile. The ring streams units of kCb 64-row boxes: a chunk's
+// W1q and W2ᵀq tiles (its 128 rows of 4C, all of C) are two units each,
+// its W1ᵀq tile (all C rows, its 128 columns of 4C) two more. At C 384
+// six units fit beside uq, doq and the exchange tiles (two whole chunk
+// tiles would be all), so the next units load while a chunk's are read.
 template <int C>
-constexpr size_t bwd_smem_bytes() {
-  return 2 * kRows * pitch<C>() + 2 * kChunk * pitch<C>() + C * kChunkPitch +
-         kRows * kChunkPitch + sizeof(float) * 11 * kRows;
+struct Bwd {
+  static constexpr int kCb = (C + 127) / 128;    // 128-byte atoms of a row of C
+  static constexpr int kKSteps = C / 32;         // k32 steps of z and da
+  static constexpr int kPieces = C / 32;         // 32-column pieces of du
+  static constexpr int kOwn = (kPieces + kGroups - 1) / kGroups;
+  static constexpr int kBoxes = (C + 63) / 64;   // 64-row boxes of W1ᵀq
+  static constexpr int kChunks = 4 * C / kChunk;
+  static constexpr int kUnit = kCb * static_cast<int>(kTileBytes);
+  // Byte offsets: uq and doq [atom][64 rows][128 B], two exchange tiles,
+  // the ring, the small region
+  static constexpr int kAct = kCb * kRows * 128;
+  static constexpr int kExch = 2 * kAct;
+  static constexpr int kW = kExch + 2 * static_cast<int>(kTileBytes);
+  static constexpr int kFit = (kSmemLimit - kW - kSmall) / kUnit;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kRing = kW + kStages * kUnit;
+  static constexpr int kScales = kRing + 256;
+  static constexpr int kBytes = kRing + kSmall + 1024;
+  static_assert(C % 32 == 0 && C <= 384 && (4 * C) % kChunk == 0, "C");
+  static_assert(kBoxes <= 2 * kCb, "a W1ᵀq tile in two units");
+  static_assert(kStages >= 4, "a chunk's W1q and W2ᵀq units in the ring");
+  static_assert(sizeof(Ring<kStages>) <= 256, "the ring's barriers");
+  static_assert(256 + (4 + 3 * kGroups) * kRows * 4 <= kSmall, "row vectors");
+};
+
+// The producer: each chunk's W1q and W2ᵀq units in pass 1, then its W1ᵀq
+// units in pass 2, each as soon as its stage is free. A
+// W1q or W2ᵀq unit is a 64-row half of the chunk's tile (kCb boxes of 128
+// columns of C, zeros past C); a W1ᵀq unit kCb of the tile's 64-row boxes
+// of C (the second holds one at C 192).
+template <int C>
+__device__ __forceinline__ void produce(uint8_t* sm, const CUtensorMap* tw1,
+                                        const CUtensorMap* tw2t,
+                                        const CUtensorMap* tw1t) {
+  using L = Bwd<C>;
+  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+  int i = 0;
+  for (int pass = 0; pass < 2; ++pass)
+    for (int j = 0; j < L::kChunks; ++j)
+      for (int w = 2 * pass; w < 2 + pass; ++w)
+        for (int u = 0; u < 2; ++u, ++i) {
+          const int st = ring.stage(i);
+          uint8_t* dst = sm + L::kW + st * L::kUnit;
+          ring.wait_empty(i);
+          if (w < 2) {
+            mbar_arrive_expect_tx(&ring.full[st], L::kUnit);
+            for (int b = 0; b < L::kCb; ++b)
+              tma_load_2d(dst + b * kTileBytes, w ? tw2t : tw1, &ring.full[st],
+                          128 * b, j * kChunk + 64 * u);
+          } else {
+            const int b0 = u * L::kCb;
+            const int n = L::kBoxes - b0 < L::kCb ? L::kBoxes - b0 : L::kCb;
+            mbar_arrive_expect_tx(&ring.full[st], n * kTileBytes);
+            for (int b = 0; b < n; ++b)
+              tma_load_2d(dst + b * kTileBytes, tw1t, &ring.full[st],
+                          j * kChunk, 64 * (b0 + b));
+          }
+        }
 }
 
+// do = γ⊙dy of the block's rows in fp32 (the plain version's product),
+// quantized per row into the swizzled doq region with its scale in sd, as
+// ln_quant quantizes u; rows at or past N read as zeros (every level 0).
 template <int C, typename T>
-__global__ void __launch_bounds__(kBlock)
-convnext_tail_bwd_q8_kernel(const T* __restrict__ h, const T* __restrict__ dy,
-                            const T* __restrict__ lns,
-                            const T* __restrict__ lnb,
-                            const int8_t* __restrict__ w1q,
-                            const float* __restrict__ w1s,
-                            const int8_t* __restrict__ w2tq,
-                            const float* __restrict__ w2ts,
-                            const int8_t* __restrict__ w1tq,
-                            const float* __restrict__ w1ts,
-                            const T* __restrict__ b1,
-                            const T* __restrict__ gamma,
-                            T* __restrict__ dh, int N, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sU = reinterpret_cast<int8_t*>(smem);  // [64][C + 16]: uq
-  int8_t* sDO = sU + kRows * pitch<C>();          // [64][C + 16]: (γ⊙dy)q
-  int8_t* sW1 = sDO + kRows * pitch<C>();         // [64][C + 16]: W1q rows
-  int8_t* sW2 = sW1 + kChunk * pitch<C>();        // [64][C + 16]: W2ᵀq rows
-  int8_t* sW1c = sW2 + kChunk * pitch<C>();       // [C][80]: W1ᵀq columns
-  int8_t* sDZ = sW1c + C * kChunkPitch;           // [64][80]: dzq
-  float* sUs = reinterpret_cast<float*>(sDZ + kRows * kChunkPitch);
-  float* sDOs = sUs + kRows;
-  float* sMu = sDOs + kRows;
-  float* sRstd = sMu + kRows;
-  float* sDZs = sRstd + kRows;
-  float* sMax = sDZs + kRows;     // [2][64]
-  float* sSum1 = sMax + 2 * kRows;  // [2][64]: Σ dû per column half
-  float* sSum2 = sSum1 + 2 * kRows;  // [2][64]: Σ dû·û
-
-  const int r0 = blockIdx.x * kRows;
+__device__ __forceinline__ void do_quant(uint8_t* doq, float* sd,
+                                         const T* __restrict__ dy,
+                                         const T* __restrict__ gamma, int r0,
+                                         int N) {
+  constexpr int kPer = kRows / (kConsumers / 32), kV = C / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rg = warp & 3;
-  const int ch = warp >> 2;
-
-  ln_quant_rows<C, T>(sU, sUs, sMu, sRstd, h, lns, lnb, r0, N, eps);
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int row = r0 + r;
-    float v[C / 32];
+  float gm[kV];
 #pragma unroll
-    for (int j = 0; j < C / 32; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = row < N ? bf(dy + static_cast<size_t>(row) * C, c) * bf(gamma, c) : 0.0f;
-    }
-    quantize_row<C>(v, sDO + r * pitch<C>(), sDOs + r, lane);
+  for (int j = 0; j < kV; ++j) gm[j] = to_f(gamma[lane + 32 * j]);
+  float v[kPer][kV];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = r0 + warp * kPer + i;
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      v[i][j] = row < N ? __fmul_rn(to_f(dy[static_cast<size_t>(row) * C + lane + 32 * j]),
+                                    gm[j])
+                        : 0.0f;
   }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    float amax = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
+    const int r = warp * kPer + i;
+    fwd::quant_row<kV>(v[i], amax, doq, sd + r, r, lane);
+  }
+}
 
-  ZTile<C> z, da;
-  // dz at (j, r, e) of the warp's tile of the chunk at f0
-  auto dz_value = [&](int f0, int j, int r, int e) {
-    const int f = f0 + ch * 32 + j * 8 + 2 * t + e;
-    const int row = rg * 16 + g + 8 * r;
-    const float zf = z.value(j, r, e, sUs[row], w1s[f], bf(b1, f));
-    return da.value(j, r, e, sDOs[row], w2ts[f], 0.0f) * gelu_grad(zf);
+// The consumers: uq and doq, then one loop over the chunks twice. Pass 1
+// (it < kChunks) forms dz, keeps each row's largest |dz| and stores dz in
+// the scratch; pass 2 reads it back (the same values, so the scale and the
+// levels agree), takes its levels with the row scale, passes dzq through
+// exchange tile j % 2 and adds the warpgroup's pieces of du = dzq·W1ᵀq. A
+// warpgroup rewrites an exchange tile only after the barrier of chunk
+// j + 1, which the others pass after the products of chunk j that read
+// it. Then the LayerNorm backward, its two row sums combined over the
+// warpgroups in shared memory.
+template <int C, typename T>
+__device__ __forceinline__ void consume(uint8_t* sm, const T* __restrict__ h,
+                                        const T* __restrict__ dy,
+                                        const T* __restrict__ lns,
+                                        const T* __restrict__ lnb,
+                                        const float* __restrict__ w1s,
+                                        const float* __restrict__ w2ts,
+                                        const float* __restrict__ w1ts,
+                                        const T* __restrict__ b1,
+                                        const T* __restrict__ gamma,
+                                        T* __restrict__ dh,
+                                        float4* __restrict__ dzs, int N,
+                                        float eps) {
+  using L = Bwd<C>;
+  Ring<L::kStages>& ring = *reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing);
+  float* su = reinterpret_cast<float*>(sm + L::kScales);  // [64] u's scales
+  float* sd = su + kRows;                                 // [64] do's
+  float* smu = sd + kRows;                                // [64] means
+  float* srstd = smu + kRows;                             // [64] 1/σ
+  float* smax = srstd + kRows;                            // [4][64] |dz| maxima
+  float* ssum1 = smax + kGroups * kRows;                  // [4][64] Σ dû
+  float* ssum2 = ssum1 + kGroups * kRows;                 // [4][64] Σ dû·û
+  const int r0 = blockIdx.x * kRows;
+  fwd::ln_quant<C, T>(sm, su, h, lns, lnb, r0, N, eps, smu, srstd);
+  do_quant<C, T>(sm + L::kAct, sd, dy, gamma, r0, N);
+  fence_proxy_async();
+  named_barrier(1, kConsumers);
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int lrow = warp * 16 + g;  // block row of row half 0
+  const float su_r[2] = {su[lrow], su[lrow + 8]};
+  const float sd_r[2] = {sd[lrow], sd[lrow + 8]};
+  const uint32_t w_base = smem_u32(sm + L::kW);
+  auto unit = [&](int load) { return w_base + ring.stage(load) * L::kUnit; };
+  // acc (+)= A·Wᵀ over C: this warpgroup's 32 columns of a chunk, A the
+  // [atom][64][128 B] region at a, W's 64-row half wg / 2 in the unit at w
+  auto over_c = [&](int (&acc)[16], uint32_t a, uint32_t w) {
+#pragma unroll
+    for (int ks = 0; ks < L::kKSteps; ++ks)
+      wgmma_ss_s8_n32(acc, desc_k(a + (ks / 4) * kRows * 128 + (ks % 4) * 32),
+                      desc_k(w + (wg % 2) * 4096 + (ks / 4) * kTileBytes +
+                             (ks % 4) * 32),
+                      ks > 0);
   };
 
-  // Pass 1: the row absmax of dz = da⊙gelu′(z) over all 4C columns.
-  float amax[2] = {0.0f, 0.0f};
-  for (int f0 = 0; f0 < 4 * C; f0 += kChunk) {
-    __syncthreads();
-    load_rows<C>(sW1, w1q, f0, kChunk);
-    load_rows<C>(sW2, w2tq, f0, kChunk);
-    __syncthreads();
-    z.compute(sU, sW1, rg, ch, g, t);
-    da.compute(sDO, sW2, rg, ch, g, t);
+  // dz of this warpgroup's 32 columns of chunk j, from its W1q and W2ᵀq
+  // units at loads i0 .. i0 + 3: z = uq·W1qᵀ and da = doq·W2ᵀqᵀ, then
+  // dz = ((da·sd)·s2ᵀ)⊙gelu′((z·su)·s1 + b1) with the plain version's
+  // roundings; element e at row lrow + 8·(e / 2 % 2)
+  auto form_dz = [&](float (&dz)[16], int j, int i0) {
+    int z[16], d[16];
+    ring.wait_full(i0);
+    ring.wait_full(i0 + 1);
+    wgmma_fence();
+    over_c(z, opaque(smem_u32(sm)), unit(i0 + wg / 2));
+    wgmma_commit();
+    ring.wait_full(i0 + 2);
+    ring.wait_full(i0 + 3);
+    over_c(d, opaque(smem_u32(sm + L::kAct)), unit(i0 + 2 + wg / 2));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(z);
+    fence_regs(d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int k = 0; k < 4; ++k) ring.release(i0 + k);
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+    for (int j8 = 0; j8 < 4; ++j8) {
+      const int f = j * kChunk + wg * 32 + 8 * j8 + 2 * t;
+      const float2 sz = *reinterpret_cast<const float2*>(w1s + f);
+      const float2 sa = *reinterpret_cast<const float2*>(w2ts + f);
+      const float2 bz = load2(b1 + f);
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          amax[r] = fmaxf(amax[r], fabsf(dz_value(f0, j, r, e)));
-  }
-  store_row_max(amax, sMax, ch, rg, g, t);
-  __syncthreads();
-  if (threadIdx.x < kRows)
-    sDZs[threadIdx.x] =
-        fmaxf(fmaxf(sMax[threadIdx.x], sMax[kRows + threadIdx.x]), 1e-8f) * kInv127;
+      for (int e = 4 * j8; e < 4 * j8 + 4; ++e) {
+        const int r = (e / 2) % 2, c = e % 2;
+        const float zf = fwd::z_value(z[e], su_r[r], c ? sz.y : sz.x, c ? bz.y : bz.x);
+        const float da =
+            __fmul_rn(__fmul_rn(static_cast<float>(d[e]), sd_r[r]), c ? sa.y : sa.x);
+        dz[e] = __fmul_rn(da, gelu_grad(zf));
+      }
+    }
+  };
 
-  // Pass 2: recompute dz, quantize it with its row scale, du += dzq·W1ᵀq.
-  int du[C / 16][4];
+  float amax[2] = {0.0f, 0.0f}, sg[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+  int du[L::kOwn][16];
 #pragma unroll
-  for (int nt = 0; nt < C / 16; ++nt) du[nt][0] = du[nt][1] = du[nt][2] = du[nt][3] = 0;
-  for (int f0 = 0; f0 < 4 * C; f0 += kChunk) {
-    __syncthreads();
-    load_rows<C>(sW1, w1q, f0, kChunk);
-    load_rows<C>(sW2, w2tq, f0, kChunk);
-    load_cols(sW1c, w1tq, C, 4 * C, f0);
-    __syncthreads();
-    z.compute(sU, sW1, rg, ch, g, t);
-    da.compute(sDO, sW2, rg, ch, g, t);
+  for (int i = 0; i < L::kOwn; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int e = 0; e < 16; ++e) du[i][e] = 0;
+#pragma unroll 1
+  for (int it = 0; it < 2 * L::kChunks; ++it) {
+    const bool pass2 = it >= L::kChunks;
+    const int j = pass2 ? it - L::kChunks : it;
+    const int i0 = pass2 ? 4 * L::kChunks + 2 * j : 4 * j;
+    // this thread's 16 dz of chunk j in the scratch: its own 64 bytes,
+    // written in pass 1 and read back in pass 2
+    float4* mine = dzs + ((static_cast<size_t>(blockIdx.x) * L::kChunks + j) *
+                          kConsumers + threadIdx.x) * 4;
+    if (it == L::kChunks) {  // dz's row scales from pass 1's maxima
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = rg * 16 + g + 8 * r;
-        const float s = sDZs[row];
-        char2 q;
-        q.x = static_cast<signed char>(quantize(dz_value(f0, j, r, 0), s));
-        q.y = static_cast<signed char>(quantize(dz_value(f0, j, r, 1), s));
-        *reinterpret_cast<char2*>(sDZ + row * kChunkPitch + ch * 32 + j * 8 + 2 * t) = q;
+        float m = amax[r];
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        if (t == 0) smax[wg * kRows + lrow + 8 * r] = m;
       }
-    __syncthreads();
-    product<kChunk, C / 16>(du, sDZ + rg * 16 * kChunkPitch, kChunkPitch, sW1c,
-                            kChunkPitch, ch * (C / 2), g, t);
+      named_barrier(1, kConsumers);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m = smax[lrow + 8 * r];
+#pragma unroll
+        for (int k = 1; k < kGroups; ++k) m = fmaxf(m, smax[k * kRows + lrow + 8 * r]);
+        sg[r] = fmaxf(m, 1e-8f) * kInv127;
+        inv[r] = __frcp_rn(sg[r]);
+      }
+    }
+    float dz[16];
+    if (pass2) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 v = __ldcs(mine + k);
+        dz[4 * k] = v.x;
+        dz[4 * k + 1] = v.y;
+        dz[4 * k + 2] = v.z;
+        dz[4 * k + 3] = v.w;
+      }
+    } else {
+      form_dz(dz, j, i0);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        mine[k] = make_float4(dz[4 * k], dz[4 * k + 1], dz[4 * k + 2], dz[4 * k + 3]);
+    }
+    if (!pass2) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) amax[(e / 2) % 2] = fmaxf(amax[(e / 2) % 2], fabsf(dz[e]));
+      continue;
+    }
+    // every level at once, then the IEEE quotient where one lies near a
+    // half-integer
+    int q[16];
+    uint32_t flags = 0;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float ts = dz[e] * inv[(e / 2) % 2];
+      q[e] = fwd::level(ts);
+      flags |= fwd::near_half(ts) << e;
+    }
+    if (flags) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (flags >> e & 1) q[e] = quantize(dz[e], sg[(e / 2) % 2]);
+    }
+    uint8_t* xt = sm + L::kExch + (j & 1) * kTileBytes;
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) {
+      const uint16_t pair = static_cast<uint16_t>((q[e] & 0xff) | (q[e + 1] & 0xff) << 8);
+      *reinterpret_cast<uint16_t*>(
+          xt + fwd::sw8(lrow + 8 * ((e / 2) % 2), wg * 32 + (e / 4) * 8 + 2 * t, kRows)) = pair;
+    }
+    fence_proxy_async();
+    named_barrier(1, kConsumers);
+    // du += dzq·W1ᵀq: piece p is W1ᵀq's rows 32p .. 32p + 31, box p / 2
+    ring.wait_full(i0);
+    ring.wait_full(i0 + 1);
+    const uint32_t a = smem_u32(xt);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < L::kOwn; ++i) {
+      const int p = wg + kGroups * i;
+      if (p >= L::kPieces) continue;
+      const int b = p / 2;
+      const uint32_t w = unit(i0 + b / L::kCb) + (b % L::kCb) * kTileBytes + (p % 2) * 4096;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_s8_n32(du[i], desc_k(a + 32 * ks), desc_k(w + 32 * ks), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < L::kOwn; ++i) fence_regs(du[i]);
+    ring.release(i0);
+    ring.release(i0 + 1);
   }
 
-  // LN backward with dû = ((du·sg)·s1ᵀ)⊙lns: per-row sums of dû and dû·û
-  // through shuffles over the 4 lanes of a group and shared memory over the
-  // two column halves, as K4.
-  float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+  // The LayerNorm backward with dû = ((du·sg)·s1ᵀ)·lns and û = (h − μ)·
+  // rstd: dh = rstd·(dû − mean(dû) − û·mean(dû·û)), rows below N.
+  float mu[2], rs[2], s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int lr = rg * 16 + g + r * 8;
-    const int row = r0 + lr;
-    const float mu = sMu[lr], rstd = sRstd[lr], sg = sDZs[lr];
+    mu[r] = smu[lrow + 8 * r];
+    rs[r] = srstd[lrow + 8 * r];
+  }
+  auto dhat = [&](int i, int e, int col) {
+    return __fmul_rn(
+        __fmul_rn(__fmul_rn(static_cast<float>(du[i][e]), sg[(e / 2) % 2]), w1ts[col]),
+        to_f(lns[col]));
+  };
 #pragma unroll
-    for (int nt = 0; nt < C / 16; ++nt) {
+  for (int i = 0; i < L::kOwn; ++i) {
+    const int p = wg + kGroups * i;
+    if (p >= L::kPieces) continue;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = ch * (C / 2) + nt * 8 + 2 * t + e;
-        const float hv =
-            row < N ? to_f(h[static_cast<size_t>(row) * C + col]) : 0.0f;
-        const float uhat = (hv - mu) * rstd;
-        const float dhat =
-            static_cast<float>(du[nt][2 * r + e]) * sg * w1ts[col] * bf(lns, col);
-        s1[r] += dhat;
-        s2[r] += dhat * uhat;
+    for (int j8 = 0; j8 < 4; ++j8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + lrow + 8 * r, col = p * 32 + 8 * j8 + 2 * t;
+        const float2 hv = row < N ? load2(h + static_cast<size_t>(row) * C + col)
+                                  : make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dv = dhat(i, 4 * j8 + 2 * r + c, col + c);
+          const float uh = __fmul_rn(__fsub_rn(c ? hv.y : hv.x, mu[r]), rs[r]);
+          s1[r] += dv;
+          s2[r] += dv * uh;
+        }
       }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o < 4; o *= 2) {
+      s1[r] += __shfl_xor_sync(0xffffffffu, s1[r], o);
+      s2[r] += __shfl_xor_sync(0xffffffffu, s2[r], o);
     }
-    s1[r] += __shfl_xor_sync(0xffffffffu, s1[r], 1);
-    s1[r] += __shfl_xor_sync(0xffffffffu, s1[r], 2);
-    s2[r] += __shfl_xor_sync(0xffffffffu, s2[r], 1);
-    s2[r] += __shfl_xor_sync(0xffffffffu, s2[r], 2);
     if (t == 0) {
-      sSum1[ch * kRows + lr] = s1[r];
-      sSum2[ch * kRows + lr] = s2[r];
+      ssum1[wg * kRows + lrow + 8 * r] = s1[r];
+      ssum2[wg * kRows + lrow + 8 * r] = s2[r];
     }
   }
-  __syncthreads();
+  named_barrier(1, kConsumers);
+  float c1[2], c2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int lr = rg * 16 + g + r * 8;
-    const int row = r0 + lr;
-    if (row >= N) continue;
-    const float mu = sMu[lr], rstd = sRstd[lr], sg = sDZs[lr];
-    const float c1 = (sSum1[lr] + sSum1[kRows + lr]) / C;
-    const float c2 = (sSum2[lr] + sSum2[kRows + lr]) / C;
+    float a1 = ssum1[lrow + 8 * r], a2 = ssum2[lrow + 8 * r];
 #pragma unroll
-    for (int nt = 0; nt < C / 16; ++nt) {
-      const int col = ch * (C / 2) + nt * 8 + 2 * t;
-      const size_t i = static_cast<size_t>(row) * C + col;
-      const float2 hv = load2(h + i);
-      const float u0 = (hv.x - mu) * rstd;
-      const float u1 = (hv.y - mu) * rstd;
-      const float d0 = static_cast<float>(du[nt][2 * r]) * sg * w1ts[col] * bf(lns, col);
-      const float d1 =
-          static_cast<float>(du[nt][2 * r + 1]) * sg * w1ts[col + 1] * bf(lns, col + 1);
-      store2(dh + i, rstd * (d0 - c1 - u0 * c2), rstd * (d1 - c1 - u1 * c2));
+    for (int k = 1; k < kGroups; ++k) {
+      a1 += ssum1[k * kRows + lrow + 8 * r];
+      a2 += ssum2[k * kRows + lrow + 8 * r];
     }
+    c1[r] = a1 / C;
+    c2[r] = a2 / C;
+  }
+#pragma unroll
+  for (int i = 0; i < L::kOwn; ++i) {
+    const int p = wg + kGroups * i;
+    if (p >= L::kPieces) continue;
+#pragma unroll
+    for (int j8 = 0; j8 < 4; ++j8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + lrow + 8 * r, col = p * 32 + 8 * j8 + 2 * t;
+        if (row >= N) continue;
+        const size_t at = static_cast<size_t>(row) * C + col;
+        const float2 hv = load2(h + at);
+        float out[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dv = dhat(i, 4 * j8 + 2 * r + c, col + c);
+          const float uh = __fmul_rn(__fsub_rn(c ? hv.y : hv.x, mu[r]), rs[r]);
+          out[c] = __fmul_rn(rs[r], __fsub_rn(__fsub_rn(dv, c1[r]), __fmul_rn(uh, c2[r])));
+        }
+        store2(dh + at, out[0], out[1]);
+      }
   }
 }
+
+// K12b. The roles split once: the producer warpgroup gives registers up
+// and one of its threads streams the weights; the consumer warpgroups take
+// 112 registers a thread, for du (48 of them at C 384) beside z and da.
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+convnext_tail_bwd_q8_kernel(const __grid_constant__ CUtensorMap tw1,
+                            const __grid_constant__ CUtensorMap tw2t,
+                            const __grid_constant__ CUtensorMap tw1t,
+                            const T* __restrict__ h, const T* __restrict__ dy,
+                            const T* __restrict__ lns,
+                            const T* __restrict__ lnb,
+                            const float* __restrict__ w1s,
+                            const float* __restrict__ w2ts,
+                            const float* __restrict__ w1ts,
+                            const T* __restrict__ b1,
+                            const T* __restrict__ gamma, T* __restrict__ dh,
+                            float4* __restrict__ dzs, int N, float eps) {
+  using L = Bwd<C>;
+  uint8_t* sm = &aligned_smem<uint8_t>();
+  if (threadIdx.x == 0) {
+    reinterpret_cast<Ring<L::kStages>*>(sm + L::kRing)->init(1, kConsumers / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) produce<C>(sm, &tw1, &tw2t, &tw1t);
+  } else {
+    setmaxnreg_inc<112>();
+    consume<C, T>(sm, h, dy, lns, lnb, w1s, w2ts, w1ts, b1, gamma, dh,
+                           dzs, N, eps);
+  }
+}
+
+}  // namespace bwd
 
 template <int C, typename T>
 int launch_fwd(const void* h, const void* x, const void* lns, const void* lnb,
@@ -878,24 +1026,29 @@ template <int C, typename T>
 int launch_bwd(const void* h, const void* dy, const void* lns, const void* lnb,
                const void* w1q, const void* w1s, const void* w2tq,
                const void* w2ts, const void* w1tq, const void* w1ts,
-               const void* b1, const void* gamma, void* dh, int N, float eps,
-               cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(
-      convnext_tail_bwd_q8_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  convnext_tail_bwd_q8_kernel<C, T><<<(N + kRows - 1) / kRows, kBlock, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(dy),
-      static_cast<const T*>(lns), static_cast<const T*>(lnb),
-      static_cast<const int8_t*>(w1q), static_cast<const float*>(w1s),
-      static_cast<const int8_t*>(w2tq), static_cast<const float*>(w2ts),
-      static_cast<const int8_t*>(w1tq), static_cast<const float*>(w1ts),
-      static_cast<const T*>(b1), static_cast<const T*>(gamma),
-      static_cast<T*>(dh), N, eps);
+               const void* b1, const void* gamma, void* dh, void* dz, int N,
+               float eps, cudaStream_t stream) {
+  using L = bwd::Bwd<C>;
+  if (dz == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tw1, tw2t, tw1t;
+  int err = hopper::byte_matrix_map(&tw1, w1q, 4 * C, C);
+  if (!err) err = hopper::byte_matrix_map(&tw2t, w2tq, 4 * C, C);
+  if (!err) err = hopper::byte_matrix_map(&tw1t, w1tq, C, 4 * C);
+  if (err) return err;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      bwd::convnext_tail_bwd_q8_kernel<C, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes));
+  if (err) return err;
+  bwd::convnext_tail_bwd_q8_kernel<C, T>
+      <<<(N + fwd::kRows - 1) / fwd::kRows, bwd::kThreads, L::kBytes, stream>>>(
+          tw1, tw2t, tw1t, static_cast<const T*>(h), static_cast<const T*>(dy),
+          static_cast<const T*>(lns), static_cast<const T*>(lnb),
+          static_cast<const float*>(w1s), static_cast<const float*>(w2ts),
+          static_cast<const float*>(w1ts), static_cast<const T*>(b1),
+          static_cast<const T*>(gamma), static_cast<T*>(dh),
+          static_cast<float4*>(dz), N, eps);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 // The C entries' bodies for bf16 rows (convnext_tail_*_q8) and fp32 rows
 // (convnext_tail_*_q8_f32).
@@ -918,14 +1071,14 @@ template <typename T>
 int bwd_q8(const void* h, const void* dy, const void* lns, const void* lnb,
            const void* w1q, const void* w1s, const void* w2tq,
            const void* w2ts, const void* w1tq, const void* w1ts,
-           const void* b1, const void* gamma, void* dh, int N, int C,
-           float eps, void* stream) {
+           const void* b1, const void* gamma, void* dh, void* dz, int N,
+           int C, float eps, void* stream) {
   if (N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 96: return launch_bwd<96, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
-    case 192: return launch_bwd<192, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
-    case 384: return launch_bwd<384, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, N, eps, st);
+    case 96: return launch_bwd<96, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, dz, N, eps, st);
+    case 192: return launch_bwd<192, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, dz, N, eps, st);
+    case 384: return launch_bwd<384, T>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1, gamma, dh, dz, N, eps, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -939,6 +1092,16 @@ extern "C" int convnext_tail_fwd_q8_smem(int C) {
     case 96: return fwd::Fwd<96>::kBytes;
     case 192: return fwd::Fwd<192>::kBytes;
     case 384: return fwd::Fwd<384>::kBytes;
+    default: return 0;
+  }
+}
+
+// K12b's dynamic shared memory at width C, bytes, or 0 for another C.
+extern "C" int convnext_tail_bwd_q8_smem(int C) {
+  switch (C) {
+    case 96: return bwd::Bwd<96>::kBytes;
+    case 192: return bwd::Bwd<192>::kBytes;
+    case 384: return bwd::Bwd<384>::kBytes;
     default: return 0;
   }
 }
@@ -973,16 +1136,18 @@ extern "C" int convnext_tail_fwd_q8_f32(const void* h, const void* x,
 
 // h, dy, dh: (N, C) bf16; lns, lnb, gamma: (C,) bf16; b1: (4C,) bf16; int8
 // operands with fp32 scales: w1q (4C, C) / w1s (4C,), w2tq (4C, C) / w2ts
-// (4C,), w1tq (C, 4C) / w1ts (C,). C in {96, 192, 384}.
+// (4C,), w1tq (C, 4C) / w1ts (C,); dz fp32 scratch of ceil(N / 64)·64·4C
+// values. All contiguous and 16-byte aligned. C in {96, 192, 384}. Returns
+// as convnext_tail_fwd_q8 (cudaErrorInvalidValue for a null dz).
 extern "C" int convnext_tail_bwd_q8(const void* h, const void* dy, const void* lns,
                                     const void* lnb, const void* w1q,
                                     const void* w1s, const void* w2tq,
                                     const void* w2ts, const void* w1tq,
                                     const void* w1ts, const void* b1,
-                                    const void* gamma, void* dh, int N, int C,
-                                    float eps, void* stream) {
+                                    const void* gamma, void* dh, void* dz,
+                                    int N, int C, float eps, void* stream) {
   return bwd_q8<bf16>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1,
-                      gamma, dh, N, C, eps, stream);
+                      gamma, dh, dz, N, C, eps, stream);
 }
 
 // The fp32-row form: h, dy, dh and lns, lnb, b1, gamma fp32; the int8
@@ -993,8 +1158,8 @@ extern "C" int convnext_tail_bwd_q8_f32(const void* h, const void* dy,
                                         const void* w2tq, const void* w2ts,
                                         const void* w1tq, const void* w1ts,
                                         const void* b1, const void* gamma,
-                                        void* dh, int N, int C, float eps,
-                                        void* stream) {
+                                        void* dh, void* dz, int N, int C,
+                                        float eps, void* stream) {
   return bwd_q8<float>(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts, b1,
-                       gamma, dh, N, C, eps, stream);
+                       gamma, dh, dz, N, C, eps, stream);
 }

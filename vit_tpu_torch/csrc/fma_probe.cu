@@ -11,8 +11,8 @@
 // one MAC. The accumulators live in registers.
 //
 // On the H100 it measures the CUDA cores' fp32 (and bf16) FMA issue rate:
-// the ceiling of the port's fp32 kernel forms (simt_f32.cuh) and of every
-// kernel whose work the tensor cores cannot take. The TPU's (64, 128)
+// the ceiling of every kernel whose work the tensor cores cannot take (the
+// fp32 rows of K9b, K9c, K11, and K5). The TPU's (64, 128)
 // single block was one core's vector registers; the function is
 // elementwise, so the H100 form's default shape fills the card instead:
 // 132 SMs x 2,048 resident threads (64 warps of 32, the SM's limit), one

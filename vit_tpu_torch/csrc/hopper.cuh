@@ -1,13 +1,14 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads and stores (cp.async.bulk.tensor), warpgroup products
 // (wgmma.mma_async m64n64k16, m64n32k16, and m64n128k16 / m64n256k16 for
-// K9a, bf16 in, fp32 accumulate; m64n32k32 int8 in, int32 accumulate, for
-// K12a) and setmaxnreg, that the attention kernels (K6, K7/K8 and their
-// packed forms K1, K2; their fp32 forms through fp32-accurate products of
-// three bf16 parts), the ConvNeXt block tail (K3, K4; their fp32 forms the
-// same way), the depthwise convolution (K11a, K11b: halo tiles in, output
-// tiles out by TMA) and the LayerNorm → matmul (K9a and its fp32 form) are
-// built from, and the host side of their tensor maps.
+// K9a and K10's fp32 form, bf16 in, fp32 accumulate; m64n32k32 int8 in,
+// int32 accumulate, for K12a and K12b) and setmaxnreg, that the attention
+// kernels (K6, K7/K8 and their packed forms K1, K2; their fp32 forms
+// through fp32-accurate products of three bf16 parts), the ConvNeXt block
+// tail (K3, K4; their fp32 forms the same way), the depthwise convolution
+// (K11a, K11b: halo tiles in, output tiles out by TMA), the LayerNorm →
+// matmul (K9a and its fp32 form) and the fp32 weight gradient (K10's fp32
+// form) are built from, and the host side of their tensor maps.
 //
 // Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
 // row) and lands in shared memory through a tensor map built with
@@ -320,6 +321,12 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
   return desc_sw128(addr, 1024, 1024);
 }
 
+// MN-major over two 64-column atoms `lbo` bytes apart (N = 128): the
+// leading offset steps from one atom to the next along N.
+__device__ __forceinline__ uint64_t desc_mn2(uint32_t addr, uint32_t lbo) {
+  return desc_sw128(addr, lbo, 1024);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -515,6 +522,29 @@ __device__ __forceinline__ void wgmma_ss_wide<256>(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (+)= A·B, m64n128k16, both operands MN-major (the transpose bits):
+// A's 64 rows one 64-column atom of a tile whose rows are the reduction
+// (desc_mn), B's 128 columns two such atoms `lbo` bytes apart (desc_mn2),
+// e.g. dW = gᵀ·x over rows of g and x as they lie in memory. The
+// accumulator layout of wgmma_ss_wide<128>.
+__device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : VIT_ACC8(d, 0), VIT_ACC8(d, 8), VIT_ACC8(d, 16), VIT_ACC8(d, 24),
+        VIT_ACC8(d, 32), VIT_ACC8(d, 40), VIT_ACC8(d, 48), VIT_ACC8(d, 56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef VIT_ACC8
 #undef VIT_IACC16
 #undef VIT_ACC16
@@ -703,6 +733,28 @@ __device__ __forceinline__ void put_a(uint32_t (&a)[kParts][kSteps][4],
   }
 }
 
+// Four fp32 values as kParts bf16 parts, 8 bytes each, part p at dst +
+// p·part (elements): x = x0 + x1 + x2 exactly (x0 = bf16(x), x1 = bf16(x
+// − x0), x2 = bf16(x − x0 − x1)), as put_a splits.
+template <int kParts = 3>
+__device__ __forceinline__ void store_parts(float (&v)[4], __nv_bfloat16* dst,
+                                            size_t part) {
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(dst + p * part) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+    if (p + 1 < kParts) {
+      v[0] = __fsub_rn(v[0], __low2float(lo));
+      v[1] = __fsub_rn(v[1], __high2float(lo));
+      v[2] = __fsub_rn(v[2], __low2float(hi));
+      v[3] = __fsub_rn(v[3], __high2float(hi));
+    }
+  }
+}
+
 // ---- host: tensor maps ---------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -761,19 +813,19 @@ inline int head_map(CUtensorMap* map, const void* base, const long long* st,
 }
 
 // The tensor map of a row-major bf16 matrix (rows, cols), cols a multiple
-// of 8 and rows 16-byte aligned: 2-D (cols, rows), boxes of 64 columns x 64
-// rows, 128-byte swizzle, zeros past either edge. With elem_bytes 4, of an
-// fp32 matrix, boxes of 32 columns (one 128-byte swizzled row). Returns 0
-// or a cudaError_t.
+// of 8 and rows 16-byte aligned: 2-D (cols, rows), boxes of 64 columns x
+// box_rows rows, 128-byte swizzle, zeros past either edge. With elem_bytes
+// 4, of an fp32 matrix, boxes of 32 columns (one 128-byte swizzled row).
+// Returns 0 or a cudaError_t.
 inline int matrix_map(CUtensorMap* map, const void* base, int rows,
-                      int cols, int elem_bytes = 2) {
+                      int cols, int elem_bytes = 2, int box_rows = kTileRows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
-                             kTileRows};
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
       map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32

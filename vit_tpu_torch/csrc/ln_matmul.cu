@@ -107,25 +107,6 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// Four fp32 values as three bf16 parts, part p at dst + p·part: x = x0 +
-// x1 + x2 exactly (x0 = bf16(x), x1 = bf16(x − x0), x2 = bf16(x − x0 −
-// x1)), as hopper.cuh:put_a splits.
-__device__ __forceinline__ void store_parts(float (&v)[4], bf16* dst,
-                                            size_t part) {
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(dst + p * part) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                   *reinterpret_cast<const uint32_t*>(&hi));
-    v[0] = __fsub_rn(v[0], __low2float(lo));
-    v[1] = __fsub_rn(v[1], __high2float(lo));
-    v[2] = __fsub_rn(v[2], __low2float(hi));
-    v[3] = __fsub_rn(v[3], __high2float(hi));
-  }
-}
-
 // x̂ of rows x (N, C), C a multiple of 128 up to 1024: a row a warp, lane l
 // holding columns 128j + 4l .. + 3, the mean and then the mean of squared
 // deviations summed from registers. x̂ into xhat (in T) where it is not

@@ -39,23 +39,25 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
                            K9c  ln_matmul.py:190 (_ln_bwd_kernel :78)
   fc_grad.cu               K10  fc_grad.py:145 (_fc_grad_kernel :74)
+                                (on fp32 operands: three bf16 parts on
+                                wgmma, hopper.cuh)
   depthwise.cu             K11a depthwise.py:44 (_dw_kernel :24)
                            K11b depthwise.py:124 (_dw_bwd_kernel :77)
                                 (on hopper.cuh: TMA halo tiles in, output
                                 tiles out; a dx-only form)
   convnext_tail_q8.cu      K12a convnext_block.py:310 (_fwd_kernel_q8 :148)
-                                (on hopper.cuh: int8 wgmma, a TMA ring)
                            K12b convnext_block.py:342 (_bwd_kernel_q8 :172)
+                                (both on hopper.cuh: int8 wgmma, a TMA ring)
   fma_probe.cu             P    scripts/bench_vpu.py:60 (_fma_kernel :32)
 
 The JAX package runs every Pallas kernel on operands of the compute dtype,
 fp32 products at Precision.HIGHEST under ``--mixed false``. Each kernel
-therefore has an fp32 form: the attention kernels, K3 and K4 as
+therefore has an fp32 form: the attention kernels, K3, K4, K9a and K10 as
 fp32-accurate products of three bf16 parts on the tensor cores
-(``attention_fwd.cu``, ``attention_bwd.cu``, ``convnext_tail.cu``, and
-K9a's ``ln_matmul_fwd_f32``), the others as ``*_f32`` entries beside their
-bf16 ones (K10: a SIMT product, ``csrc/simt_f32.cuh``; K9b, K9c, K12a,
-K12b: the kernels templated on their row type). K5 is fp32 by design and K11 takes both
+(``attention_fwd.cu``, ``attention_bwd.cu``, ``convnext_tail.cu``, K9a's
+``ln_matmul_fwd_f32`` and K10's ``fc_grad_f32``), the others as ``*_f32``
+entries beside their bf16 ones (K9b, K9c, K12a, K12b: the kernels templated
+on their row type, ``csrc/simt_f32.cuh``'s element helpers). K5 is fp32 by design and K11 takes both
 dtypes through one entry.
 
 Every entry takes pointers and the CUDA stream as ``void*`` and returns
@@ -198,9 +200,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.convnext_tail_fwd_q8_smem.argtypes = [i32]
     lib.convnext_tail_fwd_q8_smem.restype = i32
     # convnext_tail_bwd_q8(h, dy, lns, lnb, w1q, w1s, w2tq, w2ts, w1tq, w1ts,
-    #                      b1, gamma, dh, N, C, eps, stream)
-    lib.convnext_tail_bwd_q8.argtypes = [ptr] * 13 + [i32, i32, f32, ptr]
+    #                      b1, gamma, dh, dz, N, C, eps, stream)
+    lib.convnext_tail_bwd_q8.argtypes = [ptr] * 14 + [i32, i32, f32, ptr]
     lib.convnext_tail_bwd_q8.restype = i32
+    # convnext_tail_bwd_q8_smem(C): K12b's dynamic shared memory, bytes
+    lib.convnext_tail_bwd_q8_smem.argtypes = [i32]
+    lib.convnext_tail_bwd_q8_smem.restype = i32
     # depthwise_fwd(x, w, b, y, N, H, W, C, is_bf16, stream)
     lib.depthwise_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.depthwise_fwd.restype = i32
@@ -234,6 +239,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # fc_grad(g, x, dw, db, part, part_db, N, Fo, Fi, splits, stream)
     lib.fc_grad.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.fc_grad.restype = i32
+    # fc_grad_f32_smem(): K10 fp32's dynamic shared memory, bytes
+    lib.fc_grad_f32_smem.argtypes = []
+    lib.fc_grad_f32_smem.restype = i32
     # vq_nearest(z, codebook, idx, N, C, D, l2_normalize, stream)
     lib.vq_nearest.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.vq_nearest.restype = i32

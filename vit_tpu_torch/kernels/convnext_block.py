@@ -24,10 +24,12 @@ are the JAX package's to the bit.
 
 What bounds them on the H100: 16·C² FLOP per row forward and 24·C² backward
 against 6·C bytes of rows, with the (N, 4C) intermediate and the LN output
-kept out of device memory as on the TPU. The weights do not fit in shared
+kept out of device memory as on the TPU (but for K12b's dz: its first pass
+stores it in fp32 scratch of the call and its second reads it back, which
+measured faster than forming it twice). The weights do not fit in shared
 memory at C = 384, so a block of 64 or 128 rows streams the 4C dimension in
 chunks of W1 and W2 tiles (by TMA into a ring, read by wgmma in the
-orientation each product needs) and keeps its fp32 output accumulator in
+orientation each product needs) and keeps its output accumulator in
 registers (see the sources' headers).
 
 FROZEN-WEIGHT CONTRACT, as in the JAX package: gradients flow to h and x
@@ -370,13 +372,17 @@ def convnext_tail_bwd_q8(h, dy, lns, lnb, w1, b1, w2, gamma, eps=1e-6):
     f32 = h.dtype == torch.float32
     entry = "convnext_tail_bwd_q8_f32" if f32 else "convnext_tail_bwd_q8"
     lib = _build.load()
+    # dz, stored by the kernel's first pass and read back by its second:
+    # scratch of the call, 64-row blocks of 4C fp32 values
+    dz = torch.empty(-(-n // 64) * 64 * 4 * c, dtype=torch.float32,
+                     device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = getattr(lib, entry)(
             h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
             w1q.data_ptr(), w1s.data_ptr(), w2tq.data_ptr(), w2ts.data_ptr(),
             w1tq.data_ptr(), w1ts.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
-            dh.data_ptr(), n, c, eps, stream)
+            dh.data_ptr(), dz.data_ptr(), n, c, eps, stream)
     _build.check(lib, err, entry)
     global q8_bwd_launches, q8_fp32_bwd_launches
     q8_bwd_launches += 1

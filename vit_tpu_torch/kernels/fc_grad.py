@@ -18,8 +18,9 @@ design.
 :class:`FusedDense` is the autograd Function (``_fd_fwd``/``_fd_bwd``,
 :249-265) and :func:`fused_dense` the entry. The wrapper launches the kernel
 for a CUDA tensor or raises, and runs its plain PyTorch version for a CPU
-tensor. fp32 operands launch the fp32 form (``fc_grad_f32``, the product on
-the CUDA cores), counted apart in ``fp32_launches``.
+tensor. fp32 operands launch the fp32 form (``fc_grad_f32``: dW as six
+bf16 wgmma products of three bf16 parts of each operand, split in the
+kernel; db from the fp32 g), counted apart in ``fp32_launches``.
 """
 
 from __future__ import annotations
@@ -64,6 +65,20 @@ def _splits(n: int, tiles: int, device: torch.device) -> int:
     return max(1, min(want, -(-n // (4 * CHUNK))))
 
 
+def splits_f32(n: int, tiles: int, sms: int, most: int = 16) -> int:
+    """How many parts the fp32 form cuts the contraction over N into: its
+    blocks hold a whole SM each (230 KB of shared memory), so the count s
+    of at most ``most`` parts (and one per 8 atoms of 32 rows) whose waves,
+    ceil(tiles·s / sms), cost least for each part, the first such s (fc1's
+    and fc2's 144 tiles on 132 SMs: 11 parts, 12 full waves)."""
+    best, cost = 1, None
+    for s in range(1, max(1, min(most, -(-n // 256))) + 1):
+        c = -(-tiles * s // sms) / s
+        if cost is None or c < cost - 1e-12:
+            best, cost = s, c
+    return best
+
+
 def matmul_dw_db(g: torch.Tensor, x: torch.Tensor):
     """K10: g (N, F_out), x (N, F_in) → (dW (F_out, F_in), db (F_out,)),
     fp32. A CUDA tensor launches the kernel (bf16 or fp32 operands of one
@@ -86,14 +101,17 @@ def matmul_dw_db(g: torch.Tensor, x: torch.Tensor):
                                   f"{TILE}, got {fo} and {fi}")
     dw = torch.empty(fo, fi, dtype=torch.float32, device=g.device)
     db = torch.empty(fo, dtype=torch.float32, device=g.device)
-    splits = _splits(n, (fo // TILE) * (fi // TILE), g.device)
+    f32 = g.dtype == torch.float32
+    tiles = (fo // TILE) * (fi // TILE)
+    splits = (splits_f32(n, tiles, torch.cuda.get_device_properties(
+        g.device).multi_processor_count) if f32
+              else _splits(n, tiles, g.device))
     part = part_db = None
     if splits > 1:   # fp32 partial sums, reduced in a fixed order
         part = torch.empty(splits, fo, fi, dtype=torch.float32,
                            device=g.device)
         part_db = torch.empty(splits, fo, dtype=torch.float32,
                               device=g.device)
-    f32 = g.dtype == torch.float32
     entry = "fc_grad_f32" if f32 else "fc_grad"
     lib = _build.load()
     with torch.cuda.device(g.device):
