@@ -100,7 +100,7 @@ false``. Phases, one JSON line each:
                 fused width, the pre-splits (three operands forward, four
                 backward, K3's weights) bit for bit and timed alone, the
                 ptxas figures and the bounds at the split products' rate
-                (six bf16 products an fp32 one) beside P's; a TF32 control
+                (six bf16 products an fp32 one) beside the fp32 rate's; a TF32 control
                 (the plain version with TF32 on in the form's place) that
                 must fail that limit for K1, K2, K3, K4, K6, K9a and K10;
                 each form that was SIMT fp32 (K3, K4, K9a, K10 and the fp32
@@ -108,7 +108,8 @@ false``. Phases, one JSON line each:
                 ``SIMT_F32_MEAN_REL``,
                 which its control (TF32, or operands rounded to bf16) must
                 fail;
-                times, bounds over P's fp32 rate and library times (SDPA on
+                times, bounds over the published fp32 rate (P's measured
+                rate reported beside it) and library times (SDPA on
                 fp32 tensors, ``F.linear``, fp32 ``torch.mm``,
                 ``aten.native_layer_norm_backward``); mask probes whose kept counts, recovered from
                 the fp32 forms' outputs and dv, equal the bf16 forms' and the
@@ -245,6 +246,7 @@ from vit_tpu_torch.bench_kernels import exact_fc_grad  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_ln_matmul_fwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_tail_bwd  # noqa: E402
 from vit_tpu_torch.bench_kernels import exact_tail_fwd  # noqa: E402
+from vit_tpu_torch.bench_kernels import fc_grad_reduction_ms  # noqa: E402
 from vit_tpu_torch.bench_kernels import mean_rel  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_fc_grad  # noqa: E402
 from vit_tpu_torch.bench_kernels import two_part_ln_matmul_fwd  # noqa: E402
@@ -443,8 +445,9 @@ FMA_ITERS, FMA_STEPS = 4096, 20
 # P's bf16 parity at constants where each step changes a: (c, d), steps
 FMA_GROWTH, FMA_GROWTH_ITERS = (1 + 2.0 ** -7, 2.0 ** -10), 256
 FMA_LANES, BOOST_HZ = 128 * 132, 1.98e9
-# The rate of every fp32 bound: the published 67 TFLOP/s until the
-# fma_probe phase has measured P's best fp32 rate (2 FLOP a multiply-add).
+# P's best fp32 rate once the fma_probe phase has measured it (2 FLOP a
+# multiply-add), reported beside the bounds; every fp32 bound takes the
+# published PEAK_FP32_FLOPS.
 measured = {"fp32_flops": PEAK_FP32_FLOPS}
 # The fp32 forms against their fp32 plain versions, relative to the largest
 # and the mean |plain| value: the same sums in another order, measured at
@@ -668,12 +671,6 @@ def read_fp32_launches() -> dict:
                 convnext_tail_bwd_q8=k_cnx.q8_fp32_bwd_launches)
 
 
-def fp32_peak() -> float:
-    """The fp32 bounds' rate: P's best measured fp32 rate once the fma_probe
-    phase has run, the published 67 TFLOP/s before."""
-    return measured["fp32_flops"]
-
-
 def read_dropout_launches() -> dict:
     """The attention wrappers' launches with dropout (a seed vector)."""
     return dict(attention_packed_fwd=k_attn.dropout_launches,
@@ -703,7 +700,7 @@ def attention_bound(b: int, h: int, s: int, causal: bool, backward: bool,
                     extra_bytes: float = 0.0, dropout: bool = False,
                     elem: int = 2, peak: float = PEAK_BF16_FLOPS) -> dict:
     """Attention over (b, h, s, 64) operands of ``elem`` bytes (bf16; 4 for
-    the fp32 forms, at ``peak`` = P's fp32 rate): 2 products of 2·64 FLOP
+    the fp32 forms, at ``peak`` = the published fp32 rate): 2 products of 2·64 FLOP
     per unmasked (query, key) pair forward, 5 backward; q, k, v (and dO)
     read and out (dq, dk, dv) written once, m and l in fp32. With dropout,
     the hash's integer operations once on every unmasked pair, forward and
@@ -1467,27 +1464,64 @@ def phase_kernels() -> dict:
     for l2 in (True, False):
         require(k_vq.nearest_code(z, cb, l2_normalize=l2).unique().tolist()
                 == [7], "K5 does not break ties toward the lowest index")
-    times = {}
-    for bs in (8, 64):
-        z = torch.randn(bs * 256, 12, device="cuda", generator=gen)
-        cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1) / 2048
-        times[bs] = (median_ms(lambda: k_vq.nearest_code(z, cb)),
-                     median_ms(lambda: k_vq.nearest_code_ref(z, cb)))
-    # N 2048 rows against 2048 codes of D 12: N·C·D fp32 multiply-adds off
-    # the tensor cores; z and the codebook read, the indices written.
-    k5_bound = bound(2 * 2048 * 2048 * 12, (2048 + 2048) * 12 * 4 + 2048 * 4,
-                     peak=fp32_peak())
+    # A tie across slices: at N 2048 the plan cuts the 2048 codes into
+    # slices of 64, so code 63 (the end of slice 0) has equal codes at 64
+    # (the start of slice 1) and in two later slices; every row equal to it
+    # must take 63 from the merged keys.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tie_plan = k_vq.plan(2048, 2048, 12, sms)
+    require(tie_plan["splits"] > 1 and tie_plan["slice"] == 64,
+            f"K5's plan at N 2048 has no slice boundary at 64: {tie_plan}")
+    cb = torch.randn(2048, 12, device="cuda", generator=gen)
+    for j in (64, 1000, 2047):
+        cb[j] = cb[63]
+    z = cb[63:64].repeat(2048, 1).contiguous()
+    for l2 in (True, False):
+        require(k_vq.nearest_code(z, cb, l2_normalize=l2).unique().tolist()
+                == [63], "K5 does not break a tie across slices toward the "
+                "lowest index")
+    lib = _build.load()
+    require(all(lib.vq_nearest_block_rows(d) == 32 * k_vq.rows_per_lane(d)
+                for d in k_vq.SUPPORTED_DIMS),
+            "K5's rows a block differ between the source and kernels/vq.py")
+    # Each path's shape: serving bs 8 and 64 (the train step's N too)
+    # against 2048 codes, the VideoGPT step's against 1024. N·C·D fp32
+    # multiply-adds off the tensor cores; z and the codebook read, the
+    # indices written.
+    k5_shapes = {"bs8": (8 * 256, 2048), "bs64": (64 * 256, 2048),
+                 "videogpt": (video_codes, 1024)}
+    times, k5_plans, k5_bounds = {}, {}, {}
+    for key, (n, c) in k5_shapes.items():
+        z = torch.randn(n, 12, device="cuda", generator=gen)
+        cb = (torch.rand(c, 12, device="cuda", generator=gen) * 2 - 1) / c
+        times[key] = dict(ms=median_ms(lambda: k_vq.nearest_code(z, cb)),
+                          dev_ms=device_ms(lambda: k_vq.nearest_code(z, cb)),
+                          plain_ms=median_ms(
+                              lambda: k_vq.nearest_code_ref(z, cb)))
+        k5_plans[key] = k_vq.plan(n, c, 12, sms)
+        k5_bounds[key] = bound(2 * n * c * 12, (n + c) * 12 * 4 + n * 4,
+                               peak=PEAK_FP32_FLOPS)
+    k5_bound = k5_bounds["bs8"]
     emit("kernel", name="vq_nearest", parity=k5_rows,
          tolerance=dict(tie_gap=K5_TIE_GAP), lowest_index_ties=True,
-         dims_checked=list(k_vq.SUPPORTED_DIMS),
-         ms_bs8=times[8][0], plain_ms_bs8=times[8][1],
-         ms_bs64=times[64][0], plain_ms_bs64=times[64][1],
-         bound_bs8=k5_bound, shape="(bs·256, 12) fp32 against (2048, 12)")
-    summary["vq_nearest"] = dict(max_abs_err=k5_gap, ms=times[8][0],
-                                 plain_ms=times[8][1],
+         cross_slice_tie=dict(N=2048, C=2048, codes=[63, 64, 1000, 2047],
+                              picked=63),
+         dims_checked=list(k_vq.SUPPORTED_DIMS), times=times,
+         plans=k5_plans, bounds=k5_bounds,
+         ms_bs8=times["bs8"]["ms"], plain_ms_bs8=times["bs8"]["plain_ms"],
+         ms_bs64=times["bs64"]["ms"], plain_ms_bs64=times["bs64"]["plain_ms"],
+         bound_bs8=k5_bound,
+         build={k: v for k, v in measured.get("ptxas", {}).items()
+                if k.startswith("vq_nearest_kernel")},
+         shape="(N, 12) fp32 against (C, 12): bs 8 and 64 at C 2048, "
+               "VideoGPT's N 32768 at C 1024")
+    summary["vq_nearest"] = dict(max_abs_err=k5_gap, ms=times["bs8"]["ms"],
+                                 plain_ms=times["bs8"]["plain_ms"],
                                  bound_ms=k5_bound["bound_ms"],
                                  bound_by=k5_bound["bound_by"],
-                                 library_ms=None)
+                                 library_ms=None,
+                                 dev_ms=times["bs8"]["dev_ms"],
+                                 blocks=k5_plans["bs8"]["blocks"])
     summary.update(unpacked_kernels(gen))
     for name, arm in dropout_kernels(gen).items():
         summary[name]["dropout"] = arm
@@ -2175,7 +2209,7 @@ def fused_kernels(gen) -> dict:
                            zpre, dz)),
                        # zpre and dz read, dzc written; ~30 fp32 FLOP each
                        bound=bound(30 * n * 3072, 3 * 2 * n * 3072,
-                                   peak=fp32_peak()))
+                                   peak=PEAK_FP32_FLOPS))
     emit("kernel", name="ln_matmul_dgelu", parity=k9b_rows,
          tolerance=dict(per_element="one bf16 ulp"), library=None,
          shape="(20480, 3072) bf16", **k9b)
@@ -2202,7 +2236,7 @@ def fused_kernels(gen) -> dict:
         if n == N_ROWS:
             # The library's LayerNorm backward without weight and bias, its
             # saved mean and 1/σ made beforehand (K9c recomputes them).
-            k9c = ln_bwd_times(x, g, fp32_peak())
+            k9c = ln_bwd_times(x, g, PEAK_FP32_FLOPS)
     emit("kernel", name="ln_bwd", parity=k9c_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
                         ln_mean_rel=LN_MEAN_REL),
@@ -2218,12 +2252,15 @@ def fused_kernels(gen) -> dict:
         library="aten.native_layer_norm_backward (no weight, no bias)",
         **{k: k9c[k] for k in LN_BWD_TIMES})
 
-    # K10: fc2 (g 768 wide, x 3072), fc1 (g 3072, x 768), a ragged N. The
+    # K10: fc2 (g 768 wide, x 3072), fc1 (g 3072, x 768), a ragged N, and
+    # TiTok-S's fc1 and fc2 (384 ↔ 1536) at a ragged N, whose F_in of 384
+    # leaves the bf16 form's last 256-column tile half past the edge. The
     # plain version is an fp32 product (TF32 off), the kernel's sums run in
     # another order over 20480 terms.
     k10_rows, k10_max, k10, k10_controls = [], 0.0, {}, {}
     for n, fo, fi in [(N_ROWS, 768, 3072), (N_ROWS, 3072, 768),
-                      (N_ROWS + 1, 768, 3072)]:
+                      (N_ROWS + 1, 768, 3072), (4099, 1536, 384),
+                      (4099, 384, 1536)]:
         g = r(n, fo).bfloat16()
         x = r(n, fi).bfloat16()
         dw, db = k_fc.matmul_dw_db(g, x)
@@ -2249,18 +2286,33 @@ def fused_kernels(gen) -> dict:
                 ms=median_ms(lambda: k_fc.matmul_dw_db(g, x)),
                 plain_ms=median_ms(lambda: k_fc.matmul_dw_db_ref(g, x), 5),
                 library_ms=median_ms(lambda: torch.mm(g.t(), x)),
+                library_dev_ms=device_ms(lambda: torch.mm(g.t(), x)),
                 bound=bound(2 * n * fo * fi,
-                            2 * n * (fo + fi) + 4 * (fo * fi + fo)))
+                            2 * n * (fo + fi) + 4 * (fo * fi + fo)),
+                # the splits and their ordered sum timed apart, on the card
+                # alone: the kernel as the wrapper runs it (dev_ms), the
+                # same launch with no block summing the partials, and the
+                # difference
+                reduction=fc_grad_reduction_ms(g, x))
+            k10[site]["dev_ms"] = k10[site]["reduction"]["ms"]
         del g, x, dw, db, dw2, db2, dw_ref, db_ref
+    lib = _build.load()
+    require(all(lib.fc_grad_tiles(fo, fi) == k_fc.tiles_bf16(fo, fi)
+                for fo, fi in ((768, 3072), (3072, 768), (384, 1536))),
+            "K10's tiles differ between the source and kernels/fc_grad.py")
     emit("kernel", name="fc_grad", parity=k10_rows,
          tolerance=dict(dw_max_rel=1e-3, db_max_rel=1e-4,
                         dw_mean_rel=K10_DW_MEAN_REL,
                         db_mean_rel=K10_DB_MEAN_REL),
          mean_limit_control=k10_controls,
+         build={k: dict(ptxas=v, dynamic_smem_bytes=lib.fc_grad_smem(0))
+                for k, v in measured.get("ptxas", {}).items()
+                if k.startswith("fc_grad_bf16_kernel")},
          library="torch.mm(g.t(), x) in bf16: dW alone, rounded to bf16, no db",
          shape="fc2: g (20480, 768), x (20480, 3072); fc1 transposed", **k10)
     summary["fc_grad"] = dict(
         max_abs_err=k10_max, ms=k10["fc2"]["ms"],
+        dev_ms=k10["fc2"]["dev_ms"], splits=k10["fc2"]["reduction"]["splits"],
         plain_ms=k10["fc2"]["plain_ms"],
         bound_ms=k10["fc2"]["bound"]["bound_ms"],
         bound_by=k10["fc2"]["bound"]["bound_by"],
@@ -2523,7 +2575,7 @@ def k11_bound(shape, elem: int, form: str) -> dict:
         flop = 2 * 49 * n_el
         nbytes = 2 * elem * n_el + elem * (50 if form == "fwd" else 49) * c
     return dict(bound(flop, nbytes, peak=PEAK_FP32_FLOPS),
-                probe=bound(flop, nbytes, peak=fp32_peak()))
+                probe=bound(flop, nbytes, peak=measured["fp32_flops"]))
 
 
 def k11_controls(x, g, w, b, y_ref, dx_ref, dw_ref, db_ref) -> dict:
@@ -2731,8 +2783,9 @@ def phase_fma_probe(card: str) -> dict:
     FMA_GROWTH's constants, where every step changes a; then the rate sweep
     over the card-filling shape (the main path: CUDA events around 20 calls
     after one, as ``vpu_fma_rate`` times them) and ``python -m
-    vit_tpu_torch.bench_vpu`` as a subprocess. The best fp32 rate becomes
-    the rate of every fp32 bound of this run. Returns P's summary and its
+    vit_tpu_torch.bench_vpu`` as a subprocess. The best fp32 rate is
+    reported beside the published one, which every fp32 bound takes (K11
+    also carries a ``probe`` bound at it). Returns P's summary and its
     launches in the sweep."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     parity = []
@@ -2850,7 +2903,7 @@ def k3_f32_width(args, y, peak: float) -> dict:
     (``bench_kernels.exact_tail_fwd``) within F32_TAIL_MEAN_REL, with the
     two-part control (u, a and the weights rounded to x0 + x1) that must
     fail it; its single-call, x20 and dev times; its bound at the split
-    rate and at P's fp32 rate; and the weights' pre-split alone
+    rate and at the fp32 rate; and the weights' pre-split alone
     (``split_weights``), bit for bit against its plain version, timed,
     with its bound (each fp32 weight read once, its three bf16 parts
     written once)."""
@@ -2897,7 +2950,7 @@ def k4_f32_width(args, dh, peak: float) -> dict:
     float64 tail gradient (``bench_kernels.exact_tail_bwd``) within
     F32_TAIL_BWD_MEAN_REL, with the two-part control (u, do, dz and the
     weights rounded to x0 + x1) that must fail it; its single-call, x20
-    and dev times; its bound at the split rate and at P's fp32 rate (h and
+    and dev times; its bound at the split rate and at the fp32 rate (h and
     dy read, dh written, the fp32 parameters read once; C 384's z pre-pass
     writes and reads gelu'(z) beside them, counted apart as
     ``gz_bytes_ms``)."""
@@ -3064,8 +3117,8 @@ def fp32_mask_probe(b: int, h: int, s: int, causal: bool, rate: float,
 
 def fp32_kernels(gen) -> dict:
     """Every fp32 form against its fp32 plain version on the card (TF32 off)
-    at the fp32 paths' shapes, then its time, bound (operations over P's
-    measured fp32 rate, fp32 bytes over the memory rate) and library
+    at the fp32 paths' shapes, then its time, bound (operations over the
+    published fp32 rate, fp32 bytes over the memory rate) and library
     yardstick: SDPA on fp32 tensors (with the backend it picks), ``F.linear``
     for K9a and fp32 ``torch.mm`` for K10. The dropout arms of K1/K2 and
     K6/K8, and the mask probes through the fp32 forms against the bf16
@@ -3073,7 +3126,7 @@ def fp32_kernels(gen) -> dict:
     def r(*shape, scale=1.0):
         return scale * torch.randn(*shape, device="cuda", generator=gen)
 
-    peak, summary, controls = fp32_peak(), {}, {}
+    peak, summary, controls = PEAK_FP32_FLOPS, {}, {}
 
     def entry(name, row, ms, plain_ms, bnd, library_ms, shape, **kw):
         summary[name] = dict(max_abs_err=row["max_abs"],
@@ -3178,7 +3231,7 @@ def fp32_kernels(gen) -> dict:
                         fwd_mean_rel_exact=F32_FWD_MEAN_REL,
                         bwd_mean_rel=F32_BWD_MEAN_REL),
          bound_note="split products: 6 bf16 products per fp32 product "
-                    "at 989 TFLOP/s; fp32_rate: P's fp32 rate",
+                    "at 989 TFLOP/s; fp32_rate: the published 67 TFLOP/s",
          build={n: r for n, r in build.items() if fp32_form(n) and (
              packed_form(n) or n.startswith("attention_fwd"))}, **arms)
     for name, key in (("attention_packed_fwd", "fwd"),
@@ -3352,7 +3405,7 @@ def fp32_kernels(gen) -> dict:
     n, c = CNX_STAGES[2][2], 384
     rows_b = 3 * n * c * 4
     tail_bounds = {
-        # six bf16 wgmma products an fp32 one: at the split rate (P's fp32
+        # six bf16 wgmma products an fp32 one: at the split rate (the fp32
         # rate beside them, k3_f32_width, k4_f32_width)
         "convnext_tail_fwd": tails["convnext_tail_fwd"]["row"]["bound"],
         "convnext_tail_bwd": tails["convnext_tail_bwd"]["row"]["bound"],
@@ -3566,7 +3619,7 @@ def fp32_kernels(gen) -> dict:
                 library_ms=median_ms(lambda: torch.mm(g.t(), x)),
                 library_dev_ms=device_ms(lambda: torch.mm(g.t(), x)),
                 # six bf16 wgmma products an fp32 one: at the split rate,
-                # P's fp32 rate beside it
+                # the fp32 rate beside it
                 bound=bound(2 * n * fo * fi, nbytes, peak=PEAK_SPLIT_FLOPS),
                 fp32_rate_bound=bound(2 * n * fo * fi, nbytes, peak=peak),
                 row=row)
@@ -3575,8 +3628,8 @@ def fp32_kernels(gen) -> dict:
     lib = _build.load()
     build = {}
     for name, report in measured.get("ptxas", {}).items():
-        if name.startswith("fc_grad_split_kernel<"):
-            b = lib.fc_grad_f32_smem()
+        if name.startswith("fc_grad_split_kernel<3>"):
+            b = lib.fc_grad_smem(1)
             build[name] = dict(ptxas=report, dynamic_smem_bytes=b,
                                blocks_per_sm_by_smem=233472 // (b + 1024))
     emit("fp32_kernels", name="fc_grad", parity=k10_rows,

@@ -19,7 +19,11 @@ or the plain backward, so the limits tell the two apart. K10's fp32 form
 (dW = gᵀ·x and db = Σ g, the split product over 32-row atoms of N in
 fresh accumulators, fixed-order split partials) is held against the JAX
 package's ``matmul_dw_db`` and the float64 dW within
-``chip_smoke.F32_FCGRAD_MEAN_REL``, which its two-part control fails."""
+``chip_smoke.F32_FCGRAD_MEAN_REL``, which its two-part control fails. The
+bf16 K10's order (every k16 step of a split's 32-row atoms chained in one
+accumulator, db in four row sets, the splits added in order) is held
+against the JAX package's bf16 ``matmul_dw_db`` within
+``chip_smoke.K10_DW_MEAN_REL`` / ``K10_DB_MEAN_REL`` at ragged N."""
 
 import ast
 from pathlib import Path
@@ -67,6 +71,8 @@ F32_TAIL_MEAN_REL = smoke_constant("F32_TAIL_MEAN_REL")
 F32_TAIL_BWD_MEAN_REL = smoke_constant("F32_TAIL_BWD_MEAN_REL")
 F32_LNMM_MEAN_REL = smoke_constant("F32_LNMM_MEAN_REL")
 F32_FCGRAD_MEAN_REL = smoke_constant("F32_FCGRAD_MEAN_REL")
+K10_DW_MEAN_REL = smoke_constant("K10_DW_MEAN_REL")
+K10_DB_MEAN_REL = smoke_constant("K10_DB_MEAN_REL")
 # (A part, B part) of the six products, small terms first (hopper.cuh)
 TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
@@ -663,3 +669,94 @@ def test_fc_grad_f32_splits_fill_whole_waves():
     assert k_fc.splits_f32(20480, 264, 132) == 1
     assert all(k_fc.splits_f32(n, t, 132) <= 16
                for n in (64, 5000, 10 ** 6) for t in (1, 7, 144, 500))
+
+
+def _rows_per_split(n, splits, atom):
+    """The rows of a split: whole ``atom``-row atoms, ceil over the splits
+    (csrc/fc_grad.cu's launcher)."""
+    return -(-(-(-n // atom)) // splits) * atom
+
+
+def _bf16_fc_grad(g, x, splits, atom=32, sets=4):
+    """The bf16 K10's order (csrc/fc_grad.cu: fc_grad_bf16_kernel) in plain
+    torch on bf16 g (N, F_out), x (N, F_in): N cut into ``splits`` parts of
+    whole 32-row atoms (the ring's stages, kAtom1); in each part one fp32
+    accumulator carried over every k16 step of every atom in order, acc =
+    acc + g[k16]ᵀ·x[k16] (wgmma m64n256k16, chained; rows past N are zero);
+    db from the bf16 g, each of the 4 row sets (rows ≡ r mod 4: a half warp
+    each) summed in row order over the part, then the sets in order; the
+    parts added into dW and db in split order, (((p0 + p1) + p2) + ...)
+    (store1)."""
+    g32, x32 = g.float(), x.float()
+    n = g.shape[0]
+    per = _rows_per_split(n, splits, atom)
+    dw = db = None
+    for r0 in range(0, splits * per, per):
+        acc = torch.zeros(g.shape[1], x.shape[1])
+        for k0 in range(r0, min(r0 + per, n), 16):
+            rows = slice(k0, min(k0 + 16, n))
+            acc = acc + g32[rows].t() @ x32[rows]
+        part = torch.zeros(sets, g.shape[1])
+        for row in range(r0, min(r0 + per, n)):
+            part[row % sets] += g32[row]
+        pdb = part[0]
+        for k in range(1, sets):
+            pdb = pdb + part[k]
+        dw = acc if dw is None else dw + acc
+        db = pdb if db is None else db + pdb
+    return dw, db
+
+
+@pytest.mark.parametrize("fo, fi, n", [
+    pytest.param(128, 512, 1001, id="128-512"),
+    pytest.param(512, 128, 1001, id="512-128"),
+    pytest.param(128, 512, 600, id="128-512-600"),
+    pytest.param(512, 128, 600, id="512-128-600")])
+def test_bf16_fc_grad_order_matches_jax(fo, fi, n):
+    """The bf16 K10's emulation at an fc2-like (g narrower than x) and an
+    fc1-like shape, at N 1001 and 600 (ragged against the 32-row atoms, in
+    the split count the wrapper takes on 132 SMs at these widths; at N 600
+    the splits of 32-row atoms end at other rows than 64-row atoms would
+    give), against the JAX package's ``matmul_dw_db(..., db_operand=0)`` on
+    the same bf16 operands (interpret mode) and the port's plain K10,
+    within the limits chip_smoke.py holds the kernel to: max 1e-3 (dW) and
+    1e-4 (db) of max |reference|, K10_DW_MEAN_REL / K10_DB_MEAN_REL of mean
+    |reference|."""
+    rng = np.random.default_rng(fo + 2 * fi + n)
+    g = torch.from_numpy(rng.normal(size=(n, fo)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n, fi)).astype(np.float32))
+    g, x = g.bfloat16(), x.bfloat16()
+    splits = k_fc.splits_bf16(n, k_fc.tiles_bf16(fo, fi), 132)
+    assert splits > 1
+    if n == 600:
+        assert (_rows_per_split(n, splits, 32)
+                != _rows_per_split(n, splits, 64))
+    dw, db = _bf16_fc_grad(g, x, splits)
+    refs = [tuple(torch.from_numpy(np.array(t, dtype=np.float32))
+                  for t in jax_fc.matmul_dw_db(
+                      jnp.asarray(g.float().numpy(), dtype=jnp.bfloat16),
+                      jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16),
+                      db_operand=0)),
+            k_fc.matmul_dw_db_ref(g, x)]
+    for dw_ref, db_ref in refs:
+        for out, ref, max_lim, mean_lim in ((dw, dw_ref, 1e-3, K10_DW_MEAN_REL),
+                                            (db, db_ref, 1e-4, K10_DB_MEAN_REL)):
+            max_rel, mean_rel = _rel(out, ref)
+            assert max_rel <= max_lim and mean_rel <= mean_lim, (max_rel,
+                                                                 mean_rel)
+
+
+@pytest.mark.parametrize("n, tiles, splits", [
+    (20480, 72, 5), (20481, 72, 5), (1001, 72, 1), (100, 72, 1),
+    (20480, 264, 1), (5000, 72, 3), (10 ** 6, 72, 11), (1001, 2, 4)])
+def test_fc_grad_bf16_splits(n, tiles, splits):
+    """The bf16 form's split count (``kernels/fc_grad.py:splits_bf16``),
+    the fewest waves of one block an SM for the rows they carry, each wave
+    WAVE_ROWS rows dearer: at the flagship's 72 dW tiles of 128 × 256
+    (fc1 and fc2 alike) on 132 SMs N 20480 takes 5 parts (3 waves; the
+    split counts timed on an H100 put 3 and 5 first, 11 whole waves
+    last but one), ragged N alike; a tiny N or tiles that fill the waves
+    alone take 1; never more parts than 16 or one per 256 rows."""
+    assert k_fc.tiles_bf16(768, 3072) == k_fc.tiles_bf16(3072, 768) == 72
+    assert k_fc.splits_bf16(n, tiles, 132) == splits
+    assert 1 <= splits <= min(16, max(1, -(-n // 256)))

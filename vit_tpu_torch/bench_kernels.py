@@ -1,5 +1,5 @@
 """Time the bf16 kernels, the fp32 kernels that were redesigned on the
-tensor cores (attention, K3, K4) with K9c, and nine train steps of one or
+tensor cores (attention, K3, K4) with K9c, and ten train steps of one or
 more checkouts of this repo on one card, in turns, so that two versions
 are compared within one call.
 
@@ -41,13 +41,14 @@ mean distances (o, m and l; K1, K6 and their dropout arms, and K6 at K7's
 shape) from the plain fp32 version and from the float64 forward
 (:func:`exact_attention_fwd`), with the two-part control's (the plain
 version on operands rounded to two bf16 parts) beside them ("fwd_mean_rel"
-in its JSON line). Each turn then times nine train steps with the names of
+in its JSON line). Each turn then times ten train steps with the names of
 that checkout's root ``chip_smoke.py``: the VideoGPT-B bs-32 step, the
 flagship TiTok-B unfused bs-64 step, the same with the int8 perceptual
 loss and the ViT-L/16 @256 bs-64 step at dropout 0.15 in bf16, the
 VideoGPT-B, ViT-L/16 and flagship unfused steps at float32, then the
 flagship step under ``VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1`` (set for that
-step only) in bf16 and float32 (``TiTok``,
+step only) in bf16 and float32 and under ``VIT_TPU_FUSED_LN=0
+VIT_TPU_FUSED_FC=1`` in bf16 ("TiTok-B fused-FC step") (``TiTok``,
 ``VideoGPT``, ``ConvNeXt``, ``PerceptualLoss``, ``FLAGSHIP``,
 ``VIT_CELLS``, ``train_inputs``, ``vit_batch``, the step makers,
 ``make_optimizer``, ``host_median_ms`` and the rest used in
@@ -60,7 +61,8 @@ kernel's launches and time ("step_kernels" in ``--out``). ``--groups``
 picks what a turn times (``q8``: K12a and K12b alone, bf16 and fp32 rows,
 at every fused width; ``queue``: K9a at qkv and fc1, single, x20, in its
 serving form and beside ``F.linear``, K9b and K10, in both dtypes, and K5,
-on the card alone) and ``--steps`` which steps. TF32 is off for cuBLAS
+on the card alone; ``k10``: the bf16 K10 forced to each split count, its
+with and without its ordered sum) and ``--steps`` which steps. TF32 is off for cuBLAS
 and cuDNN. Prints one JSON line per turn and a table of each time by
 checkout and turn."""
 
@@ -225,7 +227,11 @@ def time_queue() -> dict:
     :func:`time_kernels`' shapes ("K9b dev", "K10 fp32 dev", ...), K10 also
     as 20 back-to-back calls, at fc1 (g 3072 wide, x 768) and beside
     ``torch.mm`` for dW alone ("K10 fp32 x20", "K10 fp32 fc1 dev", "K10
-    fp32 lib dev"), and K5 ("K5 dev")."""
+    fp32 lib dev"), the bf16 K10 without its ordered sum where the tree
+    has one (:func:`fc_grad_reduction_ms`: "K10 no-sum dev"; "K10 dev"
+    less it is the sum's cost), and K5 at N 2048, 16384 (against 2048 codes) and 32768 (against
+    1024) on the card alone and the host time of a call (:func:`host_ms`)
+    ("K5 dev", "K5 N16384 dev", "K5 N32768 dev", "K5 host", ...)."""
     import torch
     import torch.nn.functional as F
 
@@ -265,11 +271,112 @@ def time_queue() -> dict:
         ms[f"K10{tag} x20"] = batched_ms(lambda: k_fc.matmul_dw_db(g, x3))
         ms[f"K10{tag} fc1 dev"] = device_ms(lambda: k_fc.matmul_dw_db(x3, g))
         ms[f"K10{tag} lib dev"] = device_ms(lambda: torch.mm(g.t(), x3))
+        if dt == torch.bfloat16 and hasattr(k_fc, "splits_bf16"):
+            ms["K10 no-sum dev"] = fc_grad_reduction_ms(g, x3)["no_sum_ms"]
         del x, xhat, zpre, dz, g, x3
         torch.cuda.empty_cache()
-    z = r(8 * 256, 12)
-    cb = (torch.rand(2048, 12, device="cuda", generator=gen) * 2 - 1) / 2048
-    ms["K5 dev"] = device_ms(lambda: k_vq.nearest_code(z, cb))
+    # K5 at serving bs 8 (the key earlier trees carry), the train step's
+    # and serving bs 64's N, and the VideoGPT step's against 1024 codes
+    for n, c, key in ((8 * 256, 2048, "K5 dev"), (64 * 256, 2048, "K5 N16384 dev"),
+                      (32 * 16 * 64, 1024, "K5 N32768 dev")):
+        z = r(n, 12)
+        cb = (torch.rand(c, 12, device="cuda", generator=gen) * 2 - 1) / c
+        ms[key] = device_ms(lambda: k_vq.nearest_code(z, cb))
+        # the wrapper's host time: the call a host-bound path waits on
+        ms[key.replace(" dev", " host")] = host_ms(
+            lambda: k_vq.nearest_code(z, cb))
+    return ms
+
+
+def never_last(tiles: int, device):
+    """Counts for the bf16 K10's ``fc_grad`` entry that start far below
+    zero, so that no block of a tile finds itself the last and none adds
+    the partials: the kernel as it runs, without its ordered sum (dW left
+    unwritten; a timing aid, 2³⁰ / splits calls before a count could
+    reach zero)."""
+    import torch
+
+    return torch.full((tiles,), -2 ** 30, dtype=torch.int32, device=device)
+
+
+def fc_grad_call(g, x, splits: int, counts):
+    """A launcher of the bf16 K10 through the library's ``fc_grad`` entry
+    at a forced split count, with ``counts`` (zeroed, or
+    :func:`never_last`), into fresh dW, db and partials."""
+    import torch
+
+    from vit_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    n, fo = g.shape
+    fi = x.shape[1]
+    dw = torch.empty(fo, fi, device=g.device)
+    db = torch.empty(fo, device=g.device)
+    part = torch.empty(max(splits, 2), fo, fi, device=g.device)
+    part_db = torch.empty(max(splits, 2), fo, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+
+    def call():
+        _build.check(lib, lib.fc_grad(
+            g.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            part.data_ptr(), part_db.data_ptr(), counts.data_ptr(), n, fo,
+            fi, splits, stream), "fc_grad")
+    return call
+
+
+def fc_grad_reduction_ms(g, x) -> dict:
+    """The bf16 K10's split count at (g, x) and its ordered sum timed
+    apart, on the card alone (:func:`device_ms`): the wrapper's call
+    (``ms``), the same launch with :func:`never_last` counts, every split's
+    partial written and none added (``no_sum_ms``), and their difference,
+    what the last blocks' sum of the partials costs (``sum_ms``)."""
+    import torch
+
+    from vit_tpu_torch.kernels import fc_grad as k_fc
+
+    n, fo = g.shape
+    fi = x.shape[1]
+    tiles = k_fc.tiles_bf16(fo, fi)
+    splits = k_fc.splits_bf16(n, tiles, torch.cuda.get_device_properties(
+        g.device).multi_processor_count)
+    out = dict(splits=splits,
+               ms=device_ms(lambda: k_fc.matmul_dw_db(g, x)),
+               no_sum_ms=device_ms(fc_grad_call(
+                   g, x, splits, never_last(tiles, g.device))))
+    out["sum_ms"] = out["ms"] - out["no_sum_ms"]
+    return out
+
+
+def time_k10_splits() -> dict:
+    """{row: ms} of the bf16 K10 on the card alone (:func:`device_ms`) at
+    fc2 (g 768 wide, x 3072) and fc1 over N 20480, forced to each split
+    count through the library's ``fc_grad`` entry: as it runs ("K10 fc2 S5
+    dev") and without its ordered sum (:func:`never_last`, "K10 fc2 S5
+    no-sum dev"); a tree whose entry predates its counts argument times
+    nothing (the ``k10`` group)."""
+    import torch
+
+    from vit_tpu_torch.kernels import _build
+    from vit_tpu_torch.kernels import fc_grad as k_fc
+
+    if not hasattr(k_fc, "tiles_bf16"):
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ms = {}
+    for fo, fi, site in ((768, 3072, "fc2"), (3072, 768, "fc1")):
+        g = torch.randn(N_ROWS, fo, device="cuda", generator=gen).bfloat16()
+        x = torch.randn(N_ROWS, fi, device="cuda", generator=gen).bfloat16()
+        tiles = k_fc.tiles_bf16(fo, fi)
+        counts = _build.zeroed("fc_grad", tiles, torch.int32, g.device)
+        for splits in (1, 3, 4, 5, 6, 7, 9, 11):
+            ms[f"K10 {site} S{splits} dev"] = device_ms(
+                fc_grad_call(g, x, splits, counts))
+            if splits > 1:
+                ms[f"K10 {site} S{splits} no-sum dev"] = device_ms(
+                    fc_grad_call(g, x, splits, never_last(tiles, g.device)))
+            torch.cuda.empty_cache()
+        del g, x
+        torch.cuda.empty_cache()
     return ms
 
 
@@ -987,14 +1094,17 @@ def titok_step_spans(name: str, quant: str,
     return ms, spans[order[1]]["kernels"]
 
 
-def fused_titok_step_spans(name: str, dtype: str) -> "tuple[dict, dict]":
+def fused_titok_step_spans(name: str, dtype: str,
+                           fused_ln: str = "1") -> "tuple[dict, dict]":
     """:func:`titok_step_spans` of the flagship step under
     ``VIT_TPU_FUSED_LN=1 VIT_TPU_FUSED_FC=1`` (K9a, K9b, K9c and K10 on
     the MLP and qkv sites, as ``chip_smoke.py``'s train_fused phase runs
-    it), set for this step only."""
+    it), or with ``fused_ln`` "0" under ``VIT_TPU_FUSED_LN=0
+    VIT_TPU_FUSED_FC=1`` (K10 alone, at fc1 and fc2: 48 launches), set for
+    this step only."""
     saved = {k: os.environ.get(k) for k in ("VIT_TPU_FUSED_LN",
                                             "VIT_TPU_FUSED_FC")}
-    os.environ.update(VIT_TPU_FUSED_LN="1", VIT_TPU_FUSED_FC="1")
+    os.environ.update(VIT_TPU_FUSED_LN=fused_ln, VIT_TPU_FUSED_FC="1")
     try:
         return titok_step_spans(name, "none", dtype)
     finally:
@@ -1048,15 +1158,18 @@ STEPS = {"VideoGPT-B step": videogpt_step_ms,
          "TiTok-B fused step": lambda: fused_titok_step_spans(
              "TiTok-B fused step", "bfloat16"),
          "TiTok-B fused fp32 step": lambda: fused_titok_step_spans(
-             "TiTok-B fused fp32 step", "float32")}
-GROUPS = ("kernels", "q8", "queue", "perceptual", "fp32", "steps")
+             "TiTok-B fused fp32 step", "float32"),
+         "TiTok-B fused-FC step": lambda: fused_titok_step_spans(
+             "TiTok-B fused-FC step", "bfloat16", fused_ln="0")}
+GROUPS = ("kernels", "q8", "queue", "k10", "perceptual", "fp32", "steps")
 
 
 def worker(root: str, groups=("kernels", "perceptual", "fp32", "steps"),
            steps=tuple(STEPS)) -> None:
     """One turn: import the checkout at ``root`` and print its times, of
     the ``groups`` in order (``GROUPS``: :func:`time_kernels`,
-    :func:`time_q8_stages`, :func:`time_queue`, :func:`perceptual_ms`,
+    :func:`time_q8_stages`, :func:`time_queue`, :func:`time_k10_splits`,
+    :func:`perceptual_ms`,
     :func:`time_fp32_kernels` with :func:`depthwise_mean_rel`, the
     ``steps`` of ``STEPS``)."""
     sys.path.insert(0, root)
@@ -1077,6 +1190,8 @@ def worker(root: str, groups=("kernels", "perceptual", "fp32", "steps"),
             ms.update(time_q8_stages())
         elif group == "queue":
             ms.update(time_queue())
+        elif group == "k10":
+            ms.update(time_k10_splits())
         elif group == "perceptual":
             ms.update(perceptual_ms())
         elif group == "fp32":
@@ -1117,7 +1232,8 @@ def main(argv=None) -> list:
                     default=["kernels", "perceptual", "fp32", "steps"],
                     help="what a turn times, in order (q8: K12a and K12b "
                          "alone at every fused width, bf16 and fp32 rows; "
-                         "queue: K9a, K9b, K10 and K5 on the card alone)")
+                         "queue: K9a, K9b, K10 and K5 on the card alone; "
+                         "k10: the bf16 K10 at each split count)")
     ap.add_argument("--steps", nargs="+", choices=list(STEPS),
                     default=list(STEPS), help="the steps of the steps group")
     args = ap.parse_args(argv)

@@ -1,13 +1,13 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads and stores (cp.async.bulk.tensor), warpgroup products
 // (wgmma.mma_async m64n64k16, m64n32k16, and m64n128k16 / m64n256k16 for
-// K9a and K10's fp32 form, bf16 in, fp32 accumulate; m64n32k32 int8 in,
+// K9a and K10, bf16 in, fp32 accumulate; m64n32k32 int8 in,
 // int32 accumulate, for K12a and K12b) and setmaxnreg, that the attention
 // kernels (K6, K7/K8 and their packed forms K1, K2; their fp32 forms
 // through fp32-accurate products of three bf16 parts), the ConvNeXt block
 // tail (K3, K4; their fp32 forms the same way), the depthwise convolution
 // (K11a, K11b: halo tiles in, output tiles out by TMA), the LayerNorm →
-// matmul (K9a and its fp32 form) and the fp32 weight gradient (K10's fp32
+// matmul (K9a and its fp32 form) and the weight gradient (K10 and its fp32
 // form) are built from, and the host side of their tensor maps.
 //
 // Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
@@ -542,6 +542,35 @@ __device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t a,
       "}\n"
       : VIT_ACC8(d, 0), VIT_ACC8(d, 8), VIT_ACC8(d, 16), VIT_ACC8(d, 24),
         VIT_ACC8(d, 32), VIT_ACC8(d, 40), VIT_ACC8(d, 48), VIT_ACC8(d, 56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same over 256 columns, m64n256k16: B's 256 columns four 64-column
+// atoms `lbo` bytes apart (desc_mn2); the accumulator layout of
+// wgmma_ss_wide<256>.
+__device__ __forceinline__ void wgmma_ss_mn256(float (&d)[128], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : VIT_ACC8(d, 0), VIT_ACC8(d, 8), VIT_ACC8(d, 16), VIT_ACC8(d, 24),
+        VIT_ACC8(d, 32), VIT_ACC8(d, 40), VIT_ACC8(d, 48), VIT_ACC8(d, 56),
+        VIT_ACC8(d, 64), VIT_ACC8(d, 72), VIT_ACC8(d, 80), VIT_ACC8(d, 88),
+        VIT_ACC8(d, 96), VIT_ACC8(d, 104), VIT_ACC8(d, 112), VIT_ACC8(d, 120)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

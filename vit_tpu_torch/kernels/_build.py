@@ -39,8 +39,10 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
   ln_bwd.cu                K9b  ln_matmul.py:166 (_dgelu_kernel :148)
                            K9c  ln_matmul.py:190 (_ln_bwd_kernel :78)
   fc_grad.cu               K10  fc_grad.py:145 (_fc_grad_kernel :74)
-                                (on fp32 operands: three bf16 parts on
-                                wgmma, hopper.cuh)
+                                (on hopper.cuh: wgmma fed by a TMA ring,
+                                the splits' partials added in order by
+                                each tile's last block; on fp32 operands
+                                three bf16 parts)
   depthwise.cu             K11a depthwise.py:44 (_dw_kernel :24)
                            K11b depthwise.py:124 (_dw_bwd_kernel :77)
                                 (on hopper.cuh: TMA halo tiles in, output
@@ -87,6 +89,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
+
+
+_zeroed: dict = {}
+
+
+def zeroed(name: str, numel: int, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """At least ``numel`` elements of zero scratch for a kernel that leaves
+    it zero again when it ends (K5's keys, K10's counts): one buffer for
+    each (name, device, current stream), so that calls on one stream take
+    it in turn and calls on two streams never share one; a larger request
+    replaces it with a fresh zeroed buffer."""
+    key = (name, device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _zeroed.get(key)
+    if buf is None or buf.numel() < numel or buf.dtype != dtype:
+        buf = torch.zeros(numel, dtype=dtype, device=device)
+        _zeroed[key] = buf
+    return buf
 
 
 def _sources() -> list[Path]:
@@ -236,15 +256,26 @@ def _declare(lib: ctypes.CDLL) -> None:
     # ln_bwd(x, g, dx, N, C, stream)
     lib.ln_bwd.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
     lib.ln_bwd.restype = i32
-    # fc_grad(g, x, dw, db, part, part_db, N, Fo, Fi, splits, stream)
-    lib.fc_grad.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    # fc_grad(g, x, dw, db, part, part_db, counts, N, Fo, Fi, splits,
+    # stream): with splits > 1 part and part_db take the partials, and
+    # counts (a zeroed int a dW tile) let each tile's last block add them
+    # in order in the kernel
+    lib.fc_grad.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.fc_grad.restype = i32
-    # fc_grad_f32_smem(): K10 fp32's dynamic shared memory, bytes
-    lib.fc_grad_f32_smem.argtypes = []
-    lib.fc_grad_f32_smem.restype = i32
-    # vq_nearest(z, codebook, idx, N, C, D, l2_normalize, stream)
-    lib.vq_nearest.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    # fc_grad_tiles(Fo, Fi): the bf16 form's dW tiles (its counts)
+    lib.fc_grad_tiles.argtypes = [i32, i32]
+    lib.fc_grad_tiles.restype = i32
+    # fc_grad_smem(f32): K10's dynamic shared memory, bytes (f32 1: the fp32
+    # form's)
+    lib.fc_grad_smem.argtypes = [i32]
+    lib.fc_grad_smem.restype = i32
+    # vq_nearest(z, codebook, idx, scratch, N, C, D, l2_normalize, splits,
+    #            stream)
+    lib.vq_nearest.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.vq_nearest.restype = i32
+    # vq_nearest_block_rows(D): K5's rows a block
+    lib.vq_nearest_block_rows.argtypes = [i32]
+    lib.vq_nearest_block_rows.restype = i32
     # The fp32 forms. attention_f32_fwd(parts, out, m, l, seed, strides, B,
     # S, H, causal, ...)
     lib.attention_f32_fwd.argtypes = [ptr] * 5 + [strides] + [i32] * 4 + drop
@@ -268,8 +299,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name, like in (("convnext_tail_fwd_q8_f32", "convnext_tail_fwd_q8"),
                        ("convnext_tail_bwd_q8_f32", "convnext_tail_bwd_q8"),
                        ("ln_matmul_dgelu_f32", "ln_matmul_dgelu"),
-                       ("ln_bwd_f32", "ln_bwd"), ("fc_grad_f32", "fc_grad")):
+                       ("ln_bwd_f32", "ln_bwd")):
         getattr(lib, name).argtypes = getattr(lib, like).argtypes
+    # fc_grad_f32(g, x, dw, db, part, part_db, N, Fo, Fi, splits, stream)
+    lib.fc_grad_f32.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     # fma_chains_{f32,bf16}(x, out, n, iters, chains, c, d, stream)
     for name in ("fma_chains_f32", "fma_chains_bf16"):
         getattr(lib, name).argtypes = [ptr, ptr, ctypes.c_longlong, i32, i32,

@@ -12,8 +12,11 @@ g is read once for both. The TPU's layout levers (``db_operand``,
 
 What bounds it on the H100: 2·N·F_out·F_in FLOP against (N·(F_out + F_in))
 bf16 values read and F_out·F_in fp32 written, about 600 FLOP per byte at
-the flagship's widths: the tensor cores. The source's header gives the
-design.
+the flagship's widths: the tensor cores. bf16 operands launch
+``fc_grad_bf16_kernel``: TMA-fed wgmma on 128 × 256 dW tiles, N cut
+into :func:`splits_bf16` parts whose partials the last block of each tile
+adds into dW in split order (a count a tile, kept zeroed between calls by
+``_build.zeroed``). The source's header gives the design.
 
 :class:`FusedDense` is the autograd Function (``_fd_fwd``/``_fd_bwd``,
 :249-265) and :func:`fused_dense` the entry. The wrapper launches the kernel
@@ -32,8 +35,11 @@ from vit_tpu_torch.kernels import _build
 
 LANE = 128
 ACC_BUDGET = 4 * 1024 * 1024   # the JAX gate's fp32 dW block budget (bytes)
-TILE = 128                     # K10's output tile, both sides
-CHUNK = 32                     # rows of N per pipeline stage
+TILE = 128                     # K10's output tile rows (F_out)
+BN_BF16 = 256                  # the bf16 form's tile columns (kBN1)
+# A wave of the bf16 form's blocks costs about as much as this many more
+# rows of N a split (its time against the split count, H100, PERF.md §6)
+WAVE_ROWS = 1024
 
 launches = 0   # K10 launches by matmul_dw_db, for run evidence
 fp32_launches = 0   # of those, the launches of the fp32 form
@@ -56,15 +62,6 @@ def matmul_dw_db_ref(g: torch.Tensor, x: torch.Tensor):
     return g32.t() @ x.float(), g32.sum(0)
 
 
-def _splits(n: int, tiles: int, device: torch.device) -> int:
-    """How many parts the contraction over N is cut into: enough blocks for
-    about four per SM when the output alone has fewer tiles (fc1's and
-    fc2's 6 × 24 on 132 SMs), never more parts than chunks of N."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-4 * sms // tiles)
-    return max(1, min(want, -(-n // (4 * CHUNK))))
-
-
 def splits_f32(n: int, tiles: int, sms: int, most: int = 16) -> int:
     """How many parts the fp32 form cuts the contraction over N into: its
     blocks hold a whole SM each (230 KB of shared memory), so the count s
@@ -75,6 +72,27 @@ def splits_f32(n: int, tiles: int, sms: int, most: int = 16) -> int:
     for s in range(1, max(1, min(most, -(-n // 256))) + 1):
         c = -(-tiles * s // sms) / s
         if cost is None or c < cost - 1e-12:
+            best, cost = s, c
+    return best
+
+
+def tiles_bf16(fo: int, fi: int) -> int:
+    """The bf16 form's dW tiles: 128 rows × BN_BF16 columns."""
+    return (fo // TILE) * -(-fi // BN_BF16)
+
+
+def splits_bf16(n: int, tiles: int, sms: int) -> int:
+    """How many parts the bf16 form cuts N into: its blocks hold an SM each
+    (the ring's 192 KB), and a wave of them costs its rows plus a fixed
+    WAVE_ROWS (the ring's fill, the epilogue, the splits' ordered sum), so
+    the count s of at most 16 parts (and one per 256 rows) that
+    minimises ceil(tiles·s / sms)·(ceil(n / s) + WAVE_ROWS), the first such
+    s (fc1's and fc2's 72 tiles of 128 × 256 over N 20480 on 132 SMs: 5
+    parts in 3 waves)."""
+    best, cost = 1, None
+    for s in range(1, max(1, min(16, -(-n // 256))) + 1):
+        c = -(-tiles * s // sms) * (-(-n // s) + WAVE_ROWS)
+        if cost is None or c < cost:
             best, cost = s, c
     return best
 
@@ -102,25 +120,30 @@ def matmul_dw_db(g: torch.Tensor, x: torch.Tensor):
     dw = torch.empty(fo, fi, dtype=torch.float32, device=g.device)
     db = torch.empty(fo, dtype=torch.float32, device=g.device)
     f32 = g.dtype == torch.float32
-    tiles = (fo // TILE) * (fi // TILE)
-    splits = (splits_f32(n, tiles, torch.cuda.get_device_properties(
-        g.device).multi_processor_count) if f32
-              else _splits(n, tiles, g.device))
-    part = part_db = None
-    if splits > 1:   # fp32 partial sums, reduced in a fixed order
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    lib = _build.load()
+    tiles = (fo // TILE) * (fi // TILE) if f32 else tiles_bf16(fo, fi)
+    splits = (splits_f32 if f32 else splits_bf16)(n, tiles, sms)
+    args = (None, None)
+    if splits > 1:   # fp32 partial sums, added in a fixed order
         part = torch.empty(splits, fo, fi, dtype=torch.float32,
                            device=g.device)
         part_db = torch.empty(splits, fo, dtype=torch.float32,
                               device=g.device)
+        args = (part.data_ptr(), part_db.data_ptr())
+    if not f32:
+        # a count a dW tile: its last split adds the partials in the
+        # kernel, and leaves the counts zero
+        counts = (_build.zeroed("fc_grad", tiles, torch.int32, g.device)
+                  if splits > 1 else None)
+        args += (None if counts is None else counts.data_ptr(),)
+    args += (n, fo, fi, splits)
     entry = "fc_grad_f32" if f32 else "fc_grad"
-    lib = _build.load()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = getattr(lib, entry)(
-            g.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            None if part is None else part.data_ptr(),
-            None if part_db is None else part_db.data_ptr(), n, fo, fi,
-            splits, stream)
+            g.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(), *args,
+            stream)
     _build.check(lib, err, entry)
     global launches, fp32_launches
     launches += 1
