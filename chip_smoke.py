@@ -202,7 +202,35 @@ false``. Phases, one JSON line each:
                 synthetic --no_wandb --epochs 1 --steps_per_epoch 5
                 --log_every 1`` (ViT-L/16 @256, dropout 0.15, bs 64) as a
                 subprocess, then the same with ``--mixed false``: exit code
-                0, five finite losses and the eval line.
+                0, five finite losses and the eval line; checkpoints and
+                logs in a temporary directory;
+ 15. train_titok_entry — ``python -m vit_tpu_torch.train_titok`` at the
+                flagship defaults with ``--dataset synthetic --bs 64
+                --perceptual_weights random``: a subprocess sent SIGTERM
+                after step 5 exits 0 with PREEMPTED and a "last" at step 5
+                or later; ``--resume`` continues from it for 3 steps; 3
+                steps each under ``--mixed false`` and
+                ``--perceptual_quant int8``; these three call the entry's
+                ``main`` in this process with the launches counted (K1-K5,
+                their fp32 forms, K12a/K12b); step times; a TiTok-B
+                checkpoint (fp32 parameters, bf16 μ, fp32 ν) saved as
+                "best" and "last" and restored bit for bit, with the seconds
+                of each save;
+ 16. train_titok_converge — the committed S-scale TPU run
+                (``runs/titok-synthetic/8px_64px_S_32_1024.jsonl``: TiTok-S
+                at image 64, bs 64, 25 epochs of 100 steps on the shapes
+                stream) with its ``_config`` through the entry's ``main``,
+                for its first 6 epochs (``--converge_epochs 25``: the whole
+                run): the median recon loss of the logs at steps 426-576
+                within twice the TPU run's and below a tenth of step 1's
+                (the whole run: also the last four logs' median); the curve
+                beside the TPU run's; the run's "best" weights encode 128
+                held-out shapes images through the kernels and the plain
+                versions: code agreement, every differing code a near-tie,
+                the reconstructions' PSNR.
+
+``--titok_only`` runs the device, build and the last two phases alone (no
+kernels line, no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
 arm's numbers and its dropout launches; each kernel with an fp32 form with
@@ -221,6 +249,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -273,12 +302,16 @@ from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu  # noqa: E402
 from vit_tpu_torch.serve.export import (export_tokenizer,  # noqa: E402
                                         export_videogpt, load_exported)
 from vit_tpu_torch.serve.server import make_server  # noqa: E402
+from vit_tpu_torch.data.synthetic import SyntheticImageLoader  # noqa: E402
+from vit_tpu_torch.train.checkpoint import Checkpointer  # noqa: E402
+from vit_tpu_torch.train.checkpoint import load_params  # noqa: E402
 from vit_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from vit_tpu_torch.train.state import TrainState  # noqa: E402
 from vit_tpu_torch.train.step import (make_classifier_train_step,  # noqa: E402
                                       make_tokenizer_train_step,
                                       make_videogpt_train_step)
 from vit_tpu_torch.utils.init import init_convnext_, init_params_  # noqa: E402
+from vit_tpu_torch.utils.metrics import psnr  # noqa: E402
 
 FLAGSHIP = dict(image_size=128, patch_size=16, latent_tokens=256,
                 codebook_size=2048, latent_dim=12, transformer="B")
@@ -4649,14 +4682,16 @@ def phase_train_vit_entry(card: str, *flags: str) -> None:
     @256, dropout 0.15, bs 64) and ``flags`` (``--mixed false``: fp32) on
     the synthetic stream for one epoch of 5 steps, as a user runs it: return
     code 0, a finite loss on every step's line and the epoch's eval line."""
-    cmd = [sys.executable, "-m", "vit_tpu_torch.train_vit", "--dataset",
-           "synthetic", "--no_wandb", "--epochs", "1", "--steps_per_epoch",
-           "5", "--log_every", "1", *flags]
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    seconds = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vit_") as tmp:
+        cmd = [sys.executable, "-m", "vit_tpu_torch.train_vit", "--dataset",
+               "synthetic", "--no_wandb", "--epochs", "1", "--steps_per_epoch",
+               "5", "--log_every", "1", "--ckpt_dir", f"{tmp}/ckpt",
+               "--run_dir", f"{tmp}/runs", *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
     lines = proc.stdout.splitlines()
     steps = [re.match(r"e=0 i=\d+ loss=(\S+) acc=\S+ load_time=\S+ "
                       r"step_time=(\S+)", line) for line in lines]
@@ -4675,6 +4710,349 @@ def phase_train_vit_entry(card: str, *flags: str) -> None:
             f"train_vit's step lines: {lines}")
     require(len(evals) == 1 and np.isfinite(evals[0]),
             f"train_vit's eval line: {lines}")
+
+
+# The train_titok entry: its flags in every run of the phase, the step it
+# is sent SIGTERM after and the steps of each short run.
+TITOK_ENTRY = ("--dataset", "synthetic", "--bs", "64", "--perceptual_weights",
+               "random", "--no_wandb", "--log_every", "1")
+PREEMPT_AFTER = 5
+SHORT_STEPS = 3
+# The committed TPU run the S-scale run is held against, and the limits:
+# twice the TPU run's median recon loss over the logs at steps 426-576 (and
+# over its last four logs when the whole run is made), and a tenth of the
+# run's own step-1 value.
+TPU_RUN = ROOT / "runs" / "titok-synthetic" / "8px_64px_S_32_1024.jsonl"
+CONVERGE_WINDOW = (426, 576)
+CONVERGE_FACTOR = 2.0
+CONVERGE_DROP = 0.1
+# the steps of the curve printed beside the TPU run's
+CURVE_STEPS = (1, 26, 101, 501, 1001, 2001)
+# Queue C #1 with trained weights: images of a seed the run never drew
+HELD_OUT_SEED, HELD_OUT_IMAGES = 123457, 128
+# epochs of the S-scale run in a whole smoke run (6: its first 600 steps,
+# logs up to step 576)
+SMOKE_CONVERGE_EPOCHS = 6
+
+
+def entry_lines(proc: subprocess.Popen, stop: str, lines: list,
+                timeout: float = 600) -> bool:
+    """Read ``proc``'s output into ``lines`` until a line starts with
+    ``stop``; False if the output ends or the time runs out first."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            return False
+        lines.append(line.rstrip("\n"))
+        if line.startswith(stop):
+            return True
+    return False
+
+
+def entry_steps(lines: list) -> "list[tuple[int, float, float]]":
+    """(i, loss, step_time) of each step line of the train_titok entry."""
+    out = []
+    for line in lines:
+        m = re.match(r"e=\d+ i=(\d+) loss=(\S+) recon=\S+ quant=\S+ "
+                     r"usage=\S+ step_time=(\S+)", line)
+        if m:
+            out.append((int(m.group(1)), float(m.group(2)),
+                        float(m.group(3))))
+    return out
+
+
+def run_titok_entry(*flags: str, stop: str) -> dict:
+    """``python -m vit_tpu_torch.train_titok`` with ``flags`` as a
+    subprocess, sent SIGTERM once a line starts with ``stop``."""
+    cmd = [sys.executable, "-m", "vit_tpu_torch.train_titok", *flags]
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    try:
+        reached = entry_lines(proc, stop, lines)
+        require(reached, f"train_titok never printed {stop!r}: {lines[-30:]}")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines += out.splitlines()
+    require(proc.returncode == 0,
+            f"train_titok exited {proc.returncode}: {lines[-30:]}")
+    return entry_run(" ".join(cmd[1:]), time.perf_counter() - t0, lines)
+
+
+def run_titok_main(*flags: str) -> dict:
+    """``vit_tpu_torch.train_titok.main(flags)`` in this process, its output
+    captured, the kernels' launch counts set to 0 just before it and read
+    just after (its SIGTERM handler is removed again afterwards)."""
+    from vit_tpu_torch.train_titok import main as titok_main
+
+    buf = io.StringIO()
+    prev = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            titok_main(list(flags))
+        torch.cuda.synchronize()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    run = entry_run("-m vit_tpu_torch.train_titok " + " ".join(flags),
+                    time.perf_counter() - t0, buf.getvalue().splitlines())
+    run["launches"] = read_launches()
+    run["fp32_launches"] = read_fp32_launches()
+    torch.cuda.empty_cache()
+    return run
+
+
+def entry_run(cmd: str, seconds: float, lines: list) -> dict:
+    run = dict(cmd=cmd, seconds=seconds, lines=lines,
+               steps=entry_steps(lines))
+    require(run["steps"] and all(np.isfinite(l) for _, l, _ in run["steps"]),
+            f"train_titok's step lines: {lines[-30:]}")
+    return run
+
+
+def require_launched(run: dict, names, key: str = "launches") -> None:
+    missing = [n for n in names if run[key][n] == 0]
+    require(not missing, f"{run['cmd']}: kernels never launched: {missing}")
+
+
+def entry_summary(run: dict) -> dict:
+    """What a phase line keeps of a run: the command, seconds, the steps'
+    losses and times, the last lines, the launches."""
+    return dict(cmd=run["cmd"], seconds=run["seconds"],
+                step_losses=[l for _, l, _ in run["steps"]],
+                step_times=[t for _, _, t in run["steps"]],
+                tail=run["lines"][-6:],
+                **{k: {n: v for n, v in run[k].items() if v}
+                   for k in ("launches", "fp32_launches") if k in run})
+
+
+def checkpoint_round_trip(work: Path) -> dict:
+    """A TiTok-B train state on the card (fp32 parameters, bf16 μ, fp32 ν,
+    after one step) saved as "best" and "last" and restored into a state of
+    other weights: every tensor equal; the seconds of each save."""
+    model = TiTok(TiTokConfig(**FLAGSHIP))
+    init_params_(model, torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    state = TrainState.create(model, flagship_optimizer())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    images = torch.rand(8, 128, 128, 3, device="cuda", generator=gen)
+    usage = torch.zeros(model.config.codebook_size, device="cuda")
+    make_tokenizer_train_step(model)(state, images, usage)
+    torch.cuda.synchronize()
+    ckpt = Checkpointer(str(work / "titok_b_ckpt"))
+    seconds = {}
+    for tag in ("best", "last"):
+        t0 = time.perf_counter()
+        ckpt.save(state, config=model.config, tag=tag)
+        seconds[tag] = time.perf_counter() - t0
+    nbytes = (work / "titok_b_ckpt" / "last" / "state.pt").stat().st_size
+    other = TiTok(TiTokConfig(**FLAGSHIP))
+    init_params_(other, torch.Generator().manual_seed(1))
+    other_state = TrainState.create(other.cuda().train(),
+                                    flagship_optimizer())
+    t0 = time.perf_counter()
+    Checkpointer(str(work / "titok_b_ckpt")).restore(other_state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want, got = state.state_dict(), other_state.state_dict()
+    equal = (torch.equal(want["step"], got["step"])
+             and torch.equal(want["opt_state"]["count"],
+                             got["opt_state"]["count"])
+             and all(torch.equal(want[g][k], got[g][k])
+                     for g in ("params",) for k in want[g])
+             and all(torch.equal(want["opt_state"][g][k],
+                                 got["opt_state"][g][k])
+                     for g in ("mu", "nu") for k in want["opt_state"][g]))
+    out = dict(save_seconds=seconds, restore_seconds=restore_s,
+               bytes_per_tag=nbytes, equal=equal,
+               mu_dtype=str(other_state.opt_state.mu[0].dtype))
+    require(equal, f"TiTok-B checkpoint round trip differs: {out}")
+    del model, other, state, other_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_titok_entry(card: str, work: Path) -> "tuple[dict, dict]":
+    """``python -m vit_tpu_torch.train_titok`` at the flagship defaults
+    (TiTok-B, image 128, patch 16, 256 tokens, codebook 2048 × 12) with bs
+    64 and the random ConvNeXt-S perceptual loss: run A, a subprocess sent
+    SIGTERM after step ``PREEMPT_AFTER``, must exit 0 with PREEMPTED and a
+    "last" at that step or later; run B resumes from it for ``SHORT_STEPS``
+    steps; then ``SHORT_STEPS`` steps under ``--mixed false`` and under
+    ``--perceptual_quant int8``; runs B and after call the entry's ``main``
+    in this process, each with its launches counted (K1-K5; their fp32
+    forms; K12a/K12b); then a TiTok-B checkpoint round trip. Returns the
+    launches and the fp32 launches of those runs."""
+    torch.cuda.empty_cache()
+
+    def dirs(name):
+        return ("--ckpt_dir", str(work / name / "ckpt"),
+                "--run_dir", str(work / name / "runs"))
+
+    a = run_titok_entry(*TITOK_ENTRY, *dirs("bf16"), "--steps_per_epoch",
+                        "100000", stop=f"e=0 i={PREEMPT_AFTER}")
+    meta = json.loads((work / "bf16" / "ckpt" / "last_meta.json").read_text())
+    require(any(line.startswith("PREEMPTED: saving 'last' at step")
+                for line in a["lines"]), f"no PREEMPTED line: {a['lines']}")
+    require(meta["step"] >= PREEMPT_AFTER, f"last_meta.json: {meta}")
+    b = run_titok_main(*TITOK_ENTRY, *dirs("bf16"), "--resume", "--epochs",
+                       "1", "--steps_per_epoch", "100000",
+                       "--max_epoch_steps", str(meta["step"] + SHORT_STEPS))
+    resumed = [int(line.split()[-1]) for line in b["lines"]
+               if line.startswith("RESUMED at step")]
+    require(resumed and resumed[0] >= meta["step"],
+            f"run B did not resume at step {meta['step']}: {b['lines']}")
+    require(f"RESUMED data stream at epoch 0, batch {meta['step']}"
+            in b["lines"], f"run B's stream position: {b['lines']}")
+    require(len(b["steps"]) == SHORT_STEPS, f"run B's steps: {b['lines']}")
+    tokenizer = ("attention_packed_fwd", "attention_packed_bwd", "vq_nearest")
+    require_launched(b, tokenizer + ("convnext_tail_fwd", "convnext_tail_bwd"))
+    short = {}
+    runs = [b]
+    for name, flags, kernels, key in (
+            ("fp32", ("--mixed", "false"), tokenizer
+             + ("convnext_tail_fwd", "convnext_tail_bwd"), "fp32_launches"),
+            ("int8", ("--perceptual_quant", "int8"), tokenizer
+             + ("convnext_tail_fwd_q8", "convnext_tail_bwd_q8"), "launches")):
+        run = run_titok_main(*TITOK_ENTRY, *dirs(name), *flags, "--epochs",
+                             "1", "--steps_per_epoch", str(SHORT_STEPS))
+        require(len(run["steps"]) == SHORT_STEPS,
+                f"{name} run's steps: {run['lines']}")
+        require_launched(run, kernels, key)
+        short[name] = entry_summary(run)
+        runs.append(run)
+    ckpt = checkpoint_round_trip(work)
+    emit("train_titok_entry", card=card, preempted=entry_summary(a),
+         last_meta=meta, resumed_at=resumed[0], resumed=entry_summary(b),
+         **short, checkpoint=ckpt)
+    return ({n: sum(r["launches"][n] for r in runs) for n in b["launches"]},
+            {n: sum(r["fp32_launches"][n] for r in runs)
+             for n in b["fp32_launches"]})
+
+
+def converge_argv(config: dict, work: Path, epochs: int) -> "list[str]":
+    """The train_titok flags of a logged ``_config`` (the committed TPU
+    run's), with this run's checkpoint and log directories and ``epochs``."""
+    switches = {"resume", "no_wandb", "watch"}
+    argv = []
+    for key, value in config.items():
+        if key in ("min_lr", "ckpt_dir", "run_dir", "epochs") or value is None:
+            continue
+        if key in switches:
+            argv += [f"--{key}"] if value else []
+        elif isinstance(value, bool):
+            argv += [f"--{key}", str(value).lower()]
+        else:
+            argv += [f"--{key}", str(value)]
+    return argv + ["--epochs", str(epochs), "--ckpt_dir",
+                   str(work / "converge" / "ckpt"), "--run_dir",
+                   str(work / "converge" / "runs")]
+
+
+def recon_curve(path: Path) -> "dict[int, float]":
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    return {r["_step"]: r["train/recon_loss"] for r in rows
+            if "train/recon_loss" in r}
+
+
+def held_out_codes(ckpt_dir: Path, config: dict) -> dict:
+    """Queue C #1 with trained weights: the run's "best" weights on the
+    card encode ``HELD_OUT_IMAGES`` shapes images of a seed the run never
+    drew, through the kernels and through their plain versions; the codes'
+    agreement, every differing code checked for a near-tie of the latent
+    difference, and the PSNR of the kernels' reconstructions."""
+    cfg = TiTokConfig(config["image_size"], config["patch_size"],
+                      config["latent_tokens"], config["codebook_size"],
+                      config["latent_dim"], config["transformer"])
+    model = TiTok(cfg, device="meta")
+    model.load_state_dict(load_params(str(ckpt_dir), "best"), assign=True)
+    model = model.cuda().eval().requires_grad_(False)
+    images, _ = next(iter(SyntheticImageLoader(
+        cfg.image_size, HELD_OUT_IMAGES, seed=HELD_OUT_SEED, mode="shapes")))
+    x = torch.from_numpy(images).cuda()
+    with torch.no_grad():
+        reset_launches()
+        lat_k = model.enc(x)
+        ik = model.quant(lat_k)[1]
+        recon = model.dec(model.quant.lookup(ik)).float()
+        launches = read_launches()
+        with plain_versions():
+            lat_p = model.enc(x)
+            ip = model.quant(lat_p)[1]
+            recon_p = model.dec(model.quant.lookup(ip)).float()
+    flips = code_flips(lat_k, lat_p, model.quant.codebook, ik, ip)
+    out = dict(seed=HELD_OUT_SEED, images=HELD_OUT_IMAGES,
+               best_meta=json.loads((ckpt_dir / "best_meta.json").read_text()),
+               launches={k: v for k, v in launches.items() if v},
+               psnr_db=psnr(recon.clamp(0, 1), x).mean().item(),
+               psnr_plain_db=psnr(recon_p.clamp(0, 1), x).mean().item(),
+               **flips)
+    require(flips["unexplained_disagreements"] == 0,
+            f"trained TiTok-S codes differ beyond near-ties: {out}")
+    return out
+
+
+def phase_train_titok_converge(card: str, work: Path,
+                               epochs: "int | None" = None) -> dict:
+    """The committed S-scale TPU run (``TPU_RUN``: TiTok-S, image 64, patch
+    8, 32 tokens, codebook 1024, bs 64, lr 3e-4, warmup 100, seed 3, the
+    shapes stream, 100 steps an epoch) through ``python -m
+    vit_tpu_torch.train_titok`` with its ``_config``, for ``epochs`` of its
+    25 epochs (all by default): the median recon loss over the logs in
+    ``CONVERGE_WINDOW`` within ``CONVERGE_FACTOR`` × the TPU run's and
+    below ``CONVERGE_DROP`` × the run's step-1 value; over a whole run the
+    median of the last four logs too. Then the run's "best" weights encode
+    held-out images (``held_out_codes``)."""
+    rows = TPU_RUN.read_text().splitlines()
+    config = json.loads(rows[0])["_config"]
+    epochs = epochs or config["epochs"]
+    torch.cuda.empty_cache()
+    run = run_titok_main(*converge_argv(config, work, epochs))
+    require_launched(run, ("attention_packed_fwd", "attention_packed_bwd",
+                           "vq_nearest"))
+    got = recon_curve(work / "converge" / "runs" / "titok-synthetic"
+                      / TPU_RUN.name)
+    tpu = recon_curve(TPU_RUN)
+    lo, hi = CONVERGE_WINDOW
+
+    def window(curve):
+        return float(np.median([v for s, v in curve.items() if lo <= s <= hi]))
+
+    def last4(curve):
+        return float(np.median([curve[s] for s in sorted(curve)[-4:]]))
+
+    whole = epochs == config["epochs"]
+    shown = [s for s in CURVE_STEPS if s in got] + (
+        sorted(got)[-4:] if whole else [])
+    out = dict(card=card, epochs=epochs, steps=max(got),
+               seconds=run["seconds"],
+               step_time_median=float(np.median(
+                   [t for _, _, t in run["steps"][2:]])),
+               curve={s: dict(cuda=got[s], tpu=tpu.get(s)) for s in shown},
+               window_median=dict(cuda=window(got), tpu=window(tpu)),
+               last4_median=(dict(cuda=last4(got), tpu=last4(tpu))
+                             if whole else None),
+               launches={n: v for n, v in run["launches"].items() if v})
+    out["held_out"] = held_out_codes(work / "converge" / "ckpt", config)
+    emit("train_titok_converge", **out)
+    require(out["window_median"]["cuda"]
+            <= CONVERGE_FACTOR * out["window_median"]["tpu"],
+            f"S-scale run's recon loss over steps {lo}-{hi}: {out}")
+    require(out["window_median"]["cuda"] < CONVERGE_DROP * got[1],
+            f"S-scale run's recon loss did not fall tenfold: {out}")
+    if whole:
+        require(out["last4_median"]["cuda"]
+                <= CONVERGE_FACTOR * out["last4_median"]["tpu"],
+                f"S-scale run's last four logs: {out}")
+    return run["launches"]
 
 
 def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
@@ -4916,9 +5294,33 @@ def phase_perceptual(state_dict: dict, card: str) -> dict:
     return total
 
 
-def main() -> None:
+def titok_phases(card: str, converge_epochs: "int | None"
+                 ) -> "tuple[dict, dict]":
+    """The train_titok entry's phases; their launches summed, and the fp32
+    launches."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_titok_") as tmp:
+        launches, fp32_launches = phase_train_titok_entry(card, Path(tmp))
+        converge = phase_train_titok_converge(card, Path(tmp),
+                                              converge_epochs)
+    return ({n: launches[n] + converge[n] for n in launches}, fp32_launches)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--converge_epochs", type=int,
+                        default=SMOKE_CONVERGE_EPOCHS,
+                        help="epochs of the S-scale run (25: the whole run)")
+    parser.add_argument("--titok_only", action="store_true",
+                        help="only the build and the train_titok phases; "
+                             "no kernels line and no closing line")
+    args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
+    if args.titok_only:
+        titok_phases(card, args.converge_epochs)
+        return
     fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
     for name, arm in fp32_kernels(
@@ -4953,9 +5355,12 @@ def main() -> None:
     fp32_path_launches, fp32_launches = phase_fp32(card)
     phase_train_vit_entry(card)
     phase_train_vit_entry(card, "--mixed", "false")
+    titok_launches, titok_fp32 = titok_phases(card, args.converge_epochs)
+    for name, n in titok_fp32.items():
+        fp32_launches[name] = fp32_launches.get(name, 0) + n
     for path in (train_launches, fused_launches, gpt_launches,
                  rollout_launches, int8_launches, perceptual_launches,
-                 vit_launches, fp32_path_launches):
+                 vit_launches, fp32_path_launches, titok_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]

@@ -314,7 +314,7 @@ def test_videogpt_step_runs_fp32_kernels():
     assert np.isfinite(m["train/loss"].item())
 
 
-def test_train_vit_runs_with_mixed_false(capsys):
+def test_train_vit_runs_with_mixed_false(capsys, tmp_path):
     """``--mixed false`` on the CPU trains in fp32 through the plain
     versions, and on the default CUDA device it is no longer refused."""
     from vit_tpu_torch.train_vit import check_ported, main, parse_args
@@ -326,7 +326,9 @@ def test_train_vit_runs_with_mixed_false(capsys):
                      "--image_size", "32", "--patch_size", "8", "--bs", "4",
                      "--num_classes", "10", "--epochs", "1",
                      "--steps_per_epoch", "2", "--log_every", "1",
-                     "--warmup_steps", "1"])
+                     "--warmup_steps", "1", "--ckpt_dir",
+                     str(tmp_path / "ckpt"), "--run_dir",
+                     str(tmp_path / "runs")])
     assert [r["i"] for r in logs["train"]] == [0, 1]
     assert all(np.isfinite(r["loss"]) for r in logs["train"])
     assert np.isfinite(logs["valid"][0]["loss"])

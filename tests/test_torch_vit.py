@@ -254,15 +254,20 @@ def test_synthetic_image_loader_matches_jax():
             np.testing.assert_array_equal(yp, yr)
 
 
-def test_train_vit_entry_runs_on_the_cpu(capsys):
+TINY_VIT_ENTRY = ["--dataset", "synthetic", "--no_wandb", "--device", "cpu",
+                  "--transformer", "tiny", "--image_size", "32",
+                  "--patch_size", "8", "--bs", "4", "--num_classes", "10",
+                  "--steps_per_epoch", "2", "--log_every", "1",
+                  "--warmup_steps", "1"]
+
+
+def test_train_vit_entry_runs_on_the_cpu(capsys, tmp_path):
     from vit_tpu_torch.train_vit import main
 
     with tiny_preset():
-        logs = main(["--dataset", "synthetic", "--no_wandb", "--device", "cpu",
-                     "--transformer", "tiny", "--image_size", "32",
-                     "--patch_size", "8", "--bs", "4", "--num_classes", "10",
-                     "--epochs", "1", "--steps_per_epoch", "2",
-                     "--log_every", "1", "--warmup_steps", "1"])
+        logs = main(TINY_VIT_ENTRY + ["--epochs", "1",
+                                      "--ckpt_dir", str(tmp_path / "ckpt"),
+                                      "--run_dir", str(tmp_path / "runs")])
     assert [r["i"] for r in logs["train"]] == [0, 1]
     assert all(np.isfinite(r["loss"]) and 0 <= r["acc"] <= 1
                for r in logs["train"])
@@ -272,21 +277,82 @@ def test_train_vit_entry_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset", "imagenet"], ["--dataset", "wds"], ["--resume"],
-    ["--ckpt_dir", "ckpt"], ["--init_from", "ckpt"],
+    ["--dataset", "imagenet"], ["--dataset", "wds"], ["--init_from", "ckpt"],
     ["--scan_layers", "true"], ["--mesh", "1,1,1"],
     ["--pp_microbatches", "2"], ["--loader_backend", "grain"],
-    ["--loader_processes", "2"], ["--run_dir", "runs"],
-    ["--attn_impl", "xla"],
+    ["--loader_processes", "2"], ["--attn_impl", "xla"],
 ], ids=lambda f: "_".join(a.lstrip("-") for a in f))
 def test_train_vit_refuses_unported_flags(flags):
-    """Each flag whose path is not ported raises before anything is built
-    (``--mixed false`` runs: tests/test_torch_fp32.py)."""
+    """Each flag whose path is not ported raises before anything is built,
+    naming its ROADMAP item (``--mixed false`` runs:
+    tests/test_torch_fp32.py)."""
     from vit_tpu_torch.train_vit import main
 
     base = [] if flags[:1] == ["--dataset"] else ["--dataset", "synthetic"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A #"):
         main(base + flags)
+
+
+def _vit_entry(tmp_path, name: str, epochs: int, *extra: str):
+    from vit_tpu_torch.train_vit import main
+
+    with tiny_preset():
+        return main(TINY_VIT_ENTRY + [
+            "--epochs", str(epochs), "--ckpt_dir", str(tmp_path / name),
+            "--run_dir", str(tmp_path / "runs" / name), *extra])
+
+
+@pytest.mark.parametrize("flag", ["resume", "ckpt_dir", "run_dir"])
+def test_train_vit_lifted_flags(flag, tmp_path, capsys):
+    """The flags the JAX entry's checkpoints and logger serve. ``resume``:
+    one epoch, then ``--resume`` for the second, repeats the straight
+    two-epoch run's second epoch (dropout 0.15 included: its generator is
+    seeded by the step) at rtol 1e-6. ``ckpt_dir``: "best" is the epoch of
+    the highest validation accuracy (mode max) and "last" the final step,
+    each restorable. ``run_dir``: the JSONL log with its ``_config`` line,
+    the train and valid records and the final ``_step``."""
+    import json
+
+    from vit_tpu_torch.train.checkpoint import load_params
+
+    if flag == "resume":
+        straight = _vit_entry(tmp_path, "a", 2)
+        _vit_entry(tmp_path, "b", 1)
+        capsys.readouterr()
+        resumed = _vit_entry(tmp_path, "b", 2, "--resume")
+        assert "RESUMED data stream at epoch 1, batch 0" in \
+            capsys.readouterr().out
+        want = [r for r in straight["train"] if r["epoch"] == 1]
+        assert [r["i"] for r in resumed["train"]] == [r["i"] for r in want]
+        for got, ref in zip(resumed["train"], want):
+            np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-6)
+    elif flag == "ckpt_dir":
+        logs = _vit_entry(tmp_path, "c", 2)
+        accs = [r["acc"] for r in logs["valid"]]
+        meta = json.loads((tmp_path / "c" / "last_meta.json").read_text())
+        assert meta["step"] == 4
+        if max(accs) > 0:   # "best" is saved only above accuracy 0
+            best = json.loads((tmp_path / "c" / "best_meta.json").read_text())
+            assert best["best"] == max(accs)
+            assert best["step"] == 2 * (1 + accs.index(max(accs)))
+            assert set(load_params(str(tmp_path / "c"), "best")) == \
+                set(load_params(str(tmp_path / "c"), "last"))
+        else:
+            assert not (tmp_path / "c" / "best").exists()
+        assert json.loads((tmp_path / "c" / "last_config.json").read_text()
+                          )["transformer"] == "tiny"
+    else:
+        logs = _vit_entry(tmp_path, "d", 1)
+        path = tmp_path / "runs" / "d" / "vit-classifier" / \
+            "8px_32px_tiny_4bs_0.0001lr_0.15drp.jsonl"
+        rows = [json.loads(line) for line in path.read_text().splitlines()]
+        assert rows[0]["_config"]["transformer"] == "tiny"
+        assert rows[0]["_platform"] == "cpu"
+        train = [r for r in rows if "train/loss" in r]
+        assert [r["_step"] for r in train] == [1, 2]
+        np.testing.assert_allclose([r["train/loss"] for r in train],
+                                   [r["loss"] for r in logs["train"]])
+        assert rows[-1]["valid/loss"] == logs["valid"][0]["loss"]
 
 
 class _Codes:

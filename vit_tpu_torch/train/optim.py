@@ -64,6 +64,20 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
     return g_norm
 
 
+def check_named(got: dict, want: dict, what: str) -> None:
+    """Raise unless ``got`` has ``want``'s names, in order, and its
+    shapes and dtypes."""
+    if list(got) != list(want):
+        raise KeyError(f"{what}: names differ: missing "
+                       f"{sorted(set(want) - set(got))}, extra "
+                       f"{sorted(set(got) - set(want))}")
+    for name, t in want.items():
+        if got[name].shape != t.shape or got[name].dtype != t.dtype:
+            raise ValueError(f"{what} {name}: {tuple(got[name].shape)} "
+                             f"{got[name].dtype}, want {tuple(t.shape)} "
+                             f"{t.dtype}")
+
+
 @dataclasses.dataclass
 class OptState:
     """AdamW moments, the update count, and the last pre-clip gradient norm
@@ -73,6 +87,23 @@ class OptState:
     mu: "list[torch.Tensor]"          # first moments, in mu_dtype
     nu: "list[torch.Tensor]"          # second moments, fp32
     grad_norm: Optional[torch.Tensor] = None
+
+    def state_dict(self, names: Sequence[str]) -> dict:
+        """The count and the moments keyed by parameter name (live
+        tensors, no copies); the recorded gradient norm is not state."""
+        return {"count": self.count, "mu": dict(zip(names, self.mu)),
+                "nu": dict(zip(names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict, names: Sequence[str]) -> None:
+        """Copy a ``state_dict`` in place; the names, shapes and dtypes
+        must be this state's."""
+        for key in ("mu", "nu"):
+            live = getattr(self, key)
+            check_named(sd[key], dict(zip(names, live)), key)
+            for t, name in zip(live, names):
+                t.copy_(sd[key][name])
+        self.count.copy_(sd["count"])
 
 
 class Optimizer:

@@ -14,12 +14,19 @@ forms, with TF32 off in cuBLAS and cuDNN. Each epoch trains ``--steps_per_epoch`
 accuracy and step time every ``--log_every`` steps, then runs the eval step
 over the validation stream and prints its loss and accuracy.
 
-Ported so far: ``--dataset synthetic`` (the JAX loader's noise stream). The
-rest of the flag set is refused with a message until it is ported: the
-ImageNet and webdataset loaders, checkpoints (``--ckpt_dir``,
-``--resume``), ``--init_from``, the scanned and pipelined stacks, device
-meshes, the loader backends and the metrics logger's ``--run_dir``.
-``--no_wandb`` is accepted: the port logs to standard output only.
+The loop logs to ``<run_dir>/vit-classifier/<run>.jsonl``, keeps the
+checkpoint of the best validation accuracy ("best") and a "last" one under
+``--ckpt_dir``, resumes with the stream position (``--resume``) and saves
+"last" on SIGTERM, as the JAX entry does. Each step's dropout is drawn from
+a generator seeded by ``--seed`` and the step, so a resumed run draws the
+masks the uninterrupted run draws.
+
+Ported so far: ``--dataset synthetic`` (the JAX loader's noise stream),
+checkpoints and resume, and the metrics log. The rest of the flag set is
+refused with a message naming its ROADMAP item: the ImageNet and webdataset
+loaders and their backends, ``--init_from``, the scanned and pipelined
+stacks and device meshes. ``--no_wandb`` is accepted; the port logs to
+files only.
 """
 
 from __future__ import annotations
@@ -29,26 +36,20 @@ import time
 
 import torch
 
+from vit_tpu_torch.data.prefetch import ToDevice, device_prefetch
+from vit_tpu_torch.data.resume import resume_stream, set_stream_epoch
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader
 from vit_tpu_torch.models.vit import ViTClassifier, ViTConfig
+from vit_tpu_torch.train.checkpoint import Checkpointer
 from vit_tpu_torch.train.optim import make_optimizer
-from vit_tpu_torch.train.state import TrainState
+from vit_tpu_torch.train.preempt import GracefulShutdown
+from vit_tpu_torch.train.state import TrainState, params_str
 from vit_tpu_torch.train.step import (make_classifier_eval_step,
                                       make_classifier_train_step)
+from vit_tpu_torch.utils.config import str2bool
 from vit_tpu_torch.utils.init import init_params_
+from vit_tpu_torch.utils.logging import MetricsLogger
 from vit_tpu_torch.utils.precision import disable_tf32
-
-
-def str2bool(value) -> bool:
-    """``train_vit.py``'s boolean flag parser: the usual spellings only."""
-    if isinstance(value, bool):
-        return value
-    v = str(value).strip().lower()
-    if v in ("true", "t", "yes", "y", "1"):
-        return True
-    if v in ("false", "f", "no", "n", "0"):
-        return False
-    raise argparse.ArgumentTypeError(f"expected a boolean, got {value!r}")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -76,7 +77,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--shuffle_buffer", type=int, default=1000)
     parser.add_argument("--num_classes", type=int, default=1000)
     parser.add_argument("--steps_per_epoch", type=int, default=50)
-    parser.add_argument("--ckpt_dir", type=str, default=None)
+    parser.add_argument("--ckpt_dir", type=str, default="ckpt/vit")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--init_from", type=str, default=None)
     parser.add_argument("--attn_impl", type=str, default=None,
@@ -101,33 +102,30 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise on every flag whose path the port does not have yet."""
-    later = "comes with the training loop's port (ROADMAP Queue A #3)"
     refused = [
         (args.dataset != "synthetic",
          f"--dataset {args.dataset}: only the synthetic stream is ported; "
-         f"the ImageNet and webdataset loaders {later}"),
-        (args.ckpt_dir is not None or args.resume,
-         f"--ckpt_dir/--resume: checkpointing {later}"),
+         "the ImageNet and webdataset loaders need an image decoder the "
+         "card's machine lacks (ROADMAP Queue A #2, the loaders)"),
         (args.init_from is not None,
-         f"--init_from: the MAE/Puzzle hand-off {later}"),
-        (args.scan_layers, "--scan_layers: the port runs the unrolled stack"),
+         "--init_from: the MAE/Puzzle hand-off comes with their models "
+         "(ROADMAP Queue A #6)"),
+        (args.scan_layers,
+         "--scan_layers: the port runs the unrolled stack (ROADMAP Queue A "
+         "#10, no port needed)"),
         (args.mesh is not None or args.pp_microbatches,
-         "--mesh/--pp_microbatches: the port trains on one GPU"),
+         "--mesh/--pp_microbatches: the port trains on one GPU (ROADMAP "
+         "Queue A #9, multi-GPU)"),
         (args.loader_backend != "threads" or args.loader_processes,
-         f"--loader_backend/--loader_processes: the loader backends {later}"),
-        (args.run_dir is not None,
-         f"--run_dir: the metrics logger {later}; the port prints its logs"),
+         "--loader_backend/--loader_processes: the loader backends come "
+         "with the loaders (ROADMAP Queue A #2, the loaders)"),
         (args.attn_impl == "xla",
-         "--attn_impl xla: the port's attention is its kernels"),
+         "--attn_impl xla: the port's attention is its kernels (ROADMAP "
+         "Queue A #10, no port needed)"),
     ]
     for bad, why in refused:
         if bad:
             raise NotImplementedError(why)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def main(argv=None) -> dict:
@@ -144,9 +142,13 @@ def main(argv=None) -> dict:
     cfg = ViTConfig(args.image_size, args.in_channels, args.patch_size,
                     args.transformer, args.extra_tokens, args.dropout,
                     dtype=dtype)
+    run_name = (f"{args.patch_size}px_{args.image_size}px_{args.transformer}_"
+                f"{args.bs}bs_{args.lr}lr_{args.dropout}drp")
+    logger = MetricsLogger("vit-classifier", run_name, config=vars(args),
+                           out_dir=args.run_dir, device=device)
     model = ViTClassifier(cfg, num_classes=args.num_classes, device=device)
     init_params_(model, torch.Generator(device=device).manual_seed(args.seed))
-    dropout_gen = torch.Generator(device=device).manual_seed(args.seed)
+    dropout_gen = torch.Generator(device=device)
     tx = make_optimizer(args.lr, args.warmup_steps, args.train_steps,
                         args.min_lr, args.weight_decay, clip_norm=None)
     state = TrainState.create(model, tx)
@@ -160,49 +162,97 @@ def main(argv=None) -> dict:
         args.image_size, 2 * args.bs, num_classes=args.num_classes,
         in_channels=args.in_channels,
         steps_per_epoch=max(1, args.steps_per_epoch // 10), seed=args.seed + 1)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"STATS: params={n_params / 1e6:.2f}M, trn_len={len(train_loader)}, "
-          f"val_len={len(valid_loader)}, device={device}", flush=True)
+
+    ckpt = Checkpointer(args.ckpt_dir, mode="max")
+    start_epoch, skip0 = 0, 0
+    if args.resume and ckpt.can_restore():
+        state = ckpt.restore(state)
+        print(f"RESUMED at step {int(state.step)}", flush=True)
+        data_rs = ckpt.load_data_state(int(state.step))
+        if data_rs:
+            start_epoch = int(data_rs["epoch"])
+            skip0 = int(data_rs["next_batch"])
+            set_stream_epoch(train_loader, start_epoch)
+            print(f"RESUMED data stream at epoch {start_epoch}, "
+                  f"batch {skip0}", flush=True)
+
+    print(f"STATS: params={params_str(state.params)}, "
+          f"trn_len={len(train_loader)}, val_len={len(valid_loader)}, "
+          f"device={device}", flush=True)
     print(f"PARAMS: {cfg.trans_config}", flush=True)
 
-    def put(batch):
-        images, labels = batch
-        return (torch.from_numpy(images).to(device, non_blocking=True),
-                torch.from_numpy(labels).to(device, non_blocking=True))
-
+    to_device = ToDevice(device)
+    shutdown = GracefulShutdown.install()
+    step = int(state.step)   # the host's count, so no step waits to read it
     logs = {"train": [], "valid": []}
-    for epoch in range(args.epochs):
-        st = time.perf_counter()
-        for i, batch in enumerate(train_loader):
-            images, labels = put(batch)
-            load_time = time.perf_counter() - st
+    best_acc = 0.0
+    for epoch in range(start_epoch, args.epochs):
+        skip = skip0 if epoch == start_epoch else 0
+        st = time.time()
+        prev_loss = None
+        for i, (images, labels) in enumerate(device_prefetch(
+                resume_stream(train_loader, skip), to_device), start=skip):
+            load_time = time.time() - st
             is_log = i % args.log_every == 0
-            if is_log:   # time one step, not the queue of earlier ones
-                _sync(device)
-                st = time.perf_counter()
+            rebased = is_log and prev_loss is not None
+            if rebased:   # time one step, not the queue of earlier ones
+                prev_loss.item()
+                st = time.time()
+            # the JAX step folds its dropout key with the step
+            dropout_gen.manual_seed((args.seed << 32) + step)
             _, metrics = train_step(state, images, labels, dropout_gen)
+            step += 1
+            prev_loss = metrics["train/loss"]
             if is_log:
-                loss = metrics["train/loss"].item()
-                acc = metrics["train/acc"].item()
-                step_time = time.perf_counter() - st
+                loss, acc = torch.stack([metrics["train/loss"],
+                                         metrics["train/acc"]]).tolist()
+                step_time = time.time() - st - (0.0 if rebased else load_time)
                 logs["train"].append(dict(epoch=epoch, i=i, loss=loss,
                                           acc=acc, step_time=step_time,
                                           load_time=load_time))
+                logger.log({"train/loss": loss, "train/acc": acc,
+                            "train/epoch": epoch,
+                            "benchmark/load_time": load_time,
+                            "benchmark/step_time": step_time}, step=step)
                 print(f"e={epoch} i={i} loss={loss:.3f} acc={acc:.3f} "
                       f"load_time={load_time:.3f} step_time={step_time:.3f}",
                       flush=True)
-            st = time.perf_counter()
+            st = time.time()
+            if shutdown.requested:
+                # SIGTERM: save the exact step and return, so --resume
+                # continues from here
+                print(f"PREEMPTED: saving 'last' at step {step} and exiting",
+                      flush=True)
+                ckpt.save(state, config=cfg, tag="last")
+                ckpt.save_data_state(step, {"epoch": epoch,
+                                            "next_batch": i + 1})
+                ckpt.finalize()
+                logger.close()
+                shutdown.uninstall()
+                return logs
         val_loss = acc = 0.0
         n = 0
-        for batch in valid_loader:
-            m = eval_step(*put(batch))
-            val_loss += m["valid/loss"].item()
-            acc += m["valid/acc"].item()
+        for images, labels in device_prefetch(valid_loader, to_device):
+            m = eval_step(images, labels)
+            loss_i, acc_i = torch.stack([m["valid/loss"],
+                                         m["valid/acc"]]).tolist()
+            val_loss += loss_i
+            acc += acc_i
             n += 1
         val_loss, acc = val_loss / max(n, 1), acc / max(n, 1)
         logs["valid"].append(dict(epoch=epoch, loss=val_loss, acc=acc))
         print(f"epoch {epoch}: val_loss={val_loss:.3f}, acc={acc:.3f}",
               flush=True)
+        logger.log({"valid/loss": val_loss, "valid/acc": acc}, step=step)
+        if acc > best_acc:
+            best_acc = acc
+            ckpt.save_if_best(state, acc, config=cfg)
+    # a rolling "last", so --resume has a target when "best" is older
+    ckpt.save(state, config=cfg, tag="last")
+    ckpt.save_data_state(step, {"epoch": args.epochs, "next_batch": 0})
+    ckpt.finalize()
+    logger.close()
+    shutdown.uninstall()
     return logs
 
 
