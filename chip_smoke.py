@@ -210,9 +210,15 @@ false``. Phases, one JSON line each:
                 after step 5 exits 0 with PREEMPTED and a "last" at step 5
                 or later; ``--resume`` continues from it for 3 steps; 3
                 steps each under ``--mixed false`` and
-                ``--perceptual_quant int8``; these three call the entry's
-                ``main`` in this process with the launches counted (K1-K5,
-                their fp32 forms, K12a/K12b); step times; a TiTok-B
+                ``--perceptual_quant int8``; ``--quantizer fsq`` (K1-K4, no
+                K5; the usage finite), ``--ema_decay 0.999`` (the "last"
+                average apart from the parameters, then one ``--resume``
+                step that continues it: e·d + p·(1 − d) of the saved one)
+                and ``--watch`` (each histogram counts its tensor's
+                elements; the step time beside the plain run's); these
+                call the entry's ``main`` in this process with the
+                launches counted (K1-K5, their fp32 forms, K12a/K12b); step
+                times; a TiTok-B
                 checkpoint (fp32 parameters, bf16 μ, fp32 ν) saved as
                 "best" and "last" and restored bit for bit, with the seconds
                 of each save;
@@ -227,10 +233,24 @@ false``. Phases, one JSON line each:
                 beside the TPU run's; the run's "best" weights encode 128
                 held-out shapes images through the kernels and the plain
                 versions: code agreement, every differing code a near-tie,
-                the reconstructions' PSNR.
+                the reconstructions' PSNR;
+ 17. train_videogpt_entry — ``python -m vit_tpu_torch.train_videogpt``
+                through its ``main`` in this process: (a) at the reference
+                defaults (VideoGPT-B, 16 frames × 64 codes = S 1024, bs 32,
+                codebook 1024) over ``--tokenizer_ckpt random``, SIGTERM
+                during its fourth step (PREEMPTED, "last" and the crop
+                count saved), then ``--resume`` to the end of the epoch
+                from the saved step and crop; its first step's loss again
+                through the kernels and through the plain versions (codes
+                every flip a near-tie); a VideoGPT-B state saved and
+                restored bit for bit, with the seconds; (b) over phase
+                16's "best" TiTok-S (32 codes: S 512) for 3 steps, the
+                step-0 generation eval's codes in range and equal to a
+                direct ``generate_frames`` call; each run's launches and
+                step times.
 
-``--titok_only`` runs the device, build and the last two phases alone (no
-kernels line, no closing line).
+``--entries_only`` runs the device, build and the last three phases alone
+(no kernels line, no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
 arm's numbers and its dropout launches; each kernel with an fp32 form with
@@ -296,7 +316,7 @@ from vit_tpu_torch.models.pretrained import FrozenTokenizer  # noqa: E402
 from vit_tpu_torch.models.titok import TiTok, TiTokConfig  # noqa: E402
 from vit_tpu_torch.models.videogpt import (VideoGPT,  # noqa: E402
                                            VideoGPTConfig, generate,
-                                           init_cache)
+                                           generate_frames, init_cache)
 from vit_tpu_torch.models.vit import ViTClassifier, ViTConfig  # noqa: E402
 from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu  # noqa: E402
 from vit_tpu_torch.serve.export import (export_tokenizer,  # noqa: E402
@@ -972,7 +992,7 @@ def packed_kernels(gen) -> dict:
     """K1 and K2 against their plain versions at the paths' shapes (TiTok-B's
     S 320 at bs 8 and 64, ViT-B/16's S 197 and ViT-L/16's S 257 with their
     ragged last tiles, VideoGPT's frozen-tokenizer encode, ragged causal
-    tiles and the longest S), their times at the flagship step's shape (K1
+    tiles, VideoGPT-B's causal S 512 and the longest S), their times at the flagship step's shape (K1
     also at the serving bs 8), the ptxas figures of their kernels (the
     kBias instantiations of K6's and K7/K8's), and the control that the
     wgmma backwards' mean limit must reject."""
@@ -980,15 +1000,17 @@ def packed_kernels(gen) -> dict:
     build = hopper_attention_ptxas()
 
     # K1: bf16 with bias; the serving and train steps' shapes, the ViT
-    # shapes, a ragged causal tile, longest S, and the VideoGPT step's
-    # frozen TiTok-S encode (bs 32 · 16 frames, S 128, 6 heads, no stats on
-    # the path). With stats the output must be the same bits, m and l
-    # fp32-close.
+    # shapes, a ragged causal tile, longest S, the VideoGPT step's frozen
+    # TiTok-S encode (bs 32 · 16 frames, S 128, 6 heads, no stats on the
+    # path), and VideoGPT-B's causal S 512 (16 frames of a 32-code
+    # tokenizer, the train_videogpt entry's arm b). With stats the output
+    # must be the same bits, m and l fp32-close.
     k1_max, k1_rows = 0.0, []
     for b, s, h, causal in [(8, 320, 12, False), (TRAIN_BS, 320, 12, False),
                             (3, 77, 12, True), (2, 768, 12, False),
                             (VIDEO_BS * VIDEOGPT["max_frames"], 128, 6, False),
-                            (4, 197, 12, False), (4, 257, 16, False)]:
+                            (4, 197, 12, False), (4, 257, 16, False),
+                            (VIDEO_BS, 512, 12, True)]:
         width = h * 64
         qkv = torch.randn(b, s, 3 * width, device="cuda",
                           generator=gen).bfloat16()
@@ -1053,12 +1075,13 @@ def packed_kernels(gen) -> dict:
         library_ms=lib_ms)
 
     # K2: the flagship step's shape, a ragged causal one, the longest S, S
-    # not a multiple of 8, and the ViT shapes; (m, l) from K1, the same for
-    # kernel and plain.
+    # not a multiple of 8, the ViT shapes and VideoGPT-B's causal S 512;
+    # (m, l) from K1, the same for kernel and plain.
     k2_max, k2_rows = 0.0, []
     for b, s, h, causal in [(64, 320, 12, False), (3, 77, 12, True),
                             (2, 768, 12, False), (2, 130, 12, True),
-                            (4, 197, 12, False), (4, 257, 16, False)]:
+                            (4, 197, 12, False), (4, 257, 16, False),
+                            (VIDEO_BS, 512, 12, True)]:
         width = h * 64
         qkv = torch.randn(b, s, 3 * width, device="cuda",
                           generator=gen).bfloat16()
@@ -4834,6 +4857,38 @@ def entry_summary(run: dict) -> dict:
                    for k in ("launches", "fp32_launches") if k in run})
 
 
+def state_round_trip(state: TrainState, other: TrainState, config,
+                     directory: Path) -> dict:
+    """``state`` saved as "best" and "last" under ``directory`` and "last"
+    restored into ``other`` (a state of other weights): every tensor equal,
+    the seconds of each save and of the restore, the bytes of a tag."""
+    ckpt = Checkpointer(str(directory))
+    seconds = {}
+    for tag in ("best", "last"):
+        t0 = time.perf_counter()
+        ckpt.save(state, config=config, tag=tag)
+        seconds[tag] = time.perf_counter() - t0
+    nbytes = (directory / "last" / "state.pt").stat().st_size
+    t0 = time.perf_counter()
+    Checkpointer(str(directory)).restore(other)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want, got = state.state_dict(), other.state_dict()
+    equal = (torch.equal(want["step"], got["step"])
+             and torch.equal(want["opt_state"]["count"],
+                             got["opt_state"]["count"])
+             and all(torch.equal(want["params"][k], got["params"][k])
+                     for k in want["params"])
+             and all(torch.equal(want["opt_state"][g][k],
+                                 got["opt_state"][g][k])
+                     for g in ("mu", "nu") for k in want["opt_state"][g]))
+    out = dict(save_seconds=seconds, restore_seconds=restore_s,
+               bytes_per_tag=nbytes, equal=equal,
+               mu_dtype=str(other.opt_state.mu[0].dtype))
+    require(equal, f"checkpoint round trip differs: {out}")
+    return out
+
+
 def checkpoint_round_trip(work: Path) -> dict:
     """A TiTok-B train state on the card (fp32 parameters, bf16 μ, fp32 ν,
     after one step) saved as "best" and "last" and restored into a state of
@@ -4847,34 +4902,12 @@ def checkpoint_round_trip(work: Path) -> dict:
     usage = torch.zeros(model.config.codebook_size, device="cuda")
     make_tokenizer_train_step(model)(state, images, usage)
     torch.cuda.synchronize()
-    ckpt = Checkpointer(str(work / "titok_b_ckpt"))
-    seconds = {}
-    for tag in ("best", "last"):
-        t0 = time.perf_counter()
-        ckpt.save(state, config=model.config, tag=tag)
-        seconds[tag] = time.perf_counter() - t0
-    nbytes = (work / "titok_b_ckpt" / "last" / "state.pt").stat().st_size
     other = TiTok(TiTokConfig(**FLAGSHIP))
     init_params_(other, torch.Generator().manual_seed(1))
     other_state = TrainState.create(other.cuda().train(),
                                     flagship_optimizer())
-    t0 = time.perf_counter()
-    Checkpointer(str(work / "titok_b_ckpt")).restore(other_state)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    want, got = state.state_dict(), other_state.state_dict()
-    equal = (torch.equal(want["step"], got["step"])
-             and torch.equal(want["opt_state"]["count"],
-                             got["opt_state"]["count"])
-             and all(torch.equal(want[g][k], got[g][k])
-                     for g in ("params",) for k in want[g])
-             and all(torch.equal(want["opt_state"][g][k],
-                                 got["opt_state"][g][k])
-                     for g in ("mu", "nu") for k in want["opt_state"][g]))
-    out = dict(save_seconds=seconds, restore_seconds=restore_s,
-               bytes_per_tag=nbytes, equal=equal,
-               mu_dtype=str(other_state.opt_state.mu[0].dtype))
-    require(equal, f"TiTok-B checkpoint round trip differs: {out}")
+    out = state_round_trip(state, other_state, model.config,
+                           work / "titok_b_ckpt")
     del model, other, state, other_state
     torch.cuda.empty_cache()
     return out
@@ -4929,6 +4962,85 @@ def phase_train_titok_entry(card: str, work: Path) -> "tuple[dict, dict]":
         require_launched(run, kernels, key)
         short[name] = entry_summary(run)
         runs.append(run)
+    short_epoch = ("--epochs", "1", "--steps_per_epoch", str(SHORT_STEPS))
+
+    # --quantizer fsq: the same step without K5; the bitmap of the CLI's
+    # codebook_size takes what FSQ's wrapped indices reach of it
+    run = run_titok_main(*TITOK_ENTRY, *dirs("fsq"), "--quantizer", "fsq",
+                         *short_epoch)
+    usage = [float(m.group(1)) for m in (re.search(r"usage=(\S+)", line)
+                                         for line in run["lines"]) if m]
+    require(len(run["steps"]) == SHORT_STEPS and run["launches"][
+        "vq_nearest"] == 0 and len(usage) == SHORT_STEPS
+        and all(np.isfinite(usage)), f"fsq run: {run['lines']}")
+    require_launched(run, tokenizer[:2] + ("convnext_tail_fwd",
+                                           "convnext_tail_bwd"))
+    short["fsq"] = dict(entry_summary(run), usage=usage)
+    runs.append(run)
+
+    # --ema_decay 0.999 (warmup 1, so the parameters move): the "last"
+    # average apart from the parameters, and one --resume step that
+    # continues it (e·d + p·(1 − d) of the saved average, closer than the
+    # same update of an average re-seeded from the saved parameters)
+    ema_flags = (*TITOK_ENTRY, *dirs("ema"), "--ema_decay", "0.999",
+                 "--warmup_steps", "1")
+    run = run_titok_main(*ema_flags, *short_epoch)
+    runs.append(run)
+    saved = load_params(str(work / "ema" / "ckpt"), "last", ema=True)
+    params = load_params(str(work / "ema" / "ckpt"), "last")
+    apart = max(((saved[n] - params[n]).abs().max()
+                 / params[n].abs().max()).item() for n in params)
+    resumed_ema = run_titok_main(*ema_flags, "--resume", "--epochs", "2",
+                                 "--steps_per_epoch", str(SHORT_STEPS),
+                                 "--max_epoch_steps", "1")
+    runs.append(resumed_ema)
+    after = load_params(str(work / "ema" / "ckpt"), "last", ema=True)
+    stepped = load_params(str(work / "ema" / "ckpt"), "last")
+
+    def off(start):
+        return max(((after[n] - (start[n] * 0.999 + stepped[n] * (1 - 0.999)))
+                    .abs().max() / saved[n].abs().max()).item() for n in saved)
+
+    continued, reseeded = off(saved), off(params)
+    short["ema"] = dict(entry_summary(run), resumed=entry_summary(resumed_ema),
+                        ema_apart_max_rel=apart,
+                        resumed_vs_saved_update_max_rel=continued,
+                        resumed_vs_reseeded_update_max_rel=reseeded,
+                        tolerance=dict(continued=FP32_REL))
+    require(apart > 0 and f"RESUMED at step {SHORT_STEPS}"
+            in resumed_ema["lines"] and continued <= FP32_REL
+            and continued < reseeded, f"ema runs: {short['ema']}")
+    del saved, params, after, stepped
+
+    # --watch: the histogram step on log steps; each histogram counts its
+    # tensor's elements
+    from vit_tpu_torch.bridge import _flax_key
+    from vit_tpu_torch.utils.logging import MetricsLogger
+
+    logged: list = []
+    log_histograms = MetricsLogger.log_histograms
+
+    def keep(self, hists, step=None):
+        logged.append(hists)
+        return log_histograms(self, hists, step)
+
+    MetricsLogger.log_histograms = keep
+    try:
+        run = run_titok_main(*TITOK_ENTRY, *dirs("watch"), "--watch",
+                             *short_epoch)
+    finally:
+        MetricsLogger.log_histograms = log_histograms
+    runs.append(run)
+    sizes = {_flax_key(n, t.ndim)[0]: t.numel() for n, t in load_params(
+        str(work / "watch" / "ckpt"), "last").items()}
+    require(len(logged) == SHORT_STEPS and all(
+        sorted(h) == sorted([f"{p}/{k}" for p in ("grad_hist", "param_hist")
+                             for k in sizes])
+        and all(counts.sum() == sizes[k.split("/", 1)[1]]
+                for k, (counts, _) in h.items()) for h in logged),
+        f"--watch histograms: {len(logged)} log steps")
+    short["watch"] = dict(entry_summary(run), histograms=len(logged[0]),
+                          plain_step_times=[t for _, _, t in b["steps"]])
     ckpt = checkpoint_round_trip(work)
     emit("train_titok_entry", card=card, preempted=entry_summary(a),
          last_meta=meta, resumed_at=resumed[0], resumed=entry_summary(b),
@@ -5055,6 +5167,282 @@ def phase_train_titok_converge(card: str, work: Path,
     return run["launches"]
 
 
+# The train_videogpt entry: its flags in every run; run A of arm (a) is sent
+# SIGTERM during step GPT_PREEMPT_AT (counted from 1) of an epoch of
+# GPT_EPOCH steps, which the resumed run B finishes.
+GPT_ENTRY = ("--dataset", "synthetic", "--no_wandb", "--log_every", "1")
+GPT_PREEMPT_AT, GPT_EPOCH = 4, 8
+
+
+def gpt_entry_steps(lines: list) -> "list[tuple[int, float, float]]":
+    """(s, loss, step_time) of each step line of the train_videogpt entry."""
+    out = []
+    for line in lines:
+        m = re.match(r"e=\d+ s=(\d+) loss=(\S+) step_time=(\S+)", line)
+        if m:
+            out.append((int(m.group(1)), float(m.group(2)),
+                        float(m.group(3))))
+    return out
+
+
+@contextlib.contextmanager
+def videogpt_entry_hooks(kill_at: "int | None" = None,
+                         first: "dict | None" = None,
+                         generated: "list | None" = None):
+    """Watch the entry's run from inside: SIGTERM to this process during
+    train step ``kill_at`` (counted from 1); ``first`` gets the model, the
+    tokenizer, the first step's clip and a copy of the weights it starts
+    from; ``generated`` each generation eval's conditioning codes, output,
+    seconds and a copy of the weights it ran with. The copies are device
+    copies, no kernel launches."""
+    import vit_tpu_torch.train_videogpt as tv
+
+    factory, gen_fn = tv.make_videogpt_train_step, tv.generate_frames
+
+    def weights(model):
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def make(model):
+        step = factory(model)
+        calls = [0]
+
+        def hooked(state, tokenizer, videos, generator=None):
+            if first is not None and calls[0] == 0:
+                first.update(model=model, tokenizer=tokenizer,
+                             videos=videos.clone(), weights=weights(model))
+            calls[0] += 1
+            if calls[0] == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(state, tokenizer, videos, generator)
+
+        return hooked
+
+    def gen(model, cond, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen_fn(model, cond, n)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        generated.append(dict(model=model, cond=cond.clone(), n=n,
+                              out=out.clone(), weights=weights(model),
+                              seconds=seconds))
+        return out
+
+    tv.make_videogpt_train_step = make
+    if generated is not None:
+        tv.generate_frames = gen
+    try:
+        yield
+    finally:
+        tv.make_videogpt_train_step, tv.generate_frames = factory, gen_fn
+
+
+def run_videogpt_main(*flags: str, **hooks) -> dict:
+    """``vit_tpu_torch.train_videogpt.main(flags)`` in this process, its
+    output captured, the kernels' launch counts set to 0 just before it and
+    read just after; ``hooks`` as ``videogpt_entry_hooks`` takes them."""
+    from vit_tpu_torch.train_videogpt import main as gpt_main
+
+    buf = io.StringIO()
+    prev = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf), videogpt_entry_hooks(**hooks):
+            state = gpt_main(list(flags))
+        torch.cuda.synchronize()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    launches = read_launches()
+    lines = buf.getvalue().splitlines()
+    run = dict(cmd="-m vit_tpu_torch.train_videogpt " + " ".join(flags),
+               seconds=time.perf_counter() - t0, lines=lines,
+               steps=gpt_entry_steps(lines), launches=launches, state=state)
+    require(run["steps"] and all(np.isfinite(l) for _, l, _ in run["steps"]),
+            f"train_videogpt's step lines: {lines[-30:]}")
+    return run
+
+
+def logged_losses(run_dir: Path) -> "dict[int, float]":
+    """The entry's logged train/loss by optimizer step (full precision)."""
+    (path,) = (run_dir / "videogpt-synthetic").glob("*.jsonl")
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    return {r["_step"]: r["train/loss"] for r in rows if "train/loss" in r}
+
+
+def gpt_first_step(first: dict, logged_loss: float) -> dict:
+    """The run's first step again on its clip and the weights it started
+    from: the frozen tokenizer's codes through the kernels and the plain
+    versions (every flip a near-tie), and the prior's forward and backward
+    on the kernels' codes through both: the loss (also against the logged
+    one), the logits and the gradients' global norm."""
+    model, tok = first["model"], first["tokenizer"]
+    live = {n: p.detach().clone() for n, p in model.named_parameters()}
+    model.load_state_dict(first["weights"], strict=False)
+    frames = first["videos"].reshape(-1, *first["videos"].shape[2:])
+    tm = tok.model
+    params = list(model.parameters())
+
+    def prior_step(codes):
+        logits, loss = model(codes)
+        grads = torch.autograd.grad(loss, params)
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        return logits.detach(), loss.item(), norm.item()
+
+    with torch.no_grad():
+        lat_k = tm.enc(frames).double()
+        ik = tm.quant(lat_k.float())[1]
+        with plain_versions():
+            lat_p = tm.enc(frames).double()
+            ip = tm.quant(lat_p.float())[1]
+    codes = ik.reshape(*first["videos"].shape[:2], -1)
+    logits_k, loss_k, norm_k = prior_step(codes)
+    with plain_versions():
+        logits_p, loss_p, norm_p = prior_step(codes)
+    torch.cuda.synchronize()
+    model.load_state_dict(live, strict=False)
+    flips = code_flips(lat_k, lat_p, tm.quant.codebook, ik, ip)
+    require_codes_agree(flips, "the entry's tokenizer codes")
+    logits = rel_errors(logits_k, logits_p)
+    del logits_k, logits_p
+    out = dict(logged_loss=logged_loss, loss=loss_k, plain_loss=loss_p,
+               grad_norm=norm_k, plain_grad_norm=norm_p, logits=logits,
+               rel_diff=dict(loss=abs(loss_k - loss_p) / abs(loss_p),
+                             grad_norm=abs(norm_k - norm_p) / abs(norm_p)),
+               tolerance=dict(loss_rel=STEP_LOSS_REL,
+                              grad_norm_rel=STEP_GRAD_NORM_REL,
+                              logits_max_rel=PREFILL_MAX_REL), **flips)
+    require(abs(loss_k - logged_loss) <= 1e-6 * abs(logged_loss),
+            f"the first step's loss again differs from the logged one: {out}")
+    require(out["rel_diff"]["loss"] <= STEP_LOSS_REL
+            and out["rel_diff"]["grad_norm"] <= STEP_GRAD_NORM_REL
+            and logits["max_rel"] <= PREFILL_MAX_REL,
+            f"the entry's first step, kernels vs plain versions: {out}")
+    return out
+
+
+def prior_round_trip(state: TrainState, config, directory: Path) -> dict:
+    """``state_round_trip`` of an entry's final VideoGPT state into a state
+    of other weights (seed 1) under train_videogpt.py's optimizer."""
+    other_model = VideoGPT(config)
+    init_params_(other_model, torch.Generator().manual_seed(1))
+    other = TrainState.create(other_model.cuda().train(), make_optimizer(
+        1e-4, 5000, 500000, 1e-5, 1e-4, clip_norm=None))
+    out = state_round_trip(state, other, config, directory)
+    del state, other, other_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_videogpt_entry(card: str, work: Path,
+                               tokenizer_ckpt: Path) -> dict:
+    """``python -m vit_tpu_torch.train_videogpt`` through its ``main``:
+    arm (a) at the reference defaults over the random tokenizer, SIGTERM'd
+    and resumed; arm (b) over ``tokenizer_ckpt`` (a "best" written by the
+    train_titok entry) with its step-0 generation eval. Each arm's first
+    step is run again through the kernels and the plain versions, and its
+    final state saved and restored. Returns the runs' launches, summed."""
+    torch.cuda.empty_cache()
+
+    def dirs(name):
+        return ("--ckpt_dir", str(work / name / "ckpt"),
+                "--run_dir", str(work / name / "runs"))
+
+    def rollout(gen):
+        """The generation eval's rate: the codes it generated a second."""
+        tokens = gen["out"].shape[0] * gen["n"] * gen["model"].config.frame_size
+        return dict(seconds=gen["seconds"], generated_codes=tokens,
+                    codes_per_s=tokens / gen["seconds"])
+
+    epoch = ("--epochs", "1", "--steps_per_epoch", str(GPT_EPOCH))
+    generated: list = []
+    a = run_videogpt_main(*GPT_ENTRY, "--tokenizer_ckpt", "random", *epoch,
+                          *dirs("gpt_a"), kill_at=GPT_PREEMPT_AT,
+                          generated=generated)
+    require(len(generated) == 1, f"run A's generation evals: {a['lines']}")
+    a_gen = rollout(generated.pop())
+    meta = json.loads((work / "gpt_a" / "ckpt" / "last_meta.json")
+                      .read_text())
+    stream = json.loads((work / "gpt_a" / "ckpt" / "data_state.json")
+                        .read_text())[str(meta["step"])]
+    require(any(line.startswith("PREEMPTED: saving 'last' at step")
+                for line in a["lines"]), f"no PREEMPTED line: {a['lines']}")
+    require(meta["step"] == GPT_PREEMPT_AT
+            and stream == {"epoch": 0, "next_batch": GPT_PREEMPT_AT,
+                           "consumed": GPT_PREEMPT_AT},
+            f"run A's last: {meta}, stream {stream}")
+    del a["state"]
+    torch.cuda.empty_cache()
+    first: dict = {}
+    b = run_videogpt_main(*GPT_ENTRY, "--tokenizer_ckpt", "random", *epoch,
+                          *dirs("gpt_a"), "--resume", first=first)
+    require(f"RESUMED at step {meta['step']}" in b["lines"]
+            and f"RESUMED data stream at epoch 0, batch {meta['step']}"
+            in b["lines"], f"run B's resume: {b['lines'][:8]}")
+    require([s for s, _, _ in b["steps"]]
+            == list(range(GPT_PREEMPT_AT, GPT_EPOCH)),
+            f"run B's steps (the crop count runs on from "
+            f"{GPT_PREEMPT_AT}): {b['lines']}")
+    for run in (a, b):
+        require_launched(run, ("attention_fwd", "attention_bwd",
+                               "attention_packed_fwd", "vq_nearest"))
+    check = gpt_first_step(first, logged_losses(work / "gpt_a" / "runs")[
+        meta["step"] + 1])
+    ckpt = prior_round_trip(b.pop("state"), first["model"].config,
+                            work / "gpt_ckpt")
+    del first
+    torch.cuda.empty_cache()
+
+    first = {}
+    c = run_videogpt_main(*GPT_ENTRY, "--tokenizer_ckpt", str(tokenizer_ckpt),
+                          "--epochs", "1", "--steps_per_epoch",
+                          str(SHORT_STEPS), *dirs("gpt_b"),
+                          generated=generated, first=first)
+    require(len(c["steps"]) == SHORT_STEPS and len(generated) == 1,
+            f"arm (b): {c['lines']}")
+    require_launched(c, ("attention_packed_fwd", "vq_nearest"))
+    c_check = gpt_first_step(first, logged_losses(work / "gpt_b" / "runs")[1])
+    gen = generated[0]
+    c_gen = rollout(gen)
+    model = gen["model"]
+    cfg = model.config
+    live = {n: p.detach().clone() for n, p in model.named_parameters()}
+    model.load_state_dict(gen["weights"], strict=False)
+    direct = generate_frames(model, gen["cond"], gen["n"])
+    model.load_state_dict(live, strict=False)
+    out = gen["out"]
+    require(tuple(out.shape) == (2, cfg.max_tokens)
+            and 0 <= out.min().item() and out.max().item() < cfg.codebook_size
+            and torch.equal(out[:, :gen["cond"][0].numel()],
+                            gen["cond"].reshape(2, -1)),
+            f"the generation eval's codes: {tuple(out.shape)}")
+    require(torch.equal(out, direct),
+            "the entry's generation eval differs from a direct "
+            "generate_frames call")
+    del generated, gen, model, live, direct
+    c_ckpt = prior_round_trip(c.pop("state"), cfg, work / "gpt_b_ckpt")
+    del first
+    torch.cuda.empty_cache()
+
+    def summary(run):
+        return dict(cmd=run["cmd"], seconds=run["seconds"],
+                    step_losses=[l for _, l, _ in run["steps"]],
+                    step_times=[t for _, _, t in run["steps"]],
+                    tail=run["lines"][-4:],
+                    launches={k: v for k, v in run["launches"].items() if v})
+
+    emit("train_videogpt_entry", card=card,
+         a=dict(preempted=summary(a), generation_eval=a_gen, last_meta=meta,
+                stream=stream, resumed=summary(b), first_step=check,
+                checkpoint=ckpt),
+         b=dict(tokenizer=str(tokenizer_ckpt), run=summary(c),
+                prior_tokens=cfg.max_tokens, first_step=c_check,
+                checkpoint=c_ckpt, generation_eval=c_gen,
+                direct_equal=True))
+    return {n: a["launches"][n] + b["launches"][n] + c["launches"][n]
+            for n in a["launches"]}
+
+
 def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
                            card: str) -> dict:
     """The greedy rollout served over HTTP at bs 1 and bs 8: 8 frames of
@@ -5073,7 +5461,11 @@ def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
             reset_launches()   # the main path's run starts here
             served = post(url + "/generate", cond)
             launches[bs] = read_launches()
-            latency = host_median_ms(lambda: post(url + "/generate", cond), 3)
+            # one timed rollout after the served one (a rollout takes
+            # seconds, host-bound; more repetitions did not fit the run)
+            t0 = time.perf_counter()
+            post(url + "/generate", cond)
+            latency = (time.perf_counter() - t0) * 1e3
         require(served.shape == (bs, n_cond + n_gen)
                 and served.dtype == np.int32,
                 f"generate gave {served.shape} {served.dtype}")
@@ -5294,15 +5686,18 @@ def phase_perceptual(state_dict: dict, card: str) -> dict:
     return total
 
 
-def titok_phases(card: str, converge_epochs: "int | None"
+def entry_phases(card: str, converge_epochs: "int | None"
                  ) -> "tuple[dict, dict]":
-    """The train_titok entry's phases; their launches summed, and the fp32
-    launches."""
+    """The train_titok and train_videogpt entries' phases; their launches
+    summed, and the fp32 launches."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_titok_") as tmp:
         launches, fp32_launches = phase_train_titok_entry(card, Path(tmp))
         converge = phase_train_titok_converge(card, Path(tmp),
                                               converge_epochs)
-    return ({n: launches[n] + converge[n] for n in launches}, fp32_launches)
+        gpt = phase_train_videogpt_entry(card, Path(tmp),
+                                         Path(tmp) / "converge" / "ckpt")
+    return ({n: launches[n] + converge[n] + gpt[n] for n in launches},
+            fp32_launches)
 
 
 def main(argv=None) -> None:
@@ -5312,14 +5707,15 @@ def main(argv=None) -> None:
     parser.add_argument("--converge_epochs", type=int,
                         default=SMOKE_CONVERGE_EPOCHS,
                         help="epochs of the S-scale run (25: the whole run)")
-    parser.add_argument("--titok_only", action="store_true",
-                        help="only the build and the train_titok phases; "
-                             "no kernels line and no closing line")
+    parser.add_argument("--entries_only", action="store_true",
+                        help="only the build and the train_titok and "
+                             "train_videogpt phases; no kernels line and no "
+                             "closing line")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
-    if args.titok_only:
-        titok_phases(card, args.converge_epochs)
+    if args.entries_only:
+        entry_phases(card, args.converge_epochs)
         return
     fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
@@ -5355,7 +5751,7 @@ def main(argv=None) -> None:
     fp32_path_launches, fp32_launches = phase_fp32(card)
     phase_train_vit_entry(card)
     phase_train_vit_entry(card, "--mixed", "false")
-    titok_launches, titok_fp32 = titok_phases(card, args.converge_epochs)
+    titok_launches, titok_fp32 = entry_phases(card, args.converge_epochs)
     for name, n in titok_fp32.items():
         fp32_launches[name] = fp32_launches.get(name, 0) + n
     for path in (train_launches, fused_launches, gpt_launches,

@@ -48,6 +48,8 @@ RUN = Path("titok-synthetic") / "8px_16px_S_4_32.jsonl"
 METRIC_REL = 1e-5
 # the loop against JAX's: the first three logged steps, then all six
 LOOP_REL_FIRST, LOOP_REL_ALL = 1e-3, 1e-2
+# the weight average after the loop's three steps, against JAX's
+EMA_REL = 1e-6
 
 
 # -- the shapes stream --------------------------------------------------------
@@ -232,13 +234,13 @@ def test_metrics_logger_writes_the_jax_files(tmp_path, monkeypatch):
 
 # -- the loop against train_titok.py ----------------------------------------
 
-def _jax_run(cwd: Path, epochs: int) -> dict:
+def _jax_run(cwd: Path, epochs: int, *extra: str) -> dict:
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONUNBUFFERED="1",
                VIT_TPU_RUN_DIR=str(cwd / "runs"))
     env.pop("XLA_FLAGS", None)  # one device: no dp mesh over the tiny batch
     proc = subprocess.run(
         [sys.executable, str(ROOT / "train_titok.py"), *TINY,
-         "--epochs", str(epochs), "--ckpt_dir", str(cwd / "ckpt")],
+         "--epochs", str(epochs), "--ckpt_dir", str(cwd / "ckpt"), *extra],
         cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return _logged(cwd / "runs" / RUN)
@@ -291,6 +293,38 @@ def test_loop_matches_train_titok(tmp_path, jax_init):
         assert got[step]["train/codebook_usage"] == \
             ref[step]["train/codebook_usage"]
         assert got[step]["train/epoch"] == ref[step]["train/epoch"]
+
+
+def test_ema_loop_matches_train_titok(tmp_path, jax_init):
+    """One epoch of three steps with ``--ema_decay 0.9`` through
+    ``train_titok.py`` and through the port's ``main``: the logged losses
+    as in ``test_loop_matches_train_titok``, and the "last" checkpoints'
+    averages (JAX's ``load_params(..., ema=True)``, the port's) within
+    ``EMA_REL`` relative in each tensor's L2 norm (reached: 4.1e-7)."""
+    from vit_tpu.train.checkpoint import load_params as jax_load_params
+    from vit_tpu_torch.bridge import flatten, flax_from_state_dict
+    from vit_tpu_torch.train.checkpoint import load_params
+
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    ref = _jax_run(tmp_path / "jax", 1, "--ema_decay", "0.9")
+    got = _port_run(tmp_path / "port", 1, "--ema_decay", "0.9")
+    assert sorted(got) == sorted(ref) == [1, 2, 3]
+    for step in ref:
+        for k in ("train/loss", "train/recon_loss", "train/grad_norm"):
+            np.testing.assert_allclose(got[step][k], ref[step][k],
+                                       rtol=LOOP_REL_FIRST, err_msg=k)
+    want = flatten(jax.tree.map(np.asarray, jax_load_params(
+        str(tmp_path / "jax" / "ckpt"), "last", ema=True)))
+    ema = load_params(str(tmp_path / "port" / "ckpt"), "last", ema=True)
+    params = load_params(str(tmp_path / "port" / "ckpt"), "last")
+    have = flatten(flax_from_state_dict(ema))
+    assert have.keys() == want.keys()
+    worst = {k: float(np.linalg.norm(have[k] - want[k])
+                      / np.linalg.norm(want[k])) for k in want}
+    for k in want:
+        assert worst[k] <= EMA_REL, (k, worst[k])
+    assert any(not torch.equal(ema[n], params[n]) for n in params)
 
 
 def test_resume_matches_uninterrupted_run(tmp_path, capsys):
@@ -423,10 +457,10 @@ def test_flags_and_defaults_match_train_titok(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--dataset", "imagenet"], ["--dataset", "dmlab"],
-    ["--dataset", "minecraft"], ["--quantizer", "fsq"],
+    ["--dataset", "minecraft"],
     ["--attn_impl", "xla"], ["--scan_layers", "true"], ["--mesh", "1,1,1"],
     ["--pp_microbatches", "2"], ["--loader_backend", "grain"],
-    ["--loader_processes", "2"], ["--ema_decay", "0.999"], ["--watch"],
+    ["--loader_processes", "2"],
 ], ids=lambda f: "_".join(a.lstrip("-") for a in f))
 def test_train_titok_refuses_unported_flags(flags):
     """Each flag whose path is not ported raises before anything is built,
@@ -436,6 +470,51 @@ def test_train_titok_refuses_unported_flags(flags):
     base = [] if flags[:1] == ["--dataset"] else ["--dataset", "synthetic"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A #"):
         main(base + flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--quantizer", "fsq"], ["--ema_decay", "0.999"], ["--watch"],
+], ids=lambda f: "_".join(a.lstrip("-") for a in f))
+def test_train_titok_lifted_flags(tmp_path, flags):
+    """The flags ported since the first loop run through ``main`` (two
+    steps of the tiny config, logged): ``--quantizer fsq`` builds an FSQ
+    TiTok (no codebook parameter, a zero quantizer loss, its config saved);
+    ``--ema_decay`` saves an average that moved apart from the parameters;
+    ``--watch`` writes a gradient and a parameter histogram per tensor at
+    each log step to TensorBoard, each counting the tensor's elements."""
+    from vit_tpu_torch.train.checkpoint import has_ema, load_params
+
+    logged = _port_run(tmp_path, 1, "--steps_per_epoch", "2", *flags)
+    assert sorted(logged) == [1, 2]
+    params = load_params(str(tmp_path / "ckpt"), "last")
+    config = json.loads((tmp_path / "ckpt" / "last_config.json").read_text())
+    if flags[0] == "--quantizer":
+        assert config["quantizer"] == "fsq"
+        assert not any("codebook" in n for n in params)
+        assert all(r["train/quant_loss"] == 0.0 for r in logged.values())
+    elif flags[0] == "--ema_decay":
+        assert config["quantizer"] == "vq"
+        assert has_ema(str(tmp_path / "ckpt"), "last")
+        ema = load_params(str(tmp_path / "ckpt"), "last", ema=True)
+        assert list(ema) == list(params)
+        assert any(not torch.equal(ema[n], params[n]) for n in params)
+    else:
+        from tensorboard.backend.event_processing.event_accumulator import \
+            EventAccumulator
+
+        acc = EventAccumulator(str((tmp_path / "runs" / RUN).with_name(
+            RUN.stem + "_tb")), size_guidance={"histograms": 0})
+        acc.Reload()
+        tags = acc.Tags()["histograms"]
+        sizes = {port_metrics.tree_norms({n: t}, "h").popitem()[0][2:]:
+                 t.numel() for n, t in params.items()}
+        assert sorted(tags) == sorted([f"grad_hist/{k}" for k in sizes]
+                                      + [f"param_hist/{k}" for k in sizes])
+        for tag in tags:
+            events = acc.Histograms(tag)
+            assert [e.step for e in events] == [1, 2]
+            assert all(e.histogram_value.num == sizes[tag.split("/", 1)[1]]
+                       for e in events)
 
 
 def test_no_card_exits_nonzero(monkeypatch, tmp_path):

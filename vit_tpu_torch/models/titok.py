@@ -2,7 +2,9 @@
 ``vit_tpu/models/titok.py:27-139``).
 
 Encoder: ViT over the image with K latent slots prepended; keep the K latent
-outputs and project them to latent_dim in fp32. Quantizer: the L2-norm VQ.
+outputs and project them to latent_dim in fp32. Quantizer: the L2-norm VQ,
+or FSQ under ``quantizer="fsq"`` (levels ``fsq_levels``, by default 8 for
+each of the latent_dim channels), which has no codebook.
 Decoder: project the codes back to n_embd (bf16), run them through a ViT as a
 (K, 1) "image" with patch 1 whose extra tokens are the n_patches mask slots,
 and turn the mask-slot outputs into pixels with an fp32 1×1 projection and
@@ -12,6 +14,7 @@ depth-to-space. Images are NHWC.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 from einops import rearrange
@@ -19,7 +22,7 @@ from torch import nn
 
 from vit_tpu_torch.core.transformer import linear
 from vit_tpu_torch.models.vit import ViT, ViTConfig
-from vit_tpu_torch.quantize.vq import Quantizer
+from vit_tpu_torch.quantize.vq import FSQ, Quantizer
 
 
 @dataclasses.dataclass(eq=False)
@@ -32,6 +35,8 @@ class TiTokConfig:
     transformer: str
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    quantizer: str = "vq"          # "vq" | "fsq"
+    fsq_levels: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         self.grid_size = self.image_size // self.patch_size
@@ -101,8 +106,11 @@ class TiTok(nn.Module):
         super().__init__()
         self.config = config
         self.enc = TiTokEncoder(config, device=device)
-        self.quant = Quantizer(config.codebook_size, config.latent_dim,
-                               device=device)
+        if config.quantizer == "fsq":
+            self.quant = FSQ(config.fsq_levels or (8,) * config.latent_dim)
+        else:
+            self.quant = Quantizer(config.codebook_size, config.latent_dim,
+                                   device=device)
         self.dec = TiTokDecoder(config, device=device)
 
     def forward(self, x: torch.Tensor):
@@ -115,5 +123,9 @@ class TiTok(nn.Module):
         return self.quant(self.enc(x))[1]
 
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
-        """Code indices → image."""
+        """Code indices → image. FSQ has no lookup, as in the JAX package."""
+        if self.config.quantizer == "fsq":
+            raise NotImplementedError(
+                "decode_indices of an FSQ TiTok: FSQ has no index lookup "
+                "(neither has the JAX package's)")
         return self.dec(self.quant.lookup(indices))

@@ -1,5 +1,5 @@
-"""The author's minimal L2-norm VQ (counterpart of
-``vit_tpu/quantize/vq.py:38-66``).
+"""The author's minimal L2-norm VQ and the FSQ variant (counterpart of
+``vit_tpu/quantize/vq.py:38-104``).
 
 fp32 throughout, whatever the surrounding compute dtype. The index comes from
 the nearest-code kernel (``kernels/vq.py``) on the L2-normalised latent; the
@@ -8,9 +8,19 @@ does. In training the codebook gets its gradient only from the codebook loss,
 and the encoder only through the commitment loss and the straight-through
 estimator (``zn + (q − zn).detach()``), as with the JAX module's
 ``stop_gradient``s.
+
+``FSQ`` bounds each latent channel with tanh and rounds it to ``levels[i]``
+values (half to even, as ``jnp.round``), with the straight-through
+estimator; it has no parameters and no loss. Its index packs the digits
+with the JAX module's int32 arithmetic: computed exactly in int64, then
+wrapped to int32, so prod(levels) above 2^31 (the default (8,) * 12 is
+8^12) gives the same wrapped, possibly negative indices as the JAX package.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -41,3 +51,38 @@ class Quantizer(nn.Module):
         """Index → codebook vector."""
         flat = self.codebook.index_select(0, indices.reshape(-1))
         return flat.reshape(*indices.shape, self.codebook.shape[1])
+
+
+class FSQ(nn.Module):
+    """Finite scalar quantization (``vit_tpu/quantize/vq.py:69-104``)."""
+
+    def __init__(self, levels: Sequence[int]):
+        super().__init__()
+        self.levels = tuple(int(n) for n in levels)
+
+    @property
+    def codebook_size(self) -> int:
+        return math.prod(self.levels)
+
+    def forward(self, z: torch.Tensor):
+        """z (..., len(levels)) → (quantized_ste fp32 in (−1, 1), indices
+        int32, a zero loss)."""
+        if z.shape[-1] != len(self.levels):
+            raise ValueError(
+                f"FSQ expects latent_dim == len(levels) ({len(self.levels)}), "
+                f"got {z.shape[-1]}")
+        levels = torch.tensor(self.levels, dtype=torch.float32,
+                              device=z.device)
+        half = (levels - 1.0) / 2.0
+        bounded = torch.tanh(z.float()) * half
+        rounded = torch.round(bounded)
+        quantized = bounded + (rounded - bounded).detach()
+        quantized = quantized / half.clamp_min(1e-12)
+        # the JAX module's astype(int32): truncation toward zero
+        digits = (rounded + half).detach().to(torch.int64)
+        radix = torch.tensor([math.prod(self.levels[:i]) % 2 ** 32
+                              for i in range(len(self.levels))],
+                             dtype=torch.int64, device=z.device)
+        packed = (digits * radix).sum(-1)
+        indices = ((packed + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+        return quantized, indices, torch.zeros((), device=z.device)

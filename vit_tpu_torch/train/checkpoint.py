@@ -4,8 +4,12 @@
 A tag ("best", "last") is a directory ``<dir>/<tag>/`` holding
 ``state.pt``: ``torch.save`` of the train state's ``state_dict`` on the
 host (the step, the parameters by the model's own names, the optimizer's
-count, μ in its own dtype and ν), read back with ``torch.load(...,
-weights_only=True)``. Beside it, as in the JAX package, ``<tag>_config.json``
+count, μ in its own dtype and ν, and, only when ``--ema_decay`` is on, the
+weight average ``ema_params``), read back with ``torch.load(...,
+weights_only=True)``. A restore into a state with EMA from a checkpoint
+without it seeds the average from the restored parameters, and a state
+without EMA drops a saved one (``TrainState.load_state_dict``), as the JAX
+checkpointer does. Beside it, as in the JAX package, ``<tag>_config.json``
 (the model config) and ``<tag>_meta.json`` (``{"best", "step"}``), and
 ``data_state.json``, the input-stream position by step.
 
@@ -193,14 +197,35 @@ class Checkpointer:
         return hist[str(max(eligible))]
 
 
-def load_params(directory: str, tag: Optional[str] = None
-                ) -> "dict[str, torch.Tensor]":
-    """The parameters of a checkpoint, ``{name: tensor}`` on the host, with
-    no state to load them into. ``tag=None`` prefers "best" over "last"."""
+def _tag_path(directory: str, tag: Optional[str]) -> Path:
     d = Path(directory).absolute()
     if tag is None:
         tag = "best" if (d / "best" / STATE_FILE).exists() else "last"
     path = d / tag / STATE_FILE
     if not path.exists():
         raise FileNotFoundError(f"no '{tag}' checkpoint under {d}")
-    return torch.load(path, map_location="cpu", weights_only=True)["params"]
+    return path
+
+
+def load_params(directory: str, tag: Optional[str] = None, *,
+                ema: bool = False) -> "dict[str, torch.Tensor]":
+    """The parameters of a checkpoint, ``{name: tensor}`` on the host, with
+    no state to load them into. ``tag=None`` prefers "best" over "last".
+    ``ema=True`` returns the weight average instead, and raises on a
+    checkpoint that holds none."""
+    path = _tag_path(directory, tag)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if ema:
+        if "ema_params" not in sd:
+            raise ValueError(f"checkpoint {path.parent} holds no EMA average "
+                             "(train with --ema_decay to write one)")
+        return sd["ema_params"]
+    return sd["params"]
+
+
+def has_ema(directory: str, tag: str = "best") -> bool:
+    """Whether a checkpoint was written by an ``--ema_decay`` run (its
+    tensors are mapped, not read)."""
+    sd = torch.load(_tag_path(directory, tag), map_location="cpu",
+                    weights_only=True, mmap=True)
+    return "ema_params" in sd

@@ -9,7 +9,10 @@ every ``ckpt_every`` steps it saves "best" (gated on train/recon_loss) and a
 rolling "last" with the input-stream position. Every ``image_every`` steps
 it logs input and reconstruction images, their SSIM and the per-parameter
 norms, and resets the usage bitmap. SIGTERM saves "last" and returns;
-``--resume`` restores the state and the stream position.
+``--resume`` restores the state and the stream position. ``--ema_decay``
+keeps the weight average in the state (and its checkpoints); ``--watch``
+runs the step variant with gradient and parameter histograms on log steps
+only, and they come back in the log step's one copy.
 
 Steps that do not log never wait for the device: the host queues them, and
 at a log step the previous step's loss is read first, so that the step time
@@ -23,6 +26,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from vit_tpu_torch.data.prefetch import ToDevice, device_prefetch
@@ -65,10 +69,14 @@ def build_perceptual(args, dtype: torch.dtype, device):
     return loss.to(device)
 
 
-def _fetch(tensors) -> "list[float]":
-    """Scalars on the device → host floats, in one copy."""
-    return torch.stack([t.detach().double().reshape(())
-                        for t in tensors]).cpu().tolist()
+def _fetch(tensors) -> list:
+    """Tensors on the device → host values in one copy: a float for each
+    0-d tensor, a float64 array for any other."""
+    flat = torch.cat([t.detach().double().reshape(-1) for t in tensors])
+    parts = np.split(flat.cpu().numpy(),
+                     np.cumsum([t.numel() for t in tensors])[:-1])
+    return [float(p[0]) if t.ndim == 0 else p.reshape(t.shape)
+            for p, t in zip(parts, tensors)]
 
 
 def run_tokenizer_training(args, model, model_config, train_loader, *,
@@ -91,7 +99,8 @@ def run_tokenizer_training(args, model, model_config, train_loader, *,
                         args.min_lr, args.weight_decay, clip_norm=1.0,
                         mu_dtype=getattr(args, "adam_mu_dtype", None)
                         or "bfloat16")
-    state = TrainState.create(model, tx)
+    state = TrainState.create(model, tx,
+                              ema_decay=getattr(args, "ema_decay", 0.0))
 
     ckpt = Checkpointer(args.ckpt_dir, mode="min")
     start_epoch, skip0 = 0, 0
@@ -106,11 +115,16 @@ def run_tokenizer_training(args, model, model_config, train_loader, *,
             print(f"RESUMED data stream at epoch {start_epoch}, "
                   f"batch {skip0}", flush=True)
 
-    train_step = make_tokenizer_train_step(
-        model, perceptual_loss_fn=perceptual,
+    step_kwargs = dict(
+        perceptual_loss_fn=perceptual,
         perceptual_weight=(perceptual_weight if perceptual_weight is not None
                            else getattr(args, "perceptual_weight", 1.0)),
         pixel_loss=pixel_loss)
+    train_step = make_tokenizer_train_step(model, **step_kwargs)
+    # --watch: the histogram variant runs on log steps only
+    train_step_watch = (make_tokenizer_train_step(model, watch=True,
+                                                  **step_kwargs)
+                        if getattr(args, "watch", False) else None)
 
     print(f"STATS: enc_params={params_str(state.params)}", flush=True)
 
@@ -155,7 +169,9 @@ def run_tokenizer_training(args, model, model_config, train_loader, *,
                 # wait for the queued steps before the clock starts
                 prev_loss.item()
                 st = time.time()
-            state, usage, metrics, recon = train_step(state, images, usage)
+            step_fn = (train_step_watch if is_log and train_step_watch
+                       else train_step)
+            state, usage, metrics, recon = step_fn(state, images, usage)
             prev_loss = metrics["train/loss"]
             if profiler is not None and global_i == 15:
                 if device.type == "cuda":
@@ -169,11 +185,19 @@ def run_tokenizer_training(args, model, model_config, train_loader, *,
                       f"{profile_dir}", flush=True)
             global_i += 1
             if is_log:
+                hists = metrics.pop("_hists", {})
                 keys = list(metrics)
-                *values, step_now = _fetch([metrics[k] for k in keys]
-                                           + [state.step])
-                step_now = int(step_now)
+                flat = [metrics[k] for k in keys] + [state.step]
+                for counts, edges in hists.values():
+                    flat += [counts, edges]
+                values = _fetch(flat)
+                step_now = int(values[len(keys)])
                 host = dict(zip(keys, values))
+                if hists:
+                    pairs = values[len(keys) + 1:]
+                    logger.log_histograms(
+                        dict(zip(hists, zip(pairs[::2], pairs[1::2]))),
+                        step=step_now)
                 step_time = time.time() - st - (0.0 if rebased else load_time)
                 host.update({"train/epoch": epoch,
                              "benchmark/load_time": load_time,

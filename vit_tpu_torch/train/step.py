@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.train.state import TrainState
+from vit_tpu_torch.utils.metrics import tree_histograms
 
 
 def make_classifier_train_step(model: nn.Module) -> Callable:
@@ -70,18 +71,36 @@ def make_classifier_eval_step(model: nn.Module) -> Callable:
     return eval_step
 
 
+def mark_usage_(usage: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """``usage[indices] = 1`` in place with the JAX scatter's rules
+    (``usage.at[indices].set(1.0)``): an index in [−n, −1] counts from the
+    end and one outside [−n, n) is dropped. FSQ's wrapped int32 indices
+    (``quantize/vq.py``) can be either. No host sync: a dropped index adds
+    a 0 to code 0 under ``amax`` instead."""
+    n = usage.shape[0]
+    idx = indices.reshape(-1).long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    return usage.scatter_reduce_(0, torch.where(valid, idx, 0),
+                                 valid.to(usage.dtype), reduce="amax")
+
+
 def make_tokenizer_train_step(model: nn.Module, *,
                               perceptual_loss_fn: Optional[Callable] = None,
                               perceptual_weight: float = 1.0,
-                              pixel_loss: str = "l2") -> Callable:
+                              pixel_loss: str = "l2",
+                              watch: bool = False) -> Callable:
     """Tokenizer (TiTok) step: pixel MSE (``pixel_loss="l1"``: mean absolute
     error) + perceptual_weight · perceptual loss + the quantizer's loss.
 
     ``train_step(state, images, usage) → (state, usage, metrics, recon)``
     with ``state.params`` the parameters of ``model``. ``usage`` is the
-    (codebook_size,) fp32 bitmap of codes seen, set in place:
-    ``usage[indices] = 1``. The JAX step also takes a dropout key; dropout is
-    0 in every TiTok config and is not ported."""
+    (codebook_size,) fp32 bitmap of codes seen, set in place by
+    ``mark_usage_``. ``watch=True`` (``--watch``) adds ``metrics["_hists"]``:
+    each gradient's and each parameter's (before the update) 64-bin
+    histogram, ``{"grad_hist/<JAX leaf path>": (counts, edges), ...,
+    "param_hist/...": ...}`` on the device. The JAX step also takes a
+    dropout key; dropout is 0 in every TiTok config and is not ported."""
     if pixel_loss not in ("l1", "l2"):
         raise ValueError(f"unknown pixel_loss {pixel_loss!r}")
 
@@ -100,12 +119,17 @@ def make_tokenizer_train_step(model: nn.Module, *,
         recon_loss = pix + perc
         loss = recon_loss + quantize_loss
         grads = torch.autograd.grad(loss, state.params)
-        state.apply_gradients(grads)
-        usage.index_fill_(0, indices.reshape(-1).long(), 1.0)
         metrics = {"train/loss": loss, "train/recon_loss": recon_loss,
                    "train/quant_loss": quantize_loss,
                    "train/perceptual_loss": perc, "train/l1_loss": pix}
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if watch:
+            metrics["_hists"] = {
+                **tree_histograms(dict(zip(state.names, grads)), "grad_hist"),
+                **tree_histograms(dict(zip(state.names, state.params)),
+                                  "param_hist")}
+        state.apply_gradients(grads)
+        mark_usage_(usage, indices)
         if state.opt_state.grad_norm is not None:   # recorded by the clip
             metrics["train/grad_norm"] = state.opt_state.grad_norm
         metrics["train/codebook_usage"] = usage.mean()

@@ -16,11 +16,15 @@ The loop (``train/loop.py``) logs to ``<run_dir>/titok-synthetic/<run>.jsonl``,
 checkpoints "best" and "last" under ``--ckpt_dir``, resumes with the stream
 position (``--resume``) and saves "last" on SIGTERM.
 
-Ported so far: ``--dataset synthetic`` (the shapes stream), the VQ
-quantizer, the perceptual loss (``--perceptual_weights random|<.npz>``,
-``--perceptual_quant int8``), ``--n_layers``, ``--max_epoch_steps`` and
-``--profile_dir`` (a ``torch.profiler`` Chrome trace of steps 10-15). Every
-other path is refused with a message naming its ROADMAP item.
+Ported so far: ``--dataset synthetic`` (the shapes stream), both quantizers
+(``--quantizer vq|fsq``; FSQ at 8 levels a latent channel, its usage bitmap
+still ``--codebook_size`` long, as in ``train_titok.py``), the perceptual
+loss (``--perceptual_weights random|<.npz>``, ``--perceptual_quant int8``),
+``--ema_decay`` (the weight average, saved in each checkpoint), ``--watch``
+(gradient and parameter histograms on log steps, to the TensorBoard sink),
+``--n_layers``, ``--max_epoch_steps`` and ``--profile_dir`` (a
+``torch.profiler`` Chrome trace of steps 10-15). Every other path is
+refused with a message naming its ROADMAP item.
 ``--no_wandb`` is accepted; the port logs to files only.
 """
 
@@ -112,8 +116,6 @@ def check_ported(args: argparse.Namespace) -> None:
          f"--dataset {args.dataset}: only the synthetic stream is ported; "
          "the image and video loaders need an image decoder the card's "
          "machine lacks (ROADMAP Queue A #2, the loaders)"),
-        (args.quantizer == "fsq",
-         "--quantizer fsq: FSQ is not ported (ROADMAP Queue A #2, FSQ)"),
         (args.attn_impl == "xla",
          "--attn_impl xla: the port's attention is its kernels (ROADMAP "
          "Queue A #10, no port needed)"),
@@ -126,12 +128,6 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.loader_backend != "threads" or args.loader_processes,
          "--loader_backend/--loader_processes: the loader backends come "
          "with the loaders (ROADMAP Queue A #2, the loaders)"),
-        (args.ema_decay != 0.0,
-         "--ema_decay: the weight average is not ported (ROADMAP Queue A "
-         "#2, EMA)"),
-        (args.watch,
-         "--watch: the histograms are not ported (ROADMAP Queue A #2, "
-         "--watch histograms)"),
     ]
     for bad, why in refused:
         if bad:
@@ -157,7 +153,8 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.mixed else torch.float32
     titok_config = TiTokConfig(args.image_size, args.patch_size,
                                args.latent_tokens, args.codebook_size,
-                               args.latent_dim, args.transformer, dtype=dtype)
+                               args.latent_dim, args.transformer, dtype=dtype,
+                               quantizer=args.quantizer)
     if args.n_layers is not None:
         for name in ("enc_vit_config", "dec_vit_config"):
             sub = getattr(titok_config, name)

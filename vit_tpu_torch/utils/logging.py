@@ -8,7 +8,8 @@ else ``runs``. The first line holds the run's ``_config`` (its scalar
 entries), ``_platform`` and ``_ts``; every other line a record with
 ``_step`` and ``_ts``. ``_platform`` is ``"cuda"`` with the card's name in
 ``_device``, or ``"cpu"``. Images go to ``<name>_images/<key>_<step>_<j>.png``,
-written with ``zlib`` and ``struct`` from the standard library. The JAX
+written with ``zlib`` and ``struct`` from the standard library. ``--watch``
+histograms go to the TensorBoard sink only, as raw histograms. The JAX
 logger's wandb sink is not ported: ``--no_wandb`` or not, the port logs to
 these files.
 
@@ -116,6 +117,24 @@ class MetricsLogger:
                     self._tb.add_scalar(k, v, global_step=step)
         self._fh.write(json.dumps(payload) + "\n")
         self._fh.flush()
+
+    def log_histograms(self, hists: Dict[str, Any],
+                       step: Optional[int] = None):
+        """``{key: (counts, edges)}`` host arrays (``utils/metrics.py:
+        tree_histograms``, fetched) → TensorBoard raw histograms; nothing
+        without a TensorBoard sink, as the JAX logger without wandb."""
+        if not self._active or self._tb is None:
+            return
+        for k, (counts, edges) in hists.items():
+            counts = np.asarray(counts, np.float64)
+            edges = np.asarray(edges, np.float64)
+            mids = (edges[:-1] + edges[1:]) / 2.0
+            self._tb.add_histogram_raw(
+                k, min=float(edges[0]), max=float(edges[-1]),
+                num=int(counts.sum()), sum=float((mids * counts).sum()),
+                sum_squares=float((mids ** 2 * counts).sum()),
+                bucket_limits=edges[1:].tolist(),
+                bucket_counts=counts.tolist(), global_step=step)
 
     def log_images(self, images: Dict[str, Any], step: Optional[int] = None):
         """``{key: (N, H, W, 3) array in [0, 1]}`` → one PNG per image under

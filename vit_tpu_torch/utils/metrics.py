@@ -1,10 +1,10 @@
-"""Reconstruction metrics and parameter norms on tensors (counterpart of
-``vit_tpu/utils/metrics.py:13-84``).
+"""Reconstruction metrics, parameter norms and histograms on tensors
+(counterpart of ``vit_tpu/utils/metrics.py:13-100``).
 
-``tree_norms`` keys each norm by the JAX package's leaf path
-(``param_norm/enc/vit/transformer/layer_0/attn/qkv/kernel``), through the
-bridge's name map, so the two packages' logs compare line by line. A
-kernel's norm does not depend on its layout.
+``tree_norms`` and ``tree_histograms`` key each tensor by the JAX package's
+leaf path (``param_norm/enc/vit/transformer/layer_0/attn/qkv/kernel``),
+through the bridge's name map, so the two packages' logs compare line by
+line. Neither depends on a kernel's layout.
 """
 
 from __future__ import annotations
@@ -72,4 +72,37 @@ def tree_norms(named: Mapping[str, torch.Tensor], prefix: str) -> dict:
     1e-5 off."""
     return {f"{prefix}/{_flax_key(name, t.ndim)[0]}":
             torch.linalg.vector_norm(t.detach(), dtype=torch.float64).float()
+            for name, t in named.items()}
+
+
+def histogram(x: torch.Tensor, bins: int = 64
+              ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """``jnp.histogram(x, bins)`` on the tensor's device: (counts fp32
+    (bins,), edges fp32 (bins + 1,)). The edges span [min, max] (± 0.5 when
+    they are equal) as JAX's fp32 ``linspace``, lo·(1 − t) + hi·t with t =
+    i / bins, the second product fused into the sum as XLA evaluates it; a
+    value's bin is ``searchsorted(edges, x, side="right")``, the last bin
+    closed on the right. (``torch.histc`` puts a value on an inner edge
+    elsewhere.) No host sync."""
+    x = x.detach().float().reshape(-1)
+    lo, hi = x.min(), x.max()
+    flat = hi == lo
+    lo = torch.where(flat, lo - 0.5, lo)
+    hi = torch.where(flat, hi + 0.5, hi)
+    t = torch.arange(bins, dtype=torch.float32, device=x.device) / bins
+    inner = (hi.double() * t.double() + (lo * (1 - t)).double()).float()
+    edges = torch.cat([inner, hi[None]])
+    idx = torch.searchsorted(edges, x, right=True)
+    idx = torch.where(x == edges[-1], bins, idx)
+    counts = torch.zeros(bins + 1, dtype=torch.float32, device=x.device)
+    counts.index_add_(0, idx, torch.ones_like(x))
+    return counts[1:], edges
+
+
+def tree_histograms(named: Mapping[str, torch.Tensor], prefix: str,
+                    bins: int = 64) -> dict:
+    """Per-tensor value histograms of a state dict as ``{"<prefix>/<JAX
+    leaf path>": (counts, edges)}``, left on the tensors' device (the
+    ``--watch`` surface, ``vit_tpu/utils/metrics.py:85-100``)."""
+    return {f"{prefix}/{_flax_key(name, t.ndim)[0]}": histogram(t, bins)
             for name, t in named.items()}
