@@ -21,6 +21,9 @@ vit_tpu_torch.train_vit`` at its defaults, in bf16 and with ``--mixed
 false``. Phases, one JSON line each:
 
   1. device   — fails without CUDA; card name and power limit; TF32 off;
+                the line ``decoders: {"PIL", "cv2", "grain", "native"}``
+                (which decoding packages the machine has; native: whether
+                the libjpeg pipeline builds);
   2. build    — compiles the CUDA kernels from ``vit_tpu_torch/csrc``, one
                 nvcc per source in parallel; registers and spills per kernel;
   2b. fma_probe — P, the FMA-rate probe (``scripts/bench_vpu.py``'s
@@ -44,7 +47,11 @@ false``. Phases, one JSON line each:
                 K11a/K11b, ``torch._int_mm`` for K12a/K12b); K1/K2 also at
                 the ViT shapes (4, 197, 12 heads) and (4, 257, 16 heads),
                 with the ptxas figures of their kernels (the kBias forms of
-                K6's and K7/K8's); the wgmma backwards (K2, K7/K8 and their
+                K6's and K7/K8's); K5's runtime-D form at D 5, 6, 24,
+                64, 101, 200, 256 and 1024 against N 16384 × C 2048 and
+                16384, held to fp64 scores as its tuned forms are, with the
+                lowest-index ties (also across slices) at D 6 too, timed
+                beside its bound; the wgmma backwards (K2, K7/K8 and their
                 dropout arms) within ``WGMMA_BWD_MEAN_REL`` of mean |plain|,
                 which a control (ph rounded to bf16 early) must fail, and
                 the wgmma forwards (K1, K6 and their dropout arms) within
@@ -211,7 +218,8 @@ false``. Phases, one JSON line each:
                 or later; ``--resume`` continues from it for 3 steps; 3
                 steps each under ``--mixed false`` and
                 ``--perceptual_quant int8``; ``--quantizer fsq`` (K1-K4, no
-                K5; the usage finite), ``--ema_decay 0.999`` (the "last"
+                K5; the usage finite), ``--latent_dim 6`` (K5's runtime-D
+                form), ``--ema_decay 0.999`` (the "last"
                 average apart from the parameters, then one ``--resume``
                 step that continues it: e·d + p·(1 − d) of the saved one)
                 and ``--watch`` (each histogram counts its tensor's
@@ -249,7 +257,27 @@ false``. Phases, one JSON line each:
                 direct ``generate_frames`` call; each run's launches and
                 step times.
 
-``--entries_only`` runs the device, build and the last three phases alone
+ 18. data     — the data layer on fixtures the phase writes (96 DMLab
+                clips, ``np.savez`` uncompressed, ``video`` (300, 64, 64, 3)
+                uint8 and ``actions`` (300,); npy/cls/json tar shards):
+                ``train_videogpt`` at its defaults (``--dataset dmlab``,
+                VideoGPT-B, bs 32, S 1024: K1, K5, K6, K8) and
+                ``train_titok --dataset dmlab --image_size 64`` at TiTok-B
+                (bs 64, perceptual loss: K1-K5) for 3 steps each through
+                their ``main``, the first batch on the card against the
+                numpy batch of the same clips bit for bit (the tokenizer's
+                frames each a frame of its clip), each loader's batches a
+                second alone, the step times and batch waits beside the same
+                entry on its synthetic stream; the shards through
+                ``StreamingWebDataset`` and ``StreamingBatcher`` against
+                ``iterate_shard``; where Pillow is here, ``train_vit
+                --dataset imagenet``, ``--dataset wds --wds_streaming
+                true`` and ``train_titok --dataset imagenet`` on JPEGs it
+                writes; for each missing decoder, the refusal naming it;
+ 19. repro    — two 3-step ``train_titok`` runs at TiTok-B from one seed:
+                every gradient and parameter bit for bit after every step.
+
+``--entries_only`` runs the device, build and the last five phases alone
 (no kernels line, no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
@@ -310,6 +338,7 @@ from vit_tpu_torch.kernels import fc_grad as k_fc  # noqa: E402
 from vit_tpu_torch.kernels import fma_probe as k_fma  # noqa: E402
 from vit_tpu_torch.kernels import ln_matmul as k_lnmm  # noqa: E402
 from vit_tpu_torch.kernels import vq as k_vq  # noqa: E402
+from vit_tpu_torch.data import decoders  # noqa: E402
 from vit_tpu_torch.data.synthetic import SyntheticVideoLoader  # noqa: E402
 from vit_tpu_torch.losses.perceptual import ConvNeXt, PerceptualLoss  # noqa: E402
 from vit_tpu_torch.models.pretrained import FrozenTokenizer  # noqa: E402
@@ -367,6 +396,8 @@ WGMMA_FWD_MEAN_REL = 4.3e-5
 TAIL_MEAN_REL = 1.36e-4
 K5_TIE_GAP = 1e-6   # the kernel's fp32 scores of order 1e-3 against fp64
 K5_PLAIN_ULPS = 8   # the plain version's fp32 distance, in ulps of its terms
+# K5's runtime-D form: odd and wide latent widths, up to its widest (MAX_DIM)
+K5_ANY_DIMS = (5, 6, 24, 64, 101, 200, 256, 1024)
 # Kernels vs plain versions through the whole bf16 model: one ulp of
 # difference in attention spreads through the residual stream's bf16
 # roundings. Measured on an H100 with these random weights: latents 0.7%
@@ -917,6 +948,10 @@ def phase_device() -> str:
          torch=torch.__version__, cuda=torch.version.cuda,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    # which decoders the data phase can use (native: whether the libjpeg
+    # pipeline builds here)
+    measured["decoders"] = decoders.found()
+    print("decoders: " + json.dumps(measured["decoders"]), flush=True)
     return card
 
 
@@ -1475,70 +1510,19 @@ def phase_kernels() -> dict:
     for n, c in ((2048, 2048), (TRAIN_BS * 256, 2048), (2053, 2048),
                  (video_codes, 1024)):
         for l2 in (True, False):
-            z = torch.randn(n, 12, device="cuda", generator=gen)
-            cb = (torch.rand(c, 12, device="cuda", generator=gen) * 2 - 1) / c
-            idx = k_vq.nearest_code(z, cb, l2_normalize=l2).long()
-            ref = k_vq.nearest_code_ref(z, cb, l2_normalize=l2).long()
-            bad = (idx != ref).nonzero().flatten()
-            z64, e64 = z.double(), cb.double()
-            if l2:
-                z64 = z64 * torch.rsqrt((z64 * z64).sum(-1, keepdim=True) + 1e-24)
-                e64 = e64 * torch.rsqrt((e64 * e64).sum(-1, keepdim=True) + 1e-24)
-            s64 = z64 @ e64.T
-            if not l2:
-                s64 -= 0.5 * (e64 * e64).sum(-1)
-            best = s64.max(-1).values
-            rows = torch.arange(n, device="cuda")
-            regret = best - s64[rows, idx]
-            plain_regret = (best - s64[rows, ref])[bad]
-            # The plain version's fp32 distance ‖z‖² + ‖e‖² − 2z·e rounds
-            # at the ulp of its largest term, (‖z‖ + ‖e‖)² at most.
-            plain_bound = (K5_PLAIN_ULPS * 2.0 ** -24 * (
-                z64.norm(dim=-1) + e64.norm(dim=-1).max()) ** 2)[bad]
-            worst = (s64[bad, idx[bad]] - s64[bad, ref[bad]]).abs().max().item() \
-                if len(bad) else 0.0
-            k5_rows.append(dict(
-                N=n, C=c, D=12, l2_normalize=l2, near_ties=len(bad),
-                max_tie_gap=worst, kernel_max_regret=regret.max().item(),
-                plain_max_regret_over_bound=(
-                    (plain_regret / plain_bound).max().item() if len(bad)
-                    else 0.0)))
-            require(regret.max().item() <= K5_TIE_GAP,
-                    f"K5 misses the fp64 nearest code: {k5_rows[-1]}")
-            require(bool((plain_regret <= plain_bound).all()),
-                    f"K5 disagrees beyond a near-tie: {k5_rows[-1]}")
-            k5_gap = max(k5_gap, worst)
-    for d in k_vq.SUPPORTED_DIMS:  # every instantiation the library ships
+            row = k5_hold(n, c, 12, l2, gen)
+            k5_rows.append(row)
+            k5_gap = max(k5_gap, row["max_tie_gap"])
+    for d in k_vq.TUNED_DIMS:  # every tuned instantiation the library ships
         z = torch.randn(333, d, device="cuda", generator=gen)
         cb = torch.randn(500, d, device="cuda", generator=gen)
         same = (k_vq.nearest_code(z, cb) == k_vq.nearest_code_ref(z, cb))
         require(bool(same.all()), f"K5 disagrees at D {d}")
-    cb = torch.randn(64, 12, device="cuda", generator=gen)
-    cb[40] = cb[7]
-    cb[63] = cb[7]
-    z = cb[7:8].repeat(33, 1).contiguous()
-    for l2 in (True, False):
-        require(k_vq.nearest_code(z, cb, l2_normalize=l2).unique().tolist()
-                == [7], "K5 does not break ties toward the lowest index")
-    # A tie across slices: at N 2048 the plan cuts the 2048 codes into
-    # slices of 64, so code 63 (the end of slice 0) has equal codes at 64
-    # (the start of slice 1) and in two later slices; every row equal to it
-    # must take 63 from the merged keys.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tie_plan = k_vq.plan(2048, 2048, 12, sms)
-    require(tie_plan["splits"] > 1 and tie_plan["slice"] == 64,
-            f"K5's plan at N 2048 has no slice boundary at 64: {tie_plan}")
-    cb = torch.randn(2048, 12, device="cuda", generator=gen)
-    for j in (64, 1000, 2047):
-        cb[j] = cb[63]
-    z = cb[63:64].repeat(2048, 1).contiguous()
-    for l2 in (True, False):
-        require(k_vq.nearest_code(z, cb, l2_normalize=l2).unique().tolist()
-                == [63], "K5 does not break a tie across slices toward the "
-                "lowest index")
+    cross_slice_tie = k5_ties(gen, sms)
     lib = _build.load()
     require(all(lib.vq_nearest_block_rows(d) == 32 * k_vq.rows_per_lane(d)
-                for d in k_vq.SUPPORTED_DIMS),
+                for d in k_vq.TUNED_DIMS),
             "K5's rows a block differ between the source and kernels/vq.py")
     # Each path's shape: serving bs 8 and 64 (the train step's N too)
     # against 2048 codes, the VideoGPT step's against 1024. N·C·D fp32
@@ -1558,11 +1542,12 @@ def phase_kernels() -> dict:
         k5_bounds[key] = bound(2 * n * c * 12, (n + c) * 12 * 4 + n * 4,
                                peak=PEAK_FP32_FLOPS)
     k5_bound = k5_bounds["bs8"]
+    any_dim = k5_any_dims(gen, sms)
     emit("kernel", name="vq_nearest", parity=k5_rows,
          tolerance=dict(tie_gap=K5_TIE_GAP), lowest_index_ties=True,
-         cross_slice_tie=dict(N=2048, C=2048, codes=[63, 64, 1000, 2047],
-                              picked=63),
-         dims_checked=list(k_vq.SUPPORTED_DIMS), times=times,
+         cross_slice_tie=cross_slice_tie,
+         dims_checked=list(k_vq.TUNED_DIMS), times=times,
+         any_dim=any_dim,
          plans=k5_plans, bounds=k5_bounds,
          ms_bs8=times["bs8"]["ms"], plain_ms_bs8=times["bs8"]["plain_ms"],
          ms_bs64=times["bs64"]["ms"], plain_ms_bs64=times["bs64"]["plain_ms"],
@@ -1577,7 +1562,12 @@ def phase_kernels() -> dict:
                                  bound_by=k5_bound["bound_by"],
                                  library_ms=None,
                                  dev_ms=times["bs8"]["dev_ms"],
-                                 blocks=k5_plans["bs8"]["blocks"])
+                                 blocks=k5_plans["bs8"]["blocks"],
+                                 any_dim={d: {k: t[k] for k in (
+                                     "ms", "dev_ms", "plain_ms", "bound_ms")}
+                                     for d, t in any_dim["times"].items()},
+                                 any_dim_max_regret=any_dim[
+                                     "kernel_max_regret"])
     summary.update(unpacked_kernels(gen))
     for name, arm in dropout_kernels(gen).items():
         summary[name]["dropout"] = arm
@@ -1585,6 +1575,111 @@ def phase_kernels() -> dict:
     summary.update(int8_tail_kernels(gen))
     summary.update(depthwise_kernels(gen))
     return summary
+
+def k5_hold(n: int, c: int, d: int, l2: bool, gen) -> dict:
+    """K5 at (N, C, D) on random fp32 z and codes (scaled by 1/C, as the
+    train step's codebook), judged by fp64 scores z·e (− ‖e‖²/2 without
+    normalisation): the kernel's code must be the fp64 best within
+    K5_TIE_GAP on every row, and where the plain version picks another code,
+    that code must be within the plain version's own rounding of the best."""
+    z = torch.randn(n, d, device="cuda", generator=gen)
+    cb = (torch.rand(c, d, device="cuda", generator=gen) * 2 - 1) / c
+    idx = k_vq.nearest_code(z, cb, l2_normalize=l2).long()
+    ref = k_vq.nearest_code_ref(z, cb, l2_normalize=l2).long()
+    bad = (idx != ref).nonzero().flatten()
+    z64, e64 = z.double(), cb.double()
+    if l2:
+        z64 = z64 * torch.rsqrt((z64 * z64).sum(-1, keepdim=True) + 1e-24)
+        e64 = e64 * torch.rsqrt((e64 * e64).sum(-1, keepdim=True) + 1e-24)
+    s64 = z64 @ e64.T
+    if not l2:
+        s64 -= 0.5 * (e64 * e64).sum(-1)
+    best = s64.max(-1).values
+    rows = torch.arange(n, device="cuda")
+    regret = best - s64[rows, idx]
+    plain_regret = (best - s64[rows, ref])[bad]
+    # The plain version's fp32 distance ‖z‖² + ‖e‖² − 2z·e rounds at the
+    # ulp of its largest term, (‖z‖ + ‖e‖)² at most.
+    plain_bound = (K5_PLAIN_ULPS * 2.0 ** -24 * (
+        z64.norm(dim=-1) + e64.norm(dim=-1).max()) ** 2)[bad]
+    worst = (s64[bad, idx[bad]] - s64[bad, ref[bad]]).abs().max().item() \
+        if len(bad) else 0.0
+    row = dict(N=n, C=c, D=d, l2_normalize=l2, near_ties=len(bad),
+               max_tie_gap=worst, kernel_max_regret=regret.max().item(),
+               plain_max_regret_over_bound=(
+                   (plain_regret / plain_bound).max().item() if len(bad)
+                   else 0.0))
+    del s64
+    require(regret.max().item() <= K5_TIE_GAP,
+            f"K5 misses the fp64 nearest code: {row}")
+    require(bool((plain_regret <= plain_bound).all()),
+            f"K5 disagrees beyond a near-tie: {row}")
+    return row
+
+
+def k5_ties(gen, sms: int) -> dict:
+    """K5's tie rule at D 12 (the tuned form) and 6 (the runtime-D form):
+    equal codes at 7, 40 and 63 in one slice give 7; and a tie across
+    slices: at N 2048 the plan cuts the 2048 codes into slices, so the
+    code that ends slice 0 has equal codes that start slice 1 and in two
+    later slices, and every row equal to it must take it from the merged
+    keys. Returns the codes tied across slices a D."""
+    for d in (12, 6):
+        cb = torch.randn(64, d, device="cuda", generator=gen)
+        cb[40] = cb[7]
+        cb[63] = cb[7]
+        z = cb[7:8].repeat(33, 1).contiguous()
+        for l2 in (True, False):
+            require(k_vq.nearest_code(z, cb, l2_normalize=l2).unique()
+                    .tolist() == [7],
+                    f"K5 does not break ties toward the lowest index at D {d}")
+    tied = {}
+    for d in (12, 6):
+        tie_plan = k_vq.plan(2048, 2048, d, sms)
+        end = tie_plan["slice"] - 1
+        require(tie_plan["splits"] > 2 and end + 1 < 1000,
+                f"K5's plan at N 2048 has too few slices: {tie_plan}")
+        cb = torch.randn(2048, d, device="cuda", generator=gen)
+        tied[d] = [end, end + 1, 1000, 2047]
+        for j in tied[d][1:]:
+            cb[j] = cb[end]
+        z = cb[end:end + 1].repeat(2048, 1).contiguous()
+        for l2 in (True, False):
+            require(k_vq.nearest_code(z, cb, l2_normalize=l2).unique()
+                    .tolist() == [end], f"K5 does not break a tie across "
+                    f"slices toward the lowest index at D {d}")
+    return dict(N=2048, C=2048, codes=tied, picked="the first of each")
+
+
+def k5_any_dims(gen, sms: int) -> dict:
+    """K5's runtime-D form (every D but the tuned 8, 12, 16 and 32) at
+    ``K5_ANY_DIMS`` against the train step's N and C 2048 and 16384, held by
+    ``k5_hold``; the rows a block held against ``rows_per_block``; each D
+    timed at (N, 2048) with its bound (N·C·D fp32 multiply-adds; z and the
+    codes read, the indices written)."""
+    n = TRAIN_BS * 256
+    rows, times = [], {}
+    lib = _build.load()
+    for d in K5_ANY_DIMS:
+        require(lib.vq_nearest_block_rows(d) == k_vq.rows_per_block(d),
+                f"K5's rows a block at D {d} differ from kernels/vq.py")
+        for c in (2048, 16384):
+            for l2 in (True, False):
+                rows.append(k5_hold(n, c, d, l2, gen))
+        z = torch.randn(n, d, device="cuda", generator=gen)
+        cb = (torch.rand(2048, d, device="cuda", generator=gen) * 2 - 1) / 2048
+        times[d] = dict(
+            ms=median_ms(lambda: k_vq.nearest_code(z, cb)),
+            dev_ms=device_ms(lambda: k_vq.nearest_code(z, cb)),
+            plain_ms=median_ms(lambda: k_vq.nearest_code_ref(z, cb)),
+            plan=k_vq.plan(n, 2048, d, sms),
+            **bound(2 * n * 2048 * d, (n + 2048) * d * 4 + n * 4,
+                    peak=PEAK_FP32_FLOPS))
+    torch.cuda.empty_cache()
+    return dict(parity=rows, times=times,
+                kernel_max_regret=max(r["kernel_max_regret"] for r in rows),
+                build={k: v for k, v in measured.get("ptxas", {}).items()
+                       if k.startswith("vq_nearest_any_kernel")})
 
 
 def head_views(b: int, h: int, s: int, gen, packed: bool = True):
@@ -4978,6 +5073,17 @@ def phase_train_titok_entry(card: str, work: Path) -> "tuple[dict, dict]":
     short["fsq"] = dict(entry_summary(run), usage=usage)
     runs.append(run)
 
+    # --latent_dim 6: the step's K5 launches take its runtime-D form
+    run = run_titok_main(*TITOK_ENTRY, *dirs("d6"), "--latent_dim", "6",
+                         *short_epoch)
+    require(len(run["steps"]) == SHORT_STEPS,
+            f"--latent_dim 6 run's steps: {run['lines']}")
+    require_launched(run, tokenizer + ("convnext_tail_fwd",
+                                       "convnext_tail_bwd"))
+    short["latent_dim_6"] = entry_summary(run)
+    measured["k5_any_dim_launches"] = run["launches"]["vq_nearest"]
+    runs.append(run)
+
     # --ema_decay 0.999 (warmup 1, so the parameters move): the "last"
     # average apart from the parameters, and one --resume step that
     # continues it (e·d + p·(1 − d) of the saved average, closer than the
@@ -5686,6 +5792,462 @@ def phase_perceptual(state_dict: dict, card: str) -> dict:
     return total
 
 
+# The data phase's fixtures: DMLab clips as the reference stores them
+# (np.savez, uncompressed: 'video' (300, 64, 64, 3) uint8, 'actions' (300,)),
+# tar shards of npy/cls/json payloads, and (where Pillow is here) JPEGs
+DMLAB_CLIPS, DMLAB_FOLDERS = 96, 4     # 3 batches an epoch at bs 32
+DMLAB_SHAPE = (300, 64, 64, 3)
+SHARD_SAMPLES, SHARD_MAXCOUNT = 40, 8
+LOADER_BATCHES = 16        # the image loader's batches timed alone
+LOADER_EPOCHS = 1          # the video loader's epochs timed alone
+DATA_STEPS = 3
+JPEG_TRAIN, JPEG_VAL, JPEG_SIZE = 128, 64, 288
+
+
+def write_dmlab(root: Path) -> "list[Path]":
+    """DMLAB_CLIPS clips in ``<root>/<folder>/<video>.npz``, from seed 21;
+    their paths in the order DmlabDataset lists them."""
+    rng = np.random.default_rng(21)
+    paths = []
+    for v in range(DMLAB_CLIPS):
+        folder = root / f"{v % DMLAB_FOLDERS:02d}"
+        folder.mkdir(parents=True, exist_ok=True)
+        path = folder / f"{v:04d}.npz"
+        np.savez(path, video=rng.integers(0, 256, DMLAB_SHAPE, np.uint8),
+                 actions=rng.integers(0, 9, DMLAB_SHAPE[:1]))
+        paths.append(path)
+    return sorted(paths)
+
+
+def first_order(n: int) -> np.ndarray:
+    """The threaded loader's first epoch at seed 0: ``default_rng(0)``'s
+    shuffle of ``arange(n)``."""
+    order = np.arange(n)
+    np.random.default_rng(0).shuffle(order)
+    return order
+
+
+def loader_rate(loader, batches: int, epochs: int = 1) -> dict:
+    """The loader alone: ``batches`` batches (or ``epochs`` whole epochs),
+    batches a second on the host's clock."""
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(epochs):
+        for _ in loader:
+            n += 1
+            if n == batches:
+                break
+    seconds = time.perf_counter() - t0
+    return dict(batches=n, seconds=seconds, batches_per_s=n / seconds)
+
+
+def load_times(run_dir: Path) -> "list[float]":
+    """Each logged step's ``benchmark/load_time`` (the wait for the
+    prefetched batch) from the entry's JSONL log."""
+    (path,) = run_dir.rglob("*.jsonl")
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    return [r["benchmark/load_time"] for r in rows
+            if "benchmark/load_time" in r]
+
+
+@contextlib.contextmanager
+def first_images(into: dict):
+    """``into["images"]``: a device copy of the first batch the tokenizer
+    loop's step gets."""
+    from vit_tpu_torch.train import loop
+
+    factory = loop.make_tokenizer_train_step
+
+    def make(model, **kw):
+        step = factory(model, **kw)
+
+        def hooked(state, images, usage):
+            if "images" not in into:
+                into["images"] = images.clone()
+            return step(state, images, usage)
+
+        return hooked
+
+    loop.make_tokenizer_train_step = make
+    try:
+        yield
+    finally:
+        loop.make_tokenizer_train_step = factory
+
+
+def frames_from_clips(images: torch.Tensor, paths: "list[Path]") -> dict:
+    """The tokenizer's DMLab batch (bs / 8 items of 8 frames) against its
+    clips: item b's frames must each equal, bit for bit, a frame / 255 of
+    the clip its shuffled index names (index mod clips); which frames
+    follows the loader threads' global draws (ROADMAP Queue C, hazard 8)."""
+    order = first_order(len(paths) * 1000)
+    items = images.shape[0] // 8
+    matched = 0
+    for b in range(items):
+        # divided on the host as the dataset divides (a CUDA division by a
+        # scalar multiplies by its reciprocal, which rounds differently)
+        clip = torch.from_numpy(np.load(paths[int(order[b]) % len(paths)])[
+            "video"].astype(np.float32) / 255.0).to(images.device)
+        for f in images[8 * b:8 * b + 8]:
+            matched += int(bool((clip == f).flatten(1).all(1).any()))
+    return dict(frames=items * 8, matched=matched)
+
+
+def data_shards(root: Path) -> dict:
+    """npy/cls/json shards written by the port's ShardWriter, streamed
+    back through StreamingWebDataset and StreamingBatcher: at one worker in
+    ``iterate_shard``'s order, batch for batch; at four workers with a
+    shuffle buffer, every sample once an epoch; the shard split of two
+    shards taking every full shard once."""
+    from vit_tpu_torch.data import wds
+
+    rng = np.random.default_rng(5)
+    items = [{"__key__": f"s{i:05d}",
+              "npy": rng.standard_normal((4, 3)).astype(np.float32),
+              "cls": int(rng.integers(0, 100)), "json": {"i": i}}
+             for i in range(SHARD_SAMPLES)]
+    with wds.ShardWriter(str(root / "shards" / "d-%04d.tar"),
+                         maxcount=SHARD_MAXCOUNT) as w:
+        for item in items:
+            w.write(item)
+    shards = w.paths
+    want = [s for p in sorted(shards) for s in wds.iterate_shard(p)]
+
+    def row(sample):
+        return sample["npy"], np.int32(sample["cls"]), np.int32(
+            sample["json"]["i"])
+
+    batches = list(wds.StreamingBatcher(
+        wds.StreamingWebDataset(shards, workers=1, shuffle_buffer=0,
+                                transform=row), 8))
+    ordered = len(batches) == SHARD_SAMPLES // 8 and all(
+        np.array_equal(b[0], np.stack([s["npy"] for s in want[8 * k:8 * k + 8]]))
+        and b[1].tolist() == [s["cls"] for s in want[8 * k:8 * k + 8]]
+        and b[2].tolist() == [s["json"]["i"] for s in want[8 * k:8 * k + 8]]
+        for k, b in enumerate(batches))
+    shuffled = wds.StreamingWebDataset(shards, workers=4, shuffle_buffer=10,
+                                       transform=row)
+    epochs = [sorted(int(i) for _, _, i in shuffled) for _ in range(2)]
+    covered = all(e == list(range(SHARD_SAMPLES)) for e in epochs)
+    split = [wds.StreamingWebDataset(shards, shard_id=k, num_shards=2)
+             .shard_paths for k in range(2)]
+    out = dict(shards=len(shards), samples=SHARD_SAMPLES,
+               ordered_batches_equal=ordered, shuffled_epochs_cover=covered,
+               split=[len(x) for x in split])
+    require(ordered and covered and sorted(split[0] + split[1])
+            == sorted(shards)[:-1], f"tar shards: {out}")
+    return out
+
+
+def write_jpegs(root: Path) -> Path:
+    """ImageNet folders (JPEG_TRAIN train and JPEG_VAL val images of
+    JPEG_SIZE px in 4 classes) and the same train images as jpg + cls
+    shards, encoded by Pillow."""
+    from PIL import Image
+
+    from vit_tpu_torch.data import wds
+
+    rng = np.random.default_rng(9)
+    with wds.ShardWriter(str(root / "jpg" / "i-%04d.tar"),
+                         maxcount=32) as w:
+        for split, n in (("train", JPEG_TRAIN), ("val", JPEG_VAL)):
+            for i in range(n):
+                arr = rng.integers(0, 256, (JPEG_SIZE, JPEG_SIZE + 32, 3),
+                                   np.uint8)
+                folder = root / "imagenet" / split / f"n{i % 4:04d}"
+                folder.mkdir(parents=True, exist_ok=True)
+                Image.fromarray(arr).save(folder / f"{i}.JPEG")
+                if split == "train":
+                    w.write({"__key__": f"k{i:05d}", "jpg": arr,
+                             "cls": i % 4})
+    return root
+
+
+def refusals(found: dict) -> dict:
+    """For each decoder this machine lacks, the entries refuse its paths
+    before anything is built, naming the package."""
+    from vit_tpu_torch.train_titok import check_ported as titok_check
+    from vit_tpu_torch.train_titok import parse_args as titok_args
+    from vit_tpu_torch.train_vit import check_ported as vit_check
+    from vit_tpu_torch.train_vit import parse_args as vit_args
+
+    cases = []
+    if not found["cv2"]:
+        cases.append(("cv2", titok_check, titok_args(
+            ["--dataset", "minecraft", "--image_size", "128"])))
+    if not found["grain"]:
+        cases.append(("grain", vit_check, vit_args(
+            ["--dataset", "imagenet", "--loader_backend", "grain"])))
+    if not found["PIL"]:
+        cases.append(("PIL", vit_check, vit_args(
+            ["--dataset", "wds", "--wds_shards", "x"])))
+        if not found["native"]:
+            cases.append(("PIL", titok_check, titok_args(
+                ["--dataset", "imagenet"])))
+    out = {}
+    for package, check, args in cases:
+        try:
+            check(args)
+            message = ""
+        except NotImplementedError as e:
+            message = str(e)
+        out[f"{args.dataset}/{args.loader_backend}"] = message
+        require(package in message, f"no refusal naming {package}: "
+                f"{message!r}")
+    return out
+
+
+def phase_data(card: str, work: Path) -> dict:
+    """The port's data layer on fixtures written here: ``train_videogpt``
+    at its defaults (``--dataset dmlab``: VideoGPT-B over the random
+    TiTok-S, bs 32, S 1024) and ``train_titok --dataset dmlab --image_size
+    64`` at TiTok-B (bs 64, the random ConvNeXt-S perceptual loss), each
+    for DATA_STEPS steps through its ``main`` with the kernels' launches
+    counted; the first batch on the card against the numpy batch of the
+    same clips, bit for bit (the tokenizer's frames by clip membership);
+    each loader's batches a second alone; the step time and the wait for
+    the batch beside the same entry on its synthetic stream; the tar
+    shards; and, where the machine has a JPEG decoder, ``train_vit
+    --dataset imagenet`` and ``--dataset wds --wds_streaming true`` and
+    ``train_titok --dataset imagenet`` for two steps each; for each
+    missing decoder the refusal naming it. Returns the launches."""
+    from vit_tpu_torch.data.video import (get_dmlab_image_loaders,
+                                          get_dmlab_video_loaders)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths = write_dmlab(work / "dmlab")
+    written = time.perf_counter() - t0
+
+    def dirs(name):
+        return ("--ckpt_dir", str(work / name / "ckpt"),
+                "--run_dir", str(work / name / "runs"))
+
+    out = dict(fixtures=dict(dmlab_clips=len(paths), clip=list(DMLAB_SHAPE),
+                             compressed=False, seconds=written))
+    runs = []
+
+    # train_videogpt at its defaults on the clips: one epoch of 3 batches
+    first: dict = {}
+    gpt = run_videogpt_main("--data_dir", str(work / "dmlab"), "--no_wandb",
+                            "--log_every", "1", "--epochs", "1",
+                            *dirs("gpt_dmlab"), first=first)
+    order = first_order(len(paths))
+    videos = np.stack([np.load(paths[i])["video"]
+                       for i in order[:VIDEO_BS]])
+    offset = int(np.random.default_rng((0, 0xC407, 0)).integers(
+        0, DMLAB_SHAPE[0] - VIDEOGPT["max_frames"]))
+    want = torch.from_numpy(np.ascontiguousarray(
+        videos[:, offset:offset + VIDEOGPT["max_frames"]], np.float32) / 255.0)
+    gpt_equal = bool(torch.equal(first["videos"].cpu(), want))
+    del videos, want, first
+    require(gpt_equal, "train_videogpt's first DMLab batch on the card "
+            "differs from the numpy batch")
+    require(len(gpt["steps"]) == DATA_STEPS, f"{gpt['cmd']}: {gpt['lines']}")
+    require_launched(gpt, ("attention_packed_fwd", "vq_nearest",
+                           "attention_fwd", "attention_bwd"))
+    gpt_syn = run_videogpt_main(*GPT_ENTRY, "--steps_per_epoch",
+                                str(DATA_STEPS), "--epochs", "1",
+                                *dirs("gpt_syn"))
+    runs += [gpt, gpt_syn]
+    out["train_videogpt"] = dict(
+        cmd=gpt["cmd"], seconds=gpt["seconds"], first_batch_equal=gpt_equal,
+        step_losses=[l for _, l, _ in gpt["steps"]],
+        step_times=[t for _, _, t in gpt["steps"]],
+        load_times=load_times(work / "gpt_dmlab" / "runs"),
+        launches={n: v for n, v in gpt["launches"].items() if v},
+        synthetic_step_times=[t for _, _, t in gpt_syn["steps"]],
+        synthetic_load_times=load_times(work / "gpt_syn" / "runs"),
+        loader=loader_rate(get_dmlab_video_loaders(
+            VIDEO_BS, str(work / "dmlab"))[0], 10 ** 9, LOADER_EPOCHS))
+    del gpt["state"], gpt_syn["state"]
+    torch.cuda.empty_cache()
+
+    # train_titok on the clips at image 64, TiTok-B
+    titok_flags = ("--bs", "64", "--perceptual_weights", "random",
+                   "--no_wandb", "--log_every", "1", "--image_size", "64",
+                   "--epochs", "1")
+    seen: dict = {}
+    with first_images(seen):
+        tok = run_titok_main(*titok_flags, "--dataset", "dmlab",
+                             "--data_dir", str(work / "dmlab"),
+                             "--max_epoch_steps", str(DATA_STEPS),
+                             *dirs("titok_dmlab"))
+    member = frames_from_clips(seen.pop("images"), paths)
+    require(member["matched"] == member["frames"],
+            f"train_titok's first DMLab batch: {member}")
+    require(len(tok["steps"]) == DATA_STEPS, f"{tok['cmd']}: {tok['lines']}")
+    require_launched(tok, ("attention_packed_fwd", "attention_packed_bwd",
+                           "convnext_tail_fwd", "convnext_tail_bwd",
+                           "vq_nearest"))
+    tok_syn = run_titok_main(*titok_flags, "--dataset", "synthetic",
+                             "--steps_per_epoch", str(DATA_STEPS),
+                             *dirs("titok_syn"))
+    runs += [tok, tok_syn]
+    out["train_titok"] = dict(
+        entry_summary(tok), first_batch_frames=member,
+        load_times=load_times(work / "titok_dmlab" / "runs"),
+        synthetic_step_times=[t for _, _, t in tok_syn["steps"]],
+        synthetic_load_times=load_times(work / "titok_syn" / "runs"),
+        loader=loader_rate(get_dmlab_image_loaders(
+            64, str(work / "dmlab"))[0], LOADER_BATCHES))
+    torch.cuda.empty_cache()
+
+    out["shards"] = data_shards(work)
+    found = measured["decoders"]
+    out["refusals"] = refusals(found)
+    if found["PIL"]:
+        write_jpegs(work)
+        jpeg_runs = {}
+        for name, flags in (
+                ("vit_imagenet", ("--dataset", "imagenet", "--data_dir",
+                                  str(work / "imagenet"))),
+                ("vit_wds", ("--dataset", "wds", "--wds_streaming", "true",
+                             "--wds_shards", str(work / "jpg" / "*.tar"))),
+        ):
+            jpeg_runs[name] = run_vit_main(*flags, "--no_wandb", "--epochs",
+                                           "1", "--log_every", "1",
+                                           *dirs(name))
+            require_launched(jpeg_runs[name], ("attention_packed_fwd",
+                                               "attention_packed_bwd"))
+        jpeg_runs["titok_imagenet"] = run_titok_main(
+            "--dataset", "imagenet", "--data_dir", str(work / "imagenet"),
+            "--bs", "64", "--perceptual_weights", "random", "--no_wandb",
+            "--log_every", "1", "--epochs", "1", *dirs("titok_imagenet"))
+        require_launched(jpeg_runs["titok_imagenet"],
+                         ("attention_packed_fwd", "vq_nearest"))
+        runs += list(jpeg_runs.values())
+        out["jpeg"] = {k: dict(cmd=r["cmd"], seconds=r["seconds"],
+                               decoder=[line for line in r["lines"]
+                                        if line.startswith("DECODER:")],
+                               step_times=[t for _, _, t in r["steps"]],
+                               launches={n: v for n, v in r["launches"]
+                                         .items() if v})
+                       for k, r in jpeg_runs.items()}
+    from vit_tpu_torch.data import native
+
+    emit("data", card=card, decoders=found,
+         native_build_error=native.build_error[-600:], **out)
+    torch.cuda.empty_cache()
+    return {n: sum(r["launches"][n] for r in runs) for n in runs[0]["launches"]}
+
+
+def run_vit_main(*flags: str) -> dict:
+    """``vit_tpu_torch.train_vit.main(flags)`` in this process (defaults:
+    ViT-L/16 @256, dropout 0.15, bs 64), its output captured, the launch
+    counts set to 0 just before it and read just after."""
+    from vit_tpu_torch.train_vit import main as vit_main
+
+    buf = io.StringIO()
+    prev = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            vit_main(list(flags))
+        torch.cuda.synchronize()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    lines = buf.getvalue().splitlines()
+    steps = [re.match(r"e=\d+ i=(\d+) loss=(\S+) acc=\S+ load_time=\S+ "
+                      r"step_time=(\S+)", line) for line in lines]
+    steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+             for m in steps if m]
+    require(steps and all(np.isfinite(l) for _, l, _ in steps)
+            and any(line.startswith("epoch 0: val_loss=") for line in lines),
+            f"train_vit's lines: {lines[-30:]}")
+    torch.cuda.empty_cache()
+    return dict(cmd="-m vit_tpu_torch.train_vit " + " ".join(flags),
+                seconds=time.perf_counter() - t0, lines=lines, steps=steps,
+                launches=read_launches())
+
+
+REPRO_ENTRY = ("--dataset", "synthetic", "--bs", "64", "--perceptual_weights",
+               "random", "--no_wandb", "--log_every", "1", "--epochs", "1")
+
+
+def repro_run(steps: int, work: str, record) -> "list[str]":
+    """``train_titok.main`` at TiTok-B for ``steps`` steps; ``record(step,
+    grads, params)`` after each step, the gradients copied before the
+    update. Returns the entry's printed lines."""
+    from vit_tpu_torch.train.state import TrainState
+    from vit_tpu_torch.train_titok import main as titok_main
+
+    apply = TrainState.apply_gradients
+    count = [0]
+
+    def recording(self, grads):
+        g = [t.detach().float().clone() for t in grads]
+        out = apply(self, grads)
+        record(count[0], dict(zip(self.names, g)),
+               {n: p.detach().float().clone()
+                for n, p in zip(self.names, self.params)})
+        count[0] += 1
+        return out
+
+    TrainState.apply_gradients = recording
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            titok_main([*REPRO_ENTRY, "--steps_per_epoch", str(steps),
+                        "--ckpt_dir", os.path.join(work, "ckpt"),
+                        "--run_dir", os.path.join(work, "runs"),
+                        "--ckpt_every", str(10 ** 9)])
+        torch.cuda.synchronize()
+    finally:
+        TrainState.apply_gradients = apply
+    return buf.getvalue().splitlines()
+
+
+def differ(a: dict, b: dict) -> dict:
+    """Which tensors of two {name: tensor} differ in any bit, and by how
+    much at most."""
+    names = [n for n in a if not torch.equal(a[n], b[n])]
+    worst = max(((a[n] - b[n]).abs().max().item() for n in names),
+                default=0.0)
+    return dict(count=len(names), of=len(a), names=names[:12],
+                max_abs=worst)
+
+
+def phase_repro(card: str) -> None:
+    """Two 3-step ``train_titok`` runs at TiTok-B (bs 64, the random
+    perceptual loss) from one seed: every gradient and parameter after
+    every step bit for bit (ROADMAP Queue C #3, repaired by the codebook
+    lookup's ``F.embedding``)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    first, steps = [], []
+
+    def keep(step, grads, params):
+        first.append((grads, params))
+
+    def compare(step, grads, params):
+        g0, p0 = first[step]
+        steps.append(dict(step=step, grads=differ(g0, grads),
+                          params=differ(p0, params)))
+
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repro_") as work:
+        lines = [repro_run(SHORT_STEPS, os.path.join(work, run), record)
+                 for run, record in (("a", keep), ("b", compare))]
+    launches = read_launches()
+    del first
+    bit_equal = all(r["grads"]["count"] == 0 and r["params"]["count"] == 0
+                    for r in steps)
+    worst = max(max(r["grads"]["max_abs"], r["params"]["max_abs"])
+                for r in steps)
+    losses = [[float(m.group(1)) for m in (re.search(r" loss=(\S+)", line)
+                                           for line in run) if m]
+              for run in lines]
+    emit("repro", card=card, seconds=time.perf_counter() - t0,
+         bit_equal=bit_equal, largest_difference=worst, steps=steps,
+         losses=losses, launches={n: v for n, v in launches.items() if v})
+    require(bit_equal and len(steps) == SHORT_STEPS
+            and launches["vq_nearest"] > 0,
+            f"two runs from one seed part: {steps}")
+    torch.cuda.empty_cache()
+
+
 def entry_phases(card: str, converge_epochs: "int | None"
                  ) -> "tuple[dict, dict]":
     """The train_titok and train_videogpt entries' phases; their launches
@@ -5696,8 +6258,11 @@ def entry_phases(card: str, converge_epochs: "int | None"
                                               converge_epochs)
         gpt = phase_train_videogpt_entry(card, Path(tmp),
                                          Path(tmp) / "converge" / "ckpt")
-    return ({n: launches[n] + converge[n] + gpt[n] for n in launches},
-            fp32_launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        data = phase_data(card, Path(tmp))
+    phase_repro(card)
+    return ({n: launches[n] + converge[n] + gpt[n] + data[n]
+             for n in launches}, fp32_launches)
 
 
 def main(argv=None) -> None:
@@ -5811,6 +6376,11 @@ def main(argv=None) -> None:
                             "scripts/bench_vpu.py:32")
     launches["fma_probe"] = fma_launches
     summary["fma_probe"] = fma_summary
+    # K5's runtime-D form on a path: the --latent_dim 6 entry run's steps
+    summary["vq_nearest"]["any_dim_launches"] = measured[
+        "k5_any_dim_launches"]
+    require(measured["k5_any_dim_launches"] > 0,
+            "K5's runtime-D form never launched on a path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

@@ -456,11 +456,8 @@ def test_flags_and_defaults_match_train_titok(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset", "imagenet"], ["--dataset", "dmlab"],
-    ["--dataset", "minecraft"],
     ["--attn_impl", "xla"], ["--scan_layers", "true"], ["--mesh", "1,1,1"],
-    ["--pp_microbatches", "2"], ["--loader_backend", "grain"],
-    ["--loader_processes", "2"],
+    ["--pp_microbatches", "2"],
 ], ids=lambda f: "_".join(a.lstrip("-") for a in f))
 def test_train_titok_refuses_unported_flags(flags):
     """Each flag whose path is not ported raises before anything is built,

@@ -393,7 +393,7 @@ def test_flags_and_defaults_match_train_videogpt(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset", "dmlab"], ["--attn_impl", "xla"],
+    ["--attn_impl", "xla"],
     ["--scan_layers", "true"], ["--mesh", "1,1,1"],
     ["--pp_microbatches", "2"],
 ], ids=lambda f: "_".join(a.lstrip("-") for a in f))

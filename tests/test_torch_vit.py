@@ -277,10 +277,8 @@ def test_train_vit_entry_runs_on_the_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset", "imagenet"], ["--dataset", "wds"], ["--init_from", "ckpt"],
-    ["--scan_layers", "true"], ["--mesh", "1,1,1"],
-    ["--pp_microbatches", "2"], ["--loader_backend", "grain"],
-    ["--loader_processes", "2"], ["--attn_impl", "xla"],
+    ["--init_from", "ckpt"], ["--scan_layers", "true"], ["--mesh", "1,1,1"],
+    ["--pp_microbatches", "2"], ["--attn_impl", "xla"],
 ], ids=lambda f: "_".join(a.lstrip("-") for a in f))
 def test_train_vit_refuses_unported_flags(flags):
     """Each flag whose path is not ported raises before anything is built,

@@ -14,6 +14,13 @@ lane) against one slice staged and normalised once in shared memory, and
 the slices' bests meet in one 64-bit key a row (max score, then lowest
 index; see the source's header).
 
+D 8, 12, 16 and 32 (``TUNED_DIMS``) hold the rows in registers; every
+other D up to ``MAX_DIM`` runs the source's runtime-D form, a register
+tile of 64 rows × 128 codes a block with D staged in chunks, the same tie
+rule and merge (with normalisation it scores z·e times the code's scale:
+a row's scale does not move its argmax). Above ``MAX_DIM`` the wrapper refuses (the JAX
+package has no such limit).
+
 ``nearest_code`` launches the kernel for a CUDA tensor and runs
 ``nearest_code_ref``, the plain counterpart of ``nearest_code_xla``, for a CPU
 tensor.
@@ -25,37 +32,74 @@ import torch
 
 from vit_tpu_torch.kernels import _build
 
-SUPPORTED_DIMS = (8, 12, 16, 32)
+TUNED_DIMS = (8, 12, 16, 32)   # the rows in registers
+MAX_DIM = 1024             # the runtime-D form's widest D (its kMaxAnyDim)
 BLOCKS_PER_SM = 4          # the plan's aim: about four blocks an SM
-MIN_SLICE = 64             # codes a slice, at least (16 a warp)
-MAX_SLICE_BYTES = 40 * 1024   # a slice's codes and offsets in shared memory
+MIN_SLICE = 64             # codes a slice, at least (16 a warp), where they fit
+MAX_SLICE_BYTES = 40 * 1024   # a tuned slice's codes and offsets in shared memory
+ANY_ROWS = 64              # the runtime-D form's rows a block
+ANY_CODES = 128            # and codes a tile
+ANY_ROWS_PER_THREAD = 8    # and a thread's rows (× 8 codes)
 
 launches = 0  # kernel launches by nearest_code, for run evidence
 
 
+def out_of_reach(d: int) -> str:
+    """Why K5 cannot take latent width ``d`` on the card, or ''."""
+    if 1 <= d <= MAX_DIM:
+        return ""
+    return (f"K5 takes D from 1 to {MAX_DIM} on the card, got {d} (the "
+            f"widest width its runtime-D form is held at against fp64 "
+            f"scores; the JAX package's nearest_code has no such limit: "
+            f"ROADMAP Queue C #4)")
+
+
 def rows_per_lane(d: int) -> int:
-    """Rows a lane of K5 holds (the source's kRowsPerLane): 4, or 2 at D
-    32, whose rows take 32 registers each."""
-    return 4 if d <= 16 else 2
+    """Rows a thread of K5 holds: in the tuned forms (the source's
+    kRowsPerLane) 4, or 2 at D 32, whose rows take 32 registers each; in
+    the runtime-D form ``ANY_ROWS_PER_THREAD`` (against 8 codes)."""
+    if d in TUNED_DIMS:
+        return 4 if d <= 16 else 2
+    return ANY_ROWS_PER_THREAD
+
+
+def rows_per_block(d: int) -> int:
+    """Rows a K5 block holds (the source's ``vq_nearest_block_rows``)."""
+    return 32 * rows_per_lane(d) if d in TUNED_DIMS else ANY_ROWS
+
+
+def smem_bytes(d: int, slice_: int) -> int:
+    """Dynamic shared memory of a K5 block: the tuned form's slice of codes
+    and offsets; none in the runtime-D form, whose tiles are static."""
+    return slice_ * (d + 1) * 4 if d in TUNED_DIMS else 0
 
 
 def plan(n: int, c: int, d: int, sms: int) -> dict:
     """K5's grid for N rows against C codes of D on ``sms`` SMs: row
-    blocks of 32·R rows; the codes cut into ``splits`` slices of ``slice``
-    codes (the last shorter, none empty) so that there are about
-    BLOCKS_PER_SM blocks an SM where the rows alone give fewer, each slice
-    at least MIN_SLICE codes (or all C) and its codes and offsets at most
-    MAX_SLICE_BYTES."""
-    rows = 32 * rows_per_lane(d)
+    blocks of ``rows_per_block(d)`` rows; the codes cut into ``splits``
+    slices of ``slice`` codes (the last shorter, none empty) so that there
+    are about BLOCKS_PER_SM blocks an SM where the rows alone give fewer.
+    In the tuned form each slice has at least MIN_SLICE codes (or all C)
+    where that many fit, and its codes and offsets at most MAX_SLICE_BYTES;
+    in the runtime-D form a slice is whole tiles of ANY_CODES codes, as the
+    source cuts them from ``splits``."""
+    rows = rows_per_block(d)
     row_blocks = -(-n // rows)
-    fewest = -(-c * (d + 1) * 4 // MAX_SLICE_BYTES)
-    want = min(-(-BLOCKS_PER_SM * sms // max(row_blocks, 1)),
-               max(1, c // MIN_SLICE))
-    slice_ = -(-c // max(fewest, want))
-    splits = -(-c // slice_)
-    return dict(rows_per_lane=rows // 32, rows_per_block=rows,
+    want = -(-BLOCKS_PER_SM * sms // max(row_blocks, 1))
+    if d in TUNED_DIMS:
+        fit = MAX_SLICE_BYTES // ((d + 1) * 4)    # codes a slice can hold
+        fewest = -(-c // fit)
+        want = min(want, max(1, c // min(MIN_SLICE, fit)))
+        slice_ = -(-c // max(fewest, want))
+        splits = -(-c // slice_)
+    else:
+        tiles = -(-c // ANY_CODES)
+        splits = -(-tiles // -(-tiles // min(want, tiles)))
+        slice_ = -(-tiles // splits) * ANY_CODES
+    return dict(rows_per_lane=rows_per_lane(d), rows_per_block=rows,
                 row_blocks=row_blocks, splits=splits, slice=slice_,
-                blocks=row_blocks * splits)
+                blocks=row_blocks * splits,
+                smem_bytes=smem_bytes(d, slice_))
 
 
 # (N, C, D, device, stream) → (splits, scratch): a call's plan and zero
@@ -93,7 +137,7 @@ def nearest_code(z: torch.Tensor, codebook: torch.Tensor, *,
                  l2_normalize: bool = True) -> torch.Tensor:
     """Nearest codebook index per row. z (..., D), codebook (C, D) →
     (...,) int32. A CUDA tensor launches K5 (fp32, contiguous, D in
-    ``SUPPORTED_DIMS``) or raises; a CPU tensor runs the plain version."""
+    1 to ``MAX_DIM``) or raises; a CPU tensor runs the plain version."""
     d = z.shape[-1]
     if codebook.ndim != 2 or codebook.shape[1] != d:
         raise ValueError(f"codebook must be (C, {d}), got "
@@ -110,8 +154,8 @@ def nearest_code(z: torch.Tensor, codebook: torch.Tensor, *,
     if z.dtype != torch.float32 or codebook.dtype != torch.float32:
         raise TypeError(f"K5 takes fp32 z and codebook, got {z.dtype}, "
                         f"{codebook.dtype}")
-    if d not in SUPPORTED_DIMS:
-        raise NotImplementedError(f"K5 takes D in {SUPPORTED_DIMS}, got {d}")
+    if out_of_reach(d):
+        raise NotImplementedError(out_of_reach(d))
     if not (zf.is_contiguous() and codebook.is_contiguous()):
         raise ValueError("K5 takes contiguous z and codebook")
     n, c = zf.shape[0], codebook.shape[0]

@@ -67,7 +67,8 @@ def load_tokenizer(spec: str, dtype: torch.dtype, device, *,
       "best" parameters.
 
     A Bytedance-format or TATiTok directory (no ``best_config.json``, or
-    ``use_l2_norm`` in it) and an FSQ tokenizer raise."""
+    ``use_l2_norm`` in it), an FSQ tokenizer and, off the CPU, a latent
+    width the nearest-code kernel cannot take raise."""
     from vit_tpu_torch.train.checkpoint import load_params
     from vit_tpu_torch.utils.config import dataclass_from_dict
     from vit_tpu_torch.utils.init import init_params_
@@ -91,6 +92,11 @@ def load_tokenizer(spec: str, dtype: torch.dtype, device, *,
             f"--tokenizer_ckpt {spec}: an FSQ tokenizer's codes range over "
             "prod(fsq_levels), not the prior's codebook_size vocabulary "
             "(ROADMAP Queue C, reference-side hazards)")
+    from vit_tpu_torch.kernels.vq import out_of_reach
+
+    if torch.device(device).type != "cpu" and out_of_reach(cfg.latent_dim):
+        raise NotImplementedError(f"--tokenizer_ckpt {spec}: "
+                                  f"{out_of_reach(cfg.latent_dim)}")
     cfg.dtype = dtype
     cfg.__post_init__()
     model = TiTok(cfg, device="meta")

@@ -23,6 +23,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.kernels.vq import nearest_code
@@ -48,9 +49,11 @@ class Quantizer(nn.Module):
         return quantized, indices, codebook_loss + commitment_loss
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:
-        """Index → codebook vector."""
-        flat = self.codebook.index_select(0, indices.reshape(-1))
-        return flat.reshape(*indices.shape, self.codebook.shape[1])
+        """Index → codebook vector. As ``F.embedding``: its backward sorts
+        the indices and sums each code's rows in a fixed order, where
+        ``index_select``'s adds them by atomicAdd on the card, so two runs
+        from one seed would part in the codebook's gradient."""
+        return F.embedding(indices.long(), self.codebook)
 
 
 class FSQ(nn.Module):

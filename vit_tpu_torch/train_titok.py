@@ -16,7 +16,17 @@ The loop (``train/loop.py``) logs to ``<run_dir>/titok-synthetic/<run>.jsonl``,
 checkpoints "best" and "last" under ``--ckpt_dir``, resumes with the stream
 position (``--resume``) and saves "last" on SIGTERM.
 
-Ported so far: ``--dataset synthetic`` (the shapes stream), both quantizers
+The data: ``--dataset imagenet`` (the default; ``--data_dir`` holds
+``train/`` and ``val/`` class folders, decoded by the native libjpeg
+pipeline when it builds, else by Pillow, as the entry prints), ``dmlab``
+(``.npz`` clips at image 64, eight random frames of each of bs / 8 clips a
+batch), ``minecraft`` (``.mp4`` through OpenCV, image 128) and
+``synthetic`` (the shapes stream); ``--loader_backend grain`` with
+``--loader_processes`` reads ImageNet through Grain. A dataset or backend
+whose package this machine lacks is refused before the first batch, with a
+message naming the package.
+
+Ported too: both quantizers
 (``--quantizer vq|fsq``; FSQ at 8 levels a latent channel, its usage bitmap
 still ``--codebook_size`` long, as in ``train_titok.py``), the perceptual
 loss (``--perceptual_weights random|<.npz>``, ``--perceptual_quant int8``),
@@ -24,7 +34,8 @@ loss (``--perceptual_weights random|<.npz>``, ``--perceptual_quant int8``),
 (gradient and parameter histograms on log steps, to the TensorBoard sink),
 ``--n_layers``, ``--max_epoch_steps`` and ``--profile_dir`` (a
 ``torch.profiler`` Chrome trace of steps 10-15). Every other path is
-refused with a message naming its ROADMAP item.
+refused with a message naming its ROADMAP item, as is a ``--latent_dim``
+that the nearest-code kernel cannot take on the card.
 ``--no_wandb`` is accepted; the port logs to files only.
 """
 
@@ -34,7 +45,10 @@ import argparse
 
 import torch
 
+from vit_tpu_torch.data import decoders
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader
+from vit_tpu_torch.data.video import _require_dir
+from vit_tpu_torch.kernels.vq import out_of_reach
 from vit_tpu_torch.models.titok import TiTok, TiTokConfig
 from vit_tpu_torch.train.loop import run_tokenizer_training
 from vit_tpu_torch.utils.config import str2bool
@@ -110,12 +124,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise on every flag whose path the port does not have yet."""
+    """Raise on every flag whose path the port does not have yet, on a
+    dataset or backend whose package this machine lacks, and on a dataset
+    whose --data_dir is not given or not a directory."""
+    missing = decoders.missing(args.dataset, backend=args.loader_backend)
     refused = [
-        (args.dataset != "synthetic",
-         f"--dataset {args.dataset}: only the synthetic stream is ported; "
-         "the image and video loaders need an image decoder the card's "
-         "machine lacks (ROADMAP Queue A #2, the loaders)"),
         (args.attn_impl == "xla",
          "--attn_impl xla: the port's attention is its kernels (ROADMAP "
          "Queue A #10, no port needed)"),
@@ -125,19 +138,46 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.mesh is not None or args.pp_microbatches,
          "--mesh/--pp_microbatches: the port trains on one GPU (ROADMAP "
          "Queue A #9, multi-GPU)"),
-        (args.loader_backend != "threads" or args.loader_processes,
-         "--loader_backend/--loader_processes: the loader backends come "
-         "with the loaders (ROADMAP Queue A #2, the loaders)"),
+        (args.device != "cpu" and args.quantizer == "vq"
+         and bool(out_of_reach(args.latent_dim)),
+         f"--latent_dim {args.latent_dim}: {out_of_reach(args.latent_dim)}"),
+        (bool(missing), missing),
     ]
     for bad, why in refused:
         if bad:
             raise NotImplementedError(why)
+    if args.dataset != "synthetic":
+        _require_dir(args.data_dir, f"--dataset {args.dataset}")
 
 
 def get_loader(args):
-    return SyntheticImageLoader(args.image_size, args.bs,
-                                steps_per_epoch=args.steps_per_epoch,
-                                seed=args.seed, mode="shapes")
+    """The training stream of ``--dataset`` (``train_titok.py:get_loader``),
+    one process's: shard 0 of 1."""
+    if args.dataset == "synthetic":
+        return SyntheticImageLoader(args.image_size, args.bs,
+                                    steps_per_epoch=args.steps_per_epoch,
+                                    seed=args.seed, mode="shapes")
+    if args.dataset == "imagenet":
+        from vit_tpu_torch.data.imagenet import get_imagenet_loaders
+
+        print(f"DECODER: {decoders.jpeg_decoder()}", flush=True)
+        return get_imagenet_loaders(args.image_size, args.bs,
+                                    data_dir=args.data_dir,
+                                    backend=args.loader_backend,
+                                    processes=args.loader_processes,
+                                    shard_id=0, num_shards=1)[0]
+    if args.dataset == "dmlab":
+        assert args.image_size == 64  # reference train_titok.py:120
+        from vit_tpu_torch.data.video import get_dmlab_image_loaders
+
+        return get_dmlab_image_loaders(args.bs, dataset_path=args.data_dir,
+                                       shard_id=0, num_shards=1)[0]
+    assert args.image_size == 128  # reference train_titok.py:124
+    from vit_tpu_torch.data.video import get_minecraft_image_loaders
+
+    print("DECODER: OpenCV", flush=True)
+    return get_minecraft_image_loaders(args.bs, dataset_path=args.data_dir,
+                                       shard_id=0, num_shards=1)[0]
 
 
 def main(argv=None):

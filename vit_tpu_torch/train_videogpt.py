@@ -41,9 +41,15 @@ step calls the model in its deterministic mode, so there ``--dropout``
 changes nothing, and the port prints a warning when it starts; ROADMAP
 Queue C #7.)
 
-Ported so far: ``--dataset synthetic``, the random and the port's own
-tokenizer checkpoints. Refused, each with a message naming its ROADMAP
-item: ``--dataset dmlab``, ``--attn_impl xla``, ``--scan_layers``,
+The data: ``--dataset dmlab`` (the default: ``--data_dir`` holds
+``<folder>/<video>.npz`` clips, ``video`` (T, H, W, 3) uint8 and
+``actions``, read whole by ``np.load``, bs clips a batch, reshuffled each
+epoch) or ``synthetic`` (random uint8 clips). Each batch's crop is cut on
+the host before the float conversion, as ``train_videogpt.py`` cuts it.
+
+Ported too: the random and the port's own tokenizer checkpoints. Refused,
+each with a message naming its ROADMAP item: ``--attn_impl xla``,
+``--scan_layers``,
 ``--mesh`` / ``--pp_microbatches``, Bytedance or TATiTok tokenizers and FSQ
 tokenizers. ``--no_wandb`` is accepted; the port logs to files only.
 """
@@ -60,6 +66,7 @@ from einops import rearrange
 from vit_tpu_torch.data.prefetch import ToDevice, device_prefetch
 from vit_tpu_torch.data.resume import resume_stream, set_stream_epoch
 from vit_tpu_torch.data.synthetic import SyntheticVideoLoader
+from vit_tpu_torch.data.video import _require_dir, get_dmlab_video_loaders
 from vit_tpu_torch.models.pretrained import load_tokenizer
 from vit_tpu_torch.models.videogpt import (VideoGPT, VideoGPTConfig,
                                            generate_frames)
@@ -129,12 +136,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise on every flag whose path the port does not have yet."""
+    """Raise on every flag whose path the port does not have yet, and on
+    ``--dataset dmlab`` without a --data_dir that is a directory."""
     refused = [
-        (args.dataset != "synthetic",
-         f"--dataset {args.dataset}: only the synthetic stream is ported; "
-         "the video loaders need an image decoder the card's machine lacks "
-         "(ROADMAP Queue A #2, the loaders)"),
         (args.attn_impl == "xla",
          "--attn_impl xla: the port's attention is its kernels (ROADMAP "
          "Queue A #10, no port needed)"),
@@ -148,6 +152,8 @@ def check_ported(args: argparse.Namespace) -> None:
     for bad, why in refused:
         if bad:
             raise NotImplementedError(why)
+    if args.dataset == "dmlab":
+        _require_dir(args.data_dir, "--dataset dmlab")
 
 
 class ClipToDevice:
@@ -222,10 +228,14 @@ def main(argv=None) -> TrainState:
                 f"{args.max_frames}frames")
     logger = MetricsLogger(project_name, run_name, config=vars(args),
                            out_dir=args.run_dir, device=device)
-    train_loader = SyntheticVideoLoader(args.bs, frames=args.max_frames * 2,
-                                        image_size=args.image_size,
-                                        steps_per_epoch=args.steps_per_epoch,
-                                        seed=args.seed)
+    if args.dataset == "synthetic":
+        train_loader = SyntheticVideoLoader(
+            args.bs, frames=args.max_frames * 2, image_size=args.image_size,
+            steps_per_epoch=args.steps_per_epoch, seed=args.seed)
+    else:
+        train_loader = get_dmlab_video_loaders(args.bs,
+                                               dataset_path=args.data_dir,
+                                               shard_id=0, num_shards=1)[0]
 
     init_weights(model, args.seed)
     model.to(device).train().requires_grad_(True)

@@ -21,12 +21,20 @@ checkpoint of the best validation accuracy ("best") and a "last" one under
 a generator seeded by ``--seed`` and the step, so a resumed run draws the
 masks the uninterrupted run draws.
 
-Ported so far: ``--dataset synthetic`` (the JAX loader's noise stream),
-checkpoints and resume, and the metrics log. The rest of the flag set is
-refused with a message naming its ROADMAP item: the ImageNet and webdataset
-loaders and their backends, ``--init_from``, the scanned and pipelined
-stacks and device meshes. ``--no_wandb`` is accepted; the port logs to
-files only.
+The data: ``--dataset imagenet`` (the default; ``--data_dir`` holds
+``train/`` and ``val/`` class folders; ``--loader_backend grain`` and
+``--loader_processes`` read them through Grain), ``wds`` (the jpg + cls tar
+shards of the ``--wds_shards`` glob, held in memory, or streamed through a
+``--shuffle_buffer`` with ``--wds_streaming true``) and ``synthetic`` (the
+JAX loader's noise stream). JPEGs are decoded by the native libjpeg
+pipeline when it builds, else by Pillow (the entry prints which); a
+dataset or backend whose package this machine lacks is refused before the
+first batch, with a message naming the package.
+
+Ported too: checkpoints and resume, and the metrics log. The rest of the
+flag set is refused with a message naming its ROADMAP item:
+``--init_from``, the scanned and pipelined stacks and device meshes.
+``--no_wandb`` is accepted; the port logs to files only.
 """
 
 from __future__ import annotations
@@ -36,9 +44,11 @@ import time
 
 import torch
 
+from vit_tpu_torch.data import decoders
 from vit_tpu_torch.data.prefetch import ToDevice, device_prefetch
 from vit_tpu_torch.data.resume import resume_stream, set_stream_epoch
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader
+from vit_tpu_torch.data.video import _require_dir
 from vit_tpu_torch.models.vit import ViTClassifier, ViTConfig
 from vit_tpu_torch.train.checkpoint import Checkpointer
 from vit_tpu_torch.train.optim import make_optimizer
@@ -55,8 +65,7 @@ from vit_tpu_torch.utils.precision import disable_tf32
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # train_vit.py's flags, with its defaults
-    parser.add_argument("--data_dir", type=str,
-                        default="/mnt/data/Public_datasets/imagenet/imagenet_pytorch")
+    parser.add_argument("--data_dir", type=str, default=None)
     parser.add_argument("--image_size", type=int, default=256)
     parser.add_argument("--in_channels", type=int, default=3)
     parser.add_argument("--patch_size", type=int, default=16)
@@ -101,12 +110,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise on every flag whose path the port does not have yet."""
+    """Raise on every flag whose path the port does not have yet, on a
+    dataset or backend whose package this machine lacks, and on a dataset
+    whose --data_dir is not given or not a directory."""
     refused = [
-        (args.dataset != "synthetic",
-         f"--dataset {args.dataset}: only the synthetic stream is ported; "
-         "the ImageNet and webdataset loaders need an image decoder the "
-         "card's machine lacks (ROADMAP Queue A #2, the loaders)"),
         (args.init_from is not None,
          "--init_from: the MAE/Puzzle hand-off comes with their models "
          "(ROADMAP Queue A #6)"),
@@ -116,16 +123,74 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.mesh is not None or args.pp_microbatches,
          "--mesh/--pp_microbatches: the port trains on one GPU (ROADMAP "
          "Queue A #9, multi-GPU)"),
-        (args.loader_backend != "threads" or args.loader_processes,
-         "--loader_backend/--loader_processes: the loader backends come "
-         "with the loaders (ROADMAP Queue A #2, the loaders)"),
         (args.attn_impl == "xla",
          "--attn_impl xla: the port's attention is its kernels (ROADMAP "
          "Queue A #10, no port needed)"),
+        (args.dataset == "wds" and not args.wds_shards,
+         "--dataset wds needs --wds_shards, a glob of tar shards"),
     ]
     for bad, why in refused:
         if bad:
             raise NotImplementedError(why)
+    why = decoders.missing(args.dataset, backend=args.loader_backend,
+                           streaming=args.wds_streaming)
+    if why:
+        raise NotImplementedError(why)
+    if args.dataset == "imagenet":
+        _require_dir(args.data_dir, "--dataset imagenet")
+
+
+def get_loaders(args):
+    """The train and validation streams of ``--dataset``
+    (``train_vit.py:get_loaders``), one process's: shard 0 of 1."""
+    if args.dataset == "synthetic":
+        train = SyntheticImageLoader(
+            args.image_size, args.bs, num_classes=args.num_classes,
+            in_channels=args.in_channels,
+            steps_per_epoch=args.steps_per_epoch, seed=args.seed)
+        valid = SyntheticImageLoader(
+            args.image_size, 2 * args.bs, num_classes=args.num_classes,
+            in_channels=args.in_channels,
+            steps_per_epoch=max(1, args.steps_per_epoch // 10),
+            seed=args.seed + 1)
+        return train, valid
+    if args.dataset == "wds":
+        import glob
+
+        from vit_tpu_torch.data.loader import DataLoader
+        from vit_tpu_torch.data.wds import (WdsImageClassification,
+                                            streaming_image_loader)
+
+        shards = sorted(glob.glob(args.wds_shards))
+        if not shards:
+            raise FileNotFoundError(f"no shards match {args.wds_shards}")
+        if args.wds_streaming:
+            print(f"DECODER: {decoders.jpeg_decoder()}", flush=True)
+            train = streaming_image_loader(
+                shards, args.image_size, args.bs, train=True,
+                shuffle_buffer=args.shuffle_buffer, seed=args.seed,
+                shard_id=0, num_shards=1)
+            valid = streaming_image_loader(shards, args.image_size,
+                                           2 * args.bs, train=False,
+                                           shard_id=0, num_shards=1)
+            return train, valid
+        print("DECODER: Pillow", flush=True)
+        train_set = WdsImageClassification(shards, args.image_size,
+                                           train=True)
+        valid_set = WdsImageClassification(shards, args.image_size,
+                                           train=False)
+        return (DataLoader(train_set, args.bs, shuffle=True, drop_last=True,
+                           shard_id=0, num_shards=1),
+                DataLoader(valid_set, 2 * args.bs, shuffle=False,
+                           drop_last=False, shard_id=0, num_shards=1))
+    from vit_tpu_torch.data.imagenet import get_imagenet_loaders
+
+    print(f"DECODER: {decoders.jpeg_decoder()}", flush=True)
+    return get_imagenet_loaders(args.image_size, args.bs,
+                                data_dir=args.data_dir,
+                                backend=args.loader_backend,
+                                processes=args.loader_processes,
+                                shard_id=0, num_shards=1)
 
 
 def main(argv=None) -> dict:
@@ -154,14 +219,7 @@ def main(argv=None) -> dict:
     state = TrainState.create(model, tx)
     train_step = make_classifier_train_step(model)
     eval_step = make_classifier_eval_step(model)
-    train_loader = SyntheticImageLoader(
-        args.image_size, args.bs, num_classes=args.num_classes,
-        in_channels=args.in_channels, steps_per_epoch=args.steps_per_epoch,
-        seed=args.seed)
-    valid_loader = SyntheticImageLoader(
-        args.image_size, 2 * args.bs, num_classes=args.num_classes,
-        in_channels=args.in_channels,
-        steps_per_epoch=max(1, args.steps_per_epoch // 10), seed=args.seed + 1)
+    train_loader, valid_loader = get_loaders(args)
 
     ckpt = Checkpointer(args.ckpt_dir, mode="max")
     start_epoch, skip0 = 0, 0
@@ -176,8 +234,10 @@ def main(argv=None) -> dict:
             print(f"RESUMED data stream at epoch {start_epoch}, "
                   f"batch {skip0}", flush=True)
 
+    # a streamed shard set has no length
     print(f"STATS: params={params_str(state.params)}, "
-          f"trn_len={len(train_loader)}, val_len={len(valid_loader)}, "
+          f"trn_len={getattr(train_loader, '__len__', lambda: '?')()}, "
+          f"val_len={getattr(valid_loader, '__len__', lambda: '?')()}, "
           f"device={device}", flush=True)
     print(f"PARAMS: {cfg.trans_config}", flush=True)
 
