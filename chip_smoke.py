@@ -121,6 +121,29 @@ false``. Phases, one JSON line each:
                 ``aten.native_layer_norm_backward``); mask probes whose kept counts, recovered from
                 the fp32 forms' outputs and dv, equal the bf16 forms' and the
                 mask's, integer for integer;
+  3c. pretrain — the MAE and Puzzle pretraining paths (``python -m
+                vit_tpu_torch.train_mae``, ``train_puzzle``) and the
+                fine-tuning hand-off (``train_vit --init_from``). K1/K2 at
+                head_dim 32, the MAE-B decoder's (64, 257, 16 heads × 32):
+                bf16 without and with a bias and with dropout 0.15, and
+                the fp32 forms, each within the 64-wide forms' limits with
+                the controls that must fail them, the dropout mask bit for
+                bit (``mask_probe`` at d 32); K6 and K7/K8 at head_dim 32
+                at MAE-B @512's (8, 16, 1025), a causal S 800 and S 513, a
+                dropout arm, and the fp32 forms; times, bounds and SDPA's.
+                Then one step each of MAE-B (bs 64, image 256: K1/K2 12 +
+                12 at d 64, S 65, and 8 + 8 at d 32, S 257), Puzzle-B (12
+                + 12 at d 64, S 256), MAE-B @512 at bs 8 (the decoder's
+                S 1025 on K6 and K7/K8 at d 32) and MAE-B at fp32 (bs 16,
+                ``--mixed false``: every launch an fp32 form), the launches
+                by head width, the loss and gradient norm against the
+                plain versions from one noise draw, step times on CUDA
+                events; ``train_mae`` and ``train_puzzle`` at their
+                defaults for 3 steps and a validation pass (MAE's writes
+                "best"), each with its K1/K2 widths launched, and
+                ``train_vit --init_from`` that checkpoint at ViT-B/16
+                @256, whose logits right after the hand-off equal a
+                classifier's that ``load_encoder_into_vit`` built from it;
   4. slice    — export → load → HTTP server; concurrent /encode requests,
                 /decode of the indices; checks shapes, ranges, a 400, that
                 every kernel launched during those requests, that the served
@@ -277,11 +300,13 @@ false``. Phases, one JSON line each:
  19. repro    — two 3-step ``train_titok`` runs at TiTok-B from one seed:
                 every gradient and parameter bit for bit after every step.
 
-``--entries_only`` runs the device, build and the last five phases alone
-(no kernels line, no closing line).
+``--entries_only`` runs the device, build and the last five phases alone,
+``--pretrain_only`` the device, build and pretrain phases (no kernels
+line, no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
-arm's numbers and its dropout launches; each kernel with an fp32 form with
+arm's numbers and its dropout launches, and again at head_dim 32 as
+``*_d32`` with the pretrain phase's numbers and launches; each kernel with an fp32 form with
 its ``fp32`` numbers and ``fp32_launches``; P as ``fma_probe``), the card's
 name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -703,6 +728,7 @@ def host_median_ms(fn, reps: int = 10) -> float:
 
 
 def reset_launches() -> None:
+    k_attn.reset_head_dim_launches()
     k_attn.launches = k_attn.bwd_launches = 0
     k_attn.unpacked_launches = k_attn.unpacked_bwd_launches = 0
     k_attn.dropout_launches = k_attn.dropout_bwd_launches = 0
@@ -755,6 +781,11 @@ def read_fp32_launches() -> dict:
                 convnext_tail_bwd_q8=k_cnx.q8_fp32_bwd_launches)
 
 
+def read_head_dim_launches() -> dict:
+    """The attention wrappers' launches by head width: {name: {d: n}}."""
+    return copy.deepcopy(k_attn.head_dim_launches)
+
+
 def read_dropout_launches() -> dict:
     """The attention wrappers' launches with dropout (a seed vector)."""
     return dict(attention_packed_fwd=k_attn.dropout_launches,
@@ -782,23 +813,24 @@ def bound(flop: float, nbytes: float, peak: float = PEAK_BF16_FLOPS,
 
 def attention_bound(b: int, h: int, s: int, causal: bool, backward: bool,
                     extra_bytes: float = 0.0, dropout: bool = False,
-                    elem: int = 2, peak: float = PEAK_BF16_FLOPS) -> dict:
-    """Attention over (b, h, s, 64) operands of ``elem`` bytes (bf16; 4 for
-    the fp32 forms, at ``peak`` = the published fp32 rate): 2 products of 2·64 FLOP
+                    elem: int = 2, peak: float = PEAK_BF16_FLOPS,
+                    d: int = 64) -> dict:
+    """Attention over (b, h, s, d) operands of ``elem`` bytes (bf16; 4 for
+    the fp32 forms, at ``peak`` = the published fp32 rate): 2 products of 2·d FLOP
     per unmasked (query, key) pair forward, 5 backward; q, k, v (and dO)
     read and out (dq, dk, dv) written once, m and l in fp32. With dropout,
     the hash's integer operations once on every unmasked pair, forward and
     backward alike: the least work needs the mask once (the kernels'
     two-kernel backward hashes it three times)."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    tile = b * h * s * 64 * elem
+    tile = b * h * s * d * elem
     stats = 2 * b * h * s * 4
     int_ops = HASH_INT_OPS * pairs * b * h if dropout else 0.0
     if backward:
-        return bound(10 * 64 * pairs * b * h,
+        return bound(10 * d * pairs * b * h,
                      4 * tile + stats + 3 * tile + extra_bytes,
                      peak=peak, int_ops=int_ops)
-    return bound(4 * 64 * pairs * b * h, 3 * tile + tile + stats + extra_bytes,
+    return bound(4 * d * pairs * b * h, 3 * tile + tile + stats + extra_bytes,
                  peak=peak, int_ops=int_ops)
 
 
@@ -1012,9 +1044,10 @@ def hopper_attention_ptxas() -> dict:
     def smem(name):
         base = name.split("<")[0]
         if base == "attention_fwd_kernel":
-            return lib.attention_fwd_smem(int(fp32_form(name)))
+            return lib.attention_fwd_smem(int(fp32_form(name)),
+                                          head_width(name))
         return lib.attention_bwd_smem(int(base == "unpacked_bwd_dkdv_kernel"),
-                                      int(fp32_form(name)))
+                                      int(fp32_form(name)), head_width(name))
 
     return {name: dict(ptxas=report, dynamic_smem_bytes=smem(name))
             for name, report in measured.get("ptxas", {}).items()
@@ -1103,7 +1136,8 @@ def packed_kernels(gen) -> dict:
          sdpa_ms_bs64=lib_ms, sdpa_backend=sdpa_backend(q, k, v, False),
          bound_bs64=k1_bound, shape="(bs, S 320, 3·768) bf16, 12 heads",
          build={n: r for n, r in build.items()
-                if n.startswith("attention_fwd") and packed_form(n)})
+                if n.startswith("attention_fwd") and packed_form(n)
+                and head_width(n) == 64})
     summary["attention_packed_fwd"] = dict(
         max_abs_err=k1_max, ms=times[64][1], plain_ms=times[64][2],
         bound_ms=k1_bound["bound_ms"], bound_by=k1_bound["bound_by"],
@@ -1164,7 +1198,7 @@ def packed_kernels(gen) -> dict:
          bound_bs64=k2_bound, shape="(64, S 320, 3·768) bf16, 12 heads",
          build={n: r for n, r in build.items()
                 if n.startswith("unpacked") and packed_form(n)
-                and not fp32_form(n)})
+                and not fp32_form(n) and head_width(n) == 64})
     summary["attention_packed_bwd"] = dict(
         max_abs_err=k2_max, ms=k2_ms, plain_ms=k2_plain,
         bound_ms=k2_bound["bound_ms"], bound_by=k2_bound["bound_by"],
@@ -1185,7 +1219,8 @@ def rounded_ph_control(q, k, v, dout, m, l) -> dict:
     linv = 1.0 / l[..., None]
     dp = dout.float() @ v.float().transpose(-1, -2)
     delta = (ph * dp).sum(-1, keepdim=True)
-    ds = (ph * ((dp - delta * linv) * (0.125 * linv))).to(dt).float()
+    ds = (ph * ((dp - delta * linv) * (q.shape[-1] ** -0.5 * linv))
+          ).to(dt).float()
     got = dict(dq=ds @ k.float(), dk=ds.transpose(-1, -2) @ q.float())
     del ph, dp, ds
     refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, False)
@@ -1418,14 +1453,14 @@ def tail_build() -> dict:
 
 def template_args(kernel: str) -> "list[str]":
     """The template arguments of a kernel's name as ``kernel_name`` gives
-    it, e.g. ``unpacked_bwd_dq_kernel<false, true, 3>``."""
+    it, e.g. ``unpacked_bwd_dq_kernel<false, true, 3, 64>``."""
     return kernel.partition("<")[2].rstrip(">").split(", ")
 
 
 def packed_form(kernel: str) -> bool:
     """Whether a Hopper attention kernel's name is its kBias instantiation
-    (K1, K2): ``attention_fwd_kernel<kDropout, kBias>``,
-    ``unpacked_bwd_dq_kernel<kDropout, kBias, kParts>`` and the like."""
+    (K1, K2): ``attention_fwd_kernel<kDropout, kBias, kParts, kD>``,
+    ``unpacked_bwd_dq_kernel<kDropout, kBias, kParts, kD>`` and the like."""
     return template_args(kernel)[1:2] == ["true"]
 
 
@@ -1433,6 +1468,12 @@ def fp32_form(kernel: str) -> bool:
     """Whether a Hopper attention kernel's name is its fp32 form (kParts =
     3)."""
     return template_args(kernel)[2:3] == ["3"]
+
+
+def head_width(kernel: str) -> int:
+    """The head width (kD, 32 or 64) of a Hopper attention kernel's name,
+    ``attention_fwd_kernel<kDropout, kBias, kParts, kD>`` and the like."""
+    return int(template_args(kernel)[3])
 
 
 def phase_kernels() -> dict:
@@ -1682,16 +1723,17 @@ def k5_any_dims(gen, sms: int) -> dict:
                        if k.startswith("vq_nearest_any_kernel")})
 
 
-def head_views(b: int, h: int, s: int, gen, packed: bool = True):
-    """bf16 q, k, v (b, h, s, 64): the strided head views of one packed
-    (b, s, 3·h·64) projection, as the model hands them over, or three
+def head_views(b: int, h: int, s: int, gen, packed: bool = True,
+               d: int = 64, dtype=torch.bfloat16):
+    """q, k, v (b, h, s, d): the strided head views of one packed
+    (b, s, 3·h·d) projection, as the model hands them over, or three
     contiguous tensors."""
     if packed:
-        qkv = torch.randn(b, s, 3, h, 64, device="cuda",
-                          generator=gen).bfloat16()
+        qkv = torch.randn(b, s, 3, h, d, device="cuda",
+                          generator=gen).to(dtype)
         return tuple(qkv.permute(2, 0, 3, 1, 4))
-    return tuple(torch.randn(b, h, s, 64, device="cuda",
-                             generator=gen).bfloat16() for _ in range(3))
+    return tuple(torch.randn(b, h, s, d, device="cuda",
+                             generator=gen).to(dtype) for _ in range(3))
 
 
 def sdpa_backward_ms(q, k, v, dout, causal: bool,
@@ -1823,7 +1865,7 @@ def unpacked_kernels(gen) -> dict:
          bound=k6_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
          build={n: r for n, r in build.items()
                 if n.startswith("attention") and not packed_form(n)
-                and not fp32_form(n)},
+                and not fp32_form(n) and head_width(n) == 64},
          **k6)
     emit("kernel", name="attention_bwd", parity=k8_rows,
          tolerance=dict(max_rel=BWD_MAX_REL, mean_rel=BWD_MEAN_REL,
@@ -1831,7 +1873,7 @@ def unpacked_kernels(gen) -> dict:
          bound=k8_bound, shape="(32, 12, S 1024, 64) bf16 causal, strided",
          build={n: r for n, r in build.items()
                 if n.startswith("unpacked") and not packed_form(n)
-                and not fp32_form(n)},
+                and not fp32_form(n) and head_width(n) == 64},
          **k8)
     summary["attention_fwd"] = dict(
         max_abs_err=k6_max, ms=k6["stats_ms"], plain_ms=k6["plain_ms"],
@@ -1868,30 +1910,30 @@ def dropped_fraction(seed, b: int, h: int, s: int, causal: bool,
                 sigmas_from_rate=abs(frac - rate) / sigma)
 
 
-def onehot_rows(s: int) -> torch.Tensor:
-    """(s, 64) bf16 with row c the unit vector of c mod 64: as v, each
+def onehot_rows(s: int, d: int = 64) -> torch.Tensor:
+    """(s, d) bf16 with row c the unit vector of c mod d: as v, each
     output column counts the kept keys of one residue class; as dO, each dv
     column counts the kept queries."""
     r = torch.arange(s, device="cuda")
-    return (r[:, None] % 64 == torch.arange(64, device="cuda")).bfloat16()
+    return (r[:, None] % d == torch.arange(d, device="cuda")).bfloat16()
 
 
 def mask_probe(b: int, h: int, s: int, causal: bool, rate: float, gen,
-               packed: bool) -> dict:
+               packed: bool, d: int = 64) -> dict:
     """The kernels' mask against the plain version's, bit for bit. Forward:
     q = k = 0, so p ≡ 1 and l counts the unmasked keys, and v one-hot by key
     residue: each output is (kept keys of a class) · bf16(scale) / l, exact
     in fp32 on both sides. Backward with m = 0, l = 1 given and dO one-hot
     by query residue: dv counts kept queries the same way, through the
     dk/dv kernel's transposed walk. S not a multiple of 64 covers the
-    padding, causal the masked tiles."""
+    padding, causal the masked tiles; ``d`` is the head width."""
     seed = random_seed(gen)
-    onehot = onehot_rows(s)
+    onehot = onehot_rows(s, d)
     stats = (torch.zeros(b, h, s, device="cuda"),
              torch.ones(b, h, s, device="cuda"))
     drop = dict(dropout_rate=rate, seed=seed)
     if packed:
-        width = h * 64
+        width = h * d
         qkv = torch.zeros(b, s, 3 * width, dtype=torch.bfloat16, device="cuda")
         qkv[:, :, 2 * width:] = onehot.repeat(1, h)
         bias = torch.zeros(3 * width, device="cuda")
@@ -1903,14 +1945,14 @@ def mask_probe(b: int, h: int, s: int, causal: bool, rate: float, gen,
                for f in (k_attn.attention_packed_bwd,
                          k_attn.attention_packed_bwd_ref)]
     else:
-        q = torch.zeros(b, h, s, 64, dtype=torch.bfloat16, device="cuda")
-        v = onehot[None, None].expand(b, h, s, 64).contiguous()
+        q = torch.zeros(b, h, s, d, dtype=torch.bfloat16, device="cuda")
+        v = onehot[None, None].expand(b, h, s, d).contiguous()
         fwd = [f(q, q, v, causal, **drop)
                for f in (k_attn.attention_fwd, k_attn.attention_fwd_ref)]
         bwd = [f(q, q, v, v, *stats, causal, **drop)[2]
                for f in (k_attn.attention_bwd, k_attn.attention_bwd_ref)]
     torch.cuda.synchronize()
-    row = dict(B=b, H=h, S=s, causal=causal, rate=rate,
+    row = dict(B=b, H=h, S=s, d=d, causal=causal, rate=rate,
                out_equal=bool(torch.equal(*fwd)),
                dv_equal=bool(torch.equal(*bwd)),
                out_max_abs=(fwd[0].float() - fwd[1].float()).abs().max().item(),
@@ -3384,7 +3426,8 @@ def fp32_kernels(gen) -> dict:
          bound_note="split products: 6 bf16 products per fp32 product "
                     "at 989 TFLOP/s; fp32_rate: the published 67 TFLOP/s",
          build={n: r for n, r in build.items() if fp32_form(n) and (
-             packed_form(n) or n.startswith("attention_fwd"))}, **arms)
+             packed_form(n) or n.startswith("attention_fwd"))
+             and head_width(n) == 64}, **arms)
     for name, key in (("attention_packed_fwd", "fwd"),
                       ("attention_packed_bwd", "bwd")):
         t, d = arms["titok"], arms["vit_dropout"]
@@ -3477,7 +3520,8 @@ def fp32_kernels(gen) -> dict:
                         fwd_mean_rel_exact=F32_FWD_MEAN_REL,
                         bwd_mean_rel=F32_BWD_MEAN_REL),
          build={n: r for n, r in build.items()
-                if fp32_form(n) and not packed_form(n)}, **rows)
+                if fp32_form(n) and not packed_form(n)
+                and head_width(n) == 64}, **rows)
     k8, k8d = rows["K8"], rows["K8_dropout"]
     entry("attention_fwd", k8["out"], k8["fwd_ms"], k8["fwd_plain_ms"],
           k8["fwd_bound"], k8["sdpa_fwd_ms"], "(32, 12, 1024, 64) causal",
@@ -5565,13 +5609,13 @@ def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
         cond = cond_np[:bs]
         with serving(str(d), batch_window_ms=0) as url:
             reset_launches()   # the main path's run starts here
-            served = post(url + "/generate", cond)
-            launches[bs] = read_launches()
-            # one timed rollout after the served one (a rollout takes
-            # seconds, host-bound; more repetitions did not fit the run)
+            # the served rollout is the timed one: the server warms up at
+            # load (a rollout takes seconds, host-bound; a second timed
+            # one did not fit the run)
             t0 = time.perf_counter()
-            post(url + "/generate", cond)
+            served = post(url + "/generate", cond)
             latency = (time.perf_counter() - t0) * 1e3
+            launches[bs] = read_launches()
         require(served.shape == (bs, n_cond + n_gen)
                 and served.dtype == np.int32,
                 f"generate gave {served.shape} {served.dtype}")
@@ -6248,6 +6292,617 @@ def phase_repro(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- pretrain: the 32-wide attention kernels, MAE-B and Puzzle-B -------------
+
+MAE_BS = 64       # train_mae.py's and train_puzzle.py's --bs
+MAE_IMAGE = 256   # and --image_size (patch 16): MAE-B's S 65 encoder (head_dim
+                  # 64) and S 257 decoder (16 heads × 32), Puzzle-B's S 256
+MAE_DEC = (MAE_BS, 257, 16, 32)   # the decoder's attention: B, S, heads, d
+# MAE-B at image 512: the decoder's S 1025 (> 768) takes K6 and K7/K8 at
+# head_dim 32; the encoder keeps 257 tokens (K1/K2 at 64)
+MAE_HIRES_IMAGE, MAE_HIRES_BS = 512, 8
+MAE_FP32_BS = 16  # the fp32 (--mixed false) MAE-B step's batch
+HD32 = {"attention_packed_fwd": "attention_packed_fwd_d32",
+        "attention_packed_bwd": "attention_packed_bwd_d32",
+        "attention_fwd": "attention_fwd_d32",
+        "attention_bwd": "attention_bwd_d32"}
+PRETRAIN_ENTRY = ("--dataset", "synthetic", "--no_wandb", "--epochs", "1",
+                  "--steps_per_epoch", "3", "--log_every", "1")
+
+
+def hd32_packed(gen) -> dict:
+    """K1 and K2 at head_dim 32, at the MAE-B decoder's shape (64, 257, 16
+    heads × 32): bf16 without a bias and with one, with dropout 0.15, each
+    against its plain version within the packed kernels' limits (K1's
+    max/mean abs and ``WGMMA_FWD_MEAN_REL``, K2's ``BWD_*`` and
+    ``WGMMA_BWD_MEAN_REL``) and the controls that must fail them; the fp32
+    forms (with the bias, with and without dropout) within ``FP32_REL``, the
+    float64 forward within ``F32_FWD_MEAN_REL``, ``F32_BWD_MEAN_REL``, and
+    the two-part controls; the dropout mask bit for bit (``mask_probe`` at
+    d 32); times, bounds and SDPA's times. Returns the kernels line's
+    entries."""
+    b, s, h, d = MAE_DEC
+    width = h * d
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    fwd_rows, bwd_rows, k1_max, k2_max = [], [], 0.0, 0.0
+    for case, bias_scale, rate in (("no bias", 0.0, 0.0), ("bias", 0.3, 0.0),
+                                   ("bias, dropout", 0.3, VIT_DROPOUT)):
+        qkv = randn(b, s, 3 * width).bfloat16()
+        bias = randn(3 * width, scale=bias_scale)
+        dout = randn(b, s, width).bfloat16()
+        drop = dict(dropout_rate=rate, seed=random_seed(gen)) if rate else {}
+        out, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True,
+                                                **drop)
+        torch.cuda.synchronize()
+        ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(qkv, bias, h,
+                                                            False, True, **drop)
+        diff = (out.float() - ref.float()).abs()
+        row = dict(case=case, B=b, S=s, H=h, d=d, rate=rate,
+                   max_abs=diff.max().item(), mean_abs=diff.mean().item(),
+                   mean_rel=rel_errors(out, ref)["mean_rel"],
+                   m_rel=((m - m_ref).abs().max() / m_ref.abs().max()).item(),
+                   l_rel=((l - l_ref).abs() / l_ref).max().item())
+        if rate:
+            row.update(dropped_fraction(drop["seed"], b, h, s, False, rate))
+        require(bool(torch.isfinite(out).all())
+                and row["max_abs"] <= K1_MAX_ABS
+                and row["mean_abs"] <= K1_MEAN_ABS
+                and row["mean_rel"] <= WGMMA_FWD_MEAN_REL
+                and row["m_rel"] <= K1_STATS_REL
+                and row["l_rel"] <= K1_STATS_REL
+                and row.get("sigmas_from_rate", 0.0) <= DROP_SIGMAS,
+                f"K1 at head_dim 32 disagrees with its plain version: {row}")
+        fwd_rows.append(row)
+        k1_max = max(k1_max, row["max_abs"])
+        del ref, m_ref, l_ref, diff
+        dqkv, dbias = k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h,
+                                                  False, **drop)
+        torch.cuda.synchronize()
+        dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
+            qkv, bias, dout, m, l, h, False, **drop)
+        brow = dict(case=case, dqkv=rel_errors(dqkv, dqkv_ref),
+                    dbias=rel_errors(dbias, dbias_ref))
+        for key in ("dqkv", "dbias"):
+            require(bool(torch.isfinite(dqkv).all()
+                         and torch.isfinite(dbias).all())
+                    and brow[key]["max_rel"] <= BWD_MAX_REL
+                    and brow[key]["mean_rel"] <= BWD_MEAN_REL
+                    and brow[key]["mean_rel"] <= WGMMA_BWD_MEAN_REL,
+                    f"K2 at head_dim 32 disagrees with its plain version: "
+                    f"{brow}")
+        bwd_rows.append(brow)
+        k2_max = max(k2_max, brow["dqkv"]["max_abs"])
+        del qkv, bias, dout, out, m, l, dqkv, dbias, dqkv_ref, dbias_ref
+    torch.cuda.empty_cache()
+    probe = mask_probe(4, h, s, False, VIT_DROPOUT, gen, True, d)
+
+    # controls and times on the biased bf16 case, with statistics (the
+    # training path's call)
+    qkv = randn(b, s, 3 * width).bfloat16()
+    bias = randn(3 * width, scale=0.3)
+    dout = randn(b, s, width).bfloat16()
+    q, k, v = k_attn.split_heads(qkv, h, bias)
+    dh = dout.reshape(b, s, h, d).transpose(1, 2)
+    _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True)
+    controls = dict(fwd=normalised_p_control(q, k, v, False),
+                    bwd=rounded_ph_control(q, k, v, dh, m, l))
+    k1 = dict(ms=median_ms(lambda: k_attn.attention_packed_fwd(
+                  qkv, bias, h, False, True)),
+              plain_ms=median_ms(lambda: k_attn.attention_packed_fwd_ref(
+                  qkv, bias, h, False, True), 5),
+              sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                  q, k, v)),
+              sdpa_backend=sdpa_backend(q, k, v, False),
+              bound=attention_bound(b, h, s, False, False,
+                                    extra_bytes=3 * width * 4, d=d))
+    k2 = dict(ms=median_ms(lambda: k_attn.attention_packed_bwd(
+                  qkv, bias, dout, m, l, h, False)),
+              plain_ms=median_ms(lambda: k_attn.attention_packed_bwd_ref(
+                  qkv, bias, dout, m, l, h, False), 5),
+              sdpa=sdpa_backward_ms(q, k, v, dh, False),
+              bound=attention_bound(b, h, s, False, True,
+                                    extra_bytes=3 * width * 8, d=d))
+    del qkv, bias, dout, q, k, v, dh, m, l
+    torch.cuda.empty_cache()
+
+    fp32 = {}
+    for arm, rate in (("bias", 0.0), ("bias, dropout", VIT_DROPOUT)):
+        qkv = randn(b, s, 3 * width)
+        bias = randn(3 * width, scale=0.3)
+        dout = randn(b, s, width)
+        drop = dict(dropout_rate=rate, seed=random_seed(gen) if rate else None)
+        out, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False, True,
+                                                **drop)
+        dqkv, dbias = k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h,
+                                                  False, **drop)
+        torch.cuda.synchronize()
+        ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(qkv, bias, h,
+                                                            False, True, **drop)
+        dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
+            qkv, bias, dout, m_ref, l_ref, h, False, **drop)
+        qh, kh, vh = k_attn.split_heads(qkv, h, bias)
+        exact = exact_attention_fwd(qh, kh, vh, False, **drop)
+        row = dict(**f32_fwd_check(
+                       "K1 d32", (out.reshape(b, s, h, d).transpose(1, 2), m,
+                                  l),
+                       (ref.reshape(b, s, h, d).transpose(1, 2), m_ref, l_ref),
+                       exact),
+                   dqkv=f32_bwd_check("K2 d32", dqkv, dqkv_ref),
+                   dbias=f32_bwd_check("K2 d32 dbias", dbias, dbias_ref))
+        if not rate:
+            dh = dout.reshape(b, s, h, d).transpose(1, 2)
+            row["controls"] = dict(
+                fwd=two_part_fwd_control(qh, kh, vh, False, exact),
+                bwd=two_part_control(qh, kh, vh, dh, m, l, False))
+            del ref, m_ref, l_ref, dqkv_ref, dbias_ref, exact
+            row.update(
+                fwd_ms=median_ms(lambda: k_attn.attention_packed_fwd(
+                    qkv, bias, h, False, True)),
+                fwd_plain_ms=median_ms(lambda: k_attn.attention_packed_fwd_ref(
+                    qkv, bias, h, False, True), 3),
+                sdpa_fwd_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh)),
+                bwd_ms=median_ms(lambda: k_attn.attention_packed_bwd(
+                    qkv, bias, dout, m, l, h, False)),
+                bwd_plain_ms=median_ms(lambda: k_attn.attention_packed_bwd_ref(
+                    qkv, bias, dout, m, l, h, False), 3),
+                sdpa_bwd=sdpa_backward_ms(qh, kh, vh, dh, False),
+                fwd_bound=attention_bound(b, h, s, False, False,
+                                          extra_bytes=3 * width * 4, elem=4,
+                                          peak=PEAK_SPLIT_FLOPS, d=d),
+                bwd_bound=attention_bound(b, h, s, False, True,
+                                          extra_bytes=3 * width * 8, elem=4,
+                                          peak=PEAK_SPLIT_FLOPS, d=d))
+            del dh
+        fp32[arm] = row
+        del qkv, bias, dout, out, m, l, dqkv, dbias, qh, kh, vh
+        torch.cuda.empty_cache()
+    build = {n: r for n, r in hopper_attention_ptxas().items()
+             if head_width(n) == d}
+    emit("pretrain", name="attention_packed_fwd_d32/attention_packed_bwd_d32",
+         shape=f"({b}, S {s}, 3·{h}·{d}) bf16 and fp32, the MAE-B decoder's",
+         k1_parity=fwd_rows, k2_parity=bwd_rows, mask_probe=probe,
+         tolerance=dict(k1_max_abs=K1_MAX_ABS, k1_mean_abs=K1_MEAN_ABS,
+                        wgmma_fwd_mean_rel=WGMMA_FWD_MEAN_REL,
+                        stats_rel=K1_STATS_REL, bwd_max_rel=BWD_MAX_REL,
+                        bwd_mean_rel=BWD_MEAN_REL,
+                        wgmma_bwd_mean_rel=WGMMA_BWD_MEAN_REL,
+                        fp32_rel=FP32_REL, f32_fwd_mean_rel=F32_FWD_MEAN_REL,
+                        f32_bwd_mean_rel=F32_BWD_MEAN_REL),
+         mean_limit_controls=controls, k1=k1, k2=k2, fp32=fp32,
+         build={n: r for n, r in build.items()
+                if packed_form(n) or fp32_form(n)})
+    t = fp32["bias"]
+    return {
+        HD32["attention_packed_fwd"]: dict(
+            max_abs_err=k1_max, ms=k1["ms"], plain_ms=k1["plain_ms"],
+            bound_ms=k1["bound"]["bound_ms"],
+            bound_by=k1["bound"]["bound_by"], library_ms=k1["sdpa_ms"],
+            head_dim=d, shape=f"({b}, {s}, {h} h × {d}) bf16, bias, stats",
+            dropout=dict(fwd_rows[-1], mask_probe=probe),
+            fp32=dict(max_abs_err=t["out"]["max_abs"], ms=t["fwd_ms"],
+                      plain_ms=t["fwd_plain_ms"],
+                      bound_ms=t["fwd_bound"]["bound_ms"],
+                      bound_by=t["fwd_bound"]["bound_by"],
+                      library_ms=t["sdpa_fwd_ms"])),
+        HD32["attention_packed_bwd"]: dict(
+            max_abs_err=k2_max, ms=k2["ms"], plain_ms=k2["plain_ms"],
+            bound_ms=k2["bound"]["bound_ms"],
+            bound_by=k2["bound"]["bound_by"],
+            library_ms=k2["sdpa"]["backward_ms"], head_dim=d,
+            shape=f"({b}, {s}, {h} h × {d}) bf16, bias",
+            dropout=bwd_rows[-1],
+            fp32=dict(max_abs_err=t["dqkv"]["max_abs"], ms=t["bwd_ms"],
+                      plain_ms=t["bwd_plain_ms"],
+                      bound_ms=t["bwd_bound"]["bound_ms"],
+                      bound_by=t["bwd_bound"]["bound_by"],
+                      library_ms=t["sdpa_bwd"]["backward_ms"]))}
+
+
+def hd32_unpacked(gen) -> dict:
+    """K6 and K7/K8 at head_dim 32 at one S > 768: MAE-B @512's decoder
+    attention (8, 16 heads, S 1025) on the packed projection's strided
+    views, a causal S 800 and K7's range (S 513), each against its plain
+    version within the unpacked kernels' limits and their controls; the
+    dropout arm (rate 0.1, causal S 1025) and its mask bit for bit; the fp32
+    forms within ``FP32_REL``, the float64 forward and ``F32_BWD_MEAN_REL``;
+    times, bounds, SDPA's. Returns the kernels line's entries."""
+    d, h = 32, 16
+    b, s = MAE_HIRES_BS, MAE_HIRES_IMAGE ** 2 // 256 + 1
+    k6_rows, k8_rows, k6_max, k8_max = [], [], 0.0, 0.0
+    for bb, ss, causal, packed, rate in [(b, s, False, True, 0.0),
+                                         (2, 800, True, False, 0.0),
+                                         (2, 513, True, False, 0.0),
+                                         (2, s, True, False, GPT_DROPOUT)]:
+        q, k, v = head_views(bb, h, ss, gen, packed, d)
+        dout = torch.randn(bb, ss, h, d, device="cuda",
+                           generator=gen).bfloat16().transpose(1, 2)
+        drop = dict(dropout_rate=rate, seed=random_seed(gen)) if rate else {}
+        out, m, l = k_attn.attention_fwd(q, k, v, causal, True, **drop)
+        grads = k_attn.attention_bwd(q, k, v, dout, m, l, causal, **drop)
+        torch.cuda.synchronize()
+        ref, m_ref, l_ref = k_attn.attention_fwd_ref(q, k, v, causal, True,
+                                                     **drop)
+        refs = k_attn.attention_bwd_ref(q, k, v, dout, m, l, causal, **drop)
+        row = dict(B=bb, S=ss, H=h, d=d, causal=causal, strided=packed,
+                   rate=rate, **rel_errors(out, ref),
+                   m_rel=((m - m_ref).abs().max() / m_ref.abs().max()).item(),
+                   l_rel=((l - l_ref).abs() / l_ref).max().item())
+        require(bool(torch.isfinite(out).all())
+                and row["max_rel"] <= BWD_MAX_REL
+                and row["mean_rel"] <= BWD_MEAN_REL
+                and row["mean_rel"] <= WGMMA_FWD_MEAN_REL
+                and row["m_rel"] <= K1_STATS_REL
+                and row["l_rel"] <= K1_STATS_REL,
+                f"K6 at head_dim 32 disagrees with its plain version: {row}")
+        brow = dict(B=bb, S=ss, causal=causal, rate=rate,
+                    **{n: rel_errors(g, r)
+                       for n, g, r in zip(("dq", "dk", "dv"), grads, refs)})
+        for n, g in zip(("dq", "dk", "dv"), grads):
+            require(bool(torch.isfinite(g).all())
+                    and brow[n]["max_rel"] <= BWD_MAX_REL
+                    and brow[n]["mean_rel"] <= BWD_MEAN_REL
+                    and brow[n]["mean_rel"] <= WGMMA_BWD_MEAN_REL,
+                    f"K7/K8 at head_dim 32 disagrees with its plain version: "
+                    f"{brow}")
+            k8_max = max(k8_max, brow[n]["max_abs"])
+        k6_rows.append(row)
+        k8_rows.append(brow)
+        k6_max = max(k6_max, row["max_abs"])
+        del q, k, v, dout, out, m, l, grads, ref, refs
+    torch.cuda.empty_cache()
+    probe = mask_probe(2, h, s, True, GPT_DROPOUT, gen, False, d)
+
+    q, k, v = head_views(b, h, s, gen, True, d)
+    dout = torch.randn(b, s, h, d, device="cuda",
+                       generator=gen).bfloat16().transpose(1, 2)
+    _, m, l = k_attn.attention_fwd(q, k, v, False, emit_stats=True)
+    controls = dict(fwd=normalised_p_control(q, k, v, False),
+                    bwd=rounded_ph_control(q, k, v, dout, m, l))
+    k6 = dict(ms=median_ms(lambda: k_attn.attention_fwd(q, k, v, False,
+                                                        emit_stats=True)),
+              plain_ms=median_ms(lambda: k_attn.attention_fwd_ref(
+                  q, k, v, False, emit_stats=True), 5),
+              sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                  q, k, v)),
+              sdpa_backend=sdpa_backend(q, k, v, False),
+              bound=attention_bound(b, h, s, False, False, d=d))
+    k8 = dict(ms=median_ms(lambda: k_attn.attention_bwd(q, k, v, dout, m, l,
+                                                        False)),
+              plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
+                  q, k, v, dout, m, l, False), 5),
+              sdpa=sdpa_backward_ms(q, k, v, dout, False),
+              bound=attention_bound(b, h, s, False, True, d=d))
+    del q, k, v, dout, m, l
+    torch.cuda.empty_cache()
+
+    # the fp32 forms at the same shape, contiguous operands
+    q, k, v = head_views(b, h, s, gen, False, d, torch.float32)
+    dout = torch.randn(b, h, s, d, device="cuda", generator=gen)
+    out, m, l = k_attn.attention_fwd(q, k, v, False, True)
+    grads = k_attn.attention_bwd(q, k, v, dout, m, l, False)
+    torch.cuda.synchronize()
+    exact = exact_attention_fwd(q, k, v, False)
+    fp32 = dict(**f32_fwd_check("K6 d32", (out, m, l), k_attn.attention_fwd_ref(
+        q, k, v, False, True), exact))
+    for n, g, r in zip(("dq", "dk", "dv"), grads,
+                       k_attn.attention_bwd_ref(q, k, v, dout, m, l, False)):
+        fp32[n] = f32_bwd_check(f"K7/K8 d32 {n}", g, r)
+    fp32["controls"] = dict(fwd=two_part_fwd_control(q, k, v, False, exact),
+                            bwd=two_part_control(q, k, v, dout, m, l, False))
+    del exact, out, grads
+    fp32.update(
+        fwd_ms=median_ms(lambda: k_attn.attention_fwd(q, k, v, False, True)),
+        fwd_plain_ms=median_ms(lambda: k_attn.attention_fwd_ref(
+            q, k, v, False, True), 3),
+        sdpa_fwd_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        bwd_ms=median_ms(lambda: k_attn.attention_bwd(q, k, v, dout, m, l,
+                                                      False)),
+        bwd_plain_ms=median_ms(lambda: k_attn.attention_bwd_ref(
+            q, k, v, dout, m, l, False), 3),
+        sdpa_bwd=sdpa_backward_ms(q, k, v, dout, False),
+        fwd_bound=attention_bound(b, h, s, False, False, elem=4,
+                                  peak=PEAK_SPLIT_FLOPS, d=d),
+        bwd_bound=attention_bound(b, h, s, False, True, elem=4,
+                                  peak=PEAK_SPLIT_FLOPS, d=d))
+    del q, k, v, dout, m, l
+    torch.cuda.empty_cache()
+    build = {n: r for n, r in hopper_attention_ptxas().items()
+             if head_width(n) == d and not packed_form(n)}
+    emit("pretrain", name="attention_fwd_d32/attention_bwd_d32",
+         shape=f"({b}, {h}, S {s}, {d}) bf16 and fp32, MAE-B @"
+               f"{MAE_HIRES_IMAGE}'s decoder", k6_parity=k6_rows,
+         k8_parity=k8_rows, mask_probe=probe, mean_limit_controls=controls,
+         k6=k6, k8=k8, fp32=fp32, build=build)
+    return {
+        HD32["attention_fwd"]: dict(
+            max_abs_err=k6_max, ms=k6["ms"], plain_ms=k6["plain_ms"],
+            bound_ms=k6["bound"]["bound_ms"],
+            bound_by=k6["bound"]["bound_by"], library_ms=k6["sdpa_ms"],
+            head_dim=d, shape=f"({b}, {h}, {s}, {d}) bf16, strided, stats",
+            dropout=dict(k6_rows[-1], mask_probe=probe),
+            fp32=dict(max_abs_err=fp32["out"]["max_abs"], ms=fp32["fwd_ms"],
+                      plain_ms=fp32["fwd_plain_ms"],
+                      bound_ms=fp32["fwd_bound"]["bound_ms"],
+                      bound_by=fp32["fwd_bound"]["bound_by"],
+                      library_ms=fp32["sdpa_fwd_ms"])),
+        HD32["attention_bwd"]: dict(
+            max_abs_err=k8_max, ms=k8["ms"], plain_ms=k8["plain_ms"],
+            bound_ms=k8["bound"]["bound_ms"],
+            bound_by=k8["bound"]["bound_by"],
+            library_ms=k8["sdpa"]["backward_ms"], head_dim=d,
+            shape=f"({b}, {h}, {s}, {d}) bf16, strided",
+            dropout=k8_rows[-1],
+            fp32=dict(max_abs_err=max(fp32[n]["max_abs"]
+                                      for n in ("dq", "dk", "dv")),
+                      ms=fp32["bwd_ms"], plain_ms=fp32["bwd_plain_ms"],
+                      bound_ms=fp32["bwd_bound"]["bound_ms"],
+                      bound_by=fp32["bwd_bound"]["bound_by"],
+                      library_ms=fp32["sdpa_bwd"]["backward_ms"]))}
+
+
+def pretrain_images(image: int, bs: int) -> torch.Tensor:
+    """bs images in [0, 1] from a numpy seed, on the card."""
+    rng = np.random.default_rng(6)
+    return torch.from_numpy(rng.uniform(
+        0, 1, (bs, image, image, 3)).astype(np.float32)).to("cuda")
+
+
+def pretrain_loss(model, images, noise) -> "tuple[float, float]":
+    """The MAE or Puzzle loss on ``noise``'s masks and the global gradient
+    norm, in training mode; no optimizer."""
+    from vit_tpu_torch.models.mae import MAE, mae_loss
+    from vit_tpu_torch.models.puzzle import puzzle_loss
+
+    model.train()
+    out, mask = model(images, noise)
+    if isinstance(model, MAE):
+        cfg = model.config
+        loss = mae_loss(out, images, mask, cfg.patch_size, cfg.norm_pix)
+    else:
+        loss = puzzle_loss(out, mask)[0]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.item(), torch.sqrt(sum((g.float() ** 2).sum()
+                                       for g in grads)).item()
+
+
+def pretrain_step(name: str, model, step_fn, image: int, bs: int,
+                  want: dict, card: str, tol: "tuple[float, float]" = (
+                      STEP_LOSS_REL, STEP_GRAD_NORM_REL),
+                  time_it: bool = True) -> dict:
+    """One step of ``step_fn`` (``make_mae_train_step`` or
+    ``make_puzzle_train_step``) at ``train_mae.py``'s optimizer, from one
+    noise draw: its launches by head width (``want``, {wrapper: {d: n}}),
+    then the same weights' loss and gradient norm through the kernels and
+    through the plain versions on the same noise within ``tol``, and its
+    time on the card (CUDA events, median of 5 after 3). Returns the
+    step's launches by head width and its fp32 launches."""
+    images = pretrain_images(image, bs)
+    noise = torch.rand(bs, (image // 16) ** 2, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(3))
+    state = TrainState.create(model, make_optimizer(
+        1.5e-4, 5000, 500000, 1.5e-5, 0.05, clip_norm=None))
+    torch.cuda.synchronize()
+    reset_launches()   # the main path's run starts here
+    _, metrics = step_fn(state, images, noise=noise)
+    torch.cuda.synchronize()
+    by_d, fp32 = read_head_dim_launches(), read_fp32_launches()
+    require(by_d == want, f"{name}: one step launched {by_d}, want {want}")
+    step_loss = metrics["train/loss"].item()
+    # lr is 0 at the warmup's first step: the weights are unchanged
+    loss, norm = pretrain_loss(model, images, noise)
+    with plain_versions():
+        p_loss, p_norm = pretrain_loss(model, images, noise)
+    rel = dict(loss=abs(loss - p_loss) / abs(p_loss),
+               grad_norm=abs(norm - p_norm) / abs(p_norm),
+               step_loss=abs(step_loss - p_loss) / abs(p_loss))
+    row = dict(config=dict(image_size=image, bs=bs,
+                           dtype=str(model.config.dtype)),
+               params=sum(p.numel() for p in model.parameters()),
+               launches_by_head_dim=by_d, step_loss=step_loss, loss=loss,
+               plain_loss=p_loss, grad_norm=norm, plain_grad_norm=p_norm,
+               rel_diff=rel, tolerance=dict(loss_rel=tol[0],
+                                            grad_norm_rel=tol[1]))
+    require(np.isfinite(step_loss) and rel["loss"] <= tol[0]
+            and rel["step_loss"] <= tol[0] and rel["grad_norm"] <= tol[1],
+            f"{name}: kernel step vs plain step: {rel}")
+    if time_it:
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(lambda: step_fn(state, images, noise=noise), 5)
+        row.update(card=card, step_ms=ms, images_per_s=bs / ms * 1e3,
+                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    emit("pretrain", step=name, **row)
+    del state, images, noise
+    torch.cuda.empty_cache()
+    return by_d, fp32
+
+
+def widths(counts: dict) -> dict:
+    """{wrapper: {d: n}} with the zero counts dropped."""
+    return {name: {d: n for d, n in c.items() if n}
+            for name, c in counts.items() if any(c.values())}
+
+
+def run_pretrain_main(module: str, *flags: str, hook=None) -> dict:
+    """``vit_tpu_torch.<module>.main(flags)`` in this process, its output
+    captured, the launch counts set to 0 just before it and read just after
+    (by head width too)."""
+    import importlib
+
+    entry = importlib.import_module(f"vit_tpu_torch.{module}")
+    buf = io.StringIO()
+    prev = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            logs = entry.main(list(flags))
+        torch.cuda.synchronize()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    lines = buf.getvalue().splitlines()
+    losses = [r["loss"] for r in logs["train"]]
+    require(losses and all(np.isfinite(x) for x in losses) and logs["valid"],
+            f"{module}: {lines[-30:]}")
+    run = dict(cmd=f"-m vit_tpu_torch.{module} " + " ".join(flags),
+               seconds=time.perf_counter() - t0, lines=lines,
+               step_losses=losses,
+               step_times=[r["step_time"] for r in logs["train"]],
+               valid=logs["valid"], launches=read_launches(),
+               by_head_dim=read_head_dim_launches())
+    torch.cuda.empty_cache()
+    return run
+
+
+def require_widths(run: dict, want: "tuple[int, ...]") -> None:
+    """K1 and K2 launched at each head width of ``want`` in the run."""
+    missing = [(name, d) for name in ("attention_packed_fwd",
+                                      "attention_packed_bwd")
+               for d in want if run["by_head_dim"][name][d] == 0]
+    require(not missing, f"{run['cmd']}: no launches at {missing}")
+
+
+def phase_pretrain(card: str) -> "tuple[dict, dict, dict]":
+    """The MAE and Puzzle pretraining paths (``train_mae.py``,
+    ``train_puzzle.py``) and the fine-tuning hand-off (``train_vit.py
+    --init_from``). The 32-wide attention kernels against their plain
+    versions (``hd32_packed``, ``hd32_unpacked``); the MAE-B step at bs 64,
+    image 256 (K1/K2 12 + 12 at d 64, S 65, and 8 + 8 at d 32, S 257), the
+    Puzzle-B step (12 + 12 at d 64, S 256), MAE-B @512 at bs 8 (the decoder's
+    S 1025: K6 and K7/K8 8 + 8 at d 32) and MAE-B at fp32 (``--mixed
+    false``, bs 16: every launch an fp32 form) against the plain versions
+    from one noise draw; then ``python -m vit_tpu_torch.train_mae`` and
+    ``train_puzzle`` at their defaults for 3 steps and a validation pass
+    (MAE's writes "best"), and ``train_vit --init_from`` that MAE
+    checkpoint at ViT-B/16 @256, whose classifier's logits right after the
+    hand-off equal those of one that ``load_encoder_into_vit`` built from
+    the same checkpoint. Returns the kernels line's entries, the path's
+    launches (the 64-wide under the wrappers' names, the 32-wide under
+    ``HD32``'s) and the 32-wide fp32 launches."""
+    from vit_tpu_torch import train_vit
+    from vit_tpu_torch.models.mae import MAE, MAEConfig, load_encoder_into_vit
+    from vit_tpu_torch.models.puzzle import Puzzle, PuzzleConfig
+    from vit_tpu_torch.train.step import (make_mae_train_step,
+                                          make_puzzle_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    summary = {**hd32_packed(gen), **hd32_unpacked(gen)}
+    total = {name: dict.fromkeys(k_attn.HEAD_DIMS, 0) for name in HD32}
+
+    def add(by_d):
+        for name, counts in by_d.items():
+            for d, n in counts.items():
+                total[name][d] += n
+
+    def packed(enc: int, dec: int) -> dict:
+        want = {name: dict.fromkeys(k_attn.HEAD_DIMS, 0) for name in HD32}
+        for name in ("attention_packed_fwd", "attention_packed_bwd"):
+            want[name].update({64: enc, 32: dec})
+        return want
+
+    mae_cfg = MAEConfig(MAE_IMAGE)
+    enc, dec = mae_cfg.enc_config.n_layers, mae_cfg.dec_config.n_layers
+    steps = {}
+    for name, cfg, want in [
+            ("MAE-B", mae_cfg, packed(enc, dec)),
+            ("Puzzle-B", PuzzleConfig(MAE_IMAGE), packed(enc, 0))]:
+        model = (MAE if name.startswith("MAE") else Puzzle)(cfg,
+                                                            device="cuda")
+        init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+        fn = (make_mae_train_step if name.startswith("MAE")
+              else make_puzzle_train_step)(model)
+        steps[name] = pretrain_step(name, model, fn, MAE_IMAGE, MAE_BS, want,
+                                    card)[0]
+        add(steps[name])
+        del model, fn
+    hires = packed(enc, 0)
+    hires["attention_fwd"][32] = hires["attention_bwd"][32] = dec
+    model = MAE(MAEConfig(MAE_HIRES_IMAGE), device="cuda")
+    init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+    add(pretrain_step(f"MAE-B @{MAE_HIRES_IMAGE}", model,
+                      make_mae_train_step(model), MAE_HIRES_IMAGE,
+                      MAE_HIRES_BS, hires, card)[0])
+    model = MAE(MAEConfig(MAE_IMAGE, dtype=torch.float32), device="cuda")
+    init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+    by_d, fp32 = pretrain_step("MAE-B fp32", model, make_mae_train_step(model),
+                               MAE_IMAGE, MAE_FP32_BS, packed(enc, dec), card,
+                               (FP32_STEP_REL, FP32_STEP_REL), time_it=False)
+    require(all(fp32[n] == sum(by_d[n].values()) for n in by_d),
+            f"MAE-B fp32: launches that were not fp32 forms: {by_d} vs {fp32}")
+    add(by_d)
+    fp32_d32 = {HD32[n]: by_d[n][32] for n in by_d}
+    del model
+    torch.cuda.empty_cache()
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrain_") as tmp:
+        runs["train_mae"] = run_pretrain_main(
+            "train_mae", *PRETRAIN_ENTRY, "--ckpt_dir", f"{tmp}/mae",
+            "--run_dir", f"{tmp}/runs")
+        require_widths(runs["train_mae"], (32, 64))
+        require(Path(tmp, "mae", "best", "state.pt").exists(),
+                "train_mae wrote no 'best' checkpoint")
+        runs["train_puzzle"] = run_pretrain_main(
+            "train_puzzle", *PRETRAIN_ENTRY, "--ckpt_dir", f"{tmp}/puzzle",
+            "--run_dir", f"{tmp}/runs")
+        require_widths(runs["train_puzzle"], (64,))
+        # the classifier's logits right after the hand-off, against one that
+        # load_encoder_into_vit builds from the same checkpoint
+        probe = pretrain_images(MAE_IMAGE, 8)
+        seen = {}
+        init_from = train_vit.init_from
+
+        def recording(model, directory):
+            source = init_from(model, directory)
+            with torch.no_grad():
+                seen["logits"] = model.eval()(probe)
+            model.train()
+            return source
+
+        train_vit.init_from = recording
+        try:
+            runs["train_vit"] = run_pretrain_main(
+                "train_vit", *PRETRAIN_ENTRY, "--init_from", f"{tmp}/mae",
+                "--transformer", "B", "--image_size", str(MAE_IMAGE),
+                "--ckpt_dir", f"{tmp}/vit", "--run_dir", f"{tmp}/runs")
+        finally:
+            train_vit.init_from = init_from
+        require_widths(runs["train_vit"], (64,))
+        require(any(line.startswith(f"INIT encoder from MAE checkpoint "
+                                    f"{tmp}/mae")
+                    for line in runs["train_vit"]["lines"]),
+                "train_vit printed no INIT line")
+        ref = ViTClassifier(ViTConfig(MAE_IMAGE, 3, 16, "B", 1, 0.15), 1000,
+                            device="cuda")
+        init_params_(ref, torch.Generator(device="cuda").manual_seed(0))
+        ref.load_state_dict(load_encoder_into_vit(
+            load_params(f"{tmp}/mae"), ref.state_dict()))
+        with torch.no_grad():
+            ref_logits = ref.eval()(probe)
+        handoff = dict(logits_equal=bool(torch.equal(seen["logits"],
+                                                     ref_logits)),
+                       max_abs=(seen["logits"] - ref_logits).abs().max()
+                       .item())
+        require(handoff["logits_equal"],
+                f"train_vit --init_from: logits differ from "
+                f"load_encoder_into_vit's classifier: {handoff}")
+        del ref, probe, seen
+    for run in runs.values():
+        add(run["by_head_dim"])
+    emit("pretrain", entries={k: dict(
+        cmd=r["cmd"], seconds=r["seconds"], step_losses=r["step_losses"],
+        step_times=r["step_times"], valid=r["valid"],
+        launches_by_head_dim=widths(r["by_head_dim"]), tail=r["lines"][-4:])
+        for k, r in runs.items()}, handoff=handoff, card=card)
+    torch.cuda.empty_cache()
+    launches = {name: total[name][64] for name in HD32}
+    launches.update({HD32[name]: total[name][32] for name in HD32})
+    return summary, launches, fp32_d32
+
+
 def entry_phases(card: str, converge_epochs: "int | None"
                  ) -> "tuple[dict, dict]":
     """The train_titok and train_videogpt entries' phases; their launches
@@ -6276,17 +6931,25 @@ def main(argv=None) -> None:
                         help="only the build and the train_titok and "
                              "train_videogpt phases; no kernels line and no "
                              "closing line")
+    parser.add_argument("--pretrain_only", action="store_true",
+                        help="only the build and the pretrain phase; no "
+                             "kernels line and no closing line")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
     if args.entries_only:
         entry_phases(card, args.converge_epochs)
         return
+    if args.pretrain_only:
+        phase_pretrain(card)
+        return
     fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
     for name, arm in fp32_kernels(
             torch.Generator(device="cuda").manual_seed(7)).items():
         summary[name]["fp32"] = arm
+    hd32_summary, pretrain_launches, hd32_fp32 = phase_pretrain(card)
+    summary.update(hd32_summary)
 
     cfg = TiTokConfig(**FLAGSHIP)
     model = TiTok(cfg)
@@ -6319,9 +6982,11 @@ def main(argv=None) -> None:
     titok_launches, titok_fp32 = entry_phases(card, args.converge_epochs)
     for name, n in titok_fp32.items():
         fp32_launches[name] = fp32_launches.get(name, 0) + n
+    # the other paths' attention launches are all 64-wide
     for path in (train_launches, fused_launches, gpt_launches,
                  rollout_launches, int8_launches, perceptual_launches,
-                 vit_launches, fp32_path_launches, titok_launches):
+                 vit_launches, fp32_path_launches, titok_launches,
+                 pretrain_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]
@@ -6362,7 +7027,12 @@ def main(argv=None) -> None:
         "convnext_tail_bwd_q8": ("vit_tpu_torch/csrc/convnext_tail_q8.cu",
                                  "vit_tpu/kernels/convnext_block.py:172"),
     }
-    also = {"attention_bwd": "vit_tpu/kernels/attention.py:201"}
+    # the head_dim-32 instantiations of K1, K2, K6 and K7/K8 (the MAE-B
+    # decoder's heads), in the same sources
+    for name, d32 in HD32.items():
+        sources[d32] = sources[name]
+    also = {"attention_bwd": "vit_tpu/kernels/attention.py:201",
+            HD32["attention_bwd"]: "vit_tpu/kernels/attention.py:201"}
     missing = [name for name in sources if launches.get(name, 0) == 0]
     require(not missing, f"kernels of the paths never launched: {missing}")
     # each attention kernel's dropout branch: ViT-L's K1/K2, VideoGPT's K6/K8
@@ -6370,6 +7040,9 @@ def main(argv=None) -> None:
     require(not missing, f"dropout branches never launched: {missing}")
     # each fp32 form on the fp32 paths
     missing = [name for name in FP32_FORMS if fp32_launches.get(name, 0) == 0]
+    missing += [name for name, n in hd32_fp32.items()
+                if n == 0 and name in (HD32["attention_packed_fwd"],
+                                       HD32["attention_packed_bwd"])]
     require(not missing, f"fp32 forms never launched: {missing}")
     require(fma_launches > 0, "P was never launched")
     sources["fma_probe"] = ("vit_tpu_torch/csrc/fma_probe.cu",
@@ -6389,6 +7062,7 @@ def main(argv=None) -> None:
             if name in dropout_launches else {}),
          **({"fp32_launches": fp32_launches[name]}
             if name in FP32_FORMS else {}),
+         **({"fp32_launches": hd32_fp32[name]} if name in hd32_fp32 else {}),
          **({"dx_only_launches": launches["depthwise_bwd_dx_only"]}
             if name == "depthwise_bwd" else {}),
          **({"also_replaces": also[name]} if name in also else {})}

@@ -139,7 +139,8 @@ def test_port_never_imports_jax():
         "entries = ('vit_tpu_torch.train_vit', 'vit_tpu_torch.bench_vpu', "
         "'vit_tpu_torch.bench_kernels', 'vit_tpu_torch.kernels.fma_probe', "
         "'vit_tpu_torch.utils.precision', 'vit_tpu_torch.train_titok', "
-        "'vit_tpu_torch.train.loop')\n"
+        "'vit_tpu_torch.train.loop', 'vit_tpu_torch.train_mae', "
+        "'vit_tpu_torch.train_puzzle')\n"
         "assert all(e in sys.modules for e in entries), entries\n"
         "print(len([k for k in sys.modules if k.startswith('vit_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -95,7 +95,8 @@ def test_unpacked_attention_backward_matches_jax(s, causal):
 
 def test_unpacked_wrappers_never_fall_back_off_the_cpu():
     """Only a CPU tensor runs a plain version; a meta tensor stands in for a
-    device here, and head_dim ≠ 64 is refused on any device."""
+    device here, and a head_dim the kernels have no instantiation for (48)
+    is refused on any device."""
     t = torch.empty(2, 2, 40, 64, device="meta")
     stats = torch.empty(2, 2, 40, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

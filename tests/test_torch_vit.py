@@ -277,7 +277,7 @@ def test_train_vit_entry_runs_on_the_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--init_from", "ckpt"], ["--scan_layers", "true"], ["--mesh", "1,1,1"],
+    ["--scan_layers", "true"], ["--mesh", "1,1,1"],
     ["--pp_microbatches", "2"], ["--attn_impl", "xla"],
 ], ids=lambda f: "_".join(a.lstrip("-") for a in f))
 def test_train_vit_refuses_unported_flags(flags):
@@ -300,9 +300,14 @@ def _vit_entry(tmp_path, name: str, epochs: int, *extra: str):
             "--run_dir", str(tmp_path / "runs" / name), *extra])
 
 
-@pytest.mark.parametrize("flag", ["resume", "ckpt_dir", "run_dir"])
+@pytest.mark.parametrize("flag", ["resume", "ckpt_dir", "run_dir",
+                                  "init_from"])
 def test_train_vit_lifted_flags(flag, tmp_path, capsys):
-    """The flags the JAX entry's checkpoints and logger serve. ``resume``:
+    """The flags the JAX entry's checkpoints and logger serve, and
+    ``init_from`` (refused before the MAE and Puzzle entries were ported):
+    from a tiny ``train_mae`` run's checkpoint it prints the INIT line and
+    the classifier's patch projection and cls token are the encoder's;
+    from a directory without a checkpoint it raises. ``resume``:
     one epoch, then ``--resume`` for the second, repeats the straight
     two-epoch run's second epoch (dropout 0.15 included: its generator is
     seeded by the step) at rtol 1e-6. ``ckpt_dir``: "best" is the epoch of
@@ -324,6 +329,31 @@ def test_train_vit_lifted_flags(flag, tmp_path, capsys):
         assert [r["i"] for r in resumed["train"]] == [r["i"] for r in want]
         for got, ref in zip(resumed["train"], want):
             np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-6)
+    elif flag == "init_from":
+        from vit_tpu_torch.train_mae import main as mae_main
+
+        with tiny_preset():
+            mae_main(["--dataset", "synthetic", "--device", "cpu",
+                      "--transformer", "tiny", "--image_size", "32",
+                      "--patch_size", "8", "--decoder_layers", "1",
+                      "--decoder_heads", "4", "--decoder_embd", "128",
+                      "--bs", "4", "--steps_per_epoch", "1", "--epochs", "1",
+                      "--ckpt_dir", str(tmp_path / "mae"), "--run_dir",
+                      str(tmp_path / "runs")])
+        capsys.readouterr()
+        _vit_entry(tmp_path, "e", 1, "--init_from", str(tmp_path / "mae"),
+                   "--steps_per_epoch", "1")
+        assert (f"INIT encoder from MAE checkpoint {tmp_path / 'mae'}"
+                in capsys.readouterr().out)
+        pre = load_params(str(tmp_path / "mae"))
+        # one step, at the warmup's lr 0: it moves no weight, so the
+        # classifier's checkpoint holds what the hand-off loaded
+        vit = load_params(str(tmp_path / "e"), "last")
+        assert torch.equal(vit["vit.patch_proj.proj.weight"],
+                           pre["encoder.patch_proj.proj.weight"])
+        assert torch.equal(vit["vit.extra_emb"][0], pre["encoder.cls_token"][0])
+        with pytest.raises(FileNotFoundError):
+            _vit_entry(tmp_path, "f", 1, "--init_from", str(tmp_path / "no"))
     elif flag == "ckpt_dir":
         logs = _vit_entry(tmp_path, "c", 2)
         accs = [r["acc"] for r in logs["valid"]]

@@ -228,3 +228,32 @@ def count_plain_calls(monkeypatch) -> dict:
             return _fn(*args, **kw)
         monkeypatch.setattr(mod, attr, spy)
     return calls
+
+
+def jax_noise(key, b: int, n: int) -> np.ndarray:
+    """The (b, n) mask noise that MAE and Puzzle draw in the JAX package
+    under ``rngs={"mask": key}``: both are root modules whose one
+    ``make_rng("mask")`` call feeds ``jax.random.uniform``
+    (``vit_tpu/models/mae.py:random_masking``), so a root module making the
+    same call draws the same noise."""
+    import flax.linen as fnn
+
+    class NoiseOf(fnn.Module):
+        @fnn.compact
+        def __call__(self, b):
+            return jax.random.uniform(self.make_rng("mask"), (b, n))
+
+    return np.array(NoiseOf().apply({}, b, rngs={"mask": key}))
+
+
+def moved_params(key: str, got, start, ref):
+    """(port's change, JAX's change) of parameter ``key`` over some steps.
+    For a packed qkv bias the k third is left out: softmax is invariant to
+    a shift of every score of a row, so k's bias gradient is rounding noise
+    on both sides, which Adam scales up to lr-sized steps of either sign."""
+    moved, moved_ref = got - start, ref - start
+    if key.endswith("qkv/bias"):
+        third = moved.shape[-1] // 3
+        keep = np.r_[0:third, 2 * third:3 * third]
+        moved, moved_ref = moved[..., keep], moved_ref[..., keep]
+    return moved, moved_ref

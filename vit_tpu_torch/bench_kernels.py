@@ -705,7 +705,7 @@ def perceptual_ms() -> dict:
 def exact_attention_fwd(q, k, v, causal: bool, dropout_rate: float = 0.0,
                         seed=None, batch: int = 8):
     """The plain forward's math (``kernels/attention.py:attention_fwd_ref``)
-    in float64 on the same fp32 operands: s = q·kᵀ/8 (masked), m = max s,
+    in float64 on the same fp32 operands: s = q·kᵀ/√d (masked), m = max s,
     p = exp(s − m), l = Σ p, o = (D∘p)·v / l, the reference the fp32 forms'
     mean limit is held against. (B, H, S, 64) → (o, m, l) in float64,
     ``batch`` batch rows at a time."""
@@ -717,7 +717,7 @@ def exact_attention_fwd(q, k, v, causal: bool, dropout_rate: float = 0.0,
     n = q.shape[-2]
     for b0 in range(0, q.shape[0], batch):
         qb, kb, vb = (t[b0:b0 + batch].double() for t in (q, k, v))
-        s = qb @ kb.transpose(-1, -2) / 8.0
+        s = qb @ kb.transpose(-1, -2) * q.shape[-1] ** -0.5
         if causal:
             keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
             s = s.masked_fill(~keep, float("-inf"))

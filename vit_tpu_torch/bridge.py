@@ -8,9 +8,10 @@ leaf path to a state-dict key:
   - a Conv ``kernel`` HWIO becomes ``weight`` OIHW; a depthwise kernel
     (7, 7, 1, C) thereby becomes (C, 1, 7, 7);
   - a LayerNorm ``scale`` becomes ``weight``;
-  - ``bias``, ``pos_emb``, ``extra_emb``, ``codebook``, ``gamma`` and
-    VideoGPT's raw 2-D ``tok_embed`` and ``pos_embed`` keep their name and
-    layout (they are no ``kernel``, so nothing transposes them). The
+  - ``bias``, ``pos_emb``, ``extra_emb``, ``codebook``, ``gamma``,
+    VideoGPT's raw 2-D ``tok_embed`` and ``pos_embed`` and MAE's
+    ``cls_token`` and ``mask_token`` keep their name and layout (they are
+    no ``kernel``, so nothing transposes them). The
     split-bias ``attn/qkv`` tree (``_ProjParams``) has the same
     ``{kernel, bias}`` keys as a Dense.
 
@@ -135,6 +136,27 @@ def classifier_state_dict_from_flax(params: dict, cfg, num_classes: int
 
     return _from_flax(params, ViTClassifier(cfg, num_classes,
                                             device="meta").state_dict())
+
+
+def mae_state_dict_from_flax(params: dict, cfg) -> "dict[str, torch.Tensor]":
+    """JAX MAE params (the ``{"encoder": …, "decoder": …}`` tree: the
+    encoder's ``patch_proj``, ``cls_token`` and ``transformer``, the
+    decoder's ``embed``, ``mask_token``, ``transformer`` and ``pred``) → the
+    port's state dict for an ``MAE(cfg)``, with the checks of
+    ``_from_flax``."""
+    from vit_tpu_torch.models.mae import MAE
+
+    return _from_flax(params, MAE(cfg, device="meta").state_dict())
+
+
+def puzzle_state_dict_from_flax(params: dict, cfg
+                                ) -> "dict[str, torch.Tensor]":
+    """JAX Puzzle params (``patch_proj``, ``pos_emb``, ``transformer`` and
+    the position ``head``) → the port's state dict for a ``Puzzle(cfg)``,
+    with the checks of ``_from_flax``."""
+    from vit_tpu_torch.models.puzzle import Puzzle
+
+    return _from_flax(params, Puzzle(cfg, device="meta").state_dict())
 
 
 def convnext_state_dict_from_flax(params: dict, net) -> "dict[str, torch.Tensor]":

@@ -6,9 +6,12 @@
 // (:1294). K1 (kBias, the entry attention_packed_fwd) replaces
 // _fa_packed_kernel (:623), launched by _packed_fwd_impl (:790) behind
 // flash_attention_packed (:1269). Same math: o = softmax(mask(q kᵀ / √d)) v
-// over q, k, v of (B, H, S, 64) bf16. Scores are q·kᵀ in fp32 times
-// 1/√d = 1/8 (exact, a power of two: the same values as the products of
-// bf16 q/8). The row max m and the row sum l are fp32; p = exp(s - m) is
+// over q, k, v of (B, H, S, d) bf16, d 64 (every preset's heads) or 32 (the
+// MAE decoder's 16 heads × 512). Scores are q·kᵀ in fp32 times 1/√d: at d 64
+// 1/8, exact (a power of two: the same values as the products of bf16 q/8);
+// at d 32 fp32(1/√32), the fp32 product rounded, as the Pallas kernel
+// multiplies when the scale is no power of two (:680-690). The row max m
+// and the row sum l are fp32; p = exp(s - m) is
 // rounded to bf16 UNNORMALISED for the PV product, which accumulates in
 // fp32, and the result is divided by l and rounded to bf16 once
 // (:110-137). exp is the MUFU's ex2 of (s - m)·log2(e) formed in one FMA
@@ -31,7 +34,7 @@
 // (B, S, D) is a strided out. The (3D,) bias is added in bf16 as the Pallas
 // kernel adds it (:670-676), bf16(x + b), in shared memory: when a q, k or
 // v tile's load completes, the consumers rewrite it in place
-// (hopper.cuh:add_bias_tile), fence the writes to the async proxy and meet
+// (attention_tile.cuh:add_head_bias), fence the writes to the async proxy and meet
 // at a named barrier before any wgmma reads it. Rows past S stay TMA's
 // zeros. A K or V stage is shared by both warpgroups, so all 256 consumers
 // bias it together; each warpgroup biases its own q rows. The Pallas
@@ -46,6 +49,15 @@
 // multiplied by the mask D of csrc/dropout.cuh after l has summed it and
 // before its bf16 cast (row the global query, column the global key, stride
 // S, stream b·H + h + offset); the saved (m, l) are the unmasked ones.
+//
+// Head widths (kD, csrc/attention_tile.cuh): a 64-wide head's tiles have
+// 128-byte rows under the 128-byte swizzle; a 32-wide head's have 64-byte
+// rows under TMA's 64-byte swizzle, read by descriptors of that layout.
+// Q·Kᵀ takes kD/16 k16 steps, P·V is m64nkDk16 (m64n32k16 at 32, kD/2
+// accumulator registers), and the fp32 form's part arrays are 3·kD wide.
+// The dropout stream stays the global b·H + h at either width (the Pallas
+// kernel's (pid_b·bb + bi)·n_heads + h2·hb + j, hb = 128/d heads a lane
+// block).
 //
 // Design (csrc/hopper.cuh has the primitives). One block per (128-row q
 // tile, head, batch): two consumer warpgroups of 64 q rows each and one
@@ -83,8 +95,8 @@
 // x = x0 + x1 + x2 each, exactly, into (B, H, S, 3·64) arrays that TMA
 // reads as ordinary 64-wide swizzled tiles (a 192-wide tensor map, part p
 // at column 64p), and s = Q·Kᵀ and P·V are each the six wgmma products
-// A_i·B_j, i + j <= 2, small terms first (hopper.cuh:mma_abt_parts,
-// mma_rb_parts). Its math is the plain fp32 version's, with no bf16 cast:
+// A_i·B_j, i + j <= 2, small terms first (attention_tile.cuh:head_abt,
+// head_rb). Its math is the plain fp32 version's, with no bf16 cast:
 // m exact over s/8, p = expf(s/8 − m) (the expression the fp32 backward
 // rebuilds p with), l = Σ p, p split into three bf16 A fragments in
 // registers after the dropout mask (hopper.cuh:put_a), o = Σ (D∘p)·v
@@ -93,7 +105,7 @@
 //   - both passes take s with the same code from the same bytes, so pass
 //     2's scores are pass 1's to the bit and no p exceeds 1;
 //   - each key tile's P·V is taken in a fresh accumulator and added to o in
-//     registers, rounded to nearest (hopper.cuh:mma_rb_parts_into): summed
+//     registers, rounded to nearest (attention_tile.cuh:head_rb_into): summed
 //     over all tiles in one wgmma accumulator, the fp32 backward's means
 //     stood several times higher and grew with the tiles summed;
 //   - p is never rounded to bf16: its three parts carry it whole.
@@ -121,18 +133,18 @@ namespace {
 
 using namespace vit;
 using namespace vit::hopper;
+using namespace vit::attn;
 
 constexpr int kBlockQ = 128;  // q rows per block: two warpgroups of 64
 constexpr int kKeys = 64;     // keys per ring stage
 constexpr int kConsumers = 256;
 constexpr int kBlockThreads = kConsumers + 32;  // + the producer warp
-constexpr int kPartsWidth = 3 * 64;  // a row of the fp32 form's part arrays
-// Bytes from one part of the block's 128-row q tile to the next
-constexpr uint32_t kQPartBytes = kBlockQ * 128;
 
 // kParts = 1: bf16 operands, four ring stages, two blocks an SM, a bf16
 // output; 3: fp32 operands as three bf16 parts, three stages, one block an
-// SM, an fp32 output.
+// SM, an fp32 output. The same at both head widths: at kD 32 the bf16
+// block's 40 KB of tiles would let more blocks share an SM, but its
+// registers (s, o and P: 32 + 16 + 16 a thread) hold it to two.
 template <int kParts>
 constexpr int kStagesOf = kParts == 1 ? 4 : 3;
 template <int kParts>
@@ -140,15 +152,15 @@ constexpr int kBlocksPerSm = kParts == 1 ? 2 : 1;
 template <int kParts>
 using OutT = std::conditional_t<kParts == 1, bf16, float>;
 
-template <int kParts>
+template <int kParts, int kD>
 struct alignas(1024) FwdSmem {
   static constexpr int kStages = kStagesOf<kParts>;
-  bf16 q[kParts][kBlockQ * 64];
-  bf16 k[kStages][kParts][kKeys * 64];
-  bf16 v[kStages][kParts][kKeys * 64];
+  bf16 q[kParts][kBlockQ * kD];
+  bf16 k[kStages][kParts][kKeys * kD];
+  bf16 v[kStages][kParts][kKeys * kD];
   Ring<kStages> ring;
   uint64_t q_full;
-  alignas(16) bf16 bias[3][64];  // kBias: this head's q, k and v bias
+  alignas(16) bf16 bias[3][kD];  // kBias: this head's q, k and v bias
 };
 
 // -inf where a score of one warpgroup's 64 rows and one 64-key tile
@@ -166,48 +178,52 @@ __device__ __forceinline__ void mask_edge(float (&s)[32], int k0, int row0,
 // What a block works on: a 128-row q tile of head (b, h), and n_kv key
 // tiles. Loads 0 .. n_kv - 1 bring the k tiles of pass 1, loads n_kv ..
 // 2·n_kv - 1 the k and v tiles of pass 2. Each tile comes in kParts parts,
-// part p at column 64p of its tensor map.
+// part p at column kD·p of its tensor map.
 struct Work {
   int q0, h, b, n_kv;
 };
 
-template <int kParts>
-__device__ __forceinline__ void produce(FwdSmem<kParts>& sm,
+template <int kParts, int kD>
+__device__ __forceinline__ void produce(FwdSmem<kParts, kD>& sm,
                                         const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, Work w) {
+  constexpr uint32_t kTile = Head<kD>::kTileBytes;
   auto& ring = sm.ring;
-  mbar_arrive_expect_tx(&sm.q_full, 2 * kParts * kTileBytes);
+  mbar_arrive_expect_tx(&sm.q_full, 2 * kParts * kTile);
 #pragma unroll
   for (int p = 0; p < kParts; ++p) {
-    tma_load_4d(sm.q[p], tq, &sm.q_full, 64 * p, w.q0, w.h, w.b);
-    tma_load_4d(sm.q[p] + kKeys * 64, tq, &sm.q_full, 64 * p, w.q0 + kKeys,
+    tma_load_4d(sm.q[p], tq, &sm.q_full, kD * p, w.q0, w.h, w.b);
+    tma_load_4d(sm.q[p] + kKeys * kD, tq, &sm.q_full, kD * p, w.q0 + kKeys,
                 w.h, w.b);
   }
   for (int i = 0; i < 2 * w.n_kv; ++i) {
     const int st = ring.stage(i), k0 = (i % w.n_kv) * kKeys;
     const bool pass2 = i >= w.n_kv;
     ring.wait_empty(i);
-    mbar_arrive_expect_tx(&ring.full[st], (pass2 + 1) * kParts * kTileBytes);
+    mbar_arrive_expect_tx(&ring.full[st], (pass2 + 1) * kParts * kTile);
 #pragma unroll
     for (int p = 0; p < kParts; ++p)
-      tma_load_4d(sm.k[st][p], tk, &ring.full[st], 64 * p, k0, w.h, w.b);
+      tma_load_4d(sm.k[st][p], tk, &ring.full[st], kD * p, k0, w.h, w.b);
     if (pass2) {
 #pragma unroll
       for (int p = 0; p < kParts; ++p)
-        tma_load_4d(sm.v[st][p], tv, &ring.full[st], 64 * p, k0, w.h, w.b);
+        tma_load_4d(sm.v[st][p], tv, &ring.full[st], kD * p, k0, w.h, w.b);
     }
   }
 }
 
-template <bool kDropout, bool kBias, int kParts>
-__device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
+template <bool kDropout, bool kBias, int kParts, int kD>
+__device__ __forceinline__ void consume(FwdSmem<kParts, kD>& sm, Work w,
                                         OutT<kParts>* out, Strides so,
                                         float* m_out, float* l_out,
                                         Dropout drop, int S, int H,
                                         int causal) {
   static_assert(kParts == 1 || !kBias, "the fp32 form's parts carry the bias");
-  constexpr uint32_t kStageBytes = kParts * kTileBytes;
+  using Hd = Head<kD>;
+  constexpr uint32_t kTile = Hd::kTileBytes;
+  constexpr uint32_t kStageBytes = kParts * kTile;
+  constexpr uint32_t kQPartBytes = kBlockQ * Hd::kRowBytes;
   auto& ring = sm.ring;
   const int n_kv = w.n_kv;
   const int wg = threadIdx.x / 128;
@@ -219,15 +235,15 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
   const int row0 = r0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
   // Key tiles past this warpgroup's diagonal are wholly masked.
   const int my_kv = causal ? min(n_kv, r0 / kKeys + 1) : n_kv;
-  const uint32_t q_tile = smem_u32(sm.q[0] + wg * 64 * 64);
+  const uint32_t q_tile = smem_u32(sm.q[0] + wg * 64 * kD);
   const uint32_t k_base = smem_u32(sm.k[0][0]);
   const uint32_t v_base = smem_u32(sm.v[0][0]);
-  // Scores are taken as q·kᵀ unscaled: 1/8 is applied inside the max
-  // (exact and monotone) and the exponent. Masks are compared on the
-  // diagonal and the ragged last tile only. Both passes call this, so
-  // their scores are the same bits. The fp32 form zeroes s first, so that
-  // the last tile's scores are dead (the wgmma asm reads its accumulator)
-  // while P·V holds its parts and the tile's accumulator.
+  // Scores are taken as q·kᵀ unscaled: the scale is applied inside the max
+  // (monotone) and the exponent. Masks are compared on the diagonal and the
+  // ragged last tile only. Both passes call this, so their scores are the
+  // same bits. The fp32 form zeroes s first, so that the last tile's scores
+  // are dead (the wgmma asm reads its accumulator) while P·V holds its
+  // parts and the tile's accumulator.
   float s[32];
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = 0.0f;
@@ -237,8 +253,8 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
       for (int e = 0; e < 32; ++e) s[e] = 0.0f;
     }
     wgmma_fence();
-    mma_abt_parts<kParts>(s, q_tile, kQPartBytes,
-                          k_base + ring.stage(i) * kStageBytes, kTileBytes);
+    head_abt<kD, kParts>(s, q_tile, kQPartBytes,
+                        k_base + ring.stage(i) * kStageBytes, kTile);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -248,18 +264,18 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
   // kBias: the K (and in pass 2 the V) tile of load i, biased by all 256
   // consumers before either warpgroup's products read it.
   auto bias_kv = [&](int i, int k0, bool with_v) {
-    add_bias_tile<kConsumers>(sm.k[ring.stage(i)][0], sm.bias[1], S - k0,
-                              threadIdx.x);
+    add_head_bias<kConsumers, kD>(sm.k[ring.stage(i)][0], sm.bias[1],
+                                  S - k0, threadIdx.x);
     if (with_v)
-      add_bias_tile<kConsumers>(sm.v[ring.stage(i)][0], sm.bias[2], S - k0,
-                                threadIdx.x);
+      add_head_bias<kConsumers, kD>(sm.v[ring.stage(i)][0], sm.bias[2],
+                                    S - k0, threadIdx.x);
     fence_proxy_async();
     named_barrier(3, kConsumers);
   };
   mbar_wait(&sm.q_full, 0);
   if constexpr (kBias) {
-    add_bias_tile<128>(sm.q[0] + wg * 64 * 64, sm.bias[0], S - r0,
-                       threadIdx.x % 128);
+    add_head_bias<128, kD>(sm.q[0] + wg * 64 * kD, sm.bias[0], S - r0,
+                           threadIdx.x % 128);
     fence_proxy_async();
     named_barrier(1 + wg, 128);
   }
@@ -278,13 +294,14 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
     ring.release(j);
   }
   // A row is spread over the 4 threads of a group. Column 0 is valid for
-  // every row, so m is finite and no exp below sees (-inf) - (-inf).
+  // every row, so m is finite and no exp below sees (-inf) - (-inf). The
+  // scaled max is the max of the scaled scores (rounding is monotone).
   float ml[2];  // the shift inside the exponent: m·log2(e), or m (fp32)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
     m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-    m[r] *= kScale;
+    m[r] = __fmul_rn(m[r], Hd::kScale);
     ml[r] = kParts == 1 ? m[r] * kLog2e : m[r];
   }
 
@@ -293,9 +310,9 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
   // times V accumulated in fp32.
   DropoutStream drs{};
   if constexpr (kDropout) drs = dropout_stream(drop, w.b * H + w.h);
-  float o[32];
+  float o[Hd::kAcc];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) o[e] = 0.0f;
+  for (int e = 0; e < Hd::kAcc; ++e) o[e] = 0.0f;
   float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
   for (int j = 0; j < n_kv; ++j) {
     const int i = n_kv + j;
@@ -313,10 +330,9 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if constexpr (kParts == 1)
-            p[c] = exp2_approx(
-                fmaf(s[4 * nt + c], kScale * kLog2e, -ml[c >> 1]));
+            p[c] = exp2_approx(exp2_arg<kD>(s[4 * nt + c], ml[c >> 1]));
           else
-            p[c] = expf(fmaf(s[4 * nt + c], kScale, -ml[c >> 1]));
+            p[c] = exp_f32<kD>(s[4 * nt + c], ml[c >> 1]);
         }
         l[0] += p[0] + p[1];
         l[1] += p[2] + p[3];
@@ -331,8 +347,8 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
         put_a<kParts>(pf, nt / 2, (nt % 2) * 2 + 1, p[2], p[3]);
       }
       wgmma_fence();
-      mma_rb_parts_into<kParts>(o, pf, v_base + ring.stage(i) * kStageBytes,
-                                kTileBytes);
+      head_rb_into<kD, kParts, 4>(
+          o, pf, v_base + ring.stage(i) * kStageBytes, kTile);
       fence_regs(pf);
     }
     ring.release(i);
@@ -350,7 +366,7 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
     if (row >= S) continue;
     OutT<kParts>* orow = ob + static_cast<size_t>(row) * so.s;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < Hd::kNt; ++nt) {
       const float lo = o[4 * nt + 2 * r] / l[r];
       const float hi = o[4 * nt + 2 * r + 1] / l[r];
       if constexpr (kParts == 1)
@@ -368,7 +384,7 @@ __device__ __forceinline__ void consume(FwdSmem<kParts>& sm, Work w,
   }
 }
 
-template <bool kDropout, bool kBias, int kParts>
+template <bool kDropout, bool kBias, int kParts, int kD>
 __global__ void __launch_bounds__(kBlockThreads, kBlocksPerSm<kParts>)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -377,7 +393,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      OutT<kParts>* __restrict__ out, Strides so,
                      float* __restrict__ m_out, float* __restrict__ l_out,
                      Dropout drop, int S, int H, int causal) {
-  auto& sm = aligned_smem<FwdSmem<kParts>>();
+  auto& sm = aligned_smem<FwdSmem<kParts, kD>>();
   Work w;
   w.q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBlockQ;
   w.h = blockIdx.y;
@@ -388,69 +404,80 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     sm.ring.init(1, kConsumers / 32);
     mbar_init_fence();
   }
-  if constexpr (kBias) load_head_bias(sm.bias, bias, w.h, H);
+  if constexpr (kBias) load_head_bias<kD>(sm.bias, bias, w.h, H);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {  // the producer warp: one thread
     if (threadIdx.x == kConsumers) produce(sm, &tq, &tk, &tv, w);
   } else {
-    consume<kDropout, kBias, kParts>(sm, w, out, so, m_out, l_out, drop, S,
-                                     H, causal);
+    consume<kDropout, kBias, kParts, kD>(sm, w, out, so, m_out, l_out, drop,
+                                         S, H, causal);
   }
 }
 
-template <int kParts>
-constexpr int kSmemBytes = static_cast<int>(sizeof(FwdSmem<kParts>)) + 1024;
+template <int kParts, int kD>
+constexpr int kSmemBytes =
+    static_cast<int>(sizeof(FwdSmem<kParts, kD>)) + 1024;
 
 // The tensor maps and the launch of attention_fwd_kernel<kDropout, kBias,
-// kParts>: K6 with bias null, K1 with its (3·H·64,) bf16 bias; q, k, v bf16
-// (kParts 1, width 64) or part arrays (kParts 3, width 192, no bias) at
-// strides[0..8], out OutT<kParts> at strides[9..11].
-template <int kParts>
+// kParts, kD>: K6 with bias null, K1 with its (3·H·kD,) bf16 bias; q, k, v
+// bf16 (kParts 1, width kD) or part arrays (kParts 3, width 3·kD, no bias)
+// at strides[0..8], out OutT<kParts> at strides[9..11].
+template <int kParts, int kD>
 int launch(const void* q, const void* k, const void* v, int width,
            const bf16* bias, void* out, void* m, void* l, const void* seed,
            const long long* strides, int B, int S, int H, int causal,
            unsigned int threshold, float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   CUtensorMap tq, tk, tv;
-  int err = head_map(&tq, q, strides + 0, B, H, S, width);
-  if (!err) err = head_map(&tk, k, strides + 3, B, H, S, width);
-  if (!err) err = head_map(&tv, v, strides + 6, B, H, S, width);
+  int err = head_map(&tq, q, strides + 0, B, H, S, width, kD);
+  if (!err) err = head_map(&tk, k, strides + 3, B, H, S, width, kD);
+  if (!err) err = head_map(&tv, v, strides + 6, B, H, S, width, kD);
   if (err) return err;
   const Strides so{strides[9], strides[10], strides[11]};
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   const Dropout drop{static_cast<const int*>(seed), threshold, scale};
-  using Kernel = decltype(&attention_fwd_kernel<false, false, kParts>);
+  using Kernel = decltype(&attention_fwd_kernel<false, false, kParts, kD>);
   Kernel kernel;
   if constexpr (kParts == 1) {
-    const Kernel kernels[2][2] = {{&attention_fwd_kernel<false, false, 1>,
-                                   &attention_fwd_kernel<false, true, 1>},
-                                  {&attention_fwd_kernel<true, false, 1>,
-                                   &attention_fwd_kernel<true, true, 1>}};
+    const Kernel kernels[2][2] = {
+        {&attention_fwd_kernel<false, false, 1, kD>,
+         &attention_fwd_kernel<false, true, 1, kD>},
+        {&attention_fwd_kernel<true, false, 1, kD>,
+         &attention_fwd_kernel<true, true, 1, kD>}};
     kernel = kernels[seed != nullptr][bias != nullptr];
   } else {
-    kernel = seed != nullptr ? &attention_fwd_kernel<true, false, kParts>
-                             : &attention_fwd_kernel<false, false, kParts>;
+    kernel = seed != nullptr ? &attention_fwd_kernel<true, false, kParts, kD>
+                             : &attention_fwd_kernel<false, false, kParts, kD>;
   }
+  constexpr int kSmem = kSmemBytes<kParts, kD>;
   err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes<kParts>));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
   if (err) return err;
-  kernel<<<grid, kBlockThreads, kSmemBytes<kParts>,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kBlockThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, bias, static_cast<OutT<kParts>*>(out), so,
       static_cast<float*>(m), static_cast<float*>(l), drop, S, H, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Dynamic shared memory of the K6 and K1 kernels, bf16 (fp32 0) or the
-// fp32 form (fp32 1), bytes (for the build report).
-extern "C" int attention_fwd_smem(int fp32) {
-  return fp32 ? kSmemBytes<3> : kSmemBytes<1>;
+// launch<kParts, kD> at a head width d the caller gives: 32 or 64, else
+// cudaErrorInvalidValue (the Python wrappers refuse other widths first).
+template <int kParts, typename... Args>
+int launch_d(int d, Args... args) {
+  if (d == 64) return launch<kParts, 64>(args...);
+  if (d == 32) return launch<kParts, 32>(args...);
+  return cudaErrorInvalidValue;
 }
 
-// q, k, v, out: (B, H, S, 64) bf16 at the element strides
+}  // namespace
+
+// Dynamic shared memory of the K6 and K1 kernels at head width d, bf16
+// (fp32 0) or the fp32 form (fp32 1), bytes (for the build report).
+extern "C" int attention_fwd_smem(int fp32, int d) {
+  if (d == 32) return fp32 ? kSmemBytes<3, 32> : kSmemBytes<1, 32>;
+  return fp32 ? kSmemBytes<3, 64> : kSmemBytes<1, 64>;
+}
+
+// q, k, v, out: (B, H, S, d) bf16, d 32 or 64, at the element strides
 // strides[0..2] (q), [3..5] (k), [6..8] (v), [9..11] (out), each (batch,
 // head, row), multiples of 8 with 16-byte aligned bases; m, l: (B, H, S)
 // fp32, contiguous, or both null for no stats; seed: (2,) int32 [seed,
@@ -460,54 +487,64 @@ extern "C" int attention_fwd_smem(int fp32) {
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              void* out, void* m, void* l, const void* seed,
                              const long long* strides, int B, int S, int H,
-                             int causal, unsigned int threshold, float scale,
-                             void* stream) {
-  return launch<1>(q, k, v, 64, nullptr, out, m, l, seed, strides, B, S, H,
-                   causal, threshold, scale, stream);
+                             int d, int causal, unsigned int threshold,
+                             float scale, void* stream) {
+  return launch_d<1>(d, q, k, v, d, static_cast<const bf16*>(nullptr), out, m,
+                     l, seed, strides, B, S, H, causal, threshold, scale,
+                     stream);
 }
 
-// K1. qkv: (B, S, 3·H·64) bf16, contiguous, 16-byte aligned; bias: (3·H·64,)
-// bf16, 16-byte aligned; out: (B, S, H·64) bf16, contiguous; m, l, seed,
+// K1. qkv: (B, S, 3·H·d) bf16, contiguous, 16-byte aligned; bias: (3·H·d,)
+// bf16, 16-byte aligned; out: (B, S, H·d) bf16, contiguous; m, l, seed,
 // threshold and scale as attention_fwd's. Returns as attention_fwd.
 extern "C" int attention_packed_fwd(const void* qkv, const void* bias,
                                     void* out, void* m, void* l,
                                     const void* seed, int B, int S, int H,
-                                    int causal, unsigned int threshold,
+                                    int d, int causal, unsigned int threshold,
                                     float scale, void* stream) {
-  const long long D = static_cast<long long>(H) * 64;
+  const long long D = static_cast<long long>(H) * d;
   // (batch, head, row) strides of q, k, v (the packed (B, S, 3D)) and out
   // (B, S, D)
-  const long long packed[3] = {S * 3 * D, 64, 3 * D}, rows[3] = {S * D, 64, D};
+  const long long packed[3] = {S * 3 * D, d, 3 * D}, rows[3] = {S * D, d, D};
   long long strides[12];
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 3; ++j)
       strides[3 * i + j] = i == 3 ? rows[j] : packed[j];
   const bf16* x = static_cast<const bf16*>(qkv);
-  return launch<1>(x, x + D, x + 2 * D, 64, static_cast<const bf16*>(bias),
-                   out, m, l, seed, strides, B, S, H, causal, threshold, scale,
-                   stream);
+  return launch_d<1>(d, static_cast<const void*>(x),
+                     static_cast<const void*>(x + D),
+                     static_cast<const void*>(x + 2 * D), d,
+                     static_cast<const bf16*>(bias), out, m, l, seed,
+                     static_cast<const long long*>(strides), B, S, H, causal,
+                     threshold, scale, stream);
 }
 
-// The fp32 form (K1, K6 on fp32 operands). parts: (3, B, H, S, 3, 64) bf16,
+// The fp32 form (K1, K6 on fp32 operands). parts: (3, B, H, S, 3, d) bf16,
 // contiguous, the three bf16 parts of q, k and v (the packed layout's bias
-// added) as attention_f32_split writes them; out: (B, H, S, 64) fp32 at the
+// added) as attention_f32_split writes them; out: (B, H, S, d) fp32 at the
 // element strides out_strides[0..2] (batch, head, row), multiples of 2; m,
 // l, seed, threshold and scale as attention_fwd's. Returns as
 // attention_fwd.
 extern "C" int attention_f32_fwd(const void* parts, void* out, void* m,
                                  void* l, const void* seed,
                                  const long long* out_strides, int B, int S,
-                                 int H, int causal, unsigned int threshold,
-                                 float scale, void* stream) {
+                                 int H, int d, int causal,
+                                 unsigned int threshold, float scale,
+                                 void* stream) {
   // The part arrays' (batch, head, row) strides, then the output's own
-  const long long split[3] = {static_cast<long long>(H) * S * kPartsWidth,
-                              static_cast<long long>(S) * kPartsWidth,
-                              kPartsWidth};
+  const long long width = 3LL * d;
+  const long long split[3] = {static_cast<long long>(H) * S * width,
+                              static_cast<long long>(S) * width, width};
   long long strides[12];
   for (int i = 0; i < 12; ++i)
     strides[i] = i < 9 ? split[i % 3] : out_strides[i - 9];
-  const size_t n = static_cast<size_t>(B) * H * S * kPartsWidth;
+  const size_t n = static_cast<size_t>(B) * H * S * width;
   const bf16* x = static_cast<const bf16*>(parts);
-  return launch<3>(x, x + n, x + 2 * n, kPartsWidth, nullptr, out, m, l,
-                   seed, strides, B, S, H, causal, threshold, scale, stream);
+  return launch_d<3>(d, static_cast<const void*>(x),
+                     static_cast<const void*>(x + n),
+                     static_cast<const void*>(x + 2 * n),
+                     static_cast<int>(width),
+                     static_cast<const bf16*>(nullptr), out, m, l, seed,
+                     static_cast<const long long*>(strides), B, S, H, causal,
+                     threshold, scale, stream);
 }

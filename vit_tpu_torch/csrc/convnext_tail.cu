@@ -532,7 +532,7 @@ __device__ __forceinline__ void produce_parts(uint8_t* sm,
   }
 }
 
-// d += tile in registers, rounded to nearest (hopper.cuh:mma_rb_parts_into).
+// d += tile in registers, rounded to nearest (attention_tile.cuh:head_rb_into).
 template <int N>
 __device__ __forceinline__ void add_tile(float (&d)[N], const float (&tile)[N]) {
 #pragma unroll

@@ -49,7 +49,7 @@
 //   - the two consumer warpgroups take 64 dW rows each, m64n128k16, each
 //     atom's six products in a fresh accumulator added to the tile's sum in
 //     registers (a sum chained in one accumulator loses low bits at each
-//     product, hopper.cuh:mma_rb_parts_into);
+//     product, attention_tile.cuh:head_rb_into);
 //   - the blocks of the first F_in column sum db from the fp32 g tiles in
 //     the converters' registers, never from the parts, in a fixed order.
 // Split in the kernel, the parts never reach device memory. Built on an

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives as small inline-PTX wrappers: the mbarrier,
 // TMA tensor loads and stores (cp.async.bulk.tensor), warpgroup products
-// (wgmma.mma_async m64n64k16, m64n32k16, and m64n128k16 / m64n256k16 for
+// (wgmma.mma_async m64n64k16, m64n32k16 (A from shared memory or
+// registers), and m64n128k16 / m64n256k16 for
 // K9a and K10, bf16 in, fp32 accumulate; m64n32k32 int8 in,
 // int32 accumulate, for K12a and K12b) and setmaxnreg, that the attention
 // kernels (K6, K7/K8 and their packed forms K1, K2; their fp32 forms
@@ -10,8 +11,8 @@
 // matmul (K9a and its fp32 form) and the weight gradient (K10 and its fp32
 // form) are built from, and the host side of their tensor maps.
 //
-// Tiles. Every operand tile is 64 bf16 wide (head_dim 64 = one 128-byte
-// row) and lands in shared memory through a tensor map built with
+// Tiles. Every operand tile here is 64 bf16 wide (head_dim 64 = one
+// 128-byte row; attention_tile.cuh adds the 32-wide heads' 64-byte rows) and lands in shared memory through a tensor map built with
 // CU_TENSOR_MAP_SWIZZLE_128B: row r of a tile sits at byte r·128, its
 // 16-byte chunk c at chunk c ^ (r % 8). A tile's base is 1024-byte aligned
 // (one swizzle period of 8 rows), so a wgmma descriptor with base offset 0
@@ -37,7 +38,8 @@
 // next product without a trip through shared memory.
 //
 // Threads may rewrite a tile in place before a wgmma reads it (the packed
-// attention's bias, add_bias_tile): each writer fences its generic-proxy
+// attention's bias, attention_tile.cuh:add_head_bias): each writer fences
+// its generic-proxy
 // writes with fence_proxy_async(), then a named barrier over the threads
 // that issue the wgmmas; without the fence a wgmma can read the bytes TMA
 // wrote, which gives wrong numbers and no fault.
@@ -259,37 +261,6 @@ __device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
   return d;
 }
 
-// Adds `bias` (64 bf16 in shared memory, 16-byte aligned) to rows [0, rows)
-// of a 64 x 64 bf16 tile that TMA wrote with the 128-byte swizzle, in place:
-// x = bf16(x + b), one rounding of the exact sum (bf16x2 fma by 1), as
-// the packed projection's bias is added before the products. kThreads threads
-// share the tile, thread `tid` taking the 16-byte chunks tid, tid +
-// kThreads, ...: chunk i is row i / 8, stored chunk i % 8, which holds the
-// columns of logical chunk (i % 8) ^ (row % 8). With kThreads a multiple of
-// 64 that logical chunk is the same for all of a thread's chunks, so each
-// thread reads its 8 bias values once. Rows at or past `rows` (TMA's zero
-// fill past S) stay zero. The caller fences and synchronises after it.
-template <int kThreads>
-__device__ __forceinline__ void add_bias_tile(void* tile,
-                                              const __nv_bfloat16* bias,
-                                              int rows, int tid) {
-  static_assert(kThreads % 64 == 0, "one bias chunk per thread");
-  const int c = (tid % 8) ^ ((tid / 8) % 8);
-  const uint4 b = *reinterpret_cast<const uint4*>(bias + 8 * c);
-  uint4* chunks = reinterpret_cast<uint4*>(tile);
-#pragma unroll
-  for (int j = 0; j < kTileRows * 8 / kThreads; ++j) {
-    const int i = tid + j * kThreads;
-    if (i / 8 >= rows) continue;
-    uint4 x = chunks[i];
-    x.x = add_bf16x2(x.x, b.x);
-    x.y = add_bf16x2(x.y, b.y);
-    x.z = add_bf16x2(x.z, b.z);
-    x.w = add_bf16x2(x.w, b.w);
-    chunks[i] = x;
-  }
-}
-
 // ---- wgmma ---------------------------------------------------------------
 
 // x as a value the compiler cannot see through, so that descriptors formed
@@ -429,6 +400,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : VIT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(kTransB));
+}
+
+// d += A·B, m64n32k16: A from registers (one k16 step of A fragments), B
+// from shared memory; kTransB = 1 reads B MN-major. The accumulator layout
+// of wgmma_ss_n32 (the attention kernels' 32-wide heads: o += P·V).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : VIT_ACC16(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
         "n"(kTransB));
 }
@@ -580,25 +571,6 @@ __device__ __forceinline__ void wgmma_ss_mn256(float (&d)[128], uint64_t a,
 #undef VIT_ACC32
 #undef VIT_ACC32_LIST
 
-// d = A·Bᵀ over a reduction of 64: A (64 rows) and B (64 rows) both K-major
-// tiles at shared addresses a and b, e.g. s = Q·Kᵀ. Issues 4 wgmmas; the
-// caller fences, commits and waits.
-__device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a,
-                                        uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    wgmma_ss<0>(d, desc_k(a + 32 * ks), desc_k(b + 32 * ks), ks > 0);
-}
-
-// d += A·B over a reduction of 64: A as register fragments, one per 16-wide
-// step, B a tile at shared address b read MN-major (its rows the reduction),
-// e.g. o += P·V.
-__device__ __forceinline__ void mma_rb(float (&d)[32],
-                                       const uint32_t (&a)[4][4], uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) wgmma_rs<1>(d, a[ks], desc_mn(b + 2048 * ks));
-}
-
 // ---- fp32-accurate products from three bf16 parts --------------------------
 //
 // An fp32 value x splits into bf16 parts x = x0 + x1 + x2 exactly: x0 =
@@ -622,7 +594,7 @@ __host__ __device__ constexpr int split_b(int t) {
 template <int kParts>
 constexpr int kFirstTerm = kParts == 1 ? 5 : 0;
 
-// d = A·Bᵀ over 64 (mma_abt) from kParts-part tiles, A's parts a_part
+// d = A·Bᵀ over 64 (four k16 steps) from kParts-part tiles, A's parts a_part
 // bytes apart and B's b_part bytes apart. 4 wgmmas a term, or kSteps over
 // the first 16·kSteps of the 64 (a tile's reduction past a row's end).
 template <int kParts, int kSteps = 4>
@@ -686,21 +658,6 @@ __device__ __forceinline__ void mma_ab_parts_n32(float (&d)[16], uint32_t a,
                       t > kFirstTerm<kParts> || ks > 0);
 }
 
-// d += A·B over 16·kSteps (mma_rb): A's parts as register fragments
-// a[part][k16 step], B a kParts-part tile read MN-major from b (2048 bytes
-// a k16 step), its parts b_part bytes apart.
-template <int kParts, int kSteps>
-__device__ __forceinline__ void mma_rb_parts(
-    float (&d)[32], const uint32_t (&a)[kParts][kSteps][4], uint32_t b,
-    uint32_t b_part) {
-#pragma unroll
-  for (int t = kFirstTerm<kParts>; t < 6; ++t)
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks)
-      wgmma_rs<1>(d, a[split_a(t)][ks],
-                  desc_mn(b + split_b(t) * b_part + 2048 * ks));
-}
-
 // d += A·Bᵀ over 64: A's parts as register fragments a[part][k16 step], B
 // a kParts-part tile read K-major from b (its rows the N dimension, 32
 // bytes a k16 step), its parts b_part bytes apart; e.g. o += a·W2ᵀ.
@@ -714,35 +671,6 @@ __device__ __forceinline__ void mma_rbt_parts(
     for (int ks = 0; ks < 4; ++ks)
       wgmma_rs<0>(d, a[split_a(t)][ks],
                   desc_k(b + split_b(t) * b_part + 32 * ks));
-}
-
-// d += A·B (mma_rb_parts), waited for. The fp32 forms (kParts = 3) take
-// each tile's product in a fresh accumulator and add it to d in registers,
-// rounded to nearest: chained over all the tiles of a sum in d itself, the
-// fp32 attention backward's means read 2e-6 to 7e-6 of mean |plain| on the
-// H100, growing with the number of tiles, as the tensor cores' fp32
-// accumulation loses low bits at each wgmma against a growing accumulator;
-// a tile at a time, 3e-7 to 7e-7.
-template <int kParts, int kSteps>
-__device__ __forceinline__ void mma_rb_parts_into(
-    float (&d)[32], const uint32_t (&a)[kParts][kSteps][4], uint32_t b,
-    uint32_t b_part) {
-  if constexpr (kParts == 1) {
-    mma_rb_parts(d, a, b, b_part);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(d);
-  } else {
-    float tile[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) tile[e] = 0.0f;
-    mma_rb_parts(tile, a, b, b_part);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(tile);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) d[e] = __fadd_rn(d[e], tile[e]);
-  }
 }
 
 // Two fp32 values (lo, hi) as kParts packed bf16 pairs into A fragment
@@ -817,10 +745,11 @@ inline EncodeTiledFn encode_tiled() {
 // strides st = (batch, head, row) and unit stride along head_dim: 4-D
 // (width, S, H, B), boxes of 64 x 64 rows of one head, 128-byte swizzle,
 // zeros past S. A width of 192 reads a row of three 64-wide parts, part p
-// at column 64p. Strides of a dimension of size 1 are never used and are
-// given as the row stride. Returns 0 or a cudaError_t.
+// at column 64p. A box of 32 columns (a 32-wide head: rows of 64 bytes)
+// takes the 64-byte swizzle. Strides of a dimension of size 1 are never
+// used and are given as the row stride. Returns 0 or a cudaError_t.
 inline int head_map(CUtensorMap* map, const void* base, const long long* st,
-                    int B, int H, int S, int width = 64) {
+                    int B, int H, int S, int width = 64, int box_cols = 64) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t row = static_cast<cuuint64_t>(st[2]) * 2;
@@ -831,13 +760,14 @@ inline int head_map(CUtensorMap* map, const void* base, const long long* st,
   const cuuint64_t strides[3] = {
       row, H > 1 ? static_cast<cuuint64_t>(st[1]) * 2 : row,
       B > 1 ? static_cast<cuuint64_t>(st[0]) * 2 : row};
-  const cuuint32_t box[4] = {64, kTileRows, 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), kTileRows, 1,
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
 }
 

@@ -63,7 +63,7 @@
 // three parts of x̂ and of W (96 KB at kBN 128: two stages). Each atom's
 // six products go into a fresh accumulator added to the tile's sum in
 // registers: chained over the atoms in one accumulator the tensor cores'
-// fp32 sum loses low bits at each product (hopper.cuh:mma_rb_parts_into).
+// fp32 sum loses low bits at each product (attention_tile.cuh:head_rb_into).
 // Bound: 12·N·C·F FLOP at 989/6 TFLOP/s (0.586 ms at the flagship's fc1).
 
 #include <cuda_bf16.h>

@@ -17,7 +17,8 @@ The sources and the Pallas kernels (``vit_tpu/kernels/``) they replace:
                            K1   attention.py:790 (_fa_packed_kernel :623),
                                 K6's kernel with the bias stage (kBias);
                                 on fp32 operands the same kernel over
-                                three bf16 parts (kParts = 3)
+                                three bf16 parts (kParts = 3); both at
+                                head_dim 64 and 32 (kD)
   attention_bwd.cu         K7   attention.py:441 (_fa_bwd_kernel :201)
                            K8   attention.py:395 (_fa_bwd_tiled_kernel :284)
                            K2   attention.py:1072 (_fa_packed_bwd_kernel
@@ -173,29 +174,32 @@ def _compile(out: Path) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     f32, u32 = ctypes.c_float, ctypes.c_uint
-    # The attention entries end in (..., causal, threshold, scale, stream):
-    # the dropout keep threshold and scale, read only with a seed vector.
+    # The attention entries end in (..., B, S, H, d, causal, threshold,
+    # scale, stream): d the head width (32 or 64), then the dropout keep
+    # threshold and scale, read only with a seed vector.
     drop = [u32, f32, ptr]
-    # attention_packed_fwd(qkv, bias, out, m, l, seed, B, S, H, causal, ...)
-    lib.attention_packed_fwd.argtypes = [ptr] * 6 + [i32] * 4 + drop
+    # attention_packed_fwd(qkv, bias, out, m, l, seed, B, S, H, d, causal,
+    #                      ...)
+    lib.attention_packed_fwd.argtypes = [ptr] * 6 + [i32] * 5 + drop
     lib.attention_packed_fwd.restype = i32
     # attention_packed_bwd(qkv, bias, dout, m, l, dqkv, dbias, delta, part,
-    #                      seed, B, S, H, causal, ...)
-    lib.attention_packed_bwd.argtypes = [ptr] * 10 + [i32] * 4 + drop
+    #                      seed, B, S, H, d, causal, ...)
+    lib.attention_packed_bwd.argtypes = [ptr] * 10 + [i32] * 5 + drop
     lib.attention_packed_bwd.restype = i32
     strides = ctypes.POINTER(ctypes.c_longlong)
-    # attention_fwd(q, k, v, out, m, l, seed, strides, B, S, H, causal, ...)
-    lib.attention_fwd.argtypes = [ptr] * 7 + [strides] + [i32] * 4 + drop
+    # attention_fwd(q, k, v, out, m, l, seed, strides, B, S, H, d, causal,
+    #               ...)
+    lib.attention_fwd.argtypes = [ptr] * 7 + [strides] + [i32] * 5 + drop
     lib.attention_fwd.restype = i32
     # attention_bwd(q, k, v, dout, m, l, dq, dk, dv, delta, seed, strides, B,
-    #               S, H, causal, ...)
-    lib.attention_bwd.argtypes = [ptr] * 11 + [strides] + [i32] * 4 + drop
+    #               S, H, d, causal, ...)
+    lib.attention_bwd.argtypes = [ptr] * 11 + [strides] + [i32] * 5 + drop
     lib.attention_bwd.restype = i32
-    # Their dynamic shared memory in bytes: attention_fwd_smem(fp32),
-    # attention_bwd_smem(dkdv, fp32) (dkdv 0: the dq kernel, 1: the dk/dv
-    # kernel; fp32 1: the fp32 form's)
-    lib.attention_fwd_smem.argtypes = [i32]
-    lib.attention_bwd_smem.argtypes = [i32, i32]
+    # Their dynamic shared memory in bytes: attention_fwd_smem(fp32, d),
+    # attention_bwd_smem(dkdv, fp32, d) (dkdv 0: the dq kernel, 1: the dk/dv
+    # kernel; fp32 1: the fp32 form's; d the head width)
+    lib.attention_fwd_smem.argtypes = [i32, i32]
+    lib.attention_bwd_smem.argtypes = [i32, i32, i32]
     lib.attention_fwd_smem.restype = lib.attention_bwd_smem.restype = i32
     # Rows per backward block: K2's partial bias sums are (B·⌈S/rows⌉, 3D)
     lib.attention_bwd_block_rows.argtypes = []
@@ -277,15 +281,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vq_nearest_block_rows.argtypes = [i32]
     lib.vq_nearest_block_rows.restype = i32
     # The fp32 forms. attention_f32_fwd(parts, out, m, l, seed, strides, B,
-    # S, H, causal, ...)
-    lib.attention_f32_fwd.argtypes = [ptr] * 5 + [strides] + [i32] * 4 + drop
+    # S, H, d, causal, ...)
+    lib.attention_f32_fwd.argtypes = [ptr] * 5 + [strides] + [i32] * 5 + drop
     # attention_f32_bwd(q, k, v, bq, bk, bv, dout, m, l, dq, dk, dv, delta,
-    #                   parts, part, dbias, seed, strides, B, S, H, causal,
+    #                   parts, part, dbias, seed, strides, B, S, H, d, causal,
     #                   ...)
-    lib.attention_f32_bwd.argtypes = [ptr] * 17 + [strides] + [i32] * 4 + drop
+    lib.attention_f32_bwd.argtypes = [ptr] * 17 + [strides] + [i32] * 5 + drop
     # attention_f32_split(q, k, v, bq, bk, bv, dout, parts, strides, B, S, H,
-    #                     stream): the pre-split, dout null for the forward's
-    lib.attention_f32_split.argtypes = [ptr] * 8 + [strides] + [i32] * 3 + [ptr]
+    #                     d, stream): the pre-split, dout null for the
+    #                     forward's
+    lib.attention_f32_split.argtypes = [ptr] * 8 + [strides] + [i32] * 4 + [ptr]
     # convnext_tail_split(w1, w2, parts, C, stream): K3 fp32's pre-split
     lib.convnext_tail_split.argtypes = [ptr] * 3 + [i32, ptr]
     # convnext_tail_f32_fwd(h, x, lns, lnb, parts, b1, b2, gamma, y, N, C,

@@ -78,8 +78,13 @@ import torch
 
 from vit_tpu_torch.kernels import _build
 
-HEAD_DIM = 64
-MAX_SEQ = 768  # the JAX package's packed path bounds S here (_MAX_FUSED_BWD_SEQ)
+# The head widths the CUDA kernels are instantiated for: 64 (every preset)
+# and 32 (the MAE decoder's 16 heads × 512). The JAX kernels take others
+# (the packed path any divisor of 128, the unpacked any width); on CUDA the
+# port refuses them, naming ROADMAP Queue A #11.
+HEAD_DIMS = (32, 64)
+LANES = 128     # the packed path's lane block (_LANES)
+MAX_SEQ = 768   # the JAX package's packed path bounds S here (_MAX_FUSED_BWD_SEQ)
 
 launches = 0      # K1 launches by attention_packed_fwd, for run evidence
 bwd_launches = 0  # K2 launches by attention_packed_bwd
@@ -91,12 +96,35 @@ unpacked_dropout_launches = unpacked_dropout_bwd_launches = 0
 # Of those, the launches of the fp32 forms (fp32 operands), per wrapper
 fp32_launches = fp32_bwd_launches = 0
 unpacked_fp32_launches = unpacked_fp32_bwd_launches = 0
+# Every launch again by head width: wrapper → {head_dim: launches}
+head_dim_launches = {name: dict.fromkeys(HEAD_DIMS, 0) for name in (
+    "attention_packed_fwd", "attention_packed_bwd", "attention_fwd",
+    "attention_bwd")}
+
+
+def reset_head_dim_launches() -> None:
+    for counts in head_dim_launches.values():
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def packed_supported(n_heads: int, n_embd: int, seq_len: int) -> bool:
-    """Shapes the CUDA kernels take: head_dim 64 (every preset) and S ≤ 768."""
-    return (n_embd % n_heads == 0 and n_embd // n_heads == HEAD_DIM
-            and seq_len <= MAX_SEQ)
+    """The JAX package's rule for the packed path (``packed_supported``,
+    :610-620): heads of a width dividing the 128-lane block, a width a
+    multiple of 128, and S ≤ 768. On CUDA the packed kernels take the
+    widths in ``HEAD_DIMS`` and refuse the rest (:func:`check_head_dim`)."""
+    if n_embd % n_heads:
+        return False
+    d = n_embd // n_heads
+    return LANES % d == 0 and n_embd % LANES == 0 and seq_len <= MAX_SEQ
+
+
+def check_head_dim(d: int, kernel: str) -> None:
+    """Raise unless the CUDA kernels have an instantiation for head_dim d."""
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"{kernel} is built for head_dim {' and '.join(map(str, HEAD_DIMS))}"
+            f" on CUDA, got {d} (the other widths the JAX kernels take: "
+            "ROADMAP Queue A #11)")
 
 
 def split_heads(qkv: torch.Tensor, n_heads: int,
@@ -295,9 +323,11 @@ def _check_cuda(qkv: torch.Tensor, n_heads: int, kernel: str,
     b, s, three_d = qkv.shape
     if not packed_supported(n_heads, three_d // 3, s):
         raise NotImplementedError(
-            f"{kernel} takes head_dim {HEAD_DIM} and S <= {MAX_SEQ}; got "
-            f"{n_heads} heads of width {three_d // 3}, S {s}; other shapes "
-            "take the unpacked kernels K6-K8 (flash_attention)")
+            f"{kernel} takes heads of a width dividing {LANES}, a width a "
+            f"multiple of {LANES} and S <= {MAX_SEQ}; got {n_heads} heads "
+            f"of width {three_d // 3}, S {s}; other shapes take the "
+            "unpacked kernels K6-K8 (flash_attention)")
+    check_head_dim(three_d // 3 // n_heads, kernel)
 
 
 def _bias(qkv: torch.Tensor, qkv_bias: "torch.Tensor | None") -> torch.Tensor:
@@ -335,7 +365,7 @@ def _bias_parts(bias: "torch.Tensor | None"):
 
 
 def _parts(q: torch.Tensor, ops: int) -> torch.Tensor:
-    """The fp32 forms' workspace of bf16 parts: (ops, B, H, S, 3, 64), part
+    """The fp32 forms' workspace of bf16 parts: (ops, B, H, S, 3, d), part
     p of q, k, v (biased) and, in the backward's (ops 4), dO at
     [operand][b][h][s][p]."""
     b, h, s, d = q.shape
@@ -347,13 +377,13 @@ def _split(lib, q, k, v, bias, dout, stream) -> torch.Tensor:
     """Launch the pre-split (``attention_f32_split``) of q, k, v with the
     packed layout's (3D,) bias or None, and dO or None (the forward's), on
     ``stream``; returns the parts."""
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     parts = _parts(q, 3 if dout is None else 4)
     bq, bk, bv = _bias_parts(bias)
     ops = (q, k, v) if dout is None else (q, k, v, dout)
     err = lib.attention_f32_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk),
-        _ptr(bv), _ptr(dout), parts.data_ptr(), _strides(*ops), b, s, h,
+        _ptr(bv), _ptr(dout), parts.data_ptr(), _strides(*ops), b, s, h, d,
         stream)
     _build.check(lib, err, "attention_f32_split")
     return parts
@@ -362,10 +392,10 @@ def _split(lib, q, k, v, bias, dout, stream) -> torch.Tensor:
 def _f32_fwd(q, k, v, bias, out, emit_stats: bool, seed, threshold: int,
              scale: float, causal: bool):
     """Launch the fp32 forward (the pre-split of q, k and v, then
-    ``attention_f32_fwd``, the split-product kernel) over the (B, H, S, 64)
+    ``attention_f32_fwd``, the split-product kernel) over the (B, H, S, d)
     views q, k, v and out, with the packed layout's (3D,) bias or None;
     returns (m, l), or (None, None) without ``emit_stats``."""
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     m = l = None
     if emit_stats:
         m = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
@@ -376,7 +406,7 @@ def _f32_fwd(q, k, v, bias, out, emit_stats: bool, seed, threshold: int,
         parts = _split(lib, q, k, v, bias, None, stream)
         err = lib.attention_f32_fwd(
             parts.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l), _ptr(seed),
-            _strides(out), b, s, h, int(causal), threshold, scale, stream)
+            _strides(out), b, s, h, d, int(causal), threshold, scale, stream)
     _build.check(lib, err, "attention_f32_fwd")
     return m, l
 
@@ -384,10 +414,10 @@ def _f32_fwd(q, k, v, bias, out, emit_stats: bool, seed, threshold: int,
 def _f32_bwd(q, k, v, bias, dout, m, l, dq, dk, dv, seed, threshold: int,
              scale: float, causal: bool) -> "torch.Tensor | None":
     """Launch the fp32 backward (``attention_f32_bwd``: the pre-split, then
-    the split-product dq and dk/dv kernels) into the (B, H, S, 64) views
+    the split-product dq and dk/dv kernels) into the (B, H, S, d) views
     dq, dk, dv; with the packed layout's (3D,) bias also its fp32 gradient,
     which is returned (None without a bias)."""
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     delta = torch.empty_like(m)
     lib = _build.load()
     part = dbias = None
@@ -405,7 +435,7 @@ def _f32_bwd(q, k, v, bias, dout, m, l, dq, dk, dv, seed, threshold: int,
             _ptr(bv), dout.data_ptr(), m.data_ptr(), l.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
             parts.data_ptr(), _ptr(part), _ptr(dbias), _ptr(seed),
-            _strides(q, k, v, dout, dq, dk, dv), b, s, h, int(causal),
+            _strides(q, k, v, dout, dq, dk, dv), b, s, h, d, int(causal),
             threshold, scale, stream)
     _build.check(lib, err, "attention_f32_bwd")
     return dbias
@@ -427,13 +457,13 @@ def split3(x: torch.Tensor) -> "tuple[torch.Tensor, ...]":
 def split_parts_ref(q, k, v, dout=None, bias: "torch.Tensor | None" = None
                     ) -> torch.Tensor:
     """Plain version of the fp32 forms' pre-split pass: q, k, v (plus the
-    packed layout's (3D,) bias, q's part at h·64, k's at D + h·64, v's at
-    2D + h·64) and dO, fp32 (B, H, S, 64) → (4, B, H, S, 3, 64) bf16; without
-    dO (the forward's) → (3, B, H, S, 3, 64)."""
+    packed layout's (3D,) bias, q's part at h·d, k's at D + h·d, v's at
+    2D + h·d) and dO, fp32 (B, H, S, d) → (4, B, H, S, 3, d) bf16; without
+    dO (the forward's) → (3, B, H, S, 3, d)."""
     ops = [q, k, v]
     if bias is not None:
-        ops = [x + bp.view(-1, 1, HEAD_DIM) for x, bp in zip(ops,
-                                                             _bias_parts(bias))]
+        ops = [x + bp.view(-1, 1, q.shape[-1])
+               for x, bp in zip(ops, _bias_parts(bias))]
     if dout is not None:
         ops.append(dout)
     return torch.stack([torch.stack(split3(x), -2) for x in ops])
@@ -444,8 +474,8 @@ def split_parts(q, k, v, dout=None, bias: "torch.Tensor | None" = None
     """The fp32 forms' pre-split pass alone, the launch that the fp32
     backward (``attention_f32_bwd``) makes first and the fp32 forward's
     wrapper makes before its kernel (without dO), to check it against
-    :func:`split_parts_ref` and time it: CUDA fp32 (B, H, S, 64) operands at
-    the strides the kernels take → (4, B, H, S, 3, 64) bf16, or (3, ...)
+    :func:`split_parts_ref` and time it: CUDA fp32 (B, H, S, d) operands at
+    the strides the kernels take → (4, B, H, S, 3, d) bf16, or (3, ...)
     without dO."""
     ops = tuple(t for t in (q, k, v, dout) if t is not None)
     _check_unpacked(ops, "the pre-split")
@@ -467,8 +497,8 @@ def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
     """K1: (B, S, 3D), bias (3D,) → out (B, S, D) [, m, l (B, H, S) fp32];
     with ``dropout_rate`` > 0 the probabilities are dropped with the mask of
     the (2,) seed vector ``seed``. A CUDA tensor launches the kernel (bf16
-    or fp32, head_dim 64, S ≤ 768) or raises; a CPU tensor runs the plain
-    version."""
+    or fp32, head_dim 32 or 64, S ≤ 768) or raises; a CPU tensor runs the
+    plain version."""
     if qkv.device.type == "cpu":
         return attention_packed_fwd_ref(qkv, bias, n_heads, causal, emit_stats,
                                         dropout_rate, seed)
@@ -478,10 +508,11 @@ def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
         raise ValueError("K1 takes a contiguous, 16-byte aligned qkv")
     bias = _build.cuda_arg(bias, qkv, "qkv_bias", qkv.dtype)
     seed, threshold, scale = _dropout_args(dropout_rate, seed, qkv)
+    d = three_d // 3 // n_heads
     out = torch.empty(b, s, three_d // 3, dtype=qkv.dtype, device=qkv.device)
     if qkv.dtype == torch.float32:
         m, l = _f32_fwd(*split_heads(qkv, n_heads), bias,
-                        out.view(b, s, n_heads, HEAD_DIM).transpose(1, 2),
+                        out.view(b, s, n_heads, d).transpose(1, 2),
                         emit_stats, seed, threshold, scale, causal)
     else:
         m = l = None
@@ -494,11 +525,12 @@ def attention_packed_fwd(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
             stream = torch.cuda.current_stream(qkv.device).cuda_stream
             err = lib.attention_packed_fwd(
                 qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(m),
-                _ptr(l), _ptr(seed), b, s, n_heads, int(causal), threshold,
-                scale, stream)
+                _ptr(l), _ptr(seed), b, s, n_heads, d, int(causal),
+                threshold, scale, stream)
         _build.check(lib, err, "attention_packed_fwd")
     global launches, dropout_launches, fp32_launches
     launches += 1
+    head_dim_launches["attention_packed_fwd"][d] += 1
     dropout_launches += seed is not None
     fp32_launches += qkv.dtype == torch.float32
     return (out, m, l) if emit_stats else out
@@ -527,9 +559,10 @@ def attention_packed_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     m = _build.cuda_arg(m, qkv, "m", torch.float32)
     l = _build.cuda_arg(l, qkv, "l", torch.float32)
     seed, threshold, scale = _dropout_args(dropout_rate, seed, qkv)
+    d = three_d // 3 // n_heads
     dqkv = torch.empty_like(qkv)
     if qkv.dtype == torch.float32:
-        do = dout.view(b, s, n_heads, HEAD_DIM).transpose(1, 2)
+        do = dout.view(b, s, n_heads, d).transpose(1, 2)
         dbias = _f32_bwd(*split_heads(qkv, n_heads), bias, do, m, l,
                          *split_heads(dqkv, n_heads), seed, threshold, scale,
                          causal)
@@ -545,10 +578,11 @@ def attention_packed_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                 qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
                 m.data_ptr(), l.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
                 delta.data_ptr(), part.data_ptr(), _ptr(seed), b, s, n_heads,
-                int(causal), threshold, scale, stream)
+                d, int(causal), threshold, scale, stream)
         _build.check(lib, err, "attention_packed_bwd")
     global bwd_launches, dropout_bwd_launches, fp32_bwd_launches
     bwd_launches += 1
+    head_dim_launches["attention_packed_bwd"][d] += 1
     fp32_bwd_launches += qkv.dtype == torch.float32
     dropout_bwd_launches += seed is not None
     return dqkv, dbias
@@ -617,16 +651,14 @@ def flash_attention_packed(qkv: torch.Tensor, n_heads: int, *,
 
 
 def _check_unpacked(ts: "tuple[torch.Tensor, ...]", kernel: str) -> None:
-    """Raise unless q, k, v (and dO) are CUDA (B, H, S, 64) alike, all bf16
-    or all fp32."""
+    """Raise unless q, k, v (and dO) are CUDA (B, H, S, d) alike, d 32 or
+    64, all bf16 or all fp32."""
     _build.compute_dtype(kernel, *ts)
     shape = ts[0].shape
     if len(shape) != 4 or any(t.shape != shape for t in ts):
         raise ValueError(f"{kernel} takes (B, H, S, d) operands of one shape, "
                          f"got {[tuple(t.shape) for t in ts]}")
-    if shape[-1] != HEAD_DIM:
-        raise NotImplementedError(f"{kernel} takes head_dim {HEAD_DIM}, got "
-                                  f"{shape[-1]}")
+    check_head_dim(shape[-1], kernel)
     for t in ts:
         if t.device.type != "cuda" or t.device != ts[0].device:
             raise ValueError(f"unsupported device {t.device}")
@@ -655,12 +687,12 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, emit_stats: bool = False,
                   dropout_rate: float = 0.0,
                   seed: "torch.Tensor | None" = None):
-    """K6: q, k, v (B, H, S, 64) → out (B, H, S, 64) [, m, l (B, H, S) fp32];
+    """K6: q, k, v (B, H, S, d) → out (B, H, S, d) [, m, l (B, H, S) fp32];
     with ``dropout_rate`` > 0 the probabilities are dropped with the mask of
-    the (2,) seed vector ``seed``. On CUDA the output is a (B, H, S, 64)
-    view of a contiguous (B, S, H, 64) buffer, so merging the heads back is
-    free. A CUDA tensor launches the kernel (bf16 or fp32, head_dim 64) or
-    raises; a CPU tensor runs the plain version."""
+    the (2,) seed vector ``seed``. On CUDA the output is a (B, H, S, d)
+    view of a contiguous (B, S, H, d) buffer, so merging the heads back is
+    free. A CUDA tensor launches the kernel (bf16 or fp32, head_dim 32 or
+    64) or raises; a CPU tensor runs the plain version."""
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, causal, emit_stats, dropout_rate,
                                  seed)
@@ -684,10 +716,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = lib.attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _ptr(m), _ptr(l), _ptr(seed), _strides(q, k, v, out), b, s, h,
-                int(causal), threshold, scale, stream)
+                d, int(causal), threshold, scale, stream)
         _build.check(lib, err, "attention_fwd")
     global unpacked_launches, unpacked_dropout_launches, unpacked_fp32_launches
     unpacked_launches += 1
+    head_dim_launches["attention_fwd"][d] += 1
     unpacked_dropout_launches += seed is not None
     unpacked_fp32_launches += q.dtype == torch.float32
     return (out, m, l) if emit_stats else out
@@ -697,7 +730,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   dout: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                   causal: bool, dropout_rate: float = 0.0,
                   seed: "torch.Tensor | None" = None):
-    """K7/K8: → (dq, dk, dv), (B, H, S, 64) in q's dtype, from K6's m, l;
+    """K7/K8: → (dq, dk, dv), (B, H, S, d) in q's dtype, from K6's m, l;
     with dropout, the forward's mask regenerated from the same seed vector.
     A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
     version."""
@@ -727,12 +760,13 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), delta.data_ptr(), _ptr(seed),
-                _strides(q, k, v, dout, dq, dk, dv), b, s, h, int(causal),
+                _strides(q, k, v, dout, dq, dk, dv), b, s, h, d, int(causal),
                 threshold, scale, stream)
         _build.check(lib, err, "attention_bwd")
     global unpacked_bwd_launches, unpacked_dropout_bwd_launches, \
         unpacked_fp32_bwd_launches
     unpacked_bwd_launches += 1
+    head_dim_launches["attention_bwd"][d] += 1
     unpacked_dropout_bwd_launches += seed is not None
     unpacked_fp32_bwd_launches += q.dtype == torch.float32
     return dq, dk, dv

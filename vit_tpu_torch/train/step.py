@@ -1,11 +1,13 @@
 """Train and eval step factories (counterpart of
-``vit_tpu/train/step.py:22-116, 204-214`` and ``train_videogpt.py:127-149``).
+``vit_tpu/train/step.py:22-214`` and ``train_videogpt.py:127-149``).
 
 One call runs forward, loss, backward, clip, AdamW and the metrics. Metrics
 stay device tensors (nothing is read back to the host inside the step); the
 caller decides when to synchronise. Where the JAX step folds its dropout key
 with the step count, the port's steps take an explicit ``torch.Generator``
-on the model's device, which advances with every draw.
+on the model's device, which advances with every draw. The MAE and Puzzle
+steps draw their mask noise from it too, or take the noise as an argument
+(the JAX draw cannot be reproduced in torch; the parity tests pass it).
 """
 
 from __future__ import annotations
@@ -164,3 +166,103 @@ def make_videogpt_train_step(model: nn.Module) -> Callable:
         return state, tokens, {"train/loss": loss.detach()}
 
     return train_step
+
+
+def _pretrain_metrics(state: TrainState, loss: torch.Tensor, **more) -> dict:
+    metrics = {"train/loss": loss.detach(),
+               **{k: v.detach() for k, v in more.items()}}
+    if state.opt_state.grad_norm is not None:   # recorded by the clip
+        metrics["train/grad_norm"] = state.opt_state.grad_norm
+    return metrics
+
+
+def _eval(model: nn.Module, images: torch.Tensor, noise, generator):
+    """The model's output in eval mode without a graph, its mode restored."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model(images, noise, generator)
+    finally:
+        model.train(was_training)
+
+
+def make_mae_train_step(model: nn.Module) -> Callable:
+    """MAE pretraining step (``vit_tpu/train/step.py:119-145``): the
+    masked-patch MSE of ``models/mae.py:mae_loss``, its gradients and the
+    optimizer step, in training mode. The JAX entries build the optimizer
+    without a clip, so there is no ``train/grad_norm`` unless one clips.
+
+    ``train_step(state, images, generator=None, noise=None) → (state,
+    metrics)``: the mask noise (B, n_patches) is ``noise`` or drawn from
+    ``generator``, whose state the caller sets per step (the JAX step folds
+    its key with the step, so masks differ per step and replay on
+    resume)."""
+    from vit_tpu_torch.models.mae import mae_loss
+
+    cfg = model.config
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   generator: "torch.Generator | None" = None,
+                   noise: "torch.Tensor | None" = None):
+        model.train()
+        pred, mask = model(images, noise, generator)
+        loss = mae_loss(pred, images, mask, cfg.patch_size, cfg.norm_pix)
+        grads = torch.autograd.grad(loss, state.params)
+        state.apply_gradients(grads)
+        return state, _pretrain_metrics(state, loss)
+
+    return train_step
+
+
+def make_mae_eval_step(model: nn.Module) -> Callable:
+    """Validation (``vit_tpu/train/step.py:148-162``): the same masked loss
+    in eval mode. ``eval_step(images, generator=None, noise=None) →
+    {"valid/loss"}``; the JAX entry reuses one mask key for every batch, so
+    the caller gives ``generator`` the same state before each."""
+    from vit_tpu_torch.models.mae import mae_loss
+
+    cfg = model.config
+
+    def eval_step(images: torch.Tensor,
+                  generator: "torch.Generator | None" = None,
+                  noise: "torch.Tensor | None" = None):
+        pred, mask = _eval(model, images, noise, generator)
+        return {"valid/loss": mae_loss(pred, images, mask, cfg.patch_size,
+                                       cfg.norm_pix)}
+
+    return eval_step
+
+
+def make_puzzle_train_step(model: nn.Module) -> Callable:
+    """Puzzle pretraining step (``vit_tpu/train/step.py:165-188``): the
+    masked position cross-entropy of ``models/puzzle.py:puzzle_loss``, its
+    gradients and the optimizer step; ``train/pos_acc`` beside
+    ``train/loss``. Called as the MAE step."""
+    from vit_tpu_torch.models.puzzle import puzzle_loss
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   generator: "torch.Generator | None" = None,
+                   noise: "torch.Tensor | None" = None):
+        model.train()
+        logits, mask = model(images, noise, generator)
+        loss, acc = puzzle_loss(logits, mask)
+        grads = torch.autograd.grad(loss, state.params)
+        state.apply_gradients(grads)
+        return state, _pretrain_metrics(state, loss, **{"train/pos_acc": acc})
+
+    return train_step
+
+
+def make_puzzle_eval_step(model: nn.Module) -> Callable:
+    """Validation (``vit_tpu/train/step.py:191-200``): ``valid/loss`` and
+    ``valid/pos_acc`` in eval mode, called as the MAE eval step."""
+    from vit_tpu_torch.models.puzzle import puzzle_loss
+
+    def eval_step(images: torch.Tensor,
+                  generator: "torch.Generator | None" = None,
+                  noise: "torch.Tensor | None" = None):
+        loss, acc = puzzle_loss(*_eval(model, images, noise, generator))
+        return {"valid/loss": loss, "valid/pos_acc": acc}
+
+    return eval_step

@@ -31,10 +31,15 @@ pipeline when it builds, else by Pillow (the entry prints which); a
 dataset or backend whose package this machine lacks is refused before the
 first batch, with a message naming the package.
 
-Ported too: checkpoints and resume, and the metrics log. The rest of the
-flag set is refused with a message naming its ROADMAP item:
-``--init_from``, the scanned and pipelined stacks and device meshes.
-``--no_wandb`` is accepted; the port logs to files only.
+Ported too: checkpoints and resume, the metrics log, and ``--init_from
+<ckpt_dir>``, the fine-tuning hand-off from a ``vit_tpu_torch.train_mae``
+or ``train_puzzle`` checkpoint ("best", else "last"): the source is told
+apart as the JAX entry tells it (an MAE's parameters sit under
+``encoder.``, a Puzzle's are ViT-shaped), and its patch projection and stack
+(plus MAE's cls token, or Puzzle's ``pos_emb``) replace the fresh ones. The
+rest of the flag set is refused with a message naming its ROADMAP item: the
+scanned and pipelined stacks and device meshes. ``--no_wandb`` is
+accepted; the port logs to files only.
 """
 
 from __future__ import annotations
@@ -114,9 +119,6 @@ def check_ported(args: argparse.Namespace) -> None:
     dataset or backend whose package this machine lacks, and on a dataset
     whose --data_dir is not given or not a directory."""
     refused = [
-        (args.init_from is not None,
-         "--init_from: the MAE/Puzzle hand-off comes with their models "
-         "(ROADMAP Queue A #6)"),
         (args.scan_layers,
          "--scan_layers: the port runs the unrolled stack (ROADMAP Queue A "
          "#10, no port needed)"),
@@ -193,6 +195,25 @@ def get_loaders(args):
                                 shard_id=0, num_shards=1)
 
 
+def init_from(model: ViTClassifier, directory: str) -> str:
+    """Load a pretrained encoder from the checkpoint under ``directory``
+    into ``model`` (``train_vit.py``'s ``--init_from``): an MAE's parameters
+    sit under ``encoder.``, a Puzzle's are ViT-shaped. Returns the source's
+    name, "MAE" or "Puzzle"."""
+    from vit_tpu_torch.models.mae import load_encoder_into_vit
+    from vit_tpu_torch.models.puzzle import load_puzzle_into_vit
+    from vit_tpu_torch.train.checkpoint import load_params
+
+    pre = load_params(directory)
+    if any(k.startswith("encoder.") for k in pre):
+        source, new = "MAE", load_encoder_into_vit(pre, model.state_dict())
+    else:
+        source, new = "Puzzle", load_puzzle_into_vit(pre, model.state_dict())
+    model.load_state_dict(new)
+    print(f"INIT encoder from {source} checkpoint {directory}", flush=True)
+    return source
+
+
 def main(argv=None) -> dict:
     """Train as the flags say; returns the logged train and eval metrics."""
     args = parse_args(argv)
@@ -213,6 +234,8 @@ def main(argv=None) -> dict:
                            out_dir=args.run_dir, device=device)
     model = ViTClassifier(cfg, num_classes=args.num_classes, device=device)
     init_params_(model, torch.Generator(device=device).manual_seed(args.seed))
+    if args.init_from:
+        init_from(model, args.init_from)
     dropout_gen = torch.Generator(device=device)
     tx = make_optimizer(args.lr, args.warmup_steps, args.train_steps,
                         args.min_lr, args.weight_decay, clip_norm=None)

@@ -3,8 +3,8 @@
 
   - ``nn.Linear``: U(±1/√fan_in) for the weight and the bias;
   - embeddings (``pos_emb``, ``extra_emb``, VideoGPT's ``tok_embed`` and
-    ``pos_embed``): N(0, 1), ``normal_embed_init_`` (``normal_embed_init``,
-    :47-49);
+    ``pos_embed``, MAE's ``cls_token`` and ``mask_token``): N(0, 1),
+    ``normal_embed_init_`` (``normal_embed_init``, :47-49);
   - ``codebook``: U(±1/C) (``vit_tpu/quantize/vq.py:28-35``).
 
 ``init_convnext_`` fills the perceptual ConvNeXt with the flax initialisers
@@ -26,7 +26,8 @@ import torch
 from torch import nn
 
 
-EMBEDDINGS = ("pos_emb", "extra_emb", "tok_embed", "pos_embed")
+EMBEDDINGS = ("pos_emb", "extra_emb", "tok_embed", "pos_embed", "cls_token",
+              "mask_token")
 
 
 @torch.no_grad()
