@@ -144,6 +144,26 @@ false``. Phases, one JSON line each:
                 ``train_vit --init_from`` that checkpoint at ViT-B/16
                 @256, whose logits right after the hand-off equal a
                 classifier's that ``load_encoder_into_vit`` built from it;
+  3d. tatitok — the Bytedance stack at ``train_tatitok.py``'s defaults
+                (TATiTok-S at image 256: S 513, 8 heads; codebook 16384 ×
+                12 with L2): K5 at (8192, 16384, 12) against fp64 scores,
+                K1/K2 at (32, 513, 8 heads × 64) with a bias within
+                ``packed_kernels``' limits, with times, bounds and SDPA's;
+                one step at bs 32 with the ConvNeXt-S perceptual loss (K1
+                16, K2 16, K3 66, K4 33, K5 1) against the plain versions
+                from the same weights within ``STEP_LOSS_REL`` and
+                ``STEP_GRAD_NORM_REL``, its CUDA-event median and peak
+                memory; the same step under remat ("everything", "dots":
+                K1 32, the same limits against the plain remat-off step, a
+                lower peak); an fp32 step at bs 8 (cut from 32) within
+                ``FP32_STEP_REL``; ``python -m vit_tpu_torch.train_tatitok``
+                at image 256 with ``--micro_steps 2 --clustering_vq``: a
+                SIGTERM inside an accumulation, then ``--resume`` with the
+                usage EMA restored; a TATiTok-S at image 64 with 64 codes
+                and ``train_videogpt`` over it (VideoGPT-B, S 1024, codebook
+                16384) for 2 steps; a Bytedance folder written from it,
+                whose ``load_tokenizer`` codes equal a direct fp32 encode
+                (without PyYAML, the refusal naming it);
   4. slice    — export → load → HTTP server; concurrent /encode requests,
                 /decode of the indices; checks shapes, ranges, a 400, that
                 every kernel launched during those requests, that the served
@@ -187,7 +207,8 @@ false``. Phases, one JSON line each:
                 first's loss and gradient norm against the plain versions
                 from the same generator state;
   9. videogpt_rollout — export → load → HTTP /generate at bs 1 and bs 8: 512
-                conditioning codes in, 1024 out, the prefix intact, every
+                conditioning codes in, 128 generated (two frames: cut from
+                eight to keep the run in its time), the prefix intact, every
                 code in range, equal to a direct generate call, 12 K6
                 launches per rollout (the prefill); the prefill's logits
                 against the plain versions and the first generated code equal
@@ -240,13 +261,14 @@ false``. Phases, one JSON line each:
                 after step 5 exits 0 with PREEMPTED and a "last" at step 5
                 or later; ``--resume`` continues from it for 3 steps; 3
                 steps each under ``--mixed false`` and
-                ``--perceptual_quant int8``; ``--quantizer fsq`` (K1-K4, no
-                K5; the usage finite), ``--latent_dim 6`` (K5's runtime-D
-                form), ``--ema_decay 0.999`` (the "last"
-                average apart from the parameters, then one ``--resume``
-                step that continues it: e·d + p·(1 − d) of the saved one)
-                and ``--watch`` (each histogram counts its tensor's
-                elements; the step time beside the plain run's); these
+                ``--perceptual_quant int8``, the first with ``--latent_dim
+                6`` (K5's runtime-D form), the second with ``--watch``
+                (each histogram counts its tensor's elements; the step time
+                beside the plain run's); ``--quantizer fsq`` (K1-K4, no
+                K5; the usage finite) with ``--ema_decay 0.999`` (the
+                "last" average apart from the parameters, then one
+                ``--resume`` step that continues it: e·d + p·(1 − d) of the
+                saved one); these
                 call the entry's ``main`` in this process with the
                 launches counted (K1-K5, their fp32 forms, K12a/K12b); step
                 times; a TiTok-B
@@ -257,8 +279,8 @@ false``. Phases, one JSON line each:
                 (``runs/titok-synthetic/8px_64px_S_32_1024.jsonl``: TiTok-S
                 at image 64, bs 64, 25 epochs of 100 steps on the shapes
                 stream) with its ``_config`` through the entry's ``main``,
-                for its first 6 epochs (``--converge_epochs 25``: the whole
-                run): the median recon loss of the logs at steps 426-576
+                for its first 4 epochs (``--converge_epochs 25``: the whole
+                run): the median recon loss of the logs at steps 226-376
                 within twice the TPU run's and below a tenth of step 1's
                 (the whole run: also the last four logs' median); the curve
                 beside the TPU run's; the run's "best" weights encode 128
@@ -301,7 +323,8 @@ false``. Phases, one JSON line each:
                 every gradient and parameter bit for bit after every step.
 
 ``--entries_only`` runs the device, build and the last five phases alone,
-``--pretrain_only`` the device, build and pretrain phases (no kernels
+``--pretrain_only`` the device, build and pretrain phases, and
+``--tatitok_only`` the device, build and tatitok phases (no kernels
 line, no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
@@ -518,7 +541,7 @@ VIDEO_STEP_LAUNCHES = dict(attention_packed_fwd=6, attention_packed_bwd=0,
 # The prefill's last-position logits with the kernels and through the plain
 # versions: bf16 noise through 12 layers, as the TiTok-B slice's latents.
 PREFILL_MAX_REL = 2e-2
-ROLLOUT_COND, ROLLOUT_GEN = 8, 8    # frames in, frames out
+ROLLOUT_COND, ROLLOUT_GEN = 8, 2    # frames in, frames out (cut from 8 out)
 # Published peaks of one H100 SXM (NVIDIA's data sheet; dense, at 700 W):
 # the bound of a kernel is the larger of its operations over the peak rate
 # for their type and its bytes (each input read once, each output written
@@ -883,9 +906,11 @@ def plain_versions():
     whatever device the tensors are: the reference run. The autograd
     Functions look the kernels up in their modules when they run, so the
     forward, the backward and inference all follow."""
+    import vit_tpu_torch.quantize.bytedance_vq as quant_bvq
     import vit_tpu_torch.quantize.vq as quant_vq
 
-    routes = [(k_attn, "attention_packed_fwd", k_attn.attention_packed_fwd_ref),
+    routes = [(quant_bvq, "nearest_code", k_vq.nearest_code_ref),
+              (k_attn, "attention_packed_fwd", k_attn.attention_packed_fwd_ref),
               (k_attn, "attention_packed_bwd", k_attn.attention_packed_bwd_ref),
               (k_attn, "attention_fwd", k_attn.attention_fwd_ref),
               (k_attn, "attention_bwd", k_attn.attention_bwd_ref),
@@ -1056,6 +1081,67 @@ def hopper_attention_ptxas() -> dict:
                                       "unpacked_bwd_dkdv_kernel")}
 
 
+def k1_row(b: int, s: int, h: int, causal: bool, gen) -> dict:
+    """K1 with a bias at (b, s, h heads × 64), bf16, against its plain
+    version: the output within ``K1_MAX_ABS``, ``K1_MEAN_ABS`` and
+    ``WGMMA_FWD_MEAN_REL``; with statistics the same bits, m and l within
+    ``K1_STATS_REL``."""
+    width = h * 64
+    qkv = torch.randn(b, s, 3 * width, device="cuda",
+                      generator=gen).bfloat16()
+    bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
+    out = k_attn.flash_attention_packed(qkv, h, causal=causal, qkv_bias=bias)
+    out_s, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
+                                              emit_stats=True)
+    torch.cuda.synchronize()
+    ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(
+        qkv, bias, h, causal, emit_stats=True)
+    diff = (out.float() - ref.float()).abs()
+    row = dict(B=b, S=s, H=h, causal=causal, max_abs=diff.max().item(),
+               mean_abs=diff.mean().item(),
+               mean_rel=rel_errors(out, ref)["mean_rel"],
+               stats_out_identical=bool(torch.equal(out, out_s)),
+               m_rel=((m - m_ref).abs().max() / m_ref.abs().max()).item(),
+               l_rel=((l - l_ref).abs() / l_ref).max().item())
+    require(bool(torch.isfinite(out).all()), f"K1 non-finite at {row}")
+    require(row["max_abs"] <= K1_MAX_ABS and row["mean_abs"] <= K1_MEAN_ABS
+            and row["mean_rel"] <= WGMMA_FWD_MEAN_REL,
+            f"K1 disagrees with its plain version: {row}")
+    require(row["stats_out_identical"] and row["m_rel"] <= K1_STATS_REL
+            and row["l_rel"] <= K1_STATS_REL,
+            f"K1's statistics disagree with the plain version: {row}")
+    return row
+
+
+def k2_row(b: int, s: int, h: int, causal: bool, gen) -> dict:
+    """K2 with a bias at (b, s, h heads × 64), bf16, against its plain
+    version on K1's (m, l): dqkv and dbias within ``BWD_MAX_REL``,
+    ``BWD_MEAN_REL`` and ``WGMMA_BWD_MEAN_REL``."""
+    width = h * 64
+    qkv = torch.randn(b, s, 3 * width, device="cuda",
+                      generator=gen).bfloat16()
+    bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
+    dout = torch.randn(b, s, width, device="cuda", generator=gen).bfloat16()
+    _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
+                                          emit_stats=True)
+    dqkv, dbias = k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h,
+                                              causal)
+    torch.cuda.synchronize()
+    dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
+        qkv, bias, dout, m, l, h, causal)
+    row = dict(B=b, S=s, H=h, causal=causal,
+               dqkv=rel_errors(dqkv, dqkv_ref),
+               dbias=rel_errors(dbias, dbias_ref))
+    require(bool(torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()),
+            f"K2 non-finite at {row}")
+    for key in ("dqkv", "dbias"):
+        require(row[key]["max_rel"] <= BWD_MAX_REL
+                and row[key]["mean_rel"] <= BWD_MEAN_REL
+                and row[key]["mean_rel"] <= WGMMA_BWD_MEAN_REL,
+                f"K2 disagrees with its plain version: {row}")
+    return row
+
+
 def packed_kernels(gen) -> dict:
     """K1 and K2 against their plain versions at the paths' shapes (TiTok-B's
     S 320 at bs 8 and 64, ViT-B/16's S 197 and ViT-L/16's S 257 with their
@@ -1073,40 +1159,12 @@ def packed_kernels(gen) -> dict:
     # path), and VideoGPT-B's causal S 512 (16 frames of a 32-code
     # tokenizer, the train_videogpt entry's arm b). With stats the output
     # must be the same bits, m and l fp32-close.
-    k1_max, k1_rows = 0.0, []
-    for b, s, h, causal in [(8, 320, 12, False), (TRAIN_BS, 320, 12, False),
-                            (3, 77, 12, True), (2, 768, 12, False),
-                            (VIDEO_BS * VIDEOGPT["max_frames"], 128, 6, False),
-                            (4, 197, 12, False), (4, 257, 16, False),
-                            (VIDEO_BS, 512, 12, True)]:
-        width = h * 64
-        qkv = torch.randn(b, s, 3 * width, device="cuda",
-                          generator=gen).bfloat16()
-        bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
-        out = k_attn.flash_attention_packed(qkv, h, causal=causal,
-                                            qkv_bias=bias)
-        out_s, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
-                                                  emit_stats=True)
-        torch.cuda.synchronize()
-        ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(
-            qkv, bias, h, causal, emit_stats=True)
-        diff = (out.float() - ref.float()).abs()
-        row = dict(B=b, S=s, H=h, causal=causal, max_abs=diff.max().item(),
-                   mean_abs=diff.mean().item(),
-                   mean_rel=rel_errors(out, ref)["mean_rel"],
-                   stats_out_identical=bool(torch.equal(out, out_s)),
-                   m_rel=((m - m_ref).abs().max()
-                          / m_ref.abs().max()).item(),
-                   l_rel=((l - l_ref).abs() / l_ref).max().item())
-        k1_rows.append(row)
-        require(bool(torch.isfinite(out).all()), f"K1 non-finite at {row}")
-        require(row["max_abs"] <= K1_MAX_ABS and row["mean_abs"] <= K1_MEAN_ABS
-                and row["mean_rel"] <= WGMMA_FWD_MEAN_REL,
-                f"K1 disagrees with its plain version: {row}")
-        require(row["stats_out_identical"] and row["m_rel"] <= K1_STATS_REL
-                and row["l_rel"] <= K1_STATS_REL,
-                f"K1's statistics disagree with the plain version: {row}")
-        k1_max = max(k1_max, row["max_abs"])
+    k1_rows = [k1_row(b, s, h, causal, gen) for b, s, h, causal in [
+        (8, 320, 12, False), (TRAIN_BS, 320, 12, False), (3, 77, 12, True),
+        (2, 768, 12, False),
+        (VIDEO_BS * VIDEOGPT["max_frames"], 128, 6, False),
+        (4, 197, 12, False), (4, 257, 16, False), (VIDEO_BS, 512, 12, True)]]
+    k1_max = max(row["max_abs"] for row in k1_rows)
     times = {}
     for bs in (8, 64):
         qkv = torch.randn(bs, 320, 3 * 768, device="cuda",
@@ -1146,35 +1204,11 @@ def packed_kernels(gen) -> dict:
     # K2: the flagship step's shape, a ragged causal one, the longest S, S
     # not a multiple of 8, the ViT shapes and VideoGPT-B's causal S 512;
     # (m, l) from K1, the same for kernel and plain.
-    k2_max, k2_rows = 0.0, []
-    for b, s, h, causal in [(64, 320, 12, False), (3, 77, 12, True),
-                            (2, 768, 12, False), (2, 130, 12, True),
-                            (4, 197, 12, False), (4, 257, 16, False),
-                            (VIDEO_BS, 512, 12, True)]:
-        width = h * 64
-        qkv = torch.randn(b, s, 3 * width, device="cuda",
-                          generator=gen).bfloat16()
-        bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
-        dout = torch.randn(b, s, width, device="cuda", generator=gen).bfloat16()
-        _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
-                                              emit_stats=True)
-        dqkv, dbias = k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h,
-                                                  causal)
-        torch.cuda.synchronize()
-        dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
-            qkv, bias, dout, m, l, h, causal)
-        row = dict(B=b, S=s, H=h, causal=causal,
-                   dqkv=rel_errors(dqkv, dqkv_ref),
-                   dbias=rel_errors(dbias, dbias_ref))
-        k2_rows.append(row)
-        require(bool(torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()),
-                f"K2 non-finite at {row}")
-        for key in ("dqkv", "dbias"):
-            require(row[key]["max_rel"] <= BWD_MAX_REL
-                    and row[key]["mean_rel"] <= BWD_MEAN_REL
-                    and row[key]["mean_rel"] <= WGMMA_BWD_MEAN_REL,
-                    f"K2 disagrees with its plain version: {row}")
-        k2_max = max(k2_max, row["dqkv"]["max_abs"])
+    k2_rows = [k2_row(b, s, h, causal, gen) for b, s, h, causal in [
+        (64, 320, 12, False), (3, 77, 12, True), (2, 768, 12, False),
+        (2, 130, 12, True), (4, 197, 12, False), (4, 257, 16, False),
+        (VIDEO_BS, 512, 12, True)]]
+    k2_max = max(row["dqkv"]["max_abs"] for row in k2_rows)
     b, s = TRAIN_BS, 320
     qkv = torch.randn(b, s, 3 * 768, device="cuda", generator=gen).bfloat16()
     bias = torch.randn(3 * 768, device="cuda", generator=gen)
@@ -4881,20 +4915,20 @@ TITOK_ENTRY = ("--dataset", "synthetic", "--bs", "64", "--perceptual_weights",
 PREEMPT_AFTER = 5
 SHORT_STEPS = 3
 # The committed TPU run the S-scale run is held against, and the limits:
-# twice the TPU run's median recon loss over the logs at steps 426-576 (and
+# twice the TPU run's median recon loss over the logs at steps 226-376 (and
 # over its last four logs when the whole run is made), and a tenth of the
 # run's own step-1 value.
 TPU_RUN = ROOT / "runs" / "titok-synthetic" / "8px_64px_S_32_1024.jsonl"
-CONVERGE_WINDOW = (426, 576)
+CONVERGE_WINDOW = (226, 376)
 CONVERGE_FACTOR = 2.0
 CONVERGE_DROP = 0.1
 # the steps of the curve printed beside the TPU run's
 CURVE_STEPS = (1, 26, 101, 501, 1001, 2001)
 # Queue C #1 with trained weights: images of a seed the run never drew
 HELD_OUT_SEED, HELD_OUT_IMAGES = 123457, 128
-# epochs of the S-scale run in a whole smoke run (6: its first 600 steps,
-# logs up to step 576)
-SMOKE_CONVERGE_EPOCHS = 6
+# epochs of the S-scale run in a whole smoke run (4: its first 400 steps,
+# logs up to step 376; cut from 6 to keep the run in its time)
+SMOKE_CONVERGE_EPOCHS = 4
 
 
 def entry_lines(proc: subprocess.Popen, stop: str, lines: list,
@@ -5089,24 +5123,61 @@ def phase_train_titok_entry(card: str, work: Path) -> "tuple[dict, dict]":
     require_launched(b, tokenizer + ("convnext_tail_fwd", "convnext_tail_bwd"))
     short = {}
     runs = [b]
-    for name, flags, kernels, key in (
-            ("fp32", ("--mixed", "false"), tokenizer
-             + ("convnext_tail_fwd", "convnext_tail_bwd"), "fp32_launches"),
-            ("int8", ("--perceptual_quant", "int8"), tokenizer
-             + ("convnext_tail_fwd_q8", "convnext_tail_bwd_q8"), "launches")):
-        run = run_titok_main(*TITOK_ENTRY, *dirs(name), *flags, "--epochs",
-                             "1", "--steps_per_epoch", str(SHORT_STEPS))
-        require(len(run["steps"]) == SHORT_STEPS,
-                f"{name} run's steps: {run['lines']}")
-        require_launched(run, kernels, key)
-        short[name] = entry_summary(run)
-        runs.append(run)
+    # --mixed false with --latent_dim 6 (the step's K5 launches take its
+    # runtime-D form), and --perceptual_quant int8 with --watch (the
+    # histogram step on log steps; each histogram counts its tensor's
+    # elements): two features a run
+    from vit_tpu_torch.bridge import _flax_key
+    from vit_tpu_torch.utils.logging import MetricsLogger
+
+    logged: list = []
+    log_histograms = MetricsLogger.log_histograms
+
+    def keep(self, hists, step=None):
+        logged.append(hists)
+        return log_histograms(self, hists, step)
+
+    MetricsLogger.log_histograms = keep
+    try:
+        for name, flags, kernels, key in (
+                ("fp32", ("--mixed", "false", "--latent_dim", "6"), tokenizer
+                 + ("convnext_tail_fwd", "convnext_tail_bwd"),
+                 "fp32_launches"),
+                ("int8", ("--perceptual_quant", "int8", "--watch"), tokenizer
+                 + ("convnext_tail_fwd_q8", "convnext_tail_bwd_q8"),
+                 "launches")):
+            run = run_titok_main(*TITOK_ENTRY, *dirs(name), *flags,
+                                 "--epochs", "1", "--steps_per_epoch",
+                                 str(SHORT_STEPS))
+            require(len(run["steps"]) == SHORT_STEPS,
+                    f"{name} run's steps: {run['lines']}")
+            require_launched(run, kernels, key)
+            short[name] = entry_summary(run)
+            runs.append(run)
+    finally:
+        MetricsLogger.log_histograms = log_histograms
+    measured["k5_any_dim_launches"] = runs[1]["launches"]["vq_nearest"]
+    sizes = {_flax_key(n, t.ndim)[0]: t.numel() for n, t in load_params(
+        str(work / "int8" / "ckpt"), "last").items()}
+    require(len(logged) == SHORT_STEPS and all(
+        sorted(h) == sorted([f"{p}/{k}" for p in ("grad_hist", "param_hist")
+                             for k in sizes])
+        and all(counts.sum() == sizes[k.split("/", 1)[1]]
+                for k, (counts, _) in h.items()) for h in logged),
+        f"--watch histograms: {len(logged)} log steps")
+    short["int8"].update(histograms=len(logged[0]),
+                         plain_step_times=[t for _, _, t in b["steps"]])
     short_epoch = ("--epochs", "1", "--steps_per_epoch", str(SHORT_STEPS))
 
-    # --quantizer fsq: the same step without K5; the bitmap of the CLI's
-    # codebook_size takes what FSQ's wrapped indices reach of it
-    run = run_titok_main(*TITOK_ENTRY, *dirs("fsq"), "--quantizer", "fsq",
-                         *short_epoch)
+    # --quantizer fsq with --ema_decay 0.999 (warmup 1, so the parameters
+    # move): the same step without K5, the bitmap of the CLI's
+    # codebook_size taking what FSQ's wrapped indices reach of it; the
+    # "last" average apart from the parameters, and one --resume step that
+    # continues it (e·d + p·(1 − d) of the saved average, closer than the
+    # same update of an average re-seeded from the saved parameters)
+    ema_flags = (*TITOK_ENTRY, *dirs("ema"), "--quantizer", "fsq",
+                 "--ema_decay", "0.999", "--warmup_steps", "1")
+    run = run_titok_main(*ema_flags, *short_epoch)
     usage = [float(m.group(1)) for m in (re.search(r"usage=(\S+)", line)
                                          for line in run["lines"]) if m]
     require(len(run["steps"]) == SHORT_STEPS and run["launches"][
@@ -5114,27 +5185,7 @@ def phase_train_titok_entry(card: str, work: Path) -> "tuple[dict, dict]":
         and all(np.isfinite(usage)), f"fsq run: {run['lines']}")
     require_launched(run, tokenizer[:2] + ("convnext_tail_fwd",
                                            "convnext_tail_bwd"))
-    short["fsq"] = dict(entry_summary(run), usage=usage)
-    runs.append(run)
-
-    # --latent_dim 6: the step's K5 launches take its runtime-D form
-    run = run_titok_main(*TITOK_ENTRY, *dirs("d6"), "--latent_dim", "6",
-                         *short_epoch)
-    require(len(run["steps"]) == SHORT_STEPS,
-            f"--latent_dim 6 run's steps: {run['lines']}")
-    require_launched(run, tokenizer + ("convnext_tail_fwd",
-                                       "convnext_tail_bwd"))
-    short["latent_dim_6"] = entry_summary(run)
-    measured["k5_any_dim_launches"] = run["launches"]["vq_nearest"]
-    runs.append(run)
-
-    # --ema_decay 0.999 (warmup 1, so the parameters move): the "last"
-    # average apart from the parameters, and one --resume step that
-    # continues it (e·d + p·(1 − d) of the saved average, closer than the
-    # same update of an average re-seeded from the saved parameters)
-    ema_flags = (*TITOK_ENTRY, *dirs("ema"), "--ema_decay", "0.999",
-                 "--warmup_steps", "1")
-    run = run_titok_main(*ema_flags, *short_epoch)
+    short["fsq"] = dict(usage=usage)
     runs.append(run)
     saved = load_params(str(work / "ema" / "ckpt"), "last", ema=True)
     params = load_params(str(work / "ema" / "ckpt"), "last")
@@ -5162,35 +5213,6 @@ def phase_train_titok_entry(card: str, work: Path) -> "tuple[dict, dict]":
             and continued < reseeded, f"ema runs: {short['ema']}")
     del saved, params, after, stepped
 
-    # --watch: the histogram step on log steps; each histogram counts its
-    # tensor's elements
-    from vit_tpu_torch.bridge import _flax_key
-    from vit_tpu_torch.utils.logging import MetricsLogger
-
-    logged: list = []
-    log_histograms = MetricsLogger.log_histograms
-
-    def keep(self, hists, step=None):
-        logged.append(hists)
-        return log_histograms(self, hists, step)
-
-    MetricsLogger.log_histograms = keep
-    try:
-        run = run_titok_main(*TITOK_ENTRY, *dirs("watch"), "--watch",
-                             *short_epoch)
-    finally:
-        MetricsLogger.log_histograms = log_histograms
-    runs.append(run)
-    sizes = {_flax_key(n, t.ndim)[0]: t.numel() for n, t in load_params(
-        str(work / "watch" / "ckpt"), "last").items()}
-    require(len(logged) == SHORT_STEPS and all(
-        sorted(h) == sorted([f"{p}/{k}" for p in ("grad_hist", "param_hist")
-                             for k in sizes])
-        and all(counts.sum() == sizes[k.split("/", 1)[1]]
-                for k, (counts, _) in h.items()) for h in logged),
-        f"--watch histograms: {len(logged)} log steps")
-    short["watch"] = dict(entry_summary(run), histograms=len(logged[0]),
-                          plain_step_times=[t for _, _, t in b["steps"]])
     ckpt = checkpoint_round_trip(work)
     emit("train_titok_entry", card=card, preempted=entry_summary(a),
          last_meta=meta, resumed_at=resumed[0], resumed=entry_summary(b),
@@ -5596,7 +5618,7 @@ def phase_train_videogpt_entry(card: str, work: Path,
 def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
                            card: str) -> dict:
     """The greedy rollout served over HTTP at bs 1 and bs 8: 8 frames of
-    codes in, 16 out. Returns the launches of the served rollouts."""
+    codes in, 2 generated. Returns the launches of the served rollouts."""
     frame = VIDEOGPT["frame_size"]
     n_cond, n_gen = ROLLOUT_COND * frame, ROLLOUT_GEN * frame
     cond_all = tokens[:8, :ROLLOUT_COND].reshape(8, n_cond)
@@ -5648,8 +5670,7 @@ def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
         with plain_versions():
             plain = model.prefill(prefix, init_cache(model, 8))[0]
     # The device's share of a rollout: a profile of one bs-8 rollout of one
-    # frame (the prefill and 63 decode steps; a profile of all 511 steps
-    # would hold some 10^6 events).
+    # frame (the prefill and 63 decode steps).
     cond8 = torch.from_numpy(cond_np)
     results[8]["profile_one_frame"] = profile_window(
         lambda: generate(model, cond8, frame))
@@ -6903,6 +6924,461 @@ def phase_pretrain(card: str) -> "tuple[dict, dict, dict]":
     return summary, launches, fp32_d32
 
 
+TATITOK_S = dict(image_size=256, patch_size=16, latent_tokens=256,
+                 codebook_size=16384, latent_dim=12, transformer="small")
+TATITOK_BS = 32          # train_tatitok.py's --bs
+TATITOK_FP32_BS = 8      # the fp32 step's batch, cut from 32: its plain
+                         # versions run on the card too
+# TATiTok-S at image 256: S 513 in the encoder (256 patches, the class
+# token, 256 latents) and the decoder; K1/K2 once a layer of each 8-layer
+# stack; ConvNeXt-S as the flagship step's (K3 66, K4 33); K5 once
+TATITOK_STEP_LAUNCHES = dict(STEP_LAUNCHES, attention_packed_fwd=16,
+                             attention_packed_bwd=16)
+# remat recomputes each block's forward in the backward: K1 again
+TATITOK_REMAT = ("everything", "dots")
+TATITOK_ENTRY = ("--dataset", "synthetic", "--no_wandb", "--image_size",
+                 "256", "--perceptual_weights", "random", "--micro_steps",
+                 "2", "--clustering_vq", "--log_every", "2")
+TATITOK_PREEMPT_AT = 3
+TATITOK_PRIOR = ("--dataset", "synthetic", "--no_wandb", "--latent_tokens",
+                 "64", "--epochs", "1", "--steps_per_epoch", "2",
+                 "--log_every", "1")
+
+
+def tatitok_kernels(gen) -> dict:
+    """(a) K5 at TATiTok-S's train step, N 8192 (32 × 256 latents) × C
+    16384 × D 12 with L2 normalisation, held to fp64 scores by ``k5_hold``
+    (its tuned D-12 form had been held on the card at C ≤ 2048 only), and
+    K1 and K2 at its attention, (32, 513, 8 heads × 64) with a bias,
+    within the limits of ``packed_kernels``; their times, bounds and
+    library calls. Returns the kernels line's ``tatitok`` arm of each."""
+    n, c = TATITOK_BS * 256, TATITOK_S["codebook_size"]
+    k5 = k5_hold(n, c, 12, True, gen)
+    z = torch.randn(n, 12, device="cuda", generator=gen)
+    cb = (torch.rand(c, 12, device="cuda", generator=gen) * 2 - 1) / c
+    k5_ms = median_ms(lambda: k_vq.nearest_code(z, cb, l2_normalize=True))
+    k5_plain = median_ms(lambda: k_vq.nearest_code_ref(
+        z, cb, l2_normalize=True), reps=5)
+    k5_bound = bound(2 * n * c * 12, (n + c) * 12 * 4 + n * 4,
+                     peak=PEAK_FP32_FLOPS)
+    k1 = k1_row(TATITOK_BS, 513, 8, False, gen)
+    k2 = k2_row(TATITOK_BS, 513, 8, False, gen)
+    qkv = torch.randn(TATITOK_BS, 513, 3 * 512, device="cuda",
+                      generator=gen).bfloat16()
+    bias = torch.randn(3 * 512, device="cuda", generator=gen)
+    dout = torch.randn(TATITOK_BS, 513, 512, device="cuda",
+                       generator=gen).bfloat16()
+    k1_ms = median_ms(lambda: k_attn.attention_packed_fwd(
+        qkv, bias, 8, False, emit_stats=True))
+    k1_plain = median_ms(lambda: k_attn.attention_packed_fwd_ref(
+        qkv, bias, 8, False, emit_stats=True), reps=5)
+    _, m, l = k_attn.attention_packed_fwd(qkv, bias, 8, False,
+                                          emit_stats=True)
+    k2_ms = median_ms(lambda: k_attn.attention_packed_bwd(
+        qkv, bias, dout, m, l, 8, False))
+    k2_plain = median_ms(lambda: k_attn.attention_packed_bwd_ref(
+        qkv, bias, dout, m, l, 8, False), reps=5)
+    heads = k_attn.split_heads(qkv, 8, bias)
+    sdpa = median_ms(lambda: F.scaled_dot_product_attention(*heads))
+    dh = dout.reshape(TATITOK_BS, 513, 8, 64).transpose(1, 2)
+    sdpa_bwd = sdpa_backward_ms(*heads, dh, False)["backward_ms"]
+    k1_bound = attention_bound(TATITOK_BS, 8, 513, False, False,
+                               extra_bytes=3 * 512 * 4)
+    k2_bound = attention_bound(TATITOK_BS, 8, 513, False, True,
+                               extra_bytes=3 * 512 * 8)
+    arms = {
+        "vq_nearest": dict(shape=[n, c, 12], l2_normalize=True, parity=k5,
+                           ms=k5_ms, plain_ms=k5_plain,
+                           bound_ms=k5_bound["bound_ms"],
+                           bound_by=k5_bound["bound_by"],
+                           plan=k_vq.plan(n, c, 12, torch.cuda.
+                                          get_device_properties(0)
+                                          .multi_processor_count)),
+        "attention_packed_fwd": dict(shape=[TATITOK_BS, 513, 8, 64],
+                                     parity=k1, ms=k1_ms, plain_ms=k1_plain,
+                                     bound_ms=k1_bound["bound_ms"],
+                                     bound_by=k1_bound["bound_by"],
+                                     library_ms=sdpa),
+        "attention_packed_bwd": dict(shape=[TATITOK_BS, 513, 8, 64],
+                                     parity=k2, ms=k2_ms, plain_ms=k2_plain,
+                                     bound_ms=k2_bound["bound_ms"],
+                                     bound_by=k2_bound["bound_by"],
+                                     library_ms=sdpa_bwd)}
+    emit("tatitok", part="kernels", arms=arms)
+    del z, cb, qkv, bias, dout, m, l, heads, dh
+    torch.cuda.empty_cache()
+    return arms
+
+
+@contextlib.contextmanager
+def remat_switch(policy: "str | None"):
+    """VIT_TPU_REMAT_POLICY set to ``policy`` (None: left as it is) for the
+    block only."""
+    saved = os.environ.get("VIT_TPU_REMAT_POLICY")
+    if policy is not None:
+        os.environ["VIT_TPU_REMAT_POLICY"] = policy
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("VIT_TPU_REMAT_POLICY", None)
+        else:
+            os.environ["VIT_TPU_REMAT_POLICY"] = saved
+
+
+def tatitok_config(**kw):
+    from vit_tpu_torch.models.tatitok import TATiTokConfig
+
+    return TATiTokConfig(**{**TATITOK_S, **kw})
+
+
+def tatitok_first_step(model, perceptual, images, policy=None) -> dict:
+    """One step of the entry's optimizer from the model's weights, through
+    the kernels, then from the same weights through the plain versions:
+    launches, metrics, gradient norms and the step's peak memory."""
+    from vit_tpu_torch.train.optim import wd_exclude_mask
+    from vit_tpu_torch.train.step import make_tatitok_train_step
+
+    def opt(m):
+        return make_optimizer(1e-4, 10000, 1_000_000, 1e-5, 1e-4,
+                              clip_norm=1.0, weight_decay_mask=wd_exclude_mask(
+                                  list(m.named_parameters())))
+
+    with remat_switch(policy):
+        plain = copy.deepcopy(model)
+        out = {}
+        for name, m in (("kernels", model), ("plain", plain)):
+            state = TrainState.create(m, opt(m))
+            usage = torch.zeros(m.config.codebook_size, device="cuda")
+            step = make_tatitok_train_step(m, perceptual_loss_fn=perceptual)
+            ctx = contextlib.nullcontext if name == "kernels" else \
+                plain_versions
+            with ctx():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                if name == "kernels":
+                    reset_launches()   # the main path's run starts here
+                _, _, metrics, recon = step(state, images, usage)
+                torch.cuda.synchronize()
+            out[name] = dict(
+                metrics={k: v.item() for k, v in metrics.items()},
+                grad_norm=state.opt_state.grad_norm.item(),
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                finite=bool(torch.isfinite(recon).all()))
+            if name == "kernels":
+                out["launches"] = read_launches()
+                out["step"], out["state"], out["usage"] = step, state, usage
+        del plain
+    return out
+
+
+def tatitok_step(card: str) -> dict:
+    """(b) One TATiTok-S step at train_tatitok.py's defaults (image 256,
+    bs 32, the entry's masked AdamW) with the random ConvNeXt-S perceptual
+    loss: launches (``TATITOK_STEP_LAUNCHES``), loss, perceptual loss and
+    gradient norm against the plain versions from the same weights
+    (``STEP_LOSS_REL``, ``STEP_GRAD_NORM_REL``); its CUDA-event median and
+    peak memory, and the median at bs 16 (a micro-step of the entry's
+    run); the same step under remat ("everything", "dots"): loss and
+    gradient norm against the plain remat-off step within the same limits,
+    K1 once more a layer, a lower peak and its median; an fp32 step
+    (``--mixed false``) at bs ``TATITOK_FP32_BS``, cut from 32, every launch
+    an fp32 form, within ``FP32_STEP_REL`` of its plain versions. Returns
+    the launches of the first step."""
+    from vit_tpu_torch.models.tatitok import TATiTok
+    from vit_tpu_torch.utils.init import init_tatitok_
+
+    model = TATiTok(tatitok_config())
+    init_tatitok_(model, torch.Generator().manual_seed(0))
+    weights = copy.deepcopy(model.state_dict())
+    model = model.cuda().train()
+    net = ConvNeXt(dtype=torch.bfloat16)
+    init_convnext_(net, torch.Generator().manual_seed(1))
+    perceptual = PerceptualLoss(net).cuda()
+    images = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (TATITOK_BS, 256, 256, 3)).astype(np.float32)).cuda()
+
+    def rel(a: dict, b: dict) -> dict:
+        return {k: abs(x - y) / abs(y) for k, x, y in (
+            ("train/loss", a["metrics"]["train/loss"],
+             b["metrics"]["train/loss"]),
+            ("train/perceptual_loss", a["metrics"]["train/perceptual_loss"],
+             b["metrics"]["train/perceptual_loss"]),
+            ("grad_norm", a["grad_norm"], b["grad_norm"]))}
+
+    def ok(r: dict) -> bool:
+        return (r["train/loss"] <= STEP_LOSS_REL
+                and r["train/perceptual_loss"] <= STEP_LOSS_REL
+                and r["grad_norm"] <= STEP_GRAD_NORM_REL)
+
+    first = tatitok_first_step(model, perceptual, images)
+    launches = first["launches"]
+    r = rel(first["kernels"], first["plain"])
+    step, state, usage = first.pop("step"), first.pop("state"), \
+        first.pop("usage")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = median_ms(lambda: step(state, images, usage), reps=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step16_ms = median_ms(lambda: step(state, images[:16], usage), reps=5)
+    emit("tatitok", part="step", what="TATiTok-S, image 256, bs 32, first "
+         "step kernels vs plain versions", card=card, launches=launches,
+         kernels=first["kernels"], plain=first["plain"], rel_diff=r,
+         step_ms=step_ms, images_per_s=TATITOK_BS / step_ms * 1e3,
+         peak_gb=peak, step_bs16_ms=step16_ms,
+         tolerance=dict(loss_rel=STEP_LOSS_REL,
+                        grad_norm_rel=STEP_GRAD_NORM_REL))
+    require(launches == TATITOK_STEP_LAUNCHES,
+            f"TATiTok-S step launched {launches}, expected "
+            f"{TATITOK_STEP_LAUNCHES}")
+    require(first["kernels"]["finite"] and all(
+        np.isfinite(v) for v in first["kernels"]["metrics"].values()),
+        f"TATiTok-S step: non-finite {first['kernels']}")
+    require(ok(r), f"TATiTok-S step, kernels vs plain versions: {r}")
+    del step, state, usage, model
+    torch.cuda.empty_cache()
+
+    remat = {}
+    for policy in TATITOK_REMAT:
+        m = TATiTok(tatitok_config(remat=True))
+        m.load_state_dict(weights)
+        m = m.cuda().train()
+        arm = tatitok_first_step(m, perceptual, images, policy)
+        step, st, use = arm.pop("step"), arm.pop("state"), arm.pop("usage")
+        with remat_switch(policy):
+            ms = median_ms(lambda: step(st, images, use), reps=5)
+        remat[policy] = dict(launches=arm["launches"],
+                             kernels=arm["kernels"],
+                             rel_diff_plain_no_remat=rel(arm["kernels"],
+                                                         first["plain"]),
+                             step_ms=ms,
+                             peak_gb=arm["kernels"]["peak_gb"])
+        del m, arm, step, st, use
+        torch.cuda.empty_cache()
+    emit("tatitok", part="remat", card=card, arms=remat,
+         no_remat=dict(step_ms=step_ms,
+                       first_step_peak_gb=first["kernels"]["peak_gb"]))
+    for policy, arm in remat.items():
+        require(arm["launches"] == dict(
+            TATITOK_STEP_LAUNCHES, attention_packed_fwd=32),
+            f"remat {policy}: launched {arm['launches']}")
+        require(ok(arm["rel_diff_plain_no_remat"]),
+                f"remat {policy} vs the plain remat-off step: {arm}")
+        require(arm["peak_gb"] < first["kernels"]["peak_gb"],
+                f"remat {policy}: peak {arm['peak_gb']} GB not below "
+                f"{first['kernels']['peak_gb']} GB")
+
+    m = TATiTok(tatitok_config(dtype=torch.float32))
+    m.load_state_dict(weights)
+    m = m.cuda().train()
+    net32 = ConvNeXt(dtype=torch.float32)
+    net32.load_state_dict(net.state_dict())
+    fp32 = tatitok_first_step(m, PerceptualLoss(net32).cuda(),
+                              images[:TATITOK_FP32_BS])
+    got32 = read_fp32_launches()
+    r32 = rel(fp32["kernels"], fp32["plain"])
+    emit("tatitok", part="fp32", what=f"TATiTok-S fp32 step at bs "
+         f"{TATITOK_FP32_BS} (cut from {TATITOK_BS})", card=card,
+         launches=fp32["launches"], fp32_launches=got32,
+         kernels=fp32["kernels"], plain=fp32["plain"], rel_diff=r32,
+         tolerance=dict(rel=FP32_STEP_REL))
+    require(not [k for k, v in fp32["launches"].items()
+                 if v and got32.get(k) != v],
+            f"fp32 TATiTok step: launches that were not fp32 forms: "
+            f"{fp32['launches']} vs {got32}")
+    require(all(v <= FP32_STEP_REL for v in r32.values()),
+            f"fp32 TATiTok step vs plain versions: {r32}")
+    for k, v in fp32["launches"].items():
+        launches[k] += v
+    del m, fp32, net, net32, perceptual, images, weights
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tatitok_steps(lines: list) -> "list[tuple[int, float, float]]":
+    """(s, loss, step_time) of each step line of the train_tatitok entry."""
+    out = []
+    for line in lines:
+        mt = re.match(r"e=\d+ s=(\d+) loss=(\S+) recon=\S+ quant=\S+ "
+                      r"usage=\S+ step_time=(\S+)", line)
+        if mt:
+            out.append((int(mt.group(1)), float(mt.group(2)),
+                        float(mt.group(3))))
+    return out
+
+
+def run_tatitok_main(*flags: str, kill_at: "int | None" = None,
+                     seen: "dict | None" = None) -> dict:
+    """``vit_tpu_torch.train_tatitok.main(flags)`` in this process, its
+    output captured, the kernels' launch counts set to 0 just before it and
+    read just after; SIGTERM to this process during train step ``kill_at``
+    (counted from 1); ``seen`` gets the clustering usage EMA the step
+    starts from."""
+    import vit_tpu_torch.train_tatitok as tt
+
+    factory = tt.make_tatitok_train_step
+
+    def make(model, **kw):
+        step = factory(model, **kw)
+        calls = [0]
+        if seen is not None and model.config.clustering_vq:
+            seen["embed_prob"] = model.quantize.embed_prob.clone()
+
+        def hooked(*args):
+            calls[0] += 1
+            if calls[0] == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(*args)
+
+        return hooked
+
+    buf = io.StringIO()
+    prev = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    reset_launches()
+    tt.make_tatitok_train_step = make
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = tt.main(list(flags))
+        torch.cuda.synchronize()
+    finally:
+        tt.make_tatitok_train_step = factory
+        signal.signal(signal.SIGTERM, prev)
+    lines = buf.getvalue().splitlines()
+    run = dict(cmd="-m vit_tpu_torch.train_tatitok " + " ".join(flags),
+               seconds=time.perf_counter() - t0, lines=lines,
+               steps=tatitok_steps(lines), launches=read_launches(),
+               state=state)
+    require(run["steps"] and all(np.isfinite(l) for _, l, _ in run["steps"]),
+            f"train_tatitok's step lines: {lines[-30:]}")
+    torch.cuda.empty_cache()
+    return run
+
+
+def tatitok_entry(work: Path) -> dict:
+    """(c) ``python -m vit_tpu_torch.train_tatitok`` on the synthetic
+    stream at image 256 (bs 32 in two micro-steps of 16,
+    ``--clustering_vq``, the random perceptual loss, a log every 2 steps):
+    SIGTERM during micro-step ``TATITOK_PREEMPT_AT`` (inside an
+    accumulation) saves "last" at that step with the usage EMA; ``--resume``
+    continues from it with that EMA to step 6. Returns both runs'
+    launches."""
+    ckpt = work / "tatitok"
+    common = (*TATITOK_ENTRY, "--ckpt_dir", str(ckpt), "--run_dir",
+              str(work / "runs"))
+    cut = run_tatitok_main(*common, "--steps_per_epoch", "100000",
+                           kill_at=TATITOK_PREEMPT_AT)
+    require(any(line.startswith(f"PREEMPTED: saving 'last' at step "
+                                f"{TATITOK_PREEMPT_AT}")
+                for line in cut["lines"]),
+            f"train_tatitok did not save at the SIGTERM: {cut['lines'][-6:]}")
+    saved = torch.load(ckpt / "last" / "state.pt", map_location="cpu",
+                       weights_only=True)
+    prob = saved["extra"]["vq_stats"]["embed_prob"]
+    mini = int(saved["opt_state"]["mini_step"])
+    seen: dict = {}
+    resumed = run_tatitok_main(*common, "--steps_per_epoch", "6",
+                               "--epochs", "1", "--resume", seen=seen)
+    require(any(line.startswith(f"RESUMED at step {TATITOK_PREEMPT_AT}")
+                for line in resumed["lines"]),
+            f"train_tatitok --resume: {resumed['lines'][:6]}")
+    require(bool(torch.equal(seen["embed_prob"].cpu(), prob)),
+            "train_tatitok --resume did not restore the usage EMA")
+    require(int(resumed["state"].step) == 6
+            and resumed["state"].opt_state.mini_step == 0,
+            f"train_tatitok --resume ended at step "
+            f"{int(resumed['state'].step)}")
+    for run in (cut, resumed):
+        require_launched(run, ("attention_packed_fwd", "attention_packed_bwd",
+                               "convnext_tail_fwd", "convnext_tail_bwd",
+                               "vq_nearest"))
+    emit("tatitok", part="entry", saved_step=int(saved["step"]),
+         saved_mini_step=mini, usage_ema_sum=float(prob.sum()),
+         runs={k: dict(cmd=r["cmd"], seconds=r["seconds"],
+                       steps=r["steps"], tail=r["lines"][-4:],
+                       launches={n: v for n, v in r["launches"].items()
+                                 if v})
+               for k, r in (("cut", cut), ("resumed", resumed))})
+    return {n: cut["launches"][n] + resumed["launches"][n]
+            for n in cut["launches"]}
+
+
+def tatitok_prior(work: Path) -> dict:
+    """(d) A TATiTok-S at image 64 with 64 latent tokens (2 entry steps),
+    then ``train_videogpt --tokenizer_ckpt`` that directory for 2 steps:
+    VideoGPT-B at its default S 1024 (16 frames × 64 codes) over codebook
+    16384; (e) a Bytedance folder written from that tokenizer's weights,
+    whose ``load_tokenizer`` (fp32, from its config.yaml) gives the codes
+    of a direct fp32 ``encode`` of the same weights; without PyYAML, the
+    refusal naming it. Returns the runs' launches."""
+    from vit_tpu_torch.models.pretrained import (load_tokenizer,
+                                                 write_bytedance_folder)
+    from vit_tpu_torch.models.tatitok import TATiTok
+
+    tok_dir = work / "tatitok64"
+    tok_run = run_tatitok_main(*TATITOK_PRIOR, "--ckpt_dir", str(tok_dir),
+                               "--run_dir", str(work / "runs"))
+    gpt = run_videogpt_main(
+        *GPT_ENTRY, "--tokenizer_ckpt", str(tok_dir), "--epochs", "1",
+        "--steps_per_epoch", "2", "--condition_frames", "15", "--ckpt_dir",
+        str(work / "gpt_tatitok"), "--run_dir", str(work / "runs"))
+    cfg = gpt["state"].params[0].shape[0]   # tok_embed: codes + SOS
+    require(cfg == 16384 + 1, f"the prior's vocabulary is {cfg - 1}")
+    require_launched(gpt, ("attention_packed_fwd", "vq_nearest",
+                           "attention_fwd", "attention_bwd"))
+    tok = load_tokenizer(str(tok_dir), torch.bfloat16, "cuda")
+    folder = write_bytedance_folder(tok.model, work / "oned_tokenizer")
+    frames = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (64, 64, 64, 3)).astype(np.float32)).cuda()
+    reset_launches()
+    try:
+        loaded = load_tokenizer(str(folder), torch.bfloat16, "cuda")
+    except NotImplementedError as e:
+        require("PyYAML" in str(e), f"the Bytedance refusal: {e}")
+        bytedance = dict(pyyaml=False, refusal=str(e))
+        print("tatitok: no PyYAML here; the Bytedance folder is refused "
+              "naming it", flush=True)
+    else:
+        codes = loaded.encode_indices(frames)
+        direct = TATiTok(tatitok_config(**{
+            k: getattr(tok.model.config, k) for k in TATITOK_S},
+            dtype=torch.float32))
+        direct.load_state_dict(tok.model.state_dict())
+        with torch.no_grad():
+            want = direct.cuda().eval().encode(frames)[1][
+                "min_encoding_indices"]
+        bytedance = dict(pyyaml=True, dtype=str(loaded.model.config.dtype),
+                         codes_equal=bool(torch.equal(codes, want)))
+        require(bytedance["codes_equal"],
+                "the Bytedance folder's codes differ from a direct encode")
+    byte_launches = read_launches()
+    emit("tatitok", part="prior", tokenizer=dict(
+        cmd=tok_run["cmd"], seconds=tok_run["seconds"],
+        steps=tok_run["steps"]), videogpt=dict(
+        cmd=gpt["cmd"], seconds=gpt["seconds"], steps=gpt["steps"],
+        launches={n: v for n, v in gpt["launches"].items() if v}),
+        bytedance=bytedance)
+    return {n: tok_run["launches"][n] + gpt["launches"][n]
+            + byte_launches[n] for n in gpt["launches"]}
+
+
+def phase_tatitok(card: str) -> "tuple[dict, dict]":
+    """The Bytedance stack: (a) the kernels at TATiTok-S's shapes, (b) its
+    train step with and without remat and in fp32, (c) the train_tatitok
+    entry across a SIGTERM and ``--resume``, (d) VideoGPT-B over a TATiTok
+    tokenizer and (e) a Bytedance folder. Returns the kernels line's
+    ``tatitok`` arms and the paths' launches."""
+    t0 = time.perf_counter()
+    arms = tatitok_kernels(torch.Generator(device="cuda").manual_seed(23))
+    launches = tatitok_step(card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tatitok_") as tmp:
+        for more in (tatitok_entry(Path(tmp)), tatitok_prior(Path(tmp))):
+            for n, v in more.items():
+                launches[n] += v
+    emit("tatitok", part="done", seconds=time.perf_counter() - t0,
+         launches=launches)
+    return arms, launches
+
+
 def entry_phases(card: str, converge_epochs: "int | None"
                  ) -> "tuple[dict, dict]":
     """The train_titok and train_videogpt entries' phases; their launches
@@ -6934,6 +7410,9 @@ def main(argv=None) -> None:
     parser.add_argument("--pretrain_only", action="store_true",
                         help="only the build and the pretrain phase; no "
                              "kernels line and no closing line")
+    parser.add_argument("--tatitok_only", action="store_true",
+                        help="only the build and the tatitok phase; no "
+                             "kernels line and no closing line")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
@@ -6943,6 +7422,9 @@ def main(argv=None) -> None:
     if args.pretrain_only:
         phase_pretrain(card)
         return
+    if args.tatitok_only:
+        phase_tatitok(card)
+        return
     fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
     for name, arm in fp32_kernels(
@@ -6950,6 +7432,9 @@ def main(argv=None) -> None:
         summary[name]["fp32"] = arm
     hd32_summary, pretrain_launches, hd32_fp32 = phase_pretrain(card)
     summary.update(hd32_summary)
+    tatitok_arms, tatitok_launches = phase_tatitok(card)
+    for name, arm in tatitok_arms.items():
+        summary[name]["tatitok"] = arm
 
     cfg = TiTokConfig(**FLAGSHIP)
     model = TiTok(cfg)
@@ -6986,7 +7471,7 @@ def main(argv=None) -> None:
     for path in (train_launches, fused_launches, gpt_launches,
                  rollout_launches, int8_launches, perceptual_launches,
                  vit_launches, fp32_path_launches, titok_launches,
-                 pretrain_launches):
+                 pretrain_launches, tatitok_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]

@@ -4,7 +4,8 @@ losses and the generation eval's real strips against ``train_videogpt.py``
 run as a subprocess (fp32, a tiny preset on both sides, the same frozen
 tokenizer and the JAX init of the prior), ``--resume`` against the
 uninterrupted run, SIGTERM, the tokenizer loader (a checkpoint of the
-port's ``train_titok``, the refused kinds) and the refusals."""
+port's ``train_titok`` or ``train_tatitok``, a Bytedance folder, the
+refused FSQ kind) and the refusals."""
 
 import importlib.util
 import json
@@ -332,25 +333,101 @@ def test_train_titok_checkpoint_loads_as_frozen_tokenizer(tmp_path):
                       "video_1_0.png", "video_1_1.png"]
 
 
-@pytest.mark.parametrize("kind", ["bytedance", "tatitok", "fsq"])
+@pytest.mark.parametrize("kind", ["fsq"])
 def test_load_tokenizer_refuses_unported_kinds(tmp_path, kind):
-    """A directory without ``best_config.json`` (Bytedance format) or with
-    ``use_l2_norm`` in it (TATiTok) names ROADMAP Queue A #5; an FSQ
-    tokenizer, whose codes range over prod(levels) and not the prior's
-    vocabulary, names Queue C."""
+    """An FSQ tokenizer, whose codes range over prod(levels) and not the
+    prior's vocabulary, is refused naming Queue C."""
     from vit_tpu_torch.models.pretrained import load_tokenizer
     from vit_tpu_torch.train.checkpoint import _config_to_dict
 
-    if kind == "tatitok":
-        (tmp_path / "best_config.json").write_text(json.dumps(
-            {"use_l2_norm": True}))
-    elif kind == "fsq":
-        cfg = TiTokConfig(16, 8, 4, 32, 12, "S", quantizer="fsq")
-        (tmp_path / "best_config.json").write_text(json.dumps(
-            _config_to_dict(cfg)))
-    match = "Queue C" if kind == "fsq" else "Queue A #5"
-    with pytest.raises(NotImplementedError, match=match):
+    cfg = TiTokConfig(16, 8, 4, 32, 12, "S", quantizer=kind)
+    (tmp_path / "best_config.json").write_text(json.dumps(
+        _config_to_dict(cfg)))
+    with pytest.raises(NotImplementedError, match="Queue C"):
         load_tokenizer(str(tmp_path), torch.float32, "cpu")
+
+
+# a TATiTok tokenizer: the Bytedance "small" preset cut to 2 layers × 2
+# heads × 128, image 16, patch 8, 4 codes a frame, codebook 16
+TATITOK_SMALL = dict(width=128, layers=2, heads=2)
+TATITOK_ARGS = ["--dataset", "synthetic", "--image_size", "16",
+                "--patch_size", "8", "--latent_tokens", "4",
+                "--codebook_size", "16", "--bs", "2", "--epochs", "1",
+                "--steps_per_epoch", "1", "--log_every", "1", "--mixed",
+                "false", "--no_wandb", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("kind", ["port_dir", "bytedance"])
+def test_load_tokenizer_reads_tatitok(tmp_path, monkeypatch, kind):
+    """A TATiTok ``--tokenizer_ckpt``: a directory the port's
+    ``train_tatitok`` wrote (one step) or a Bytedance folder
+    (``config.yaml`` + ``pytorch_model.bin``) written from a port TATiTok.
+    The loaded tokenizer is frozen, sets the token count, codebook and
+    image size, and its codes and decoded images equal JAX's
+    ``FrozenTokenizer`` over the same weights (for the Bytedance folder,
+    ``get_titok_tokenizer``'s); the entry trains one step over it."""
+    import vit_tpu.core.config as jax_config
+    import vit_tpu_torch.core.config as torch_config
+    from vit_tpu.models.pretrained import FrozenTokenizer as JaxFrozen
+    from vit_tpu.models.pretrained import get_titok_tokenizer
+    from vit_tpu.models.tatitok import TATiTok as JaxTATiTok
+    from vit_tpu.models.tatitok import TATiTokConfig as JaxTATiTokConfig
+    from vit_tpu_torch.bridge import flax_from_state_dict
+    from vit_tpu_torch.models.pretrained import (load_tokenizer,
+                                                 write_bytedance_folder)
+    from vit_tpu_torch.models.tatitok import TATiTok, TATiTokConfig
+    from vit_tpu_torch.train.checkpoint import load_params
+    from vit_tpu_torch.train_tatitok import main as tatitok_main
+    from vit_tpu_torch.train_videogpt import main as videogpt_main
+    from vit_tpu_torch.utils.init import init_tatitok_
+
+    for mod in (jax_config, torch_config):
+        monkeypatch.setitem(mod.BYTEDANCE_WIDTH, "small",
+                            TATITOK_SMALL["width"])
+        monkeypatch.setitem(mod.BYTEDANCE_LAYERS, "small",
+                            TATITOK_SMALL["layers"])
+        monkeypatch.setitem(mod.BYTEDANCE_HEADS, "small",
+                            TATITOK_SMALL["heads"])
+    ckpt = tmp_path / "tok"
+    if kind == "port_dir":
+        tatitok_main([*TATITOK_ARGS, "--ckpt_dir", str(ckpt), "--run_dir",
+                      str(tmp_path / "runs")])
+        cfg_j = JaxTATiTokConfig(16, 8, 4, 16, 12, "small",
+                                 dtype=jnp.float32, attn_impl="xla")
+        params = flax_from_state_dict(load_params(str(ckpt), "best"))
+        tok_j = JaxFrozen(JaxTATiTok(cfg_j), jax.tree.map(jnp.asarray,
+                                                         params))
+    else:
+        model = TATiTok(TATiTokConfig(16, 8, 4, 16, 12, "small"))
+        init_tatitok_(model, torch.Generator().manual_seed(3))
+        write_bytedance_folder(model, ckpt)
+        tok_j = JaxFrozen(*get_titok_tokenizer(str(ckpt)))
+    tok = load_tokenizer(str(ckpt), torch.bfloat16, "cpu")
+    assert isinstance(tok.model, TATiTok)
+    assert tok.model.config.dtype == torch.float32
+    assert (tok.latent_tokens, tok.codebook_size, tok.image_size) == (
+        4, 16, 16)
+    assert not tok.model.training
+    assert not any(p.requires_grad for p in tok.model.parameters())
+    frames = np.random.default_rng(0).uniform(0, 1, (6, 16, 16, 3)).astype(
+        np.float32)
+    codes = tok.encode_indices(torch.from_numpy(frames))
+    assert codes.shape == (6, 4) and codes.dtype == torch.int32
+    np.testing.assert_array_equal(codes.numpy(),
+                                  np.asarray(tok_j.encode_indices(frames)))
+    np.testing.assert_allclose(
+        tok.decode_indices(codes).numpy(),
+        np.asarray(tok_j.decode_indices(codes.numpy())), rtol=0, atol=1e-5)
+    with tiny_preset():
+        state = videogpt_main([
+            "--dataset", "synthetic", "--tokenizer_ckpt", str(ckpt),
+            "--transformer", "tiny", "--max_frames", "3",
+            "--condition_frames", "1", "--bs", "2", "--epochs", "1",
+            "--steps_per_epoch", "1", "--log_every", "1", "--no_wandb",
+            "--mixed", "false", "--device", "cpu", "--ckpt_dir",
+            str(tmp_path / "gpt"), "--run_dir", str(tmp_path / "runs")])
+    assert state.step.item() == 1
+    assert state.params[0].shape[0] == 16 + 1   # tok_embed: codes + SOS
 
 
 def test_random_tokenizer_is_titok_s_from_a_fixed_seed():

@@ -7,11 +7,14 @@ leaf path to a state-dict key:
   - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
   - a Conv ``kernel`` HWIO becomes ``weight`` OIHW; a depthwise kernel
     (7, 7, 1, C) thereby becomes (C, 1, 7, 7);
-  - a LayerNorm ``scale`` becomes ``weight``;
+  - a LayerNorm ``scale`` becomes ``weight`` (the Bytedance block's affine
+    ``ln1``/``ln2`` and flax ``nn.LayerNorm``'s alike);
   - ``bias``, ``pos_emb``, ``extra_emb``, ``codebook``, ``gamma``,
-    VideoGPT's raw 2-D ``tok_embed`` and ``pos_embed`` and MAE's
-    ``cls_token`` and ``mask_token`` keep their name and layout (they are
-    no ``kernel``, so nothing transposes them). The
+    VideoGPT's raw 2-D ``tok_embed`` and ``pos_embed``, MAE's
+    ``cls_token`` and ``mask_token``, and TATiTok's ``latent_tokens``,
+    class, mask and positional tables and ``quantize/embedding`` keep their
+    name and layout (they are no ``kernel``, so nothing transposes them).
+    The
     split-bias ``attn/qkv`` tree (``_ProjParams``) has the same
     ``{kernel, bias}`` keys as a Dense.
 
@@ -157,6 +160,25 @@ def puzzle_state_dict_from_flax(params: dict, cfg
     from vit_tpu_torch.models.puzzle import Puzzle
 
     return _from_flax(params, Puzzle(cfg, device="meta").state_dict())
+
+
+def tatitok_state_dict_from_flax(params: dict, cfg
+                                 ) -> "dict[str, torch.Tensor]":
+    """JAX TATiTok params (``latent_tokens``, ``encoder``, ``decoder`` and
+    ``quantize/embedding``; the transformers as TiTok's, with the affine
+    ``ln1``/``ln2`` and ``attn/out_proj``; the decoder's 3×3 ``conv_out``
+    HWIO → OIHW) → the port's state dict for a ``TATiTok(cfg)``, with the
+    checks of ``_from_flax``."""
+    from vit_tpu_torch.models.tatitok import TATiTok
+
+    return _from_flax(params, TATiTok(cfg, device="meta").state_dict())
+
+
+def uvit_state_dict_from_flax(params: dict, block
+                              ) -> "dict[str, torch.Tensor]":
+    """JAX ``UViTBlock`` params → the state dict of the port's ``block``
+    (``core/uvit.py``), with the checks of ``_from_flax``."""
+    return _from_flax(params, block.state_dict())
 
 
 def convnext_state_dict_from_flax(params: dict, net) -> "dict[str, torch.Tensor]":

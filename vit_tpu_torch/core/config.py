@@ -1,10 +1,12 @@
 """Transformer configuration and size presets (counterpart of
-``vit_tpu/core/config.py:19-114``).
+``vit_tpu/core/config.py:19-132``).
 
 Parameters are fp32 (``param_dtype``) and compute is bf16 (``dtype``), cast
 explicitly at each matmul. ``ln_affine`` and ``attn_out_proj`` select the
-Bytedance block layout; they are kept as fields so configs read the same, and
-the transformer core raises on them until that layout is ported.
+Bytedance block layout (affine LayerNorms, an attention output projection),
+which ``bytedance_config`` sets for the Bytedance presets. ``remat``
+recomputes each block in the backward (``torch.utils.checkpoint``) under
+``remat_policy`` (``core/transformer.py:remat_policy``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ class TransformerConfig:
                                                # overrides
     ln_affine: bool = False
     attn_out_proj: bool = False
+    remat: bool = False                        # recompute each block in the
+                                               # backward
+    remat_policy: Optional[str] = None         # None → $VIT_TPU_REMAT_POLICY
+                                               # → "everything" | "dots" |
+                                               # "dots_no_batch": what the
+                                               # recompute keeps
 
     def replace(self, **kw) -> "TransformerConfig":
         return dataclasses.replace(self, **kw)
@@ -59,3 +67,20 @@ def L(**kwargs) -> TransformerConfig:
 
 
 transformer_configs = {"S": S, "B": B, "L": L}
+
+# The Bytedance TiTok presets (``vit_tpu/core/config.py:116-132``):
+# width, layers and heads by model size
+BYTEDANCE_WIDTH = {"small": 512, "base": 768, "large": 1024}
+BYTEDANCE_LAYERS = {"small": 8, "base": 12, "large": 24}
+BYTEDANCE_HEADS = {"small": 8, "base": 12, "large": 16}
+
+
+def bytedance_config(model_size: str, block_size: int,
+                     **kwargs) -> TransformerConfig:
+    """The Bytedance preset ``model_size`` with affine LayerNorms and an
+    attention output projection."""
+    return TransformerConfig(n_layers=BYTEDANCE_LAYERS[model_size],
+                             n_heads=BYTEDANCE_HEADS[model_size],
+                             n_embd=BYTEDANCE_WIDTH[model_size],
+                             block_size=block_size, ln_affine=True,
+                             attn_out_proj=True, **kwargs)

@@ -7,11 +7,26 @@ and every matmul casts its operands to ``cfg.dtype`` explicitly. The QKV
 projection is applied without its bias, which the attention kernel adds as it
 reads each tile (``kernels/attention.py``).
 
-Ported so far: the unrolled stack with the non-affine LayerNorm and no
-attention output projection (the author's minimal block), forward and
-backward, and KV-cache decoding. Autograd carries gradients through the
-explicit casts back to the fp32 parameters; attention's backward is the K2
-or K7/K8 kernel and GELU's the flat derivative (``ops/gelu.py``).
+Ported: the unrolled stack, forward and backward, and KV-cache decoding,
+in both block layouts: the author's minimal block (non-affine LayerNorms, no
+attention output projection) and the Bytedance one (``ln_affine``: the
+LayerNorms scale and shift in fp32 by their ``weight`` and ``bias``, the
+JAX tree's ``scale`` and ``bias``; ``attn_out_proj``: a dense ``out_proj``
+after attention, in the compute dtype). Autograd carries gradients through
+the explicit casts back to the fp32 parameters; attention's backward is the
+K2 or K7/K8 kernel and GELU's the flat derivative (``ops/gelu.py``).
+
+Remat (``cfg.remat``, ``vit_tpu/core/transformer.py:456-473, 562-565``)
+runs each block under ``torch.utils.checkpoint`` (non-reentrant), except
+while decoding with a KV cache. ``remat_policy`` (None → ``$VIT_TPU_REMAT_POLICY``
+→ "everything") picks what the backward keeps: "none"/"everything" nothing
+(the whole block runs again), "dots" the outputs of every matrix product,
+"dots_no_batch" those of the products without a batch dimension (through
+``create_selective_checkpoint_contexts``); any other name raises
+``ValueError``. The recompute replays the dropout draws of the first
+forward: the block draws from a generator set to the state the caller's had
+before it, and the caller's generator then moves on to where the first
+forward left it.
 
 KV-cache decoding (``vit_tpu/core/transformer.py:173-238``) takes an explicit
 cache instead of flax's ``cache`` collection: one ``(k, v)`` pair per layer,
@@ -47,17 +62,19 @@ drops fc2's output (``nn.Dropout``, :320) with a mask drawn from it, in the
 compute dtype, kept values divided by 1 − rate. Training with dropout and
 no generator raises.
 
-Not yet: the Bytedance layout (``ln_affine``, ``attn_out_proj``), remat,
-the scanned and pipelined stacks, and int8.
+Not yet: the scanned and pipelined stacks, and int8.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from vit_tpu_torch.core.config import TransformerConfig
 from vit_tpu_torch.kernels import fc_grad, ln_matmul
@@ -66,11 +83,60 @@ from vit_tpu_torch.ops.attention import (fused_qkv_attention, merge_heads,
 from vit_tpu_torch.ops.gelu import gelu as gelu_op
 
 
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.ln_affine or cfg.attn_out_proj:
-        raise NotImplementedError(
-            "the Bytedance block layout (ln_affine, attn_out_proj) is not "
-            "ported yet")
+aten = torch.ops.aten
+# the products whose outputs "dots" keeps (JAX's checkpoint_dots), and those
+# without a batch dimension ("dots_no_batch": F.linear's mm and addmm)
+DOTS_NO_BATCH = (aten.mm.default, aten.addmm.default)
+DOTS = DOTS_NO_BATCH + (aten.bmm.default, aten.baddbmm.default)
+
+
+def remat_policy(name: Optional[str]) -> "tuple | None":
+    """``cfg.remat_policy`` → the ops whose outputs the recompute keeps
+    (None: none, the whole block runs again). None reads
+    ``$VIT_TPU_REMAT_POLICY``."""
+    if name is None:
+        name = os.environ.get("VIT_TPU_REMAT_POLICY", "")
+    if name in ("", "none", "everything"):
+        return None
+    if name == "dots":
+        return DOTS
+    if name == "dots_no_batch":
+        return DOTS_NO_BATCH
+    raise ValueError(f"unknown remat_policy {name!r} "
+                     "(expected none|dots|dots_no_batch)")
+
+
+def checkpointed(fn: Callable, x: torch.Tensor,
+                 generator: "torch.Generator | None" = None,
+                 saved: "tuple | None" = None) -> torch.Tensor:
+    """``fn(x, generator)`` with its activations dropped after the forward
+    and recomputed in the backward, keeping the outputs of the ops in
+    ``saved`` (``remat_policy``). ``fn`` draws from a copy of
+    ``generator`` both times, so the recompute sees the first forward's
+    masks; ``generator`` ends where that forward left its copy."""
+    context_fn = ckpt.noop_context_fn
+    if saved is not None:
+        def policy(ctx, op, *args, **kwargs):
+            return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                    else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy)
+    run, after = fn, []
+    if generator is not None:
+        start = generator.get_state()
+
+        def run(x, _):
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+            out = fn(x, g)
+            after.append(g.get_state())
+            return out
+    out = ckpt.checkpoint(run, x, None, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+    if after:
+        generator.set_state(after[0])
+    return out
 
 
 def use_fused_fc(cfg: TransformerConfig) -> bool:
@@ -116,18 +182,25 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
 
 
 class LayerNorm(nn.Module):
-    """Non-affine LayerNorm: fp32 statistics, eps 1e-5, output in the compute
-    dtype."""
+    """LayerNorm with fp32 statistics, eps 1e-5, output in the compute
+    dtype; under ``ln_affine`` scaled and shifted in fp32 by ``weight``
+    (ones) and ``bias`` (zeros)."""
 
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         self.config = config
+        if config.ln_affine:
+            kw = dict(dtype=config.param_dtype, device=device)
+            self.weight = nn.Parameter(torch.ones(config.n_embd, **kw))
+            self.bias = nn.Parameter(torch.zeros(config.n_embd, **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)
         var = (x32 - mean).square().mean(-1, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+        if self.config.ln_affine:
+            y = y * self.weight.float() + self.bias.float()
         return y.to(self.config.dtype)
 
 
@@ -168,17 +241,28 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class Attention(nn.Module):
     """Fused-QKV multi-head self-attention: x·W in the compute dtype, the
     bias handed to the attention kernel, or added here when decoding. With
-    ``fused_ln`` x is the raw stream and ln1 runs inside the product (K9a)."""
+    ``fused_ln`` x is the raw stream and ln1 runs inside the product (K9a).
+    Under ``attn_out_proj`` a dense ``out_proj`` follows, in the compute
+    dtype."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         self.config = config
         self.qkv = nn.Linear(config.n_embd, 3 * config.n_embd,
                              dtype=config.param_dtype, device=device)
+        if config.attn_out_proj:
+            self.out_proj = nn.Linear(config.n_embd, config.n_embd,
+                                      dtype=config.param_dtype, device=device)
 
     def forward(self, x: torch.Tensor, kv=None, pos=None,
                 fused_ln: bool = False, dropout_rate: float = 0.0,
                 generator: "torch.Generator | None" = None) -> torch.Tensor:
+        out = self._attend(x, kv, pos, fused_ln, dropout_rate, generator)
+        if self.config.attn_out_proj:
+            return linear(out, self.out_proj, self.config.dtype)
+        return out
+
+    def _attend(self, x, kv, pos, fused_ln, dropout_rate, generator):
         cfg = self.config
         w = self.qkv.weight.to(cfg.dtype)
         if fused_ln:
@@ -248,11 +332,10 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
-        _check_supported(config)
         self.config = config
-        self.ln1 = LayerNorm(config)
+        self.ln1 = LayerNorm(config, device=device)
         self.attn = Attention(config, device=device)
-        self.ln2 = LayerNorm(config)
+        self.ln2 = LayerNorm(config, device=device)
         self.mlp = Mlp(config, device=device)
 
     def forward(self, x: torch.Tensor, kv=None, pos=None,
@@ -275,7 +358,9 @@ class Transformer(nn.Module):
     """Unrolled stack of ``n_layers`` blocks; the input is cast to the compute
     dtype on entry. ``layers.{i}`` holds the JAX tree's ``layer_{i}``. With
     ``cache`` (``init_kv_cache``) and ``pos`` it decodes, updating the cache
-    in place. ``generator`` feeds dropout while training."""
+    in place. ``generator`` feeds dropout while training. Under
+    ``cfg.remat`` each block runs through ``checkpointed`` unless it
+    decodes."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -286,7 +371,15 @@ class Transformer(nn.Module):
     def forward(self, x: torch.Tensor, cache: "list | None" = None,
                 pos: "int | None" = None,
                 generator: "torch.Generator | None" = None) -> torch.Tensor:
-        x = x.to(self.config.dtype)
+        cfg = self.config
+        x = x.to(cfg.dtype)
+        if cfg.remat and cache is None:
+            saved = remat_policy(cfg.remat_policy)
+            for layer in self.layers:
+                x = checkpointed(lambda h, g, block=layer: block(h, None,
+                                                                 None, g),
+                                 x, generator, saved)
+            return x
         for i, layer in enumerate(self.layers):
             x = layer(x, None if cache is None else cache[i], pos, generator)
         return x

@@ -9,7 +9,13 @@ weight average ``ema_params``), read back with ``torch.load(...,
 weights_only=True)``. A restore into a state with EMA from a checkpoint
 without it seeds the average from the restored parameters, and a state
 without EMA drops a saved one (``TrainState.load_state_dict``), as the JAX
-checkpointer does. Beside it, as in the JAX package, ``<tag>_config.json``
+checkpointer does. A save may carry an ``extra`` tree of tensors besides
+the state (TATiTok's clustering usage, ``{"vq_stats": {"embed_prob":
+...}}``), kept under ``"extra"`` in ``state.pt``; a restore given live
+tensors of the same tree copies it into them and returns it beside the
+state, or None from a checkpoint written without one
+(``vit_tpu/train/checkpoint.py``'s ``extra``/``extra_template``). Beside
+it, as in the JAX package, ``<tag>_config.json``
 (the model config) and ``<tag>_meta.json`` (``{"best", "step"}``), and
 ``data_state.json``, the input-stream position by step.
 
@@ -83,6 +89,22 @@ def _host(tree):
     return tree.detach().cpu()
 
 
+@torch.no_grad()
+def _copy_tree(dst, src, what: str) -> None:
+    """Copy the nested dict ``src`` into the live tensors of ``dst``."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            raise KeyError(f"{what}: saved keys {sorted(src)} are not "
+                           f"{sorted(dst)}")
+        for k in dst:
+            _copy_tree(dst[k], src[k], f"{what}/{k}")
+        return
+    if src.shape != dst.shape:
+        raise ValueError(f"{what}: saved shape {tuple(src.shape)}, want "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src)
+
+
 class Checkpointer:
     """Best-metric-gated checkpoint writer and resume reader."""
 
@@ -100,11 +122,11 @@ class Checkpointer:
         return metric < self.best if self.mode == "min" else metric > self.best
 
     def save_if_best(self, state: TrainState, metric: float,
-                     config=None) -> bool:
+                     config=None, extra: Optional[dict] = None) -> bool:
         if not self._improved(metric):
             return False
         self.best = float(metric)
-        self.save(state, config=config, tag="best")
+        self.save(state, config=config, tag="best", extra=extra)
         return True
 
     def _swap(self, tmp: Path, final: Path) -> None:
@@ -119,9 +141,13 @@ class Checkpointer:
         if old.exists():
             shutil.rmtree(old)
 
-    def save(self, state: TrainState, *, config=None, tag: str = "last"):
-        """Write ``state`` under ``tag`` (synchronously, crash-safe)."""
+    def save(self, state: TrainState, *, config=None, tag: str = "last",
+             extra: Optional[dict] = None):
+        """Write ``state`` (and ``extra``) under ``tag`` (synchronously,
+        crash-safe)."""
         sd = _host(state.state_dict())
+        if extra:
+            sd["extra"] = _host(extra)
         if not _writer():
             return
         tmp = self.directory / f".{tag}.tmp"
@@ -143,16 +169,24 @@ class Checkpointer:
         """Nothing to wait for: every save is on disk when it returns. Kept
         so that the loops end as the JAX loops do."""
 
-    def restore(self, state: TrainState, tag: str = "last") -> TrainState:
+    def restore(self, state: TrainState, tag: str = "last",
+                extra: Optional[dict] = None):
         """Load ``tag`` into ``state`` in place (and the best metric from
-        its meta); returns ``state``."""
+        its meta); returns ``state``. With ``extra`` (live tensors), also
+        copies the saved extra tree into them and returns ``(state,
+        extra)``, or ``(state, None)`` if the checkpoint has none."""
         sd = torch.load(self.directory / tag / STATE_FILE, map_location="cpu",
                         weights_only=True)
         state.load_state_dict(sd)
         meta_path = self.directory / f"{tag}_meta.json"
         if meta_path.exists():
             self.best = json.loads(meta_path.read_text()).get("best")
-        return state
+        if extra is None:
+            return state
+        if "extra" not in sd:
+            return state, None
+        _copy_tree(extra, sd["extra"], "extra")
+        return state, extra
 
     def can_restore(self, tag: str = "last") -> bool:
         return (self.directory / tag / STATE_FILE).exists()

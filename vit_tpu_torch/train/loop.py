@@ -17,6 +17,10 @@ only, and they come back in the log step's one copy.
 Steps that do not log never wait for the device: the host queues them, and
 at a log step the previous step's loss is read first, so that the step time
 covers one step and not the queue.
+
+``resume_position``, ``image_batches`` and ``log_metrics`` are the loop's
+pieces that ``train_tatitok``'s loop, which saves on its own schedule,
+shares with it.
 """
 
 from __future__ import annotations
@@ -79,6 +83,66 @@ def _fetch(tensors) -> list:
             for p, t in zip(parts, tensors)]
 
 
+def resume_position(ckpt: Checkpointer, state: TrainState, train_loader,
+                    extra: Optional[dict] = None) -> "tuple[int, int, int]":
+    """``--resume``: restore "last" into ``state`` (and ``extra``, the
+    clustering statistics, when the checkpoint has them) and the input
+    stream's epoch; returns (start epoch, batches to skip in it, steps
+    consumed), (0, 0, 0) when there is nothing to resume."""
+    if not ckpt.can_restore():
+        return 0, 0, 0
+    ckpt.restore(state, extra=extra)
+    print(f"RESUMED at step {int(state.step)}", flush=True)
+    data_rs = ckpt.load_data_state(int(state.step))
+    if not data_rs:
+        return 0, 0, 0
+    start_epoch, skip = int(data_rs["epoch"]), int(data_rs["next_batch"])
+    set_stream_epoch(train_loader, start_epoch)
+    print(f"RESUMED data stream at epoch {start_epoch}, batch {skip}",
+          flush=True)
+    return start_epoch, skip, int(data_rs.get("consumed", 0))
+
+
+def image_batches(train_loader, device, start_epoch: int, skip0: int,
+                  epochs: int, cap: int = 0):
+    """The training stream from the resumed position, on ``device`` one
+    batch ahead: (epoch, batch index, images, when the wait began, the wait
+    in s). A wait begins at the epoch's start or when the consumer asks for
+    the next batch. ``cap`` > 0 bounds each epoch, so a resumed epoch that
+    skipped ``skip0`` batches takes cap − skip0 more."""
+    to_device = ToDevice(device)
+    for epoch in range(start_epoch, epochs):
+        skip = skip0 if epoch == start_epoch else 0
+        st = time.time()
+        stream = resume_stream(train_loader, skip)
+        if cap:
+            stream = itertools.islice(stream, max(0, cap - skip))
+        stream = ((images,) for images, _ in stream)
+        for i, (images,) in enumerate(device_prefetch(stream, to_device),
+                                      start=skip):
+            yield epoch, i, images, st, time.time() - st
+            st = time.time()
+
+
+def log_metrics(logger: MetricsLogger, metrics: dict, state: TrainState
+                ) -> "tuple[dict, int]":
+    """A log step's metrics (and ``--watch``'s histograms) in one device →
+    host copy with the step; histograms are logged here. Returns (the
+    scalars by name, the step)."""
+    hists = metrics.pop("_hists", {})
+    keys = list(metrics)
+    flat = [metrics[k] for k in keys] + [state.step]
+    for counts, edges in hists.values():
+        flat += [counts, edges]
+    values = _fetch(flat)
+    step_now = int(values[len(keys)])
+    if hists:
+        pairs = values[len(keys) + 1:]
+        logger.log_histograms(dict(zip(hists, zip(pairs[::2], pairs[1::2]))),
+                              step=step_now)
+    return dict(zip(keys, values)), step_now
+
+
 def run_tokenizer_training(args, model, model_config, train_loader, *,
                            project_name: str, run_name: str,
                            codebook_size: int, pixel_loss: str,
@@ -104,16 +168,8 @@ def run_tokenizer_training(args, model, model_config, train_loader, *,
 
     ckpt = Checkpointer(args.ckpt_dir, mode="min")
     start_epoch, skip0 = 0, 0
-    if getattr(args, "resume", False) and ckpt.can_restore():
-        state = ckpt.restore(state)
-        print(f"RESUMED at step {int(state.step)}", flush=True)
-        data_rs = ckpt.load_data_state(int(state.step))
-        if data_rs:
-            start_epoch = int(data_rs["epoch"])
-            skip0 = int(data_rs["next_batch"])
-            set_stream_epoch(train_loader, start_epoch)
-            print(f"RESUMED data stream at epoch {start_epoch}, "
-                  f"batch {skip0}", flush=True)
+    if getattr(args, "resume", False):
+        start_epoch, skip0, _ = resume_position(ckpt, state, train_loader)
 
     step_kwargs = dict(
         perceptual_loss_fn=perceptual,
@@ -141,116 +197,92 @@ def run_tokenizer_training(args, model, model_config, train_loader, *,
     usage = torch.zeros((codebook_size,), dtype=torch.float32, device=device)
     global_i = 0
     prev_loss = None
-    to_device = ToDevice(device)
     shutdown = GracefulShutdown.install()
 
-    for epoch in range(start_epoch, args.epochs):
-        skip = skip0 if epoch == start_epoch else 0
-        st = time.time()
-        stream = resume_stream(train_loader, skip)
-        cap = getattr(args, "max_epoch_steps", 0) or 0
-        if cap:
-            # the cap bounds the epoch, so a resumed epoch that skipped
-            # `skip` batches takes cap - skip more
-            stream = itertools.islice(stream, max(0, cap - skip))
-        stream = ((images,) for images, _ in stream)
-        for i, (images,) in enumerate(device_prefetch(stream, to_device),
-                                      start=skip):
-            if profile_dir and global_i == 10:
-                profiler = torch.profiler.profile(activities=(
-                    [torch.profiler.ProfilerActivity.CPU]
-                    + ([torch.profiler.ProfilerActivity.CUDA]
-                       if device.type == "cuda" else [])))
-                profiler.start()
-            load_time = time.time() - st
-            is_log = i % args.log_every == 0
-            rebased = is_log and prev_loss is not None
-            if rebased:
-                # wait for the queued steps before the clock starts
-                prev_loss.item()
-                st = time.time()
-            step_fn = (train_step_watch if is_log and train_step_watch
-                       else train_step)
-            state, usage, metrics, recon = step_fn(state, images, usage)
-            prev_loss = metrics["train/loss"]
-            if profiler is not None and global_i == 15:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                profiler.stop()
-                os.makedirs(profile_dir, exist_ok=True)
-                profiler.export_chrome_trace(
-                    os.path.join(profile_dir, "trace.json"))
-                profiler = None
-                print(f"PROFILE: trace for steps 10-15 written to "
-                      f"{profile_dir}", flush=True)
-            global_i += 1
-            if is_log:
-                hists = metrics.pop("_hists", {})
-                keys = list(metrics)
-                flat = [metrics[k] for k in keys] + [state.step]
-                for counts, edges in hists.values():
-                    flat += [counts, edges]
-                values = _fetch(flat)
-                step_now = int(values[len(keys)])
-                host = dict(zip(keys, values))
-                if hists:
-                    pairs = values[len(keys) + 1:]
-                    logger.log_histograms(
-                        dict(zip(hists, zip(pairs[::2], pairs[1::2]))),
-                        step=step_now)
-                step_time = time.time() - st - (0.0 if rebased else load_time)
-                host.update({"train/epoch": epoch,
-                             "benchmark/load_time": load_time,
-                             "benchmark/step_time": step_time})
-                logger.log(host, step=step_now)
-                print(f"e={epoch} i={i} loss={host['train/loss']:.3f} "
-                      f"recon={host['train/recon_loss']:.3f} "
-                      f"quant={host['train/quant_loss']:.3f} "
-                      f"usage={host['train/codebook_usage']:.3f} "
-                      f"step_time={step_time:.3f}", flush=True)
-                # the first log point, then every ckpt_every steps
-                if (last_ckpt_step is None
-                        or global_i - last_ckpt_step >= ckpt_every):
-                    ckpt.save_if_best(state, host["train/recon_loss"],
-                                      config=model_config)
-                    # rolling "last": crash recovery via --resume
-                    ckpt.save(state, config=model_config, tag="last")
-                    ckpt.save_data_state(step_now,
-                                         {"epoch": epoch, "next_batch": i + 1})
-                    last_ckpt_step = global_i
-            if i % args.image_every == 0:
-                with torch.no_grad():
-                    img4 = images[:4].float().clamp(0.0, 1.0)
-                    rec4 = recon[:4].float().clamp(0.0, 1.0)
-                    norms = tree_norms(dict(zip(state.names, state.params)),
-                                       "param_norm")
-                    scalars = [state.step, *norms.values()]
-                    if min(img4.shape[1:3]) >= 11:   # SSIM's 11 × 11 window
-                        scalars.append(ssim(rec4, img4).mean())
-                    values = _fetch(scalars)
-                step_now = int(values[0])
-                logger.log_images({"images": img4.cpu().numpy(),
-                                   "reconstructions": rec4.cpu().numpy()},
-                                  step=step_now)
-                if len(values) > len(norms) + 1:
-                    logger.log({"train/ssim": values[-1]}, step=step_now)
-                logger.log(dict(zip(norms, values[1:len(norms) + 1])),
-                           step=step_now)
-                usage.zero_()
+    for epoch, i, images, st, load_time in image_batches(
+            train_loader, device, start_epoch, skip0, args.epochs,
+            getattr(args, "max_epoch_steps", 0) or 0):
+        if profile_dir and global_i == 10:
+            profiler = torch.profiler.profile(activities=(
+                [torch.profiler.ProfilerActivity.CPU]
+                + ([torch.profiler.ProfilerActivity.CUDA]
+                   if device.type == "cuda" else [])))
+            profiler.start()
+        is_log = i % args.log_every == 0
+        rebased = is_log and prev_loss is not None
+        if rebased:
+            # wait for the queued steps before the clock starts
+            prev_loss.item()
             st = time.time()
-            if shutdown.requested:
-                # SIGTERM: save the exact step and return, so --resume
-                # continues from here
-                step_final = int(state.step)
-                print(f"PREEMPTED: saving 'last' at step {step_final} "
-                      "and exiting", flush=True)
+        step_fn = (train_step_watch if is_log and train_step_watch
+                   else train_step)
+        state, usage, metrics, recon = step_fn(state, images, usage)
+        prev_loss = metrics["train/loss"]
+        if profiler is not None and global_i == 15:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            profiler.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            profiler.export_chrome_trace(
+                os.path.join(profile_dir, "trace.json"))
+            profiler = None
+            print(f"PROFILE: trace for steps 10-15 written to "
+                  f"{profile_dir}", flush=True)
+        global_i += 1
+        if is_log:
+            host, step_now = log_metrics(logger, metrics, state)
+            step_time = time.time() - st - (0.0 if rebased else load_time)
+            host.update({"train/epoch": epoch,
+                         "benchmark/load_time": load_time,
+                         "benchmark/step_time": step_time})
+            logger.log(host, step=step_now)
+            print(f"e={epoch} i={i} loss={host['train/loss']:.3f} "
+                  f"recon={host['train/recon_loss']:.3f} "
+                  f"quant={host['train/quant_loss']:.3f} "
+                  f"usage={host['train/codebook_usage']:.3f} "
+                  f"step_time={step_time:.3f}", flush=True)
+            # the first log point, then every ckpt_every steps
+            if (last_ckpt_step is None
+                    or global_i - last_ckpt_step >= ckpt_every):
+                ckpt.save_if_best(state, host["train/recon_loss"],
+                                  config=model_config)
+                # rolling "last": crash recovery via --resume
                 ckpt.save(state, config=model_config, tag="last")
-                ckpt.save_data_state(step_final,
+                ckpt.save_data_state(step_now,
                                      {"epoch": epoch, "next_batch": i + 1})
-                ckpt.finalize()
-                logger.close()
-                shutdown.uninstall()
-                return state
+                last_ckpt_step = global_i
+        if i % args.image_every == 0:
+            with torch.no_grad():
+                img4 = images[:4].float().clamp(0.0, 1.0)
+                rec4 = recon[:4].float().clamp(0.0, 1.0)
+                norms = tree_norms(dict(zip(state.names, state.params)),
+                                   "param_norm")
+                scalars = [state.step, *norms.values()]
+                if min(img4.shape[1:3]) >= 11:   # SSIM's 11 × 11 window
+                    scalars.append(ssim(rec4, img4).mean())
+                values = _fetch(scalars)
+            step_now = int(values[0])
+            logger.log_images({"images": img4.cpu().numpy(),
+                               "reconstructions": rec4.cpu().numpy()},
+                              step=step_now)
+            if len(values) > len(norms) + 1:
+                logger.log({"train/ssim": values[-1]}, step=step_now)
+            logger.log(dict(zip(norms, values[1:len(norms) + 1])),
+                       step=step_now)
+            usage.zero_()
+        if shutdown.requested:
+            # SIGTERM: save the exact step and return, so --resume
+            # continues from here
+            step_final = int(state.step)
+            print(f"PREEMPTED: saving 'last' at step {step_final} "
+                  "and exiting", flush=True)
+            ckpt.save(state, config=model_config, tag="last")
+            ckpt.save_data_state(step_final,
+                                 {"epoch": epoch, "next_batch": i + 1})
+            ckpt.finalize()
+            logger.close()
+            shutdown.uninstall()
+            return state
 
     # the final state is recoverable wherever the interval fell
     ckpt.save(state, config=model_config, tag="last")

@@ -13,9 +13,19 @@ same arithmetic written out on tensors, in the installed optax's order
   - the update uses the fp32 μ before it is stored in μ's dtype, bias
     correction by 1 − b^t at the incremented count t, then
     μ̂ / (√ν̂ + eps) with eps 1e-8 outside the square root;
-  - decoupled weight decay: + wd·p, on every parameter (no mask);
+  - decoupled weight decay: + wd·p, on every parameter, or on those a
+    per-parameter ``weight_decay_mask`` marks (``optax.adamw(mask=...)``;
+    ``wd_exclude_mask`` is the TATiTok entry's, ``vit_tpu/train/optim.py:
+    123-137``);
   - × −lr(count), the schedule evaluated at the count BEFORE the
     increment, so step 0 of a warmup has lr 0.
+
+``MultiSteps`` wraps the whole chain as ``optax.MultiSteps`` does
+(``train_tatitok.py:166-167``): each call folds the gradients into a running
+mean in their own dtype (acc + (g − acc)/(n + 1) at the n-th micro-step);
+the k-th clips that mean and runs AdamW on it (so the schedule and the
+count advance once per k) and zeroes it; the others leave the parameters
+as they are. The mean and the micro-step are optimizer state.
 
 Everything stays on the parameters' device; nothing is read back to the
 host.
@@ -114,9 +124,11 @@ class Optimizer:
                  min_lr: float, weight_decay: float, *,
                  clip_norm: Optional[float] = 1.0, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
-                 mu_dtype: Optional[str] = "bfloat16"):
+                 mu_dtype: Optional[str] = "bfloat16",
+                 weight_decay_mask: Optional[Sequence[bool]] = None):
         self.schedule = get_lr_schedule(lr, warmup_steps, train_steps, min_lr)
         self.weight_decay, self.clip_norm = weight_decay, clip_norm
+        self.weight_decay_mask = weight_decay_mask
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = getattr(torch, mu_dtype) if mu_dtype else None
 
@@ -140,25 +152,110 @@ class Optimizer:
         bc1 = 1.0 - torch.full_like(t, b1) ** t
         bc2 = 1.0 - torch.full_like(t, b2) ** t
         neg_lr = -self.schedule(state.count)
+        mask = self.weight_decay_mask
+        if mask is not None and len(mask) != len(params):
+            raise ValueError(f"weight_decay_mask has {len(mask)} entries "
+                             f"for {len(params)} parameters")
         for i, (p, g) in enumerate(zip(params, grads)):
             b1_mu = torch.tensor(b1, dtype=state.mu[i].dtype).item()
             mu = (1.0 - b1) * g + b1_mu * state.mu[i].float()
             nu = (1.0 - b2) * (g * g) + b2 * state.nu[i]
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            update = (update + self.weight_decay * p) * neg_lr
+            if mask is None or mask[i]:
+                update = update + self.weight_decay * p
+            update = update * neg_lr
             p.add_(update.to(p.dtype))
             state.mu[i] = mu.to(state.mu[i].dtype)
             state.nu[i] = nu
         state.count += 1
 
 
+@dataclasses.dataclass
+class MultiStepsState:
+    """The inner state, the running mean of the micro-steps' gradients and
+    the micro-step (a host int: which call updates is known without a
+    sync)."""
+
+    inner: OptState
+    acc: "list[torch.Tensor]"
+    mini_step: int = 0
+
+    @property
+    def grad_norm(self) -> Optional[torch.Tensor]:
+        """The pre-clip norm of the last mean the inner chain took."""
+        return self.inner.grad_norm
+
+    def state_dict(self, names: Sequence[str]) -> dict:
+        return {"inner": self.inner.state_dict(names),
+                "acc": dict(zip(names, self.acc)),
+                "mini_step": torch.tensor(self.mini_step, dtype=torch.int32)}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict, names: Sequence[str]) -> None:
+        self.inner.load_state_dict(sd["inner"], names)
+        check_named(sd["acc"], dict(zip(names, self.acc)), "acc")
+        for t, name in zip(self.acc, names):
+            t.copy_(sd["acc"][name])
+        self.mini_step = int(sd["mini_step"])
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=k)`` with the gradients'
+    mean (``use_grad_mean``)."""
+
+    def __init__(self, inner: Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be at least 1, got {every_k}")
+        self.inner, self.every_k = inner, every_k
+
+    def init(self, params: Sequence[torch.Tensor]) -> MultiStepsState:
+        return MultiStepsState(self.inner.init(params),
+                               [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def update_(self, params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor],
+                state: MultiStepsState) -> None:
+        n = state.mini_step
+        for acc, g in zip(state.acc, grads):
+            acc.add_((g.to(acc.dtype) - acc) / (n + 1))
+        if n < self.every_k - 1:
+            state.mini_step = n + 1
+            return
+        self.inner.update_(params, state.acc, state.inner)
+        for acc in state.acc:
+            acc.zero_()
+        state.mini_step = 0
+
+
+def wd_exclude_mask(named: Sequence["tuple[str, torch.Tensor]"]
+                    ) -> "list[bool]":
+    """The TATiTok weight-decay mask (``vit_tpu/train/optim.py:123-137``):
+    decay a parameter only if it has two or more dimensions and its JAX leaf
+    path (the bridge's name map: ``.../ln1/scale``, ``.../qkv/kernel``)
+    names no norm, bias, embedding, latent or mask token."""
+    from vit_tpu_torch.bridge import _flax_key
+
+    exclude = ("ln", "bias", "latent_tokens", "mask_token", "embedding",
+               "norm", "gamma", "embed")
+    out = []
+    for name, t in named:
+        path = _flax_key(name, t.ndim)[0].lower()
+        out.append(t.ndim >= 2 and not any(k in path for k in exclude))
+    return out
+
+
 def make_optimizer(lr: float, warmup_steps: int, train_steps: int,
                    min_lr: float, weight_decay: float, *,
                    clip_norm: Optional[float] = 1.0, b1: float = 0.9,
                    b2: float = 0.999,
-                   mu_dtype: Optional[str] = "bfloat16") -> Optimizer:
+                   mu_dtype: Optional[str] = "bfloat16",
+                   weight_decay_mask: Optional[Sequence[bool]] = None
+                   ) -> Optimizer:
     """The JAX package's ``make_optimizer``: AdamW (eps 1e-8, decoupled
-    weight decay) with the SequentialLR schedule, after an optional global
-    norm clip. ``mu_dtype`` None or "float32" keeps fp32 first moments."""
+    weight decay, on the parameters ``weight_decay_mask`` marks if given)
+    with the SequentialLR schedule, after an optional global norm clip.
+    ``mu_dtype`` None or "float32" keeps fp32 first moments."""
     return Optimizer(lr, warmup_steps, train_steps, min_lr, weight_decay,
-                     clip_norm=clip_norm, b1=b1, b2=b2, mu_dtype=mu_dtype)
+                     clip_norm=clip_norm, b1=b1, b2=b2, mu_dtype=mu_dtype,
+                     weight_decay_mask=weight_decay_mask)

@@ -140,6 +140,55 @@ def make_tokenizer_train_step(model: nn.Module, *,
     return train_step
 
 
+def make_tatitok_train_step(model: nn.Module, *,
+                            perceptual_loss_fn: Optional[Callable] = None,
+                            perceptual_weight: float = 1.1,
+                            watch: bool = False) -> Callable:
+    """TATiTok step (``train_tatitok.py:195-239``): the pixel MSE (which the
+    JAX entry logs as ``train/l1_loss``) + perceptual_weight · the
+    perceptual loss + the quantizer's loss, its gradients and the
+    optimizer step, the model's quantizer in its training form. Under
+    ``clustering_vq`` the forward updates the usage EMA and the reseeded
+    codebook (``new_embedding``) replaces the codebook before the gradient
+    update, on every call (every micro-step under ``MultiSteps``).
+
+    ``train_step(state, images, usage) → (state, usage, metrics, recon)``
+    as ``make_tokenizer_train_step``'s, with the JAX entry's metric names;
+    ``watch=True`` adds the histograms (of the parameters before the
+    codebook is replaced)."""
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   usage: torch.Tensor):
+        recon, result = model(images, None, True)
+        recon32, images32 = recon.float(), images.float()
+        l1_loss = torch.mean((recon32 - images32) ** 2)
+        if perceptual_loss_fn is not None:
+            perc = perceptual_weight * perceptual_loss_fn(recon32, images32)
+        else:
+            perc = torch.zeros((), device=images.device)
+        recon_loss = l1_loss + perc
+        loss = recon_loss + result["quantizer_loss"]
+        grads = torch.autograd.grad(loss, state.params)
+        metrics = {"train/loss": loss, "train/recon_loss": recon_loss,
+                   "train/quant_loss": result["quantizer_loss"],
+                   "train/perceptual_loss": perc, "train/l1_loss": l1_loss}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if watch:
+            metrics["_hists"] = {
+                **tree_histograms(dict(zip(state.names, grads)), "grad_hist"),
+                **tree_histograms(dict(zip(state.names, state.params)),
+                                  "param_hist")}
+        if "new_embedding" in result:
+            with torch.no_grad():
+                model.quantize.embedding.copy_(result["new_embedding"])
+        state.apply_gradients(grads)
+        mark_usage_(usage, result["min_encoding_indices"])
+        metrics["train/codebook_usage"] = usage.mean()
+        return state, usage, metrics, recon.detach()
+
+    return train_step
+
+
 def make_videogpt_train_step(model: nn.Module) -> Callable:
     """VideoGPT step: the frozen tokenizer codes each frame under
     ``no_grad``, then the AR prior's next-token CE, its gradients and the

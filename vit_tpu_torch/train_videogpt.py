@@ -11,8 +11,11 @@ over 16 frames of 64 codes (S 1024), codebook 1024, bs 32, bf16 compute
 gradient clip, 5,000 warmup steps into a cosine over 500,000 to lr / 10.
 ``--tokenizer_ckpt`` is "random" (a TiTok-S at ``--image_size``, patch 8,
 ``--frame_size`` tokens, ``--codebook_size`` codes, weights from a fixed
-seed) or a checkpoint directory the port's ``train_titok`` wrote (its "best"
-weights); the tokenizer's token count, codebook and image size then set
+seed), a checkpoint directory the port's ``train_titok`` or
+``train_tatitok`` wrote (its "best" weights) or a Bytedance TATiTok folder
+(``config.yaml`` and ``pytorch_model.bin``, converted on load:
+``models/pretrained.py``); the tokenizer's token count, codebook and image
+size then set
 ``--frame_size``, ``--codebook_size`` and ``--image_size``. ``--device``
 (default ``cuda``) picks the card or, with ``cpu``, the kernels' plain
 versions; ``--mixed false`` computes in fp32 through the kernels' fp32
@@ -47,10 +50,8 @@ The data: ``--dataset dmlab`` (the default: ``--data_dir`` holds
 epoch) or ``synthetic`` (random uint8 clips). Each batch's crop is cut on
 the host before the float conversion, as ``train_videogpt.py`` cuts it.
 
-Ported too: the random and the port's own tokenizer checkpoints. Refused,
-each with a message naming its ROADMAP item: ``--attn_impl xla``,
-``--scan_layers``,
-``--mesh`` / ``--pp_microbatches``, Bytedance or TATiTok tokenizers and FSQ
+Refused, each with a message naming its ROADMAP item: ``--attn_impl
+xla``, ``--scan_layers``, ``--mesh`` / ``--pp_microbatches`` and FSQ
 tokenizers. ``--no_wandb`` is accepted; the port logs to files only.
 """
 
@@ -105,7 +106,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--data_dir", type=str, default=None)
     parser.add_argument("--tokenizer_ckpt", type=str, default="random",
                         help='a checkpoint directory of the port\'s '
-                             'train_titok, or "random"')
+                             'train_titok or train_tatitok, a Bytedance '
+                             'TATiTok folder, or "random"')
     parser.add_argument("--image_size", type=int, default=64)
     parser.add_argument("--steps_per_epoch", type=int, default=50)
     parser.add_argument("--attn_impl", type=str, default=None,
