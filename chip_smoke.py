@@ -164,6 +164,22 @@ false``. Phases, one JSON line each:
                 16384) for 2 steps; a Bytedance folder written from it,
                 whose ``load_tokenizer`` codes equal a direct fp32 encode
                 (without PyYAML, the refusal naming it);
+  3e. families — the other tokenizer families: K1/K2 at (32, 64, 12 heads)
+                with a bias and without (the enhancing QKV) and at (32,
+                512, 8 heads), K5 at (8192, 16384, 8) with L2 against fp64
+                scores, with times, bounds and SDPA's; a ViT-VQGAN-B and an
+                enhancing ViT-VQGAN step (image 128, bs 32, L1 pixel loss,
+                ConvNeXt-S perceptual loss: K1 24, K2 24, K3 66, K4 33, K5
+                1) against the plain versions within ``STEP_LOSS_REL`` and
+                ``STEP_GRAD_NORM_REL``, with CUDA-event medians and peaks;
+                ``python -m vit_tpu_torch.train_vit_vqgan`` at its defaults
+                on the JPEG fixtures (--dataset imagenet), writing "best";
+                ``python -m vit_tpu_torch.train_llamagen_titok`` at its
+                defaults (LlamaGen-TiTok-S) over synthetic codes across a
+                SIGTERM and ``--resume``, over that ViT-VQGAN checkpoint
+                and over a LlamaGen VQ-16 ``.pt`` in LlamaGen's layout from
+                random weights; VQ-16's codes through K5 against the plain
+                version on the same latents;
   4. slice    — export → load → HTTP server; concurrent /encode requests,
                 /decode of the indices; checks shapes, ranges, a 400, that
                 every kernel launched during those requests, that the served
@@ -323,14 +339,16 @@ false``. Phases, one JSON line each:
                 every gradient and parameter bit for bit after every step.
 
 ``--entries_only`` runs the device, build and the last five phases alone,
-``--pretrain_only`` the device, build and pretrain phases, and
-``--tatitok_only`` the device, build and tatitok phases (no kernels
+``--pretrain_only`` the device, build and pretrain phases,
+``--tatitok_only`` the device, build and tatitok phases, and
+``--families_only`` the device, build and families phases (no kernels
 line, no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
 arm's numbers and its dropout launches, and again at head_dim 32 as
 ``*_d32`` with the pretrain phase's numbers and launches; each kernel with an fp32 form with
-its ``fp32`` numbers and ``fp32_launches``; P as ``fma_probe``), the card's
+its ``fp32`` numbers and ``fp32_launches``; K1, K2 and K5 with the
+families phase's numbers as ``families``; P as ``fma_probe``), the card's
 name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
 script exits non-zero without that line. It imports nothing of JAX.
@@ -1081,23 +1099,28 @@ def hopper_attention_ptxas() -> dict:
                                       "unpacked_bwd_dkdv_kernel")}
 
 
-def k1_row(b: int, s: int, h: int, causal: bool, gen) -> dict:
-    """K1 with a bias at (b, s, h heads × 64), bf16, against its plain
+def k1_row(b: int, s: int, h: int, causal: bool, gen,
+           biased: bool = True) -> dict:
+    """K1 with a bias (``biased``; else ``qkv_bias=None``, which the entry
+    turns into zeros) at (b, s, h heads × 64), bf16, against its plain
     version: the output within ``K1_MAX_ABS``, ``K1_MEAN_ABS`` and
     ``WGMMA_FWD_MEAN_REL``; with statistics the same bits, m and l within
     ``K1_STATS_REL``."""
     width = h * 64
     qkv = torch.randn(b, s, 3 * width, device="cuda",
                       generator=gen).bfloat16()
-    bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
-    out = k_attn.flash_attention_packed(qkv, h, causal=causal, qkv_bias=bias)
+    bias = (0.3 * torch.randn(3 * width, device="cuda", generator=gen)
+            if biased else torch.zeros(3 * width, device="cuda"))
+    out = k_attn.flash_attention_packed(qkv, h, causal=causal,
+                                        qkv_bias=bias if biased else None)
     out_s, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
                                               emit_stats=True)
     torch.cuda.synchronize()
     ref, m_ref, l_ref = k_attn.attention_packed_fwd_ref(
         qkv, bias, h, causal, emit_stats=True)
     diff = (out.float() - ref.float()).abs()
-    row = dict(B=b, S=s, H=h, causal=causal, max_abs=diff.max().item(),
+    row = dict(B=b, S=s, H=h, causal=causal, biased=biased,
+               max_abs=diff.max().item(),
                mean_abs=diff.mean().item(),
                mean_rel=rel_errors(out, ref)["mean_rel"],
                stats_out_identical=bool(torch.equal(out, out_s)),
@@ -1113,14 +1136,17 @@ def k1_row(b: int, s: int, h: int, causal: bool, gen) -> dict:
     return row
 
 
-def k2_row(b: int, s: int, h: int, causal: bool, gen) -> dict:
-    """K2 with a bias at (b, s, h heads × 64), bf16, against its plain
-    version on K1's (m, l): dqkv and dbias within ``BWD_MAX_REL``,
-    ``BWD_MEAN_REL`` and ``WGMMA_BWD_MEAN_REL``."""
+def k2_row(b: int, s: int, h: int, causal: bool, gen,
+           biased: bool = True) -> dict:
+    """K2 with a bias (``biased``; else zeros, as a bias-free QKV gives it)
+    at (b, s, h heads × 64), bf16, against its plain version on K1's (m,
+    l): dqkv and dbias within ``BWD_MAX_REL``, ``BWD_MEAN_REL`` and
+    ``WGMMA_BWD_MEAN_REL``."""
     width = h * 64
     qkv = torch.randn(b, s, 3 * width, device="cuda",
                       generator=gen).bfloat16()
-    bias = 0.3 * torch.randn(3 * width, device="cuda", generator=gen)
+    bias = (0.3 * torch.randn(3 * width, device="cuda", generator=gen)
+            if biased else torch.zeros(3 * width, device="cuda"))
     dout = torch.randn(b, s, width, device="cuda", generator=gen).bfloat16()
     _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, causal,
                                           emit_stats=True)
@@ -1129,7 +1155,7 @@ def k2_row(b: int, s: int, h: int, causal: bool, gen) -> dict:
     torch.cuda.synchronize()
     dqkv_ref, dbias_ref = k_attn.attention_packed_bwd_ref(
         qkv, bias, dout, m, l, h, causal)
-    row = dict(B=b, S=s, H=h, causal=causal,
+    row = dict(B=b, S=s, H=h, causal=causal, biased=biased,
                dqkv=rel_errors(dqkv, dqkv_ref),
                dbias=rel_errors(dbias, dbias_ref))
     require(bool(torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()),
@@ -1653,12 +1679,19 @@ def phase_kernels() -> dict:
 
 def k5_hold(n: int, c: int, d: int, l2: bool, gen) -> dict:
     """K5 at (N, C, D) on random fp32 z and codes (scaled by 1/C, as the
-    train step's codebook), judged by fp64 scores z·e (− ‖e‖²/2 without
-    normalisation): the kernel's code must be the fp64 best within
-    K5_TIE_GAP on every row, and where the plain version picks another code,
-    that code must be within the plain version's own rounding of the best."""
+    train step's codebook), judged by ``k5_judge``."""
     z = torch.randn(n, d, device="cuda", generator=gen)
     cb = (torch.rand(c, d, device="cuda", generator=gen) * 2 - 1) / c
+    return k5_judge(z, cb, l2)
+
+
+def k5_judge(z: torch.Tensor, cb: torch.Tensor, l2: bool) -> dict:
+    """K5 on fp32 z (N, D) and codes (C, D), judged by fp64 scores z·e
+    (− ‖e‖²/2 without normalisation): the kernel's code must be the fp64
+    best within K5_TIE_GAP on every row, and where the plain version picks
+    another code, that code must be within the plain version's own rounding
+    of the best."""
+    (n, d), c = z.shape, cb.shape[0]
     idx = k_vq.nearest_code(z, cb, l2_normalize=l2).long()
     ref = k_vq.nearest_code_ref(z, cb, l2_normalize=l2).long()
     bad = (idx != ref).nonzero().flatten()
@@ -7379,6 +7412,379 @@ def phase_tatitok(card: str) -> "tuple[dict, dict]":
     return arms, launches
 
 
+# ViT-VQGAN-B and the enhancing ViT-VQGAN at train_vit_vqgan.py's and
+# train_enhancing_vitvqgan.py's defaults: image 128, patch 16, one latent a
+# patch (S 64 in the encoder and the decoder, no extra token), codebook
+# 2048 × 12, bs 32. Each step launches K1/K2 once a layer of its two
+# 12-layer stacks (the enhancing QKV without a bias), ConvNeXt-S's K3 66
+# and K4 33 times, K5 once: the flagship step's counts.
+VQGAN_B = dict(image_size=128, patch_size=16, codebook_size=2048,
+               latent_dim=12)
+FAMILY_BS = 32
+FAMILY_STEP_LAUNCHES = STEP_LAUNCHES
+# LlamaGen-TiTok-S at train_llamagen_titok.py's defaults: 256 codes in, 256
+# latents, S 512 in both 6-layer stacks (8 heads × 64), codebook 16384 × 12
+# (K5 at N 8192), CE over 16384 codes; LlamaGen VQ-16 encodes 32 images of
+# 256 into 8192 latents of 8 against its 16384 codes.
+LLAMAGEN_ENTRY = ("--dataset", "synthetic", "--no_wandb", "--log_every", "2")
+LLAMAGEN_PREEMPT_AT = 2
+VQ16_CODES = (FAMILY_BS * 256, 16384, 8)
+
+
+def families_kernels(gen) -> dict:
+    """(a) K1 and K2 at the families' attention, against their plain
+    versions within ``packed_kernels``' limits: (32, 64, 12 heads × 64) with
+    a bias (ViT-VQGAN) and without (the enhancing QKV), and (32, 512, 8 ×
+    64) with a bias (LlamaGen-TiTok-S); K5 at LlamaGen VQ-16's encode, N
+    8192 × C 16384 × D 8 with L2 normalisation (its tuned D-8 form had been
+    held at C ≤ 2048 only), by ``k5_hold``. Their times beside their bounds,
+    the plain versions and SDPA. Returns the kernels line's ``families``
+    arm of each."""
+    k1_rows = [k1_row(FAMILY_BS, s, h, False, gen, biased)
+               for s, h, biased in ((64, 12, True), (64, 12, False),
+                                    (512, 8, True))]
+    k2_rows = [k2_row(FAMILY_BS, s, h, False, gen, biased)
+               for s, h, biased in ((64, 12, True), (64, 12, False),
+                                    (512, 8, True))]
+    n, c, d = VQ16_CODES
+    k5 = k5_hold(n, c, d, True, gen)
+    z = torch.randn(n, d, device="cuda", generator=gen)
+    cb = torch.randn(c, d, device="cuda", generator=gen)
+    k5_bound = bound(2 * n * c * d, (n + c) * d * 4 + n * 4,
+                     peak=PEAK_FP32_FLOPS)
+    vq = dict(shape=[n, c, d], l2_normalize=True, parity=k5,
+              ms=median_ms(lambda: k_vq.nearest_code(z, cb)),
+              dev_ms=device_ms(lambda: k_vq.nearest_code(z, cb)),
+              plain_ms=median_ms(lambda: k_vq.nearest_code_ref(z, cb),
+                                 reps=5),
+              bound_ms=k5_bound["bound_ms"], bound_by=k5_bound["bound_by"],
+              plan=k_vq.plan(n, c, d, torch.cuda.get_device_properties(0)
+                             .multi_processor_count))
+    fwd, bwd = {}, {}
+    for s, h in ((64, 12), (512, 8)):
+        width = h * 64
+        qkv = torch.randn(FAMILY_BS, s, 3 * width, device="cuda",
+                          generator=gen).bfloat16()
+        bias = torch.zeros(3 * width, device="cuda") if s == 64 else \
+            torch.randn(3 * width, device="cuda", generator=gen)
+        dout = torch.randn(FAMILY_BS, s, width, device="cuda",
+                           generator=gen).bfloat16()
+        _, m, l = k_attn.attention_packed_fwd(qkv, bias, h, False,
+                                              emit_stats=True)
+        heads = k_attn.split_heads(qkv, h, bias)
+        dh = dout.reshape(FAMILY_BS, s, h, 64).transpose(1, 2)
+        b1 = attention_bound(FAMILY_BS, h, s, False, False,
+                             extra_bytes=3 * width * 4)
+        b2 = attention_bound(FAMILY_BS, h, s, False, True,
+                             extra_bytes=3 * width * 8)
+        key = f"S{s}"
+
+        def k1():
+            return k_attn.attention_packed_fwd(qkv, bias, h, False,
+                                               emit_stats=True)
+
+        def k2():
+            return k_attn.attention_packed_bwd(qkv, bias, dout, m, l, h,
+                                               False)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*heads)
+
+        # single calls' events include the wrapper's host time, which at S
+        # 64 is most of a call: "dev_ms" times the card alone
+        fwd[key] = dict(
+            shape=[FAMILY_BS, s, h, 64], biased=s != 64, ms=median_ms(k1),
+            dev_ms=device_ms(k1),
+            plain_ms=median_ms(lambda: k_attn.attention_packed_fwd_ref(
+                qkv, bias, h, False, emit_stats=True), reps=5),
+            bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
+            library_ms=median_ms(sdpa), library_dev_ms=device_ms(sdpa))
+        bwd[key] = dict(
+            shape=[FAMILY_BS, s, h, 64], biased=s != 64, ms=median_ms(k2),
+            dev_ms=device_ms(k2),
+            plain_ms=median_ms(lambda: k_attn.attention_packed_bwd_ref(
+                qkv, bias, dout, m, l, h, False), reps=5),
+            bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],
+            library_ms=sdpa_backward_ms(*heads, dh, False)["backward_ms"])
+    fwd["parity"], bwd["parity"] = k1_rows, k2_rows
+    arms = {"attention_packed_fwd": fwd, "attention_packed_bwd": bwd,
+            "vq_nearest": vq}
+    emit("families", part="kernels", arms=arms)
+    del z, cb, qkv, bias, dout, m, l, heads, dh
+    torch.cuda.empty_cache()
+    return arms
+
+
+def family_first_step(model, perceptual, images) -> dict:
+    """One L1 tokenizer step (the ViT-VQGAN entries' optimizer) from the
+    model's weights through the kernels, then from the same weights
+    through the plain versions: launches, metrics, gradient norms, the
+    step's peak memory; the kernels' step, state and usage for timing."""
+    plain = copy.deepcopy(model)
+    out = {}
+    for name, m in (("kernels", model), ("plain", plain)):
+        state = TrainState.create(m, make_optimizer(
+            1e-4, 5000, 500_000, 1e-5, 1e-4, clip_norm=1.0))
+        usage = torch.zeros(m.config.codebook_size, device="cuda")
+        step = make_tokenizer_train_step(m, perceptual_loss_fn=perceptual,
+                                         pixel_loss="l1")
+        ctx = contextlib.nullcontext if name == "kernels" else plain_versions
+        with ctx():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "kernels":
+                reset_launches()   # the main path's run starts here
+            _, _, metrics, recon = step(state, images, usage)
+            torch.cuda.synchronize()
+        out[name] = dict(
+            metrics={k: v.item() for k, v in metrics.items()},
+            grad_norm=state.opt_state.grad_norm.item(),
+            peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+            finite=bool(torch.isfinite(recon).all()))
+        if name == "kernels":
+            out["launches"] = read_launches()
+            out["step"], out["state"], out["usage"] = step, state, usage
+    del plain
+    return out
+
+
+def family_step(card: str, name: str, model, perceptual, images,
+                profiled: bool = False) -> dict:
+    """(b, c) The first step of ``model`` against the plain versions: loss,
+    perceptual loss and gradient norm within ``STEP_LOSS_REL`` and
+    ``STEP_GRAD_NORM_REL``, launches ``FAMILY_STEP_LAUNCHES``; then its
+    CUDA-event median and peak memory, and with ``profiled`` one step under
+    ``torch.profiler`` (its busy time and idle share; reading back a
+    step's ~10k kernels takes the profiler about ten seconds). Returns the
+    launches."""
+    first = family_first_step(model, perceptual, images)
+    k, p = first["kernels"], first["plain"]
+    r = {key: abs(a - b) / abs(b) for key, a, b in (
+        ("train/loss", k["metrics"]["train/loss"], p["metrics"]["train/loss"]),
+        ("train/perceptual_loss", k["metrics"]["train/perceptual_loss"],
+         p["metrics"]["train/perceptual_loss"]),
+        ("grad_norm", k["grad_norm"], p["grad_norm"]))}
+    step, state, usage = first.pop("step"), first.pop("state"), \
+        first.pop("usage")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = median_ms(lambda: step(state, images, usage), reps=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    emit("families", part=f"{name}_step", what=f"{name}, image 128, bs 32, "
+         "first step kernels vs plain versions", card=card,
+         launches=first["launches"], kernels=k, plain=p, rel_diff=r,
+         step_ms=step_ms, images_per_s=FAMILY_BS / step_ms * 1e3,
+         peak_gb=peak, profile=(profile_window(
+             lambda: step(state, images, usage)) if profiled else None),
+         tolerance=dict(loss_rel=STEP_LOSS_REL,
+                        grad_norm_rel=STEP_GRAD_NORM_REL))
+    require(first["launches"] == FAMILY_STEP_LAUNCHES,
+            f"{name} step launched {first['launches']}, expected "
+            f"{FAMILY_STEP_LAUNCHES}")
+    require(k["finite"] and all(np.isfinite(v)
+                                for v in k["metrics"].values()),
+            f"{name} step: non-finite {k}")
+    require(r["train/loss"] <= STEP_LOSS_REL
+            and r["train/perceptual_loss"] <= STEP_LOSS_REL
+            and r["grad_norm"] <= STEP_GRAD_NORM_REL,
+            f"{name} step, kernels vs plain versions: {r}")
+    del step, state, usage
+    torch.cuda.empty_cache()
+    return first["launches"]
+
+
+def family_steps(lines: list) -> "list[tuple[int, float, float]]":
+    """(step, loss, step_time) of each step line of the ViT-VQGAN loop
+    (``e=.. i=..``) or of train_llamagen_titok (``e=.. s=..``)."""
+    out = []
+    for line in lines:
+        mt = re.match(r"e=\d+ [is]=(\d+) loss=(\S+) .*step_time=(\S+)", line)
+        if mt:
+            out.append((int(mt.group(1)), float(mt.group(2)),
+                        float(mt.group(3))))
+    return out
+
+
+def run_family_main(module: str, *flags: str,
+                    kill_at: "int | None" = None) -> dict:
+    """``vit_tpu_torch.<module>.main(flags)`` in this process, its output
+    captured, the kernels' launch counts set to 0 just before it and read
+    just after; with ``kill_at``, SIGTERM to this process during
+    train_llamagen_titok's train step ``kill_at`` (counted from 1)."""
+    import importlib
+
+    mod = importlib.import_module(f"vit_tpu_torch.{module}")
+    factory = getattr(mod, "make_llamagen_titok_train_step", None)
+    if kill_at is not None:
+        def make(model, **kw):
+            step = factory(model, **kw)
+            calls = [0]
+
+            def hooked(*args):
+                calls[0] += 1
+                if calls[0] == kill_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return step(*args)
+
+            return hooked
+
+        mod.make_llamagen_titok_train_step = make
+    buf = io.StringIO()
+    prev = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = mod.main(list(flags))
+        torch.cuda.synchronize()
+    finally:
+        if kill_at is not None:
+            mod.make_llamagen_titok_train_step = factory
+        signal.signal(signal.SIGTERM, prev)
+    lines = buf.getvalue().splitlines()
+    run = dict(cmd=f"-m vit_tpu_torch.{module} " + " ".join(flags),
+               seconds=time.perf_counter() - t0, lines=lines,
+               steps=family_steps(lines), launches=read_launches(),
+               state=state)
+    require(run["steps"] and all(np.isfinite(l) for _, l, _ in run["steps"]),
+            f"{module}'s step lines: {lines[-30:]}")
+    torch.cuda.empty_cache()
+    return run
+
+
+def families_entries(work: Path) -> dict:
+    """(d) ``python -m vit_tpu_torch.train_vit_vqgan`` at its defaults
+    (ViT-VQGAN-B, image 128, bs 32, --dataset imagenet) on the JPEG
+    fixtures, 3 steps, writing "best"; (e) ``python -m
+    vit_tpu_torch.train_llamagen_titok`` at its defaults (LlamaGen-TiTok-S)
+    over (e.a) synthetic codes across a SIGTERM at step
+    ``LLAMAGEN_PREEMPT_AT`` and ``--resume`` to step 4, (e.b) (d)'s
+    checkpoint (its 64 codes of 2048, synthetic images of 128) and (e.c) a
+    LlamaGen VQ-16 ``.pt`` in LlamaGen's layout from random weights (256
+    codes of 16384 from images of 256), each decoding true and predicted
+    codes at its first step; (f) that VQ's codes through K5 against the
+    plain version on the same latents, judged by ``k5_judge``. Returns the
+    runs' launches."""
+    from vit_tpu_torch.models.llamagen_vq import (LlamaGenVQ,
+                                                  llamagen_state_dict,
+                                                  load_llamagen_vq,
+                                                  vq16_config)
+    from vit_tpu_torch.utils.init import init_llamagen_vq_
+
+    runs = {}
+    jpegs = write_jpegs(work / "jpegs")
+    vq_dir = work / "vit_vqgan"
+    runs["vit_vqgan"] = run_family_main(
+        "train_vit_vqgan", "--data_dir", str(jpegs / "imagenet"),
+        "--no_wandb", "--log_every", "1", "--epochs", "1",
+        "--max_epoch_steps", "3", "--ckpt_dir", str(vq_dir), "--run_dir",
+        str(work / "runs"))
+    require((vq_dir / "best" / "state.pt").exists()
+            and (vq_dir / "best_config.json").exists(),
+            "train_vit_vqgan wrote no 'best' checkpoint")
+    ckpt = work / "llamagen"
+    common = (*LLAMAGEN_ENTRY, "--run_dir", str(work / "runs"))
+    runs["codes_cut"] = run_family_main(
+        "train_llamagen_titok", *common, "--ckpt_dir", str(ckpt),
+        "--steps_per_epoch", "100000", kill_at=LLAMAGEN_PREEMPT_AT)
+    require(any(line.startswith(f"PREEMPTED: saving 'last' at step "
+                                f"{LLAMAGEN_PREEMPT_AT}")
+                for line in runs["codes_cut"]["lines"]),
+            f"train_llamagen_titok did not save at the SIGTERM: "
+            f"{runs['codes_cut']['lines'][-6:]}")
+    runs["codes_resumed"] = run_family_main(
+        "train_llamagen_titok", *common, "--ckpt_dir", str(ckpt),
+        "--steps_per_epoch", "4", "--epochs", "1", "--resume")
+    require(any(line.startswith(f"RESUMED at step {LLAMAGEN_PREEMPT_AT}")
+                for line in runs["codes_resumed"]["lines"])
+            and int(runs["codes_resumed"]["state"].step) == 4,
+            f"train_llamagen_titok --resume: "
+            f"{runs['codes_resumed']['lines'][:6]}")
+    runs["vit_vqgan_codes"] = run_family_main(
+        "train_llamagen_titok", *common, "--vq_ckpt", str(vq_dir),
+        "--vq_latent_tokens", "64", "--vq_codebook_size", "2048",
+        "--steps_per_epoch", "2", "--epochs", "1", "--image_every", "1",
+        "--ckpt_dir", str(work / "llamagen_vq"))
+    vq = LlamaGenVQ(vq16_config())
+    init_llamagen_vq_(vq, torch.Generator().manual_seed(3))
+    pt = work / "vq_ds16_c2i.pt"
+    torch.save({"model": llamagen_state_dict(vq)}, pt)
+    del vq
+    runs["llamagen_codes"] = run_family_main(
+        "train_llamagen_titok", *common, "--vq_ckpt", str(pt),
+        "--steps_per_epoch", "2", "--epochs", "1", "--image_every", "1",
+        "--ckpt_dir", str(work / "llamagen_pt"))
+    for run in runs.values():
+        require_launched(run, ("attention_packed_fwd", "attention_packed_bwd",
+                               "vq_nearest"))
+
+    vq = load_llamagen_vq(str(pt), "cuda")
+    images = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (FAMILY_BS, 256, 256, 3)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        z = vq.quant_conv(vq.encoder(images.permute(0, 3, 1, 2)))
+        z = z.permute(0, 2, 3, 1).reshape(-1, 8).contiguous()
+        codes = k5_judge(z, vq.codebook, True)
+        same = bool(torch.equal(vq.encode(images).reshape(-1),
+                                k_vq.nearest_code(z, vq.codebook)))
+        encode_ms = median_ms(lambda: vq.encode(images), reps=3)
+    require(same, "LlamaGen VQ-16's encode differs from K5 on its latents")
+    emit("families", part="entries", codes=dict(
+        vq16_encode=codes, encode_equals_k5=same, encode_bs32_ms=encode_ms),
+         runs={k: dict(cmd=r["cmd"], seconds=r["seconds"], steps=r["steps"],
+                       tail=r["lines"][-4:],
+                       launches={n: v for n, v in r["launches"].items()
+                                 if v})
+               for k, r in runs.items()})
+    del vq, images, z
+    torch.cuda.empty_cache()
+    out = {}
+    for run in runs.values():
+        for n, v in run["launches"].items():
+            out[n] = out.get(n, 0) + v
+    return out
+
+
+def phase_families(card: str) -> "tuple[dict, dict]":
+    """The other tokenizer families: (a) the kernels at their shapes, (b)
+    a ViT-VQGAN-B and (c) an enhancing ViT-VQGAN step against the plain
+    versions, (d) the train_vit_vqgan entry, (e) train_llamagen_titok over
+    its three code sources and (f) VQ-16's codes. Returns the kernels
+    line's ``families`` arms and the paths' launches."""
+    from vit_tpu_torch.models.enhancing_vqgan import (EnhancingViTVQGAN,
+                                                      EnhancingVQGANConfig)
+    from vit_tpu_torch.models.vit_vqgan import ViTVQGAN, ViTVQGANConfig
+    from vit_tpu_torch.utils.init import init_enhancing_
+
+    t0 = time.perf_counter()
+    arms = families_kernels(torch.Generator(device="cuda").manual_seed(24))
+    net = ConvNeXt(dtype=torch.bfloat16)
+    init_convnext_(net, torch.Generator().manual_seed(1))
+    perceptual = PerceptualLoss(net).cuda()
+    images = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (FAMILY_BS, 128, 128, 3)).astype(np.float32)).cuda()
+    launches = {}
+    for name, build, init in (
+            ("vit_vqgan_b", lambda: ViTVQGAN(ViTVQGANConfig(
+                **VQGAN_B, transformer="B")), init_params_),
+            ("enhancing", lambda: EnhancingViTVQGAN(EnhancingVQGANConfig(
+                **VQGAN_B)), init_enhancing_)):
+        model = build()
+        init(model, torch.Generator().manual_seed(0))
+        model = model.cuda().train()
+        for n, v in family_step(card, name, model, perceptual, images,
+                                profiled=name == "vit_vqgan_b").items():
+            launches[n] = launches.get(n, 0) + v
+        del model
+        torch.cuda.empty_cache()
+    del net, perceptual, images
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as tmp:
+        for n, v in families_entries(Path(tmp)).items():
+            launches[n] = launches.get(n, 0) + v
+    emit("families", part="done", seconds=time.perf_counter() - t0,
+         launches=launches)
+    return arms, launches
+
+
 def entry_phases(card: str, converge_epochs: "int | None"
                  ) -> "tuple[dict, dict]":
     """The train_titok and train_videogpt entries' phases; their launches
@@ -7413,6 +7819,9 @@ def main(argv=None) -> None:
     parser.add_argument("--tatitok_only", action="store_true",
                         help="only the build and the tatitok phase; no "
                              "kernels line and no closing line")
+    parser.add_argument("--families_only", action="store_true",
+                        help="only the build and the families phase; no "
+                             "kernels line and no closing line")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
@@ -7425,6 +7834,9 @@ def main(argv=None) -> None:
     if args.tatitok_only:
         phase_tatitok(card)
         return
+    if args.families_only:
+        phase_families(card)
+        return
     fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
     for name, arm in fp32_kernels(
@@ -7435,6 +7847,9 @@ def main(argv=None) -> None:
     tatitok_arms, tatitok_launches = phase_tatitok(card)
     for name, arm in tatitok_arms.items():
         summary[name]["tatitok"] = arm
+    families_arms, families_launches = phase_families(card)
+    for name, arm in families_arms.items():
+        summary[name]["families"] = arm
 
     cfg = TiTokConfig(**FLAGSHIP)
     model = TiTok(cfg)
@@ -7471,7 +7886,7 @@ def main(argv=None) -> None:
     for path in (train_launches, fused_launches, gpt_launches,
                  rollout_launches, int8_launches, perceptual_launches,
                  vit_launches, fp32_path_launches, titok_launches,
-                 pretrain_launches, tatitok_launches):
+                 pretrain_launches, tatitok_launches, families_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]

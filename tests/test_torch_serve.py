@@ -140,7 +140,9 @@ def test_port_never_imports_jax():
         "'vit_tpu_torch.bench_kernels', 'vit_tpu_torch.kernels.fma_probe', "
         "'vit_tpu_torch.utils.precision', 'vit_tpu_torch.train_titok', "
         "'vit_tpu_torch.train.loop', 'vit_tpu_torch.train_mae', "
-        "'vit_tpu_torch.train_puzzle')\n"
+        "'vit_tpu_torch.train_puzzle', 'vit_tpu_torch.train_vit_vqgan', "
+        "'vit_tpu_torch.train_enhancing_vitvqgan', "
+        "'vit_tpu_torch.train_llamagen_titok')\n"
         "assert all(e in sys.modules for e in entries), entries\n"
         "print(len([k for k in sys.modules if k.startswith('vit_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

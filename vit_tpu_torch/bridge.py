@@ -4,11 +4,15 @@ The port names its modules after the flax modules, so one rule maps a flax
 leaf path to a state-dict key:
 
   - path segments join with "." and ``layer_{i}`` becomes ``layers.{i}``;
+    the enhancing ViT-VQGAN's flat block names ``attn_norm_{i}``,
+    ``attn_{i}``, ``ff_norm_{i}``, ``ff1_{i}`` and ``ff2_{i}`` become
+    ``blocks.{i}.attn_norm`` and so on;
   - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
   - a Conv ``kernel`` HWIO becomes ``weight`` OIHW; a depthwise kernel
     (7, 7, 1, C) thereby becomes (C, 1, 7, 7);
-  - a LayerNorm ``scale`` becomes ``weight`` (the Bytedance block's affine
-    ``ln1``/``ln2`` and flax ``nn.LayerNorm``'s alike);
+  - a LayerNorm or GroupNorm ``scale`` becomes ``weight`` (the Bytedance
+    block's affine ``ln1``/``ln2``, flax ``nn.LayerNorm``'s and the LlamaGen
+    VQ's ``nn.GroupNorm``'s alike);
   - ``bias``, ``pos_emb``, ``extra_emb``, ``codebook``, ``gamma``,
     VideoGPT's raw 2-D ``tok_embed`` and ``pos_embed``, MAE's
     ``cls_token`` and ``mask_token``, and TATiTok's ``latent_tokens``,
@@ -59,6 +63,11 @@ def unflatten(flat: dict) -> dict:
     return tree
 
 
+# the enhancing ViT-VQGAN's flat per-block names (``attn_norm_0``, ...)
+ENHANCING_BLOCK = "attn_norm|attn|ff_norm|ff1|ff2"
+ENHANCING_FLAT = r"\b(" + ENHANCING_BLOCK + r")_(\d+)\b"
+
+
 def _to_torch(leaf: np.ndarray) -> np.ndarray:
     """A flax ``kernel`` in the port's ``weight`` layout."""
     return leaf.T if leaf.ndim == 2 else leaf.transpose(3, 2, 0, 1)
@@ -73,6 +82,7 @@ def _torch_key(flax_key: str) -> "tuple[str, bool]":
     """"enc/vit/transformer/layer_0/attn/qkv/kernel" →
     ("enc.vit.transformer.layers.0.attn.qkv.weight", is_kernel=True)."""
     key = re.sub(r"\blayer_(\d+)\b", r"layers.\1", flax_key.replace("/", "."))
+    key = re.sub(ENHANCING_FLAT, r"blocks.\2.\1", key)
     if key.endswith(".kernel"):
         return key.removesuffix(".kernel") + ".weight", True
     if key.endswith(".scale"):
@@ -82,7 +92,9 @@ def _torch_key(flax_key: str) -> "tuple[str, bool]":
 
 def _flax_key(torch_key: str, ndim: int) -> "tuple[str, bool]":
     """Inverse of ``_torch_key`` for a tensor of rank ``ndim``."""
-    key = re.sub(r"\blayers\.(\d+)\b", r"layer_\1", torch_key).replace(".", "/")
+    key = re.sub(r"\bblocks\.(\d+)\.(" + ENHANCING_BLOCK + r")\b", r"\2_\1",
+                 torch_key)
+    key = re.sub(r"\blayers\.(\d+)\b", r"layer_\1", key).replace(".", "/")
     if key.endswith("/weight"):
         if ndim == 1:
             return key.removesuffix("/weight") + "/scale", False
@@ -172,6 +184,49 @@ def tatitok_state_dict_from_flax(params: dict, cfg
     from vit_tpu_torch.models.tatitok import TATiTok
 
     return _from_flax(params, TATiTok(cfg, device="meta").state_dict())
+
+
+def vit_vqgan_state_dict_from_flax(params: dict, cfg
+                                   ) -> "dict[str, torch.Tensor]":
+    """JAX ViT-VQGAN params (``encoder``/``decoder`` with their ``vit`` and
+    projections, ``quant/codebook``) → the port's state dict for a
+    ``ViTVQGAN(cfg)``, with the checks of ``_from_flax``."""
+    from vit_tpu_torch.models.vit_vqgan import ViTVQGAN
+
+    return _from_flax(params, ViTVQGAN(cfg, device="meta").state_dict())
+
+
+def enhancing_state_dict_from_flax(params: dict, cfg
+                                   ) -> "dict[str, torch.Tensor]":
+    """JAX enhancing ViT-VQGAN params (the flat ``attn_norm_{i}`` ...
+    ``ff2_{i}`` blocks and ``final_norm`` of each ``transformer``,
+    ``patch_embed``, ``to_pixel``, ``pre_quant_proj``, ``quant_proj``,
+    ``quant/codebook``) → the port's state dict for an
+    ``EnhancingViTVQGAN(cfg)``, with the checks of ``_from_flax``."""
+    from vit_tpu_torch.models.enhancing_vqgan import EnhancingViTVQGAN
+
+    return _from_flax(params,
+                      EnhancingViTVQGAN(cfg, device="meta").state_dict())
+
+
+def llamagen_vq_state_dict_from_flax(params: dict, cfg
+                                     ) -> "dict[str, torch.Tensor]":
+    """JAX LlamaGen VQ params (flax names: ``encoder/down_0_res_0/conv1``,
+    HWIO kernels, GroupNorm ``scale``, ``codebook``) → the port's state dict
+    for a ``LlamaGenVQ(cfg)``, OIHW, with the checks of ``_from_flax``."""
+    from vit_tpu_torch.models.llamagen_vq import LlamaGenVQ
+
+    return _from_flax(params, LlamaGenVQ(cfg, device="meta").state_dict())
+
+
+def llamagen_titok_state_dict_from_flax(params: dict, cfg
+                                        ) -> "dict[str, torch.Tensor]":
+    """JAX LlamaGen-TiTok params (``enc``/``dec`` with their tables,
+    transformers and projections, ``quant/codebook``) → the port's state
+    dict for a ``LlamaGenTiTok(cfg)``, with the checks of ``_from_flax``."""
+    from vit_tpu_torch.models.llamagen_titok import LlamaGenTiTok
+
+    return _from_flax(params, LlamaGenTiTok(cfg, device="meta").state_dict())
 
 
 def uvit_state_dict_from_flax(params: dict, block

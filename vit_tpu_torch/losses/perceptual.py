@@ -59,13 +59,16 @@ CONVNEXT_S_DIMS = (96, 192, 384, 768)
 
 class LayerNorm(nn.Module):
     """Affine LayerNorm over the last axis with flax ``nn.LayerNorm``'s
-    rounding; the output is in ``dtype``."""
+    rounding (statistics in fp32 as E[x²] − mean², eps 1e-6, the affine in
+    fp32); the output is in ``dtype``. The enhancing ViT-VQGAN's norms are
+    these too."""
 
-    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6):
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6,
+                 device=None):
         super().__init__()
         self.dtype, self.eps = dtype, eps
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()

@@ -28,7 +28,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -146,17 +146,23 @@ def log_metrics(logger: MetricsLogger, metrics: dict, state: TrainState
 def run_tokenizer_training(args, model, model_config, train_loader, *,
                            project_name: str, run_name: str,
                            codebook_size: int, pixel_loss: str,
-                           perceptual_weight: Optional[float] = None):
-    """Train ``model`` (built on the host, weights drawn here) on
-    ``args.device``. ``args`` carries the entry's flags (lr, warmup_steps,
-    train_steps, min_lr, weight_decay, epochs, ...). Returns the state."""
+                           perceptual_weight: Optional[float] = None,
+                           init: Optional[Callable] = None):
+    """Train ``model`` (built on the host, weights drawn here by
+    ``init_weights``, or by ``init(model, generator)`` for a model with an
+    initialiser of its own) on ``args.device``. ``args`` carries the
+    entry's flags (lr, warmup_steps, train_steps, min_lr, weight_decay,
+    epochs, ...). Returns the state."""
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.mixed else torch.float32
     logger = MetricsLogger(project_name, run_name, config=vars(args),
                            out_dir=getattr(args, "run_dir", None),
                            device=device)
 
-    init_weights(model, args.seed)
+    if init is None:
+        init_weights(model, args.seed)
+    else:
+        init(model, torch.Generator().manual_seed(args.seed))
     model.to(device).train().requires_grad_(True)
     perceptual = build_perceptual(args, dtype, device)
     tx = make_optimizer(args.lr, args.warmup_steps, args.train_steps,

@@ -189,6 +189,36 @@ def make_tatitok_train_step(model: nn.Module, *,
     return train_step
 
 
+def make_llamagen_titok_train_step(model: nn.Module) -> Callable:
+    """LlamaGen-TiTok step (``train_llamagen_titok.py:217-231``): the mean
+    fp32 cross-entropy of the decoder's logits against the input codes,
+    plus the quantizer's loss, its gradients and the optimizer step (a
+    micro-step under ``MultiSteps``).
+
+    ``train_step(state, codes, usage) → (state, usage, metrics, indices)``
+    with ``codes`` (B, vq_latent_tokens) integer codes, ``usage`` the
+    (codebook_size,) bitmap set in place by ``mark_usage_``, ``metrics`` the
+    JAX step's ``train/loss``, ``train/recon_loss``, ``train/quant_loss``
+    and ``train/codebook_usage``, and ``indices`` the step's codes."""
+
+    def train_step(state: TrainState, codes: torch.Tensor,
+                   usage: torch.Tensor):
+        logits, indices, quantize_loss = model(codes)
+        recon_loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                     codes.reshape(-1).long())
+        loss = recon_loss + quantize_loss
+        grads = torch.autograd.grad(loss, state.params)
+        state.apply_gradients(grads)
+        mark_usage_(usage, indices)
+        metrics = {"train/loss": loss.detach(),
+                   "train/recon_loss": recon_loss.detach(),
+                   "train/quant_loss": quantize_loss.detach(),
+                   "train/codebook_usage": usage.mean()}
+        return state, usage, metrics, indices
+
+    return train_step
+
+
 def make_videogpt_train_step(model: nn.Module) -> Callable:
     """VideoGPT step: the frozen tokenizer codes each frame under
     ``no_grad``, then the AR prior's next-token CE, its gradients and the

@@ -12,7 +12,13 @@
 ``truncated_normal(-2, 2) * std``, not ``nn.init.trunc_normal_(std=std)``,
 whose bounds ±2 are absolute) and ``scaled_normal_init(scale)`` (N(0,
 scale²)) are ``vit_tpu/utils/init.py:52-67``'s; ``init_tatitok_`` fills a
-TATiTok with them as ``vit_tpu/models/tatitok.py`` does.
+TATiTok with them as ``vit_tpu/models/tatitok.py`` does, and
+``init_llamagen_titok_`` a LlamaGen-TiTok as
+``vit_tpu/models/llamagen_titok.py`` does. ``init_enhancing_`` fills the
+enhancing ViT-VQGAN with Xavier-uniform weights and zero biases
+(``vit_tpu/models/enhancing_vqgan.py:52-53``); ``init_llamagen_vq_`` a
+LlamaGen VQ with flax's defaults (lecun-normal convs, zero biases, unit
+GroupNorms, an N(0, 1) codebook), for random weights only.
 
 ``init_convnext_`` fills the perceptual ConvNeXt with the flax initialisers
 of ``vit_tpu/losses/perceptual.py``: lecun-normal (a normal truncated at ±2σ,
@@ -157,3 +163,67 @@ def init_convnext_(net: nn.Module, generator: torch.Generator) -> None:
             module.bias.zero_()
         elif isinstance(module, ConvNeXtBlock):
             module.gamma.fill_(1e-6)
+
+
+@torch.no_grad()
+def init_llamagen_titok_(model: nn.Module, generator: torch.Generator) -> None:
+    """Fill a ``models.llamagen_titok.LlamaGenTiTok`` in place:
+    trunc_normal(0.02) on its own Linear weights, ``tok_emb``,
+    ``extra_emb`` and ``mask_tokens``, zero biases, N(0, 1/width) on the
+    ``pos_emb`` tables, the transformers as ``init_params_`` and the
+    codebook U(±1/C)."""
+    from vit_tpu_torch.core.transformer import Transformer
+
+    tn = trunc_normal_init(0.02)
+    sn = scaled_normal_init(model.config.n_embd ** -0.5)
+    for part in (model.enc, model.dec):
+        for name, p in part.named_parameters(recurse=False):
+            (sn if name == "pos_emb" else tn)(p, generator)
+        for child in part.children():
+            if isinstance(child, Transformer):
+                init_params_(child, generator)
+            else:   # nn.Linear
+                tn(child.weight, generator)
+                child.bias.zero_()
+    init_params_(model.quant, generator)
+
+
+@torch.no_grad()
+def init_enhancing_(model: nn.Module, generator: torch.Generator) -> None:
+    """Fill a ``models.enhancing_vqgan.EnhancingViTVQGAN`` in place, in
+    registration order: Xavier-uniform weights (U(±√(6/(fan_in +
+    fan_out)))) and zero biases for every Linear, LayerNorms ones and
+    zeros, the codebook U(±1/C)."""
+    from vit_tpu_torch.losses.perceptual import LayerNorm
+
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            bound = math.sqrt(6.0 / (module.in_features
+                                     + module.out_features))
+            module.weight.uniform_(-bound, bound, generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    init_params_(model.quant, generator)
+
+
+@torch.no_grad()
+def init_llamagen_vq_(model: nn.Module, generator: torch.Generator) -> None:
+    """Fill a ``models.llamagen_vq.LlamaGenVQ`` in place, in registration
+    order: lecun-normal conv weights (a normal truncated at ±2σ, rescaled
+    to variance 1/fan_in), zero biases, GroupNorms ones and zeros, the
+    codebook N(0, 1)."""
+    from vit_tpu_torch.models.llamagen_vq import GroupNorm
+
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            w = module.weight
+            std = math.sqrt(1.0 / math.prod(w.shape[1:])) / _TRUNC_STD
+            standard_trunc_normal_(w, generator).mul_(std)
+            module.bias.zero_()
+        elif isinstance(module, GroupNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    model.codebook.normal_(0.0, 1.0, generator=generator)
