@@ -49,7 +49,8 @@ false``. Phases, one JSON line each:
                 with the ptxas figures of their kernels (the kBias forms of
                 K6's and K7/K8's); K5's runtime-D form at D 5, 6, 24,
                 64, 101, 200, 256 and 1024 against N 16384 × C 2048 and
-                16384, held to fp64 scores as its tuned forms are, with the
+                16384, and at D 2048 and 4096 against C 2048, held to
+                fp64 scores as its tuned forms are, with the
                 lowest-index ties (also across slices) at D 6 too, timed
                 beside its bound; the wgmma backwards (K2, K7/K8 and their
                 dropout arms) within ``WGMMA_BWD_MEAN_REL`` of mean |plain|,
@@ -186,8 +187,9 @@ false``. Phases, one JSON line each:
                 codes equal a direct call of the kernels, and that the same
                 weights run through the plain versions agree: latents and
                 images within bf16 noise, every differing code a near-tie;
-  5. timing   — encode and decode latency per request and images/s at bs 8
-                and bs 64;
+  5. timing   — the live model's encode and decode at bs 8 and 64, with
+                the kernels and through the plain versions (HTTP latencies
+                are phase 20's);
   6. train    — the flagship step (TiTok-B, bs 64, perceptual loss, clip,
                 AdamW with a bf16 first moment): the launches of one step
                 (K1 24, K2 24, K3 66, K4 33, K5 1); the same first step from
@@ -222,7 +224,8 @@ false``. Phases, one JSON line each:
                 weights (K6 12 and K8 12 dropout launches a step), the
                 first's loss and gradient norm against the plain versions
                 from the same generator state;
-  9. videogpt_rollout — export → load → HTTP /generate at bs 1 and bs 8: 512
+  9. videogpt_rollout — export → load → HTTP /generate at bs 8 (bs 1: phase
+                20, through the export CLI): 512
                 conditioning codes in, 128 generated (two frames: cut from
                 eight to keep the run in its time), the prefix intact, every
                 code in range, equal to a direct generate call, 12 K6
@@ -335,13 +338,31 @@ false``. Phases, one JSON line each:
                 --dataset imagenet``, ``--dataset wds --wds_streaming
                 true`` and ``train_titok --dataset imagenet`` on JPEGs it
                 writes; for each missing decoder, the refusal naming it;
- 19. repro    — two 3-step ``train_titok`` runs at TiTok-B from one seed:
+ 19. repro    — two 2-step ``train_titok`` runs at TiTok-B from one seed:
                 every gradient and parameter bit for bit after every step.
+ 20. serve_export — ``python -m vit_tpu_torch.export_tokenizer``'s ``main``
+                from "best" checkpoints of random weights that the phase
+                writes with ``Checkpointer.save``, each export served over
+                HTTP: TiTok-B at the flagship width fp and int8 (``--bs 0``:
+                requests of 8 and 64 images as they come; /encode and
+                /decode equal to a direct call of the live model or its
+                int8 twin, then timed fp, int8, int8, fp), ViT-L/16 @256
+                int8 (/predict; its logits against the live fp model's, top-1
+                agreement above 0.5), VideoGPT-B's greedy rollout at bs 1
+                (512 codes in, 128 out; fp then int8, each equal to a direct
+                generate; generated tokens/s), ViT-VQGAN-B, TATiTok-S (image
+                64) and LlamaGen-TiTok-S int8 and the enhancing ViT-VQGAN fp
+                at their entries' defaults (equal to direct calls); every
+                int8 tokenizer's fidelity fields within the JAX test's bounds
+                (agreement > 0.5, PSNR > 20 dB); K1 and K5 launched by every
+                tokenizer request, K1 24 by the ViT-L predict, K6 12 by a
+                rollout; the sizes of ``weights.npz``.
 
 ``--entries_only`` runs the device, build and the last five phases alone,
 ``--pretrain_only`` the device, build and pretrain phases,
 ``--tatitok_only`` the device, build and tatitok phases, and
-``--families_only`` the device, build and families phases (no kernels
+``--families_only`` the device, build and families phases, and
+``--serve_only`` the device, build and serve_export phases (no kernels
 line, no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
@@ -415,7 +436,7 @@ from vit_tpu_torch.models.videogpt import (VideoGPT,  # noqa: E402
 from vit_tpu_torch.models.vit import ViTClassifier, ViTConfig  # noqa: E402
 from vit_tpu_torch.ops.gelu import gelu_grad, tanh_erf_gelu  # noqa: E402
 from vit_tpu_torch.serve.export import (export_tokenizer,  # noqa: E402
-                                        export_videogpt, load_exported)
+                                        export_videogpt)
 from vit_tpu_torch.serve.server import make_server  # noqa: E402
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader  # noqa: E402
 from vit_tpu_torch.train.checkpoint import Checkpointer  # noqa: E402
@@ -462,8 +483,12 @@ WGMMA_FWD_MEAN_REL = 4.3e-5
 TAIL_MEAN_REL = 1.36e-4
 K5_TIE_GAP = 1e-6   # the kernel's fp32 scores of order 1e-3 against fp64
 K5_PLAIN_ULPS = 8   # the plain version's fp32 distance, in ulps of its terms
-# K5's runtime-D form: odd and wide latent widths, up to its widest (MAX_DIM)
+# K5's runtime-D form: odd and wide latent widths, at C 2048 and 16384
 K5_ANY_DIMS = (5, 6, 24, 64, 101, 200, 256, 1024)
+# and wider than 1024 (ROADMAP Queue C #4), at C 2048: held to fp64 scores
+# within K5_TIE_GAP as the narrower ones (the kernel read a regret of 0.0 at
+# N 16384 × C 2048, with and without L2, on an H100)
+K5_WIDE_DIMS = (2048, 4096)
 # Kernels vs plain versions through the whole bf16 model: one ulp of
 # difference in attention spreads through the residual stream's bf16
 # roundings. Measured on an H100 with these random weights: latents 0.7%
@@ -1761,17 +1786,18 @@ def k5_ties(gen, sms: int) -> dict:
 
 def k5_any_dims(gen, sms: int) -> dict:
     """K5's runtime-D form (every D but the tuned 8, 12, 16 and 32) at
-    ``K5_ANY_DIMS`` against the train step's N and C 2048 and 16384, held by
-    ``k5_hold``; the rows a block held against ``rows_per_block``; each D
-    timed at (N, 2048) with its bound (N·C·D fp32 multiply-adds; z and the
-    codes read, the indices written)."""
+    ``K5_ANY_DIMS`` against the train step's N and C 2048 and 16384, and at
+    ``K5_WIDE_DIMS`` against C 2048, held by ``k5_hold``; the rows a block
+    held against ``rows_per_block``; each D timed at (N, 2048) with its
+    bound (N·C·D fp32 multiply-adds; z and the codes read, the indices
+    written)."""
     n = TRAIN_BS * 256
     rows, times = [], {}
     lib = _build.load()
-    for d in K5_ANY_DIMS:
+    for d in K5_ANY_DIMS + K5_WIDE_DIMS:
         require(lib.vq_nearest_block_rows(d) == k_vq.rows_per_block(d),
                 f"K5's rows a block at D {d} differ from kernels/vq.py")
-        for c in (2048, 16384):
+        for c in (2048, 16384) if d in K5_ANY_DIMS else (2048,):
             for l2 in (True, False):
                 rows.append(k5_hold(n, c, d, l2, gen))
         z = torch.randn(n, d, device="cuda", generator=gen)
@@ -4265,38 +4291,37 @@ def require_codes_agree(flips: dict, what: str) -> None:
             f"{what} agrees with the plain run on {flips['index_agreement']:.4f}")
 
 
-def phase_timing(work: Path, model: TiTok, card: str) -> None:
+def phase_timing(model: TiTok, card: str) -> None:
+    """The live model's encode and decode at bs 8 and 64 with the kernels
+    and through the plain versions, each from host arrays (the served
+    requests' latencies are the serve_export phase's)."""
     size = model.config.image_size
     rng = np.random.default_rng(1)
+    model = copy.deepcopy(model).cuda().eval().requires_grad_(False)
     for bs in (8, 64):
-        d = work / f"t{bs}"
-        export_tokenizer(model, str(d), bs=bs)
         x = rng.uniform(0, 1, (bs, size, size, 3)).astype(np.float32)
-        served = load_exported(str(d), "cuda")
-        xd = torch.from_numpy(x).cuda()
-        idx = served["encode"](xd)
+
+        def encode():
+            with torch.inference_mode():
+                return model.encode(torch.from_numpy(x).cuda())
+
+        idx = encode()
+
+        def decode():
+            with torch.inference_mode():
+                return model.decode_indices(idx)
+
         direct = dict(
             encode_ms=host_median_ms(
-                lambda: (served["encode"](xd), torch.cuda.synchronize())),
+                lambda: (encode(), torch.cuda.synchronize())),
             decode_ms=host_median_ms(
-                lambda: (served["decode"](idx), torch.cuda.synchronize())))
+                lambda: (decode(), torch.cuda.synchronize())))
         with plain_versions():
             direct["plain_encode_ms"] = host_median_ms(
-                lambda: (served["encode"](xd), torch.cuda.synchronize()))
+                lambda: (encode(), torch.cuda.synchronize()))
             direct["plain_decode_ms"] = host_median_ms(
-                lambda: (served["decode"](idx), torch.cuda.synchronize()))
-        del served
-        with serving(str(d), batch_window_ms=0) as url:
-            idx_np = post(url + "/encode", x)
-            http = dict(
-                encode_ms=host_median_ms(lambda: post(url + "/encode", x)),
-                decode_ms=host_median_ms(lambda: post(url + "/decode", idx_np)))
-        http["encode_images_per_s"] = bs / http["encode_ms"] * 1e3
-        http["decode_images_per_s"] = bs / http["decode_ms"] * 1e3
-        http["encode_decode_images_per_s"] = bs / (
-            http["encode_ms"] + http["decode_ms"]) * 1e3
-        emit("timing", bs=bs, card=card, http_per_request=http,
-             device_call=direct)
+                lambda: (decode(), torch.cuda.synchronize()))
+        emit("timing", bs=bs, card=card, device_call=direct)
         torch.cuda.empty_cache()
 
 
@@ -5650,14 +5675,15 @@ def phase_train_videogpt_entry(card: str, work: Path,
 
 def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
                            card: str) -> dict:
-    """The greedy rollout served over HTTP at bs 1 and bs 8: 8 frames of
-    codes in, 2 generated. Returns the launches of the served rollouts."""
+    """The greedy rollout served over HTTP at bs 8 (bs 1 is phase 20's):
+    8 frames of codes in, 2 generated. Returns the launches of the served
+    rollout."""
     frame = VIDEOGPT["frame_size"]
     n_cond, n_gen = ROLLOUT_COND * frame, ROLLOUT_GEN * frame
     cond_all = tokens[:8, :ROLLOUT_COND].reshape(8, n_cond)
     cond_np = cond_all.cpu().numpy()
     launches, results = {}, {}
-    for bs in (1, 8):
+    for bs in (8,):
         d = work / f"videogpt_bs{bs}"
         export_videogpt(model, str(d), cond_frames=ROLLOUT_COND,
                         gen_frames=ROLLOUT_GEN, bs=bs)
@@ -5682,14 +5708,12 @@ def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
         require(launches[bs]["attention_fwd"] == model.config.trans_config
                 .n_layers and launches[bs]["attention_bwd"] == 0,
                 f"one rollout launched {launches[bs]}")
-        loaded = load_exported(str(d), "cuda")
-        direct = loaded["generate"](cond).cpu().numpy()
+        direct = generate(model, torch.from_numpy(cond), n_gen).cpu().numpy()
         require(np.array_equal(served, direct),
                 "the served rollout differs from a direct generate call")
         results[bs] = dict(latency_ms=latency,
                            generated_tokens_per_s=bs * n_gen / latency * 1e3,
                            launches=launches[bs])
-        del loaded
         torch.cuda.empty_cache()
 
     # The prefill (SOS + 512 codes) with the kernels and through the plain
@@ -5712,7 +5736,7 @@ def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
     rows = torch.arange(8, device="cuda")
     gap = (plain[rows, plain_first] - plain[rows, first]).max().item()
     emit("videogpt_rollout", card=card, cond_codes=n_cond, gen_codes=n_gen,
-         bs1=results[1], bs8=results[8], prefill_logits=err,
+         bs8=results[8], prefill_logits=err,
          first_code_equal=int((first == plain_first).sum()),
          first_code_max_gap=gap,
          tolerance=dict(prefill_max_rel=PREFILL_MAX_REL))
@@ -5720,7 +5744,7 @@ def phase_videogpt_rollout(work: Path, model: VideoGPT, tokens: torch.Tensor,
             f"prefill logits vs plain versions: {err}")
     require(gap <= 2 * err["max_abs"],
             f"a first generated code differs beyond a near-tie: gap {gap}")
-    return {k: launches[1][k] + launches[8][k] for k in launches[1]}
+    return launches[8]
 
 
 def phase_train_int8(model: TiTok, weights: dict, perceptual, images,
@@ -6260,6 +6284,8 @@ def run_vit_main(*flags: str) -> dict:
                 launches=read_launches())
 
 
+REPRO_STEPS = 2   # cut from 3 to keep the run in its time; the second step
+                  # already starts from updated parameters and moments
 REPRO_ENTRY = ("--dataset", "synthetic", "--bs", "64", "--perceptual_weights",
                "random", "--no_wandb", "--log_every", "1", "--epochs", "1")
 
@@ -6308,10 +6334,10 @@ def differ(a: dict, b: dict) -> dict:
 
 
 def phase_repro(card: str) -> None:
-    """Two 3-step ``train_titok`` runs at TiTok-B (bs 64, the random
-    perceptual loss) from one seed: every gradient and parameter after
-    every step bit for bit (ROADMAP Queue C #3, repaired by the codebook
-    lookup's ``F.embedding``)."""
+    """Two ``REPRO_STEPS``-step ``train_titok`` runs at TiTok-B (bs 64, the
+    random perceptual loss) from one seed: every gradient and parameter
+    after every step bit for bit (ROADMAP Queue C #3, repaired by the
+    codebook lookup's ``F.embedding``)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     first, steps = [], []
@@ -6326,7 +6352,7 @@ def phase_repro(card: str) -> None:
 
     reset_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_repro_") as work:
-        lines = [repro_run(SHORT_STEPS, os.path.join(work, run), record)
+        lines = [repro_run(REPRO_STEPS, os.path.join(work, run), record)
                  for run, record in (("a", keep), ("b", compare))]
     launches = read_launches()
     del first
@@ -6340,7 +6366,7 @@ def phase_repro(card: str) -> None:
     emit("repro", card=card, seconds=time.perf_counter() - t0,
          bit_equal=bit_equal, largest_difference=worst, steps=steps,
          losses=losses, launches={n: v for n, v in launches.items() if v})
-    require(bit_equal and len(steps) == SHORT_STEPS
+    require(bit_equal and len(steps) == REPRO_STEPS
             and launches["vq_nearest"] > 0,
             f"two runs from one seed part: {steps}")
     torch.cuda.empty_cache()
@@ -7784,6 +7810,304 @@ def phase_families(card: str) -> "tuple[dict, dict]":
          launches=launches)
     return arms, launches
 
+# The serve_export phase: every family exported through the CLI from a
+# checkpoint it writes at random init, served over HTTP and held against a
+# direct call of the live model (the int8 twin for an int8 export). The
+# fidelity fields of an int8 tokenizer within the JAX test's bounds
+# (tests/test_quant.py:157-164).
+SERVE_MIN_AGREEMENT, SERVE_MIN_PSNR_DB = 0.5, 20.0
+SERVE_FAMILY_BS = 2
+VIT_L_CLASSIFIER = (256, 16, "L", 0.15)   # train_vit.py's defaults
+# the other families at their entries' defaults
+SERVE_FAMILIES = {
+    "vit_vqgan": dict(VQGAN_B, transformer="B"),
+    "enhancing": dict(VQGAN_B),
+    "tatitok": dict(image_size=64, patch_size=16, latent_tokens=256,
+                    codebook_size=16384, latent_dim=12, transformer="small"),
+    "llamagen_titok": dict(vq_codebook_size=16384, vq_latent_tokens=256,
+                           latent_tokens=256, codebook_size=16384,
+                           latent_dim=12, transformer="S"),
+}
+
+
+def write_checkpoint(directory: Path, model, config) -> Path:
+    """``model``'s weights as a "best" checkpoint (``Checkpointer.save`` of
+    a fresh ``TrainState``), as a training run writes it."""
+    Checkpointer(str(directory)).save(
+        TrainState.create(model, make_optimizer(1e-4, 1, 10, 1e-5, 0.0)),
+        config=config, tag="best")
+    return directory
+
+
+def cli_export(ckpt: Path, out: Path, model: str, *flags: str) -> dict:
+    """``python -m vit_tpu_torch.export_tokenizer``'s ``main`` on the card;
+    returns the manifest."""
+    from vit_tpu_torch.export_tokenizer import main as export_main
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_main(["--ckpt", str(ckpt), "--out", str(out), "--model",
+                     model, "--device", "cuda", *flags])
+    return json.loads((out / "manifest.json").read_text())
+
+
+def require_fidelity(manifest: dict, what: str) -> dict:
+    fields = {k: v for k, v in manifest.items() if k.startswith("quant_")}
+    require(fields.get("quant_encode_index_agreement", 0)
+            > SERVE_MIN_AGREEMENT, f"{what}: {fields}")
+    if manifest["model"] == "llamagen_titok":
+        require(fields.get("quant_decode_logit_argmax_agreement", 0)
+                > SERVE_MIN_AGREEMENT, f"{what}: {fields}")
+    else:
+        require(fields.get("quant_decode_psnr_db_vs_fp", 0)
+                > SERVE_MIN_PSNR_DB, f"{what}: {fields}")
+    return fields
+
+
+def launched() -> dict:
+    """``read_launches()``'s kernels that launched."""
+    return {k: v for k, v in read_launches().items() if v}
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def serve_tokenizer(url: str, live, name: str, x: np.ndarray,
+                    what: str) -> dict:
+    """/encode then /decode of ``x`` over HTTP against the live model's
+    encode and decode on the same rows; returns the requests' launches
+    and the codes."""
+    from vit_tpu_torch.serve.export import _codec
+
+    enc, dec = _codec(live, name)
+    reset_launches()
+    idx = post(url + "/encode", x)
+    rec = post(url + "/decode", idx)
+    launches = launched()
+    with torch.inference_mode():
+        want_idx = enc(torch.from_numpy(x).cuda()).cpu().numpy()
+        want_rec = dec(torch.from_numpy(idx).cuda()).float().cpu().numpy()
+    require(np.array_equal(idx, want_idx),
+            f"{what}: served codes differ from the live model's")
+    require(np.array_equal(rec, want_rec),
+            f"{what}: served decode differs from the live model's")
+    require(bool(np.isfinite(rec).all()), f"{what}: decode not finite")
+    require(launches.get("attention_packed_fwd", 0) > 0
+            and launches.get("vq_nearest", 0) > 0,
+            f"{what}: K1 or K5 never launched: {launches}")
+    return dict(launches=launches, codes=idx)
+
+
+def http_times(url: str, x: np.ndarray, idx: np.ndarray) -> dict:
+    """Median latencies of /encode of ``x`` and /decode of ``idx``."""
+    row = dict(encode_ms=host_median_ms(lambda: post(url + "/encode", x),
+                                        reps=3),
+               decode_ms=host_median_ms(lambda: post(url + "/decode", idx),
+                                        reps=3))
+    row["encode_decode_images_per_s"] = len(x) / (
+        row["encode_ms"] + row["decode_ms"]) * 1e3
+    return row
+
+
+def phase_serve_export(card: str) -> dict:
+    """``python -m vit_tpu_torch.export_tokenizer`` from checkpoints of
+    random weights, each export served over HTTP and held against the
+    live model (or, for the classifier, held to the fp model's top-1):
+    TiTok-B at the flagship width fp and int8 (``--bs 0``), requests of 8
+    and 64 images (timed in turns), the classifier (ViT-L/16 @256) int8,
+    VideoGPT-B's greedy rollout at bs 1 fp and int8 (timed), and ViT-VQGAN-B,
+    TATiTok-S and LlamaGen-TiTok-S int8 and the enhancing ViT-VQGAN fp at
+    their entries' defaults; the int8 tokenizers' fidelity fields; K1, K5
+    and K6 launched on the int8 paths; the fp and int8 ``weights.npz``
+    sizes. Returns the served requests' launches."""
+    from vit_tpu_torch.models.enhancing_vqgan import (EnhancingViTVQGAN,
+                                                      EnhancingVQGANConfig)
+    from vit_tpu_torch.models.llamagen_titok import (LlamaGenTiTok,
+                                                     LlamaGenTiTokConfig)
+    from vit_tpu_torch.models.tatitok import TATiTok, TATiTokConfig
+    from vit_tpu_torch.models.vit_vqgan import ViTVQGAN, ViTVQGANConfig
+    from vit_tpu_torch.serve.export import _quantized
+    from vit_tpu_torch.utils.init import (init_enhancing_,
+                                          init_llamagen_titok_,
+                                          init_tatitok_)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(25)
+    launches, sizes, fidelity, parts = {}, {}, {}, {}
+
+    def build(cls, cfg, init=init_params_, *args):
+        model = cls(cfg, *args, device="cuda")
+        with torch.no_grad():
+            init(model, torch.Generator(device="cuda").manual_seed(25))
+        return model.eval()
+
+    def npz_mb(out: Path) -> float:
+        return (out / "weights.npz").stat().st_size / 2 ** 20
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        work = Path(tmp)
+        # TiTok-B: fp and int8 at bs 8 and 64, timed in turns
+        cfg = TiTokConfig(**FLAGSHIP)
+        model = build(TiTok, cfg)
+        ckpt = write_checkpoint(work / "titok", model, cfg)
+        twins = {"fp": model, "int8": _quantized(model, "titok", "int8")}
+        x64 = rng.uniform(0, 1, (64, 128, 128, 3)).astype(np.float32)
+        # one export a kind at --bs 0 (any batch, as it comes) serves the
+        # bs-8 and bs-64 requests alike, unpadded
+        titok, outs = {}, {}
+        for kind in ("fp", "int8"):
+            outs[kind] = work / f"titok_{kind}"
+            man = cli_export(ckpt, outs[kind], "titok", "--bs", "0",
+                             *(("--quantize", "int8") if kind == "int8"
+                               else ()))
+            if kind == "int8":
+                fidelity["titok_b"] = require_fidelity(man, "TiTok-B int8")
+            sizes[f"titok_b_{kind}"] = npz_mb(outs[kind])
+        parts["titok_exports"] = time.perf_counter() - t0
+        with serving(str(outs["fp"]), batch_window_ms=0) as url_fp, \
+                serving(str(outs["int8"]), batch_window_ms=0) as url_q:
+            urls = {"fp": url_fp, "int8": url_q}
+            for bs in (8, 64):
+                rows = {}
+                for kind in urls:
+                    rows[kind] = serve_tokenizer(
+                        urls[kind], twins[kind], "titok", x64[:bs],
+                        f"TiTok-B {kind} bs {bs}")
+                    add_launches(launches, rows[kind]["launches"])
+                times = {kind: [] for kind in urls}
+                for kind in ("fp", "int8", "int8", "fp"):
+                    times[kind].append(http_times(urls[kind], x64[:bs],
+                                                  rows[kind]["codes"]))
+                titok[f"bs{bs}"] = {kind: dict(
+                    launches=rows[kind]["launches"], http=times[kind])
+                    for kind in urls}
+        parts["titok"] = time.perf_counter() - t0
+        del model, twins
+        torch.cuda.empty_cache()
+
+        # the classifier: ViT-L/16 @256, int8, bs 8
+        size, patch, preset, rate = VIT_L_CLASSIFIER
+        cfg = ViTConfig(size, 3, patch, preset, 1, rate)
+        model = build(ViTClassifier, cfg, init_params_, VIT_CLASSES)
+        ckpt = write_checkpoint(work / "vit", model, cfg)
+        out = work / "vit_int8"
+        cli_export(ckpt, out, "vit_classifier", "--bs", "8", "--quantize",
+                   "int8")
+        sizes["vit_l16_int8"] = npz_mb(out)
+        x = rng.uniform(0, 1, (8, size, size, 3)).astype(np.float32)
+        with serving(str(out), batch_window_ms=0) as url:
+            reset_launches()
+            logits = post(url + "/predict", x)
+            vit_launches = launched()
+        add_launches(launches, vit_launches)
+        with torch.inference_mode():
+            fp_logits = model(torch.from_numpy(x).cuda()).cpu().numpy()
+        classifier = dict(
+            launches=vit_launches,
+            logits_max_rel_vs_fp=float(np.abs(logits - fp_logits).max()
+                                       / np.abs(fp_logits).max()),
+            argmax_agreement_vs_fp=float((logits.argmax(-1)
+                                          == fp_logits.argmax(-1)).mean()))
+        require(logits.shape == (8, VIT_CLASSES)
+                and bool(np.isfinite(logits).all())
+                and classifier["argmax_agreement_vs_fp"]
+                > SERVE_MIN_AGREEMENT,
+                f"served int8 logits against the live fp model: {classifier}")
+        require(vit_launches.get("attention_packed_fwd") == 24,
+                f"ViT-L int8 predict launched {vit_launches}")
+        parts["classifier"] = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+
+        # VideoGPT-B: the greedy rollout at bs 1, fp and int8 in turns
+        cfg = VideoGPTConfig(**VIDEOGPT)
+        model = build(VideoGPT, cfg)
+        ckpt = write_checkpoint(work / "videogpt", model, cfg)
+        twins = {"fp": model, "int8": _quantized(model, "videogpt", "int8")}
+        frame = VIDEOGPT["frame_size"]
+        cond = rng.integers(0, VIDEOGPT["codebook_size"],
+                            (1, ROLLOUT_COND * frame), dtype=np.int32)
+        outs = {}
+        for kind in ("fp", "int8"):
+            outs[kind] = work / f"videogpt_{kind}"
+            cli_export(ckpt, outs[kind], "videogpt", "--bs", "1",
+                       "--cond_frames", str(ROLLOUT_COND),
+                       "--gen_frames", str(ROLLOUT_GEN),
+                       *(("--quantize", "int8") if kind == "int8" else ()))
+            sizes[f"videogpt_b_{kind}"] = npz_mb(outs[kind])
+        rollout = {}
+        with serving(str(outs["fp"]), batch_window_ms=0) as url_fp, \
+                serving(str(outs["int8"]), batch_window_ms=0) as url_q:
+            urls = {"fp": url_fp, "int8": url_q}
+            for kind in ("fp", "int8"):   # a rollout takes seconds
+                reset_launches()
+                t = time.perf_counter()
+                got = post(urls[kind] + "/generate", cond)
+                ms = (time.perf_counter() - t) * 1e3
+                row = dict(latency_ms=ms, generated_tokens_per_s=(
+                    ROLLOUT_GEN * frame / ms * 1e3), launches=launched())
+                require(row["launches"].get("attention_fwd")
+                        == cfg.trans_config.n_layers,
+                        f"{kind} rollout launched {row['launches']}")
+                add_launches(launches, row["launches"])
+                direct = generate(twins[kind], torch.from_numpy(cond),
+                                  ROLLOUT_GEN * frame).cpu().numpy()
+                require(np.array_equal(got, direct), f"served {kind} "
+                        "rollout differs from a direct generate")
+                rollout[kind] = row
+        parts["videogpt"] = time.perf_counter() - t0
+        del model, twins
+        torch.cuda.empty_cache()
+
+        # the other families at their entries' defaults, bs 2
+        families = {}
+        builds = {
+            "vit_vqgan": (ViTVQGANConfig, ViTVQGAN, init_params_),
+            "enhancing": (EnhancingVQGANConfig, EnhancingViTVQGAN,
+                          init_enhancing_),
+            "tatitok": (TATiTokConfig, TATiTok, init_tatitok_),
+            "llamagen_titok": (LlamaGenTiTokConfig, LlamaGenTiTok,
+                               init_llamagen_titok_),
+        }
+        for name, fields in SERVE_FAMILIES.items():
+            cfg_cls, cls, init = builds[name]
+            cfg = cfg_cls(**fields)
+            model = build(cls, cfg, init)
+            ckpt = write_checkpoint(work / name, model, cfg)
+            kind = "fp" if name == "enhancing" else "int8"
+            out = work / f"{name}_{kind}"
+            man = cli_export(ckpt, out, name, "--bs", str(SERVE_FAMILY_BS),
+                             *(("--quantize", "int8") if kind == "int8"
+                               else ()))
+            live = model if kind == "fp" else _quantized(model, name, "int8")
+            if name == "llamagen_titok":
+                x = rng.integers(0, cfg.vq_codebook_size,
+                                 (SERVE_FAMILY_BS, cfg.vq_latent_tokens),
+                                 dtype=np.int32)
+            else:
+                x = rng.uniform(0, 1, (SERVE_FAMILY_BS, cfg.image_size,
+                                       cfg.image_size, 3)).astype(np.float32)
+            with serving(str(out), batch_window_ms=0) as url:
+                row = serve_tokenizer(url, live, name, x, name)
+            add_launches(launches, row["launches"])
+            families[name] = dict(launches=row["launches"],
+                                  quantize=man["quantize"],
+                                  weights_mb=npz_mb(out))
+            if kind == "int8":
+                fidelity[name] = require_fidelity(man, name)
+            del model, live
+            torch.cuda.empty_cache()
+
+    emit("serve_export", card=card, titok_b=titok, classifier_vit_l16=classifier,
+         videogpt_b_rollout_bs1=rollout, families=families,
+         fidelity=fidelity, weights_mb=sizes, seconds_at=parts,
+         tolerance=dict(min_agreement=SERVE_MIN_AGREEMENT,
+                        min_psnr_db=SERVE_MIN_PSNR_DB),
+         seconds=time.perf_counter() - t0)
+    return launches
+
 
 def entry_phases(card: str, converge_epochs: "int | None"
                  ) -> "tuple[dict, dict]":
@@ -7822,6 +8146,9 @@ def main(argv=None) -> None:
     parser.add_argument("--families_only", action="store_true",
                         help="only the build and the families phase; no "
                              "kernels line and no closing line")
+    parser.add_argument("--serve_only", action="store_true",
+                        help="only the build and the serve_export phase; "
+                             "no kernels line and no closing line")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
@@ -7836,6 +8163,9 @@ def main(argv=None) -> None:
         return
     if args.families_only:
         phase_families(card)
+        return
+    if args.serve_only:
+        phase_serve_export(card)
         return
     fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
@@ -7858,7 +8188,7 @@ def main(argv=None) -> None:
          config=FLAGSHIP, dtype="bfloat16 compute, float32 params")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_slice(Path(tmp), model)
-        phase_timing(Path(tmp), model, card)
+        phase_timing(model, card)
         weights = copy.deepcopy(model.state_dict())
         perceptual, images = train_inputs(model)
         train_launches = phase_train(model, perceptual, images, card)
@@ -7880,13 +8210,15 @@ def main(argv=None) -> None:
     phase_train_vit_entry(card)
     phase_train_vit_entry(card, "--mixed", "false")
     titok_launches, titok_fp32 = entry_phases(card, args.converge_epochs)
+    serve_launches = phase_serve_export(card)
     for name, n in titok_fp32.items():
         fp32_launches[name] = fp32_launches.get(name, 0) + n
     # the other paths' attention launches are all 64-wide
     for path in (train_launches, fused_launches, gpt_launches,
                  rollout_launches, int8_launches, perceptual_launches,
                  vit_launches, fp32_path_launches, titok_launches,
-                 pretrain_launches, tatitok_launches, families_launches):
+                 pretrain_launches, tatitok_launches, families_launches,
+                 serve_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]

@@ -289,18 +289,17 @@ def test_refusal_names_the_missing_package(entry, flags, blocked, named,
 def test_latent_dim_6_is_accepted_and_widths_out_of_reach_refused(
         tmp_path, capsys):
     """``--latent_dim 6`` passes the entry's card check and trains on the
-    CPU; a width above K5's ``MAX_DIM`` is refused on the card (not on the
-    CPU), naming ROADMAP Queue C #4."""
+    CPU; so does a width above 1024 (2000), which K5 takes on the card
+    since its runtime-D form has no widest D (ROADMAP Queue C #4, closed);
+    only a width K5 cannot take, D 0, is refused, by its wrapper."""
     from vit_tpu_torch.train_titok import check_ported, main, parse_args
 
     check_ported(parse_args(["--latent_dim", "6", "--dataset", "synthetic"]))
-    with pytest.raises(NotImplementedError, match="Queue C #4"):
-        check_ported(parse_args(["--latent_dim", str(k_vq.MAX_DIM + 1),
-                                 "--dataset", "synthetic"]))
-    check_ported(parse_args(["--latent_dim", str(k_vq.MAX_DIM + 1),
-                             "--dataset", "synthetic", "--device", "cpu"]))
-    assert k_vq.out_of_reach(6) == "" and "no such limit" in \
-        k_vq.out_of_reach(k_vq.MAX_DIM + 1)
+    for device in ("cuda", "cpu"):
+        check_ported(parse_args(["--latent_dim", "2000", "--dataset",
+                                 "synthetic", "--device", device]))
+    with pytest.raises(ValueError, match="K5 takes D ≥ 1"):
+        k_vq.nearest_code(torch.zeros(4, 0), torch.zeros(8, 0))
     with tiny_preset():
         main([*TITOK, "--dataset", "synthetic", "--image_size", "16",
               "--bs", "2", "--latent_dim", "6", "--steps_per_epoch", "1",

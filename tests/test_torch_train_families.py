@@ -261,10 +261,19 @@ def test_refuses_unported_flags(entry, flags, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
-def test_refuses_a_latent_width_k5_cannot_take(entry, monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue C #4"):
-        run(entry, monkeypatch, tmp_path, "--latent_dim", "2000",
-            "--device", "cuda")
+def test_refuses_a_latent_width_k5_cannot_take(entry):
+    """K5 takes every width D ≥ 1 on the card (ROADMAP Queue C #4,
+    closed): ``--latent_dim 2000`` passes each entry's card check, and
+    only D 0 is refused, by the wrapper on any device."""
+    mod = {"vit_vqgan": train_vit_vqgan,
+           "enhancing": train_enhancing_vitvqgan,
+           "llamagen_titok": train_llamagen_titok}[entry]
+    mod.check_ported(mod.parse_args(["--latent_dim", "2000", "--dataset",
+                                     "synthetic", "--device", "cuda"]))
+    from vit_tpu_torch.kernels import vq as k_vq
+
+    with pytest.raises(ValueError, match="K5 takes D ≥ 1"):
+        k_vq.nearest_code(torch.zeros(4, 0), torch.zeros(8, 0))
 
 
 def test_llamagen_refuses_what_the_jax_entry_asserts_or_fails_on(

@@ -25,6 +25,11 @@ leaf path to a state-dict key:
 The way back tells a Dense or Conv ``weight`` from a LayerNorm ``weight`` by
 its rank (a LayerNorm's is 1-D).
 
+An int8 dense site (``core/quant.py``, the JAX ``quantize_params`` tree)
+keeps its JAX names and layout both ways: ``kernel_q`` int8 (K, N), and a
+``scale`` beside a ``kernel_q`` stays ``scale`` (the per-channel scale, not
+a LayerNorm's).
+
 ``flatten``/``unflatten`` convert between the nested dict and the
 "/"-joined keys of ``weights.npz`` (the layout of the JAX export's
 ``_write_artifacts``). Only the unrolled ``layer_{i}`` stack is read; the
@@ -39,16 +44,21 @@ import numpy as np
 import torch
 
 
-def flatten(tree: dict, prefix: str = "") -> "dict[str, np.ndarray]":
-    """Nested dict of arrays → {"a/b/c": array}."""
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """Nested dict → {"a/b/c": leaf}, the leaves as they are."""
     flat = {}
     for k, v in tree.items():
         key = f"{prefix}/{k}" if prefix else k
         if isinstance(v, dict):
-            flat.update(flatten(v, key))
+            flat.update(_flat(v, key))
         else:
-            flat[key] = np.asarray(v)
+            flat[key] = v
     return flat
+
+
+def flatten(tree: dict) -> "dict[str, np.ndarray]":
+    """Nested dict of arrays → {"a/b/c": array}."""
+    return {k: np.asarray(v) for k, v in _flat(tree).items()}
 
 
 def unflatten(flat: dict) -> dict:
@@ -68,14 +78,20 @@ ENHANCING_BLOCK = "attn_norm|attn|ff_norm|ff1|ff2"
 ENHANCING_FLAT = r"\b(" + ENHANCING_BLOCK + r")_(\d+)\b"
 
 
-def _to_torch(leaf: np.ndarray) -> np.ndarray:
-    """A flax ``kernel`` in the port's ``weight`` layout."""
-    return leaf.T if leaf.ndim == 2 else leaf.transpose(3, 2, 0, 1)
+def _to_torch(leaf):
+    """A flax ``kernel`` (numpy or torch) in the port's ``weight`` layout."""
+    if leaf.ndim == 2:
+        return leaf.T
+    return (leaf.permute(3, 2, 0, 1) if torch.is_tensor(leaf)
+            else leaf.transpose(3, 2, 0, 1))
 
 
-def _to_flax(arr: np.ndarray) -> np.ndarray:
+def _to_flax(arr):
     """Inverse of ``_to_torch``."""
-    return arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 2:
+        return arr.T
+    return (arr.permute(2, 3, 1, 0) if torch.is_tensor(arr)
+            else arr.transpose(2, 3, 1, 0))
 
 
 def _torch_key(flax_key: str) -> "tuple[str, bool]":
@@ -103,23 +119,31 @@ def _flax_key(torch_key: str, ndim: int) -> "tuple[str, bool]":
 
 
 def _from_flax(params: dict, expected: dict) -> "dict[str, torch.Tensor]":
-    """Nested flax params → a state dict with ``expected``'s keys and
-    shapes. Raises unless every JAX leaf lands on exactly one port parameter
-    of the right shape and every port parameter is filled."""
+    """Nested flax params (numpy arrays, or torch tensors on any device) →
+    a state dict with ``expected``'s keys and shapes, on the leaves' device.
+    Raises unless every JAX leaf lands on exactly one port parameter of the
+    right shape and every port parameter is filled."""
     out: "dict[str, torch.Tensor]" = {}
-    for flax_key, leaf in flatten(params).items():
+    flat = _flat(params)
+    for flax_key, leaf in flat.items():
         key, is_kernel = _torch_key(flax_key)
+        site = flax_key.removesuffix("/scale")
+        if site != flax_key and site + "/kernel_q" in flat:
+            key = key.removesuffix(".weight") + ".scale"  # an int8 site
         if key not in expected:
             raise KeyError(f"JAX leaf {flax_key!r} has no port parameter "
                            f"({key!r})")
         if key in out:
             raise KeyError(f"port parameter {key!r} filled twice")
-        arr = np.array(_to_torch(leaf) if is_kernel else leaf,
-                       order="C")  # owned copy
+        arr = _to_torch(leaf) if is_kernel else leaf
+        if torch.is_tensor(arr):
+            arr = arr.clone(memory_format=torch.contiguous_format)
+        else:
+            arr = torch.from_numpy(np.array(arr, order="C"))  # owned copy
         if tuple(arr.shape) != tuple(expected[key].shape):
-            raise ValueError(f"{flax_key}: shape {arr.shape} does not fit "
-                             f"{key} {tuple(expected[key].shape)}")
-        out[key] = torch.from_numpy(arr)
+            raise ValueError(f"{flax_key}: shape {tuple(arr.shape)} does not "
+                             f"fit {key} {tuple(expected[key].shape)}")
+        out[key] = arr
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"port parameters with no JAX leaf: {missing}")
@@ -243,12 +267,26 @@ def convnext_state_dict_from_flax(params: dict, net) -> "dict[str, torch.Tensor]
     return _from_flax(params, net.state_dict())
 
 
-def flax_from_state_dict(state_dict: dict) -> dict:
-    """The port's state dict → the JAX package's nested param dict (numpy)."""
+def module_state_dict_from_flax(params: dict, module: torch.nn.Module
+                                ) -> "dict[str, torch.Tensor]":
+    """JAX params → the state dict of the port's ``module`` (any model the
+    bridge's rule covers, int8 trees included), with the checks of
+    ``_from_flax``."""
+    return _from_flax(params, module.state_dict())
+
+
+def flax_tree(state_dict: dict) -> dict:
+    """The port's state dict → the JAX package's nested param dict of the
+    same tensors (kernels as transposed views), on their device; of a model
+    built on the meta device, its structure with no data."""
     flat = {}
     for key, t in state_dict.items():
-        arr = t.detach().cpu().numpy()
-        flax_key, is_kernel = _flax_key(key, arr.ndim)
-        flat[flax_key] = np.ascontiguousarray(_to_flax(arr) if is_kernel
-                                              else arr)
+        flax_key, is_kernel = _flax_key(key, t.ndim)
+        flat[flax_key] = _to_flax(t.detach()) if is_kernel else t.detach()
     return unflatten(flat)
+
+
+def flax_from_state_dict(state_dict: dict) -> dict:
+    """The port's state dict → the JAX package's nested param dict (numpy)."""
+    return unflatten({k: np.ascontiguousarray(t.cpu().numpy())
+                      for k, t in _flat(flax_tree(state_dict)).items()})

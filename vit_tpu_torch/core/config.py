@@ -4,7 +4,9 @@
 Parameters are fp32 (``param_dtype``) and compute is bf16 (``dtype``), cast
 explicitly at each matmul. ``ln_affine`` and ``attn_out_proj`` select the
 Bytedance block layout (affine LayerNorms, an attention output projection),
-which ``bytedance_config`` sets for the Bytedance presets. ``remat``
+which ``bytedance_config`` sets for the Bytedance presets. ``quant``
+("int8") runs the blocks' dense sites as int8 products for serving
+(``core/quant.py``). ``remat``
 recomputes each block in the backward (``torch.utils.checkpoint``) under
 ``remat_policy`` (``core/transformer.py:remat_policy``).
 """
@@ -40,6 +42,9 @@ class TransformerConfig:
                                                # overrides
     ln_affine: bool = False
     attn_out_proj: bool = False
+    quant: Optional[str] = None                # None | "int8": serving-only
+                                               # int8 products at the dense
+                                               # sites (core/quant.py)
     remat: bool = False                        # recompute each block in the
                                                # backward
     remat_policy: Optional[str] = None         # None → $VIT_TPU_REMAT_POLICY

@@ -62,7 +62,14 @@ drops fc2's output (``nn.Dropout``, :320) with a mask drawn from it, in the
 compute dtype, kept values divided by 1 − rate. Training with dropout and
 no generator raises.
 
-Not yet: the scanned and pipelined stacks, and int8.
+Under ``cfg.quant == "int8"`` (serving only, ``vit_tpu/core/transformer.py:
+145-156, 176-197, 257-268``) the dense sites hold int8 kernels
+(``core/quant.py``): the qkv product is ``int8_matmul`` in the compute
+dtype with its fp32 bias still handed to the attention kernel (or added
+before a decode step), ``out_proj``, fc1 and fc2 are ``QuantLinear``s, and
+both fused switches are off.
+
+Not yet: the scanned and pipelined stacks.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from vit_tpu_torch.core.config import TransformerConfig
+from vit_tpu_torch.core.quant import QuantLinear, QuantProj, int8_matmul
 from vit_tpu_torch.kernels import fc_grad, ln_matmul
 from vit_tpu_torch.ops.attention import (fused_qkv_attention, merge_heads,
                                          multi_head_attention, split_heads)
@@ -141,8 +149,10 @@ def checkpointed(fn: Callable, x: torch.Tensor,
 
 def use_fused_fc(cfg: TransformerConfig) -> bool:
     """Gate for K10 on the MLP's products (``_use_fused_fc``, :34-55):
-    off for widths the kernel's gate refuses, then ``$VIT_TPU_FUSED_FC``,
-    then ``cfg.fused_fc_grad``, then off."""
+    off under int8 and for widths the kernel's gate refuses, then
+    ``$VIT_TPU_FUSED_FC``, then ``cfg.fused_fc_grad``, then off."""
+    if cfg.quant is not None:
+        return False
     if not fc_grad.fused_dense_supported(cfg.n_embd, 4 * cfg.n_embd):
         return False
     env = os.environ.get("VIT_TPU_FUSED_FC")
@@ -156,10 +166,10 @@ def use_fused_fc(cfg: TransformerConfig) -> bool:
 def use_fused_ln(cfg: TransformerConfig, decoding: bool
                  ) -> "tuple[bool, bool]":
     """(qkv, mlp) gates for K9a (``_use_fused_ln``, :58-83): off for the
-    affine LayerNorm, while decoding with a KV cache and for widths the
-    kernel's gate refuses; then ``$VIT_TPU_FUSED_LN`` (0, 1, qkv, mlp), then
-    ``cfg.fused_ln``, then off."""
-    if cfg.ln_affine or decoding:
+    affine LayerNorm, while decoding with a KV cache, under int8 and for
+    widths the kernel's gate refuses; then ``$VIT_TPU_FUSED_LN`` (0, 1, qkv,
+    mlp), then ``cfg.fused_ln``, then off."""
+    if cfg.ln_affine or decoding or cfg.quant is not None:
         return False, False
     c = cfg.n_embd
     if not (ln_matmul.supported(c, 3 * c) and ln_matmul.supported(c, 4 * c)):
@@ -243,32 +253,46 @@ class Attention(nn.Module):
     bias handed to the attention kernel, or added here when decoding. With
     ``fused_ln`` x is the raw stream and ln1 runs inside the product (K9a).
     Under ``attn_out_proj`` a dense ``out_proj`` follows, in the compute
-    dtype."""
+    dtype. Under int8 both are int8 sites (``QuantProj``,
+    ``QuantLinear``)."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         self.config = config
-        self.qkv = nn.Linear(config.n_embd, 3 * config.n_embd,
-                             dtype=config.param_dtype, device=device)
+        c = config.n_embd
+        if config.quant == "int8":
+            self.qkv = QuantProj(c, 3 * c, device=device)
+            if config.attn_out_proj:
+                self.out_proj = QuantLinear(c, c, config.dtype, device=device)
+            return
+        self.qkv = nn.Linear(c, 3 * c, dtype=config.param_dtype,
+                             device=device)
         if config.attn_out_proj:
-            self.out_proj = nn.Linear(config.n_embd, config.n_embd,
-                                      dtype=config.param_dtype, device=device)
+            self.out_proj = nn.Linear(c, c, dtype=config.param_dtype,
+                                      device=device)
 
     def forward(self, x: torch.Tensor, kv=None, pos=None,
                 fused_ln: bool = False, dropout_rate: float = 0.0,
                 generator: "torch.Generator | None" = None) -> torch.Tensor:
         out = self._attend(x, kv, pos, fused_ln, dropout_rate, generator)
-        if self.config.attn_out_proj:
-            return linear(out, self.out_proj, self.config.dtype)
-        return out
+        if not self.config.attn_out_proj:
+            return out
+        if self.config.quant == "int8":
+            return self.out_proj(out)
+        return linear(out, self.out_proj, self.config.dtype)
 
     def _attend(self, x, kv, pos, fused_ln, dropout_rate, generator):
         cfg = self.config
-        w = self.qkv.weight.to(cfg.dtype)
-        if fused_ln:
-            qkv_nb = ln_matmul.fused_ln_matmul(x.to(cfg.dtype), w)
+        if cfg.quant == "int8":
+            kernel_q, scale, bias = self.qkv()
+            qkv_nb = int8_matmul(x, kernel_q, scale).to(cfg.dtype)
         else:
-            qkv_nb = F.linear(x.to(cfg.dtype), w)
+            bias = self.qkv.bias
+            w = self.qkv.weight.to(cfg.dtype)
+            if fused_ln:
+                qkv_nb = ln_matmul.fused_ln_matmul(x.to(cfg.dtype), w)
+            else:
+                qkv_nb = F.linear(x.to(cfg.dtype), w)
         if kv is None:
             seed = None
             if dropout_rate > 0.0:   # one int32 per call, drawn on x's device
@@ -276,8 +300,8 @@ class Attention(nn.Module):
                                      device=x.device, dtype=torch.int32)
             return fused_qkv_attention(qkv_nb, cfg.n_heads, causal=cfg.causal,
                                        dropout_rate=dropout_rate, seed=seed,
-                                       qkv_bias=self.qkv.bias)
-        q, k, v = split_heads(qkv_nb, cfg.n_heads, self.qkv.bias)
+                                       qkv_bias=bias)
+        q, k, v = split_heads(qkv_nb, cfg.n_heads, bias)
         return merge_heads(_decode(q, k, v, kv, pos))
 
 
@@ -285,15 +309,21 @@ class Mlp(nn.Module):
     """fc1 → GELU → fc2 → dropout, both matmuls in the compute dtype. With
     ``fused_ln`` x is the raw stream and ln2, fc1, its bias and the GELU run
     in K9a; with fused FC (``use_fused_fc``) fc2, and fc1 unless K9a takes
-    it, get K10's weight and bias gradients."""
+    it, get K10's weight and bias gradients. Under int8 fc1 and fc2 are
+    ``QuantLinear``s."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         self.config = config
-        self.fc1 = nn.Linear(config.n_embd, 4 * config.n_embd,
-                             dtype=config.param_dtype, device=device)
-        self.fc2 = nn.Linear(4 * config.n_embd, config.n_embd,
-                             dtype=config.param_dtype, device=device)
+        c = config.n_embd
+        if config.quant == "int8":
+            self.fc1 = QuantLinear(c, 4 * c, config.dtype, device=device)
+            self.fc2 = QuantLinear(4 * c, c, config.dtype, device=device)
+            return
+        self.fc1 = nn.Linear(c, 4 * c, dtype=config.param_dtype,
+                             device=device)
+        self.fc2 = nn.Linear(4 * c, c, dtype=config.param_dtype,
+                             device=device)
 
     def forward(self, x: torch.Tensor, fused_ln: bool = False,
                 dropout_rate: float = 0.0,
@@ -308,6 +338,8 @@ class Mlp(nn.Module):
     def _mlp(self, x: torch.Tensor, fused_ln: bool) -> torch.Tensor:
         cfg = self.config
         dt = cfg.dtype
+        if cfg.quant == "int8":
+            return self.fc2(gelu_op(self.fc1(x), cfg.gelu_impl))
         fused_fc = use_fused_fc(cfg)
         if fused_ln:
             h = ln_matmul.fused_ln_matmul(x.to(dt), self.fc1.weight.to(dt),

@@ -37,7 +37,7 @@
 // 40 KB of codes.
 //
 // D 8, 12, 16 and 32 have the tuned form above (the rows in registers). Every
-// other D up to kMaxAnyDim runs vq_nearest_any_kernel, a register-tiled
+// other D runs vq_nearest_any_kernel, a register-tiled
 // form with D a runtime value: a block holds 64 rows and walks its slice 128
 // codes at a time, each thread 8 rows × 8 codes, with D staged in chunks of
 // 16 by cp.async into two buffers, so neither the rows nor a slice has to
@@ -223,9 +223,8 @@ vq_nearest_kernel(const float* __restrict__ z, const float* __restrict__ codeboo
 // fmaf chain z·e over k = 0 .. D − 1 from 0 times the code's scale
 // rsqrtf(ee + 1e-24f), ee the code's own fmaf chain of e² in the same order,
 // which each thread keeps for its eight codes beside their products; without
-// it, z·e − ee/2 as in the tuned form. Nothing bounds D but the wrapper's
-// kMaxAnyDim.
-constexpr int kMaxAnyDim = 1024;
+// it, z·e − ee/2 as in the tuned form. Nothing bounds D: the staged chunks
+// are of 16 whatever D is, and offsets into z and the codes are size_t.
 constexpr int kTileRows = 64, kTileCodes = 128, kChunk = 16;
 constexpr int kThreadRows = 8, kThreadCodes = 8;
 constexpr int kCodeLanes = kTileCodes / kThreadCodes;  // threads sharing a row
@@ -376,7 +375,7 @@ int launch_any(const void* z, const void* codebook, void* idx, void* scratch, in
                int C, int D, int l2_normalize, int splits, cudaStream_t stream) {
   const int tiles = (C + kTileCodes - 1) / kTileCodes;
   const int slice = splits < 1 ? 0 : (tiles + splits - 1) / splits * kTileCodes;
-  if (D < 1 || D > kMaxAnyDim || splits < 1 || (splits - 1) * slice >= C ||
+  if (D < 1 || splits < 1 || (splits - 1) * slice >= C ||
       (splits > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   unsigned long long* keys = static_cast<unsigned long long*>(scratch);
@@ -412,8 +411,8 @@ int launch(const void* z, const void* codebook, void* idx, void* scratch,
 }  // namespace
 
 // z: (N, D) fp32, codebook: (C, D) fp32, idx: (N,) int32, all contiguous.
-// D 8, 12, 16 and 32 take the tuned form, any other D from 1 to kMaxAnyDim
-// (1024) the runtime-D form. The codes are cut into `splits` slices, none
+// D 8, 12, 16 and 32 take the tuned form, any other D ≥ 1 the runtime-D
+// form. The codes are cut into `splits` slices, none
 // empty: of ceil(C / splits) codes (at most 40 KB of them) in the tuned
 // form, of ceil(ceil(C / 128) / splits) tiles of 128 in the runtime-D form;
 // with splits > 1, scratch is N 64-bit keys then an int a row block, all
@@ -441,6 +440,6 @@ extern "C" int vq_nearest_block_rows(int D) {
     case 12: return 32 * kRowsPerLane<12>;
     case 16: return 32 * kRowsPerLane<16>;
     case 32: return 32 * kRowsPerLane<32>;
-    default: return D >= 1 && D <= kMaxAnyDim ? kTileRows : 0;
+    default: return D >= 1 ? kTileRows : 0;
   }
 }

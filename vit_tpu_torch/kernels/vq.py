@@ -15,11 +15,11 @@ the slices' bests meet in one 64-bit key a row (max score, then lowest
 index; see the source's header).
 
 D 8, 12, 16 and 32 (``TUNED_DIMS``) hold the rows in registers; every
-other D up to ``MAX_DIM`` runs the source's runtime-D form, a register
-tile of 64 rows × 128 codes a block with D staged in chunks, the same tie
-rule and merge (with normalisation it scores z·e times the code's scale:
-a row's scale does not move its argmax). Above ``MAX_DIM`` the wrapper refuses (the JAX
-package has no such limit).
+other D runs the source's runtime-D form, a register tile of 64 rows × 128
+codes a block with D staged in chunks of 16, the same tie rule and merge
+(with normalisation it scores z·e times the code's scale: a row's scale
+does not move its argmax). Its shared memory does not grow with D, so it
+takes every width, as the JAX package's ``nearest_code`` does.
 
 ``nearest_code`` launches the kernel for a CUDA tensor and runs
 ``nearest_code_ref``, the plain counterpart of ``nearest_code_xla``, for a CPU
@@ -33,7 +33,6 @@ import torch
 from vit_tpu_torch.kernels import _build
 
 TUNED_DIMS = (8, 12, 16, 32)   # the rows in registers
-MAX_DIM = 1024             # the runtime-D form's widest D (its kMaxAnyDim)
 BLOCKS_PER_SM = 4          # the plan's aim: about four blocks an SM
 MIN_SLICE = 64             # codes a slice, at least (16 a warp), where they fit
 MAX_SLICE_BYTES = 40 * 1024   # a tuned slice's codes and offsets in shared memory
@@ -42,16 +41,6 @@ ANY_CODES = 128            # and codes a tile
 ANY_ROWS_PER_THREAD = 8    # and a thread's rows (× 8 codes)
 
 launches = 0  # kernel launches by nearest_code, for run evidence
-
-
-def out_of_reach(d: int) -> str:
-    """Why K5 cannot take latent width ``d`` on the card, or ''."""
-    if 1 <= d <= MAX_DIM:
-        return ""
-    return (f"K5 takes D from 1 to {MAX_DIM} on the card, got {d} (the "
-            f"widest width its runtime-D form is held at against fp64 "
-            f"scores; the JAX package's nearest_code has no such limit: "
-            f"ROADMAP Queue C #4)")
 
 
 def rows_per_lane(d: int) -> int:
@@ -136,14 +125,16 @@ def nearest_code_ref(z: torch.Tensor, codebook: torch.Tensor, *,
 def nearest_code(z: torch.Tensor, codebook: torch.Tensor, *,
                  l2_normalize: bool = True) -> torch.Tensor:
     """Nearest codebook index per row. z (..., D), codebook (C, D) →
-    (...,) int32. A CUDA tensor launches K5 (fp32, contiguous, D in
-    1 to ``MAX_DIM``) or raises; a CPU tensor runs the plain version."""
+    (...,) int32. A CUDA tensor launches K5 (fp32, contiguous) or raises;
+    a CPU tensor runs the plain version. D < 1 raises on either."""
     d = z.shape[-1]
     if codebook.ndim != 2 or codebook.shape[1] != d:
         raise ValueError(f"codebook must be (C, {d}), got "
                          f"{tuple(codebook.shape)}")
     if codebook.device != z.device:
         raise ValueError(f"codebook on {codebook.device}, z on {z.device}")
+    if d < 1:
+        raise ValueError(f"K5 takes D ≥ 1, got {d}")
     batch_shape = z.shape[:-1]
     zf = z.reshape(-1, d)
     if z.device.type == "cpu":
@@ -154,8 +145,6 @@ def nearest_code(z: torch.Tensor, codebook: torch.Tensor, *,
     if z.dtype != torch.float32 or codebook.dtype != torch.float32:
         raise TypeError(f"K5 takes fp32 z and codebook, got {z.dtype}, "
                         f"{codebook.dtype}")
-    if out_of_reach(d):
-        raise NotImplementedError(out_of_reach(d))
     if not (zf.is_contiguous() and codebook.is_contiguous()):
         raise ValueError("K5 takes contiguous z and codebook")
     n, c = zf.shape[0], codebook.shape[0]

@@ -19,7 +19,7 @@ N(0, 1/width) positional tables, the transformers as the minimal core's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,12 +40,14 @@ class LlamaGenTiTokConfig:
     transformer: str
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    quant: Optional[str] = None    # "int8": serving-only int8 dense sites
 
     def __post_init__(self):
         self.trans_config: TransformerConfig = transformer_configs[
             self.transformer](block_size=self.vq_latent_tokens
                               + self.latent_tokens, dropout=0.0,
-                              dtype=self.dtype, param_dtype=self.param_dtype)
+                              dtype=self.dtype, param_dtype=self.param_dtype,
+                              quant=self.quant)
         self.n_embd = self.trans_config.n_embd
 
 

@@ -252,8 +252,7 @@ def load_tokenizer(spec: str, dtype: torch.dtype, device, *,
       JAX loader keeps it, with the "best" parameters;
     - any other directory, a Bytedance folder (``load_bytedance``, fp32).
 
-    An FSQ tokenizer and, off the CPU, a latent width the nearest-code
-    kernel cannot take raise."""
+    An FSQ tokenizer raises."""
     from vit_tpu_torch.train.checkpoint import load_params
     from vit_tpu_torch.utils.config import dataclass_from_dict
     from vit_tpu_torch.utils.init import init_params_
@@ -283,10 +282,4 @@ def load_tokenizer(spec: str, dtype: torch.dtype, device, *,
         cfg.__post_init__()
         model = TiTok(cfg, device="meta")
         model.load_state_dict(load_params(spec, "best"), assign=True)
-    from vit_tpu_torch.kernels.vq import out_of_reach
-
-    latent_dim = model.config.latent_dim
-    if torch.device(device).type != "cpu" and out_of_reach(latent_dim):
-        raise NotImplementedError(f"--tokenizer_ckpt {spec}: "
-                                  f"{out_of_reach(latent_dim)}")
     return FrozenTokenizer(model.to(device))

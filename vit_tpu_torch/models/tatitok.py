@@ -38,8 +38,9 @@ from vit_tpu_torch.quantize.bytedance_vq import BytedanceVectorQuantizer
 @dataclasses.dataclass(eq=False)
 class TATiTokConfig:
     """``vit_tpu/models/tatitok.py:TATiTokConfig``'s fields that the port
-    runs (no ``attn_impl``, ``quant``, ``scan_layers`` or pipeline stages),
-    and the transformer's ``remat``."""
+    runs (no ``attn_impl``, ``scan_layers`` or pipeline stages), and the
+    transformer's ``remat``; ``quant`` "int8" makes the transformers' dense
+    sites int8 for serving."""
 
     image_size: int
     patch_size: int
@@ -55,6 +56,7 @@ class TATiTokConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = False
+    quant: Optional[str] = None
 
     def __post_init__(self):
         self.grid_size = self.image_size // self.patch_size
@@ -64,7 +66,7 @@ class TATiTokConfig:
             seq += self.text_context_length
         self.trans_config = bytedance_config(
             self.transformer, block_size=seq, dropout=0.0, dtype=self.dtype,
-            param_dtype=self.param_dtype, remat=self.remat)
+            param_dtype=self.param_dtype, remat=self.remat, quant=self.quant)
 
 
 def _ln(width: int, config: TATiTokConfig, device) -> nn.LayerNorm:

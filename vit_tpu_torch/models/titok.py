@@ -37,11 +37,13 @@ class TiTokConfig:
     param_dtype: torch.dtype = torch.float32
     quantizer: str = "vq"          # "vq" | "fsq"
     fsq_levels: Optional[Tuple[int, ...]] = None
+    quant: Optional[str] = None    # "int8": serving-only int8 dense sites
 
     def __post_init__(self):
         self.grid_size = self.image_size // self.patch_size
         self.n_patches = self.grid_size ** 2
-        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype)
+        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype,
+                  quant=self.quant)
         # encoder ViT: image + K latent slots
         self.enc_vit_config = ViTConfig(self.image_size, 3, self.patch_size,
                                         self.transformer, self.latent_tokens,

@@ -18,6 +18,7 @@ ties, as ``jnp.argmax``; temperature / top-k sampling draws from an explicit
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +43,7 @@ class VideoGPTConfig:
     param_dtype: torch.dtype = torch.float32
     scan_layers: bool = False
     pp_stages: int = 0
+    quant: Optional[str] = None    # "int8": serving-only int8 dense sites
 
     def __post_init__(self):
         if self.scan_layers or self.pp_stages > 1:
@@ -52,7 +54,7 @@ class VideoGPTConfig:
         self.trans_config: TransformerConfig = transformer_configs[
             self.transformer](block_size=self.max_tokens, dropout=self.dropout,
                               causal=True, dtype=self.dtype,
-                              param_dtype=self.param_dtype)
+                              param_dtype=self.param_dtype, quant=self.quant)
         self.n_embd = self.trans_config.n_embd
 
 

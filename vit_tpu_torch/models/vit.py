@@ -10,6 +10,7 @@ the ``generator`` given to ``forward``, ``eval()`` none.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from einops import rearrange
@@ -32,13 +33,14 @@ class ViTConfig:
     dropout: float
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    quant: Optional[str] = None    # "int8": serving-only int8 dense sites
 
     def __post_init__(self):
         self.n_patches = (self.image_size // self.patch_size) ** 2
         self.trans_config: TransformerConfig = transformer_configs[
             self.transformer](block_size=self.n_patches + self.extra_tokens,
                               dropout=self.dropout, dtype=self.dtype,
-                              param_dtype=self.param_dtype)
+                              param_dtype=self.param_dtype, quant=self.quant)
 
 
 class PatchEmbed(nn.Module):

@@ -34,12 +34,14 @@ class ViTVQGANConfig:
     param_dtype: torch.dtype = torch.float32
     quantizer: str = "vq"          # "vq" | "fsq"
     fsq_levels: Optional[Tuple[int, ...]] = None
+    quant: Optional[str] = None    # "int8": serving-only int8 dense sites
 
     def __post_init__(self):
         self.grid_size = self.image_size // self.patch_size
         self.n_patches = self.grid_size ** 2
         self.latent_tokens = self.n_patches
-        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype)
+        kw = dict(dtype=self.dtype, param_dtype=self.param_dtype,
+                  quant=self.quant)
         self.enc_vit_config = ViTConfig(self.image_size, 3, self.patch_size,
                                         self.transformer, 0, 0.0, **kw)
         self.n_embd = self.enc_vit_config.trans_config.n_embd

@@ -6,11 +6,13 @@ as ``.npy`` bytes:
 
   GET  /manifest        → manifest.json
   POST /<fn>            body: .npy array → response: .npy array
-                          (tokenizers: /encode /decode; VideoGPT:
-                          /generate, greedy exports only)
+                          (tokenizers: /encode /decode; classifiers:
+                          /predict; VideoGPT: /generate, greedy exports
+                          only)
 
 Requests smaller than the export's ``bs`` are zero-padded up to it and the
-response sliced back; larger ones are rejected. ``bs`` 0 takes any batch as
+response sliced back; larger ones are rejected. Code indices are checked
+against the codebook they index (``index_bounds``). ``bs`` 0 takes any batch as
 it comes. ``--batch_window_ms W`` turns on cross-request micro-batching:
 concurrent requests coalesce for up to W ms into one device call per bs rows
 (``Batcher``).
@@ -107,6 +109,18 @@ class Batcher:
             self._flush(flight)
 
 
+def index_bounds(manifest: dict) -> "dict[str, int]":
+    """{fn: the codebook size its int inputs index}: /decode and /generate
+    take codes of ``codebook_size``, llamagen_titok's /encode the frozen
+    VQ's ids of ``vq_codebook_size``; /predict and an image /encode take
+    no indices."""
+    bounds = {fn: manifest["codebook_size"] for fn in ("decode", "generate")
+              if fn in manifest["functions"]}
+    if manifest["model"] == "llamagen_titok":
+        bounds["encode"] = manifest["config"]["vq_codebook_size"]
+    return bounds
+
+
 def make_server(export_dir: str, host: str = "127.0.0.1", port: int = 8421,
                 warmup: bool = False, batch_window_ms: float = 0.0,
                 device: str = "cuda") -> ThreadingHTTPServer:
@@ -128,7 +142,7 @@ def make_server(export_dir: str, host: str = "127.0.0.1", port: int = 8421,
     fns = {k: (lambda a, f=served[k]: f(a).cpu().numpy())
            for k in avals if len(avals[k]) == 1}
     bs = int(manifest["bs"])
-    n_codes = manifest["codebook_size"]
+    n_codes = index_bounds(manifest)
     batchers = ({k: Batcher(v, bs, batch_window_ms / 1e3)
                  for k, v in fns.items()}
                 if batch_window_ms > 0 and bs else None)
@@ -184,9 +198,10 @@ def make_server(export_dir: str, host: str = "127.0.0.1", port: int = 8421,
                     raise ValueError(
                         f"batch {k} > exported bs {bs}; split the request")
                 # an out-of-range index would fault the device-side gather
-                if name in ("decode", "generate") and arr.size and (
-                        arr.min() < 0 or arr.max() >= n_codes):
-                    raise ValueError(f"indices must lie in [0, {n_codes})")
+                if name in n_codes and arr.size and (
+                        arr.min() < 0 or arr.max() >= n_codes[name]):
+                    raise ValueError(
+                        f"indices must lie in [0, {n_codes[name]})")
                 if batchers is None and bs and k < bs:
                     # no micro-batching: pad this request up to bs here
                     # (the Batcher pads whole flights itself)

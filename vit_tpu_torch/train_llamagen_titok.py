@@ -37,8 +37,7 @@ therefore never resets without a VQ: ROADMAP Queue C #12). SIGTERM saves
 As in the JAX entry, ``--perceptual_weight`` (ROADMAP Queue C #13) and
 ``--ckpt_every`` are parsed and not used. Refused, each with a message
 naming its ROADMAP item: ``--attn_impl xla``, ``--scan_layers``,
-``--mesh``/``--pp_microbatches``, a ``--latent_dim`` the nearest-code
-kernel cannot take on the card, a real dataset without ``--vq_ckpt`` (the
+``--mesh``/``--pp_microbatches``, a real dataset without ``--vq_ckpt`` (the
 JAX entry's assertion), and what the JAX entry would fail on later
 (ROADMAP Queue C #10): ``--dataset imagenet`` with a ViT-VQGAN whose image
 size is not 256, an FSQ ViT-VQGAN, and a VQ whose code count or codebook
@@ -59,7 +58,6 @@ import torch
 from vit_tpu_torch.data import decoders
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader
 from vit_tpu_torch.data.video import _require_dir
-from vit_tpu_torch.kernels.vq import out_of_reach
 from vit_tpu_torch.models.llamagen_titok import (LlamaGenTiTok,
                                                  LlamaGenTiTokConfig)
 from vit_tpu_torch.train.checkpoint import Checkpointer
@@ -146,8 +144,6 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.mesh is not None or args.pp_microbatches,
          "--mesh/--pp_microbatches: the port trains on one GPU (ROADMAP "
          "Queue A #9, multi-GPU)"),
-        (args.device != "cpu" and bool(out_of_reach(args.latent_dim)),
-         f"--latent_dim {args.latent_dim}: {out_of_reach(args.latent_dim)}"),
         (args.dataset != "synthetic" and not args.vq_ckpt,
          f"--dataset {args.dataset} needs --vq_ckpt, the frozen code source "
          "(train_llamagen_titok.py:150)"),
@@ -227,9 +223,6 @@ def frozen_vq(args: argparse.Namespace, device: torch.device):
         cfg = vq.config
         image_size, n_codes, n_embed = (cfg.image_size, cfg.latent_tokens,
                                         cfg.codebook_size)
-        if device.type != "cpu" and out_of_reach(cfg.latent_dim):
-            raise NotImplementedError(f"--vq_ckpt {path}: "
-                                      f"{out_of_reach(cfg.latent_dim)}")
     if n_codes != args.vq_latent_tokens or n_embed > args.vq_codebook_size:
         raise NotImplementedError(
             f"--vq_ckpt {path} gives {n_codes} codes of {n_embed}, which "

@@ -48,7 +48,6 @@ import torch
 from vit_tpu_torch.data import decoders
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader
 from vit_tpu_torch.data.video import _require_dir
-from vit_tpu_torch.kernels.vq import out_of_reach
 from vit_tpu_torch.models.tatitok import TATiTok, TATiTokConfig
 from vit_tpu_torch.train.checkpoint import Checkpointer
 from vit_tpu_torch.train.loop import (build_perceptual, image_batches,
@@ -146,8 +145,6 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.mesh is not None or args.pp_microbatches,
          "--mesh/--pp_microbatches: the port trains on one GPU (ROADMAP "
          "Queue A #9, multi-GPU)"),
-        (args.device != "cpu" and bool(out_of_reach(args.latent_dim)),
-         f"--latent_dim {args.latent_dim}: {out_of_reach(args.latent_dim)}"),
         (bool(missing), missing),
     ]
     for bad, why in refused:

@@ -34,8 +34,7 @@ loss (``--perceptual_weights random|<.npz>``, ``--perceptual_quant int8``),
 (gradient and parameter histograms on log steps, to the TensorBoard sink),
 ``--n_layers``, ``--max_epoch_steps`` and ``--profile_dir`` (a
 ``torch.profiler`` Chrome trace of steps 10-15). Every other path is
-refused with a message naming its ROADMAP item, as is a ``--latent_dim``
-that the nearest-code kernel cannot take on the card.
+refused with a message naming its ROADMAP item.
 ``--no_wandb`` is accepted; the port logs to files only.
 """
 
@@ -48,7 +47,6 @@ import torch
 from vit_tpu_torch.data import decoders
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader
 from vit_tpu_torch.data.video import _require_dir
-from vit_tpu_torch.kernels.vq import out_of_reach
 from vit_tpu_torch.models.titok import TiTok, TiTokConfig
 from vit_tpu_torch.train.loop import run_tokenizer_training
 from vit_tpu_torch.utils.config import str2bool
@@ -138,9 +136,6 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.mesh is not None or args.pp_microbatches,
          "--mesh/--pp_microbatches: the port trains on one GPU (ROADMAP "
          "Queue A #9, multi-GPU)"),
-        (args.device != "cpu" and args.quantizer == "vq"
-         and bool(out_of_reach(args.latent_dim)),
-         f"--latent_dim {args.latent_dim}: {out_of_reach(args.latent_dim)}"),
         (bool(missing), missing),
     ]
     for bad, why in refused:

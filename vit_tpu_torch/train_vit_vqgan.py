@@ -25,8 +25,7 @@ The tokenizer loop (``train/loop.py``) logs to
 The data: ``--dataset imagenet`` (the default; ``--data_dir`` holds
 ``train/`` and ``val/`` class folders) or ``synthetic`` (the shapes
 stream). Refused, each with a message naming its ROADMAP item:
-``--attn_impl xla``, ``--scan_layers``, ``--mesh``/``--pp_microbatches``,
-and a ``--latent_dim`` the nearest-code kernel cannot take on the card.
+``--attn_impl xla``, ``--scan_layers`` and ``--mesh``/``--pp_microbatches``.
 ``--no_wandb`` is accepted; the port logs to files only.
 
 ``build_parser``, ``check_ported`` and ``get_loader`` serve
@@ -42,7 +41,6 @@ import torch
 from vit_tpu_torch.data import decoders
 from vit_tpu_torch.data.synthetic import SyntheticImageLoader
 from vit_tpu_torch.data.video import _require_dir
-from vit_tpu_torch.kernels.vq import out_of_reach
 from vit_tpu_torch.models.vit_vqgan import ViTVQGAN, ViTVQGANConfig
 from vit_tpu_torch.train.loop import run_tokenizer_training
 from vit_tpu_torch.utils.config import str2bool
@@ -122,7 +120,6 @@ def check_ported(args: argparse.Namespace) -> None:
     dataset whose package this machine lacks and on a dataset whose
     --data_dir is not given or not a directory."""
     missing = decoders.missing(args.dataset)
-    vq = getattr(args, "quantizer", "vq") == "vq"
     refused = [
         (args.attn_impl == "xla",
          "--attn_impl xla: the port's attention is its kernels (ROADMAP "
@@ -133,8 +130,6 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.mesh is not None or args.pp_microbatches,
          "--mesh/--pp_microbatches: the port trains on one GPU (ROADMAP "
          "Queue A #9, multi-GPU)"),
-        (args.device != "cpu" and vq and bool(out_of_reach(args.latent_dim)),
-         f"--latent_dim {args.latent_dim}: {out_of_reach(args.latent_dim)}"),
         (bool(missing), missing),
     ]
     for bad, why in refused:
