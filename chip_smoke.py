@@ -357,13 +357,32 @@ false``. Phases, one JSON line each:
                 (agreement > 0.5, PSNR > 20 dB); K1 and K5 launched by every
                 tokenizer request, K1 24 by the ViT-L predict, K6 12 by a
                 rollout; the sizes of ``weights.npz``.
+ 21. eval_tools — TiTok-B at the flagship width from a "best" checkpoint of
+                random weights, through the evaluation entries as
+                subprocesses (each with its launches counted): ``python -m
+                vit_tpu_torch.eval_recon`` at bs 16, two synthetic batches,
+                ``--lpips_weights random --perceptual_weights random`` (the
+                JAX tool's key set, finite values, K1, K5 and K3 launched),
+                held against the same tool through the plain versions (the
+                EVAL_* limits; every differing code a near-tie);
+                ``tokenize_images encode`` and ``decode`` of 32 PNGs (codes
+                equal to the live model's encode of the same host arrays,
+                PNGs to its decode); ``convert2webdataset`` of the PNGs as a
+                two-class ImageNet folder; the tools' device work at bs 16
+                timed (images/s). serve_export also holds the int8
+                quantization on the card bit for bit against the CPU's
+                (ROADMAP Queue C #14): ``quantize_kernel`` on TiTok-B's and
+                LlamaGen-TiTok-S's int8 sites, ``quantize_rows`` on TiTok-B's
+                fc1/fc2 inputs, and LlamaGen-TiTok-S quantized on each side
+                with equal twins and fidelity fields.
 
 ``--entries_only`` runs the device, build and the last five phases alone,
 ``--pretrain_only`` the device, build and pretrain phases,
 ``--tatitok_only`` the device, build and tatitok phases, and
 ``--families_only`` the device, build and families phases, and
-``--serve_only`` the device, build and serve_export phases (no kernels
-line, no closing line).
+``--serve_only`` the device, build and serve_export phases, and
+``--eval_only`` the device, build and eval_tools phases (no kernels line,
+no closing line).
 
 Then the kernels' summary line (each attention kernel with its dropout
 arm's numbers and its dropout launches, and again at head_dim 32 as
@@ -7900,6 +7919,107 @@ def serve_tokenizer(url: str, live, name: str, x: np.ndarray,
     return dict(launches=launches, codes=idx)
 
 
+# ROADMAP Queue C #14: the int8 scales are divided on the card as the JAX
+# package divides them. Each check holds the card's quantization bit for bit
+# against the same call on the CPU, and counts the scales that the old form
+# (``absmax / 127.0``, which PyTorch runs on the card as a multiply by the
+# reciprocal) would have put an ulp off: a count above 0 shows that the
+# check can tell the two forms apart.
+QUANT_SITES = re.compile(
+    r"layers\.\d+\.(attn\.qkv|attn\.out_proj|mlp\.fc1|mlp\.fc2)\.weight$")
+
+
+def old_form_moves(absmax: torch.Tensor) -> int:
+    """Scales of ``absmax`` (on the card) that ``/ 127.0`` puts off the
+    division."""
+    from vit_tpu_torch.core.quant import divide
+
+    m = absmax.float().clamp_min(1e-8)
+    return int((m / 127.0 != divide(m, 127.0)).sum())
+
+
+def quant_weights_check(model) -> dict:
+    """``quantize_kernel`` of every int8 site's kernel of ``model`` (on the
+    card) against the same call on the CPU: levels and scales bit for
+    bit."""
+    from vit_tpu_torch.core.quant import quantize_kernel
+
+    sites, scales, moves, differing = 0, 0, 0, []
+    for name, p in model.named_parameters():
+        if not QUANT_SITES.search(name):
+            continue
+        w = p.detach().t()   # the JAX layout (K, N)
+        q_dev, s_dev = quantize_kernel(w)
+        q_cpu, s_cpu = quantize_kernel(w.cpu())
+        if not (torch.equal(q_dev.cpu(), q_cpu)
+                and torch.equal(s_dev.cpu(), s_cpu)):
+            differing.append(name)
+        sites += 1
+        scales += s_cpu.numel()
+        moves += old_form_moves(w.abs().amax(0))
+    require(sites > 0, "no int8 site found")
+    return dict(sites=sites, scales=scales, differing_sites=differing,
+                old_form_would_move=moves)
+
+
+def quant_rows_check(twin, x: torch.Tensor) -> dict:
+    """The int8 ``twin``'s encode of ``x`` on the card, every
+    ``QuantLinear``'s input captured; ``quantize_rows`` of each on the card
+    against the CPU: levels and scales bit for bit."""
+    from vit_tpu_torch.core.quant import QuantLinear, quantize_rows
+
+    acts = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: acts.append(args[0].detach()))
+        for m in twin.modules() if type(m) is QuantLinear]
+    try:
+        with torch.inference_mode():
+            twin.encode(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    rows, moves, differing = 0, 0, []
+    for i, a in enumerate(acts):
+        q_dev, s_dev = quantize_rows(a)
+        q_cpu, s_cpu = quantize_rows(a.cpu())
+        if not (torch.equal(q_dev.cpu(), q_cpu)
+                and torch.equal(s_dev.cpu(), s_cpu)):
+            differing.append(i)
+        rows += s_cpu.numel()
+        moves += old_form_moves(a.float().abs().amax(-1))
+    require(acts, "no QuantLinear input captured")
+    return dict(sites=len(acts), rows=rows, differing_sites=differing,
+                old_form_would_move=moves)
+
+
+def quant_sides_check(model, name: str) -> dict:
+    """``model`` quantized once on the card and once on the CPU (then moved
+    to the card): the two twins' buffers bit for bit, and the fidelity
+    fields of each against the fp model on the card."""
+    from vit_tpu_torch.serve.export import _quant_fidelity, _quantized
+
+    on_card = _quantized(model, name, "int8")
+    on_host = _quantized(copy.deepcopy(model).cpu(), name, "int8").cuda()
+    a, b = on_card.state_dict(), on_host.state_dict()
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    return dict(twins_equal=same,
+                fidelity_quantized_on_card=_quant_fidelity(
+                    name, model.config, model, on_card),
+                fidelity_quantized_on_cpu=_quant_fidelity(
+                    name, model.config, model, on_host))
+
+
+def require_quant_checks(checks: dict) -> None:
+    for what, row in checks.items():
+        require(not row.get("differing_sites", []),
+                f"Queue C #14, {what}: the card's int8 quantization differs "
+                f"from the CPU's: {row}")
+        if "twins_equal" in row:
+            require(row["twins_equal"] and row["fidelity_quantized_on_card"]
+                    == row["fidelity_quantized_on_cpu"],
+                    f"Queue C #14, {what}: {row}")
+
+
 def http_times(url: str, x: np.ndarray, idx: np.ndarray) -> dict:
     """Median latencies of /encode of ``x`` and /decode of ``idx``."""
     row = dict(encode_ms=host_median_ms(lambda: post(url + "/encode", x),
@@ -7935,7 +8055,7 @@ def phase_serve_export(card: str) -> dict:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(25)
-    launches, sizes, fidelity, parts = {}, {}, {}, {}
+    launches, sizes, fidelity, parts, quant_checks = {}, {}, {}, {}, {}
 
     def build(cls, cfg, init=init_params_, *args):
         model = cls(cfg, *args, device="cuda")
@@ -7954,6 +8074,9 @@ def phase_serve_export(card: str) -> dict:
         ckpt = write_checkpoint(work / "titok", model, cfg)
         twins = {"fp": model, "int8": _quantized(model, "titok", "int8")}
         x64 = rng.uniform(0, 1, (64, 128, 128, 3)).astype(np.float32)
+        quant_checks["titok_b_kernels"] = quant_weights_check(model)
+        quant_checks["titok_b_rows"] = quant_rows_check(
+            twins["int8"], torch.from_numpy(x64[:8]).cuda())
         # one export a kind at --bs 0 (any batch, as it comes) serves the
         # bs-8 and bs-64 requests alike, unpadded
         titok, outs = {}, {}
@@ -8097,16 +8220,285 @@ def phase_serve_export(card: str) -> dict:
                                   weights_mb=npz_mb(out))
             if kind == "int8":
                 fidelity[name] = require_fidelity(man, name)
+            if name == "llamagen_titok":
+                quant_checks["llamagen_titok_s_kernels"] = (
+                    quant_weights_check(model))
+                quant_checks["llamagen_titok_s_sides"] = quant_sides_check(
+                    model, name)
             del model, live
             torch.cuda.empty_cache()
 
     emit("serve_export", card=card, titok_b=titok, classifier_vit_l16=classifier,
          videogpt_b_rollout_bs1=rollout, families=families,
          fidelity=fidelity, weights_mb=sizes, seconds_at=parts,
+         queue_c14=quant_checks,
          tolerance=dict(min_agreement=SERVE_MIN_AGREEMENT,
-                        min_psnr_db=SERVE_MIN_PSNR_DB),
+                        min_psnr_db=SERVE_MIN_PSNR_DB,
+                        queue_c14="bit for bit"),
          seconds=time.perf_counter() - t0)
+    require_quant_checks(quant_checks)
     return launches
+
+
+# The eval_tools phase: TiTok-B at the flagship width from a checkpoint of
+# random weights, through the evaluation entries as subprocesses.
+EVAL_BS, EVAL_BATCHES, EVAL_IMAGES = 16, 2, 32
+EVAL_ARGV = ("--model", "titok", "--bs", str(EVAL_BS), "--batches",
+             str(EVAL_BATCHES), "--dataset", "synthetic", "--lpips_weights",
+             "random", "--perceptual_weights", "random")
+EVAL_KEYS = ["psnr", "codebook_usage", "n", "ssim", "perceptual", "lpips"]
+# eval_recon's numbers with the kernels against the same tool through the
+# plain versions, on the same weights and batches. The bf16 TiTok-B at
+# random weights flips ~1.8% of its codes under any ulp-level change in
+# attention (Queue C #1), and a flipped code changes its token's decode
+# wholesale, so the image numbers are held loosely and the codes by the
+# near-tie rule; LPIPS and the perceptual distance are fp32 functions of the
+# reconstructions.
+EVAL_PSNR_ABS = 0.1          # dB
+EVAL_SSIM_ABS = 5e-3
+EVAL_METRIC_REL = 5e-2       # perceptual and lpips
+EVAL_USAGE_ABS = 2e-2
+
+
+def start_module(module: str, *argv: str, count: bool = True) -> dict:
+    """Start ``python -m <module> argv`` as a subprocess; with ``count``,
+    the kernels' launch counts are set to 0 just before the module runs and
+    printed just after (``finish_module`` reads them)."""
+    code = ("import json, runpy, sys\n"
+            f"sys.argv = [{module!r}, *{list(argv)!r}]\n"
+            + ("import chip_smoke\nchip_smoke.reset_launches()\n" if count
+               else "")
+            + f"runpy.run_module({module!r}, run_name='__main__')\n"
+            + ("import torch\n"
+               "if torch.cuda.is_initialized():\n"
+               "    torch.cuda.synchronize()\n"
+               "print('LAUNCHES ' + json.dumps([chip_smoke.launched(), {\n"
+               "    k: v for k, v in chip_smoke.read_fp32_launches().items()\n"
+               "    if v}]))\n"
+               if count else ""))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    return dict(proc=proc, count=count, t0=time.perf_counter(),
+                cmd=f"-m {module} " + " ".join(argv))
+
+
+def finish_module(run: dict) -> dict:
+    """Wait for a ``start_module`` subprocess: its output lines, its
+    launches and those of fp32 forms (with ``count``) and its seconds;
+    raises if it failed."""
+    proc = run["proc"]
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = out.splitlines()
+    ok = proc.returncode == 0 and (not run["count"] or (
+        lines and lines[-1].startswith("LAUNCHES ")))
+    require(ok, f"python {run['cmd']} exited {proc.returncode}: "
+            f"{(out + err)[-3000:]}")
+    launches, fp32 = (json.loads(lines.pop().split(" ", 1)[1])
+                      if run["count"] else ({}, {}))
+    return dict(cmd=run["cmd"], lines=lines, launches=launches,
+                fp32_launches=fp32, seconds=time.perf_counter() - run["t0"])
+
+
+def write_pngs(folder: Path, n: int, size: int, seed: int) -> "list[Path]":
+    from PIL import Image
+
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        paths.append(folder / f"{i:03d}.png")
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), np.uint8)
+                        ).save(paths[-1])
+    return paths
+
+
+def phase_eval_tools(card: str) -> "tuple[dict, dict]":
+    """``python -m vit_tpu_torch.eval_recon`` at TiTok-B, bs 16, two
+    synthetic batches, random LPIPS and perceptual weights, against the same
+    tool run here through the plain versions (its keys, finite values, each
+    field within its EVAL_* limit, every differing code a near-tie; K1, K5
+    and K3 launched); ``tokenize_images encode`` and ``decode`` of 32 PNGs
+    (codes equal to the live model's encode of the same host arrays, PNGs
+    to its decode); ``convert2webdataset`` of those PNGs as a two-class
+    ImageNet folder. The four entries run side by side, so ``decode`` reads
+    the live model's codes of the PNGs, which must then equal ``encode``'s
+    file bit for bit. The tools' device work at bs 16 is timed afterwards:
+    eval_recon's metrics of one batch, an encode and a decode. Returns the
+    subprocesses' launches, and those of fp32 forms."""
+    from PIL import Image
+
+    from vit_tpu_torch.eval_recon import (batch_metrics, build_metrics,
+                                          build_parser)
+    from vit_tpu_torch.eval_recon import main as eval_main
+    from vit_tpu_torch.tokenize_images import read_images
+
+    t0 = time.perf_counter()
+    launches, fp32_launches, runs, parts = {}, {}, {}, {}
+    cfg = TiTokConfig(**FLAGSHIP)
+    model = TiTok(cfg, device="cuda")
+    with torch.no_grad():
+        init_params_(model, torch.Generator(device="cuda").manual_seed(26))
+    model.eval()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        work = Path(tmp)
+        ckpt = write_checkpoint(work / "titok", model, cfg)
+        paths = write_pngs(work / "imgs", EVAL_IMAGES, cfg.image_size, 26)
+        folder = work / "imagenet" / "train"
+        for i, path in enumerate(paths):   # two classes, for the shards
+            (folder / f"n{i % 2:02d}").mkdir(parents=True, exist_ok=True)
+            (folder / f"n{i % 2:02d}" / path.name).write_bytes(
+                path.read_bytes())
+        host = read_images(paths, cfg.image_size)
+        with torch.inference_mode():
+            direct = np.concatenate([
+                model.encode(torch.from_numpy(host[i:i + EVAL_BS]).cuda())
+                .cpu().numpy() for i in range(0, EVAL_IMAGES, EVAL_BS)])
+        np.savez(work / "direct.npz", codes=direct,
+                 paths=np.asarray([str(p) for p in paths]))
+        parts["setup"] = time.perf_counter() - t0
+        argv = ("--ckpt", str(ckpt), *EVAL_ARGV)
+        common = ("--ckpt", str(ckpt), "--model", "titok", "--bs",
+                  str(EVAL_BS))
+        started = {
+            "eval_recon": start_module("vit_tpu_torch.eval_recon", *argv),
+            "tokenize_encode": start_module(
+                "vit_tpu_torch.tokenize_images", "encode", *common,
+                "--images", str(work / "imgs" / "*.png"), "--out",
+                str(work / "codes.npz")),
+            "tokenize_decode": start_module(
+                "vit_tpu_torch.tokenize_images", "decode", *common,
+                "--codes", str(work / "direct.npz"), "--out_dir",
+                str(work / "decoded")),
+            "convert2webdataset": start_module(
+                "vit_tpu_torch.convert2webdataset", "--dataset", "imagenet",
+                "--data_dir", str(work / "imagenet"), "--output_dir",
+                str(work / "shards"), "--max_train_samples_per_shard", "20",
+                count=False)}
+        try:
+            # meanwhile: the same tool through the plain versions, and the
+            # codes of its batches with the kernels and through the plain
+            # versions
+            with plain_versions(), \
+                    contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                plain = eval_main([*argv, "--device", "cuda"])
+            loader = SyntheticImageLoader(cfg.image_size, EVAL_BS,
+                                          steps_per_epoch=EVAL_BATCHES,
+                                          seed=1, mode="shapes")
+            xs = [torch.from_numpy(x).cuda() for x, _ in loader]
+            with torch.inference_mode():
+                lat = torch.cat([model.enc(x).double() for x in xs])
+                with plain_versions():
+                    plain_lat = torch.cat([model.enc(x).double() for x in xs])
+                codes = model.quant(lat.float())[1]
+                plain_codes = model.quant(plain_lat.float())[1]
+                pixels = np.concatenate([
+                    model.decode_indices(torch.from_numpy(
+                        direct[i:i + EVAL_BS]).cuda()).float()
+                    .clamp(0.0, 1.0).cpu().numpy()
+                    for i in range(0, EVAL_IMAGES, EVAL_BS)])
+            parts["plain_versions"] = time.perf_counter() - t0
+        finally:
+            for name, run in started.items():
+                runs[name] = finish_module(run)
+        parts["entries"] = time.perf_counter() - t0
+        for run in runs.values():
+            add_launches(launches, run["launches"])
+            add_launches(fp32_launches, run["fp32_launches"])
+        flips = code_flips(lat, plain_lat, model.quant.codebook, codes,
+                           plain_codes)
+
+        got = json.loads(runs["eval_recon"]["lines"][-1])
+        require(list(got) == EVAL_KEYS and got["n"] == EVAL_BS * EVAL_BATCHES
+                and all(np.isfinite(got[k]) for k in EVAL_KEYS),
+                f"eval_recon printed {got}")
+        require(all(runs["eval_recon"]["launches"].get(k, 0) > 0 for k in (
+            "attention_packed_fwd", "vq_nearest", "convnext_tail_fwd")),
+            f"eval_recon launched {runs['eval_recon']['launches']}")
+        diffs = dict(psnr=abs(got["psnr"] - plain["psnr"]),
+                     ssim=abs(got["ssim"] - plain["ssim"]),
+                     perceptual_rel=abs(got["perceptual"] - plain["perceptual"])
+                     / plain["perceptual"],
+                     lpips_rel=abs(got["lpips"] - plain["lpips"])
+                     / plain["lpips"],
+                     codebook_usage=abs(got["codebook_usage"]
+                                        - plain["codebook_usage"]))
+
+        saved = np.load(work / "codes.npz", allow_pickle=True)
+        pngs = [np.asarray(Image.open(work / "decoded" / f"{i:06d}.png"))
+                for i in range(EVAL_IMAGES)]
+        tokenize = dict(
+            codes_equal_direct_encode=bool(np.array_equal(saved["codes"],
+                                                          direct)),
+            paths_in_order=[Path(p).name for p in saved["paths"]]
+            == [p.name for p in paths],
+            pngs_equal_direct_decode=all(np.array_equal(
+                png, (pixels[i] * 255).astype(np.uint8))
+                for i, png in enumerate(pngs)))
+        enc, dec = runs["tokenize_encode"], runs["tokenize_decode"]
+        require(saved["codes"].shape == (EVAL_IMAGES, cfg.latent_tokens)
+                and saved["codes"].dtype == direct.dtype
+                and all(tokenize.values()), f"tokenize_images: {tokenize}")
+        require(enc["launches"].get("attention_packed_fwd", 0) > 0
+                and enc["launches"].get("vq_nearest", 0) > 0
+                and dec["launches"].get("attention_packed_fwd", 0) > 0,
+                f"tokenize_images launched {enc['launches']} and "
+                f"{dec['launches']}")
+        wds = runs["convert2webdataset"]
+        shards = sorted(p.name for p in (work / "shards").iterdir())
+        require(f"wrote {EVAL_IMAGES} train examples" in wds["lines"]
+                and shards == [f"imagenet-train-{i:06d}.tar"
+                               for i in range(-(-EVAL_IMAGES // 20))],
+                f"convert2webdataset: {wds['lines']} {shards}")
+
+    # the tools' device work at bs 16 with the kernels
+    args = build_parser().parse_args(["--ckpt", "-", *EVAL_ARGV])
+    with contextlib.redirect_stderr(io.StringIO()):
+        perceptual, lpips = build_metrics(args, torch.device("cuda"))
+    x = xs[0]
+    with torch.inference_mode():
+        idx = model.encode(x)
+    metrics_ms = median_ms(lambda: batch_metrics(model, model.encode, x,
+                                                 perceptual, lpips), reps=5)
+    with torch.inference_mode():
+        encode_ms = median_ms(lambda: model.encode(x), reps=10)
+        decode_ms = median_ms(lambda: model.decode_indices(idx), reps=10)
+    rates = dict(eval_recon_batch_ms=metrics_ms,
+                 eval_recon_images_per_s=EVAL_BS / metrics_ms * 1e3,
+                 encode_ms=encode_ms,
+                 encode_images_per_s=EVAL_BS / encode_ms * 1e3,
+                 decode_ms=decode_ms,
+                 decode_images_per_s=EVAL_BS / decode_ms * 1e3)
+    emit("eval_tools", card=card, eval_recon=got, plain_versions=plain,
+         diffs=diffs, codes=flips, tokenize=tokenize, rates_bs16=rates,
+         runs={k: dict(cmd=r["cmd"], seconds=r["seconds"],
+                       launches=r["launches"],
+                       fp32_launches=r["fp32_launches"],
+                       tail=r["lines"][-2:])
+               for k, r in runs.items()},
+         seconds_at=parts,
+         tolerance=dict(psnr_abs_db=EVAL_PSNR_ABS, ssim_abs=EVAL_SSIM_ABS,
+                        perceptual_lpips_rel=EVAL_METRIC_REL,
+                        codebook_usage_abs=EVAL_USAGE_ABS,
+                        codes="near-ties (Queue C #1)"),
+         seconds=time.perf_counter() - t0)
+    require(diffs["psnr"] <= EVAL_PSNR_ABS and diffs["ssim"] <= EVAL_SSIM_ABS
+            and diffs["perceptual_rel"] <= EVAL_METRIC_REL
+            and diffs["lpips_rel"] <= EVAL_METRIC_REL
+            and diffs["codebook_usage"] <= EVAL_USAGE_ABS
+            and got["n"] == plain["n"],
+            f"eval_recon with the kernels against the plain versions: {diffs}")
+    require_codes_agree(flips, "eval_recon's codes")
+    del model, perceptual, lpips
+    torch.cuda.empty_cache()
+    return launches, fp32_launches
 
 
 def entry_phases(card: str, converge_epochs: "int | None"
@@ -8149,6 +8541,9 @@ def main(argv=None) -> None:
     parser.add_argument("--serve_only", action="store_true",
                         help="only the build and the serve_export phase; "
                              "no kernels line and no closing line")
+    parser.add_argument("--eval_only", action="store_true",
+                        help="only the build and the eval_tools phase; no "
+                             "kernels line and no closing line")
     args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
@@ -8166,6 +8561,9 @@ def main(argv=None) -> None:
         return
     if args.serve_only:
         phase_serve_export(card)
+        return
+    if args.eval_only:
+        phase_eval_tools(card)
         return
     fma_summary, fma_launches = phase_fma_probe(card)
     summary = phase_kernels()
@@ -8211,14 +8609,15 @@ def main(argv=None) -> None:
     phase_train_vit_entry(card, "--mixed", "false")
     titok_launches, titok_fp32 = entry_phases(card, args.converge_epochs)
     serve_launches = phase_serve_export(card)
-    for name, n in titok_fp32.items():
+    eval_launches, eval_fp32 = phase_eval_tools(card)
+    for name, n in [*titok_fp32.items(), *eval_fp32.items()]:
         fp32_launches[name] = fp32_launches.get(name, 0) + n
     # the other paths' attention launches are all 64-wide
     for path in (train_launches, fused_launches, gpt_launches,
                  rollout_launches, int8_launches, perceptual_launches,
                  vit_launches, fp32_path_launches, titok_launches,
                  pretrain_launches, tatitok_launches, families_launches,
-                 serve_launches):
+                 serve_launches, eval_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     dropout_launches = {name: gpt_dropout[name] + vit_dropout[name]

@@ -142,7 +142,10 @@ def test_port_never_imports_jax():
         "'vit_tpu_torch.train.loop', 'vit_tpu_torch.train_mae', "
         "'vit_tpu_torch.train_puzzle', 'vit_tpu_torch.train_vit_vqgan', "
         "'vit_tpu_torch.train_enhancing_vitvqgan', "
-        "'vit_tpu_torch.train_llamagen_titok')\n"
+        "'vit_tpu_torch.train_llamagen_titok', "
+        "'vit_tpu_torch.eval_recon', 'vit_tpu_torch.tokenize_images', "
+        "'vit_tpu_torch.convert2webdataset', "
+        "'vit_tpu_torch.losses.lpips')\n"
         "assert all(e in sys.modules for e in entries), entries\n"
         "print(len([k for k in sys.modules if k.startswith('vit_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -214,10 +214,16 @@ def test_sampling(tiny_gpt):
 
 
 def test_config_refuses_unported_stacks():
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        VideoGPTConfig(8, 16, "S", 4, scan_layers=True)
-    with pytest.raises(NotImplementedError, match="pp_stages"):
-        VideoGPTConfig(8, 16, "S", 4, pp_stages=2)
+    """``scan_layers`` and ``pp_stages`` are compile levers the port keeps
+    in its config and needs no code for: the model builds the unrolled
+    stack, and the bridge unrolls a scanned or pipelined tree."""
+    plain = VideoGPT(VideoGPTConfig(8, 16, "S", 4), device="meta")
+    for kw in (dict(scan_layers=True), dict(pp_stages=2)):
+        cfg = VideoGPTConfig(8, 16, "S", 4, **kw)
+        model = VideoGPT(cfg, device="meta")
+        assert {k: v.shape for k, v in model.state_dict().items()} == {
+            k: v.shape for k, v in plain.state_dict().items()}
+        assert "transformer.layers.5.mlp.fc2.weight" in model.state_dict()
 
 
 def test_bridge_round_trip(tiny_gpt):

@@ -32,8 +32,23 @@ a LayerNorm's).
 
 ``flatten``/``unflatten`` convert between the nested dict and the
 "/"-joined keys of ``weights.npz`` (the layout of the JAX export's
-``_write_artifacts``). Only the unrolled ``layer_{i}`` stack is read; the
-scanned ``layers/...`` layout is not.
+``_write_artifacts``).
+
+The port runs the unrolled stack, but reads the JAX package's other two
+stack layouts: the scanned one (``--scan_layers``: one ``layers`` subtree
+whose leaves gain a leading axis L) and the pipelined one (``pp_stages``:
+leading axes stages × L/stages), for the shared transformer
+(``stack_layer_params`` ... ``convert_stack_layout``, copies of
+``vit_tpu/core/transformer.py:520-600``) and for the enhancing ViT-VQGAN's
+flat blocks (``convert_enhancing_layout``,
+``vit_tpu/models/enhancing_vqgan.py:181-216``). ``unrolled`` turns every
+such subtree of a tree back into ``layer_{i}`` (or ``attn_norm_{i}`` ...)
+leaves, and every reader below calls it first. Leaves may be numpy arrays or
+torch tensors.
+
+LPIPS's tree (``alex/conv{i}/{kernel,bias}``, HWIO kernels, and the heads
+``lin{i}`` of shape (C,)) follows the same rule both ways
+(``lpips_state_dict_from_flax``).
 """
 
 from __future__ import annotations
@@ -118,13 +133,147 @@ def _flax_key(torch_key: str, ndim: int) -> "tuple[str, bool]":
     return key, False
 
 
+def _stack(xs):
+    return torch.stack(xs) if torch.is_tensor(xs[0]) else np.stack(xs)
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def stack_layer_params(tree: dict, n_layers: int) -> dict:
+    """Unrolled transformer params (``layer_0..layer_{N-1}``) → the scanned
+    layout (``layers``, each leaf with a leading ``n_layers`` axis); the
+    other keys pass through."""
+    layers = [tree[f"layer_{i}"] for i in range(n_layers)]
+    out = {k: v for k, v in tree.items() if not k.startswith("layer_")}
+    out["layers"] = _map(lambda *xs: _stack(list(xs)), *layers)
+    return out
+
+
+def unstack_layer_params(tree: dict) -> dict:
+    """Inverse of :func:`stack_layer_params`."""
+    stacked = tree["layers"]
+    n = _first_leaf(stacked).shape[0]
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for i in range(n):
+        out[f"layer_{i}"] = _map(lambda x, i=i: x[i], stacked)
+    return out
+
+
+def _n_lead_axes(layers: dict) -> int:
+    """Leading stack axes on a ``layers`` subtree: 1 in the scanned layout
+    (L, ...), 2 in the pipelined one (stages, L/stages, ...), read off a
+    kernel leaf (2-D underneath)."""
+    for key, leaf in _flat(layers).items():
+        if key.rsplit("/", 1)[-1] in ("kernel", "kernel_q"):
+            return leaf.ndim - 2
+    raise ValueError("no kernel leaf under the layers subtree")
+
+
+def pipeline_layer_params(tree: dict, pp_stages: int) -> dict:
+    """Scanned layout → the pipelined layout (leading ``(pp_stages,
+    L // pp_stages)`` axes), a reshape."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["layers"] = _map(lambda x: x.reshape(
+        (pp_stages, x.shape[0] // pp_stages) + tuple(x.shape[1:])),
+        tree["layers"])
+    return out
+
+
+def unpipeline_layer_params(tree: dict) -> dict:
+    """Inverse of :func:`pipeline_layer_params`."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["layers"] = _map(lambda x: x.reshape(
+        (x.shape[0] * x.shape[1],) + tuple(x.shape[2:])), tree["layers"])
+    return out
+
+
+def convert_stack_layout(tree: dict, scan_layers: bool,
+                         pp_stages: int = 0) -> dict:
+    """A transformer's param subtree in the requested layout: unrolled,
+    scanned (``scan_layers``) or pipelined (``pp_stages`` > 1); a no-op
+    when it is in that layout already."""
+    if "layers" in tree and _n_lead_axes(tree["layers"]) == 2:
+        tree = unpipeline_layer_params(tree)     # pipeline → scan first
+    if scan_layers or pp_stages > 1:
+        if any(k.startswith("layer_") for k in tree):
+            tree = stack_layer_params(
+                tree, sum(k.startswith("layer_") for k in tree))
+    elif "layers" in tree:
+        tree = unstack_layer_params(tree)
+    if pp_stages > 1:
+        tree = pipeline_layer_params(tree, pp_stages)
+    return tree
+
+
+_ENHANCING_KEYS = tuple(ENHANCING_BLOCK.split("|"))
+
+
+def stack_enhancing_params(tree: dict, depth: int) -> dict:
+    """The enhancing transformer's flat blocks (``attn_norm_0`` ...) → the
+    scanned layout (``layers/{attn_norm,attn,ff_norm,ff1,ff2}``, each leaf
+    with a leading ``depth`` axis); ``final_norm`` passes through."""
+    flat = re.compile(r"^(" + ENHANCING_BLOCK + r")_\d+$")
+    out = {k: v for k, v in tree.items() if not flat.match(k)}
+    out["layers"] = {base: _map(lambda *xs: _stack(list(xs)),
+                                *(tree[f"{base}_{i}"] for i in range(depth)))
+                     for base in _ENHANCING_KEYS}
+    return out
+
+
+def unstack_enhancing_params(tree: dict) -> dict:
+    """Inverse of :func:`stack_enhancing_params`."""
+    layers = tree["layers"]
+    n = _first_leaf(layers).shape[0]
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for base in _ENHANCING_KEYS:
+        for i in range(n):
+            out[f"{base}_{i}"] = _map(lambda x, i=i: x[i], layers[base])
+    return out
+
+
+def convert_enhancing_layout(tree: dict, scan_layers: bool) -> dict:
+    """An enhancing transformer's param subtree in the requested layout; a
+    no-op when it is in that layout already."""
+    if scan_layers and "layers" not in tree:
+        depth = sum(1 for k in tree if re.fullmatch(r"attn_\d+", k))
+        return stack_enhancing_params(tree, depth)
+    if not scan_layers and "layers" in tree:
+        return unstack_enhancing_params(tree)
+    return tree
+
+
+def unrolled(params: dict) -> dict:
+    """``params`` with every scanned or pipelined stack unrolled, at any
+    depth of the tree: a ``layers`` subtree holding the enhancing block's
+    keys becomes ``attn_norm_{i}`` ...; any other becomes ``layer_{i}``."""
+    if not isinstance(params, dict):
+        return params
+    if "layers" in params and isinstance(params["layers"], dict):
+        if set(_ENHANCING_KEYS) <= set(params["layers"]):
+            params = convert_enhancing_layout(params, scan_layers=False)
+        else:
+            params = convert_stack_layout(params, scan_layers=False)
+    return {k: unrolled(v) for k, v in params.items()}
+
+
 def _from_flax(params: dict, expected: dict) -> "dict[str, torch.Tensor]":
-    """Nested flax params (numpy arrays, or torch tensors on any device) →
-    a state dict with ``expected``'s keys and shapes, on the leaves' device.
-    Raises unless every JAX leaf lands on exactly one port parameter of the
-    right shape and every port parameter is filled."""
+    """Nested flax params (numpy arrays, or torch tensors on any device; any
+    stack layout) → a state dict with ``expected``'s keys and shapes, on
+    the leaves' device. Raises unless every JAX leaf lands on exactly one
+    port parameter of the right shape and every port parameter is filled."""
     out: "dict[str, torch.Tensor]" = {}
-    flat = _flat(params)
+    flat = _flat(unrolled(params))
     for flax_key, leaf in flat.items():
         key, is_kernel = _torch_key(flax_key)
         site = flax_key.removesuffix("/scale")
@@ -265,6 +414,15 @@ def convnext_state_dict_from_flax(params: dict, net) -> "dict[str, torch.Tensor]
     state dict of the port's ``ConvNeXt`` ``net``, with the checks of
     ``_from_flax``."""
     return _from_flax(params, net.state_dict())
+
+
+def lpips_state_dict_from_flax(params: dict) -> "dict[str, torch.Tensor]":
+    """JAX LPIPS params (``alex/conv{i}/{kernel,bias}`` HWIO → OIHW, the
+    heads ``lin{i}`` as they are) → the state dict of the port's
+    ``losses.lpips.LPIPS``, with the checks of ``_from_flax``."""
+    from vit_tpu_torch.losses.lpips import LPIPS
+
+    return _from_flax(params, LPIPS(device="meta").state_dict())
 
 
 def module_state_dict_from_flax(params: dict, module: torch.nn.Module

@@ -5,8 +5,9 @@
     of a (K, N) kernel: ``w ≈ q · scale[None, :]``, scale
     ``max(absmax, 1e-8) / 127``.
   * ``int8_matmul(x, q, scale)`` — dynamic symmetric per-row quantization of
-    the activation (absmax over the contraction axis), an int8 × int8 →
-    int32 product, then the fp32 rescale ``(y · s_x) · scale``.
+    the activation (``quantize_rows``: absmax over the contraction axis), an
+    int8 × int8 → int32 product, then the fp32 rescale ``(y · s_x) ·
+    scale``.
   * ``frozen_int8_dense(x, w, b)`` — a dense layer through those products
     for frozen weights (the perceptual net's stage 3 under
     ``--perceptual_quant int8``). Its backward returns dx only, itself an
@@ -24,6 +25,11 @@
   * ``quantize_params(target, params_fp)`` — a trained fp tree in the JAX
     layout (nested dicts, "kernel" (K, N)) → the int8 model's tree
     (:123-158).
+
+Both scales are divided by 127 as the JAX package divides them
+(``divide``): on the card PyTorch turns a division by a CPU scalar into a
+multiply by its reciprocal, which can leave a scale an ulp off and move an
+int8 level (ROADMAP Queue C #14).
 
 Kernels are in the JAX package's (K, N) layout, so a ``nn.Linear`` weight is
 passed as ``weight.t()`` (a view). Rounding is half to even, as
@@ -45,21 +51,35 @@ _EPS = 1e-8
 INT_MM_MIN_ROWS = 17   # torch._int_mm on the card takes more than 16 rows
 
 
+def divide(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d``, an IEEE division wherever ``a`` lies. PyTorch's CUDA
+    true-divide multiplies by the reciprocal when the divisor is a CPU
+    scalar (a Python number or a 0-dim CPU tensor), so the divisor is a
+    0-dim tensor on ``a``'s device."""
+    return a / torch.full((), d, dtype=a.dtype, device=a.device)
+
+
 def quantize_kernel(w: torch.Tensor):
     """(K, N) → (q int8 (K, N), scale fp32 (N,)) with ``w ≈ q · scale``."""
     w32 = w.float()
-    scale = w32.abs().amax(0).clamp_min(_EPS) / 127.0
+    scale = divide(w32.abs().amax(0).clamp_min(_EPS), 127.0)
     q = torch.round(w32 / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_rows(x: torch.Tensor):
+    """x (..., K) float → (levels int8 (..., K), scale fp32 (..., 1)): the
+    dynamic symmetric per-row quantization of an activation."""
+    x32 = x.float()
+    s_x = divide(x32.abs().amax(-1, keepdim=True).clamp_min(_EPS), 127.0)
+    return torch.round(x32 / s_x).clamp(-127, 127).to(torch.int8), s_x
 
 
 def int8_matmul(x: torch.Tensor, kernel_q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x (..., K) float → (..., N) fp32 through an int8 × int8 → int32
     product with a per-row activation scale."""
-    x32 = x.float()
-    s_x = x32.abs().amax(-1, keepdim=True).clamp_min(_EPS) / 127.0
-    x_q = torch.round(x32 / s_x).clamp(-127, 127).to(torch.int8)
+    x_q, s_x = quantize_rows(x)
     rows = x_q.reshape(-1, x_q.shape[-1])
     n = rows.shape[0]
     if rows.is_cuda:

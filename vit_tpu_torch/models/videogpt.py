@@ -32,7 +32,10 @@ from vit_tpu_torch.core.transformer import Transformer, init_kv_cache, linear
 class VideoGPTConfig:
     """The reference's VideoGPTConfig (train_videogpt.py:18-27).
     ``trans_config`` and ``n_embd`` are derived in ``__post_init__`` and stay
-    overridable, as tests shrink the transformer after construction."""
+    overridable, as tests shrink the transformer after construction.
+    ``scan_layers`` and ``pp_stages`` are kept as the JAX config's compile
+    levers and change nothing here: the port runs the unrolled stack, and
+    ``vit_tpu_torch.bridge`` unrolls a scanned or pipelined tree."""
 
     frame_size: int          # tokens per frame
     codebook_size: int
@@ -46,10 +49,6 @@ class VideoGPTConfig:
     quant: Optional[str] = None    # "int8": serving-only int8 dense sites
 
     def __post_init__(self):
-        if self.scan_layers or self.pp_stages > 1:
-            raise NotImplementedError(
-                "the scanned and pipelined stacks (scan_layers, pp_stages) "
-                "are not ported; the port runs the unrolled stack")
         self.max_tokens = self.max_frames * self.frame_size
         self.trans_config: TransformerConfig = transformer_configs[
             self.transformer](block_size=self.max_tokens, dropout=self.dropout,

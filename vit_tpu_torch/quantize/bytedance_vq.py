@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vit_tpu_torch.core.quant import divide
 from vit_tpu_torch.kernels.vq import nearest_code
 
 
@@ -81,11 +82,11 @@ class BytedanceVectorQuantizer(nn.Module):
         """Update the usage EMA in place and return the reseeded codebook
         (``vit_tpu/quantize/bytedance_vq.py:82-103``)."""
         c, decay = self.codebook_size, self.decay
-        onehot_mean = torch.zeros(c, dtype=torch.float32,
-                                  device=indices.device).index_add_(
+        counts = torch.zeros(c, dtype=torch.float32,
+                             device=indices.device).index_add_(
             0, indices.long(), torch.ones(indices.shape[0],
-                                          device=indices.device)
-        ) / indices.shape[0]
+                                          device=indices.device))
+        onehot_mean = divide(counts, indices.shape[0])
         new_prob = self.embed_prob * decay + onehot_mean * (1 - decay)
         self.embed_prob.copy_(new_prob)
         emb = self.embedding.detach()
@@ -93,7 +94,7 @@ class BytedanceVectorQuantizer(nn.Module):
         d = (torch.sum(z_flat ** 2, 1, keepdim=True)
              + torch.sum(codes ** 2, 1) - 2.0 * z_flat @ codes.T)
         random_feat = unnormed[torch.argmin(d, dim=0)]
-        decay_f = torch.exp(-(new_prob * c * 10.0) / (1 - decay)
+        decay_f = torch.exp(-divide(new_prob * c * 10.0, 1 - decay)
                             - 1e-3)[:, None]
         return emb * (1 - decay_f) + random_feat * decay_f
 

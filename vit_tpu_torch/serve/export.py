@@ -34,6 +34,18 @@ rebuilds the model from the config on ``device`` and returns closures that
 take numpy arrays (or tensors) and return tensors on that device. The
 port's attention is always its kernels; ``platforms`` and ``attn_impl``
 are recorded as given.
+
+``load_exported`` also reads a JAX export directory, whose manifest has no
+``"config"`` (``vit_tpu/serve/export.py:_write_artifacts``): ``jax_config``
+builds the config from the manifest's fields and the shapes in
+``weights.npz`` (any stack layout: the bridge unrolls it), where together
+they determine it: the width and the layer count pick the preset (and so
+the head count), the patch-embed kernel gives ``patch_size``, the codebook
+``latent_dim``, the position table the classifier's patch grid and
+VideoGPT's ``max_frames``; the dtype is the JAX default, bf16. It refuses,
+naming the field, where they do not: an FSQ tokenizer (``fsq_levels``),
+TATiTok (``use_l2_norm`` shapes nothing) and the enhancing ViT-VQGAN
+(``heads``: its qkv width is heads × dim_head).
 """
 
 from __future__ import annotations
@@ -48,7 +60,9 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.bridge import (flatten, flax_from_state_dict, flax_tree,
-                                  module_state_dict_from_flax, unflatten)
+                                  module_state_dict_from_flax, unflatten,
+                                  unrolled)
+from vit_tpu_torch.core.config import transformer_configs
 from vit_tpu_torch.core.quant import quantize_params
 from vit_tpu_torch.models.enhancing_vqgan import (EnhancingViTVQGAN,
                                                   EnhancingVQGANConfig)
@@ -308,9 +322,93 @@ def export_videogpt(source, out_dir: str, *, cond_frames: int = 8,
     })
 
 
+def _preset(tree: dict, width: int) -> str:
+    """The preset whose width is ``width`` and whose depth is the number of
+    ``layer_{i}`` blocks in the transformer subtree ``tree``."""
+    depth = sum(1 for k in tree if k.startswith("layer_"))
+    found = [name for name, preset in transformer_configs.items()
+             if (preset(block_size=1).n_embd,
+                 preset(block_size=1).n_layers) == (width, depth)]
+    if len(found) != 1:
+        raise ValueError(
+            f"JAX export: 'transformer' is not determined: width {width} and "
+            f"{depth} layers match the presets {found}")
+    return found[0]
+
+
+def _refuse(name: str, field: str, why: str):
+    raise ValueError(f"JAX export of {name!r}: the manifest and weights.npz "
+                     f"do not determine the config field {field!r} ({why}); "
+                     "export it with the port to record its config")
+
+
+def jax_config(manifest: dict, params: dict):
+    """The port's config of a JAX export, from its manifest and its param
+    tree (unrolled), or a ``ValueError`` naming the field they leave open."""
+    name = manifest["model"]
+    p = params
+    common = dict(dtype=torch.bfloat16, quant=manifest.get("quantize"))
+
+    def kernel(site: dict):
+        return site["kernel"] if "kernel" in site else site["kernel_q"]
+
+    def patch(site: dict, channels: int = 3) -> int:
+        return int(round((kernel(site).shape[0] / channels) ** 0.5))
+
+    if name in ("titok", "vit_vqgan"):
+        enc = p["enc" if name == "titok" else "encoder"]
+        if "quant" not in p:
+            _refuse(name, "fsq_levels", "an FSQ tokenizer has no codebook, "
+                    "and the latent width does not give the levels")
+        fields = dict(image_size=manifest["image_size"],
+                      patch_size=patch(enc["vit"]["patch_proj"]["proj"]),
+                      codebook_size=p["quant"]["codebook"].shape[0],
+                      latent_dim=p["quant"]["codebook"].shape[1],
+                      transformer=_preset(enc["vit"]["transformer"],
+                                          enc["vit"]["pos_emb"].shape[1]))
+        if name == "titok":
+            fields["latent_tokens"] = manifest["n_tokens"]
+        return FAMILIES[name][0](**fields, **common)
+    if name == "llamagen_titok":
+        enc = p["enc"]
+        return LlamaGenTiTokConfig(
+            vq_codebook_size=enc["tok_emb"].shape[0],
+            vq_latent_tokens=enc["pos_emb"].shape[0],
+            latent_tokens=manifest["n_tokens"],
+            codebook_size=p["quant"]["codebook"].shape[0],
+            latent_dim=p["quant"]["codebook"].shape[1],
+            transformer=_preset(enc["transformer"], enc["tok_emb"].shape[1]),
+            **common)
+    if name == "vit_classifier":
+        vit = p["vit"]
+        grid = int(round(vit["pos_emb"].shape[0] ** 0.5))
+        size = manifest["image_size"]
+        ps = size // grid
+        return ViTConfig(
+            image_size=size,
+            in_channels=kernel(vit["patch_proj"]["proj"]).shape[0] // ps ** 2,
+            patch_size=ps, transformer=_preset(vit["transformer"],
+                                               vit["pos_emb"].shape[1]),
+            extra_tokens=(vit["extra_emb"].shape[0] if "extra_emb" in vit
+                          else 0), dropout=0.0, **common)
+    if name == "videogpt":
+        return VideoGPTConfig(
+            frame_size=manifest["frame_size"],
+            codebook_size=manifest["codebook_size"],
+            transformer=_preset(p["transformer"], p["pos_embed"].shape[1]),
+            max_frames=p["pos_embed"].shape[0] // manifest["frame_size"],
+            **common)
+    if name == "tatitok":
+        _refuse(name, "use_l2_norm", "it changes the codes but no shape")
+    if name == "enhancing":
+        _refuse(name, "heads", "the qkv kernel gives only heads × dim_head")
+    raise ValueError(f"unsupported model in a JAX export: {name!r}")
+
+
 def load_exported(out_dir: str, device: "str | torch.device") -> dict:
     """Load an export dir → its closures, "manifest" and "_in_avals" (the
-    data arguments' shapes and dtypes, None for any batch).
+    data arguments' shapes and dtypes, None for any batch). A JAX export
+    (no ``"config"`` in its manifest) gets its config from ``jax_config``.
 
     Tokenizers: ``encode`` and ``decode`` as ``export_tokenizer`` lists
     them; the classifier: ``predict``; VideoGPT: ``generate`` codes (B,
@@ -319,16 +417,16 @@ def load_exported(out_dir: str, device: "str | torch.device") -> dict:
     device."""
     out = Path(out_dir)
     manifest = json.loads((out / "manifest.json").read_text())
-    if "config" not in manifest:
-        raise ValueError(f"{out / 'manifest.json'} has no 'config': not a "
-                         "vit_tpu_torch export")
     name = manifest["model"]
     if name not in FAMILIES:
         raise ValueError(f"unsupported model in {out}: {name!r}")
-    cfg = dataclass_from_dict(FAMILIES[name][0], manifest["config"])
-    model = _build(name, cfg, device, manifest.get("num_classes"))
     with np.load(out / "weights.npz") as npz:
-        params = unflatten({k: npz[k] for k in npz.files})
+        params = unrolled(unflatten({k: npz[k] for k in npz.files}))
+    if "config" in manifest:
+        cfg = dataclass_from_dict(FAMILIES[name][0], manifest["config"])
+    else:
+        cfg = jax_config(manifest, params)
+    model = _build(name, cfg, device, manifest.get("num_classes"))
     model.load_state_dict(module_state_dict_from_flax(params, model))
     model = model.eval().requires_grad_(False)
     bs = int(manifest["bs"]) or None

@@ -248,7 +248,8 @@ def load_params(directory: str, tag: Optional[str] = None, *,
     ``ema=True`` returns the weight average instead, and raises on a
     checkpoint that holds none."""
     path = _tag_path(directory, tag)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    # mapped, so only the tensors returned are read (not the optimizer's)
+    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     if ema:
         if "ema_params" not in sd:
             raise ValueError(f"checkpoint {path.parent} holds no EMA average "
